@@ -25,3 +25,8 @@ os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
                       os.path.join(os.path.dirname(__file__), "..",
                                    ".jax_cache"))
 os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (tests skip without one)")
