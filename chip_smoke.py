@@ -13,9 +13,28 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    Llama-2-7B geometry (one step at pos 600 over a random-filled cache):
    logits, the appended K/V row, every other row unchanged; times and bound;
 5. end to end: ``Llama.synthetic(llama2_7b)`` streams 64 greedy tokens
-   after a 512-token prompt through ``stream_generate``; prefill ms,
-   decode tokens/s, both kernels' launch counts on that run, and the first
-   8 tokens against the plain path (eager prefill and decode) on the card.
+   after a 512-token prompt through ``stream_generate``; prefill ms (warm,
+   beside the process's first prefill), decode tokens/s, both kernels'
+   launch counts on that run, and the first 8 tokens against the plain
+   path (eager prefill and decode) on the card;
+6. kernel 3, ``paged_attention``, against its plain twin at the 7B serving
+   shape (B 8, 32 kv heads, page 16, lens up to 2047 over shuffled pages)
+   and a GQA shape: output (each head's row within 2e-2 of its own largest
+   value), appended rows, every other pool row unchanged;
+   device time (``torch.profiler``) beside the wall time of a call, the
+   plain twin's time and the bound (an SDPA over the same rows gathered
+   beforehand is printed as context only);
+7. kernel 4, ``llama_decoder_layer_paged``, against its plain twin on one
+   layer of the 7B weights at B 4 (the shape ``Llama.generate`` gives it
+   for one prompt: one live row, three padding rows on the NULL page), B 8
+   and B 1, and its page-1 sglang entry at 7B width;
+8. serving end to end: ``ServingEngine`` (page 16, max_batch 8) serves 8
+   greedy requests of 32..512 prompt tokens, 32 new tokens each, through
+   the batched step (``paged_attention``); then ``Llama.generate`` on one
+   prompt with ``fused=True`` runs the fused step
+   (``llama_decoder_layer_paged``).  Aggregate decode tokens/s, ms per
+   step, warm prefill ms per request, launch counts, and each request's
+   first 8 tokens against the plain path on the card.
 
 Then one JSON line per kernel table, the card line, and last
 ``{"ok": true, "device": {...}}``.  Weights are random, from a seed.
@@ -33,6 +52,9 @@ import time
 import torch
 
 LIMITS_TOL = dict(atol=2e-2, rtol=2e-2)   # bf16 output rounding + sum order
+# paged_attention's twin rounds where the kernel rounds, so each head's
+# output row must agree to about two bf16 ulps of its own largest value
+ROW_REL_TOL = 2e-2
 
 
 def card_rates(name: str):
@@ -60,6 +82,35 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 20, attempts: int = 3) -> float:
+    """Mean device time in ms of all kernels one call of ``fn`` launches,
+    from ``torch.profiler`` (the host's time between launches excluded).
+    A profile now and then comes back without its device events; such a
+    profile is taken again, up to ``attempts`` times in all."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = 0.0
+        for e in prof.key_averages():
+            t = getattr(e, "device_time_total", None)
+            if t is None:
+                t = e.cuda_time_total
+            if t and e.device_type == torch.autograd.DeviceType.CUDA:
+                total += t
+        if total > 0:
+            if attempt > 1:
+                say("profiler", device_events_on_attempt=attempt)
+            return total / 1e3 / reps
+    raise AssertionError(f"the profiler saw no device time in {attempts} "
+                         "profiles")
 
 
 def say(phase: str, **kv) -> None:
@@ -222,6 +273,15 @@ def phase_e2e(eng, dev):
     text = ("The quick brown fox jumps over the lazy dog. " * 20)[:511]
     prompt = eng.tokenizer.encode(text, bos=True, eos=False)
     n_new = 64
+    # the process's first prefill pays cuBLAS's and the allocator's set-up;
+    # the timed run below is warm
+    kc, vc = model.init_cache(cfg, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.prefill(eng.params, kc, vc, prompt, cfg)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    del kc, vc
     fp.launches = 0
     sk.launches = 0
     stamps, toks = [], []
@@ -234,6 +294,7 @@ def phase_e2e(eng, dev):
     tok_s = (len(toks) - 1) / decode_s
     say("e2e", prompt_tokens=len(prompt), new_tokens=len(toks),
         prefill_ms=f"{st.prefill_s * 1e3:.2f}",
+        prefill_first_call_ms=f"{first_ms:.2f}",
         decode_tokens_per_s=f"{tok_s:.2f}",
         decode_ms_per_step=f"{decode_s * 1e3 / (len(toks) - 1):.3f}",
         flash_prefill_launches=flash_launches,
@@ -242,26 +303,384 @@ def phase_e2e(eng, dev):
         raise AssertionError("the main path did not run both kernels")
     if len(toks) != n_new or not all(0 <= t < cfg.vocab_size for t in toks):
         raise AssertionError(f"bad tokens {toks}")
-    # the plain path on the card (eager prefill, eager decode), teacher-forced
-    # on the kernel path's tokens; tokens must agree where the plain path's
-    # top-2 logit gap exceeds 0.1
-    kc, vc = model.init_cache(cfg, device=dev)
-    lg, kc, vc = model.prefill(eng.params, kc, vc, prompt, cfg, flash=False)
-    lg = lg[-1]
-    plain, gaps = [], []
-    for i in range(8):
-        top = torch.topk(lg, 2).values
-        gaps.append((top[0] - top[1]).item())
-        plain.append(int(torch.argmax(lg)))
-        lg, kc, vc = model.decode_step(eng.params, kc, vc, toks[i],
-                                       len(prompt) + i, cfg, fused=False)
+    plain, gaps, bad = check_against_plain(eng, dev, prompt, toks)
     agree = sum(a == b for a, b in zip(plain, toks[:8]))
-    bad = [i for i in range(8) if gaps[i] > 0.1 and plain[i] != toks[i]]
     say("e2e", kernel_tokens=toks[:8], plain_tokens=plain, agree=f"{agree}/8",
         top2_gaps=[round(x, 3) for x in gaps], disagree_where_gap_gt_0_1=bad)
     if bad:
         raise AssertionError(f"kernel and plain paths disagree at steps {bad}")
     return flash_launches, stack_launches
+
+
+SERVE_LENS = [0, 1, 15, 16, 255, 511, 1000, 2047]
+
+
+def paged_pools(dev, L, kv, hd, page, lens, seed):
+    """Random bf16 pools and a block table over pages shuffled by a seeded
+    permutation; request b owns lens[b] // page + 1 pages, page 0 none."""
+    need = [n // page + 1 for n in lens]
+    n_pages = 1 + sum(need)
+    gen = torch.Generator().manual_seed(seed)
+    perm = torch.randperm(n_pages - 1, generator=gen) + 1
+    table = torch.zeros((len(lens), max(need)), dtype=torch.int32)
+    at = 0
+    for b, n in enumerate(need):
+        table[b, :n] = perm[at:at + n]
+        at += n
+    shape = (L, n_pages, kv, page, hd)
+    kp = torch.randn(shape, generator=gen).bfloat16().to(dev)
+    vp = torch.randn(shape, generator=gen).bfloat16().to(dev)
+    return kp, vp, table.to(dev), torch.tensor(lens, dtype=torch.int32,
+                                                device=dev)
+
+
+def row_rel_err(out, ref, hd):
+    """Largest |out - ref| in one head's row of ``hd`` values, over that
+    row's largest |ref|, the worst row."""
+    o, r = out.float().reshape(-1, hd), ref.float().reshape(-1, hd)
+    return ((o - r).abs().amax(-1)
+            / r.abs().amax(-1).clamp_min(1e-6)).max().item()
+
+
+def append_mask(kp, table, lens, layer):
+    """True at every pool element the appends of ``layer`` write."""
+    page = kp.shape[3]
+    mask = torch.zeros(kp.shape[:2] + (page,), dtype=torch.bool,
+                       device=kp.device)
+    for b, n in enumerate(lens.tolist()):
+        mask[layer, int(table[b, n // page]), n % page] = True
+    return mask[:, :, None, :, None].expand(kp.shape)
+
+
+def phase_paged_attention(dev, hbm, peak):
+    from clusterfusion_tpu_torch.ops import paged_decoder_layer as pd
+    F = torch.nn.functional
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows = {}
+    for label, kv, g in (("7b", 32, 1), ("gqa", 8, 4)):
+        hd, page, L, layer, B = 128, 16, 2, 1, len(SERVE_LENS)
+        kp, vp, table, lens = paged_pools(dev, L, kv, hd, page, SERVE_LENS, 4)
+        q = torch.randn((B, kv, g, hd), generator=gen, device=dev).bfloat16()
+        k_new = torch.randn((B, kv, hd), generator=gen, device=dev).bfloat16()
+        v_new = torch.randn((B, kv, hd), generator=gen, device=dev).bfloat16()
+        k0, v0 = kp.clone(), vp.clone()
+        kr, vr = kp.clone(), vp.clone()
+        out, _, _ = pd.paged_attention(q, k_new, v_new, kp, vp, table, lens,
+                                       layer)
+        ref, _, _ = pd.paged_attention_plain(q, k_new, v_new, kr, vr, table,
+                                             lens, layer)
+        torch.cuda.synchronize()
+        max_abs = (out.float() - ref.float()).abs().max().item()
+        torch.testing.assert_close(out.float(), ref.float(), **LIMITS_TOL)
+        row_rel = row_rel_err(out, ref, hd)
+        if not row_rel <= ROW_REL_TOL:
+            raise AssertionError(f"paged_attention: a head's row differs by "
+                                 f"{row_rel:.3g} of its largest value")
+        app = append_mask(kp, table, lens, layer)
+        rows_b = torch.arange(B, device=dev)
+        pg = table[rows_b, lens.long() // page].long()
+        appended_exact = (
+            torch.equal(kp[layer][pg, :, lens.long() % page], k_new)
+            and torch.equal(vp[layer][pg, :, lens.long() % page], v_new))
+        untouched = (torch.equal(kp[~app], k0[~app])
+                     and torch.equal(vp[~app], v0[~app]))
+        if not (appended_exact and untouched and torch.equal(kp, kr)):
+            raise AssertionError("paged_attention: appended or untouched "
+                                 "pool rows differ")
+        call = lambda: pd.paged_attention(  # noqa: E731
+            q, k_new, v_new, kp, vp, table, lens, layer)
+        call_ms = time_ms(call, 20)           # the host's time included
+        ms = device_ms(call)
+        plain_ms = time_ms(lambda: pd.paged_attention_plain(
+            q, k_new, v_new, kr, vr, table, lens, layer), 5)
+        # context only: SDPA over the same rows gathered into contiguous
+        # [B, heads, S, hd] tensors beforehand (no paging, no append)
+        S = max(SERVE_LENS) + 1
+        pos = torch.arange(S, device=dev)
+        pgs = table.long()[:, (pos // page).clamp(max=table.shape[1] - 1)]
+        kg = kp[layer][pgs, :, pos % page].permute(0, 2, 1, 3)
+        vg = vp[layer][pgs, :, pos % page].permute(0, 2, 1, 3)
+        mask = (pos[None] <= lens.long()[:, None])[:, None, None, :]
+        qs = q.reshape(B, kv * g, 1, hd)
+        sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qs, kg, vg, attn_mask=mask, enable_gqa=g > 1), 20)
+        n_rows = sum(SERVE_LENS)
+        nbytes = 2 * (2 * n_rows * kv * hd          # K and V rows read
+                      + 2 * q.numel()                # q in, o out
+                      + 4 * B * kv * hd)             # k/v_new in, appended
+        flops = 4 * kv * g * hd * (n_rows + B)
+        bound = max(nbytes / hbm, flops / peak) * 1e3
+        bound_by = "bytes" if nbytes / hbm >= flops / peak else "operations"
+        say("paged_attention", shape=label, B=B, kv=kv, group=g, page=page,
+            lens=SERVE_LENS, max_abs_err=f"{max_abs:.3g}",
+            tol="atol=2e-2,rtol=2e-2", row_rel_err=f"{row_rel:.3g}",
+            tol_row_rel=ROW_REL_TOL, appended_rows_exact=appended_exact,
+            other_rows_unchanged=untouched, ms=f"{ms:.4f}",
+            call_ms=f"{call_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            bound_ms=f"{bound:.4f}", bound_by=bound_by,
+            kv_bytes_read=2 * 2 * n_rows * kv * hd,
+            sdpa_pregathered_context_ms=f"{sdpa_ms:.4f}")
+        rows[label] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound, bound_by=bound_by,
+                           library_ms=None)
+    return rows["7b"]
+
+
+def phase_paged_layer(eng, dev, hbm, peak):
+    from clusterfusion_tpu_torch.models import llama as model
+    from clusterfusion_tpu_torch.ops import paged_decoder_layer as pd
+    cfg, p = eng.cfg, eng.params
+    lw = p["layers"]
+    g, hd, kv, hidden = (cfg.n_heads // cfg.kv_heads, cfg.head_dim_,
+                         cfg.kv_heads, cfg.hidden_dim)
+    cos_t, sin_t = model.rope_table(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    layer, page = 1, 16
+    rows = {}
+    for B, lens_l in ((4, [128, 0, 0, 0]), (8, SERVE_LENS),
+                      (1, SERVE_LENS[-1:])):
+        kp, vp, table, lens = paged_pools(dev, 2, kv, hd, page, lens_l, 6)
+        x = torch.randn((B, hidden), generator=gen, device=dev).bfloat16()
+        res = torch.randn((B, hidden), generator=gen, device=dev).bfloat16()
+        if B == 4:
+            # padding rows as the engine pads: the same token, the NULL
+            # page, so all three append the same row into page 0
+            table[1:] = 0
+            x[2:], res[2:] = x[1], res[1]
+        k0, v0 = kp.clone(), vp.clone()
+        kr, vr = kp.clone(), vp.clone()
+        args = (lw["wqkv_f"], lw["wo_f"], table, lens, lens)
+        tail = (layer, lw["attn_norm"][layer], cfg.norm_eps, cos_t, sin_t)
+        kw = dict(group=g, rope_style=cfg.rope_style)
+        out = pd.llama_decoder_layer_paged(x, res, *args, kp, vp, *tail, **kw)
+        ref = pd.llama_decoder_layer_paged_plain(x, res, *args, kr, vr, *tail,
+                                                 **kw)
+        torch.cuda.synchronize()
+        max_abs = max((out[i].float() - ref[i].float()).abs().max().item()
+                      for i in (0, 1))
+        for i in (0, 1):
+            torch.testing.assert_close(out[i].float(), ref[i].float(),
+                                       **LIMITS_TOL)
+        app = append_mask(kp, table, lens, layer)
+        # each side rounds its own float32 k/v to bf16: one ulp may differ
+        row_err = max((kp[app].float() - kr[app].float()).abs().max().item(),
+                      (vp[app].float() - vr[app].float()).abs().max().item())
+        untouched = (torch.equal(kp[~app], k0[~app])
+                     and torch.equal(vp[~app], v0[~app]))
+        if not (row_err <= 0.05 and untouched):
+            raise AssertionError("llama_decoder_layer_paged: pool rows differ")
+        call = lambda: pd.llama_decoder_layer_paged(  # noqa: E731
+            x, res, *args, kp, vp, *tail, **kw)
+        call_ms = time_ms(call, 20)           # the host's time included
+        ms = device_ms(call)
+        plain_ms = time_ms(lambda: pd.llama_decoder_layer_paged_plain(
+            x, res, *args, kr, vr, *tail, **kw), 3, warmup=1)
+        w_elems = lw["wqkv_f"][layer].numel() + lw["wo_f"][layer].numel()
+        n_rows = sum(lens_l)
+        nbytes = 2 * (w_elems + 2 * n_rows * kv * hd + 4 * B * hidden
+                      + hidden + 2 * B * kv * hd)
+        flops = 2 * B * w_elems + 4 * kv * g * hd * (n_rows + B)
+        bound = max(nbytes / hbm, flops / peak) * 1e3
+        bound_by = "bytes" if nbytes / hbm >= flops / peak else "operations"
+        say("paged_layer", B=B, lens=lens_l, max_abs_err=f"{max_abs:.3g}",
+            tol="atol=2e-2,rtol=2e-2", appended_row_err=f"{row_err:.3g}",
+            tol_rows=0.05, other_rows_unchanged=untouched, ms=f"{ms:.4f}",
+            call_ms=f"{call_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            bound_ms=f"{bound:.4f}",
+            bound_by=bound_by, weight_bytes=2 * w_elems)
+        rows[B] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound, bound_by=bound_by, library_ms=None)
+    phase_sglang(dev, hbm, peak)
+    return rows[4]
+
+
+def phase_sglang(dev, hbm, peak, heads=32, hd=128):
+    """The page-1 sglang entry at 7B width (B 8, the serving lens), against
+    the plain twin on the arguments the entry passes the kernel, on the
+    card.  The entry re-lays its [out, in] weights into the kernel layout on
+    every call, so both times include that copy."""
+    from clusterfusion_tpu_torch.ops import paged_decoder_layer as pd
+    hidden, L, layer, B = heads * hd, 2, 1, len(SERVE_LENS)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    total = sum(SERVE_LENS) + B
+    num_pages = total + 16
+    perm = torch.randperm(num_pages, generator=torch.Generator().manual_seed(8))
+    indices = perm[:total].to(torch.int32).to(dev)
+    indptr = torch.tensor([0] + [n + 1 for n in SERVE_LENS],
+                          dtype=torch.int32).cumsum(0).to(torch.int32).to(dev)
+
+    def rnd(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).bfloat16()
+
+    x, res = rnd((B, hidden)), rnd((B, hidden))
+    wqkv, wo = rnd((3 * hidden, hidden), hidden ** -0.5), \
+        rnd((hidden, hidden), hidden ** -0.5)
+    kc, vc = rnd((L, num_pages, hidden)), rnd((L, num_pages, hidden))
+    rms = torch.ones(hidden, dtype=torch.bfloat16, device=dev)
+    ang = torch.outer(torch.arange(2048, device=dev).float(),
+                      10000.0 ** (-torch.arange(hd // 2, device=dev) / (hd // 2)))
+    cos_sin = torch.cat([ang.cos(), ang.sin()], dim=-1)
+    pos = torch.tensor(SERVE_LENS, dtype=torch.int32, device=dev)
+    kr, vr = kc.clone(), vc.clone()
+
+    call = (x, res, wqkv, wo, indptr, indices)
+    tail = (layer, rms, 1e-5, pos, cos_sin, heads, hd)
+
+    def entry(k, v):
+        return pd.llama_decoder_layer_batch_decode_sglang(*call, k, v, *tail)
+
+    def plain(k, v):
+        args, kw = pd.sglang_layer_args(*call, k, v, *tail)
+        return pd.llama_decoder_layer_paged_plain(*args, **kw)
+
+    out = entry(kc, vc)
+    ref = plain(kr, vr)
+    plain_ms = time_ms(lambda: plain(kr, vr), 3, warmup=1)
+    torch.cuda.synchronize()
+    max_abs = max((out[i].float() - ref[i].float()).abs().max().item()
+                  for i in (0, 1))
+    for i in (0, 1):
+        torch.testing.assert_close(out[i].float(), ref[i].float(),
+                                   **LIMITS_TOL)
+    new_rows = indices[indptr[1:].long() - 1].long()
+    row_err = (kc[layer, new_rows].float()
+               - kr[layer, new_rows].float()).abs().max().item()
+    if row_err > 0.05:
+        raise AssertionError("sglang entry: appended rows differ")
+    call_ms = time_ms(lambda: entry(kc, vc), 20)
+    ms = device_ms(lambda: entry(kc, vc))
+    n_rows = sum(SERVE_LENS)
+    nbytes = 2 * (4 * hidden * hidden + 2 * n_rows * hidden + 4 * B * hidden
+                  + 2 * B * hidden)
+    flops = 2 * B * 4 * hidden * hidden + 4 * hidden * (n_rows + B)
+    bound = max(nbytes / hbm, flops / peak) * 1e3
+    say("sglang", B=B, page=1, lens=SERVE_LENS, max_abs_err=f"{max_abs:.3g}",
+        tol="atol=2e-2,rtol=2e-2", appended_row_err=f"{row_err:.3g}",
+        ms=f"{ms:.4f}", call_ms=f"{call_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        bound_ms=f"{bound:.4f}",
+        bound_by="bytes" if nbytes / hbm >= flops / peak else "operations")
+
+
+def check_against_plain(eng, dev, prompt, toks, n=8):
+    """Greedy tokens must match the plain path (eager prefill and decode on
+    the card, teacher-forced on ``toks``) wherever its top-2 gap > 0.1.
+    Returns (plain tokens, gaps, steps that disagree)."""
+    from clusterfusion_tpu_torch.models import llama as model
+    cfg = eng.cfg
+    kc, vc = model.init_cache(cfg, device=dev)
+    lg, kc, vc = model.prefill(eng.params, kc, vc, prompt, cfg, flash=False)
+    lg = lg[-1]
+    plain, gaps = [], []
+    for i in range(n):
+        top = torch.topk(lg, 2).values
+        gaps.append((top[0] - top[1]).item())
+        plain.append(int(torch.argmax(lg)))
+        lg, kc, vc = model.decode_step(eng.params, kc, vc, toks[i],
+                                       len(prompt) + i, cfg, fused=False)
+    bad = [i for i in range(n) if gaps[i] > 0.1 and plain[i] != toks[i]]
+    return plain, gaps, bad
+
+
+def phase_serving(eng, dev):
+    from clusterfusion_tpu_torch.ops import flash_prefill as fp
+    from clusterfusion_tpu_torch.ops import paged_decoder_layer as pd
+    from clusterfusion_tpu_torch.runtime import ServingEngine
+    cfg = eng.cfg
+    text = "Serving many users at once on one card, page by page. " * 12
+    prompts = [eng.tokenizer.encode(text[:n - 1], bos=True, eos=False)
+               for n in (32, 64, 128, 200, 256, 300, 400, 512)]
+    n_new = 32
+    # warm-up: one short request through both steps' code paths
+    warm = ServingEngine(eng.params, cfg, page_size=16, num_pages=8,
+                         max_batch=8)
+    warm.submit(0, prompts[0], 2)
+    warm.run()
+    del warm
+    srv = ServingEngine(eng.params, cfg, page_size=16, num_pages=136,
+                        max_batch=8)
+    pre_ms, step_s = [], []
+    real_prefill, real_step = srv._prefill_into_pool, srv._step
+
+    def timed_prefill(req):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_prefill(req)
+        torch.cuda.synchronize()
+        pre_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def timed_step(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_step(*a)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        return out
+
+    srv._prefill_into_pool, srv._step = timed_prefill, timed_step
+    for i, pr in enumerate(prompts):
+        srv.submit(i, pr, n_new, temperature=0.0)
+    fp.launches = 0
+    pd.launches.update(dict.fromkeys(pd.launches, 0))
+    t0 = time.perf_counter()
+    out = srv.run()
+    wall = time.perf_counter() - t0
+    pa_launches, flash_launches = pd.launches["paged_attention"], fp.launches
+    layer_launches_serving = pd.launches["llama_decoder_layer_paged"]
+    steps = len(step_s)
+    decode_tokens = sum(len(t) for t in out.values()) - len(prompts)
+    say("serving", requests=len(prompts), prompt_tokens=[len(p) for p in
+                                                          prompts],
+        new_tokens=n_new, decode_steps=steps,
+        decode_tokens_per_s=f"{decode_tokens / sum(step_s):.2f}",
+        ms_per_step=f"{sum(step_s) * 1e3 / steps:.3f}",
+        prefill_ms_per_request=[round(x, 2) for x in pre_ms],
+        wall_s=f"{wall:.3f}", pool_pages=136,
+        pool_bytes=2 * srv.k_pool.numel() * 2,
+        paged_attention_launches=pa_launches,
+        flash_prefill_launches=flash_launches)
+    if pa_launches != cfg.n_layers * steps or layer_launches_serving:
+        raise AssertionError("the batched serving step did not launch "
+                             "paged_attention once per layer and step")
+    if flash_launches != cfg.n_layers * len(prompts):
+        raise AssertionError("serving prefill did not run flash prefill")
+    if any(len(t) != n_new or not all(0 <= x < cfg.vocab_size for x in t)
+           for t in out.values()):
+        raise AssertionError(f"bad serving output {out}")
+    bad_all = {}
+    for i, pr in enumerate(prompts):
+        plain, gaps, bad = check_against_plain(eng, dev, pr, out[i])
+        say("serving", request=i, kernel_tokens=out[i][:8],
+            plain_tokens=plain, top2_gaps=[round(x, 3) for x in gaps],
+            disagree_where_gap_gt_0_1=bad)
+        if bad:
+            bad_all[i] = bad
+    if bad_all:
+        raise AssertionError(f"serving and plain paths disagree: {bad_all}")
+
+    # the fused step: Llama.generate on one prompt
+    pd.launches.update(dict.fromkeys(pd.launches, 0))
+    t0 = time.perf_counter()
+    (gen_toks,), _ = eng.generate([prompts[2]], 16, temperature=0.0)
+    gen_s = time.perf_counter() - t0
+    layer_launches = pd.launches["llama_decoder_layer_paged"]
+    gen_steps = eng.stats.gen_tokens - 1
+    say("generate", fused=eng.fused, prompt_tokens=len(prompts[2]),
+        tokens=gen_toks, decode_steps=gen_steps, wall_s=f"{gen_s:.3f}",
+        layer_launches=layer_launches,
+        paged_attention_launches=pd.launches["paged_attention"])
+    if gen_steps < 1 or layer_launches != cfg.n_layers * gen_steps or \
+            pd.launches["paged_attention"]:
+        raise AssertionError("generate(B=1, fused) did not launch "
+                             "llama_decoder_layer_paged once per layer and "
+                             "step")
+    plain, gaps, bad = check_against_plain(eng, dev, prompts[2],
+                                           gen_toks, min(8, len(gen_toks)))
+    say("generate", plain_tokens=plain, top2_gaps=[round(x, 3) for x in gaps],
+        disagree_where_gap_gt_0_1=bad)
+    if bad:
+        raise AssertionError(f"fused generate and plain disagree at {bad}")
+    return pa_launches, layer_launches
 
 
 def main() -> int:
@@ -288,6 +707,9 @@ def main() -> int:
                          *eng.params["layers"].values()]))
     stack = phase_stack(eng, dev, hbm, peak)
     flash_launches, stack_launches = phase_e2e(eng, dev)
+    paged = phase_paged_attention(dev, hbm, peak)
+    layer = phase_paged_layer(eng, dev, hbm, peak)
+    pa_launches, layer_launches = phase_serving(eng, dev)
     kernels = [
         dict(name="flash_prefill_attention", route="cuda",
              source="clusterfusion_tpu_torch/csrc/flash_prefill.cu",
@@ -297,6 +719,14 @@ def main() -> int:
              source="clusterfusion_tpu_torch/csrc/stack_kernel.cu",
              replaces="clusterfusion_tpu/ops/stack_kernel.py:524",
              launches=stack_launches, **stack),
+        dict(name="paged_attention", route="cuda",
+             source="clusterfusion_tpu_torch/csrc/paged_attention.cu",
+             replaces="clusterfusion_tpu/ops/paged_decoder_layer.py:932",
+             launches=pa_launches, **paged),
+        dict(name="llama_decoder_layer_paged", route="cuda",
+             source="clusterfusion_tpu_torch/csrc/paged_decoder_layer.cu",
+             replaces="clusterfusion_tpu/ops/paged_decoder_layer.py:399",
+             launches=layer_launches, **layer),
     ]
     for k in kernels:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms"):

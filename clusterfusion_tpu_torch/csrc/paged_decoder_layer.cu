@@ -1,0 +1,119 @@
+// Paged batch-decode attention half of a Llama layer for Hopper (sm_90a):
+// residual add + RMSNorm, the M=B QKV product, RoPE, the paged walk with
+// the in-place append, and the M=B O-projection.
+//
+// Replaces the TPU kernel `llama_decoder_layer_paged`
+// (clusterfusion_tpu/ops/paged_decoder_layer.py, `_paged_kernel`), which
+// the fused serving step runs once per layer, for bf16 weights and pool, no
+// bias, window or softcap.  Layouts as there:
+//   wqkv_f [L, G, hidden, hg*(g+2)*hd]  columns per kv head [q_0..q_{g-1}|k|v]
+//   wo_f   [L, G, hg*g*hd, hidden]      pools [L, n_pages, kv, page, hd]
+// The layer of the weight stacks is picked by offset (`w_layer`); no
+// layer's slice is copied.
+//
+// What bounds it: at 7B the layer reads 134 MB of weights once for all B
+// rows (2*B operations per weight byte, B <= 8 in serving) plus the KV rows
+// of the walk, so it is bound by bytes.  The TPU kernel walks a sequential
+// (group, request, page) grid with the batch's projections resident in
+// VMEM; Hopper blocks run in no order, so here the layer is a fixed
+// sequence of five kernels on one stream, each reading the last one's
+// output from a scratch buffer the caller allocates:
+//   resnorm    r = x + res (f32); res_out = bf16(r);
+//              xn = bf16(rmsnorm(r) * w); zero the two f32 accumulators
+//              (common.cuh, one block per row)
+//   rows_gemv  qkv[b] += xn[b] @ wqkv_f[l]     (f32, every weight row read
+//              once for up to 8 batch rows, K split over blocks, atomicAdd;
+//              common.cuh, shared with the bs=1 stack)
+//   paged walk ropes q/k from qkv, walks each request's pages, folds the
+//              current token, appends bf16 k/v (paged_attention.cuh)
+//   rows_gemv  acc[b] += o[b] @ wo_f[l]        (f32, summed over groups)
+//   to_bf16    out = bf16(acc)
+
+#include "paged_attention.cuh"
+
+namespace {
+
+constexpr int GEMV_THREADS = 256;
+
+__global__ void to_bf16_kernel(const float* a, __nv_bfloat16* out, int n) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x)
+    out[i] = __float2bfloat16(a[i]);
+}
+
+}  // namespace
+
+// One paged decode layer for B requests on `stream` (five launches).
+// Scratch, allocated by the caller: xn bf16 [B, hidden], qkv f32
+// [B, kv*(g+2)*hd], o bf16 [B, kv*g*hd], acc f32 [B, hidden].  Writes out and
+// res_out (bf16 [B, hidden]) and appends each request's K/V row into the
+// pools.  *n_launches receives the number of kernels launched.  Returns a
+// cudaError_t (0 on success).
+extern "C" int cf_paged_decoder_layer(
+    const void* x, const void* res, const void* wqkv, const void* wo,
+    const void* rms_w, const void* cos, const void* sin, const void* positions,
+    const void* table, const void* lens, void* k_pool, void* v_pool, void* out,
+    void* res_out, void* xn, void* qkv, void* o, void* acc, int B, int hidden,
+    int kv, int hg, int group, int hd, int page, int n_pages, int max_pages,
+    int max_pos, int layer, int w_layer, int neox, float eps, int* n_launches,
+    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  *n_launches = 0;
+  if (B < 1 || hg < 1 || kv % hg != 0 || hidden % 8 != 0 || w_layer < 0)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, num_sms = 0;
+  CF_CHECK((int)cudaGetDevice(&dev));
+  CF_CHECK((int)cudaDeviceGetAttribute(&num_sms, cudaDevAttrMultiProcessorCount, dev));
+  const int G = kv / hg;
+  const long long C = (long long)hg * (group + 2) * hd;   // qkv columns per group
+  const long long Ko = (long long)kv * group * hd;        // wo rows in all
+  const int qkv_n = (int)(G * C);
+  const __nv_bfloat16* wq = static_cast<const __nv_bfloat16*>(wqkv) + (size_t)w_layer * G * hidden * C;
+  const __nv_bfloat16* wol = static_cast<const __nv_bfloat16*>(wo) + (size_t)w_layer * Ko * hidden;
+  __nv_bfloat16* xnb = static_cast<__nv_bfloat16*>(xn);
+  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(o);
+  float* qkvf = static_cast<float*>(qkv);
+  float* accf = static_cast<float*>(acc);
+  if (C % 8 != 0) return (int)cudaErrorInvalidValue;
+
+  resnorm_kernel<<<B, NORM_THREADS, 0, st>>>(
+      nullptr, static_cast<const __nv_bfloat16*>(x), nullptr,
+      static_cast<const __nv_bfloat16*>(res), static_cast<const __nv_bfloat16*>(rms_w),
+      nullptr, static_cast<__nv_bfloat16*>(res_out), xnb, nullptr, nullptr, hidden, eps,
+      qkvf, qkv_n, accf, hidden);
+  CF_CHECK((int)cudaGetLastError());
+  ++*n_launches;
+  CF_CHECK(launch_rows_gemv<false>(xnb, hidden, 0, wq, qkvf, B, hidden, (int)C, G,
+                                   (long long)hidden * C, qkv_n, C, GEMV_THREADS,
+                                   num_sms, st));
+  ++*n_launches;
+
+  PagedArgs a{};
+  a.qkv = qkvf;
+  a.cos = static_cast<const float*>(cos);
+  a.sin = static_cast<const float*>(sin);
+  a.positions = static_cast<const int*>(positions);
+  a.k_pool = static_cast<__nv_bfloat16*>(k_pool);
+  a.v_pool = static_cast<__nv_bfloat16*>(v_pool);
+  a.table = static_cast<const int*>(table);
+  a.lens = static_cast<const int*>(lens);
+  a.o = ob;
+  a.kv = kv;
+  a.group = group;
+  a.page = page;
+  a.n_pages = n_pages;
+  a.max_pages = max_pages;
+  a.layer = layer;
+  a.max_pos = max_pos;
+  a.neox = neox;
+  CF_CHECK(launch_paged_attn<true>(a, B, hd, st));
+  ++*n_launches;
+
+  CF_CHECK(launch_rows_gemv<false>(ob, Ko, 0, wol, accf, B, (int)Ko, hidden, 1, 0,
+                                   hidden, 0, GEMV_THREADS, num_sms, st));
+  ++*n_launches;
+  const int n = B * hidden;
+  to_bf16_kernel<<<(n + 255) / 256, 256, 0, st>>>(accf, static_cast<__nv_bfloat16*>(out), n);
+  CF_CHECK((int)cudaGetLastError());
+  ++*n_launches;
+  return 0;
+}

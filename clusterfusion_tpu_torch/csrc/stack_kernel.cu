@@ -37,176 +37,18 @@
 // bf16 outputs without an LM head), then gemv logits += xn @ lm_head.
 // The hidden pair stays float32 across layers, as in the TPU kernel.
 //
-// The GEMV: each warp covers 256 adjacent columns (8 per lane, one 16-byte
-// load per weight row), the warps of a block split its K range, and blocks
-// split K further until the grid holds about two blocks per SM; partial
-// sums meet by atomicAdd in an output the preceding kernel zeroed.
+// The GEMVs are common.cuh's rows_gemv_kernel at one row: each warp covers
+// 256 adjacent columns (8 per lane, one 16-byte load per weight row), the
+// warps of a block split its K range, and blocks split K further until the
+// grid holds about two blocks per SM; partial sums meet by atomicAdd in an
+// output the preceding kernel zeroed.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float NEG_INF = -1e30f;
-constexpr int COLS = 256;       // GEMV columns per block (8 per lane)
 constexpr int ATT_THREADS = 128;
-constexpr int NORM_THREADS = 1024;
 constexpr int MAX_GROUP = 8;
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-__device__ __forceinline__ void unpack8(const uint4& u, float* f) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-// Sum over the block; every thread gets the result.  `red` holds 32 floats.
-__device__ float block_sum(float x, float* red) {
-  const int lane = threadIdx.x % 32, wid = threadIdx.x / 32;
-  const int nw = (blockDim.x + 31) / 32;
-  x = warp_sum(x);
-  __syncthreads();
-  if (lane == 0) red[wid] = x;
-  __syncthreads();
-  float t = lane < nw ? red[lane] : 0.f;
-  return warp_sum(t);
-}
-
-// Rope of element d of a head row held in shared memory.
-__device__ __forceinline__ float rope_at(const float* x, int d, int hd,
-                                         const float* cos, const float* sin,
-                                         int neox) {
-  int p;
-  float sgn;
-  if (neox) {
-    p = (d + hd / 2) % hd;
-    sgn = d < hd / 2 ? -1.f : 1.f;
-  } else {
-    p = d ^ 1;
-    sgn = (d & 1) ? 1.f : -1.f;
-  }
-  return x[d] * cos[d] + sgn * x[p] * sin[d];
-}
-
-// r = a + b (a from a_bf16 when given, b optional); r_out = r;
-// xn = bf16(r * rsqrt(mean(r^2) + eps) * w) when w is given;
-// x_out = bf16(a), res_out = bf16(b) when given; zero z1[n1] and z2[n2].
-__global__ void __launch_bounds__(NORM_THREADS)
-resnorm_kernel(const float* a, const __nv_bfloat16* a_bf16, const float* b,
-               const __nv_bfloat16* w, float* r_out, __nv_bfloat16* xn,
-               __nv_bfloat16* x_out, __nv_bfloat16* res_out, int hidden,
-               float eps, float* z1, int n1, float* z2, int n2) {
-  __shared__ float red[32];
-  float ss = 0.f;
-  for (int i = threadIdx.x; i < hidden; i += blockDim.x) {
-    const float av = a_bf16 ? __bfloat162float(a_bf16[i]) : a[i];
-    const float r = av + (b ? b[i] : 0.f);
-    ss += r * r;
-    if (r_out) r_out[i] = r;
-    if (x_out) x_out[i] = __float2bfloat16(av);
-    if (res_out) res_out[i] = __float2bfloat16(b ? b[i] : 0.f);
-  }
-  const float inv = rsqrtf(block_sum(ss, red) / hidden + eps);
-  if (w) {
-    for (int i = threadIdx.x; i < hidden; i += blockDim.x) {
-      const float av = a_bf16 ? __bfloat162float(a_bf16[i]) : a[i];
-      const float r = av + (b ? b[i] : 0.f);
-      xn[i] = __float2bfloat16(r * inv * __bfloat162float(w[i]));
-    }
-  }
-  for (int i = threadIdx.x; i < n1; i += blockDim.x) z1[i] = 0.f;
-  for (int i = threadIdx.x; i < n2; i += blockDim.x) z2[i] = 0.f;
-}
-
-// y[b*ys + n] += sum_{k in this block's chunk} x_b[k] * W[b*ws + k*N + n].
-// SWIGLU: x_b[k] = bf16(silu(gu[k]) * gu[f_off + k]) from f32 gate/up.
-template <bool SWIGLU>
-__global__ void gemv_kernel(const void* __restrict__ xv,
-                            const __nv_bfloat16* __restrict__ w,
-                            float* __restrict__ y, int K, int N, int k_chunk,
-                            long long xs, long long ws, long long ys, int f_off) {
-  extern __shared__ float sm[];
-  const int nw = blockDim.x / 32;
-  float* xsm = sm;               // [k_chunk]
-  float* red = sm + k_chunk;     // [nw][COLS]
-  const int lane = threadIdx.x % 32, wid = threadIdx.x / 32;
-  const int bz = blockIdx.z;
-  const int k0 = blockIdx.y * k_chunk;
-  const int k1 = min(K, k0 + k_chunk);
-  for (int i = threadIdx.x; i < k1 - k0; i += blockDim.x) {
-    const int kk = k0 + i;
-    float x;
-    if (SWIGLU) {
-      const float* gu = static_cast<const float*>(xv) + bz * xs;
-      const float g = gu[kk], u = gu[f_off + kk];
-      x = bf16_round(g / (1.f + expf(-g)) * u);
-    } else {
-      x = __bfloat162float(static_cast<const __nv_bfloat16*>(xv)[bz * xs + kk]);
-    }
-    xsm[i] = x;
-  }
-  __syncthreads();
-
-  const int n0 = blockIdx.x * COLS + lane * 8;
-  float acc[8];
-#pragma unroll
-  for (int c = 0; c < 8; ++c) acc[c] = 0.f;
-  if (n0 < N) {
-    const __nv_bfloat16* wp = w + bz * ws + n0;
-    int k = k0 + wid;
-    for (; k + 3 * nw < k1; k += 4 * nw) {
-      uint4 u[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        u[r] = __ldg(reinterpret_cast<const uint4*>(wp + (size_t)(k + r * nw) * N));
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        float f[8];
-        unpack8(u[r], f);
-        const float xk = xsm[k + r * nw - k0];
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[c] = fmaf(xk, f[c], acc[c]);
-      }
-    }
-    for (; k < k1; k += nw) {
-      float f[8];
-      unpack8(__ldg(reinterpret_cast<const uint4*>(wp + (size_t)k * N)), f);
-      const float xk = xsm[k - k0];
-#pragma unroll
-      for (int c = 0; c < 8; ++c) acc[c] = fmaf(xk, f[c], acc[c]);
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < 8; ++c) red[wid * COLS + lane * 8 + c] = acc[c];
-  __syncthreads();
-  for (int t = threadIdx.x; t < COLS; t += blockDim.x) {
-    const int n = blockIdx.x * COLS + t;
-    if (n >= N) continue;
-    float s = 0.f;
-    for (int r = 0; r < nw; ++r) s += red[r * COLS + t];
-    atomicAdd(&y[bz * ys + n], s);
-  }
-}
 
 // Split-KV flash-decode over cache rows [s*split, min((s+1)*split, pos)) of
 // kv head h = blockIdx.x, s = blockIdx.y.  Writes part_ml [kv, ns, g, 2]
@@ -344,32 +186,6 @@ attn_merge_kernel(const float* __restrict__ qkv,
   }
 }
 
-struct Gemv {
-  int threads;
-  int num_sms;
-};
-
-template <bool SWIGLU>
-int launch_gemv(const Gemv& g, const void* x, const __nv_bfloat16* w, float* y,
-                int K, int N, int batch, long long xs, long long ws,
-                long long ys, int f_off, cudaStream_t st) {
-  const int nw = g.threads / 32;
-  const int tiles = (N + COLS - 1) / COLS;
-  int ks = (2 * g.num_sms + tiles * batch - 1) / (tiles * batch);
-  const int max_ks = K / (4 * nw) > 0 ? K / (4 * nw) : 1;  // >= 4 rows per warp
-  if (ks > max_ks) ks = max_ks;
-  const int min_ks = (K + 8191) / 8192;                    // x chunk <= 32 KB
-  if (ks < min_ks) ks = min_ks;
-  if (ks < 1) ks = 1;
-  const int k_chunk = (K + ks - 1) / ks;
-  ks = (K + k_chunk - 1) / k_chunk;
-  const size_t smem = sizeof(float) * ((size_t)k_chunk + (size_t)nw * COLS);
-  dim3 grid(tiles, ks, batch);
-  gemv_kernel<SWIGLU><<<grid, g.threads, smem, st>>>(x, w, y, K, N, k_chunk,
-                                                     xs, ws, ys, f_off);
-  return (int)cudaGetLastError();
-}
-
 size_t align16(size_t n) { return (n + 15) / 16 * 16; }
 
 struct Scratch {
@@ -401,12 +217,6 @@ Scratch layout(float* base, int hidden, int kv_heads, int group, int hd,
   s.floats = off;
   return s;
 }
-
-#define CF_CHECK(expr)             \
-  do {                             \
-    int _e = (expr);               \
-    if (_e != 0) return _e;        \
-  } while (0)
 
 }  // namespace
 
@@ -441,16 +251,11 @@ extern "C" int cf_decoder_stack(
   CF_CHECK((int)cudaDeviceGetAttribute(&num_sms, cudaDevAttrMultiProcessorCount, dev));
   static bool attrs_set = false;
   if (!attrs_set) {
-    const int big = 96 * 1024;
-    CF_CHECK((int)cudaFuncSetAttribute(gemv_kernel<false>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, big));
-    CF_CHECK((int)cudaFuncSetAttribute(gemv_kernel<true>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, big));
     CF_CHECK((int)cudaFuncSetAttribute(attn_split_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, big));
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       96 * 1024));
     attrs_set = true;
   }
-  const Gemv gv{threads, num_sms};
   Scratch s = layout(static_cast<float*>(scratch), hidden, kv_heads, group, hd,
                      cap, f_pad, kv_split);
   const int G = kv_heads / hg;
@@ -478,12 +283,13 @@ extern "C" int cf_decoder_stack(
     resnorm_kernel<<<1, NORM_THREADS, 0, st>>>(
         l == 0 ? nullptr : s.hx,
         l == 0 ? static_cast<const __nv_bfloat16*>(x) : nullptr,
-        l == 0 ? nullptr : s.res_a, an, s.res_b, s.xn, nullptr, nullptr, hidden,
-        eps, s.qkv, qkv_n, s.aout, hidden);
+        l == 0 ? nullptr : s.res_a, nullptr, an, s.res_b, nullptr, s.xn, nullptr,
+        nullptr, hidden, eps, s.qkv, qkv_n, s.aout, hidden);
     CF_CHECK((int)cudaGetLastError());
     ++n;
-    CF_CHECK(launch_gemv<false>(gv, s.xn, wq, s.qkv, hidden, (int)C, G, 0,
-                                (long long)hidden * C, C, 0, st));
+    CF_CHECK((launch_rows_gemv_nb<1, false>(s.xn, 0, 0, wq, s.qkv, 1, hidden, (int)C, G,
+                                            (long long)hidden * C, 0, C, threads,
+                                            num_sms, st)));
     ++n;
     if (ns > 0) {
       attn_split_kernel<<<dim3(kv_heads, ns), ATT_THREADS, split_smem, st>>>(
@@ -497,37 +303,41 @@ extern "C" int cf_decoder_stack(
         pos, ns, neox);
     CF_CHECK((int)cudaGetLastError());
     ++n;
-    CF_CHECK(launch_gemv<false>(gv, s.o, wol, s.aout, (int)Ko, hidden, G, Ko,
-                                Ko * hidden, 0, 0, st));
+    // wo_f[l] is [G * Ko, hidden] row-major: one product sums the groups
+    CF_CHECK((launch_rows_gemv_nb<1, false>(s.o, 0, 0, wol, s.aout, 1, (int)(G * Ko),
+                                            hidden, 1, 0, 0, 0, threads, num_sms,
+                                            st)));
     ++n;
     // attention-out residual add + FFN RMSNorm; zero the gate/up and down sums
     resnorm_kernel<<<1, NORM_THREADS, 0, st>>>(
-        s.aout, nullptr, s.res_b, fn, s.res_a, s.xn, nullptr, nullptr, hidden,
-        eps, s.gu, 2 * f_pad, s.hx, hidden);
+        s.aout, nullptr, s.res_b, nullptr, fn, s.res_a, nullptr, s.xn, nullptr,
+        nullptr, hidden, eps, s.gu, 2 * f_pad, s.hx, hidden);
     CF_CHECK((int)cudaGetLastError());
     ++n;
-    CF_CHECK(launch_gemv<false>(gv, s.xn, w13l, s.gu, hidden, f_pad, 2, 0,
-                                (long long)hidden * f_pad, f_pad, 0, st));
+    CF_CHECK((launch_rows_gemv_nb<1, false>(s.xn, 0, 0, w13l, s.gu, 1, hidden, f_pad, 2,
+                                            (long long)hidden * f_pad, 0, f_pad,
+                                            threads, num_sms, st)));
     ++n;
-    CF_CHECK(launch_gemv<true>(gv, s.gu, w2l, s.hx, f_pad, hidden, 1, 0, 0, 0,
-                               f_pad, st));
+    CF_CHECK((launch_rows_gemv_nb<1, true>(s.gu, 0, f_pad, w2l, s.hx, 1, f_pad, hidden,
+                                           1, 0, 0, 0, threads, num_sms, st)));
     ++n;
   }
 
   if (lm_head) {
     resnorm_kernel<<<1, NORM_THREADS, 0, st>>>(
-        s.hx, nullptr, s.res_a, static_cast<const __nv_bfloat16*>(final_norm),
-        nullptr, s.xn, nullptr, static_cast<__nv_bfloat16*>(out_res), hidden,
+        s.hx, nullptr, s.res_a, nullptr, static_cast<const __nv_bfloat16*>(final_norm),
+        nullptr, nullptr, s.xn, nullptr, static_cast<__nv_bfloat16*>(out_res), hidden,
         eps, static_cast<float*>(logits), vocab, nullptr, 0);
     CF_CHECK((int)cudaGetLastError());
     ++n;
-    CF_CHECK(launch_gemv<false>(gv, s.xn, static_cast<const __nv_bfloat16*>(lm_head),
-                                static_cast<float*>(logits), hidden, vocab, 1, 0,
-                                0, 0, 0, st));
+    CF_CHECK((launch_rows_gemv_nb<1, false>(s.xn, 0, 0,
+                                            static_cast<const __nv_bfloat16*>(lm_head),
+                                            static_cast<float*>(logits), 1, hidden,
+                                            vocab, 1, 0, 0, 0, threads, num_sms, st)));
     ++n;
   } else {
     resnorm_kernel<<<1, NORM_THREADS, 0, st>>>(
-        s.hx, nullptr, s.res_a, nullptr, nullptr, nullptr,
+        s.hx, nullptr, s.res_a, nullptr, nullptr, nullptr, nullptr, nullptr,
         static_cast<__nv_bfloat16*>(out_x), static_cast<__nv_bfloat16*>(out_res),
         hidden, eps, nullptr, 0, nullptr, 0);
     CF_CHECK((int)cudaGetLastError());

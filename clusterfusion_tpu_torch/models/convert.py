@@ -14,19 +14,23 @@ from typing import Any
 import numpy as np
 import torch
 
+from clusterfusion_tpu_torch.ops._support import resolve_device
 
-def tensor_from_numpy(a: np.ndarray, device="cpu") -> torch.Tensor:
-    """One numpy array (bf16 from ml_dtypes included) -> torch tensor."""
+
+def tensor_from_numpy(a: np.ndarray, device=None) -> torch.Tensor:
+    """One numpy array (bf16 from ml_dtypes included) -> torch tensor on
+    ``device`` (CUDA by default; raises when there is none)."""
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a.copy())
-    return t.to(device)
+    return t.to(resolve_device(device))
 
 
-def params_from_numpy(tree: Any, device="cpu") -> Any:
-    """Nested dict of numpy arrays -> the same dict of torch tensors."""
+def params_from_numpy(tree: Any, device=None) -> Any:
+    """Nested dict of numpy arrays -> the same dict of torch tensors on
+    ``device`` (CUDA by default; raises when there is none)."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return tensor_from_numpy(tree, device)

@@ -1,11 +1,14 @@
-"""Generation engine (twin of ``clusterfusion_tpu/models/generation.py:34-158``).
+"""Generation engine (twin of ``clusterfusion_tpu/models/generation.py``).
 
 ``Llama`` wraps the functional model: ``synthetic`` builds a random-weight
-engine with the byte tokenizer, and ``stream_generate`` yields tokens one
-at a time, prefilling the prompt and then running one decode step per
-token.  The fused-vs-eager switch is an argument, and the
-``USE_CLUSTER_FUSION`` environment variable is honoured when it is not
-given, as in the JAX package.
+engine with the byte tokenizer; ``stream_generate`` yields tokens one at a
+time, prefilling the prompt and then running one decode step per token;
+``generate`` decodes a batch of prompts together through the
+continuous-batching ``ServingEngine``, and ``text_completion`` /
+``chat_completion`` (llama-2 ``[INST]`` templating) sit on it.  The
+fused-vs-eager switch is an argument, and the ``USE_CLUSTER_FUSION``
+environment variable is honoured when it is not given, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Generator, Optional, Sequence
+from typing import Generator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -22,6 +25,11 @@ from clusterfusion_tpu_torch.models import llama as model
 from clusterfusion_tpu_torch.models.sampling import sample
 from clusterfusion_tpu_torch.models.tokenizer import load_tokenizer
 from clusterfusion_tpu_torch.ops._support import resolve_device
+from clusterfusion_tpu_torch.runtime.serving import ServingEngine
+
+# llama-2 chat templating tokens
+B_INST, E_INST = "[INST]", "[/INST]"
+B_SYS, E_SYS = "<<SYS>>\n", "\n<</SYS>>\n\n"
 
 
 @dataclasses.dataclass
@@ -100,3 +108,124 @@ class Llama:
             pos += 1
         self.stats = GenStats(len(toks), n_gen, time.perf_counter() - t0,
                               prefill_s)
+
+    def generate(self, prompt_tokens: Sequence[Sequence[int]],
+                 max_gen_len: int, temperature: float = 0.6,
+                 top_p: float = 0.9, seed: int = 0,
+                 logprobs: bool = False, echo: bool = False,
+                 ) -> Tuple[List[List[int]], Optional[List[List[float]]]]:
+        """Batched generation: all rows decode together through the
+        continuous-batching engine, one step for the whole batch, with
+        per-row eos stopping and, with ``logprobs=True``, the natural-log
+        probability of every kept token (the prompt's too under ``echo``).
+
+        Each request owns its pages, so rows with shorter prompts never see
+        other rows' padding, and sampling draws from the engine's generator
+        seeded by ``seed``."""
+        cfg = self.cfg
+        prompts = [list(t) for t in prompt_tokens]
+        if not prompts or not all(prompts):
+            raise ValueError("empty prompt")
+        if max(len(t) for t in prompts) > cfg.max_seq_len:
+            raise ValueError(f"a prompt exceeds max_seq_len {cfg.max_seq_len}")
+        B = len(prompts)
+        page = 16
+        mb = 4
+        while mb < B:
+            mb *= 2
+        need = sum(-(-min(len(t) + max_gen_len, cfg.max_seq_len) // page)
+                   for t in prompts)
+        eng = ServingEngine(
+            self.params, cfg, page_size=page, num_pages=need + 1,
+            max_batch=mb, kcfg=self.kcfg, eos_id=self.tokenizer.eos_id,
+            seed=seed, step_impl="fused" if (self.fused and B == 1) else None)
+        t0 = time.perf_counter()
+        for i, toks in enumerate(prompts):
+            eng.submit(i, toks, min(max_gen_len, cfg.max_seq_len - len(toks)),
+                       temperature, top_p, logprobs=logprobs)
+        eng.run()
+        out_tokens, out_logprobs = [], []
+        for i, prompt in enumerate(prompts):
+            req = eng.last_results[i]
+            toks = list(req.generated[:max_gen_len])
+            probs = list(req.logprobs[:max_gen_len]) if logprobs else None
+            if echo:
+                toks = prompt + toks
+                if logprobs:
+                    probs = list(req.prompt_logprobs) + probs
+            if self.tokenizer.eos_id in toks:
+                eos_idx = toks.index(self.tokenizer.eos_id)
+                toks = toks[:eos_idx]
+                probs = probs[:eos_idx] if logprobs else None
+            out_tokens.append(toks)
+            out_logprobs.append(probs)
+        self.stats = GenStats(sum(len(p) for p in prompts),
+                              sum(len(r.generated)
+                                  for r in eng.last_results.values()),
+                              time.perf_counter() - t0)
+        return out_tokens, out_logprobs if logprobs else None
+
+    def text_completion(self, prompts: List[str], temperature: float = 0.6,
+                        top_p: float = 0.9, max_gen_len: Optional[int] = None,
+                        logprobs: bool = False,
+                        echo: bool = False) -> List[dict]:
+        """Batched completion of strings; with ``logprobs=True`` each
+        prediction carries its tokens' strings and logprobs."""
+        if max_gen_len is None:
+            max_gen_len = self.cfg.max_seq_len - 1
+        prompt_tokens = [self.tokenizer.encode(p, bos=True, eos=False)
+                         for p in prompts]
+        toks, lps = self.generate(prompt_tokens, max_gen_len, temperature,
+                                  top_p, logprobs=logprobs, echo=echo)
+        if logprobs:
+            return [{"generation": self.tokenizer.decode(t),
+                     "tokens": [self.tokenizer.decode([x]) for x in t],
+                     "logprobs": lp}
+                    for t, lp in zip(toks, lps)]
+        return [{"generation": self.tokenizer.decode(t)} for t in toks]
+
+    def chat_completion(self, dialogs: List[List[dict]],
+                        temperature: float = 0.6, top_p: float = 0.9,
+                        max_gen_len: Optional[int] = None,
+                        logprobs: bool = False) -> List[dict]:
+        """Completion of llama-2 chat dialogs (``[INST]`` templating)."""
+        if max_gen_len is None:
+            max_gen_len = self.cfg.max_seq_len - 1
+        prompt_tokens = [self._encode_dialog(d) for d in dialogs]
+        toks, lps = self.generate(prompt_tokens, max_gen_len, temperature,
+                                  top_p, logprobs=logprobs)
+        results = []
+        for i, t in enumerate(toks):
+            r = {"generation": {"role": "assistant",
+                                "content": self.tokenizer.decode(t)}}
+            if logprobs:
+                r["tokens"] = [self.tokenizer.decode([x]) for x in t]
+                r["logprobs"] = lps[i]
+            results.append(r)
+        return results
+
+    def _encode_dialog(self, dialog: List[dict]) -> List[int]:
+        """Fold an optional system prompt into the first user turn, then
+        alternate ``[INST] user [/INST] assistant`` turns, each closed by
+        eos, and end with the last user turn."""
+        if dialog and dialog[0]["role"] == "system":
+            rest = list(dialog[1:])
+            rest[0] = {"role": rest[0]["role"],
+                       "content": B_SYS + dialog[0]["content"] + E_SYS
+                       + rest[0]["content"]}
+            dialog = rest
+        if not dialog or dialog[-1]["role"] != "user" or not all(
+                m["role"] == ("user" if i % 2 == 0 else "assistant")
+                for i, m in enumerate(dialog)):
+            raise ValueError("dialog must alternate user/assistant and end "
+                             "with user")
+        toks: List[int] = []
+        for i in range(0, len(dialog) - 1, 2):
+            user, ans = dialog[i], dialog[i + 1]
+            toks += self.tokenizer.encode(
+                f"{B_INST} {user['content'].strip()} {E_INST} "
+                f"{ans['content'].strip()} ", bos=True, eos=True)
+        toks += self.tokenizer.encode(
+            f"{B_INST} {dialog[-1]['content'].strip()} {E_INST}",
+            bos=True, eos=False)
+        return toks

@@ -1,0 +1,390 @@
+"""Batched decode over a paged KV cache (twin of
+``clusterfusion_tpu/ops/paged_decoder_layer.py``).
+
+The pools are ``[L, n_pages, kv_heads, page, hd]`` bf16; request ``b``
+owns the pages ``block_table[b]`` and has ``seq_lens[b]`` cached rows (the
+current token excluded).  Two kernels:
+
+- ``paged_attention`` (``csrc/paged_attention.cu``): each request's
+  flash-decode over its pages plus the current token, and the append of
+  that token's K/V row; the batched serving step runs it between its M=B
+  projections.
+- ``llama_decoder_layer_paged`` (``csrc/paged_decoder_layer.cu``): the
+  attention half of a layer around the same walk (residual add + RMSNorm,
+  the M=B QKV product, RoPE, the walk and append, the M=B O-projection);
+  the fused serving step runs it.
+- ``llama_decoder_layer_batch_decode_sglang`` is the reference-parity
+  entry over it (sglang indptr/indices, page size 1); ``sglang_layer_args``
+  gives the layer's arguments for one of its calls.
+
+CUDA tensors launch the kernels; CPU tensors run the ``*_plain`` twins,
+which repeat the kernels' arithmetic in PyTorch and round where they round:
+
+- the walk takes the cached rows in tiles of ``TILE`` rows with an online
+  exp2 softmax; p is rounded to bf16 against the running max for the p.V
+  product and summed unrounded;
+- ``paged_attention``: q is scaled by log2(e)/sqrt(hd) and rounded to bf16
+  before the kernel (as the TPU wrapper does); the current token's K/V are
+  cast to bf16 and folded in last, in float32;
+- ``llama_decoder_layer_paged``: x + residual is summed in float32
+  (``res_out`` is its bf16), the QKV product stays float32, q and k are
+  roped in float32; q is rounded to bf16 for the walk's dots only, and the
+  current q, k and v join the fold unrounded; the appended rows are bf16;
+  o is rounded to bf16 before the O-projection, whose sum over head groups
+  is float32.
+
+The pools are updated in place: the returned pools are the tensors that
+were passed in.  Padding rows (``seq_lens`` 0 over a table row of page 0)
+append into the NULL page 0, which no request owns.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from clusterfusion_tpu_torch.models.llama import fuse_qkv_o_for_kernel
+from clusterfusion_tpu_torch.ops import _build
+from clusterfusion_tpu_torch.ops._support import round_up
+from clusterfusion_tpu_torch.ops.stack_kernel import _norm, _rope
+
+_LOG2E = 1.4426950408889634
+_NEG_INF = -1e30
+#: Cached rows per step of the kernels' walk (``PA_TILE`` in
+#: ``csrc/paged_attention.cuh``).
+TILE = 64
+#: Largest GQA group the kernels take (``PA_MAX_GROUP``).
+MAX_GROUP = 16
+
+#: Calls of each wrapper that launched its kernel (CUDA tensors only).
+launches = {"paged_attention": 0, "llama_decoder_layer_paged": 0}
+
+
+def _refuse(what: str, window, softcap, bias_qkv=None) -> None:
+    if window or softcap or bias_qkv is not None:
+        raise NotImplementedError(f"{what}: sliding window, softcap and QKV "
+                                  "bias are not ported yet")
+
+
+def _walk_plain(q_walk, q_fold, k_cur, v_cur, k_pool, v_pool, table, lens,
+                layer: int):
+    """The kernels' walk: q_walk/q_fold [B, kv, g, hd] (scaled; q_walk
+    bf16-valued), k_cur/v_cur [B, kv, hd].  Returns o [B, kv, g, hd] bf16."""
+    B, kv, g, hd = q_walk.shape
+    page = k_pool.shape[3]
+    dev = q_walk.device
+    table = table.long()
+    lens = lens.long()
+    S = round_up(int(lens.max()), TILE) if B else 0
+    acc = torch.zeros((B, kv, g, hd), dtype=torch.float32, device=dev)
+    l_sum = torch.zeros((B, kv, g), dtype=torch.float32, device=dev)
+    m = torch.full((B, kv, g), _NEG_INF, dtype=torch.float32, device=dev)
+    if S:
+        nt = S // TILE
+        pos = torch.arange(S, device=dev)
+        pg = table[:, (pos // page).clamp(max=table.shape[1] - 1)]   # [B, S]
+        valid = pos[None] < lens[:, None]                             # [B, S]
+        keep = valid[..., None, None]           # rows past the end read as 0
+        k = torch.where(keep, k_pool[layer][pg, :, pos % page].float(), 0.)
+        v = torch.where(keep, v_pool[layer][pg, :, pos % page].float(), 0.)
+        s = torch.einsum("bkgd,bskd->bkgs", q_walk.float(), k)
+        s = s.masked_fill(~valid[:, None, None], _NEG_INF)
+        s = s.reshape(B, kv, g, nt, TILE)
+        # running max after each tile, as the kernel's online softmax has it
+        m_run = torch.cummax(s.amax(dim=-1), dim=-1).values          # [B, kv, g, nt]
+        p = torch.exp2(s - m_run[..., None]) * valid.reshape(B, 1, 1, nt, TILE)
+        pv = torch.einsum("bkgnt,bntkd->bkgnd", p.to(torch.bfloat16).float(),
+                          v.reshape(B, nt, TILE, kv, hd))
+        m = m_run[..., -1]
+        e = torch.exp2(m_run - m[..., None])
+        acc = (pv * e[..., None]).sum(dim=3)
+        l_sum = (p.sum(dim=-1) * e).sum(dim=-1)
+    s_cur = (q_fold.float() * k_cur.float()[:, :, None]).sum(dim=-1)  # [B, kv, g]
+    m_f = torch.maximum(m, s_cur)
+    alpha = torch.exp2(m - m_f)
+    p_cur = torch.exp2(s_cur - m_f)
+    o = (acc * alpha[..., None] + p_cur[..., None] * v_cur.float()[:, :, None]) \
+        / (l_sum * alpha + p_cur)[..., None]
+    return o.to(torch.bfloat16)
+
+
+def _append_plain(k_pool, v_pool, table, lens, layer: int, k_row, v_row):
+    """Row ``lens[b]`` of request b's pages (layer ``layer``) <- k_row[b],
+    v_row[b] ([B, kv, hd], cast to the pool dtype)."""
+    page = k_pool.shape[3]
+    lens = lens.long()
+    pg = table.long()[torch.arange(lens.shape[0], device=lens.device),
+                      lens // page]
+    k_pool[layer][pg, :, lens % page] = k_row.to(k_pool.dtype)
+    v_pool[layer][pg, :, lens % page] = v_row.to(v_pool.dtype)
+
+
+def _scaled_q(q: torch.Tensor) -> torch.Tensor:
+    """q * log2(e)/sqrt(hd), rounded to bf16 (``paged_attention``'s q)."""
+    return (q.float() * (_LOG2E / math.sqrt(q.shape[-1]))).to(torch.bfloat16)
+
+
+def paged_attention_plain(q, k_new, v_new, k_pool, v_pool, block_table,
+                          seq_lens, layer_id: int):
+    """Plain PyTorch version of :func:`paged_attention` (same arguments,
+    same results, pools appended in place)."""
+    B = q.shape[0]
+    qs = _scaled_q(q)
+    k_b, v_b = k_new.to(k_pool.dtype), v_new.to(v_pool.dtype)
+    o = _walk_plain(qs, qs, k_b, v_b, k_pool, v_pool, block_table, seq_lens,
+                    int(layer_id))
+    _append_plain(k_pool, v_pool, block_table, seq_lens, int(layer_id), k_b,
+                  v_b)
+    return o.reshape(B, -1), k_pool, v_pool
+
+
+def _check_pools(what, k_pool, v_pool, dev):
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.dtype != torch.bfloat16:
+            raise NotImplementedError(f"{what}: only a bf16 KV pool is "
+                                      f"ported ({name} is {t.dtype})")
+        if t.device != dev or not t.is_contiguous() or (
+                dev.type == "cuda" and t.data_ptr() % 16):
+            raise ValueError(f"{what}: {name} must be a contiguous, 16-byte "
+                             f"aligned tensor on {dev}")
+    if k_pool.shape != v_pool.shape:
+        raise ValueError(f"{what}: pool shapes differ")
+
+
+def _indices(dev, *ts):
+    return [torch.as_tensor(t).to(device=dev, dtype=torch.int32).contiguous()
+            for t in ts]
+
+
+def paged_attention(q, k_new, v_new, k_pool, v_pool, block_table, seq_lens,
+                    layer_id, *, window: int = 0, softcap: float = 0.0):
+    """Batched paged flash-decode attention + in-place append.
+
+    q [B, kv_heads, group, hd] (roped, unscaled); k_new/v_new
+    [B, kv_heads, hd] (roped current token); pools [L, n_pages, kv_heads,
+    page, hd] bf16; block_table [B, max_pages] and seq_lens [B] integer.
+    Attends each request's ``seq_lens[b]`` cached rows of layer
+    ``layer_id`` plus the current token, appends the current K/V at
+    ``block_table[b, seq_lens[b] // page], seq_lens[b] % page`` and returns
+    (o [B, kv_heads*group*hd] bf16, k_pool, v_pool)."""
+    _refuse("paged_attention", window, softcap)
+    B, kv, g, hd = q.shape
+    L, n_pages, kv_p, page, hd_p = k_pool.shape
+    if (kv_p, hd_p) != (kv, hd) or k_new.shape != (B, kv, hd) or \
+            v_new.shape != (B, kv, hd):
+        raise ValueError(f"paged_attention: q {tuple(q.shape)}, k_new "
+                         f"{tuple(k_new.shape)} and pool {tuple(k_pool.shape)}"
+                         " disagree")
+    if not 0 <= int(layer_id) < L:
+        raise ValueError(f"layer_id {layer_id} outside the pool's {L} layers")
+    _check_pools("paged_attention", k_pool, v_pool, q.device)
+    if q.device.type == "cpu":
+        return paged_attention_plain(q, k_new, v_new, k_pool, v_pool,
+                                     block_table, seq_lens, layer_id)
+    dev = q.device
+    if hd not in (64, 128) or g > MAX_GROUP:
+        raise NotImplementedError(f"paged_attention: head_dim {hd} or group "
+                                  f"{g} (the kernel takes hd 64/128, group "
+                                  f"<= {MAX_GROUP})")
+    qs = _scaled_q(q).contiguous()
+    k_b = k_new.to(device=dev, dtype=torch.bfloat16).contiguous()
+    v_b = v_new.to(device=dev, dtype=torch.bfloat16).contiguous()
+    table, lens = _indices(dev, block_table, seq_lens)
+    if table.shape[0] != B or lens.shape != (B,):
+        raise ValueError("paged_attention: block_table/seq_lens rows != B")
+    o = torch.empty((B, kv * g * hd), dtype=torch.bfloat16, device=dev)
+    err = _build.lib().cf_paged_attention(
+        qs.data_ptr(), k_b.data_ptr(), v_b.data_ptr(), k_pool.data_ptr(),
+        v_pool.data_ptr(), table.data_ptr(), lens.data_ptr(), o.data_ptr(),
+        B, kv, g, hd, page, n_pages, table.shape[1], int(layer_id),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "paged_attention")
+    launches["paged_attention"] += 1
+    return o, k_pool, v_pool
+
+
+def llama_decoder_layer_paged_plain(input, residual, wqkv_g, wo_g,
+                                    block_table, seq_lens, positions, k_pool,
+                                    v_pool, layer_id, rms_w, eps, cos_t, sin_t,
+                                    *, group: int, rope_style: str):
+    """Plain PyTorch version of :func:`llama_decoder_layer_paged` (same
+    arguments, same results, pools appended in place)."""
+    B, hidden = input.shape
+    layer_id = int(layer_id)
+    w = wqkv_g[layer_id] if wqkv_g.dim() == 4 else wqkv_g
+    wo = wo_g[layer_id] if wo_g.dim() == 4 else wo_g
+    kv, hd = k_pool.shape[2], k_pool.shape[4]
+    r = input.float() + residual.float()
+    xn = _norm(r, rms_w.reshape(-1), eps)
+    qkv = torch.einsum("bd,Gdc->bGc", xn.float(), w.float())
+    qkv = qkv.reshape(B, kv, group + 2, hd)
+    pos = torch.as_tensor(positions, device=input.device).long()
+    cos = cos_t[pos].float()[:, None]                       # [B, 1, hd]
+    sin = sin_t[pos].float()[:, None]
+    q = _rope(qkv[:, :, :group], cos[:, None], sin[:, None], rope_style) \
+        * (_LOG2E / math.sqrt(hd))
+    k = _rope(qkv[:, :, group], cos, sin, rope_style)
+    v = qkv[:, :, group + 1]
+    table = torch.as_tensor(block_table, device=input.device)
+    lens = torch.as_tensor(seq_lens, device=input.device)
+    o = _walk_plain(q.to(torch.bfloat16), q, k, v, k_pool, v_pool, table,
+                    lens, layer_id)
+    _append_plain(k_pool, v_pool, table, lens, layer_id, k, v)
+    out = o.reshape(B, -1).float() @ wo.reshape(-1, hidden).float()
+    return out.to(input.dtype), r.to(input.dtype), k_pool, v_pool
+
+
+def llama_decoder_layer_paged(input, residual, wqkv_g, wo_g, block_table,
+                              seq_lens, positions, k_pool, v_pool, layer_id,
+                              rms_w, eps: float, cos_t, sin_t, *,
+                              group: int = 1, rope_style: str = "neox",
+                              bias_qkv=None, window: int = 0,
+                              softcap: float = 0.0):
+    """Paged batch-decode attention half of a Llama layer.
+
+    input/residual [B, hidden] bf16; wqkv_g [L, G, hidden, hg*(group+2)*hd]
+    (or one layer's [G, ...]); wo_g [L, G, hg*group*hd, hidden] (or [G,
+    ...]); block_table [B, max_pages], seq_lens/positions [B] integer;
+    pools [L, n_pages, kv_heads, page, hd] bf16; rms_w [hidden] or [1,
+    hidden]; cos_t/sin_t [max_pos, hd] full-dim float32 tables.
+
+    Returns (output [B, hidden], residual_out [B, hidden], k_pool, v_pool),
+    the new token's K/V written in place at ``block_table[b, seq_lens[b] //
+    page], seq_lens[b] % page`` of layer ``layer_id``.  Stacked weights are
+    read at ``layer_id``."""
+    _refuse("llama_decoder_layer_paged", window, softcap, bias_qkv)
+    B, hidden = input.shape
+    L, n_pages, kv, page, hd = k_pool.shape
+    layer_id = int(layer_id)
+    if not 0 <= layer_id < L:
+        raise ValueError(f"layer_id {layer_id} outside the pool's {L} layers")
+    if wqkv_g.dim() not in (3, 4) or wo_g.dim() != wqkv_g.dim():
+        raise ValueError("wqkv_g/wo_g must both be [G, ...] or [L, G, ...]")
+    G, hidden_w, C = wqkv_g.shape[-3:]
+    hg = kv // G if G else 0
+    if hidden_w != hidden or G * hg != kv or C != hg * (group + 2) * hd or \
+            tuple(wo_g.shape[-3:]) != (G, hg * group * hd, hidden):
+        raise ValueError(f"llama_decoder_layer_paged: weights {tuple(wqkv_g.shape)}"
+                         f"/{tuple(wo_g.shape)} do not fit kv {kv}, group "
+                         f"{group}, hd {hd}, hidden {hidden}")
+    dev = input.device
+    _check_pools("llama_decoder_layer_paged", k_pool, v_pool, dev)
+    rms_w = rms_w.reshape(-1)
+    named = (("wqkv_g", wqkv_g), ("wo_g", wo_g), ("rms_w", rms_w),
+             ("input", input), ("residual", residual))
+    for name, t in named:
+        if t.dtype != torch.bfloat16:
+            raise NotImplementedError(f"llama_decoder_layer_paged: {name} is "
+                                      f"{t.dtype}; only bf16 is ported "
+                                      "(quantized weights are not)")
+    if dev.type == "cpu":
+        return llama_decoder_layer_paged_plain(
+            input, residual, wqkv_g, wo_g, block_table, seq_lens, positions,
+            k_pool, v_pool, layer_id, rms_w, eps, cos_t, sin_t, group=group,
+            rope_style=rope_style)
+    for name, t in named:
+        if t.device != dev or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"llama_decoder_layer_paged: {name} must be a "
+                             f"contiguous, 16-byte aligned tensor on {dev}")
+    if residual.shape != input.shape or rms_w.numel() != hidden:
+        raise ValueError("llama_decoder_layer_paged: residual/rms_w shapes")
+    if hd not in (64, 128) or group > MAX_GROUP:
+        raise NotImplementedError(f"llama_decoder_layer_paged: head_dim {hd} "
+                                  f"or group {group} (the kernel takes hd "
+                                  f"64/128, group <= {MAX_GROUP})")
+    if rope_style not in ("neox", "gptj"):
+        raise ValueError(f"unknown rope style {rope_style!r}")
+    if hidden % 8:
+        raise ValueError(f"hidden {hidden} is not a multiple of 8")
+    table, lens, poss = _indices(dev, block_table, seq_lens, positions)
+    if table.shape[0] != B or lens.shape != (B,) or poss.shape != (B,):
+        raise ValueError("llama_decoder_layer_paged: table/lens/positions "
+                         "rows != B")
+    cos_f = cos_t.to(device=dev, dtype=torch.float32).contiguous()
+    sin_f = sin_t.to(device=dev, dtype=torch.float32).contiguous()
+    if cos_f.shape[-1] != hd or sin_f.shape != cos_f.shape:
+        raise ValueError("cos_t/sin_t must be [max_pos, head_dim]")
+    bf16, f32 = torch.bfloat16, torch.float32
+    out = torch.empty((B, hidden), dtype=bf16, device=dev)
+    res_out = torch.empty((B, hidden), dtype=bf16, device=dev)
+    xn = torch.empty((B, hidden), dtype=bf16, device=dev)
+    qkv = torch.empty((B, kv * (group + 2) * hd), dtype=f32, device=dev)
+    o = torch.empty((B, kv * group * hd), dtype=bf16, device=dev)
+    acc = torch.empty((B, hidden), dtype=f32, device=dev)
+    n_launch = ctypes.c_int(0)
+    err = _build.lib().cf_paged_decoder_layer(
+        input.data_ptr(), residual.data_ptr(), wqkv_g.data_ptr(),
+        wo_g.data_ptr(), rms_w.data_ptr(), cos_f.data_ptr(), sin_f.data_ptr(),
+        poss.data_ptr(), table.data_ptr(), lens.data_ptr(), k_pool.data_ptr(),
+        v_pool.data_ptr(), out.data_ptr(), res_out.data_ptr(), xn.data_ptr(),
+        qkv.data_ptr(), o.data_ptr(), acc.data_ptr(), B, hidden, kv, hg,
+        group, hd, page, n_pages, table.shape[1], cos_f.shape[0], layer_id,
+        layer_id if wqkv_g.dim() == 4 else 0,
+        1 if rope_style == "neox" else 0, float(eps), ctypes.byref(n_launch),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "llama_decoder_layer_paged")
+    launches["llama_decoder_layer_paged"] += 1
+    return out, res_out, k_pool, v_pool
+
+
+def _head_group(heads: int, requested: int = 8) -> int:
+    """Largest divisor of ``heads`` at most ``requested`` (the JAX
+    package's head grouping for the sglang entry)."""
+    hg = min(requested, heads)
+    while heads % hg:
+        hg -= 1
+    return hg
+
+
+def sglang_layer_args(input, residual, weight_qkv, weight_o,
+                      paged_kv_indptr, paged_kv_indices, k_cache, v_cache,
+                      layer_id: int, rms_w, eps: float, positions, cos_sin,
+                      n_heads: int = 32, head_dim: int = 128):
+    """The (args, kwargs) of :func:`llama_decoder_layer_paged` (or its plain
+    twin) for one call of :func:`llama_decoder_layer_batch_decode_sglang`
+    (same arguments): the weights re-laid into the kernel layout, a block
+    table of page size 1 and views of the caches as pools."""
+    B, hidden = input.shape
+    hd, heads = head_dim, n_heads
+    L, num_pages, _ = k_cache.shape
+    per_head = (weight_qkv.reshape(3, heads, hd, hidden)
+                .permute(1, 3, 0, 2).reshape(heads, hidden, 3 * hd))
+    wo_per_head = weight_o.t().reshape(heads, hd, hidden)
+    wqkv_g, wo_g = fuse_qkv_o_for_kernel(per_head, wo_per_head, heads, 1, hd,
+                                         _head_group(heads))
+    indptr = torch.as_tensor(paged_kv_indptr, device=input.device).long()
+    indices = torch.as_tensor(paged_kv_indices, device=input.device).long()
+    max_pages = indices.shape[0]
+    j = torch.arange(max_pages, device=input.device)[None]
+    table = indices[(indptr[:-1, None] + j).clamp(0, max_pages - 1)]
+    seq_lens = indptr[1:] - indptr[:-1] - 1          # the new slot excluded
+    k_pool = k_cache.view(L, num_pages, heads, 1, hd)
+    v_pool = v_cache.view(L, num_pages, heads, 1, hd)
+    cos_h, sin_h = cos_sin[:, : hd // 2], cos_sin[:, hd // 2:]
+    args = (input, residual, wqkv_g.contiguous(), wo_g.contiguous(), table,
+            seq_lens, positions, k_pool, v_pool, layer_id, rms_w, eps,
+            torch.cat([cos_h, cos_h], dim=-1), torch.cat([sin_h, sin_h], dim=-1))
+    return args, dict(group=1, rope_style="neox")
+
+
+def llama_decoder_layer_batch_decode_sglang(
+        input, residual, weight_qkv, weight_o, paged_kv_indptr,
+        paged_kv_indices, k_cache, v_cache, layer_id: int, rms_w, eps: float,
+        positions, cos_sin, n_heads: int = 32, head_dim: int = 128):
+    """Reference-parity entry (sglang calling convention, page size 1).
+
+    weight_qkv [3*hidden, hidden] and weight_o [hidden, hidden] in
+    torch.nn.Linear layout; paged_kv_indptr [B+1] and paged_kv_indices
+    [total] name each request's pool rows, its last row being the slot of
+    the new token; k_cache/v_cache [L, num_pages, hidden]; cos_sin
+    [max_pos, head_dim] holds the cos half then the sin half (neox).
+    Returns (output, residual_out, k_cache, v_cache), the new K/V written in
+    place at row ``indices[indptr[b+1]-1]``."""
+    args, kw = sglang_layer_args(
+        input, residual, weight_qkv, weight_o, paged_kv_indptr,
+        paged_kv_indices, k_cache, v_cache, layer_id, rms_w, eps, positions,
+        cos_sin, n_heads, head_dim)
+    out, res_out, _, _ = llama_decoder_layer_paged(*args, **kw)
+    return out, res_out, k_cache, v_cache

@@ -57,10 +57,10 @@ def _vocab_block(V: int, target: int = 1024) -> int:
 
 def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
           style: str) -> torch.Tensor:
-    """Rope on [..., hd] with full-dim [hd] tables."""
+    """Rope on [..., hd] with full-dim [..., hd] tables (broadcast)."""
     if style == "neox":
         hd = x.shape[-1]
-        return apply_rope_neox(x, cos[: hd // 2], sin[: hd // 2])
+        return apply_rope_neox(x, cos[..., : hd // 2], sin[..., : hd // 2])
     if style == "gptj":
         return apply_rope_gptj(x, cos, sin)
     raise ValueError(f"unknown rope style {style!r}")

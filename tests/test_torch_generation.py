@@ -33,8 +33,9 @@ def test_stream_generate_matches_jax():
     jcfg, tcfg = JConfig.tiny(max_seq_len=64), LlamaConfig.tiny(max_seq_len=64)
     jp = jmodel.init_params(jcfg, jax.random.PRNGKey(4))
     jeng = JLlama(jp, jcfg, JByteTokenizer(), fused=True)
-    teng = Llama(params_from_numpy(jax.tree.map(np.asarray, jp)), tcfg,
-                 ByteTokenizer(), fused=True)
+    teng = Llama(params_from_numpy(jax.tree.map(np.asarray, jp),
+                                   device="cpu"),
+                 tcfg, ByteTokenizer(), fused=True)
     prompt = teng.tokenizer.encode("hello, world", bos=True, eos=False)
     n = 6
     jt = list(jeng.stream_generate(prompt, n, temperature=0.0))

@@ -141,3 +141,159 @@ def test_model_paths_agree_on_card(dev):
     d_e, _, _ = model.decode_step(p, ke, ve, 7, len(toks), cfg, fused=False)
     assert (d_f - d_e).abs().max().item() < 0.1 * max(d_e.abs().max().item(),
                                                       1.0)
+
+
+# -- paged kernels: paged_attention (kernel 10), llama_decoder_layer_paged (9)
+
+
+def _paged_pools(dev, L, kv, page, hd, lens, seed, n_spare=3):
+    """Pools of random rows and a block table over shuffled pages: request
+    b owns lens[b] // page + 1 pages; page 0 stays unowned."""
+    need = [n // page + 1 for n in lens]
+    n_pages = 1 + sum(need) + n_spare
+    perm = np.random.RandomState(seed).permutation(np.arange(1, n_pages))
+    width = max(need)
+    table = np.zeros((len(lens), width), np.int32)
+    at = 0
+    for b, n in enumerate(need):
+        table[b, :n] = perm[at:at + n]
+        at += n
+    kp = _randn((L, n_pages, kv, page, hd), dev, seed + 1)
+    vp = _randn((L, n_pages, kv, page, hd), dev, seed + 2)
+    return (kp, vp, torch.from_numpy(table).to(dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+def _appended_mask(kp, table, lens, layer):
+    """True at every (layer, page, :, row) slot the appends write."""
+    page = kp.shape[3]
+    mask = torch.zeros(kp.shape[:2] + (page,), dtype=torch.bool,
+                       device=kp.device)
+    for b, n in enumerate(lens.tolist()):
+        mask[layer, int(table[b, n // page]), n % page] = True
+    return mask[:, :, None, :, None].expand(kp.shape)
+
+
+@pytest.mark.parametrize("B,kv,g,hd,page,lens", [
+    (4, 2, 1, 128, 16, [0, 1, 17, 64]),
+    (3, 2, 4, 64, 8, [5, 64, 130]),
+    (3, 4, 1, 128, 1, [0, 7, 70]),
+    (2, 2, 7, 128, 16, [33, 100]),
+    (8, 32, 1, 128, 16, [0, 1, 15, 16, 255, 511, 1000, 2047]),
+    (8, 8, 4, 128, 16, [0, 1, 15, 16, 255, 511, 1000, 2047]),
+])
+def test_paged_attention_kernel_matches_plain(dev, B, kv, g, hd, page, lens):
+    from clusterfusion_tpu_torch.ops import paged_decoder_layer as pd
+    L, layer = 2, 1
+    kp, vp, table, lens_t = _paged_pools(dev, L, kv, page, hd, lens, 3)
+    q = _randn((B, kv, g, hd), dev, 10)
+    k_new = _randn((B, kv, hd), dev, 11)
+    v_new = _randn((B, kv, hd), dev, 12)
+    kr, vr = kp.clone(), vp.clone()
+    before = pd.launches["paged_attention"]
+    o, kp2, vp2 = pd.paged_attention(q, k_new, v_new, kp, vp, table, lens_t,
+                                     layer)
+    torch.cuda.synchronize()
+    assert pd.launches["paged_attention"] == before + 1
+    assert kp2 is kp and vp2 is vp
+    want, _, _ = pd.paged_attention_plain(q, k_new, v_new, kr, vr, table,
+                                          lens_t, layer)
+    torch.testing.assert_close(o.float(), want.float(), atol=2e-2, rtol=2e-2)
+    # the twin rounds where the kernel rounds: each head's row agrees to
+    # about two bf16 ulps of its own largest value
+    got, ref = o.float().reshape(-1, hd), want.float().reshape(-1, hd)
+    rel = (got - ref).abs().amax(-1) / ref.abs().amax(-1).clamp_min(1e-6)
+    assert rel.max().item() <= 2e-2
+    assert torch.equal(kp, kr) and torch.equal(vp, vr)   # appends exact
+    app = _appended_mask(kp, table, lens_t, layer)
+    rows = torch.arange(B, device=dev)
+    pg = table[rows, lens_t.long() // page].long()
+    assert torch.equal(kp[layer][pg, :, lens_t.long() % page], k_new)
+    assert torch.equal(vp[layer][pg, :, lens_t.long() % page], v_new)
+    k0, _, _, _ = _paged_pools(dev, L, kv, page, hd, lens, 3)
+    assert torch.equal(kp[~app], k0[~app])               # the rest untouched
+
+
+def _layer_weights(dev, L, hidden, kv, g, hd, hg, seed):
+    G = kv // hg
+    return (_randn((L, G, hidden, hg * (g + 2) * hd), dev, seed,
+                   hidden ** -0.5),
+            _randn((L, G, hg * g * hd, hidden), dev, seed + 1,
+                   (kv * g * hd) ** -0.5))
+
+
+@pytest.mark.parametrize("B,kv,g,hd,hg,page,lens,style", [
+    (1, 4, 1, 128, 2, 16, [37], "gptj"),
+    (3, 2, 4, 64, 1, 8, [0, 9, 70], "neox"),
+    (3, 4, 1, 128, 4, 1, [5, 0, 40], "neox"),
+    (4, 4, 1, 128, 2, 16, [40, 0, 0, 0], "neox"),
+    (8, 2, 2, 128, 2, 16, [0, 1, 15, 16, 63, 64, 100, 200], "gptj"),
+])
+def test_paged_layer_kernel_matches_plain(dev, B, kv, g, hd, hg, page, lens,
+                                          style):
+    from clusterfusion_tpu_torch.ops import paged_decoder_layer as pd
+    L, layer, hidden = 2, 1, 512
+    cfg = LlamaConfig.tiny(rope_style=style, head_dim=hd)
+    cos_t, sin_t = model.rope_table(cfg, device=dev)
+    kp, vp, table, lens_t = _paged_pools(dev, L, kv, page, hd, lens, 5)
+    wqkv, wo = _layer_weights(dev, L, hidden, kv, g, hd, hg, 20)
+    x = _randn((B, hidden), dev, 30)
+    res = _randn((B, hidden), dev, 31)
+    rms = 1 + _randn((hidden,), dev, 32, 0.1)
+    kr, vr = kp.clone(), vp.clone()
+    args = (wqkv, wo, table, lens_t, lens_t)
+    kw = dict(group=g, rope_style=style)
+    before = pd.launches["llama_decoder_layer_paged"]
+    out = pd.llama_decoder_layer_paged(x, res, *args, kp, vp, layer, rms,
+                                       1e-5, cos_t, sin_t, **kw)
+    torch.cuda.synchronize()
+    assert pd.launches["llama_decoder_layer_paged"] == before + 1
+    want = pd.llama_decoder_layer_paged_plain(x, res, *args, kr, vr, layer,
+                                              rms, 1e-5, cos_t, sin_t, **kw)
+    torch.testing.assert_close(out[0].float(), want[0].float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(out[1].float(), want[1].float(), atol=2e-2,
+                               rtol=2e-2)
+    app = _appended_mask(kp, table, lens_t, layer)
+    torch.testing.assert_close(kp[app].float(), kr[app].float(), atol=0.05,
+                               rtol=0)
+    torch.testing.assert_close(vp[app].float(), vr[app].float(), atol=0.05,
+                               rtol=0)
+    assert torch.equal(kp[~app], kr[~app]) and torch.equal(vp[~app], vr[~app])
+
+
+def test_sglang_entry_kernel_matches_plain(dev):
+    """The page-1 sglang entry on the card against the same call on CPU
+    tensors (the plain twin)."""
+    from clusterfusion_tpu_torch.ops import paged_decoder_layer as pd
+    heads, hd, hidden, L, layer = 4, 128, 512, 2, 1
+    lens = [5, 17, 1]
+    total = sum(lens) + len(lens)
+    num_pages = total + 7
+    perm = np.random.RandomState(0).permutation(num_pages)[:total]
+    indptr = torch.tensor(np.cumsum([0] + [n + 1 for n in lens]),
+                          dtype=torch.int32)
+    indices = torch.tensor(perm, dtype=torch.int32)
+    a = dict(x=_randn((3, hidden), dev, 1), res=_randn((3, hidden), dev, 2),
+             wqkv=_randn((3 * hidden, hidden), dev, 3, 0.05),
+             wo=_randn((hidden, hidden), dev, 4, 0.05),
+             kc=_randn((L, num_pages, hidden), dev, 5),
+             vc=_randn((L, num_pages, hidden), dev, 6),
+             rms=1 + _randn((hidden,), dev, 7, 0.1))
+    angle = np.outer(np.arange(64), 0.3 * np.arange(hd // 2) + 0.1)
+    cos_sin = torch.tensor(np.concatenate([np.cos(angle), np.sin(angle)], -1),
+                           dtype=torch.float32)
+    pos = torch.tensor(lens, dtype=torch.int32)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        t = {k: v.to(d).clone() for k, v in a.items()}
+        o = pd.llama_decoder_layer_batch_decode_sglang(
+            t["x"], t["res"], t["wqkv"], t["wo"], indptr.to(d),
+            indices.to(d), t["kc"], t["vc"], layer, t["rms"], 1e-5,
+            pos.to(d), cos_sin.to(d), n_heads=heads, head_dim=hd)
+        outs.append([x.cpu().float() for x in o])
+    torch.cuda.synchronize()
+    for got, want in zip(outs[0][:2], outs[1][:2]):
+        torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+    for got, want in zip(outs[0][2:], outs[1][2:]):
+        torch.testing.assert_close(got, want, atol=0.05, rtol=0)

@@ -30,7 +30,7 @@ def _setup(kv_heads=None, seed=0):
     jcfg = JConfig.tiny(n_kv_heads=kv_heads)
     tcfg = LlamaConfig.tiny(n_kv_heads=kv_heads)
     jp = jmodel.init_params(jcfg, jax.random.PRNGKey(seed))
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     return jcfg, tcfg, jp, tp
 
 

@@ -32,7 +32,7 @@ from clusterfusion_tpu_torch.ops.stack_kernel import (
 def _bf16(a):
     """numpy float -> (jax bf16 array, torch bf16 tensor), the same bits."""
     j = jnp.asarray(a, jnp.bfloat16)
-    return j, tensor_from_numpy(np.asarray(j))
+    return j, tensor_from_numpy(np.asarray(j), device="cpu")
 
 
 def _np(t):
@@ -145,14 +145,16 @@ def _stack_inputs(n_heads, kv_heads, hg, rope_style, seed=3):
     cache[:, :, :, :POS] = rng.randn(2, L, kv_heads, POS, HD)
     a["k_cache"], a["v_cache"] = cache
     j = {k: _bf16(v)[0] for k, v in a.items()}
-    t = {k: tensor_from_numpy(np.asarray(v)) for k, v in j.items()}
+    t = {k: tensor_from_numpy(np.asarray(v), device="cpu")
+         for k, v in j.items()}
     tabs = (jrope.rope_tables_neox if rope_style == "neox"
             else jrope.rope_tables_gptj)(HD, CAP)
     if rope_style == "neox":
         tabs = [jnp.concatenate([c, c], axis=-1) for c in tabs]
     cos, sin = (c[POS:POS + 1] for c in tabs)
     j["cos"], j["sin"] = cos, sin
-    t["cos"], t["sin"] = (tensor_from_numpy(np.asarray(c)) for c in (cos, sin))
+    t["cos"], t["sin"] = (tensor_from_numpy(np.asarray(c), device="cpu")
+                        for c in (cos, sin))
     return g, j, t
 
 
