@@ -2,14 +2,16 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure ends the run with a non-zero exit code:
+Kernels are numbered as in ``PERF.md`` and ``ROADMAP.md`` (the table of
+the JAX package's Pallas kernels).  Phases, in order; any failure ends the
+run with a non-zero exit code:
 
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: ``nvcc`` build of ``clusterfusion_tpu_torch/csrc`` for sm_90a;
-3. kernel 1, ``flash_prefill_attention``, against its plain twin at the
+3. kernel 4, ``flash_prefill_attention``, against its plain twin at the
    Llama-2-7B prefill shape, a GQA shape and a chunk (q_offset 256), with
    its time, the plain twin's, one PyTorch SDPA call's and the bound;
-4. kernel 2, ``fused_decoder_stack``, against its plain twin at full
+4. kernel 7, ``fused_decoder_stack``, against its plain twin at full
    Llama-2-7B geometry (one step at pos 600 over a random-filled cache):
    logits, the appended K/V row, every other row unchanged; times and bound;
 5. end to end: ``Llama.synthetic(llama2_7b)`` streams 64 greedy tokens
@@ -17,14 +19,14 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    beside the process's first prefill), decode tokens/s, both kernels'
    launch counts on that run, and the first 8 tokens against the plain
    path (eager prefill and decode) on the card;
-6. kernel 3, ``paged_attention``, against its plain twin at the 7B serving
-   shape (B 8, 32 kv heads, page 16, lens up to 2047 over shuffled pages)
-   and a GQA shape: output (each head's row within 2e-2 of its own largest
-   value), appended rows, every other pool row unchanged;
+6. kernel 10, ``paged_attention``, against its plain twin at the 7B
+   serving shape (B 8, 32 kv heads, page 16, lens up to 2047 over shuffled
+   pages) and a GQA shape: output (each head's row within 2e-2 of its own
+   largest value), appended rows, every other pool row unchanged;
    device time (``torch.profiler``) beside the wall time of a call, the
    plain twin's time and the bound (an SDPA over the same rows gathered
    beforehand is printed as context only);
-7. kernel 4, ``llama_decoder_layer_paged``, against its plain twin on one
+7. kernel 9, ``llama_decoder_layer_paged``, against its plain twin on one
    layer of the 7B weights at B 4 (the shape ``Llama.generate`` gives it
    for one prompt: one live row, three padding rows on the NULL page), B 8
    and B 1, and its page-1 sglang entry at 7B width;
@@ -34,7 +36,18 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    prompt with ``fused=True`` runs the fused step
    (``llama_decoder_layer_paged``).  Aggregate decode tokens/s, ms per
    step, warm prefill ms per request, launch counts, and each request's
-   first 8 tokens against the plain path on the card.
+   first 8 tokens against the plain path on the card;
+9. speculative decoding: kernel 8, ``fused_verify_stack``, against its
+   plain twin at 7B, pos 600, n 5 and n 9, over a random-filled cache with
+   large stale rows above pos (logits, the n appended rows, every other row
+   unchanged), its time beside the stack's at the same pos, the plain
+   twin's and the bound; then ``spec_generate`` (n_draft 4, 32 tokens after
+   a 128-token prompt) with a self-draft (a second engine on the same
+   weights: every draft accepted but where the target's top-2 gap is
+   <= 0.1, one verify launch per round) and with an unrelated small draft
+   (4 layers, hidden 1024, seed 1), each stream against
+   ``stream_generate`` and the plain path under the top-2-gap rule, rounds,
+   accepted drafts and tokens/s beside ``stream_generate``'s.
 
 Then one JSON line per kernel table, the card line, and last
 ``{"ok": true, "device": {...}}``.  Weights are random, from a seed.
@@ -179,7 +192,7 @@ def phase_flash(dev, hbm, peak):
         nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel())
         bound = max(flops / peak, nbytes / hbm) * 1e3
         bound_by = "operations" if flops / peak > nbytes / hbm else "bytes"
-        say("flash_prefill", shape=label, kv=kv, group=g, T=T,
+        say("flash_prefill", kernel=4, shape=label, kv=kv, group=g, T=T,
             q_offset=q_off, max_abs_err=f"{max_abs:.3g}",
             max_rel_err=f"{max_rel:.3g}", tol="atol=2e-2,rtol=2e-2",
             ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
@@ -233,7 +246,7 @@ def phase_stack(eng, dev, hbm, peak, pos=600):
     unchanged = (torch.equal(kk[:, :, others], kc[:, :, others])
                  and torch.equal(vk[:, :, others], vc[:, :, others]))
     finite = bool(torch.isfinite(out[0]).all())
-    say("stack", pos=pos, layers=cfg.n_layers, logits_max_abs_err=f"{lg_err:.4g}",
+    say("stack", kernel=7, pos=pos, layers=cfg.n_layers, logits_max_abs_err=f"{lg_err:.4g}",
         logits_err_over_max=f"{lg_rel:.4g}", tol_logits=2e-2,
         kv_row_err_layer0=f"{row_err[0].item():.3g}", tol_layer0=0.05,
         kv_row_err_max=f"{row_err.max().item():.4g}",
@@ -411,7 +424,7 @@ def phase_paged_attention(dev, hbm, peak):
         flops = 4 * kv * g * hd * (n_rows + B)
         bound = max(nbytes / hbm, flops / peak) * 1e3
         bound_by = "bytes" if nbytes / hbm >= flops / peak else "operations"
-        say("paged_attention", shape=label, B=B, kv=kv, group=g, page=page,
+        say("paged_attention", kernel=10, shape=label, B=B, kv=kv, group=g, page=page,
             lens=SERVE_LENS, max_abs_err=f"{max_abs:.3g}",
             tol="atol=2e-2,rtol=2e-2", row_rel_err=f"{row_rel:.3g}",
             tol_row_rel=ROW_REL_TOL, appended_rows_exact=appended_exact,
@@ -482,7 +495,7 @@ def phase_paged_layer(eng, dev, hbm, peak):
         flops = 2 * B * w_elems + 4 * kv * g * hd * (n_rows + B)
         bound = max(nbytes / hbm, flops / peak) * 1e3
         bound_by = "bytes" if nbytes / hbm >= flops / peak else "operations"
-        say("paged_layer", B=B, lens=lens_l, max_abs_err=f"{max_abs:.3g}",
+        say("paged_layer", kernel=9, B=B, lens=lens_l, max_abs_err=f"{max_abs:.3g}",
             tol="atol=2e-2,rtol=2e-2", appended_row_err=f"{row_err:.3g}",
             tol_rows=0.05, other_rows_unchanged=untouched, ms=f"{ms:.4f}",
             call_ms=f"{call_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
@@ -555,7 +568,7 @@ def phase_sglang(dev, hbm, peak, heads=32, hd=128):
                   + 2 * B * hidden)
     flops = 2 * B * 4 * hidden * hidden + 4 * hidden * (n_rows + B)
     bound = max(nbytes / hbm, flops / peak) * 1e3
-    say("sglang", B=B, page=1, lens=SERVE_LENS, max_abs_err=f"{max_abs:.3g}",
+    say("sglang", kernel=9, B=B, page=1, lens=SERVE_LENS, max_abs_err=f"{max_abs:.3g}",
         tol="atol=2e-2,rtol=2e-2", appended_row_err=f"{row_err:.3g}",
         ms=f"{ms:.4f}", call_ms=f"{call_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
         bound_ms=f"{bound:.4f}",
@@ -683,6 +696,176 @@ def phase_serving(eng, dev):
     return pa_launches, layer_launches
 
 
+def phase_verify(eng, dev, hbm, peak, stack_ms, pos=600):
+    """Kernel 8 against its plain twin at n 5 (the default n_draft 4) and
+    n 9 (n_draft 8), pos 600 of a 1024-row cache.  Returns n 5's row of the
+    kernel table."""
+    from clusterfusion_tpu_torch.models import llama as model
+    from clusterfusion_tpu_torch.ops import stack_verify as sv
+    cfg, p = eng.cfg, eng.params
+    lw = p["layers"]
+    g, hd = cfg.n_heads // cfg.kv_heads, cfg.head_dim_
+    L, kvh = cfg.n_layers, cfg.kv_heads
+    gen = torch.Generator(device=dev).manual_seed(9)
+    kc, vc = model.init_cache(cfg, max_seq=1024, device=dev)
+    kc.copy_(torch.randn(kc.shape, generator=gen, device=dev))
+    vc.copy_(torch.randn(vc.shape, generator=gen, device=dev))
+    # rows at and above pos stand for stale rows of rejected drafts: large,
+    # so that a kernel reading them could not pass the check
+    kc[:, :, pos:] *= 8
+    vc[:, :, pos:] *= 8
+    kw = dict(group=g, head_dim=hd, rope_style=cfg.rope_style,
+              eps=cfg.norm_eps, final_norm=p["final_norm"],
+              lm_head=p["lm_head"])
+    wbytes = sum(t.numel() * t.element_size() for t in
+                 (lw["wqkv_f"], lw["wo_f"], lw["w13"], lw["w2"], lw["attn_norm"],
+                  lw["ffn_norm"], p["final_norm"], p["lm_head"]))
+    weights = sum(t.numel() for t in (lw["wqkv_f"], lw["wo_f"], lw["w13"],
+                                      lw["w2"], p["lm_head"]))
+    rows = {}
+    for n in (5, 9):
+        x = p["embed"][torch.arange(n, device=dev) * 37 + 11]
+        cos, sin = model.rope_rows(cfg, pos, n, dev)
+        args = (x, lw["attn_norm"], lw["ffn_norm"], cos, sin, lw["wqkv_f"],
+                lw["wo_f"], lw["w13"], lw["w2"])
+        kk, vk = kc.clone(), vc.clone()
+        kr, vr = kc.clone(), vc.clone()
+        out = sv.fused_verify_stack(*args, kk, vk, pos, **kw)
+        ref = sv.fused_verify_stack_plain(*args, kr, vr, pos, **kw)
+        torch.cuda.synchronize()
+        lg_err = (out[0] - ref[0]).abs().max().item()
+        lg_rel = lg_err / ref[0].abs().max().item()
+        new = slice(pos, pos + n)
+        # the n appended rows, per layer: [L] max abs error and max |row|
+        row_err = torch.maximum(
+            (kk[:, :, new].float() - kr[:, :, new].float()).abs().amax(dim=(1, 2, 3)),
+            (vk[:, :, new].float() - vr[:, :, new].float()).abs().amax(dim=(1, 2, 3)))
+        row_mag = torch.maximum(kr[:, :, new].float().abs().amax(dim=(1, 2, 3)),
+                                vr[:, :, new].float().abs().amax(dim=(1, 2, 3)))
+        # the limits of phase 4: layer 0 at atol 0.05, deeper layers
+        # atol 0.05 + rtol 1e-2 of |row| (f32 sum order compounding)
+        rows_ok = bool(row_err[0] <= 0.05) and \
+            bool((row_err <= 0.05 + 1e-2 * row_mag).all())
+        others = torch.ones(kc.shape[2], dtype=torch.bool, device=dev)
+        others[new] = False
+        unchanged = (torch.equal(kk[:, :, others], kc[:, :, others])
+                     and torch.equal(vk[:, :, others], vc[:, :, others]))
+        finite = bool(torch.isfinite(out[0]).all())
+        say("verify", kernel=8, n=n, pos=pos, layers=L,
+            logits_max_abs_err=f"{lg_err:.4g}",
+            logits_err_over_max=f"{lg_rel:.4g}", tol_logits=2e-2,
+            kv_rows_err_layer0=f"{row_err[0].item():.3g}", tol_layer0=0.05,
+            kv_rows_err_max=f"{row_err.max().item():.4g}",
+            kv_rows_max_abs=f"{row_mag.max().item():.3g}",
+            tol_rows="atol=0.05+rtol=1e-2", other_rows_unchanged=unchanged,
+            finite=finite, kernels_per_call=sv.last_step_kernels)
+        if not (lg_rel <= 2e-2 and rows_ok and unchanged and finite):
+            raise AssertionError(f"fused_verify_stack (n {n}) disagrees with "
+                                 "its plain twin")
+        del kr, vr
+        ms = time_ms(lambda: sv.fused_verify_stack(*args, kk, vk, pos, **kw),
+                     20)
+        plain_ms = time_ms(lambda: sv.fused_verify_stack_plain(
+            *args, kk, vk, pos, **kw), 3, warmup=1)
+        kv_read = 2 * L * kvh * pos * hd * 2          # rows < pos, K and V
+        kv_write = 2 * L * kvh * n * hd * 2
+        io = n * cfg.hidden_dim * 2 * 2 + n * cfg.vocab_size * 4 + 2 * n * hd * 4
+        nbytes = wbytes + kv_read + kv_write + io
+        flops = 2 * n * weights + \
+            4 * L * cfg.n_heads * hd * (n * pos + n * (n + 1) // 2)
+        bound = max(nbytes / hbm, flops / peak) * 1e3
+        bound_by = "bytes" if nbytes / hbm >= flops / peak else "operations"
+        say("verify", n=n, ms_per_call=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            bound_ms=f"{bound:.4f}", bound_by=bound_by,
+            stack_ms_same_pos=f"{stack_ms:.4f}",
+            verify_over_stack=f"{ms / stack_ms:.3f}",
+            weight_bytes=wbytes, kv_bytes_read=kv_read)
+        rows[n] = dict(max_abs_err=lg_err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound, bound_by=bound_by, library_ms=None)
+        del kk, vk
+    return rows[5]
+
+
+SPEC_NEW = 32
+SPEC_DRAFT = 4
+
+
+def spec_run(eng, dev, prompt, draft, ref, label):
+    """``spec_generate`` with ``draft``; checks its stream against
+    ``stream_generate``'s (``ref``) and the plain path under the top-2-gap
+    rule, and one verify launch per round.  Returns (verify launches,
+    rounds where a draft was rejected at a top-2 gap > 0.1)."""
+    from clusterfusion_tpu_torch.ops import flash_prefill as fp
+    from clusterfusion_tpu_torch.ops import stack_kernel as sk
+    from clusterfusion_tpu_torch.ops import stack_verify as sv
+    fp.launches = sk.launches = sv.launches = 0
+    toks = eng.spec_generate(prompt, SPEC_NEW, draft, n_draft=SPEC_DRAFT)
+    verify_launches, stack_launches, flash_launches = \
+        sv.launches, sk.launches, fp.launches
+    st, gs = dict(eng.spec_stats), eng.stats
+    eos = eng.tokenizer.eos_id
+    if not all(0 <= t < eng.cfg.vocab_size for t in toks) or \
+            (len(toks) != SPEC_NEW and eos not in toks):
+        raise AssertionError(f"{label}: bad tokens {toks}")
+    if verify_launches != st["rounds"] or \
+            stack_launches != st["rounds"] * (SPEC_DRAFT + 1):
+        raise AssertionError(f"{label}: {verify_launches} verify and "
+                             f"{stack_launches} stack launches for "
+                             f"{st['rounds']} rounds")
+    plain, gaps, bad = check_against_plain(eng, dev, prompt, toks, len(toks))
+    # where a round rejected a draft, the target's own token stands at the
+    # round's last emitted place
+    rejected, at = [], 1                       # toks[0] is the prefill's
+    for c in st["round_counts"]:
+        if c < SPEC_DRAFT + 1 and at + c - 1 < len(toks):
+            rejected.append(at + c - 1)
+        at += c
+    div = next((i for i, (a, b) in enumerate(zip(toks, ref)) if a != b),
+               None)
+    say("spec", draft=label, prompt_tokens=len(prompt), tokens=len(toks),
+        rounds=st["rounds"], accepted_drafts=st["accepted_drafts"],
+        round_counts=st["round_counts"],
+        tokens_per_s=f"{gs.tokens_per_s:.2f}", wall_s=f"{gs.total_s:.3f}",
+        verify_launches=verify_launches, stack_launches=stack_launches,
+        flash_prefill_launches=flash_launches,
+        rejected_at=rejected,
+        top2_gaps_at_rejections=[round(gaps[i], 3) for i in rejected],
+        first_difference_from_stream_generate=div,
+        disagree_with_plain_where_gap_gt_0_1=bad)
+    if bad:
+        raise AssertionError(f"{label}: spec and plain disagree at {bad}")
+    if div is not None and gaps[div] > 0.1:
+        raise AssertionError(f"{label}: spec and stream_generate differ at "
+                             f"{div}, top-2 gap {gaps[div]:.3f}")
+    return verify_launches, [i for i in rejected if gaps[i] > 0.1]
+
+
+def phase_spec(eng, dev):
+    """``spec_generate`` at 7B: a self-draft and an unrelated small draft.
+    Returns the verify launches of the self-draft run."""
+    from clusterfusion_tpu_torch.config import LlamaConfig
+    from clusterfusion_tpu_torch.models.generation import Llama
+    text = ("Speculative decoding drafts a few tokens and one verify step "
+            "scores them all. " * 3)[:127]
+    prompt = eng.tokenizer.encode(text, bos=True, eos=False)
+    ref = list(eng.stream_generate(prompt, SPEC_NEW, temperature=0.0))
+    say("spec", baseline="stream_generate", tokens=len(ref),
+        tokens_per_s=f"{eng.stats.tokens_per_s:.2f}",
+        wall_s=f"{eng.stats.total_s:.3f}")
+    # a second engine on the same weights, with its own cache
+    self_draft = Llama(eng.params, eng.cfg, eng.tokenizer, fused=True)
+    launches, bad = spec_run(eng, dev, prompt, self_draft, ref, "self")
+    if bad:
+        raise AssertionError(f"self-draft: drafts rejected at {bad} where "
+                             "the target's top-2 gap exceeds 0.1")
+    small = Llama.synthetic(
+        LlamaConfig.tiny(hidden_dim=1024, n_heads=8, ffn_dim=2816, n_layers=4,
+                         vocab_size=32000, max_seq_len=2048),
+        seed=1, fused=True, device=dev)
+    spec_run(eng, dev, prompt, small, ref, "small")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -710,6 +893,8 @@ def main() -> int:
     paged = phase_paged_attention(dev, hbm, peak)
     layer = phase_paged_layer(eng, dev, hbm, peak)
     pa_launches, layer_launches = phase_serving(eng, dev)
+    verify = phase_verify(eng, dev, hbm, peak, stack["ms"])
+    verify_launches = phase_spec(eng, dev)
     kernels = [
         dict(name="flash_prefill_attention", route="cuda",
              source="clusterfusion_tpu_torch/csrc/flash_prefill.cu",
@@ -727,6 +912,10 @@ def main() -> int:
              source="clusterfusion_tpu_torch/csrc/paged_decoder_layer.cu",
              replaces="clusterfusion_tpu/ops/paged_decoder_layer.py:399",
              launches=layer_launches, **layer),
+        dict(name="fused_verify_stack", route="cuda",
+             source="clusterfusion_tpu_torch/csrc/stack_verify.cu",
+             replaces="clusterfusion_tpu/ops/stack_verify.py:432",
+             launches=verify_launches, **verify),
     ]
     for k in kernels:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms"):

@@ -5,9 +5,11 @@ Usage:
     python -m clusterfusion_tpu_torch.chat --synthetic
     python -m clusterfusion_tpu_torch.chat --synthetic --eager
     python -m clusterfusion_tpu_torch.chat --synthetic --device cpu
+    python -m clusterfusion_tpu_torch.chat --synthetic --spec_draft synthetic
 
 Loading a checkpoint is not ported yet, so ``--synthetic`` (random
-weights, byte tokenizer) is required.
+weights, byte tokenizer) is required, and ``--spec_draft`` takes only
+``synthetic`` (a random tiny draft, seed 1).
 """
 
 from __future__ import annotations
@@ -33,26 +35,49 @@ def main(argv=None):
     ap.add_argument("--quant", type=str, default=None)
     ap.add_argument("--kv_fp8", action="store_true")
     ap.add_argument("--kv_int8", action="store_true")
-    ap.add_argument("--spec_draft", type=str, default=None)
+    ap.add_argument("--spec_draft", type=str, default=None,
+                    help="'synthetic' for a random tiny draft model "
+                         "(speculative decoding; forces greedy sampling)")
+    ap.add_argument("--n_draft", type=int, default=4,
+                    help="draft tokens per speculative round")
     args = ap.parse_args(argv)
 
     for flag, given in (("--quant", args.quant), ("--kv_fp8", args.kv_fp8),
-                        ("--kv_int8", args.kv_int8),
-                        ("--spec_draft", args.spec_draft)):
+                        ("--kv_int8", args.kv_int8)):
         if given:
             sys.exit(f"{flag}: not yet ported")
+    if args.spec_draft not in (None, "synthetic"):
+        sys.exit("--spec_draft: loading a draft checkpoint is not yet ported")
     if not args.synthetic:
         sys.exit("loading a checkpoint is not yet ported: pass --synthetic")
 
     from clusterfusion_tpu_torch.config import LlamaConfig
     from clusterfusion_tpu_torch.models.generation import Llama
 
+    fused = not args.eager
     cfg = LlamaConfig.tiny(max_seq_len=args.max_seq_len)
-    gen = Llama.synthetic(cfg, fused=not args.eager, device=args.device)
+    gen = Llama.synthetic(cfg, fused=fused, device=args.device)
+    draft = None
+    if args.spec_draft == "synthetic":
+        draft = Llama.synthetic(LlamaConfig.tiny(max_seq_len=args.max_seq_len),
+                                seed=1, fused=fused, device=args.device)
     toks = gen.tokenizer.encode(args.prompt, bos=True, eos=False)
     print(f"[prompt: {len(toks)} tokens | fused={gen.fused} | "
-          f"device={gen.device}]")
+          f"device={gen.device}"
+          + (f" | spec n_draft={args.n_draft}" if draft else "") + "]")
     t0 = time.perf_counter()
+    if draft is not None:
+        out = gen.spec_generate(toks, args.max_gen_len, draft,
+                                n_draft=args.n_draft)
+        n = len(out)
+        sys.stdout.write(gen.tokenizer.decode(out))
+        sys.stdout.flush()
+        dt = time.perf_counter() - t0
+        st = gen.spec_stats
+        print(f"\n\n[{n} tokens in {dt:.2f}s -> {n / dt:.2f} tokens/sec | "
+              f"{st['rounds']} rounds, {st['accepted_drafts']} drafts "
+              f"accepted]")
+        return
     n = 0
     for t in gen.stream_generate(toks, args.max_gen_len, args.temperature,
                                  args.top_p):

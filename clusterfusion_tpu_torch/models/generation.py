@@ -3,7 +3,9 @@
 ``Llama`` wraps the functional model: ``synthetic`` builds a random-weight
 engine with the byte tokenizer; ``stream_generate`` yields tokens one at a
 time, prefilling the prompt and then running one decode step per token;
-``generate`` decodes a batch of prompts together through the
+``spec_generate`` decodes greedily with a draft model proposing tokens
+that one verify step scores (``models.speculative``); ``generate``
+decodes a batch of prompts together through the
 continuous-batching ``ServingEngine``, and ``text_completion`` /
 ``chat_completion`` (llama-2 ``[INST]`` templating) sit on it.  The
 fused-vs-eager switch is an argument, and the ``USE_CLUSTER_FUSION``
@@ -22,6 +24,7 @@ import torch
 
 from clusterfusion_tpu_torch.config import KernelConfig, LlamaConfig
 from clusterfusion_tpu_torch.models import llama as model
+from clusterfusion_tpu_torch.models import speculative
 from clusterfusion_tpu_torch.models.sampling import sample
 from clusterfusion_tpu_torch.models.tokenizer import load_tokenizer
 from clusterfusion_tpu_torch.ops._support import resolve_device
@@ -108,6 +111,61 @@ class Llama:
             pos += 1
         self.stats = GenStats(len(toks), n_gen, time.perf_counter() - t0,
                               prefill_s)
+
+    def spec_generate(self, prompt_tokens: Sequence[int], max_gen_len: int,
+                      draft: "Llama", n_draft: int = 4,
+                      rounds_per_dispatch: int = 1) -> List[int]:
+        """Greedy speculative decode with ``draft`` as the proposal model.
+
+        Emits the greedy stream of this (target) model; the draft only
+        changes how many target forwards it takes (see
+        ``models.speculative``).  ``rounds_per_dispatch`` rounds run before
+        their tokens return to the emit loop.  Sets ``self.spec_stats``:
+        rounds, drafts accepted, tokens, and the tokens each round
+        emitted."""
+        cfg = self.cfg
+        toks = list(prompt_tokens)
+        span = n_draft + 1
+        t0 = time.perf_counter()
+        k_cache, v_cache = model.init_cache(cfg, device=self.device)
+        logits, k_cache, v_cache = model.prefill(
+            self.params, k_cache, v_cache, toks, cfg, kcfg=self.kcfg)
+        kd, vd = model.init_cache(draft.cfg, device=draft.device)
+        model.prefill(draft.params, kd, vd, toks, draft.cfg, kcfg=draft.kcfg)
+        tok = torch.argmax(logits[-1])
+        out = [int(tok)]
+        pos = len(toks)
+        rounds = accepted = 0
+        round_counts: List[int] = []
+        eos = self.tokenizer.eos_id
+        while len(out) < max_gen_len and out[-1] != eos:
+            # cache budget: round r writes rows up to pos + (r-1)*span + n_draft
+            cap_rounds = (cfg.max_seq_len - 1 - n_draft - pos) // span + 1
+            r = min(rounds_per_dispatch, cap_rounds)
+            if r < 1:
+                break
+            targets, counts, k_cache, v_cache, kd, vd = \
+                speculative.spec_decode_loop(
+                    self.params, k_cache, v_cache, draft.params, kd, vd, tok,
+                    pos, cfg, draft.cfg, kcfg=self.kcfg, n_draft=n_draft,
+                    n_rounds=r, draft_fused=draft.fused,
+                    target_fused=self.fused)
+            emitted = speculative.flatten_rounds(targets.cpu(), counts)
+            rounds += r
+            round_counts += counts.tolist()
+            accepted += int(counts.sum()) - r     # drafts accepted (no bonus)
+            pos += int(counts.sum())
+            tok = torch.tensor(emitted[-1], dtype=torch.long,
+                               device=self.device)
+            if eos in emitted:
+                out.extend(emitted[: emitted.index(eos) + 1])
+                break
+            out.extend(emitted)
+        out = out[:max_gen_len]
+        self.stats = GenStats(len(toks), len(out), time.perf_counter() - t0)
+        self.spec_stats = {"rounds": rounds, "accepted_drafts": accepted,
+                           "tokens": len(out), "round_counts": round_counts}
+        return out
 
     def generate(self, prompt_tokens: Sequence[Sequence[int]],
                  max_gen_len: int, temperature: float = 0.6,

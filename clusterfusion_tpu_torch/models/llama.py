@@ -146,18 +146,25 @@ def rope_table(cfg: LlamaConfig, max_pos: Optional[int] = None,
     return rope_tables_gptj(hd, max_pos, cfg.rope_theta, l3, device)
 
 
-def rope_row(cfg: LlamaConfig, pos: int, device="cpu"):
-    """Row ``pos`` of :func:`rope_table` as ([1, hd], [1, hd]), computed
-    alone (the same angles, without building the whole table)."""
+def rope_rows(cfg: LlamaConfig, pos: int, n: int, device="cpu"):
+    """Rows ``pos .. pos+n-1`` of :func:`rope_table` as ([n, hd], [n, hd]),
+    computed alone (the same angles, without building the whole table)."""
     inv_freq = rope_inv_freq(cfg.head_dim_, cfg.rope_theta,
                              cfg.llama3_scaling)
-    a = torch.from_numpy((pos * inv_freq).astype(np.float32))
+    a = torch.from_numpy(
+        np.outer(np.arange(pos, pos + n), inv_freq).astype(np.float32))
     c, s = torch.cos(a), torch.sin(a)
     if cfg.rope_style == "neox":
-        c, s = torch.cat([c, c]), torch.cat([s, s])
+        c, s = torch.cat([c, c], dim=-1), torch.cat([s, s], dim=-1)
     else:
-        c, s = torch.repeat_interleave(c, 2), torch.repeat_interleave(s, 2)
-    return c[None].to(device), s[None].to(device)
+        c = torch.repeat_interleave(c, 2, dim=-1)
+        s = torch.repeat_interleave(s, 2, dim=-1)
+    return c.to(device), s.to(device)
+
+
+def rope_row(cfg: LlamaConfig, pos: int, device="cpu"):
+    """Row ``pos`` of :func:`rope_table` as ([1, hd], [1, hd])."""
+    return rope_rows(cfg, pos, 1, device)
 
 
 def init_cache(cfg: LlamaConfig, max_seq: Optional[int] = None, device=None):

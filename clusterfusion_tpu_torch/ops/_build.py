@@ -39,7 +39,10 @@ SIGNATURES = {
     "cf_stack_scratch_floats": ([_I] * 7, ctypes.c_longlong),
     "cf_decoder_stack": ([_P] * 17 + [_I] * 11
                          + [_F, _I, _I, ctypes.POINTER(_I), _P], _I),
-    "cf_paged_attention": ([_P] * 8 + [_I] * 8 + [_P], _I),
+    "cf_verify_scratch_floats": ([_I] * 8, ctypes.c_longlong),
+    "cf_verify_stack": ([_P] * 17 + [_I] * 12
+                        + [_F, _I, _I, ctypes.POINTER(_I), _P], _I),
+    "cf_paged_attention":([_P] * 8 + [_I] * 8 + [_P], _I),
     "cf_paged_decoder_layer": ([_P] * 18 + [_I] * 13
                                + [_F, ctypes.POINTER(_I), _P], _I),
     "cf_error_string": ([_I], ctypes.c_char_p),

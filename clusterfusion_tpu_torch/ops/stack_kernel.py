@@ -72,6 +72,56 @@ def _norm(h: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return (h * torch.rsqrt(var + eps) * w.float()).to(torch.bfloat16)
 
 
+def refuse_unported(what: str, head_dim: int, weights, final_norm, lm_head,
+                    k_cache, v_cache, *, reduce_axis, window, bias_qkv,
+                    ffn_act, softcap, post_attn_norm, post_ffn_norm) -> None:
+    """Raise on what the whole-stack kernels (``fused_decoder_stack``,
+    ``fused_verify_stack``) do not take yet."""
+    if reduce_axis is not None:
+        raise NotImplementedError(f"{what}: reduce_axis (tp) is not ported "
+                                  "yet")
+    if window or softcap or bias_qkv is not None or ffn_act != "silu":
+        raise NotImplementedError(f"{what}: window, softcap, QKV bias and "
+                                  "GeGLU are not ported yet")
+    if post_attn_norm is not None or post_ffn_norm is not None:
+        raise NotImplementedError(f"{what}: sandwich norms are not ported "
+                                  "yet")
+    if head_dim % 128:
+        raise NotImplementedError(
+            f"{what}: head_dim {head_dim} < 128 (the TPU stack kernel's "
+            "defer_append variant) is not ported yet")
+    if any(w is not None and w.dtype != torch.bfloat16
+           for w in (*weights, lm_head)):
+        raise NotImplementedError(f"{what}: only bf16 weights are ported "
+                                  "(quantized weights are not)")
+    if k_cache.dtype != torch.bfloat16 or v_cache.dtype != torch.bfloat16:
+        raise NotImplementedError(f"{what}: only a bf16 KV cache is ported "
+                                  "(int8/fp8 KV are not)")
+    if (final_norm is None) != (lm_head is None):
+        raise ValueError("final_norm and lm_head go together")
+
+
+def check_launch(kcfg: KernelConfig, tensors: dict, widths) -> None:
+    """What a whole-stack launch needs: a sane ``kcfg``; every tensor given
+    (None entries are skipped) on x's device, contiguous and 16-byte
+    aligned; every GEMV width a multiple of 8."""
+    if not 1 <= kcfg.kv_split <= 1024 or kcfg.gemv_threads % 32:
+        raise ValueError(f"bad KernelConfig {kcfg}")
+    dev = tensors["x"].device
+    for name, t in tensors.items():
+        if t is None:
+            continue
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, x on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    for w in widths:
+        if w % 8:
+            raise ValueError(f"GEMV width {w} is not a multiple of 8")
+
+
 def fused_decoder_stack_plain(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f,
                               w13, w2, k_cache, v_cache, pos, *, group: int,
                               head_dim: int, rope_style: str, eps: float,
@@ -173,29 +223,12 @@ def fused_decoder_stack(
     written at ``pos`` of every layer, in place.
     """
     global launches, last_step_kernels
-    if reduce_axis is not None:
-        raise NotImplementedError("fused_decoder_stack: reduce_axis (tp) is "
-                                  "not ported yet")
-    if window or softcap or bias_qkv is not None or ffn_act != "silu":
-        raise NotImplementedError("fused_decoder_stack: window, softcap, QKV "
-                                  "bias and GeGLU are not ported yet")
-    if post_attn_norm is not None or post_ffn_norm is not None:
-        raise NotImplementedError("fused_decoder_stack: sandwich norms are "
-                                  "not ported yet")
-    if head_dim % 128:
-        raise NotImplementedError(
-            f"fused_decoder_stack: head_dim {head_dim} < 128 (the TPU "
-            "kernel's defer_append variant) is not ported yet")
-    weights = (wqkv_f, wo_f, w13, w2, attn_norm, ffn_norm)
-    if any(w.dtype != torch.bfloat16 for w in weights) or \
-            (lm_head is not None and lm_head.dtype != torch.bfloat16):
-        raise NotImplementedError("fused_decoder_stack: only bf16 weights "
-                                  "are ported (quantized weights are not)")
-    if k_cache.dtype != torch.bfloat16 or v_cache.dtype != torch.bfloat16:
-        raise NotImplementedError("fused_decoder_stack: only a bf16 KV cache "
-                                  "is ported (int8/fp8 KV are not)")
-    if (final_norm is None) != (lm_head is None):
-        raise ValueError("final_norm and lm_head go together")
+    refuse_unported("fused_decoder_stack", head_dim,
+                    (wqkv_f, wo_f, w13, w2, attn_norm, ffn_norm), final_norm,
+                    lm_head, k_cache, v_cache, reduce_axis=reduce_axis,
+                    window=window, bias_qkv=bias_qkv, ffn_act=ffn_act,
+                    softcap=softcap, post_attn_norm=post_attn_norm,
+                    post_ffn_norm=post_ffn_norm)
     pos = int(pos)
     L, G, hidden, C = wqkv_f.shape
     _, kv_heads, cap, hd = k_cache.shape
@@ -222,26 +255,14 @@ def fused_decoder_stack(
         raise ValueError(f"unknown rope style {rope_style!r}")
     if group > 8:
         raise NotImplementedError(f"GQA group {group} > 8")
-    if not 1 <= kcfg.kv_split <= 1024 or kcfg.gemv_threads % 32:
-        raise ValueError(f"bad KernelConfig {kcfg}")
-    dev = x.device
-    tensors = dict(x=x, attn_norm=attn_norm, ffn_norm=ffn_norm, wqkv_f=wqkv_f,
-                   wo_f=wo_f, w13=w13, w2=w2, k_cache=k_cache,
-                   v_cache=v_cache)
-    if lm_head is not None:
-        tensors.update(final_norm=final_norm, lm_head=lm_head)
-    for name, t in tensors.items():
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, x on {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
     if x.dtype != torch.bfloat16 or x.numel() != hidden:
         raise ValueError("x must be bf16 [1, hidden]")
-    for n in (C, hidden, f_pad, vocab):
-        if n % 8:
-            raise ValueError(f"GEMV width {n} is not a multiple of 8")
+    dev = x.device
+    check_launch(kcfg, dict(x=x, attn_norm=attn_norm, ffn_norm=ffn_norm,
+                            wqkv_f=wqkv_f, wo_f=wo_f, w13=w13, w2=w2,
+                            k_cache=k_cache, v_cache=v_cache,
+                            final_norm=final_norm, lm_head=lm_head),
+                 (C, hidden, f_pad, vocab))
     cos_f = cos.to(device=dev, dtype=torch.float32).reshape(hd).contiguous()
     sin_f = sin.to(device=dev, dtype=torch.float32).reshape(hd).contiguous()
 

@@ -1,0 +1,236 @@
+"""Whole-stack n-row verify for speculative decoding (twin of
+``clusterfusion_tpu/ops/stack_verify.py``).
+
+``fused_verify_stack`` scores n tokens at positions ``pos .. pos+n-1`` in
+one call through every layer, causal among themselves and attending the
+whole cache below ``pos``, and appends all n K/V rows in place.  CUDA
+tensors run the hand-written kernels of ``csrc/stack_verify.cu``, launched
+in a fixed order per layer by one C entry point (see the note at the top of
+that file); CPU tensors run ``fused_verify_stack_plain``, which repeats the
+kernels' arithmetic in PyTorch.  Both follow the TPU kernel where bf16
+rounds, which is not where the one-row stack rounds:
+
+- q is roped, pre-scaled by 1/sqrt(hd)*log2(e) and kept float32; it is
+  rounded to bf16 for the dots over cached rows, whose p is rounded to bf16
+  for the p.V dot;
+- the n x n causal block of fresh rows takes its scores from the float32 q
+  and k, but rounds p and v to bf16 before their product (the one-row stack
+  folds its current token in float32);
+- only cache rows ``< pos`` are read: rows at and above ``pos`` may hold
+  stale rows of rejected drafts;
+- ``o`` is rounded to bf16 and the O-projection sums stay float32; the
+  hidden pair stays float32 across layers and the LM phase normalises
+  ``hx + residual`` in float32.
+
+With n=1 this computes what ``fused_decoder_stack`` computes but for those
+bf16 roundings of the current token's p and v.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+import torch.nn.functional as F
+
+from clusterfusion_tpu_torch.config import KernelConfig
+from clusterfusion_tpu_torch.ops import _build
+from clusterfusion_tpu_torch.ops._support import cdiv, glu_act
+from clusterfusion_tpu_torch.ops.stack_kernel import (
+    _LOG2E, _NEG_INF, _norm, _rope, _vocab_block, check_launch,
+    refuse_unported)
+
+#: Calls of :func:`fused_verify_stack` that launched the kernels.
+launches = 0
+#: CUDA kernels the last such call launched (8 per layer + 1 or 2).
+last_step_kernels = 0
+#: Rows one call takes (the merge kernel keeps them in shared memory).
+MAX_ROWS = 32
+
+
+def fused_verify_stack_plain(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f,
+                             w13, w2, k_cache, v_cache, pos, *, group: int,
+                             head_dim: int, rope_style: str, eps: float,
+                             final_norm=None, lm_head=None,
+                             kv_split: int = KernelConfig().kv_split):
+    """Plain PyTorch version of :func:`fused_verify_stack` (same arguments,
+    same results, caches appended in place).  ``kv_split`` is the kernel's
+    split of the cached rows: bf16(p) is taken against each split's own
+    max, as the kernel takes it, so the two round p alike."""
+    pos = int(pos)
+    n, hidden = x.shape
+    L = wqkv_f.shape[0]
+    kv = k_cache.shape[1]
+    hd, g = head_dim, group
+    scale = _LOG2E / math.sqrt(hd)
+    cos_f = cos.float().reshape(n, 1, 1, hd)
+    sin_f = sin.float().reshape(n, 1, 1, hd)
+    bf16 = torch.bfloat16
+    causal = torch.ones((n, n), dtype=torch.bool, device=x.device).tril()
+    ns = cdiv(pos, kv_split)
+    pad = ns * kv_split - pos
+    hx = x.float()
+    res = torch.zeros_like(hx)
+    for l in range(L):
+        res = hx + res
+        xn = _norm(res, attn_norm[l], eps)                        # [n, hidden]
+        qkv = torch.einsum("nd,Gdc->nGc", xn.float(), wqkv_f[l].float())
+        qkv = qkv.reshape(n, kv, g + 2, hd)
+        q = _rope(qkv[:, :, :g], cos_f, sin_f, rope_style) * scale   # [n,kv,g,hd]
+        k_new = _rope(qkv[:, :, g], cos_f[:, 0], sin_f[:, 0], rope_style)
+        v_new = qkv[:, :, g + 1]                                  # [n, kv, hd]
+        # the fresh n x n causal block: float32 scores, query t x key j
+        s_cur = torch.einsum("tkgd,jkd->kgtj", q, k_new)
+        s_cur = s_cur.masked_fill(~causal, _NEG_INF)
+        m_f = s_cur.amax(dim=-1)                                  # [kv, g, n]
+        l_f = acc = 0.0
+        if ns:
+            # split-KV pass over rows < pos: per split of kv_split rows a
+            # max m_s, a sum l_s of exp2(s - m_s), and bf16(p) @ V
+            kc = F.pad(k_cache[l, :, :pos].float(), (0, 0, 0, pad))
+            vc = F.pad(v_cache[l, :, :pos].float(), (0, 0, 0, pad))
+            s = torch.einsum("tkgd,ksd->kgts", q.to(bf16).float(), kc)
+            s = F.pad(s[..., :pos], (0, pad), value=_NEG_INF)
+            s = s.reshape(kv, g, n, ns, kv_split)
+            m_s = s.amax(dim=-1, keepdim=True)
+            p = torch.exp2(s - m_s)
+            pv_s = torch.einsum("kgtns,knsd->kgtnd", p.to(bf16).float(),
+                                vc.reshape(kv, ns, kv_split, hd))
+            m_s = m_s[..., 0]                                     # [kv,g,n,ns]
+            m_f = torch.maximum(m_f, m_s.amax(dim=-1))
+            e_s = torch.exp2(m_s - m_f[..., None])
+            l_f = (p.sum(dim=-1) * e_s).sum(dim=-1)
+            acc = (pv_s * e_s[..., None]).sum(dim=-2)
+        p_cur = torch.exp2(s_cur - m_f[..., None]) * causal
+        l_f = l_f + p_cur.sum(dim=-1)
+        acc = acc + torch.einsum("kgtj,jkd->kgtd", p_cur.to(bf16).float(),
+                                 v_new.to(bf16).float())
+        o = (acc / l_f[..., None]).to(bf16)                       # [kv,g,n,hd]
+        k_cache[l, :, pos:pos + n] = k_new.transpose(0, 1).to(k_cache.dtype)
+        v_cache[l, :, pos:pos + n] = v_new.transpose(0, 1).to(v_cache.dtype)
+        o_flat = o.permute(2, 0, 1, 3).reshape(n, kv * g * hd)
+        aout = o_flat.float() @ wo_f[l].reshape(-1, hidden).float()
+        res = aout + res
+        xn2 = _norm(res, ffn_norm[l], eps)
+        y = torch.einsum("nd,udf->unf", xn2.float(), w13[l].float())
+        act = glu_act(y[0], y[1]).to(bf16)
+        hx = act.float() @ w2[l].float()
+    if lm_head is not None:
+        xn = _norm(hx + res, final_norm, eps)
+        logits = xn.float() @ lm_head.float()
+        return logits, res.to(bf16), k_cache, v_cache
+    return hx.to(bf16), res.to(bf16), k_cache, v_cache
+
+
+def fused_verify_stack(
+    x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f, w13, w2,
+    k_cache, v_cache, pos,
+    *,
+    group: int,
+    head_dim: int,
+    rope_style: str,
+    eps: float,
+    kcfg: KernelConfig = KernelConfig(),
+    final_norm=None,
+    lm_head=None,
+    reduce_axis=None,
+    window: int = 0,
+    bias_qkv=None,
+    ffn_act: str = "silu",
+    softcap: float = 0.0,
+    window_pattern: str = "all",
+    post_attn_norm=None,
+    post_ffn_norm=None,
+):
+    """Score n tokens through the whole decoder stack in one call.
+
+    Same operands as ``fused_decoder_stack`` except x [n, hidden] and
+    cos/sin [n, hd] (rows for positions pos..pos+n-1); needs
+    ``0 <= pos`` and ``pos + n <= capacity``.  Returns (x_out [n, hidden],
+    residual_out [n, hidden], k_cache, v_cache), or (logits [n, vocab] f32,
+    residual_out, k_cache, v_cache) when ``final_norm`` and ``lm_head`` are
+    given.  All n K/V rows are written at pos..pos+n-1 of every layer, in
+    place.
+    """
+    global launches, last_step_kernels
+    refuse_unported("fused_verify_stack", head_dim,
+                    (wqkv_f, wo_f, w13, w2, attn_norm, ffn_norm), final_norm,
+                    lm_head, k_cache, v_cache, reduce_axis=reduce_axis,
+                    window=window, bias_qkv=bias_qkv, ffn_act=ffn_act,
+                    softcap=softcap, post_attn_norm=post_attn_norm,
+                    post_ffn_norm=post_ffn_norm)
+    pos = int(pos)
+    n, hidden = x.shape
+    L, G, _, C = wqkv_f.shape
+    _, kv_heads, cap, hd = k_cache.shape
+    hg = kv_heads // G
+    f_pad = w2.shape[-2]
+    if hd != head_dim or C != hg * (group + 2) * hd:
+        raise ValueError(f"wqkv_f columns {C} != hg*(group+2)*hd "
+                         f"= {hg}*{group + 2}*{hd}")
+    if pos < 0 or pos + n > cap:
+        raise ValueError(f"rows {pos}..{pos + n - 1} outside the cache "
+                         f"capacity {cap}")
+    if tuple(cos.shape) != (n, hd) or tuple(sin.shape) != (n, hd):
+        raise ValueError(f"cos/sin must be [{n}, {hd}], got "
+                         f"{tuple(cos.shape)} and {tuple(sin.shape)}")
+    vocab = 0
+    if lm_head is not None:
+        vocab = lm_head.shape[-1]
+        if _vocab_block(vocab) == 0:
+            raise ValueError(f"vocab {vocab} has no 128-aligned block")
+    if x.device.type == "cpu":
+        return fused_verify_stack_plain(
+            x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f, w13, w2, k_cache,
+            v_cache, pos, group=group, head_dim=head_dim,
+            rope_style=rope_style, eps=eps, final_norm=final_norm,
+            lm_head=lm_head, kv_split=kcfg.kv_split)
+
+    if rope_style not in ("neox", "gptj"):
+        raise ValueError(f"unknown rope style {rope_style!r}")
+    if not 1 <= n <= MAX_ROWS:
+        raise NotImplementedError(f"fused_verify_stack: {n} rows; the kernel "
+                                  f"takes 1..{MAX_ROWS}")
+    if x.dtype != torch.bfloat16:
+        raise ValueError("x must be bf16 [n, hidden]")
+    dev = x.device
+    check_launch(kcfg, dict(x=x, attn_norm=attn_norm, ffn_norm=ffn_norm,
+                            wqkv_f=wqkv_f, wo_f=wo_f, w13=w13, w2=w2,
+                            k_cache=k_cache, v_cache=v_cache,
+                            final_norm=final_norm, lm_head=lm_head),
+                 (C, hidden, f_pad, vocab))
+    cos_f = cos.to(device=dev, dtype=torch.float32).contiguous()
+    sin_f = sin.to(device=dev, dtype=torch.float32).contiguous()
+
+    lib = _build.lib()
+    n_scratch = lib.cf_verify_scratch_floats(n, hidden, kv_heads, group, hd,
+                                             cap, f_pad, kcfg.kv_split)
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
+    res_out = torch.empty((n, hidden), dtype=torch.bfloat16, device=dev)
+    if lm_head is not None:
+        logits = torch.empty((n, vocab), dtype=torch.float32, device=dev)
+        x_out = None
+    else:
+        logits = None
+        x_out = torch.empty((n, hidden), dtype=torch.bfloat16, device=dev)
+    n_launch = ctypes.c_int(0)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = lib.cf_verify_stack(
+        ptr(x), ptr(attn_norm), ptr(ffn_norm), ptr(cos_f), ptr(sin_f),
+        ptr(wqkv_f), ptr(wo_f), ptr(w13), ptr(w2), ptr(k_cache),
+        ptr(v_cache), ptr(final_norm), ptr(lm_head), ptr(x_out),
+        ptr(res_out), ptr(logits), ptr(scratch),
+        n, L, hidden, kv_heads, hg, group, hd, cap, f_pad, vocab, pos,
+        1 if rope_style == "neox" else 0, float(eps), kcfg.kv_split,
+        kcfg.gemv_threads, ctypes.byref(n_launch),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "fused_verify_stack")
+    launches += 1
+    last_step_kernels = n_launch.value
+    if lm_head is not None:
+        return logits, res_out, k_cache, v_cache
+    return x_out, res_out, k_cache, v_cache

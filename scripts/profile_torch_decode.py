@@ -4,8 +4,9 @@
 
 Prints, for random weights (seed 0): the decode step's device time by
 kernel name over 5 steps at pos 600 (``torch.profiler``), the device busy
-share of those steps, and a 512-token prefill's first and warm wall times
-with its device time by kernel name.  Needs a CUDA card.
+share of those steps, the same for 5 speculative verify calls of 5 rows at
+pos 600 (``verify_step``, kernel 8), and a 512-token prefill's first and
+warm wall times with its device time by kernel name.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from clusterfusion_tpu_torch.config import LlamaConfig  # noqa: E402
 from clusterfusion_tpu_torch.models import llama as model  # noqa: E402
+from clusterfusion_tpu_torch.models import speculative as spec  # noqa: E402
 from clusterfusion_tpu_torch.models.generation import Llama  # noqa: E402
 
 
@@ -74,6 +76,21 @@ def main() -> int:
         wall = (time.perf_counter() - t0) * 1e3
     total, rows = by_kernel(prof)
     show("decode x5 (pos 600)", total, rows, wall)
+
+    # speculative verify: 5 n=5 verify calls at pos 600 (n_draft 4)
+    n = 5
+    vt = list(range(11, 11 + n))
+    for _ in range(3):
+        spec.verify_step(p, kc, vc, vt, pos, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            spec.verify_step(p, kc, vc, vt, pos, cfg)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    total, rows = by_kernel(prof)
+    show(f"verify n={n} x5 (pos 600)", total, rows, wall)
 
     # prefill: first call, then warm, then the warm call's breakdown
     toks = list(range(3, 515))

@@ -124,6 +124,76 @@ def test_stack_kernel_matches_plain(dev, rope_style, n_heads, kv_heads, hg,
     assert torch.equal(vc[:, :, others], vp[:, :, others])
 
 
+@pytest.mark.parametrize("n,pos", [(1, 37), (2, 0), (5, 37), (8, 300),
+                                   (9, CAP - 9)])
+@pytest.mark.parametrize("with_lm", [True, False], ids=["lm", "no_lm"])
+@pytest.mark.parametrize("n_heads,kv_heads,hg", [(4, 4, 2), (8, 2, 1)],
+                         ids=["mha", "gqa4"])
+@pytest.mark.parametrize("rope_style", ["gptj", "neox"])
+def test_verify_kernel_matches_plain(dev, rope_style, n_heads, kv_heads, hg,
+                                     with_lm, n, pos):
+    """Kernel 8 against its plain twin.  Rows at and above pos hold large
+    garbage (stale rows of rejected drafts): the kernel must read none of
+    them, overwrite rows pos..pos+n-1 and leave the rest as they were."""
+    from clusterfusion_tpu_torch.ops import stack_verify as sv
+    g, a, kc, vc, lm = _stack_args(dev, n_heads, kv_heads, hg, pos)
+    kc[:, :, pos:] = _randn(kc[:, :, pos:].shape, dev, 40, 8.0)
+    vc[:, :, pos:] = _randn(vc[:, :, pos:].shape, dev, 41, 8.0)
+    x = _randn((n, HIDDEN), dev, 42)
+    cos, sin = model.rope_rows(LlamaConfig.tiny(rope_style=rope_style), pos,
+                               n, dev)
+    kw = dict(group=g, head_dim=HD, rope_style=rope_style, eps=1e-5,
+              **(lm if with_lm else {}))
+    args = [x, a["attn_norm"], a["ffn_norm"], cos, sin, a["wqkv_f"],
+            a["wo_f"], a["w13"], a["w2"]]
+    k0, v0 = kc.clone(), vc.clone()
+    kp, vp = kc.clone(), vc.clone()
+    before = sv.launches
+    out = sv.fused_verify_stack(*args, kc, vc, pos,
+                                kcfg=KernelConfig(kv_split=128), **kw)
+    torch.cuda.synchronize()
+    assert sv.launches == before + 1
+    assert sv.last_step_kernels == 8 * L - (pos == 0) * L + 1 + with_lm
+    ref = sv.fused_verify_stack_plain(*args, kp, vp, pos, kv_split=128, **kw)
+    if with_lm:
+        assert out[0].shape == (n, VOCAB)
+        err = (out[0] - ref[0]).abs().max().item()
+        assert err <= 2e-2 * ref[0].abs().max().item(), err
+    else:
+        torch.testing.assert_close(out[0].float(), ref[0].float(),
+                                   atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(out[1].float(), ref[1].float(), atol=2e-2,
+                               rtol=2e-2)
+    new = slice(pos, pos + n)
+    for got, want in ((kc, kp), (vc, vp)):
+        torch.testing.assert_close(got[:, :, new].float(),
+                                   want[:, :, new].float(), atol=0.05, rtol=0)
+    others = torch.ones(CAP, dtype=torch.bool, device=dev)
+    others[new] = False
+    assert torch.equal(kc[:, :, others], k0[:, :, others])
+    assert torch.equal(vc[:, :, others], v0[:, :, others])
+
+
+def test_verify_step_launches_kernel(dev):
+    """verify_step(fused=True) on the card goes through kernel 8 once and
+    agrees with the eager verify (the JAX suite's limit for this op)."""
+    from clusterfusion_tpu_torch.models import speculative as spec
+    from clusterfusion_tpu_torch.ops import stack_verify as sv
+    cfg = LlamaConfig.tiny(n_kv_heads=2)
+    p = model.init_params(cfg, seed=3, device=dev)
+    kc, vc = model.init_cache(cfg, device=dev)
+    model.prefill(p, kc, vc, list(range(1, 40)), cfg)
+    ke, ve = kc.clone(), vc.clone()
+    before = sv.launches
+    lf, _, _ = spec.verify_step(p, kc, vc, [5, 9, 2, 7], 39, cfg)
+    torch.cuda.synchronize()
+    assert sv.launches == before + 1
+    le, _, _ = spec.verify_step(p, ke, ve, [5, 9, 2, 7], 39, cfg, fused=False)
+    scale = max(le.abs().max().item(), 1.0)
+    assert (lf - le).abs().max().item() < 0.06 * scale
+    torch.testing.assert_close(kc.float(), ke.float(), atol=0.08, rtol=0)
+
+
 def test_model_paths_agree_on_card(dev):
     """Fused decode vs eager decode and flash vs eager prefill, all on the
     card, at LlamaConfig.tiny() with GQA."""
