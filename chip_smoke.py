@@ -47,7 +47,23 @@ run with a non-zero exit code:
    <= 0.1, one verify launch per round) and with an unrelated small draft
    (4 layers, hidden 1024, seed 1), each stream against
    ``stream_generate`` and the plain path under the top-2-gap rule, rounds,
-   accepted drafts and tokens/s beside ``stream_generate``'s.
+   accepted drafts and tokens/s beside ``stream_generate``'s;
+10. DeepSeek kernels at DeepSeek-V2-Lite geometry (the Llama engine freed
+   first): kernel 12, ``deepseek_decoder_stack_layer``, at capacity 4096
+   and pos 600 over random rows with large garbage at and above pos
+   (output, the appended row with its zero pad, every other row
+   unchanged); kernel 11 through the public op ``deepseek_decoder_layer``
+   over a 4096-row cache, against its twin and the float32 oracle; kernel
+   5, ``fused_ffn``, stacked at 2048 x 11264; each with its time (CUDA
+   events and ``torch.profiler``), the plain twin's and the bound;
+11. DeepSeek end to end: ``DeepSeekConfig(max_seq_len=4096)`` (the JAX
+   benchmark's configuration, dense FFN, 27 layers) through
+   ``generate_greedy``, 64 tokens after a 128-token prompt: prefill ms,
+   decode ms per step and tokens/s, device busy share and the step's
+   kernels by device time, launches of kernels 12 and 5 (27 per step each),
+   the first 8 tokens against the plain path under the top-2-gap rule;
+   then V2-Lite's published MoE + YaRN config at 4 layers, a fused step
+   against the eager one and 16 greedy steps.
 
 Then one JSON line per kernel table, the card line, and last
 ``{"ok": true, "device": {...}}``.  Weights are random, from a seed.
@@ -866,6 +882,364 @@ def phase_spec(eng, dev):
     return launches
 
 
+def profile_by_kernel(fn, reps: int = 8, top: int = 12):
+    """``torch.profiler`` over ``reps`` calls of ``fn``: (device ms per call,
+    profiled wall ms per call, [(kernel, ms per call, launches per call)]
+    of the ``top`` kernels by device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    rows = []
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        if t is None:
+            t = e.cuda_time_total
+        if t and e.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((e.key[:60], t / 1e3 / reps, e.count / reps))
+    rows.sort(key=lambda r: -r[1])
+    return sum(r[1] for r in rows), wall, rows[:top]
+
+
+DS_LIB_NULL = ("no single PyTorch call computes the normalised, absorbed, "
+               "appended MLA layer or the norm + SwiGLU FFN")
+
+
+def deepseek_layer_weights(dev, n_layers=2, seed=10):
+    """DeepSeek-V2-Lite layer stacks (random, from ``seed``) with norm
+    weights 1 + 0.1 N(0, 1)."""
+    import dataclasses
+    from clusterfusion_tpu_torch.config import DeepSeekConfig
+    from clusterfusion_tpu_torch.models import deepseek as ds
+    cfg = dataclasses.replace(DeepSeekConfig(), n_layers=n_layers,
+                              vocab_size=1024)
+    p = ds.init_params(cfg, seed=seed, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    for k in ("attn_norm", "ckv_norm", "ffn_norm"):
+        t = p["layers"][k]
+        t.add_(0.1 * torch.randn(t.shape, generator=gen, device=dev).bfloat16())
+    return cfg, p["layers"]
+
+
+def phase_deepseek_kernels(dev, hbm, peak, pos=600, cap=4096, seq11=4096):
+    """Kernels 12, 11 and 5 at DeepSeek-V2-Lite geometry against their
+    plain twins; returns their rows of the kernel table (kernel 11's with
+    the launches of its own path, the public op)."""
+    from clusterfusion_tpu_torch.models import deepseek as ds
+    from clusterfusion_tpu_torch.ops import deepseek_layer as dl
+    from clusterfusion_tpu_torch.ops import ffn
+    from clusterfusion_tpu_torch.ops.reference import \
+        deepseek_decoder_layer_ref
+    cfg, lw = deepseek_layer_weights(dev)
+    H, nope, rope, lora = (cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim,
+                           cfg.kv_lora_rank)
+    hid, mla, layer = cfg.hidden_dim, cfg.mla_head_dim, 1
+    split = dl.MLA_SPLIT
+    dims = dict(n_heads=H, nope_dim=nope, rope_dim=rope, lora_rank=lora,
+                eps=cfg.norm_eps)
+    cos_t, sin_t = ds.rope_table(cfg, max_pos=cap, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn((1, hid), generator=gen, device=dev).bfloat16()
+    w = [lw[k][layer] for k in ("wproj", "wuk", "wuv", "wo_t")]
+    w_bytes = sum(t.numel() * 2 for t in w) + 2 * (hid + lora)
+    w_flops = 2 * (hid * cfg.n_proj + 2 * H * nope * lora + H * nope * hid)
+    rows = {}
+
+    def plain(cache_l, seq, cos, sin):
+        return dl.mla_decode_plain(
+            x, lw["attn_norm"][layer], lw["ckv_norm"][layer], cos, sin, *w,
+            cache_l, seq, softmax_scale=cfg.softmax_scale, split=split,
+            **dims)
+
+    def bound(seq, extra_bytes):
+        nbytes = w_bytes + seq * mla * 2 + 4 * hid + extra_bytes
+        flops = w_flops + 2 * H * seq * (mla + lora)
+        b = max(nbytes / hbm, flops / peak) * 1e3
+        return b, "bytes" if nbytes / hbm >= flops / peak else "operations"
+
+    # kernel 12: the stack entry at pos, capacity 4096, garbage above pos
+    cache = ds.init_cache(cfg, max_seq=cap, device=dev)
+    cache.copy_(torch.randn(cache.shape, generator=gen, device=dev))
+    cache[:, pos:] *= 8
+    before = cache.clone()
+    cos, sin = cos_t[pos], sin_t[pos]
+    stack_args = (x, lw["wproj"], lw["wuk"], lw["wuv"], lw["wo_t"], cache,
+                  pos, layer, lw["attn_norm"], lw["ckv_norm"], cos, sin)
+    kw12 = dict(softmax_scale=cfg.softmax_scale, **dims)
+    out, _ = dl.deepseek_decoder_stack_layer(*stack_args, **kw12)
+    want, cur = plain(before[layer], pos, cos, sin)
+    torch.cuda.synchronize()
+    err = (out.float() - want.float()).abs().max().item()
+    torch.testing.assert_close(out.float(), want.float(), **LIMITS_TOL)
+    row_err = (cache[layer, pos, :mla].float() - cur).abs().max().item()
+    pad_zero = not cache[layer, pos, mla:].any()
+    others = torch.ones(cache.shape[:2], dtype=torch.bool, device=dev)
+    others[layer, pos] = False
+    unchanged = torch.equal(cache[others], before[others])
+    if not (row_err <= 0.05 and pad_zero and unchanged):
+        raise AssertionError("deepseek_decoder_stack_layer: the appended "
+                             "row or the untouched rows differ")
+    call = lambda: dl.deepseek_decoder_stack_layer(  # noqa: E731
+        *stack_args, **kw12)
+    call_ms = time_ms(call, 50)
+    ms = device_ms(call)
+    plain_ms = time_ms(lambda: plain(before[layer], pos, cos, sin), 5)
+    b, by = bound(pos, 2 * cache.shape[-1])
+    say("mla_stack", kernel=12, pos=pos, capacity=cap, heads=H, lora=lora,
+        max_abs_err=f"{err:.3g}", tol="atol=2e-2,rtol=2e-2",
+        appended_row_err=f"{row_err:.3g}", tol_row=0.05,
+        pad_columns_zero=pad_zero, other_rows_unchanged=unchanged,
+        ms=f"{ms:.4f}", call_ms=f"{call_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        bound_ms=f"{b:.4f}", bound_by=by, weight_bytes=w_bytes,
+        library_ms=None, library_null_because=repr(DS_LIB_NULL))
+    rows[12] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                    bound_by=by, library_ms=None)
+    del cache, before
+
+    # kernel 11: the public op over a 576-column cache of seq11 rows
+    c576 = torch.randn((seq11, mla), generator=gen, device=dev).bfloat16()
+    wproj = lw["wproj"][layer]
+    op_args = dict(
+        input=x, weight_q_nope=wproj[:, :H * nope].T.contiguous(),
+        weight_q_pe=wproj[:, H * nope:H * (nope + rope)].T.contiguous(),
+        weight_uk=w[1], weight_kv_nope=wproj[:, H * (nope + rope):
+                                            H * (nope + rope) + lora].T.contiguous(),
+        weight_k_pe=wproj[:, H * (nope + rope) + lora:].T.contiguous(),
+        weight_uv=w[2], weight_o=w[3].T.contiguous(), ckv_cache=c576,
+        rms_input_weight=lw["attn_norm"][layer],
+        rms_ckv_weight=lw["ckv_norm"][layer],
+        cos=cos_t[seq11 - 1], sin=sin_t[seq11 - 1])
+    for k in dl.launches:
+        dl.launches[k] = 0
+    out, ckv_new = dl.deepseek_decoder_layer(**op_args, **dims)
+    launches11 = dl.launches["deepseek_decoder_layer_fused"]
+    want, cur = plain(c576, seq11, op_args["cos"], op_args["sin"])
+    o_ref, c_ref = deepseek_decoder_layer_ref(**op_args, **dims)
+    torch.cuda.synchronize()
+    err = (out.float() - want.float()).abs().max().item()
+    torch.testing.assert_close(out.float(), want.float(), **LIMITS_TOL)
+    ckv_err = (ckv_new[0].float() - cur).abs().max().item()
+    oracle_err = (out.float() - o_ref.float()).abs()
+    oracle_ckv = (ckv_new.float() - c_ref.float()).abs().max().item()
+    if not (launches11 == 1 and ckv_err <= 0.05 and oracle_ckv < 5e-2
+            and oracle_err.max().item() < 1e-1
+            and oracle_err.mean().item() < 1e-2):
+        raise AssertionError("deepseek_decoder_layer disagrees with its "
+                             "twin or the float32 oracle")
+    fused_args = (x, lw["wproj"][layer], w[1], w[2], w[3], c576, seq11,
+                  lw["attn_norm"][layer], lw["ckv_norm"][layer],
+                  op_args["cos"], op_args["sin"])
+    call = lambda: dl.deepseek_decoder_layer_fused(  # noqa: E731
+        *fused_args, **dims)
+    call_ms = time_ms(call, 50)
+    ms = device_ms(call)
+    op_ms = time_ms(lambda: dl.deepseek_decoder_layer(**op_args, **dims),
+                    20)
+    plain_ms = time_ms(lambda: plain(c576, seq11, op_args["cos"],
+                                     op_args["sin"]), 5)
+    b, by = bound(seq11, 2 * mla)
+    say("mla_layer", kernel=11, seq=seq11, max_abs_err=f"{err:.3g}",
+        tol="atol=2e-2,rtol=2e-2", ckv_new_err=f"{ckv_err:.3g}",
+        oracle_out_max_err=f"{oracle_err.max().item():.3g}",
+        oracle_out_mean_err=f"{oracle_err.mean().item():.3g}",
+        oracle_ckv_err=f"{oracle_ckv:.3g}",
+        tol_oracle="ckv 5e-2, out max 1e-1, mean 1e-2",
+        public_op_launches=launches11, ms=f"{ms:.4f}",
+        call_ms=f"{call_ms:.4f}", public_op_call_ms=f"{op_ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b:.4f}", bound_by=by,
+        library_ms=None)
+    rows[11] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                    bound_by=by, library_ms=None, launches=launches11)
+    del c576, op_args
+
+    # kernel 5: the stacked FFN at layer 1, 2048 x 11264
+    res = torch.randn((1, hid), generator=gen, device=dev).bfloat16()
+    ffn_args = (x, res, lw["ffn_norm"], lw["w13"], lw["w2"])
+    kw5 = dict(eps=cfg.norm_eps, fuse_residual=True, layer_id=layer)
+    out, h = ffn.fused_ffn(*ffn_args, **kw5)
+    want, want_h = ffn.fused_ffn_plain(*ffn_args, **kw5)
+    torch.cuda.synchronize()
+    err = (out.float() - want.float()).abs().max().item()
+    torch.testing.assert_close(out.float(), want.float(), **LIMITS_TOL)
+    if not torch.equal(h, want_h):
+        raise AssertionError("fused_ffn: the residual sum differs")
+    call = lambda: ffn.fused_ffn(*ffn_args, **kw5)  # noqa: E731
+    call_ms = time_ms(call, 50)
+    ms = device_ms(call)
+    plain_ms = time_ms(lambda: ffn.fused_ffn_plain(*ffn_args, **kw5), 5)
+    f_pad = lw["w2"].shape[-2]
+    nbytes = 3 * hid * f_pad * 2 + 2 * hid + 4 * 2 * hid
+    flops = 6 * hid * f_pad
+    b = max(nbytes / hbm, flops / peak) * 1e3
+    by = "bytes" if nbytes / hbm >= flops / peak else "operations"
+    say("fused_ffn", kernel=5, hidden=hid, f_pad=f_pad,
+        max_abs_err=f"{err:.3g}", tol="atol=2e-2,rtol=2e-2",
+        residual_sum_exact=True, ms=f"{ms:.4f}", call_ms=f"{call_ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b:.4f}", bound_by=by,
+        weight_bytes=3 * hid * f_pad * 2, library_ms=None)
+    rows[5] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                   bound_by=by, library_ms=None)
+    return rows
+
+
+def deepseek_plain_check(params, cfg, prompt, toks, n=8):
+    """The first n greedy tokens against the plain path on the card
+    (``fused=False``, teacher-forced on ``toks``) wherever its top-2 gap
+    exceeds 0.1.  Returns (plain tokens, gaps, steps that disagree)."""
+    from clusterfusion_tpu_torch.models import deepseek as ds
+    cache = ds.init_cache(cfg, device=params["embed"].device)
+    lg, cache = ds.prefill(params, cache, prompt, cfg)
+    lg = lg[-1]
+    plain, gaps = [], []
+    for i in range(n):
+        top = torch.topk(lg, 2).values
+        gaps.append((top[0] - top[1]).item())
+        plain.append(int(torch.argmax(lg)))
+        lg, cache = ds.decode_step(params, cache, toks[i], len(prompt) + i,
+                                   cfg, fused=False)
+    bad = [i for i in range(n) if gaps[i] > 0.1 and plain[i] != toks[i]]
+    return plain, gaps, bad
+
+
+def phase_deepseek_e2e(dev):
+    """DeepSeek end to end: the JAX benchmark's dense configuration at full
+    width and depth through ``generate_greedy``, then the V2-Lite MoE + YaRN
+    reading at 4 layers, fused against eager.  Returns the launches of
+    kernels 12 and 5 on the dense run."""
+    from clusterfusion_tpu_torch.config import DeepSeekConfig
+    from clusterfusion_tpu_torch.models import deepseek as ds
+    from clusterfusion_tpu_torch.ops import deepseek_layer as dl
+    from clusterfusion_tpu_torch.ops import ffn
+    cfg = DeepSeekConfig(max_seq_len=4096)
+    t0 = time.perf_counter()
+    params = ds.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    say("deepseek_init", config="DeepSeekConfig(max_seq_len=4096)",
+        layers=cfg.n_layers, seconds=f"{time.perf_counter() - t0:.1f}",
+        param_bytes=sum(t.numel() * 2 for t in [
+            params["embed"], params["lm_head"],
+            *params["layers"].values()]))
+    prompt = [(i * 37 + 11) % cfg.vocab_size for i in range(128)]
+    n_new = 64
+
+    def prefill_ms():
+        cache = ds.init_cache(cfg, device=dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ds.prefill(params, cache, prompt, cfg)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3, cache
+
+    first_ms, _ = prefill_ms()
+    ffn.launches = 0
+    for k in dl.launches:
+        dl.launches[k] = 0
+    t0 = time.perf_counter()
+    toks = ds.generate_greedy(params, cfg, prompt, n_new)
+    gen_s = time.perf_counter() - t0
+    k12, k5 = dl.launches["deepseek_decoder_stack_layer"], ffn.launches
+    steps = n_new - 1
+    warm_ms, cache = prefill_ms()
+    first = int(toks[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds.decode_loop(params, cache, first, len(prompt), cfg, n_steps=steps)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    rope = ds.full_rope_table(cfg, dev)
+    step = lambda: ds.decode_step(  # noqa: E731
+        params, cache, first, len(prompt), cfg, rope=rope)
+    dev_ms, prof_wall, top = profile_by_kernel(step)
+    say("deepseek_e2e", prompt_tokens=len(prompt), new_tokens=len(toks),
+        prefill_ms=f"{warm_ms:.2f}", prefill_first_call_ms=f"{first_ms:.2f}",
+        decode_ms_per_step=f"{dec_s * 1e3 / steps:.3f}",
+        decode_tokens_per_s=f"{steps / dec_s:.2f}",
+        generate_greedy_wall_s=f"{gen_s:.3f}",
+        mla_stack_launches=k12, fused_ffn_launches=k5,
+        per_step=f"{k12 / steps:g}/{k5 / steps:g}")
+    say("deepseek_profile", device_ms_per_step=f"{dev_ms:.4f}",
+        profiled_wall_ms_per_step=f"{prof_wall:.4f}",
+        device_busy_share=f"{dev_ms / (dec_s * 1e3 / steps):.3f}",
+        device_busy_share_profiled=f"{dev_ms / prof_wall:.3f}")
+    for name, ms, n in top:
+        say("deepseek_profile", kernel=repr(name), ms_per_step=f"{ms:.4f}",
+            launches_per_step=f"{n:g}")
+    if k12 != cfg.n_layers * steps or k5 != cfg.n_layers * steps:
+        raise AssertionError("the DeepSeek decode did not launch kernels 12 "
+                             "and 5 once per layer and step")
+    if len(toks) != n_new or not all(0 <= t < cfg.vocab_size for t in toks):
+        raise AssertionError(f"bad DeepSeek tokens {toks}")
+    plain, gaps, bad = deepseek_plain_check(params, cfg, prompt, toks)
+    say("deepseek_e2e", kernel_tokens=toks[:8], plain_tokens=plain,
+        top2_gaps=[round(g, 3) for g in gaps], disagree_where_gap_gt_0_1=bad)
+    if bad:
+        raise AssertionError(f"DeepSeek kernel and plain paths disagree at "
+                             f"{bad}")
+    del params, cache, rope
+    torch.cuda.empty_cache()
+
+    # DeepSeek-V2-Lite's published config.json as the JAX package reads it,
+    # at 4 layers: 64 routed experts (top 6, 1408 wide) beside the shared
+    # FFN, unnormalised gates at scale 1.0, YaRN factor 40
+    moe = DeepSeekConfig(max_seq_len=4096, n_layers=4, n_experts=64,
+                         moe_top_k=6, moe_ffn_dim=1408, ffn_dim=10944,
+                         moe_norm_topk_prob=False, moe_routed_scaling=1.0,
+                         yarn_factor=40.0, yarn_orig_max=4096,
+                         yarn_mscale=0.707, yarn_mscale_all_dim=0.707)
+    mp = ds.init_params(moe, seed=1, device=dev)
+    mprompt = prompt[:32]
+    cache = ds.init_cache(moe, device=dev)
+    ds.prefill(mp, cache, mprompt, moe)
+    ce = cache.clone()
+    pos = len(mprompt)
+    for k in dl.launches:
+        dl.launches[k] = 0
+    ffn.launches = 0
+    lf, _ = ds.decode_step(mp, cache, 7, pos, moe, fused=True)
+    k12_moe, k5_moe = dl.launches["deepseek_decoder_stack_layer"], \
+        ffn.launches
+    le, _ = ds.decode_step(mp, ce, 7, pos, moe, fused=False)
+    torch.cuda.synchronize()
+    scale = max(le.abs().max().item(), 1.0)
+    lg_err = (lf - le).abs().max().item()
+    # the appended rows, per layer: layer 0 at atol 0.05 (the JAX suite's
+    # limit), the deeper layers at atol 0.05 + rtol 1e-2 of |row|, as in
+    # phase 4 (bf16 roundings of the two paths compound layer by layer)
+    mla = moe.mla_head_dim
+    row_err_l = (cache[:, pos, :mla].float()
+                 - ce[:, pos, :mla].float()).abs().amax(dim=-1)
+    row_mag = ce[:, pos, :mla].float().abs().amax(dim=-1)
+    rows_ok = bool(row_err_l[0] <= 0.05) and \
+        bool((row_err_l <= 0.05 + 1e-2 * row_mag).all())
+    t0 = time.perf_counter()
+    mtoks, _ = ds.decode_loop(mp, cache, 7, pos + 1, moe, n_steps=16)
+    torch.cuda.synchronize()
+    moe_ms = (time.perf_counter() - t0) * 1e3 / 16
+    say("deepseek_moe", layers=moe.n_layers, experts=moe.n_experts,
+        top_k=moe.moe_top_k, yarn_factor=moe.yarn_factor,
+        softmax_scale=f"{moe.softmax_scale:.6f}",
+        logits_max_abs_err=f"{lg_err:.4g}",
+        logits_err_over_max=f"{lg_err / scale:.4g}", tol_logits=0.05,
+        appended_row_err_by_layer=[round(e, 4) for e in row_err_l.tolist()],
+        row_max_abs=f"{row_mag.max().item():.3g}",
+        tol_rows="layer 0 atol=0.05, deeper atol=0.05+rtol=1e-2",
+        mla_stack_launches=k12_moe, fused_ffn_launches=k5_moe,
+        decode_ms_per_step=f"{moe_ms:.3f}", tokens=mtoks.tolist()[:8])
+    if not (lg_err < 0.05 * scale and rows_ok
+            and k12_moe == moe.n_layers and k5_moe == 0):
+        raise AssertionError("the DeepSeek MoE step: fused and eager "
+                             "disagree, or kernel 12 did not run per layer")
+    del mp, cache, ce
+    torch.cuda.empty_cache()
+    return k12, k5
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -895,6 +1269,10 @@ def main() -> int:
     pa_launches, layer_launches = phase_serving(eng, dev)
     verify = phase_verify(eng, dev, hbm, peak, stack["ms"])
     verify_launches = phase_spec(eng, dev)
+    del eng
+    torch.cuda.empty_cache()
+    ds_rows = phase_deepseek_kernels(dev, hbm, peak)
+    mla_launches, ffn_launches = phase_deepseek_e2e(dev)
     kernels = [
         dict(name="flash_prefill_attention", route="cuda",
              source="clusterfusion_tpu_torch/csrc/flash_prefill.cu",
@@ -916,6 +1294,18 @@ def main() -> int:
              source="clusterfusion_tpu_torch/csrc/stack_verify.cu",
              replaces="clusterfusion_tpu/ops/stack_verify.py:432",
              launches=verify_launches, **verify),
+        dict(name="fused_ffn", route="cuda",
+             source="clusterfusion_tpu_torch/csrc/fused_ffn.cu",
+             replaces="clusterfusion_tpu/ops/ffn.py:138",
+             launches=ffn_launches, **ds_rows[5]),
+        dict(name="deepseek_decoder_layer_fused", route="cuda",
+             source="clusterfusion_tpu_torch/csrc/mla_decode.cu",
+             replaces="clusterfusion_tpu/ops/deepseek_layer.py:279",
+             **ds_rows[11]),
+        dict(name="deepseek_decoder_stack_layer", route="cuda",
+             source="clusterfusion_tpu_torch/csrc/mla_decode.cu",
+             replaces="clusterfusion_tpu/ops/deepseek_layer.py:398",
+             launches=mla_launches, **ds_rows[12]),
     ]
     for k in kernels:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms"):

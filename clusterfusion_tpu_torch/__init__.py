@@ -10,6 +10,7 @@ Entry points run on the card (``device="cuda"``) unless the caller passes
 twin instead.
 """
 
-from clusterfusion_tpu_torch.config import KernelConfig, LlamaConfig
+from clusterfusion_tpu_torch.config import (DeepSeekConfig, KernelConfig,
+                                            LlamaConfig)
 
-__all__ = ["KernelConfig", "LlamaConfig"]
+__all__ = ["DeepSeekConfig", "KernelConfig", "LlamaConfig"]

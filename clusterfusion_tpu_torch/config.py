@@ -1,13 +1,14 @@
 """Configuration dataclasses (twin of ``clusterfusion_tpu/config.py``).
 
-``LlamaConfig`` is the JAX package's model geometry, field for field with
-its presets.  ``KernelConfig`` holds the port's own Hopper knobs; none of
-the TPU tiling knobs carries over.
+``LlamaConfig`` and ``DeepSeekConfig`` are the JAX package's model
+geometries, field for field with their presets.  ``KernelConfig`` holds the
+port's own Hopper knobs; none of the TPU tiling knobs carries over.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 
@@ -134,6 +135,75 @@ class LlamaConfig:
                         vocab_size=384, max_seq_len=256)
         defaults.update(kw)
         return LlamaConfig(**defaults)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeepSeekConfig:
+    """DeepSeek-V2(-Lite) MLA geometry (``clusterfusion_tpu/config.py:174-246``):
+    the defaults are DeepSeek-V2-Lite's attention widths with a dense FFN.
+    ``n_experts > 0`` turns the FFN into a shared expert of ``ffn_dim``
+    columns plus ``n_experts`` routed experts of ``moe_ffn_dim`` columns;
+    ``yarn_factor > 1`` turns on YaRN rope scaling."""
+
+    hidden_dim: int = 2048
+    n_heads: int = 16
+    nope_head_dim: int = 128
+    rope_head_dim: int = 64
+    kv_lora_rank: int = 512
+    norm_eps: float = 1e-6
+    n_layers: int = 27
+    ffn_dim: int = 10944
+    vocab_size: int = 102400
+    max_seq_len: int = 4096
+    rope_theta: float = 10000.0
+    n_experts: int = 0
+    moe_top_k: int = 2
+    moe_ffn_dim: int = 1408
+    # V2/V2-Lite set norm_topk_prob=false with a routed_scaling_factor
+    # (16.0 / 1.0); V3 renormalizes the top-k probabilities
+    moe_norm_topk_prob: bool = True
+    moe_routed_scaling: float = 1.0
+    yarn_factor: float = 1.0
+    yarn_orig_max: int = 4096
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
+
+    @property
+    def head_dim(self) -> int:
+        return self.nope_head_dim + self.rope_head_dim
+
+    @property
+    def softmax_scale(self) -> float:
+        """1/sqrt(head_dim), times YaRN's get_mscale(factor,
+        mscale_all_dim)**2 when YaRN is on."""
+        base = 1.0 / math.sqrt(self.head_dim)
+        if self.yarn_factor > 1.0:
+            from clusterfusion_tpu_torch.ops.rope import \
+                yarn_softmax_scale_mult
+            base *= yarn_softmax_scale_mult(self.yarn_factor,
+                                            self.yarn_mscale_all_dim)
+        return base
+
+    @property
+    def mla_head_dim(self) -> int:
+        return self.kv_lora_rank + self.rope_head_dim
+
+    @property
+    def n_proj(self) -> int:
+        """Fused projection width: q_nope | q_pe | ckv | k_pe."""
+        return (self.n_heads * self.head_dim
+                + self.kv_lora_rank + self.rope_head_dim)
+
+    @staticmethod
+    def tiny(**kw) -> "DeepSeekConfig":
+        """Small geometry for tests (lora 128, rope 64)."""
+        defaults = dict(hidden_dim=512, n_heads=4, nope_head_dim=128,
+                        rope_head_dim=64, kv_lora_rank=128, n_layers=2,
+                        ffn_dim=1024, vocab_size=384, max_seq_len=256)
+        defaults.update(kw)
+        return DeepSeekConfig(**defaults)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,7 +1,8 @@
 // Device helpers shared by the port's kernels (stack_kernel.cu,
-// paged_attention.cu, paged_decoder_layer.cu), among them the decode GEMV
-// of the stack and the paged layer.  Everything sits in an unnamed
-// namespace: each translation unit gets its own copy.
+// stack_verify.cu, paged_attention.cu, paged_decoder_layer.cu,
+// fused_ffn.cu, mla_decode.cu), among them the decode GEMV of the stacks,
+// the paged layer, the fused FFN and the MLA layer.  Everything sits in an
+// unnamed namespace: each translation unit gets its own copy.
 
 #pragma once
 
@@ -117,6 +118,12 @@ resnorm_kernel(const float* a, const __nv_bfloat16* a_bf16, const float* b,
   }
   for (int i = threadIdx.x; i < n1; i += blockDim.x) z1[(size_t)blockIdx.x * n1 + i] = 0.f;
   for (int i = threadIdx.x; i < n2; i += blockDim.x) z2[(size_t)blockIdx.x * n2 + i] = 0.f;
+}
+
+// out[i] = bf16(a[i]) for i < n (the f32 sums of a GEMV into its bf16 output).
+__global__ void to_bf16_kernel(const float* a, __nv_bfloat16* out, int n) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x)
+    out[i] = __float2bfloat16(a[i]);
 }
 
 // ---- The decode GEMV: M <= 8 rows of x against a bf16 [K, N] matrix ----

@@ -35,11 +35,6 @@ namespace {
 
 constexpr int GEMV_THREADS = 256;
 
-__global__ void to_bf16_kernel(const float* a, __nv_bfloat16* out, int n) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x)
-    out[i] = __float2bfloat16(a[i]);
-}
-
 }  // namespace
 
 // One paged decode layer for B requests on `stream` (five launches).

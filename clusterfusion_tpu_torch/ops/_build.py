@@ -45,6 +45,11 @@ SIGNATURES = {
     "cf_paged_attention":([_P] * 8 + [_I] * 8 + [_P], _I),
     "cf_paged_decoder_layer": ([_P] * 18 + [_I] * 13
                                + [_F, ctypes.POINTER(_I), _P], _I),
+    "cf_fused_ffn": ([_P] * 10 + [_I] * 3 + [_F, _I, ctypes.POINTER(_I), _P],
+                     _I),
+    "cf_mla_scratch_floats": ([_I] * 7, ctypes.c_longlong),
+    "cf_mla_decode": ([_P] * 13 + [_I] * 10 + [_F, _F, _I, _I,
+                                               ctypes.POINTER(_I), _P], _I),
     "cf_error_string": ([_I], ctypes.c_char_p),
 }
 

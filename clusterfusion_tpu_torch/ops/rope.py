@@ -3,12 +3,16 @@
 - NEOX rotate-half: pairs (i, i+d/2), tables of d/2 entries per position.
 - GPT-J interleaved: pairs (2i, 2i+1), tables repeat-interleaved to d
   entries per position.
+- YaRN (DeepSeek-V2): NEOX tables over blended frequencies, with the
+  attention-entropy correction in the softmax scale.
 
 Tables are float32 and built on the host with numpy, exactly as the JAX
 package builds them, then moved to ``device``.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -72,6 +76,55 @@ def apply_rope_neox(x: torch.Tensor, cos: torch.Tensor,
     d = x.shape[-1]
     x1, x2 = x[..., : d // 2], x[..., d // 2:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def rope_tables_yarn(head_dim: int, max_pos: int, theta: float, *,
+                     factor: float, orig_max: int, beta_fast: float = 32.0,
+                     beta_slow: float = 1.0, mscale: float = 1.0,
+                     mscale_all_dim: float = 0.0, device="cpu"):
+    """YaRN-scaled NEOX (cos, sin) tables [max_pos, head_dim/2], float32,
+    as DeepSeek-V2's ``DeepseekV2YarnRotaryEmbedding`` builds them: the
+    interpolated frequencies below the ``beta_fast`` correction dim, the
+    original ones above ``beta_slow``, a linear ramp between, and cos/sin
+    scaled by get_mscale(factor, mscale) / get_mscale(factor,
+    mscale_all_dim).  The arithmetic is float32 step for step, as the JAX
+    package computes it, so that the angles at large positions agree (the
+    power is taken in float64 and rounded once: numpy's vectorized float32
+    power is off by an ulp where the JAX package's is not)."""
+    f32 = np.float32
+    half = head_dim // 2
+    i = np.arange(half, dtype=f32)
+    expo = (f32(2.0) * i / f32(head_dim)).astype(np.float64)
+    freq_extra = f32(1.0) / np.power(float(theta), expo).astype(f32)
+    freq_inter = freq_extra / f32(factor)
+
+    def corr_dim(n_rot):
+        return (head_dim * math.log(orig_max / (n_rot * 2 * math.pi))
+                / (2 * math.log(theta)))
+
+    low = max(math.floor(corr_dim(beta_fast)), 0)
+    high = min(math.ceil(corr_dim(beta_slow)), half - 1)
+    ramp = np.clip((i - f32(low)) / f32(max(high - low, 1)), f32(0), f32(1))
+    inv_freq = freq_inter * ramp + freq_extra * (f32(1) - ramp)
+    a = np.arange(max_pos, dtype=f32)[:, None] * inv_freq[None, :]
+    m = f32(_yarn_get_mscale(factor, mscale)
+            / _yarn_get_mscale(factor, mscale_all_dim))
+    return (torch.from_numpy(np.cos(a) * m).to(device),
+            torch.from_numpy(np.sin(a) * m).to(device))
+
+
+def _yarn_get_mscale(scale: float, mscale: float) -> float:
+    if scale <= 1.0 or mscale <= 0.0:
+        return 1.0
+    return 0.1 * mscale * math.log(scale) + 1.0
+
+
+def yarn_softmax_scale_mult(factor: float, mscale_all_dim: float) -> float:
+    """Multiplier on the attention softmax scale under YaRN:
+    get_mscale(factor, mscale_all_dim)**2, as DeepSeek-V2's attention
+    multiplies head_dim**-0.5 by it."""
+    m = _yarn_get_mscale(factor, mscale_all_dim)
+    return m * m
 
 
 def apply_rope_gptj(x: torch.Tensor, cos: torch.Tensor,

@@ -367,3 +367,162 @@ def test_sglang_entry_kernel_matches_plain(dev):
         torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
     for got, want in zip(outs[0][2:], outs[1][2:]):
         torch.testing.assert_close(got, want, atol=0.05, rtol=0)
+
+
+# -- DeepSeek: the MLA layers (kernels 11, 12) and the fused FFN (kernel 5) --
+
+MLA_CAP, NOPE, ROPE = 320, 128, 64
+
+
+def _mla_args(dev, heads, lora, seed=60, hidden=HIDDEN, layers=2):
+    n_proj = heads * (NOPE + ROPE) + lora + ROPE
+    a = dict(
+        x=_randn((1, hidden), dev, seed),
+        wproj=_randn((layers, hidden, n_proj), dev, seed + 1, hidden ** -0.5),
+        wuk=_randn((layers, heads, NOPE, lora), dev, seed + 2, NOPE ** -0.5),
+        wuv=_randn((layers, heads, lora, NOPE), dev, seed + 3, lora ** -0.5),
+        wo=_randn((layers, heads * NOPE, hidden), dev, seed + 4,
+                  (heads * NOPE) ** -0.5),
+        rms_in=1 + _randn((layers, hidden), dev, seed + 5, 0.1),
+        rms_ckv=1 + _randn((layers, lora), dev, seed + 6, 0.1))
+    width = -(-(lora + ROPE) // 128) * 128
+    cache = _randn((layers, MLA_CAP, width), dev, seed + 7)
+    return a, cache
+
+
+def _mla_rope(dev, pos):
+    from clusterfusion_tpu_torch.config import DeepSeekConfig
+    from clusterfusion_tpu_torch.models import deepseek as ds
+    c, s = ds.rope_table(DeepSeekConfig.tiny(max_seq_len=MLA_CAP), device=dev)
+    return c[pos], s[pos]
+
+
+@pytest.mark.parametrize("pos", [0, 37, 300, MLA_CAP - 1])
+@pytest.mark.parametrize("heads,lora", [(4, 128), (16, 512)])
+@pytest.mark.parametrize("op", ["stack", "layer"])
+def test_mla_kernels_match_plain(dev, op, heads, lora, pos):
+    """Kernels 12 (the stack entry, layer 1, append at pos) and 11 (one
+    layer, a 576-column cache, rows < pos) against their plain twin.  Rows
+    at and above pos hold large garbage: the kernels read none of them."""
+    from clusterfusion_tpu_torch.ops import deepseek_layer as dl
+    a, cache = _mla_args(dev, heads, lora)
+    cache[:, pos:] = _randn(cache[:, pos:].shape, dev, 70, 8.0)
+    cos, sin = _mla_rope(dev, pos)
+    mla = lora + ROPE
+    dims = dict(n_heads=heads, nope_dim=NOPE, rope_dim=ROPE, lora_rank=lora)
+    want, cur = dl.mla_decode_plain(
+        a["x"], a["rms_in"][1], a["rms_ckv"][1], cos, sin, a["wproj"][1],
+        a["wuk"][1], a["wuv"][1], a["wo"][1], cache[1], pos, eps=1e-6,
+        softmax_scale=(NOPE + ROPE) ** -0.5,
+        split=dl.MLA_SPLIT, **dims)
+    key = {"stack": "deepseek_decoder_stack_layer",
+           "layer": "deepseek_decoder_layer_fused"}[op]
+    before = dl.launches[key]
+    if op == "stack":
+        ref = cache.clone()
+        out, c2 = dl.deepseek_decoder_stack_layer(
+            a["x"], a["wproj"], a["wuk"], a["wuv"], a["wo"], cache, pos, 1,
+            a["rms_in"], a["rms_ckv"], cos, sin, **dims)
+        torch.cuda.synchronize()
+        assert c2 is cache
+        torch.testing.assert_close(cache[1, pos, :mla].float(), cur,
+                                   atol=0.05, rtol=0)
+        assert not cache[1, pos, mla:].any()
+        others = torch.ones(cache.shape[:2], dtype=torch.bool, device=dev)
+        others[1, pos] = False
+        assert torch.equal(cache[others], ref[others])
+    else:
+        c576 = cache[1, :, :mla].contiguous()
+        out, ckv_new = dl.deepseek_decoder_layer_fused(
+            a["x"], a["wproj"][1], a["wuk"][1], a["wuv"][1], a["wo"][1],
+            c576, pos, a["rms_in"][1], a["rms_ckv"][1], cos, sin, **dims)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(ckv_new[0].float(), cur, atol=0.05, rtol=0)
+    assert dl.launches[key] == before + 1
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_mla_public_op_matches_oracle(dev):
+    """The public op (kernel 11, every row attended) against the float32
+    oracle at the JAX suite's limits (``tests/test_deepseek.py``)."""
+    from clusterfusion_tpu_torch.ops import deepseek_layer as dl
+    from clusterfusion_tpu_torch.ops.reference import \
+        deepseek_decoder_layer_ref
+    heads, lora, seq, hidden = 16, 512, 300, 1024
+    g = torch.Generator().manual_seed(80)
+
+    def r(*shape, s=0.1):
+        return (torch.randn(shape, generator=g) * s).bfloat16().to(dev)
+
+    angle = torch.rand(ROPE // 2, generator=g) * 3.0
+    args = dict(input=r(1, hidden, s=1.0),
+                weight_q_nope=r(heads * NOPE, hidden),
+                weight_q_pe=r(heads * ROPE, hidden),
+                weight_uk=r(heads, NOPE, lora), weight_kv_nope=r(lora, hidden),
+                weight_k_pe=r(ROPE, hidden), weight_uv=r(heads, lora, NOPE),
+                weight_o=r(hidden, heads * NOPE),
+                ckv_cache=r(seq, lora + ROPE, s=1.0),
+                rms_input_weight=r(hidden), rms_ckv_weight=r(lora),
+                cos=angle.cos().to(dev), sin=angle.sin().to(dev))
+    dims = dict(n_heads=heads, nope_dim=NOPE, rope_dim=ROPE, lora_rank=lora)
+    out, ckv = dl.deepseek_decoder_layer(**args, **dims)
+    want_out, want_ckv = deepseek_decoder_layer_ref(**args, **dims)
+    torch.cuda.synchronize()
+    assert (ckv.float() - want_ckv.float()).abs().max().item() < 5e-2
+    err = (out.float() - want_out.float()).abs()
+    assert err.max().item() < 1e-1 and err.mean().item() < 1e-2
+
+
+@pytest.mark.parametrize("stacked,fuse_residual,f_pad", [
+    (True, True, 1024), (True, False, 1024), (False, True, 1408),
+    (True, True, 11264)])
+def test_fused_ffn_kernel_matches_plain(dev, stacked, fuse_residual, f_pad):
+    from clusterfusion_tpu_torch.ops import ffn
+    L, hidden = 2, 2048 if f_pad == 11264 else HIDDEN
+    x = _randn((1, hidden), dev, 90)
+    res = _randn((1, hidden), dev, 91)
+    nw = 1 + _randn((L, hidden), dev, 92, 0.1)
+    w13 = _randn((L, 2, hidden, f_pad), dev, 93, hidden ** -0.5)
+    w2 = _randn((L, f_pad, hidden), dev, 94, f_pad ** -0.5)
+    layer = 1
+    if not stacked:
+        nw, w13, w2, layer = nw[1:2], w13[1], w2[1], 0
+    before = ffn.launches
+    out, h = ffn.fused_ffn(x, res, nw, w13, w2, eps=1e-6,
+                           fuse_residual=fuse_residual, layer_id=layer)
+    torch.cuda.synchronize()
+    assert ffn.launches == before + 1
+    want, want_h = ffn.fused_ffn_plain(x, res, nw, w13, w2, eps=1e-6,
+                                       fuse_residual=fuse_residual,
+                                       layer_id=layer)
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    assert torch.equal(h, want_h)
+
+
+@pytest.mark.parametrize("experts", [0, 4])
+def test_deepseek_decode_step_launches_kernels(dev, experts):
+    """decode_step(fused=True) on the card launches kernel 12 once per
+    layer, and kernel 5 once per layer for a dense FFN; it agrees with the
+    eager step (the JAX suite's limits)."""
+    from clusterfusion_tpu_torch.config import DeepSeekConfig
+    from clusterfusion_tpu_torch.models import deepseek as ds
+    from clusterfusion_tpu_torch.ops import deepseek_layer as dl
+    from clusterfusion_tpu_torch.ops import ffn
+    cfg = DeepSeekConfig.tiny(n_experts=experts, moe_ffn_dim=256)
+    p = ds.init_params(cfg, seed=3, device=dev)
+    cache = ds.init_cache(cfg, device=dev)
+    ds.prefill(p, cache, list(range(1, 40)), cfg)
+    ce = cache.clone()
+    n12, n5 = dl.launches["deepseek_decoder_stack_layer"], ffn.launches
+    lf, _ = ds.decode_step(p, cache, 5, 39, cfg, fused=True)
+    torch.cuda.synchronize()
+    assert dl.launches["deepseek_decoder_stack_layer"] == n12 + cfg.n_layers
+    assert ffn.launches == n5 + (0 if experts else cfg.n_layers)
+    le, _ = ds.decode_step(p, ce, 5, 39, cfg, fused=False)
+    scale = max(le.abs().max().item(), 1.0)
+    assert (lf - le).abs().max().item() < 0.05 * scale
+    mla = cfg.mla_head_dim
+    torch.testing.assert_close(cache[:, 39, :mla].float(),
+                               ce[:, 39, :mla].float(), atol=0.05, rtol=0)
