@@ -8,9 +8,15 @@ run with a non-zero exit code:
 
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: ``nvcc`` build of ``clusterfusion_tpu_torch/csrc`` for sm_90a;
-3. kernel 4, ``flash_prefill_attention``, against its plain twin at the
-   Llama-2-7B prefill shape, a GQA shape and a chunk (q_offset 256), with
-   its time, the plain twin's, one PyTorch SDPA call's and the bound;
+3. kernel 4, ``flash_prefill_attention`` (wgmma fed by TMA), against its
+   plain twin at ``FLASH_SHAPES``: the Llama-2-7B prefill at T 512, 2048
+   and 4096, a GQA shape, a chunk (q_offset 256), TinyLlama's hd-64 GQA
+   (kv 4, group 8, T 1024), and the chunk read from a strided view of a
+   [kv, 2048, hd] buffer with NaN in every row past the chunk (output
+   finite); call times (CUDA events) of the kernel, its plain twin and one
+   PyTorch SDPA call, the bound, TFLOP/s and the share of the bf16 peak.
+   Their device times (``torch.profiler``) come after phase 5, whose wall
+   clocks a profiler session would slow;
 4. kernel 7, ``fused_decoder_stack``, against its plain twin at full
    Llama-2-7B geometry (one step at pos 600 over a random-filled cache):
    logits, the appended K/V row, every other row unchanged; times and bound;
@@ -18,7 +24,9 @@ run with a non-zero exit code:
    after a 512-token prompt through ``stream_generate``; prefill ms (warm,
    beside the process's first prefill), decode tokens/s, both kernels'
    launch counts on that run, and the first 8 tokens against the plain
-   path (eager prefill and decode) on the card;
+   path (eager prefill and decode) on the card; then the warm prefill of a
+   2048-token prompt (the config's whole cache), and both prefills' device
+   time by kind (kernel 4, the projections, the elementwise rest);
 6. kernel 10, ``paged_attention``, against its plain twin at the 7B
    serving shape (B 8, 32 kv heads, page 16, lens up to 2047 over shuffled
    pages) and a GQA shape: output (each head's row within 2e-2 of its own
@@ -126,6 +134,7 @@ Then one JSON line per kernel table, the card line, and last
 
 from __future__ import annotations
 
+import functools
 import importlib
 import json
 import math
@@ -224,57 +233,119 @@ def phase_build():
         flags=repr(" ".join(_build.NVCC_FLAGS)))
 
 
+FLASH_SHAPES = (            # label, kv, group, T, q_offset, hd, view
+    ("7b", 32, 1, 512, 0, 128, False),
+    ("gqa", 8, 4, 300, 0, 128, False),
+    ("chunk", 32, 1, 256, 256, 128, False),
+    ("7b_2048", 32, 1, 2048, 0, 128, False),
+    ("7b_4096", 32, 1, 4096, 0, 128, False),
+    ("hd64_gqa", 4, 8, 1024, 0, 64, False),   # TinyLlama-1.1B's heads
+    ("chunk_view", 32, 1, 256, 256, 128, True),
+)
+
+
 def phase_flash(dev, hbm, peak):
+    """Kernel 4 against its plain twin at every FLASH_SHAPES entry; ms,
+    plain_ms and library_ms are call times (CUDA events around one call,
+    the host's launch included).  Returns the cases for
+    phase_flash_device."""
+    from clusterfusion_tpu_torch.config import KernelConfig
     from clusterfusion_tpu_torch.ops import flash_prefill as fp
     F = torch.nn.functional
     gen = torch.Generator(device=dev).manual_seed(1)
-    rows = {}
-    for label, kv, g, T, q_off in (("7b", 32, 1, 512, 0),
-                                   ("gqa", 8, 4, 300, 0),
-                                   ("chunk", 32, 1, 256, 256)):
-        hd = 128
-        S = q_off + T
+    cases = []
+    for label, kv, g, T, q_off, hd, view in FLASH_SHAPES:
+        keys = q_off + T
         q = torch.randn((kv, T, g, hd), generator=gen, device=dev).bfloat16()
-        k = torch.randn((kv, S, hd), generator=gen, device=dev).bfloat16()
-        v = torch.randn((kv, S, hd), generator=gen, device=dev).bfloat16()
+        if view:
+            # a [kv, 2048, hd] buffer, NaN in every row past the chunk; the
+            # kernel reads its first keys + 64 rows where they lie
+            kbuf = torch.full((kv, 2048, hd), float("nan"),
+                              dtype=torch.bfloat16, device=dev)
+            vbuf = kbuf.clone()
+            kbuf[:, :keys] = torch.randn((kv, keys, hd), generator=gen,
+                                         device=dev).bfloat16()
+            vbuf[:, :keys] = torch.randn((kv, keys, hd), generator=gen,
+                                         device=dev).bfloat16()
+            k, v = kbuf[:, :keys + 64], vbuf[:, :keys + 64]
+        else:
+            k = torch.randn((kv, keys, hd), generator=gen, device=dev).bfloat16()
+            v = torch.randn((kv, keys, hd), generator=gen, device=dev).bfloat16()
         out = fp.flash_prefill_attention(q, k, v, q_offset=q_off)
         ref = fp.flash_prefill_attention_plain(q, k, v, q_offset=q_off)
         torch.cuda.synchronize()
+        finite = bool(torch.isfinite(out).all())
         diff = (out.float() - ref.float()).abs()
         max_abs = diff.max().item()
         max_rel = (diff / ref.float().abs().clamp_min(1e-3)).max().item()
-        torch.testing.assert_close(out.float(), ref.float(), **LIMITS_TOL)
-        ms = time_ms(lambda: fp.flash_prefill_attention(q, k, v,
-                                                        q_offset=q_off), 20)
+        call = functools.partial(fp.flash_prefill_attention, q, k, v,
+                                 q_offset=q_off)
+        ms = time_ms(call, 20)
         plain_ms = time_ms(lambda: fp.flash_prefill_attention_plain(
-            q, k, v, q_offset=q_off), 5)
+            q, k, v, q_offset=q_off), 5 if T < 4096 else 3)
         # one PyTorch call computing the same function, timed only
         qs = q.permute(0, 2, 1, 3).reshape(1, kv * g, T, hd).contiguous()
-        ks, vs = k[None], v[None]
+        ks, vs = k[None, :, :keys], v[None, :, :keys]
         if q_off:
-            mask = (torch.arange(S, device=dev)[None, :]
+            mask = (torch.arange(keys, device=dev)[None, :]
                     <= q_off + torch.arange(T, device=dev)[:, None])
-            lib_fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qs, ks, vs, attn_mask=mask, enable_gqa=g > 1)
+            lib_fn = functools.partial(F.scaled_dot_product_attention, qs,
+                                       ks, vs, attn_mask=mask,
+                                       enable_gqa=g > 1)
         else:
-            lib_fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qs, ks, vs, is_causal=True, enable_gqa=g > 1)
+            lib_fn = functools.partial(F.scaled_dot_product_attention, qs,
+                                       ks, vs, is_causal=True,
+                                       enable_gqa=g > 1)
         lib_ms = time_ms(lib_fn, 20)
         pairs = kv * g * sum(q_off + i + 1 for i in range(T))
         flops = 4 * hd * pairs
-        nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel())
+        # each input read once (the K/V rows the chunk attends), out written
+        nbytes = 2 * (2 * q.numel() + 2 * kv * keys * hd)
         bound = max(flops / peak, nbytes / hbm) * 1e3
         bound_by = "operations" if flops / peak > nbytes / hbm else "bytes"
         say("flash_prefill", kernel=4, shape=label, kv=kv, group=g, T=T,
-            q_offset=q_off, max_abs_err=f"{max_abs:.3g}",
+            hd=hd, q_offset=q_off, strided_view_nan_past_chunk=view,
+            finite=finite, max_abs_err=f"{max_abs:.3g}",
             max_rel_err=f"{max_rel:.3g}", tol="atol=2e-2,rtol=2e-2",
             ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
             library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound:.4f}",
-            bound_by=bound_by)
-        rows[label] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                           bound_ms=bound, bound_by=bound_by,
-                           library_ms=lib_ms)
-    return rows["7b"]
+            bound_by=bound_by, tflops=f"{flops / ms / 1e9:.1f}",
+            share_of_peak=f"{flops / ms / 1e9 / (peak / 1e12):.3f}")
+        if not finite:
+            raise AssertionError(f"flash_prefill {label}: non-finite output")
+        torch.testing.assert_close(out.float(), ref.float(), **LIMITS_TOL)
+        call64 = functools.partial(
+            fp.flash_prefill_attention, q, k, v, q_offset=q_off,
+            kcfg=KernelConfig(prefill_block_rows=64))
+        cases.append(dict(label=label, call=call, call64=call64, lib=lib_fn,
+                          flops=flops,
+                          row=dict(max_abs_err=max_abs, ms=ms,
+                                   plain_ms=plain_ms, bound_ms=bound,
+                                   bound_by=bound_by, library_ms=lib_ms)))
+    return cases
+
+
+def phase_flash_device(cases, peak):
+    """Device time (``torch.profiler``) of kernel 4 (128-row blocks, the
+    default, and 64-row blocks) and of SDPA at every phase-3 shape; run
+    after phase 5, whose wall clocks a profiler session
+    would slow.  Returns the T 512 7B row for the kernels line, its ms and
+    library_ms the device times."""
+    for c in cases:
+        ms = device_ms(c["call"])
+        ms64 = device_ms(c["call64"])
+        lib_ms = device_ms(c["lib"])
+        tf = c["flops"] / ms / 1e9
+        say("flash_prefill_device", kernel=4, shape=c["label"],
+            device_ms=f"{ms:.4f}", device_ms_block_rows_64=f"{ms64:.4f}",
+            library_device_ms=f"{lib_ms:.4f}",
+            bound_ms=f"{c['row']['bound_ms']:.4f}",
+            bound_by=c["row"]["bound_by"], tflops=f"{tf:.1f}",
+            share_of_peak=f"{tf / (peak / 1e12):.3f}",
+            library_tflops=f"{c['flops'] / lib_ms / 1e9:.1f}",
+            over_library=f"{ms / lib_ms:.3f}")
+        c["row"].update(ms=ms, library_ms=lib_ms)
+    return next(c["row"] for c in cases if c["label"] == "7b")
 
 
 def phase_stack(eng, dev, hbm, peak, pos=600):
@@ -395,7 +466,66 @@ def phase_e2e(eng, dev):
         top2_gaps=[round(x, 3) for x in gaps], disagree_where_gap_gt_0_1=bad)
     if bad:
         raise AssertionError(f"kernel and plain paths disagree at steps {bad}")
+    # a 2048-token prompt fills the 7B config's whole cache
+    long_text = ("The quick brown fox jumps over the lazy dog. " * 60)[:2047]
+    prompt_2k = eng.tokenizer.encode(long_text, bos=True, eos=False)
+    kc, vc = model.init_cache(cfg, device=dev)
+    run_2k = lambda: model.prefill(eng.params, kc, vc, prompt_2k, cfg)  # noqa: E731
+    t0 = time.perf_counter()
+    logits_2k, _, _ = run_2k()
+    torch.cuda.synchronize()
+    first_2k = (time.perf_counter() - t0) * 1e3
+    warm_2k = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run_2k()
+        torch.cuda.synchronize()
+        warm_2k.append((time.perf_counter() - t0) * 1e3)
+    finite_2k = bool(torch.isfinite(logits_2k).all())
+    say("e2e_prefill", prompt_tokens=len(prompt_2k),
+        warm_ms=f"{statistics.median(warm_2k):.2f}",
+        first_call_ms=f"{first_2k:.2f}", finite=finite_2k)
+    if len(prompt_2k) != cfg.max_seq_len or not finite_2k:
+        raise AssertionError("the 2048-token prefill failed")
+    # device time of both prefills by kind, after every wall clock above
+    for pr in (prompt, prompt_2k):
+        dev_ms, prof_wall, rows = profile_by_kernel(
+            lambda: model.prefill(eng.params, kc, vc, pr, cfg), reps=3,
+            top=10 ** 6)
+        split = prefill_split(rows)
+        say("e2e_prefill_profile", prompt_tokens=len(pr),
+            device_ms=f"{dev_ms:.3f}", profiled_wall_ms=f"{prof_wall:.3f}",
+            kernel4_ms=f"{split['kernel4'][0]:.3f}",
+            kernel4_launches=f"{split['kernel4'][1]:g}",
+            projections_ms=f"{split['projections'][0]:.3f}",
+            elementwise_ms=f"{split['elementwise'][0]:.3f}",
+            elementwise_launches=f"{split['elementwise'][1]:g}",
+            top=[(n[:40], round(t, 3), c) for n, t, c in rows[:8]])
+        if split["kernel4"][1] != cfg.n_layers:
+            raise AssertionError("the profiled prefill did not run kernel 4 "
+                                 "once per layer")
+    del kc, vc
     return flash_launches, stack_launches
+
+
+def prefill_split(rows):
+    """{kind: (device ms, launches)} of ``profile_by_kernel`` rows, by kind:
+    kernel 4, the projections (cuBLAS/CUTLASS products) and the rest
+    (elementwise work, casts, copies)."""
+    out = {"kernel4": [0.0, 0.0], "projections": [0.0, 0.0],
+           "elementwise": [0.0, 0.0]}
+    for name, ms, count in rows:
+        low = name.lower()
+        if "flash_prefill" in low:
+            kind = "kernel4"
+        elif any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass",
+                                    "gemv", "matmul")):
+            kind = "projections"
+        else:
+            kind = "elementwise"
+        out[kind][0] += ms
+        out[kind][1] += count
+    return out
 
 
 SERVE_LENS = [0, 1, 15, 16, 255, 511, 1000, 2047]
@@ -1455,7 +1585,9 @@ def phase_mode5(eng, dev, pos=600):
     its own stream, against kernel 7's unsharded step (also without it):
     x_out and the residual within 0.05 + 1e-2 of the largest value, the
     appended rows at phase 4's limits, every other row unchanged, and the
-    two ranks' x_out and residual bit-identical."""
+    two ranks' x_out and residual bit-identical.  The unsharded step is run
+    three times on the same inputs and must give the same bits each time
+    (its GEMVs sum their K chunks in a fixed order)."""
     from clusterfusion_tpu_torch import parallel as par
     from clusterfusion_tpu_torch.models import llama as model
     from clusterfusion_tpu_torch.ops import stack_kernel as sk
@@ -1473,10 +1605,15 @@ def phase_mode5(eng, dev, pos=600):
     cos, sin = model.rope_row(cfg, pos, dev)
     kw = dict(group=g, head_dim=hd, rope_style=cfg.rope_style,
               eps=cfg.norm_eps)
-    kr, vr = kc.clone(), vc.clone()
-    ref = sk.fused_decoder_stack(x, lw["attn_norm"], lw["ffn_norm"], cos, sin,
-                                 lw["wqkv_f"], lw["wo_f"], lw["w13"],
-                                 lw["w2"], kr, vr, pos, **kw)
+    refs = []
+    for _ in range(3):
+        kr, vr = kc.clone(), vc.clone()
+        refs.append(sk.fused_decoder_stack(
+            x, lw["attn_norm"], lw["ffn_norm"], cos, sin, lw["wqkv_f"],
+            lw["wo_f"], lw["w13"], lw["w2"], kr, vr, pos, **kw))
+    ref = refs[0]
+    repeatable = all(torch.equal(a, b) for r in refs[1:]
+                     for a, b in zip(r, ref))
     lb = col.LoopbackComm(tp, dev)
     meshes = [lb.mesh(r) for r in range(tp)]
     shards = [par.shard_params(p, cfg, m) for m in meshes]
@@ -1543,11 +1680,12 @@ def phase_mode5(eng, dev, pos=600):
             tol="x/res 0.05+1e-2*max|ref|; rows layer 0 atol=0.05, "
                 "deeper atol=0.05+rtol=1e-2",
             ranks_bit_identical=same, other_rows_unchanged=unchanged,
+            kernel7_repeats_bit_identical=repeatable,
             kernels_per_step=per_step, stack_launches=k7,
             all_reduce_launches=k13,
             both_ranks_ms_per_step=f"{pair_ms:.3f}",
             error_word=lb.ranks[0].error())
-        if not (same and rows_ok and unchanged and k7 == tp
+        if not (same and rows_ok and unchanged and repeatable and k7 == tp
                 and k13 == 2 * L * tp and per_step == 10 * L + 1):
             raise AssertionError("mode 5 disagrees with kernel 7's "
                                  "unsharded step")
@@ -2190,7 +2328,7 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     hbm, peak = card_rates(name)
     phase_build()
-    flash = phase_flash(dev, hbm, peak)
+    flash_cases = phase_flash(dev, hbm, peak)
     t0 = time.perf_counter()
     eng = Llama.synthetic(LlamaConfig.llama2_7b(), seed=0, fused=True,
                           device=dev)
@@ -2201,6 +2339,7 @@ def main() -> int:
                          *eng.params["layers"].values()]))
     stack = phase_stack(eng, dev, hbm, peak)
     flash_launches, stack_launches = phase_e2e(eng, dev)
+    flash = phase_flash_device(flash_cases, peak)
     paged = phase_paged_attention(dev, hbm, peak)
     layer = phase_paged_layer(eng, dev, hbm, peak)
     pa_launches, layer_launches = phase_serving(eng, dev)

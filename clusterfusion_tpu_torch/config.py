@@ -214,12 +214,13 @@ class KernelConfig:
     ``kv_split``: cache rows per block of the split-KV flash-decode pass in
     ``fused_decoder_stack`` (one partial (m, l, acc) per split, merged by a
     second pass; at most 1024).  ``prefill_block_rows``: panel rows
-    (query x group) per block of ``flash_prefill_attention``, 32 or 64; its
-    key tile is 64 rows.  ``gemv_threads``: threads per block of the decode
-    GEMVs, a multiple of 32."""
+    (query x group) per block of ``flash_prefill_attention``: 64 or 128,
+    i.e. one or two consumer warpgroups of 64 rows (the wgmma M); any other
+    value raises.  Its key tile is 64 rows.  ``gemv_threads``: threads per
+    block of the decode GEMVs, a multiple of 32."""
 
     kv_split: int = 128
-    prefill_block_rows: int = 64
+    prefill_block_rows: int = 128
     gemv_threads: int = 256
 
 

@@ -143,15 +143,34 @@ __global__ void to_bf16_kernel(const float* a, __nv_bfloat16* out, int n) {
 // The warps of a block split its K chunk and meet in shared memory; blocks
 // split K until the grid holds about two blocks per SM, never more than fit
 // at once, and meet by atomicAdd in an output the caller zeroed.
+//
+// With `part` given, the blocks of a column tile meet in a fixed order
+// instead, so that y's bits do not depend on the order in which blocks run:
+// each block writes its sums to part[blockIdx.y][tile], and the last block
+// of the tile to arrive (counted in cnt[tile], which starts at 0 and is set
+// back to 0) adds the K chunks' sums to y in the order of blockIdx.y.
 constexpr int GEMV_COLS = 256;
 constexpr int GEMV_X_FLOATS = 8192;   // x chunks in shared memory <= 32 KB
+constexpr int GEMV_KS_MAX = 16;       // K chunks of a launch with `part`
+
+// Floats of `part` and counters of `cnt` a launch with `part` over M rows
+// (NB at a time) of nmat [K, N] matrices may use.
+inline size_t rows_gemv_part_floats(int NB, int M, int N, int nmat) {
+  const size_t tiles = (size_t)(N + GEMV_COLS - 1) / GEMV_COLS;
+  const size_t z = (size_t)nmat * ((M + NB - 1) / NB);
+  return (size_t)GEMV_KS_MAX * z * tiles * GEMV_COLS * NB;
+}
+inline size_t rows_gemv_counters(int NB, int M, int N, int nmat) {
+  return (size_t)nmat * ((M + NB - 1) / NB) * ((N + GEMV_COLS - 1) / GEMV_COLS);
+}
 
 template <int NB, bool SWIGLU>
 __global__ void rows_gemv_kernel(const void* __restrict__ xv, long long x_row,
                                  int f_off, const __nv_bfloat16* __restrict__ w,
                                  float* __restrict__ y, int M, int K, int N,
                                  int k_chunk, int nrc, long long ws,
-                                 long long y_row, long long yz) {
+                                 long long y_row, long long yz,
+                                 float* __restrict__ part, unsigned* __restrict__ cnt) {
   extern __shared__ float sm[];
   const int nw = blockDim.x / 32;
   float* xsm = sm;                  // [NB][k_chunk]
@@ -231,20 +250,55 @@ __global__ void rows_gemv_kernel(const void* __restrict__ xv, long long x_row,
         if (n >= N) continue;
         float s = 0.f;
         for (int q = 0; q < nw; ++q) s += red[q * GEMV_COLS + t];
-        atomicAdd(&y[(size_t)(r0 + r) * y_row + (size_t)mat * yz + n], s);
+        float* yp = &y[(size_t)(r0 + r) * y_row + (size_t)mat * yz + n];
+        if (!part) {
+          atomicAdd(yp, s);
+        } else if (gridDim.y == 1) {
+          *yp += s;
+        } else {
+          part[(((size_t)blockIdx.y * gridDim.z + blockIdx.z) * NB + r) *
+                   gridDim.x * GEMV_COLS + (size_t)n] = s;
+        }
       }
       __syncthreads();
+    }
+  }
+  if (!part || gridDim.y == 1) return;
+  // the last block of this column tile adds the K chunks' sums in order
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned* c = &cnt[blockIdx.z * gridDim.x + blockIdx.x];
+    last = atomicAdd(c, 1u) == gridDim.y - 1;
+    if (last) *c = 0u;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int r = 0; r < nr; ++r) {
+    for (int t = threadIdx.x; t < GEMV_COLS; t += blockDim.x) {
+      const int n = blockIdx.x * GEMV_COLS + t;
+      if (n >= N) continue;
+      const float* pp = part + ((size_t)blockIdx.z * NB + r) * gridDim.x * GEMV_COLS + n;
+      const size_t step = (size_t)gridDim.z * NB * gridDim.x * GEMV_COLS;
+      float s = 0.f;
+      for (int q = 0; q < (int)gridDim.y; ++q) s += __ldcg(pp + q * step);
+      y[(size_t)(r0 + r) * y_row + (size_t)mat * yz + n] += s;
     }
   }
 }
 
 // Launch rows_gemv_kernel<NB, SWIGLU> over M rows (chunks of NB) and nmat
-// matrices with `threads` per block.  Returns a cudaError_t.
+// matrices with `threads` per block.  part/cnt (rows_gemv_part_floats and
+// rows_gemv_counters in size, counters zero) make the sums' order fixed;
+// null, the blocks meet by atomicAdd.  Returns a cudaError_t.
 template <int NB, bool SWIGLU>
 int launch_rows_gemv_nb(const void* x, long long x_row, int f_off,
                         const __nv_bfloat16* w, float* y, int M, int K, int N,
                         int nmat, long long ws, long long y_row, long long yz,
-                        int threads, int num_sms, cudaStream_t st) {
+                        int threads, int num_sms, cudaStream_t st,
+                        float* part = nullptr, unsigned* cnt = nullptr) {
   const int nw = threads / 32;
   // blocks per SM that fit with the largest x chunk, once per block size
   const size_t smem_max = sizeof(float) * ((size_t)GEMV_X_FLOATS + (size_t)nw * GEMV_COLS);
@@ -270,13 +324,15 @@ int launch_rows_gemv_nb(const void* x, long long x_row, int f_off,
   if (ks > max_ks) ks = max_ks;
   const int max_chunk = GEMV_X_FLOATS / NB;
   const int min_ks = (K + max_chunk - 1) / max_chunk;
+  if (part && ks > GEMV_KS_MAX) ks = GEMV_KS_MAX;
   if (ks < min_ks) ks = min_ks;
   if (ks < 1) ks = 1;
+  if (part && ks > GEMV_KS_MAX) return (int)cudaErrorInvalidValue;
   const int k_chunk = (K + ks - 1) / ks;
   ks = (K + k_chunk - 1) / k_chunk;
   const size_t smem = sizeof(float) * ((size_t)NB * k_chunk + (size_t)nw * GEMV_COLS);
   rows_gemv_kernel<NB, SWIGLU><<<dim3(tiles, ks, z), threads, smem, st>>>(
-      x, x_row, f_off, w, y, M, K, N, k_chunk, nrc, ws, y_row, yz);
+      x, x_row, f_off, w, y, M, K, N, k_chunk, nrc, ws, y_row, yz, part, cnt);
   return (int)cudaGetLastError();
 }
 

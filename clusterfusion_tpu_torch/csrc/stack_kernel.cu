@@ -53,8 +53,15 @@
 // The GEMVs are common.cuh's rows_gemv_kernel at one row: each warp covers
 // 256 adjacent columns (8 per lane, one 16-byte load per weight row), the
 // warps of a block split its K range, and blocks split K further until the
-// grid holds about two blocks per SM; partial sums meet by atomicAdd in an
-// output the preceding kernel zeroed.
+// grid holds about two blocks per SM.  The blocks' partial sums meet in a
+// fixed order (the GEMV's `part` mode) in an output the preceding kernel
+// zeroed, so one step on the same inputs gives the same bits every time
+// (atomicAdd would let the last bits move from run to run, and the bf16
+// roundings they flip compound over the layers).  The GEMVs share one
+// partial-sum buffer and one set of tile counters; the counters are zeroed
+// once per step and each GEMV leaves them at zero.
+
+#include <algorithm>
 
 #include "collective.cuh"
 #include "common.cuh"
@@ -64,14 +71,26 @@ namespace {
 size_t align16(size_t n) { return (n + 15) / 16 * 16; }
 
 struct Scratch {
-  float *hx, *res_a, *res_b, *aout, *qkv, *gu, *part_ml, *part_acc;
+  float *hx, *res_a, *res_b, *aout, *qkv, *gu, *part_ml, *part_acc, *gemv_part;
   __nv_bfloat16 *xn, *o;
-  size_t floats;
+  unsigned* gemv_cnt;
+  size_t floats, n_cnt;
 };
 
-Scratch layout(float* base, int hidden, int kv_heads, int group, int hd,
-               int cap, int f_pad, int kv_split) {
+Scratch layout(float* base, int hidden, int kv_heads, int hg, int group, int hd,
+               int cap, int f_pad, int kv_split, int vocab) {
   const size_t ns_max = (size_t)(cap + kv_split - 1) / kv_split;
+  const int G = kv_heads / hg, C = hg * (group + 2) * hd;
+  // the GEMVs' partial sums and tile counters: the largest of the step's
+  size_t n_part = 0, n_cnt = 0;
+  auto gemv = [&](int N, int nmat) {
+    n_part = std::max(n_part, rows_gemv_part_floats(1, 1, N, nmat));
+    n_cnt = std::max(n_cnt, rows_gemv_counters(1, 1, N, nmat));
+  };
+  gemv(C, G);
+  gemv(hidden, 1);
+  gemv(f_pad, 2);
+  if (vocab > 0) gemv(vocab, 1);
   size_t off = 0;
   Scratch s;
   auto take = [&](size_t n) {
@@ -89,6 +108,9 @@ Scratch layout(float* base, int hidden, int kv_heads, int group, int hd,
   s.part_acc = take((size_t)kv_heads * ns_max * group * hd);
   s.xn = reinterpret_cast<__nv_bfloat16*>(take((hidden + 1) / 2));
   s.o = reinterpret_cast<__nv_bfloat16*>(take(((size_t)kv_heads * group * hd + 1) / 2));
+  s.gemv_part = take(n_part);
+  s.gemv_cnt = reinterpret_cast<unsigned*>(take(n_cnt));
+  s.n_cnt = n_cnt;
   s.floats = off;
   return s;
 }
@@ -96,11 +118,11 @@ Scratch layout(float* base, int hidden, int kv_heads, int group, int hd,
 }  // namespace
 
 // Floats of f32 scratch `cf_decoder_stack` needs for this geometry.
-extern "C" long long cf_stack_scratch_floats(int hidden, int kv_heads, int group,
-                                             int hd, int cap, int f_pad,
-                                             int kv_split) {
-  return (long long)layout(nullptr, hidden, kv_heads, group, hd, cap, f_pad,
-                           kv_split).floats;
+extern "C" long long cf_stack_scratch_floats(int hidden, int kv_heads, int hg,
+                                             int group, int hd, int cap, int f_pad,
+                                             int kv_split, int vocab) {
+  return (long long)layout(nullptr, hidden, kv_heads, hg, group, hd, cap, f_pad,
+                           kv_split, vocab).floats;
 }
 
 // One decode step at position pos through all L layers, on `stream`.
@@ -126,8 +148,9 @@ extern "C" int cf_decoder_stack(
   int dev = 0, num_sms = 0;
   CF_CHECK((int)cudaGetDevice(&dev));
   CF_CHECK((int)cudaDeviceGetAttribute(&num_sms, cudaDevAttrMultiProcessorCount, dev));
-  Scratch s = layout(static_cast<float*>(scratch), hidden, kv_heads, group, hd,
-                     cap, f_pad, kv_split);
+  Scratch s = layout(static_cast<float*>(scratch), hidden, kv_heads, hg, group, hd,
+                     cap, f_pad, kv_split, lm_head ? vocab : 0);
+  CF_CHECK((int)cudaMemsetAsync(s.gemv_cnt, 0, sizeof(unsigned) * s.n_cnt, st));
   const int G = kv_heads / hg;
   const long long C = (long long)hg * (group + 2) * hd;   // qkv columns per group
   const long long Ko = (long long)hg * group * hd;       // wo rows per group
@@ -156,7 +179,7 @@ extern "C" int cf_decoder_stack(
     ++n;
     CF_CHECK((launch_rows_gemv_nb<1, false>(s.xn, 0, 0, wq, s.qkv, 1, hidden, (int)C, G,
                                             (long long)hidden * C, 0, C, threads,
-                                            num_sms, st)));
+                                            num_sms, st, s.gemv_part, s.gemv_cnt)));
     ++n;
     // split-KV attention over rows < pos, then the merge with the current
     // token, which appends its bf16 k/v at row pos
@@ -167,7 +190,7 @@ extern "C" int cf_decoder_stack(
     // wo_f[l] is [G * Ko, hidden] row-major: one product sums the groups
     CF_CHECK((launch_rows_gemv_nb<1, false>(s.o, 0, 0, wol, s.aout, 1, (int)(G * Ko),
                                             hidden, 1, 0, 0, 0, threads, num_sms,
-                                            st)));
+                                            st, s.gemv_part, s.gemv_cnt)));
     ++n;
     if (cc) {   // Stage.ATTN: sum the ranks' O-projection partials
       CF_CHECK(cf_launch_all_reduce(cc, s.aout, s.aout, hidden, 0, st));
@@ -181,10 +204,12 @@ extern "C" int cf_decoder_stack(
     ++n;
     CF_CHECK((launch_rows_gemv_nb<1, false>(s.xn, 0, 0, w13l, s.gu, 1, hidden, f_pad, 2,
                                             (long long)hidden * f_pad, 0, f_pad,
-                                            threads, num_sms, st)));
+                                            threads, num_sms, st, s.gemv_part,
+                                            s.gemv_cnt)));
     ++n;
     CF_CHECK((launch_rows_gemv_nb<1, true>(s.gu, 0, f_pad, w2l, s.hx, 1, f_pad, hidden,
-                                           1, 0, 0, 0, threads, num_sms, st)));
+                                           1, 0, 0, 0, threads, num_sms, st,
+                                           s.gemv_part, s.gemv_cnt)));
     ++n;
     if (cc) {   // Stage.LINEAR: sum the ranks' down-projection partials
       CF_CHECK(cf_launch_all_reduce(cc, s.hx, s.hx, hidden, 0, st));
@@ -202,7 +227,8 @@ extern "C" int cf_decoder_stack(
     CF_CHECK((launch_rows_gemv_nb<1, false>(s.xn, 0, 0,
                                             static_cast<const __nv_bfloat16*>(lm_head),
                                             static_cast<float*>(logits), 1, hidden,
-                                            vocab, 1, 0, 0, 0, threads, num_sms, st)));
+                                            vocab, 1, 0, 0, 0, threads, num_sms, st,
+                                            s.gemv_part, s.gemv_cnt)));
     ++n;
   } else {
     resnorm_kernel<<<1, NORM_THREADS, 0, st>>>(

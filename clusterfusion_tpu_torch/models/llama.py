@@ -256,10 +256,10 @@ def prefill_chunk(params: LlamaParams, k_cache, v_cache, tokens, cfg: LlamaConfi
         v_cache[l, :, pos0:pos0 + T] = v_new
         if flash:
             q4 = q[0].permute(1, 0, 2, 3).to(torch.bfloat16).contiguous()
+            # the cache's layer is read in place (rows hd apart)
             o4 = flash_prefill_attention(
-                q4, k_cache[l, :, :pos0 + T].contiguous(),
-                v_cache[l, :, :pos0 + T].contiguous(), q_offset=pos0,
-                kcfg=kcfg)
+                q4, k_cache[l, :, :pos0 + T], v_cache[l, :, :pos0 + T],
+                q_offset=pos0, kcfg=kcfg)
             o = o4.permute(1, 0, 2, 3)[None]               # [1,T,kv,g,hd]
         else:
             # float32 oracle over the full score matrix; the chunk's own

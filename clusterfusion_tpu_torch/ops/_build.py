@@ -37,8 +37,8 @@ _LL = ctypes.c_longlong
 _PP = ctypes.POINTER(ctypes.c_void_p)
 # C signature of every exported function: (argtypes, restype)
 SIGNATURES = {
-    "cf_flash_prefill": ([_P] * 4 + [_I] * 7 + [_P], _I),
-    "cf_stack_scratch_floats": ([_I] * 7, ctypes.c_longlong),
+    "cf_flash_prefill": ([_P] * 4 + [_I] * 7 + [_LL, _LL, _P], _I),
+    "cf_stack_scratch_floats": ([_I] * 9, ctypes.c_longlong),
     "cf_decoder_stack": ([_P] * 17 + [_I] * 11
                          + [_F, _I, _I, ctypes.POINTER(_I), _P, _P], _I),
     "cf_verify_scratch_floats": ([_I] * 8, ctypes.c_longlong),

@@ -1,10 +1,13 @@
 """Causal GQA flash-attention prefill (twin of ``clusterfusion_tpu/ops/flash_prefill.py``).
 
 ``flash_prefill_attention`` launches the hand-written CUDA kernel
-``csrc/flash_prefill.cu`` for CUDA tensors and runs
-``flash_prefill_attention_plain`` for CPU tensors.  Both take the TPU
-kernel's layouts: q ``[kv_heads, T, group, hd]`` and k/v
+``csrc/flash_prefill.cu`` (wgmma tensor cores fed by TMA) for CUDA tensors
+and runs ``flash_prefill_attention_plain`` for CPU tensors.  Both take the
+TPU kernel's layouts: q ``[kv_heads, T, group, hd]`` and k/v
 ``[kv_heads, S, hd]`` in bf16, and return ``[kv_heads, T, group, hd]``.
+K and V may be strided views (a layer of a KV cache, ``k_cache[l, :,
+:pos0 + T]``): each row's ``hd`` elements are contiguous, rows are ``hd``
+apart, and the head stride is free; the kernel reads them where they lie.
 """
 
 from __future__ import annotations
@@ -46,9 +49,12 @@ def flash_prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Causal (chunk-offset) GQA attention over the K/V context.
 
     q [kv_heads, T, group, hd]; k/v [kv_heads, S, hd] with
-    ``S >= q_offset + T`` (keys past ``q_offset + T - 1`` are never read).
+    ``S >= q_offset + T`` (keys past ``q_offset + T - 1`` are never read),
+    rows of ``hd`` contiguous elements ``hd`` apart, any head stride.
     Returns [kv_heads, T, group, hd] in q's dtype.  CUDA tensors run the
-    kernel; CPU tensors run :func:`flash_prefill_attention_plain`."""
+    kernel; CPU tensors run :func:`flash_prefill_attention_plain`.  Raises
+    on other K/V layouts and on ``kcfg.prefill_block_rows`` outside
+    {64, 128}, on either device."""
     global launches
     if window or softcap:
         raise NotImplementedError(
@@ -60,6 +66,12 @@ def flash_prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"not match q {tuple(q.shape)}")
     if S < q_offset + T:
         raise ValueError(f"S={S} < q_offset + T = {q_offset + T}")
+    for name, t in (("k", k), ("v", v)):
+        if t.stride(2) != 1 or t.stride(1) != hd:
+            raise ValueError(f"{name} rows must be {hd} contiguous elements, "
+                             f"{hd} apart; got strides {t.stride()}")
+    if kcfg.prefill_block_rows not in (64, 128):
+        raise ValueError("prefill_block_rows must be 64 or 128")
     if q.device.type == "cpu":
         return flash_prefill_attention_plain(q, k, v, q_offset=q_offset)
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
@@ -68,18 +80,21 @@ def flash_prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{name} must be bfloat16, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    if not q.is_contiguous():
+        raise ValueError("q must be contiguous")
+    for name, t in (("k", k), ("v", v)):
+        # TMA: a 16-byte aligned base and 16-byte multiples as strides
+        if t.data_ptr() % 16 or t.stride(0) % 8:
+            raise ValueError(f"{name} needs a 16-byte aligned base and a "
+                             f"head stride that is a multiple of 8 elements")
     if hd not in (64, 128):
         raise NotImplementedError(f"head_dim {hd} (kernel takes 64 or 128)")
-    if kcfg.prefill_block_rows not in (32, 64):
-        raise ValueError("prefill_block_rows must be 32 or 64")
     out = torch.empty_like(q)
     lib = _build.lib()
     err = lib.cf_flash_prefill(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), kv_heads, T,
-        group, S, hd, q_offset, kcfg.prefill_block_rows,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        group, S, hd, q_offset, kcfg.prefill_block_rows, k.stride(0),
+        v.stride(0), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_prefill_attention")
     launches += 1
     return out

@@ -318,8 +318,8 @@ def fused_decoder_stack(
     sin_f = sin.to(device=dev, dtype=torch.float32).reshape(hd).contiguous()
 
     lib = _build.lib()
-    n_scratch = lib.cf_stack_scratch_floats(hidden, kv_heads, group, hd, cap,
-                                            f_pad, kcfg.kv_split)
+    n_scratch = lib.cf_stack_scratch_floats(hidden, kv_heads, hg, group, hd,
+                                            cap, f_pad, kcfg.kv_split, vocab)
     scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
     res_out = torch.empty((1, hidden), dtype=torch.bfloat16, device=dev)
     if lm_head is not None:

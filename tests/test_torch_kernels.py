@@ -5,8 +5,8 @@ Every test here needs a CUDA card and skips without one.  On the card:
     python -m pytest tests/test_torch_kernels.py -q
 
 Tolerances: the kernels and their twins share inputs and arithmetic but
-sum in another order (and the decode GEMVs split their sums across blocks
-with atomics), and round to bf16 at the same places; outputs are held at
+sum in another order (and the decode GEMVs split their sums across blocks,
+with atomics outside kernel 7), and round to bf16 at the same places; outputs are held at
 atol 2e-2 / rtol 2e-2, logits at 2e-2 of the largest logit, appended K/V
 rows at atol 0.05 (the JAX suite's bf16 tolerance).
 """
@@ -39,27 +39,85 @@ def _randn(shape, dev, seed, scale=1.0):
     return (torch.randn(shape, generator=g) * scale).to(torch.bfloat16).to(dev)
 
 
-@pytest.mark.parametrize("kv,T,g,hd,q_offset,extra,rows", [
-    (2, 1, 1, 128, 0, 0, 64),
-    (2, 37, 1, 128, 0, 0, 64),
-    (2, 64, 4, 128, 0, 0, 32),
-    (1, 130, 2, 64, 0, 0, 64),
-    (2, 33, 2, 64, 93, 30, 32),
-    (4, 200, 1, 128, 256, 7, 64),
+@pytest.mark.parametrize("kv,T,g,hd,q_offset,extra,rows,view", [
+    (2, 1, 1, 128, 0, 0, 64, False),
+    (2, 37, 1, 128, 0, 0, 64, False),
+    (2, 64, 4, 128, 0, 0, 64, False),
+    (1, 130, 2, 64, 0, 0, 64, False),
+    (2, 33, 2, 64, 93, 30, 64, False),
+    (4, 200, 1, 128, 256, 7, 64, False),
+    # long prompts, both head dims and row tiles
+    (2, 1024, 1, 128, 0, 0, 128, False),
+    (1, 2048, 1, 128, 0, 0, 128, False),
+    (2, 1024, 1, 64, 0, 0, 64, False),
+    (1, 2048, 1, 64, 0, 0, 128, False),
+    # groups 1, 4 and 8 at both head dims
+    (2, 300, 4, 128, 0, 0, 128, False),
+    (2, 129, 8, 128, 0, 0, 64, False),
+    (1, 1024, 8, 64, 0, 0, 128, False),
+    (4, 77, 4, 64, 0, 0, 64, False),
+    # T = 1, with and without an offset
+    (2, 1, 1, 128, 0, 0, 128, False),
+    (2, 1, 8, 64, 500, 3, 128, False),
+    (3, 1, 4, 128, 63, 0, 64, False),
+    # T*group and q_offset + T off the row and key tiles
+    (3, 45, 3, 128, 17, 5, 128, False),
+    (2, 63, 1, 64, 65, 1, 64, False),
+    (2, 129, 1, 128, 127, 0, 128, False),
+    # a layer of a cache read in place, NaN in every row past the chunk
+    (4, 200, 1, 128, 256, 7, 128, True),
+    (2, 45, 8, 64, 19, 60, 64, True),
+    (2, 1, 1, 128, 300, 1, 128, True),
 ])
 def test_flash_prefill_kernel_matches_plain(dev, kv, T, g, hd, q_offset,
-                                            extra, rows):
+                                            extra, rows, view):
     S = q_offset + T + extra
     q = _randn((kv, T, g, hd), dev, 0)
-    k = _randn((kv, S, hd), dev, 1)
-    v = _randn((kv, S, hd), dev, 2)
+    if view:
+        # [layers, kv, capacity, hd]; the kernel reads layer 1's first S
+        # rows where they lie, and must never touch the NaN rows past the
+        # chunk (positions q_offset + T ..)
+        kbuf = torch.full((2, kv, S + 64, hd), float("nan"),
+                          dtype=torch.bfloat16, device=dev)
+        vbuf = kbuf.clone()
+        kbuf[1, :, :q_offset + T] = _randn((kv, q_offset + T, hd), dev, 1)
+        vbuf[1, :, :q_offset + T] = _randn((kv, q_offset + T, hd), dev, 2)
+        k, v = kbuf[1, :, :S], vbuf[1, :, :S]
+        assert not k.is_contiguous()
+    else:
+        k = _randn((kv, S, hd), dev, 1)
+        v = _randn((kv, S, hd), dev, 2)
     before = fp.launches
     out = fp.flash_prefill_attention(q, k, v, q_offset=q_offset,
                                      kcfg=KernelConfig(prefill_block_rows=rows))
     torch.cuda.synchronize()
     assert fp.launches == before + 1
+    assert bool(torch.isfinite(out).all())
     ref = fp.flash_prefill_attention_plain(q, k, v, q_offset=q_offset)
     torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+
+
+def test_chunked_prefill_matches_whole_on_card(dev):
+    """prefill_chunk over two chunks (the second through kernel 4 at
+    q_offset 40, reading the cache in place) gives the logits and caches
+    of one whole prefill, at LlamaConfig.tiny() with GQA.  Tolerances as
+    the JAX suite's test: the projections run at other M, so bf16 roundings
+    may differ."""
+    cfg = LlamaConfig.tiny(n_kv_heads=2)
+    p = model.init_params(cfg, seed=3, device=dev)
+    toks = (np.arange(101) * 11) % cfg.vocab_size
+    k1, v1 = model.init_cache(cfg, device=dev)
+    before = fp.launches
+    l1, _, _ = model.prefill(p, k1, v1, toks, cfg)
+    kc, vc = model.init_cache(cfg, device=dev)
+    model.prefill_chunk(p, kc, vc, toks[:40], cfg, pos0=0)
+    l2, _, _ = model.prefill_chunk(p, kc, vc, toks[40:], cfg, pos0=40)
+    torch.cuda.synchronize()
+    assert fp.launches == before + 3 * cfg.n_layers
+    scale = max(l1.abs().max().item(), 1.0)
+    assert (l2 - l1[40:]).abs().max().item() < 0.05 * scale
+    torch.testing.assert_close(kc.float(), k1.float(), atol=0.05, rtol=0)
+    torch.testing.assert_close(vc.float(), v1.float(), atol=0.05, rtol=0)
 
 
 HIDDEN, L, HD, F_PAD, VOCAB, CAP = 512, 2, 128, 1024, 384, 640
@@ -124,6 +182,28 @@ def test_stack_kernel_matches_plain(dev, rope_style, n_heads, kv_heads, hg,
     others[pos] = False
     assert torch.equal(kc[:, :, others], kp[:, :, others])
     assert torch.equal(vc[:, :, others], vp[:, :, others])
+
+
+@pytest.mark.parametrize("with_lm", [True, False], ids=["lm", "no_lm"])
+@pytest.mark.parametrize("n_heads,kv_heads,hg", [(4, 4, 2), (8, 2, 1)],
+                         ids=["mha", "gqa"])
+def test_stack_kernel_is_bit_reproducible(dev, n_heads, kv_heads, hg, with_lm):
+    """Kernel 7's GEMVs sum their K chunks in a fixed order, so one step on
+    the same inputs gives the same bits every time, the appended rows too."""
+    pos = 300
+    g, a, kc, vc, lm = _stack_args(dev, n_heads, kv_heads, hg, pos)
+    cfg = LlamaConfig.tiny()
+    cos, sin = model.rope_row(cfg, pos, dev)
+    kw = dict(group=g, head_dim=HD, rope_style=cfg.rope_style, eps=1e-5,
+              **(lm if with_lm else {}))
+    args = [a["x"], a["attn_norm"], a["ffn_norm"], cos, sin, a["wqkv_f"],
+            a["wo_f"], a["w13"], a["w2"]]
+    outs = [sk.fused_decoder_stack(*args, kc.clone(), vc.clone(), pos, **kw)
+            for _ in range(4)]
+    torch.cuda.synchronize()
+    for out in outs[1:]:
+        for got, want in zip(out, outs[0]):
+            assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("n,pos", [(1, 37), (2, 0), (5, 37), (8, 300),
