@@ -18,8 +18,12 @@ run with a non-zero exit code:
    Their device times (``torch.profiler``) come after phase 5, whose wall
    clocks a profiler session would slow;
 4. kernel 7, ``fused_decoder_stack``, against its plain twin at full
-   Llama-2-7B geometry (one step at pos 600 over a random-filled cache):
-   logits, the appended K/V row, every other row unchanged; times and bound;
+   Llama-2-7B geometry (one step at pos 600 over a random-filled cache,
+   NaN in every row above pos): logits, the appended K/V row, every other
+   row unchanged (bit for bit); times and bound, and the step at kv_split
+   32, 64 and 128.  After phase 5, kernel 7's device time by pass (split,
+   GEMV, norms, merge; ``torch.profiler``, each kernel charged from the end
+   of those before it) and the split pass at each kv_split;
 5. end to end: ``Llama.synthetic(llama2_7b)`` streams 64 greedy tokens
    after a 512-token prompt through ``stream_generate``; prefill ms (warm,
    beside the process's first prefill), decode tokens/s, both kernels'
@@ -48,7 +52,7 @@ run with a non-zero exit code:
 9. speculative decoding: kernel 8, ``fused_verify_stack``, against its
    plain twin at 7B, pos 600, n 5 and n 9, over a random-filled cache with
    large stale rows above pos (logits, the n appended rows, every other row
-   unchanged), its time beside the stack's at the same pos, the plain
+   unchanged, a repeat bit-identical), its time beside the stack's at the same pos, the plain
    twin's and the bound; then ``spec_generate`` (n_draft 4, 32 tokens after
    a 128-token prompt) with a self-draft (a second engine on the same
    weights: every draft accepted but where the target's top-2 gap is
@@ -81,7 +85,9 @@ weights are used in place), and before the DeepSeek phases free it:
    head (4096 x 32000), against their plain twins, with their device times
    (``torch.profiler``) beside the time of a call (CUDA events), the
    twins', one PyTorch call's (``rms_norm``; ``torch.mm`` with a float32
-   output) and the bounds;
+   output) and the bounds; kernel 3 gives the same bits on every call, and
+   it and ``torch.mm`` are timed with L2 cold (each call reads one of 8
+   copies of the head) and warm;
 13. kernel 6, ``_fused_decoder_layer``, at 7B geometry (layer 1, a 4096-row
    cache, pos 600, large garbage at and above pos): full mode with the
    append (output, residual, the appended rows, every other row unchanged);
@@ -126,7 +132,10 @@ Then, where the machine has two cards or more:
    512-token prefill and 32 greedy steps of the fused-collective tp step
    and of the NCCL tp step, ms per step before any profiler, both streams
    against kernel 7 teacher-forced on rank 0.  On one card it prints
-   ``[multicard] skipped cards=1``: nothing ran.
+   ``[multicard] skipped cards=1``: nothing ran.  The collectives' times
+   are the slowest rank's median of 5 batches of 100 back-to-back calls,
+   each batch started after ``synchronize`` and ``dist.barrier``.
+   ``python3 chip_smoke.py multicard`` runs phases 1, 2 and 16 alone.
 
 Then one JSON line per kernel table, the card line, and last
 ``{"ok": true, "device": {...}}``.  Weights are random, from a seed.
@@ -348,7 +357,17 @@ def phase_flash_device(cases, peak):
     return next(c["row"] for c in cases if c["label"] == "7b")
 
 
+def _same_bits(a, b) -> bool:
+    """Bit equality of two bf16 tensors (NaN rows compare equal)."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int16),
+                                              b.view(torch.int16))
+
+
+STACK_KV_SPLITS = (32, 64, 128)
+
+
 def phase_stack(eng, dev, hbm, peak, pos=600):
+    from clusterfusion_tpu_torch.config import KernelConfig
     from clusterfusion_tpu_torch.models import llama as model
     from clusterfusion_tpu_torch.ops import stack_kernel as sk
     cfg, p = eng.cfg, eng.params
@@ -360,6 +379,10 @@ def phase_stack(eng, dev, hbm, peak, pos=600):
                                  device=dev).bfloat16()
     vc[:, :, :pos] = torch.randn(vc[:, :, :pos].shape, generator=gen,
                                  device=dev).bfloat16()
+    # rows above pos hold NaN: the kernel writes row pos and reads rows
+    # < pos only, as its plain twin does
+    kc[:, :, pos + 1:] = float("nan")
+    vc[:, :, pos + 1:] = float("nan")
     x = p["embed"][torch.tensor([7], device=dev)]
     cos, sin = model.rope_row(cfg, pos, dev)
     kw = dict(group=g, head_dim=hd, rope_style=cfg.rope_style,
@@ -387,9 +410,10 @@ def phase_stack(eng, dev, hbm, peak, pos=600):
     rows_ok = bool(row_err[0] <= 0.05) and bool((row_err <= row_tol).all())
     others = torch.ones(kc.shape[2], dtype=torch.bool, device=dev)
     others[pos] = False
-    unchanged = (torch.equal(kk[:, :, others], kc[:, :, others])
-                 and torch.equal(vk[:, :, others], vc[:, :, others]))
-    finite = bool(torch.isfinite(out[0]).all())
+    unchanged = (_same_bits(kk[:, :, others], kc[:, :, others])
+                 and _same_bits(vk[:, :, others], vc[:, :, others]))
+    finite = bool(torch.isfinite(out[0]).all()) and bool(
+        torch.isfinite(out[1].float()).all())
     say("stack", kernel=7, pos=pos, layers=cfg.n_layers, logits_max_abs_err=f"{lg_err:.4g}",
         logits_err_over_max=f"{lg_rel:.4g}", tol_logits=2e-2,
         kv_row_err_layer0=f"{row_err[0].item():.3g}", tol_layer0=0.05,
@@ -397,10 +421,12 @@ def phase_stack(eng, dev, hbm, peak, pos=600):
         kv_row_err_by_layer=[round(e, 4) for e in row_err[::4].tolist()],
         kv_row_max_abs=f"{row_mag.max().item():.3g}",
         tol_rows="atol=0.05+rtol=1e-2", other_rows_unchanged=unchanged,
-        finite=finite, kernels_per_step=sk.last_step_kernels)
+        nan_above_pos=True, finite=finite,
+        kernels_per_step=sk.last_step_kernels)
     if not (lg_rel <= 2e-2 and rows_ok and unchanged and finite):
         raise AssertionError("fused_decoder_stack disagrees with its plain twin")
-    ms = time_ms(lambda: sk.fused_decoder_stack(*args, kk, vk, pos, **kw), 20)
+    step = functools.partial(sk.fused_decoder_stack, *args, kk, vk, pos, **kw)
+    ms = time_ms(step, 20)
     plain_ms = time_ms(lambda: sk.fused_decoder_stack_plain(
         *args, kc, vc, pos, **kw), 3, warmup=1)
     wbytes = sum(t.numel() * t.element_size() for t in
@@ -416,10 +442,84 @@ def phase_stack(eng, dev, hbm, peak, pos=600):
     bound = max(nbytes / hbm, flops / peak) * 1e3
     say("stack", ms_per_step=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
         bound_ms=f"{bound:.4f}", bound_by="bytes",
-        weight_bytes=wbytes, kv_bytes_read=kv_read)
-    return dict(max_abs_err=lg_err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by="bytes" if nbytes / hbm >= flops / peak
-                else "operations", library_ms=None)
+        weight_bytes=wbytes, kv_bytes_read=kv_read,
+        kv_split=KernelConfig().kv_split)
+    # the step at each candidate kv_split (CUDA events), the default's too
+    steps = {ks: functools.partial(sk.fused_decoder_stack, *args, kk, vk, pos,
+                                   kcfg=KernelConfig(kv_split=ks), **kw)
+             for ks in STACK_KV_SPLITS}
+    say("stack_kv_split", pos=pos, **{f"ms_{ks}": f"{time_ms(f, 20):.4f}"
+                                      for ks, f in steps.items()})
+    row = dict(max_abs_err=lg_err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+               bound_by="bytes" if nbytes / hbm >= flops / peak
+               else "operations", library_ms=None)
+    return row, dict(step=step, steps=steps, pos=pos, kv_read=kv_read,
+                     hbm=hbm)
+
+
+STACK_PASSES = (("split", "attn_split_kernel"), ("gemv", "ring_gemv_kernel"),
+                ("norms", "resnorm_kernel"), ("merge", "attn_merge_kernel"))
+
+
+def timeline_by_pass(fn, passes, reps: int = 8):
+    """``torch.profiler`` over ``reps`` calls of ``fn``, per call: the
+    device's busy time, the span from the first kernel's start to the last
+    one's end, the sum of the kernels' own durations, and the busy time by
+    pass.  Kernels launched with programmatic dependent launch start while
+    the one before them runs and wait inside, so their own durations
+    overlap; each kernel is charged here only from the end of the kernels
+    before it to its own end (the time the step advanced while it was the
+    last to finish), so the passes add up to the busy time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kern = sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not kern:
+        raise AssertionError("the profiler saw no device time")
+    out = {k: 0.0 for k, _ in passes}
+    out["other"] = 0.0
+    counts = {k: 0 for k in out}
+    end, own = kern[0][0], 0.0
+    for start, stop, name in kern:
+        own += stop - start
+        k = next((k for k, key in passes if key in name), "other")
+        counts[k] += 1
+        if stop > end:
+            out[k] += stop - max(start, end)
+            end = stop
+    span = kern[-1][1] - kern[0][0]
+    per = 1e3 * reps            # µs over reps -> ms per call
+    return (sum(out.values()) / per, span / per, own / per,
+            {k: v / per for k, v in out.items()},
+            {k: v / reps for k, v in counts.items()})
+
+
+def phase_stack_device(case):
+    """Kernel 7's device time by pass (``torch.profiler``), at the default
+    kv_split and the split pass at each candidate; run after phase 5, whose
+    wall clocks a profiler session would slow."""
+    busy, span, own, out, n = timeline_by_pass(case["step"], STACK_PASSES)
+    split_tbps = case["kv_read"] / (out["split"] * 1e-3) / 1e12 \
+        if out["split"] else 0.0
+    say("stack_device", kernel=7, pos=case["pos"], busy_ms=f"{busy:.4f}",
+        span_ms=f"{span:.4f}", kernels_own_sum_ms=f"{own:.4f}",
+        **{f"{k}_ms": f"{v:.4f}" for k, v in out.items()},
+        **{f"{k}_launches": f"{v:g}" for k, v in n.items()},
+        split_TBps=f"{split_tbps:.3f}",
+        split_bound_ms=f"{case['kv_read'] / case['hbm'] * 1e3:.4f}",
+        note="each kernel charged from the end of those before it to its "
+             "own end")
+    split = {ks: timeline_by_pass(f, STACK_PASSES)[3]["split"]
+             for ks, f in case["steps"].items()}
+    say("stack_device_kv_split", pos=case["pos"],
+        **{f"split_ms_{ks}": f"{v:.4f}" for ks, v in split.items()})
 
 
 def phase_e2e(eng, dev):
@@ -954,6 +1054,12 @@ def phase_verify(eng, dev, hbm, peak, stack_ms, pos=600):
         unchanged = (torch.equal(kk[:, :, others], kc[:, :, others])
                      and torch.equal(vk[:, :, others], vc[:, :, others]))
         finite = bool(torch.isfinite(out[0]).all())
+        # kernel 8's GEMVs sum in a fixed order: a repeat gives the same bits
+        k2, v2 = kc.clone(), vc.clone()
+        again = sv.fused_verify_stack(*args, k2, v2, pos, **kw)
+        repeat_same = (torch.equal(again[0], out[0]) and torch.equal(k2, kk)
+                       and torch.equal(v2, vk))
+        del again, k2, v2
         say("verify", kernel=8, n=n, pos=pos, layers=L,
             logits_max_abs_err=f"{lg_err:.4g}",
             logits_err_over_max=f"{lg_rel:.4g}", tol_logits=2e-2,
@@ -961,8 +1067,10 @@ def phase_verify(eng, dev, hbm, peak, stack_ms, pos=600):
             kv_rows_err_max=f"{row_err.max().item():.4g}",
             kv_rows_max_abs=f"{row_mag.max().item():.3g}",
             tol_rows="atol=0.05+rtol=1e-2", other_rows_unchanged=unchanged,
-            finite=finite, kernels_per_call=sv.last_step_kernels)
-        if not (lg_rel <= 2e-2 and rows_ok and unchanged and finite):
+            finite=finite, repeat_bit_identical=repeat_same,
+            kernels_per_call=sv.last_step_kernels)
+        if not (lg_rel <= 2e-2 and rows_ok and unchanged and finite
+                and repeat_same):
             raise AssertionError(f"fused_verify_stack (n {n}) disagrees with "
                                  "its plain twin")
         del kr, vr
@@ -1098,6 +1206,9 @@ def _bytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+GEMV_HEAD_COPIES = 8
+
+
 def phase_norms_gemv(eng, dev, hbm, peak):
     """Kernels 1 and 2 (``rmsnorm``, ``fused_add_rmsnorm``) at (1, 4096) and
     (64, 8192) in bf16 and float32, and kernel 3 (``gemv``) over the 7B LM
@@ -1181,18 +1292,36 @@ def phase_norms_gemv(eng, dev, hbm, peak):
     scale = want.abs().max().item()
     if not err <= 1e-3 * max(scale, 1.0):
         raise AssertionError(f"gemv disagrees with its plain twin: {err}")
-    ms = device_ms(lambda: gv.gemv(x, lm))
+    # its K chunks meet in a fixed order: every call gives the same bits
+    repeats_same = all(torch.equal(gv.gemv(x, lm), y) for _ in range(3))
+    if not repeats_same:
+        raise AssertionError("gemv differs from itself")
+    # each timed call reads its own copy of the head (8 copies, 2.1 GB, far
+    # over the 50 MB L2), so no call finds the last one's reads in L2
+    heads = [lm] + [lm.clone() for _ in range(GEMV_HEAD_COPIES - 1)]
+
+    def rotating(fn):
+        it = iter(range(1 << 62))
+        return lambda: fn(heads[next(it) % len(heads)])
+    ms = device_ms(rotating(lambda w: gv.gemv(x, w)))
+    lib_ms = device_ms(rotating(
+        lambda w: torch.mm(x, w, out_dtype=torch.float32)))
+    warm_ms = device_ms(lambda: gv.gemv(x, lm))
+    warm_lib_ms = device_ms(lambda: torch.mm(x, lm, out_dtype=torch.float32))
     call_ms = time_ms(lambda: gv.gemv(x, lm), 50)
     plain_ms = time_ms(lambda: gv.gemv_plain(x, lm), 10)
-    lib_ms = device_ms(lambda: torch.mm(x, lm, out_dtype=torch.float32))
+    del heads
     nbytes = _bytes(lm, x) + N * 4
     flops = 2 * K * N
     bound = max(nbytes / hbm, flops / peak) * 1e3
     bound_by = "bytes" if nbytes / hbm >= flops / peak else "operations"
     say("gemv", kernel=3, K=K, N=N, max_abs_err=f"{err:.3g}",
-        tol="1e-3 of max |y|", max_abs_y=f"{scale:.3g}", ms=f"{ms:.4f}",
+        tol="1e-3 of max |y|", max_abs_y=f"{scale:.3g}",
+        repeats_bit_identical=repeats_same, ms=f"{ms:.4f}",
+        library_ms=f"{lib_ms:.4f}", over_library=f"{ms / lib_ms:.4f}",
+        timing=f"device, L2 cold ({GEMV_HEAD_COPIES} rotating copies)",
+        warm_ms=f"{warm_ms:.4f}", warm_library_ms=f"{warm_lib_ms:.4f}",
         call_ms=f"{call_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-        library_ms=f"{lib_ms:.4f}",
         library="torch.mm(bf16, out_dtype=float32)", bound_ms=f"{bound:.4f}",
         bound_by=bound_by, rate_TBps=f"{nbytes / ms / 1e9:.3f}")
     rows["gemv"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -2119,22 +2248,28 @@ def _multicard_world(count: int) -> int:
     return 1
 
 
-def _timed_ms(fn, reps: int = 200) -> float:
-    """Mean ms per call of ``fn`` between CUDA events, after the ranks meet
-    (``dist.barrier``) and warm up."""
+def _timed_ms(fn, reps: int = 100, batches: int = 5) -> float:
+    """ms per call of ``fn`` on this rank: the median over ``batches`` of
+    CUDA events around ``reps`` back-to-back calls, each batch started with
+    the card idle and the ranks met (``synchronize``, ``dist.barrier``), so
+    a rank's host lag shows at most once per batch."""
     import torch.distributed as dist
     for _ in range(5):
         fn()
-    dist.barrier()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / reps
+    times = []
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        dist.barrier()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return statistics.median(times)
 
 
 def _multicard_collectives(rank, world, dev, mesh, hbm):
@@ -2196,10 +2331,18 @@ def _multicard_collectives(rank, world, dev, mesh, hbm):
         all_reduce_bound_ms=2 * 4096 * 4 / hbm * 1e3,
         all_gather_bound_ms=(32000 // world + 32000) * 4 / hbm * 1e3)
     comm.check()
+    # the slowest rank's time of each
+    slow = torch.tensor(list(out.values()), dtype=torch.float64, device=dev)
+    dist.all_reduce(slow, op=dist.ReduceOp.MAX, group=group)
+    out = dict(zip(out, slow.tolist()))
     if rank == 0:
         say("multicard", ranks=world, **{k: f"{v:.5f}" for k, v in out.items()},
-            note="per call per rank, CUDA events over 200 calls; bound: "
-                 "HBM bytes, a flag round trip over NVLink is the floor")
+            reduce_over_nccl=f"{out['all_reduce_ms'] / out['all_reduce_nccl_ms']:.3f}",
+            gather_over_nccl=f"{out['all_gather_ms'] / out['all_gather_nccl_ms']:.3f}",
+            note="per call, the slowest rank; median of 5 batches of CUDA "
+                 "events over 100 back-to-back calls, each batch after "
+                 "synchronize and barrier; bound: HBM bytes, a flag round "
+                 "trip over NVLink is the floor")
     return out
 
 
@@ -2319,6 +2462,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["multicard"]:
+        # phases 1, 2 and 16 alone (two cards or more), no kernels line
+        phase_card()
+        phase_build()
+        phase_multicard(card_rates(torch.cuda.get_device_name(0))[0])
+        return 0
     from clusterfusion_tpu_torch.config import LlamaConfig
     from clusterfusion_tpu_torch.models.generation import Llama
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2337,9 +2486,11 @@ def main() -> int:
         param_bytes=sum(t.numel() * 2 for t in
                         [eng.params["embed"], eng.params["lm_head"],
                          *eng.params["layers"].values()]))
-    stack = phase_stack(eng, dev, hbm, peak)
+    stack, stack_case = phase_stack(eng, dev, hbm, peak)
     flash_launches, stack_launches = phase_e2e(eng, dev)
     flash = phase_flash_device(flash_cases, peak)
+    phase_stack_device(stack_case)
+    del stack_case
     paged = phase_paged_attention(dev, hbm, peak)
     layer = phase_paged_layer(eng, dev, hbm, peak)
     pa_launches, layer_launches = phase_serving(eng, dev)

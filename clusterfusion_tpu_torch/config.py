@@ -213,13 +213,18 @@ class KernelConfig:
 
     ``kv_split``: cache rows per block of the split-KV flash-decode pass in
     ``fused_decoder_stack`` (one partial (m, l, acc) per split, merged by a
-    second pass; at most 1024).  ``prefill_block_rows``: panel rows
-    (query x group) per block of ``flash_prefill_attention``: 64 or 128,
-    i.e. one or two consumer warpgroups of 64 rows (the wgmma M); any other
-    value raises.  Its key tile is 64 rows.  ``gemv_threads``: threads per
-    block of the decode GEMVs, a multiple of 32."""
+    second pass; 1 to 1024; any other value raises).  64 keeps about two
+    blocks per SM at Llama-2-7B's 32 kv heads and pos 600, and measured the
+    fastest split pass of 32, 64 and 128 on the H100 (PERF.md).
+    ``prefill_block_rows``: panel rows (query x group) per block of
+    ``flash_prefill_attention``: 64 or 128, i.e. one or two consumer
+    warpgroups of 64 rows (the wgmma M); any other value raises.  Its key
+    tile is 64 rows.  ``gemv_threads``: threads per block of the decode
+    GEMVs, a multiple of 32 (the ring GEMV of ``fused_decoder_stack``,
+    ``fused_verify_stack`` and ``gemv``: its consumer threads, 32 to 992,
+    beside one producer warp)."""
 
-    kv_split: int = 128
+    kv_split: int = 64
     prefill_block_rows: int = 128
     gemv_threads: int = 256
 

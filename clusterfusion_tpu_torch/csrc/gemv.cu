@@ -4,25 +4,23 @@
 // `_gemv_kernel`), which grids N in lane-aligned blocks so that an M=1 dot
 // reaches the TPU's memory rate.  What bounds it here: every weight byte is
 // read once for two operations, far under the card's ~295 operations per
-// byte, so bytes bound it.  It is common.cuh's rows_gemv_kernel at one row
-// (the decode stacks' GEMV): each warp covers 256 adjacent columns with
-// one 16-byte load per weight row, blocks split K until the grid fills the
-// card, and partial sums meet by atomicAdd in y, zeroed first.  N must be
-// a multiple of 8; a last tile of 128 columns leaves its upper lanes idle.
+// byte, so bytes bound it.  It is common.cuh's ring GEMV at one row
+// (ring_gemv_kernel, the stacks'): a producer warp per block bulk-copies 256-column weight
+// tiles through a ring of shared-memory stages, consumer warps do the
+// FMAs, and the K chunks of a tile meet inside a thread-block cluster in a
+// fixed order, so y is written whole (no zeroing first) and its bits are
+// the same on every call.  N must be a multiple of 8; a last tile of 128
+// columns copies and sums only its own columns.
 
 #include "common.cuh"
 
-// y = x @ w on `stream` (y zeroed, then one GEMV launch).  Returns a
-// cudaError_t (0 on success).
-extern "C" int cf_gemv(const void* x, const void* w, void* y, int K, int N, int threads,
-                       void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (K < 1 || N < 8 || N % 8 != 0 || threads % 32 != 0) return (int)cudaErrorInvalidValue;
-  int dev = 0, num_sms = 0;
-  CF_CHECK((int)cudaGetDevice(&dev));
-  CF_CHECK((int)cudaDeviceGetAttribute(&num_sms, cudaDevAttrMultiProcessorCount, dev));
-  CF_CHECK((int)cudaMemsetAsync(y, 0, sizeof(float) * (size_t)N, st));
-  return launch_rows_gemv_nb<1, false>(x, 0, 0, static_cast<const __nv_bfloat16*>(w),
-                                       static_cast<float*>(y), 1, K, N, 1, 0, 0, 0,
-                                       threads, num_sms, st);
+// y [M, N] f32 = x [M, K] bf16 @ w on `stream` (one launch; M, K >= 1, N a
+// multiple of 8, threads a multiple of 32 in [32, 992]).  The op takes
+// M = 1; more rows run the ring GEMV's tensor-core form, the verify
+// stack's.  Returns a cudaError_t (0 on success).
+extern "C" int cf_gemv(const void* x, const void* w, void* y, int M, int K, int N,
+                       int threads, void* stream) {
+  return launch_ring_gemv<false>(x, K, 0, static_cast<const __nv_bfloat16*>(w),
+                                 static_cast<float*>(y), M, K, N, 1, 0, N, 0, threads, false,
+                                 static_cast<cudaStream_t>(stream));
 }

@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the port's tensor-core kernels:
-// mbarriers, TMA tensor copies, wgmma shared-memory descriptors and the
-// wgmma instructions themselves.  Each helper is a thin wrapper over one
-// PTX instruction (or a short fixed sequence) and says which.
+// Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
+// TMA tensor copies and 1-D bulk copies, programmatic dependent launch,
+// wgmma shared-memory descriptors and the wgmma instructions themselves,
+// and the warp-level ldmatrix / mma.sync pair.  Each helper is a thin wrapper over one PTX instruction (or a short fixed
+// sequence) and says which.
 //
 // Conventions:
 // - Shared-memory addresses are 32-bit `.shared` addresses (smem_u32).
@@ -137,6 +138,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// cp.async.bulk global -> shared (no tensor map): copies `bytes` contiguous
+// bytes from `src` to `dst`; the bytes complete on `bar`.  Both addresses
+// 16-byte aligned, `bytes` a multiple of 16.
+__device__ __forceinline__ void bulk_load_1d(void* dst, const void* src,
+                                             uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // cp.async.bulk.tensor.3d shared -> global (bulk group): stores the box at
 // (c0, c1, c2) from `src`; parts outside the tensor are not written.
 __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
@@ -160,6 +173,19 @@ __device__ __forceinline__ void tma_store_commit_and_wait() {
 // stores before later async-proxy accesses (a TMA store or a wgmma read).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Programmatic dependent launch.  griddepcontrol.wait: wait until the
+// grids this one depends on have completed and their writes are visible
+// (returns at once in a kernel launched without the attribute).
+// griddepcontrol.launch_dependents: let the next kernel on the stream, if
+// launched with cudaLaunchAttributeProgrammaticStreamSerialization, start
+// once every block of this grid has executed it or exited.
+__device__ __forceinline__ void grid_dep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void grid_dep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
 // bar.sync on a named barrier shared by `threads` threads (a warpgroup:
@@ -302,6 +328,30 @@ __device__ __forceinline__ float fast_exp2(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16: four 8x8 bf16 matrices,
+// lane i giving the 16-byte row (i % 8) of matrix i / 8; register j holds
+// matrix j transposed, lane l its elements [2*(l%4)][l/4] and
+// [2*(l%4)+1][l/4] (the layout of an mma.sync B fragment when the matrix's
+// rows are k).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(row)));
+}
+
+// mma.sync m16n8k16 f32 += bf16 x bf16 (A row-major in four registers, B
+// in two, d the 16x8 float32 accumulator, four per lane: rows l/4 and
+// l/4 + 8, columns 2*(l%4) and 2*(l%4)+1).
+__device__ __forceinline__ void mma_m16n8k16_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                                  uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ---------------------------------------------------------------------------

@@ -13,9 +13,9 @@
 // What bounds it: a bs=1 step reads every weight once (13.4 GB at
 // Llama-2-7B) and does two operations per weight byte, far under the
 // card's ~295 operations per byte, so it is bound by bytes.  The design
-// streams each weight matrix once with 16-byte coalesced loads across
-// enough blocks to keep every SM's loads in flight, and reads only cache
-// rows < pos.
+// streams each weight matrix once through shared memory with bulk copies
+// (cp.async.bulk) across enough blocks to keep every SM's copies in
+// flight, and reads only cache rows < pos, the same way.
 //
 // The TPU kernel walks a sequential (layer, phase) grid and carries the
 // hidden pair in VMEM scratch from step to step.  Hopper blocks run in
@@ -23,18 +23,18 @@
 // in a fixed order on one stream by `cf_decoder_stack`, and the carry
 // lives in a float32 scratch buffer the caller allocates.  Per layer:
 //   resnorm   r1 = hx + res; xn = bf16(rmsnorm(r1) * attn_norm)
-//   gemv      qkv += xn @ wqkv_f[l]            (raw f32, split over K)
+//   gemv      qkv = xn @ wqkv_f[l]             (raw f32, split over K)
 //   split     flash-decode over cache rows < pos, one partial (m, l, acc)
 //             per (kv head, split); q is roped, pre-scaled by
 //             1/sqrt(hd)*log2(e) and rounded to bf16 for these dots
 //   merge     merge the partials, fold in the current token from the f32
 //             q/k/v, append bf16 k/v at row pos, o = bf16(acc / l)
-//   gemv      aout += o @ wo_f[l]              (f32 over head groups)
+//   gemv      aout = o @ wo_f[l]               (f32 over head groups)
 //   resnorm   r2 = aout + r1; xn = bf16(rmsnorm(r2) * ffn_norm)
-//   gemv      gu += xn @ w13[l]                (gate and up, f32)
-//   gemv      hx += bf16(silu(gate) * up) @ w2[l]
+//   gemv      gu = xn @ w13[l]                 (gate and up, f32)
+//   gemv      hx = bf16(silu(gate) * up) @ w2[l]
 // and once per token: resnorm over hx + res with the final norm (or the
-// bf16 outputs without an LM head), then gemv logits += xn @ lm_head.
+// bf16 outputs without an LM head), then gemv logits = xn @ lm_head.
 // The hidden pair stays float32 across layers, as in the TPU kernel.
 //
 // Mode 5, reduce_axis (the JAX package's fused_collectives=True): with a
@@ -44,22 +44,24 @@
 // partial sums: on aout after the O-projection (Stage.ATTN, before the FFN
 // resnorm) and on hx after the down projection (Stage.LINEAR, before the
 // next layer's resnorm), as `ring_reduce_scratch` runs inside the TPU
-// kernel.  The resnorms zero aout and hx before the GEMVs add into them, so
-// each reduce sees one rank's whole partial; every rank then carries the
-// same bits of the hidden pair.  The sequence gains 2L launches.
+// kernel.  The GEMVs write aout and hx whole, so each reduce sees one
+// rank's whole partial; every rank then carries the same bits of the
+// hidden pair.  The sequence gains 2L launches.
 //
 // The split and merge passes are common.cuh's attn_split_kernel and
-// attn_merge_kernel, shared with the single layer (decoder_layer.cu).
-// The GEMVs are common.cuh's rows_gemv_kernel at one row: each warp covers
-// 256 adjacent columns (8 per lane, one 16-byte load per weight row), the
-// warps of a block split its K range, and blocks split K further until the
-// grid holds about two blocks per SM.  The blocks' partial sums meet in a
-// fixed order (the GEMV's `part` mode) in an output the preceding kernel
-// zeroed, so one step on the same inputs gives the same bits every time
+// attn_merge_kernel, shared with the single layer (decoder_layer.cu): the
+// split pass bulk-copies each split's K and V rows into shared memory and
+// works on a tile's rows at once.  The GEMVs are common.cuh's ring GEMV at
+// one row (ring_gemv_kernel): a producer warp bulk-copies 256-column weight tiles
+// through a ring of shared-memory stages, consumer warps do the FMAs, and
+// the K chunks of a tile meet inside a thread-block cluster in a fixed
+// order, so one step on the same inputs gives the same bits every time
 // (atomicAdd would let the last bits move from run to run, and the bf16
-// roundings they flip compound over the layers).  The GEMVs share one
-// partial-sum buffer and one set of tile counters; the counters are zeroed
-// once per step and each GEMV leaves them at zero.
+// roundings they flip compound over the layers).  Each GEMV is launched
+// with programmatic dependent launch: it streams its first weight stages
+// while the kernel before it (resnorm, merge or the previous GEMV, which
+// let it start at once) still runs, and reads its input after that
+// kernel has completed.
 
 #include <algorithm>
 
@@ -70,27 +72,20 @@ namespace {
 
 size_t align16(size_t n) { return (n + 15) / 16 * 16; }
 
+// Launch the norms, the split pass and the merge with programmatic
+// dependent launch too, so their launch latency hides under the kernel
+// before them (the GEMVs always are).
+constexpr bool PDL_CHAIN = true;
+
 struct Scratch {
-  float *hx, *res_a, *res_b, *aout, *qkv, *gu, *part_ml, *part_acc, *gemv_part;
+  float *hx, *res_a, *res_b, *aout, *qkv, *gu, *part_ml, *part_acc;
   __nv_bfloat16 *xn, *o;
-  unsigned* gemv_cnt;
-  size_t floats, n_cnt;
+  size_t floats;
 };
 
-Scratch layout(float* base, int hidden, int kv_heads, int hg, int group, int hd,
-               int cap, int f_pad, int kv_split, int vocab) {
+Scratch layout(float* base, int hidden, int kv_heads, int group, int hd, int cap,
+               int f_pad, int kv_split) {
   const size_t ns_max = (size_t)(cap + kv_split - 1) / kv_split;
-  const int G = kv_heads / hg, C = hg * (group + 2) * hd;
-  // the GEMVs' partial sums and tile counters: the largest of the step's
-  size_t n_part = 0, n_cnt = 0;
-  auto gemv = [&](int N, int nmat) {
-    n_part = std::max(n_part, rows_gemv_part_floats(1, 1, N, nmat));
-    n_cnt = std::max(n_cnt, rows_gemv_counters(1, 1, N, nmat));
-  };
-  gemv(C, G);
-  gemv(hidden, 1);
-  gemv(f_pad, 2);
-  if (vocab > 0) gemv(vocab, 1);
   size_t off = 0;
   Scratch s;
   auto take = [&](size_t n) {
@@ -108,9 +103,6 @@ Scratch layout(float* base, int hidden, int kv_heads, int hg, int group, int hd,
   s.part_acc = take((size_t)kv_heads * ns_max * group * hd);
   s.xn = reinterpret_cast<__nv_bfloat16*>(take((hidden + 1) / 2));
   s.o = reinterpret_cast<__nv_bfloat16*>(take(((size_t)kv_heads * group * hd + 1) / 2));
-  s.gemv_part = take(n_part);
-  s.gemv_cnt = reinterpret_cast<unsigned*>(take(n_cnt));
-  s.n_cnt = n_cnt;
   s.floats = off;
   return s;
 }
@@ -121,8 +113,10 @@ Scratch layout(float* base, int hidden, int kv_heads, int hg, int group, int hd,
 extern "C" long long cf_stack_scratch_floats(int hidden, int kv_heads, int hg,
                                              int group, int hd, int cap, int f_pad,
                                              int kv_split, int vocab) {
-  return (long long)layout(nullptr, hidden, kv_heads, hg, group, hd, cap, f_pad,
-                           kv_split, vocab).floats;
+  (void)hg;
+  (void)vocab;
+  return (long long)layout(nullptr, hidden, kv_heads, group, hd, cap, f_pad, kv_split)
+      .floats;
 }
 
 // One decode step at position pos through all L layers, on `stream`.
@@ -143,18 +137,14 @@ extern "C" int cf_decoder_stack(
   const CfComm* cc = static_cast<const CfComm*>(comm);
   *n_launches = 0;
   if (group > ATT_MAX_GROUP || hd % 32 != 0 || hd > 4 * 32 || threads % 32 != 0 ||
-      pos < 0 || pos >= cap || kv_heads % hg != 0 || (cc && hidden % 4 != 0))
+      threads < 32 || threads > G1_MAX_THREADS || pos < 0 || pos >= cap ||
+      kv_heads % hg != 0 || (cc && hidden % 4 != 0))
     return (int)cudaErrorInvalidValue;
-  int dev = 0, num_sms = 0;
-  CF_CHECK((int)cudaGetDevice(&dev));
-  CF_CHECK((int)cudaDeviceGetAttribute(&num_sms, cudaDevAttrMultiProcessorCount, dev));
-  Scratch s = layout(static_cast<float*>(scratch), hidden, kv_heads, hg, group, hd,
-                     cap, f_pad, kv_split, lm_head ? vocab : 0);
-  CF_CHECK((int)cudaMemsetAsync(s.gemv_cnt, 0, sizeof(unsigned) * s.n_cnt, st));
+  Scratch s = layout(static_cast<float*>(scratch), hidden, kv_heads, group, hd, cap,
+                     f_pad, kv_split);
   const int G = kv_heads / hg;
   const long long C = (long long)hg * (group + 2) * hd;   // qkv columns per group
   const long long Ko = (long long)hg * group * hd;       // wo rows per group
-  const int qkv_n = kv_heads * (group + 2) * hd;
   const float* cosf = static_cast<const float*>(cos);
   const float* sinf = static_cast<const float*>(sin);
   int n = 0;
@@ -169,47 +159,40 @@ extern "C" int cf_decoder_stack(
     __nv_bfloat16* kcl = static_cast<__nv_bfloat16*>(kc) + (size_t)l * kv_heads * cap * hd;
     __nv_bfloat16* vcl = static_cast<__nv_bfloat16*>(vc) + (size_t)l * kv_heads * cap * hd;
 
-    // residual add + attention RMSNorm; zero the qkv and attn-out sums
-    resnorm_kernel<<<1, NORM_THREADS, 0, st>>>(
+    // residual add + attention RMSNorm
+    CF_CHECK(launch_kernel(resnorm_kernel, dim3(1), dim3(NORM_THREADS), 0, st, PDL_CHAIN,
         l == 0 ? nullptr : s.hx,
         l == 0 ? static_cast<const __nv_bfloat16*>(x) : nullptr,
         l == 0 ? nullptr : s.res_a, nullptr, an, s.res_b, nullptr, s.xn, nullptr,
-        nullptr, hidden, eps, s.qkv, qkv_n, s.aout, hidden);
-    CF_CHECK((int)cudaGetLastError());
+        nullptr, hidden, eps, nullptr, 0, nullptr, 0));
     ++n;
-    CF_CHECK((launch_rows_gemv_nb<1, false>(s.xn, 0, 0, wq, s.qkv, 1, hidden, (int)C, G,
-                                            (long long)hidden * C, 0, C, threads,
-                                            num_sms, st, s.gemv_part, s.gemv_cnt)));
+    CF_CHECK(launch_gemv1<false>(s.xn, 0, wq, s.qkv, hidden, (int)C, G,
+                                 (long long)hidden * C, C, threads, true, st));
     ++n;
     // split-KV attention over rows < pos, then the merge with the current
     // token, which appends its bf16 k/v at row pos
     CF_CHECK(launch_attention(s.qkv, kcl, vcl, cosf, sinf, s.part_ml, s.part_acc,
                               kcl, vcl, nullptr, nullptr, s.o, nullptr, nullptr,
                               kv_heads, group, hd, cap, pos, kv_split, 1, neox,
-                              st, &n));
+                              st, &n, PDL_CHAIN));
     // wo_f[l] is [G * Ko, hidden] row-major: one product sums the groups
-    CF_CHECK((launch_rows_gemv_nb<1, false>(s.o, 0, 0, wol, s.aout, 1, (int)(G * Ko),
-                                            hidden, 1, 0, 0, 0, threads, num_sms,
-                                            st, s.gemv_part, s.gemv_cnt)));
+    CF_CHECK(launch_gemv1<false>(s.o, 0, wol, s.aout, (int)(G * Ko), hidden, 1, 0, 0,
+                                 threads, true, st));
     ++n;
     if (cc) {   // Stage.ATTN: sum the ranks' O-projection partials
       CF_CHECK(cf_launch_all_reduce(cc, s.aout, s.aout, hidden, 0, st));
       ++n;
     }
-    // attention-out residual add + FFN RMSNorm; zero the gate/up and down sums
-    resnorm_kernel<<<1, NORM_THREADS, 0, st>>>(
+    // attention-out residual add + FFN RMSNorm
+    CF_CHECK(launch_kernel(resnorm_kernel, dim3(1), dim3(NORM_THREADS), 0, st, PDL_CHAIN,
         s.aout, nullptr, s.res_b, nullptr, fn, s.res_a, nullptr, s.xn, nullptr,
-        nullptr, hidden, eps, s.gu, 2 * f_pad, s.hx, hidden);
-    CF_CHECK((int)cudaGetLastError());
+        nullptr, hidden, eps, nullptr, 0, nullptr, 0));
     ++n;
-    CF_CHECK((launch_rows_gemv_nb<1, false>(s.xn, 0, 0, w13l, s.gu, 1, hidden, f_pad, 2,
-                                            (long long)hidden * f_pad, 0, f_pad,
-                                            threads, num_sms, st, s.gemv_part,
-                                            s.gemv_cnt)));
+    CF_CHECK(launch_gemv1<false>(s.xn, 0, w13l, s.gu, hidden, f_pad, 2,
+                                 (long long)hidden * f_pad, f_pad, threads, true, st));
     ++n;
-    CF_CHECK((launch_rows_gemv_nb<1, true>(s.gu, 0, f_pad, w2l, s.hx, 1, f_pad, hidden,
-                                           1, 0, 0, 0, threads, num_sms, st,
-                                           s.gemv_part, s.gemv_cnt)));
+    CF_CHECK(launch_gemv1<true>(s.gu, f_pad, w2l, s.hx, f_pad, hidden, 1, 0, 0, threads,
+                                true, st));
     ++n;
     if (cc) {   // Stage.LINEAR: sum the ranks' down-projection partials
       CF_CHECK(cf_launch_all_reduce(cc, s.hx, s.hx, hidden, 0, st));
@@ -218,24 +201,20 @@ extern "C" int cf_decoder_stack(
   }
 
   if (lm_head) {
-    resnorm_kernel<<<1, NORM_THREADS, 0, st>>>(
+    CF_CHECK(launch_kernel(resnorm_kernel, dim3(1), dim3(NORM_THREADS), 0, st, PDL_CHAIN,
         s.hx, nullptr, s.res_a, nullptr, static_cast<const __nv_bfloat16*>(final_norm),
         nullptr, nullptr, s.xn, nullptr, static_cast<__nv_bfloat16*>(out_res), hidden,
-        eps, static_cast<float*>(logits), vocab, nullptr, 0);
-    CF_CHECK((int)cudaGetLastError());
+        eps, nullptr, 0, nullptr, 0));
     ++n;
-    CF_CHECK((launch_rows_gemv_nb<1, false>(s.xn, 0, 0,
-                                            static_cast<const __nv_bfloat16*>(lm_head),
-                                            static_cast<float*>(logits), 1, hidden,
-                                            vocab, 1, 0, 0, 0, threads, num_sms, st,
-                                            s.gemv_part, s.gemv_cnt)));
+    CF_CHECK(launch_gemv1<false>(s.xn, 0, static_cast<const __nv_bfloat16*>(lm_head),
+                                 static_cast<float*>(logits), hidden, vocab, 1, 0, 0,
+                                 threads, true, st));
     ++n;
   } else {
-    resnorm_kernel<<<1, NORM_THREADS, 0, st>>>(
+    CF_CHECK(launch_kernel(resnorm_kernel, dim3(1), dim3(NORM_THREADS), 0, st, PDL_CHAIN,
         s.hx, nullptr, s.res_a, nullptr, nullptr, nullptr, nullptr, nullptr,
         static_cast<__nv_bfloat16*>(out_x), static_cast<__nv_bfloat16*>(out_res),
-        hidden, eps, nullptr, 0, nullptr, 0);
-    CF_CHECK((int)cudaGetLastError());
+        hidden, eps, nullptr, 0, nullptr, 0));
     ++n;
   }
   *n_launches = n;

@@ -9,16 +9,20 @@
 // all n K/V rows are appended at pos..pos+n-1 of every layer.  Cache rows
 // at and above pos are never read: they may hold rows of rejected drafts.
 //
-// What bounds it: the products read every weight once for up to 8 rows
+// What bounds it: the products read every weight once for up to 16 rows
 // (13.4 GB at Llama-2-7B) and do 2n operations per weight byte, far under
 // the card's ~295 operations per byte, so bytes bound it, as they bound the
-// one-row stack.  common.cuh's GEMV takes the rows in chunks of 8, so at
-// n = 9 each weight is read twice.  The attention reads the cache rows
-// < pos once per kv head and tile of up to 16 query rows.
+// one-row stack.  The GEMVs are common.cuh's ring GEMV in its tensor-core
+// form: weights stream through shared memory, mma.sync takes up to 16 rows
+// of x at once, and the K chunks of a column tile meet inside a
+// thread-block cluster in a fixed order, so one call on the same inputs
+// gives the same bits every time and the products write their outputs
+// whole.  The attention reads the cache rows < pos once per kv head and
+// tile of up to 16 query rows.
 //
 // The sequence per layer is stack_kernel.cu's at M = n rows, on one stream:
 //   resnorm  grid n: r1 = hx + res; xn = bf16(rmsnorm(r1) * attn_norm)
-//   gemv     qkv[t] += xn[t] @ wqkv_f[l]
+//   gemv     qkv[t] = xn[t] @ wqkv_f[l]
 //   split    verify_split_kernel: per (kv head, split of cache rows < pos,
 //            tile of query rows), q roped, scaled by 1/sqrt(hd)*log2(e) and
 //            rounded to bf16; one thread per cache row forms the q.k dots of
@@ -28,10 +32,10 @@
 //            from the float32 q and k, then bf16(p) . bf16(v), as the TPU
 //            kernel rounds them), append the n bf16 K/V rows,
 //            o[t] = bf16(acc / l), token-major
-//   gemv     aout[t] += o[t] @ wo_f[l]
+//   gemv     aout[t] = o[t] @ wo_f[l]
 //   resnorm  r2 = aout + r1; xn = bf16(rmsnorm(r2) * ffn_norm)
-//   gemv     gu[t] += xn[t] @ w13[l]
-//   gemv     hx[t] += bf16(silu(gate) * up) @ w2[l]
+//   gemv     gu[t] = xn[t] @ w13[l]
+//   gemv     hx[t] = bf16(silu(gate) * up) @ w2[l]
 // and once per call the final resnorm and the LM-head GEMV (or the bf16
 // outputs without an LM head).  The hidden pair stays float32 across layers.
 //
@@ -288,13 +292,11 @@ extern "C" int cf_verify_stack(
   *n_launches = 0;
   const size_t split_smem = sizeof(float) * ((size_t)ROW_TILE * hd + (size_t)ROW_TILE * kv_split);
   const size_t merge_smem = sizeof(float) * ((size_t)3 * n * hd + (size_t)n * n);
-  if (n < 1 || n > MAX_N || hd % 32 != 0 || threads % 32 != 0 || kv_split < 1 ||
+  if (n < 1 || n > MAX_N || hd % 32 != 0 || threads % 32 != 0 || threads < 32 ||
+      threads > G1_MAX_THREADS || kv_split < 1 ||
       pos < 0 || pos + n > cap || kv_heads % hg != 0 ||
       split_smem > ATT_SMEM_MAX || merge_smem > ATT_SMEM_MAX)
     return (int)cudaErrorInvalidValue;
-  int dev = 0, num_sms = 0;
-  CF_CHECK((int)cudaGetDevice(&dev));
-  CF_CHECK((int)cudaDeviceGetAttribute(&num_sms, cudaDevAttrMultiProcessorCount, dev));
   static bool attrs_set = false;
   if (!attrs_set) {
     CF_CHECK((int)cudaFuncSetAttribute(verify_split_kernel,
@@ -328,16 +330,16 @@ extern "C" int cf_verify_stack(
     __nv_bfloat16* kcl = static_cast<__nv_bfloat16*>(kc) + (size_t)l * kv_heads * cap * hd;
     __nv_bfloat16* vcl = static_cast<__nv_bfloat16*>(vc) + (size_t)l * kv_heads * cap * hd;
 
-    // residual add + attention RMSNorm per row; zero the qkv and attn-out sums
+    // residual add + attention RMSNorm per row
     resnorm_kernel<<<n, NORM_THREADS, 0, st>>>(
         l == 0 ? nullptr : s.hx,
         l == 0 ? static_cast<const __nv_bfloat16*>(x) : nullptr,
         l == 0 ? nullptr : s.res_a, nullptr, an, s.res_b, nullptr, s.xn, nullptr,
-        nullptr, hidden, eps, s.qkv, qkv_n, s.aout, hidden);
+        nullptr, hidden, eps, nullptr, 0, nullptr, 0);
     CF_CHECK((int)cudaGetLastError());
     ++k;
-    CF_CHECK((launch_rows_gemv<false>(s.xn, hidden, 0, wq, s.qkv, n, hidden, (int)C, G,
-                                      (long long)hidden * C, qkv_n, C, threads, num_sms,
+    CF_CHECK((launch_ring_gemv<false>(s.xn, hidden, 0, wq, s.qkv, n, hidden, (int)C, G,
+                                      (long long)hidden * C, qkv_n, C, threads, false,
                                       st)));
     ++k;
     if (ns > 0) {
@@ -353,21 +355,21 @@ extern "C" int cf_verify_stack(
     CF_CHECK((int)cudaGetLastError());
     ++k;
     // wo_f[l] is [G * Ko, hidden] row-major: one product sums the groups
-    CF_CHECK((launch_rows_gemv<false>(s.o, o_n, 0, wol, s.aout, n, (int)(G * Ko), hidden,
-                                      1, 0, hidden, 0, threads, num_sms, st)));
+    CF_CHECK((launch_ring_gemv<false>(s.o, o_n, 0, wol, s.aout, n, (int)(G * Ko), hidden,
+                                      1, 0, hidden, 0, threads, false, st)));
     ++k;
-    // attention-out residual add + FFN RMSNorm; zero the gate/up and down sums
+    // attention-out residual add + FFN RMSNorm
     resnorm_kernel<<<n, NORM_THREADS, 0, st>>>(
         s.aout, nullptr, s.res_b, nullptr, fn, s.res_a, nullptr, s.xn, nullptr,
-        nullptr, hidden, eps, s.gu, 2 * f_pad, s.hx, hidden);
+        nullptr, hidden, eps, nullptr, 0, nullptr, 0);
     CF_CHECK((int)cudaGetLastError());
     ++k;
-    CF_CHECK((launch_rows_gemv<false>(s.xn, hidden, 0, w13l, s.gu, n, hidden, f_pad, 2,
+    CF_CHECK((launch_ring_gemv<false>(s.xn, hidden, 0, w13l, s.gu, n, hidden, f_pad, 2,
                                       (long long)hidden * f_pad, 2LL * f_pad, f_pad,
-                                      threads, num_sms, st)));
+                                      threads, false, st)));
     ++k;
-    CF_CHECK((launch_rows_gemv<true>(s.gu, 2LL * f_pad, f_pad, w2l, s.hx, n, f_pad,
-                                     hidden, 1, 0, hidden, 0, threads, num_sms, st)));
+    CF_CHECK((launch_ring_gemv<true>(s.gu, 2LL * f_pad, f_pad, w2l, s.hx, n, f_pad,
+                                     hidden, 1, 0, hidden, 0, threads, false, st)));
     ++k;
   }
 
@@ -375,13 +377,13 @@ extern "C" int cf_verify_stack(
     resnorm_kernel<<<n, NORM_THREADS, 0, st>>>(
         s.hx, nullptr, s.res_a, nullptr, static_cast<const __nv_bfloat16*>(final_norm),
         nullptr, nullptr, s.xn, nullptr, static_cast<__nv_bfloat16*>(out_res), hidden,
-        eps, static_cast<float*>(logits), vocab, nullptr, 0);
+        eps, nullptr, 0, nullptr, 0);
     CF_CHECK((int)cudaGetLastError());
     ++k;
-    CF_CHECK((launch_rows_gemv<false>(s.xn, hidden, 0,
+    CF_CHECK((launch_ring_gemv<false>(s.xn, hidden, 0,
                                       static_cast<const __nv_bfloat16*>(lm_head),
                                       static_cast<float*>(logits), n, hidden, vocab, 1,
-                                      0, vocab, 0, threads, num_sms, st)));
+                                      0, vocab, 0, threads, false, st)));
     ++k;
   } else {
     resnorm_kernel<<<n, NORM_THREADS, 0, st>>>(

@@ -53,7 +53,7 @@ SIGNATURES = {
     "cf_mla_decode": ([_P] * 13 + [_I] * 10 + [_F, _F, _I, _I,
                                                ctypes.POINTER(_I), _P], _I),
     "cf_rmsnorm": ([_P] * 5 + [_I] * 4 + [_F, _P], _I),
-    "cf_gemv": ([_P] * 3 + [_I] * 3 + [_P], _I),
+    "cf_gemv": ([_P] * 3 + [_I] * 4 + [_P], _I),
     "cf_decoder_layer_scratch_floats": ([_I] * 6, ctypes.c_longlong),
     "cf_decoder_layer": ([_P] * 16 + [_I] * 10
                          + [_F, _I, _I, ctypes.POINTER(_I), _P], _I),
@@ -96,35 +96,35 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _sources():
-    srcs = sorted(CSRC.glob("*.cu"))
+def _sources(csrc: Path):
+    srcs = sorted(csrc.glob("*.cu"))
     if not srcs:
-        raise RuntimeError(f"no CUDA sources under {CSRC}")
+        raise RuntimeError(f"no CUDA sources under {csrc}")
     return srcs
 
 
-def _digest() -> str:
+def _digest(csrc: Path) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.glob("*.cu*")):
+    for p in sorted(csrc.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build() -> Path:
+def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
     """Compile ``csrc/*.cu`` (one nvcc per source, in parallel) and link
-    them into ``build/.../libcftorch_<hash>.so``; returns its path."""
-    srcs = _sources()
-    out = BUILD_DIR / f"libcftorch_{_digest()}.so"
+    them into ``build_dir/libcftorch_<hash>.so``; returns its path."""
+    srcs = _sources(csrc)
+    out = build_dir / f"libcftorch_{_digest(csrc)}.so"
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         procs = []
         for src in srcs:
             obj = Path(tmp) / (src.stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src),
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(csrc), "-c", str(src),
                    "-o", str(obj)]
             procs.append((src, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -147,17 +147,22 @@ def build() -> Path:
     return out
 
 
+def load(path: Path) -> ctypes.CDLL:
+    """A built library with every entry point's C signature set."""
+    handle = ctypes.CDLL(str(path))
+    for name, (argtypes, restype) in SIGNATURES.items():
+        fn = getattr(handle, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return handle
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
     with _lock:
         if _lib is None:
-            handle = ctypes.CDLL(str(build()))
-            for name, (argtypes, restype) in SIGNATURES.items():
-                fn = getattr(handle, name)
-                fn.argtypes = argtypes
-                fn.restype = restype
-            _lib = handle
+            _lib = load(build())
     return _lib
 
 

@@ -144,6 +144,18 @@ def refuse_unported(what: str, head_dim: int, weights, final_norm, lm_head,
         raise ValueError("final_norm and lm_head go together")
 
 
+def check_stack_kcfg(kcfg: KernelConfig) -> None:
+    """What kernels 7 and 8 take of ``kcfg``, on either device:
+    ``kv_split`` in [1, 1024] (the split passes keep a split's scores in
+    shared memory) and ``gemv_threads`` a multiple of 32 in [32, 992] (the
+    ring GEMV's consumer threads, beside its producer warp)."""
+    if not 1 <= kcfg.kv_split <= 1024:
+        raise ValueError(f"kv_split {kcfg.kv_split} outside [1, 1024]")
+    if kcfg.gemv_threads % 32 or not 32 <= kcfg.gemv_threads <= 992:
+        raise ValueError(f"gemv_threads {kcfg.gemv_threads} is not a multiple "
+                         "of 32 in [32, 992]")
+
+
 def check_launch(kcfg: KernelConfig, tensors: dict, widths) -> None:
     """What a whole-stack launch needs: a sane ``kcfg``; every tensor given
     (None entries are skipped) on x's device, contiguous and 16-byte
@@ -266,6 +278,7 @@ def fused_decoder_stack(
                     post_ffn_norm=post_ffn_norm)
     if reduce_axis is not None and mesh is None:
         raise ValueError("reduce_axis needs the mesh whose axis it names")
+    check_stack_kcfg(kcfg)
     pos = int(pos)
     L, G, hidden, C = wqkv_f.shape
     _, kv_heads, cap, hd = k_cache.shape

@@ -39,7 +39,7 @@ from clusterfusion_tpu_torch.ops import _build
 from clusterfusion_tpu_torch.ops._support import cdiv, glu_act
 from clusterfusion_tpu_torch.ops.stack_kernel import (
     _LOG2E, _NEG_INF, _norm, _rope, _vocab_block, check_launch,
-    refuse_unported)
+    check_stack_kcfg, refuse_unported)
 
 #: Calls of :func:`fused_verify_stack` that launched the kernels.
 launches = 0
@@ -164,6 +164,7 @@ def fused_verify_stack(
                     bias_qkv=bias_qkv, ffn_act=ffn_act, softcap=softcap,
                     post_attn_norm=post_attn_norm,
                     post_ffn_norm=post_ffn_norm)
+    check_stack_kcfg(kcfg)
     pos = int(pos)
     n, hidden = x.shape
     L, G, _, C = wqkv_f.shape

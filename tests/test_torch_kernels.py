@@ -6,9 +6,10 @@ Every test here needs a CUDA card and skips without one.  On the card:
 
 Tolerances: the kernels and their twins share inputs and arithmetic but
 sum in another order (and the decode GEMVs split their sums across blocks,
-with atomics outside kernel 7), and round to bf16 at the same places; outputs are held at
-atol 2e-2 / rtol 2e-2, logits at 2e-2 of the largest logit, appended K/V
-rows at atol 0.05 (the JAX suite's bf16 tolerance).
+with atomics outside kernels 7, 8 and 3), and round to bf16 at the same
+places; outputs are held at atol 2e-2 / rtol 2e-2, logits at 2e-2 of the
+largest logit, appended K/V rows at atol 0.05 (the JAX suite's bf16
+tolerance).
 """
 
 import importlib
@@ -145,14 +146,43 @@ def _stack_args(dev, n_heads, kv_heads, hg, pos, seed=0):
     return g, a, kc, vc, lm
 
 
-@pytest.mark.parametrize("pos", [0, 37, 300])
+def _same_bits(a, b):
+    """Bit equality of two bf16 tensors (NaN rows compare equal)."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int16),
+                                              b.view(torch.int16))
+
+
+# the default kv_split and two others of the candidates
+KV_SPLIT_DEFAULT = KernelConfig().kv_split
+KV_SPLITS = [KV_SPLIT_DEFAULT] + [k for k in (32, 64, 128)
+                                  if k != KV_SPLIT_DEFAULT][:2]
+# positions around the split boundaries ("ks" is the case's kv_split)
+STACK_POS = ["0", "1", "37", "300", "ks-1", "ks", "ks+1", "cap-1"]
+
+
+def _stack_pos(name, kv_split):
+    if name == "cap-1":
+        return CAP - 1
+    if name.startswith("ks"):
+        return kv_split + int(name[2:] or 0)
+    return int(name)
+
+
+@pytest.mark.parametrize("kv_split", KV_SPLITS,
+                         ids=[f"ks{k}" for k in KV_SPLITS])
+@pytest.mark.parametrize("pos_name", STACK_POS)
 @pytest.mark.parametrize("with_lm", [True, False], ids=["lm", "no_lm"])
 @pytest.mark.parametrize("n_heads,kv_heads,hg", [(4, 4, 2), (8, 2, 1)],
                          ids=["mha", "gqa"])
 @pytest.mark.parametrize("rope_style", ["gptj", "neox"])
 def test_stack_kernel_matches_plain(dev, rope_style, n_heads, kv_heads, hg,
-                                    with_lm, pos):
+                                    with_lm, pos_name, kv_split):
+    """Kernel 7 against its plain twin at the same kv_split, every cache row
+    above pos NaN: the kernel reads rows < pos only and writes row pos."""
+    pos = _stack_pos(pos_name, kv_split)
     g, a, kc, vc, lm = _stack_args(dev, n_heads, kv_heads, hg, pos)
+    kc[:, :, pos + 1:] = float("nan")
+    vc[:, :, pos + 1:] = float("nan")
     cfg = LlamaConfig.tiny(rope_style=rope_style)
     cos, sin = model.rope_row(cfg, pos, dev)
     kw = dict(group=g, head_dim=HD, rope_style=rope_style, eps=1e-5,
@@ -162,11 +192,13 @@ def test_stack_kernel_matches_plain(dev, rope_style, n_heads, kv_heads, hg,
     kp, vp = kc.clone(), vc.clone()
     before = sk.launches
     out = sk.fused_decoder_stack(*args, kc, vc, pos,
-                                 kcfg=KernelConfig(kv_split=128), **kw)
+                                 kcfg=KernelConfig(kv_split=kv_split), **kw)
     torch.cuda.synchronize()
     assert sk.launches == before + 1
     assert sk.last_step_kernels == 8 * L - (pos == 0) * L + 1 + with_lm
-    ref = sk.fused_decoder_stack_plain(*args, kp, vp, pos, **kw)
+    ref = sk.fused_decoder_stack_plain(*args, kp, vp, pos, kv_split=kv_split,
+                                       **kw)
+    assert torch.isfinite(out[0].float()).all()
     if with_lm:
         err = (out[0] - ref[0]).abs().max().item()
         assert err <= 2e-2 * ref[0].abs().max().item(), err
@@ -180,8 +212,8 @@ def test_stack_kernel_matches_plain(dev, rope_style, n_heads, kv_heads, hg,
                                    want[:, :, pos].float(), atol=0.05, rtol=0)
     others = torch.ones(CAP, dtype=torch.bool, device=dev)
     others[pos] = False
-    assert torch.equal(kc[:, :, others], kp[:, :, others])
-    assert torch.equal(vc[:, :, others], vp[:, :, others])
+    assert _same_bits(kc[:, :, others], kp[:, :, others])
+    assert _same_bits(vc[:, :, others], vp[:, :, others])
 
 
 @pytest.mark.parametrize("with_lm", [True, False], ids=["lm", "no_lm"])
@@ -207,7 +239,7 @@ def test_stack_kernel_is_bit_reproducible(dev, n_heads, kv_heads, hg, with_lm):
 
 
 @pytest.mark.parametrize("n,pos", [(1, 37), (2, 0), (5, 37), (8, 300),
-                                   (9, CAP - 9)])
+                                   (9, CAP - 9), (17, 100)])
 @pytest.mark.parametrize("with_lm", [True, False], ids=["lm", "no_lm"])
 @pytest.mark.parametrize("n_heads,kv_heads,hg", [(4, 4, 2), (8, 2, 1)],
                          ids=["mha", "gqa4"])
@@ -254,6 +286,30 @@ def test_verify_kernel_matches_plain(dev, rope_style, n_heads, kv_heads, hg,
     others[new] = False
     assert torch.equal(kc[:, :, others], k0[:, :, others])
     assert torch.equal(vc[:, :, others], v0[:, :, others])
+
+
+@pytest.mark.parametrize("n", [5, 9])
+@pytest.mark.parametrize("with_lm", [True, False], ids=["lm", "no_lm"])
+def test_verify_kernel_is_bit_reproducible(dev, with_lm, n):
+    """Kernel 8's GEMVs sum their K chunks in a fixed order (the batched
+    GEMV's cluster mode), so one call on the same inputs gives the same
+    bits every time, the appended rows too."""
+    from clusterfusion_tpu_torch.ops import stack_verify as sv
+    pos = 300
+    g, a, kc, vc, lm = _stack_args(dev, 8, 2, 1, pos)
+    x = _randn((n, HIDDEN), dev, 42)
+    cfg = LlamaConfig.tiny()
+    cos, sin = model.rope_rows(cfg, pos, n, dev)
+    kw = dict(group=g, head_dim=HD, rope_style=cfg.rope_style, eps=1e-5,
+              **(lm if with_lm else {}))
+    args = [x, a["attn_norm"], a["ffn_norm"], cos, sin, a["wqkv_f"],
+            a["wo_f"], a["w13"], a["w2"]]
+    outs = [sv.fused_verify_stack(*args, kc.clone(), vc.clone(), pos, **kw)
+            for _ in range(4)]
+    torch.cuda.synchronize()
+    for out in outs[1:]:
+        for got, want in zip(out, outs[0]):
+            assert torch.equal(got, want)
 
 
 def test_verify_step_launches_kernel(dev):
@@ -638,18 +694,63 @@ def test_norm_kernels_match_plain(dev, rows, hidden, dtype):
     assert y.dtype == yf.dtype == hf.dtype == dtype
 
 
-@pytest.mark.parametrize("K,N", [(512, 384), (4096, 32000), (11264, 4096)])
+@pytest.mark.parametrize("K,N", [(512, 384), (4096, 32000), (11264, 4096),
+                                 (4096, 4224), (512, 8)])
 def test_gemv_kernel_matches_plain(dev, K, N):
     """Kernel 3 against its plain twin; the products are exact in float32
-    and only the order of the sums differs."""
+    and only the order of the sums differs.  N 384 and 4224 end in a
+    128-column tile; N 8 (one 8-column tile) goes to the C entry, since the
+    wrapper takes multiples of 128 only.  Repeated calls give the same
+    bits (the K chunks meet in a fixed order)."""
     gv = importlib.import_module("clusterfusion_tpu_torch.ops.gemv")
+    from clusterfusion_tpu_torch.ops import _build
     x = _randn((1, K), dev, 53)
     w = _randn((K, N), dev, 54, K ** -0.5)
+
+    def call():
+        if N % 128 == 0:
+            return gv.gemv(x, w)
+        y = torch.full((1, N), float("nan"), device=dev)
+        _build.check(_build.lib().cf_gemv(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), 1, K, N,
+            KernelConfig().gemv_threads,
+            torch.cuda.current_stream(dev).cuda_stream), "cf_gemv")
+        return y
     before = gv.launches
-    y = gv.gemv(x, w)
+    y = call()
     torch.cuda.synchronize()
-    assert gv.launches == before + 1
+    assert gv.launches == before + (N % 128 == 0)
     torch.testing.assert_close(y, gv.gemv_plain(x, w), atol=1e-3, rtol=1e-3)
+    for _ in range(3):
+        assert torch.equal(call(), y)
+
+
+@pytest.mark.parametrize("M,K,N", [(2, 512, 384), (5, 4096, 4224),
+                                   (8, 1000, 264), (9, 4096, 12288),
+                                   (16, 11008, 4096), (17, 512, 384),
+                                   (32, 777, 136)])
+def test_ring_gemv_rows_match_plain(dev, M, K, N):
+    """The ring GEMV's tensor-core form (the verify stack's GEMVs, M > 1)
+    through kernel 3's C entry: every row of y written (it starts NaN),
+    against the float32 product, and the same bits on every call.  K off
+    the 16-row mma step and the 32-row stage, N ending in an 8-column
+    tile, and M past 16 (two row chunks) are among the cases."""
+    from clusterfusion_tpu_torch.ops import _build
+    x = _randn((M, K), dev, 55)
+    w = _randn((K, N), dev, 56, K ** -0.5)
+
+    def call():
+        y = torch.full((M, N), float("nan"), device=dev)
+        _build.check(_build.lib().cf_gemv(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), M, K, N,
+            KernelConfig().gemv_threads,
+            torch.cuda.current_stream(dev).cuda_stream), "cf_gemv")
+        return y
+    y = call()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, x.float() @ w.float(), atol=1e-3, rtol=1e-3)
+    for _ in range(3):
+        assert torch.equal(call(), y)
 
 
 LAYER_MODES = {
@@ -661,6 +762,9 @@ LAYER_MODES = {
     "partials_fold1": (300, "neox", True, False, True, 1),
     "partials_fold0": (37, "neox", True, False, True, 0),
     "partials_empty": (0, "neox", True, False, True, 0),
+    # NaN in every row above seq (the appended row seq is written)
+    "nan_full_append": (300, "gptj", True, True, False, 1),
+    "nan_partials": (300, "neox", True, False, True, 1),
 }
 
 
@@ -669,13 +773,18 @@ LAYER_MODES = {
                          ids=["mha", "gqa"])
 def test_decoder_layer_kernel_matches_plain(dev, n_heads, kv_heads, hg, mode):
     """Kernel 6 against its plain twin in each mode, stacked weights at
-    layer 1.  Rows at and above seq hold large garbage: the kernel reads
-    none of them and, with append_kv, overwrites row seq only."""
+    layer 1.  Rows at and above seq hold large garbage (NaN in the nan_
+    modes): the kernel reads none of them and, with append_kv, overwrites
+    row seq only."""
     from clusterfusion_tpu_torch.ops import decoder_layer as dl
     seq, style, fuse, append, partials, fold = LAYER_MODES[mode]
     g, a, kc, vc, _ = _stack_args(dev, n_heads, kv_heads, hg, seq)
-    kc[:, :, seq:] = _randn(kc[:, :, seq:].shape, dev, 60, 8.0)
-    vc[:, :, seq:] = _randn(vc[:, :, seq:].shape, dev, 61, 8.0)
+    if mode.startswith("nan_"):
+        kc[:, :, seq:] = float("nan")
+        vc[:, :, seq:] = float("nan")
+    else:
+        kc[:, :, seq:] = _randn(kc[:, :, seq:].shape, dev, 60, 8.0)
+        vc[:, :, seq:] = _randn(vc[:, :, seq:].shape, dev, 61, 8.0)
     res = _randn((1, HIDDEN), dev, 62)
     cos, sin = model.rope_row(LlamaConfig.tiny(rope_style=style), seq, dev)
     kw = dict(group=g, head_dim=HD, rope_style=style, fuse_residual=fuse,
@@ -708,12 +817,13 @@ def test_decoder_layer_kernel_matches_plain(dev, n_heads, kv_heads, hg, mode):
     for i in (res_i + 1, res_i + 2):                              # k/v rows
         torch.testing.assert_close(out[i].float(), ref[i].float(), atol=0.05,
                                    rtol=0)
-    torch.testing.assert_close(kc.float(), kp.float(), atol=0.05, rtol=0)
+    torch.testing.assert_close(kc.float(), kp.float(), atol=0.05, rtol=0,
+                               equal_nan=True)
     others = torch.ones(CAP, dtype=torch.bool, device=dev)
     if append:
         others[seq] = False
-    assert torch.equal(kc[:, :, others], kp[:, :, others])
-    assert torch.equal(vc[:, :, others], vp[:, :, others])
+    assert _same_bits(kc[:, :, others], kp[:, :, others])
+    assert _same_bits(vc[:, :, others], vp[:, :, others])
 
 
 @pytest.mark.parametrize("op", ["sglang", "meta"])

@@ -20,6 +20,7 @@ from clusterfusion_tpu.ops.flash_prefill import \
     flash_prefill_attention as j_flash
 from clusterfusion_tpu.ops.stack_kernel import \
     fused_decoder_stack as j_stack
+from clusterfusion_tpu_torch.config import KernelConfig
 from clusterfusion_tpu_torch.models.convert import tensor_from_numpy
 from clusterfusion_tpu_torch.ops import reference as tref
 from clusterfusion_tpu_torch.ops import rope as trope
@@ -162,6 +163,41 @@ _ARGS = ("x", "attn_norm", "ffn_norm", "cos", "sin", "wqkv_f", "wo_f", "w13",
          "w2", "k_cache", "v_cache")
 
 
+# JAX's stack kernel (interpret mode) per shape, computed once per worker:
+# jaxlib's CPU backend fails past about 150 compiles in one process
+_JAX_STACK = {}
+
+
+def _jax_stack(rope_style, n_heads, kv_heads, hg, with_lm):
+    key = (rope_style, n_heads, kv_heads, hg, with_lm)
+    if key not in _JAX_STACK:
+        g, j, _ = _stack_inputs(n_heads, kv_heads, hg, rope_style)
+        lm = dict(final_norm="final_norm", lm_head="lm_head") if with_lm \
+            else {}
+        kw = dict(group=g, head_dim=HD, rope_style=rope_style, eps=EPS)
+        jfn = jax.jit(functools.partial(j_stack, **kw))
+        jout = jfn(*(j[k] for k in _ARGS), jnp.asarray(POS, jnp.int32),
+                   **{k: j[v] for k, v in lm.items()})
+        _JAX_STACK[key] = [np.asarray(o, np.float32) for o in jout]
+    return _JAX_STACK[key]
+
+
+def _check_stack_against_jax(jout, tout, t_before):
+    """Outputs at atol/rtol 0.05, the appended K/V rows at atol 0.05 (the
+    JAX suite's bf16 tolerance), every other cache row unchanged."""
+    k_before, v_before = t_before
+    for jo, to in zip(jout[:2], tout[:2]):
+        assert tuple(to.shape) == tuple(jo.shape)
+        np.testing.assert_allclose(_np(to), jo, atol=0.05, rtol=0.05)
+    for jc, tc, before in ((jout[2], tout[2], k_before),
+                           (jout[3], tout[3], v_before)):
+        np.testing.assert_allclose(_np(tc[:, :, POS]), jc[:, :, POS],
+                                   atol=0.05)
+        others = torch.ones(CAP, dtype=torch.bool)
+        others[POS] = False
+        assert torch.equal(tc[:, :, others], before[:, :, others])
+
+
 @pytest.mark.parametrize("with_lm", [True, False], ids=["lm", "no_lm"])
 @pytest.mark.parametrize("n_heads,kv_heads,hg", [(4, 4, 2), (4, 2, 2)],
                          ids=["mha", "gqa"])
@@ -170,29 +206,53 @@ def test_stack_plain_matches_jax(rope_style, n_heads, kv_heads, hg, with_lm):
     """fused_decoder_stack_plain vs the JAX stack kernel (interpret mode):
     outputs at atol/rtol 0.05, the appended K/V rows at atol 0.05 (the JAX
     suite's bf16 tolerance), every other cache row unchanged."""
-    g, j, t = _stack_inputs(n_heads, kv_heads, hg, rope_style)
+    jout = _jax_stack(rope_style, n_heads, kv_heads, hg, with_lm)
+    g, _, t = _stack_inputs(n_heads, kv_heads, hg, rope_style)
     lm = dict(final_norm="final_norm", lm_head="lm_head") if with_lm else {}
     kw = dict(group=g, head_dim=HD, rope_style=rope_style, eps=EPS)
-    jfn = jax.jit(functools.partial(j_stack, **kw))
-    jout = jfn(*(j[k] for k in _ARGS), jnp.asarray(POS, jnp.int32),
-               **{k: j[v] for k, v in lm.items()})
-    k_before = t["k_cache"].clone()
-    v_before = t["v_cache"].clone()
+    before = (t["k_cache"].clone(), t["v_cache"].clone())
     tout = fused_decoder_stack_plain(*(t[k] for k in _ARGS), POS,
                                      **{k: t[v] for k, v in lm.items()}, **kw)
     assert tout[2] is t["k_cache"] and tout[3] is t["v_cache"]   # in place
-    for jo, to in zip(jout[:2], tout[:2]):
-        assert tuple(to.shape) == tuple(jo.shape)
-        np.testing.assert_allclose(_np(to), np.asarray(jo, np.float32),
-                                   atol=0.05, rtol=0.05)
-    for jc, tc, before in ((jout[2], tout[2], k_before),
-                           (jout[3], tout[3], v_before)):
-        np.testing.assert_allclose(_np(tc[:, :, POS]),
-                                   np.asarray(jc, np.float32)[:, :, POS],
-                                   atol=0.05)
-        others = torch.ones(CAP, dtype=torch.bool)
-        others[POS] = False
-        assert torch.equal(tc[:, :, others], before[:, :, others])
+    _check_stack_against_jax(jout, tout, before)
+
+
+@pytest.mark.parametrize("kv_split", [16, 32, 64, 128])
+@pytest.mark.parametrize("with_lm", [True, False], ids=["lm", "no_lm"])
+@pytest.mark.parametrize("n_heads,kv_heads,hg", [(4, 4, 2), (4, 2, 2)],
+                         ids=["mha", "gqa"])
+@pytest.mark.parametrize("rope_style", ["gptj", "neox"])
+def test_stack_plain_matches_jax_at_kv_split(rope_style, n_heads, kv_heads,
+                                            hg, with_lm, kv_split):
+    """The stack wrapper on the CPU (its plain twin) at each kv_split the
+    kernel's split pass may take, against JAX's stack kernel at the same
+    tolerances: the split only moves where p is rounded to bf16 (POS 37
+    gives 1 to 3 splits)."""
+    jout = _jax_stack(rope_style, n_heads, kv_heads, hg, with_lm)
+    g, _, t = _stack_inputs(n_heads, kv_heads, hg, rope_style)
+    lm = dict(final_norm="final_norm", lm_head="lm_head") if with_lm else {}
+    kw = dict(group=g, head_dim=HD, rope_style=rope_style, eps=EPS)
+    before = (t["k_cache"].clone(), t["v_cache"].clone())
+    tout = fused_decoder_stack(*(t[k] for k in _ARGS), POS,
+                               kcfg=KernelConfig(kv_split=kv_split),
+                               **{k: t[v] for k, v in lm.items()}, **kw)
+    _check_stack_against_jax(jout, tout, before)
+
+
+@pytest.mark.parametrize("bad", [dict(kv_split=0), dict(kv_split=-64),
+                                 dict(kv_split=1025), dict(kv_split=4096),
+                                 dict(gemv_threads=0), dict(gemv_threads=48),
+                                 dict(gemv_threads=1024)],
+                         ids=lambda d: "-".join(f"{k}{v}" for k, v in
+                                                d.items()))
+def test_stack_wrapper_refuses_bad_kcfg(bad):
+    """kv_split outside [1, 1024] and gemv_threads off [32, 992] in steps of
+    32 are refused on the CPU too, before any work."""
+    g, _, t = _stack_inputs(4, 2, 2, "gptj")
+    kw = dict(group=g, head_dim=HD, rope_style="gptj", eps=EPS)
+    with pytest.raises(ValueError):
+        fused_decoder_stack(*(t[k] for k in _ARGS), POS,
+                            kcfg=KernelConfig(**bad), **kw)
 
 
 def test_stack_wrapper_on_cpu_is_plain_and_refuses_variants():

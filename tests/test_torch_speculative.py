@@ -197,6 +197,29 @@ def test_verify_refuses_bad_rows_and_configs(mha):
             sv.fused_verify_stack(*args, **common, **extra)
 
 
+@pytest.mark.parametrize("bad", [dict(kv_split=0), dict(kv_split=-64),
+                                 dict(kv_split=1025), dict(kv_split=4096),
+                                 dict(gemv_threads=0), dict(gemv_threads=48),
+                                 dict(gemv_threads=1024)],
+                         ids=lambda d: "-".join(f"{k}{v}" for k, v in
+                                                d.items()))
+def test_verify_wrapper_refuses_bad_kcfg(mha, bad):
+    """Kernel 8 takes what kernel 7 takes of the KernelConfig (kv_split in
+    [1, 1024], gemv_threads a multiple of 32 in [32, 992], the ring GEMV's
+    consumers); anything else is refused on the CPU too, before any work."""
+    cfg = mha["tcfg"]
+    kc, vc = mha["kc"].clone(), mha["vc"].clone()
+    lw = mha["tp"]["layers"]
+    cos, sin = tmodel.rope_rows(cfg, PROMPT, 2)
+    with pytest.raises(ValueError):
+        sv.fused_verify_stack(
+            mha["tp"]["embed"][:2], lw["attn_norm"], lw["ffn_norm"], cos, sin,
+            lw["wqkv_f"], lw["wo_f"], lw["w13"], lw["w2"], kc, vc, PROMPT,
+            group=1, head_dim=128, rope_style="gptj", eps=1e-5,
+            kcfg=KernelConfig(**bad))
+    assert torch.equal(kc, mha["kc"]) and torch.equal(vc, mha["vc"])
+
+
 @pytest.mark.parametrize("style", ["gptj", "neox"])
 def test_rope_rows_are_rows_of_the_table(style):
     cfg = LlamaConfig.tiny(rope_style=style)
