@@ -108,6 +108,29 @@ int launch_kernel(void (*kernel)(Params...), dim3 grid, dim3 block, size_t smem,
   return (int)cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
+// The same in thread-block clusters of `cluster_y` blocks along y (the
+// cluster attribute is set even for 1, so cooperative_groups' cluster
+// calls work in every launch).
+template <typename... Params, typename... Args>
+int launch_kernel_cluster(void (*kernel)(Params...), dim3 grid, dim3 block, size_t smem,
+                          cudaStream_t st, bool pdl, int cluster_y, Args... args) {
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = cluster_y;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 2 : 1;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
 constexpr int NORM_THREADS = 1024;
 
 // Residual add + RMSNorm of row blockIdx.x (every row pointer is offset by
@@ -339,9 +362,13 @@ int launch_rows_gemv(const void* x, long long x_row, int f_off,
 // blockIdx.z's row chunk and the matrix mat = blockIdx.z / nrc, W = w +
 // mat*ws a bf16 [K, N] matrix (row-major, N a multiple of 8).  x row r
 // starts at xv + r*x_row: bf16, or (SWIGLU) the float32 gate/up row,
-// x[r, k] = bf16(silu(gate[k]) * up[k]) with up at f_off past gate.  The
-// bs=1 stack and the standalone gemv run it at one row, the verify stack
-// at up to 16 rows a block.  Bound by bytes, so the design keeps as many
+// x[r, k] = bf16(silu(gate[k]) * up[k]) with up at f_off past gate, or
+// (one row, nw given) the RMSNorm of the bf16 row, x[k] = bf16(x[k] *
+// rsqrt(mean(x^2) + eps) * nw[k]), each block summing the whole row's
+// squares itself.  y is float32, or bf16(y) goes to yb instead when yb is
+// given.  The bs=1
+// stack and the standalone gemv run it at one row, the verify stack and
+// the paged layer at up to 16 rows a block, the MLA layer at one.  Bound by bytes, so the design keeps as many
 // weight bytes in flight as the SMs' shared memory holds:
 // - Weights through shared memory.  A block owns one 256-column tile
 //   (blockIdx.y) and one K chunk (blockIdx.x).  Its producer warp streams
@@ -387,13 +414,13 @@ __host__ __device__ constexpr int g1_row_stride(bool mma) {
   return mma ? G1_ROW_BYTES + G1_MMA_PAD : G1_ROW_BYTES;
 }
 __host__ __device__ constexpr int g1_stage_bytes(bool mma) { return G1_ROWS * g1_row_stride(mma); }
-constexpr int G1_HEAD = 128;                       // barriers
+constexpr int G1_HEAD = 256;                       // barriers, the norm's warp sums
 constexpr int G1_SMEM_MAX = 227 * 1024;
 constexpr int G1_MAX_THREADS = 1024 - 32;          // consumers beside the producer
 constexpr int G1_MAX_CLUSTER = 16;                 // non-portable; 8 is portable
 constexpr int G1_MMA_ROWS = 16;                    // x rows per block (the mma M)
 constexpr int G1_MMA_WARPS = G1_COLS / 32;         // consumer warps, 32 columns each
-static_assert(2 * G1_STAGES * sizeof(uint64_t) <= G1_HEAD &&
+static_assert(2 * G1_STAGES * sizeof(uint64_t) + 4 * (G1_MAX_THREADS / 32) <= G1_HEAD &&
                   2 * G1_MMA_STAGES * sizeof(uint64_t) <= G1_HEAD,
               "barriers overflow the head");
 static_assert(G1_STAGES * g1_stage_bytes(false) >= 4 * G1_COLS * (G1_MAX_THREADS / 32 + 1) &&
@@ -420,9 +447,10 @@ __device__ __forceinline__ uint32_t keep_k(uint32_t r, int k, int rem) {
 template <bool MMA, bool SWIGLU>
 __global__ void ring_gemv_kernel(const void* __restrict__ xv, long long x_row, int f_off,
                                  const __nv_bfloat16* __restrict__ w,
-                                 float* __restrict__ y, int M, int K, int N, int k_chunk,
-                                 int nrc, int xrows, long long ws, long long y_row,
-                                 long long yz) {
+                                 float* __restrict__ y, __nv_bfloat16* __restrict__ yb,
+                                 int M, int K, int N, int k_chunk, int nrc, int xrows,
+                                 long long ws, long long y_row, long long yz,
+                                 const __nv_bfloat16* __restrict__ nw, float eps) {
   namespace cg = cooperative_groups;
   constexpr int RB = MMA ? G1_MMA_ROWS : 1;                 // rows per block
   constexpr int NS = g1_stages(MMA), RS = g1_row_stride(MMA), SB = g1_stage_bytes(MMA);
@@ -508,8 +536,26 @@ __global__ void ring_gemv_kernel(const void* __restrict__ xv, long long x_row, i
         xs1[i] = bf16_round(g / (1.f + expf(-g)) * u);
       }
     } else {
-      const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(xv) + k0;
-      for (int i = tid - 32; i < kn; i += ct) xs1[i] = __bfloat162float(xb[i]);
+      const __nv_bfloat16* xa = static_cast<const __nv_bfloat16*>(xv);
+      float inv = 1.f;
+      if (nw) {                        // the row's sum of squares, in a fixed order
+        float* nred = reinterpret_cast<float*>(empty + NS);   // [ncw], in the head
+        float ss = 0.f;
+        for (int i = tid - 32; i < K; i += ct) {
+          const float v = __bfloat162float(xa[i]);
+          ss = fmaf(v, v, ss);
+        }
+        ss = warp_sum(ss);
+        if (lane == 0) nred[wid - 1] = ss;
+        hopper::named_barrier_sync(1, ct);
+        float tot = 0.f;
+        for (int q = 0; q < ncw; ++q) tot += nred[q];
+        inv = rsqrtf(tot / K + eps);
+      }
+      for (int i = tid - 32; i < kn; i += ct) {
+        const float v = __bfloat162float(xa[k0 + i]);
+        xs1[i] = nw ? bf16_round(v * inv * __bfloat162float(nw[k0 + i])) : v;
+      }
     }
     hopper::named_barrier_sync(1, ct);
     const int g = lane / 4, t = lane % 4;
@@ -621,7 +667,11 @@ __global__ void ring_gemv_kernel(const void* __restrict__ xv, long long x_row, i
 #pragma unroll
       for (int q = 0; q < G1_MAX_CLUSTER; ++q)
         if (q < ks) s += v[q];
-      y[(size_t)(r0 + b) * y_row + (size_t)mat * yz + n0 + c] = s;
+      const size_t at = (size_t)(r0 + b) * y_row + (size_t)mat * yz + n0 + c;
+      if (yb)
+        yb[at] = __float2bfloat16(s);
+      else
+        y[at] = s;
     }
   }
   cluster.sync();
@@ -640,8 +690,10 @@ __global__ void ring_gemv_kernel(const void* __restrict__ xv, long long x_row, i
 template <bool MMA, bool SWIGLU>
 int launch_ring_gemv_as(const void* x, long long x_row, int f_off, const __nv_bfloat16* w,
                         float* y, int M, int K, int N, int nmat, long long ws, long long y_row,
-                        long long yz, int threads, bool pdl, cudaStream_t st) {
-  if (M < 1 || (!MMA && M != 1) || K < 1 || N < 8 || N % 8 != 0 || nmat < 1 ||
+                        long long yz, int threads, bool pdl, cudaStream_t st,
+                        __nv_bfloat16* yb = nullptr, const __nv_bfloat16* nw = nullptr,
+                        float eps = 0.f) {
+  if (M < 1 || (!MMA && M != 1) || (nw && (MMA || SWIGLU)) || K < 1 || N < 8 || N % 8 != 0 || nmat < 1 ||
       threads < 32 || threads % 32 != 0 || threads > G1_MAX_THREADS)
     return (int)cudaErrorInvalidValue;
   if (MMA) threads = G1_MMA_WARPS * 32;
@@ -741,30 +793,32 @@ int launch_ring_gemv_as(const void* x, long long x_row, int f_off, const __nv_bf
   cfg.gridDim = dim3(ks, tiles, z);
   cfg.dynamicSmemBytes = ring_gemv_smem(MMA, xrows, k_chunk);
   cfg.numAttrs = pdl ? 2 : 1;
-  return (int)cudaLaunchKernelEx(&cfg, kern, x, x_row, f_off, w, y, M, K, N, k_chunk, nrc,
-                                 xrows, ws, y_row, yz);
+  return (int)cudaLaunchKernelEx(&cfg, kern, x, x_row, f_off, w, y, yb, M, K, N, k_chunk,
+                                 nrc, xrows, ws, y_row, yz, nw, eps);
 }
 
 // Any M: one row on float32 FMAs, more on the tensor cores.
 template <bool SWIGLU>
 int launch_ring_gemv(const void* x, long long x_row, int f_off, const __nv_bfloat16* w,
                      float* y, int M, int K, int N, int nmat, long long ws, long long y_row,
-                     long long yz, int threads, bool pdl, cudaStream_t st) {
+                     long long yz, int threads, bool pdl, cudaStream_t st,
+                     __nv_bfloat16* yb = nullptr) {
   if (M == 1)
     return launch_ring_gemv_as<false, SWIGLU>(x, x_row, f_off, w, y, M, K, N, nmat, ws, y_row,
-                                              yz, threads, pdl, st);
+                                              yz, threads, pdl, st, yb);
   return launch_ring_gemv_as<true, SWIGLU>(x, x_row, f_off, w, y, M, K, N, nmat, ws, y_row, yz,
-                                           threads, pdl, st);
+                                           threads, pdl, st, yb);
 }
 
-// One row: y[mat*yz + n] = sum_k x[k] * W[k, n] (the bs=1 stack's GEMVs and
-// the standalone gemv).
+// One row: y[mat*yz + n] = sum_k x[k] * W[k, n] (the bs=1 stack's GEMVs,
+// the standalone gemv and the MLA layer's; nw: x normalised first).
 template <bool SWIGLU>
 int launch_gemv1(const void* x, int f_off, const __nv_bfloat16* w, float* y, int K, int N,
                  int nmat, long long ws, long long yz, int threads, bool pdl,
-                 cudaStream_t st) {
+                 cudaStream_t st, __nv_bfloat16* yb = nullptr,
+                 const __nv_bfloat16* nw = nullptr, float eps = 0.f) {
   return launch_ring_gemv_as<false, SWIGLU>(x, 0, f_off, w, y, 1, K, N, nmat, ws, 0, yz,
-                                            threads, pdl, st);
+                                            threads, pdl, st, yb, nw, eps);
 }
 
 // ---- Split-KV flash-decode of one bs=1 layer (the stack's and kernel 6's) ----

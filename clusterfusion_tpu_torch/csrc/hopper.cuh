@@ -330,6 +330,26 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// ldmatrix.sync.aligned.m8n8.x4.shared.b16: four 8x8 bf16 matrices, lane
+// i giving the 16-byte row (i % 8) of matrix i / 8; register j holds
+// matrix j, lane l its elements [l/4][2*(l%4)] and [l/4][2*(l%4)+1] (the
+// layout of an mma.sync A fragment, and of a B fragment when the matrix's
+// rows are n and its columns k).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(row)));
+}
+
+// The same with two matrices (lanes 0-15 give the rows; the rest are
+// ignored).
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(row)));
+}
+
 // ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16: four 8x8 bf16 matrices,
 // lane i giving the 16-byte row (i % 8) of matrix i / 8; register j holds
 // matrix j transposed, lane l its elements [2*(l%4)][l/4] and

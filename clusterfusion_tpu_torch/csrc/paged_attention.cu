@@ -5,32 +5,43 @@
 // (clusterfusion_tpu/ops/paged_decoder_layer.py, `_paged_attn_kernel`),
 // which the batched serving step runs once per layer between its M=B
 // projections, for a bf16 pool and no window or softcap.  Layouts as
-// there: q [B, kv, g, hd] (scaled by log2(e)/sqrt(hd) and rounded to bf16 by
-// the wrapper, as the TPU wrapper does), k_new/v_new [B, kv, hd] bf16, pools
+// there: q [B, kv, g, hd] (scaled by log2(e)/sqrt(hd) and rounded to bf16
+// inside the kernels, as the TPU wrapper does before its kernel),
+// k_new/v_new [B, kv, hd] bf16, pools
 // [L, n_pages, kv, page, hd] bf16, block table [B, max_pages] and lens [B]
 // int32, output [B, kv*g*hd] bf16.
 //
 // What bounds it: the walk reads each cached K and V row once and does
 // about 4*g operations per pair of bf16 values read (a score and a p.V
 // product per query row), far under the card's ~295 operations per byte,
-// so it is bound by bytes.  The design (paged_attention.cuh) gives every
-// (request, kv head) its own block, so all heads of all requests stream in
-// parallel, and copies whole 64-row tiles of K and V with 16-byte loads,
-// 16 loads in flight per thread, issuing the next tile's loads before this
-// tile's arithmetic.  What it does not do yet: split a long request over
-// several blocks (the block of the longest request walks alone at the end).
+// so it is bound by bytes.  The design (paged_attention.cuh) splits each
+// request's rows into splits of `split` rows, one block per (split, kv
+// head, request), so a long request's rows stream through as many blocks
+// as it has splits; each block bulk-copies its split's K and V runs into
+// shared memory at once, and a merge kernel folds the splits in a fixed
+// order and appends the current row.
+
+#include <cmath>
 
 #include "paged_attention.cuh"
 
+// Floats of f32 scratch the split pass needs for B requests.
+extern "C" long long cf_paged_scratch_floats(int B, int kv, int group, int hd, int page,
+                                             int max_pages, int split) {
+  return (long long)paged_partial_floats(B, kv, group, hd,
+                                         paged_splits(max_pages, page, split));
+}
+
 // Attend each request's lens[b] cached rows of layer `layer` plus the
-// current token, write o, and append k_new/v_new at row lens[b].  Returns a
-// cudaError_t (0 on success).
+// current token, write o, and append k_new/v_new at row lens[b] (two
+// launches).  `scratch` holds cf_paged_scratch_floats(...) floats.  Returns
+// a cudaError_t (0 on success).
 extern "C" int cf_paged_attention(const void* q, const void* k_new,
                                   const void* v_new, void* k_pool, void* v_pool,
                                   const void* table, const void* lens, void* o,
-                                  int B, int kv, int group, int hd, int page,
-                                  int n_pages, int max_pages, int layer,
-                                  void* stream) {
+                                  void* scratch, int B, int kv, int group, int hd,
+                                  int page, int n_pages, int max_pages, int layer,
+                                  int split, void* stream) {
   PagedArgs a{};
   a.q = static_cast<const __nv_bfloat16*>(q);
   a.k_new = static_cast<const __nv_bfloat16*>(k_new);
@@ -46,5 +57,10 @@ extern "C" int cf_paged_attention(const void* q, const void* k_new,
   a.n_pages = n_pages;
   a.max_pages = max_pages;
   a.layer = layer;
-  return launch_paged_attn<false>(a, B, hd, static_cast<cudaStream_t>(stream));
+  a.split = split;
+  a.ns = paged_splits(max_pages, page, split);
+  a.qscale = (float)(1.4426950408889634 / std::sqrt((double)hd));
+  a.part_ml = static_cast<float*>(scratch);
+  a.part_acc = a.part_ml + (size_t)B * kv * a.ns * group * 2;
+  return launch_paged_attn<false>(a, B, hd, false, static_cast<cudaStream_t>(stream));
 }

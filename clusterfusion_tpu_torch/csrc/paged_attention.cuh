@@ -1,29 +1,49 @@
 // Paged flash-decode attention with the in-place append of the current
 // token, shared by `cf_paged_attention` (paged_attention.cu) and
-// `cf_paged_decoder_layer` (paged_decoder_layer.cu).
+// `cf_paged_decoder_layer` (paged_decoder_layer.cu).  Two kernels on one
+// stream:
 //
-// One block per (request b, kv head h).  The block walks the request's
-// cached rows 0..lens[b]-1 in tiles of PA_TILE rows: it looks up each row's
-// page in its own row of the block table (no scalar prefetch on Hopper),
-// copies the tile's K and V rows into shared memory with 16-byte loads
-// (rows past the end are zero-filled), takes the scores of the g query
-// rows of its kv head, updates the online softmax in the exp2 domain, rounds
-// p to bf16 against the running max and adds p.V.  After the walk it folds
-// in the current token in float32, writes o = bf16(acc / l) and appends the
-// current K/V row at (layer, table[b, lens[b] / page], h, lens[b] % page).
-// The append comes after every read of the block, and no other block reads
-// that row: requests own disjoint pages, each block owns its head, and
-// padding rows (lens 0, table row of zeros) all write the NULL page 0,
-// which no request reads.  Any page size >= 1 works (page 1 is the sglang
-// layout), since every row computes its own address.
+// Split pass: one block per (split s, kv head h, request b), grid
+//   (ceil(max_pages * page / split), kv, B).  Split s holds the request's
+//   cached rows [s*split, min((s+1)*split, lens[b])); a block whose split
+//   starts at or past lens[b] exits at once, so a long request spreads
+//   over as many blocks as it has splits and a short one costs one.  One
+//   warp bulk-copies all the split's K and V rows into shared memory at
+//   once (cp.async.bulk, one copy per run of rows that share a page and a
+//   tile, so a (layer, page, head) slab of page*hd bf16 is one copy or
+//   two), tile t of PA_TILE rows completing on barrier t: the whole split
+//   is in flight from the block's first instructions, and the walk starts
+//   on the first tile while the rest land.  Only rows < lens[b] are
+//   copied; what the pool holds past them (stale rows, NaN, the row this
+//   launch appends) never reaches shared memory, and every loop over rows
+//   stops at the split's last real row.  Per tile: scores (four threads a
+//   row, the 16-byte pieces taken in an order staggered by row, so a
+//   warp's reads hit distinct banks; q read as bf16), an online softmax
+//   whose running max restarts at each split (p = exp2(s - running max),
+//   summed unrounded, rounded to bf16 for p.V), acc = acc * alpha +
+//   bf16(p).V (a thread owns 8 columns over a slice of the rows; the
+//   slices meet in shared memory in slice order at the end).  The block
+//   writes (max, sum) and acc[g][hd] in float32.
+// Merge: one block per (kv head, request), launched with programmatic
+//   dependent launch.  It folds the current token's score (float32) and
+//   the request's splits in split order 0..n-1, so the bits do not depend
+//   on the order in which the split blocks ran; writes o = bf16(acc / l);
+//   then appends the current K/V row at (layer, table[b, lens[b] / page],
+//   h, lens[b] % page).  The append follows the split pass's grid
+//   boundary (griddepcontrol.wait), so it never races a copy of that page.
+//   Padding rows (lens 0, table row of zeros) all write the NULL page 0,
+//   which no request reads.  Any page size >= 1 works (page 1 is the
+//   sglang layout), since every run of rows computes its own address.
 //
-// FROM_QKV = false (kernel 10): q [B, kv, g, hd] bf16 already scaled by
-//   log2(e)/sqrt(hd), k_new/v_new [B, kv, hd] bf16.  The walk and the fold
-//   both use these bf16 values.
-// FROM_QKV = true (kernel 9): qkv [B, kv, g+2, hd] float32 raw projections;
-//   the block ropes q and k at positions[b], scales q, rounds q to bf16 for
-//   the walk's dots and keeps q, k and v float32 for the fold; the appended
-//   rows are bf16(k), bf16(v).
+// FROM_QKV = false (kernel 10): q [B, kv, g, hd] bf16, which both kernels
+//   scale by qscale = log2(e)/sqrt(hd) and round to bf16 again (as the
+//   TPU wrapper does before its kernel); k_new/v_new [B, kv, hd] bf16.
+//   The walk and the fold both use these bf16 values.
+// FROM_QKV = true (kernel 9): qkv [B, kv, g+2, hd] float32 raw projections,
+//   written by the kernel before the split pass; every split block ropes q
+//   at positions[b], scales it and rounds it to bf16 for its dots (g*hd
+//   values, after griddepcontrol.wait), the merge ropes q and k again and
+//   folds q, k and v in float32; the appended rows are bf16(k), bf16(v).
 //
 // A request whose lens or position is out of range gets NaN outputs and no
 // append, which the serving engine's numeric watchdog reports.
@@ -35,9 +55,9 @@
 namespace {
 
 constexpr int PA_THREADS = 128;
-constexpr int PA_TILE = 64;        // cache rows per walk step (2 per lane)
+constexpr int PA_TILE = 32;        // rows per barrier and per online-softmax step
 constexpr int PA_MAX_GROUP = 16;
-constexpr int PA_PAD = 8;          // bf16 pad per shared K/V row: no bank conflicts
+constexpr int PA_SMEM_MAX = 227 * 1024;
 
 struct PagedArgs {
   const __nv_bfloat16* q;
@@ -52,148 +72,180 @@ struct PagedArgs {
   const int* table;                // [B, max_pages]
   const int* lens;                 // [B] cached rows, current token excluded
   __nv_bfloat16* o;                // [B, kv * g * hd]
-  int kv, group, page, n_pages, max_pages, layer, max_pos, neox;
+  float* part_ml;                  // [B, kv, ns, g, 2] (max, sum) per split
+  float* part_acc;                 // [B, kv, ns, g, hd]
+  int kv, group, page, n_pages, max_pages, layer, max_pos, neox, split, ns;
+  float qscale;                    // kernel 10: log2(e)/sqrt(hd), as float
 };
 
-size_t paged_smem_bytes(int hd, int group) {
-  return sizeof(__nv_bfloat16) * 2 * PA_TILE * (hd + PA_PAD) +
-         sizeof(float) * ((size_t)2 * group * hd + 2 * hd +
-                          (size_t)group * PA_TILE + 4 * (size_t)group);
+// Splits per request: enough for the longest request the table can hold.
+inline int paged_splits(int max_pages, int page, int split) {
+  return (int)(((long long)max_pages * page + split - 1) / split);
+}
+
+// f32 scratch of the split pass for B requests.
+inline size_t paged_partial_floats(int B, int kv, int group, int hd, int ns) {
+  return (size_t)B * kv * ns * group * (2 + (size_t)hd);
+}
+
+// Bytes of the split pass's row area: the split's K and V rows, and after
+// the last tile the P.V slices' sums.
+__host__ __device__ inline size_t paged_rows_bytes(int hd, int group, int split) {
+  const size_t kv_rows = 2 * (size_t)split * hd * 2;
+  const size_t sums = sizeof(float) * (PA_THREADS / (hd / 8)) * (size_t)group * hd;
+  return kv_rows > sums ? kv_rows : sums;
+}
+
+// Shared memory of the split pass: a barrier per tile, the row area, q in
+// bf16, a tile's scores and the running (max, sum, alpha) of each query row.
+inline size_t paged_split_smem(int hd, int group, int split) {
+  const size_t tiles = (size_t)(split + PA_TILE - 1) / PA_TILE;
+  return (tiles * 8 + 15) / 16 * 16 + paged_rows_bytes(hd, group, split) +
+         (size_t)group * hd * 2 + sizeof(float) * ((size_t)group * PA_TILE + 4 * group);
+}
+
+__device__ __forceinline__ bool paged_bad(const PagedArgs& a, int n_past, int pos,
+                                          bool from_qkv) {
+  return n_past < 0 || n_past >= a.max_pages * a.page ||
+         (from_qkv && (pos < 0 || pos >= a.max_pos));
 }
 
 // GMAX: the group rounded up to a power of two (the unrolled row count).
 template <int HD, int GMAX, bool FROM_QKV>
-__global__ void __launch_bounds__(PA_THREADS) paged_attn_kernel(PagedArgs a) {
-  constexpr int LDK = HD + PA_PAD;
-  constexpr int CHUNKS = HD / 8;               // 16-byte chunks per row
+__global__ void __launch_bounds__(PA_THREADS) paged_split_kernel(PagedArgs a) {
+  constexpr int CHUNKS = HD / 8;               // 16-byte pieces per row
   constexpr int NW = PA_THREADS / 32;
-  constexpr int SETS = PA_THREADS / HD;        // threads per column d
-  constexpr int PER = (GMAX + SETS - 1) / SETS;  // query rows per thread, at most
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* vs = ks + PA_TILE * LDK;
-  const int g = a.group, kv = a.kv;
-  float* qw = reinterpret_cast<float*>(vs + PA_TILE * LDK);  // [g][HD] walk q
-  float* qf = qw + g * HD;                                   // [g][HD] fold q
-  float* kcur = qf + g * HD;                                 // [HD]
-  float* vcur = kcur + HD;                                   // [HD]
-  float* sc = vcur + HD;                                     // [g][PA_TILE]
-  float* st = sc + g * PA_TILE;                              // [g]: m, l, alpha, s_cur
+  constexpr int TPR = PA_THREADS / PA_TILE;    // threads per row in the scores
+  constexpr int CPT = CHUNKS / TPR;            // pieces per thread
+  constexpr int NCG = HD / 8;                  // P.V: 8-column groups
+  constexpr int SL = PA_THREADS / NCG;         // P.V: row slices
+  static_assert(PA_TILE == 32 && CHUNKS % TPR == 0, "tile layout");
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int g = a.group, kv = a.kv, S = a.split;
+  const int tiles = (S + PA_TILE - 1) / PA_TILE;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);                    // [tiles]
+  unsigned char* rows = smem + (tiles * 8 + 15) / 16 * 16;
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(rows);           // [S][HD]
+  __nv_bfloat16* vs = ks + (size_t)S * HD;                               // [S][HD]
+  float* red = reinterpret_cast<float*>(rows);     // [SL][g][HD] once the rows are read
+  __nv_bfloat16* qw = reinterpret_cast<__nv_bfloat16*>(rows + paged_rows_bytes(HD, g, S));  // [g][HD]
+  float* sc = reinterpret_cast<float*>(qw + g * HD);                     // [g][PA_TILE]
+  float* st = sc + g * PA_TILE;                                          // [g][4]
 
-  const int b = blockIdx.x, h = blockIdx.y;
+  const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid % 32, wid = tid / 32;
-  const int d = tid % HD, set = tid / HD;
   const int n_past = a.lens[b];
   const int pos = FROM_QKV ? a.positions[b] : 0;
-  __nv_bfloat16* ob = a.o + ((size_t)b * kv + h) * g * HD;
-  if (n_past < 0 || n_past >= a.max_pages * a.page ||
-      (FROM_QKV && (pos < 0 || pos >= a.max_pos))) {
-    for (int e = tid; e < g * HD; e += PA_THREADS)
-      ob[e] = __float2bfloat16(__int_as_float(0x7fc00000));
-    return;
+  const int j0 = s * S;
+  if (paged_bad(a, n_past, pos, FROM_QKV) || j0 >= n_past) return;
+  const int n = min(S, n_past - j0);
+  const int nt = (n + PA_TILE - 1) / PA_TILE;
+  const int* trow = a.table + (size_t)b * a.max_pages;
+  const size_t head0 = (size_t)a.layer * a.n_pages * kv + h;   // (layer, page 0, h)
+
+  if (tid == 0) {
+    for (int t = 0; t < nt; ++t) hopper::mbar_init(&bar[t], 1);
+    hopper::fence_barrier_init();
   }
+  __syncthreads();
+  // Warp 0: rows [j0, j0 + n) of K and of V, one copy per run of rows on
+  // one page and in one tile; tile t's K and V bytes complete on bar[t].
+  // The pool rows < lens[b] were written before this launch (earlier
+  // steps, or a kernel the stream has finished).
+  if (wid == 0) {
+    for (int t = lane; t < nt; t += 32)
+      hopper::mbar_arrive_expect_tx(&bar[t], (uint32_t)min(PA_TILE, n - t * PA_TILE) * HD * 4);
+    __syncwarp();
+    for (int j = j0 + lane; j < j0 + n; j += 32) {
+      if (j != j0 && j % a.page != 0 && (j - j0) % PA_TILE != 0) continue;  // not a run's first row
+      const int end = min(min(j0 + n, (j / a.page + 1) * a.page),
+                          j0 + ((j - j0) / PA_TILE + 1) * PA_TILE);
+      const size_t off = ((head0 + (size_t)trow[j / a.page] * kv) * a.page + j % a.page) * HD;
+      const uint32_t bytes = (uint32_t)(end - j) * HD * 2;
+      uint64_t* tb = &bar[(j - j0) / PA_TILE];
+      hopper::bulk_load_1d(ks + (size_t)(j - j0) * HD, a.k_pool + off, bytes, tb);
+      hopper::bulk_load_1d(vs + (size_t)(j - j0) * HD, a.v_pool + off, bytes, tb);
+    }
+  }
+  hopper::grid_dep_launch_dependents();
 
   if (FROM_QKV) {
+    hopper::grid_dep_wait();                    // qkv comes from the kernel before
     const float* cr = a.cos + (size_t)pos * HD;
     const float* sr = a.sin + (size_t)pos * HD;
     const float* raw = a.qkv + ((size_t)b * kv + h) * (g + 2) * HD;
     const float scale = LOG2E / sqrtf((float)HD);
-    for (int e = tid; e < g * HD; e += PA_THREADS) {
-      const float v = rope_at(raw + (e / HD) * HD, e % HD, HD, cr, sr, a.neox) * scale;
-      qf[e] = v;
-      qw[e] = bf16_round(v);
-    }
-    for (int e = tid; e < HD; e += PA_THREADS) {
-      kcur[e] = rope_at(raw + g * HD, e, HD, cr, sr, a.neox);
-      vcur[e] = raw[(g + 1) * HD + e];
-    }
+    for (int e = tid; e < g * HD; e += PA_THREADS)
+      qw[e] = __float2bfloat16(rope_at(raw + (e / HD) * HD, e % HD, HD, cr, sr, a.neox) * scale);
   } else {
     const __nv_bfloat16* qs = a.q + ((size_t)b * kv + h) * g * HD;
-    for (int e = tid; e < g * HD; e += PA_THREADS) qw[e] = qf[e] = __bfloat162float(qs[e]);
-    const size_t row = ((size_t)b * kv + h) * HD;
-    for (int e = tid; e < HD; e += PA_THREADS) {
-      kcur[e] = __bfloat162float(a.k_new[row + e]);
-      vcur[e] = __bfloat162float(a.v_new[row + e]);
-    }
+    for (int e = tid; e < g * HD; e += PA_THREADS)
+      qw[e] = __float2bfloat16(__bfloat162float(qs[e]) * a.qscale);
   }
   for (int i = tid; i < g; i += PA_THREADS) {
     st[4 * i] = NEG_INF;
     st[4 * i + 1] = 0.f;
   }
-  float acc[PER];
-#pragma unroll
-  for (int k = 0; k < PER; ++k) acc[k] = 0.f;
-  const int* trow = a.table + (size_t)b * a.max_pages;
-  const size_t head0 = (size_t)a.layer * a.n_pages * kv + h;   // (layer, page 0, h)
-  // Each thread copies LOADS 16-byte chunks of K and of V per tile.  The
-  // loads of tile t+1 are issued into registers before tile t's arithmetic
-  // and stored to shared memory after it, so their latency hides behind
-  // it.  Rows past the end load a real row (clamped, so every load is
-  // unconditional and the compiler keeps them all in flight) and store
-  // zeros.
-  constexpr int LOADS = PA_TILE * CHUNKS / PA_THREADS;
-  uint4 kreg[LOADS], vreg[LOADS];
-  auto load_tile = [&](int t0) {
-#pragma unroll
-    for (int it = 0; it < LOADS; ++it) {
-      const int e = tid + it * PA_THREADS;
-      const int p = min(t0 + e / CHUNKS, n_past - 1);
-      const size_t pg = (size_t)trow[p / a.page];
-      const size_t off =
-          ((head0 + pg * kv) * a.page + p % a.page) * HD + (e % CHUNKS) * 8;
-      kreg[it] = __ldg(reinterpret_cast<const uint4*>(a.k_pool + off));
-      vreg[it] = __ldg(reinterpret_cast<const uint4*>(a.v_pool + off));
-    }
-  };
-  if (n_past > 0) load_tile(0);
   __syncthreads();
 
-  for (int t0 = 0; t0 < n_past; t0 += PA_TILE) {
-    const int n = min(PA_TILE, n_past - t0);
-    // 1. the tile's K/V rows -> shared memory, zeros past the end; then the
-    //    next tile's loads
-    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  // thread (row r, part) of the scores; thread (column group cg, slice sl)
+  // of P.V, which owns columns cg*8.. of every query row over the tile's
+  // rows sl, sl + SL, ...
+  const int r = tid / TPR, part = tid % TPR;
+  const int cg = tid % NCG, sl = tid / NCG;
+  float acc[GMAX][8];
 #pragma unroll
-    for (int it = 0; it < LOADS; ++it) {
-      const int e = tid + it * PA_THREADS;
-      const int r = e / CHUNKS, c = e % CHUNKS;
-      *reinterpret_cast<uint4*>(ks + r * LDK + c * 8) = r < n ? kreg[it] : zero;
-      *reinterpret_cast<uint4*>(vs + r * LDK + c * 8) = r < n ? vreg[it] : zero;
-    }
-    __syncthreads();
-    if (t0 + PA_TILE < n_past) load_tile(t0 + PA_TILE);
-    // 2. scores of the g query rows against the tile's rows
-    for (int e = tid; e < g * PA_TILE; e += PA_THREADS) {
-      const int i = e / PA_TILE, r = e % PA_TILE;
-      float s = NEG_INF;
-      if (r < n) {
-        const __nv_bfloat16* kr = ks + r * LDK;
-        const float* qi = qw + i * HD;
-        float s2[2] = {0.f, 0.f};              // two chains: half the latency
+  for (int i = 0; i < GMAX; ++i)
 #pragma unroll
-        for (int c = 0; c < CHUNKS; ++c) {
+    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+  for (int t = 0; t < nt; ++t) {
+    const int rows_t = min(PA_TILE, n - t * PA_TILE);
+    hopper::mbar_wait(&bar[t], 0);
+    // 1. scores of the g query rows against the tile's rows: TPR threads a
+    //    row, each over CPT pieces taken in an order staggered by row
+    {
+      const __nv_bfloat16* kr = ks + (size_t)(t * PA_TILE + r) * HD + part * CPT * 8;
+      const __nv_bfloat16* qp = qw + part * CPT * 8;
+      float sa[GMAX];
+#pragma unroll
+      for (int i = 0; i < GMAX; ++i) sa[i] = 0.f;
+      if (r < rows_t) {
+#pragma unroll
+        for (int c0 = 0; c0 < CPT; ++c0) {
+          const int c = (c0 + r) % CPT;
           float f[8];
           unpack8(*reinterpret_cast<const uint4*>(kr + c * 8), f);
 #pragma unroll
-          for (int j = 0; j < 8; ++j) s2[c & 1] = fmaf(qi[c * 8 + j], f[j], s2[c & 1]);
+          for (int i = 0; i < GMAX; ++i) {
+            if (i < g) {
+              float qf[8];
+              unpack8(*reinterpret_cast<const uint4*>(qp + i * HD + c * 8), qf);
+#pragma unroll
+              for (int e = 0; e < 8; ++e) sa[i] = fmaf(qf[e], f[e], sa[i]);
+            }
+          }
         }
-        s = s2[0] + s2[1];
       }
-      sc[e] = s;
+#pragma unroll
+      for (int i = 0; i < GMAX; ++i) {
+        if (i < g) {
+#pragma unroll
+          for (int off = 1; off < TPR; off <<= 1) sa[i] += __shfl_xor_sync(0xffffffffu, sa[i], off);
+          if (part == 0) sc[i * PA_TILE + r] = sa[i];
+        }
+      }
     }
     __syncthreads();
-    // 3. online softmax: warp w takes query rows w, w + NW, ...; p is summed
-    //    unrounded and kept as bf16(p) for the p.V product (0 past the end)
+    // 2. online softmax within the split: lane j takes the tile's row j; p
+    //    against the running max, summed unrounded, kept as bf16(p) (0 past
+    //    the end, by select)
     for (int i = wid; i < g; i += NW) {
-      float* si = sc + i * PA_TILE;
-      const float s0 = si[lane], s1 = si[lane + 32];
+      const float sj = lane < rows_t ? sc[i * PA_TILE + lane] : NEG_INF;
       const float m_old = st[4 * i];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      const float p0 = lane < n ? exp2f(s0 - m_new) : 0.f;
-      const float p1 = lane + 32 < n ? exp2f(s1 - m_new) : 0.f;
-      const float sum = warp_sum(p0 + p1);
-      si[lane] = bf16_round(p0);
-      si[lane + 32] = bf16_round(p1);
+      const float m_new = fmaxf(m_old, warp_max(sj));
+      const float p = lane < rows_t ? exp2f(sj - m_new) : 0.f;
+      const float sum = warp_sum(p);
+      sc[i * PA_TILE + lane] = bf16_round(p);
       if (lane == 0) {
         const float alpha = exp2f(m_old - m_new);
         st[4 * i] = m_new;
@@ -202,87 +254,190 @@ __global__ void __launch_bounds__(PA_THREADS) paged_attn_kernel(PagedArgs a) {
       }
     }
     __syncthreads();
-    // 4. acc = acc * alpha + bf16(p) . V, thread (d, set) owns rows set + k*SETS;
-    //    rows past the end hold p = 0 and V = 0
-    float pv[PER];
+    // 3. acc = acc * alpha + bf16(p) . V over this thread's rows of the tile
 #pragma unroll
-    for (int k = 0; k < PER; ++k) pv[k] = 0.f;
-#pragma unroll 16
-    for (int r = 0; r < PA_TILE; ++r) {
-      const float vv = __bfloat162float(vs[r * LDK + d]);
+    for (int i = 0; i < GMAX; ++i) {
+      if (i < g) {
+        const float al = st[4 * i + 2];
 #pragma unroll
-      for (int k = 0; k < PER; ++k) {
-        const int i = set + k * SETS;
-        if (i < g) pv[k] = fmaf(sc[i * PA_TILE + r], vv, pv[k]);
+        for (int c = 0; c < 8; ++c) acc[i][c] *= al;
       }
     }
+    for (int rr = sl; rr < rows_t; rr += SL) {
+      float v[8];
+      unpack8(*reinterpret_cast<const uint4*>(vs + (size_t)(t * PA_TILE + rr) * HD + cg * 8), v);
 #pragma unroll
-    for (int k = 0; k < PER; ++k) {
-      const int i = set + k * SETS;
-      if (i < g) acc[k] = acc[k] * st[4 * i + 2] + pv[k];
+      for (int i = 0; i < GMAX; ++i) {
+        if (i < g) {
+          const float p = sc[i * PA_TILE + rr];
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(p, v[c], acc[i][c]);
+        }
+      }
     }
-    __syncthreads();
+    __syncthreads();                   // sc is read before the next tile's scores
   }
 
-  // fold the current token: s_cur = q . k_cur, float32
-  for (int i = wid; i < g; i += NW) {
-    float part = 0.f;
-    for (int e = lane; e < HD; e += 32) part = fmaf(qf[i * HD + e], kcur[e], part);
-    part = warp_sum(part);
-    if (lane == 0) st[4 * i + 3] = part;
+  // the slices' sums meet in shared memory (the rows are all read), in
+  // slice order
+#pragma unroll
+  for (int i = 0; i < GMAX; ++i) {
+    if (i < g) {
+#pragma unroll
+      for (int c = 0; c < 8; ++c) red[((size_t)sl * g + i) * HD + cg * 8 + c] = acc[i][c];
+    }
   }
   __syncthreads();
-#pragma unroll
-  for (int k = 0; k < PER; ++k) {
-    const int i = set + k * SETS;
-    if (i < g) {
-      const float m_old = st[4 * i], l_old = st[4 * i + 1], s = st[4 * i + 3];
-      const float m_f = fmaxf(m_old, s);
-      const float alpha = exp2f(m_old - m_f), pc = exp2f(s - m_f);
-      ob[i * HD + d] = __float2bfloat16((acc[k] * alpha + pc * vcur[d]) /
-                                        (l_old * alpha + pc));
+  const size_t part0 = (((size_t)b * kv + h) * a.ns + s) * g;     // this split's rows
+  for (int e = tid; e < g * HD; e += PA_THREADS) {
+    float v = 0.f;
+    for (int q = 0; q < SL; ++q) v += red[(size_t)q * g * HD + e];
+    a.part_acc[part0 * HD + e] = v;
+  }
+  for (int i = tid; i < g; i += PA_THREADS) {
+    a.part_ml[(part0 + i) * 2] = st[4 * i];
+    a.part_ml[(part0 + i) * 2 + 1] = st[4 * i + 1];
+  }
+}
+
+// Merge of kv head h = blockIdx.x of request b = blockIdx.y: the current
+// token first, then the splits 0..nsb-1 in order, in float32; o, then the
+// append.  Warp w takes query rows w, w + 4, ...: the splits' maxima and
+// sums (lanes over splits, summed in a fixed butterfly), each split's
+// weight into shared memory; then every (row, column) sums its splits.
+template <int HD, bool FROM_QKV>
+__global__ void __launch_bounds__(PA_THREADS) paged_merge_kernel(PagedArgs a) {
+  constexpr int NW = PA_THREADS / 32;
+  hopper::grid_dep_launch_dependents();
+  hopper::grid_dep_wait();                      // the split pass has completed
+  extern __shared__ float msm[];
+  const int g = a.group, kv = a.kv;
+  float* qf = msm;                               // [g][HD] fold q
+  float* kcur = qf + g * HD;                     // [HD]
+  float* vcur = kcur + HD;                       // [HD]
+  float* st = vcur + HD;                         // [g][4]: s_cur, max, sum, p_cur
+  float* w = st + 4 * g;                         // [g][ns] split weights
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid % 32, wid = tid / 32;
+  const int n_past = a.lens[b];
+  const int pos = FROM_QKV ? a.positions[b] : 0;
+  __nv_bfloat16* ob = a.o + ((size_t)b * kv + h) * g * HD;
+  if (paged_bad(a, n_past, pos, FROM_QKV)) {
+    for (int e = tid; e < g * HD; e += PA_THREADS)
+      ob[e] = __float2bfloat16(__int_as_float(0x7fc00000));
+    return;
+  }
+  if (FROM_QKV) {
+    const float* cr = a.cos + (size_t)pos * HD;
+    const float* sr = a.sin + (size_t)pos * HD;
+    const float* raw = a.qkv + ((size_t)b * kv + h) * (g + 2) * HD;
+    const float scale = LOG2E / sqrtf((float)HD);
+    for (int e = tid; e < g * HD; e += PA_THREADS)
+      qf[e] = rope_at(raw + (e / HD) * HD, e % HD, HD, cr, sr, a.neox) * scale;
+    for (int e = tid; e < HD; e += PA_THREADS) {
+      kcur[e] = rope_at(raw + g * HD, e, HD, cr, sr, a.neox);
+      vcur[e] = raw[(g + 1) * HD + e];
     }
+  } else {
+    const __nv_bfloat16* qs = a.q + ((size_t)b * kv + h) * g * HD;
+    for (int e = tid; e < g * HD; e += PA_THREADS)
+      qf[e] = bf16_round(__bfloat162float(qs[e]) * a.qscale);
+    const size_t row = ((size_t)b * kv + h) * HD;
+    for (int e = tid; e < HD; e += PA_THREADS) {
+      kcur[e] = __bfloat162float(a.k_new[row + e]);
+      vcur[e] = __bfloat162float(a.v_new[row + e]);
+    }
+  }
+  __syncthreads();
+  const int nsb = (n_past + a.split - 1) / a.split;
+  const size_t part0 = ((size_t)b * kv + h) * a.ns * g;
+  for (int i = wid; i < g; i += NW) {
+    float dot = 0.f;
+    for (int e = lane; e < HD; e += 32) dot = fmaf(qf[i * HD + e], kcur[e], dot);
+    const float s_cur = warp_sum(dot);
+    float mx = s_cur;
+    for (int s = lane; s < nsb; s += 32) mx = fmaxf(mx, a.part_ml[(part0 + (size_t)s * g + i) * 2]);
+    mx = warp_max(mx);
+    float l = 0.f;
+    for (int s = lane; s < nsb; s += 32) {
+      const size_t idx = part0 + (size_t)s * g + i;
+      const float ws = exp2f(a.part_ml[idx * 2] - mx);
+      w[i * a.ns + s] = ws;
+      l = fmaf(a.part_ml[idx * 2 + 1], ws, l);
+    }
+    l = warp_sum(l);
+    if (lane == 0) {
+      const float pc = exp2f(s_cur - mx);
+      st[4 * i + 2] = l + pc;
+      st[4 * i + 3] = pc;
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < g * HD; e += PA_THREADS) {
+    const int i = e / HD, d = e % HD;
+    float acc = st[4 * i + 3] * vcur[d];
+    const float* pa = a.part_acc + part0 * HD + (size_t)i * HD + d;
+#pragma unroll 8
+    for (int s = 0; s < nsb; ++s) acc = fmaf(pa[(size_t)s * g * HD], w[i * a.ns + s], acc);
+    ob[e] = __float2bfloat16(acc / st[4 * i + 2]);
   }
   // append the current K/V row
   if (tid < HD) {
-    const size_t pg = (size_t)trow[n_past / a.page];
+    const size_t head0 = (size_t)a.layer * a.n_pages * kv + h;
+    const size_t pg = (size_t)a.table[(size_t)b * a.max_pages + n_past / a.page];
     const size_t off = ((head0 + pg * kv) * a.page + n_past % a.page) * HD + tid;
     a.k_pool[off] = __float2bfloat16(kcur[tid]);
     a.v_pool[off] = __float2bfloat16(vcur[tid]);
   }
 }
 
+// Let `kernel` take up to PA_SMEM_MAX bytes of dynamic shared memory: a
+// function attribute, set once per kernel (a per-launcher record would
+// let one launcher lower what another set).  Returns a cudaError_t.
+template <auto Kernel>
+int paged_allow_smem() {
+  static const int err = (int)cudaFuncSetAttribute(
+      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, PA_SMEM_MAX);
+  return err;
+}
+
 template <int HD, int GMAX, bool FROM_QKV>
-int launch_paged_attn_g(const PagedArgs& a, int B, cudaStream_t st) {
-  static bool attr_set = false;
-  if (!attr_set) {
-    CF_CHECK((int)cudaFuncSetAttribute(paged_attn_kernel<HD, GMAX, FROM_QKV>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)paged_smem_bytes(HD, GMAX)));
-    attr_set = true;
-  }
-  paged_attn_kernel<HD, GMAX, FROM_QKV>
-      <<<dim3(B, a.kv), PA_THREADS, paged_smem_bytes(HD, a.group), st>>>(a);
-  return (int)cudaGetLastError();
+int launch_paged_attn_g(const PagedArgs& a, int B, bool pdl, cudaStream_t st) {
+  auto split = paged_split_kernel<HD, GMAX, FROM_QKV>;
+  auto merge = paged_merge_kernel<HD, FROM_QKV>;
+  const size_t smem = paged_split_smem(HD, a.group, a.split);
+  const size_t merge_smem =
+      sizeof(float) * ((size_t)a.group * HD + 2 * HD + 4 * a.group + (size_t)a.group * a.ns);
+  if (smem > (size_t)PA_SMEM_MAX || merge_smem > (size_t)PA_SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  CF_CHECK((paged_allow_smem<paged_split_kernel<HD, GMAX, FROM_QKV>>()));
+  CF_CHECK((paged_allow_smem<paged_merge_kernel<HD, FROM_QKV>>()));
+  CF_CHECK(launch_kernel(split, dim3(a.ns, a.kv, B), dim3(PA_THREADS), smem, st, pdl, a));
+  return launch_kernel(merge, dim3(a.kv, B), dim3(PA_THREADS), merge_smem, st, true, a);
 }
 
 template <int HD, bool FROM_QKV>
-int launch_paged_attn_hd(const PagedArgs& a, int B, cudaStream_t st) {
-  if (a.group == 1) return launch_paged_attn_g<HD, 1, FROM_QKV>(a, B, st);
-  if (a.group == 2) return launch_paged_attn_g<HD, 2, FROM_QKV>(a, B, st);
-  if (a.group <= 4) return launch_paged_attn_g<HD, 4, FROM_QKV>(a, B, st);
-  if (a.group <= 8) return launch_paged_attn_g<HD, 8, FROM_QKV>(a, B, st);
-  return launch_paged_attn_g<HD, 16, FROM_QKV>(a, B, st);
+int launch_paged_attn_hd(const PagedArgs& a, int B, bool pdl, cudaStream_t st) {
+  if (a.group == 1) return launch_paged_attn_g<HD, 1, FROM_QKV>(a, B, pdl, st);
+  if (a.group == 2) return launch_paged_attn_g<HD, 2, FROM_QKV>(a, B, pdl, st);
+  if (a.group <= 4) return launch_paged_attn_g<HD, 4, FROM_QKV>(a, B, pdl, st);
+  if (a.group <= 8) return launch_paged_attn_g<HD, 8, FROM_QKV>(a, B, pdl, st);
+  return launch_paged_attn_g<HD, 16, FROM_QKV>(a, B, pdl, st);
 }
 
-// One launch over all (request, kv head) pairs.  Returns a cudaError_t.
+// The split pass and the merge over all (request, kv head) pairs: two
+// launches, the split pass with programmatic dependent launch when `pdl`
+// (its q comes from the kernel before it), the merge always.  a.ns and
+// the scratch must hold paged_splits(max_pages, page, split) splits.
+// Returns a cudaError_t.
 template <bool FROM_QKV>
-int launch_paged_attn(const PagedArgs& a, int B, int hd, cudaStream_t st) {
+int launch_paged_attn(const PagedArgs& a, int B, int hd, bool pdl, cudaStream_t st) {
   if (B < 1 || a.kv < 1 || a.group < 1 || a.group > PA_MAX_GROUP || a.page < 1 ||
-      a.max_pages < 1 || a.layer < 0)
+      a.max_pages < 1 || a.layer < 0 || a.split < 1 ||
+      a.ns != paged_splits(a.max_pages, a.page, a.split))
     return (int)cudaErrorInvalidValue;
-  if (hd == 128) return launch_paged_attn_hd<128, FROM_QKV>(a, B, st);
-  if (hd == 64) return launch_paged_attn_hd<64, FROM_QKV>(a, B, st);
+  if (hd == 128) return launch_paged_attn_hd<128, FROM_QKV>(a, B, pdl, st);
+  if (hd == 64) return launch_paged_attn_hd<64, FROM_QKV>(a, B, pdl, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -17,17 +17,20 @@
 // (group, request, page) grid with the batch's projections resident in
 // VMEM; Hopper blocks run in no order, so here the layer is a fixed
 // sequence of five kernels on one stream, each reading the last one's
-// output from a scratch buffer the caller allocates:
+// output from a scratch buffer the caller allocates, every one after the
+// first launched with programmatic dependent launch (it starts while the
+// one before it runs and waits inside before it reads that one's output):
 //   resnorm    r = x + res (f32); res_out = bf16(r);
-//              xn = bf16(rmsnorm(r) * w); zero the two f32 accumulators
-//              (common.cuh, one block per row)
-//   rows_gemv  qkv[b] += xn[b] @ wqkv_f[l]     (f32, every weight row read
-//              once for up to 8 batch rows, K split over blocks, atomicAdd;
-//              common.cuh, shared with the bs=1 stack)
-//   paged walk ropes q/k from qkv, walks each request's pages, folds the
-//              current token, appends bf16 k/v (paged_attention.cuh)
-//   rows_gemv  acc[b] += o[b] @ wo_f[l]        (f32, summed over groups)
-//   to_bf16    out = bf16(acc)
+//              xn = bf16(rmsnorm(r) * w)   (common.cuh, one block per row)
+//   ring gemv  qkv[b] = xn[b] @ wqkv_f[l]  (f32; every weight row read once
+//              for all B rows, on mma.sync from 2 rows, K chunks summed in
+//              a fixed order in a cluster; common.cuh, shared with kernel 8)
+//   split      per (split, kv head, request): the split's cached rows,
+//              bulk-copied; q roped from qkv (paged_attention.cuh)
+//   merge      the current token and the splits in order; o; the append of
+//              bf16 k/v (paged_attention.cuh)
+//   ring gemv  out[b] = bf16(o[b] @ wo_f[l])  (summed over head groups)
+// Every sum has a fixed order, so a call's bits repeat.
 
 #include "paged_attention.cuh"
 
@@ -37,27 +40,33 @@ constexpr int GEMV_THREADS = 256;
 
 }  // namespace
 
+// Floats of f32 scratch `cf_paged_decoder_layer` needs for B requests:
+// the QKV projection and the split pass's partials.
+extern "C" long long cf_paged_layer_scratch_floats(int B, int kv, int group, int hd,
+                                                   int page, int max_pages, int split) {
+  return (long long)((size_t)B * kv * (group + 2) * hd +
+                     paged_partial_floats(B, kv, group, hd,
+                                          paged_splits(max_pages, page, split)));
+}
+
 // One paged decode layer for B requests on `stream` (five launches).
-// Scratch, allocated by the caller: xn bf16 [B, hidden], qkv f32
-// [B, kv*(g+2)*hd], o bf16 [B, kv*g*hd], acc f32 [B, hidden].  Writes out and
-// res_out (bf16 [B, hidden]) and appends each request's K/V row into the
-// pools.  *n_launches receives the number of kernels launched.  Returns a
-// cudaError_t (0 on success).
+// Scratch, allocated by the caller: xn bf16 [B, hidden], o bf16
+// [B, kv*g*hd], and `scratch` of cf_paged_layer_scratch_floats(...) floats.
+// Writes out and res_out (bf16 [B, hidden]) and appends each request's K/V
+// row into the pools.  *n_launches receives the number of kernels
+// launched.  Returns a cudaError_t (0 on success).
 extern "C" int cf_paged_decoder_layer(
     const void* x, const void* res, const void* wqkv, const void* wo,
     const void* rms_w, const void* cos, const void* sin, const void* positions,
     const void* table, const void* lens, void* k_pool, void* v_pool, void* out,
-    void* res_out, void* xn, void* qkv, void* o, void* acc, int B, int hidden,
+    void* res_out, void* xn, void* o, void* scratch, int B, int hidden,
     int kv, int hg, int group, int hd, int page, int n_pages, int max_pages,
-    int max_pos, int layer, int w_layer, int neox, float eps, int* n_launches,
-    void* stream) {
+    int max_pos, int layer, int w_layer, int neox, float eps, int split,
+    int* n_launches, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   *n_launches = 0;
-  if (B < 1 || hg < 1 || kv % hg != 0 || hidden % 8 != 0 || w_layer < 0)
+  if (B < 1 || hg < 1 || kv % hg != 0 || hidden % 8 != 0 || w_layer < 0 || split < 1)
     return (int)cudaErrorInvalidValue;
-  int dev = 0, num_sms = 0;
-  CF_CHECK((int)cudaGetDevice(&dev));
-  CF_CHECK((int)cudaDeviceGetAttribute(&num_sms, cudaDevAttrMultiProcessorCount, dev));
   const int G = kv / hg;
   const long long C = (long long)hg * (group + 2) * hd;   // qkv columns per group
   const long long Ko = (long long)kv * group * hd;        // wo rows in all
@@ -66,20 +75,21 @@ extern "C" int cf_paged_decoder_layer(
   const __nv_bfloat16* wol = static_cast<const __nv_bfloat16*>(wo) + (size_t)w_layer * Ko * hidden;
   __nv_bfloat16* xnb = static_cast<__nv_bfloat16*>(xn);
   __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(o);
-  float* qkvf = static_cast<float*>(qkv);
-  float* accf = static_cast<float*>(acc);
+  float* qkvf = static_cast<float*>(scratch);
   if (C % 8 != 0) return (int)cudaErrorInvalidValue;
 
+  // the first kernel waits for everything before it on the stream (no
+  // PDL), so the later ones may read the inputs, the table and the pool
+  // rows < lens before their own wait
   resnorm_kernel<<<B, NORM_THREADS, 0, st>>>(
       nullptr, static_cast<const __nv_bfloat16*>(x), nullptr,
       static_cast<const __nv_bfloat16*>(res), static_cast<const __nv_bfloat16*>(rms_w),
       nullptr, static_cast<__nv_bfloat16*>(res_out), xnb, nullptr, nullptr, hidden, eps,
-      qkvf, qkv_n, accf, hidden);
+      nullptr, 0, nullptr, 0);
   CF_CHECK((int)cudaGetLastError());
   ++*n_launches;
-  CF_CHECK(launch_rows_gemv<false>(xnb, hidden, 0, wq, qkvf, B, hidden, (int)C, G,
-                                   (long long)hidden * C, qkv_n, C, GEMV_THREADS,
-                                   num_sms, st));
+  CF_CHECK(launch_ring_gemv<false>(xnb, hidden, 0, wq, qkvf, B, hidden, (int)C, G,
+                                   (long long)hidden * C, qkv_n, C, GEMV_THREADS, true, st));
   ++*n_launches;
 
   PagedArgs a{};
@@ -100,15 +110,16 @@ extern "C" int cf_paged_decoder_layer(
   a.layer = layer;
   a.max_pos = max_pos;
   a.neox = neox;
-  CF_CHECK(launch_paged_attn<true>(a, B, hd, st));
-  ++*n_launches;
+  a.split = split;
+  a.ns = paged_splits(max_pages, page, split);
+  a.part_ml = qkvf + (size_t)B * qkv_n;
+  a.part_acc = a.part_ml + (size_t)B * kv * a.ns * group * 2;
+  CF_CHECK(launch_paged_attn<true>(a, B, hd, true, st));
+  *n_launches += 2;
 
-  CF_CHECK(launch_rows_gemv<false>(ob, Ko, 0, wol, accf, B, (int)Ko, hidden, 1, 0,
-                                   hidden, 0, GEMV_THREADS, num_sms, st));
-  ++*n_launches;
-  const int n = B * hidden;
-  to_bf16_kernel<<<(n + 255) / 256, 256, 0, st>>>(accf, static_cast<__nv_bfloat16*>(out), n);
-  CF_CHECK((int)cudaGetLastError());
+  CF_CHECK(launch_ring_gemv<false>(ob, Ko, 0, wol, nullptr, B, (int)Ko, hidden, 1, 0,
+                                   hidden, 0, GEMV_THREADS, true, st,
+                                   static_cast<__nv_bfloat16*>(out)));
   ++*n_launches;
   return 0;
 }

@@ -44,9 +44,11 @@ SIGNATURES = {
     "cf_verify_scratch_floats": ([_I] * 8, ctypes.c_longlong),
     "cf_verify_stack": ([_P] * 17 + [_I] * 12
                         + [_F, _I, _I, ctypes.POINTER(_I), _P], _I),
-    "cf_paged_attention":([_P] * 8 + [_I] * 8 + [_P], _I),
-    "cf_paged_decoder_layer": ([_P] * 18 + [_I] * 13
-                               + [_F, ctypes.POINTER(_I), _P], _I),
+    "cf_paged_scratch_floats": ([_I] * 7, ctypes.c_longlong),
+    "cf_paged_attention": ([_P] * 9 + [_I] * 9 + [_P], _I),
+    "cf_paged_layer_scratch_floats": ([_I] * 7, ctypes.c_longlong),
+    "cf_paged_decoder_layer": ([_P] * 17 + [_I] * 13
+                               + [_F, _I, ctypes.POINTER(_I), _P], _I),
     "cf_fused_ffn": ([_P] * 10 + [_I] * 3 + [_F, _I, ctypes.POINTER(_I), _P],
                      _I),
     "cf_mla_scratch_floats": ([_I] * 7, ctypes.c_longlong),

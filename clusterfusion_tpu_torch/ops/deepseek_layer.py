@@ -38,13 +38,19 @@ from clusterfusion_tpu_torch.ops.rope import apply_rope_neox
 
 _LOG2E = 1.4426950408889634
 _NEG_INF = -1e30
-# Compressed cache rows per block of the kernels' split pass (a multiple of
-# 4, at most 128): at DeepSeek-V2-Lite and pos 600 it gives 19 x 4 blocks.
+#: Compressed cache rows per block of the kernels' split pass (16, 32 or
+#: 64; one block takes every head, so seq_len 600 gives 19 blocks).  The
+#: twin rounds p against the max of each such split, as the kernel does.
 MLA_SPLIT = 32
 
-#: Calls of each op that launched the kernels (7 each, 6 at seq_len 0).
+#: Calls of each op that launched the kernels.
 launches = {"deepseek_decoder_layer_fused": 0,
             "deepseek_decoder_stack_layer": 0}
+#: CUDA kernels the last such call of each op launched: 5 (the normalising
+#: projection, absorption, split pass, merge, O-projection), 4 at seq_len 0
+#: (no split pass).
+last_kernels = {"deepseek_decoder_layer_fused": 0,
+                "deepseek_decoder_stack_layer": 0}
 
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:
@@ -144,15 +150,18 @@ def _launch(what, x, rms_in, rms_ckv, cos, sin, wproj, wuk, wuv, wo_t,
             raise ValueError(f"{what}: {name} must be a contiguous, 16-byte "
                              f"aligned tensor on {dev}")
         ptrs.append(ptr)
-    if (h > 32 or nope % 8 or lora % 8 or rope % 8 or hidden % 8
-            or stride % 8):
+    if (h > 32 or nope % 8 or lora % 64 or rope % 8 or (lora + rope) % 16
+            or hidden % 8 or stride % 8):
         raise NotImplementedError(
-            f"{what}: the kernel takes at most 32 heads and widths that are "
-            "multiples of 8")
+            f"{what}: the kernel takes at most 32 heads, a lora rank that is a "
+            "multiple of 64, lora + rope a multiple of 16 and other widths "
+            "that are multiples of 8")
+    # the kernels read the first rope / 2 values: a half table, or a
+    # full-dim one whose halves repeat (NEOX)
     cos = cos.to(device=dev, dtype=torch.float32).reshape(-1)
     sin = sin.to(device=dev, dtype=torch.float32).reshape(-1)
-    if cos.numel() == rope // 2:
-        cos, sin = torch.cat([cos, cos]), torch.cat([sin, sin])
+    if cos.numel() not in (rope // 2, rope) or sin.shape != cos.shape:
+        raise ValueError(f"{what}: cos/sin must hold rope / 2 or rope values")
     scratch = torch.empty(
         _scratch_floats(hidden, h, nope, rope, lora, cap, MLA_SPLIT),
         dtype=torch.float32, device=dev)
@@ -170,6 +179,7 @@ def _launch(what, x, rms_in, rms_ckv, cos, sin, wproj, wuk, wuv, wo_t,
         ctypes.byref(n_launch), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, what)
     launches[what] += 1
+    last_kernels[what] = n_launch.value
     return out, ckv_new
 
 

@@ -20,12 +20,15 @@ current token excluded).  Two kernels:
 CUDA tensors launch the kernels; CPU tensors run the ``*_plain`` twins,
 which repeat the kernels' arithmetic in PyTorch and round where they round:
 
-- the walk takes the cached rows in tiles of ``TILE`` rows with an online
-  exp2 softmax; p is rounded to bf16 against the running max for the p.V
-  product and summed unrounded;
+- the walk takes each request's cached rows in splits of ``SPLIT`` rows
+  (one block each on the card) and each split in tiles of ``TILE`` rows
+  with an online exp2 softmax whose running max restarts at every split;
+  p is rounded to bf16 against the running max for the p.V product and
+  summed unrounded, and the splits and the current token are merged in
+  float32;
 - ``paged_attention``: q is scaled by log2(e)/sqrt(hd) and rounded to bf16
-  before the kernel (as the TPU wrapper does); the current token's K/V are
-  cast to bf16 and folded in last, in float32;
+  (as the TPU wrapper does before its kernel; on the card inside the
+  kernels); the current token's K/V are cast to bf16 and folded in float32;
 - ``llama_decoder_layer_paged``: x + residual is summed in float32
   (``res_out`` is its bf16), the QKV product stays float32, q and k are
   roped in float32; q is rounded to bf16 for the walk's dots only, and the
@@ -41,6 +44,7 @@ append into the NULL page 0, which no request owns.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -49,14 +53,18 @@ from clusterfusion_tpu_torch.ops import _build
 from clusterfusion_tpu_torch.ops.decoder_layer import (HEAD_GROUP,
                                                       _pick_head_group,
                                                       fuse_qkv_o_for_kernel)
-from clusterfusion_tpu_torch.ops._support import round_up
+from clusterfusion_tpu_torch.ops._support import cdiv
 from clusterfusion_tpu_torch.ops.stack_kernel import _norm, _rope
 
 _LOG2E = 1.4426950408889634
 _NEG_INF = -1e30
-#: Cached rows per step of the kernels' walk (``PA_TILE`` in
-#: ``csrc/paged_attention.cuh``).
-TILE = 64
+#: Cached rows per block of the kernels' split pass (and per split of the
+#: twins' walk): each request's rows are cut into splits of SPLIT rows,
+#: each split bulk-copied whole into one block's shared memory.  Chosen on
+#: the H100 among 64, 128 and 256 (``scripts/tune_torch_paged.py``).
+SPLIT = 128
+#: Rows per step of the online softmax inside a split (``PA_TILE``).
+TILE = 32
 #: Largest GQA group the kernels take (``PA_MAX_GROUP``).
 MAX_GROUP = 16
 
@@ -71,38 +79,47 @@ def _refuse(what: str, window, softcap, bias_qkv=None) -> None:
 
 
 def _walk_plain(q_walk, q_fold, k_cur, v_cur, k_pool, v_pool, table, lens,
-                layer: int):
+                layer: int, split: int | None = None):
     """The kernels' walk: q_walk/q_fold [B, kv, g, hd] (scaled; q_walk
-    bf16-valued), k_cur/v_cur [B, kv, hd].  Returns o [B, kv, g, hd] bf16."""
+    bf16-valued), k_cur/v_cur [B, kv, hd], rows in splits of ``split``
+    (default ``SPLIT``).  Returns o [B, kv, g, hd] bf16."""
+    split = SPLIT if split is None else split
     B, kv, g, hd = q_walk.shape
     page = k_pool.shape[3]
     dev = q_walk.device
     table = table.long()
     lens = lens.long()
-    S = round_up(int(lens.max()), TILE) if B else 0
+    ns = cdiv(int(lens.max()), split) if B else 0
     acc = torch.zeros((B, kv, g, hd), dtype=torch.float32, device=dev)
     l_sum = torch.zeros((B, kv, g), dtype=torch.float32, device=dev)
     m = torch.full((B, kv, g), _NEG_INF, dtype=torch.float32, device=dev)
-    if S:
-        nt = S // TILE
+    if ns:
+        nt = cdiv(split, TILE)
+        S = ns * nt * TILE                 # each split padded to whole tiles
         pos = torch.arange(S, device=dev)
-        pg = table[:, (pos // page).clamp(max=table.shape[1] - 1)]   # [B, S]
-        valid = pos[None] < lens[:, None]                             # [B, S]
-        keep = valid[..., None, None]           # rows past the end read as 0
-        k = torch.where(keep, k_pool[layer][pg, :, pos % page].float(), 0.)
-        v = torch.where(keep, v_pool[layer][pg, :, pos % page].float(), 0.)
+        row = (pos // (nt * TILE)) * split + pos % (nt * TILE)    # request row
+        valid = (pos % (nt * TILE) < split)[None] & (row[None] < lens[:, None])
+        pg = table[:, (row // page).clamp(max=table.shape[1] - 1)]   # [B, S]
+        keep = valid[..., None, None]         # rows past the end never enter
+        k = torch.where(keep, k_pool[layer][pg, :, row % page].float(), 0.)
+        v = torch.where(keep, v_pool[layer][pg, :, row % page].float(), 0.)
         s = torch.einsum("bkgd,bskd->bkgs", q_walk.float(), k)
         s = s.masked_fill(~valid[:, None, None], _NEG_INF)
-        s = s.reshape(B, kv, g, nt, TILE)
-        # running max after each tile, as the kernel's online softmax has it
-        m_run = torch.cummax(s.amax(dim=-1), dim=-1).values          # [B, kv, g, nt]
-        p = torch.exp2(s - m_run[..., None]) * valid.reshape(B, 1, 1, nt, TILE)
-        pv = torch.einsum("bkgnt,bntkd->bkgnd", p.to(torch.bfloat16).float(),
-                          v.reshape(B, nt, TILE, kv, hd))
-        m = m_run[..., -1]
-        e = torch.exp2(m_run - m[..., None])
-        acc = (pv * e[..., None]).sum(dim=3)
-        l_sum = (p.sum(dim=-1) * e).sum(dim=-1)
+        s = s.reshape(B, kv, g, ns, nt, TILE)
+        # the running max after each tile, restarting at every split
+        m_run = torch.cummax(s.amax(dim=-1), dim=-1).values       # [B, kv, g, ns, nt]
+        p = torch.exp2(s - m_run[..., None]) \
+            * valid.reshape(B, 1, 1, ns, nt, TILE)
+        pv = torch.einsum("bkgnut,bnutkd->bkgnud", p.to(torch.bfloat16).float(),
+                          v.reshape(B, ns, nt, TILE, kv, hd))
+        m_s = m_run[..., -1]                                      # [B, kv, g, ns]
+        e_t = torch.exp2(m_run - m_s[..., None])
+        acc_s = (pv * e_t[..., None]).sum(dim=4)                  # [B, kv, g, ns, hd]
+        l_s = (p.sum(dim=-1) * e_t).sum(dim=-1)
+        m = m_s.amax(dim=-1)
+        e = torch.exp2(m_s - m[..., None])       # 0 for the empty splits
+        acc = (acc_s * e[..., None]).sum(dim=3)
+        l_sum = (l_s * e).sum(dim=-1)
     s_cur = (q_fold.float() * k_cur.float()[:, :, None]).sum(dim=-1)  # [B, kv, g]
     m_f = torch.maximum(m, s_cur)
     alpha = torch.exp2(m - m_f)
@@ -155,6 +172,13 @@ def _check_pools(what, k_pool, v_pool, dev):
         raise ValueError(f"{what}: pool shapes differ")
 
 
+@functools.lru_cache(maxsize=64)
+def _scratch_floats(fn: str, B, kv, g, hd, page, max_pages, split) -> int:
+    """Floats of f32 scratch the C entry ``fn`` needs (its split pass's
+    partials, and the layer's projection)."""
+    return getattr(_build.lib(), fn)(B, kv, g, hd, page, max_pages, split)
+
+
 def _indices(dev, *ts):
     return [torch.as_tensor(t).to(device=dev, dtype=torch.int32).contiguous()
             for t in ts]
@@ -170,7 +194,9 @@ def paged_attention(q, k_new, v_new, k_pool, v_pool, block_table, seq_lens,
     Attends each request's ``seq_lens[b]`` cached rows of layer
     ``layer_id`` plus the current token, appends the current K/V at
     ``block_table[b, seq_lens[b] // page], seq_lens[b] % page`` and returns
-    (o [B, kv_heads*group*hd] bf16, k_pool, v_pool)."""
+    (o [B, kv_heads*group*hd] bf16, k_pool, v_pool).  On the card each
+    request's rows are walked in splits of ``SPLIT`` rows, one block each
+    (two launches: the split pass and the merge)."""
     _refuse("paged_attention", window, softcap)
     B, kv, g, hd = q.shape
     L, n_pages, kv_p, page, hd_p = k_pool.shape
@@ -190,18 +216,21 @@ def paged_attention(q, k_new, v_new, k_pool, v_pool, block_table, seq_lens,
         raise NotImplementedError(f"paged_attention: head_dim {hd} or group "
                                   f"{g} (the kernel takes hd 64/128, group "
                                   f"<= {MAX_GROUP})")
-    qs = _scaled_q(q).contiguous()
+    q_b = q.to(dtype=torch.bfloat16).contiguous()     # scaled in the kernel
     k_b = k_new.to(device=dev, dtype=torch.bfloat16).contiguous()
     v_b = v_new.to(device=dev, dtype=torch.bfloat16).contiguous()
     table, lens = _indices(dev, block_table, seq_lens)
     if table.shape[0] != B or lens.shape != (B,):
         raise ValueError("paged_attention: block_table/seq_lens rows != B")
     o = torch.empty((B, kv * g * hd), dtype=torch.bfloat16, device=dev)
+    scratch = torch.empty(_scratch_floats("cf_paged_scratch_floats", B, kv, g,
+                                          hd, page, table.shape[1], SPLIT),
+                          dtype=torch.float32, device=dev)
     err = _build.lib().cf_paged_attention(
-        qs.data_ptr(), k_b.data_ptr(), v_b.data_ptr(), k_pool.data_ptr(),
+        q_b.data_ptr(), k_b.data_ptr(), v_b.data_ptr(), k_pool.data_ptr(),
         v_pool.data_ptr(), table.data_ptr(), lens.data_ptr(), o.data_ptr(),
-        B, kv, g, hd, page, n_pages, table.shape[1], int(layer_id),
-        torch.cuda.current_stream(dev).cuda_stream)
+        scratch.data_ptr(), B, kv, g, hd, page, n_pages, table.shape[1],
+        int(layer_id), SPLIT, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "paged_attention")
     launches["paged_attention"] += 1
     return o, k_pool, v_pool
@@ -312,20 +341,22 @@ def llama_decoder_layer_paged(input, residual, wqkv_g, wo_g, block_table,
     out = torch.empty((B, hidden), dtype=bf16, device=dev)
     res_out = torch.empty((B, hidden), dtype=bf16, device=dev)
     xn = torch.empty((B, hidden), dtype=bf16, device=dev)
-    qkv = torch.empty((B, kv * (group + 2) * hd), dtype=f32, device=dev)
     o = torch.empty((B, kv * group * hd), dtype=bf16, device=dev)
-    acc = torch.empty((B, hidden), dtype=f32, device=dev)
+    scratch = torch.empty(_scratch_floats("cf_paged_layer_scratch_floats", B,
+                                          kv, group, hd, page, table.shape[1],
+                                          SPLIT),
+                          dtype=f32, device=dev)
     n_launch = ctypes.c_int(0)
     err = _build.lib().cf_paged_decoder_layer(
         input.data_ptr(), residual.data_ptr(), wqkv_g.data_ptr(),
         wo_g.data_ptr(), rms_w.data_ptr(), cos_f.data_ptr(), sin_f.data_ptr(),
         poss.data_ptr(), table.data_ptr(), lens.data_ptr(), k_pool.data_ptr(),
         v_pool.data_ptr(), out.data_ptr(), res_out.data_ptr(), xn.data_ptr(),
-        qkv.data_ptr(), o.data_ptr(), acc.data_ptr(), B, hidden, kv, hg,
-        group, hd, page, n_pages, table.shape[1], cos_f.shape[0], layer_id,
+        o.data_ptr(), scratch.data_ptr(), B, hidden, kv, hg, group, hd, page,
+        n_pages, table.shape[1], cos_f.shape[0], layer_id,
         layer_id if wqkv_g.dim() == 4 else 0,
-        1 if rope_style == "neox" else 0, float(eps), ctypes.byref(n_launch),
-        torch.cuda.current_stream(dev).cuda_stream)
+        1 if rope_style == "neox" else 0, float(eps), SPLIT,
+        ctypes.byref(n_launch), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "llama_decoder_layer_paged")
     launches["llama_decoder_layer_paged"] += 1
     return out, res_out, k_pool, v_pool

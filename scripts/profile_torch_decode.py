@@ -40,6 +40,24 @@ def by_kernel(prof, top=12):
     return sum(r[1] for r in rows), rows[:top]
 
 
+def busy_ms(prof):
+    """Device busy ms of a profile: the union of its kernels' intervals
+    (kernels launched with programmatic dependent launch overlap, so
+    their own durations add up to more than the time they took)."""
+    kern = sorted((e.time_range.start, e.time_range.end)
+                  for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, None
+    for start, stop in kern:
+        if end is None or start > end:
+            busy += stop - start
+            end = stop
+        elif stop > end:
+            busy += stop - end
+            end = stop
+    return busy / 1e3
+
+
 def show(title, total, rows, wall_ms=None):
     extra = "" if wall_ms is None else \
         f" over {wall_ms:.3f} ms wall (busy {100 * total / wall_ms:.1f} %)"

@@ -9,7 +9,8 @@ any profiler runs in the process); ``decode_step`` repeated at one position
 (the step alone, without the loop's argmax); the host's time by Python
 function over 20 steps (``cProfile``; a ctypes call's C time counts in
 its caller); the device time by kernel and the device busy share over 8
-steps (``torch.profiler``); and ``decode_loop`` again after the profiler
+steps (``torch.profiler``; also the busy time with the overlapping kernels'
+intervals merged); and ``decode_loop`` again after the profiler
 has run.  Needs a CUDA card.
 """
 
@@ -26,9 +27,11 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from clusterfusion_tpu_torch.config import DeepSeekConfig  # noqa: E402
 from clusterfusion_tpu_torch.models import deepseek as ds  # noqa: E402
+from profile_torch_decode import busy_ms  # noqa: E402
 
 PROMPT = [(i * 37 + 11) % 102400 for i in range(128)]
 
@@ -111,7 +114,9 @@ def main() -> int:
     kern.sort(key=lambda r: -r[1])
     total = sum(r[1] for r in kern)
     print(f"decode step: device {total:.4f} ms over {wall:.4f} ms wall "
-          f"(profiled; busy {100 * total / wall:.1f} %)")
+          f"(profiled; busy {100 * total / wall:.1f} %); busy with the "
+          f"overlapping kernels' intervals merged {busy_ms(tprof) / 8:.4f} "
+          "ms per step")
     for name, ms, n in kern[:12]:
         print(f"  {ms:9.4f} ms {n:6.1f}x  {name[:90]}")
     for i in (1, 2):

@@ -154,6 +154,30 @@ def test_mla_layer_matches_jax_and_oracle(seq):
         assert float(np.mean(np.abs(_np(got_out) - _np(ref_out)))) < 1e-2
 
 
+@pytest.mark.parametrize("seq", [33, 300])
+def test_mla_split_twin_matches_one_split(seq):
+    """The twin in MLA_SPLIT-row splits against one split over every row.
+    p is rounded to bf16 against each split's own max, so a p may differ by
+    one bf16 rounding and the output by about one bf16 ulp: atol 2e-2 /
+    rtol 2e-2, the suite's bf16 limit; the current row does not depend on
+    the split."""
+    _, t = _layer_inputs(seq, seq)
+    wproj = torch.cat([t["weight_q_nope"].T, t["weight_q_pe"].T,
+                       t["weight_kv_nope"].T, t["weight_k_pe"].T], -1)
+    args = (t["input"], t["rms_input_weight"], t["rms_ckv_weight"], t["cos"],
+            t["sin"], wproj, t["weight_uk"], t["weight_uv"],
+            t["weight_o"].T, t["ckv_cache"], seq)
+    kw = dict(n_heads=DIMS["n_heads"], nope_dim=DIMS["nope_dim"],
+              rope_dim=DIMS["rope_dim"], lora_rank=DIMS["lora_rank"],
+              eps=1e-6, softmax_scale=(DIMS["nope_dim"]
+                                       + DIMS["rope_dim"]) ** -0.5)
+    out, cur = tdl.mla_decode_plain(*args, split=tdl.MLA_SPLIT, **kw)
+    one, cur1 = tdl.mla_decode_plain(*args, split=seq, **kw)
+    assert seq > tdl.MLA_SPLIT
+    np.testing.assert_allclose(_np(out), _np(one), atol=2e-2, rtol=2e-2)
+    assert torch.equal(cur, cur1)
+
+
 def test_mla_layer_takes_padded_cache():
     """A 640-wide cache (the model's layout) gives the 576-wide result."""
     _, t = _layer_inputs(37, 3)

@@ -6,7 +6,7 @@ Every test here needs a CUDA card and skips without one.  On the card:
 
 Tolerances: the kernels and their twins share inputs and arithmetic but
 sum in another order (and the decode GEMVs split their sums across blocks,
-with atomics outside kernels 7, 8 and 3), and round to bf16 at the same
+with atomics in kernels 5 and 6 only), and round to bf16 at the same
 places; outputs are held at atol 2e-2 / rtol 2e-2, logits at 2e-2 of the
 largest logit, appended K/V rows at atol 0.05 (the JAX suite's bf16
 tolerance).
@@ -422,6 +422,116 @@ def test_paged_attention_kernel_matches_plain(dev, B, kv, g, hd, page, lens):
     assert torch.equal(kp[~app], k0[~app])               # the rest untouched
 
 
+def _split_lens():
+    """Lengths around the split pass's edges: SPLIT - 1, SPLIT, SPLIT + 1,
+    a multiple of 16 (a full last page at page 16) and 0."""
+    from clusterfusion_tpu_torch.ops import paged_decoder_layer as pd
+    return [pd.SPLIT - 1, pd.SPLIT, pd.SPLIT + 1, 48, 0]
+
+
+def _nan_unowned(kp, vp, table, lens):
+    """NaN in every pool row no request owns (the rows at and past
+    lens[b] of its pages too): the kernels must never read them."""
+    page = kp.shape[3]
+    owned = torch.zeros(kp.shape[1:2] + (page,), dtype=torch.bool,
+                        device=kp.device)
+    for b, n in enumerate(lens.tolist()):
+        j = torch.arange(n, device=kp.device)
+        owned[table[b, j // page].long(), j % page] = True
+    free = ~owned[None, :, None, :, None].expand(kp.shape)
+    kp[free] = float("nan")
+    vp[free] = float("nan")
+
+
+def _bits(t):
+    return t.view(torch.int16)
+
+
+@pytest.mark.parametrize("page", [1, 16])
+@pytest.mark.parametrize("g", [1, 4])
+def test_paged_attention_split_edges(dev, g, page):
+    """Kernel 10 at lens around a split's edges, NaN in the unowned rows:
+    against its twin, the appends exact, the other rows untouched, and a
+    repeat bit-identical."""
+    from clusterfusion_tpu_torch.ops import paged_decoder_layer as pd
+    lens = _split_lens()
+    B, kv, hd, L, layer = len(lens), 2, 128, 2, 1
+    kp, vp, table, lens_t = _paged_pools(dev, L, kv, page, hd, lens, 7)
+    _nan_unowned(kp, vp, table, lens_t)
+    q = _randn((B, kv, g, hd), dev, 13)
+    k_new = _randn((B, kv, hd), dev, 14)
+    v_new = _randn((B, kv, hd), dev, 15)
+    k0, kr, vr = kp.clone(), kp.clone(), vp.clone()
+    o, _, _ = pd.paged_attention(q, k_new, v_new, kp, vp, table, lens_t, layer)
+    o2, _, _ = pd.paged_attention(q, k_new, v_new, kp, vp, table, lens_t,
+                                  layer)
+    want, _, _ = pd.paged_attention_plain(q, k_new, v_new, kr, vr, table,
+                                          lens_t, layer)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(o), _bits(o2))
+    torch.testing.assert_close(o.float(), want.float(), atol=2e-2, rtol=2e-2)
+    assert torch.equal(_bits(kp), _bits(kr)) and torch.equal(_bits(vp),
+                                                             _bits(vr))
+    app = _appended_mask(kp, table, lens_t, layer)
+    assert torch.equal(_bits(kp[~app]), _bits(k0[~app]))
+
+
+def test_paged_attention_groups_in_turn(dev):
+    """Kernel 10 at group 4, then 1, then 4 again: the launchers of the
+    two groups share the merge kernel, whose shared-memory allowance one
+    must not lower under the other."""
+    from clusterfusion_tpu_torch.ops import paged_decoder_layer as pd
+    lens = [300, 7]
+    for g in (4, 1, 4):
+        kp, vp, table, lens_t = _paged_pools(dev, 2, 2, 16, 128, lens, 9)
+        q = _randn((2, 2, g, 128), dev, 16)
+        kn = _randn((2, 2, 128), dev, 17)
+        kr, vr = kp.clone(), vp.clone()
+        o, _, _ = pd.paged_attention(q, kn, kn, kp, vp, table, lens_t, 1)
+        want, _, _ = pd.paged_attention_plain(q, kn, kn, kr, vr, table,
+                                              lens_t, 1)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(o.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+
+
+@pytest.mark.parametrize("page", [1, 16])
+@pytest.mark.parametrize("g", [1, 4])
+def test_paged_layer_split_edges(dev, g, page):
+    """Kernel 9 at the same lens and NaN rows: against its twin, and a
+    repeat bit-identical (its GEMVs sum in a fixed order)."""
+    from clusterfusion_tpu_torch.ops import paged_decoder_layer as pd
+    lens = _split_lens()
+    B, kv, hd, hg, L, layer, hidden = len(lens), 2, 128, 1, 2, 1, 512
+    cfg = LlamaConfig.tiny(rope_style="neox", head_dim=hd)
+    cos_t, sin_t = model.rope_table(cfg, device=dev)
+    kp, vp, table, lens_t = _paged_pools(dev, L, kv, page, hd, lens, 8)
+    _nan_unowned(kp, vp, table, lens_t)
+    wqkv, wo = _layer_weights(dev, L, hidden, kv, g, hd, hg, 21)
+    x = _randn((B, hidden), dev, 33)
+    res = _randn((B, hidden), dev, 34)
+    rms = 1 + _randn((hidden,), dev, 35, 0.1)
+    pos = torch.zeros_like(lens_t)          # any position inside the table
+    kr, vr = kp.clone(), vp.clone()
+    args = (wqkv, wo, table, lens_t, pos)
+    kw = dict(group=g, rope_style="neox")
+    out = pd.llama_decoder_layer_paged(x, res, *args, kp, vp, layer, rms,
+                                       1e-5, cos_t, sin_t, **kw)
+    again = pd.llama_decoder_layer_paged(x, res, *args, kp, vp, layer, rms,
+                                         1e-5, cos_t, sin_t, **kw)
+    want = pd.llama_decoder_layer_paged_plain(x, res, *args, kr, vr, layer,
+                                              rms, 1e-5, cos_t, sin_t, **kw)
+    torch.cuda.synchronize()
+    for i in (0, 1):
+        assert torch.equal(_bits(out[i]), _bits(again[i]))
+        torch.testing.assert_close(out[i].float(), want[i].float(),
+                                   atol=2e-2, rtol=2e-2)
+    app = _appended_mask(kp, table, lens_t, layer)
+    torch.testing.assert_close(kp[app].float(), kr[app].float(), atol=0.05,
+                               rtol=0)
+    assert torch.equal(_bits(kp[~app]), _bits(kr[~app]))
+
+
 def _layer_weights(dev, L, hidden, kv, g, hd, hg, seed):
     G = kv // hg
     return (_randn((L, G, hidden, hg * (g + 2) * hd), dev, seed,
@@ -512,7 +622,8 @@ def test_sglang_entry_kernel_matches_plain(dev):
 MLA_CAP, NOPE, ROPE = 320, 128, 64
 
 
-def _mla_args(dev, heads, lora, seed=60, hidden=HIDDEN, layers=2):
+def _mla_args(dev, heads, lora, seed=60, hidden=HIDDEN, layers=2,
+              cap=MLA_CAP):
     n_proj = heads * (NOPE + ROPE) + lora + ROPE
     a = dict(
         x=_randn((1, hidden), dev, seed),
@@ -524,14 +635,14 @@ def _mla_args(dev, heads, lora, seed=60, hidden=HIDDEN, layers=2):
         rms_in=1 + _randn((layers, hidden), dev, seed + 5, 0.1),
         rms_ckv=1 + _randn((layers, lora), dev, seed + 6, 0.1))
     width = -(-(lora + ROPE) // 128) * 128
-    cache = _randn((layers, MLA_CAP, width), dev, seed + 7)
+    cache = _randn((layers, cap, width), dev, seed + 7)
     return a, cache
 
 
-def _mla_rope(dev, pos):
+def _mla_rope(dev, pos, cap=MLA_CAP):
     from clusterfusion_tpu_torch.config import DeepSeekConfig
     from clusterfusion_tpu_torch.models import deepseek as ds
-    c, s = ds.rope_table(DeepSeekConfig.tiny(max_seq_len=MLA_CAP), device=dev)
+    c, s = ds.rope_table(DeepSeekConfig.tiny(max_seq_len=cap), device=dev)
     return c[pos], s[pos]
 
 
@@ -579,6 +690,41 @@ def test_mla_kernels_match_plain(dev, op, heads, lora, pos):
     assert dl.launches[key] == before + 1
     torch.testing.assert_close(out.float(), want.float(), atol=2e-2,
                                rtol=2e-2)
+
+
+@pytest.mark.parametrize("pos", [0, 31, 32, 600, 4095])
+def test_mla_stack_kernel_positions(dev, pos):
+    """Kernel 12 at DeepSeek-V2-Lite's attention widths (16 heads, lora
+    512) in a 4096-row cache, pos around the 32-row splits' edges and at
+    both ends: against its twin, the appended row, the other rows
+    untouched, 5 kernels a call (4 at pos 0), a repeat bit-identical."""
+    from clusterfusion_tpu_torch.ops import deepseek_layer as dl
+    a, cache = _mla_args(dev, 16, 512, seed=61, cap=4096)
+    cos, sin = _mla_rope(dev, pos, cap=4096)
+    cache[:, pos:] = _randn(cache[:, pos:].shape, dev, 71, 8.0)
+    mla = 512 + ROPE
+    dims = dict(n_heads=16, nope_dim=NOPE, rope_dim=ROPE, lora_rank=512)
+    before = cache.clone()
+    want, cur = dl.mla_decode_plain(
+        a["x"], a["rms_in"][1], a["rms_ckv"][1], cos, sin, a["wproj"][1],
+        a["wuk"][1], a["wuv"][1], a["wo"][1], before[1], pos, eps=1e-6,
+        softmax_scale=(NOPE + ROPE) ** -0.5, split=dl.MLA_SPLIT, **dims)
+    call = (a["x"], a["wproj"], a["wuk"], a["wuv"], a["wo"], cache, pos, 1,
+            a["rms_in"], a["rms_ckv"], cos, sin)
+    out, _ = dl.deepseek_decoder_stack_layer(*call, **dims)
+    kernels = dl.last_kernels["deepseek_decoder_stack_layer"]
+    again, _ = dl.deepseek_decoder_stack_layer(*call, **dims)
+    torch.cuda.synchronize()
+    assert kernels == (4 if pos == 0 else 5)
+    assert torch.equal(_bits(out), _bits(again))
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(cache[1, pos, :mla].float(), cur, atol=0.05,
+                               rtol=0)
+    assert not cache[1, pos, mla:].any()
+    others = torch.ones(cache.shape[:2], dtype=torch.bool, device=dev)
+    others[1, pos] = False
+    assert torch.equal(cache[others], before[others])
 
 
 def test_mla_public_op_matches_oracle(dev):

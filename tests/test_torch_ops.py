@@ -7,6 +7,9 @@ on the CPU.
 """
 
 import functools
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +33,9 @@ from clusterfusion_tpu_torch.ops.stack_kernel import (
     _vocab_block, fused_decoder_stack, fused_decoder_stack_plain)
 
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
 def _bf16(a):
     """numpy float -> (jax bf16 array, torch bf16 tensor), the same bits."""
     j = jnp.asarray(a, jnp.bfloat16)
@@ -42,17 +48,64 @@ def _np(t):
 
 # ---- rope and the reference norms: float32, rtol 1e-5 -----------------------
 
-@pytest.mark.parametrize("style,l3", [("neox", None), ("gptj", None),
-                                      ("gptj", (8.0, 1.0, 4.0, 8192))])
-def test_rope_tables_match_jax(style, l3):
-    jf = jrope.rope_tables_neox if style == "neox" else jrope.rope_tables_gptj
+ROPE_CASES = [("neox", None), ("gptj", None), ("gptj", (8.0, 1.0, 4.0, 8192))]
+
+# JAX's tables for every ROPE_CASES entry, built in a fresh process with no
+# persistent compilation cache: in a long-lived test worker JAX's float32
+# cos table once came back 1.5e-4 off at 11.9 % of its elements (see the
+# test below), so the JAX side is taken where no earlier test's state and
+# no cached executable reach it.
+_JAX_ROPE = r"""
+import sys
+import numpy as np
+from clusterfusion_tpu.ops import rope as jrope
+cases = %r
+out = {}
+for i, (style, l3) in enumerate(cases):
+    f = jrope.rope_tables_neox if style == "neox" else jrope.rope_tables_gptj
+    c, s = f(128, 300, 10000.0, l3)
+    out[f"cos{i}"], out[f"sin{i}"] = np.asarray(c), np.asarray(s)
+np.savez(sys.argv[1], **out)
+print("JAX_ROPE_OK")
+""" % (ROPE_CASES,)
+
+
+@pytest.fixture(scope="module")
+def jax_rope_tables(tmp_path_factory):
+    path = tmp_path_factory.mktemp("jax_rope") / "rope.npz"
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env.pop("JAX_COMPILATION_CACHE_DIR", None)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run([sys.executable, "-c", _JAX_ROPE, str(path)],
+                       capture_output=True, text=True, cwd=REPO, timeout=300,
+                       env=env)
+    assert r.returncode == 0 and "JAX_ROPE_OK" in r.stdout, \
+        f"stdout:\n{r.stdout}\nstderr:\n{r.stderr}"
+    return dict(np.load(path))
+
+
+@pytest.mark.parametrize("case", range(len(ROPE_CASES)),
+                         ids=["neox-None", "gptj-None", "gptj-l32"])
+def test_rope_tables_match_jax(case, jax_rope_tables):
+    """The port's tables against JAX's (built in a fresh process) and both
+    against np.cos/np.sin of the same float32 angles in float64, all at
+    rtol 1e-5: the oracle says which side moved if they part."""
+    style, l3 = ROPE_CASES[case]
     tf = trope.rope_tables_neox if style == "neox" else trope.rope_tables_gptj
-    jc, js = jf(128, 300, 10000.0, l3)
     tc, ts = tf(128, 300, 10000.0, l3)
-    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=1e-5,
-                               atol=1e-6)
-    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-5,
-                               atol=1e-6)
+    angles = trope.rope_freqs(128, 300, 10000.0, l3).numpy().astype(np.float64)
+    if style == "gptj":
+        angles = np.repeat(angles, 2, axis=-1)
+    for name, t, j, oracle in (("cos", tc, jax_rope_tables[f"cos{case}"],
+                                np.cos(angles)),
+                               ("sin", ts, jax_rope_tables[f"sin{case}"],
+                                np.sin(angles))):
+        np.testing.assert_allclose(t.numpy(), oracle, rtol=1e-5, atol=1e-6,
+                                   err_msg=f"port {name} vs float64")
+        np.testing.assert_allclose(j, oracle, rtol=1e-5, atol=1e-6,
+                                   err_msg=f"JAX {name} vs float64")
+        np.testing.assert_allclose(t.numpy(), j, rtol=1e-5, atol=1e-6,
+                                   err_msg=f"port {name} vs JAX")
 
 
 @pytest.mark.parametrize("style", ["neox", "gptj"])

@@ -69,8 +69,8 @@ def _check_pools(t_pool, j_pool, t_in, table, lens, layer, exact):
 
 
 @pytest.mark.parametrize("kv,g,page,lens", [
-    (2, 1, 16, [0, 16, 5, 100]),          # empty, page boundary, 2 windows
-    (2, 4, 8, [9, 0, 64]),                # GQA, page 8
+    (2, 1, 16, [0, 16, 5, 300]),          # empty, page boundary, 3 splits
+    (2, 4, 8, [9, 0, 129]),               # GQA, page 8, a split and a row
 ], ids=["mha_page16", "gqa_page8"])
 def test_paged_attention_matches_jax(kv, g, page, lens):
     rng = np.random.RandomState(0)
@@ -103,8 +103,8 @@ def _rope_tables(hd, max_pos=256):
 
 
 @pytest.mark.parametrize("kv,g,hd,hg,page,lens,style", [
-    (4, 1, 128, 2, 16, [0, 16, 37], "neox"),
-    (2, 2, 64, 1, 8, [9, 0, 40], "gptj"),
+    (4, 1, 128, 2, 16, [0, 16, 260], "neox"),
+    (2, 2, 64, 1, 8, [9, 0, 140], "gptj"),
 ], ids=["mha_hd128_page16", "gqa_hd64_page8"])
 def test_paged_layer_matches_jax(kv, g, hd, hg, page, lens, style):
     rng = np.random.RandomState(1)
@@ -121,7 +121,7 @@ def test_paged_layer_matches_jax(kv, g, hd, hg, page, lens, style):
     jkp, tkp = _pair(kp)
     jvp, tvp = _pair(vp)
     tk_in, tv_in = tkp.clone(), tvp.clone()
-    cos, sin = _rope_tables(hd)
+    cos, sin = _rope_tables(hd, max_pos=512)
     pos = lens + 3                                  # any positions
     jout = jpd.llama_decoder_layer_paged(
         jx, jr, jwq, jwo, jnp.asarray(table), jnp.asarray(lens),
@@ -143,7 +143,7 @@ def test_sglang_entry_matches_jax():
     """Page size 1, indptr/indices naming shuffled pool rows."""
     rng = np.random.RandomState(2)
     heads, hd, hidden, L, layer = 4, 128, 512, 2, 1
-    lens = [5, 17, 1]
+    lens = [5, 140, 1]                             # one crosses a split
     B, total = len(lens), sum(lens) + len(lens)
     num_pages = total + 7
     indices = rng.permutation(num_pages)[:total].astype(np.int32)
@@ -155,7 +155,7 @@ def test_sglang_entry_matches_jax():
     jkc, tkc = _pair(rng.randn(L, num_pages, hidden))
     jvc, tvc = _pair(rng.randn(L, num_pages, hidden))
     jrms, trms = _pair(1 + 0.1 * rng.randn(hidden))
-    angle = np.outer(np.arange(32), 0.3 * np.arange(hd // 2) + 0.1)
+    angle = np.outer(np.arange(160), 0.3 * np.arange(hd // 2) + 0.1)
     cos_sin = np.concatenate([np.cos(angle), np.sin(angle)], -1) \
         .astype(np.float32)
     pos = np.asarray(lens, np.int32)
@@ -180,6 +180,32 @@ def test_sglang_entry_matches_jax():
     np.testing.assert_array_equal(_np(tkc)[layer, others],
                                   _np(tk_in)[layer, others])
     np.testing.assert_array_equal(_np(tkc)[0], _np(tk_in)[0])
+
+
+@pytest.mark.parametrize("g,page,lens", [
+    (1, 16, [0, 1, 127, 128, 129, 300]),
+    (4, 1, [0, 130, 37]),
+], ids=["mha_page16", "gqa_page1"])
+def test_split_walk_matches_one_split(g, page, lens):
+    """The twins' walk in SPLIT-row splits against the same walk in one
+    split covering every row.  The two round p to bf16 against different
+    running maxima (each split restarts its own), so a p may differ by one
+    bf16 rounding (2^-8 of itself) and the output by a bf16 rounding of
+    its own: outputs at atol 2e-2 / rtol 2e-2, the suite's bf16 limit."""
+    rng = np.random.RandomState(4)
+    kv, hd, layer, B = 2, 64, 1, len(lens)
+    kp, vp, table, lens = _paged_setup(rng, 2, kv, page, hd, lens)
+    kp, vp = (torch.from_numpy(x).bfloat16() for x in (kp, vp))
+    q = torch.from_numpy(rng.randn(B, kv, g, hd)).float()
+    qs = pd._scaled_q(q)
+    k_cur = torch.from_numpy(rng.randn(B, kv, hd)).bfloat16()
+    v_cur = torch.from_numpy(rng.randn(B, kv, hd)).bfloat16()
+    args = (qs, qs, k_cur, v_cur, kp, vp, torch.from_numpy(table),
+            torch.from_numpy(lens), layer)
+    split = pd._walk_plain(*args)
+    one = pd._walk_plain(*args, split=pd.TILE * (max(lens) // pd.TILE + 1))
+    assert max(lens) > pd.SPLIT                       # several splits
+    np.testing.assert_allclose(_np(split), _np(one), **TOL)
 
 
 @pytest.mark.parametrize("kw", [dict(window=8), dict(softcap=30.0)],
