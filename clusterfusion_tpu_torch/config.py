@@ -222,7 +222,10 @@ class KernelConfig:
     tile is 64 rows.  ``gemv_threads``: threads per block of the decode
     GEMVs, a multiple of 32 (the ring GEMV of ``fused_decoder_stack``,
     ``fused_verify_stack`` and ``gemv``: its consumer threads, 32 to 992,
-    beside one producer warp)."""
+    beside one producer warp).  ``_fused_decoder_layer`` and ``fused_ffn``
+    read neither ``gemv_threads`` nor any other knob but ``kv_split``: each
+    is one launch whose block size, ring stages and cluster size are
+    constants or follow from the geometry and the card's SM count."""
 
     kv_split: int = 64
     prefill_block_rows: int = 128

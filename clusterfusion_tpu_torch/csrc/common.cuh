@@ -1,11 +1,12 @@
 // Device helpers shared by the port's kernels (stack_kernel.cu,
 // stack_verify.cu, paged_attention.cu, paged_decoder_layer.cu,
-// fused_ffn.cu, mla_decode.cu, decoder_layer.cu, gemv.cu), among them the
-// decode GEMVs (the batched one of the paged layer, the fused FFN and the
-// MLA layer; the ring GEMV of the bs=1 stack, the verify stack and the
-// standalone gemv) and the split-KV attention of one bs=1 layer (the
-// stack's and the single layer's).  Everything sits in an unnamed
-// namespace: each translation unit gets its own copy.
+// fused_ffn.cu, mla_decode.cu, decoder_layer.cu, gemv.cu): the ring GEMV
+// (the bs=1 stack, the verify stack, the standalone gemv, the paged layer
+// and the MLA layer), the split-KV attention of the bs=1 stack, and the
+// pieces of the one-launch layer halves (the single decoder layer and the
+// fused FFN: a ring of weight tiles, a tile's product and the ordered
+// fold across blocks).  Everything sits in an unnamed namespace: each
+// translation unit gets its own copy.
 
 #pragma once
 
@@ -174,186 +175,6 @@ resnorm_kernel(const float* a, const __nv_bfloat16* a_bf16, const float* b,
   }
   for (int i = threadIdx.x; i < n1; i += blockDim.x) z1[(size_t)blockIdx.x * n1 + i] = 0.f;
   for (int i = threadIdx.x; i < n2; i += blockDim.x) z2[(size_t)blockIdx.x * n2 + i] = 0.f;
-}
-
-// out[i] = bf16(a[i]) for i < n (the f32 sums of a GEMV into its bf16 output).
-__global__ void to_bf16_kernel(const float* a, __nv_bfloat16* out, int n) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x)
-    out[i] = __float2bfloat16(a[i]);
-}
-
-// ---- The batched decode GEMV: M <= 8 rows of x against a bf16 [K, N] matrix ----
-//
-// y[r*y_row + mat*yz + n] += sum_{k in this block's K chunk} x[r, k] * W[k, n]
-// for the NB batch rows r0.. of blockIdx.z's row chunk and the matrix
-// mat = blockIdx.z / nrc, W = w + mat*ws.  x row r starts at xv + r*x_row:
-// bf16, or (SWIGLU) the float32 gate/up row, x[r, k] = bf16(silu(gate[k]) *
-// up[k]) with up at f_off past gate.  At 1-8 rows the product does 2*NB
-// operations per weight byte, so it is bound by bytes: each warp covers 256
-// adjacent columns (8 per lane, one 16-byte load per weight row) for all NB
-// rows at once, so a weight byte is read once per NB rows, and issues the
-// loads of its next four weight rows before the arithmetic on the current
-// four (left to itself the compiler let a load wait on the one before).
-// The warps of a block split its K chunk and meet in shared memory; blocks
-// split K until the grid holds about two blocks per SM, never more than fit
-// at once, and meet by atomicAdd in an output the caller zeroed.  (The
-// stacks and the standalone gemv use the ring GEMV further down, whose
-// blocks meet in a fixed order.)
-constexpr int GEMV_COLS = 256;
-constexpr int GEMV_X_FLOATS = 8192;   // x chunks in shared memory <= 32 KB
-
-template <int NB, bool SWIGLU>
-__global__ void rows_gemv_kernel(const void* __restrict__ xv, long long x_row,
-                                 int f_off, const __nv_bfloat16* __restrict__ w,
-                                 float* __restrict__ y, int M, int K, int N,
-                                 int k_chunk, int nrc, long long ws,
-                                 long long y_row, long long yz) {
-  extern __shared__ float sm[];
-  const int nw = blockDim.x / 32;
-  float* xsm = sm;                  // [NB][k_chunk]
-  float* red = sm + NB * k_chunk;   // [nw][GEMV_COLS]
-  const int lane = threadIdx.x % 32, wid = threadIdx.x / 32;
-  const int mat = blockIdx.z / nrc, r0 = (blockIdx.z % nrc) * NB;
-  const int nr = min(NB, M - r0);
-  const int k0 = blockIdx.y * k_chunk, k1 = min(K, k0 + k_chunk), kn = k1 - k0;
-#pragma unroll
-  for (int r = 0; r < NB; ++r) {
-    float* xs = xsm + r * k_chunk;
-    if (r >= nr) {                      // rows past M read as 0
-      for (int i = threadIdx.x; i < kn; i += blockDim.x) xs[i] = 0.f;
-    } else if (SWIGLU) {
-      const float* gu = static_cast<const float*>(xv) + (size_t)(r0 + r) * x_row + k0;
-      for (int i = threadIdx.x; i < kn; i += blockDim.x) {
-        const float g = gu[i], u = gu[f_off + i];
-        xs[i] = bf16_round(g / (1.f + expf(-g)) * u);
-      }
-    } else {
-      const __nv_bfloat16* xb =
-          static_cast<const __nv_bfloat16*>(xv) + (size_t)(r0 + r) * x_row + k0;
-      for (int i = threadIdx.x; i < kn; i += blockDim.x) xs[i] = __bfloat162float(xb[i]);
-    }
-  }
-  __syncthreads();
-
-  const int n0 = blockIdx.x * GEMV_COLS + lane * 8;
-  float acc[NB][8];
-#pragma unroll
-  for (int r = 0; r < NB; ++r)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
-  if (n0 < N) {
-    const __nv_bfloat16* wp = w + (size_t)mat * ws + n0;
-    auto row = [&](const uint4& u, int k) {
-      float f[8];
-      unpack8(u, f);
-      const float* xk = xsm + (k - k0);
-#pragma unroll
-      for (int r = 0; r < NB; ++r) {
-        const float xk_r = xk[r * k_chunk];
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(xk_r, f[c], acc[r][c]);
-      }
-    };
-    int k = k0 + wid;
-    uint4 u[4];
-    if (k + 3 * nw < k1) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        u[q] = __ldg(reinterpret_cast<const uint4*>(wp + (size_t)(k + q * nw) * N));
-    }
-    for (; k + 3 * nw < k1; k += 4 * nw) {
-      uint4 cur[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) cur[q] = u[q];
-      const int k_next = k + 4 * nw;
-      if (k_next + 3 * nw < k1) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          u[q] = __ldg(reinterpret_cast<const uint4*>(wp + (size_t)(k_next + q * nw) * N));
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) row(cur[q], k + q * nw);
-    }
-    for (; k < k1; k += nw) row(__ldg(reinterpret_cast<const uint4*>(wp + (size_t)k * N)), k);
-  }
-#pragma unroll
-  for (int r = 0; r < NB; ++r) {
-    if (r < nr) {                       // uniform over the block
-#pragma unroll
-      for (int c = 0; c < 8; ++c) red[wid * GEMV_COLS + lane * 8 + c] = acc[r][c];
-      __syncthreads();
-      for (int t = threadIdx.x; t < GEMV_COLS; t += blockDim.x) {
-        const int n = blockIdx.x * GEMV_COLS + t;
-        if (n >= N) continue;
-        float s = 0.f;
-        for (int q = 0; q < nw; ++q) s += red[q * GEMV_COLS + t];
-        atomicAdd(&y[(size_t)(r0 + r) * y_row + (size_t)mat * yz + n], s);
-      }
-      __syncthreads();
-    }
-  }
-}
-
-// Launch rows_gemv_kernel<NB, SWIGLU> over M rows (chunks of NB) and nmat
-// matrices with `threads` per block; the blocks meet by atomicAdd in y.
-// Returns a cudaError_t.
-template <int NB, bool SWIGLU>
-int launch_rows_gemv_nb(const void* x, long long x_row, int f_off,
-                        const __nv_bfloat16* w, float* y, int M, int K, int N,
-                        int nmat, long long ws, long long y_row, long long yz,
-                        int threads, int num_sms, cudaStream_t st) {
-  const int nw = threads / 32;
-  // blocks per SM that fit with the largest x chunk, once per block size
-  const size_t smem_max = sizeof(float) * ((size_t)GEMV_X_FLOATS + (size_t)nw * GEMV_COLS);
-  static int occ_threads = 0, occ = 1;
-  if (occ_threads != threads) {
-    if (smem_max > 48 * 1024)
-      CF_CHECK((int)cudaFuncSetAttribute(rows_gemv_kernel<NB, SWIGLU>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem_max));
-    CF_CHECK((int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &occ, rows_gemv_kernel<NB, SWIGLU>, threads, smem_max));
-    occ_threads = threads;
-  }
-  const int tiles = (N + GEMV_COLS - 1) / GEMV_COLS;
-  const int nrc = (M + NB - 1) / NB;
-  const int z = nmat * nrc;
-  int ks = (2 * num_sms + tiles * z - 1) / (tiles * z);   // ~2 blocks per SM
-  // but within one wave: a few blocks left over for a second wave would
-  // take as long as the first
-  const int one_wave = occ * num_sms / (tiles * z);
-  if (ks > one_wave && one_wave >= 1) ks = one_wave;
-  const int max_ks = K / (4 * nw) > 0 ? K / (4 * nw) : 1;  // >= 4 rows per warp
-  if (ks > max_ks) ks = max_ks;
-  const int max_chunk = GEMV_X_FLOATS / NB;
-  const int min_ks = (K + max_chunk - 1) / max_chunk;
-  if (ks < min_ks) ks = min_ks;
-  if (ks < 1) ks = 1;
-  const int k_chunk = (K + ks - 1) / ks;
-  ks = (K + k_chunk - 1) / k_chunk;
-  const size_t smem = sizeof(float) * ((size_t)NB * k_chunk + (size_t)nw * GEMV_COLS);
-  rows_gemv_kernel<NB, SWIGLU><<<dim3(tiles, ks, z), threads, smem, st>>>(
-      x, x_row, f_off, w, y, M, K, N, k_chunk, nrc, ws, y_row, yz);
-  return (int)cudaGetLastError();
-}
-
-// The same for any M: rows in chunks of 1, 2, 4 or 8.
-template <bool SWIGLU>
-int launch_rows_gemv(const void* x, long long x_row, int f_off,
-                     const __nv_bfloat16* w, float* y, int M, int K, int N,
-                     int nmat, long long ws, long long y_row, long long yz,
-                     int threads, int num_sms, cudaStream_t st) {
-  if (M == 1)
-    return launch_rows_gemv_nb<1, SWIGLU>(x, x_row, f_off, w, y, M, K, N, nmat, ws,
-                                          y_row, yz, threads, num_sms, st);
-  if (M == 2)
-    return launch_rows_gemv_nb<2, SWIGLU>(x, x_row, f_off, w, y, M, K, N, nmat, ws,
-                                          y_row, yz, threads, num_sms, st);
-  if (M <= 4)
-    return launch_rows_gemv_nb<4, SWIGLU>(x, x_row, f_off, w, y, M, K, N, nmat, ws,
-                                          y_row, yz, threads, num_sms, st);
-  return launch_rows_gemv_nb<8, SWIGLU>(x, x_row, f_off, w, y, M, K, N, nmat, ws,
-                                        y_row, yz, threads, num_sms, st);
 }
 
 // ---- The ring GEMV: rows of x against a bf16 [K, N] matrix, fixed order ----
@@ -1152,6 +973,399 @@ int launch_attention(const float* qkv, const __nv_bfloat16* kc_read,
                          neox));
   ++*n;
   return 0;
+}
+
+// ---- One-launch layer halves (decoder_layer.cu, fused_ffn.cu) ----
+//
+// Each kernel streams its weight tiles (and cache rows) through one ring
+// of OL_STAGE-byte shared-memory stages: the tiles form one sequence fixed
+// by the geometry, and the copies depend on nothing the kernel computes,
+// so the ring runs ahead across the kernel's phases and cluster barriers.
+// A producer warp (the block's last) issues tile u into stage u % stages
+// once the consumers (OL_THREADS threads, the rest) have released tile
+// u - stages (`empty` mbarriers; a TMA queue that is full stalls only the
+// producer), and the consumers wait for each tile's bytes (`full`).  The
+// consumers meet at named barrier 1, never at __syncthreads.  The producer
+// takes part in the cluster barriers with split arrive/wait (ol_produce).
+constexpr int OL_MAX_STAGES = 6;                // the most any kernel uses
+constexpr int OL_THREADS = 256;                 // consumer threads per block
+constexpr int OL_WARPS = OL_THREADS / 32;
+constexpr int OL_BLOCK = OL_THREADS + 32;       // and the producer warp
+
+// A barrier of the consumer threads alone.
+__device__ __forceinline__ void ol_cbar() { hopper::named_barrier_sync(1, OL_THREADS); }
+
+// Sum over the consumer threads in a fixed order; every consumer gets the
+// result.  `red` holds OL_WARPS floats.
+__device__ float ol_block_sum(float x, float* red) {
+  x = warp_sum(x);
+  ol_cbar();
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = x;
+  ol_cbar();
+  float t = 0.f;
+#pragma unroll
+  for (int w = 0; w < OL_WARPS; ++w) t += red[w];
+  return t;
+}
+
+// The producer warp's loop: tile u after the consumers' release of tile u
+// - nst (empty[u % nst]); issue(u) does the copy (lane 0).  The consumers
+// pass `nbar` cluster barriers in all and read tile v after `phase(v)` of
+// them; a barrier's phase needs this warp's arrival too, so the warp
+// arrives at barrier k (waiting for barrier k - 1 first) before it waits
+// for a stage that the consumers free only past barrier k, and takes the
+// rest of its barriers after the last tile.
+template <typename Phase, typename Issue>
+__device__ void ol_produce(int total, int nst, uint64_t* empty, int nbar, Phase phase,
+                          Issue issue) {
+  int arrived = 0;
+  auto next_barrier = [&]() {
+    if (arrived > 0) hopper::cluster_wait();
+    hopper::cluster_arrive();
+    ++arrived;
+  };
+  if (nbar > 0) next_barrier();
+  for (int u = 0; u < total; ++u) {
+    if (u >= nst) {
+      const int need = phase(u - nst);
+      while (arrived < need) next_barrier();
+      hopper::mbar_wait(&empty[u % nst], (u / nst - 1) & 1);
+    }
+    issue(u);
+    __syncwarp();
+  }
+  while (arrived < nbar) next_barrier();
+  if (arrived > 0) hopper::cluster_wait();
+}
+
+// The consumers' side of a cluster barrier (arrive and wait).
+__device__ __forceinline__ void ol_cluster_sync() {
+  hopper::cluster_arrive();
+  hopper::cluster_wait();
+}
+constexpr int OL_STAGE = 16384;                 // bytes per ring stage
+constexpr int OL_HEAD = 256;                    // mbarriers and the fold's flag
+constexpr int OL_RED_FLOATS = 8 * OL_THREADS;   // a tile product's row-group sums
+constexpr int OL_SMEM_MAX = 227 * 1024;
+constexpr int OL_MAX_NP = 4;                    // 8-column pieces per thread
+constexpr int OL_MAX_CLUSTER = 16;              // non-portable; 8 is portable
+constexpr int OL_MAX_HIDDEN = 8 * OL_MAX_NP * OL_THREADS;   // 8192
+static_assert(16 * OL_MAX_STAGES + 4 <= OL_HEAD, "barriers overflow the head");
+
+// The norm's loads, issued before the ring's first copies so that they do
+// not queue behind them: h = x (+ res) in f32 for this thread's 8-element
+// chunks i = tid, tid + OL_THREADS, ... of the row (hidden <= OL_MAX_HIDDEN,
+// a multiple of 8), and w's chunks where w is given.  ol_norm_sum then
+// gives the row's sum of squares in a fixed order.
+struct OlRow {
+  uint4 x[OL_MAX_NP], r[OL_MAX_NP], w[OL_MAX_NP];
+};
+
+__device__ __forceinline__ void ol_norm_load(OlRow& row, const __nv_bfloat16* x,
+                                             const __nv_bfloat16* res, const __nv_bfloat16* w,
+                                             int hidden) {
+#pragma unroll
+  for (int q = 0; q < OL_MAX_NP; ++q) {
+    const int i = threadIdx.x + q * OL_THREADS;
+    row.x[q] = row.r[q] = row.w[q] = make_uint4(0u, 0u, 0u, 0u);
+    if (8 * i < hidden) {
+      row.x[q] = *reinterpret_cast<const uint4*>(x + 8 * i);
+      if (res) row.r[q] = *reinterpret_cast<const uint4*>(res + 8 * i);
+      if (w) row.w[q] = *reinterpret_cast<const uint4*>(w + 8 * i);
+    }
+  }
+}
+
+// h = x (+ res) of chunk q (f32), and the block's sum of h^2 over the row.
+__device__ __forceinline__ void ol_norm_h(const OlRow& row, int q, float* h) {
+  float r[8];
+  unpack8(row.x[q], h);
+  unpack8(row.r[q], r);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) h[e] += r[e];
+}
+
+__device__ float ol_norm_sum(const OlRow& row, float* red) {
+  float ss = 0.f;
+#pragma unroll
+  for (int q = 0; q < OL_MAX_NP; ++q) {
+    float h[8];
+    ol_norm_h(row, q, h);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) ss = fmaf(h[e], h[e], ss);
+  }
+  return ol_block_sum(ss, red);
+}
+
+// Shared-memory offset of a region of `bytes` at `off` (128-byte aligned).
+__host__ __device__ inline int ol_take(int& off, int bytes) {
+  const int at = off;
+  off += (bytes + 127) / 128 * 128;
+  return at;
+}
+
+// Phase boundaries a one-launch kernel stamps when given `stamps`
+// (uint64 [blocks][OL_STAMPS], %globaltimer ns, thread 0 of each block;
+// nullptr on the normal path: one untaken branch per boundary).
+constexpr int OL_STAMPS = 8;
+__device__ __forceinline__ void ol_stamp(unsigned long long* stamps, int k) {
+  if (stamps != nullptr && threadIdx.x == 0)
+    stamps[(size_t)(blockIdx.x + blockIdx.y * gridDim.x) * OL_STAMPS + k] = hopper::global_ns();
+}
+
+// The widest box dimension (a multiple of 8, at most 256 elements, TMA's
+// limit) that divides both a and b (multiples of 8): a box's inner width
+// when a tile of a columns starts at multiples of a in rows of b columns.
+inline int ol_box_width(int a, int b) {
+  for (int w = 256; w > 8; w -= 8)
+    if (a % w == 0 && b % w == 0) return w;
+  return 8;
+}
+
+// Ring stages, at most `want`, that fit beside `rest` bytes of other shared
+// memory (0: none).
+inline int ol_stages(int rest, int want) {
+  const int ring = (rest + 1023) / 1024 * 1024;
+  return std::min(std::min(want, OL_MAX_STAGES), std::max(0, (OL_SMEM_MAX - ring) / OL_STAGE));
+}
+
+// One stage of weights against x: this thread's 8-column pieces of a tile
+// of `rows` rows, row j of piece p at stage + j*pitch + (p < p1 ? 16p :
+// half + 16(p - p1)) (`half` places a second matrix's columns after the
+// first's), each summed as acc += x[j] * W[j][piece] in row order.  With
+// P <= OL_THREADS pieces a row, thread t takes piece t % P of the rows t /
+// P, t / P + RG, ... (RG = OL_THREADS / P row groups); with more, pieces
+// t, t + OL_THREADS, ... of every row.
+template <int NP>
+__device__ __forceinline__ void tile_gemv(const unsigned char* stage, int pitch, int p1,
+                                          int half, int rows, const float* x, int P,
+                                          float (&acc)[NP][8]) {
+  const int t = threadIdx.x;
+  auto piece = [&](int p) { return stage + (p < p1 ? p * 16 : half + (p - p1) * 16); };
+  if (P <= OL_THREADS) {
+    const int RG = OL_THREADS / P, p = t % P, rg = t / P;
+    if (rg >= RG) return;
+    const unsigned char* base = piece(p);
+#pragma unroll 4
+    for (int j = rg; j < rows; j += RG) {
+      float f[8];
+      unpack8(*reinterpret_cast<const uint4*>(base + (size_t)j * pitch), f);
+      const float xj = x[j];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[0][c] = fmaf(xj, f[c], acc[0][c]);
+    }
+  } else {
+    for (int j = 0; j < rows; ++j) {
+      const float xj = x[j];
+#pragma unroll
+      for (int q = 0; q < NP; ++q) {
+        const int p = t + q * OL_THREADS;
+        if (p < P) {
+          float f[8];
+          unpack8(*reinterpret_cast<const uint4*>(piece(p) + (size_t)j * pitch), f);
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc[q][c] = fmaf(xj, f[c], acc[q][c]);
+        }
+      }
+    }
+  }
+}
+
+// out[8p + c] = the sum of tile_gemv's acc over the row groups, in group
+// order (red: OL_RED_FLOATS floats of shared memory); out may be global.
+// Ends with a barrier of the consumers.
+template <int NP>
+__device__ void tile_gemv_reduce(const float (&acc)[NP][8], int P, float* red, float* out) {
+  const int t = threadIdx.x;
+  if (P <= OL_THREADS) {
+    const int RG = OL_THREADS / P, p = t % P, rg = t / P;
+    if (rg < RG) {
+      float4* r = reinterpret_cast<float4*>(red + (size_t)(rg * P + p) * 8);
+      r[0] = make_float4(acc[0][0], acc[0][1], acc[0][2], acc[0][3]);
+      r[1] = make_float4(acc[0][4], acc[0][5], acc[0][6], acc[0][7]);
+    }
+    ol_cbar();
+    for (int e = t; e < P * 8; e += OL_THREADS) {
+      float s = red[e];
+      for (int q = 1; q < RG; ++q) s += red[(size_t)q * P * 8 + e];
+      out[e] = s;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < NP; ++q) {
+      const int p = t + q * OL_THREADS;
+      if (p < P)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) out[(size_t)p * 8 + c] = acc[q][c];
+    }
+  }
+  ol_cbar();
+}
+
+// The ordered fold across blocks, one launch, no sum by atomics, in two
+// levels so that no block reads more than `group` rows at the first: every
+// block that wrote row `row` of part[nrows][stride] over the columns [c0,
+// c0 + ncols) (a multiple of 4) takes a ticket from its group's counter
+// (rows in groups of `group`, OL_FOLD_MIN_GROUP or more); the group's last
+// block sums
+// the group's rows in row order into row `group` of gpart[groups][stride]
+// and takes a ticket from the final counter; the last group's block sums
+// the groups' rows in group order and writes out = bf16(sum).  Each
+// counter goes back to 0 when its last ticket is taken (the next call on
+// the stream starts after this one ends); tickets are taken modulo the
+// count, so a count left behind by a launch that died midway misplaces one
+// call's fold at most.  ctr: OL_FOLD_STRIDE counters (final, then one per
+// group).  Called by every thread of the block; `flag` is one int of
+// shared memory.  Called by the consumer threads.
+constexpr int OL_FOLD_MIN_GROUP = 4;
+constexpr int OL_FOLD_MAX_ROWS = 256;
+constexpr int OL_FOLD_STRIDE = 1 + OL_FOLD_MAX_ROWS / OL_FOLD_MIN_GROUP;
+constexpr int OL_COUNTERS = OL_MAX_CLUSTER * OL_FOLD_STRIDE;   // one set per cluster rank
+
+__host__ __device__ inline int ol_fold_groups(int nrows, int group) {
+  return (nrows + group - 1) / group;
+}
+
+// Floats of a fold's scratch: part and gpart rows of `stride` floats, then
+// the counters of every cluster rank.
+inline long long ol_fold_floats(int nrows, int stride, int group) {
+  return (long long)(nrows + ol_fold_groups(nrows, group)) * stride + OL_COUNTERS;
+}
+
+// dst[c] = sum of src rows r0..r0+nr-1 (row order) at columns [c0, c0 +
+// ncols), eight rows of two column groups a thread in flight at a time;
+// bf16 into out or f32 into dst.
+__device__ __noinline__ void ol_sum_rows(const float* src, int stride, int r0, int nr, int c0,
+                                         int ncols, float* dst, __nv_bfloat16* out) {
+  for (int c = threadIdx.x * 4; c < ncols; c += 8 * OL_THREADS) {
+    const int cg[2] = {c, c + 4 * OL_THREADS};    // a second column group, if any
+    const float* col = src + (size_t)r0 * stride + c0;
+    float4 s[2] = {make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
+    for (int rb = 0; rb < nr; rb += 8) {
+      float4 v[2][8];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          v[h][q] = rb + q < nr && cg[h] < ncols
+                        ? __ldcg(reinterpret_cast<const float4*>(
+                              col + (size_t)(rb + q) * stride + cg[h]))
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          if (rb + q < nr) {
+            s[h].x += v[h][q].x;
+            s[h].y += v[h][q].y;
+            s[h].z += v[h][q].z;
+            s[h].w += v[h][q].w;
+          }
+        }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (cg[h] >= ncols) continue;
+      if (out) {
+        __nv_bfloat16* o = out + c0 + cg[h];
+        o[0] = __float2bfloat16(s[h].x);
+        o[1] = __float2bfloat16(s[h].y);
+        o[2] = __float2bfloat16(s[h].z);
+        o[3] = __float2bfloat16(s[h].w);
+      } else {
+        __stcg(reinterpret_cast<float4*>(dst + c0 + cg[h]), s[h]);
+      }
+    }
+  }
+}
+
+// A ticket from *ctr among n arrivals: true in the block that takes the
+// last (the caller then sets *ctr back to 0 after its sums).  The
+// consumers' barrier orders their writes before thread 0's release fence
+// and ticket; thread 0's acquire fence and the barrier order the others'
+// writes before our reads (which go to L2: __ldcg).
+__device__ bool ol_ticket(unsigned* ctr, unsigned n, int* flag) {
+  ol_cbar();
+  if (threadIdx.x == 0) {
+    asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+    const bool last = atomicAdd(ctr, 1u) % n == n - 1u;
+    if (last) asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+    *flag = last;
+  }
+  ol_cbar();
+  return *flag != 0;
+}
+
+__device__ void ordered_fold(const float* part, int stride, int nrows, int row, int c0,
+                             int ncols, unsigned* ctr, __nv_bfloat16* out, int* flag,
+                             int group) {
+  const int groups = ol_fold_groups(nrows, group), grp = row / group;
+  const int members = min(group, nrows - grp * group);
+  float* gpart = const_cast<float*>(part) + (size_t)nrows * stride;
+  if (!ol_ticket(ctr + 1 + grp, (unsigned)members, flag)) return;
+  ol_sum_rows(part, stride, grp * group, members, c0, ncols,
+              groups > 1 ? gpart + (size_t)grp * stride : nullptr, groups > 1 ? nullptr : out);
+  if (threadIdx.x == 0) atomicExch(ctr + 1 + grp, 0u);
+  if (groups == 1 || !ol_ticket(ctr, (unsigned)groups, flag)) return;
+  ol_sum_rows(gpart, stride, 0, groups, c0, ncols, nullptr, out);
+  if (threadIdx.x == 0) atomicExch(ctr, 0u);
+}
+
+// Per device and kernel: the SM count and whether clusters of up to 16
+// blocks are allowed for `kern` (its dynamic shared-memory allowance set
+// once, to OL_SMEM_MAX).  Returns a cudaError_t.
+template <typename Kern>
+int ol_device(Kern kern, int* num_sms, int* max_cluster) {
+  static struct { const void* kern; int dev, sms, maxc; } done[64];
+  static int n_done = 0;
+  int dev = 0;
+  CF_CHECK((int)cudaGetDevice(&dev));
+  for (int i = 0; i < n_done; ++i)
+    if (done[i].kern == (const void*)kern && done[i].dev == dev) {
+      *num_sms = done[i].sms;
+      *max_cluster = done[i].maxc;
+      return 0;
+    }
+  {
+    CF_CHECK((int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       OL_SMEM_MAX));
+    int c = 8;
+    if (cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1) ==
+        cudaSuccess)
+      c = 16;
+    else
+      (void)cudaGetLastError();
+    int n = 0;
+    CF_CHECK((int)cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev));
+    if (n_done < 64) done[n_done++] = {(const void*)kern, dev, n, c};
+    *num_sms = n;
+    *max_cluster = c;
+  }
+  return 0;
+}
+
+// Clusters of `c` blocks (along y, as launch_kernel_cluster lays them) of
+// OL_BLOCK threads and `smem` bytes that the card holds at once (0 if
+// none or the query fails).
+template <typename Kern>
+int ol_active_clusters(Kern kern, int c, size_t smem, int blocks) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = c;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1, blocks);
+  cfg.blockDim = dim3(OL_BLOCK);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, kern, &cfg) != cudaSuccess) {
+    (void)cudaGetLastError();
+    n = 0;
+  }
+  return n;
 }
 
 }  // namespace

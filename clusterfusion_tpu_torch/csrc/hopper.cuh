@@ -188,6 +188,18 @@ __device__ __forceinline__ void grid_dep_launch_dependents() {
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
+// Split cluster barrier: barrier.cluster.arrive (release) and
+// barrier.cluster.wait (acquire), each executed by whole warps.  A thread
+// arrives once per phase and waits for that phase before it arrives again;
+// between the two it may keep working (cg::this_cluster().sync() is the
+// pair back to back).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
 // bar.sync on a named barrier shared by `threads` threads (a warpgroup:
 // 128).  Id 0 is __syncthreads'.
 __device__ __forceinline__ void named_barrier_sync(uint32_t id,
@@ -406,22 +418,33 @@ inline EncodeTiledFn encode_tiled() {
 
 // A 3-D bf16 tensor map over [d2][d1][d0] (d0 contiguous) with byte
 // strides s1 (between d1 rows) and s2 (between d2 slabs), copied in boxes
-// of box0 x box1 x 1 with the 128-byte swizzle (box0 * 2 must be <= 128).
-// Returns false when the driver refuses the map.
-inline bool make_tensor_map_bf16(CUtensorMap* map, const void* base,
-                                 uint64_t d0, uint64_t d1, uint64_t d2,
-                                 uint64_t s1, uint64_t s2, uint32_t box0,
-                                 uint32_t box1) {
+// of box0 x box1 x box2 with the given swizzle.  Returns false when
+// cuTensorMapEncodeTiled refuses the map.
+inline bool make_tensor_map_bf16_3d(CUtensorMap* map, const void* base,
+                                    uint64_t d0, uint64_t d1, uint64_t d2,
+                                    uint64_t s1, uint64_t s2, uint32_t box0,
+                                    uint32_t box1, uint32_t box2,
+                                    CUtensorMapSwizzle swizzle) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {d0, d1, d2};
   const cuuint64_t strides[2] = {s1, s2};
-  const cuuint32_t box[3] = {box0, box1, 1};
+  const cuuint32_t box[3] = {box0, box1, box2};
   const cuuint32_t estr[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The same in boxes of box0 x box1 x 1 with the 128-byte swizzle (box0 * 2
+// must be <= 128).
+inline bool make_tensor_map_bf16(CUtensorMap* map, const void* base,
+                                 uint64_t d0, uint64_t d1, uint64_t d2,
+                                 uint64_t s1, uint64_t s2, uint32_t box0,
+                                 uint32_t box1) {
+  return make_tensor_map_bf16_3d(map, base, d0, d1, d2, s1, s2, box0, box1, 1,
+                                 CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace hopper

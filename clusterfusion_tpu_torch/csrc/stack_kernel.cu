@@ -56,7 +56,7 @@
 // through a ring of shared-memory stages, consumer warps do the FMAs, and
 // the K chunks of a tile meet inside a thread-block cluster in a fixed
 // order, so one step on the same inputs gives the same bits every time
-// (atomicAdd would let the last bits move from run to run, and the bf16
+// (atomic adds would let the last bits move from run to run, and the bf16
 // roundings they flip compound over the layers).  Each GEMV is launched
 // with programmatic dependent launch: it streams its first weight stages
 // while the kernel before it (resnorm, merge or the previous GEMV, which

@@ -49,16 +49,19 @@ SIGNATURES = {
     "cf_paged_layer_scratch_floats": ([_I] * 7, ctypes.c_longlong),
     "cf_paged_decoder_layer": ([_P] * 17 + [_I] * 13
                                + [_F, _I, ctypes.POINTER(_I), _P], _I),
-    "cf_fused_ffn": ([_P] * 10 + [_I] * 3 + [_F, _I, ctypes.POINTER(_I), _P],
+    "cf_fused_ffn_scratch_floats": ([_I] * 2, ctypes.c_longlong),
+    "cf_fused_ffn_plan": ([_I, _I, ctypes.POINTER(_I)], _I),
+    "cf_fused_ffn": ([_P] * 8 + [_I] * 3 + [_F, _P, ctypes.POINTER(_I), _P],
                      _I),
     "cf_mla_scratch_floats": ([_I] * 7, ctypes.c_longlong),
     "cf_mla_decode": ([_P] * 13 + [_I] * 10 + [_F, _F, _I, _I,
                                                ctypes.POINTER(_I), _P], _I),
     "cf_rmsnorm": ([_P] * 5 + [_I] * 4 + [_F, _P], _I),
     "cf_gemv": ([_P] * 3 + [_I] * 4 + [_P], _I),
-    "cf_decoder_layer_scratch_floats": ([_I] * 6, ctypes.c_longlong),
+    "cf_decoder_layer_scratch_floats": ([_I] * 2, ctypes.c_longlong),
+    "cf_decoder_layer_plan": ([_I] * 5 + [ctypes.POINTER(_I)], _I),
     "cf_decoder_layer": ([_P] * 16 + [_I] * 10
-                         + [_F, _I, _I, ctypes.POINTER(_I), _P], _I),
+                         + [_F, _I, _P, ctypes.POINTER(_I), _P], _I),
     "cf_error_string": ([_I], ctypes.c_char_p),
     "cf_comm_preload": ([], _I),
     "cf_comm_buffer_bytes": ([_I, _LL], _LL),

@@ -38,3 +38,28 @@ def resolve_device(device=None) -> torch.device:
             "none is available; pass device='cpu' to run the plain PyTorch "
             "path on the CPU")
     return dev
+
+
+_SCRATCH: dict = {}
+_SCRATCH_MAX = 64
+
+
+def stream_scratch(key, floats, device: torch.device,
+                   stream: int) -> torch.Tensor:
+    """A float32 buffer kept per (device, stream, ``key``) and zeroed once,
+    when it is made: the fold rows and ticket counters of a one-launch
+    kernel (``csrc/decoder_layer.cu``, ``csrc/fused_ffn.cu``), which leaves
+    its counters at 0.  ``floats`` is its size or a function giving it
+    (called only then).  Calls on one stream take turns with a buffer;
+    calls on other streams get their own."""
+    k = (device.index, stream, key)
+    buf = _SCRATCH.get(k)
+    if buf is None:
+        n = floats() if callable(floats) else floats
+        if n < 0:
+            raise RuntimeError(f"no launch geometry for {key}")
+        if len(_SCRATCH) >= _SCRATCH_MAX:
+            _SCRATCH.pop(next(iter(_SCRATCH)))
+        buf = _SCRATCH[k] = torch.zeros(n, dtype=torch.float32,
+                                        device=device)
+    return buf

@@ -3,10 +3,11 @@
 
 ``_fused_decoder_layer`` computes residual add + RMSNorm + QKV projection +
 RoPE + flash-decode over the cached rows + the current token + the
-O-projection for one layer.  CUDA tensors launch the hand-written kernels
-of ``csrc/decoder_layer.cu`` (one C call, 4-6 launches); CPU tensors run
-``_fused_decoder_layer_plain``, which repeats the kernels' arithmetic and
-rounds where they round, as the TPU kernel does:
+O-projection for one layer.  CUDA tensors launch the hand-written kernel
+of ``csrc/decoder_layer.cu`` (one launch: a thread-block cluster per kv
+head, sums in a fixed order, so a call repeats its bits); CPU tensors run
+``_fused_decoder_layer_plain``, which repeats the kernel's arithmetic and
+rounds where it rounds, as the TPU kernel does:
 
 - h = x (+ residual) in float32, ``res_out`` its bf16; the norm's output is
   rounded to bf16 for the QKV product, which stays float32;
@@ -41,6 +42,7 @@ import torch
 
 from clusterfusion_tpu_torch.config import KernelConfig
 from clusterfusion_tpu_torch.ops import _build
+from clusterfusion_tpu_torch.ops._support import stream_scratch
 from clusterfusion_tpu_torch.ops.stack_kernel import (_norm, _rope,
                                                       split_attention_plain)
 
@@ -55,6 +57,11 @@ HEAD_GROUP = 8
 launches = 0
 #: CUDA kernels the last such call launched.
 last_call_kernels = 0
+#: None, or a zeroed int64 CUDA tensor [16 * kv_heads, 8]: every call then
+#: writes each block's %globaltimer (ns) at the kernel's phase boundaries
+#: (start, norm, QKV, rope, split-KV, merge, O-projection, fold; rows past
+#: the launch's blocks stay 0), for a readout of the time inside the launch.
+phase_stamps: Optional[torch.Tensor] = None
 
 
 def _pick_head_group(kv_heads: int, requested: int) -> int:
@@ -133,6 +140,21 @@ def _fused_decoder_layer_plain(
         v_cache[layer_id, :, seq] = v_new.to(v_cache.dtype)
         return result + (k_cache, v_cache)
     return result
+
+
+def launch_plan(hidden: int, kv_heads: int, group: int, head_dim: int,
+                kv_split: int = KernelConfig().kv_split) -> dict:
+    """The kernel's launch on the current card for this geometry: blocks
+    per cluster (one cluster per kv head), blocks, ring stages, shared
+    bytes per block, clusters of that size the card holds at once, and
+    (``held_by_size``) the clusters the card holds at each size 1..16."""
+    info = (ctypes.c_int * 21)()
+    _build.check(_build.lib().cf_decoder_layer_plan(
+        hidden, kv_heads, group, head_dim, kv_split, info),
+        "_fused_decoder_layer plan")
+    return dict(cluster=info[0], blocks=info[1], stages=info[2],
+                smem_bytes=info[3], clusters_held=info[4],
+                held_by_size=list(info[5:21]))
 
 
 def _refuse(wqkv_f, wo_f, k_cache, v_cache, *, window, bias_qkv,
@@ -230,11 +252,14 @@ def _fused_decoder_layer(
         raise NotImplementedError(
             f"_fused_decoder_layer: group {group} (at most {MAX_GROUP}) or "
             f"head_dim {hd} (a multiple of 32 up to 128)")
-    if not 1 <= kcfg.kv_split <= 1024 or kcfg.gemv_threads % 32:
+    if not 1 <= kcfg.kv_split <= 1024:
         raise ValueError(f"bad KernelConfig {kcfg}")
     if hidden % 8 or C % 8:
         raise ValueError(f"hidden {hidden} and qkv width {C} must be "
                          "multiples of 8")
+    if hidden > 8192:
+        raise NotImplementedError(f"_fused_decoder_layer: hidden {hidden} "
+                                  "(at most 8192)")
     res = residual if fuse_residual else None
     for name, t in (("x", x), ("residual", res)):
         if t is not None and (t.dtype != torch.bfloat16
@@ -267,9 +292,11 @@ def _fused_decoder_layer(
         out = torch.empty((1, hidden), dtype=bf16, device=dev)
         acc = ml = None
     lib = _build.lib()
-    scratch = torch.empty(lib.cf_decoder_layer_scratch_floats(
-        hidden, kv_heads, group, hd, seq, kcfg.kv_split), dtype=f32,
-        device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = stream_scratch(
+        ("decoder_layer", hidden, kv_heads),
+        lambda: lib.cf_decoder_layer_scratch_floats(hidden, kv_heads), dev,
+        stream)
     n_launch = ctypes.c_int(0)
 
     def ptr(t: Optional[torch.Tensor]):
@@ -281,9 +308,10 @@ def _fused_decoder_layer(
         ptr(res_out), ptr(k_new), ptr(v_new), ptr(acc), ptr(ml),
         ptr(scratch), hidden, kv_heads, hg, group, hd, cap, seq, fold,
         int(append_kv), 1 if rope_style == "neox" else 0, float(eps),
-        kcfg.kv_split, kcfg.gemv_threads, ctypes.byref(n_launch),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "_fused_decoder_layer")
+        kcfg.kv_split, ptr(phase_stamps), ctypes.byref(n_launch), stream)
+    if err:
+        scratch.zero_()                 # the ticket counters start at 0
+        _build.check(err, "_fused_decoder_layer")
     launches += 1
     last_call_kernels = n_launch.value
     if emit_partials:

@@ -2,10 +2,12 @@
 
 ``fused_ffn`` computes h = x (+ residual), then ffn(rmsnorm(h)): the
 gate/up product, bf16(silu(gate) * up) and the down product, accumulated in
-float32 and rounded to bf16 once.  CUDA tensors run the hand-written kernels
-of ``csrc/fused_ffn.cu``; CPU tensors run ``fused_ffn_plain``, which rounds
-where they round: h's norm to bf16, the activation to bf16, the output to
-bf16.  Stacked weights ([L, ...]) are read in place at ``layer_id``.
+float32 and rounded to bf16 once.  CUDA tensors run the hand-written kernel
+of ``csrc/fused_ffn.cu`` (one launch: a slice of the FFN columns per
+block, sums in a fixed order, so a call repeats its bits); CPU tensors run
+``fused_ffn_plain``, which rounds where it rounds: h's norm to bf16, the
+activation to bf16, the output to bf16.  Stacked weights ([L, ...]) are
+read in place at ``layer_id``.
 """
 
 from __future__ import annotations
@@ -17,10 +19,18 @@ import torch.nn.functional as F
 
 from clusterfusion_tpu_torch.config import KernelConfig
 from clusterfusion_tpu_torch.ops import _build
-from clusterfusion_tpu_torch.ops._support import glu_act, round_up
+from clusterfusion_tpu_torch.ops._support import (glu_act, round_up,
+                                                   stream_scratch)
 
-#: Calls of :func:`fused_ffn` that launched the kernels (4 each).
+#: Calls of :func:`fused_ffn` that launched the kernel.
 launches = 0
+#: CUDA kernels the last such call launched.
+last_call_kernels = 0
+#: None, or a zeroed int64 CUDA tensor [f_pad // 8 + 8, 8]: every call then
+#: writes each block's %globaltimer (ns) at the kernel's phase boundaries
+#: (start, norm, gate/up, act, down, cluster sum, fold, end; rows past the
+#: launch's blocks stay 0), for a readout of the time inside the launch.
+phase_stamps = None
 
 
 def ffn_block_size(ffn_dim: int, target: int = 1024) -> int:
@@ -52,6 +62,17 @@ def _layer(w13, w2, norm_w, layer_id: int):
     return w13, w2, norm_w.reshape(-1)
 
 
+def launch_plan(hidden: int, f_pad: int) -> dict:
+    """The kernel's launch on the current card for (hidden, f_pad): blocks
+    per cluster, blocks, ring stages, shared bytes per block, clusters of
+    that size the card holds at once, and f_pad columns per block."""
+    info = (ctypes.c_int * 6)()
+    _build.check(_build.lib().cf_fused_ffn_plan(hidden, f_pad, info),
+                 "fused_ffn plan")
+    return dict(cluster=info[0], blocks=info[1], stages=info[2],
+                smem_bytes=info[3], clusters_held=info[4], columns=info[5])
+
+
 def fused_ffn_plain(x, residual, norm_w, w13, w2, *, eps: float,
                     fuse_residual: bool = True, layer_id: int = 0):
     """Plain PyTorch version of :func:`fused_ffn` (same arguments and
@@ -77,8 +98,9 @@ def fused_ffn(x, residual, norm_w, w13, w2, *, eps: float,
     x/residual: [1, hidden] bf16; w13 [2, hidden, f_pad] (gate, up) and w2
     [f_pad, hidden] with norm_w [hidden] or [1, hidden]; or the stacks
     w13 [L, 2, hidden, f_pad], w2 [L, f_pad, hidden], norm_w [L, hidden] or
-    [L, 1, hidden] with ``layer_id`` picking the layer (no copy)."""
-    global launches
+    [L, 1, hidden] with ``layer_id`` picking the layer (no copy).  The
+    kernel reads no field of ``kcfg`` (taken for the callers' sake)."""
+    global launches, last_call_kernels
     if ffn_act != "silu":
         raise NotImplementedError("fused_ffn: only the SiLU gate (SwiGLU) is "
                                   f"ported, not {ffn_act!r}")
@@ -106,6 +128,9 @@ def fused_ffn(x, residual, norm_w, w13, w2, *, eps: float,
     if hidden % 8 or f_pad % 8:
         raise ValueError(f"hidden {hidden} and f_pad {f_pad} must be "
                          "multiples of 8")
+    if hidden > 8192:
+        raise NotImplementedError(f"fused_ffn: hidden {hidden} (at most "
+                                  "8192: a w2 row must fit one ring stage)")
     res = residual if fuse_residual else None
     dev = x.device
     for name, t in (("x", x), ("residual", res), ("norm_w", norm_w),
@@ -118,20 +143,23 @@ def fused_ffn(x, residual, norm_w, w13, w2, *, eps: float,
     if res is not None and (res.dtype != torch.bfloat16
                             or res.numel() != hidden):
         raise ValueError("residual must be bf16 [1, hidden]")
-    xn_f = round_up(hidden // 2, 4)
-    gu_f = round_up(2 * f_pad, 4)
-    scratch = torch.empty(xn_f + gu_f + hidden, dtype=torch.float32,
-                          device=dev)
-    base = scratch.data_ptr()
+    lib = _build.lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = stream_scratch(
+        ("fused_ffn", hidden, f_pad),
+        lambda: lib.cf_fused_ffn_scratch_floats(hidden, f_pad), dev, stream)
     out = torch.empty((1, hidden), dtype=torch.bfloat16, device=dev)
     res_out = torch.empty((1, hidden), dtype=torch.bfloat16, device=dev)
     n_launch = ctypes.c_int(0)
-    err = _build.lib().cf_fused_ffn(
+    err = lib.cf_fused_ffn(
         x.data_ptr(), None if res is None else res.data_ptr(),
         norm_w.data_ptr(), w13.data_ptr(), w2.data_ptr(), out.data_ptr(),
-        res_out.data_ptr(), base, base + 4 * xn_f, base + 4 * (xn_f + gu_f),
-        hidden, f_pad, layer_id, float(eps), kcfg.gemv_threads,
-        ctypes.byref(n_launch), torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "fused_ffn")
+        res_out.data_ptr(), scratch.data_ptr(), hidden, f_pad, layer_id,
+        float(eps), None if phase_stamps is None else phase_stamps.data_ptr(),
+        ctypes.byref(n_launch), stream)
+    if err:
+        scratch.zero_()                 # the ticket counters start at 0
+        _build.check(err, "fused_ffn")
     launches += 1
+    last_call_kernels = n_launch.value
     return out, res_out

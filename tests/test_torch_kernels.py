@@ -5,9 +5,9 @@ Every test here needs a CUDA card and skips without one.  On the card:
     python -m pytest tests/test_torch_kernels.py -q
 
 Tolerances: the kernels and their twins share inputs and arithmetic but
-sum in another order (and the decode GEMVs split their sums across blocks,
-with atomics in kernels 5 and 6 only), and round to bf16 at the same
-places; outputs are held at atol 2e-2 / rtol 2e-2, logits at 2e-2 of the
+sum in another order (the decode GEMVs split their sums across blocks, in
+a fixed order, so every kernel repeats its bits), and round to bf16 at the
+same places; outputs are held at atol 2e-2 / rtol 2e-2, logits at 2e-2 of the
 largest logit, appended K/V rows at atol 0.05 (the JAX suite's bf16
 tolerance).
 """
@@ -760,8 +760,11 @@ def test_mla_public_op_matches_oracle(dev):
 
 @pytest.mark.parametrize("stacked,fuse_residual,f_pad", [
     (True, True, 1024), (True, False, 1024), (False, True, 1408),
-    (True, True, 11264)])
+    (True, True, 11264), (True, True, 1408), (True, False, 1400)])
 def test_fused_ffn_kernel_matches_plain(dev, stacked, fuse_residual, f_pad):
+    """Kernel 5 against its plain twin, one launch a call, the same bits on
+    a repeat.  f_pad 1400 leaves the last column slice short (the slice
+    width is a multiple of 8 near f_pad / SMs)."""
     from clusterfusion_tpu_torch.ops import ffn
     L, hidden = 2, 2048 if f_pad == 11264 else HIDDEN
     x = _randn((1, hidden), dev, 90)
@@ -777,12 +780,17 @@ def test_fused_ffn_kernel_matches_plain(dev, stacked, fuse_residual, f_pad):
                            fuse_residual=fuse_residual, layer_id=layer)
     torch.cuda.synchronize()
     assert ffn.launches == before + 1
+    assert ffn.last_call_kernels == 1
     want, want_h = ffn.fused_ffn_plain(x, res, nw, w13, w2, eps=1e-6,
                                        fuse_residual=fuse_residual,
                                        layer_id=layer)
     torch.testing.assert_close(out.float(), want.float(), atol=2e-2,
                                rtol=2e-2)
     assert torch.equal(h, want_h)
+    for _ in range(3):
+        again, h2 = ffn.fused_ffn(x, res, nw, w13, w2, eps=1e-6,
+                                  fuse_residual=fuse_residual, layer_id=layer)
+        assert _same_bits(again, out) and _same_bits(h2, h)
 
 
 @pytest.mark.parametrize("experts", [0, 4])
@@ -919,9 +927,9 @@ LAYER_MODES = {
                          ids=["mha", "gqa"])
 def test_decoder_layer_kernel_matches_plain(dev, n_heads, kv_heads, hg, mode):
     """Kernel 6 against its plain twin in each mode, stacked weights at
-    layer 1.  Rows at and above seq hold large garbage (NaN in the nan_
-    modes): the kernel reads none of them and, with append_kv, overwrites
-    row seq only."""
+    layer 1, one launch a call and the same bits on a repeat.  Rows at and
+    above seq hold large garbage (NaN in the nan_ modes): the kernel reads
+    none of them and, with append_kv, overwrites row seq only."""
     from clusterfusion_tpu_torch.ops import decoder_layer as dl
     seq, style, fuse, append, partials, fold = LAYER_MODES[mode]
     g, a, kc, vc, _ = _stack_args(dev, n_heads, kv_heads, hg, seq)
@@ -942,7 +950,11 @@ def test_decoder_layer_kernel_matches_plain(dev, n_heads, kv_heads, hg, mode):
     out = dl._fused_decoder_layer(*args, kc, vc, seq, 1, **kw)
     torch.cuda.synchronize()
     assert dl.launches == before + 1
-    assert dl.last_call_kernels == 3 + (seq > 0) + 2 * (not partials)
+    assert dl.last_call_kernels == 1
+    again = dl._fused_decoder_layer(*args, kc.clone(), vc.clone(), seq, 1,
+                                    **kw)
+    for a, b in zip(out, again):
+        assert (a is None and b is None) or _bits_equal(a, b)
     ref = dl._fused_decoder_layer_plain(*args, kp, vp, seq, 1, **kw)
     tol = dict(atol=2e-2, rtol=2e-2)
     if partials:
@@ -970,6 +982,111 @@ def test_decoder_layer_kernel_matches_plain(dev, n_heads, kv_heads, hg, mode):
         others[seq] = False
     assert _same_bits(kc[:, :, others], kp[:, :, others])
     assert _same_bits(vc[:, :, others], vp[:, :, others])
+
+
+def _bits_equal(a, b):
+    """Bit equality of two tensors of any type (NaN compares equal)."""
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def _layer_case(dev, hidden, n_heads, kv_heads, hg, hd, cap, seq, seed):
+    """One layer's weights, a cache with large garbage at and above seq,
+    and the token's inputs, for kernel 6 at any width."""
+    g, G = n_heads // kv_heads, kv_heads // hg
+    wqkv = _randn((G, hidden, hg * (g + 2) * hd), dev, seed, hidden ** -0.5)
+    wo = _randn((G, hg * g * hd, hidden), dev, seed + 1, (g * hd) ** -0.5)
+    kc = _randn((1, kv_heads, cap, hd), dev, seed + 2)
+    vc = _randn((1, kv_heads, cap, hd), dev, seed + 3)
+    kc[:, :, seq:] *= 8
+    vc[:, :, seq:] *= 8
+    x, res = _randn((1, hidden), dev, seed + 4), _randn((1, hidden), dev,
+                                                        seed + 5)
+    norm = 1 + _randn((hidden,), dev, seed + 6, 0.1)
+    cfg = LlamaConfig.tiny(hidden_dim=hidden, n_heads=n_heads,
+                           n_kv_heads=kv_heads, head_dim=hd,
+                           rope_style="neox")
+    cos, sin = model.rope_row(cfg, seq, dev)
+    return g, (x, res, norm, cos, sin, wqkv, wo), kc, vc
+
+
+@pytest.mark.parametrize("hidden,n_heads,kv_heads,hg,hd,cap,seq", [
+    # Llama-2-7B's width: one cluster per kv head, 32 of them
+    (4096, 32, 32, 4, 128, 1024, 0), (4096, 32, 32, 4, 128, 1024, 1),
+    (4096, 32, 32, 4, 128, 1024, 600), (4096, 32, 32, 4, 128, 1024, 1023),
+    # GQA at hd 64 (TinyLlama's heads: 32 query heads on 4 kv heads)
+    (2048, 32, 4, 2, 64, 512, 0), (2048, 32, 4, 2, 64, 512, 37),
+    (2048, 32, 4, 2, 64, 512, 511)],
+    ids=["7b-0", "7b-1", "7b-600", "7b-cap-1", "gqa64-0", "gqa64-37",
+         "gqa64-cap-1"])
+def test_decoder_layer_kernel_widths(dev, hidden, n_heads, kv_heads, hg, hd,
+                                     cap, seq):
+    """Kernel 6 at full width, full mode with the append and partials mode
+    folding the current token, against its plain twin (the modes test's
+    tolerances), one launch a call and the same bits on a repeat."""
+    from clusterfusion_tpu_torch.ops import decoder_layer as dl
+    g, args, kc, vc = _layer_case(dev, hidden, n_heads, kv_heads, hg, hd,
+                                  cap, seq, seed=100)
+    kw = dict(group=g, head_dim=hd, rope_style="neox", fuse_residual=True,
+              eps=1e-5)
+    kk, vk, kp, vp = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    out = dl._fused_decoder_layer(*args, kk, vk, seq, 0, append_kv=True,
+                                  **kw)
+    assert dl.last_call_kernels == 1
+    again = dl._fused_decoder_layer(*args, kk, vk, seq, 0, append_kv=True,
+                                    **kw)
+    ref = dl._fused_decoder_layer_plain(*args, kp, vp, seq, 0,
+                                        append_kv=True, **kw)
+    torch.cuda.synchronize()
+    for i in range(4):
+        assert _bits_equal(out[i], again[i])
+    for i in (0, 1):
+        torch.testing.assert_close(out[i].float(), ref[i].float(), atol=2e-2,
+                                   rtol=2e-2)
+    for i in (2, 3):
+        torch.testing.assert_close(out[i].float(), ref[i].float(), atol=0.05,
+                                   rtol=0)
+    torch.testing.assert_close(kk.float(), kp.float(), atol=0.05, rtol=0)
+    others = torch.ones(cap, dtype=torch.bool, device=dev)
+    others[seq] = False
+    assert _same_bits(kk[:, :, others], kc[:, :, others])
+    assert _same_bits(vk[:, :, others], vc[:, :, others])
+    pkw = dict(kw, emit_partials=True, fold_current=1)
+    part = dl._fused_decoder_layer(*args, kc, vc, seq, 0, **pkw)
+    part2 = dl._fused_decoder_layer(*args, kc, vc, seq, 0, **pkw)
+    pref = dl._fused_decoder_layer_plain(*args, kc.clone(), vc.clone(), seq,
+                                         0, **pkw)
+    torch.cuda.synchronize()
+    assert _bits_equal(part[0], part2[0]) and _bits_equal(part[1], part2[1])
+    torch.testing.assert_close(part[1], pref[1], atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(part[0], pref[0], atol=5e-2, rtol=2e-2)
+
+
+def test_decoder_layer_on_two_streams(dev):
+    """Kernel 6 on two streams at once (each stream has its own fold
+    counters and rows) gives the bits of the same calls made one after
+    the other."""
+    from clusterfusion_tpu_torch.ops import decoder_layer as dl
+    g, args, kc, vc = _layer_case(dev, 2048, 16, 16, 4, 128, 512, 300, 110)
+    kw = dict(group=g, head_dim=128, rope_style="neox", fuse_residual=True,
+              eps=1e-5)
+    xs = [_randn((1, 2048), dev, 120 + i) for i in range(2)]
+
+    def call(x):
+        return dl._fused_decoder_layer(x, *args[1:], kc, vc, 300, 0, **kw)
+    serial = [call(x)[0] for x in xs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(8):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs[i].append(call(xs[i])[0])
+    torch.cuda.synchronize()
+    for i in range(2):
+        for o in outs[i]:
+            assert _same_bits(o, serial[i])
 
 
 @pytest.mark.parametrize("op", ["sglang", "meta"])
