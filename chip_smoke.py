@@ -63,7 +63,10 @@ run with a non-zero exit code:
    <= 0.1, one verify launch per round) and with an unrelated small draft
    (4 layers, hidden 1024, seed 1), each stream against
    ``stream_generate`` and the plain path under the top-2-gap rule, rounds,
-   accepted drafts and tokens/s beside ``stream_generate``'s;
+   accepted drafts and tokens/s beside ``stream_generate``'s; after it
+   (a profiler session slows the launches that follow it), kernel 8's
+   device time by pass at n 5 and 9 (its GEMVs' TB/s, the split pass's)
+   and the phase stamps of its four products in layer 1, inside a call;
 10. DeepSeek kernels at DeepSeek-V2-Lite geometry (the Llama engine freed
    first): kernel 12, ``deepseek_decoder_stack_layer``, at capacity 4096
    and pos 600, 0 and 4095 over random rows with large garbage at and
@@ -162,6 +165,11 @@ import time
 
 import torch
 
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "scripts"))
+import profiling  # noqa: E402
+from profiling import device_ms, timeline_by_pass  # noqa: E402
+
 LIMITS_TOL = dict(atol=2e-2, rtol=2e-2)   # bf16 output rounding + sum order
 # paged_attention's twin rounds where the kernel rounds, so each head's
 # output row must agree to about two bf16 ulps of its own largest value
@@ -193,55 +201,6 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
-
-
-MARKER = "spin_kernel"     # torch.cuda._sleep's kernel
-
-
-def _profiled_calls(fn, reps: int) -> None:
-    """``reps`` calls of ``fn`` inside a profiler session, between two
-    marker kernels (left out of every sum): a profile loses its first or
-    last device event now and then, and so loses a marker's, not a call's."""
-    torch.cuda._sleep(1000)
-    for _ in range(reps):
-        fn()
-    torch.cuda._sleep(1000)
-    torch.cuda.synchronize()
-
-
-def device_ms(fn, reps: int = 20, attempts: int = 3) -> float:
-    """Mean device time in ms of all kernels one call of ``fn`` launches,
-    from ``torch.profiler`` (the host's time between launches excluded).
-    A profile now and then comes back without its device events, or
-    without some of them; such a profile is taken again, up to
-    ``attempts`` times in all."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for attempt in range(1, attempts + 1):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            _profiled_calls(fn, reps)
-        total, count = 0.0, 0
-        for e in prof.key_averages():
-            t = getattr(e, "device_time_total", None)
-            if t is None:
-                t = e.cuda_time_total
-            if t and e.device_type == torch.autograd.DeviceType.CUDA \
-                    and MARKER not in e.key:
-                total += t
-                count += e.count
-        # a profile that lost some of its kernels' events (not a whole
-        # number of kernels per call) would under-report: take it again,
-        # and keep the last one with a note
-        if total > 0 and (count % reps == 0 or attempt == attempts):
-            if count % reps:
-                say("profiler", events_not_whole_per_call=count, reps=reps)
-            if attempt > 1:
-                say("profiler", device_events_on_attempt=attempt)
-            return total / 1e3 / reps
-    raise AssertionError(f"the profiler saw no device time in {attempts} "
-                         "profiles")
 
 
 def say(phase: str, **kv) -> None:
@@ -486,52 +445,6 @@ def phase_stack(eng, dev, hbm, peak, pos=600):
 
 STACK_PASSES = (("split", "attn_split_kernel"), ("gemv", "ring_gemv_kernel"),
                 ("norms", "resnorm_kernel"), ("merge", "attn_merge_kernel"))
-
-
-def timeline_by_pass(fn, passes, reps: int = 8):
-    """``torch.profiler`` over ``reps`` calls of ``fn``, per call: the
-    device's busy time, the span from the first kernel's start to the last
-    one's end, the sum of the kernels' own durations, and the busy time by
-    pass.  Kernels launched with programmatic dependent launch start while
-    the one before them runs and wait inside, so their own durations
-    overlap; each kernel is charged here only from the end of the kernels
-    before it to its own end (the time the step advanced while it was the
-    last to finish), so the passes add up to the busy time."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for attempt in range(1, 4):     # a profile now and then lacks device events
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            _profiled_calls(fn, reps)
-        kern = sorted((e.time_range.start, e.time_range.end, e.name)
-                      for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA
-                      and MARKER not in e.name)
-        whole = kern and len(kern) % reps == 0  # none of the calls' kernels lost
-        if whole or (kern and attempt == 3):
-            if attempt > 1:
-                say("profiler", device_events_on_attempt=attempt,
-                    whole_per_call=bool(whole))
-            break
-    else:
-        raise AssertionError("the profiler saw no device time in 3 profiles")
-    out = {k: 0.0 for k, _ in passes}
-    out["other"] = 0.0
-    counts = {k: 0 for k in out}
-    end, own = kern[0][0], 0.0
-    for start, stop, name in kern:
-        own += stop - start
-        k = next((k for k, key in passes if key in name), "other")
-        counts[k] += 1
-        if stop > end:
-            out[k] += stop - max(start, end)
-            end = stop
-    span = kern[-1][1] - kern[0][0]
-    per = 1e3 * reps            # µs over reps -> ms per call
-    return (sum(out.values()) / per, span / per, own / per,
-            {k: v / per for k, v in out.items()},
-            {k: v / reps for k, v in counts.items()})
 
 
 def phase_stack_device(case):
@@ -845,7 +758,7 @@ def phase_paged_attention(dev, hbm, peak):
     return rows["7b"]
 
 
-LAYER9_PASSES = (("gemv", "ring_gemv_kernel"), ("norm", "resnorm_kernel"),
+LAYER9_PASSES = (("gemv", "gemv_kernel"), ("norm", "resnorm_kernel"),
                  ("split", "paged_split_kernel"),
                  ("merge", "paged_merge_kernel"))
 
@@ -1120,7 +1033,7 @@ def phase_serving(eng, dev):
 def phase_verify(eng, dev, hbm, peak, stack_ms, pos=600):
     """Kernel 8 against its plain twin at n 5 (the default n_draft 4) and
     n 9 (n_draft 8), pos 600 of a 1024-row cache.  Returns n 5's row of the
-    kernel table."""
+    kernel table and the cells ``phase_verify_device`` reads."""
     from clusterfusion_tpu_torch.models import llama as model
     from clusterfusion_tpu_torch.ops import stack_verify as sv
     cfg, p = eng.cfg, eng.params
@@ -1143,7 +1056,7 @@ def phase_verify(eng, dev, hbm, peak, stack_ms, pos=600):
                   lw["ffn_norm"], p["final_norm"], p["lm_head"]))
     weights = sum(t.numel() for t in (lw["wqkv_f"], lw["wo_f"], lw["w13"],
                                       lw["w2"], p["lm_head"]))
-    rows = {}
+    rows, cases = {}, {}
     for n in (5, 9):
         x = p["embed"][torch.arange(n, device=dev) * 37 + 11]
         cos, sin = model.rope_rows(cfg, pos, n, dev)
@@ -1211,8 +1124,77 @@ def phase_verify(eng, dev, hbm, peak, stack_ms, pos=600):
             weight_bytes=wbytes, kv_bytes_read=kv_read)
         rows[n] = dict(max_abs_err=lg_err, ms=ms, plain_ms=plain_ms,
                        bound_ms=bound, bound_by=bound_by, library_ms=None)
-        del kk, vk
-    return rows[5]
+        cases[n] = dict(args=args, kc=kk, vc=vk, kv_read=kv_read)
+    cases.update(kw=kw, pos=pos, hbm=hbm, gemv_bytes=2 * weights)
+    return rows[5], cases
+
+
+VERIFY_PASSES = (("gemv", "gemv_kernel"), ("split", "attn_split_kernel"),
+                 ("norms", "resnorm_kernel"), ("merge", "verify_merge_kernel"))
+RG_PHASES = ("wait_prior", "first_stage", "stream_half", "stream_rest",
+             "partials", "sum", "end")
+
+
+def stamp_phases(st):
+    """Mean µs of each rows-GEMV phase over the blocks that stamped
+    (``RG_PHASES``, from their %globaltimer stamps), the launch's span and
+    how far its last block ends after the mean."""
+    s = st[st[:, 0] != 0].double()
+    out = dict(blocks=s.shape[0])
+    for k, name in enumerate(RG_PHASES):
+        out[f"{name}_us"] = f"{(s[:, k + 1] - s[:, k]).mean().item() / 1e3:.2f}"
+    out["span_us"] = f"{(s[:, 7].max() - s[:, 0].min()).item() / 1e3:.2f}"
+    out["last_block_after_mean_us"] = \
+        f"{(s[:, 7].max() - s[:, 7].mean()).item() / 1e3:.2f}"
+    return out
+
+
+VERIFY_PRODUCTS = ("qkv", "o", "gate_up", "down")
+
+
+def verify_product_phases(call, at):
+    """The phases of kernel 8's rows-GEMV launch number ``at`` inside one
+    call (``cf_verify_probe_gemv``)."""
+    from clusterfusion_tpu_torch.ops import _build
+    st = torch.zeros((16 * 256 * 2, 8), dtype=torch.int64, device="cuda")
+    lib = _build.lib()
+    lib.cf_verify_probe_gemv(st.data_ptr(), at)
+    try:
+        call()
+        torch.cuda.synchronize()
+    finally:
+        lib.cf_verify_probe_gemv(None, -1)
+    return stamp_phases(st)
+
+
+def phase_verify_device(cases):
+    """Kernel 8's device time by pass at phase 9's cells (``torch.profiler``;
+    each kernel charged from the end of those before it), its GEMVs' and
+    split pass's rates, and the phase stamps of layer 1's four products
+    inside a call; run after ``spec_generate``, whose wall clocks a
+    profiler session slows."""
+    from clusterfusion_tpu_torch.ops import stack_verify as sv
+    kw, pos, hbm = cases["kw"], cases["pos"], cases["hbm"]
+    for n in (5, 9):
+        c = cases[n]
+        busy, span, own, out, cnt = timeline_by_pass(
+            lambda: sv.fused_verify_stack(*c["args"], c["kc"], c["vc"], pos,
+                                          **kw), VERIFY_PASSES)
+        say("verify_device", kernel=8, n=n, pos=pos, busy_ms=f"{busy:.4f}",
+            span_ms=f"{span:.4f}", kernels_own_sum_ms=f"{own:.4f}",
+            **{f"{k}_ms": f"{v:.4f}" for k, v in out.items()},
+            **{f"{k}_launches": f"{v:g}" for k, v in cnt.items()},
+            gemv_TBps=f"{cases['gemv_bytes'] / (out['gemv'] * 1e-3) / 1e12:.3f}",
+            split_TBps=f"{c['kv_read'] / (out['split'] * 1e-3) / 1e12:.3f}",
+            split_bound_ms=f"{c['kv_read'] / hbm * 1e3:.4f}",
+            note="each kernel charged from the end of those before it to "
+                 "its own end")
+        call = lambda: sv.fused_verify_stack(  # noqa: E731
+            *c["args"], c["kc"], c["vc"], pos, **kw)
+        for j, name in enumerate(VERIFY_PRODUCTS):
+            say("verify_gemv_phases", n=n, product=f"{name} (layer 1, in the "
+                "call)", **verify_product_phases(call, 4 + j))
+        del c["kc"], c["vc"]
 
 
 SPEC_NEW = 32
@@ -1299,30 +1281,10 @@ def profile_by_kernel(fn, reps: int = 8, top: int = 12):
     """``torch.profiler`` over ``reps`` calls of ``fn``: (device ms per call,
     profiled wall ms per call, [(kernel, ms per call, launches per call)]
     of the ``top`` kernels by device time)."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(1000)         # markers: see _profiled_calls
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / reps
-        torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        t = getattr(e, "device_time_total", None)
-        if t is None:
-            t = e.cuda_time_total
-        if t and e.device_type == torch.autograd.DeviceType.CUDA \
-                and MARKER not in e.key:
-            rows.append((e.key[:60], t / 1e3 / reps, e.count / reps))
-    rows.sort(key=lambda r: -r[1])
-    return sum(r[1] for r in rows), wall, rows[:top]
+    ev, wall = profiling.profile_calls(fn, reps)
+    total = sum(b - a for a, b, _ in ev) / 1e3 / reps
+    return total, wall, [(name[:60], ms, n)
+                         for name, ms, n in profiling.by_kernel(ev, reps, top)]
 
 
 def _bytes(*ts) -> int:
@@ -2677,8 +2639,10 @@ def main() -> int:
     paged = phase_paged_attention(dev, hbm, peak)
     layer = phase_paged_layer(eng, dev, hbm, peak)
     pa_launches, layer_launches = phase_serving(eng, dev)
-    verify = phase_verify(eng, dev, hbm, peak, stack["ms"])
+    verify, verify_cases = phase_verify(eng, dev, hbm, peak, stack["ms"])
     verify_launches = phase_spec(eng, dev)
+    phase_verify_device(verify_cases)
+    del verify_cases
     norm_rows, norm_launches = phase_norms_gemv(eng, dev, hbm, peak)
     layer_row = phase_layer(eng, dev, hbm, peak)
     layer_launches_tp_sp, fadd_launches = phase_sharded(eng, dev)

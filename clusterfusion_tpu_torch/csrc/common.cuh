@@ -177,42 +177,31 @@ resnorm_kernel(const float* a, const __nv_bfloat16* a_bf16, const float* b,
   for (int i = threadIdx.x; i < n2; i += blockDim.x) z2[(size_t)blockIdx.x * n2 + i] = 0.f;
 }
 
-// ---- The ring GEMV: rows of x against a bf16 [K, N] matrix, fixed order ----
+// ---- The ring GEMV: one row of x against a bf16 [K, N] matrix, fixed order ----
 //
-// y[r*y_row + mat*yz + n] = sum_k x[r, k] * W[k, n] for the rows r0.. of
-// blockIdx.z's row chunk and the matrix mat = blockIdx.z / nrc, W = w +
-// mat*ws a bf16 [K, N] matrix (row-major, N a multiple of 8).  x row r
-// starts at xv + r*x_row: bf16, or (SWIGLU) the float32 gate/up row,
-// x[r, k] = bf16(silu(gate[k]) * up[k]) with up at f_off past gate, or
-// (one row, nw given) the RMSNorm of the bf16 row, x[k] = bf16(x[k] *
-// rsqrt(mean(x^2) + eps) * nw[k]), each block summing the whole row's
-// squares itself.  y is float32, or bf16(y) goes to yb instead when yb is
-// given.  The bs=1
-// stack and the standalone gemv run it at one row, the verify stack and
-// the paged layer at up to 16 rows a block, the MLA layer at one.  Bound by bytes, so the design keeps as many
+// y[mat*yz + n] = sum_k x[k] * W[k, n] for the matrix mat = blockIdx.z, W =
+// w + mat*ws a bf16 [K, N] matrix (row-major, N a multiple of 8).  x is
+// bf16, or (SWIGLU) the float32 gate/up row, x[k] = bf16(silu(gate[k]) *
+// up[k]) with up at f_off past gate, or (nw given) the RMSNorm of the bf16
+// row, x[k] = bf16(x[k] * rsqrt(mean(x^2) + eps) * nw[k]), each block
+// summing the whole row's squares itself.  y is float32, or bf16(y) goes to
+// yb instead when yb is given.  The bs=1 stack, the standalone gemv and
+// the MLA layer run it.  Bound by bytes, so the design keeps as many
 // weight bytes in flight as the SMs' shared memory holds:
 // - Weights through shared memory.  A block owns one 256-column tile
 //   (blockIdx.y) and one K chunk (blockIdx.x).  Its producer warp streams
 //   the chunk's rows of the tile, 32 rows (16 KB) per stage, through a ring
-//   of G1_STAGES stages (MMA: G1_MMA_STAGES; both measured best on the
-//   H100, scripts/tune_torch_gemv.py) behind `full`/`empty` mbarriers, one
-//   1-D bulk copy (cp.async.bulk) per 512-byte row segment, one row per
-//   lane (MMA: rows sit 528 bytes apart, so the eight rows an ldmatrix
-//   reads fall in distinct banks).  x is staged once per block in shared
-//   memory: one row as float32 [k], MMA as bf16 [rows][k] (its values are
-//   bf16 already, so nothing rounds).
-// - One row (MMA false): the consumer warps (`threads` of them, 32 each)
-//   take the rows of a stage in turn, each lane 8 adjacent columns of a
-//   weight row (one 16-byte shared load), in float32 FMAs; the block sums
-//   its warps in order.
-// - Up to 16 rows (MMA): eight consumer warps each own 32 columns of the
-//   tile and run mma.sync m16n8k16 (bf16 in, float32 sums) over the
-//   stage's k rows: x rows as A (rows past M are 0), weight rows as B
-//   through ldmatrix.trans.  The weights are read once for all the rows,
-//   and the products cost the SMs next to nothing.
+//   of G1_STAGES stages (measured best on the H100,
+//   scripts/tune_torch_gemv.py) behind `full`/`empty` mbarriers, one 1-D
+//   bulk copy (cp.async.bulk) per 512-byte row segment, one row per lane.
+//   x is staged once per block in shared memory as float32 [k].
+// - The consumer warps (`threads` of them, 32 each) take the rows of a
+//   stage in turn, each lane 8 adjacent columns of a weight row (one
+//   16-byte shared load), in float32 FMAs; the block sums its warps in
+//   order.
 // - The K chunks of a tile meet inside a thread-block cluster.  The ks
 //   blocks of a tile form one cluster (cluster rank = blockIdx.x).  Each
-//   block leaves its [rows][256] f32 sums in its own shared memory; after a
+//   block leaves its [256] f32 sums in its own shared memory; after a
 //   cluster barrier rank r adds its share of those sums over ranks
 //   0..ks-1, in that order, through distributed shared memory and writes
 //   y; a second cluster barrier keeps every block's shared memory alive
@@ -223,49 +212,26 @@ resnorm_kernel(const float* a, const __nv_bfloat16* a_bf16, const float* b,
 //   then every thread waits for the grids before it (griddepcontrol.wait):
 //   weights depend on nothing earlier in the step, x does.  The kernel
 //   lets the next one start at once (launch_dependents).
+// (M, nrc and xrows are always 1 here; the row arithmetic stays general.)
 constexpr int G1_COLS = 256;                       // columns per tile
 constexpr int G1_ROW_BYTES = G1_COLS * 2;          // 512 B per weight row
 constexpr int G1_ROWS = 32;                        // weight rows per stage
-constexpr int G1_STAGES = 4;                       // ring stages (MMA: G1_MMA_STAGES)
-constexpr int G1_MMA_STAGES = 3;
-constexpr int G1_MMA_PAD = 16;                     // bytes after each MMA ring row
-// ring stages, a weight row's pitch in the ring and a stage's bytes
-__host__ __device__ constexpr int g1_stages(bool mma) { return mma ? G1_MMA_STAGES : G1_STAGES; }
-__host__ __device__ constexpr int g1_row_stride(bool mma) {
-  return mma ? G1_ROW_BYTES + G1_MMA_PAD : G1_ROW_BYTES;
-}
-__host__ __device__ constexpr int g1_stage_bytes(bool mma) { return G1_ROWS * g1_row_stride(mma); }
+constexpr int G1_STAGES = 4;                       // ring stages
+constexpr int G1_STAGE_BYTES = G1_ROWS * G1_ROW_BYTES;
 constexpr int G1_HEAD = 256;                       // barriers, the norm's warp sums
 constexpr int G1_SMEM_MAX = 227 * 1024;
 constexpr int G1_MAX_THREADS = 1024 - 32;          // consumers beside the producer
 constexpr int G1_MAX_CLUSTER = 16;                 // non-portable; 8 is portable
-constexpr int G1_MMA_ROWS = 16;                    // x rows per block (the mma M)
-constexpr int G1_MMA_WARPS = G1_COLS / 32;         // consumer warps, 32 columns each
-static_assert(2 * G1_STAGES * sizeof(uint64_t) + 4 * (G1_MAX_THREADS / 32) <= G1_HEAD &&
-                  2 * G1_MMA_STAGES * sizeof(uint64_t) <= G1_HEAD,
+static_assert(2 * G1_STAGES * sizeof(uint64_t) + 4 * (G1_MAX_THREADS / 32) <= G1_HEAD,
               "barriers overflow the head");
-static_assert(G1_STAGES * g1_stage_bytes(false) >= 4 * G1_COLS * (G1_MAX_THREADS / 32 + 1) &&
-                  G1_MMA_STAGES * g1_stage_bytes(true) >= 4 * G1_COLS * G1_MMA_ROWS,
+static_assert(G1_STAGES * G1_STAGE_BYTES >= 4 * G1_COLS * (G1_MAX_THREADS / 32 + 1),
               "the ring must hold the blocks' sums after the last stage");
 
-// x's row pitch in shared memory (bf16): at 8+ rows a multiple of 16 plus
-// 8, so that the eight rows of an mma A fragment fall in distinct banks.
-__host__ __device__ inline int ring_gemv_xstride(bool mma, int k_chunk) {
-  return mma ? (k_chunk + 15) / 16 * 16 + 8 : k_chunk;
+inline size_t ring_gemv_smem(int k_chunk) {
+  return (size_t)G1_HEAD + (size_t)G1_STAGES * G1_STAGE_BYTES + 4 * (size_t)k_chunk;
 }
 
-inline size_t ring_gemv_smem(bool mma, int xrows, int k_chunk) {
-  return (size_t)G1_HEAD + (size_t)g1_stages(mma) * g1_stage_bytes(mma) +
-         (mma ? 2 * (size_t)xrows * ring_gemv_xstride(mma, k_chunk) : 4 * (size_t)k_chunk);
-}
-
-// The bf16 halves of r whose k (lo: k, hi: k + 1) is below `rem`; the rest
-// 0.  Rows of a stage past the chunk's end hold stale bytes.
-__device__ __forceinline__ uint32_t keep_k(uint32_t r, int k, int rem) {
-  return (k < rem ? r & 0xffffu : 0u) | (k + 1 < rem ? r & 0xffff0000u : 0u);
-}
-
-template <bool MMA, bool SWIGLU>
+template <bool SWIGLU>
 __global__ void ring_gemv_kernel(const void* __restrict__ xv, long long x_row, int f_off,
                                  const __nv_bfloat16* __restrict__ w,
                                  float* __restrict__ y, __nv_bfloat16* __restrict__ yb,
@@ -273,14 +239,13 @@ __global__ void ring_gemv_kernel(const void* __restrict__ xv, long long x_row, i
                                  long long ws, long long y_row, long long yz,
                                  const __nv_bfloat16* __restrict__ nw, float eps) {
   namespace cg = cooperative_groups;
-  constexpr int RB = MMA ? G1_MMA_ROWS : 1;                 // rows per block
-  constexpr int NS = g1_stages(MMA), RS = g1_row_stride(MMA), SB = g1_stage_bytes(MMA);
+  constexpr int RB = 1;                                     // rows per block
+  constexpr int NS = G1_STAGES, RS = G1_ROW_BYTES, SB = G1_STAGE_BYTES;
   extern __shared__ __align__(128) unsigned char g1_sm[];
   uint64_t* full = reinterpret_cast<uint64_t*>(g1_sm);     // [NS]
   uint64_t* empty = full + NS;                              // [NS]
   unsigned char* ring = g1_sm + G1_HEAD;                    // [NS][G1_ROWS][RS bytes]
-  float* xs1 = reinterpret_cast<float*>(ring + NS * SB);                  // one row: [k_chunk]
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(ring + NS * SB);  // MMA: [xrows][xst]
+  float* xs1 = reinterpret_cast<float*>(ring + NS * SB);   // [k_chunk]
   const int tid = threadIdx.x, lane = tid % 32, wid = tid / 32;
   const int ncw = blockDim.x / 32 - 1;                      // consumer warps
   const int rank = blockIdx.x, ks = gridDim.x;
@@ -291,7 +256,6 @@ __global__ void ring_gemv_kernel(const void* __restrict__ xv, long long x_row, i
   const uint32_t seg = (uint32_t)cols * 2;
   const int k0 = rank * k_chunk, kn = min(k_chunk, K - k0);
   const int nst = (kn + G1_ROWS - 1) / G1_ROWS;
-  const int xst = ring_gemv_xstride(MMA, k_chunk);
   const __nv_bfloat16* wp = w + (size_t)mat * ws + (size_t)k0 * N + n0;
 
   if (tid == 0) {
@@ -317,14 +281,9 @@ __global__ void ring_gemv_kernel(const void* __restrict__ xv, long long x_row, i
   hopper::grid_dep_launch_dependents();
   hopper::grid_dep_wait();
 
-  // one row: acc[c] of 8 columns a lane; MMA: d[j] of the warp's n8 tile j
-  float acc[8], d[4][4];
+  float acc[8];                                             // 8 columns a lane
 #pragma unroll
   for (int c = 0; c < 8; ++c) acc[c] = 0.f;
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) d[j][c] = 0.f;
   if (wid == 0) {
     for (int st = NS; st < nst; ++st) {
       hopper::mbar_wait(&empty[st % NS], (st / NS - 1) & 1);
@@ -332,25 +291,7 @@ __global__ void ring_gemv_kernel(const void* __restrict__ xv, long long x_row, i
     }
   } else {
     const int ct = blockDim.x - 32;
-    if constexpr (MMA) {
-      // xs[b][k] = x[r0 + b, k0 + k]; rows past M and k past the chunk are 0
-#pragma unroll 4
-      for (int i = tid - 32; i < xrows * xst; i += ct) {
-        const int b = i / xst, k = i - b * xst;
-        __nv_bfloat16 v = __float2bfloat16(0.f);
-        if (b < nr && k < kn) {
-          const size_t at = (size_t)(r0 + b) * x_row + k0 + k;
-          if (SWIGLU) {
-            const float* gu = static_cast<const float*>(xv);
-            const float g = gu[at], u = gu[at + f_off];
-            v = __float2bfloat16(g / (1.f + expf(-g)) * u);
-          } else {
-            v = static_cast<const __nv_bfloat16*>(xv)[at];
-          }
-        }
-        xs[i] = v;
-      }
-    } else if (SWIGLU) {
+    if (SWIGLU) {
       const float* gu = static_cast<const float*>(xv) + k0;
       for (int i = tid - 32; i < kn; i += ct) {
         const float g = gu[i], u = gu[f_off + i];
@@ -379,64 +320,21 @@ __global__ void ring_gemv_kernel(const void* __restrict__ xv, long long x_row, i
       }
     }
     hopper::named_barrier_sync(1, ct);
-    const int g = lane / 4, t = lane % 4;
-    const int cw0 = (wid - 1) * 32;                         // MMA: this warp's columns
-    const bool live = MMA ? cw0 < cols : lane * 8 < cols;
+    const bool live = lane * 8 < cols;
     for (int st = 0; st < nst; ++st) {
       const int s = st % NS;
       hopper::mbar_wait(&full[s], (st / NS) & 1);
       const int rows = min(G1_ROWS, kn - st * G1_ROWS);
       const unsigned char* stage = ring + s * SB;
       if (live) {
-        if constexpr (MMA) {
-          for (int kb = 0; kb < rows; kb += 16) {
-            const __nv_bfloat16* xa = xs + g * xst + st * G1_ROWS + kb + 2 * t;
-            uint32_t a[4];
-            a[0] = *reinterpret_cast<const uint32_t*>(xa);
-            a[2] = *reinterpret_cast<const uint32_t*>(xa + 8);
-            a[1] = a[3] = 0u;
-            if (xrows > 8) {
-              a[1] = *reinterpret_cast<const uint32_t*>(xa + 8 * xst);
-              a[3] = *reinterpret_cast<const uint32_t*>(xa + 8 * xst + 8);
-            }
-            const int rem = rows - kb;                    // < 16 only at the chunk's end
+        const unsigned char* base = stage + lane * 16;
+        const float* xk = xs1 + st * G1_ROWS;
+        for (int r = wid - 1; r < rows; r += ncw) {
+          float f[8];
+          unpack8(*reinterpret_cast<const uint4*>(base + r * RS), f);
+          const float xr = xk[r];
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int j = lane / 8;                     // this lane's ldmatrix row
-              const unsigned char* row = stage + (kb + (j & 1) * 8 + lane % 8) * RS +
-                                         (cw0 + h * 16 + (j >> 1) * 8) * 2;
-              uint32_t bf[4];
-              hopper::ldmatrix_x4_trans(bf, row);
-              if (rem < 16) {
-                bf[0] = keep_k(bf[0], 2 * t, rem);
-                bf[1] = keep_k(bf[1], 2 * t + 8, rem);
-                bf[2] = keep_k(bf[2], 2 * t, rem);
-                bf[3] = keep_k(bf[3], 2 * t + 8, rem);
-              }
-              // each k step's 16 products sum inside the mma from 0; the
-              // steps add in float32 (the tensor core's own accumulation
-              // is coarser than an FMA chain's and would flip more bf16
-              // roundings downstream)
-              float p0[4] = {0.f, 0.f, 0.f, 0.f}, p1[4] = {0.f, 0.f, 0.f, 0.f};
-              hopper::mma_m16n8k16_bf16(p0, a, bf[0], bf[1]);
-              hopper::mma_m16n8k16_bf16(p1, a, bf[2], bf[3]);
-#pragma unroll
-              for (int c = 0; c < 4; ++c) {
-                d[2 * h][c] += p0[c];
-                d[2 * h + 1][c] += p1[c];
-              }
-            }
-          }
-        } else {
-          const unsigned char* base = stage + lane * 16;
-          const float* xk = xs1 + st * G1_ROWS;
-          for (int r = wid - 1; r < rows; r += ncw) {
-            float f[8];
-            unpack8(*reinterpret_cast<const uint4*>(base + r * RS), f);
-            const float xr = xk[r];
-#pragma unroll
-            for (int c = 0; c < 8; ++c) acc[c] = fmaf(xr, f[c], acc[c]);
-          }
+          for (int c = 0; c < 8; ++c) acc[c] = fmaf(xr, f[c], acc[c]);
         }
       }
       __syncwarp();
@@ -444,35 +342,17 @@ __global__ void ring_gemv_kernel(const void* __restrict__ xv, long long x_row, i
     }
   }
   __syncthreads();   // every stage issued has landed and been read: the ring is free
-  float* part;                                              // [RB][G1_COLS]
-  if constexpr (MMA) {
-    part = reinterpret_cast<float*>(ring);
-    if (wid > 0 && (wid - 1) * 32 < cols) {
-      const int g = lane / 4, t = lane % 4;
+  float* red = reinterpret_cast<float*>(ring);              // [ncw][G1_COLS]
+  float* part = red + ncw * G1_COLS;                        // [RB][G1_COLS]
+  if (wid > 0) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = (wid - 1) * 32 + j * 8 + 2 * t;
-        part[g * G1_COLS + c] = d[j][0];
-        part[g * G1_COLS + c + 1] = d[j][1];
-        if (g + 8 < nr) {
-          part[(g + 8) * G1_COLS + c] = d[j][2];
-          part[(g + 8) * G1_COLS + c + 1] = d[j][3];
-        }
-      }
-    }
-  } else {
-    float* red = reinterpret_cast<float*>(ring);            // [ncw][G1_COLS]
-    part = red + ncw * G1_COLS;
-    if (wid > 0) {
-#pragma unroll
-      for (int c = 0; c < 8; ++c) red[(wid - 1) * G1_COLS + lane * 8 + c] = acc[c];
-    }
-    __syncthreads();
-    for (int c = tid; c < G1_COLS; c += blockDim.x) {
-      float s = 0.f;
-      for (int q = 0; q < ncw; ++q) s += red[q * G1_COLS + c];
-      part[c] = s;
-    }
+    for (int c = 0; c < 8; ++c) red[(wid - 1) * G1_COLS + lane * 8 + c] = acc[c];
+  }
+  __syncthreads();
+  for (int c = tid; c < G1_COLS; c += blockDim.x) {
+    float s = 0.f;
+    for (int q = 0; q < ncw; ++q) s += red[q * G1_COLS + c];
+    part[c] = s;
   }
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
@@ -498,32 +378,28 @@ __global__ void ring_gemv_kernel(const void* __restrict__ xv, long long x_row, i
   cluster.sync();
 }
 
-// Launch ring_gemv_kernel<MMA, SWIGLU> over M rows (one, or MMA: chunks of
-// 16) and nmat [K, N] matrices, with one producer warp per block beside
-// `threads` consumer threads (a multiple of 32, at most G1_MAX_THREADS;
-// MMA: always G1_MMA_WARPS warps); `pdl` adds programmatic dependent
-// launch.  The K chunks per tile (the cluster size ks, at most 16 where the
-// card allows non-portable clusters, else 8, with at least two stages of
-// rows per block) are, at one row, the most for which every cluster of the
-// grid is resident at once (cudaOccupancyMaxActiveClusters); under MMA,
-// whose x chunk grows as ks falls, the ks of least waves x rows per block.
-// Returns a cudaError_t.
-template <bool MMA, bool SWIGLU>
-int launch_ring_gemv_as(const void* x, long long x_row, int f_off, const __nv_bfloat16* w,
-                        float* y, int M, int K, int N, int nmat, long long ws, long long y_row,
-                        long long yz, int threads, bool pdl, cudaStream_t st,
-                        __nv_bfloat16* yb = nullptr, const __nv_bfloat16* nw = nullptr,
-                        float eps = 0.f) {
-  if (M < 1 || (!MMA && M != 1) || (nw && (MMA || SWIGLU)) || K < 1 || N < 8 || N % 8 != 0 || nmat < 1 ||
-      threads < 32 || threads % 32 != 0 || threads > G1_MAX_THREADS)
+// Launch ring_gemv_kernel<SWIGLU> over one row and nmat [K, N] matrices,
+// with one producer warp per block beside `threads` consumer threads (a
+// multiple of 32, at most G1_MAX_THREADS); `pdl` adds programmatic
+// dependent launch.  The K chunks per tile (the cluster size ks, at most 16
+// where the card allows non-portable clusters, else 8, with at least two
+// stages of rows per block) are the most for which every cluster of the
+// grid is resident at once (cudaOccupancyMaxActiveClusters).  nw: x is
+// normalised first.  Returns a cudaError_t.
+template <bool SWIGLU>
+int launch_gemv1(const void* x, int f_off, const __nv_bfloat16* w, float* y, int K, int N,
+                 int nmat, long long ws, long long yz, int threads, bool pdl,
+                 cudaStream_t st, __nv_bfloat16* yb = nullptr,
+                 const __nv_bfloat16* nw = nullptr, float eps = 0.f) {
+  if ((nw && SWIGLU) || K < 1 || N < 8 || N % 8 != 0 || nmat < 1 || threads < 32 ||
+      threads % 32 != 0 || threads > G1_MAX_THREADS)
     return (int)cudaErrorInvalidValue;
-  if (MMA) threads = G1_MMA_WARPS * 32;
   static bool attrs_set = false;
   static int max_cluster = 8;
   struct Occ { int ks, threads; size_t smem; int clusters; };
   static Occ occ_cache[64];
   static int n_occ = 0;
-  auto kern = ring_gemv_kernel<MMA, SWIGLU>;
+  auto kern = ring_gemv_kernel<SWIGLU>;
   if (!attrs_set) {
     CF_CHECK((int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        G1_SMEM_MAX));
@@ -534,12 +410,8 @@ int launch_ring_gemv_as(const void* x, long long x_row, int f_off, const __nv_bf
       (void)cudaGetLastError();
     attrs_set = true;
   }
-  const int rb = MMA ? G1_MMA_ROWS : 1;
-  const int nrc = (M + rb - 1) / rb;
-  const int xrows = MMA ? (nrc > 1 ? G1_MMA_ROWS : (M + 7) / 8 * 8) : 1;
   const int tiles = (N + G1_COLS - 1) / G1_COLS;
-  const int z = nmat * nrc;
-  const int want = tiles * z;                  // clusters of the grid
+  const int want = tiles * nmat;               // clusters of the grid
   cudaLaunchAttribute attr[2];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
@@ -556,7 +428,7 @@ int launch_ring_gemv_as(const void* x, long long x_row, int f_off, const __nv_bf
     attr[0].val.clusterDim.x = ks;
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
-    cfg.gridDim = dim3(ks, tiles, z);
+    cfg.gridDim = dim3(ks, tiles, nmat);
     cfg.dynamicSmemBytes = smem;
     cfg.numAttrs = 1;
     int n = 0;
@@ -569,77 +441,411 @@ int launch_ring_gemv_as(const void* x, long long x_row, int f_off, const __nv_bf
   };
   int ks = std::min(max_cluster, std::max(1, K / (2 * G1_ROWS)));
   int k_chunk = K;
-  if (MMA) {
-    // x's chunk grows as ks falls, so all clusters resident may need ks so
-    // small that few SMs work: take the ks of least waves x rows per block,
-    // a wave of fewer blocks than SMs counted as its share of the card
-    static int num_sms = 0;
-    if (num_sms == 0) {
-      int dev = 0;
-      CF_CHECK((int)cudaGetDevice(&dev));
-      CF_CHECK((int)cudaDeviceGetAttribute(&num_sms, cudaDevAttrMultiProcessorCount, dev));
-    }
-    double best = 0.0;
-    int best_ks = 0;
-    for (int c = ks; c >= 1; --c) {
-      const int kc = (K + c - 1) / c;
-      if ((K + kc - 1) / kc != c) continue;               // every rank has rows
-      const size_t smem = ring_gemv_smem(MMA, xrows, kc);
-      if (smem > (size_t)G1_SMEM_MAX) break;
-      const int act = clusters(c, smem);
-      if (act < 1) continue;
-      const int waves = (want + act - 1) / act;
-      const int blocks = std::min(want, act) * c;         // in a full wave
-      const double cost = (double)waves * kc * num_sms / std::min(num_sms, blocks);
-      if (best_ks == 0 || cost < best) {
-        best = cost;
-        best_ks = c;
-      }
-    }
-    ks = best_ks;
-    k_chunk = ks > 0 ? (K + ks - 1) / ks : K;
-  } else {
-    for (; ks >= 1; --ks) {
-      k_chunk = (K + ks - 1) / ks;
-      if ((K + k_chunk - 1) / k_chunk != ks) continue;    // every rank has rows
-      const size_t smem = ring_gemv_smem(MMA, xrows, k_chunk);
-      if (smem > (size_t)G1_SMEM_MAX) { ks = 0; break; }
-      if (ks == 1 || clusters(ks, smem) >= want) break;
-    }
+  for (; ks >= 1; --ks) {
+    k_chunk = (K + ks - 1) / ks;
+    if ((K + k_chunk - 1) / k_chunk != ks) continue;      // every rank has rows
+    const size_t smem = ring_gemv_smem(k_chunk);
+    if (smem > (size_t)G1_SMEM_MAX) { ks = 0; break; }
+    if (ks == 1 || clusters(ks, smem) >= want) break;
   }
   if (ks < 1) return (int)cudaErrorInvalidValue;          // x chunk too large
   attr[0].val.clusterDim.x = ks;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3(ks, tiles, z);
-  cfg.dynamicSmemBytes = ring_gemv_smem(MMA, xrows, k_chunk);
+  cfg.gridDim = dim3(ks, tiles, nmat);
+  cfg.dynamicSmemBytes = ring_gemv_smem(k_chunk);
   cfg.numAttrs = pdl ? 2 : 1;
-  return (int)cudaLaunchKernelEx(&cfg, kern, x, x_row, f_off, w, y, yb, M, K, N, k_chunk,
-                                 nrc, xrows, ws, y_row, yz, nw, eps);
+  return (int)cudaLaunchKernelEx(&cfg, kern, x, 0LL, f_off, w, y, yb, 1, K, N, k_chunk,
+                                 1, 1, ws, 0LL, yz, nw, eps);
 }
 
-// Any M: one row on float32 FMAs, more on the tensor cores.
-template <bool SWIGLU>
-int launch_ring_gemv(const void* x, long long x_row, int f_off, const __nv_bfloat16* w,
+// ---- The rows GEMV: 2..16 rows of x per block against bf16 [K, N] matrices ----
+//
+// y[r*y_row + mat*yz + n] = sum_k x[r, k] * W[k, n] for the rows r0.. of
+// blockIdx.z's row chunk (up to RG_MAX_ROWS rows) and the matrix mat =
+// blockIdx.z / nrc, W the [K, N] bf16 slab `mat` of the weight tensor map
+// (rows N*2 bytes apart; N a multiple of 8); x bf16 rows x_row apart (a
+// multiple of 8).  y is float32, or bf16(y) goes to yb when yb is given.
+// PAIR (the SwiGLU FFN's gate/up product): W holds two slabs, gate and up,
+// and yb[r*y_row + n] = bf16(silu(gate[r, n]) * up[r, n]), the x of the
+// down projection, computed once per element where the down product's
+// blocks would each compute their chunk of it.  The verify stack (kernel
+// 8) and the paged layer (kernel 9) run it at n and B rows.  Bound by
+// bytes (2 rows' operations per weight byte at most 32, far under the
+// card's ~295), so the design is a weight stream with the products riding
+// on it:
+// - Weights and x as TMA boxes.  A block owns one tile of 256 columns
+//   (blockIdx.y; PAIR: 128 columns of gate and the same of up) and one K
+//   chunk (blockIdx.x, a multiple of RG_ROWS rows).  Its producer warp's
+//   lane 0 copies each stage as four boxes of weights [RG_ROWS][64]
+//   (128-byte rows, 128-byte swizzle) and one box of x [rows][RG_ROWS]
+//   (64-byte rows, 64-byte swizzle) into a ring of RG_STAGES stages behind
+//   `full`/`empty` mbarriers: four weight copies a stage where a bulk copy
+//   per 512-byte row took 32, and no pad.  The weight boxes of the first
+//   stages go out before griddepcontrol.wait (weights depend on nothing
+//   earlier), x's after it; no thread stages x, so no bubble opens while
+//   the ring is full.  Rows past K and x rows past M come back zero (TMA's
+//   out-of-bounds fill), so no stage needs a mask.
+// - Products on mma.sync m16n8k16 with the weights as A: a warp owns two
+//   16-column fragments (ldmatrix.trans on the swizzled rows) and takes x
+//   rows 0-7 (and 8-15) as B (ldmatrix on the x box), so at up to 8 rows
+//   no product is wasted on padding.  The inner loop has no branch: columns
+//   past N are computed on stale bytes and never written.  Each k step's
+//   16 products sum inside the mma from 0 and the steps add in float32 (as
+//   the rows of an FMA chain would meet; the tensor core's own
+//   accumulation is coarser).
+// - The K chunks of a tile meet inside a thread-block cluster, as in the
+//   one-row GEMV: rank order, distributed shared memory, y written whole.
+// - ks (the cluster size) is the most for which every cluster of the grid
+//   is resident in one wave (cudaOccupancyMaxActiveClusters), as at one
+//   row: three blocks share an SM (registers and shared memory are sized
+//   for it), so a block whose stages wait on the consumers leaves the
+//   others streaming.
+// With `stamps` (uint64 [blocks][8], %globaltimer ns from the first
+// consumer thread; null on the normal path) a launch records its phase
+// boundaries: start, griddepcontrol.wait returned, first stage landed,
+// half the stages read, the last read, cluster partials ready, y written,
+// end.
+constexpr int RG_COLS = 256;                       // columns per tile
+constexpr int RG_BOX = 64;                         // weight columns per box (128 bytes)
+constexpr int RG_ROWS = 32;                        // k rows per stage
+constexpr int RG_STAGES = 4;                       // ring stages
+constexpr int RG_BOX_BYTES = RG_ROWS * RG_BOX * 2;
+constexpr int RG_MAX_ROWS = 16;                    // x rows per block (the mma N, twice)
+constexpr int RG_XOFF = RG_COLS / RG_BOX * RG_BOX_BYTES;    // x's box in a stage
+constexpr int RG_STAGE_BYTES = RG_XOFF + RG_MAX_ROWS * RG_ROWS * 2;
+constexpr int RG_WARPS = 8;                        // consumer warps, two fragments each
+constexpr int RG_BLOCK = 32 * (RG_WARPS + 1);      // and the producer warp
+constexpr int RG_PITCH = RG_COLS + 4;              // f32 pitch of a row of the block's sums
+constexpr int RG_HEAD = 1024;                      // barriers; the ring starts 1024-aligned
+constexpr int RG_SMEM = 1024 + RG_HEAD + RG_STAGES * RG_STAGE_BYTES;   // and alignment slack
+constexpr int RG_STAMPS = 8;
+static_assert(RG_ROWS == 32, "an x box row is one 64-byte swizzle span");
+static_assert(RG_COLS == 16 * 2 * RG_WARPS, "two 16-column fragments a warp");
+static_assert(RG_STAGES * RG_STAGE_BYTES >= 4 * RG_PITCH * RG_MAX_ROWS,
+              "the ring must hold the block's sums after the last stage");
+
+template <bool PAIR>
+__global__ void __launch_bounds__(RG_BLOCK, 3)
+rows_gemv_kernel(const __grid_constant__ CUtensorMap wmap,
+                 const __grid_constant__ CUtensorMap xmap, float* __restrict__ y,
+                 __nv_bfloat16* __restrict__ yb, int M, int K, int N, int k_chunk, int nrc,
+                 int xrows, long long y_row, long long yz,
+                 unsigned long long* __restrict__ stamps) {
+  namespace cg = cooperative_groups;
+  constexpr int NS = RG_STAGES, SB = RG_STAGE_BYTES;
+  constexpr int HALF = PAIR ? RG_COLS / 2 : RG_COLS;        // columns per slab
+  extern __shared__ unsigned char rg_raw[];
+  unsigned char* sm = rg_raw + ((1024u - (hopper::smem_u32(rg_raw) & 1023u)) & 1023u);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm);                       // [NS]
+  uint64_t* empty = full + NS;                                            // [NS]
+  unsigned char* ring = sm + RG_HEAD;                                     // [NS][SB]
+  const int tid = threadIdx.x, lane = tid % 32, wid = tid / 32;
+  const int rank = blockIdx.x, ks = gridDim.x;
+  const int mat = PAIR ? 0 : blockIdx.z / nrc, r0 = (blockIdx.z % nrc) * RG_MAX_ROWS;
+  const int nr = min(RG_MAX_ROWS, M - r0);
+  const int n0 = blockIdx.y * HALF;
+  const int cols = min(HALF, N - n0);                       // per slab
+  const int nb = (cols + RG_BOX - 1) / RG_BOX;              // boxes per slab
+  const int k0 = rank * k_chunk, kn = min(k_chunk, K - k0);
+  const int nst = (kn + RG_ROWS - 1) / RG_ROWS;
+  unsigned long long* my_stamps =
+      stamps != nullptr && tid == 32
+          ? stamps + ((size_t)blockIdx.x + gridDim.x * ((size_t)blockIdx.y + gridDim.y * blockIdx.z)) * RG_STAMPS
+          : nullptr;
+  auto stamp = [&](int k) {
+    if (my_stamps != nullptr) my_stamps[k] = hopper::global_ns();
+  };
+  stamp(0);
+
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      hopper::mbar_init(&full[s], 2);              // the weights' arrival and x's
+      hopper::mbar_init(&empty[s], RG_WARPS);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  // producer (lane 0): stage st's weight boxes (PAIR: gate's, then up's
+  // at column HALF of the tile), then its x box
+  auto issue_w = [&](int st) {
+    unsigned char* stage = ring + (st % NS) * SB;
+    uint64_t* bar = &full[st % NS];
+    hopper::mbar_arrive_expect_tx(bar, (uint32_t)((PAIR ? 2 : 1) * nb * RG_BOX_BYTES));
+    for (int j = 0; j < nb; ++j) {
+      hopper::tma_load_3d(stage + j * RG_BOX_BYTES, &wmap, bar, n0 + j * RG_BOX,
+                          k0 + st * RG_ROWS, mat);
+      if (PAIR)
+        hopper::tma_load_3d(stage + (HALF / RG_BOX + j) * RG_BOX_BYTES, &wmap, bar,
+                            n0 + j * RG_BOX, k0 + st * RG_ROWS, 1);
+    }
+  };
+  auto issue_x = [&](int st) {
+    uint64_t* bar = &full[st % NS];
+    hopper::mbar_arrive_expect_tx(bar, (uint32_t)(xrows * RG_ROWS * 2));
+    hopper::tma_load_3d(ring + (st % NS) * SB + RG_XOFF, &xmap, bar, k0 + st * RG_ROWS, r0, 0);
+  };
+  if (tid == 0)
+    for (int st = 0; st < min(NS, nst); ++st) issue_w(st);
+  hopper::grid_dep_launch_dependents();
+  hopper::grid_dep_wait();
+  stamp(1);
+
+  // acc[h][rh]: fragment h (tile columns 16(wid - 1) + 128h ..) against x
+  // rows 8rh ..; mma fragment c: column + g (+8 for c >= 2), row 2t (+1 odd c)
+  float acc[2][2][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[h][rh][c] = 0.f;
+  const bool two = xrows > 8;
+  if (wid == 0) {
+    if (lane == 0)
+      for (int st = 0; st < min(NS, nst); ++st) issue_x(st);
+    for (int st = NS; st < nst; ++st) {
+      hopper::mbar_wait(&empty[st % NS], (st / NS - 1) & 1);
+      if (lane == 0) {
+        issue_w(st);
+        issue_x(st);
+      }
+      __syncwarp();
+    }
+  } else {
+    // this lane's ldmatrix rows.  Weights: matrix j = lane / 8 is k rows
+    // (j >> 1) * 8.. and columns (j & 1) * 8.. of a 16 x 16 block; 16-byte
+    // chunk c of box row k sits at chunk c ^ (k & 7).  x: matrix j is x
+    // rows (j >> 1) * 8.. and k (j & 1) * 8..; chunk c of x row r sits at
+    // chunk c ^ ((r >> 1) & 3).
+    const int j = lane / 8, row = (j >> 1) * 8 + lane % 8;
+    const int f = wid - 1;                                   // fragments f and f + 8
+    int a_off[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int fh = f + 8 * h, chunk = (fh % 4) * 2 + (j & 1);
+      a_off[h] = (fh / 4) * RG_BOX_BYTES + row * 128 + ((chunk ^ (lane & 7)) << 4);
+    }
+    const int x_off = RG_XOFF + row * 64;
+    const int x_sw = (row >> 1) & 3;
+    int s = 0;
+    uint32_t phase = 0;
+    for (int st = 0; st < nst; ++st) {
+      hopper::mbar_wait(&full[s], phase);
+      if (st == 0) stamp(2);
+      if (st == nst / 2) stamp(3);
+      const unsigned char* stage = ring + s * SB;
+#pragma unroll
+      for (int kb = 0; kb < RG_ROWS; kb += 16) {
+        uint32_t b[4], a0[4], a1[4];
+        const unsigned char* xa = stage + x_off + (((kb / 8 + (j & 1)) ^ x_sw) << 4);
+        if (two) {
+          hopper::ldmatrix_x4(b, xa);
+        } else {
+          uint32_t b2[2];
+          hopper::ldmatrix_x2(b2, xa);
+          b[0] = b2[0];
+          b[1] = b2[1];
+          b[2] = b[3] = 0u;
+        }
+        hopper::ldmatrix_x4_trans(a0, stage + a_off[0] + kb * 128);
+        hopper::ldmatrix_x4_trans(a1, stage + a_off[1] + kb * 128);
+        float p[2][2][4];
+#pragma unroll
+        for (int rh = 0; rh < 2; ++rh)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) p[0][rh][c] = p[1][rh][c] = 0.f;
+        hopper::mma_m16n8k16_bf16(p[0][0], a0, b[0], b[1]);
+        hopper::mma_m16n8k16_bf16(p[1][0], a1, b[0], b[1]);
+        if (two) {
+          hopper::mma_m16n8k16_bf16(p[0][1], a0, b[2], b[3]);
+          hopper::mma_m16n8k16_bf16(p[1][1], a1, b[2], b[3]);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int rh = 0; rh < 2; ++rh)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[h][rh][c] += p[h][rh][c];
+      }
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);
+      if (++s == NS) {
+        s = 0;
+        phase ^= 1u;
+      }
+    }
+    stamp(4);
+  }
+  __syncthreads();   // every stage issued has landed and been read: the ring is free
+  float* part = reinterpret_cast<float*>(ring);             // [RG_MAX_ROWS][RG_PITCH]
+  if (wid > 0) {
+    const int g = lane / 4, t = lane % 4;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh) {
+        if (rh == 1 && !two) break;
+        float* p = part + (8 * rh + 2 * t) * RG_PITCH + 16 * (wid - 1 + 8 * h) + g;
+        p[0] = acc[h][rh][0];
+        p[RG_PITCH] = acc[h][rh][1];
+        p[8] = acc[h][rh][2];
+        p[RG_PITCH + 8] = acc[h][rh][3];
+      }
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  stamp(5);
+  const int q4 = cols / 4;                                  // float4 pieces per row
+  const int per = (nr * q4 + ks - 1) / ks;                  // pieces per rank
+  for (int i = tid; i < per; i += blockDim.x) {
+    const int e = rank * per + i;
+    if (e >= nr * q4) continue;
+    const int b = e / q4, c = (e - b * q4) * 4;
+    // the ranks' sums in rank order, all reads of a slab in flight at once
+    auto rank_sum = [&](int off) {
+      float4 v[G1_MAX_CLUSTER];
+#pragma unroll
+      for (int q = 0; q < G1_MAX_CLUSTER; ++q)
+        v[q] = q < ks ? *reinterpret_cast<const float4*>(cluster.map_shared_rank(part, q) +
+                                                          b * RG_PITCH + off + c)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int q = 0; q < G1_MAX_CLUSTER; ++q)
+        if (q < ks) {
+          sum.x += v[q].x;
+          sum.y += v[q].y;
+          sum.z += v[q].z;
+          sum.w += v[q].w;
+        }
+      return sum;
+    };
+    const float4 sv = rank_sum(0);
+    const size_t at = (size_t)(r0 + b) * y_row + (size_t)mat * yz + n0 + c;
+    if constexpr (PAIR) {
+      const float4 su = rank_sum(HALF);
+      const float g4[4] = {sv.x, sv.y, sv.z, sv.w}, u4[4] = {su.x, su.y, su.z, su.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        yb[at + q] = __float2bfloat16(g4[q] / (1.f + expf(-g4[q])) * u4[q]);
+    } else if (yb) {
+      yb[at] = __float2bfloat16(sv.x);
+      yb[at + 1] = __float2bfloat16(sv.y);
+      yb[at + 2] = __float2bfloat16(sv.z);
+      yb[at + 3] = __float2bfloat16(sv.w);
+    } else {
+      y[at] = sv.x;
+      y[at + 1] = sv.y;
+      y[at + 2] = sv.z;
+      y[at + 3] = sv.w;
+    }
+  }
+  stamp(6);
+  cluster.sync();
+  stamp(7);
+}
+
+// A measurement hook (chip_smoke.py phase 9): while rg_probe.at >= 0, the
+// rows-GEMV launch numbered `at` (counted from when it was set, in this
+// translation unit) records its phase stamps into rg_probe.stamps.
+struct RgProbe {
+  unsigned long long* stamps;
+  int at, count;
+};
+RgProbe rg_probe = {nullptr, -1, 0};
+
+// Launch rows_gemv_kernel<PAIR> over M >= 2 rows (in chunks of
+// RG_MAX_ROWS) of bf16 x (rows x_row apart, x_row a multiple of 8, x
+// 16-byte aligned) and nmat [K, N] matrices ws elements apart (ws a
+// multiple of 8; PAIR: nmat 2, gate then up, and yb takes the product).
+// `pdl` adds programmatic dependent launch.  The tensor maps are encoded
+// here, per call.  ks: as in launch_gemv1 (at most 16 where the card
+// allows non-portable clusters, else 8, at least two stages a block), with
+// k_chunk a multiple of RG_ROWS.  Returns a cudaError_t.
+template <bool PAIR>
+int launch_rows_gemv(const __nv_bfloat16* x, long long x_row, const __nv_bfloat16* w,
                      float* y, int M, int K, int N, int nmat, long long ws, long long y_row,
-                     long long yz, int threads, bool pdl, cudaStream_t st,
-                     __nv_bfloat16* yb = nullptr) {
-  if (M == 1)
-    return launch_ring_gemv_as<false, SWIGLU>(x, x_row, f_off, w, y, M, K, N, nmat, ws, y_row,
-                                              yz, threads, pdl, st, yb);
-  return launch_ring_gemv_as<true, SWIGLU>(x, x_row, f_off, w, y, M, K, N, nmat, ws, y_row, yz,
-                                           threads, pdl, st, yb);
+                     long long yz, bool pdl, cudaStream_t st, __nv_bfloat16* yb = nullptr) {
+  if (M < 2 || K < 1 || N < 8 || N % 8 != 0 || nmat < 1 || (nmat > 1 && ws % 8 != 0) ||
+      x_row % 8 != 0 || (uintptr_t)x % 16 != 0 || (PAIR && (nmat != 2 || yb == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  static bool attrs_set = false;
+  static int max_cluster = 8;
+  static int occ[G1_MAX_CLUSTER + 1];          // active clusters by size (0: not asked)
+  auto kern = rows_gemv_kernel<PAIR>;
+  if (!attrs_set) {
+    CF_CHECK((int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       RG_SMEM));
+    if (cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1) ==
+        cudaSuccess)
+      max_cluster = G1_MAX_CLUSTER;
+    else
+      (void)cudaGetLastError();
+    attrs_set = true;
+  }
+  const int nrc = (M + RG_MAX_ROWS - 1) / RG_MAX_ROWS;
+  const int xrows = nrc > 1 ? RG_MAX_ROWS : (M + 7) / 8 * 8;
+  const int half = PAIR ? RG_COLS / 2 : RG_COLS;
+  const int tiles = (N + half - 1) / half;
+  const int z = (PAIR ? 1 : nmat) * nrc;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(RG_BLOCK, 1, 1);
+  cfg.dynamicSmemBytes = RG_SMEM;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  auto set_cluster = [&](int ks) {
+    attr[0].val.clusterDim.x = ks;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(ks, tiles, z);
+  };
+  auto chunk_of = [&](int c) { return ((K + c - 1) / c + RG_ROWS - 1) / RG_ROWS * RG_ROWS; };
+  int ks = std::min(max_cluster, std::max(1, K / (2 * RG_ROWS)));
+  for (; ks > 1; --ks) {
+    const int kc = chunk_of(ks);
+    if ((K + kc - 1) / kc != ks) continue;                // every rank has rows
+    if (occ[ks] == 0) {                                   // active clusters (cached)
+      set_cluster(ks);
+      cfg.numAttrs = 1;
+      int n = 0;
+      if (cudaOccupancyMaxActiveClusters(&n, kern, &cfg) != cudaSuccess) {
+        (void)cudaGetLastError();
+        n = 0;
+      }
+      occ[ks] = std::max(n, 0) + 1;
+    }
+    if (occ[ks] - 1 >= tiles * z) break;
+  }
+  const int k_chunk = chunk_of(ks);
+  CUtensorMap wmap, xmap;
+  if (!hopper::make_tensor_map_bf16_3d(&wmap, w, N, K, nmat, (uint64_t)N * 2,
+                                       (uint64_t)(nmat > 1 ? ws : (long long)K * N) * 2,
+                                       RG_BOX, RG_ROWS, 1, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !hopper::make_tensor_map_bf16_3d(&xmap, x, K, M, 1, (uint64_t)x_row * 2,
+                                       (uint64_t)x_row * 2 * M, RG_ROWS, xrows, 1,
+                                       CU_TENSOR_MAP_SWIZZLE_64B))
+    return (int)cudaErrorInvalidValue;
+  unsigned long long* stamps = nullptr;
+  if (rg_probe.at >= 0 && rg_probe.count++ == rg_probe.at) stamps = rg_probe.stamps;
+  set_cluster(ks);
+  cfg.numAttrs = pdl ? 2 : 1;
+  return (int)cudaLaunchKernelEx(&cfg, kern, wmap, xmap, y, yb, M, K, N, k_chunk, nrc, xrows,
+                                 y_row, yz, stamps);
 }
 
-// One row: y[mat*yz + n] = sum_k x[k] * W[k, n] (the bs=1 stack's GEMVs,
-// the standalone gemv and the MLA layer's; nw: x normalised first).
-template <bool SWIGLU>
-int launch_gemv1(const void* x, int f_off, const __nv_bfloat16* w, float* y, int K, int N,
-                 int nmat, long long ws, long long yz, int threads, bool pdl,
-                 cudaStream_t st, __nv_bfloat16* yb = nullptr,
-                 const __nv_bfloat16* nw = nullptr, float eps = 0.f) {
-  return launch_ring_gemv_as<false, SWIGLU>(x, 0, f_off, w, y, 1, K, N, nmat, ws, 0, yz,
-                                            threads, pdl, st, yb, nw, eps);
+// Any M of bf16 x: one row on float32 FMAs (x_row and y_row unused), more
+// on the rows GEMV.
+inline int launch_ring_gemv(const __nv_bfloat16* x, long long x_row, const __nv_bfloat16* w,
+                            float* y, int M, int K, int N, int nmat, long long ws,
+                            long long y_row, long long yz, int threads, bool pdl,
+                            cudaStream_t st, __nv_bfloat16* yb = nullptr) {
+  if (M == 1) return launch_gemv1<false>(x, 0, w, y, K, N, nmat, ws, yz, threads, pdl, st, yb);
+  return launch_rows_gemv<false>(x, x_row, w, y, M, K, N, nmat, ws, y_row, yz, pdl, st, yb);
 }
 
 // ---- Split-KV flash-decode of one bs=1 layer (the stack's and kernel 6's) ----
@@ -652,24 +858,34 @@ int launch_gemv1(const void* x, int f_off, const __nv_bfloat16* w, float* y, int
 // merge pass folds the partials and (fold) the current token, whose q.k and
 // v join in f32 as the TPU kernel folds them.
 constexpr int ATT_THREADS = 128;
-constexpr int ATT_MAX_GROUP = 8;
+constexpr int ATT_MAX_GROUP = 8;        // query rows of one token's kv head
+constexpr int ATT_MAX_ROWS = 16;        // query rows of a tile of n tokens (the verify)
 constexpr int ATT_TILE = 64;            // cache rows per ring stage
 constexpr int ATT_MAX_SPLIT = 1024;
 
-// Shared memory of the split pass: two barriers, a two-stage ring of
-// [min(split, ATT_TILE), hd] bf16 tiles, q in bf16 and f32, the split's
-// scores, and the P.V slices' sums.
-inline size_t attn_split_smem(int group, int hd, int split) {
+// Shared memory of the split pass for `nq` query rows a block: two
+// barriers, a two-stage ring of [min(split, ATT_TILE), hd] bf16 tiles, q in
+// bf16 and f32, the split's scores, and (one token) the P.V slices' sums.
+inline size_t attn_split_smem(int nq, int hd, int split, bool tokens = false) {
   const size_t tr = (size_t)std::min(split, ATT_TILE);
-  const size_t slices = ATT_THREADS / (hd / 8);
-  return 16 + 2 * tr * hd * 2 + (size_t)group * hd * (2 + 4) +
-         sizeof(float) * ((size_t)group * split + slices * group * hd);
+  const size_t slices = tokens ? 0 : ATT_THREADS / (hd / 8);
+  return 16 + 2 * tr * hd * 2 + (size_t)nq * hd * (2 + 4) +
+         sizeof(float) * ((size_t)nq * split + slices * nq * hd);
 }
 constexpr int ATT_SPLIT_SMEM_MAX = 112 * 1024;   // >= attn_split_smem(8, 128, 1024)
 
 // Split pass over cache rows [s*split, min((s+1)*split, seq)) of kv head
-// h = blockIdx.x, s = blockIdx.y.  Writes part_ml [kv, ns, g, 2] (max, sum)
-// and part_acc [kv, ns, g, hd].
+// h = blockIdx.x, s = blockIdx.y.  One token (the stack; MAXR =
+// ATT_MAX_GROUP): the group's q rows of qkv [kv][(group+2)*hd], cos/sin
+// one row; writes part_ml [kv, ns, g, 2] (max, sum) and part_acc [kv, ns,
+// g, hd].  TOKENS (n_tok tokens, the verify stack; hd 128): qkv is
+// [n_tok][kv*(group+2)*hd], cos/sin [n_tok, hd]; query row r = i*n_tok + t
+// of kv head h is q head row i of token t (roped with row t of cos/sin),
+// the rows R = group*n_tok in tiles of up to MAXR (blockIdx.z; more tiles
+// read the split's rows again, from L2); writes part_ml [kv, ns, R, 2] and
+// part_acc [kv, ns, R, hd].  The row bound is a template parameter: the
+// one-token instance keeps its short code, and the verify takes the
+// 8-row instance where its rows fit.
 //
 // Bound by bytes (the K and V rows < seq, read once).  The split's n rows
 // of K, then of V, are contiguous spans of the [kv, cap, hd] cache, so
@@ -678,27 +894,33 @@ constexpr int ATT_SPLIT_SMEM_MAX = 112 * 1024;   // >= attn_split_smem(8, 128, 1
 // the next tile issued as soon as a stage is read, so a split of one tile
 // has its K and V in flight from the block's first instruction.  Only rows
 // < seq are copied; whatever lies above them is never read, so NaN there
-// is harmless.  Q.K: two threads per row, each over half of hd in 16-byte
-// pieces, the pieces' order staggered by thread so the row reads of a
-// warp hit distinct banks; q is read as bf16 from shared memory.  P.V:
-// each thread owns 8 adjacent columns of hd over a slice of the rows (row
-// r goes to slice r % slices); the slices' sums meet in shared memory in
-// slice order.
+// is harmless.  One token: Q.K two threads per row, each over half of hd
+// in 16-byte pieces, the pieces' order staggered by thread so the row
+// reads of a warp hit distinct banks; q is read as bf16 from shared
+// memory; P.V: each thread owns 8 adjacent columns of hd over a slice of
+// the rows (row r goes to slice r % slices); the slices' sums meet in
+// shared memory in slice order.  TOKENS: both products on mma.sync (see
+// the note in the kernel), and the copies go out before the PDL wait.
+template <int MAXR, bool TOKENS>
 __global__ void __launch_bounds__(ATT_THREADS)
 attn_split_kernel(const float* __restrict__ qkv,
                   const __nv_bfloat16* __restrict__ kc,
                   const __nv_bfloat16* __restrict__ vc,
                   const float* __restrict__ cos, const float* __restrict__ sin,
                   float* __restrict__ part_ml, float* __restrict__ part_acc,
-                  int group, int hd, int cap, int seq, int split, int neox) {
+                  int group, int hd, int cap, int seq, int split, int neox, int n_tok) {
   extern __shared__ __align__(16) unsigned char att_sm[];
   const int tr = min(split, ATT_TILE);
+  // q rows: this block's, all of them, and the first's index
+  const int qrows = TOKENS ? group * n_tok : group;
+  const int r0 = TOKENS ? blockIdx.z * MAXR : 0;
+  const int nq = TOKENS ? min(MAXR, qrows - r0) : group;
   uint64_t* bar = reinterpret_cast<uint64_t*>(att_sm);                       // [2]
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(att_sm + 16);       // [2][tr][hd]
-  __nv_bfloat16* qb = ring + 2 * tr * hd;                                    // [group][hd]
-  float* raw = reinterpret_cast<float*>(qb + group * hd);                    // [group][hd]
-  float* sc = raw + group * hd;                                              // [group][split]
-  float* red = sc + group * split;                                           // [slices][group][hd]
+  __nv_bfloat16* qb = ring + 2 * tr * hd;                                    // [nq][hd]
+  float* raw = reinterpret_cast<float*>(qb + nq * hd);                       // [nq][hd]
+  float* sc = raw + nq * hd;                                                 // [nq][split]
+  float* red = sc + nq * split;                                              // [slices][nq][hd]
   const int h = blockIdx.x, s = blockIdx.y, ns = gridDim.y;
   const int tid = threadIdx.x, lane = tid % 32, wid = tid / 32;
   const int nw = blockDim.x / 32;
@@ -722,63 +944,144 @@ attn_split_kernel(const float* __restrict__ qkv,
     hopper::mbar_init(&bar[1], 1);
     hopper::fence_barrier_init();
   }
-  hopper::grid_dep_launch_dependents();
-  hopper::grid_dep_wait();       // qkv and the cache rows come from earlier kernels
-  __syncthreads();
-  if (tid == 0) {
-    issue(0);
-    issue(1);
+  if constexpr (TOKENS) {
+    // the verify's first kernel waits for all earlier work, so its cache
+    // rows < seq are final before any of its kernels starts: their copies
+    // go out before the wait, under the QKV product's tail
+    __syncthreads();
+    if (tid == 0) {
+      issue(0);
+      issue(1);
+    }
+    hopper::grid_dep_launch_dependents();
+    hopper::grid_dep_wait();     // qkv comes from the kernel before
+  } else {
+    hopper::grid_dep_launch_dependents();
+    hopper::grid_dep_wait();     // qkv and the cache rows come from earlier kernels
+    __syncthreads();
+    if (tid == 0) {
+      issue(0);
+      issue(1);
+    }
   }
 
-  const float* qh = qkv + (size_t)h * (group + 2) * hd;
-  for (int e = tid; e < group * hd; e += blockDim.x) raw[e] = qh[e];
-  __syncthreads();
   const float scale = LOG2E / sqrtf((float)hd);
-  for (int e = tid; e < group * hd; e += blockDim.x) {
-    const int i = e / hd, d = e % hd;
-    qb[e] = __float2bfloat16(rope_at(raw + i * hd, d, hd, cos, sin, neox) * scale);
+  if constexpr (TOKENS) {
+    const size_t qkv_tok = (size_t)gridDim.x * (group + 2) * hd;
+    for (int e = tid; e < nq * hd; e += blockDim.x) {
+      const int r = r0 + e / hd;
+      raw[e] = qkv[(r % n_tok) * qkv_tok + ((size_t)h * (group + 2) + r / n_tok) * hd + e % hd];
+    }
+    __syncthreads();
+    for (int e = tid; e < nq * hd; e += blockDim.x) {
+      const int i = e / hd, d = e % hd, t = (r0 + i) % n_tok;
+      qb[e] = __float2bfloat16(rope_at(raw + i * hd, d, hd, cos + (size_t)t * hd,
+                                       sin + (size_t)t * hd, neox) * scale);
+    }
+  } else {
+    const float* qh = qkv + (size_t)h * (group + 2) * hd;
+    for (int e = tid; e < group * hd; e += blockDim.x) raw[e] = qh[e];
+    __syncthreads();
+    for (int e = tid; e < group * hd; e += blockDim.x) {
+      const int i = e / hd, d = e % hd;
+      qb[e] = __float2bfloat16(rope_at(raw + i * hd, d, hd, cos, sin, neox) * scale);
+    }
   }
   __syncthreads();
 
-  // Q.K: row r = tid / 2 of each K tile, half tid % 2 of hd
-  const int half = tid & 1, np = hd / 16;  // 16-byte pieces per half row
-  for (int t = 0; t < nt; ++t) {
-    hopper::mbar_wait(&bar[t & 1], (t >> 1) & 1);
-    const int rows = min(tr, n - t * tr), r = tid >> 1;
-    float acc[ATT_MAX_GROUP];
+  // TOKENS (hd 128): Q.K and P.V on mma.sync m16n8k16, the q rows as M
+  // (padded to 16 with zeros), each k step's products summed from 0 and
+  // the steps added in float32; a warp owns 16 keys of a K tile, then 32
+  // columns of P.V, so no slices meet at the end.
+  const int g = lane / 4, tq = lane % 4;
+  uint32_t qa[TOKENS ? 8 : 1][4];          // Q as A fragments, hd / 16 k steps
+  if constexpr (TOKENS) {
 #pragma unroll
-    for (int i = 0; i < ATT_MAX_GROUP; ++i) acc[i] = 0.f;
-    if (r < rows) {
-      const __nv_bfloat16* krow = ring + (t & 1) * tr * hd + r * hd + half * (hd / 2);
-      const __nv_bfloat16* qhalf = qb + half * (hd / 2);
-      for (int c = 0; c < np; ++c) {
-        const int pc = (c + tid) % np;
-        float kf[8];
-        unpack8(*reinterpret_cast<const uint4*>(krow + pc * 8), kf);
+    for (int kd = 0; kd < 8; ++kd) {
+      const __nv_bfloat16* q0 = qb + g * hd + kd * 16 + 2 * tq;
+      auto ld = [&](const __nv_bfloat16* p, bool ok) {
+        return ok ? *reinterpret_cast<const uint32_t*>(p) : 0u;
+      };
+      qa[kd][0] = ld(q0, g < nq);
+      qa[kd][1] = ld(q0 + 8 * hd, g + 8 < nq);
+      qa[kd][2] = ld(q0 + 8, g < nq);
+      qa[kd][3] = ld(q0 + 8 * hd + 8, g + 8 < nq);
+    }
+    for (int t = 0; t < nt; ++t) {
+      hopper::mbar_wait(&bar[t & 1], (t >> 1) & 1);
+      const int trows = min(tr, n - t * tr), kb0 = wid * 16;
+      if (kb0 < trows) {
+        // lane's ldmatrix row: keys kb0 + (lane / 16) * 8 .., d (lane / 8 & 1) * 8 ..
+        const __nv_bfloat16* krow =
+            ring + (t & 1) * tr * hd +
+            min(kb0 + (lane / 16) * 8 + lane % 8, tr - 1) * hd + ((lane / 8) & 1) * 8;
+        float sk[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
-        for (int i = 0; i < ATT_MAX_GROUP; ++i) {
-          if (i < group) {
-            float qf[8];
-            unpack8(*reinterpret_cast<const uint4*>(qhalf + i * hd + pc * 8), qf);
+        for (int kd = 0; kd < 8; ++kd) {
+          uint32_t kf[4];
+          hopper::ldmatrix_x4(kf, krow + kd * 16);
+          float p0[4] = {0.f, 0.f, 0.f, 0.f}, p1[4] = {0.f, 0.f, 0.f, 0.f};
+          hopper::mma_m16n8k16_bf16(p0, qa[kd], kf[0], kf[1]);
+          hopper::mma_m16n8k16_bf16(p1, qa[kd], kf[2], kf[3]);
 #pragma unroll
-            for (int e = 0; e < 8; ++e) acc[i] = fmaf(qf[e], kf[e], acc[i]);
+          for (int c = 0; c < 4; ++c) {
+            sk[0][c] += p0[c];
+            sk[1][c] += p1[c];
+          }
+        }
+        // fragment c: q row g (+8 for c >= 2), key kb0 + 8j + 2tq (+1 odd c)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int row = g + (c >> 1) * 8, k = kb0 + 8 * j + 2 * tq + (c & 1);
+            if (row < nq && k < trows) sc[row * split + t * tr + k] = sk[j][c];
+          }
+      }
+      __syncthreads();                     // stage t & 1 is read
+      if (tid == 0 && t + 2 < 2 * nt) issue(t + 2);
+    }
+  } else {
+    // Q.K: row r = tid / 2 of each K tile, half tid % 2 of hd
+    const int half = tid & 1, np = hd / 16;  // 16-byte pieces per half row
+    for (int t = 0; t < nt; ++t) {
+      hopper::mbar_wait(&bar[t & 1], (t >> 1) & 1);
+      const int trows = min(tr, n - t * tr), r = tid >> 1;
+      float acc[MAXR];
+#pragma unroll
+      for (int i = 0; i < MAXR; ++i) acc[i] = 0.f;
+      if (r < trows) {
+        const __nv_bfloat16* krow = ring + (t & 1) * tr * hd + r * hd + half * (hd / 2);
+        const __nv_bfloat16* qhalf = qb + half * (hd / 2);
+        for (int c = 0; c < np; ++c) {
+          const int pc = (c + tid) % np;
+          float kf[8];
+          unpack8(*reinterpret_cast<const uint4*>(krow + pc * 8), kf);
+#pragma unroll
+          for (int i = 0; i < MAXR; ++i) {
+            if (i < nq) {
+              float qf[8];
+              unpack8(*reinterpret_cast<const uint4*>(qhalf + i * hd + pc * 8), qf);
+#pragma unroll
+              for (int e = 0; e < 8; ++e) acc[i] = fmaf(qf[e], kf[e], acc[i]);
+            }
           }
         }
       }
-    }
 #pragma unroll
-    for (int i = 0; i < ATT_MAX_GROUP; ++i) {
-      if (i < group) {
-        acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], 1);
-        if (half == 0 && r < rows) sc[i * split + t * tr + r] = acc[i];
+      for (int i = 0; i < MAXR; ++i) {
+        if (i < nq) {
+          acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], 1);
+          if (half == 0 && r < trows) sc[i * split + t * tr + r] = acc[i];
+        }
       }
+      __syncthreads();                       // stage t & 1 is read
+      if (tid == 0 && t + 2 < 2 * nt) issue(t + 2);
     }
-    __syncthreads();                       // stage t & 1 is read
-    if (tid == 0 && t + 2 < 2 * nt) issue(t + 2);
   }
 
   // softmax statistics per query row: warp i handles rows i, i+nw, ...
-  for (int i = wid; i < group; i += nw) {
+  for (int i = wid; i < nq; i += nw) {
     float mx = NEG_INF;
     for (int j = lane; j < n; j += 32) mx = fmaxf(mx, sc[i * split + j]);
     mx = warp_max(mx);
@@ -790,59 +1093,120 @@ attn_split_kernel(const float* __restrict__ qkv,
     }
     sum = warp_sum(sum);
     if (lane == 0) {
-      float* ml = part_ml + (((size_t)h * ns + s) * group + i) * 2;
+      float* ml = part_ml + (((size_t)h * ns + s) * qrows + r0 + i) * 2;
       ml[0] = mx;
       ml[1] = sum;
     }
   }
   __syncthreads();
 
-  // P.V: thread (slice sl, columns cg*8..cg*8+7) over rows sl, sl+slices, ...
-  const int ncg = hd / 8, slices = ATT_THREADS / ncg;
-  const int sl = tid / ncg, cg = tid % ncg;
-  float pv[ATT_MAX_GROUP][8];
+  if constexpr (TOKENS) {
+    float o[4][4];                         // columns 32 wid + 8j .., fragment c
 #pragma unroll
-  for (int i = 0; i < ATT_MAX_GROUP; ++i)
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) pv[i][c] = 0.f;
-  for (int t = 0; t < nt; ++t) {
-    const int u = nt + t;
-    hopper::mbar_wait(&bar[u & 1], (u >> 1) & 1);
-    const int rows = min(tr, n - t * tr);
-    if (sl < slices) {
-      const __nv_bfloat16* vt = ring + (u & 1) * tr * hd + cg * 8;
+      for (int c = 0; c < 4; ++c) o[j][c] = 0.f;
+    for (int t = 0; t < nt; ++t) {
+      const int u = nt + t;
+      hopper::mbar_wait(&bar[u & 1], (u >> 1) & 1);
+      const int trows = min(tr, n - t * tr);
       const float* pt = sc + t * tr;
-      for (int r = sl; r < rows; r += slices) {
-        float vf[8];
-        unpack8(*reinterpret_cast<const uint4*>(vt + r * hd), vf);
+      for (int k0 = 0; k0 < trows; k0 += 16) {
+        // P rows g, g + 8 and keys k0 + 2tq (+1, +8, +9) as A; 0 past nq / trows
+        auto p_at = [&](int row, int k) {
+          return row < nq && k < trows ? pt[row * split + k] : 0.f;
+        };
+        const int ka = k0 + 2 * tq;
+        const uint32_t pa[4] = {hopper::pack_bf16(p_at(g, ka), p_at(g, ka + 1)),
+                                hopper::pack_bf16(p_at(g + 8, ka), p_at(g + 8, ka + 1)),
+                                hopper::pack_bf16(p_at(g, ka + 8), p_at(g, ka + 9)),
+                                hopper::pack_bf16(p_at(g + 8, ka + 8), p_at(g + 8, ka + 9))};
+        const __nv_bfloat16* vrow = ring + (u & 1) * tr * hd +
+                                    min(k0 + ((lane / 8) & 1) * 8 + lane % 8, tr - 1) * hd +
+                                    32 * wid + (lane / 16) * 8;
 #pragma unroll
-        for (int i = 0; i < ATT_MAX_GROUP; ++i) {
-          if (i < group) {
-            const float p = pt[i * split + r];
+        for (int nb = 0; nb < 2; ++nb) {
+          uint32_t vf[4];
+          hopper::ldmatrix_x4_trans(vf, vrow + 16 * nb);
+          if (k0 + 16 > trows) {           // rows past the split's end: stale bytes
+            auto keep = [&](uint32_t r, int k) {
+              return (k < trows ? r & 0xffffu : 0u) | (k + 1 < trows ? r & 0xffff0000u : 0u);
+            };
+            vf[0] = keep(vf[0], ka);
+            vf[1] = keep(vf[1], ka + 8);
+            vf[2] = keep(vf[2], ka);
+            vf[3] = keep(vf[3], ka + 8);
+          }
+          float p0[4] = {0.f, 0.f, 0.f, 0.f}, p1[4] = {0.f, 0.f, 0.f, 0.f};
+          hopper::mma_m16n8k16_bf16(p0, pa, vf[0], vf[1]);
+          hopper::mma_m16n8k16_bf16(p1, pa, vf[2], vf[3]);
 #pragma unroll
-            for (int c = 0; c < 8; ++c) pv[i][c] = fmaf(p, vf[c], pv[i][c]);
+          for (int c = 0; c < 4; ++c) {
+            o[2 * nb][c] += p0[c];
+            o[2 * nb + 1][c] += p1[c];
           }
         }
       }
+      __syncthreads();                     // stage u & 1 is read
+      if (tid == 0 && u + 2 < 2 * nt) issue(u + 2);
     }
-    __syncthreads();                       // stage u & 1 is read
-    if (tid == 0 && u + 2 < 2 * nt) issue(u + 2);
-  }
-  if (sl < slices) {
+    // fragment c: q row g (+8 for c >= 2), column 32 wid + 8j + 2tq (+1 odd c)
+    float* out = part_acc + (((size_t)h * ns + s) * qrows + r0) * hd;
 #pragma unroll
-    for (int i = 0; i < ATT_MAX_GROUP; ++i) {
-      if (i < group) {
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int c = 0; c < 8; ++c) red[(sl * group + i) * hd + cg * 8 + c] = pv[i][c];
+      for (int c = 0; c < 4; ++c) {
+        const int row = g + (c >> 1) * 8;
+        if (row < nq) out[row * hd + 32 * wid + 8 * j + 2 * tq + (c & 1)] = o[j][c];
+      }
+  } else {
+    // P.V: thread (slice sl, columns cg*8..cg*8+7) over rows sl, sl+slices, ...
+    const int ncg = hd / 8, slices = ATT_THREADS / ncg;
+    const int sl = tid / ncg, cg = tid % ncg;
+    float pv[MAXR][8];
+#pragma unroll
+    for (int i = 0; i < MAXR; ++i)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) pv[i][c] = 0.f;
+    for (int t = 0; t < nt; ++t) {
+      const int u = nt + t;
+      hopper::mbar_wait(&bar[u & 1], (u >> 1) & 1);
+      const int trows = min(tr, n - t * tr);
+      if (sl < slices) {
+        const __nv_bfloat16* vt = ring + (u & 1) * tr * hd + cg * 8;
+        const float* pt = sc + t * tr;
+        for (int r = sl; r < trows; r += slices) {
+          float vf[8];
+          unpack8(*reinterpret_cast<const uint4*>(vt + r * hd), vf);
+#pragma unroll
+          for (int i = 0; i < MAXR; ++i) {
+            if (i < nq) {
+              const float p = pt[i * split + r];
+#pragma unroll
+              for (int c = 0; c < 8; ++c) pv[i][c] = fmaf(p, vf[c], pv[i][c]);
+            }
+          }
+        }
+      }
+      __syncthreads();                       // stage u & 1 is read
+      if (tid == 0 && u + 2 < 2 * nt) issue(u + 2);
+    }
+    if (sl < slices) {
+#pragma unroll
+      for (int i = 0; i < MAXR; ++i) {
+        if (i < nq) {
+#pragma unroll
+          for (int c = 0; c < 8; ++c) red[(sl * nq + i) * hd + cg * 8 + c] = pv[i][c];
+        }
       }
     }
-  }
-  __syncthreads();
-  float* out = part_acc + ((size_t)h * ns + s) * group * hd;
-  for (int e = tid; e < group * hd; e += blockDim.x) {
-    float a = 0.f;
-    for (int q = 0; q < slices; ++q) a += red[q * group * hd + e];
-    out[e] = a;
+    __syncthreads();
+    float* out = part_acc + (((size_t)h * ns + s) * qrows + r0) * hd;
+    for (int e = tid; e < nq * hd; e += blockDim.x) {
+      float a = 0.f;
+      for (int q = 0; q < slices; ++q) a += red[q * nq * hd + e];
+      out[e] = a;
+    }
   }
 }
 
@@ -952,7 +1316,7 @@ int launch_attention(const float* qkv, const __nv_bfloat16* kc_read,
     return (int)cudaErrorInvalidValue;
   static bool attrs_set = false;
   if (!attrs_set) {
-    CF_CHECK((int)cudaFuncSetAttribute(attn_split_kernel,
+    CF_CHECK((int)cudaFuncSetAttribute(attn_split_kernel<ATT_MAX_GROUP, false>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        ATT_SPLIT_SMEM_MAX));
     attrs_set = true;
@@ -962,9 +1326,9 @@ int launch_attention(const float* qkv, const __nv_bfloat16* kc_read,
   const size_t merge_smem = sizeof(float) * ((size_t)(2 * group + 3) * hd + group);
   if (split_smem > (size_t)ATT_SPLIT_SMEM_MAX) return (int)cudaErrorInvalidValue;
   if (ns > 0) {
-    CF_CHECK(launch_kernel(attn_split_kernel, dim3(kv_heads, ns), dim3(ATT_THREADS),
-                           split_smem, st, pdl, qkv, kc_read, vc_read, cos, sin, part_ml,
-                           part_acc, group, hd, cap, seq, split, neox));
+    CF_CHECK(launch_kernel(attn_split_kernel<ATT_MAX_GROUP, false>, dim3(kv_heads, ns),
+                           dim3(ATT_THREADS), split_smem, st, pdl, qkv, kc_read, vc_read, cos,
+                           sin, part_ml, part_acc, group, hd, cap, seq, split, neox, 1));
     ++*n;
   }
   CF_CHECK(launch_kernel(attn_merge_kernel, dim3(kv_heads), dim3(ATT_THREADS), merge_smem,

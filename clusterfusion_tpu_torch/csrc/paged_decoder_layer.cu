@@ -23,8 +23,9 @@
 //   resnorm    r = x + res (f32); res_out = bf16(r);
 //              xn = bf16(rmsnorm(r) * w)   (common.cuh, one block per row)
 //   ring gemv  qkv[b] = xn[b] @ wqkv_f[l]  (f32; every weight row read once
-//              for all B rows, on mma.sync from 2 rows, K chunks summed in
-//              a fixed order in a cluster; common.cuh, shared with kernel 8)
+//              for all B rows: from 2 rows common.cuh's rows GEMV, weights
+//              as TMA boxes into a ring, mma.sync, K chunks summed in a
+//              fixed order in a cluster; shared with kernel 8)
 //   split      per (split, kv head, request): the split's cached rows,
 //              bulk-copied; q roped from qkv (paged_attention.cuh)
 //   merge      the current token and the splits in order; o; the append of
@@ -88,8 +89,8 @@ extern "C" int cf_paged_decoder_layer(
       nullptr, 0, nullptr, 0);
   CF_CHECK((int)cudaGetLastError());
   ++*n_launches;
-  CF_CHECK(launch_ring_gemv<false>(xnb, hidden, 0, wq, qkvf, B, hidden, (int)C, G,
-                                   (long long)hidden * C, qkv_n, C, GEMV_THREADS, true, st));
+  CF_CHECK(launch_ring_gemv(xnb, hidden, wq, qkvf, B, hidden, (int)C, G, (long long)hidden * C,
+                            qkv_n, C, GEMV_THREADS, true, st));
   ++*n_launches;
 
   PagedArgs a{};
@@ -117,9 +118,8 @@ extern "C" int cf_paged_decoder_layer(
   CF_CHECK(launch_paged_attn<true>(a, B, hd, true, st));
   *n_launches += 2;
 
-  CF_CHECK(launch_ring_gemv<false>(ob, Ko, 0, wol, nullptr, B, (int)Ko, hidden, 1, 0,
-                                   hidden, 0, GEMV_THREADS, true, st,
-                                   static_cast<__nv_bfloat16*>(out)));
+  CF_CHECK(launch_ring_gemv(ob, Ko, wol, nullptr, B, (int)Ko, hidden, 1, 0, hidden, 0,
+                            GEMV_THREADS, true, st, static_cast<__nv_bfloat16*>(out)));
   ++*n_launches;
   return 0;
 }

@@ -136,7 +136,8 @@ extern "C" int cf_decoder_stack(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const CfComm* cc = static_cast<const CfComm*>(comm);
   *n_launches = 0;
-  if (group > ATT_MAX_GROUP || hd % 32 != 0 || hd > 4 * 32 || threads % 32 != 0 ||
+  // hd 128 only: others (Gemma-2's 256) are not ported yet
+  if (group > ATT_MAX_GROUP || hd != 128 || threads % 32 != 0 ||
       threads < 32 || threads > G1_MAX_THREADS || pos < 0 || pos >= cap ||
       kv_heads % hg != 0 || (cc && hidden % 4 != 0))
     return (int)cudaErrorInvalidValue;

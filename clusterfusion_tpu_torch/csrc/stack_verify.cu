@@ -12,21 +12,26 @@
 // What bounds it: the products read every weight once for up to 16 rows
 // (13.4 GB at Llama-2-7B) and do 2n operations per weight byte, far under
 // the card's ~295 operations per byte, so bytes bound it, as they bound the
-// one-row stack.  The GEMVs are common.cuh's ring GEMV in its tensor-core
-// form: weights stream through shared memory, mma.sync takes up to 16 rows
-// of x at once, and the K chunks of a column tile meet inside a
-// thread-block cluster in a fixed order, so one call on the same inputs
-// gives the same bits every time and the products write their outputs
-// whole.  The attention reads the cache rows < pos once per kv head and
-// tile of up to 16 query rows.
+// one-row stack.  The GEMVs are common.cuh's rows GEMV: weights stream as
+// TMA boxes through a shared-memory ring, mma.sync takes up to 16 rows of
+// x at once, and the K chunks of a column tile meet inside a thread-block
+// cluster in a fixed order, so one call on the same inputs gives the same
+// bits every time and the products write their outputs whole.  The
+// attention's split pass is the stack's own (common.cuh's
+// attn_split_kernel, in its n-token instance): each split's K and V rows
+// bulk-copied into shared memory once per kv head and tile of up to 16
+// query rows.  Every kernel after the first is launched with programmatic
+// dependent launch, as in the one-row stack: it starts while the one
+// before it runs (a GEMV streams its first weight stages) and waits inside
+// before it reads that one's output.
 //
 // The sequence per layer is stack_kernel.cu's at M = n rows, on one stream:
 //   resnorm  grid n: r1 = hx + res; xn = bf16(rmsnorm(r1) * attn_norm)
 //   gemv     qkv[t] = xn[t] @ wqkv_f[l]
-//   split    verify_split_kernel: per (kv head, split of cache rows < pos,
-//            tile of query rows), q roped, scaled by 1/sqrt(hd)*log2(e) and
-//            rounded to bf16; one thread per cache row forms the q.k dots of
-//            the tile; bf16(p) . V; one partial (m, l, acc) per query row
+//   split    attn_split_kernel<8 or 16, true>: per (kv head, split of cache
+//            rows < pos, tile of query rows), q roped, scaled by
+//            1/sqrt(hd)*log2(e) and rounded to bf16; bf16(p) . V against
+//            the split's own max; one partial (m, l, acc) per query row
 //   merge    verify_merge_kernel: per (kv head, q head row), merge the
 //            partials, fold in the n x n causal block of fresh rows (scores
 //            from the float32 q and k, then bf16(p) . bf16(v), as the TPU
@@ -34,134 +39,31 @@
 //            o[t] = bf16(acc / l), token-major
 //   gemv     aout[t] = o[t] @ wo_f[l]
 //   resnorm  r2 = aout + r1; xn = bf16(rmsnorm(r2) * ffn_norm)
-//   gemv     gu[t] = xn[t] @ w13[l]
-//   gemv     hx[t] = bf16(silu(gate) * up) @ w2[l]
+//   gemv     act[t] = bf16(silu(xn[t] @ w13[l][0]) * (xn[t] @ w13[l][1]))
+//            (the rows GEMV's pair epilogue; at n = 1 the one-row GEMV
+//            writes gate and up in f32 and the down product forms act)
+//   gemv     hx[t] = act[t] @ w2[l]
 // and once per call the final resnorm and the LM-head GEMV (or the bf16
 // outputs without an LM head).  The hidden pair stays float32 across layers.
 //
 // Query row r of kv head h is (head row i, token t) with r = i*n + t, the
-// TPU kernel's panel order.  What bounds the attention kernels: a split
-// block keeps ROW_TILE accumulators per thread in its p.V loop, so more
-// query rows (group * n > ROW_TILE) take more tiles, each reading the
-// split's K/V rows again (from L2); the merge keeps the n fresh q, k and v
-// rows of its head in shared memory, so n <= MAX_N.
+// TPU kernel's panel order.  The merge keeps the n fresh q, k and v rows of
+// its head in shared memory, so n <= MAX_N.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int ROW_TILE = 16;
 constexpr int MAX_N = 32;
-constexpr int ATT_SMEM_MAX = 96 * 1024;
+constexpr int MERGE_SMEM_MAX = 96 * 1024;
 
-// Split-KV pass over cache rows [s*split, min((s+1)*split, pos)) of kv head
-// h = blockIdx.x, s = blockIdx.y, for query rows blockIdx.z*ROW_TILE.. .
-// Writes part_ml [kv, ns, group*n, 2] (max, sum) and part_acc
-// [kv, ns, group*n, hd].  qkv is [n, kv*(group+2)*hd]; cos/sin [n, hd].
-__global__ void __launch_bounds__(ATT_THREADS)
-verify_split_kernel(const float* __restrict__ qkv,
-                    const __nv_bfloat16* __restrict__ kc,
-                    const __nv_bfloat16* __restrict__ vc,
-                    const float* __restrict__ cos, const float* __restrict__ sin,
-                    float* __restrict__ part_ml, float* __restrict__ part_acc,
-                    int n, int group, int hd, int cap, int pos, int split,
-                    int neox) {
-  extern __shared__ float sm[];
-  float* qb = sm;                        // [ROW_TILE][hd] roped, scaled, bf16-rounded
-  float* sc = qb + ROW_TILE * hd;        // [ROW_TILE][split] scores, then bf16(p)
-  const int h = blockIdx.x, s = blockIdx.y, ns = gridDim.y;
-  const int rows = group * n;
-  const int r0 = blockIdx.z * ROW_TILE;
-  const int nr = min(ROW_TILE, rows - r0);
-  const int tid = threadIdx.x, lane = tid % 32, wid = tid / 32;
-  const int nw = blockDim.x / 32;
-  const size_t qkv_n = (size_t)gridDim.x * (group + 2) * hd;
-  const float scale = LOG2E / sqrtf((float)hd);
-  for (int e = tid; e < nr * hd; e += blockDim.x) {
-    const int r = e / hd, d = e % hd;
-    const int i = (r0 + r) / n, t = (r0 + r) % n;
-    const float* raw = qkv + t * qkv_n + ((size_t)h * (group + 2) + i) * hd;
-    qb[e] = bf16_round(rope_at(raw, d, hd, cos + (size_t)t * hd,
-                               sin + (size_t)t * hd, neox) * scale);
-  }
-  __syncthreads();
-
-  const int j0 = s * split;
-  const int nj = min(split, pos - j0);
-  const __nv_bfloat16* kh = kc + (size_t)h * cap * hd;
-  const __nv_bfloat16* vh = vc + (size_t)h * cap * hd;
-  // one thread per cache row: 16-byte loads of its K row, all the tile's
-  // dots at once (q is read from shared memory as a broadcast)
-  for (int j = tid; j < nj; j += blockDim.x) {
-    const uint4* krow = reinterpret_cast<const uint4*>(kh + (size_t)(j0 + j) * hd);
-    float acc[ROW_TILE];
-#pragma unroll
-    for (int r = 0; r < ROW_TILE; ++r) acc[r] = 0.f;
-    for (int c = 0; c < hd / 8; c += 4) {
-      uint4 u[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) u[q] = __ldg(krow + c + q);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        float f[8];
-        unpack8(u[q], f);
-        const float* qd = qb + (c + q) * 8;
-#pragma unroll
-        for (int r = 0; r < ROW_TILE; ++r) {
-          if (r < nr) {
-#pragma unroll
-            for (int e = 0; e < 8; ++e) acc[r] = fmaf(qd[r * hd + e], f[e], acc[r]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < ROW_TILE; ++r)
-      if (r < nr) sc[r * split + j] = acc[r];
-  }
-  __syncthreads();
-
-  // softmax statistics per query row: warp w handles rows w, w+nw, ...
-  for (int r = wid; r < nr; r += nw) {
-    float mx = NEG_INF;
-    for (int j = lane; j < nj; j += 32) mx = fmaxf(mx, sc[r * split + j]);
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < nj; j += 32) {
-      const float p = exp2f(sc[r * split + j] - mx);
-      sum += p;
-      sc[r * split + j] = bf16_round(p);   // the p.V dot takes bf16 p
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      float* ml = part_ml + (((size_t)h * ns + s) * rows + r0 + r) * 2;
-      ml[0] = mx;
-      ml[1] = sum;
-    }
-  }
-  __syncthreads();
-
-  for (int d = tid; d < hd; d += blockDim.x) {
-    float acc[ROW_TILE];
-#pragma unroll
-    for (int r = 0; r < ROW_TILE; ++r) acc[r] = 0.f;
-#pragma unroll 8
-    for (int j = 0; j < nj; ++j) {
-      const float vv = __bfloat162float(vh[(size_t)(j0 + j) * hd + d]);
-#pragma unroll
-      for (int r = 0; r < ROW_TILE; ++r)
-        if (r < nr) acc[r] = fmaf(sc[r * split + j], vv, acc[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < ROW_TILE; ++r)
-      if (r < nr) part_acc[(((size_t)h * ns + s) * rows + r0 + r) * hd + d] = acc[r];
-  }
-}
-
-// Merge of kv head h = blockIdx.x, q head row i = blockIdx.y over its n
-// query rows: the split partials plus the causal block of the n fresh rows,
-// o[t*kv*group*hd + (h*group + i)*hd + d] = bf16(acc / l).  The blocks with
-// i = 0 append the fresh bf16 K/V rows of head h at pos..pos+n-1.
+// Merge of kv head h = blockIdx.x, q head row i = blockIdx.y and token t =
+// blockIdx.z: the split partials plus the causal block of the fresh rows j
+// <= t, o[t*kv*group*hd + (h*group + i)*hd + d] = bf16(acc / l).  The
+// blocks with i = 0 append fresh row t's bf16 K/V at pos + t.  One block
+// per query row, so that the partials of every row are read at once (a
+// block per q head row walked its n rows' splits one after another); the
+// splits' maximum is exact in any order and their sum runs in a fixed one.
 __global__ void __launch_bounds__(ATT_THREADS)
 verify_merge_kernel(const float* __restrict__ qkv,
                     const float* __restrict__ part_ml,
@@ -170,68 +72,112 @@ verify_merge_kernel(const float* __restrict__ qkv,
                     __nv_bfloat16* __restrict__ kc, __nv_bfloat16* __restrict__ vc,
                     __nv_bfloat16* __restrict__ o, int n, int group, int hd,
                     int cap, int pos, int ns, int neox) {
+  hopper::grid_dep_launch_dependents();   // the O-projection may start
+  hopper::grid_dep_wait();
   extern __shared__ float sm[];
-  float* qr = sm;                        // [n][hd] roped, scaled f32 q of row i
-  float* kr = qr + n * hd;               // [n][hd] roped f32 fresh k
-  float* vb = kr + n * hd;               // [n][hd] bf16-rounded fresh v
-  float* scur = vb + n * hd;             // [n][n] fresh scores, j <= t
-  const int h = blockIdx.x, i = blockIdx.y, kv_heads = gridDim.x;
+  float* qr = sm;                        // [hd] roped, scaled f32 q of row (i, t)
+  float* kr = qr + hd;                   // [t + 1][hd] roped f32 fresh k
+  float* vb = kr + n * hd;               // [t + 1][hd] bf16-rounded fresh v
+  float* scur = vb + n * hd;             // [t + 1] fresh scores
+  float* es = scur + n;                  // [ns] exp2(split max - max)
+  __shared__ float red[32];
+  const int h = blockIdx.x, i = blockIdx.y, t = blockIdx.z, kv_heads = gridDim.x;
   const int tid = threadIdx.x, lane = tid % 32, wid = tid / 32;
   const int nw = blockDim.x / 32;
   const int rows = group * n;
+  const size_t qrow = (size_t)h * ns * rows + (size_t)i * n + t;   // split 0's row
   const size_t qkv_n = (size_t)kv_heads * (group + 2) * hd;
   const float scale = LOG2E / sqrtf((float)hd);
-  for (int e = tid; e < n * hd; e += blockDim.x) {
-    const int t = e / hd, d = e % hd;
-    const float* head = qkv + t * qkv_n + (size_t)h * (group + 2) * hd;
-    const float* ct = cos + (size_t)t * hd;
-    const float* st = sin + (size_t)t * hd;
-    qr[e] = rope_at(head + i * hd, d, hd, ct, st, neox) * scale;
+  for (int e = tid; e < (t + 1) * hd; e += blockDim.x) {
+    const int j = e / hd, d = e % hd;
+    const float* head = qkv + j * qkv_n + (size_t)h * (group + 2) * hd;
+    const float* ct = cos + (size_t)j * hd;
+    const float* st = sin + (size_t)j * hd;
     const float kd = rope_at(head + group * hd, d, hd, ct, st, neox);
     const float vd = head[(group + 1) * hd + d];
     kr[e] = kd;
     vb[e] = bf16_round(vd);
-    if (i == 0) {
-      const size_t row = ((size_t)h * cap + pos + t) * hd + d;
-      kc[row] = __float2bfloat16(kd);
-      vc[row] = __float2bfloat16(vd);
+    if (j == t) {
+      qr[d] = rope_at(head + i * hd, d, hd, ct, st, neox) * scale;
+      if (i == 0) {
+        const size_t row = ((size_t)h * cap + pos + t) * hd + d;
+        kc[row] = __float2bfloat16(kd);
+        vc[row] = __float2bfloat16(vd);
+      }
     }
   }
+  float mx = NEG_INF;                    // the splits' maxima, threads over splits
+  for (int s = tid; s < ns; s += blockDim.x)
+    mx = fmaxf(mx, part_ml[(qrow + (size_t)s * rows) * 2]);
   __syncthreads();
-  for (int pr = wid; pr < n * n; pr += nw) {
-    const int t = pr / n, j = pr % n;
-    if (j > t) continue;                 // uniform over the warp
+  for (int j = wid; j <= t; j += nw) {   // one warp per fresh row
     float part = 0.f;
-    for (int d = lane; d < hd; d += 32) part = fmaf(qr[t * hd + d], kr[j * hd + d], part);
+    for (int d = lane; d < hd; d += 32) part = fmaf(qr[d], kr[j * hd + d], part);
     part = warp_sum(part);
-    if (lane == 0) scur[pr] = part;
+    if (lane == 0) scur[j] = part;
   }
+  mx = warp_max(mx);
+  if (lane == 0) red[wid] = mx;
   __syncthreads();
+  mx = NEG_INF;
+  for (int w = 0; w < nw; ++w) mx = fmaxf(mx, red[w]);
+  for (int j = 0; j <= t; ++j) mx = fmaxf(mx, scur[j]);
+  float lp = 0.f;
+  for (int s = tid; s < ns; s += blockDim.x) {
+    const size_t idx = qrow + (size_t)s * rows;
+    const float e = exp2f(part_ml[idx * 2] - mx);
+    es[s] = e;
+    lp = fmaf(part_ml[idx * 2 + 1], e, lp);
+  }
+  const float l_split = block_sum(lp, red);   // its barriers publish es too
   for (int d = tid; d < hd; d += blockDim.x) {
-    for (int t = 0; t < n; ++t) {
-      const size_t qrow = (size_t)h * ns * rows + (size_t)i * n + t;   // split 0
-      float mx = NEG_INF;
-      for (int j = 0; j <= t; ++j) mx = fmaxf(mx, scur[t * n + j]);
-      for (int s = 0; s < ns; ++s) mx = fmaxf(mx, part_ml[(qrow + (size_t)s * rows) * 2]);
-      float l = 0.f, acc = 0.f;
-      for (int s = 0; s < ns; ++s) {
-        const size_t idx = qrow + (size_t)s * rows;
-        const float e = exp2f(part_ml[idx * 2] - mx);
-        l = fmaf(part_ml[idx * 2 + 1], e, l);
-        acc = fmaf(part_acc[idx * hd + d], e, acc);
-      }
-      for (int j = 0; j <= t; ++j) {
-        const float p = exp2f(scur[t * n + j] - mx);
-        l += p;
-        acc = fmaf(bf16_round(p), vb[j * hd + d], acc);
-      }
-      o[(size_t)t * kv_heads * group * hd + ((size_t)h * group + i) * hd + d] =
-          __float2bfloat16(acc / l);
+    float acc = 0.f, l = l_split;
+#pragma unroll 8
+    for (int s = 0; s < ns; ++s)
+      acc = fmaf(part_acc[(qrow + (size_t)s * rows) * hd + d], es[s], acc);
+    for (int j = 0; j <= t; ++j) {
+      const float p = exp2f(scur[j] - mx);
+      l += p;
+      acc = fmaf(bf16_round(p), vb[j * hd + d], acc);
     }
+    o[(size_t)t * kv_heads * group * hd + ((size_t)h * group + i) * hd + d] =
+        __float2bfloat16(acc / l);
   }
 }
 
 size_t align16(size_t n) { return (n + 15) / 16 * 16; }
+
+// The split pass's instance for `rows` query rows a kv head: tiles of up
+// to 8 rows where they fit, else of up to ATT_MAX_ROWS.
+struct SplitPlan {
+  void (*kern)(const float*, const __nv_bfloat16*, const __nv_bfloat16*, const float*,
+               const float*, float*, float*, int, int, int, int, int, int, int);
+  int tile_rows, tiles;
+};
+SplitPlan split_plan(int rows) {
+  if (rows <= ATT_MAX_GROUP)
+    return {attn_split_kernel<ATT_MAX_GROUP, true>, rows, 1};
+  return {attn_split_kernel<ATT_MAX_ROWS, true>, std::min(rows, ATT_MAX_ROWS),
+          (rows + ATT_MAX_ROWS - 1) / ATT_MAX_ROWS};
+}
+
+// The split and merge passes' shared-memory allowances, set once.
+int set_attrs() {
+  static bool attrs_set = false;
+  if (!attrs_set) {
+    CF_CHECK((int)cudaFuncSetAttribute(attn_split_kernel<ATT_MAX_GROUP, true>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       G1_SMEM_MAX));
+    CF_CHECK((int)cudaFuncSetAttribute(attn_split_kernel<ATT_MAX_ROWS, true>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       G1_SMEM_MAX));
+    CF_CHECK((int)cudaFuncSetAttribute(verify_merge_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       MERGE_SMEM_MAX));
+    attrs_set = true;
+  }
+  return 0;
+}
 
 struct Scratch {
   float *hx, *res_a, *res_b, *aout, *qkv, *gu, *part_ml, *part_acc;
@@ -274,6 +220,40 @@ extern "C" long long cf_verify_scratch_floats(int n, int hidden, int kv_heads,
                            kv_split).floats;
 }
 
+// The verify's split pass alone (one launch of attn_split_kernel in its
+// n-token instance; the card tests hold it against the plain split): qkv
+// f32 [n][kv*(group+2)*hd], cos/sin f32 [n, hd], caches bf16 [kv, cap, hd]
+// of which rows < seq are read in splits of `split`; writes part_ml
+// [kv, ns, group*n, 2] and part_acc [kv, ns, group*n, hd].  Returns a
+// cudaError_t (0 on success).
+extern "C" int cf_verify_split(const void* qkv, const void* kc, const void* vc,
+                               const void* cos, const void* sin, void* part_ml,
+                               void* part_acc, int n, int kv_heads, int group, int hd,
+                               int cap, int seq, int split, int neox, void* stream) {
+  const SplitPlan sp = split_plan(group * n);
+  const size_t smem = attn_split_smem(sp.tile_rows, hd, split, true);
+  if (n < 1 || group < 1 || hd != 128 || split < 1 || split > ATT_MAX_SPLIT || seq < 1 ||
+      seq > cap || smem > (size_t)G1_SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  CF_CHECK(set_attrs());
+  const int ns = (seq + split - 1) / split;
+  return launch_kernel(sp.kern, dim3(kv_heads, ns, sp.tiles),
+                       dim3(ATT_THREADS), smem, static_cast<cudaStream_t>(stream), false,
+                       static_cast<const float*>(qkv), static_cast<const __nv_bfloat16*>(kc),
+                       static_cast<const __nv_bfloat16*>(vc), static_cast<const float*>(cos),
+                       static_cast<const float*>(sin), static_cast<float*>(part_ml),
+                       static_cast<float*>(part_acc), group, hd, cap, seq, split, neox, n);
+}
+
+// The phase stamps of one of kernel 8's products inside a call (chip_smoke.py
+// phase 9): the rows GEMV launched `at`-th (from 0) after this call records
+// %globaltimer stamps into `stamps` (uint64 [blocks][8]); at < 0 turns the
+// probe off.  Returns 0.
+extern "C" int cf_verify_probe_gemv(void* stamps, int at) {
+  rg_probe = RgProbe{static_cast<unsigned long long*>(stamps), at, 0};
+  return 0;
+}
+
 // One n-row verify at positions pos..pos+n-1 through all L layers, on
 // `stream`.  x is bf16 [n, hidden], cos/sin f32 [n, hd].  lm_head ==
 // nullptr: writes out_x/out_res (bf16 [n, hidden]); otherwise writes logits
@@ -290,23 +270,17 @@ extern "C" int cf_verify_stack(
     int kv_split, int threads, int* n_launches, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   *n_launches = 0;
-  const size_t split_smem = sizeof(float) * ((size_t)ROW_TILE * hd + (size_t)ROW_TILE * kv_split);
-  const size_t merge_smem = sizeof(float) * ((size_t)3 * n * hd + (size_t)n * n);
-  if (n < 1 || n > MAX_N || hd % 32 != 0 || threads % 32 != 0 || threads < 32 ||
-      threads > G1_MAX_THREADS || kv_split < 1 ||
+  // hd 128 only: others (Gemma-2's 256) are not ported yet
+  const SplitPlan sp = split_plan(group * n);
+  const size_t split_smem = attn_split_smem(sp.tile_rows, hd, kv_split, true);
+  const int ns = (pos + kv_split - 1) / kv_split;
+  const size_t merge_smem = sizeof(float) * ((size_t)(2 * n + 1) * hd + n + ns);
+  if (n < 1 || n > MAX_N || hd != 128 || group < 1 || threads % 32 != 0 || threads < 32 ||
+      threads > G1_MAX_THREADS || kv_split < 1 || kv_split > ATT_MAX_SPLIT ||
       pos < 0 || pos + n > cap || kv_heads % hg != 0 ||
-      split_smem > ATT_SMEM_MAX || merge_smem > ATT_SMEM_MAX)
+      split_smem > (size_t)G1_SMEM_MAX || merge_smem > (size_t)MERGE_SMEM_MAX)
     return (int)cudaErrorInvalidValue;
-  static bool attrs_set = false;
-  if (!attrs_set) {
-    CF_CHECK((int)cudaFuncSetAttribute(verify_split_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       ATT_SMEM_MAX));
-    CF_CHECK((int)cudaFuncSetAttribute(verify_merge_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       ATT_SMEM_MAX));
-    attrs_set = true;
-  }
+  CF_CHECK(set_attrs());
   Scratch s = layout(static_cast<float*>(scratch), n, hidden, kv_heads, group, hd,
                      cap, f_pad, kv_split);
   const int G = kv_heads / hg;
@@ -314,8 +288,6 @@ extern "C" int cf_verify_stack(
   const long long Ko = (long long)hg * group * hd;       // wo rows per group
   const int qkv_n = kv_heads * (group + 2) * hd;
   const int o_n = kv_heads * group * hd;
-  const int ns = (pos + kv_split - 1) / kv_split;
-  const int tiles = (group * n + ROW_TILE - 1) / ROW_TILE;
   const float* cosf = static_cast<const float*>(cos);
   const float* sinf = static_cast<const float*>(sin);
   int k = 0;
@@ -330,67 +302,69 @@ extern "C" int cf_verify_stack(
     __nv_bfloat16* kcl = static_cast<__nv_bfloat16*>(kc) + (size_t)l * kv_heads * cap * hd;
     __nv_bfloat16* vcl = static_cast<__nv_bfloat16*>(vc) + (size_t)l * kv_heads * cap * hd;
 
-    // residual add + attention RMSNorm per row
-    resnorm_kernel<<<n, NORM_THREADS, 0, st>>>(
+    // residual add + attention RMSNorm per row (the call's first kernel
+    // waits for everything before it on the stream; the rest overlap)
+    CF_CHECK(launch_kernel(resnorm_kernel, dim3(n), dim3(NORM_THREADS), 0, st, l > 0,
         l == 0 ? nullptr : s.hx,
         l == 0 ? static_cast<const __nv_bfloat16*>(x) : nullptr,
         l == 0 ? nullptr : s.res_a, nullptr, an, s.res_b, nullptr, s.xn, nullptr,
-        nullptr, hidden, eps, nullptr, 0, nullptr, 0);
-    CF_CHECK((int)cudaGetLastError());
+        nullptr, hidden, eps, nullptr, 0, nullptr, 0));
     ++k;
-    CF_CHECK((launch_ring_gemv<false>(s.xn, hidden, 0, wq, s.qkv, n, hidden, (int)C, G,
-                                      (long long)hidden * C, qkv_n, C, threads, false,
-                                      st)));
+    CF_CHECK(launch_ring_gemv(s.xn, hidden, wq, s.qkv, n, hidden, (int)C, G,
+                              (long long)hidden * C, qkv_n, C, threads, true, st));
     ++k;
     if (ns > 0) {
-      verify_split_kernel<<<dim3(kv_heads, ns, tiles), ATT_THREADS, split_smem, st>>>(
-          s.qkv, kcl, vcl, cosf, sinf, s.part_ml, s.part_acc, n, group, hd, cap,
-          pos, kv_split, neox);
-      CF_CHECK((int)cudaGetLastError());
+      CF_CHECK(launch_kernel(sp.kern, dim3(kv_heads, ns, sp.tiles),
+                             dim3(ATT_THREADS), split_smem, st, true, s.qkv, kcl, vcl, cosf,
+                             sinf, s.part_ml, s.part_acc, group, hd, cap, pos, kv_split,
+                             neox, n));
       ++k;
     }
-    verify_merge_kernel<<<dim3(kv_heads, group), ATT_THREADS, merge_smem, st>>>(
-        s.qkv, s.part_ml, s.part_acc, cosf, sinf, kcl, vcl, s.o, n, group, hd, cap,
-        pos, ns, neox);
-    CF_CHECK((int)cudaGetLastError());
+    CF_CHECK(launch_kernel(verify_merge_kernel, dim3(kv_heads, group, n), dim3(ATT_THREADS),
+                           merge_smem, st, true, s.qkv, s.part_ml, s.part_acc, cosf, sinf,
+                           kcl, vcl, s.o, n, group, hd, cap, pos, ns, neox));
     ++k;
     // wo_f[l] is [G * Ko, hidden] row-major: one product sums the groups
-    CF_CHECK((launch_ring_gemv<false>(s.o, o_n, 0, wol, s.aout, n, (int)(G * Ko), hidden,
-                                      1, 0, hidden, 0, threads, false, st)));
+    CF_CHECK(launch_ring_gemv(s.o, o_n, wol, s.aout, n, (int)(G * Ko), hidden, 1, 0, hidden,
+                              0, threads, true, st));
     ++k;
     // attention-out residual add + FFN RMSNorm
-    resnorm_kernel<<<n, NORM_THREADS, 0, st>>>(
+    CF_CHECK(launch_kernel(resnorm_kernel, dim3(n), dim3(NORM_THREADS), 0, st, true,
         s.aout, nullptr, s.res_b, nullptr, fn, s.res_a, nullptr, s.xn, nullptr,
-        nullptr, hidden, eps, nullptr, 0, nullptr, 0);
-    CF_CHECK((int)cudaGetLastError());
+        nullptr, hidden, eps, nullptr, 0, nullptr, 0));
     ++k;
-    CF_CHECK((launch_ring_gemv<false>(s.xn, hidden, 0, w13l, s.gu, n, hidden, f_pad, 2,
-                                      (long long)hidden * f_pad, 2LL * f_pad, f_pad,
-                                      threads, false, st)));
-    ++k;
-    CF_CHECK((launch_ring_gemv<true>(s.gu, 2LL * f_pad, f_pad, w2l, s.hx, n, f_pad,
-                                     hidden, 1, 0, hidden, 0, threads, false, st)));
+    if (n == 1) {   // one row: f32 gate/up, SwiGLU in the down product's x
+      CF_CHECK(launch_gemv1<false>(s.xn, 0, w13l, s.gu, hidden, f_pad, 2,
+                                   (long long)hidden * f_pad, f_pad, threads, true, st));
+      ++k;
+      CF_CHECK(launch_gemv1<true>(s.gu, f_pad, w2l, s.hx, f_pad, hidden, 1, 0, 0, threads,
+                                  true, st));
+    } else {        // the gate/up product writes act = bf16(silu(gate) * up)
+      __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(s.gu);
+      CF_CHECK(launch_rows_gemv<true>(s.xn, hidden, w13l, nullptr, n, hidden, f_pad, 2,
+                                      (long long)hidden * f_pad, f_pad, 0, true, st, act));
+      ++k;
+      CF_CHECK(launch_rows_gemv<false>(act, f_pad, w2l, s.hx, n, f_pad, hidden, 1, 0, hidden,
+                                       0, true, st));
+    }
     ++k;
   }
 
   if (lm_head) {
-    resnorm_kernel<<<n, NORM_THREADS, 0, st>>>(
+    CF_CHECK(launch_kernel(resnorm_kernel, dim3(n), dim3(NORM_THREADS), 0, st, L > 0,
         s.hx, nullptr, s.res_a, nullptr, static_cast<const __nv_bfloat16*>(final_norm),
         nullptr, nullptr, s.xn, nullptr, static_cast<__nv_bfloat16*>(out_res), hidden,
-        eps, nullptr, 0, nullptr, 0);
-    CF_CHECK((int)cudaGetLastError());
+        eps, nullptr, 0, nullptr, 0));
     ++k;
-    CF_CHECK((launch_ring_gemv<false>(s.xn, hidden, 0,
-                                      static_cast<const __nv_bfloat16*>(lm_head),
-                                      static_cast<float*>(logits), n, hidden, vocab, 1,
-                                      0, vocab, 0, threads, false, st)));
+    CF_CHECK(launch_ring_gemv(s.xn, hidden, static_cast<const __nv_bfloat16*>(lm_head),
+                              static_cast<float*>(logits), n, hidden, vocab, 1, 0, vocab, 0,
+                              threads, true, st));
     ++k;
   } else {
-    resnorm_kernel<<<n, NORM_THREADS, 0, st>>>(
+    CF_CHECK(launch_kernel(resnorm_kernel, dim3(n), dim3(NORM_THREADS), 0, st, L > 0,
         s.hx, nullptr, s.res_a, nullptr, nullptr, nullptr, nullptr, nullptr,
         static_cast<__nv_bfloat16*>(out_x), static_cast<__nv_bfloat16*>(out_res),
-        hidden, eps, nullptr, 0, nullptr, 0);
-    CF_CHECK((int)cudaGetLastError());
+        hidden, eps, nullptr, 0, nullptr, 0));
     ++k;
   }
   *n_launches = k;

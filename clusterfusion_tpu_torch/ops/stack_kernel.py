@@ -129,10 +129,14 @@ def refuse_unported(what: str, head_dim: int, weights, final_norm, lm_head,
     if post_attn_norm is not None or post_ffn_norm is not None:
         raise NotImplementedError(f"{what}: sandwich norms are not ported "
                                   "yet")
-    if head_dim % 128:
+    if head_dim < 128:
         raise NotImplementedError(
             f"{what}: head_dim {head_dim} < 128 (the TPU stack kernel's "
             "defer_append variant) is not ported yet")
+    if head_dim != 128:
+        raise NotImplementedError(
+            f"{what}: head_dim {head_dim} (Gemma-2's 256) is not ported yet "
+            "(ROADMAP.md queue 2, mode 3)")
     if any(w is not None and w.dtype != torch.bfloat16
            for w in (*weights, lm_head)):
         raise NotImplementedError(f"{what}: only bf16 weights are ported "

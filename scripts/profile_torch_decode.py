@@ -6,7 +6,9 @@ Prints, for random weights (seed 0): the decode step's device time by
 kernel name over 5 steps at pos 600 (``torch.profiler``), the device busy
 share of those steps, the same for 5 speculative verify calls of 5 rows at
 pos 600 (``verify_step``, kernel 8), and a 512-token prefill's first and
-warm wall times with its device time by kernel name.  Needs a CUDA card.
+warm wall times with its device time by kernel name; each profile with
+its kernels per call (``profiling.py``: markers, whole-count retry).
+Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -17,53 +19,36 @@ import time
 from pathlib import Path
 
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+sys.path.insert(0, str(Path(__file__).resolve().parent))
 
+import profiling  # noqa: E402
 from clusterfusion_tpu_torch.config import LlamaConfig  # noqa: E402
 from clusterfusion_tpu_torch.models import llama as model  # noqa: E402
 from clusterfusion_tpu_torch.models import speculative as spec  # noqa: E402
 from clusterfusion_tpu_torch.models.generation import Llama  # noqa: E402
 
 
-def by_kernel(prof, top=12):
-    """(total device ms, [(name, device ms, calls)]) of a profile."""
-    rows = []
-    for e in prof.key_averages():
-        t = getattr(e, "device_time_total", None)
-        if t is None:
-            t = e.cuda_time_total
-        if t and e.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append((e.key, t / 1e3, e.count))
-    rows.sort(key=lambda r: -r[1])
-    return sum(r[1] for r in rows), rows[:top]
+def profiled(fn, reps, top=12):
+    """(device ms per call, busy ms per call, kernels per call, profiled
+    wall ms per call, [(name, ms per call, launches per call)]) of ``reps``
+    calls of ``fn`` (``profiling.profile_calls``: markers, whole-count
+    retry)."""
+    ev, wall = profiling.profile_calls(fn, reps)
+    total = sum(b - a for a, b, _ in ev) / 1e3 / reps
+    return (total, profiling.busy_ms(ev) / reps, len(ev) / reps, wall,
+            profiling.by_kernel(ev, reps, top))
 
 
-def busy_ms(prof):
-    """Device busy ms of a profile: the union of its kernels' intervals
-    (kernels launched with programmatic dependent launch overlap, so
-    their own durations add up to more than the time they took)."""
-    kern = sorted((e.time_range.start, e.time_range.end)
-                  for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy, end = 0.0, None
-    for start, stop in kern:
-        if end is None or start > end:
-            busy += stop - start
-            end = stop
-        elif stop > end:
-            busy += stop - end
-            end = stop
-    return busy / 1e3
-
-
-def show(title, total, rows, wall_ms=None):
-    extra = "" if wall_ms is None else \
-        f" over {wall_ms:.3f} ms wall (busy {100 * total / wall_ms:.1f} %)"
-    print(f"{title}: device {total:.3f} ms{extra}")
-    for name, ms, n in rows:
-        print(f"  {ms:9.3f} ms {n:6d}x  {name[:90]}")
+def show(title, reps, fn, top=12):
+    total, busy, n, wall, rows = profiled(fn, reps, top)
+    print(f"{title}: device {total:.4f} ms per call over {wall:.3f} ms "
+          f"profiled wall (busy {100 * total / wall:.1f} %); busy with the "
+          f"overlapping kernels' intervals merged {busy:.4f} ms; "
+          f"{n:g} kernels per call")
+    for name, ms, k in rows:
+        print(f"  {ms:9.4f} ms {k:6g}x  {name[:90]}")
 
 
 def main() -> int:
@@ -83,32 +68,18 @@ def main() -> int:
     kc, vc = model.init_cache(cfg, max_seq=1024, device=dev)
     kc[:, :, :pos].normal_()
     vc[:, :, :pos].normal_()
-    for _ in range(3):
+    for _ in range(2):
         model.decode_step(p, kc, vc, 7, pos, cfg)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(5):
-            model.decode_step(p, kc, vc, 7, pos, cfg)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    total, rows = by_kernel(prof)
-    show("decode x5 (pos 600)", total, rows, wall)
+    show("decode (pos 600), per step", 5,
+         lambda: model.decode_step(p, kc, vc, 7, pos, cfg))
 
     # speculative verify: 5 n=5 verify calls at pos 600 (n_draft 4)
     n = 5
     vt = list(range(11, 11 + n))
-    for _ in range(3):
+    for _ in range(2):
         spec.verify_step(p, kc, vc, vt, pos, cfg)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(5):
-            spec.verify_step(p, kc, vc, vt, pos, cfg)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    total, rows = by_kernel(prof)
-    show(f"verify n={n} x5 (pos 600)", total, rows, wall)
+    show(f"verify n={n} (pos 600), per call", 5,
+         lambda: spec.verify_step(p, kc, vc, vt, pos, cfg))
 
     # prefill: first call, then warm, then the warm call's breakdown
     toks = list(range(3, 515))
@@ -120,14 +91,8 @@ def main() -> int:
         torch.cuda.synchronize()
         print(f"prefill 512 tokens ({label}): "
               f"{(time.perf_counter() - t0) * 1e3:.2f} ms wall")
-    kc, vc = model.init_cache(cfg, device=dev)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        model.prefill(p, kc, vc, toks, cfg)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    total, rows = by_kernel(prof)
-    show("prefill 512 tokens (warm, profiled)", total, rows, wall)
+    show("prefill 512 tokens (warm, profiled)", 1,
+         lambda: model.prefill(p, kc, vc, toks, cfg))
     return 0
 
 

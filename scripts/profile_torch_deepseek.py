@@ -24,14 +24,13 @@ import time
 from pathlib import Path
 
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from clusterfusion_tpu_torch.config import DeepSeekConfig  # noqa: E402
 from clusterfusion_tpu_torch.models import deepseek as ds  # noqa: E402
-from profile_torch_decode import busy_ms  # noqa: E402
+import profiling  # noqa: E402
 
 PROMPT = [(i * 37 + 11) % 102400 for i in range(128)]
 
@@ -97,27 +96,14 @@ def main() -> int:
         print(f"  {tottime * 1e6 / 20:9.1f} us/step {ncalls / 20:6.1f}x  "
               f"{Path(fname).name}:{line}({func})")
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as tprof:
-        t0 = time.perf_counter()
-        for _ in range(8):
-            step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / 8
-    kern = []
-    for e in tprof.key_averages():
-        t = getattr(e, "device_time_total", None)
-        if t is None:
-            t = e.cuda_time_total
-        if t and e.device_type == torch.autograd.DeviceType.CUDA:
-            kern.append((e.key, t / 1e3 / 8, e.count / 8))
-    kern.sort(key=lambda r: -r[1])
-    total = sum(r[1] for r in kern)
+    ev, wall = profiling.profile_calls(step, 8)
+    total = sum(b - a for a, b, _ in ev) / 1e3 / 8
     print(f"decode step: device {total:.4f} ms over {wall:.4f} ms wall "
           f"(profiled; busy {100 * total / wall:.1f} %); busy with the "
-          f"overlapping kernels' intervals merged {busy_ms(tprof) / 8:.4f} "
-          "ms per step")
-    for name, ms, n in kern[:12]:
+          f"overlapping kernels' intervals merged "
+          f"{profiling.busy_ms(ev) / 8:.4f} ms per step; "
+          f"{len(ev) / 8:g} kernels per step")
+    for name, ms, n in profiling.by_kernel(ev, 8):
         print(f"  {ms:9.4f} ms {n:6.1f}x  {name[:90]}")
     for i in (1, 2):
         print(f"decode_loop, run {i}, after the profiler: "

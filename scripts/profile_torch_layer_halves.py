@@ -39,6 +39,9 @@ from pathlib import Path
 
 import torch
 
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+import profiling  # noqa: E402
+
 HBM = 3.35e12
 K6_PHASES = ("norm", "qkv", "rope", "split_kv", "merge", "oproj", "fold")
 K5_PHASES = ("norm", "gate_up", "act", "down", "cluster_sum", "fold",
@@ -47,29 +50,13 @@ K5_PHASES = ("norm", "gate_up", "act", "down", "cluster_sum", "fold",
 
 def device_ms(fn, reps, evict=None):
     """(kernels' own ms summed, merged busy ms, kernels) per call of fn; with
-    ``evict``, that runs before every call and its kernels are left out."""
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            if evict is not None:
-                evict()
-            fn()
-        torch.cuda.synchronize()
-    kern = sorted((e.time_range.start, e.time_range.end)
-                  for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and (evict is None or "anonymous namespace" in e.name))
-    own = sum(b - a for a, b in kern)
-    busy, end = 0.0, kern[0][0]
-    for a, b in kern:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    return own / 1e3 / reps, busy / 1e3 / reps, len(kern) / reps
+    ``evict``, that runs before every call and its kernels are left out
+    (``profiling.profile_calls``: markers, whole-count retry)."""
+    ev, _ = profiling.profile_calls(
+        fn, reps, before=evict, warmup=3,
+        keep=None if evict is None else (lambda n: "anonymous namespace" in n))
+    own = sum(b - a for a, b, _ in ev)
+    return own / 1e3 / reps, profiling.busy_ms(ev) / reps, len(ev) / reps
 
 
 def phases(mod, fn, rows, names):

@@ -54,9 +54,11 @@ from pathlib import Path
 
 import torch
 import torch.distributed as dist
-from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+
+import profiling  # noqa: E402
 
 from clusterfusion_tpu_torch import parallel as par  # noqa: E402
 from clusterfusion_tpu_torch.config import LlamaConfig, MeshConfig  # noqa: E402
@@ -64,19 +66,6 @@ from clusterfusion_tpu_torch.models import llama as model  # noqa: E402
 
 POS = 600
 N_CHECK = 16
-
-
-def by_kernel(prof, top=12):
-    """(total device ms, [(name, device ms, calls)]) of a profile."""
-    rows = []
-    for e in prof.key_averages():
-        t = getattr(e, "device_time_total", None)
-        if t is None:
-            t = e.cuda_time_total
-        if t and e.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append((e.key, t / 1e3, e.count))
-    rows.sort(key=lambda r: -r[1])
-    return sum(r[1] for r in rows), rows[:top]
 
 
 def init_group() -> None:
@@ -250,20 +239,17 @@ def run(sp: int, fused: bool) -> int:
         say(f"  {tottime * 1e6 / 20:9.1f} us/step {ncalls / 20:7.1f}x  "
             f"{Path(fname).name}:{line}({func})")
     for name, (fn, p, k, v) in steps.items():
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(5):
-                fn(p, k, v, 7, POS)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / 5
-        total, rows = by_kernel(prof)
-        say(f"{name} step: device {total / 5:.4f} ms per step over "
-            f"{wall:.3f} ms profiled wall (busy {100 * total / 5 / wall:.1f} "
-            f"%; {100 * total / 5 / walls[name]:.1f} % of the unprofiled "
-            "wall)")
-        for kname, ms, n in rows:
-            say(f"  {ms / 5:9.4f} ms {n / 5:6g}x  {kname[:90]}")
+        # one attempt: a retry on one rank alone would leave the others'
+        # collectives waiting
+        ev, wall = profiling.profile_calls(
+            functools.partial(fn, p, k, v, 7, POS), 5, attempts=1)
+        total = sum(b - a for a, b, _ in ev) / 1e3 / 5
+        say(f"{name} step: device {total:.4f} ms per step over "
+            f"{wall:.3f} ms profiled wall (busy {100 * total / wall:.1f} "
+            f"%; {100 * total / walls[name]:.1f} % of the unprofiled "
+            f"wall); {len(ev) / 5:g} kernels per step")
+        for kname, ms, n in profiling.by_kernel(ev, 5):
+            say(f"  {ms:9.4f} ms {n:6g}x  {kname[:90]}")
     say("OK" if ok else "FAILED: a step disagrees with kernel 7")
     return 0 if ok else 1
 

@@ -9,8 +9,9 @@ decode steps of the whole batch are profiled with ``torch.profiler``, once
 through the default batched step (``paged_attention`` per layer) and once
 through the fused step (``llama_decoder_layer_paged`` per layer).  Prints
 the wall ms per step of five unprofiled steps, then the profiled steps'
-device time by kernel name, the device busy share, and the busy time with
-overlapping kernels' intervals merged.  Needs a CUDA card.
+device time by kernel name, the device busy share, the busy time with
+overlapping kernels' intervals merged and the kernels per step
+(``profiling.py``: markers, whole-count retry).  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -21,7 +22,6 @@ import time
 from pathlib import Path
 
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -29,7 +29,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 from clusterfusion_tpu_torch.config import LlamaConfig  # noqa: E402
 from clusterfusion_tpu_torch.models.generation import Llama  # noqa: E402
 from clusterfusion_tpu_torch.runtime import ServingEngine  # noqa: E402
-from profile_torch_decode import busy_ms, by_kernel, show  # noqa: E402
+from profile_torch_decode import show  # noqa: E402
 
 
 def main() -> int:
@@ -58,18 +58,8 @@ def main() -> int:
         torch.cuda.synchronize()
         print(f"{impl}: {(time.perf_counter() - t0) * 200:.3f} ms per step "
               "(unprofiled wall, 5 steps)")
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(5):
-                srv.step()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        total, rows = by_kernel(prof, top=14)
-        show(f"{impl} step x5 (B=8, contexts 40..521)", total, rows, wall)
-        print(f"{impl}: {wall / 5:.3f} ms per step (profiled wall), "
-              f"device {total / 5:.3f} ms per step (kernels' own sum), "
-              f"busy {busy_ms(prof) / 5:.3f} ms per step (intervals merged)")
+        show(f"{impl} step (B=8, contexts 40..521), per step", 5, srv.step,
+             top=14)
     return 0
 
 

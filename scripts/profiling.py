@@ -1,0 +1,157 @@
+"""Device-time readings from ``torch.profiler`` for ``chip_smoke.py`` and the
+port's profile scripts, in one copy.
+
+On the card's torch a profile now and then loses its first or last device
+event, or all of them, which reads a time low by one kernel.  So every
+profile here brackets its calls between two marker kernels
+(``torch.cuda._sleep``; left out of every reading), so that a lost edge
+event is a marker's, and is taken again (up to ``attempts`` times in all)
+when its kernels are not a whole number per call.
+
+    import profiling
+    ms = profiling.device_ms(fn, reps=20)            # kernels' own time
+    busy, span, own, by_pass, launches = profiling.timeline_by_pass(
+        fn, (("gemv", "rows_gemv_kernel"), ...))
+
+Scripts put their own directory on ``sys.path`` and ``import profiling``,
+so that a script run against an older unpacked tree (``--tree``, or from
+its directory) still reads its profiles this way.  Needs a CUDA card when
+called; imports nothing but torch.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+MARKER = "spin_kernel"     # torch.cuda._sleep's kernel
+
+
+def note(**kv) -> None:
+    print("[profiler] " + " ".join(f"{k}={v}" for k, v in kv.items()),
+          flush=True)
+
+
+def _marked_calls(fn, reps: int, before=None) -> None:
+    """``reps`` calls of ``fn`` (each after ``before``, if given) between
+    two marker kernels, then a synchronisation."""
+    torch.cuda._sleep(1000)
+    for _ in range(reps):
+        if before is not None:
+            before()
+        fn()
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+
+
+def kernel_events(prof, keep=None):
+    """(start µs, end µs, name) of a profile's device events in start
+    order, the markers left out, and only those whose name ``keep``
+    accepts when it is given."""
+    return sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and MARKER not in e.name
+                  and (keep is None or keep(e.name)))
+
+
+def profile_calls(fn, reps: int, *, before=None, keep=None,
+                  attempts: int = 3, warmup: int = 1):
+    """Profile ``reps`` calls of ``fn`` (``before`` runs ahead of each and,
+    with ``keep``, its kernels are left out by name).  Returns (events,
+    profiled wall ms per call): the kernels of the first profile whose
+    count is a whole number per call, or of the last one with a note."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _marked_calls(fn, reps, before)
+            wall = (time.perf_counter() - t0) * 1e3 / reps
+        ev = kernel_events(prof, keep)
+        whole = bool(ev) and len(ev) % reps == 0
+        if whole or (ev and attempt == attempts):
+            if not whole:
+                note(events_not_whole_per_call=len(ev), reps=reps)
+            if attempt > 1:
+                note(device_events_on_attempt=attempt)
+            return ev, wall
+    raise AssertionError(f"the profiler saw no device time in {attempts} "
+                         "profiles")
+
+
+def device_ms(fn, reps: int = 20, attempts: int = 3) -> float:
+    """Mean device time in ms of all kernels one call of ``fn`` launches
+    (their own durations summed; the host's time between launches
+    excluded)."""
+    ev, _ = profile_calls(fn, reps, attempts=attempts)
+    return sum(b - a for a, b, _ in ev) / 1e3 / reps
+
+
+def busy_ms(ev) -> float:
+    """Device busy ms of events: the union of their intervals (kernels
+    launched with programmatic dependent launch overlap, so their own
+    durations add up to more than the time they took)."""
+    busy, end = 0.0, None
+    for start, stop, _ in ev:
+        if end is None or start > end:
+            busy += stop - start
+            end = stop
+        elif stop > end:
+            busy += stop - end
+            end = stop
+    return busy / 1e3
+
+
+def by_kernel(ev, reps: int, top: int = 12):
+    """[(name, device ms per call, launches per call)] of events, the
+    largest first, at most ``top``."""
+    rows = {}
+    for start, stop, name in ev:
+        ms, n = rows.get(name, (0.0, 0))
+        rows[name] = (ms + (stop - start) / 1e3, n + 1)
+    out = sorted(((k, ms / reps, n / reps) for k, (ms, n) in rows.items()),
+                 key=lambda r: -r[1])
+    return out[:top]
+
+
+def charged(ev):
+    """[(start, stop, name, charged µs)]: each kernel charged from the end
+    of the kernels before it to its own end (the time the call advanced
+    while it was the last to finish), so the charges add up to the busy
+    time."""
+    out, end = [], ev[0][0] if ev else 0.0
+    for start, stop, name in ev:
+        c = stop - max(start, end) if stop > end else 0.0
+        end = max(end, stop)
+        out.append((start, stop, name, c))
+    return out
+
+
+def timeline_by_pass(fn, passes, reps: int = 8):
+    """``reps`` profiled calls of ``fn``, per call: the device's busy time,
+    the span from the first kernel's start to the last one's end, the sum
+    of the kernels' own durations, and the busy time and launches by pass
+    (``passes``: (label, substring of the kernel's name); the rest is
+    "other").  Kernels launched with programmatic dependent launch start
+    while the one before them runs and wait inside, so each is charged
+    only as ``charged`` says, and the passes add up to the busy time."""
+    ev, _ = profile_calls(fn, reps)
+    out = {k: 0.0 for k, _ in passes}
+    out["other"] = 0.0
+    counts = {k: 0 for k in out}
+    own = 0.0
+    for start, stop, name, c in charged(ev):
+        own += stop - start
+        k = next((k for k, key in passes if key in name), "other")
+        counts[k] += 1
+        out[k] += c
+    span = ev[-1][1] - ev[0][0]
+    per = 1e3 * reps            # µs over reps -> ms per call
+    return (sum(out.values()) / per, span / per, own / per,
+            {k: v / per for k, v in out.items()},
+            {k: v / reps for k, v in counts.items()})

@@ -5,14 +5,14 @@ timed on one card.
                                        [--threads 256,128,512] [--fused_step]
                                        [--verify]
 
-A variant ``SxRcP[mT][pB]`` rebuilds the port's kernels with
-``G1_STAGES = S`` and ``G1_ROWS = R`` in ``csrc/common.cuh`` (ring stages
-and weight rows per stage of the one-row path; a stage holds R x 512
-bytes), optionally ``G1_MMA_STAGES = T`` and ``G1_MMA_PAD = B`` (the
-tensor-core path's stages and the bytes after each of its ring rows), and
-``PDL_CHAIN`` = P in ``csrc/stack_kernel.cu`` (1: kernel 7's norms, split
-and merge are launched with programmatic dependent launch like its GEMVs;
-0: plainly) into ``build/gemv_variants/``.  Variants run in the order given (repeat one to
+A variant ``SxRcP[rT]`` rebuilds the port's kernels with ``G1_STAGES = S``
+and ``G1_ROWS = R`` in ``csrc/common.cuh`` (ring stages and weight rows per
+stage of the one-row GEMV; a stage holds R x 512 bytes), optionally
+``RG_STAGES = T`` (the rows GEMV's ring stages, 17 KB each), ``+NAME=VALUE``
+suffixes set any other ``constexpr int`` of ``csrc/``, and ``PDL_CHAIN`` =
+P in ``csrc/stack_kernel.cu`` (1: kernel 7's
+norms, split and merge are launched with programmatic dependent launch
+like its GEMVs; 0: plainly) into ``build/gemv_variants/``.  Variants run in the order given (repeat one to
 see the drift: A,B,B,A).  For each variant and each ``gemv_threads``
 (consumer threads per block) it prints, on random Llama-2-7B weights
 (seed 0):
@@ -22,8 +22,10 @@ see the drift: A,B,B,A).  For each variant and each ``gemv_threads``
   [4096, 22528] matrix, down, LM head): ms per call from CUDA events over
   20 back-to-back calls, each reading its own of four weight copies (L2
   cold), and the rate in TB/s; ``torch.mm`` the same way, once;
-- with ``--verify``, kernel 8 (whose GEMVs are the tensor-core path) at
-  pos 600, n 5 and 9 (CUDA events, median of 20 calls);
+- with ``--verify``, the rows GEMV (kernels 8 and 9's products) at the
+  five shapes at M 4 and 5 (gate/up as the SwiGLU pair, bf16 act out), L2
+  cold as above, and kernel 8 at pos 600, n 5 and 9 (CUDA events, median
+  of 20 calls);
 - with ``--fused_step``, ``chip_smoke.py``'s phase 15 (b and c): mode 5
   of kernel 7 and the fused-collective tp 2 step on two virtual ranks.
 
@@ -60,11 +62,12 @@ SHAPES = (("qkv", 4096, 12288), ("o", 4096, 4096), ("gate_up", 4096, 22528),
 
 def variant_lib(name: str):
     """Build (or reuse) the kernels of variant ``name`` (``SxRcP``)."""
-    m = re.fullmatch(r"(\d+)x(\d+)c([01])(?:m(\d+))?(?:p(\d+))?", name)
+    base, *sets = name.split("+")
+    m = re.fullmatch(r"(\d+)x(\d+)c([01])(?:r(\d+))?", base)
     if m is None:
-        raise ValueError(f"variant {name!r} is not SxRcP[mT][pB]")
+        raise ValueError(f"variant {name!r} is not SxRcP[rT]")
     stages, rows, chain = (int(g) for g in m.groups()[:3])
-    mma_stages, mma_pad = m.group(4), m.group(5)
+    rg_stages = m.group(4)
     out = ROOT / "build" / "gemv_variants" / name
     csrc = out / "csrc"
     if csrc.exists():
@@ -75,12 +78,9 @@ def variant_lib(name: str):
                              f"constexpr int G1_STAGES = {stages};"),
                             (r"constexpr int G1_ROWS = \d+;",
                              f"constexpr int G1_ROWS = {rows};"))
-             + (((r"constexpr int G1_MMA_STAGES = \d+;",
-                  f"constexpr int G1_MMA_STAGES = {mma_stages};"),)
-                if mma_stages else ())
-             + (((r"constexpr int G1_MMA_PAD = \d+;",
-                  f"constexpr int G1_MMA_PAD = {mma_pad};"),)
-                if mma_pad else ())),
+             + (((r"constexpr int RG_STAGES = \d+;",
+                  f"constexpr int RG_STAGES = {rg_stages};"),)
+                if rg_stages else ())),
             ("stack_kernel.cu", ((r"constexpr bool PDL_CHAIN = \w+;",
                                   "constexpr bool PDL_CHAIN = "
                                   f"{'true' if chain else 'false'};"),))):
@@ -90,6 +90,16 @@ def variant_lib(name: str):
             if n != 1:
                 raise RuntimeError(f"{pat} not found in {fname}")
         (csrc / fname).write_text(src)
+    for k, v in (a.split("=") for a in sets):    # +NAME=VALUE, in any source
+        hits = 0
+        for f in csrc.glob("*.cu*"):
+            src, n = re.subn(rf"constexpr int {k} = \d+;",
+                             f"constexpr int {k} = {v};", f.read_text())
+            if n:
+                f.write_text(src)
+                hits += n
+        if hits != 1:
+            raise RuntimeError(f"{k} found {hits} times in csrc")
     return _build.load(_build.build(csrc, out))
 
 
@@ -180,6 +190,22 @@ def main() -> int:
             return fn(ws[i[0] % len(ws)])
         return call
 
+    # the rows GEMV's x per (M, shape), bf16; the gate/up product runs as
+    # the SwiGLU pair (its [4096, 22528] weights read as gate and up
+    # [2, 4096, 11264]) and writes bf16 act
+    rows_x = {(M, name): torch.randn((M, K), generator=gen,
+                                     device=dev).bfloat16()
+              for M in (4, 5) for name, K, _ in SHAPES}
+    rows_y = torch.empty((5, max(N for _, _, N in SHAPES)), device=dev)
+    rows_act = torch.empty((5, 11264), dtype=torch.bfloat16, device=dev)
+
+    def rows_gemv(x, w, M, K, N, pair):
+        _build.check(_build.lib().cf_gemv_rows(
+            x.data_ptr(), x.shape[1], int(pair), w.data_ptr(),
+            rows_y.data_ptr(), rows_act.data_ptr() if pair else None, M, K,
+            N // 2 if pair else N, torch.cuda.current_stream().cuda_stream),
+            "cf_gemv_rows")
+
     lib_rates = {}
     for name, K, N in SHAPES:
         xs, ws = mats[name]
@@ -205,6 +231,16 @@ def main() -> int:
             print(f"variant={v} gemv_threads={t} "
                   f"kernel7_step_ms={ms7:.4f} " + " ".join(parts), flush=True)
         if args.verify:
+            parts = []
+            for M in (4, 5):
+                for name, K, N in SHAPES:
+                    ms = events_ms(rotating(
+                        lambda w, M=M, K=K, N=N, name=name: rows_gemv(
+                            rows_x[(M, name)], w, M, K, N, name == "gate_up"),
+                        mats[name][1]))
+                    parts.append(f"M{M}_{name}={ms:.4f}ms/"
+                                 f"{(K * N * 2) / ms / 1e9:.3f}TBps")
+            print(f"variant={v} rows_gemv " + " ".join(parts), flush=True)
             print(f"variant={v} " + " ".join(
                 f"kernel8_n{n}_ms="
                 f"{step_ms(lambda a=a: sv.fused_verify_stack(*a, **kw)):.4f}"

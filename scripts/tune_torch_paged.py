@@ -23,8 +23,10 @@ from pathlib import Path
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 import chip_smoke as cs  # noqa: E402
+import profiling  # noqa: E402
 from clusterfusion_tpu_torch.ops import deepseek_layer as dl  # noqa: E402
 from clusterfusion_tpu_torch.ops import paged_decoder_layer as pd  # noqa: E402
 
@@ -87,32 +89,21 @@ def mla_cases(dev):
 
 def sequence(fn, reps: int = 8):
     """The kernels of one call of ``fn`` in launch order (the median call
-    of ``reps`` under ``torch.profiler``): name, start after the call's
-    first kernel started, own duration, and the time charged to it (from
-    the end of the kernels before it to its own end), all in µs."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kern = sorted((e.time_range.start, e.time_range.end, e.name)
-                  for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    of ``reps`` under ``torch.profiler``, ``profiling.profile_calls``):
+    name, start after the call's first kernel started, own duration, and
+    the time charged to it (from the end of the kernels before it to its
+    own end), all in µs."""
+    kern, _ = profiling.profile_calls(fn, reps)
     per = len(kern) // reps
     calls = [kern[i * per:(i + 1) * per] for i in range(reps)]
     calls.sort(key=lambda c: c[-1][1] - c[0][0])
     call = calls[reps // 2]
-    out, end = [], call[0][0]
-    for start, stop, name in call:
-        charged = stop - max(start, end) if stop > end else 0.0
-        end = max(end, stop)
+    out = []
+    for start, stop, name, charged in profiling.charged(call):
         short = name.split("(")[0].split("::")[-1].split("<")[0][:24]
         out.append(f"{short}@{start - call[0][0]:.1f}+{stop - start:.1f}"
                    f"/{charged:.1f}")
-    return " ".join(out)
+    return f"{per} kernels per call: " + " ".join(out)
 
 
 def run(cases, setter, values):

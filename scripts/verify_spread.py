@@ -9,8 +9,10 @@ plain twin, and prints for every call the logits' error over the largest
 logit (phase 9's limit: 2e-2), layer 0's appended-row error (limit 0.05)
 and the deepest-row margin, error − (0.05 + 1e-2·|row|), at its worst
 layer (limit 0), and whether the call gave the first call's bits; then
-per case the count of calls that failed, the call's ms (CUDA events) and
-its device time by pass (``torch.profiler``, kernels in launch order).
+per case the count of calls that failed, the call's ms (CUDA events), its
+kernels per call and its device busy time by pass (``torch.profiler``,
+passes named by kernel, each kernel charged from the end of those before
+it; ``profiling.py``'s markers and whole-count retry).
 
 It imports ``chip_smoke`` from the working directory, so it also runs in
 an unpacked older tree: ``cd OLD && python3 NEW/scripts/verify_spread.py``.
@@ -22,35 +24,19 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+from pathlib import Path
 
 import torch
 
-sys.path.insert(0, os.getcwd())
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+sys.path.insert(1, os.getcwd())
 import chip_smoke as cs  # noqa: E402
+import profiling  # noqa: E402
 
-PASSES = ("norm1", "qkv", "split", "merge", "o", "norm2", "gate_up", "down")
-
-
-def by_pass(fn, layers: int) -> dict:
-    """Device ms of one call of ``fn`` by pass: the kernels in launch
-    order, eight per layer (no split pass at pos 0), then the final norm
-    and the LM head."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    ev = sorted((e for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and "Memset" not in e.name and "Memcpy" not in e.name),
-                key=lambda e: e.time_range.start)
-    out = {}
-    for i, e in enumerate(ev):
-        name = PASSES[i % 8] if i < 8 * layers else (
-            "final_norm" if i == 8 * layers else "lm_head")
-        out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
-    return out
+# kernel 8's passes by kernel name (the M = n products, the split pass,
+# the norms and the merge)
+PASSES = (("gemv", "gemv_kernel"), ("split", "split_kernel"),
+          ("norms", "resnorm_kernel"), ("merge", "merge_kernel"))
 
 
 def main() -> int:
@@ -128,11 +114,15 @@ def main() -> int:
             call = lambda: sv.fused_verify_stack(*a, kk, vk, pos, kcfg=kcfg,  # noqa: E731
                                                  **kw)
             ms = cs.time_ms(call, 20)
-            parts = by_pass(call, cfg.n_layers)
+            busy, _, own, parts, counts = profiling.timeline_by_pass(
+                call, PASSES)
             print(f"[spread_sum] kv_split={ks} n={n} "
-                  f"fails={fails}/{args.reps} ms={ms:.4f} device_ms="
-                  f"{sum(parts.values()):.4f} " + " ".join(
-                      f"{k}={t:.4f}" for k, t in parts.items()), flush=True)
+                  f"fails={fails}/{args.reps} ms={ms:.4f} busy_ms={busy:.4f} "
+                  f"kernels_own_sum_ms={own:.4f} kernels_per_call="
+                  f"{sum(counts.values()):g} " + " ".join(
+                      f"{k}={t:.4f}" for k, t in parts.items()) + " " +
+                  " ".join(f"{k}_launches={c:g}" for k, c in counts.items()),
+                  flush=True)
             del kk, vk, kr, vr, ref
     return 0
 

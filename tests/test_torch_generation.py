@@ -127,7 +127,7 @@ def _imports(path):
 
 def test_port_imports_no_jax():
     files = sorted((ROOT / "clusterfusion_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "scripts" / "profiling.py"]
     assert len(files) > 10
     for f in files:
         for mod in _imports(f):

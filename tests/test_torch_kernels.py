@@ -879,32 +879,144 @@ def test_gemv_kernel_matches_plain(dev, K, N):
         assert torch.equal(call(), y)
 
 
-@pytest.mark.parametrize("M,K,N", [(2, 512, 384), (5, 4096, 4224),
-                                   (8, 1000, 264), (9, 4096, 12288),
-                                   (16, 11008, 4096), (17, 512, 384),
-                                   (32, 777, 136)])
-def test_ring_gemv_rows_match_plain(dev, M, K, N):
-    """The ring GEMV's tensor-core form (the verify stack's GEMVs, M > 1)
-    through kernel 3's C entry: every row of y written (it starts NaN),
-    against the float32 product, and the same bits on every call.  K off
-    the 16-row mma step and the 32-row stage, N ending in an 8-column
-    tile, and M past 16 (two row chunks) are among the cases."""
+# (M, K, N, mode, out): mode "plain" (y = x @ w) or "swiglu" (w is gate
+# and up [2, K, N]; y = bf16(silu(x @ gate) * (x @ up)), the verify
+# stack's gate/up product, whose output is the down product's x); out
+# "f32" or "bf16"
+ROWS_GEMV_CASES = [
+    (2, 512, 384, "plain", "f32"), (5, 4096, 4224, "plain", "f32"),
+    (8, 1000, 264, "plain", "f32"), (9, 4096, 12288, "plain", "f32"),
+    (16, 11008, 4096, "plain", "f32"), (17, 512, 384, "plain", "f32"),
+    (32, 777, 136, "plain", "f32"),
+    # SwiGLU: the 7B gate/up at M 4 and 5, K off a box, N off a tile
+    (5, 4096, 11264, "swiglu", "bf16"), (4, 4096, 11264, "swiglu", "bf16"),
+    (9, 1000, 264, "swiglu", "bf16"), (3, 777, 136, "swiglu", "bf16"),
+    # bf16 output (kernel 9's O-projection)
+    (4, 4096, 4096, "plain", "bf16"), (8, 520, 136, "plain", "bf16"),
+    # K ending inside a box and a stage of 32 rows, N in an 8-column tile
+    (5, 4100, 392, "plain", "f32"), (4, 40, 8, "plain", "f32"),
+    # the Llama-2-7B products at M 4 and 5: QKV, O, down, LM head
+    (4, 4096, 12288, "plain", "f32"), (5, 4096, 12288, "plain", "f32"),
+    (5, 4096, 4096, "plain", "f32"), (4, 11264, 4096, "plain", "f32"),
+    (5, 11264, 4096, "plain", "f32"), (5, 4096, 32000, "plain", "f32"),
+]
+
+
+@pytest.mark.parametrize("M,K,N,mode,out", ROWS_GEMV_CASES,
+                         ids=["-".join(map(str, c)) for c in ROWS_GEMV_CASES])
+def test_ring_gemv_rows_match_plain(dev, M, K, N, mode, out):
+    """The rows GEMV (kernels 8 and 9's products, M > 1; weights and x as
+    TMA boxes, mma.sync, K chunks summed in a cluster) through its C entry:
+    every row of y written (it starts NaN), against the float32 product of
+    the same bf16 x, and the same bits on every call.  K off the 16-row mma
+    step, the 32-row stage and a box, N ending in an 8-column tile, M past
+    16 (two row chunks), the SwiGLU pair (gate and up in one product, act
+    out) and a bf16 output are among the cases.  x rows sit a multiple of
+    8 elements apart (TMA's 16-byte row pitch), garbage past K."""
     from clusterfusion_tpu_torch.ops import _build
-    x = _randn((M, K), dev, 55)
-    w = _randn((K, N), dev, 56, K ** -0.5)
+    pair = mode == "swiglu"
+    x_row = -(-K // 8) * 8
+    xp = _randn((M, x_row), dev, 55)
+    xp[:, K:] = float("nan")
+    x = xp[:, :K]
+    w = _randn((2, K, N) if pair else (K, N), dev, 56, K ** -0.5)
 
     def call():
         y = torch.full((M, N), float("nan"), device=dev)
-        _build.check(_build.lib().cf_gemv(
-            x.data_ptr(), w.data_ptr(), y.data_ptr(), M, K, N,
-            KernelConfig().gemv_threads,
-            torch.cuda.current_stream(dev).cuda_stream), "cf_gemv")
-        return y
+        yb = torch.full((M, N), float("nan"), device=dev,
+                        dtype=torch.bfloat16) if out == "bf16" else None
+        _build.check(_build.lib().cf_gemv_rows(
+            xp.data_ptr(), x_row, int(pair), w.data_ptr(), y.data_ptr(),
+            None if yb is None else yb.data_ptr(), M, K, N,
+            torch.cuda.current_stream(dev).cuda_stream), "cf_gemv_rows")
+        return y if yb is None else yb
     y = call()
     torch.cuda.synchronize()
-    torch.testing.assert_close(y, x.float() @ w.float(), atol=1e-3, rtol=1e-3)
+    if pair:
+        g, u = x.float() @ w[0].float(), x.float() @ w[1].float()
+        ref = g / (1 + torch.exp(-g)) * u
+    else:
+        ref = x.float() @ w.float()
+    if out == "bf16":
+        assert y.dtype == torch.bfloat16
+        torch.testing.assert_close(y.float(), ref, atol=1e-2, rtol=1e-2)
+    else:
+        torch.testing.assert_close(y, ref, atol=1e-3, rtol=1e-3)
     for _ in range(3):
         assert torch.equal(call(), y)
+
+
+# (n tokens, kv heads, group, seq, split): query rows group*n of 5 and 8
+# (the 8-row instance), 9 and 17 (two tiles of up to 16)
+SPLIT_ROWS_CASES = [(5, 2, 1, 600, 64), (9, 2, 1, 300, 128),
+                    (17, 1, 1, 129, 64), (3, 2, 3, 64, 64), (8, 2, 1, 200, 32)]
+
+
+@pytest.mark.parametrize("n,kv,g,seq,split", SPLIT_ROWS_CASES,
+                         ids=["-".join(map(str, c)) for c in SPLIT_ROWS_CASES])
+def test_verify_split_pass_matches_plain(dev, n, kv, g, seq, split):
+    """Kernel 8's split pass (attn_split_kernel over the query rows of n
+    tokens, row i*n + t being q head i at token t, roped with row t)
+    against ``split_attention_plain``'s rounding (q rounded to bf16, p to
+    bf16 against each split's own max): the partials merged in float32
+    agree to 2e-3; rows at and above seq hold NaN and are never read."""
+    from clusterfusion_tpu_torch.ops import _build
+    from clusterfusion_tpu_torch.ops.stack_kernel import (
+        _LOG2E, _rope, split_attention_plain)
+    hd, cap, style = 128, 1024, "neox"
+    rows = g * n
+    qkv = _randn((n, kv * (g + 2) * hd), dev, 60).float()
+    kc = _randn((kv, cap, hd), dev, 61)
+    vc = _randn((kv, cap, hd), dev, 62)
+    kc[:, seq:] = float("nan")
+    vc[:, seq:] = float("nan")
+    cos, sin = model.rope_rows(LlamaConfig.tiny(rope_style=style), 700, n, dev)
+    ns = -(-seq // split)
+    ml = torch.full((kv, ns, rows, 2), float("nan"), device=dev)
+    acc = torch.full((kv, ns, rows, hd), float("nan"), device=dev)
+    _build.check(_build.lib().cf_verify_split(
+        qkv.data_ptr(), kc.data_ptr(), vc.data_ptr(), cos.contiguous().data_ptr(),
+        sin.contiguous().data_ptr(), ml.data_ptr(), acc.data_ptr(), n, kv, g,
+        hd, cap, seq, split, 1, torch.cuda.current_stream(dev).cuda_stream),
+        "cf_verify_split")
+    torch.cuda.synchronize()
+    m_all = ml[..., 0].amax(dim=1)                              # [kv, rows]
+    e = torch.exp2(ml[..., 0] - m_all[:, None])
+    l_k = (ml[..., 1] * e).sum(dim=1)
+    o_k = (acc * e[..., None]).sum(dim=1) / l_k[..., None]
+    # the twin: q [kv, rows, hd] in the kernel's row order, nothing folded
+    raw = qkv.reshape(n, kv, g + 2, hd)[:, :, :g]               # [n, kv, g, hd]
+    q = _rope(raw, cos[:, None, None], sin[:, None, None], style)
+    q = (q * (_LOG2E / hd ** 0.5)).permute(1, 2, 0, 3).reshape(kv, rows, hd)
+    zero = torch.zeros((kv, hd), device=dev)
+    acc_p, _, l_p = split_attention_plain(q, zero, zero, kc, vc, seq, split,
+                                          fold=False)
+    torch.testing.assert_close(o_k, acc_p / l_p[..., None], atol=2e-3,
+                               rtol=2e-3)
+
+
+@pytest.mark.parametrize("entry", ["cf_decoder_stack", "cf_verify_stack"])
+def test_stack_c_entries_refuse_head_dim_256(dev, entry):
+    """Kernels 7 and 8 take hd 128 only: called directly at hd 256, each C
+    entry returns cudaErrorInvalidValue (1) before it launches anything."""
+    from clusterfusion_tpu_torch.ops import _build
+    import ctypes
+    lib = _build.lib()
+    buf = torch.zeros(1 << 20, device=dev)
+    p = [buf.data_ptr()] * 17
+    n_launch = ctypes.c_int(-1)
+    st = torch.cuda.current_stream(dev).cuda_stream
+    # L, hidden, kv, hg, group, hd, cap, f_pad, vocab, pos, neox
+    dims = [1, 512, 2, 1, 2, 256, 64, 512, 0, 8, 1]
+    if entry == "cf_decoder_stack":
+        err = lib.cf_decoder_stack(*p, *dims, 1e-5, 64, 256,
+                                   ctypes.byref(n_launch), None, st)
+    else:
+        err = lib.cf_verify_stack(*p, 2, *dims, 1e-5, 64, 256,
+                                  ctypes.byref(n_launch), st)
+    torch.cuda.synchronize()
+    assert err == 1
+    assert n_launch.value == 0
 
 
 LAYER_MODES = {

@@ -326,6 +326,28 @@ def test_stack_wrapper_on_cpu_is_plain_and_refuses_variants():
         fused_decoder_stack(*args, POS, **kw, reduce_axis="tp")
 
 
+@pytest.mark.parametrize("head_dim", [256, 64, 128])
+@pytest.mark.parametrize("op", ["stack", "verify"])
+def test_stacks_take_head_dim_128_only(op, head_dim):
+    """Kernels 7 and 8 take hd 128 only: 256 (Gemma-2's) and 64 raise
+    NotImplementedError before any work, here as on the card (the wrappers
+    refuse before they look at the device), and 128 goes on running."""
+    from clusterfusion_tpu_torch.ops import stack_verify as sv
+    g, _, t = _stack_inputs(4, 2, 2, "gptj")
+    args = [t[k].clone() for k in _ARGS]
+    fn = fused_decoder_stack if op == "stack" else sv.fused_verify_stack
+    kw = dict(group=g, head_dim=head_dim, rope_style="gptj", eps=EPS)
+    if head_dim != 128:
+        with pytest.raises(NotImplementedError, match=f"head_dim {head_dim}"):
+            fn(*args, POS, **kw)
+        assert torch.equal(args[9], t["k_cache"])
+        assert torch.equal(args[10], t["v_cache"])
+    else:
+        out = fn(*args, POS, **kw)
+        assert tuple(out[0].shape) == (1, HIDDEN)
+        assert bool(torch.isfinite(out[0].float()).all())
+
+
 @pytest.mark.parametrize("V", [32000, 384, 128256, 32001, 100])
 def test_vocab_block_matches_jax(V):
     from clusterfusion_tpu.ops.stack_kernel import _vocab_block as j_vb
