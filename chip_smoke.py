@@ -129,9 +129,10 @@ weights are used in place), and before the DeepSeek phases free it:
    limits, both ranks' x_out and residual bit-identical; (c) this slice's
    path: ``make_sharded_decode_step(fused_collectives=True)`` at tp 2, two
    virtual ranks on their streams, a 512-token prefill and 16 greedy steps,
-   kernel 7 once, kernel 13 twice per layer and kernel 14 once per step and
-   rank, the ranks' logits bit-identical, the tokens kernel 7's under the
-   top-2-gap rule.
+   kernel 7 once (8 kernels a layer and the final norm: kernel 13's two
+   reduces a layer run inside its products and norms) and kernel 14 once
+   per step and rank, the ranks' logits bit-identical, the tokens kernel
+   7's under the top-2-gap rule.
 
 Then, where the machine has two cards or more:
 
@@ -141,10 +142,15 @@ Then, where the machine has two cards or more:
    timed beside NCCL on the same bytes; then the seeded 7B weights, a
    512-token prefill and 32 greedy steps of the fused-collective tp step
    and of the NCCL tp step, ms per step before any profiler, both streams
-   against kernel 7 teacher-forced on rank 0.  On one card it prints
-   ``[multicard] skipped cards=1``: nothing ran.  The collectives' times
-   are the slowest rank's median of 5 batches of 100 back-to-back calls,
-   each batch started after ``synchronize`` and ``dist.barrier``.
+   against kernel 7 teacher-forced on rank 0; then each step's device time
+   on rank 0 by pass (``torch.profiler``: kernel 7's GEMVs, split, merge,
+   norms, and the norms that wait for a reduce; kernels 6 and 2 and the
+   rest of the NCCL step).  On one card it prints ``[multicard] skipped
+   cards=1``: nothing ran.  The collectives' call times are the slowest
+   rank's median of 5 batches of 100 back-to-back calls, each batch started
+   after ``synchronize`` and ``dist.barrier`` (paced by the host's calls);
+   their device times are the profiler's per call over 50 calls, at the
+   rank that waited least and the one that waited most.
    ``python3 chip_smoke.py multicard`` runs phases 1, 2 and 16 alone.
 
 Then one JSON line per kernel table, the card line, and last
@@ -1916,11 +1922,11 @@ def phase_mode5(eng, dev, pos=600):
             ranks_bit_identical=same, other_rows_unchanged=unchanged,
             kernel7_repeats_bit_identical=repeatable,
             kernels_per_step=per_step, stack_launches=k7,
-            all_reduce_launches=k13,
+            reduces=k13,
             both_ranks_ms_per_step=f"{pair_ms:.3f}",
             error_word=lb.ranks[0].error())
         if not (same and rows_ok and unchanged and repeatable and k7 == tp
-                and k13 == 2 * L * tp and per_step == 10 * L + 1):
+                and k13 == 2 * L * tp and per_step == 8 * L + 1):
             raise AssertionError("mode 5 disagrees with kernel 7's "
                                  "unsharded step")
     finally:
@@ -1933,11 +1939,11 @@ def phase_fused_step(eng, dev, shards, n=16):
     fused_collectives=True)`` at tp 2 on this card, two virtual ranks on
     their own streams over a loopback communicator: a 512-token prefill
     (kernel 4) on the whole weights, then ``n`` greedy steps per rank, each
-    one kernel 7 sequence with kernel 13 twice per layer, and kernel 14 for
-    the logits.  Counts are set to 0 just before and read just after.  The
-    ranks' logits are bit-identical and their tokens kernel 7's (teacher
-    forced) wherever the top-2 gap exceeds 0.1.  Returns the launches of
-    kernels 13 and 14."""
+    one kernel 7 sequence with kernel 13's two reduces a layer inside it,
+    and kernel 14 for the logits.  Counts are set to 0 just before and read
+    just after.  The ranks' logits are bit-identical and their tokens
+    kernel 7's (teacher forced) wherever the top-2 gap exceeds 0.1.
+    Returns kernel 13's reduces and kernel 14's launches."""
     from clusterfusion_tpu_torch import parallel as par
     from clusterfusion_tpu_torch.models import llama as model
     from clusterfusion_tpu_torch.ops import stack_kernel as sk
@@ -1996,7 +2002,7 @@ def phase_fused_step(eng, dev, shards, n=16):
         say("fused_step", step="make_sharded_decode_step(fused_collectives"
             "=True)", tp=tp, loopback=True, prompt_tokens=pos0,
             new_tokens=n, ms_per_step_both_ranks=f"{dt * 1e3 / n:.3f}",
-            kernel7_launches=k7, kernel13_launches=k13, kernel14_launches=k14,
+            kernel7_launches=k7, kernel13_reduces=k13, kernel14_launches=k14,
             per_step_per_rank=f"{k7 / n / tp:g}/{k13 / n / tp:g}/"
                               f"{k14 / n / tp:g}",
             ranks_logits_bit_identical=same, tokens=tok_lists[0][:8],
@@ -2484,10 +2490,40 @@ def _multicard_collectives(rank, world, dev, mesh, hbm):
         say("multicard", ranks=world, **{k: f"{v:.5f}" for k, v in out.items()},
             reduce_over_nccl=f"{out['all_reduce_ms'] / out['all_reduce_nccl_ms']:.3f}",
             gather_over_nccl=f"{out['all_gather_ms'] / out['all_gather_nccl_ms']:.3f}",
-            note="per call, the slowest rank; median of 5 batches of CUDA "
-                 "events over 100 back-to-back calls, each batch after "
-                 "synchronize and barrier; bound: HBM bytes, a flag round "
-                 "trip over NVLink is the floor")
+            timing="call time: per call, the slowest rank; median of 5 "
+                   "batches of CUDA events over 100 back-to-back calls, each "
+                   "batch after synchronize and barrier, so paced by the "
+                   "host's calls",
+            note="bound: HBM bytes, a flag round trip over NVLink is the floor")
+    # device time per call: the kernels' own time on the card over 50 calls
+    # (torch.profiler, one profile on every rank: a retry on one rank alone
+    # would strand the others' collectives), the wait for the peers
+    # included, the host's time between calls left out
+    dev_ms = {}
+    for name, fn in (
+            ("all_reduce", lambda: comm.all_reduce(x)),
+            ("all_reduce_nccl", lambda: dist.all_reduce(y, group=group)),
+            ("all_gather", lambda: comm.all_gather(shard)),
+            ("all_gather_nccl", lambda: dist.all_gather_into_tensor(
+                buf, shard, group=group))):
+        torch.cuda.synchronize()
+        dist.barrier()
+        ev, _ = profiling.profile_calls(fn, 50, attempts=1)
+        dev_ms[name] = sum(b - a for a, b, _ in ev) / 1e3 / 50
+    comm.check()
+    least = torch.tensor(list(dev_ms.values()), dtype=torch.float64, device=dev)
+    most = least.clone()
+    dist.all_reduce(least, op=dist.ReduceOp.MIN, group=group)
+    dist.all_reduce(most, op=dist.ReduceOp.MAX, group=group)
+    for k, a, b in zip(dev_ms, least.tolist(), most.tolist()):
+        out[f"{k}_device_ms"] = a
+        out[f"{k}_device_ms_most"] = b
+    if rank == 0:
+        say("multicard", ranks=world, timing="device time per call "
+            "(torch.profiler, 50 calls), the rank that waited least / most",
+            **{f"{k}_device_ms": f"{out[k + '_device_ms']:.5f}/"
+                                 f"{out[k + '_device_ms_most']:.5f}"
+               for k in dev_ms})
     return out
 
 
@@ -2512,7 +2548,7 @@ def _multicard_steps(rank, world, dev, mesh, n=32):
     k0, v0 = model.init_cache(cfg, max_seq=1024, device=dev)
     lg, k0, v0 = model.prefill(full, k0, v0, prompt, cfg)
     first, pos0 = int(torch.argmax(lg[-1])), len(prompt)
-    out = {}
+    out, steps = {}, {}
     for name, fused in (("fused", True), ("nccl", False)):
         step = par.make_sharded_decode_step(cfg, mesh,
                                             fused_collectives=fused)
@@ -2555,6 +2591,49 @@ def _multicard_steps(rank, world, dev, mesh, n=32):
             raise AssertionError(f"rank {rank}, the {name} step: launches "
                                  f"{launched} (want {want}) or tokens {bad}")
         out[f"{name}_ms_per_step"] = dt * 1e3 / n
+        steps[name] = (step, kc, vc)
+    # each step's device time by pass on rank 0, after the wall clocks (a
+    # profiler session slows the launches after it); every rank profiles
+    # the same calls once
+    reps = 8
+    for name, (step, kc, vc) in steps.items():
+        torch.cuda.synchronize()
+        dist.barrier()
+        ev, wall = profiling.profile_calls(
+            lambda: step(params, kc, vc, first, pos0), reps,  # noqa: B023
+            attempts=1)
+        if rank != 0:
+            continue
+        # per step, by pass: the ms charged to its kernels (each from the
+        # end of those before it: kernels launched with programmatic
+        # dependent launch overlap, so the charges add up to the busy
+        # time), their own ms and their launches
+        busy = profiling.busy_ms(ev) / reps
+        rows = {k: v for k, v in profiling.breakdown(
+            ev, reps, profiling.TP_STEP_PASSES).items() if v[2]}
+        out[f"{name}_device_busy_ms"] = busy
+        say("multicard_profile", step=name, tp=world, rank=0, pos=pos0,
+            device_busy_ms_per_step=f"{busy:.4f}",
+            profiled_wall_ms_per_step=f"{wall:.4f}",
+            note="charged: each kernel from the end of those before it")
+        for k, (c, own, cnt) in rows.items():
+            say("multicard_profile", step=name, part=k,
+                charged_ms_per_step=f"{c:.4f}", own_ms_per_step=f"{own:.4f}",
+                launches_per_step=f"{cnt:g}",
+                charged_us_per_launch=f"{c / cnt * 1e3:.2f}")
+        # one layer of the first profiled step, kernel by kernel
+        for line in profiling.timeline(ev, 20, 24):
+            print(f"[multicard_timeline] step={name} rank=0 {line}",
+                  flush=True)
+        if "reduce_norm" in rows and "norm" in rows:
+            # a reduce's consumer does a plain norm's work (a little less:
+            # it holds its row in registers) once its inputs are in, so the
+            # difference is about its wait for the peers
+            wait = (rows["reduce_norm"][0] / rows["reduce_norm"][2]
+                    - rows["norm"][0] / rows["norm"][2])
+            say("multicard_profile", step=name,
+                reduce_wait_us_per_reduce=f"{wait * 1e3:.2f}",
+                how="charged µs of a norm after a reduce minus a plain norm's")
     return out
 
 

@@ -4,9 +4,9 @@
 //
 // Replaces the TPU kernels `_pallas_all_reduce` and `_pallas_all_gather`
 // (clusterfusion_tpu/parallel/collective.py, bodies
-// `_ring_all_reduce_kernel` and `_ring_all_gather_kernel`), and, through
-// cf_launch_all_reduce, `ring_reduce_scratch` inside the stack kernel
-// (stack_kernel.cu, reduce_axis).
+// `_ring_all_reduce_kernel` and `_ring_all_gather_kernel`), and
+// `ring_reduce_scratch` inside the stack kernel (stack_kernel.cu, mode 5),
+// where the same protocol runs inside the stack's own launches.
 //
 // The TPU kernels are one-way rings of N-1 remote copies, because ICI is a
 // torus.  An HGX H100 host joins every pair of cards through NVSwitch, so
@@ -16,18 +16,21 @@
 //
 // Memory.  Each rank owns one symmetric buffer (cudaMalloc'ed by
 // cf_comm_alloc, mapped by the peers through CUDA IPC):
-//   [0, 128)      ctl: the call counter (epoch), the count of done blocks
-//   [128, 1152)   flags [CF_MAX_RANKS sources][COMM_MAX_BLOCKS blocks], u32
+//   [0, 128)      ctl: the epoch (the last reduce done), the count of done blocks
+//   [128, 1152)   flags [CF_MAX_RANKS sources][COMM_MAX_BLOCKS columns], u32
 //   [2048, ...)   data [2 banks][size slots][slot_bytes]
-// Call e (e = 1, 2, ...) uses bank e % 2.
+// Reduce (or gather) e (e = 1, 2, ...) uses bank e % 2.  The device
+// functions of one reduce are in collective.cuh.
 //
-// One call, block b of rank r (block b owns one range of the data):
-//   1. stores its range of x with 16-byte stores into slot r of bank e%2
-//      of every rank's buffer, its own included;
-//   2. __syncthreads(); thread p < size: fence.acq_rel.sys, then
-//      st.release.sys of e into flag [r][b] of rank p;
-//   3. thread p < size waits with ld.acquire.sys until flag [p][b] of its
-//      own buffer reaches e; __syncthreads();
+// The standalone kernels, one call, block b of rank r (block b owns one
+// range of the data, flag column b):
+//   1. push: stores its range of x with 16-byte stores into slot r of bank
+//      e%2 of every rank's buffer, its own included;
+//   2. publish: __syncthreads(); thread p < size: fence.acq_rel.sys, then
+//      a relaxed sys-scope store of e into flag [r][b] of rank p (one
+//      release pattern);
+//   3. wait: thread p < size waits with ld.acquire.sys until flag [p][b] of
+//      its own buffer reaches e; __syncthreads();
 //   4. all-reduce: sums the size slots of its range in rank order
 //      0, 1, ..., size-1 in f32 (ReLU after the sum when asked) into out;
 //      all-gather: copies slot s of its range into part s of out;
@@ -36,26 +39,55 @@
 // the same bits.  (The TPU ring adds from the rank itself backwards, so
 // its sums differ by rounding from rank to rank.)
 //
+// Inside the stack kernel (mode 5) the reduce has no launch of its own.
+// Its producer is the product that makes the partial (the O-projection or
+// the down projection, common.cuh's ring GEMV in its PUSH instance): after
+// its griddepcontrol.wait it reads e from its ctl; in its epilogue each
+// block pushes its share of the 256-column tile's fixed-order cluster sum
+// (steps 1), and after the cluster barrier the tile's rank-0 block
+// publishes flag [r][tile] to every rank (step 2; COMM_MAX_BLOCKS columns
+// hold hidden 8192).  Its consumer is the residual norm after it
+// (resnorm_reduce_kernel): after its griddepcontrol.wait it waits for every
+// peer's flag of every tile (step 3), sums the slots in rank order as in
+// step 4 (the same values in the same order as the standalone kernel's, so
+// the same bits), adds the residual, and stores e as the rank's epoch.
+//
 // Why there is no ack semaphore.  The TPU kernels wait for an ack before
 // each send, so that a fast sender cannot overwrite a slot that is still
 // being read.  Here the two banks do that job.  A sender s stores into
-// bank e%2 of rank r in call e and next in call e+2.  s starts call e+2
-// only after its call e+1 finished, and that took r's call-(e+1) flags
-// of every block.  r sets those in its call-(e+1) kernel, which starts
-// only after its call-e kernel, the last reader of bank e%2, has finished
-// (stream order).  So no store of call e+2 lands before the reads of call
-// e are done.  The flags are never reset: they only grow, a sender is at
-// most one call ahead (flag e+1 where e is awaited), and the wait is for
-// flag >= e.
+// bank e%2 of rank r for reduce e and next for reduce e+2; those stores
+// must come after r's reads of reduce e.
+// - Standalone: s starts call e+2 only after its call e+1 finished, and
+//   that took r's call-(e+1) flags.  r sets those in its call-(e+1)
+//   kernel, which starts only after its call-e kernel, the last reader of
+//   bank e%2, has finished (stream order).
+// - In the stack: s's producer of e+2 stores only after its
+//   griddepcontrol.wait, which returns once the kernels before it on s's
+//   stream have completed, s's consumer of e+1 among them.  That consumer
+//   finished only after it saw r's flags of e+1.  r's producer of e+1 sets
+//   them after its own griddepcontrol.wait, that is, after r's consumer of
+//   e, the reader of bank e%2, has completed.
+// - Mixed (the stack's reduces and standalone calls on one communicator)
+//   chain the same way: each link is "starts, or passes its wait, after
+//   the kernels before it on its stream have completed".
+// The chain holds only if every kernel between a consumer and the next
+// producer on a stream completes after the kernels before it: each calls
+// griddepcontrol.wait before it finishes (the ring GEMV, the split and
+// merge passes and the residual norm all do, in every block), or is
+// launched without programmatic dependent launch.  So no store of reduce
+// e+2 lands before the reads of reduce e are done.  The flags are never
+// reset: they only grow, a sender is at most one reduce ahead (flag e+1
+// where e is awaited), and the wait is for flag >= e.
 //
-// The epoch lives in the buffer and the kernel advances it, so the host
+// The epoch lives in the buffer and the kernels advance it, so the host
 // passes no call number: a later change can capture the launches in a
 // CUDA graph.
 //
 // Bounded wait.  A wait that has not seen its flag after 2 s of
 // %globaltimer writes an error code (0x10000 | rank << 8 | peer) into a
-// host-mapped error word and gives up.  The caller raises on a non-zero
-// word, so a dead peer or a protocol fault becomes an error, not a hang.
+// host-mapped error word and gives up; a wait that finds the word already
+// set gives up at once.  The caller raises on a non-zero word, so a dead
+// peer or a protocol fault becomes an error, not a hang.
 //
 // Loopback.  cf_allreduce_loopback / cf_allgather_loopback run `size`
 // virtual ranks in one launch on one card (blockIdx.y = rank) over `size`
@@ -67,7 +99,8 @@
 // wait for the card to go idle.  A rank's kernel that spins for a peer
 // whose launch comes later from the same host thread (virtual ranks on
 // streams of one card) would then wait out its 2 s; cf_comm_preload loads
-// this file's kernels when a communicator is made.
+// this file's kernels when a communicator is made, and the stack loads its
+// mode-5 kernels before its first launch.
 //
 // What bounds it: a call moves little (the tp step's reduce is [1, 4096]
 // float32 per rank), so its time is set by the flag round trip across the
@@ -83,61 +116,22 @@
 namespace {
 
 constexpr int COMM_THREADS = 256;
-constexpr int COMM_MAX_BLOCKS = 32;
-constexpr long long FLAGS_OFF = 128;
-constexpr long long DATA_OFF = 2048;
-constexpr unsigned long long TIMEOUT_NS = 2000000000ull;
-
-struct Bufs {
-  char* p[CF_MAX_RANKS];
-};
-struct Ptrs {
-  void* p[CF_MAX_RANKS];
-};
-
-__device__ __forceinline__ unsigned* flag_at(char* buf, int src, int blk) {
-  return reinterpret_cast<unsigned*>(buf + FLAGS_OFF) + src * COMM_MAX_BLOCKS + blk;
-}
-
-__device__ __forceinline__ uint4* slot_at(char* buf, int bank, int src, int size,
-                                          long long slot_bytes) {
-  return reinterpret_cast<uint4*>(buf + DATA_OFF + ((long long)bank * size + src) * slot_bytes);
-}
-
-__device__ __forceinline__ unsigned ld_acquire_sys(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.sys.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release_sys(unsigned* p, unsigned v) {
-  asm volatile("st.release.sys.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
 
 __device__ __forceinline__ float relu_f(float v) { return v < 0.f ? 0.f : v; }
 
 // One call of rank `rank` over n16 16-byte units of x (see the note at the
 // top): the all-gather when GATHER, else the all-reduce of float4s.
 template <bool GATHER>
-__device__ void comm_call(const Bufs& B, int rank, int size, long long slot_bytes,
-                          const uint4* x, uint4* out, long long n16, int relu, int* err) {
+__device__ void comm_call(const CfComm& c, int rank, const uint4* x, uint4* out,
+                          long long n16, int relu) {
   __shared__ unsigned s_epoch;
   __shared__ int s_failed;
-  char* own = B.p[rank];
-  unsigned* ctl = reinterpret_cast<unsigned*>(own);
   if (threadIdx.x == 0) {
-    s_epoch = *reinterpret_cast<volatile unsigned*>(ctl) + 1u;
+    s_epoch = comm_next_epoch(c, rank);
     s_failed = 0;
   }
   __syncthreads();
   const unsigned e = s_epoch;
-  const int bank = e & 1;
   const long long per = (n16 + gridDim.x - 1) / gridDim.x;
   const long long lo = min(n16, (long long)blockIdx.x * per);
   const long long hi = min(n16, lo + per);
@@ -145,51 +139,29 @@ __device__ void comm_call(const Bufs& B, int rank, int size, long long slot_byte
   // 1. push this block's range into slot `rank` of every rank
   for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x) {
     const uint4 v = x[i];
-    for (int p = 0; p < size; ++p) slot_at(B.p[p], bank, rank, size, slot_bytes)[i] = v;
+    for (int p = 0; p < c.size; ++p) comm_push(c, rank, p, e, i, v);
   }
   __syncthreads();
 
   // 2.-3. publish, then wait for every source's flag of this block
-  if (threadIdx.x < size) {
+  if (threadIdx.x < c.size) {
     const int p = threadIdx.x;
-    asm volatile("fence.acq_rel.sys;" ::: "memory");
-    st_release_sys(flag_at(B.p[p], rank, blockIdx.x), e);
-    const unsigned* f = flag_at(own, p, blockIdx.x);
-    unsigned long long t0 = 0;
-    for (unsigned spins = 1; (int)(ld_acquire_sys(f) - e) < 0; ++spins) {
-      if ((spins & 255u) == 0) {
-        const unsigned long long t = global_ns();
-        if (t0 == 0) {
-          t0 = t;
-        } else if (t - t0 > TIMEOUT_NS) {
-          atomicCAS_system(err, 0, 0x10000 | (rank << 8) | p);
-          s_failed = 1;
-          break;
-        }
-      }
-    }
+    comm_publish(c, rank, p, blockIdx.x, e);
+    if (!comm_wait(c, rank, p, blockIdx.x, e)) s_failed = 1;
   }
   __syncthreads();
 
   // 4. sum or copy the slots of this range, in rank order
   if (!s_failed) {
     if (GATHER) {
-      for (int s = 0; s < size; ++s) {
-        const uint4* src = slot_at(own, bank, s, size, slot_bytes);
+      for (int s = 0; s < c.size; ++s) {
+        const uint4* src = comm_slot(comm_buf(c, rank), e & 1, s, c.size, c.slot_bytes);
         for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x)
           out[(long long)s * n16 + i] = __ldcg(src + i);
       }
     } else {
       for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x) {
-        float4 acc = __ldcg(reinterpret_cast<const float4*>(slot_at(own, bank, 0, size, slot_bytes)) + i);
-        for (int s = 1; s < size; ++s) {
-          const float4 v =
-              __ldcg(reinterpret_cast<const float4*>(slot_at(own, bank, s, size, slot_bytes)) + i);
-          acc.x += v.x;
-          acc.y += v.y;
-          acc.z += v.z;
-          acc.w += v.w;
-        }
+        float4 acc = comm_sum<float4>(c, rank, e, i);
         if (relu) {
           acc.x = relu_f(acc.x);
           acc.y = relu_f(acc.y);
@@ -204,35 +176,32 @@ __device__ void comm_call(const Bufs& B, int rank, int size, long long slot_byte
   // 5. the rank's last block to finish advances its epoch
   __syncthreads();
   if (threadIdx.x == 0) {
+    unsigned* ctl = reinterpret_cast<unsigned*>(comm_buf(c, rank));
     __threadfence();
     if (atomicAdd(ctl + 1, 1u) == gridDim.x - 1) {
       atomicExch(ctl + 1, 0u);
-      atomicExch(ctl, e);
+      comm_set_epoch(c, rank, e);
     }
   }
 }
 
 template <bool GATHER>
 __global__ void __launch_bounds__(COMM_THREADS)
-comm_kernel(Bufs B, int rank, int size, long long slot_bytes, const void* x, void* out,
-            long long n16, int relu, int* err) {
-  comm_call<GATHER>(B, rank, size, slot_bytes, static_cast<const uint4*>(x),
-                    static_cast<uint4*>(out), n16, relu, err);
+comm_kernel(CfComm c, const void* x, void* out, long long n16, int relu) {
+  comm_call<GATHER>(c, c.rank, static_cast<const uint4*>(x), static_cast<uint4*>(out), n16,
+                    relu);
 }
+
+struct Ptrs {
+  void* p[CF_MAX_RANKS];
+};
 
 template <bool GATHER>
 __global__ void __launch_bounds__(COMM_THREADS)
-comm_loopback_kernel(Bufs B, int size, long long slot_bytes, Ptrs xs, Ptrs outs,
-                     long long n16, int relu, int* err) {
+comm_loopback_kernel(CfComm c, Ptrs xs, Ptrs outs, long long n16, int relu) {
   const int r = blockIdx.y;
-  comm_call<GATHER>(B, r, size, slot_bytes, static_cast<const uint4*>(xs.p[r]),
-                    static_cast<uint4*>(outs.p[r]), n16, relu, err);
-}
-
-Bufs bufs_of(const CfComm* c) {
-  Bufs b{};
-  for (int p = 0; p < c->size; ++p) b.p[p] = c->bufs[p];
-  return b;
+  comm_call<GATHER>(c, r, static_cast<const uint4*>(xs.p[r]), static_cast<uint4*>(outs.p[r]),
+                    n16, relu);
 }
 
 // Blocks of one call: one 16-byte unit per thread, at most COMM_MAX_BLOCKS
@@ -252,8 +221,7 @@ int check_call(const CfComm* c, long long n16) {
 template <bool GATHER>
 int launch(const CfComm* c, const void* x, void* out, long long n16, int relu, cudaStream_t st) {
   CF_CHECK(check_call(c, n16));
-  comm_kernel<GATHER><<<comm_blocks(n16), COMM_THREADS, 0, st>>>(
-      bufs_of(c), c->rank, c->size, c->slot_bytes, x, out, n16, relu, c->err);
+  comm_kernel<GATHER><<<comm_blocks(n16), COMM_THREADS, 0, st>>>(*c, x, out, n16, relu);
   return (int)cudaGetLastError();
 }
 
@@ -274,18 +242,12 @@ int launch_loopback(const CfComm* c, void** xs, void** outs, long long n16, int 
     X.p[r] = xs[r];
     O.p[r] = outs[r];
   }
-  comm_loopback_kernel<GATHER><<<dim3(blocks, c->size), COMM_THREADS, 0, st>>>(
-      bufs_of(c), c->size, c->slot_bytes, X, O, n16, relu, c->err);
+  comm_loopback_kernel<GATHER><<<dim3(blocks, c->size), COMM_THREADS, 0, st>>>(*c, X, O, n16,
+                                                                               relu);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
-
-int cf_launch_all_reduce(const CfComm* c, const float* x, float* out, long long n, int relu,
-                         cudaStream_t st) {
-  if (n % 4) return (int)cudaErrorInvalidValue;
-  return launch<false>(c, x, out, n / 4, relu, st);
-}
 
 // Load this file's kernels now (see "Lazy loading" above).
 extern "C" int cf_comm_preload() {
@@ -298,7 +260,7 @@ extern "C" int cf_comm_preload() {
 
 // Bytes of one rank's symmetric buffer.
 extern "C" long long cf_comm_buffer_bytes(int size, long long slot_bytes) {
-  return DATA_OFF + 2LL * size * slot_bytes;
+  return COMM_DATA_OFF + 2LL * size * slot_bytes;
 }
 
 // A zeroed symmetric buffer on `device`, the base of its own allocation
@@ -390,9 +352,9 @@ extern "C" void cf_comm_delete(void* c) { free(c); }
 // Kernel 13: out[n] f32 = sum over ranks of x[n] (n % 4 == 0).
 extern "C" int cf_allreduce(const void* comm, const void* x, void* out, long long n, int relu,
                             void* stream) {
-  return cf_launch_all_reduce(static_cast<const CfComm*>(comm), static_cast<const float*>(x),
-                              static_cast<float*>(out), n, relu,
-                              static_cast<cudaStream_t>(stream));
+  if (n % 4) return (int)cudaErrorInvalidValue;
+  return launch<false>(static_cast<const CfComm*>(comm), x, out, n / 4, relu,
+                       static_cast<cudaStream_t>(stream));
 }
 
 // Kernel 14: out[size * n16] 16-byte units = the ranks' x[n16], in rank order.

@@ -17,6 +17,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "collective.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -81,9 +82,9 @@ __device__ __forceinline__ float rope_at(const float* x, int d, int hd,
 
 }  // namespace
 
-#define CF_CHECK(expr)             \
+#define CF_CHECK(...)              \
   do {                             \
-    int _e = (expr);               \
+    int _e = (__VA_ARGS__);        \
     if (_e != 0) return _e;        \
   } while (0)
 
@@ -133,6 +134,9 @@ int launch_kernel_cluster(void (*kernel)(Params...), dim3 grid, dim3 block, size
 }
 
 constexpr int NORM_THREADS = 1024;
+constexpr int NORM_ROW = 8;          // elements a thread of a reduce's norm holds
+static_assert(NORM_ROW * NORM_THREADS >= COMM_MAX_BLOCKS * COMM_TILE,
+              "a reduce's norm holds the widest row a reduce takes");
 
 // Residual add + RMSNorm of row blockIdx.x (every row pointer is offset by
 // row*hidden, z1 and z2 by row*n1 and row*n2): r = a + b, with a from `a`
@@ -143,21 +147,82 @@ constexpr int NORM_THREADS = 1024;
 // kernels before it first, and it lets the kernel after it start at once
 // (the ring GEMV streams its weights while this kernel runs and reads xn
 // only after it has completed).
-__global__ void __launch_bounds__(NORM_THREADS)
-resnorm_kernel(const float* a, const __nv_bfloat16* a_bf16, const float* b,
-               const __nv_bfloat16* b_bf16, const __nv_bfloat16* w, float* r_out,
-               __nv_bfloat16* r_bf16, __nv_bfloat16* xn, __nv_bfloat16* x_out,
-               __nv_bfloat16* res_out, int hidden, float eps, float* z1, int n1,
-               float* z2, int n2) {
-  hopper::grid_dep_launch_dependents();
-  hopper::grid_dep_wait();
+//
+// REDUCE (resnorm_reduce_kernel, one row): the consumer of a reduce of the
+// stack's mode 5 (collective.cu): a is the sum over the ranks of `cm`'s
+// axis of the partials their ring GEMVs pushed (PUSH).  After its
+// griddepcontrol.wait it waits for every rank's flag of every 256-column
+// tile, then reads the slots in rank order (the bits of kernel 13's sum)
+// and advances the rank's epoch.  Only then does it let the kernel after it
+// start: launched early, that kernel's blocks would hold SMs while this
+// one waits, and a virtual rank on the same card could find none for the
+// product this one waits for.
+template <bool REDUCE>
+__device__ __forceinline__ void resnorm_body(
+    const float* a, const __nv_bfloat16* a_bf16, const float* b,
+    const __nv_bfloat16* b_bf16, const __nv_bfloat16* w, float* r_out,
+    __nv_bfloat16* r_bf16, __nv_bfloat16* xn, __nv_bfloat16* x_out,
+    __nv_bfloat16* res_out, int hidden, float eps, float* z1, int n1, float* z2, int n2,
+    const CfComm& cm) {
+  unsigned e = 0;
+  if constexpr (REDUCE) {
+    __shared__ unsigned s_e;
+    hopper::grid_dep_wait();
+    if (threadIdx.x == 0) s_e = comm_next_epoch(cm, cm.rank);
+    __syncthreads();
+    e = s_e;
+    const int tiles = (hidden + COMM_TILE - 1) / COMM_TILE;
+    for (int t = threadIdx.x; t < cm.size * tiles; t += blockDim.x)
+      comm_wait(cm, cm.rank, t / tiles, t % tiles, e);
+    __syncthreads();               // every flag seen
+    if (threadIdx.x == 0) comm_set_epoch(cm, cm.rank, e);
+    hopper::grid_dep_launch_dependents();
+  } else {
+    hopper::grid_dep_launch_dependents();
+    hopper::grid_dep_wait();
+  }
   __shared__ float red[32];
   const size_t row = (size_t)blockIdx.x * hidden;
-  auto a_at = [&](int i) {
-    return a_bf16 ? __bfloat162float(a_bf16[row + i]) : a[row + i];
-  };
   auto b_at = [&](int i) {
     return b_bf16 ? __bfloat162float(b_bf16[row + i]) : (b ? b[row + i] : 0.f);
+  };
+  if constexpr (REDUCE) {
+    // The row held in registers (hidden <= NORM_ROW * blockDim.x): each
+    // slot is read once, and every load is issued before the first store.
+    // Element i = threadIdx.x + k * blockDim.x and the sum of squares in k
+    // order, as in the loop below: the same bits.
+    float av[NORM_ROW], bv[NORM_ROW];
+#pragma unroll
+    for (int k = 0; k < NORM_ROW; ++k) {
+      const int i = threadIdx.x + k * blockDim.x;
+      av[k] = i < hidden ? comm_sum<float>(cm, cm.rank, e, i) : 0.f;
+      bv[k] = i < hidden ? b_at(i) : 0.f;
+    }
+    float ss = 0.f;
+#pragma unroll
+    for (int k = 0; k < NORM_ROW; ++k) {
+      const int i = threadIdx.x + k * blockDim.x;
+      if (i < hidden) {
+        const float r = av[k] + bv[k];
+        ss += r * r;
+        if (r_out) r_out[i] = r;
+        if (x_out) x_out[i] = __float2bfloat16(av[k]);
+        if (res_out) res_out[i] = __float2bfloat16(bv[k]);
+      }
+    }
+    const float inv = rsqrtf(block_sum(ss, red) / hidden + eps);
+    if (w) {
+#pragma unroll
+      for (int k = 0; k < NORM_ROW; ++k) {
+        const int i = threadIdx.x + k * blockDim.x;
+        if (i < hidden)
+          xn[i] = __float2bfloat16((av[k] + bv[k]) * inv * __bfloat162float(w[i]));
+      }
+    }
+    return;
+  }
+  auto a_at = [&](int i) {
+    return a_bf16 ? __bfloat162float(a_bf16[row + i]) : a[row + i];
   };
   float ss = 0.f;
   for (int i = threadIdx.x; i < hidden; i += blockDim.x) {
@@ -175,6 +240,25 @@ resnorm_kernel(const float* a, const __nv_bfloat16* a_bf16, const float* b,
   }
   for (int i = threadIdx.x; i < n1; i += blockDim.x) z1[(size_t)blockIdx.x * n1 + i] = 0.f;
   for (int i = threadIdx.x; i < n2; i += blockDim.x) z2[(size_t)blockIdx.x * n2 + i] = 0.f;
+}
+
+__global__ void __launch_bounds__(NORM_THREADS)
+resnorm_kernel(const float* a, const __nv_bfloat16* a_bf16, const float* b,
+               const __nv_bfloat16* b_bf16, const __nv_bfloat16* w, float* r_out,
+               __nv_bfloat16* r_bf16, __nv_bfloat16* xn, __nv_bfloat16* x_out,
+               __nv_bfloat16* res_out, int hidden, float eps, float* z1, int n1,
+               float* z2, int n2) {
+  resnorm_body<false>(a, a_bf16, b, b_bf16, w, r_out, r_bf16, xn, x_out, res_out, hidden,
+                      eps, z1, n1, z2, n2, CfComm{});
+}
+
+// One row: a = the reduce's rank-order sum (REDUCE above), b from `b`.
+__global__ void __launch_bounds__(NORM_THREADS)
+resnorm_reduce_kernel(CfComm cm, const float* b, const __nv_bfloat16* w, float* r_out,
+                      __nv_bfloat16* xn, __nv_bfloat16* x_out, __nv_bfloat16* res_out,
+                      int hidden, float eps) {
+  resnorm_body<true>(nullptr, nullptr, b, nullptr, w, r_out, nullptr, xn, x_out, res_out,
+                     hidden, eps, nullptr, 0, nullptr, 0, cm);
 }
 
 // ---- The ring GEMV: one row of x against a bf16 [K, N] matrix, fixed order ----
@@ -218,12 +302,13 @@ constexpr int G1_ROW_BYTES = G1_COLS * 2;          // 512 B per weight row
 constexpr int G1_ROWS = 32;                        // weight rows per stage
 constexpr int G1_STAGES = 4;                       // ring stages
 constexpr int G1_STAGE_BYTES = G1_ROWS * G1_ROW_BYTES;
-constexpr int G1_HEAD = 256;                       // barriers, the norm's warp sums
+constexpr int G1_HEAD = 256;                       // barriers, the norm's warp sums, epoch
 constexpr int G1_SMEM_MAX = 227 * 1024;
 constexpr int G1_MAX_THREADS = 1024 - 32;          // consumers beside the producer
 constexpr int G1_MAX_CLUSTER = 16;                 // non-portable; 8 is portable
-static_assert(2 * G1_STAGES * sizeof(uint64_t) + 4 * (G1_MAX_THREADS / 32) <= G1_HEAD,
-              "barriers overflow the head");
+static_assert(G1_COLS == COMM_TILE, "a reduce's flag column is one tile");
+static_assert(2 * G1_STAGES * sizeof(uint64_t) + 4 * (G1_MAX_THREADS / 32) + 4 <= G1_HEAD,
+              "barriers, the norm's sums and the epoch overflow the head");
 static_assert(G1_STAGES * G1_STAGE_BYTES >= 4 * G1_COLS * (G1_MAX_THREADS / 32 + 1),
               "the ring must hold the blocks' sums after the last stage");
 
@@ -231,13 +316,14 @@ inline size_t ring_gemv_smem(int k_chunk) {
   return (size_t)G1_HEAD + (size_t)G1_STAGES * G1_STAGE_BYTES + 4 * (size_t)k_chunk;
 }
 
-template <bool SWIGLU>
+template <bool SWIGLU, bool PUSH>
 __global__ void ring_gemv_kernel(const void* __restrict__ xv, long long x_row, int f_off,
                                  const __nv_bfloat16* __restrict__ w,
                                  float* __restrict__ y, __nv_bfloat16* __restrict__ yb,
                                  int M, int K, int N, int k_chunk, int nrc, int xrows,
                                  long long ws, long long y_row, long long yz,
-                                 const __nv_bfloat16* __restrict__ nw, float eps) {
+                                 const __nv_bfloat16* __restrict__ nw, float eps,
+                                 CfComm comm) {
   namespace cg = cooperative_groups;
   constexpr int RB = 1;                                     // rows per block
   constexpr int NS = G1_STAGES, RS = G1_ROW_BYTES, SB = G1_STAGE_BYTES;
@@ -356,7 +442,8 @@ __global__ void ring_gemv_kernel(const void* __restrict__ xv, long long x_row, i
   }
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
-  const int per = (nr * G1_COLS + ks - 1) / ks;             // (row, column) sums per rank
+  // (row, column) sums per rank; PUSH: whole 16-byte units of columns
+  const int per = PUSH ? 4 * ((G1_COLS / 4 + ks - 1) / ks) : (nr * G1_COLS + ks - 1) / ks;
   for (int i = tid; i < per; i += blockDim.x) {
     const int e = rank * per + i, b = e / G1_COLS, c = e % G1_COLS;
     if (b < nr && c < cols) {
@@ -368,38 +455,69 @@ __global__ void ring_gemv_kernel(const void* __restrict__ xv, long long x_row, i
 #pragma unroll
       for (int q = 0; q < G1_MAX_CLUSTER; ++q)
         if (q < ks) s += v[q];
-      const size_t at = (size_t)(r0 + b) * y_row + (size_t)mat * yz + n0 + c;
-      if (yb)
-        yb[at] = __float2bfloat16(s);
-      else
-        y[at] = s;
+      if constexpr (PUSH) {
+        red[i] = s;                       // red is free once the cluster has met
+      } else {
+        const size_t at = (size_t)(r0 + b) * y_row + (size_t)mat * yz + n0 + c;
+        if (yb)
+          yb[at] = __float2bfloat16(s);
+        else
+          y[at] = s;
+      }
     }
   }
-  cluster.sync();
+  if constexpr (PUSH) {
+    // mode 5's producer (collective.cu): this block's share of the tile's
+    // sums, 16 bytes a store, into slot comm.rank of every rank's buffer;
+    // after the cluster barrier (which orders every block's stores before
+    // it) rank 0 of the cluster publishes the tile's flag to every rank.
+    // One thread a block reads the epoch into the head's last word.
+    unsigned* s_ep = reinterpret_cast<unsigned*>(g1_sm + G1_HEAD) - 1;   // the head's last word
+    if (tid == 0) *s_ep = comm_next_epoch(comm, comm.rank);
+    const int units = per / 4;
+    __syncthreads();
+    const unsigned ep = *s_ep;
+    for (int u = tid; u < units * comm.size; u += blockDim.x) {
+      const int p = u / units, j = u % units, c = rank * per + 4 * j;
+      if (c < cols)
+        comm_push(comm, comm.rank, p, ep, (n0 + c) / 4,
+                  *reinterpret_cast<const uint4*>(red + 4 * j));
+    }
+    cluster.sync();
+    if (rank == 0 && tid < comm.size) comm_publish(comm, comm.rank, tid, blockIdx.y, ep);
+  } else {
+    cluster.sync();
+  }
 }
 
-// Launch ring_gemv_kernel<SWIGLU> over one row and nmat [K, N] matrices,
+// Launch ring_gemv_kernel<SWIGLU, PUSH> over one row and nmat [K, N] matrices,
 // with one producer warp per block beside `threads` consumer threads (a
 // multiple of 32, at most G1_MAX_THREADS); `pdl` adds programmatic
 // dependent launch.  The K chunks per tile (the cluster size ks, at most 16
 // where the card allows non-portable clusters, else 8, with at least two
 // stages of rows per block) are the most for which every cluster of the
 // grid is resident at once (cudaOccupancyMaxActiveClusters).  nw: x is
-// normalised first.  Returns a cudaError_t.
-template <bool SWIGLU>
+// normalised first.  PUSH (mode 5's producer; comm given, one matrix): y
+// is not written; the sums go to the reduce's slots instead, one flag
+// column per tile (at most COMM_MAX_BLOCKS tiles).  Returns a cudaError_t.
+template <bool SWIGLU, bool PUSH = false>
 int launch_gemv1(const void* x, int f_off, const __nv_bfloat16* w, float* y, int K, int N,
                  int nmat, long long ws, long long yz, int threads, bool pdl,
                  cudaStream_t st, __nv_bfloat16* yb = nullptr,
-                 const __nv_bfloat16* nw = nullptr, float eps = 0.f) {
+                 const __nv_bfloat16* nw = nullptr, float eps = 0.f,
+                 const CfComm* comm = nullptr) {
   if ((nw && SWIGLU) || K < 1 || N < 8 || N % 8 != 0 || nmat < 1 || threads < 32 ||
       threads % 32 != 0 || threads > G1_MAX_THREADS)
+    return (int)cudaErrorInvalidValue;
+  if (PUSH && (!comm || nmat != 1 || (N + G1_COLS - 1) / G1_COLS > COMM_MAX_BLOCKS ||
+               4LL * N > comm->slot_bytes))
     return (int)cudaErrorInvalidValue;
   static bool attrs_set = false;
   static int max_cluster = 8;
   struct Occ { int ks, threads; size_t smem; int clusters; };
   static Occ occ_cache[64];
   static int n_occ = 0;
-  auto kern = ring_gemv_kernel<SWIGLU>;
+  auto kern = ring_gemv_kernel<SWIGLU, PUSH>;
   if (!attrs_set) {
     CF_CHECK((int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        G1_SMEM_MAX));
@@ -456,7 +574,7 @@ int launch_gemv1(const void* x, int f_off, const __nv_bfloat16* w, float* y, int
   cfg.dynamicSmemBytes = ring_gemv_smem(k_chunk);
   cfg.numAttrs = pdl ? 2 : 1;
   return (int)cudaLaunchKernelEx(&cfg, kern, x, 0LL, f_off, w, y, yb, 1, K, N, k_chunk,
-                                 1, 1, ws, 0LL, yz, nw, eps);
+                                 1, 1, ws, 0LL, yz, nw, eps, comm ? *comm : CfComm{});
 }
 
 // ---- The rows GEMV: 2..16 rows of x per block against bf16 [K, N] matrices ----

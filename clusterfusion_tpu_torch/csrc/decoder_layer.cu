@@ -561,6 +561,10 @@ decoder_layer_kernel(const __grid_constant__ CUtensorMap qmap,
                  DL_FOLD_GROUP);
   }
   ol_stamp(stamps, 7);
+  // every store is done: a kernel launched after this one with programmatic
+  // dependent launch (kernel 2 on the tp step) may start, and waits for
+  // this grid's completion before it reads
+  hopper::grid_dep_launch_dependents();
   ol_cluster_sync();                                 // peers have read this block's state
 }
 

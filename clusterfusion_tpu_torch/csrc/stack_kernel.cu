@@ -39,14 +39,19 @@
 //
 // Mode 5, reduce_axis (the JAX package's fused_collectives=True): with a
 // communicator (collective.cuh; null at tp 1) the caller holds this rank's
-// tp shards (kv_heads/tp heads, f_pad/tp FFN columns), and kernel 13's
-// all-reduce runs twice per layer on the same stream, in place on the f32
-// partial sums: on aout after the O-projection (Stage.ATTN, before the FFN
-// resnorm) and on hx after the down projection (Stage.LINEAR, before the
-// next layer's resnorm), as `ring_reduce_scratch` runs inside the TPU
-// kernel.  The GEMVs write aout and hx whole, so each reduce sees one
-// rank's whole partial; every rank then carries the same bits of the
-// hidden pair.  The sequence gains 2L launches.
+// tp shards (kv_heads/tp heads, f_pad/tp FFN columns), and the partial
+// sums of the O-projection (Stage.ATTN, before the FFN resnorm) and of the
+// down projection (Stage.LINEAR, before the next layer's resnorm) are summed
+// over the axis inside the step, as `ring_reduce_scratch` runs inside the
+// TPU kernel.  No reduce has a launch of its own: each of the two products
+// runs the ring GEMV's PUSH instance, whose epilogue stores its tiles'
+// fixed-order sums into every rank's symmetric buffer and publishes one
+// flag per 256-column tile (hidden at most 8192: 32 flag columns), and the
+// resnorm after it (resnorm_reduce_kernel) waits for every rank's flags,
+// adds the slots in rank order 0..N-1 (kernel 13's sum, so its bits) and
+// then the residual.  The protocol and why its two banks suffice are in
+// collective.cu's note.  Every rank carries the same bits of the hidden
+// pair, and the sequence has as many launches as at tp 1.
 //
 // The split and merge passes are common.cuh's attn_split_kernel and
 // attn_merge_kernel, shared with the single layer (decoder_layer.cu): the
@@ -60,8 +65,8 @@
 // roundings they flip compound over the layers).  Each GEMV is launched
 // with programmatic dependent launch: it streams its first weight stages
 // while the kernel before it (resnorm, merge or the previous GEMV, which
-// let it start at once) still runs, and reads its input after that
-// kernel has completed.
+// let it start at once; mode 5's resnorm once its reduce has arrived)
+// still runs, and reads its input after that kernel has completed.
 
 #include <algorithm>
 
@@ -107,6 +112,22 @@ Scratch layout(float* base, int hidden, int kv_heads, int group, int hd, int cap
   return s;
 }
 
+// Load mode 5's kernels before the first launch of a step, once per card:
+// a virtual rank may spin on the card while another's launch would load
+// them (see "Lazy loading" in collective.cu).
+int preload_mode5() {
+  static bool loaded[64];
+  int dev = 0;
+  CF_CHECK((int)cudaGetDevice(&dev));
+  if (dev < 64 && loaded[dev]) return 0;
+  cudaFuncAttributes a;
+  CF_CHECK((int)cudaFuncGetAttributes(&a, ring_gemv_kernel<false, true>));
+  CF_CHECK((int)cudaFuncGetAttributes(&a, ring_gemv_kernel<true, true>));
+  CF_CHECK((int)cudaFuncGetAttributes(&a, resnorm_reduce_kernel));
+  if (dev < 64) loaded[dev] = true;
+  return 0;
+}
+
 }  // namespace
 
 // Floats of f32 scratch `cf_decoder_stack` needs for this geometry.
@@ -123,8 +144,8 @@ extern "C" long long cf_stack_scratch_floats(int hidden, int kv_heads, int hg,
 // lm_head == nullptr: writes out_x/out_res (bf16 [hidden]); otherwise writes
 // logits (f32 [vocab]) and out_res.  K/V rows land in kc/vc at row pos.
 // *n_launches receives the number of kernels launched.  comm: a CfComm*
-// for mode 5 (the all-reduces over tp), or null.  Returns a cudaError_t (0
-// on success).
+// for mode 5 (the reduces over tp; hidden at most 32 tiles of 256), or
+// null.  Returns a cudaError_t (0 on success).
 extern "C" int cf_decoder_stack(
     const void* x, const void* attn_norm, const void* ffn_norm, const void* cos,
     const void* sin, const void* wqkv, const void* wo, const void* w13,
@@ -139,8 +160,13 @@ extern "C" int cf_decoder_stack(
   // hd 128 only: others (Gemma-2's 256) are not ported yet
   if (group > ATT_MAX_GROUP || hd != 128 || threads % 32 != 0 ||
       threads < 32 || threads > G1_MAX_THREADS || pos < 0 || pos >= cap ||
-      kv_heads % hg != 0 || (cc && hidden % 4 != 0))
+      kv_heads % hg != 0)
     return (int)cudaErrorInvalidValue;
+  if (cc) {   // mode 5: one flag column per 256-column tile of hidden
+    if ((hidden + COMM_TILE - 1) / COMM_TILE > COMM_MAX_BLOCKS || 4LL * hidden > cc->slot_bytes)
+      return (int)cudaErrorInvalidValue;
+    CF_CHECK(preload_mode5());
+  }
   Scratch s = layout(static_cast<float*>(scratch), hidden, kv_heads, group, hd, cap,
                      f_pad, kv_split);
   const int G = kv_heads / hg;
@@ -160,12 +186,17 @@ extern "C" int cf_decoder_stack(
     __nv_bfloat16* kcl = static_cast<__nv_bfloat16*>(kc) + (size_t)l * kv_heads * cap * hd;
     __nv_bfloat16* vcl = static_cast<__nv_bfloat16*>(vc) + (size_t)l * kv_heads * cap * hd;
 
-    // residual add + attention RMSNorm
-    CF_CHECK(launch_kernel(resnorm_kernel, dim3(1), dim3(NORM_THREADS), 0, st, PDL_CHAIN,
-        l == 0 ? nullptr : s.hx,
-        l == 0 ? static_cast<const __nv_bfloat16*>(x) : nullptr,
-        l == 0 ? nullptr : s.res_a, nullptr, an, s.res_b, nullptr, s.xn, nullptr,
-        nullptr, hidden, eps, nullptr, 0, nullptr, 0));
+    // residual add + attention RMSNorm (mode 5: after layer 0, over the
+    // down projection's reduce)
+    if (cc && l > 0)
+      CF_CHECK(launch_kernel(resnorm_reduce_kernel, dim3(1), dim3(NORM_THREADS), 0, st,
+          PDL_CHAIN, *cc, s.res_a, an, s.res_b, s.xn, nullptr, nullptr, hidden, eps));
+    else
+      CF_CHECK(launch_kernel(resnorm_kernel, dim3(1), dim3(NORM_THREADS), 0, st, PDL_CHAIN,
+          l == 0 ? nullptr : s.hx,
+          l == 0 ? static_cast<const __nv_bfloat16*>(x) : nullptr,
+          l == 0 ? nullptr : s.res_a, nullptr, an, s.res_b, nullptr, s.xn, nullptr,
+          nullptr, hidden, eps, nullptr, 0, nullptr, 0));
     ++n;
     CF_CHECK(launch_gemv1<false>(s.xn, 0, wq, s.qkv, hidden, (int)C, G,
                                  (long long)hidden * C, C, threads, true, st));
@@ -176,46 +207,50 @@ extern "C" int cf_decoder_stack(
                               kcl, vcl, nullptr, nullptr, s.o, nullptr, nullptr,
                               kv_heads, group, hd, cap, pos, kv_split, 1, neox,
                               st, &n, PDL_CHAIN));
-    // wo_f[l] is [G * Ko, hidden] row-major: one product sums the groups
-    CF_CHECK(launch_gemv1<false>(s.o, 0, wol, s.aout, (int)(G * Ko), hidden, 1, 0, 0,
-                                 threads, true, st));
-    ++n;
-    if (cc) {   // Stage.ATTN: sum the ranks' O-projection partials
-      CF_CHECK(cf_launch_all_reduce(cc, s.aout, s.aout, hidden, 0, st));
-      ++n;
+    // wo_f[l] is [G * Ko, hidden] row-major: one product sums the groups;
+    // then the attention-out residual add + FFN RMSNorm
+    if (cc) {   // Stage.ATTN: the ranks' O-projection partials, summed
+      CF_CHECK(launch_gemv1<false, true>(s.o, 0, wol, nullptr, (int)(G * Ko), hidden, 1, 0,
+                                         0, threads, true, st, nullptr, nullptr, 0.f, cc));
+      CF_CHECK(launch_kernel(resnorm_reduce_kernel, dim3(1), dim3(NORM_THREADS), 0, st,
+          PDL_CHAIN, *cc, s.res_b, fn, s.res_a, s.xn, nullptr, nullptr, hidden, eps));
+    } else {
+      CF_CHECK(launch_gemv1<false>(s.o, 0, wol, s.aout, (int)(G * Ko), hidden, 1, 0, 0,
+                                   threads, true, st));
+      CF_CHECK(launch_kernel(resnorm_kernel, dim3(1), dim3(NORM_THREADS), 0, st, PDL_CHAIN,
+          s.aout, nullptr, s.res_b, nullptr, fn, s.res_a, nullptr, s.xn, nullptr,
+          nullptr, hidden, eps, nullptr, 0, nullptr, 0));
     }
-    // attention-out residual add + FFN RMSNorm
-    CF_CHECK(launch_kernel(resnorm_kernel, dim3(1), dim3(NORM_THREADS), 0, st, PDL_CHAIN,
-        s.aout, nullptr, s.res_b, nullptr, fn, s.res_a, nullptr, s.xn, nullptr,
-        nullptr, hidden, eps, nullptr, 0, nullptr, 0));
-    ++n;
+    n += 2;
     CF_CHECK(launch_gemv1<false>(s.xn, 0, w13l, s.gu, hidden, f_pad, 2,
                                  (long long)hidden * f_pad, f_pad, threads, true, st));
     ++n;
-    CF_CHECK(launch_gemv1<true>(s.gu, f_pad, w2l, s.hx, f_pad, hidden, 1, 0, 0, threads,
-                                true, st));
+    if (cc)     // Stage.LINEAR: the down projection's partials go to the reduce
+      CF_CHECK(launch_gemv1<true, true>(s.gu, f_pad, w2l, nullptr, f_pad, hidden, 1, 0, 0,
+                                        threads, true, st, nullptr, nullptr, 0.f, cc));
+    else
+      CF_CHECK(launch_gemv1<true>(s.gu, f_pad, w2l, s.hx, f_pad, hidden, 1, 0, 0, threads,
+                                  true, st));
     ++n;
-    if (cc) {   // Stage.LINEAR: sum the ranks' down-projection partials
-      CF_CHECK(cf_launch_all_reduce(cc, s.hx, s.hx, hidden, 0, st));
-      ++n;
-    }
   }
 
-  if (lm_head) {
+  // the final norm over hx + res (mode 5: hx is the last reduce)
+  const __nv_bfloat16* fnorm = static_cast<const __nv_bfloat16*>(final_norm);
+  __nv_bfloat16* xo = lm_head ? nullptr : static_cast<__nv_bfloat16*>(out_x);
+  __nv_bfloat16* ro = static_cast<__nv_bfloat16*>(out_res);
+  if (cc)
+    CF_CHECK(launch_kernel(resnorm_reduce_kernel, dim3(1), dim3(NORM_THREADS), 0, st,
+        PDL_CHAIN, *cc, s.res_a, lm_head ? fnorm : nullptr, nullptr,
+        lm_head ? s.xn : nullptr, xo, ro, hidden, eps));
+  else
     CF_CHECK(launch_kernel(resnorm_kernel, dim3(1), dim3(NORM_THREADS), 0, st, PDL_CHAIN,
-        s.hx, nullptr, s.res_a, nullptr, static_cast<const __nv_bfloat16*>(final_norm),
-        nullptr, nullptr, s.xn, nullptr, static_cast<__nv_bfloat16*>(out_res), hidden,
-        eps, nullptr, 0, nullptr, 0));
-    ++n;
+        s.hx, nullptr, s.res_a, nullptr, lm_head ? fnorm : nullptr, nullptr, nullptr,
+        lm_head ? s.xn : nullptr, xo, ro, hidden, eps, nullptr, 0, nullptr, 0));
+  ++n;
+  if (lm_head) {
     CF_CHECK(launch_gemv1<false>(s.xn, 0, static_cast<const __nv_bfloat16*>(lm_head),
                                  static_cast<float*>(logits), hidden, vocab, 1, 0, 0,
                                  threads, true, st));
-    ++n;
-  } else {
-    CF_CHECK(launch_kernel(resnorm_kernel, dim3(1), dim3(NORM_THREADS), 0, st, PDL_CHAIN,
-        s.hx, nullptr, s.res_a, nullptr, nullptr, nullptr, nullptr, nullptr,
-        static_cast<__nv_bfloat16*>(out_x), static_cast<__nv_bfloat16*>(out_res),
-        hidden, eps, nullptr, 0, nullptr, 0));
     ++n;
   }
   *n_launches = n;

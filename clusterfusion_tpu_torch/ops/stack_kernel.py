@@ -23,9 +23,11 @@ PyTorch.  Both follow the TPU kernel where "the same math" could differ:
 Mode 5, ``reduce_axis`` (the JAX package's ``fused_collectives=True``):
 each rank holds its tp shards of the weights and caches, and the float32
 partial sums of the O-projection and of the down projection are summed
-over the axis inside the step, by kernel 13 on the card (in the kernels'
-launch sequence) and by ``all_reduce_plain`` on the CPU, in the same rank
-order.  ``mesh`` (the port's ``parallel.Mesh``) names the ranks.
+over the axis inside the step, on the card by kernel 13's protocol inside
+the stack's own launches (the two products push their sums to every rank,
+the norms after them wait and add the ranks' sums; no launch of its own),
+and by ``all_reduce_plain`` on the CPU, in the same rank order.  ``mesh``
+(the port's ``parallel.Mesh``) names the ranks.
 
 The caches are updated in place: the returned caches are the tensors that
 were passed in.
@@ -49,7 +51,8 @@ _NEG_INF = -1e30
 
 #: Calls of :func:`fused_decoder_stack` that launched the kernels.
 launches = 0
-#: CUDA kernels the last such call launched (8 per layer + 1 or 2).
+#: CUDA kernels the last such call launched (8 per layer + 1 or 2, mode 5
+#: too).
 last_step_kernels = 0
 
 

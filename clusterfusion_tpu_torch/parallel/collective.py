@@ -46,9 +46,11 @@ from clusterfusion_tpu_torch.ops import _build
 from clusterfusion_tpu_torch.ops._support import round_up
 from clusterfusion_tpu_torch.parallel.mesh import AXES, Mesh
 
-#: Launches of kernel 13 ("all_reduce") and kernel 14 ("all_gather"),
-#: counted where they are launched: here, and in ``fused_decoder_stack``
-#: for the all-reduces inside its sequence (mode 5).
+#: Reduces of kernel 13 ("all_reduce") and launches of kernel 14
+#: ("all_gather"): here one a launch, and in ``fused_decoder_stack`` (mode
+#: 5) the 2L reduces of a step, which run inside kernel 7's own launches
+#: (pushed by its O-projection and down-projection products, summed by the
+#: norms after them) and launch nothing of their own.
 launches: Dict[str, int] = {"all_reduce": 0, "all_gather": 0}
 
 #: Bytes of one rank's slot in a symmetric buffer; a larger call runs in

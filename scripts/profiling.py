@@ -45,11 +45,12 @@ def _marked_calls(fn, reps: int, before=None) -> None:
     torch.cuda.synchronize()
 
 
-def kernel_events(prof, keep=None):
+def kernel_events(prof, keep=None, streams: bool = False):
     """(start µs, end µs, name) of a profile's device events in start
     order, the markers left out, and only those whose name ``keep``
-    accepts when it is given."""
+    accepts when it is given; with ``streams``, the CUDA stream fourth."""
     return sorted((e.time_range.start, e.time_range.end, e.name)
+                  + ((e.device_resource_id,) if streams else ())
                   for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA
                   and MARKER not in e.name
@@ -57,11 +58,14 @@ def kernel_events(prof, keep=None):
 
 
 def profile_calls(fn, reps: int, *, before=None, keep=None,
-                  attempts: int = 3, warmup: int = 1):
+                  attempts: int = 5, warmup: int = 1, streams: bool = False):
     """Profile ``reps`` calls of ``fn`` (``before`` runs ahead of each and,
     with ``keep``, its kernels are left out by name).  Returns (events,
     profiled wall ms per call): the kernels of the first profile whose
-    count is a whole number per call, or of the last one with a note."""
+    count is a whole number per call, or of the last one with a note.  A
+    profile that saw no device event at all is taken again after a pause
+    that doubles from 0.25 s (on the card's torch, three empty profiles in
+    a row ended two of four ``chip_smoke.py`` runs of one call)."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
@@ -72,7 +76,7 @@ def profile_calls(fn, reps: int, *, before=None, keep=None,
             t0 = time.perf_counter()
             _marked_calls(fn, reps, before)
             wall = (time.perf_counter() - t0) * 1e3 / reps
-        ev = kernel_events(prof, keep)
+        ev = kernel_events(prof, keep, streams)
         whole = bool(ev) and len(ev) % reps == 0
         if whole or (ev and attempt == attempts):
             if not whole:
@@ -80,11 +84,13 @@ def profile_calls(fn, reps: int, *, before=None, keep=None,
             if attempt > 1:
                 note(device_events_on_attempt=attempt)
             return ev, wall
+        if not ev and attempt < attempts:
+            time.sleep(0.25 * 2 ** (attempt - 1))
     raise AssertionError(f"the profiler saw no device time in {attempts} "
                          "profiles")
 
 
-def device_ms(fn, reps: int = 20, attempts: int = 3) -> float:
+def device_ms(fn, reps: int = 20, attempts: int = 5) -> float:
     """Mean device time in ms of all kernels one call of ``fn`` launches
     (their own durations summed; the host's time between launches
     excluded)."""
@@ -132,26 +138,68 @@ def charged(ev):
     return out
 
 
+# The passes of a tp decode step's kernels, by kernel name: kernel 7's
+# (the ring GEMVs: mode 5's O and down projections, which push their sums
+# to the ranks, the down projection, the others; the split and merge
+# passes, the norms, and mode 5's norms that wait for a reduce), kernels 13
+# and 14, kernels 6 and 2.
+TP_STEP_PASSES = (("gemv_o_push", "ring_gemv_kernel<false, true>"),
+                  ("gemv_down_push", "ring_gemv_kernel<true, true>"),
+                  ("gemv_down", "ring_gemv_kernel<true"),
+                  ("gemv", "ring_gemv_kernel"), ("split", "attn_split_kernel"),
+                  ("merge", "attn_merge_kernel"),
+                  ("reduce_norm", "resnorm_reduce_kernel"),
+                  ("norm", "resnorm_kernel"), ("kernels13_14", "comm_kernel"),
+                  ("kernel6", "decoder_layer_kernel"),
+                  ("kernel2", "rmsnorm_kernel"))
+
+
+def breakdown(ev, reps: int, passes):
+    """Per call of a profile of ``reps`` calls (``profile_calls`` events),
+    by pass (``passes``: (label, substring of the kernel's name); the rest
+    "other"): the ms charged as ``charged`` says, the kernels' own ms and
+    their launches."""
+    rows = {k: [0.0, 0.0, 0] for k, _ in passes}
+    rows["other"] = [0.0, 0.0, 0]
+    for start, stop, name, c in charged(ev):
+        k = next((k for k, key in passes if key in name), "other")
+        rows[k][0] += c
+        rows[k][1] += stop - start
+        rows[k][2] += 1
+    per = 1e3 * reps            # µs over reps -> ms per call
+    return {k: (c / per, own / per, n / reps) for k, (c, own, n) in rows.items()}
+
+
 def timeline_by_pass(fn, passes, reps: int = 8):
     """``reps`` profiled calls of ``fn``, per call: the device's busy time,
     the span from the first kernel's start to the last one's end, the sum
     of the kernels' own durations, and the busy time and launches by pass
-    (``passes``: (label, substring of the kernel's name); the rest is
-    "other").  Kernels launched with programmatic dependent launch start
-    while the one before them runs and wait inside, so each is charged
-    only as ``charged`` says, and the passes add up to the busy time."""
+    (``breakdown``).  Kernels launched with programmatic dependent launch
+    start while the one before them runs and wait inside, so each is
+    charged only as ``charged`` says, and the passes add up to the busy
+    time."""
     ev, _ = profile_calls(fn, reps)
-    out = {k: 0.0 for k, _ in passes}
-    out["other"] = 0.0
-    counts = {k: 0 for k in out}
-    own = 0.0
-    for start, stop, name, c in charged(ev):
-        own += stop - start
-        k = next((k for k, key in passes if key in name), "other")
-        counts[k] += 1
-        out[k] += c
-    span = ev[-1][1] - ev[0][0]
-    per = 1e3 * reps            # µs over reps -> ms per call
-    return (sum(out.values()) / per, span / per, own / per,
-            {k: v / per for k, v in out.items()},
-            {k: v / reps for k, v in counts.items()})
+    rows = breakdown(ev, reps, passes)
+    span = (ev[-1][1] - ev[0][0]) / (1e3 * reps)
+    return (sum(c for c, _, _ in rows.values()), span,
+            sum(own for _, own, _ in rows.values()),
+            {k: c for k, (c, _, _) in rows.items()},
+            {k: n for k, (_, _, n) in rows.items()})
+
+
+def short_name(name: str) -> str:
+    """A kernel's name without its namespace, return type and parameters,
+    its template arguments kept, spaces taken out."""
+    name = name.replace("(anonymous namespace)::", "").split("(")[0]
+    return name.replace("void ", "", 1).replace(" ", "")[:60]
+
+
+def timeline(ev, first: int, n: int):
+    """Kernels ``first`` .. ``first + n - 1`` of a profile's events, as
+    lines: the stream (events taken with ``streams``), start and end in µs
+    from the first of them, length, and the kernel's short name."""
+    rows = ev[first:first + n]
+    t0 = rows[0][0] if rows else 0.0
+    return [(f"stream={r[3]} " if len(r) > 3 else "")
+            + f"start_us={r[0] - t0:.1f} end_us={r[1] - t0:.1f} "
+            f"us={r[1] - r[0]:.1f} kernel={short_name(r[2])}" for r in rows]

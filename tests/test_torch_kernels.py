@@ -124,25 +124,25 @@ def test_chunked_prefill_matches_whole_on_card(dev):
 HIDDEN, L, HD, F_PAD, VOCAB, CAP = 512, 2, 128, 1024, 384, 640
 
 
-def _stack_args(dev, n_heads, kv_heads, hg, pos, seed=0):
+def _stack_args(dev, n_heads, kv_heads, hg, pos, seed=0, hidden=HIDDEN):
     g, G = n_heads // kv_heads, kv_heads // hg
     a = dict(
-        x=_randn((1, HIDDEN), dev, seed),
-        attn_norm=1 + _randn((L, HIDDEN), dev, seed + 1, 0.1),
-        ffn_norm=1 + _randn((L, HIDDEN), dev, seed + 2, 0.1),
-        wqkv_f=_randn((L, G, HIDDEN, hg * (g + 2) * HD), dev, seed + 3,
-                      HIDDEN ** -0.5),
-        wo_f=_randn((L, G, hg * g * HD, HIDDEN), dev, seed + 4,
+        x=_randn((1, hidden), dev, seed),
+        attn_norm=1 + _randn((L, hidden), dev, seed + 1, 0.1),
+        ffn_norm=1 + _randn((L, hidden), dev, seed + 2, 0.1),
+        wqkv_f=_randn((L, G, hidden, hg * (g + 2) * HD), dev, seed + 3,
+                      hidden ** -0.5),
+        wo_f=_randn((L, G, hg * g * HD, hidden), dev, seed + 4,
                     (g * HD) ** -0.5),
-        w13=_randn((L, 2, HIDDEN, F_PAD), dev, seed + 5, HIDDEN ** -0.5),
-        w2=_randn((L, F_PAD, HIDDEN), dev, seed + 6, F_PAD ** -0.5),
+        w13=_randn((L, 2, hidden, F_PAD), dev, seed + 5, hidden ** -0.5),
+        w2=_randn((L, F_PAD, hidden), dev, seed + 6, F_PAD ** -0.5),
     )
     kc = torch.zeros((L, kv_heads, CAP, HD), dtype=torch.bfloat16, device=dev)
     vc = torch.zeros_like(kc)
     kc[:, :, :pos] = _randn((L, kv_heads, pos, HD), dev, seed + 7)
     vc[:, :, :pos] = _randn((L, kv_heads, pos, HD), dev, seed + 8)
-    lm = dict(final_norm=1 + _randn((HIDDEN,), dev, seed + 9, 0.1),
-              lm_head=_randn((HIDDEN, VOCAB), dev, seed + 10, HIDDEN ** -0.5))
+    lm = dict(final_norm=1 + _randn((hidden,), dev, seed + 9, 0.1),
+              lm_head=_randn((hidden, VOCAB), dev, seed + 10, hidden ** -0.5))
     return g, a, kc, vc, lm
 
 
@@ -821,13 +821,16 @@ def test_deepseek_decode_step_launches_kernels(dev, experts):
 
 
 @pytest.mark.parametrize("rows,hidden", [(1, 4096), (7, 512), (64, 128),
-                                         (64, 8192)])
+                                         (64, 8192), (1, 8192), (3, 12288),
+                                         (2, 20480)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
 def test_norm_kernels_match_plain(dev, rows, hidden, dtype):
     """Kernels 1 and 2 against their plain twins (the float32 oracles):
     every output is rounded once, so they agree to one rounding of the
-    output type (bf16: 2e-2; float32: 1e-5)."""
+    output type (bf16: 2e-2; float32: 1e-5).  A thread holds one or two
+    16-byte chunks of a row of up to 2048 chunks; 12288 runs the two-pass
+    loop in float32 and 20480 in both types."""
     from clusterfusion_tpu_torch.ops import reference as ref
     rn = importlib.import_module("clusterfusion_tpu_torch.ops.rmsnorm")
     x = _randn((rows, hidden), dev, 50).to(dtype)
@@ -1354,17 +1357,48 @@ def test_collective_wait_is_bounded(dev):
         lb.close()
 
 
-@pytest.mark.parametrize("n_heads,kv_heads,hg", [(4, 4, 2), (8, 2, 1)],
-                         ids=["mha", "gqa"])
-def test_stack_mode5_loopback_matches_unsharded(dev, n_heads, kv_heads, hg):
-    """Mode 5 (reduce_axis) at tp 2 on one card: two virtual ranks, each on
-    its own stream with its shards of the weights and caches, against
-    kernel 7's unsharded step.  Both ranks' x_out and residual have the
-    same bits; each rank's appended rows are its heads' rows."""
-    from clusterfusion_tpu_torch.parallel import collective as col
+MODE5_SPECS = dict(wqkv_f=(None, "tp", None, None),
+                   wo_f=(None, "tp", None, None),
+                   w13=(None, None, None, "tp"), w2=(None, "tp", None))
+
+
+def _mode5_shards(a, kc, vc, meshes):
     from clusterfusion_tpu_torch.parallel.sharding import shard_tensor
+    shards = [{k: shard_tensor(a[k], s, m) for k, s in MODE5_SPECS.items()}
+              for m in meshes]
+    caches = [(shard_tensor(kc, (None, "tp", None, None), m),
+               shard_tensor(vc, (None, "tp", None, None), m))
+              for m in meshes]
+    return shards, caches
+
+
+def _mode5_step(a, shards, caches, meshes, streams, cos, sin, pos, kw,
+                ranks=None):
+    """Each virtual rank's mode-5 step on its own stream; the kernels each
+    step launched."""
+    dev = a["x"].device
+    outs, kernels = [], []
+    for r in (range(len(meshes)) if ranks is None else ranks):
+        streams[r].wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(streams[r]):
+            sh = shards[r]
+            outs.append(sk.fused_decoder_stack(
+                a["x"], a["attn_norm"], a["ffn_norm"], cos, sin,
+                sh["wqkv_f"], sh["wo_f"], sh["w13"], sh["w2"], *caches[r], pos,
+                reduce_axis="tp", mesh=meshes[r], **kw))
+            kernels.append(sk.last_step_kernels)
+    for s in streams:
+        torch.cuda.current_stream(dev).wait_stream(s)
+    return outs, kernels
+
+
+def _mode5_against_unsharded(dev, n_heads, kv_heads, hg, hidden=HIDDEN):
+    """Mode 5 at tp 2 on one card against kernel 7's unsharded step, called
+    twice (the second call must repeat the first's bits)."""
+    from clusterfusion_tpu_torch.parallel import collective as col
     pos, tp = 37, 2
-    g, a, kc, vc, _ = _stack_args(dev, n_heads, kv_heads, hg, pos)
+    g, a, kc, vc, _ = _stack_args(dev, n_heads, kv_heads, hg, pos,
+                                  hidden=hidden)
     cfg = LlamaConfig.tiny()
     cos, sin = model.rope_row(cfg, pos, dev)
     kw = dict(group=g, head_dim=HD, rope_style="gptj", eps=1e-5)
@@ -1372,33 +1406,27 @@ def test_stack_mode5_loopback_matches_unsharded(dev, n_heads, kv_heads, hg):
     ref = sk.fused_decoder_stack(a["x"], a["attn_norm"], a["ffn_norm"], cos,
                                  sin, a["wqkv_f"], a["wo_f"], a["w13"],
                                  a["w2"], kr, vr, pos, **kw)
-    specs = dict(wqkv_f=(None, "tp", None, None), wo_f=(None, "tp", None, None),
-                 w13=(None, None, None, "tp"), w2=(None, "tp", None))
     lb = col.LoopbackComm(tp, dev)
     try:
         meshes = [lb.mesh(r) for r in range(tp)]
-        shards = [{k: shard_tensor(a[k], s, m) for k, s in specs.items()}
-                  for m in meshes]
-        caches = [(shard_tensor(kc, (None, "tp", None, None), m),
-                   shard_tensor(vc, (None, "tp", None, None), m))
-                  for m in meshes]
+        shards, caches = _mode5_shards(a, kc, vc, meshes)
         streams = [torch.cuda.Stream(dev) for _ in range(tp)]
         r0 = col.launches["all_reduce"]
-        outs = []
-        for r in range(tp):
-            streams[r].wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(streams[r]):
-                sh = shards[r]
-                outs.append(sk.fused_decoder_stack(
-                    a["x"], a["attn_norm"], a["ffn_norm"], cos, sin,
-                    sh["wqkv_f"], sh["wo_f"], sh["w13"], sh["w2"],
-                    *caches[r], pos, reduce_axis="tp", mesh=meshes[r], **kw))
-                assert sk.last_step_kernels == 10 * L + 1
+        outs, kernels = _mode5_step(a, shards, caches, meshes, streams, cos,
+                                    sin, pos, kw)
+        again, _ = _mode5_step(a, shards, caches, meshes, streams, cos, sin,
+                               pos, kw)
         torch.cuda.synchronize(dev)
         lb.check()
-        assert col.launches["all_reduce"] == r0 + 2 * L * tp
+        # 8 kernels a layer and the final norm, as at tp 1: no reduce has a
+        # launch of its own
+        assert kernels == [8 * L + 1] * tp
+        assert col.launches["all_reduce"] == r0 + 2 * 2 * L * tp
     finally:
         lb.close()
+    for first, second in zip(outs, again):
+        assert torch.equal(first[0], second[0])
+        assert torch.equal(first[1], second[1])
     for r, (xo, ro, k, v) in enumerate(outs):
         assert torch.equal(xo, outs[0][0]) and torch.equal(ro, outs[0][1])
         torch.testing.assert_close(xo.float(), ref[0].float(), atol=2e-2,
@@ -1413,3 +1441,75 @@ def test_stack_mode5_loopback_matches_unsharded(dev, n_heads, kv_heads, hg):
             others = torch.ones(CAP, dtype=torch.bool, device=dev)
             others[pos] = False
             assert torch.equal(got[:, :, others], before[:, heads][:, :, others])
+
+
+@pytest.mark.parametrize("n_heads,kv_heads,hg", [(4, 4, 2), (8, 2, 1)],
+                         ids=["mha", "gqa"])
+def test_stack_mode5_loopback_matches_unsharded(dev, n_heads, kv_heads, hg):
+    """Mode 5 (reduce_axis) at tp 2 on one card: two virtual ranks, each on
+    its own stream with its shards of the weights and caches, against
+    kernel 7's unsharded step.  Both ranks' x_out and residual have the
+    same bits, a second call repeats them, each rank's appended rows are
+    its heads' rows, and the step has 8L+1 kernels (the reduces run inside
+    the products and the norms)."""
+    _mode5_against_unsharded(dev, n_heads, kv_heads, hg)
+
+
+@pytest.mark.parametrize("hidden", [8192, 8448], ids=["32_tiles", "33_tiles"])
+def test_stack_mode5_flag_columns(dev, hidden):
+    """Mode 5 publishes one flag column per 256-column tile of hidden, and
+    a rank's buffer has 32: hidden 8192 (llama2_70b's) runs and matches
+    the unsharded step; 8448 needs 33 and is refused before any launch."""
+    if hidden <= 8192:
+        _mode5_against_unsharded(dev, 4, 4, 2, hidden=hidden)
+        return
+    from clusterfusion_tpu_torch.parallel import collective as col
+    pos = 37
+    g, a, kc, vc, _ = _stack_args(dev, 4, 4, 2, pos, hidden=hidden)
+    cfg = LlamaConfig.tiny()
+    cos, sin = model.rope_row(cfg, pos, dev)
+    kw = dict(group=g, head_dim=HD, rope_style="gptj", eps=1e-5)
+    lb = col.LoopbackComm(2, dev)
+    try:
+        meshes = [lb.mesh(r) for r in range(2)]
+        shards, caches = _mode5_shards(a, kc, vc, meshes)
+        streams = [torch.cuda.Stream(dev) for _ in range(2)]
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            _mode5_step(a, shards, caches, meshes, streams, cos, sin, pos, kw,
+                        ranks=[0])
+        torch.cuda.synchronize(dev)
+        assert lb.ranks[0].error() == 0
+    finally:
+        lb.close()
+
+
+def test_stack_mode5_wait_is_bounded(dev):
+    """A mode-5 step on virtual rank 0 whose peer never runs: its first
+    reduce gives up after about 2 s with both ranks in the error word, the
+    later ones give up at once, and the step raises instead of hanging."""
+    import time
+
+    from clusterfusion_tpu_torch.parallel import collective as col
+    pos = 37
+    g, a, kc, vc, _ = _stack_args(dev, 4, 4, 2, pos)
+    cfg = LlamaConfig.tiny()
+    cos, sin = model.rope_row(cfg, pos, dev)
+    kw = dict(group=g, head_dim=HD, rope_style="gptj", eps=1e-5)
+    lb = col.LoopbackComm(2, dev)
+    try:
+        meshes = [lb.mesh(r) for r in range(2)]
+        shards, caches = _mode5_shards(a, kc, vc, meshes)
+        streams = [torch.cuda.Stream(dev) for _ in range(2)]
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with pytest.raises(RuntimeError,
+                           match="rank 0 waited more than 2 s for the flag "
+                                 "of rank 1"):
+            _mode5_step(a, shards, caches, meshes, streams, cos, sin, pos, kw,
+                        ranks=[0])
+            lb.check()
+        waited = time.perf_counter() - t0
+        assert lb.ranks[0].error() == 0x10000 | 1
+        assert 1.9 < waited < 4.0
+    finally:
+        lb.close()
