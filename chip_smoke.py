@@ -139,6 +139,29 @@ weights are used in place), and before the DeepSeek phases free it:
    tail's LM product and gather wait beside kernel 7's passes) and its last
    kernels (``[fused_step_tail]``).
 
+Phases 17 and 18 run after 15, while the Llama-2-7B engine is alive, and
+before the DeepSeek phases:
+
+17. kernel 7's int8 mode (``fused_decoder_stack`` on int8
+   ``QuantizedTensor``s): the engine's seeded weights regrouped to the
+   quantized engines' head grouping (hg 8, G 4) and quantized per output
+   column layer by layer, at pos 600 over a random cache with NaN above
+   pos, with the bf16 and with the int8 LM head: against its plain twin at
+   phase 4's limits (logits, the appended K/V rows, every other row
+   unchanged bit for bit), a repeat bit-identical; its time (CUDA events)
+   beside its byte bound (int8 codes, float32 scales, the LM head, the K/V
+   rows) and the bf16 step's time in the same run, the twin's time; then
+   its device time by pass (``torch.profiler``: the int8 GEMVs with their
+   TB/s, the bf16 LM head's GEMV, split, merge, norms) and layer 1's
+   kernels in launch order beside the bf16 step's (``[stack_int8_layer]``);
+18. the int8 path end to end: ``Llama.synthetic(llama2_7b, quant="int8")``
+   streams 64 greedy tokens after a 512-token prompt through
+   ``stream_generate``: every projection held as int8 codes, prefill ms
+   (warm), decode tokens/s, the launches of kernel 4 and of kernel 7's
+   int8 mode on that run (counts set to 0 just before), and the first 8
+   tokens against the int8 plain path on the card (eager prefill and
+   decode) under the top-2-gap rule.
+
 Then, where the machine has two cards or more:
 
 16. one rank per card (``torch.multiprocessing``, a ``file://`` store,
@@ -368,6 +391,44 @@ def _same_bits(a, b) -> bool:
 STACK_KV_SPLITS = (32, 64, 128)
 
 
+def stack_vs_plain(phase, out, ref, kk, vk, kc, vc, pos, **where):
+    """Kernel 7's step (``out``, caches kk/vk) against its plain twin's
+    (``ref``, kc/vc) at phase 4's limits: logits within 2e-2 of the largest,
+    the appended K/V rows (layer 0 at atol 0.05, deeper layers at atol 0.05
+    + rtol 1e-2 of |row|), every other row unchanged bit for bit, finite
+    outputs.  Prints the errors; returns (logits max abs error, ok)."""
+    torch.cuda.synchronize()
+    lg_err = (out[0] - ref[0]).abs().max().item()
+    lg_rel = lg_err / ref[0].abs().max().item()
+    # appended rows, per layer: [L] max abs error and max |row|
+    row_err = torch.maximum(
+        (kk[:, :, pos].float() - kc[:, :, pos].float()).abs().amax(dim=(1, 2)),
+        (vk[:, :, pos].float() - vc[:, :, pos].float()).abs().amax(dim=(1, 2)))
+    row_mag = torch.maximum(kc[:, :, pos].float().abs().amax(dim=(1, 2)),
+                            vc[:, :, pos].float().abs().amax(dim=(1, 2)))
+    # Layer 0's row comes from the same input in both: atol 0.05, the JAX
+    # suite's bf16 tolerance.  Deeper rows inherit f32 summation-order noise
+    # that flips bf16 roundings and compounds layer by layer (about one bf16
+    # ulp per 8-10 layers at this geometry): atol 0.05 + rtol 1e-2 of |row|.
+    row_tol = 0.05 + 1e-2 * row_mag
+    rows_ok = bool(row_err[0] <= 0.05) and bool((row_err <= row_tol).all())
+    others = torch.ones(kc.shape[2], dtype=torch.bool, device=kc.device)
+    others[pos] = False
+    unchanged = (_same_bits(kk[:, :, others], kc[:, :, others])
+                 and _same_bits(vk[:, :, others], vc[:, :, others]))
+    finite = bool(torch.isfinite(out[0]).all()) and bool(
+        torch.isfinite(out[1].float()).all())
+    say(phase, **where, pos=pos, logits_max_abs_err=f"{lg_err:.4g}",
+        logits_err_over_max=f"{lg_rel:.4g}", tol_logits=2e-2,
+        kv_row_err_layer0=f"{row_err[0].item():.3g}", tol_layer0=0.05,
+        kv_row_err_max=f"{row_err.max().item():.4g}",
+        kv_row_err_by_layer=[round(e, 4) for e in row_err[::4].tolist()],
+        kv_row_max_abs=f"{row_mag.max().item():.3g}",
+        tol_rows="atol=0.05+rtol=1e-2", other_rows_unchanged=unchanged,
+        nan_above_pos=True, finite=finite)
+    return lg_err, lg_rel <= 2e-2 and rows_ok and unchanged and finite
+
+
 def phase_stack(eng, dev, hbm, peak, pos=600):
     from clusterfusion_tpu_torch.config import KernelConfig
     from clusterfusion_tpu_torch.models import llama as model
@@ -395,37 +456,10 @@ def phase_stack(eng, dev, hbm, peak, pos=600):
     kk, vk = kc.clone(), vc.clone()
     out = sk.fused_decoder_stack(*args, kk, vk, pos, **kw)
     ref = sk.fused_decoder_stack_plain(*args, kc, vc, pos, **kw)
-    torch.cuda.synchronize()
-    lg_err = (out[0] - ref[0]).abs().max().item()
-    lg_rel = lg_err / ref[0].abs().max().item()
-    # appended rows, per layer: [L] max abs error and max |row|
-    row_err = torch.maximum(
-        (kk[:, :, pos].float() - kc[:, :, pos].float()).abs().amax(dim=(1, 2)),
-        (vk[:, :, pos].float() - vc[:, :, pos].float()).abs().amax(dim=(1, 2)))
-    row_mag = torch.maximum(kc[:, :, pos].float().abs().amax(dim=(1, 2)),
-                            vc[:, :, pos].float().abs().amax(dim=(1, 2)))
-    # Layer 0's row comes from the same input in both: atol 0.05, the JAX
-    # suite's bf16 tolerance.  Deeper rows inherit f32 summation-order noise
-    # that flips bf16 roundings and compounds layer by layer (about one bf16
-    # ulp per 8-10 layers at this geometry): atol 0.05 + rtol 1e-2 of |row|.
-    row_tol = 0.05 + 1e-2 * row_mag
-    rows_ok = bool(row_err[0] <= 0.05) and bool((row_err <= row_tol).all())
-    others = torch.ones(kc.shape[2], dtype=torch.bool, device=dev)
-    others[pos] = False
-    unchanged = (_same_bits(kk[:, :, others], kc[:, :, others])
-                 and _same_bits(vk[:, :, others], vc[:, :, others]))
-    finite = bool(torch.isfinite(out[0]).all()) and bool(
-        torch.isfinite(out[1].float()).all())
-    say("stack", kernel=7, pos=pos, layers=cfg.n_layers, logits_max_abs_err=f"{lg_err:.4g}",
-        logits_err_over_max=f"{lg_rel:.4g}", tol_logits=2e-2,
-        kv_row_err_layer0=f"{row_err[0].item():.3g}", tol_layer0=0.05,
-        kv_row_err_max=f"{row_err.max().item():.4g}",
-        kv_row_err_by_layer=[round(e, 4) for e in row_err[::4].tolist()],
-        kv_row_max_abs=f"{row_mag.max().item():.3g}",
-        tol_rows="atol=0.05+rtol=1e-2", other_rows_unchanged=unchanged,
-        nan_above_pos=True, finite=finite,
-        kernels_per_step=sk.last_step_kernels)
-    if not (lg_rel <= 2e-2 and rows_ok and unchanged and finite):
+    lg_err, ok = stack_vs_plain("stack", out, ref, kk, vk, kc, vc, pos,
+                                kernel=7, layers=cfg.n_layers,
+                                kernels_per_step=sk.last_step_kernels)
+    if not ok:
         raise AssertionError("fused_decoder_stack disagrees with its plain twin")
     step = functools.partial(sk.fused_decoder_stack, *args, kk, vk, pos, **kw)
     ms = time_ms(step, 20)
@@ -2077,6 +2111,233 @@ def phase_fused_step(eng, dev, shards, n=16):
     return k13, k14
 
 
+def int8_stack_weights(lw, hg_from, hg_to):
+    """The four projections of a bf16 tree whose groups hold ``hg_from`` kv
+    heads, regrouped to ``hg_to`` (the quantized engines' layout) and
+    quantized to int8 per output column one layer at a time, so that the
+    float32 temporaries are one layer's (a stacked float32 copy of the 7B
+    ``w13`` alone is 11.8 GB)."""
+    from clusterfusion_tpu_torch.ops.quant import QuantizedTensor, quantize_int8
+    L, G, h, C = lw["wqkv_f"].shape
+    r = hg_to // hg_from
+
+    def regroup(name, w):
+        if name == "wqkv_f":     # group j's columns: old groups j*r.. in turn
+            return w.reshape(G // r, r, h, C).permute(0, 2, 1, 3).reshape(
+                G // r, h, r * C)
+        if name == "wo_f":       # group j's rows: old groups j*r.. in turn
+            return w.reshape(G // r, r * w.shape[1], h)
+        return w
+
+    out = {}
+    for name in ("wqkv_f", "wo_f", "w13", "w2"):
+        q = s = None
+        for l in range(L):
+            t = quantize_int8(regroup(name, lw[name][l]), -2)
+            if q is None:
+                q = torch.empty((L, *t.q.shape), dtype=torch.int8,
+                                device=t.q.device)
+                s = torch.empty((L, *t.s.shape), dtype=torch.float32,
+                                device=t.s.device)
+            q[l], s[l] = t.q, t.s
+        out[name] = QuantizedTensor(q, s, "int8", -2, 0, -2)
+    return out
+
+
+INT8_PASSES = (("split", "attn_split_kernel"), ("gemv8", "ring_gemv8_kernel"),
+               ("gemv", "ring_gemv_kernel"), ("norms", "resnorm_kernel"),
+               ("merge", "attn_merge_kernel"))
+
+
+def phase_int8_stack(eng, dev, hbm, peak, pos=600):
+    """Phase 17: kernel 7's int8 mode at full Llama-2-7B width, the
+    engine's seeded weights regrouped to the quantized layout (hg 8, G 4)
+    and quantized layer by layer, pos 600 over a random cache with NaN
+    above pos, with the bf16 and with the int8 LM head: against its plain
+    twin at phase 4's limits, a repeat bit-identical; the CUDA-event time
+    beside the bound and the bf16 step's time in this run (the bf16 weights
+    at hg 4), the plain twin's time; then the device time by pass
+    (``torch.profiler``: the int8 GEMVs with their TB/s, the bf16 LM
+    head's GEMV, split, merge, norms).  Returns the kernels-line entry of
+    the bf16-head case (the engine's)."""
+    from clusterfusion_tpu_torch.models import llama as model
+    from clusterfusion_tpu_torch.ops import stack_kernel as sk
+    from clusterfusion_tpu_torch.ops.quant import quantize_int8
+    cfg, p = eng.cfg, eng.params
+    lw = p["layers"]
+    g, hd, L = cfg.n_heads // cfg.kv_heads, cfg.head_dim_, cfg.n_layers
+    hg8 = model.default_head_group(cfg, "int8")
+    w8 = int8_stack_weights(lw, model.default_head_group(cfg), hg8)
+    heads = {"lm_bf16": p["lm_head"], "lm_int8": quantize_int8(p["lm_head"], -2)}
+    gen = torch.Generator(device=dev).manual_seed(2)
+    kc, vc = model.init_cache(cfg, max_seq=1024, device=dev)
+    kc[:, :, :pos] = torch.randn(kc[:, :, :pos].shape, generator=gen,
+                                 device=dev).bfloat16()
+    vc[:, :, :pos] = torch.randn(vc[:, :, :pos].shape, generator=gen,
+                                 device=dev).bfloat16()
+    kc[:, :, pos + 1:] = float("nan")
+    vc[:, :, pos + 1:] = float("nan")
+    x = p["embed"][torch.tensor([7], device=dev)]
+    cos, sin = model.rope_row(cfg, pos, dev)
+    common = dict(group=g, head_dim=hd, rope_style=cfg.rope_style,
+                  eps=cfg.norm_eps, final_norm=p["final_norm"])
+    args = (x, lw["attn_norm"], lw["ffn_norm"], cos, sin, w8["wqkv_f"],
+            w8["wo_f"], w8["w13"], w8["w2"])
+    kk, vk = kc.clone(), vc.clone()
+    bf16_step = functools.partial(
+        sk.fused_decoder_stack, x, lw["attn_norm"], lw["ffn_norm"], cos, sin,
+        lw["wqkv_f"], lw["wo_f"], lw["w13"], lw["w2"], kk, vk, pos,
+        lm_head=p["lm_head"], **common)
+    q_bytes = sum(w8[k].q.numel() + w8[k].s.numel() * 4 for k in w8)
+    norm_bytes = 2 * (2 * L + 1) * cfg.hidden_dim
+    kv_read = 2 * L * cfg.kv_heads * pos * hd * 2
+    kv_write = 2 * L * cfg.kv_heads * hd * 2
+    weights = sum(w8[k].q.numel() for k in w8) + p["lm_head"].numel()
+    flops = 2 * weights + 4 * L * cfg.n_heads * (pos + 1) * hd
+    rows = {}
+    for label, head in heads.items():
+        kw = dict(common, lm_head=head)
+        kk.copy_(kc)
+        vk.copy_(vc)
+        kp, vp = kc.clone(), vc.clone()
+        before = sk.int8_launches
+        out = sk.fused_decoder_stack(*args, kk, vk, pos, **kw)
+        ref = sk.fused_decoder_stack_plain(*args, kp, vp, pos, **kw)
+        lg_err, ok = stack_vs_plain(
+            "stack_int8", out, ref, kk, vk, kp, vp, pos, kernel=7, head=label,
+            hg=hg8, layers=L, kernels_per_step=sk.last_step_kernels,
+            int8_launches=sk.int8_launches - before)
+        k2, v2 = kc.clone(), vc.clone()
+        again = sk.fused_decoder_stack(*args, k2, v2, pos, **kw)
+        torch.cuda.synchronize()
+        repeat = (torch.equal(again[0], out[0])
+                  and _same_bits(again[1], out[1]) and _same_bits(k2, kk)
+                  and _same_bits(v2, vk))
+        say("stack_int8", head=label, repeat_bit_identical=repeat)
+        if not (ok and repeat and sk.int8_launches - before == 2):
+            raise AssertionError(f"kernel 7's int8 mode ({label}) disagrees "
+                                 "with its plain twin or with itself")
+        del kp, vp, k2, v2, again, ref
+        step = functools.partial(sk.fused_decoder_stack, *args, kk, vk, pos,
+                                 **kw)
+        ms = time_ms(step, 20)
+        bf16_ms = time_ms(bf16_step, 20)
+        ms_again = time_ms(step, 20)
+        plain_ms = time_ms(lambda: sk.fused_decoder_stack_plain(
+            *args, kc, vc, pos, **kw), 3, warmup=1)
+        lm_bytes = (head.q.numel() + head.s.numel() * 4 if label == "lm_int8"
+                    else head.numel() * 2)
+        nbytes = (q_bytes + norm_bytes + lm_bytes + kv_read + kv_write
+                  + 4 * cfg.vocab_size + 2 * 2 * cfg.hidden_dim)
+        bound = max(nbytes / hbm, flops / peak) * 1e3
+        say("stack_int8", head=label, ms_per_step=f"{ms:.4f}",
+            ms_per_step_again=f"{ms_again:.4f}",
+            bf16_ms_per_step_same_run=f"{bf16_ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound:.4f}",
+            bound_by="bytes" if nbytes / hbm >= flops / peak else "operations",
+            bytes_per_step=nbytes, int8_weight_and_scale_bytes=q_bytes,
+            lm_bytes=lm_bytes)
+        busy, span, own, by, n = timeline_by_pass(step, INT8_PASSES)
+        gemv_ms = by["gemv8"] + by["gemv"]
+        gemv_bytes = q_bytes + lm_bytes
+        say("stack_int8_device", head=label, busy_ms=f"{busy:.4f}",
+            span_ms=f"{span:.4f}", kernels_own_sum_ms=f"{own:.4f}",
+            **{f"{k}_ms": f"{v:.4f}" for k, v in by.items()},
+            **{f"{k}_launches": f"{v:g}" for k, v in n.items()},
+            gemv_TBps=f"{gemv_bytes / (gemv_ms * 1e-3) / 1e12:.3f}",
+            gemv8_TBps=f"{(q_bytes + (lm_bytes if label == 'lm_int8' else 0)) / (by['gemv8'] * 1e-3) / 1e12:.3f}",
+            note="each kernel charged from the end of those before it to "
+                 "its own end")
+        if label == "lm_bf16":
+            # layer 1's eight kernels in launch order, int8 and bf16 steps
+            for kind, fn in (("int8", step), ("bf16", bf16_step)):
+                ev, _ = profiling.profile_calls(fn, 2)
+                ch = profiling.charged(ev[:len(ev) // 2])[8:16]
+                say("stack_int8_layer", step=kind, layer=1,
+                    kernels=[(profiling.short_name(nm), round(sp - st, 1),
+                              round(c, 1)) for st, sp, nm, c in ch],
+                    note="(kernel, own us, charged us) in launch order: "
+                         "resnorm, QKV, split, merge, O, resnorm, gate/up, "
+                         "down")
+        rows[label] = dict(max_abs_err=lg_err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound,
+                           bound_by="bytes" if nbytes / hbm >= flops / peak
+                           else "operations", library_ms=None)
+    return rows["lm_bf16"]
+
+
+def phase_int8_e2e(dev):
+    """Phase 18: ``Llama.synthetic(llama2_7b, quant="int8")`` (seed 0, hg 8,
+    the four projections int8, the LM head bf16) streams 64 greedy tokens
+    after a 512-token prompt through ``stream_generate``: prefill ms (warm),
+    decode tokens/s, the launches of kernel 7's int8 mode and of kernel 4,
+    no bf16 copy of a projection weight, and the first 8 tokens against
+    the int8 plain path on the card under the top-2-gap rule.  Returns
+    kernel 7's int8 launches."""
+    from clusterfusion_tpu_torch.config import LlamaConfig
+    from clusterfusion_tpu_torch.models import llama as model
+    from clusterfusion_tpu_torch.models.generation import Llama
+    from clusterfusion_tpu_torch.ops import flash_prefill as fp
+    from clusterfusion_tpu_torch.ops import stack_kernel as sk
+    from clusterfusion_tpu_torch.ops.quant import QuantizedTensor
+    t0 = time.perf_counter()
+    eng = Llama.synthetic(LlamaConfig.llama2_7b(), seed=0, fused=True,
+                          quant="int8", device=dev)
+    torch.cuda.synchronize()
+    cfg, lw = eng.cfg, eng.params["layers"]
+    proj = [lw[k] for k in ("wqkv_f", "wo_f", "w13", "w2")]
+    int8_only = all(isinstance(w, QuantizedTensor) and w.q.dtype == torch.int8
+                    for w in proj)
+    say("e2e_int8", init_seconds=f"{time.perf_counter() - t0:.1f}",
+        head_group=cfg.kv_heads // lw["wqkv_f"].shape[1],
+        projection_bytes=sum(w.q.numel() + 4 * w.s.numel() for w in proj),
+        projections_int8=int8_only)
+    if not int8_only:
+        raise AssertionError("the int8 engine holds a bf16 projection")
+    text = ("The quick brown fox jumps over the lazy dog. " * 20)[:511]
+    prompt = eng.tokenizer.encode(text, bos=True, eos=False)
+    n_new = 64
+    kc, vc = model.init_cache(cfg, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.prefill(eng.params, kc, vc, prompt, cfg)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    del kc, vc
+    fp.launches = 0
+    sk.launches = 0
+    sk.int8_launches = 0
+    stamps, toks = [], []
+    for t in eng.stream_generate(prompt, n_new, temperature=0.0):
+        stamps.append(time.perf_counter())
+        toks.append(t)
+    flash_launches, int8_launches = fp.launches, sk.int8_launches
+    st = eng.stats
+    decode_s = stamps[-1] - stamps[0]
+    say("e2e_int8", prompt_tokens=len(prompt), new_tokens=len(toks),
+        prefill_ms=f"{st.prefill_s * 1e3:.2f}",
+        prefill_first_call_ms=f"{first_ms:.2f}",
+        decode_tokens_per_s=f"{(len(toks) - 1) / decode_s:.2f}",
+        decode_ms_per_step=f"{decode_s * 1e3 / (len(toks) - 1):.3f}",
+        flash_prefill_launches=flash_launches,
+        stack_int8_launches=int8_launches, stack_launches=sk.launches)
+    if (flash_launches != cfg.n_layers or int8_launches < len(toks) - 1
+            or sk.launches != int8_launches):
+        raise AssertionError("the int8 path did not run kernel 4 and kernel "
+                             "7's int8 mode")
+    if len(toks) != n_new or not all(0 <= t < cfg.vocab_size for t in toks):
+        raise AssertionError(f"bad tokens {toks}")
+    plain, gaps, bad = check_against_plain(eng, dev, prompt, toks)
+    agree = sum(a == b for a, b in zip(plain, toks[:8]))
+    say("e2e_int8", kernel_tokens=toks[:8], plain_tokens=plain,
+        agree=f"{agree}/8", top2_gaps=[round(x, 3) for x in gaps],
+        disagree_where_gap_gt_0_1=bad)
+    if bad:
+        raise AssertionError(f"the int8 kernel and plain paths disagree at "
+                             f"steps {bad}")
+    return int8_launches
+
+
 def say_tp_profile(phase, ev, reps, wall, step, **where):
     """A tp step's device time by pass from ``reps`` profiled calls
     (``profiling.TP_STEP_PASSES``: kernel 7's GEMVs, split, merge, norms,
@@ -2818,7 +3079,12 @@ def main() -> int:
     coll_rows = phase_collectives(dev, hbm)
     shards = phase_mode5(eng, dev)
     k13_launches, k14_launches = phase_fused_step(eng, dev, shards)
-    del eng, shards
+    del shards
+    torch.cuda.empty_cache()
+    stack8 = phase_int8_stack(eng, dev, hbm, peak)
+    torch.cuda.empty_cache()
+    stack8_launches = phase_int8_e2e(dev)
+    del eng
     torch.cuda.empty_cache()
     ds_rows = phase_deepseek_kernels(dev, hbm, peak)
     mla_launches, ffn_launches = phase_deepseek_e2e(dev)
@@ -2833,6 +3099,10 @@ def main() -> int:
              source="clusterfusion_tpu_torch/csrc/stack_kernel.cu",
              replaces="clusterfusion_tpu/ops/stack_kernel.py:524",
              launches=stack_launches, **stack),
+        dict(name="fused_decoder_stack (int8 weights)", route="cuda",
+             source="clusterfusion_tpu_torch/csrc/stack_kernel.cu",
+             replaces="clusterfusion_tpu/ops/stack_kernel.py:604",
+             launches=stack8_launches, **stack8),
         dict(name="paged_attention", route="cuda",
              source="clusterfusion_tpu_torch/csrc/paged_attention.cu",
              replaces="clusterfusion_tpu/ops/paged_decoder_layer.py:932",

@@ -14,16 +14,17 @@ C++ page scheduler are built at first use.
 from clusterfusion_tpu_torch.config import (DeepSeekConfig, KernelConfig,
                                             LlamaConfig, MeshConfig)
 from clusterfusion_tpu_torch.ops import (
-    deepseek_decoder_layer, fused_add_rmsnorm, fused_ffn, gemv,
-    llama_decoder_layer, llama_decoder_layer_batch_decode_sglang,
-    llama_decoder_layer_paged, llama_decoder_layer_sglang, rmsnorm)
+    QuantizedTensor, deepseek_decoder_layer, fused_add_rmsnorm, fused_ffn,
+    gemv, llama_decoder_layer, llama_decoder_layer_batch_decode_sglang,
+    llama_decoder_layer_paged, llama_decoder_layer_sglang,
+    quantize_llama_params, rmsnorm)
 from clusterfusion_tpu_torch.runtime import PagedKVScheduler, ServingEngine
 
 __version__ = "0.1.0"
 
 __all__ = ["DeepSeekConfig", "KernelConfig", "LlamaConfig", "MeshConfig",
-           "PagedKVScheduler", "ServingEngine", "deepseek_decoder_layer",
-           "fused_add_rmsnorm", "fused_ffn", "gemv", "llama_decoder_layer",
-           "llama_decoder_layer_batch_decode_sglang",
+           "PagedKVScheduler", "QuantizedTensor", "ServingEngine",
+           "deepseek_decoder_layer", "fused_add_rmsnorm", "fused_ffn", "gemv",
+           "llama_decoder_layer", "llama_decoder_layer_batch_decode_sglang",
            "llama_decoder_layer_paged", "llama_decoder_layer_sglang",
-           "rmsnorm"]
+           "quantize_llama_params", "rmsnorm"]

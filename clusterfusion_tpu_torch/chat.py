@@ -1,15 +1,18 @@
-"""Streaming chat CLI of the port (twin of the root ``chat.py``, bf16 path):
-streams a completion and prints the total time and tokens/sec.
+"""Streaming chat CLI of the port (twin of the root ``chat.py``): streams a
+completion and prints the total time and tokens/sec.
 
 Usage:
     python -m clusterfusion_tpu_torch.chat --synthetic
     python -m clusterfusion_tpu_torch.chat --synthetic --eager
     python -m clusterfusion_tpu_torch.chat --synthetic --device cpu
     python -m clusterfusion_tpu_torch.chat --synthetic --spec_draft synthetic
+    python -m clusterfusion_tpu_torch.chat --synthetic --quant int8
 
 Loading a checkpoint is not ported yet, so ``--synthetic`` (random
 weights, byte tokenizer) is required, and ``--spec_draft`` takes only
-``synthetic`` (a random tiny draft, seed 1).
+``synthetic`` (a random tiny draft, seed 1).  ``--quant int8`` runs the
+int8 weight-only engine (kernel 7's int8 mode); ``--quant int4``,
+``--kv_int8`` and ``--kv_fp8`` exit "not yet ported".
 """
 
 from __future__ import annotations
@@ -32,7 +35,9 @@ def main(argv=None):
     ap.add_argument("--eager", action="store_true",
                     help="disable the fused decode kernel")
     ap.add_argument("--device", type=str, default="cuda")
-    ap.add_argument("--quant", type=str, default=None)
+    ap.add_argument("--quant", type=str, default=None,
+                    choices=["int8", "int4"],
+                    help="weight-only quantization (int8 is ported)")
     ap.add_argument("--kv_fp8", action="store_true")
     ap.add_argument("--kv_int8", action="store_true")
     ap.add_argument("--spec_draft", type=str, default=None,
@@ -42,10 +47,13 @@ def main(argv=None):
                     help="draft tokens per speculative round")
     args = ap.parse_args(argv)
 
-    for flag, given in (("--quant", args.quant), ("--kv_fp8", args.kv_fp8),
+    for flag, given in (("--quant int4", args.quant == "int4"),
+                        ("--kv_fp8", args.kv_fp8),
                         ("--kv_int8", args.kv_int8)):
         if given:
             sys.exit(f"{flag}: not yet ported")
+    if args.quant and args.spec_draft:
+        sys.exit("--quant with --spec_draft: not yet ported")
     if args.spec_draft not in (None, "synthetic"):
         sys.exit("--spec_draft: loading a draft checkpoint is not yet ported")
     if not args.synthetic:
@@ -56,7 +64,8 @@ def main(argv=None):
 
     fused = not args.eager
     cfg = LlamaConfig.tiny(max_seq_len=args.max_seq_len)
-    gen = Llama.synthetic(cfg, fused=fused, device=args.device)
+    gen = Llama.synthetic(cfg, fused=fused, quant=args.quant,
+                          device=args.device)
     draft = None
     if args.spec_draft == "synthetic":
         draft = Llama.synthetic(LlamaConfig.tiny(max_seq_len=args.max_seq_len),
@@ -64,6 +73,7 @@ def main(argv=None):
     toks = gen.tokenizer.encode(args.prompt, bos=True, eos=False)
     print(f"[prompt: {len(toks)} tokens | fused={gen.fused} | "
           f"device={gen.device}"
+          + (f" | quant={args.quant}" if args.quant else "")
           + (f" | spec n_draft={args.n_draft}" if draft else "") + "]")
     t0 = time.perf_counter()
     if draft is not None:

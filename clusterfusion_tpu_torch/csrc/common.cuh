@@ -309,6 +309,22 @@ resnorm_reduce_kernel(CfComm cm, const float* b, const __nv_bfloat16* w, float* 
 //   in rank order).  The two push alike; the gather has an instance of its
 //   own so that a profile names the step's LM product apart from its O
 //   projections.
+// - Int8 weights (ring_gemv8_kernel; kernel 7's int8 mode, the TPU
+//   kernel's wq_kind == "int8"): W holds int8 codes and sc float32
+//   per-column scales, a row of N per scale group.  A stage keeps its 16
+//   KB: 64 rows of 256 bytes (G1_ROWS8), so the bytes in flight per SM do
+//   not halve, and it arrives as one TMA box of a 3-D tensor map over the
+//   stacked matrices (one copy a stage, where a bulk copy per 256-byte row
+//   issued twice the bf16 path's copies per byte and streamed at 1.9 TB/s
+//   on the H100).  A lane reads its 8 columns of a row as one 8-byte shared
+//   load and makes exact floats of them with byte permutes (no int-to-float
+//   conversion instruction, which issues at a fraction of the FMA rate), so
+//   the consumers' FMA chain and the block's fixed-order sums are the bf16
+//   path's.  Scales: kg == 0 scales each sum by sc[mat*N + n] after the
+//   cluster sum (QKV per head group, gate/up, down, the LM head); kg > 0
+//   (the O projection, a stack of G matrices of kg rows summed as one)
+//   scales each block's partial by sc[(k0 / kg)*N + n] before the cluster
+//   sum, and the launcher picks K chunks that never straddle a group.
 // (M, nrc and xrows are always 1 here; the row arithmetic stays general.)
 constexpr int G1_Y = 0, G1_PUSH_SUM = 1, G1_PUSH_GATHER = 2;
 constexpr int G1_COLS = 256;                       // columns per tile
@@ -316,6 +332,7 @@ constexpr int G1_ROW_BYTES = G1_COLS * 2;          // 512 B per weight row
 constexpr int G1_ROWS = 32;                        // weight rows per stage
 constexpr int G1_STAGES = 4;                       // ring stages
 constexpr int G1_STAGE_BYTES = G1_ROWS * G1_ROW_BYTES;
+constexpr int G1_ROWS8 = G1_STAGE_BYTES / G1_COLS; // int8 weight rows per stage (64)
 constexpr int G1_HEAD = 256;                       // barriers, the norm's warp sums, epoch
 constexpr int G1_SMEM_MAX = 227 * 1024;
 constexpr int G1_MAX_THREADS = 1024 - 32;          // consumers beside the producer
@@ -330,21 +347,39 @@ inline size_t ring_gemv_smem(int k_chunk) {
   return (size_t)G1_HEAD + (size_t)G1_STAGES * G1_STAGE_BYTES + 4 * (size_t)k_chunk;
 }
 
-template <bool SWIGLU, int PUSH>
-__global__ void ring_gemv_kernel(const void* __restrict__ xv, long long x_row, int f_off,
-                                 const __nv_bfloat16* __restrict__ w,
-                                 float* __restrict__ y, __nv_bfloat16* __restrict__ yb,
-                                 int M, int K, int N, int k_chunk, int nrc, int xrows,
-                                 long long ws, long long y_row, long long yz,
-                                 const __nv_bfloat16* __restrict__ nw, float eps,
-                                 CfComm comm) {
+// Eight int8 codes packed in 8 bytes -> eight floats, exactly: byte b of a
+// word, biased by 128 (xor 0x80), becomes the low byte of the float
+// 2^23 + 128 + v (one byte permute), and a subtraction leaves v.
+__device__ __forceinline__ void unpack8_s8(const uint2& u, float* f) {
+  const uint32_t w[2] = {u.x ^ 0x80808080u, u.y ^ 0x80808080u};
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      f[4 * i + b] = __uint_as_float(__byte_perm(w[i], 0x4B000000u, 0x7440 + b)) - 8388736.f;
+}
+
+// The body of both ring GEMV kernels: bf16 weights w (W8 false; wmap, mat0,
+// sc and kg unused) or int8 codes through wmap with their scales (W8, w
+// unused; G1_Y only).
+template <bool SWIGLU, int PUSH, bool W8>
+__device__ __forceinline__ void ring_gemv_body(
+    const void* __restrict__ xv, long long x_row, int f_off, const void* __restrict__ w,
+    float* __restrict__ y, __nv_bfloat16* __restrict__ yb, int M, int K, int N, int k_chunk,
+    int nrc, int xrows, long long ws, long long y_row, long long yz,
+    const __nv_bfloat16* __restrict__ nw, float eps, CfComm comm,
+    const CUtensorMap* wmap, int mat0, const float* __restrict__ sc, int kg) {
+  static_assert(!W8 || PUSH == G1_Y, "the int8 instance writes y");
   namespace cg = cooperative_groups;
   constexpr int RB = 1;                                     // rows per block
-  constexpr int NS = G1_STAGES, RS = G1_ROW_BYTES, SB = G1_STAGE_BYTES;
+  constexpr int NS = G1_STAGES, SB = G1_STAGE_BYTES;
+  constexpr int ROWS = W8 ? G1_ROWS8 : G1_ROWS;            // weight rows per stage
+  constexpr int EB = W8 ? 1 : 2;                            // bytes per weight
+  constexpr int RS = G1_COLS * EB;                          // bytes per row of a stage
   extern __shared__ __align__(128) unsigned char g1_sm[];
   uint64_t* full = reinterpret_cast<uint64_t*>(g1_sm);     // [NS]
   uint64_t* empty = full + NS;                              // [NS]
-  unsigned char* ring = g1_sm + G1_HEAD;                    // [NS][G1_ROWS][RS bytes]
+  unsigned char* ring = g1_sm + G1_HEAD;                    // [NS][ROWS][RS bytes]
   float* xs1 = reinterpret_cast<float*>(ring + NS * SB);   // [k_chunk]
   const int tid = threadIdx.x, lane = tid % 32, wid = tid / 32;
   const int ncw = blockDim.x / 32 - 1;                      // consumer warps
@@ -353,10 +388,12 @@ __global__ void ring_gemv_kernel(const void* __restrict__ xv, long long x_row, i
   const int nr = min(RB, M - r0);
   const int n0 = blockIdx.y * G1_COLS;
   const int cols = min(G1_COLS, N - n0);
-  const uint32_t seg = (uint32_t)cols * 2;
+  const uint32_t seg = (uint32_t)cols * EB;
   const int k0 = rank * k_chunk, kn = min(k_chunk, K - k0);
-  const int nst = (kn + G1_ROWS - 1) / G1_ROWS;
-  const __nv_bfloat16* wp = w + (size_t)mat * ws + (size_t)k0 * N + n0;
+  const int nst = (kn + ROWS - 1) / ROWS;
+  const unsigned char* wp =        // bf16: this block's first row segment
+      W8 ? nullptr
+         : static_cast<const unsigned char*>(w) + ((size_t)mat * ws + (size_t)k0 * N + n0) * EB;
 
   if (tid == 0) {
     for (int s = 0; s < NS; ++s) {
@@ -367,14 +404,23 @@ __global__ void ring_gemv_kernel(const void* __restrict__ xv, long long x_row, i
   }
   __syncthreads();
   // producer: stage st's rows, one bulk copy per row, lanes in parallel
+  // (int8: the stage's box of the tensor map, rows past K and columns past
+  // N zero-filled; rows past the chunk arrive and are not read)
   auto issue = [&](int st) {
     const int s = st % NS;
-    const int rows = min(G1_ROWS, kn - st * G1_ROWS);
-    if (lane == 0) hopper::mbar_arrive_expect_tx(&full[s], (uint32_t)rows * seg);
-    __syncwarp();
-    for (int r = lane; r < rows; r += 32)
-      hopper::bulk_load_1d(ring + s * SB + r * RS,
-                           wp + (size_t)(st * G1_ROWS + r) * N, seg, &full[s]);
+    if constexpr (W8) {
+      if (lane == 0) {
+        hopper::mbar_arrive_expect_tx(&full[s], (uint32_t)SB);
+        hopper::tma_load_3d(ring + s * SB, wmap, &full[s], n0, k0 + st * ROWS, mat0 + mat);
+      }
+    } else {
+      const int rows = min(ROWS, kn - st * ROWS);
+      if (lane == 0) hopper::mbar_arrive_expect_tx(&full[s], (uint32_t)rows * seg);
+      __syncwarp();
+      for (int r = lane; r < rows; r += 32)
+        hopper::bulk_load_1d(ring + s * SB + r * RS,
+                             wp + (size_t)(st * ROWS + r) * N * EB, seg, &full[s]);
+    }
   };
   if (wid == 0)
     for (int st = 0; st < min(NS, nst); ++st) issue(st);
@@ -424,14 +470,17 @@ __global__ void ring_gemv_kernel(const void* __restrict__ xv, long long x_row, i
     for (int st = 0; st < nst; ++st) {
       const int s = st % NS;
       hopper::mbar_wait(&full[s], (st / NS) & 1);
-      const int rows = min(G1_ROWS, kn - st * G1_ROWS);
+      const int rows = min(ROWS, kn - st * ROWS);
       const unsigned char* stage = ring + s * SB;
       if (live) {
-        const unsigned char* base = stage + lane * 16;
-        const float* xk = xs1 + st * G1_ROWS;
+        const unsigned char* base = stage + lane * 8 * EB;
+        const float* xk = xs1 + st * ROWS;
         for (int r = wid - 1; r < rows; r += ncw) {
           float f[8];
-          unpack8(*reinterpret_cast<const uint4*>(base + r * RS), f);
+          if constexpr (W8)
+            unpack8_s8(*reinterpret_cast<const uint2*>(base + r * RS), f);
+          else
+            unpack8(*reinterpret_cast<const uint4*>(base + r * RS), f);
           const float xr = xk[r];
 #pragma unroll
           for (int c = 0; c < 8; ++c) acc[c] = fmaf(xr, f[c], acc[c]);
@@ -452,6 +501,8 @@ __global__ void ring_gemv_kernel(const void* __restrict__ xv, long long x_row, i
   for (int c = tid; c < G1_COLS; c += blockDim.x) {
     float s = 0.f;
     for (int q = 0; q < ncw; ++q) s += red[q * G1_COLS + c];
+    if constexpr (W8)      // the block's scale group (K chunks never straddle one)
+      if (kg > 0 && c < cols) s *= sc[(size_t)(k0 / kg) * N + n0 + c];
     part[c] = s;
   }
   cg::cluster_group cluster = cg::this_cluster();
@@ -472,6 +523,8 @@ __global__ void ring_gemv_kernel(const void* __restrict__ xv, long long x_row, i
       if constexpr (PUSH != G1_Y) {
         red[i] = s;                       // red is free once the cluster has met
       } else {
+        if constexpr (W8)                 // the matrix's per-column scale
+          if (kg == 0) s *= sc[(size_t)mat * N + n0 + c];
         const size_t at = (size_t)(r0 + b) * y_row + (size_t)mat * yz + n0 + c;
         if (yb)
           yb[at] = __float2bfloat16(s);
@@ -504,6 +557,45 @@ __global__ void ring_gemv_kernel(const void* __restrict__ xv, long long x_row, i
   }
 }
 
+template <bool SWIGLU, int PUSH>
+__global__ void ring_gemv_kernel(const void* __restrict__ xv, long long x_row, int f_off,
+                                 const __nv_bfloat16* __restrict__ w,
+                                 float* __restrict__ y, __nv_bfloat16* __restrict__ yb,
+                                 int M, int K, int N, int k_chunk, int nrc, int xrows,
+                                 long long ws, long long y_row, long long yz,
+                                 const __nv_bfloat16* __restrict__ nw, float eps,
+                                 CfComm comm) {
+  ring_gemv_body<SWIGLU, PUSH, false>(xv, x_row, f_off, w, y, yb, M, K, N, k_chunk, nrc,
+                                      xrows, ws, y_row, yz, nw, eps, comm, nullptr, 0,
+                                      nullptr, 0);
+}
+
+// The int8 instance: the codes through wmap (int8 [nmats][K][N], boxes of
+// G1_ROWS8 x G1_COLS; matrix mat0 + blockIdx.z), sc float32 scales, kg as
+// above.
+template <bool SWIGLU>
+__global__ void ring_gemv8_kernel(const void* __restrict__ xv, long long x_row, int f_off,
+                                  const __grid_constant__ CUtensorMap wmap, int mat0,
+                                  float* __restrict__ y, __nv_bfloat16* __restrict__ yb,
+                                  int M, int K, int N, int k_chunk, int nrc, int xrows,
+                                  long long y_row, long long yz,
+                                  const __nv_bfloat16* __restrict__ nw, float eps,
+                                  const float* __restrict__ sc, int kg) {
+  ring_gemv_body<SWIGLU, G1_Y, true>(xv, x_row, f_off, nullptr, y, yb, M, K, N, k_chunk, nrc,
+                                     xrows, 0, y_row, yz, nw, eps, CfComm{}, &wmap, mat0, sc,
+                                     kg);
+}
+
+// The tensor map ring_gemv8_kernel reads: nmats int8 [K, N] matrices
+// (row-major, K*N bytes apart) from w, in boxes of G1_ROWS8 rows of
+// G1_COLS columns.  N must be a multiple of 16 and w 16-byte aligned.
+inline bool make_int8_weight_map(CUtensorMap* map, const void* w, int K, int N,
+                                 long long nmats) {
+  return hopper::make_tensor_map_3d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N, K, nmats,
+                                    (uint64_t)N, (uint64_t)K * N, G1_COLS, G1_ROWS8, 1,
+                                    CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
 // Launch ring_gemv_kernel<SWIGLU, PUSH> over one row and nmat [K, N] matrices,
 // with one producer warp per block beside `threads` consumer threads (a
 // multiple of 32, at most G1_MAX_THREADS); `pdl` adds programmatic
@@ -514,25 +606,38 @@ __global__ void ring_gemv_kernel(const void* __restrict__ xv, long long x_row, i
 // normalised first.  PUSH other than G1_Y (mode 5's producer; comm given,
 // one matrix): y is not written; the sums go to the ranks' slots instead,
 // one flag column per tile (at most COMM_FLAG_COLS tiles, 4N bytes at most
-// a slot).  Returns a cudaError_t.
-template <bool SWIGLU, int PUSH = G1_Y>
-int launch_gemv1(const void* x, int f_off, const __nv_bfloat16* w, float* y, int K, int N,
+// a slot).  W8 (G1_Y only): w is unused; ring_gemv8_kernel reads the
+// matrices mat0.. of wmap (make_int8_weight_map; N a multiple of 16) with
+// the scales sc and the scale group kg; kg > 0 keeps only the chunkings
+// whose chunks divide kg, and where none of those has every cluster
+// resident, the one of them with the most chunks.  Returns a cudaError_t.
+template <bool SWIGLU, int PUSH = G1_Y, bool W8 = false>
+int launch_gemv1(const void* x, int f_off, const void* w, float* y, int K, int N,
                  int nmat, long long ws, long long yz, int threads, bool pdl,
                  cudaStream_t st, __nv_bfloat16* yb = nullptr,
                  const __nv_bfloat16* nw = nullptr, float eps = 0.f,
-                 const CfComm* comm = nullptr) {
+                 const CfComm* comm = nullptr, const CUtensorMap* wmap = nullptr,
+                 int mat0 = 0, const float* sc = nullptr, int kg = 0) {
+  static_assert(!W8 || PUSH == G1_Y, "the int8 instance writes y");
   if ((nw && SWIGLU) || K < 1 || N < 8 || N % 8 != 0 || nmat < 1 || threads < 32 ||
       threads % 32 != 0 || threads > G1_MAX_THREADS)
+    return (int)cudaErrorInvalidValue;
+  if (W8 && (!wmap || !sc || N % 16 != 0 || kg < 0 ||
+             (kg > 0 && (K % kg != 0 || nmat != 1))))
     return (int)cudaErrorInvalidValue;
   if (PUSH != G1_Y && (!comm || nmat != 1 || (N + G1_COLS - 1) / G1_COLS > COMM_FLAG_COLS ||
                        4LL * N > comm->slot_bytes))
     return (int)cudaErrorInvalidValue;
+  constexpr int ROWS = W8 ? G1_ROWS8 : G1_ROWS;
   static bool attrs_set = false;
   static int max_cluster = 8;
   struct Occ { int ks, threads; size_t smem; int clusters; };
   static Occ occ_cache[64];
   static int n_occ = 0;
-  auto kern = ring_gemv_kernel<SWIGLU, PUSH>;
+  auto kern = [] {
+    if constexpr (W8) return ring_gemv8_kernel<SWIGLU>;
+    else return ring_gemv_kernel<SWIGLU, PUSH>;
+  }();
   if (!attrs_set) {
     CF_CHECK((int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        G1_SMEM_MAX));
@@ -572,24 +677,32 @@ int launch_gemv1(const void* x, int f_off, const __nv_bfloat16* w, float* y, int
     if (n_occ < 64) occ_cache[n_occ++] = Occ{ks, threads, smem, n};
     return n;
   };
-  int ks = std::min(max_cluster, std::max(1, K / (2 * G1_ROWS)));
-  int k_chunk = K;
-  for (; ks >= 1; --ks) {
-    k_chunk = (K + ks - 1) / ks;
-    if ((K + k_chunk - 1) / k_chunk != ks) continue;      // every rank has rows
-    const size_t smem = ring_gemv_smem(k_chunk);
-    if (smem > (size_t)G1_SMEM_MAX) { ks = 0; break; }
-    if (ks == 1 || clusters(ks, smem) >= want) break;
+  int ks = 0, k_chunk = K;
+  for (int c = std::min(max_cluster, std::max(1, K / (2 * ROWS))); c >= 1; --c) {
+    const int kc = (K + c - 1) / c;
+    if ((K + kc - 1) / kc != c) continue;               // every rank has rows
+    if (kg > 0 && kg % kc != 0) continue;               // a chunk inside one scale group
+    const size_t smem = ring_gemv_smem(kc);
+    if (smem > (size_t)G1_SMEM_MAX) break;              // x chunk too large
+    ks = c;
+    k_chunk = kc;
+    if (c == 1 || clusters(c, smem) >= want) break;
   }
-  if (ks < 1) return (int)cudaErrorInvalidValue;          // x chunk too large
+  if (ks < 1) return (int)cudaErrorInvalidValue;
   attr[0].val.clusterDim.x = ks;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.gridDim = dim3(ks, tiles, nmat);
   cfg.dynamicSmemBytes = ring_gemv_smem(k_chunk);
   cfg.numAttrs = pdl ? 2 : 1;
-  return (int)cudaLaunchKernelEx(&cfg, kern, x, 0LL, f_off, w, y, yb, 1, K, N, k_chunk,
-                                 1, 1, ws, 0LL, yz, nw, eps, comm ? *comm : CfComm{});
+  if constexpr (W8)
+    return (int)cudaLaunchKernelEx(&cfg, kern, x, 0LL, f_off, *wmap, mat0, y, yb, 1, K, N,
+                                   k_chunk, 1, 1, 0LL, yz, nw, eps, sc, kg);
+  else
+    return (int)cudaLaunchKernelEx(&cfg, kern, x, 0LL, f_off,
+                                   static_cast<const __nv_bfloat16*>(w), y, yb, 1, K, N,
+                                   k_chunk, 1, 1, ws, 0LL, yz, nw, eps,
+                                   comm ? *comm : CfComm{});
 }
 
 // ---- The rows GEMV: 2..16 rows of x per block against bf16 [K, N] matrices ----

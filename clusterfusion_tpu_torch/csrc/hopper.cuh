@@ -416,25 +416,34 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A 3-D bf16 tensor map over [d2][d1][d0] (d0 contiguous) with byte
-// strides s1 (between d1 rows) and s2 (between d2 slabs), copied in boxes
-// of box0 x box1 x box2 with the given swizzle.  Returns false when
-// cuTensorMapEncodeTiled refuses the map.
-inline bool make_tensor_map_bf16_3d(CUtensorMap* map, const void* base,
-                                    uint64_t d0, uint64_t d1, uint64_t d2,
-                                    uint64_t s1, uint64_t s2, uint32_t box0,
-                                    uint32_t box1, uint32_t box2,
-                                    CUtensorMapSwizzle swizzle) {
+// A 3-D tensor map of `type` elements over [d2][d1][d0] (d0 contiguous)
+// with byte strides s1 (between d1 rows) and s2 (between d2 slabs), copied
+// in boxes of box0 x box1 x box2 with the given swizzle.  Returns false
+// when cuTensorMapEncodeTiled refuses the map.  The bf16 form follows.
+inline bool make_tensor_map_3d(CUtensorMap* map, CUtensorMapDataType type,
+                               const void* base, uint64_t d0, uint64_t d1,
+                               uint64_t d2, uint64_t s1, uint64_t s2,
+                               uint32_t box0, uint32_t box1, uint32_t box2,
+                               CUtensorMapSwizzle swizzle) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {d0, d1, d2};
   const cuuint64_t strides[2] = {s1, s2};
   const cuuint32_t box[3] = {box0, box1, box2};
   const cuuint32_t estr[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+  return fn(map, type, 3, const_cast<void*>(base), dims, strides, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+inline bool make_tensor_map_bf16_3d(CUtensorMap* map, const void* base,
+                                    uint64_t d0, uint64_t d1, uint64_t d2,
+                                    uint64_t s1, uint64_t s2, uint32_t box0,
+                                    uint32_t box1, uint32_t box2,
+                                    CUtensorMapSwizzle swizzle) {
+  return make_tensor_map_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, d0,
+                            d1, d2, s1, s2, box0, box1, box2, swizzle);
 }
 
 // The same in boxes of box0 x box1 x 1 with the 128-byte swizzle (box0 * 2

@@ -1,10 +1,10 @@
-// Whole-stack bf16 decode step for Hopper (sm_90a): every layer of one
-// bs=1 decode step, then the final RMSNorm and the LM head.
+// Whole-stack decode step for Hopper (sm_90a), bf16 or int8 weights: every
+// layer of one bs=1 decode step, then the final RMSNorm and the LM head.
 //
 // Replaces the TPU kernel `fused_decoder_stack`
-// (clusterfusion_tpu/ops/stack_kernel.py, `_stack_kernel`) for bf16
-// weights, a bf16 KV cache, no window, no bias and no sandwich norms, with
-// the same layouts:
+// (clusterfusion_tpu/ops/stack_kernel.py, `_stack_kernel`) for bf16 or
+// int8 weights, a bf16 KV cache, no window, no bias and no sandwich norms,
+// with the same layouts:
 //   wqkv_f [L, G, hidden, hg*(g+2)*hd]  columns per kv head [q_0..q_{g-1}|k|v]
 //   wo_f   [L, G, hg*g*hd, hidden]
 //   w13    [L, 2, hidden, f_pad]        w2 [L, f_pad, hidden]
@@ -16,6 +16,17 @@
 // streams each weight matrix once through shared memory with bulk copies
 // (cp.async.bulk) across enough blocks to keep every SM's copies in
 // flight, and reads only cache rows < pos, the same way.
+//
+// Int8 weights (the TPU kernel's wq_kind == "int8"; ops/quant.py's
+// per-output-column QuantizedTensor): the four projections, and the LM
+// head on its own, stream int8 codes through the ring GEMV's int8 instance
+// (ring_gemv8_kernel, common.cuh) with float32 scales beside them: 7.16 GB
+// a 7B step at pos 600 instead of 13.7, never a bf16 copy.  The scales go
+// where the TPU kernel applies them: QKV per head group and column after
+// the sum over hidden; the O projection per group on each group's partial,
+// before the groups are summed (K chunks never straddle a group); gate and
+// up per column before the SwiGLU; down after the whole sum over f; the LM
+// head after its sum.  The norms, the split and the merge do not change.
 //
 // The TPU kernel walks a sequential (layer, phase) grid and carries the
 // hidden pair in VMEM scratch from step to step.  Hopper blocks run in
@@ -179,6 +190,20 @@ int preload_mode5() {
   return 0;
 }
 
+// One product of the step: bf16 weights w, or (sc given) the int8 matrices
+// mat0.. of wmap scaled by sc as ring_gemv8_kernel does (kg > 0: per scale
+// group of kg rows, before the cluster sum).
+template <bool SWIGLU>
+int step_gemv(const void* x, int f_off, const void* w, const CUtensorMap* wmap, int mat0,
+              const float* sc, int kg, float* y, int K, int N, int nmat, long long ws,
+              long long yz, int threads, cudaStream_t st) {
+  if (sc)
+    return launch_gemv1<SWIGLU, G1_Y, true>(x, f_off, nullptr, y, K, N, nmat, ws, yz, threads,
+                                            true, st, nullptr, nullptr, 0.f, nullptr, wmap,
+                                            mat0, sc, kg);
+  return launch_gemv1<SWIGLU>(x, f_off, w, y, K, N, nmat, ws, yz, threads, true, st);
+}
+
 }  // namespace
 
 // Floats of f32 scratch `cf_decoder_stack` needs for this geometry.
@@ -198,8 +223,13 @@ extern "C" long long cf_stack_scratch_floats(int hidden, int kv_heads, int hg,
 // for mode 5 (the reduces over tp; hidden at most REDUCE_MAX_HIDDEN), or
 // null.  gather (mode 5 with lm_head, vocab = this rank's shard, at most
 // COMM_FLAG_COLS tiles of 256): logits holds size * vocab floats, every
-// rank's shard in rank order.  Returns a cudaError_t (0 on success); every
-// refusal comes before the first launch.
+// rank's shard in rank order.  Int8 weights (the TPU kernel's wq_kind ==
+// "int8"): wqkv_s given, wqkv/wo/w13/w2 hold int8 codes and wqkv_s [L, G,
+// C], wo_s [L, G, hidden], w13_s [L, 2, f_pad], w2_s [L, hidden] their
+// float32 per-column scales (the O projection's per head group, applied to
+// each group's partial before the groups are summed); lm_s [vocab] given:
+// lm_head holds int8 codes.  Neither with comm.  Returns a cudaError_t (0
+// on success); every refusal comes before the first launch.
 extern "C" int cf_decoder_stack(
     const void* x, const void* attn_norm, const void* ffn_norm, const void* cos,
     const void* sin, const void* wqkv, const void* wo, const void* w13,
@@ -207,9 +237,12 @@ extern "C" int cf_decoder_stack(
     const void* lm_head, void* out_x, void* out_res, void* logits,
     void* scratch, int L, int hidden, int kv_heads, int hg, int group, int hd,
     int cap, int f_pad, int vocab, int pos, int neox, float eps, int kv_split,
-    int threads, int* n_launches, const void* comm, int gather, void* stream) {
+    int threads, int* n_launches, const void* comm, int gather, void* stream,
+    const void* wqkv_s, const void* wo_s, const void* w13_s, const void* w2_s,
+    const void* lm_s) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const CfComm* cc = static_cast<const CfComm*>(comm);
+  const bool w8 = wqkv_s != nullptr;
   *n_launches = 0;
   // hd 128 only: others (Gemma-2's 256) are not ported yet
   if (group > ATT_MAX_GROUP || hd != 128 || threads % 32 != 0 ||
@@ -219,6 +252,12 @@ extern "C" int cf_decoder_stack(
   if (gather && (!cc || !lm_head || vocab % 4 != 0 ||
                  (vocab + COMM_TILE - 1) / COMM_TILE > COMM_FLAG_COLS ||
                  4LL * vocab > cc->slot_bytes))
+    return (int)cudaErrorInvalidValue;
+  if (w8 && (!wo_s || !w13_s || !w2_s))
+    return (int)cudaErrorInvalidValue;
+  if (cc && (w8 || lm_s))   // mode 5 streams bf16 weights only
+    return (int)cudaErrorInvalidValue;
+  if (lm_s && !lm_head)
     return (int)cudaErrorInvalidValue;
   if (cc) {   // mode 5: one flag column per 256-column tile of hidden
     if (hidden > REDUCE_MAX_HIDDEN || 4LL * hidden > cc->slot_bytes)
@@ -230,17 +269,31 @@ extern "C" int cf_decoder_stack(
   const int G = kv_heads / hg;
   const long long C = (long long)hg * (group + 2) * hd;   // qkv columns per group
   const long long Ko = (long long)hg * group * hd;       // wo rows per group
+  const size_t eb = w8 ? 1 : 2;                          // bytes per weight
   const float* cosf = static_cast<const float*>(cos);
   const float* sinf = static_cast<const float*>(sin);
+  // int8: one tensor map per weight over all its layers' matrices
+  CUtensorMap mq, mo, m13, m2, mlm;
+  if (w8 && (!make_int8_weight_map(&mq, wqkv, hidden, (int)C, (long long)L * G) ||
+             !make_int8_weight_map(&mo, wo, (int)(G * Ko), hidden, L) ||
+             !make_int8_weight_map(&m13, w13, hidden, f_pad, 2LL * L) ||
+             !make_int8_weight_map(&m2, w2, f_pad, hidden, L)))
+    return (int)cudaErrorInvalidValue;
+  if (lm_s && !make_int8_weight_map(&mlm, lm_head, hidden, vocab, 1))
+    return (int)cudaErrorInvalidValue;
   int n = 0;
 
   for (int l = 0; l < L; ++l) {
     const __nv_bfloat16* an = static_cast<const __nv_bfloat16*>(attn_norm) + (size_t)l * hidden;
     const __nv_bfloat16* fn = static_cast<const __nv_bfloat16*>(ffn_norm) + (size_t)l * hidden;
-    const __nv_bfloat16* wq = static_cast<const __nv_bfloat16*>(wqkv) + (size_t)l * G * hidden * C;
-    const __nv_bfloat16* wol = static_cast<const __nv_bfloat16*>(wo) + (size_t)l * G * Ko * hidden;
-    const __nv_bfloat16* w13l = static_cast<const __nv_bfloat16*>(w13) + (size_t)l * 2 * hidden * f_pad;
-    const __nv_bfloat16* w2l = static_cast<const __nv_bfloat16*>(w2) + (size_t)l * f_pad * hidden;
+    const char* wq = static_cast<const char*>(wqkv) + (size_t)l * G * hidden * C * eb;
+    const char* wol = static_cast<const char*>(wo) + (size_t)l * G * Ko * hidden * eb;
+    const char* w13l = static_cast<const char*>(w13) + (size_t)l * 2 * hidden * f_pad * eb;
+    const char* w2l = static_cast<const char*>(w2) + (size_t)l * f_pad * hidden * eb;
+    const float* sq = w8 ? static_cast<const float*>(wqkv_s) + (size_t)l * G * C : nullptr;
+    const float* so = w8 ? static_cast<const float*>(wo_s) + (size_t)l * G * hidden : nullptr;
+    const float* s13 = w8 ? static_cast<const float*>(w13_s) + (size_t)l * 2 * f_pad : nullptr;
+    const float* s2 = w8 ? static_cast<const float*>(w2_s) + (size_t)l * hidden : nullptr;
     __nv_bfloat16* kcl = static_cast<__nv_bfloat16*>(kc) + (size_t)l * kv_heads * cap * hd;
     __nv_bfloat16* vcl = static_cast<__nv_bfloat16*>(vc) + (size_t)l * kv_heads * cap * hd;
 
@@ -256,8 +309,9 @@ extern "C" int cf_decoder_stack(
           l == 0 ? nullptr : s.res_a, nullptr, an, s.res_b, nullptr, s.xn, nullptr,
           nullptr, hidden, eps, nullptr, 0, nullptr, 0));
     ++n;
-    CF_CHECK(launch_gemv1<false>(s.xn, 0, wq, s.qkv, hidden, (int)C, G,
-                                 (long long)hidden * C, C, threads, true, st));
+    // the G head groups' QKV products, each scaled by its own s[G] (int8)
+    CF_CHECK(step_gemv<false>(s.xn, 0, wq, &mq, l * G, sq, 0, s.qkv, hidden, (int)C, G,
+                              (long long)hidden * C, C, threads, st));
     ++n;
     // split-KV attention over rows < pos, then the merge with the current
     // token, which appends its bf16 k/v at row pos
@@ -265,8 +319,9 @@ extern "C" int cf_decoder_stack(
                               kcl, vcl, nullptr, nullptr, s.o, nullptr, nullptr,
                               kv_heads, group, hd, cap, pos, kv_split, 1, neox,
                               st, &n, PDL_CHAIN));
-    // wo_f[l] is [G * Ko, hidden] row-major: one product sums the groups;
-    // then the attention-out residual add + FFN RMSNorm
+    // wo_f[l] is [G * Ko, hidden] row-major: one product sums the groups
+    // (int8: each group's partial scaled by its s[G] first); then the
+    // attention-out residual add + FFN RMSNorm
     if (cc) {   // Stage.ATTN: the ranks' O-projection partials, summed
       CF_CHECK(launch_gemv1<false, G1_PUSH_SUM>(s.o, 0, wol, nullptr, (int)(G * Ko), hidden,
                                                 1, 0, 0, threads, true, st, nullptr, nullptr,
@@ -274,23 +329,24 @@ extern "C" int cf_decoder_stack(
       CF_CHECK(launch_kernel(resnorm_reduce_kernel, dim3(1), dim3(NORM_THREADS), 0, st,
           PDL_CHAIN, *cc, s.res_b, fn, s.res_a, s.xn, nullptr, nullptr, hidden, eps));
     } else {
-      CF_CHECK(launch_gemv1<false>(s.o, 0, wol, s.aout, (int)(G * Ko), hidden, 1, 0, 0,
-                                   threads, true, st));
+      CF_CHECK(step_gemv<false>(s.o, 0, wol, &mo, l, so, (int)Ko, s.aout, (int)(G * Ko),
+                                hidden, 1, 0, 0, threads, st));
       CF_CHECK(launch_kernel(resnorm_kernel, dim3(1), dim3(NORM_THREADS), 0, st, PDL_CHAIN,
           s.aout, nullptr, s.res_b, nullptr, fn, s.res_a, nullptr, s.xn, nullptr,
           nullptr, hidden, eps, nullptr, 0, nullptr, 0));
     }
     n += 2;
-    CF_CHECK(launch_gemv1<false>(s.xn, 0, w13l, s.gu, hidden, f_pad, 2,
-                                 (long long)hidden * f_pad, f_pad, threads, true, st));
+    // gate and up, each column scaled before the down product's SwiGLU reads it
+    CF_CHECK(step_gemv<false>(s.xn, 0, w13l, &m13, 2 * l, s13, 0, s.gu, hidden, f_pad, 2,
+                              (long long)hidden * f_pad, f_pad, threads, st));
     ++n;
     if (cc)     // Stage.LINEAR: the down projection's partials go to the reduce
       CF_CHECK(launch_gemv1<true, G1_PUSH_SUM>(s.gu, f_pad, w2l, nullptr, f_pad, hidden, 1, 0,
                                                0, threads, true, st, nullptr, nullptr, 0.f,
                                                cc));
-    else
-      CF_CHECK(launch_gemv1<true>(s.gu, f_pad, w2l, s.hx, f_pad, hidden, 1, 0, 0, threads,
-                                  true, st));
+    else        // int8: scaled after the whole sum over f
+      CF_CHECK(step_gemv<true>(s.gu, f_pad, w2l, &m2, l, s2, 0, s.hx, f_pad, hidden, 1, 0, 0,
+                               threads, st));
     ++n;
   }
 
@@ -315,9 +371,10 @@ extern "C" int cf_decoder_stack(
                            dim3(GATHER_THREADS), 0, st, PDL_CHAIN, *cc,
                            static_cast<float*>(logits), vocab));
     n += 2;
-  } else if (lm_head) {
-    CF_CHECK(launch_gemv1<false>(s.xn, 0, lm, static_cast<float*>(logits), hidden, vocab, 1, 0,
-                                 0, threads, true, st));
+  } else if (lm_head) {      // int8 head: each logit scaled after its sum
+    CF_CHECK(step_gemv<false>(s.xn, 0, lm_head, &mlm, 0, static_cast<const float*>(lm_s), 0,
+                              static_cast<float*>(logits), hidden, vocab, 1, 0, 0, threads,
+                              st));
     ++n;
   }
   *n_launches = n;

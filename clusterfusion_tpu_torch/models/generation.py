@@ -10,7 +10,10 @@ continuous-batching ``ServingEngine``, and ``text_completion`` /
 ``chat_completion`` (llama-2 ``[INST]`` templating) sit on it.  The
 fused-vs-eager switch is an argument, and the ``USE_CLUSTER_FUSION``
 environment variable is honoured when it is not given, as in the JAX
-package.
+package.  ``quant="int8"`` (or ``"int4"``) quantizes the projection
+weights (``ops.quant.quantize_llama_params``); ``stream_generate`` then
+runs kernel 7's int8 mode, and ``spec_generate``, ``generate`` and the
+completions raise ``NotImplementedError`` (``ROADMAP.md`` queue 2, mode 1).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from clusterfusion_tpu_torch.models import speculative
 from clusterfusion_tpu_torch.models.sampling import sample
 from clusterfusion_tpu_torch.models.tokenizer import load_tokenizer
 from clusterfusion_tpu_torch.ops._support import resolve_device
+from clusterfusion_tpu_torch.ops.quant import quantize_llama_params
 from clusterfusion_tpu_torch.runtime.serving import ServingEngine
 
 # llama-2 chat templating tokens
@@ -53,7 +57,13 @@ class Llama:
 
     def __init__(self, params, cfg: LlamaConfig, tokenizer,
                  kcfg: Optional[KernelConfig] = None,
-                 fused: Optional[bool] = None):
+                 fused: Optional[bool] = None,
+                 quant: Optional[str] = None):
+        """quant: None | "int8" | "int4", weight-only quantization of the
+        four projections (the LM head stays bf16), as in the JAX
+        package."""
+        if quant:
+            params = quantize_llama_params(params, quant)
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer
@@ -66,12 +76,17 @@ class Llama:
 
     @staticmethod
     def synthetic(cfg: LlamaConfig, seed: int = 0,
-                  fused: Optional[bool] = None, device=None) -> "Llama":
+                  fused: Optional[bool] = None, quant: Optional[str] = None,
+                  device=None) -> "Llama":
         """Random-weight engine with a byte tokenizer, made on ``device``
-        (CUDA by default; raises when there is none)."""
+        (CUDA by default; raises when there is none); ``quant`` picks the
+        quantized engines' wider head grouping, then quantizes."""
         dev = resolve_device(device)
-        params = model.init_params(cfg, seed, device=dev)
-        return Llama(params, cfg, load_tokenizer("bytes"), fused=fused)
+        params = model.init_params(
+            cfg, seed, head_group=model.default_head_group(cfg, quant),
+            device=dev)
+        return Llama(params, cfg, load_tokenizer("bytes"), fused=fused,
+                     quant=quant)
 
     def stream_generate(self, prompt_tokens: Sequence[int],
                         max_gen_len: int, temperature: float = 0.6,
@@ -123,6 +138,9 @@ class Llama:
         their tokens return to the emit loop.  Sets ``self.spec_stats``:
         rounds, drafts accepted, tokens, and the tokens each round
         emitted."""
+        for eng in (self, draft):
+            # kernel 8's int8 mode is not ported
+            model.refuse_quantized(eng.params, "spec_generate")
         cfg = self.cfg
         toks = list(prompt_tokens)
         span = n_draft + 1
@@ -180,6 +198,8 @@ class Llama:
         Each request owns its pages, so rows with shorter prompts never see
         other rows' padding, and sampling draws from the engine's generator
         seeded by ``seed``."""
+        # the serving kernels' (9 and 10) int8 modes are not ported
+        model.refuse_quantized(self.params, "generate")
         cfg = self.cfg
         prompts = [list(t) for t in prompt_tokens]
         if not prompts or not all(prompts):

@@ -12,6 +12,11 @@ plain matrix products.  The fused decode step is one
 ``fused_decoder_stack`` call per token with the final norm and LM head
 inside it; the eager step follows the JAX package's eager layer.
 
+Weights may be int8 or int4 ``QuantizedTensor``s (``ops.quant``), as in the
+JAX package: the eager products dequantize the QKV and O weights, scale
+int8 gate/up and down products after the dot, and scale int8 LM-head
+logits; the fused step hands int8 weights to kernel 7's int8 mode.
+
 Unlike the JAX package, whose functions return new caches, the caches are
 updated in place here: every function that takes ``k_cache``/``v_cache``
 writes the new rows into those tensors and returns the same tensors.
@@ -30,6 +35,7 @@ from clusterfusion_tpu_torch.ops._support import (glu_act, resolve_device,
                                                   round_up)
 from clusterfusion_tpu_torch.ops.decoder_layer import fuse_qkv_o_for_kernel
 from clusterfusion_tpu_torch.ops.flash_prefill import flash_prefill_attention
+from clusterfusion_tpu_torch.ops.quant import QuantizedTensor, maybe_dequantize
 from clusterfusion_tpu_torch.ops.reference import (fused_add_rmsnorm_ref,
                                                    rmsnorm_ref)
 from clusterfusion_tpu_torch.ops.rope import (apply_rope_gptj, apply_rope_neox,
@@ -52,10 +58,11 @@ def padded_ffn_dim(cfg: LlamaConfig) -> int:
     return round_up(cfg.ffn_dim, 1024)
 
 
-def default_head_group(cfg: LlamaConfig) -> int:
-    """KV heads per group in the fused bf16 weight layout (4, or the largest
-    divisor of kv_heads below it), as the JAX package picks for bf16."""
-    hg = min(4, cfg.kv_heads)
+def default_head_group(cfg: LlamaConfig, quant: Optional[str] = None) -> int:
+    """KV heads per group in the fused weight layout, as the JAX package
+    picks them: 4 for bf16, 8 for int8/int4 (``quant``), or the largest
+    divisor of kv_heads below that."""
+    hg = min(8 if quant in ("int8", "int4") else 4, cfg.kv_heads)
     while cfg.kv_heads % hg:
         hg -= 1
     return hg
@@ -181,10 +188,20 @@ def _mm(x: torch.Tensor, w: torch.Tensor, out_f32: bool = False):
     return y.float() if out_f32 else y
 
 
-def _lm_logits(xn: torch.Tensor, lm: torch.Tensor) -> torch.Tensor:
+def refuse_quantized(params: LlamaParams, what: str) -> None:
+    """Raise where ``what`` has no quantized path yet."""
+    if any(isinstance(t, QuantizedTensor)
+           for t in (params["lm_head"], *params["layers"].values())):
+        raise NotImplementedError(f"{what}: quantized weights are not ported "
+                                  "yet (ROADMAP.md queue 2, mode 1)")
+
+
+def _lm_logits(xn: torch.Tensor, lm) -> torch.Tensor:
     """LM-head logits in float32: the float32 product on the CPU, a bf16
     product with float32 output on the card (no float32 copy of the
-    head)."""
+    head).  An int8 head: the product over its codes, the logits scaled."""
+    if isinstance(lm, QuantizedTensor):
+        return _lm_logits(xn, lm.q.to(torch.bfloat16)) * lm.s.reshape(-1)
     if xn.device.type == "cpu":
         return xn.float() @ lm.float()
     return torch.mm(xn.reshape(-1, xn.shape[-1]), lm,
@@ -192,7 +209,18 @@ def _lm_logits(xn: torch.Tensor, lm: torch.Tensor) -> torch.Tensor:
 
 
 def _ffn(x, w13, w2, act: str = "silu"):
-    """SwiGLU with float32 gate/up, bf16 activation and bf16 output."""
+    """SwiGLU with float32 gate/up, bf16 activation and bf16 output.  int8
+    weights: the products over the codes, each column scaled after its dot
+    (the scale commutes with it); int4: dequantized first."""
+    if isinstance(w13, QuantizedTensor) and w13.kind == "int8":
+        bf = x.dtype
+        y = torch.stack([_mm(x, w13.q[0].to(bf), out_f32=True),
+                         _mm(x, w13.q[1].to(bf), out_f32=True)],
+                        dim=-2) * w13.s[:, 0, :]
+        a = glu_act(y[..., 0, :], y[..., 1, :], act).to(bf)
+        return (_mm(a, w2.q.to(bf), out_f32=True) * w2.s).to(bf)
+    w13 = maybe_dequantize(w13, x.dtype)
+    w2 = maybe_dequantize(w2, x.dtype)
     y = torch.stack([_mm(x, w13[0], out_f32=True),
                      _mm(x, w13[1], out_f32=True)], dim=-2)
     a = glu_act(y[..., 0, :], y[..., 1, :], act).to(x.dtype)
@@ -203,6 +231,7 @@ def _qkv_eager(x, wqkv_f, cfg: LlamaConfig):
     """x [.., T, h] -> q [.., T, kv, g, hd], k/v [.., T, kv, hd] (bf16)
     from the head-grouped layout [G, h, hg*(g+2)*hd]."""
     g, hd, kv = cfg.n_heads // cfg.kv_heads, cfg.head_dim_, cfg.kv_heads
+    wqkv_f = maybe_dequantize(wqkv_f, x.dtype)
     G, h, C = wqkv_f.shape
     y = _mm(x, wqkv_f.permute(1, 0, 2).reshape(h, G * C))
     y = y.reshape(*y.shape[:-1], kv, (g + 2) * hd)
@@ -218,7 +247,9 @@ def _apply_rope(x, cos, sin, style):
 
 
 def _oproj(o, wo_f):
-    """o [.., kv*g*hd] (bf16, head-major) @ wo_f [G, hg*g*hd, hidden]."""
+    """o [.., kv*g*hd] (bf16, head-major) @ wo_f [G, hg*g*hd, hidden]
+    (dequantized first when quantized)."""
+    wo_f = maybe_dequantize(wo_f, o.dtype)
     G, R, hidden = wo_f.shape
     return _mm(o, wo_f.reshape(G * R, hidden))
 

@@ -40,7 +40,8 @@ SIGNATURES = {
     "cf_flash_prefill": ([_P] * 4 + [_I] * 7 + [_LL, _LL, _P], _I),
     "cf_stack_scratch_floats": ([_I] * 9, ctypes.c_longlong),
     "cf_decoder_stack": ([_P] * 17 + [_I] * 11
-                         + [_F, _I, _I, ctypes.POINTER(_I), _P, _I, _P], _I),
+                         + [_F, _I, _I, ctypes.POINTER(_I), _P, _I, _P]
+                         + [_P] * 5, _I),
     "cf_verify_scratch_floats": ([_I] * 8, ctypes.c_longlong),
     "cf_verify_stack": ([_P] * 17 + [_I] * 12
                         + [_F, _I, _I, ctypes.POINTER(_I), _P], _I),

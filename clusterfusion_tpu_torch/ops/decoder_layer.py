@@ -165,7 +165,8 @@ def _refuse(wqkv_f, wo_f, k_cache, v_cache, *, window, bias_qkv,
     if any(not isinstance(w, torch.Tensor) or w.dtype != torch.bfloat16
            for w in (wqkv_f, wo_f) if w is not None):
         raise NotImplementedError("_fused_decoder_layer: only bf16 weights "
-                                  "are ported (quantized weights are not)")
+                                  "are ported (quantized weights are not: "
+                                  "ROADMAP.md queue 2, mode 1)")
     if k_cache.dtype != torch.bfloat16 or v_cache.dtype != torch.bfloat16:
         raise NotImplementedError("_fused_decoder_layer: only a bf16 KV "
                                   "cache is ported (int8/fp8 KV are not)")

@@ -20,6 +20,19 @@ PyTorch.  Both follow the TPU kernel where "the same math" could differ:
   groups stay float32;
 - the LM phase normalises ``hx + residual``, both float32.
 
+Int8 weights (``ops.quant.QuantizedTensor``, per output column; the TPU
+kernel's ``wq_kind == "int8"``): ``wqkv_f``, ``wo_f``, ``w13`` and ``w2``
+all int8, and ``lm_head`` int8 or bf16 on its own.  Each product sums over
+K in float32 on the int8 codes (exact in float32, |q| <= 127), and the
+scale is applied where the TPU kernel applies it: QKV per head group and
+column after the sum over hidden; the O projection per group and column on
+each group's partial, before the sum over groups (``wo_f.s`` is [L, G, 1,
+hidden]); gate and up per column before SwiGLU; down per column after the
+whole sum over f; the LM head per column after its sum.  On the card the
+codes stream as they are (never a bf16 copy) through the ring GEMV's int8
+instance.  int4 weights, and int8 weights with ``reduce_axis``, raise
+``NotImplementedError`` on both devices (``ROADMAP.md`` queue 2, mode 1).
+
 Mode 5, ``reduce_axis`` (the JAX package's ``fused_collectives=True``):
 each rank holds its tp shards of the weights and caches, and the float32
 partial sums of the O-projection and of the down projection are summed
@@ -49,6 +62,7 @@ import torch.nn.functional as F
 from clusterfusion_tpu_torch.config import KernelConfig
 from clusterfusion_tpu_torch.ops import _build
 from clusterfusion_tpu_torch.ops._support import glu_act
+from clusterfusion_tpu_torch.ops.quant import QuantizedTensor
 from clusterfusion_tpu_torch.ops.rope import apply_rope_gptj, apply_rope_neox
 
 _LOG2E = 1.4426950408889634
@@ -56,6 +70,8 @@ _NEG_INF = -1e30
 
 #: Calls of :func:`fused_decoder_stack` that launched the kernels.
 launches = 0
+#: Those of them with int8 weights (kernel 7's int8 mode).
+int8_launches = 0
 #: CUDA kernels the last such call launched (8 per layer + 1 or 2, mode 5
 #: too; 8 per layer + 3 with the logits gathered).
 last_step_kernels = 0
@@ -128,9 +144,12 @@ def split_attention_plain(q, k_cur, v_cur, kc, vc, seq: int, kv_split: int,
 
 def refuse_unported(what: str, head_dim: int, weights, final_norm, lm_head,
                     k_cache, v_cache, *, window, bias_qkv, ffn_act, softcap,
-                    post_attn_norm, post_ffn_norm) -> None:
+                    post_attn_norm, post_ffn_norm, int8: bool = False) -> None:
     """Raise on what the whole-stack kernels (``fused_decoder_stack``,
-    ``fused_verify_stack``) do not take yet."""
+    ``fused_verify_stack``) do not take yet.  ``weights`` starts with the
+    four projections; ``int8``: the kernel takes int8 QuantizedTensors for
+    all four of them and for ``lm_head`` (kernel 7 does, kernel 8 does
+    not)."""
     if window or softcap or bias_qkv is not None or ffn_act != "silu":
         raise NotImplementedError(f"{what}: window, softcap, QKV bias and "
                                   "GeGLU are not ported yet")
@@ -145,10 +164,20 @@ def refuse_unported(what: str, head_dim: int, weights, final_norm, lm_head,
         raise NotImplementedError(
             f"{what}: head_dim {head_dim} (Gemma-2's 256) is not ported yet "
             "(ROADMAP.md queue 2, mode 3)")
-    if any(w is not None and w.dtype != torch.bfloat16
-           for w in (*weights, lm_head)):
-        raise NotImplementedError(f"{what}: only bf16 weights are ported "
-                                  "(quantized weights are not)")
+    quant = [w for w in (*weights, lm_head) if isinstance(w, QuantizedTensor)]
+    if any(w.kind != "int8" for w in quant):
+        raise NotImplementedError(f"{what}: int4 weights are not ported yet "
+                                  "(ROADMAP.md queue 2, mode 1)")
+    if quant and not int8:
+        raise NotImplementedError(f"{what}: quantized weights are not ported "
+                                  "yet (ROADMAP.md queue 2, mode 1)")
+    if quant and not all(isinstance(w, QuantizedTensor) for w in weights[:4]):
+        raise ValueError(f"{what}: wqkv_f, wo_f, w13 and w2 are int8 "
+                         "together or not at all")
+    if any(w is not None and not isinstance(w, QuantizedTensor)
+           and w.dtype != torch.bfloat16 for w in (*weights, lm_head)):
+        raise NotImplementedError(f"{what}: only bf16 and int8 weights are "
+                                  "ported")
     if k_cache.dtype != torch.bfloat16 or v_cache.dtype != torch.bfloat16:
         raise NotImplementedError(f"{what}: only a bf16 KV cache is ported "
                                   "(int8/fp8 KV are not)")
@@ -200,9 +229,12 @@ def fused_decoder_stack_plain(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f,
     split of the cached rows: bf16(p) is taken against each split's own
     max, as the kernel takes it, so the two round p alike.  ``reduce``
     (mode 5) sums a float32 [hidden] partial over the ranks; it is applied
-    to the O-projection and to the down projection of every layer."""
+    to the O-projection and to the down projection of every layer.  Int8
+    weights: each product over the codes, scaled where the kernel scales
+    (the module's note)."""
     pos = int(pos)
     L, G, hidden, _ = wqkv_f.shape
+    w8 = isinstance(wqkv_f, QuantizedTensor)
     kv_heads = k_cache.shape[1]
     hd, g = head_dim, group
     scale = _LOG2E / math.sqrt(hd)
@@ -214,7 +246,11 @@ def fused_decoder_stack_plain(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f,
     for l in range(L):
         res = hx + res
         xn = _norm(res, attn_norm[l], eps)
-        qkv = torch.einsum("d,Gdc->Gc", xn.float(), wqkv_f[l].float())
+        if w8:      # per head group and column, after the sum over hidden
+            qkv = torch.einsum("d,Gdc->Gc", xn.float(),
+                               wqkv_f.q[l].float()) * wqkv_f.s[l][:, 0]
+        else:
+            qkv = torch.einsum("d,Gdc->Gc", xn.float(), wqkv_f[l].float())
         qkv = qkv.reshape(kv_heads, g + 2, hd)
         q = _rope(qkv[:, :g], cos_f, sin_f, rope_style) * scale   # [kv, g, hd]
         k_cur = _rope(qkv[:, g], cos_f, sin_f, rope_style)         # [kv, hd]
@@ -224,20 +260,34 @@ def fused_decoder_stack_plain(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f,
         o = (acc / l_f[..., None]).to(bf16)
         k_cache[l, :, pos] = k_cur.to(k_cache.dtype)
         v_cache[l, :, pos] = v_cur.to(v_cache.dtype)
-        aout = torch.einsum("Gc,Gco->o", o.reshape(G, -1).float(),
-                            wo_f[l].float())
+        if w8:      # each group's partial scaled, then the groups summed
+            aout = (torch.einsum("Gc,Gco->Go", o.reshape(G, -1).float(),
+                                 wo_f.q[l].float())
+                    * wo_f.s[l][:, 0]).sum(dim=0)
+        else:
+            aout = torch.einsum("Gc,Gco->o", o.reshape(G, -1).float(),
+                                wo_f[l].float())
         if reduce is not None:
             aout = reduce(aout)
         res = aout + res
         xn2 = _norm(res, ffn_norm[l], eps)
-        y = torch.einsum("d,udf->uf", xn2.float(), w13[l].float())
-        act = glu_act(y[0], y[1]).to(bf16)
-        hx = act.float() @ w2[l].float()
+        if w8:      # gate and up per column before SwiGLU; down after its sum
+            y = torch.einsum("d,udf->uf", xn2.float(),
+                             w13.q[l].float()) * w13.s[l][:, 0]
+            act = glu_act(y[0], y[1]).to(bf16)
+            hx = (act.float() @ w2.q[l].float()) * w2.s[l][0]
+        else:
+            y = torch.einsum("d,udf->uf", xn2.float(), w13[l].float())
+            act = glu_act(y[0], y[1]).to(bf16)
+            hx = act.float() @ w2[l].float()
         if reduce is not None:
             hx = reduce(hx)
     if lm_head is not None:
         xn = _norm(hx + res, final_norm, eps)
-        logits = (xn.float() @ lm_head.float())[None]
+        if isinstance(lm_head, QuantizedTensor):
+            logits = ((xn.float() @ lm_head.q.float()) * lm_head.s[0])[None]
+        else:
+            logits = (xn.float() @ lm_head.float())[None]
         return logits, res.to(bf16)[None], k_cache, v_cache
     return hx.to(bf16)[None], res.to(bf16)[None], k_cache, v_cache
 
@@ -287,7 +337,7 @@ def fused_decoder_stack(
                     lm_head, k_cache, v_cache, window=window,
                     bias_qkv=bias_qkv, ffn_act=ffn_act, softcap=softcap,
                     post_attn_norm=post_attn_norm,
-                    post_ffn_norm=post_ffn_norm)
+                    post_ffn_norm=post_ffn_norm, int8=True)
     return _stack(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f, w13, w2,
                   k_cache, v_cache, pos, group=group, head_dim=head_dim,
                   rope_style=rope_style, eps=eps, kcfg=kcfg,
@@ -331,7 +381,13 @@ def _stack(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f, w13, w2, k_cache,
     """The two entries' common body, after ``refuse_unported``; ``gather``:
     the logits gathered over ``reduce_axis`` (where it has more than one
     rank)."""
-    global launches, last_step_kernels
+    global launches, int8_launches, last_step_kernels
+    w8 = isinstance(wqkv_f, QuantizedTensor)
+    lm8 = isinstance(lm_head, QuantizedTensor)
+    if reduce_axis is not None and (w8 or lm8):
+        raise NotImplementedError(
+            "fused_decoder_stack: int8 weights with reduce_axis (mode 5) are "
+            "not ported yet (ROADMAP.md queue 2, mode 1)")
     if reduce_axis is not None and mesh is None:
         raise ValueError("reduce_axis needs the mesh whose axis it names")
     check_stack_kcfg(kcfg)
@@ -390,10 +446,25 @@ def _stack(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f, w13, w2, k_cache,
     if x.dtype != torch.bfloat16 or x.numel() != hidden:
         raise ValueError("x must be bf16 [1, hidden]")
     dev = x.device
+    weights = dict(wqkv_f=wqkv_f, wo_f=wo_f, w13=w13, w2=w2, lm_head=lm_head)
+    scales = {}
+    for name, w in weights.items():
+        if isinstance(w, QuantizedTensor):
+            if w.q.dtype != torch.int8 or w.s.dtype != torch.float32:
+                raise ValueError(f"{name}: int8 codes and float32 scales "
+                                 "are expected")
+            if w.axis != -2 or w.s.shape[-2] != 1:
+                raise ValueError(f"{name}: per-column scales over axis -2 "
+                                 "are expected")
+            weights[name], scales[name + "_s"] = w.q, w.s
+    for w in (C, hidden, f_pad) if w8 else ():
+        if w % 16:
+            raise ValueError(f"int8 GEMV width {w} is not a multiple of 16")
+    if lm8 and vocab % 16:
+        raise ValueError(f"int8 LM head width {vocab} is not a multiple of 16")
     check_launch(kcfg, dict(x=x, attn_norm=attn_norm, ffn_norm=ffn_norm,
-                            wqkv_f=wqkv_f, wo_f=wo_f, w13=w13, w2=w2,
                             k_cache=k_cache, v_cache=v_cache,
-                            final_norm=final_norm, lm_head=lm_head),
+                            final_norm=final_norm, **weights, **scales),
                  (C, hidden, f_pad, vocab))
     cos_f = cos.to(device=dev, dtype=torch.float32).reshape(hd).contiguous()
     sin_f = sin.to(device=dev, dtype=torch.float32).reshape(hd).contiguous()
@@ -417,16 +488,20 @@ def _stack(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f, w13, w2, k_cache,
 
     err = lib.cf_decoder_stack(
         ptr(x), ptr(attn_norm), ptr(ffn_norm), ptr(cos_f), ptr(sin_f),
-        ptr(wqkv_f), ptr(wo_f), ptr(w13), ptr(w2), ptr(k_cache),
-        ptr(v_cache), ptr(final_norm), ptr(lm_head), ptr(x_out),
+        ptr(weights["wqkv_f"]), ptr(weights["wo_f"]), ptr(weights["w13"]),
+        ptr(weights["w2"]), ptr(k_cache), ptr(v_cache), ptr(final_norm),
+        ptr(weights["lm_head"]), ptr(x_out),
         ptr(res_out), ptr(logits), ptr(scratch),
         L, hidden, kv_heads, hg, group, hd, cap, f_pad, vocab, pos,
         1 if rope_style == "neox" else 0, float(eps), kcfg.kv_split,
         kcfg.gemv_threads, ctypes.byref(n_launch),
         None if comm is None else comm.handle, int(gather),
-        torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.current_stream(dev).cuda_stream,
+        *(ptr(scales.get(k)) for k in ("wqkv_f_s", "wo_f_s", "w13_s", "w2_s",
+                                       "lm_head_s")))
     _build.check(err, "fused_decoder_stack")
     launches += 1
+    int8_launches += int(w8)
     last_step_kernels = n_launch.value
     if comm is not None:
         collective.launches["all_reduce"] += 2 * L

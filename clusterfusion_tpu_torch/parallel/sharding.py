@@ -27,6 +27,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from clusterfusion_tpu_torch.config import LlamaConfig
+from clusterfusion_tpu_torch.models import llama as model
 from clusterfusion_tpu_torch.parallel.mesh import Mesh
 
 Spec = Tuple[Optional[str], ...]
@@ -84,7 +85,9 @@ def _tree_map(fn, tree, specs):
 def shard_params(params, cfg: LlamaConfig, mesh: Mesh):
     """This rank's slices of a full parameter tree (``models.llama``
     layout).  The head-group axis G of ``wqkv_f``/``wo_f`` must divide by
-    tp: ``init_params(head_group=1)`` makes G = kv_heads."""
+    tp: ``init_params(head_group=1)`` makes G = kv_heads.  A quantized
+    tree raises: no tp or sp step takes one yet."""
+    model.refuse_quantized(params, "shard_params")
     specs = param_pspecs(cfg, mesh.shape["tp"])
     return _tree_map(lambda t, s: shard_tensor(t, s, mesh), params, specs)
 

@@ -199,8 +199,9 @@ class ServingEngine:
         weights = [lw[k] for k in ("wqkv_f", "wo_f", "w13", "w2")]
         if any(not torch.is_tensor(w) or w.dtype != torch.bfloat16
                for w in weights + [params["lm_head"]]):
-            raise NotImplementedError("only bf16 weights are ported "
-                                      "(quantized weights are not)")
+            raise NotImplementedError("ServingEngine: only bf16 weights are "
+                                      "ported (quantized weights are not: "
+                                      "ROADMAP.md queue 2, mode 1)")
         if prefill_chunk is not None and prefill_chunk & (prefill_chunk - 1):
             # the chunk must divide every power-of-two capacity it splits
             raise ValueError(f"prefill_chunk {prefill_chunk} is not a power "

@@ -141,7 +141,7 @@ def test_chat_cli(capsys):
                "--temperature", "0", "--max_seq_len", "64"])
     out = capsys.readouterr().out
     assert "fused=True" in out and "tokens/sec" in out
-    for flags in (["--synthetic", "--quant", "int8"], ["--synthetic", "--kv_int8"],
+    for flags in (["--synthetic", "--quant", "int4"], ["--synthetic", "--kv_int8"],
                   ["--synthetic", "--spec_draft", "x"], []):
         with pytest.raises(SystemExit, match="not yet ported"):
             chat.main(flags)

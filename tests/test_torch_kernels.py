@@ -238,6 +238,117 @@ def test_stack_kernel_is_bit_reproducible(dev, n_heads, kv_heads, hg, with_lm):
             assert torch.equal(got, want)
 
 
+def _int8_stack(a, lm, lm_kind):
+    """The stack's four projections quantized to int8 (per output column),
+    and the LM head as ``lm_kind`` says: None (no head), "bf16" or
+    "int8"."""
+    from clusterfusion_tpu_torch.ops.quant import quantize_llama_params
+    q = quantize_llama_params(
+        {"layers": {k: a[k] for k in ("wqkv_f", "wo_f", "w13", "w2")},
+         "lm_head": lm["lm_head"]}, "int8", lm_head=lm_kind == "int8")
+    head = {} if lm_kind is None else dict(final_norm=lm["final_norm"],
+                                           lm_head=q["lm_head"])
+    return q["layers"], head
+
+
+# (n_heads, kv_heads, hg): hg 4 and 8, the quantized engines' grouping, with
+# G = 2 head groups (the O projection's scales differ per group) and G = 1
+INT8_SHAPES = [(16, 8, 4), (16, 16, 8), (32, 8, 8)]
+
+
+@pytest.mark.parametrize("pos", [0, 37, 300, CAP - 1])
+@pytest.mark.parametrize("lm_kind", [None, "bf16", "int8"],
+                         ids=["no_lm", "lm_bf16", "lm_int8"])
+@pytest.mark.parametrize("n_heads,kv_heads,hg", INT8_SHAPES,
+                         ids=["hg4_G2", "hg8_G2", "hg8_G1"])
+def test_stack_int8_kernel_matches_plain(dev, n_heads, kv_heads, hg, lm_kind,
+                                         pos):
+    """Kernel 7's int8 mode against its plain twin at the same kv_split,
+    every cache row above pos NaN, at phase 4's limits."""
+    g, a, kc, vc, lm = _stack_args(dev, n_heads, kv_heads, hg, pos, seed=20)
+    kc[:, :, pos + 1:] = float("nan")
+    vc[:, :, pos + 1:] = float("nan")
+    w, head = _int8_stack(a, lm, lm_kind)
+    cfg = LlamaConfig.tiny()
+    cos, sin = model.rope_row(cfg, pos, dev)
+    kw = dict(group=g, head_dim=HD, rope_style=cfg.rope_style, eps=1e-5,
+              **head)
+    args = [a["x"], a["attn_norm"], a["ffn_norm"], cos, sin, w["wqkv_f"],
+            w["wo_f"], w["w13"], w["w2"]]
+    kp, vp = kc.clone(), vc.clone()
+    before = (sk.launches, sk.int8_launches)
+    out = sk.fused_decoder_stack(*args, kc, vc, pos, **kw)
+    torch.cuda.synchronize()
+    assert (sk.launches, sk.int8_launches) == (before[0] + 1, before[1] + 1)
+    assert sk.last_step_kernels == 8 * L - (pos == 0) * L + 1 + bool(head)
+    ref = sk.fused_decoder_stack_plain(*args, kp, vp, pos, **kw)
+    assert torch.isfinite(out[0].float()).all()
+    if head:
+        err = (out[0] - ref[0]).abs().max().item()
+        assert err <= 2e-2 * ref[0].abs().max().item(), err
+    else:
+        torch.testing.assert_close(out[0].float(), ref[0].float(),
+                                   atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(out[1].float(), ref[1].float(), atol=2e-2,
+                               rtol=2e-2)
+    for got, want in ((kc, kp), (vc, vp)):
+        torch.testing.assert_close(got[:, :, pos].float(),
+                                   want[:, :, pos].float(), atol=0.05, rtol=0)
+    others = torch.ones(CAP, dtype=torch.bool, device=dev)
+    others[pos] = False
+    assert _same_bits(kc[:, :, others], kp[:, :, others])
+    assert _same_bits(vc[:, :, others], vp[:, :, others])
+
+
+@pytest.mark.parametrize("lm_kind", [None, "int8"], ids=["no_lm", "lm_int8"])
+@pytest.mark.parametrize("n_heads,kv_heads,hg", INT8_SHAPES[:2],
+                         ids=["hg4_G2", "hg8_G2"])
+def test_stack_int8_kernel_is_bit_reproducible(dev, n_heads, kv_heads, hg,
+                                               lm_kind):
+    """Kernel 7's int8 mode sums in a fixed order too: the same bits on
+    every call, the appended rows too."""
+    pos = 300
+    g, a, kc, vc, lm = _stack_args(dev, n_heads, kv_heads, hg, pos, seed=30)
+    w, head = _int8_stack(a, lm, lm_kind)
+    cfg = LlamaConfig.tiny()
+    cos, sin = model.rope_row(cfg, pos, dev)
+    kw = dict(group=g, head_dim=HD, rope_style=cfg.rope_style, eps=1e-5,
+              **head)
+    args = [a["x"], a["attn_norm"], a["ffn_norm"], cos, sin, w["wqkv_f"],
+            w["wo_f"], w["w13"], w["w2"]]
+    runs = []
+    for _ in range(4):
+        k, v = kc.clone(), vc.clone()
+        out = sk.fused_decoder_stack(*args, k, v, pos, **kw)
+        runs.append((out[0], out[1], k, v))
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        for got, want in zip(run, runs[0]):
+            assert torch.equal(got, want)
+
+
+def test_int8_engine_runs_kernel7_int8(dev):
+    """``Llama.synthetic(quant="int8")`` streams through kernel 7's int8
+    mode, one launch a step, its tokens the eager int8 path's (teacher-
+    forced) wherever that path's top-2 gap exceeds 0.1."""
+    from clusterfusion_tpu_torch.models.generation import Llama
+    cfg = LlamaConfig.tiny(max_seq_len=128)
+    eng = Llama.synthetic(cfg, quant="int8", device=dev)
+    prompt = list(range(1, 30))
+    before = sk.int8_launches
+    toks = list(eng.stream_generate(prompt, 6, temperature=0.0))
+    assert sk.int8_launches - before == len(toks)   # a step after each token
+    kc, vc = model.init_cache(cfg, device=dev)
+    lg, kc, vc = model.prefill(eng.params, kc, vc, prompt, cfg, flash=False)
+    lg = lg[-1]
+    for i, t in enumerate(toks):
+        top = torch.topk(lg, 2).values
+        if (top[0] - top[1]).item() > 0.1:
+            assert int(torch.argmax(lg)) == t, i
+        lg, kc, vc = model.decode_step(eng.params, kc, vc, t, len(prompt) + i,
+                                       cfg, fused=False)
+
+
 @pytest.mark.parametrize("n,pos", [(1, 37), (2, 0), (5, 37), (8, 300),
                                    (9, CAP - 9), (17, 100)])
 @pytest.mark.parametrize("with_lm", [True, False], ids=["lm", "no_lm"])
@@ -1013,7 +1124,8 @@ def test_stack_c_entries_refuse_head_dim_256(dev, entry):
     dims = [1, 512, 2, 1, 2, 256, 64, 512, 0, 8, 1]
     if entry == "cf_decoder_stack":
         err = lib.cf_decoder_stack(*p, *dims, 1e-5, 64, 256,
-                                   ctypes.byref(n_launch), None, 0, st)
+                                   ctypes.byref(n_launch), None, 0, st,
+                                   *[None] * 5)
     else:
         err = lib.cf_verify_stack(*p, 2, *dims, 1e-5, 64, 256,
                                   ctypes.byref(n_launch), st)
