@@ -139,8 +139,9 @@ weights are used in place), and before the DeepSeek phases free it:
    tail's LM product and gather wait beside kernel 7's passes) and its last
    kernels (``[fused_step_tail]``).
 
-Phases 17 and 18 run after 15, while the Llama-2-7B engine is alive, and
-before the DeepSeek phases:
+Phases 17-22 run after 15, while the Llama-2-7B engine is alive, and
+before the DeepSeek phases, in the order 17, 19, 18, 20, 21, 22 (phase 19
+reuses phase 17's int8 weights, phases 20-22 phase 18's int8 engine):
 
 17. kernel 7's int8 mode (``fused_decoder_stack`` on int8
    ``QuantizedTensor``s): the engine's seeded weights regrouped to the
@@ -160,7 +161,45 @@ before the DeepSeek phases:
    (warm), decode tokens/s, the launches of kernel 4 and of kernel 7's
    int8 mode on that run (counts set to 0 just before), and the first 8
    tokens against the int8 plain path on the card (eager prefill and
-   decode) under the top-2-gap rule.
+   decode) under the top-2-gap rule;
+19. kernel 8's int8 mode (``fused_verify_stack`` on phase 17's int8
+   weights) at pos 600 over a random cache with NaN at and above pos, n 5
+   and 9, the bf16 and the int8 LM head: against its plain twin at phase
+   9's limits, a repeat bit-identical, one int8 launch a call; its time
+   (CUDA events) beside its byte bound, the bf16 kernel 8 on the engine's
+   weights in the same phase and the twin's; then its device time by pass
+   (``[verify_int8_device]``: the int8 GEMVs with their TB/s, the bf16 LM
+   head's GEMV, split, merge, norms);
+20. ``spec_generate`` on the int8 engine (phase 9's run on phase 18's
+   engine, ``[spec_int8]``): 32 tokens after a 128-token prompt, n_draft 4,
+   once as its own draft (kernel 7's int8 mode drafts, kernel 8's int8
+   mode verifies) and once with the small bf16 draft; each stream against
+   the engine's own int8 ``stream_generate`` and the int8 plain path under
+   the top-2-gap rule, tokens/s beside ``stream_generate``'s, rounds,
+   accepted drafts, and every verify launch in kernel 8's int8 mode;
+21. kernel 9's int8 mode (``llama_decoder_layer_paged`` on layer 1 of the
+   int8 tree) at B 4, 8 and 1, NaN in every pool row no request owns:
+   against its plain twin, the appended rows, every other row unchanged,
+   a repeat bit-identical; device busy time by pass beside the bound, the
+   bf16 kernel 9 on the same inputs and the twin's;
+23. the int8 serving step's M=B products alone (``ops.gemv``'s
+   ``_gemv_int8`` and ``_ffn_int8``) on layer 1 of the 7B int8 tree at the
+   shapes serving gives them (the QKV product with bf16 out, the O product
+   with one scale per head group, the SwiGLU FFN) at B 8, 4 and 1: against
+   their plain twins within 1e-2 of the largest output, a repeat
+   bit-identical, the device ms beside the bound and the twin's;
+22. int8 serving: one step of each kind at B 8 over random pools (NaN in
+   every unowned row, distinct tokens) against the same step on the plain
+   twins, on 4 layers (logits within 2e-2 of the largest, appended rows at
+   phase 9's limits, every other row unchanged; the requests' logits differ
+   by more than that limit) and on all 32 (the logits' drift at most 1.25
+   times the bf16 step's from its own twin); phase 8's B=8 mix on the int8 engine through the
+   batched step (the M=B int8 products on the GEMVs' int8 instances and
+   kernel 10) and through the fused step (kernel 9's int8 mode and the
+   int8 FFN): tokens/s and ms a step beside phase 8's bf16 figures, the
+   launches once per layer and step, each request alone giving the tokens
+   it gives in the batch; then ``Llama.generate`` at B 1 (fused) and B 4
+   (batched) against the int8 plain path under the top-2-gap rule.
 
 Then, where the machine has two cards or more:
 
@@ -192,6 +231,7 @@ Then one JSON line per kernel table, the card line, and last
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import importlib
 import json
@@ -811,6 +851,7 @@ def phase_paged_attention(dev, hbm, peak):
 LAYER9_PASSES = (("gemv", "gemv_kernel"), ("norm", "resnorm_kernel"),
                  ("split", "paged_split_kernel"),
                  ("merge", "paged_merge_kernel"))
+LAYER9_INT8_PASSES = (("gemv", "gemv8_kernel"),) + LAYER9_PASSES[1:]
 
 
 def phase_paged_layer(eng, dev, hbm, peak):
@@ -1077,7 +1118,9 @@ def phase_serving(eng, dev):
         disagree_where_gap_gt_0_1=bad)
     if bad:
         raise AssertionError(f"fused generate and plain disagree at {bad}")
-    return pa_launches, layer_launches
+    figures = dict(tokens_per_s=decode_tokens / sum(step_s),
+                   ms_per_step=sum(step_s) * 1e3 / steps)
+    return pa_launches, layer_launches, figures
 
 
 def phase_verify(eng, dev, hbm, peak, stack_ms, pos=600):
@@ -1251,18 +1294,26 @@ SPEC_NEW = 32
 SPEC_DRAFT = 4
 
 
-def spec_run(eng, dev, prompt, draft, ref, label):
+def spec_run(eng, dev, prompt, draft, ref, label, phase="spec"):
     """``spec_generate`` with ``draft``; checks its stream against
     ``stream_generate``'s (``ref``) and the plain path under the top-2-gap
-    rule, and one verify launch per round.  Returns (verify launches,
-    rounds where a draft was rejected at a top-2 gap > 0.1)."""
+    rule, and one verify launch per round (with int8 weights, of kernel
+    8's int8 mode).  Returns (verify launches, rounds where a draft was
+    rejected at a top-2 gap > 0.1)."""
     from clusterfusion_tpu_torch.ops import flash_prefill as fp
     from clusterfusion_tpu_torch.ops import stack_kernel as sk
     from clusterfusion_tpu_torch.ops import stack_verify as sv
-    fp.launches = sk.launches = sv.launches = 0
+    from clusterfusion_tpu_torch.ops.quant import QuantizedTensor
+    fp.launches = sk.launches = sv.launches = sv.int8_launches = 0
     toks = eng.spec_generate(prompt, SPEC_NEW, draft, n_draft=SPEC_DRAFT)
     verify_launches, stack_launches, flash_launches = \
         sv.launches, sk.launches, fp.launches
+    int8_verify = sv.int8_launches
+    want_int8 = verify_launches if isinstance(
+        eng.params["layers"]["wqkv_f"], QuantizedTensor) else 0
+    if int8_verify != want_int8:
+        raise AssertionError(f"{label}: {int8_verify} int8 verify launches "
+                             f"of {verify_launches}")
     st, gs = dict(eng.spec_stats), eng.stats
     eos = eng.tokenizer.eos_id
     if not all(0 <= t < eng.cfg.vocab_size for t in toks) or \
@@ -1283,11 +1334,12 @@ def spec_run(eng, dev, prompt, draft, ref, label):
         at += c
     div = next((i for i, (a, b) in enumerate(zip(toks, ref)) if a != b),
                None)
-    say("spec", draft=label, prompt_tokens=len(prompt), tokens=len(toks),
+    say(phase, draft=label, prompt_tokens=len(prompt), tokens=len(toks),
         rounds=st["rounds"], accepted_drafts=st["accepted_drafts"],
         round_counts=st["round_counts"],
         tokens_per_s=f"{gs.tokens_per_s:.2f}", wall_s=f"{gs.total_s:.3f}",
-        verify_launches=verify_launches, stack_launches=stack_launches,
+        verify_launches=verify_launches, int8_verify_launches=int8_verify,
+        stack_launches=stack_launches,
         flash_prefill_launches=flash_launches,
         rejected_at=rejected,
         top2_gaps_at_rejections=[round(gaps[i], 3) for i in rejected],
@@ -1301,21 +1353,22 @@ def spec_run(eng, dev, prompt, draft, ref, label):
     return verify_launches, [i for i in rejected if gaps[i] > 0.1]
 
 
-def phase_spec(eng, dev):
-    """``spec_generate`` at 7B: a self-draft and an unrelated small draft.
-    Returns the verify launches of the self-draft run."""
+def phase_spec(eng, dev, phase="spec"):
+    """``spec_generate`` at 7B: a self-draft and an unrelated small (bf16)
+    draft.  Returns the verify launches of the self-draft run."""
     from clusterfusion_tpu_torch.config import LlamaConfig
     from clusterfusion_tpu_torch.models.generation import Llama
     text = ("Speculative decoding drafts a few tokens and one verify step "
             "scores them all. " * 3)[:127]
     prompt = eng.tokenizer.encode(text, bos=True, eos=False)
     ref = list(eng.stream_generate(prompt, SPEC_NEW, temperature=0.0))
-    say("spec", baseline="stream_generate", tokens=len(ref),
+    say(phase, baseline="stream_generate", tokens=len(ref),
         tokens_per_s=f"{eng.stats.tokens_per_s:.2f}",
         wall_s=f"{eng.stats.total_s:.3f}")
     # a second engine on the same weights, with its own cache
     self_draft = Llama(eng.params, eng.cfg, eng.tokenizer, fused=True)
-    launches, bad = spec_run(eng, dev, prompt, self_draft, ref, "self")
+    launches, bad = spec_run(eng, dev, prompt, self_draft, ref, "self",
+                             phase)
     if bad:
         raise AssertionError(f"self-draft: drafts rejected at {bad} where "
                              "the target's top-2 gap exceeds 0.1")
@@ -1323,7 +1376,7 @@ def phase_spec(eng, dev):
         LlamaConfig.tiny(hidden_dim=1024, n_heads=8, ffn_dim=2816, n_layers=4,
                          vocab_size=32000, max_seq_len=2048),
         seed=1, fused=True, device=dev)
-    spec_run(eng, dev, prompt, small, ref, "small")
+    spec_run(eng, dev, prompt, small, ref, "small", phase)
     return launches
 
 
@@ -2159,7 +2212,8 @@ def phase_int8_stack(eng, dev, hbm, peak, pos=600):
     at hg 4), the plain twin's time; then the device time by pass
     (``torch.profiler``: the int8 GEMVs with their TB/s, the bf16 LM
     head's GEMV, split, merge, norms).  Returns the kernels-line entry of
-    the bf16-head case (the engine's)."""
+    the bf16-head case (the engine's), and the int8 weights and the two
+    heads, which phase 19 reuses."""
     from clusterfusion_tpu_torch.models import llama as model
     from clusterfusion_tpu_torch.ops import stack_kernel as sk
     from clusterfusion_tpu_torch.ops.quant import quantize_int8
@@ -2263,7 +2317,7 @@ def phase_int8_stack(eng, dev, hbm, peak, pos=600):
                            bound_ms=bound,
                            bound_by="bytes" if nbytes / hbm >= flops / peak
                            else "operations", library_ms=None)
-    return rows["lm_bf16"]
+    return rows["lm_bf16"], w8, heads
 
 
 def phase_int8_e2e(dev):
@@ -2273,7 +2327,7 @@ def phase_int8_e2e(dev):
     decode tokens/s, the launches of kernel 7's int8 mode and of kernel 4,
     no bf16 copy of a projection weight, and the first 8 tokens against
     the int8 plain path on the card under the top-2-gap rule.  Returns
-    kernel 7's int8 launches."""
+    kernel 7's int8 launches and the engine (phases 20-22 run it)."""
     from clusterfusion_tpu_torch.config import LlamaConfig
     from clusterfusion_tpu_torch.models import llama as model
     from clusterfusion_tpu_torch.models.generation import Llama
@@ -2335,7 +2389,611 @@ def phase_int8_e2e(dev):
     if bad:
         raise AssertionError(f"the int8 kernel and plain paths disagree at "
                              f"steps {bad}")
-    return int8_launches
+    return int8_launches, eng
+
+
+INT8_VERIFY_PASSES = (("gemv8", "gemv8_kernel"), ("gemv", "gemv_kernel"),
+                      ("split", "attn_split_kernel"),
+                      ("norms", "resnorm_kernel"),
+                      ("merge", "verify_merge_kernel"))
+
+
+def phase_int8_verify(eng, dev, hbm, peak, w8, heads, pos=600):
+    """Phase 19: kernel 8's int8 mode at full Llama-2-7B width on phase 17's
+    int8 weights (hg 8, G 4), pos 600 over a random cache with NaN at and
+    above pos, at n 5 and 9, with the bf16 and the int8 LM head: against
+    its plain twin at phase 9's limits (logits within 2e-2 of the largest,
+    the appended rows at atol 0.05, deeper layers + 1 % of |row|, every
+    other row unchanged bit for bit), a repeat bit-identical; its time
+    (CUDA events) beside its byte bound, the bf16 kernel 8 on the engine's
+    weights (hg 4) in this phase and the twin's; then its device time by
+    pass (``torch.profiler``: the int8 GEMVs with their TB/s, the bf16 LM
+    head's GEMV, split, merge, norms).  Returns the kernels-line entry of
+    n 5 with the bf16 head (the engine's)."""
+    from clusterfusion_tpu_torch.models import llama as model
+    from clusterfusion_tpu_torch.ops import stack_verify as sv
+    cfg, p = eng.cfg, eng.params
+    lw = p["layers"]
+    g, hd, L = cfg.n_heads // cfg.kv_heads, cfg.head_dim_, cfg.n_layers
+    gen = torch.Generator(device=dev).manual_seed(19)
+    kc, vc = model.init_cache(cfg, max_seq=1024, device=dev)
+    kc[:, :, :pos] = torch.randn(kc[:, :, :pos].shape, generator=gen,
+                                 device=dev).bfloat16()
+    vc[:, :, :pos] = torch.randn(vc[:, :, :pos].shape, generator=gen,
+                                 device=dev).bfloat16()
+    kc[:, :, pos:] = float("nan")
+    vc[:, :, pos:] = float("nan")
+    common = dict(group=g, head_dim=hd, rope_style=cfg.rope_style,
+                  eps=cfg.norm_eps, final_norm=p["final_norm"])
+    q_bytes = sum(w8[k].q.numel() + w8[k].s.numel() * 4 for k in w8)
+    norm_bytes = 2 * (2 * L + 1) * cfg.hidden_dim
+    weights = sum(w8[k].q.numel() for k in w8) + p["lm_head"].numel()
+    kv_read = 2 * L * cfg.kv_heads * pos * hd * 2
+    rows = {}
+    for n in (5, 9):
+        x = p["embed"][torch.arange(n, device=dev) * 37 + 11]
+        cos, sin = model.rope_rows(cfg, pos, n, dev)
+        args = (x, lw["attn_norm"], lw["ffn_norm"], cos, sin, w8["wqkv_f"],
+                w8["wo_f"], w8["w13"], w8["w2"])
+        bf16_args = (x, lw["attn_norm"], lw["ffn_norm"], cos, sin,
+                     lw["wqkv_f"], lw["wo_f"], lw["w13"], lw["w2"])
+        new = slice(pos, pos + n)
+        others = torch.ones(kc.shape[2], dtype=torch.bool, device=dev)
+        others[new] = False
+        kv_write = 2 * L * cfg.kv_heads * n * hd * 2
+        io = n * cfg.hidden_dim * 2 * 2 + n * cfg.vocab_size * 4 + 2 * n * hd * 4
+        flops = 2 * n * weights + \
+            4 * L * cfg.n_heads * hd * (n * pos + n * (n + 1) // 2)
+        kk, vk = kc.clone(), vc.clone()
+        for label, head in heads.items():
+            kw = dict(common, lm_head=head)
+            kk.copy_(kc)
+            vk.copy_(vc)
+            kr, vr = kc.clone(), vc.clone()
+            before = sv.int8_launches
+            out = sv.fused_verify_stack(*args, kk, vk, pos, **kw)
+            launched = sv.int8_launches - before
+            ref = sv.fused_verify_stack_plain(*args, kr, vr, pos, **kw)
+            torch.cuda.synchronize()
+            lg_err = (out[0] - ref[0]).abs().max().item()
+            lg_rel = lg_err / ref[0].abs().max().item()
+            row_err = torch.maximum(
+                (kk[:, :, new].float() - kr[:, :, new].float()).abs().amax(dim=(1, 2, 3)),
+                (vk[:, :, new].float() - vr[:, :, new].float()).abs().amax(dim=(1, 2, 3)))
+            row_mag = torch.maximum(
+                kr[:, :, new].float().abs().amax(dim=(1, 2, 3)),
+                vr[:, :, new].float().abs().amax(dim=(1, 2, 3)))
+            rows_ok = bool(row_err[0] <= 0.05) and \
+                bool((row_err <= 0.05 + 1e-2 * row_mag).all())
+            unchanged = (_same_bits(kk[:, :, others], kc[:, :, others])
+                         and _same_bits(vk[:, :, others], vc[:, :, others]))
+            finite = bool(torch.isfinite(out[0]).all())
+            k2, v2 = kc.clone(), vc.clone()
+            again = sv.fused_verify_stack(*args, k2, v2, pos, **kw)
+            torch.cuda.synchronize()
+            repeat = (torch.equal(again[0], out[0]) and _same_bits(k2, kk)
+                      and _same_bits(v2, vk))
+            say("verify_int8", kernel=8, n=n, head=label, pos=pos, layers=L,
+                hg=cfg.kv_heads // w8["wqkv_f"].shape[1],
+                logits_max_abs_err=f"{lg_err:.4g}",
+                logits_err_over_max=f"{lg_rel:.4g}", tol_logits=2e-2,
+                kv_rows_err_layer0=f"{row_err[0].item():.3g}",
+                tol_layer0=0.05, kv_rows_err_max=f"{row_err.max().item():.4g}",
+                kv_rows_max_abs=f"{row_mag.max().item():.3g}",
+                tol_rows="atol=0.05+rtol=1e-2", other_rows_unchanged=unchanged,
+                nan_above_pos=True, finite=finite,
+                repeat_bit_identical=repeat, int8_launches=launched,
+                kernels_per_call=sv.last_step_kernels)
+            if not (lg_rel <= 2e-2 and rows_ok and unchanged and finite
+                    and repeat and launched == 1):
+                raise AssertionError(f"kernel 8's int8 mode (n {n}, {label}) "
+                                     "disagrees with its plain twin or with "
+                                     "itself")
+            del k2, v2, again, ref
+            step = functools.partial(sv.fused_verify_stack, *args, kk, vk, pos,
+                                     **kw)
+            bf16_step = functools.partial(
+                sv.fused_verify_stack, *bf16_args, kk, vk, pos,
+                **dict(common, lm_head=p["lm_head"]))
+            ms = time_ms(step, 10)
+            bf16_ms = time_ms(bf16_step, 10)
+            ms_again = time_ms(step, 10)
+            plain_ms = time_ms(lambda: sv.fused_verify_stack_plain(
+                *args, kr, vr, pos, **kw), 2, warmup=1)
+            del kr, vr
+            int8_head = label == "lm_int8"
+            lm_bytes = (head.q.numel() + head.s.numel() * 4 if int8_head
+                        else head.numel() * 2)
+            nbytes = q_bytes + norm_bytes + lm_bytes + kv_read + kv_write + io
+            bound = max(nbytes / hbm, flops / peak) * 1e3
+            bound_by = "bytes" if nbytes / hbm >= flops / peak else "operations"
+            say("verify_int8", n=n, head=label, ms_per_call=f"{ms:.4f}",
+                ms_per_call_again=f"{ms_again:.4f}",
+                bf16_ms_per_call_same_phase=f"{bf16_ms:.4f}",
+                plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound:.4f}",
+                bound_by=bound_by, bytes_per_call=nbytes,
+                int8_weight_and_scale_bytes=q_bytes, lm_bytes=lm_bytes)
+            busy, span, own, by, cnt = timeline_by_pass(step,
+                                                        INT8_VERIFY_PASSES)
+            gemv8_bytes = q_bytes + (lm_bytes if int8_head else 0)
+            say("verify_int8_device", n=n, head=label, busy_ms=f"{busy:.4f}",
+                span_ms=f"{span:.4f}", kernels_own_sum_ms=f"{own:.4f}",
+                **{f"{k}_ms": f"{v:.4f}" for k, v in by.items()},
+                **{f"{k}_launches": f"{v:g}" for k, v in cnt.items()},
+                gemv8_TBps=f"{gemv8_bytes / (by['gemv8'] * 1e-3) / 1e12:.3f}",
+                split_TBps=f"{kv_read / (by['split'] * 1e-3) / 1e12:.3f}",
+                note="each kernel charged from the end of those before it to "
+                     "its own end")
+            rows[(n, label)] = dict(max_abs_err=lg_err, ms=ms,
+                                    plain_ms=plain_ms, bound_ms=bound,
+                                    bound_by=bound_by, library_ms=None)
+        del kk, vk
+    return rows[(5, "lm_bf16")]
+
+
+def phase_int8_paged_layer(eng8, eng, dev, hbm, peak):
+    """Phase 21: kernel 9's int8 mode alone on layer 1 of the 7B int8 tree
+    (phase 18's engine: hg 8, G 4) at B 4 (one request of 128 rows and the
+    engine's padding rows), 8 (the serving lens up to 2047) and 1, NaN in
+    every pool row no request owns: against its plain twin (atol 2e-2 /
+    rtol 2e-2; appended rows within 0.05, every other row bit-unchanged), a
+    repeat bit-identical; its device busy time by pass beside its byte
+    bound, the bf16 kernel 9 on the same inputs (the bf16 engine's layer 1,
+    hg 4) and the twin's.  Returns the kernels-line entry of B 4."""
+    from clusterfusion_tpu_torch.models import llama as model
+    from clusterfusion_tpu_torch.ops import paged_decoder_layer as pd
+    cfg, lw8, lw = eng8.cfg, eng8.params["layers"], eng.params["layers"]
+    g, hd, kv, hidden = (cfg.n_heads // cfg.kv_heads, cfg.head_dim_,
+                         cfg.kv_heads, cfg.hidden_dim)
+    cos_t, sin_t = model.rope_table(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    layer, page = 1, 16
+    rows = {}
+    for B, lens_l in ((4, [128, 0, 0, 0]), (8, SERVE_LENS),
+                      (1, SERVE_LENS[-1:])):
+        kp, vp, table, lens = paged_pools(dev, 2, kv, hd, page, lens_l, 22)
+        x = torch.randn((B, hidden), generator=gen, device=dev).bfloat16()
+        res = torch.randn((B, hidden), generator=gen, device=dev).bfloat16()
+        if B == 4:
+            table[1:] = 0
+            x[2:], res[2:] = x[1], res[1]
+        nan_unowned(kp, vp, table, lens)
+        k0, v0 = kp.clone(), vp.clone()
+        kr, vr = kp.clone(), vp.clone()
+        k2, v2 = kp.clone(), vp.clone()
+        args = (lw8["wqkv_f"], lw8["wo_f"], table, lens, lens)
+        tail = (layer, lw8["attn_norm"][layer], cfg.norm_eps, cos_t, sin_t)
+        kw = dict(group=g, rope_style=cfg.rope_style)
+        before = pd.launches["llama_decoder_layer_paged_int8"]
+        out = pd.llama_decoder_layer_paged(x, res, *args, kp, vp, *tail, **kw)
+        again = pd.llama_decoder_layer_paged(x, res, *args, k2, v2, *tail,
+                                             **kw)
+        ref = pd.llama_decoder_layer_paged_plain(x, res, *args, kr, vr, *tail,
+                                                 **kw)
+        torch.cuda.synchronize()
+        launched = pd.launches["llama_decoder_layer_paged_int8"] - before
+        repeat = (_same_bits(out[0], again[0]) and _same_bits(out[1], again[1])
+                  and _same_bits(kp, k2) and _same_bits(vp, v2))
+        finite = bool(torch.isfinite(out[0].float()).all())
+        max_abs = max((out[i].float() - ref[i].float()).abs().max().item()
+                      for i in (0, 1))
+        for i in (0, 1):
+            torch.testing.assert_close(out[i].float(), ref[i].float(),
+                                       **LIMITS_TOL)
+        app = append_mask(kp, table, lens, layer)
+        row_err = max((kp[app].float() - kr[app].float()).abs().max().item(),
+                      (vp[app].float() - vr[app].float()).abs().max().item())
+        untouched = (_same_bits(kp[~app], k0[~app])
+                     and _same_bits(vp[~app], v0[~app]))
+        if not (repeat and finite and launched == 2 and row_err <= 0.05
+                and untouched):
+            raise AssertionError(f"kernel 9's int8 mode (B {B}) disagrees "
+                                 "with its twin or itself, or its pools")
+        del k2, v2, again, k0, v0
+        call = lambda: pd.llama_decoder_layer_paged(  # noqa: E731
+            x, res, *args, kp, vp, *tail, **kw)
+        bf16_call = lambda: pd.llama_decoder_layer_paged(  # noqa: E731
+            x, res, lw["wqkv_f"], lw["wo_f"], table, lens, lens, kp, vp,
+            layer, lw["attn_norm"][layer], cfg.norm_eps, cos_t, sin_t, **kw)
+        call_ms = time_ms(call, 20)
+        ms, by_pass = busy_ms(call, LAYER9_INT8_PASSES)
+        bf16_ms, _ = busy_ms(bf16_call, LAYER9_PASSES)
+        plain_ms = time_ms(lambda: pd.llama_decoder_layer_paged_plain(
+            x, res, *args, kr, vr, *tail, **kw), 3, warmup=1)
+        w = [lw8["wqkv_f"][layer], lw8["wo_f"][layer]]
+        w_bytes = sum(t.q.numel() + 4 * t.s.numel() for t in w)
+        w_elems = sum(t.q.numel() for t in w)
+        n_rows = sum(lens_l)
+        nbytes = w_bytes + 2 * (2 * n_rows * kv * hd + 4 * B * hidden + hidden
+                                + 2 * B * kv * hd)
+        flops = 2 * B * w_elems + 4 * kv * g * hd * (n_rows + B)
+        bound = max(nbytes / hbm, flops / peak) * 1e3
+        bound_by = "bytes" if nbytes / hbm >= flops / peak else "operations"
+        say("paged_layer_int8", kernel=9, B=B, lens=lens_l,
+            hg=cfg.kv_heads // lw8["wqkv_f"].shape[1],
+            max_abs_err=f"{max_abs:.3g}", tol="atol=2e-2,rtol=2e-2",
+            appended_row_err=f"{row_err:.3g}", tol_rows=0.05,
+            other_rows_unchanged=untouched, nan_unowned_rows=True,
+            repeat_bit_identical=repeat, int8_launches=launched,
+            ms=f"{ms:.4f}", **{f"{k}_ms": f"{v:.4f}" for k, v in by_pass.items()},
+            call_ms=f"{call_ms:.4f}", bf16_ms_same_phase=f"{bf16_ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound:.4f}",
+            bound_by=bound_by, weight_bytes=w_bytes,
+            weight_TBps=f"{w_bytes / ((by_pass['gemv']) * 1e-3) / 1e12:.3f}")
+        rows[B] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound, bound_by=bound_by, library_ms=None)
+        del kr, vr
+    return rows[4]
+
+
+# of the largest output: bf16 output rounding and the order of the sums
+PRODUCT_REL_TOL = 1e-2
+
+
+def phase_int8_products(eng8, dev, hbm, peak, layer=1):
+    """Phase 23: the int8 serving step's M=B products alone, through the
+    serving step's own calls (``batched_qkv_dot``, ``batched_o_dot``,
+    ``batched_ffn``, which launch ``_gemv_int8`` and ``_ffn_int8``) on
+    layer 1 of the 7B int8 tree: the QKV product (bf16 out, a scale per
+    column), the O product (each head group's partial scaled before the
+    sum over the groups) and the SwiGLU FFN, at B 8 (``max_batch``), 4
+    (``generate`` at B 4) and 1 (the fused step's FFN for one prompt).
+    Each against its plain twin within ``PRODUCT_REL_TOL`` of its largest
+    output, finite, a repeat bit-identical, two launches of its wrapper;
+    at B 8 the device busy ms (``torch.profiler``) and the CUDA-event ms of
+    a call beside the bound and the twin's.  Returns the
+    kernels-line figures of ``_gemv_int8`` (the layer's QKV and O products
+    at B 8) and of ``_ffn_int8`` (B 8)."""
+    from clusterfusion_tpu_torch.runtime import serving
+    gemv = importlib.import_module("clusterfusion_tpu_torch.ops.gemv")
+    cfg, lw = eng8.cfg, eng8.params["layers"]
+    wq, wo, w13, w2 = (lw[k][layer] for k in ("wqkv_f", "wo_f", "w13", "w2"))
+    G, h, c = wq.shape
+    co, f = wo.shape[1], w13.shape[-1]
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(23)
+    figures = {"gemv": {}, "ffn": {}}
+    for B in (8, 4, 1):
+        xn = torch.randn((B, h), generator=gen, device=dev).to(bf16)
+        o3 = torch.randn((B, G, co), generator=gen, device=dev).to(bf16)
+        cases = (
+            ("qkv", "gemv", lambda: serving.batched_qkv_dot(xn, wq),
+             lambda: gemv._gemv_int8_plain(xn, wq.q, wq.s.reshape(G, c))
+             .to(bf16).reshape(B, G, c),
+             G * h * c + 4 * G * c + 2 * B * h + 2 * B * G * c,
+             2 * B * G * h * c),
+            ("o", "gemv", lambda: serving.batched_o_dot(o3, wo),
+             lambda: gemv._gemv_int8_plain(
+                 o3.reshape(B, G * co), wo.q.reshape(G * co, h),
+                 wo.s.reshape(G, h), co),
+             G * co * h + 4 * G * h + 2 * B * G * co + 4 * B * h,
+             2 * B * G * co * h),
+            ("ffn", "ffn", lambda: serving.batched_ffn(xn, w13, w2,
+                                                       cfg.ffn_act),
+             lambda: gemv._ffn_int8_plain(xn, w13.q, w13.s.reshape(2, f),
+                                          w2.q, w2.s.reshape(h)),
+             3 * h * f + 4 * (2 * f + h) + 2 * B * h + 2 * B * h,
+             6 * B * h * f))
+        for label, wrapper, call, plain, nbytes, flops in cases:
+            count = "ffn8_launches" if wrapper == "ffn" else "int8_launches"
+            before = getattr(gemv, count)
+            out, again = call(), call()
+            ref = plain()
+            torch.cuda.synchronize()
+            launched = getattr(gemv, count) - before
+            repeat = torch.equal(out, again)
+            finite = bool(torch.isfinite(out.float()).all())
+            err = (out.float() - ref.float()).abs().max().item()
+            rel = err / ref.float().abs().max().item()
+            say("int8_products", product=label, wrapper=f"_{wrapper}_int8",
+                B=B, out_shape=list(out.shape), out_dtype=str(out.dtype),
+                max_abs_err=f"{err:.4g}", err_over_max=f"{rel:.4g}",
+                tol_over_max=PRODUCT_REL_TOL, finite=finite,
+                repeat_bit_identical=repeat, launches=launched)
+            if not (out.shape == ref.shape and rel <= PRODUCT_REL_TOL
+                    and finite and repeat and launched == 2):
+                raise AssertionError(f"the int8 {label} product (B {B}) "
+                                     "disagrees with its plain twin or "
+                                     "itself, or did not launch")
+            fig = figures[wrapper]
+            fig["max_abs_err"] = max(fig.get("max_abs_err", 0.0), err)
+            if B != 8:
+                continue
+            call_ms = time_ms(call, 20)
+            ms, _ = busy_ms(call)
+            plain_ms = time_ms(plain, 3, warmup=1)
+            bound = max(nbytes / hbm, flops / peak) * 1e3
+            say("int8_products", product=label, B=B, ms=f"{ms:.4f}",
+                call_ms=f"{call_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+                bound_ms=f"{bound:.4f}",
+                bound_by="bytes" if nbytes / hbm >= flops / peak
+                else "operations",
+                TBps=f"{nbytes / (ms * 1e-3) / 1e12:.3f}")
+            for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                           ("bytes", nbytes), ("flops", flops)):
+                fig[key] = fig.get(key, 0) + v
+    rows = {}
+    for wrapper, fig in figures.items():
+        by_bytes = fig["bytes"] / hbm >= fig["flops"] / peak
+        rows[wrapper] = dict(
+            max_abs_err=fig["max_abs_err"], ms=fig["ms"],
+            plain_ms=fig["plain_ms"],
+            bound_ms=max(fig["bytes"] / hbm, fig["flops"] / peak) * 1e3,
+            bound_by="bytes" if by_bytes else "operations", library_ms=None)
+    return rows
+
+
+def step_vs_plain(eng, dev, depth=None, impls=("batched", "fused")):
+    """One serving step of each kind at B 8 (``SERVE_LENS`` over shuffled
+    pages, NaN in every pool row no request owns, a distinct random token a
+    row) on the first ``depth`` layers of ``eng`` (all by default), against
+    the same step with the plain twins in place of ``_gemv_int8``,
+    ``_ffn_int8``, ``paged_attention`` and ``llama_decoder_layer_paged``,
+    on copies of the same pools.  Returns, per step kind: the logits'
+    largest error over the largest logit, the least difference between two
+    requests' plain logits over the same, each layer's largest error and
+    |row| over the appended K/V rows, whether every other pool row is
+    bit-unchanged and whether the outputs are finite."""
+    from clusterfusion_tpu_torch.models import llama as model
+    from clusterfusion_tpu_torch.ops import paged_decoder_layer as pd
+    from clusterfusion_tpu_torch.ops.reference import fused_add_rmsnorm_ref
+    serving = importlib.import_module("clusterfusion_tpu_torch.runtime.serving")
+    gemv = importlib.import_module("clusterfusion_tpu_torch.ops.gemv")
+    cfg, p = eng.cfg, eng.params
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+        p = dict(p, layers={k: w[:depth] for k, w in p["layers"].items()})
+    L, kv, hd, page = cfg.n_layers, cfg.kv_heads, cfg.head_dim_, 16
+    B = len(SERVE_LENS)
+    _, _, table, lens = paged_pools(dev, 1, kv, hd, page, SERVE_LENS, 24)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    shape = (L, int(table.max()) + 1, kv, page, hd)
+    k0 = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    v0 = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    nan_unowned(k0, v0, table, lens)
+    tokens = torch.randperm(cfg.vocab_size, generator=gen, device=dev)[:B]
+    # (page, row) of each request's appended row
+    at = [(int(table[b, n // page]), n % page) for b, n in enumerate(SERVE_LENS)]
+
+    def appended(pool):                       # [L, B, kv, hd] float32
+        return torch.stack([pool[:, pg, :, r] for pg, r in at], 1).float()
+
+    temps, tops = [0.0] * B, [0.9] * B
+    rope = model.rope_table(cfg, device=dev)
+
+    def gemv_plain(x, q, s, *, kg=0, bf16_out=False):
+        N = q.shape[-1]
+        y = gemv._gemv_int8_plain(x, q.reshape(-1, q.shape[-2], N),
+                                  s.reshape(-1, N), kg)
+        return y.to(torch.bfloat16) if bf16_out else y
+
+    def ffn_plain(x, w13_q, w13_s, w2_q, w2_s):
+        return gemv._ffn_int8_plain(x, w13_q, w13_s.reshape(2, -1), w2_q,
+                                    w2_s.reshape(-1))
+
+    plain_twins = dict(_gemv_int8=gemv_plain, _ffn_int8=ffn_plain,
+                       paged_attention=pd.paged_attention_plain,
+                       llama_decoder_layer_paged=pd
+                       .llama_decoder_layer_paged_plain)
+    real_sample = serving._logits_and_sample
+    got = []
+
+    def capture(params, x, residual, *rest):
+        xn, _ = fused_add_rmsnorm_ref(x, residual, params["final_norm"],
+                                      cfg.norm_eps)
+        got.append(model._lm_logits(xn, params["lm_head"]))
+        return real_sample(params, x, residual, *rest)
+
+    steps = dict(batched=serving._paged_decode_step_batched,
+                 fused=serving._paged_decode_step)
+    out = {}
+    for impl in impls:
+        pools = {}
+        saved = {k: getattr(serving, k) for k in plain_twins}
+        serving._logits_and_sample = capture
+        try:
+            for kind in ("kernel", "plain"):
+                if kind == "plain":
+                    for k, fn in plain_twins.items():
+                        setattr(serving, k, fn)
+                kp, vp = k0.clone(), v0.clone()
+                steps[impl](p, kp, vp, tokens, lens, table, lens, None, temps,
+                            tops, cfg, rope)
+                pools[kind] = (kp, vp)
+        finally:
+            serving._logits_and_sample = real_sample
+            for k, fn in saved.items():
+                setattr(serving, k, fn)
+        torch.cuda.synchronize()
+        lk, lp = got[-2], got[-1]
+        top = lp.abs().max().item()
+        (kp, vp), (kr, vr) = pools["kernel"], pools["plain"]
+        ak, av, rk, rv = (appended(t) for t in (kp, vp, kr, vr))
+        dims = (1, 2, 3)
+        row_err = torch.maximum((ak - rk).abs().amax(dim=dims),
+                                (av - rv).abs().amax(dim=dims))
+        row_mag = torch.maximum(rk.abs().amax(dim=dims),
+                                rv.abs().amax(dim=dims))
+        for pg, r in at:            # the appended rows back: all else as before
+            kp[:, pg, :, r] = k0[:, pg, :, r]
+            vp[:, pg, :, r] = v0[:, pg, :, r]
+        out[impl] = dict(
+            layers=L, logits_rel=(lk - lp).abs().max().item() / top,
+            request_logits_rel=[(lk[b] - lp[b]).abs().max().item() / top
+                                for b in range(B)],
+            spread=min((lp[i] - lp[j]).abs().max().item() / top
+                       for i in range(B) for j in range(i)),
+            row_err=row_err.tolist(), row_mag=row_mag.tolist(),
+            unchanged=_same_bits(kp, k0) and _same_bits(vp, v0),
+            finite=bool(torch.isfinite(lk).all() and torch.isfinite(ak).all()
+                        and torch.isfinite(av).all()))
+        del pools, kp, vp, kr, vr
+    return out
+
+
+# the serving-step check's depth: the kernel step and the plain-twin step
+# drift apart by a bf16 rounding a layer (about 0.005 of |row| added a
+# layer, the bf16 engine's as much as the int8 one's), so phase 9's limits
+# hold through 4 layers and the full depth is held against the bf16 drift
+STEP_CHECK_DEPTH = 4
+
+
+def int8_step_vs_plain(eng8, eng, dev):
+    """``step_vs_plain`` on the first ``STEP_CHECK_DEPTH`` layers of the
+    int8 engine, both step kinds: the logits within 2e-2 of the largest
+    logit, the appended rows at phase 9's limits (layer 0 at atol 0.05,
+    deeper layers at atol 0.05 + rtol 1e-2 of |row|), every other row
+    bit-unchanged, and the requests' plain logits apart by more than the
+    logits limit, so that a slot reading another slot's rows or scales
+    could not pass.  Then all 32 layers of the int8 engine and of the bf16
+    engine ``eng``: the int8 step's logits no further from its twin's than
+    1.25 times the bf16 step's from its own."""
+    for impl, r in step_vs_plain(eng8, dev, STEP_CHECK_DEPTH).items():
+        err, mag = r["row_err"], r["row_mag"]
+        rows_ok = err[0] <= 0.05 and all(e <= 0.05 + 1e-2 * m
+                                         for e, m in zip(err, mag))
+        say("serving_int8_step", step=impl, B=len(SERVE_LENS),
+            layers=r["layers"], lens=SERVE_LENS,
+            logits_err_over_max=f"{r['logits_rel']:.4g}", tol_logits=2e-2,
+            by_request=[round(x, 4) for x in r["request_logits_rel"]],
+            least_request_spread_over_max=f"{r['spread']:.4g}",
+            kv_rows_err_layer0=f"{err[0]:.3g}", tol_layer0=0.05,
+            kv_rows_err_by_layer=[round(x, 4) for x in err],
+            kv_rows_max_abs=f"{max(mag):.3g}",
+            tol_rows="atol=0.05+rtol=1e-2",
+            other_rows_unchanged=r["unchanged"], nan_unowned_rows=True,
+            finite=r["finite"])
+        if not (r["logits_rel"] <= 2e-2 and rows_ok and r["unchanged"]
+                and r["finite"]):
+            raise AssertionError(f"the int8 {impl} serving step disagrees "
+                                 "with the same step on the plain twins")
+        if r["spread"] <= 2e-2:
+            raise AssertionError("the requests' logits differ by less than "
+                                 "the limit: the comparison cannot tell "
+                                 "the slots apart")
+    full8, full16 = step_vs_plain(eng8, dev), step_vs_plain(eng, dev)
+    for impl, r in full8.items():
+        b = full16[impl]
+        say("serving_int8_step", step=impl, B=len(SERVE_LENS),
+            layers=r["layers"],
+            logits_err_over_max=f"{r['logits_rel']:.4g}",
+            bf16_logits_err_over_max=f"{b['logits_rel']:.4g}",
+            tol="1.25x the bf16 step's",
+            kv_rows_err_max=f"{max(r['row_err']):.4g}",
+            bf16_kv_rows_err_max=f"{max(b['row_err']):.4g}",
+            least_request_spread_over_max=f"{r['spread']:.4g}",
+            other_rows_unchanged=r["unchanged"], finite=r["finite"])
+        if not (r["logits_rel"] <= 1.25 * b["logits_rel"] and r["unchanged"]
+                and r["finite"] and b["unchanged"] and b["finite"]):
+            raise AssertionError(f"the int8 {impl} serving step drifts "
+                                 "from its twin more than the bf16 step")
+
+
+def phase_int8_serving(eng8, eng, dev, bf16_figures):
+    """Phase 22: int8 serving.  ``int8_step_vs_plain`` first; then phase
+    8's B=8 mix (page 16; prompts of 32-512 tokens; 32 new tokens each) on
+    the 7B int8 engine, once through
+    the batched step (the M=B int8 products on the GEMVs' int8 instances,
+    kernel 10) and once through the fused step (kernel 9's int8 mode, the
+    int8 FFN): tokens/s and ms a step beside phase 8's bf16 figures, the
+    launches, and batching invariance (each request run alone gives the
+    tokens it gives in the batch, as JAX ``tests/test_runtime.py:174``
+    holds); then ``Llama.generate`` at B 1 (the fused step) and B 4 (the
+    batched one), each against the int8 plain path under the top-2-gap
+    rule.  Returns the launches of the serving runs: kernel 9's int8 mode
+    (fused step), ``_gemv_int8`` (batched) and ``_ffn_int8`` (both)."""
+    from clusterfusion_tpu_torch.ops import paged_decoder_layer as pd
+    from clusterfusion_tpu_torch.runtime import ServingEngine
+    gemv = importlib.import_module("clusterfusion_tpu_torch.ops.gemv")
+    int8_step_vs_plain(eng8, eng, dev)
+    cfg = eng8.cfg
+    text = "Serving many users at once on one card, page by page. " * 12
+    prompts = [eng8.tokenizer.encode(text[:n - 1], bos=True, eos=False)
+               for n in (32, 64, 128, 200, 256, 300, 400, 512)]
+    n_new = 32
+
+    def serve(batch, impl, timed=False):
+        srv = ServingEngine(eng8.params, cfg, page_size=16, num_pages=136,
+                            max_batch=8, step_impl=impl)
+        step_s = []
+        if timed:
+            real_step = srv._step
+
+            def timed_step(*a):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = real_step(*a)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                return out
+
+            srv._step = timed_step
+        for i in batch:
+            srv.submit(i, prompts[i], n_new, temperature=0.0)
+        return srv.run(), step_s
+
+    launch = dict(layer=0, gemv=0, ffn=0)
+    for impl in ("batched", "fused"):
+        serve([0], impl)                                  # warm-up
+        pd.launches.update(dict.fromkeys(pd.launches, 0))
+        gemv.int8_launches = gemv.ffn8_launches = 0
+        out, step_s = serve(range(len(prompts)), impl, timed=True)
+        pa, k9 = (pd.launches["paged_attention"],
+                  pd.launches["llama_decoder_layer_paged_int8"])
+        products, ffns = gemv.int8_launches, gemv.ffn8_launches
+        steps = len(step_s)
+        decode_tokens = sum(len(t) for t in out.values()) - len(prompts)
+        tps = decode_tokens / sum(step_s)
+        say("serving_int8", step=impl, requests=len(prompts), new_tokens=n_new,
+            decode_steps=steps, decode_tokens_per_s=f"{tps:.2f}",
+            ms_per_step=f"{sum(step_s) * 1e3 / steps:.3f}",
+            bf16_decode_tokens_per_s_phase8=f"{bf16_figures['tokens_per_s']:.2f}",
+            bf16_ms_per_step_phase8=f"{bf16_figures['ms_per_step']:.3f}",
+            paged_attention_launches=pa, layer_int8_launches=k9,
+            gemv_int8_launches=products, ffn_int8_launches=ffns)
+        L = cfg.n_layers
+        ok = ffns == L * steps
+        if impl == "batched":
+            ok = ok and pa == L * steps and k9 == 0 and products == 2 * L * steps
+            launch["gemv"] = products
+        else:
+            ok = ok and k9 == L * steps and pa == 0 and products == 0
+            launch["layer"] = k9
+        launch["ffn"] += ffns
+        if not ok:
+            raise AssertionError(f"the int8 {impl} step did not launch its "
+                                 "kernels once per layer and step")
+        if any(len(t) != n_new or not all(0 <= x < cfg.vocab_size for x in t)
+               for t in out.values()):
+            raise AssertionError(f"bad int8 serving output {out}")
+        alone = {}
+        for i in range(len(prompts)):
+            alone.update(serve([i], impl)[0])
+        differ = [i for i in out if out[i] != alone[i]]
+        say("serving_int8", step=impl, batching_invariant=not differ,
+            requests_that_differ_alone=differ, first_tokens=out[0][:8])
+        if differ:
+            raise AssertionError(f"int8 {impl} serving is not batching-"
+                                 f"invariant: requests {differ}")
+    for B in (1, 4):
+        pd.launches.update(dict.fromkeys(pd.launches, 0))
+        gemv.int8_launches = gemv.ffn8_launches = 0
+        t0 = time.perf_counter()
+        toks, _ = eng8.generate(prompts[2:2 + B], 16, temperature=0.0)
+        gen_s = time.perf_counter() - t0
+        k9, products = (pd.launches["llama_decoder_layer_paged_int8"],
+                        gemv.int8_launches + gemv.ffn8_launches)
+        plain, gaps, bad = check_against_plain(eng8, dev, prompts[2],
+                                               toks[0], 8)
+        say("generate_int8", B=B, step="fused" if B == 1 else "batched",
+            tokens=toks[0][:8], plain_tokens=plain,
+            top2_gaps=[round(x, 3) for x in gaps],
+            disagree_where_gap_gt_0_1=bad, wall_s=f"{gen_s:.3f}",
+            layer_int8_launches=k9, int8_product_launches=products)
+        if bad or (k9 == 0) != (B > 1) or products == 0:
+            raise AssertionError(f"int8 generate at B {B}: disagrees at {bad} "
+                                 "or did not run its kernels")
+    return launch
 
 
 def say_tp_profile(phase, ev, reps, wall, step, **where):
@@ -3068,7 +3726,7 @@ def main() -> int:
     del stack_case
     paged = phase_paged_attention(dev, hbm, peak)
     layer = phase_paged_layer(eng, dev, hbm, peak)
-    pa_launches, layer_launches = phase_serving(eng, dev)
+    pa_launches, layer_launches, serving_bf16 = phase_serving(eng, dev)
     verify, verify_cases = phase_verify(eng, dev, hbm, peak, stack["ms"])
     verify_launches = phase_spec(eng, dev)
     phase_verify_device(verify_cases)
@@ -3081,10 +3739,16 @@ def main() -> int:
     k13_launches, k14_launches = phase_fused_step(eng, dev, shards)
     del shards
     torch.cuda.empty_cache()
-    stack8 = phase_int8_stack(eng, dev, hbm, peak)
+    stack8, w8, heads8 = phase_int8_stack(eng, dev, hbm, peak)
+    verify8 = phase_int8_verify(eng, dev, hbm, peak, w8, heads8)
+    del w8, heads8
     torch.cuda.empty_cache()
-    stack8_launches = phase_int8_e2e(dev)
-    del eng
+    stack8_launches, eng8 = phase_int8_e2e(dev)
+    verify8_launches = phase_spec(eng8, dev, "spec_int8")
+    layer8 = phase_int8_paged_layer(eng8, eng, dev, hbm, peak)
+    products8 = phase_int8_products(eng8, dev, hbm, peak)
+    serving8_launches = phase_int8_serving(eng8, eng, dev, serving_bf16)
+    del eng, eng8
     torch.cuda.empty_cache()
     ds_rows = phase_deepseek_kernels(dev, hbm, peak)
     mla_launches, ffn_launches = phase_deepseek_e2e(dev)
@@ -3115,6 +3779,22 @@ def main() -> int:
              source="clusterfusion_tpu_torch/csrc/stack_verify.cu",
              replaces="clusterfusion_tpu/ops/stack_verify.py:432",
              launches=verify_launches, **verify),
+        dict(name="fused_verify_stack (int8 weights)", route="cuda",
+             source="clusterfusion_tpu_torch/csrc/stack_verify.cu",
+             replaces="clusterfusion_tpu/ops/stack_verify.py:432",
+             launches=verify8_launches, **verify8),
+        dict(name="llama_decoder_layer_paged (int8 weights)", route="cuda",
+             source="clusterfusion_tpu_torch/csrc/paged_decoder_layer.cu",
+             replaces="clusterfusion_tpu/ops/paged_decoder_layer.py:399",
+             launches=serving8_launches["layer"], **layer8),
+        dict(name="_gemv_int8 (int8 serving QKV and O products)", route="cuda",
+             source="clusterfusion_tpu_torch/csrc/gemv.cu",
+             replaces="clusterfusion_tpu/runtime/serving.py:164",
+             launches=serving8_launches["gemv"], **products8["gemv"]),
+        dict(name="_ffn_int8 (int8 serving FFN)", route="cuda",
+             source="clusterfusion_tpu_torch/csrc/gemv.cu",
+             replaces="clusterfusion_tpu/runtime/serving.py:199",
+             launches=serving8_launches["ffn"], **products8["ffn"]),
         dict(name="fused_ffn", route="cuda",
              source="clusterfusion_tpu_torch/csrc/fused_ffn.cu",
              replaces="clusterfusion_tpu/ops/ffn.py:138",

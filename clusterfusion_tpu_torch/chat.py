@@ -7,11 +7,15 @@ Usage:
     python -m clusterfusion_tpu_torch.chat --synthetic --device cpu
     python -m clusterfusion_tpu_torch.chat --synthetic --spec_draft synthetic
     python -m clusterfusion_tpu_torch.chat --synthetic --quant int8
+    python -m clusterfusion_tpu_torch.chat --synthetic --quant int8 \
+        --spec_draft synthetic
 
 Loading a checkpoint is not ported yet, so ``--synthetic`` (random
 weights, byte tokenizer) is required, and ``--spec_draft`` takes only
-``synthetic`` (a random tiny draft, seed 1).  ``--quant int8`` runs the
-int8 weight-only engine (kernel 7's int8 mode); ``--quant int4``,
+``synthetic`` (a random tiny draft, seed 1, bf16 whatever ``--quant``
+is, as in the root ``chat.py``).  ``--quant int8`` runs the int8
+weight-only engine: kernel 7's int8 mode for the stream, and with
+``--spec_draft`` kernel 8's int8 mode for the verify.  ``--quant int4``,
 ``--kv_int8`` and ``--kv_fp8`` exit "not yet ported".
 """
 
@@ -37,7 +41,8 @@ def main(argv=None):
     ap.add_argument("--device", type=str, default="cuda")
     ap.add_argument("--quant", type=str, default=None,
                     choices=["int8", "int4"],
-                    help="weight-only quantization (int8 is ported)")
+                    help="weight-only quantization of the target (int8 is "
+                         "ported)")
     ap.add_argument("--kv_fp8", action="store_true")
     ap.add_argument("--kv_int8", action="store_true")
     ap.add_argument("--spec_draft", type=str, default=None,
@@ -52,8 +57,6 @@ def main(argv=None):
                         ("--kv_int8", args.kv_int8)):
         if given:
             sys.exit(f"{flag}: not yet ported")
-    if args.quant and args.spec_draft:
-        sys.exit("--quant with --spec_draft: not yet ported")
     if args.spec_draft not in (None, "synthetic"):
         sys.exit("--spec_draft: loading a draft checkpoint is not yet ported")
     if not args.synthetic:

@@ -225,11 +225,15 @@ class KernelConfig:
     beside one producer warp).  ``_fused_decoder_layer`` and ``fused_ffn``
     read neither ``gemv_threads`` nor any other knob but ``kv_split``: each
     is one launch whose block size, ring stages and cluster size are
-    constants or follow from the geometry and the card's SM count."""
+    constants or follow from the geometry and the card's SM count.
+    ``serving_w8a8``: the JAX package's int8-activation serving products;
+    not ported, so ``ServingEngine`` raises on it (``ROADMAP.md`` queue 2,
+    mode 6)."""
 
     kv_split: int = 64
     prefill_block_rows: int = 128
     gemv_threads: int = 256
+    serving_w8a8: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

@@ -359,6 +359,21 @@ __device__ __forceinline__ void unpack8_s8(const uint2& u, float* f) {
       f[4 * i + b] = __uint_as_float(__byte_perm(w[i], 0x4B000000u, 0x7440 + b)) - 8388736.f;
 }
 
+// Two words of four int8 codes, k rows r (a) and r + 1 (b) of four
+// columns, -> four bf16 pairs, pair i = (bf16(a_i) low, bf16(b_i) high),
+// exactly: the codes' exact floats (unpack8_s8) and their high halves by a
+// byte permute (an integer of at most 8 significant bits is a bf16).  (A
+// form in bf16 pairs, a byte permute, two logic ops and a bf16x2
+// subtraction a pair, issues fewer instructions but measured 2-9 % slower
+// on the H100, scripts/tune_torch_gemv.py --int8.)
+__device__ __forceinline__ void s8_bf16_pairs(uint32_t a, uint32_t b, uint32_t (&p)[4]) {
+  float f[8];
+  unpack8_s8(make_uint2(a, b), f);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    p[i] = __byte_perm(__float_as_uint(f[i]), __float_as_uint(f[4 + i]), 0x7632);
+}
+
 // The body of both ring GEMV kernels: bf16 weights w (W8 false; wmap, mat0,
 // sc and kg unused) or int8 codes through wmap with their scales (W8, w
 // unused; G1_Y only).
@@ -752,6 +767,32 @@ int launch_gemv1(const void* x, int f_off, const void* w, float* y, int K, int N
 // boundaries: start, griddepcontrol.wait returned, first stage landed,
 // half the stages read, the last read, cluster partials ready, y written,
 // end.
+// Int8 weights (rows_gemv8_kernel; kernels 8 and 9 in their int8 modes and
+// the int8 serving step's M=B products, the TPU kernels' wq_kind ==
+// "int8"): W holds int8 codes, matrices mat0.. of a tensor map over the
+// stacked matrices (make_int8_rows_map), and sc float32 per-column scales.
+// Each product is x_bf16 @ bf16(code) summed in float32, the TPU kernels'
+// jnp.dot(xn, q.astype(bf16), preferred_element_type=f32); an mma on s8
+// operands would quantize x (W8A8), which this is not.
+// - A stage keeps its 16 KB of weights: 64 k rows (RG8_ROWS) as two boxes
+//   of [64][128] int8 (128-byte rows, 128-byte swizzle), and x as two boxes
+//   of [rows][32] (one 64-byte swizzle span each), so the bytes in flight
+//   per SM are the bf16 instance's and three blocks still share an SM.
+// - ldmatrix has no 8-bit transpose on sm_90, so the A fragments are built
+//   from lane loads: each lane owns four adjacent columns (its rows g and
+//   g + 8 of both of its warp's fragments) and reads them as one 32-bit
+//   word of each of its four k rows (2t, 2t+1, 2t+8, 2t+9 of a 16-row
+//   step; conflict-free under the swizzle); byte permutes and a
+//   subtraction make exact floats of the codes (unpack8_s8), and a byte
+//   permute takes their high halves as bf16 pairs, exact for |code| <= 128.
+//   The mma, the float32 step sums and the cluster's fixed-order sum are
+//   the bf16 instance's.
+// - Scales where the TPU kernels apply them: kg == 0 scales each sum by
+//   sc[mat*N + n] after the cluster sum (QKV per head group, down, the LM
+//   head; PAIR: gate by sc[n] and up by sc[N + n] before the SwiGLU);
+//   kg > 0 (the O projection, G matrices of kg rows summed as one) scales
+//   each block's partial by sc[(k0 / kg)*N + n] before the cluster sum,
+//   and the launcher picks K chunks that never straddle a group.
 constexpr int RG_COLS = 256;                       // columns per tile
 constexpr int RG_BOX = 64;                         // weight columns per box (128 bytes)
 constexpr int RG_ROWS = 32;                        // k rows per stage
@@ -770,16 +811,28 @@ static_assert(RG_ROWS == 32, "an x box row is one 64-byte swizzle span");
 static_assert(RG_COLS == 16 * 2 * RG_WARPS, "two 16-column fragments a warp");
 static_assert(RG_STAGES * RG_STAGE_BYTES >= 4 * RG_PITCH * RG_MAX_ROWS,
               "the ring must hold the block's sums after the last stage");
+constexpr int RG8_ROWS = 2 * RG_ROWS;              // int8: k rows per stage
+constexpr int RG8_BOX = 128;                       // int8 weight columns per box (128 bytes)
+constexpr int RG8_BOX_BYTES = RG8_ROWS * RG8_BOX;
+constexpr int RG8_XOFF = RG_COLS / RG8_BOX * RG8_BOX_BYTES;  // x's two boxes in a stage
+constexpr int RG8_XBOX = RG_MAX_ROWS * RG_ROWS * 2;          // one x box (32 k)
+constexpr int RG8_STAGE_BYTES = RG8_XOFF + 2 * RG8_XBOX;
+constexpr int RG8_SMEM = 1024 + RG_HEAD + RG_STAGES * RG8_STAGE_BYTES;
+static_assert(RG8_BOX_BYTES * RG_COLS / RG8_BOX == RG_COLS / RG_BOX * RG_BOX_BYTES,
+              "an int8 stage streams the bf16 stage's weight bytes");
+static_assert(RG8_XBOX % 512 == 0 && RG8_XOFF % 1024 == 0 && RG8_STAGE_BYTES % 1024 == 0,
+              "the swizzled boxes keep their alignment");
 
-template <bool PAIR>
-__global__ void __launch_bounds__(RG_BLOCK, 3)
-rows_gemv_kernel(const __grid_constant__ CUtensorMap wmap,
-                 const __grid_constant__ CUtensorMap xmap, float* __restrict__ y,
-                 __nv_bfloat16* __restrict__ yb, int M, int K, int N, int k_chunk, int nrc,
-                 int xrows, long long y_row, long long yz,
-                 unsigned long long* __restrict__ stamps) {
+// The body of both rows GEMV kernels: bf16 weights (W8 false; mat0, sc and
+// kg unused) or int8 codes, matrices mat0.. of wmap, with their scales (W8).
+template <bool PAIR, bool W8>
+__device__ __forceinline__ void rows_gemv_body(
+    const CUtensorMap* wmap, const CUtensorMap* xmap, float* __restrict__ y,
+    __nv_bfloat16* __restrict__ yb, int M, int K, int N, int k_chunk, int nrc, int xrows,
+    long long y_row, long long yz, unsigned long long* __restrict__ stamps, int mat0,
+    const float* __restrict__ sc, int kg) {
   namespace cg = cooperative_groups;
-  constexpr int NS = RG_STAGES, SB = RG_STAGE_BYTES;
+  constexpr int NS = RG_STAGES, SB = W8 ? RG8_STAGE_BYTES : RG_STAGE_BYTES;
   constexpr int HALF = PAIR ? RG_COLS / 2 : RG_COLS;        // columns per slab
   extern __shared__ unsigned char rg_raw[];
   unsigned char* sm = rg_raw + ((1024u - (hopper::smem_u32(rg_raw) & 1023u)) & 1023u);
@@ -792,9 +845,10 @@ rows_gemv_kernel(const __grid_constant__ CUtensorMap wmap,
   const int nr = min(RG_MAX_ROWS, M - r0);
   const int n0 = blockIdx.y * HALF;
   const int cols = min(HALF, N - n0);                       // per slab
-  const int nb = (cols + RG_BOX - 1) / RG_BOX;              // boxes per slab
+  constexpr int BOX = W8 ? RG8_BOX : RG_BOX, ROWS = W8 ? RG8_ROWS : RG_ROWS;
+  const int nb = (cols + BOX - 1) / BOX;                    // boxes per slab
   const int k0 = rank * k_chunk, kn = min(k_chunk, K - k0);
-  const int nst = (kn + RG_ROWS - 1) / RG_ROWS;
+  const int nst = (kn + ROWS - 1) / ROWS;
   unsigned long long* my_stamps =
       stamps != nullptr && tid == 32
           ? stamps + ((size_t)blockIdx.x + gridDim.x * ((size_t)blockIdx.y + gridDim.y * blockIdx.z)) * RG_STAMPS
@@ -813,23 +867,41 @@ rows_gemv_kernel(const __grid_constant__ CUtensorMap wmap,
   }
   __syncthreads();
   // producer (lane 0): stage st's weight boxes (PAIR: gate's, then up's
-  // at column HALF of the tile), then its x box
+  // at column HALF of the tile), then its x box (int8: two x boxes)
   auto issue_w = [&](int st) {
     unsigned char* stage = ring + (st % NS) * SB;
     uint64_t* bar = &full[st % NS];
-    hopper::mbar_arrive_expect_tx(bar, (uint32_t)((PAIR ? 2 : 1) * nb * RG_BOX_BYTES));
-    for (int j = 0; j < nb; ++j) {
-      hopper::tma_load_3d(stage + j * RG_BOX_BYTES, &wmap, bar, n0 + j * RG_BOX,
-                          k0 + st * RG_ROWS, mat);
-      if (PAIR)
-        hopper::tma_load_3d(stage + (HALF / RG_BOX + j) * RG_BOX_BYTES, &wmap, bar,
-                            n0 + j * RG_BOX, k0 + st * RG_ROWS, 1);
+    if constexpr (W8) {
+      hopper::mbar_arrive_expect_tx(bar, (uint32_t)((PAIR ? 2 : 1) * nb * RG8_BOX_BYTES));
+      for (int j = 0; j < nb; ++j) {
+        hopper::tma_load_3d(stage + j * RG8_BOX_BYTES, wmap, bar, n0 + j * RG8_BOX,
+                            k0 + st * RG8_ROWS, mat0 + mat);
+        if (PAIR)
+          hopper::tma_load_3d(stage + (HALF / RG8_BOX + j) * RG8_BOX_BYTES, wmap, bar,
+                              n0 + j * RG8_BOX, k0 + st * RG8_ROWS, mat0 + 1);
+      }
+    } else {
+      hopper::mbar_arrive_expect_tx(bar, (uint32_t)((PAIR ? 2 : 1) * nb * RG_BOX_BYTES));
+      for (int j = 0; j < nb; ++j) {
+        hopper::tma_load_3d(stage + j * RG_BOX_BYTES, wmap, bar, n0 + j * RG_BOX,
+                            k0 + st * RG_ROWS, mat);
+        if (PAIR)
+          hopper::tma_load_3d(stage + (HALF / RG_BOX + j) * RG_BOX_BYTES, wmap, bar,
+                              n0 + j * RG_BOX, k0 + st * RG_ROWS, 1);
+      }
     }
   };
   auto issue_x = [&](int st) {
     uint64_t* bar = &full[st % NS];
-    hopper::mbar_arrive_expect_tx(bar, (uint32_t)(xrows * RG_ROWS * 2));
-    hopper::tma_load_3d(ring + (st % NS) * SB + RG_XOFF, &xmap, bar, k0 + st * RG_ROWS, r0, 0);
+    if constexpr (W8) {
+      unsigned char* xs = ring + (st % NS) * SB + RG8_XOFF;
+      hopper::mbar_arrive_expect_tx(bar, (uint32_t)(2 * xrows * RG_ROWS * 2));
+      hopper::tma_load_3d(xs, xmap, bar, k0 + st * RG8_ROWS, r0, 0);
+      hopper::tma_load_3d(xs + RG8_XBOX, xmap, bar, k0 + st * RG8_ROWS + RG_ROWS, r0, 0);
+    } else {
+      hopper::mbar_arrive_expect_tx(bar, (uint32_t)(xrows * RG_ROWS * 2));
+      hopper::tma_load_3d(ring + (st % NS) * SB + RG_XOFF, xmap, bar, k0 + st * RG_ROWS, r0, 0);
+    }
   };
   if (tid == 0)
     for (int st = 0; st < min(NS, nst); ++st) issue_w(st);
@@ -866,6 +938,74 @@ rows_gemv_kernel(const __grid_constant__ CUtensorMap wmap,
     // chunk c ^ ((r >> 1) & 3).
     const int j = lane / 8, row = (j >> 1) * 8 + lane % 8;
     const int f = wid - 1;                                   // fragments f and f + 8
+    const int x_sw = (row >> 1) & 3;
+    int s = 0;
+    uint32_t phase = 0;
+    if constexpr (W8) {
+      // int8: this lane's four tile columns 32f + 4g .. +3 are rows g and
+      // g + 8 of fragment 0, then of fragment 1 (box f / 4, 16-byte chunk
+      // 2(f % 4) + g / 4 at chunk ^ (k & 7) of box row k); its k rows in a
+      // 16-row step are 2t + d and 2t + 8 + d (d = 0, 1)
+      const int g = lane / 4, t = lane % 4, chunk = 2 * (f % 4) + g / 4;
+      int w_off[2];
+#pragma unroll
+      for (int d = 0; d < 2; ++d)
+        w_off[d] = (f / 4) * RG8_BOX_BYTES + (2 * t + d) * 128 +
+                   ((chunk ^ (2 * t + d)) << 4) + 4 * (g % 4);
+      const int x_off = RG8_XOFF + row * 64;
+      for (int st = 0; st < nst; ++st) {
+        hopper::mbar_wait(&full[s], phase);
+        if (st == 0) stamp(2);
+        if (st == nst / 2) stamp(3);
+        const unsigned char* stage = ring + s * SB;
+#pragma unroll
+        for (int kb = 0; kb < RG8_ROWS; kb += 16) {
+          uint32_t b[4], lo[4], hi[4];
+          const unsigned char* xa = stage + x_off + (kb / RG_ROWS) * RG8_XBOX +
+                                    ((((kb % RG_ROWS) / 8 + (j & 1)) ^ x_sw) << 4);
+          if (two) {
+            hopper::ldmatrix_x4(b, xa);
+          } else {
+            uint32_t b2[2];
+            hopper::ldmatrix_x2(b2, xa);
+            b[0] = b2[0];
+            b[1] = b2[1];
+            b[2] = b[3] = 0u;
+          }
+          const unsigned char* wk = stage + kb * 128;
+          s8_bf16_pairs(*reinterpret_cast<const uint32_t*>(wk + w_off[0]),
+                        *reinterpret_cast<const uint32_t*>(wk + w_off[1]), lo);
+          s8_bf16_pairs(*reinterpret_cast<const uint32_t*>(wk + w_off[0] + 8 * 128),
+                        *reinterpret_cast<const uint32_t*>(wk + w_off[1] + 8 * 128), hi);
+          const uint32_t a0[4] = {lo[0], lo[1], hi[0], hi[1]};
+          const uint32_t a1[4] = {lo[2], lo[3], hi[2], hi[3]};
+          float p[2][2][4];
+#pragma unroll
+          for (int rh = 0; rh < 2; ++rh)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) p[0][rh][c] = p[1][rh][c] = 0.f;
+          hopper::mma_m16n8k16_bf16(p[0][0], a0, b[0], b[1]);
+          hopper::mma_m16n8k16_bf16(p[1][0], a1, b[0], b[1]);
+          if (two) {
+            hopper::mma_m16n8k16_bf16(p[0][1], a0, b[2], b[3]);
+            hopper::mma_m16n8k16_bf16(p[1][1], a1, b[2], b[3]);
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int rh = 0; rh < 2; ++rh)
+#pragma unroll
+              for (int c = 0; c < 4; ++c) acc[h][rh][c] += p[h][rh][c];
+        }
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&empty[s]);
+        if (++s == NS) {
+          s = 0;
+          phase ^= 1u;
+        }
+      }
+      stamp(4);
+    } else {
     int a_off[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -873,9 +1013,6 @@ rows_gemv_kernel(const __grid_constant__ CUtensorMap wmap,
       a_off[h] = (fh / 4) * RG_BOX_BYTES + row * 128 + ((chunk ^ (lane & 7)) << 4);
     }
     const int x_off = RG_XOFF + row * 64;
-    const int x_sw = (row >> 1) & 3;
-    int s = 0;
-    uint32_t phase = 0;
     for (int st = 0; st < nst; ++st) {
       hopper::mbar_wait(&full[s], phase);
       if (st == 0) stamp(2);
@@ -922,11 +1059,35 @@ rows_gemv_kernel(const __grid_constant__ CUtensorMap wmap,
       }
     }
     stamp(4);
+    }
   }
   __syncthreads();   // every stage issued has landed and been read: the ring is free
   float* part = reinterpret_cast<float*>(ring);             // [RG_MAX_ROWS][RG_PITCH]
   if (wid > 0) {
     const int g = lane / 4, t = lane % 4;
+    if constexpr (W8) {
+      // tile columns 32(wid - 1) + 4g + 2h (rows g) and + 1 (rows g + 8);
+      // kg > 0: each partial scaled by its column's scale in the block's
+      // group first (PAIR has kg 0)
+      const int col = 32 * (wid - 1) + 4 * g;
+      float scl[4] = {1.f, 1.f, 1.f, 1.f};
+      if (kg > 0) {
+        const float* sg = sc + (size_t)(k0 / kg) * N + n0 + col;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) scl[q] = col + q < cols ? sg[q] : 0.f;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int rh = 0; rh < 2; ++rh) {
+          if (rh == 1 && !two) break;
+          float* p = part + (8 * rh + 2 * t) * RG_PITCH + col + 2 * h;
+          p[0] = acc[h][rh][0] * scl[2 * h];
+          p[RG_PITCH] = acc[h][rh][1] * scl[2 * h];
+          p[1] = acc[h][rh][2] * scl[2 * h + 1];
+          p[RG_PITCH + 1] = acc[h][rh][3] * scl[2 * h + 1];
+        }
+    } else {
 #pragma unroll
     for (int h = 0; h < 2; ++h)
 #pragma unroll
@@ -938,6 +1099,7 @@ rows_gemv_kernel(const __grid_constant__ CUtensorMap wmap,
         p[8] = acc[h][rh][2];
         p[RG_PITCH + 8] = acc[h][rh][3];
       }
+    }
   }
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
@@ -967,10 +1129,24 @@ rows_gemv_kernel(const __grid_constant__ CUtensorMap wmap,
         }
       return sum;
     };
-    const float4 sv = rank_sum(0);
+    // int8 with kg == 0: each column's scale after the cluster sum (PAIR:
+    // gate's at sc[n], up's at sc[N + n], before the SwiGLU)
+    auto scaled = [&](float4 v, int m) {
+      if constexpr (W8) {
+        if (kg == 0) {
+          const float* s4 = sc + (size_t)m * N + n0 + c;
+          v.x *= s4[0];
+          v.y *= s4[1];
+          v.z *= s4[2];
+          v.w *= s4[3];
+        }
+      }
+      return v;
+    };
+    const float4 sv = scaled(rank_sum(0), mat);
     const size_t at = (size_t)(r0 + b) * y_row + (size_t)mat * yz + n0 + c;
     if constexpr (PAIR) {
-      const float4 su = rank_sum(HALF);
+      const float4 su = scaled(rank_sum(HALF), 1);
       const float g4[4] = {sv.x, sv.y, sv.z, sv.w}, u4[4] = {su.x, su.y, su.z, su.w};
 #pragma unroll
       for (int q = 0; q < 4; ++q)
@@ -992,6 +1168,32 @@ rows_gemv_kernel(const __grid_constant__ CUtensorMap wmap,
   stamp(7);
 }
 
+template <bool PAIR>
+__global__ void __launch_bounds__(RG_BLOCK, 3)
+rows_gemv_kernel(const __grid_constant__ CUtensorMap wmap,
+                 const __grid_constant__ CUtensorMap xmap, float* __restrict__ y,
+                 __nv_bfloat16* __restrict__ yb, int M, int K, int N, int k_chunk, int nrc,
+                 int xrows, long long y_row, long long yz,
+                 unsigned long long* __restrict__ stamps) {
+  rows_gemv_body<PAIR, false>(&wmap, &xmap, y, yb, M, K, N, k_chunk, nrc, xrows, y_row, yz,
+                              stamps, 0, nullptr, 0);
+}
+
+// The int8 instance: the codes through wmap (int8 [nmats][K][N], boxes of
+// RG8_ROWS x RG8_BOX, 128-byte swizzle; matrices mat0 + blockIdx.z / nrc,
+// PAIR: gate mat0 and up mat0 + 1), sc float32 scales, kg as above.
+template <bool PAIR>
+__global__ void __launch_bounds__(RG_BLOCK, 3)
+rows_gemv8_kernel(const __grid_constant__ CUtensorMap wmap,
+                  const __grid_constant__ CUtensorMap xmap, float* __restrict__ y,
+                  __nv_bfloat16* __restrict__ yb, int M, int K, int N, int k_chunk, int nrc,
+                  int xrows, long long y_row, long long yz,
+                  unsigned long long* __restrict__ stamps, int mat0,
+                  const float* __restrict__ sc, int kg) {
+  rows_gemv_body<PAIR, true>(&wmap, &xmap, y, yb, M, K, N, k_chunk, nrc, xrows, y_row, yz,
+                             stamps, mat0, sc, kg);
+}
+
 // A measurement hook (chip_smoke.py phase 9): while rg_probe.at >= 0, the
 // rows-GEMV launch numbered `at` (counted from when it was set, in this
 // translation unit) records its phase stamps into rg_probe.stamps.
@@ -1001,28 +1203,64 @@ struct RgProbe {
 };
 RgProbe rg_probe = {nullptr, -1, 0};
 
-// Launch rows_gemv_kernel<PAIR> over M >= 2 rows (in chunks of
-// RG_MAX_ROWS) of bf16 x (rows x_row apart, x_row a multiple of 8, x
-// 16-byte aligned) and nmat [K, N] matrices ws elements apart (ws a
-// multiple of 8; PAIR: nmat 2, gate then up, and yb takes the product).
-// `pdl` adds programmatic dependent launch.  The tensor maps are encoded
-// here, per call.  ks: as in launch_gemv1 (at most 16 where the card
-// allows non-portable clusters, else 8, at least two stages a block), with
-// k_chunk a multiple of RG_ROWS.  Returns a cudaError_t.
-template <bool PAIR>
-int launch_rows_gemv(const __nv_bfloat16* x, long long x_row, const __nv_bfloat16* w,
-                     float* y, int M, int K, int N, int nmat, long long ws, long long y_row,
-                     long long yz, bool pdl, cudaStream_t st, __nv_bfloat16* yb = nullptr) {
-  if (M < 2 || K < 1 || N < 8 || N % 8 != 0 || nmat < 1 || (nmat > 1 && ws % 8 != 0) ||
-      x_row % 8 != 0 || (uintptr_t)x % 16 != 0 || (PAIR && (nmat != 2 || yb == nullptr)))
-    return (int)cudaErrorInvalidValue;
+// The tensor map rows_gemv8_kernel reads: nmats int8 [K, N] matrices
+// (row-major, K*N bytes apart) from w, in boxes of RG8_ROWS rows of RG8_BOX
+// columns with the 128-byte swizzle.  N must be a multiple of 16 and w
+// 16-byte aligned.
+inline bool make_int8_rows_map(CUtensorMap* map, const void* w, int K, int N,
+                               long long nmats) {
+  return hopper::make_tensor_map_3d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N, K, nmats,
+                                    (uint64_t)N, (uint64_t)K * N, RG8_BOX, RG8_ROWS, 1,
+                                    CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// An int8 weight map and the row count it was encoded for: the one-row
+// GEMV's boxes at one row, the rows GEMV's from 2.  for_rows(M) is the map
+// for a launch over M rows, or nullptr (which every int8 launcher refuses)
+// when the map was encoded for the other layout.
+struct Int8Map {
+  CUtensorMap map;
+  bool one_row;
+  const CUtensorMap* for_rows(int M) const { return (M == 1) == one_row ? &map : nullptr; }
+};
+
+// The map launch_ring_gemv8 reads for M rows of x.
+inline bool make_int8_map(Int8Map* m, const void* w, int K, int N, long long nmats, int M) {
+  m->one_row = M == 1;
+  return m->one_row ? make_int8_weight_map(&m->map, w, K, N, nmats)
+                    : make_int8_rows_map(&m->map, w, K, N, nmats);
+}
+
+// Launch rows_gemv_kernel<PAIR> (W8: rows_gemv8_kernel<PAIR>) over M >= 2
+// rows (in chunks of RG_MAX_ROWS) of bf16 x (rows x_row apart, x_row a
+// multiple of 8, x 16-byte aligned) and the matrices mat0 .. mat0 + nmat -
+// 1 of wmap (PAIR: nmat 2, gate then up, and yb takes the product); W8:
+// the scales sc and the scale group kg (kg > 0: nmat 1, not PAIR, K a
+// multiple of kg).  `pdl` adds programmatic dependent launch.  x's tensor
+// map is encoded here, per call.  ks (the cluster size): the most K chunks
+// (multiples of a stage's rows, at least two stages a block, at most 16
+// where the card allows non-portable clusters, else 8; with kg > 0 only
+// chunks that divide kg) for which every cluster of the grid is resident
+// in one wave (cudaOccupancyMaxActiveClusters), else one chunk (with kg >
+// 0 where that straddles a group, the most chunks allowed).  Returns a
+// cudaError_t.
+template <bool PAIR, bool W8>
+int launch_rows(const __nv_bfloat16* x, long long x_row, const CUtensorMap* wmap, int mat0,
+                const float* sc, int kg, float* y, int M, int K, int N, int nmat,
+                long long y_row, long long yz, bool pdl, cudaStream_t st,
+                __nv_bfloat16* yb) {
+  constexpr int ROWS = W8 ? RG8_ROWS : RG_ROWS;
+  constexpr int SMEM = W8 ? RG8_SMEM : RG_SMEM;
   static bool attrs_set = false;
   static int max_cluster = 8;
   static int occ[G1_MAX_CLUSTER + 1];          // active clusters by size (0: not asked)
-  auto kern = rows_gemv_kernel<PAIR>;
+  auto kern = [] {
+    if constexpr (W8) return rows_gemv8_kernel<PAIR>;
+    else return rows_gemv_kernel<PAIR>;
+  }();
   if (!attrs_set) {
     CF_CHECK((int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       RG_SMEM));
+                                       SMEM));
     if (cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1) ==
         cudaSuccess)
       max_cluster = G1_MAX_CLUSTER;
@@ -1041,7 +1279,7 @@ int launch_rows_gemv(const __nv_bfloat16* x, long long x_row, const __nv_bfloat1
   attr[1].val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.blockDim = dim3(RG_BLOCK, 1, 1);
-  cfg.dynamicSmemBytes = RG_SMEM;
+  cfg.dynamicSmemBytes = SMEM;
   cfg.stream = st;
   cfg.attrs = attr;
   auto set_cluster = [&](int ks) {
@@ -1050,29 +1288,33 @@ int launch_rows_gemv(const __nv_bfloat16* x, long long x_row, const __nv_bfloat1
     attr[0].val.clusterDim.z = 1;
     cfg.gridDim = dim3(ks, tiles, z);
   };
-  auto chunk_of = [&](int c) { return ((K + c - 1) / c + RG_ROWS - 1) / RG_ROWS * RG_ROWS; };
-  int ks = std::min(max_cluster, std::max(1, K / (2 * RG_ROWS)));
-  for (; ks > 1; --ks) {
-    const int kc = chunk_of(ks);
-    if ((K + kc - 1) / kc != ks) continue;                // every rank has rows
-    if (occ[ks] == 0) {                                   // active clusters (cached)
-      set_cluster(ks);
+  auto chunk_of = [&](int c) { return ((K + c - 1) / c + ROWS - 1) / ROWS * ROWS; };
+  int ks = 0, most = 0;
+  for (int c = std::min(max_cluster, std::max(1, K / (2 * ROWS))); c > 1; --c) {
+    const int kc = chunk_of(c);
+    if ((K + kc - 1) / kc != c) continue;                 // every rank has rows
+    if (kg > 0 && kg % kc != 0) continue;                 // a chunk inside one scale group
+    if (most == 0) most = c;
+    if (occ[c] == 0) {                                    // active clusters (cached)
+      set_cluster(c);
       cfg.numAttrs = 1;
       int n = 0;
       if (cudaOccupancyMaxActiveClusters(&n, kern, &cfg) != cudaSuccess) {
         (void)cudaGetLastError();
         n = 0;
       }
-      occ[ks] = std::max(n, 0) + 1;
+      occ[c] = std::max(n, 0) + 1;
     }
-    if (occ[ks] - 1 >= tiles * z) break;
+    if (occ[c] - 1 >= tiles * z) {
+      ks = c;
+      break;
+    }
   }
+  if (ks == 0) ks = kg > 0 && kg % chunk_of(1) != 0 ? most : 1;
+  if (ks == 0) return (int)cudaErrorInvalidValue;
   const int k_chunk = chunk_of(ks);
-  CUtensorMap wmap, xmap;
-  if (!hopper::make_tensor_map_bf16_3d(&wmap, w, N, K, nmat, (uint64_t)N * 2,
-                                       (uint64_t)(nmat > 1 ? ws : (long long)K * N) * 2,
-                                       RG_BOX, RG_ROWS, 1, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !hopper::make_tensor_map_bf16_3d(&xmap, x, K, M, 1, (uint64_t)x_row * 2,
+  CUtensorMap xmap;
+  if (!hopper::make_tensor_map_bf16_3d(&xmap, x, K, M, 1, (uint64_t)x_row * 2,
                                        (uint64_t)x_row * 2 * M, RG_ROWS, xrows, 1,
                                        CU_TENSOR_MAP_SWIZZLE_64B))
     return (int)cudaErrorInvalidValue;
@@ -1080,8 +1322,48 @@ int launch_rows_gemv(const __nv_bfloat16* x, long long x_row, const __nv_bfloat1
   if (rg_probe.at >= 0 && rg_probe.count++ == rg_probe.at) stamps = rg_probe.stamps;
   set_cluster(ks);
   cfg.numAttrs = pdl ? 2 : 1;
-  return (int)cudaLaunchKernelEx(&cfg, kern, wmap, xmap, y, yb, M, K, N, k_chunk, nrc, xrows,
-                                 y_row, yz, stamps);
+  if constexpr (W8)
+    return (int)cudaLaunchKernelEx(&cfg, kern, *wmap, xmap, y, yb, M, K, N, k_chunk, nrc,
+                                   xrows, y_row, yz, stamps, mat0, sc, kg);
+  else
+    return (int)cudaLaunchKernelEx(&cfg, kern, *wmap, xmap, y, yb, M, K, N, k_chunk, nrc,
+                                   xrows, y_row, yz, stamps);
+}
+
+// The bf16 rows GEMV over nmat [K, N] matrices ws elements apart from w
+// (ws a multiple of 8), their tensor map encoded here; the rest as
+// launch_rows.
+template <bool PAIR>
+int launch_rows_gemv(const __nv_bfloat16* x, long long x_row, const __nv_bfloat16* w,
+                     float* y, int M, int K, int N, int nmat, long long ws, long long y_row,
+                     long long yz, bool pdl, cudaStream_t st, __nv_bfloat16* yb = nullptr) {
+  if (M < 2 || K < 1 || N < 8 || N % 8 != 0 || nmat < 1 || (nmat > 1 && ws % 8 != 0) ||
+      x_row % 8 != 0 || (uintptr_t)x % 16 != 0 || (PAIR && (nmat != 2 || yb == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap wmap;
+  if (!hopper::make_tensor_map_bf16_3d(&wmap, w, N, K, nmat, (uint64_t)N * 2,
+                                       (uint64_t)(nmat > 1 ? ws : (long long)K * N) * 2,
+                                       RG_BOX, RG_ROWS, 1, CU_TENSOR_MAP_SWIZZLE_128B))
+    return (int)cudaErrorInvalidValue;
+  return launch_rows<PAIR, false>(x, x_row, &wmap, 0, nullptr, 0, y, M, K, N, nmat, y_row, yz,
+                                  pdl, st, yb);
+}
+
+// The int8 rows GEMV over the matrices mat0.. of wmap (make_int8_map with
+// M >= 2; N a multiple of 16) with the scales sc and the scale group kg, as
+// launch_rows.
+template <bool PAIR>
+int launch_rows_gemv8(const __nv_bfloat16* x, long long x_row, const Int8Map* wmap,
+                      int mat0, const float* sc, int kg, float* y, int M, int K, int N,
+                      int nmat, long long y_row, long long yz, bool pdl, cudaStream_t st,
+                      __nv_bfloat16* yb = nullptr) {
+  if (M < 2 || K < 1 || N < 16 || N % 16 != 0 || nmat < 1 || x_row % 8 != 0 ||
+      (uintptr_t)x % 16 != 0 || !wmap || !wmap->for_rows(M) || !sc || kg < 0 ||
+      (kg > 0 && (PAIR || nmat != 1 || K % kg != 0)) ||
+      (PAIR && (nmat != 2 || yb == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  return launch_rows<PAIR, true>(x, x_row, wmap->for_rows(M), mat0, sc, kg, y, M, K, N, nmat,
+                                 y_row, yz, pdl, st, yb);
 }
 
 // Any M of bf16 x: one row on float32 FMAs (x_row and y_row unused), more
@@ -1092,6 +1374,22 @@ inline int launch_ring_gemv(const __nv_bfloat16* x, long long x_row, const __nv_
                             cudaStream_t st, __nv_bfloat16* yb = nullptr) {
   if (M == 1) return launch_gemv1<false>(x, 0, w, y, K, N, nmat, ws, yz, threads, pdl, st, yb);
   return launch_rows_gemv<false>(x, x_row, w, y, M, K, N, nmat, ws, y_row, yz, pdl, st, yb);
+}
+
+// Any M of bf16 x against int8 matrices mat0.. of wmap (make_int8_map(...,
+// M); a map encoded for another M is refused), scaled by sc with the scale
+// group kg: one row on the one-row GEMV's int8 instance (x_row and y_row
+// unused), more on the rows GEMV's.
+inline int launch_ring_gemv8(const __nv_bfloat16* x, long long x_row, const Int8Map* wmap,
+                             int mat0, const float* sc, int kg, float* y, int M, int K, int N,
+                             int nmat, long long y_row, long long yz, int threads, bool pdl,
+                             cudaStream_t st, __nv_bfloat16* yb = nullptr) {
+  if (M == 1)
+    return launch_gemv1<false, G1_Y, true>(x, 0, nullptr, y, K, N, nmat, 0, yz, threads, pdl,
+                                           st, yb, nullptr, 0.f, nullptr,
+                                           wmap ? wmap->for_rows(1) : nullptr, mat0, sc, kg);
+  return launch_rows_gemv8<false>(x, x_row, wmap, mat0, sc, kg, y, M, K, N, nmat, y_row, yz,
+                                  pdl, st, yb);
 }
 
 // ---- Split-KV flash-decode of one bs=1 layer (the stack's and kernel 6's) ----

@@ -46,3 +46,65 @@ extern "C" int cf_gemv_rows(const void* x, long long x_row, int pair, const void
                                        false, st, ybf)
               : launch_rows_gemv<false>(xb, x_row, wb, yf, M, K, N, 1, 0, N, 0, false, st, ybf);
 }
+
+// Int8 weights: y [M, nmat*N] = x @ bf16(w[mat]) * sc[mat] (per column,
+// after the sum), or with kg > 0 (nmat 1) each K chunk's partial scaled by
+// sc[k / kg] before the chunks meet (the O projection's per-group scale);
+// bf16 into yb instead of float32 y when yb is given.  w int8 [nmat, K,
+// N], sc float32 [nmat or K / kg, N], N a multiple of 16.  pair 1 (M >= 2,
+// nmat 2, kg 0): yb [M, N] receives bf16(silu(x @ w0 * sc[0]) * (x @ w1 *
+// sc[1])).  M = 1 runs the one-row GEMV's int8 instance, M >= 2 the rows
+// GEMV's; the tensor map is encoded here.  The int8 serving step's M=B
+// products, the card tests and scripts call it.  Returns a cudaError_t.
+extern "C" int cf_gemv_rows8(const void* x, long long x_row, int pair, const void* w,
+                             const void* sc, int kg, void* y, void* yb, int M, int K, int N,
+                             int nmat, void* stream) {
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  const float* s = static_cast<const float*>(sc);
+  float* yf = static_cast<float*>(y);
+  __nv_bfloat16* ybf = static_cast<__nv_bfloat16*>(yb);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (M < 1 || (pair && (M < 2 || nmat != 2 || kg != 0)))
+    return (int)cudaErrorInvalidValue;
+  Int8Map map;
+  if (!make_int8_map(&map, w, K, N, nmat, M)) return (int)cudaErrorInvalidValue;
+  if (pair)
+    return launch_rows_gemv8<true>(xb, x_row, &map, 0, s, 0, nullptr, M, K, N, 2, N, 0, false,
+                                   st, ybf);
+  return launch_ring_gemv8(xb, x_row, &map, 0, s, kg, yf, M, K, N, nmat, (long long)nmat * N,
+                           N, 256, false, st, ybf);
+}
+
+// The int8 SwiGLU FFN of M rows (two launches): out [M, hidden] bf16 =
+// bf16((bf16(silu(gate) * up) @ bf16(w2)) * s2), gate and up = x @
+// bf16(w13[i]) * s13[i] in float32.  w13 int8 [2, hidden, f], s13 float32
+// [2, f], w2 int8 [f, hidden], s2 float32 [hidden]; act: scratch of 2*M*f
+// floats (M = 1: the float32 gate/up, whose SwiGLU the down product's x
+// stages; M >= 2: the bf16 product of the rows GEMV's pair form).  Returns
+// a cudaError_t.
+extern "C" int cf_ffn8(const void* x, const void* w13, const void* s13, const void* w2,
+                       const void* s2, void* act, void* out, int M, int hidden, int f,
+                       void* stream) {
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (M < 1) return (int)cudaErrorInvalidValue;
+  Int8Map m13, m2;
+  if (!make_int8_map(&m13, w13, hidden, f, 2, M) || !make_int8_map(&m2, w2, f, hidden, 1, M))
+    return (int)cudaErrorInvalidValue;
+  if (M == 1) {
+    float* gu = static_cast<float*>(act);
+    CF_CHECK((launch_gemv1<false, G1_Y, true>(xb, 0, nullptr, gu, hidden, f, 2, 0, f, 256,
+                                              false, st, nullptr, nullptr, 0.f, nullptr,
+                                              m13.for_rows(1), 0,
+                                              static_cast<const float*>(s13), 0)));
+    return launch_gemv1<true, G1_Y, true>(gu, f, nullptr, nullptr, f, hidden, 1, 0, 0, 256,
+                                          true, st, ob, nullptr, 0.f, nullptr, m2.for_rows(1), 0,
+                                          static_cast<const float*>(s2), 0);
+  }
+  __nv_bfloat16* a = static_cast<__nv_bfloat16*>(act);
+  CF_CHECK(launch_rows_gemv8<true>(xb, hidden, &m13, 0, static_cast<const float*>(s13), 0,
+                                   nullptr, M, hidden, f, 2, f, 0, false, st, a));
+  return launch_rows_gemv8<false>(a, f, &m2, 0, static_cast<const float*>(s2), 0, nullptr, M,
+                                  f, hidden, 1, hidden, 0, true, st, ob);
+}

@@ -32,6 +32,14 @@
 //              bf16 k/v (paged_attention.cuh)
 //   ring gemv  out[b] = bf16(o[b] @ wo_f[l])  (summed over head groups)
 // Every sum has a fixed order, so a call's bits repeat.
+//
+// Int8 weights (the TPU kernel's wq_kind == "int8"): the two products
+// stream int8 codes through the GEMVs' int8 instances (rows_gemv8_kernel
+// from 2 rows, ring_gemv8_kernel at one; common.cuh), with float32 scales:
+// QKV per head group and column after the sum over hidden; the O
+// projection per group on each group's partial, before the groups are
+// summed and before out's bf16 rounding (the TPU kernel scales each group's
+// M=B dot, adds it to its float32 accumulator and rounds at the end).
 
 #include "paged_attention.cuh"
 
@@ -55,7 +63,10 @@ extern "C" long long cf_paged_layer_scratch_floats(int B, int kv, int group, int
 // [B, kv*g*hd], and `scratch` of cf_paged_layer_scratch_floats(...) floats.
 // Writes out and res_out (bf16 [B, hidden]) and appends each request's K/V
 // row into the pools.  *n_launches receives the number of kernels
-// launched.  Returns a cudaError_t (0 on success).
+// launched.  Int8 weights: wqkv_s given, wqkv and wo hold int8 codes and
+// wqkv_s [.., G, C] and wo_s [.., G, hidden] their float32 scales (the
+// layer's at w_layer), wo's applied per group before the groups' sum.
+// Returns a cudaError_t (0 on success).
 extern "C" int cf_paged_decoder_layer(
     const void* x, const void* res, const void* wqkv, const void* wo,
     const void* rms_w, const void* cos, const void* sin, const void* positions,
@@ -63,7 +74,7 @@ extern "C" int cf_paged_decoder_layer(
     void* res_out, void* xn, void* o, void* scratch, int B, int hidden,
     int kv, int hg, int group, int hd, int page, int n_pages, int max_pages,
     int max_pos, int layer, int w_layer, int neox, float eps, int split,
-    int* n_launches, void* stream) {
+    int* n_launches, void* stream, const void* wqkv_s, const void* wo_s) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   *n_launches = 0;
   if (B < 1 || hg < 1 || kv % hg != 0 || hidden % 8 != 0 || w_layer < 0 || split < 1)
@@ -72,12 +83,22 @@ extern "C" int cf_paged_decoder_layer(
   const long long C = (long long)hg * (group + 2) * hd;   // qkv columns per group
   const long long Ko = (long long)kv * group * hd;        // wo rows in all
   const int qkv_n = (int)(G * C);
-  const __nv_bfloat16* wq = static_cast<const __nv_bfloat16*>(wqkv) + (size_t)w_layer * G * hidden * C;
-  const __nv_bfloat16* wol = static_cast<const __nv_bfloat16*>(wo) + (size_t)w_layer * Ko * hidden;
+  const bool w8 = wqkv_s != nullptr;
+  const size_t eb = w8 ? 1 : 2;                          // bytes per weight
+  const void* wq = static_cast<const char*>(wqkv) + (size_t)w_layer * G * hidden * C * eb;
+  const void* wol = static_cast<const char*>(wo) + (size_t)w_layer * Ko * hidden * eb;
+  const float* sq = w8 ? static_cast<const float*>(wqkv_s) + (size_t)w_layer * G * C : nullptr;
+  const float* so = w8 ? static_cast<const float*>(wo_s) + (size_t)w_layer * G * hidden : nullptr;
   __nv_bfloat16* xnb = static_cast<__nv_bfloat16*>(xn);
   __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(o);
   float* qkvf = static_cast<float*>(scratch);
-  if (C % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (C % 8 != 0 || (w8 && (!wo_s || C % 16 != 0 || hidden % 16 != 0)))
+    return (int)cudaErrorInvalidValue;
+  // int8: the layer's matrices as tensor maps (the one-row GEMV's at B 1)
+  Int8Map mq, mo;
+  if (w8 && (!make_int8_map(&mq, wq, hidden, (int)C, G, B) ||
+             !make_int8_map(&mo, wol, (int)Ko, hidden, 1, B)))
+    return (int)cudaErrorInvalidValue;
 
   // the first kernel waits for everything before it on the stream (no
   // PDL), so the later ones may read the inputs, the table and the pool
@@ -89,8 +110,13 @@ extern "C" int cf_paged_decoder_layer(
       nullptr, 0, nullptr, 0);
   CF_CHECK((int)cudaGetLastError());
   ++*n_launches;
-  CF_CHECK(launch_ring_gemv(xnb, hidden, wq, qkvf, B, hidden, (int)C, G, (long long)hidden * C,
-                            qkv_n, C, GEMV_THREADS, true, st));
+  if (w8)
+    CF_CHECK(launch_ring_gemv8(xnb, hidden, &mq, 0, sq, 0, qkvf, B, hidden, (int)C, G, qkv_n, C,
+                               GEMV_THREADS, true, st));
+  else
+    CF_CHECK(launch_ring_gemv(xnb, hidden, static_cast<const __nv_bfloat16*>(wq), qkvf, B,
+                              hidden, (int)C, G, (long long)hidden * C, qkv_n, C, GEMV_THREADS,
+                              true, st));
   ++*n_launches;
 
   PagedArgs a{};
@@ -118,8 +144,14 @@ extern "C" int cf_paged_decoder_layer(
   CF_CHECK(launch_paged_attn<true>(a, B, hd, true, st));
   *n_launches += 2;
 
-  CF_CHECK(launch_ring_gemv(ob, Ko, wol, nullptr, B, (int)Ko, hidden, 1, 0, hidden, 0,
-                            GEMV_THREADS, true, st, static_cast<__nv_bfloat16*>(out)));
+  if (w8)      // each group's partial scaled, summed, then rounded to bf16
+    CF_CHECK(launch_ring_gemv8(ob, Ko, &mo, 0, so, (int)(Ko / G), nullptr, B, (int)Ko, hidden,
+                               1, hidden, 0, GEMV_THREADS, true, st,
+                               static_cast<__nv_bfloat16*>(out)));
+  else
+    CF_CHECK(launch_ring_gemv(ob, Ko, static_cast<const __nv_bfloat16*>(wol), nullptr, B,
+                              (int)Ko, hidden, 1, 0, hidden, 0, GEMV_THREADS, true, st,
+                              static_cast<__nv_bfloat16*>(out)));
   ++*n_launches;
   return 0;
 }

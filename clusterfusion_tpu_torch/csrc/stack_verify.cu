@@ -210,6 +210,19 @@ Scratch layout(float* base, int n, int hidden, int kv_heads, int group, int hd,
   return s;
 }
 
+// One product of the verify: bf16 weights w, or (sc given) the int8
+// matrices mat0.. of wmap scaled by sc with the scale group kg (common.cuh's
+// launch_ring_gemv8).
+int verify_gemv(const __nv_bfloat16* x, long long x_row, const void* w, const Int8Map* wmap,
+                int mat0, const float* sc, int kg, float* y, int M, int K, int N, int nmat,
+                long long ws, long long y_row, long long yz, int threads, cudaStream_t st) {
+  if (sc)
+    return launch_ring_gemv8(x, x_row, wmap, mat0, sc, kg, y, M, K, N, nmat, y_row, yz,
+                             threads, true, st);
+  return launch_ring_gemv(x, x_row, static_cast<const __nv_bfloat16*>(w), y, M, K, N, nmat, ws,
+                          y_row, yz, threads, true, st);
+}
+
 }  // namespace
 
 // Floats of f32 scratch `cf_verify_stack` needs for this geometry.
@@ -259,7 +272,15 @@ extern "C" int cf_verify_probe_gemv(void* stamps, int at) {
 // nullptr: writes out_x/out_res (bf16 [n, hidden]); otherwise writes logits
 // (f32 [n, vocab]) and out_res.  K/V rows land in kc/vc at rows
 // pos..pos+n-1.  *n_launches receives the number of kernels launched.
-// Returns a cudaError_t (0 on success).
+// Int8 weights (the TPU kernel's wq_kind == "int8"): wqkv_s given,
+// wqkv/wo/w13/w2 hold int8 codes and wqkv_s [L, G, C], wo_s [L, G, hidden],
+// w13_s [L, 2, f_pad], w2_s [L, hidden] their float32 per-column scales
+// (the O projection's per head group, applied to each group's partial
+// before the groups are summed); lm_s [vocab] given: lm_head holds int8
+// codes (a bf16 head beside int8 layers keeps its bf16 GEMV).  One tensor
+// map per weight over all its layers' matrices, encoded per call.  Returns
+// a cudaError_t (0 on success); every refusal comes before the first
+// launch.
 extern "C" int cf_verify_stack(
     const void* x, const void* attn_norm, const void* ffn_norm, const void* cos,
     const void* sin, const void* wqkv, const void* wo, const void* w13,
@@ -267,8 +288,10 @@ extern "C" int cf_verify_stack(
     const void* lm_head, void* out_x, void* out_res, void* logits,
     void* scratch, int n, int L, int hidden, int kv_heads, int hg, int group,
     int hd, int cap, int f_pad, int vocab, int pos, int neox, float eps,
-    int kv_split, int threads, int* n_launches, void* stream) {
+    int kv_split, int threads, int* n_launches, void* stream, const void* wqkv_s,
+    const void* wo_s, const void* w13_s, const void* w2_s, const void* lm_s) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool w8 = wqkv_s != nullptr;
   *n_launches = 0;
   // hd 128 only: others (Gemma-2's 256) are not ported yet
   const SplitPlan sp = split_plan(group * n);
@@ -280,6 +303,8 @@ extern "C" int cf_verify_stack(
       pos < 0 || pos + n > cap || kv_heads % hg != 0 ||
       split_smem > (size_t)G1_SMEM_MAX || merge_smem > (size_t)MERGE_SMEM_MAX)
     return (int)cudaErrorInvalidValue;
+  if ((w8 && (!wo_s || !w13_s || !w2_s)) || (lm_s && (!lm_head || !w8)))
+    return (int)cudaErrorInvalidValue;
   CF_CHECK(set_attrs());
   Scratch s = layout(static_cast<float*>(scratch), n, hidden, kv_heads, group, hd,
                      cap, f_pad, kv_split);
@@ -288,17 +313,32 @@ extern "C" int cf_verify_stack(
   const long long Ko = (long long)hg * group * hd;       // wo rows per group
   const int qkv_n = kv_heads * (group + 2) * hd;
   const int o_n = kv_heads * group * hd;
+  const size_t eb = w8 ? 1 : 2;                          // bytes per weight
   const float* cosf = static_cast<const float*>(cos);
   const float* sinf = static_cast<const float*>(sin);
+  // int8: one tensor map per weight over all its layers' matrices, the
+  // one-row GEMV's at n == 1, the rows GEMV's from 2
+  Int8Map mq, mo, m13, m2, mlm;
+  if (w8 && (!make_int8_map(&mq, wqkv, hidden, (int)C, (long long)L * G, n) ||
+             !make_int8_map(&mo, wo, (int)(G * Ko), hidden, L, n) ||
+             !make_int8_map(&m13, w13, hidden, f_pad, 2LL * L, n) ||
+             !make_int8_map(&m2, w2, f_pad, hidden, L, n)))
+    return (int)cudaErrorInvalidValue;
+  if (lm_s && !make_int8_map(&mlm, lm_head, hidden, vocab, 1, n))
+    return (int)cudaErrorInvalidValue;
   int k = 0;
 
   for (int l = 0; l < L; ++l) {
     const __nv_bfloat16* an = static_cast<const __nv_bfloat16*>(attn_norm) + (size_t)l * hidden;
     const __nv_bfloat16* fn = static_cast<const __nv_bfloat16*>(ffn_norm) + (size_t)l * hidden;
-    const __nv_bfloat16* wq = static_cast<const __nv_bfloat16*>(wqkv) + (size_t)l * G * hidden * C;
-    const __nv_bfloat16* wol = static_cast<const __nv_bfloat16*>(wo) + (size_t)l * G * Ko * hidden;
-    const __nv_bfloat16* w13l = static_cast<const __nv_bfloat16*>(w13) + (size_t)l * 2 * hidden * f_pad;
-    const __nv_bfloat16* w2l = static_cast<const __nv_bfloat16*>(w2) + (size_t)l * f_pad * hidden;
+    const char* wq = static_cast<const char*>(wqkv) + (size_t)l * G * hidden * C * eb;
+    const char* wol = static_cast<const char*>(wo) + (size_t)l * G * Ko * hidden * eb;
+    const char* w13l = static_cast<const char*>(w13) + (size_t)l * 2 * hidden * f_pad * eb;
+    const char* w2l = static_cast<const char*>(w2) + (size_t)l * f_pad * hidden * eb;
+    const float* sq = w8 ? static_cast<const float*>(wqkv_s) + (size_t)l * G * C : nullptr;
+    const float* so = w8 ? static_cast<const float*>(wo_s) + (size_t)l * G * hidden : nullptr;
+    const float* s13 = w8 ? static_cast<const float*>(w13_s) + (size_t)l * 2 * f_pad : nullptr;
+    const float* s2 = w8 ? static_cast<const float*>(w2_s) + (size_t)l * hidden : nullptr;
     __nv_bfloat16* kcl = static_cast<__nv_bfloat16*>(kc) + (size_t)l * kv_heads * cap * hd;
     __nv_bfloat16* vcl = static_cast<__nv_bfloat16*>(vc) + (size_t)l * kv_heads * cap * hd;
 
@@ -310,8 +350,9 @@ extern "C" int cf_verify_stack(
         l == 0 ? nullptr : s.res_a, nullptr, an, s.res_b, nullptr, s.xn, nullptr,
         nullptr, hidden, eps, nullptr, 0, nullptr, 0));
     ++k;
-    CF_CHECK(launch_ring_gemv(s.xn, hidden, wq, s.qkv, n, hidden, (int)C, G,
-                              (long long)hidden * C, qkv_n, C, threads, true, st));
+    // the G head groups' QKV products (int8: each scaled by its own s[G])
+    CF_CHECK(verify_gemv(s.xn, hidden, wq, &mq, l * G, sq, 0, s.qkv, n, hidden, (int)C, G,
+                         (long long)hidden * C, qkv_n, C, threads, st));
     ++k;
     if (ns > 0) {
       CF_CHECK(launch_kernel(sp.kern, dim3(kv_heads, ns, sp.tiles),
@@ -325,27 +366,51 @@ extern "C" int cf_verify_stack(
                            kcl, vcl, s.o, n, group, hd, cap, pos, ns, neox));
     ++k;
     // wo_f[l] is [G * Ko, hidden] row-major: one product sums the groups
-    CF_CHECK(launch_ring_gemv(s.o, o_n, wol, s.aout, n, (int)(G * Ko), hidden, 1, 0, hidden,
-                              0, threads, true, st));
+    // (int8: each group's partial scaled by its s[G] first)
+    CF_CHECK(verify_gemv(s.o, o_n, wol, &mo, l, so, (int)Ko, s.aout, n, (int)(G * Ko), hidden,
+                         1, 0, hidden, 0, threads, st));
     ++k;
     // attention-out residual add + FFN RMSNorm
     CF_CHECK(launch_kernel(resnorm_kernel, dim3(n), dim3(NORM_THREADS), 0, st, true,
         s.aout, nullptr, s.res_b, nullptr, fn, s.res_a, nullptr, s.xn, nullptr,
         nullptr, hidden, eps, nullptr, 0, nullptr, 0));
     ++k;
+    // gate and up (int8: each column scaled before the SwiGLU); down (int8:
+    // scaled after the whole sum over f)
     if (n == 1) {   // one row: f32 gate/up, SwiGLU in the down product's x
-      CF_CHECK(launch_gemv1<false>(s.xn, 0, w13l, s.gu, hidden, f_pad, 2,
-                                   (long long)hidden * f_pad, f_pad, threads, true, st));
-      ++k;
-      CF_CHECK(launch_gemv1<true>(s.gu, f_pad, w2l, s.hx, f_pad, hidden, 1, 0, 0, threads,
-                                  true, st));
+      if (w8) {
+        CF_CHECK((launch_gemv1<false, G1_Y, true>(s.xn, 0, nullptr, s.gu, hidden, f_pad, 2, 0,
+                                                  f_pad, threads, true, st, nullptr, nullptr,
+                                                  0.f, nullptr, m13.for_rows(1), 2 * l, s13,
+                                                  0)));
+        ++k;
+        CF_CHECK((launch_gemv1<true, G1_Y, true>(s.gu, f_pad, nullptr, s.hx, f_pad, hidden, 1,
+                                                 0, 0, threads, true, st, nullptr, nullptr,
+                                                 0.f, nullptr, m2.for_rows(1), l, s2, 0)));
+      } else {
+        CF_CHECK(launch_gemv1<false>(s.xn, 0, w13l, s.gu, hidden, f_pad, 2,
+                                     (long long)hidden * f_pad, f_pad, threads, true, st));
+        ++k;
+        CF_CHECK(launch_gemv1<true>(s.gu, f_pad, w2l, s.hx, f_pad, hidden, 1, 0, 0, threads,
+                                    true, st));
+      }
     } else {        // the gate/up product writes act = bf16(silu(gate) * up)
       __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(s.gu);
-      CF_CHECK(launch_rows_gemv<true>(s.xn, hidden, w13l, nullptr, n, hidden, f_pad, 2,
-                                      (long long)hidden * f_pad, f_pad, 0, true, st, act));
-      ++k;
-      CF_CHECK(launch_rows_gemv<false>(act, f_pad, w2l, s.hx, n, f_pad, hidden, 1, 0, hidden,
-                                       0, true, st));
+      if (w8) {
+        CF_CHECK(launch_rows_gemv8<true>(s.xn, hidden, &m13, 2 * l, s13, 0, nullptr, n, hidden,
+                                         f_pad, 2, f_pad, 0, true, st, act));
+        ++k;
+        CF_CHECK(launch_rows_gemv8<false>(act, f_pad, &m2, l, s2, 0, s.hx, n, f_pad, hidden, 1,
+                                          hidden, 0, true, st));
+      } else {
+        CF_CHECK(launch_rows_gemv<true>(s.xn, hidden,
+                                        reinterpret_cast<const __nv_bfloat16*>(w13l), nullptr,
+                                        n, hidden, f_pad, 2, (long long)hidden * f_pad, f_pad,
+                                        0, true, st, act));
+        ++k;
+        CF_CHECK(launch_rows_gemv<false>(act, f_pad, reinterpret_cast<const __nv_bfloat16*>(w2l),
+                                         s.hx, n, f_pad, hidden, 1, 0, hidden, 0, true, st));
+      }
     }
     ++k;
   }
@@ -356,9 +421,10 @@ extern "C" int cf_verify_stack(
         nullptr, nullptr, s.xn, nullptr, static_cast<__nv_bfloat16*>(out_res), hidden,
         eps, nullptr, 0, nullptr, 0));
     ++k;
-    CF_CHECK(launch_ring_gemv(s.xn, hidden, static_cast<const __nv_bfloat16*>(lm_head),
-                              static_cast<float*>(logits), n, hidden, vocab, 1, 0, vocab, 0,
-                              threads, true, st));
+    // an int8 head: each logit scaled after its sum
+    CF_CHECK(verify_gemv(s.xn, hidden, lm_head, &mlm, 0, static_cast<const float*>(lm_s), 0,
+                         static_cast<float*>(logits), n, hidden, vocab, 1, 0, vocab, 0,
+                         threads, st));
     ++k;
   } else {
     CF_CHECK(launch_kernel(resnorm_kernel, dim3(n), dim3(NORM_THREADS), 0, st, L > 0,

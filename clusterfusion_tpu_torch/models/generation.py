@@ -139,8 +139,9 @@ class Llama:
         rounds, drafts accepted, tokens, and the tokens each round
         emitted."""
         for eng in (self, draft):
-            # kernel 8's int8 mode is not ported
-            model.refuse_quantized(eng.params, "spec_generate")
+            # int8: kernels 7 and 8 in their int8 modes; int4 is not ported
+            model.refuse_quantized(eng.params, "spec_generate",
+                                   allow=("int8",))
         cfg = self.cfg
         toks = list(prompt_tokens)
         span = n_draft + 1
@@ -198,8 +199,9 @@ class Llama:
         Each request owns its pages, so rows with shorter prompts never see
         other rows' padding, and sampling draws from the engine's generator
         seeded by ``seed``."""
-        # the serving kernels' (9 and 10) int8 modes are not ported
-        model.refuse_quantized(self.params, "generate")
+        # int8: the serving steps' int8 products (kernel 9's int8 mode for
+        # the fused step); int4 is not ported
+        model.refuse_quantized(self.params, "generate", allow=("int8",))
         cfg = self.cfg
         prompts = [list(t) for t in prompt_tokens]
         if not prompts or not all(prompts):

@@ -169,7 +169,8 @@ def _refuse(wqkv_f, wo_f, k_cache, v_cache, *, window, bias_qkv,
                                   "ROADMAP.md queue 2, mode 1)")
     if k_cache.dtype != torch.bfloat16 or v_cache.dtype != torch.bfloat16:
         raise NotImplementedError("_fused_decoder_layer: only a bf16 KV "
-                                  "cache is ported (int8/fp8 KV are not)")
+                                  "cache is ported (int8/fp8 KV are not: "
+                                  "ROADMAP.md queue 2, mode 2)")
 
 
 def _fused_decoder_layer(

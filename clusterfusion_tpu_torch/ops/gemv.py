@@ -7,17 +7,30 @@ memory, the K chunks of a column tile summed in a fixed order inside a
 thread-block cluster, so every call gives the same bits); CPU tensors run
 ``gemv_plain``, the float32 product (bf16 products are exact in float32,
 so the two differ only by the order of the sums).
+
+``_gemv_int8`` and ``_ffn_int8`` are the int8 serving step's M=B products
+(no JAX counterpart of their own: the JAX package leaves them to XLA):
+bf16 x against int8 codes with float32 per-column scales, on the card
+through the GEMVs' int8 instances (``csrc/gemv.cu``'s ``cf_gemv_rows8``
+and ``cf_ffn8``; the rows GEMV's from 2 rows), so that the codes stream
+once a step and no bf16 copy of a weight is made; on the CPU through
+their plain twins.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from clusterfusion_tpu_torch.config import KernelConfig
 from clusterfusion_tpu_torch.ops import _build
 
 #: Calls of :func:`gemv` that launched the kernel (CUDA tensors only).
 launches = 0
+#: Calls of ``_gemv_int8`` that launched its kernel.
+int8_launches = 0
+#: Calls of ``_ffn_int8`` that launched its kernels.
+ffn8_launches = 0
 
 
 def gemv_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -58,3 +71,97 @@ def gemv(x: torch.Tensor, w: torch.Tensor,
     _build.check(err, "gemv")
     launches += 1
     return y
+
+
+def _gemv_int8_plain(x, q, s, kg: int = 0):
+    """Plain version of :func:`_gemv_int8` (float32 result)."""
+    M, K = x.shape
+    if kg:
+        part = torch.einsum("mgk,gkn->mgn", x.float().reshape(M, K // kg, kg),
+                            q.float().reshape(K // kg, kg, -1))
+        return (part * s.float()).sum(dim=1)
+    y = torch.einsum("mk,gkn->mgn", x.float(), q.float()) * s.float()
+    return y.reshape(M, -1)
+
+
+def _ffn_int8_plain(x, w13_q, w13_s, w2_q, w2_s):
+    """Plain version of :func:`_ffn_int8`."""
+    y = torch.einsum("md,udf->umf", x.float(), w13_q.float()) * w13_s.float()[:, None]
+    act = (F.silu(y[0]) * y[1]).to(torch.bfloat16)
+    return ((act.float() @ w2_q.float()) * w2_s.float()).to(torch.bfloat16)
+
+
+def _check_int8(x, q, s):
+    dev = x.device
+    if x.dtype != torch.bfloat16 or q.dtype != torch.int8 or \
+            s.dtype != torch.float32:
+        raise ValueError("int8 GEMV: bf16 x, int8 codes and float32 scales "
+                         "are expected")
+    for name, t in (("x", x), ("codes", q), ("scales", s)):
+        if t.device != dev or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"int8 GEMV: {name} must be a contiguous, "
+                             f"16-byte aligned tensor on {dev}")
+    if q.shape[-1] % 16:
+        raise ValueError(f"int8 GEMV width {q.shape[-1]} is not a multiple "
+                         "of 16")
+
+
+def _gemv_int8(x, q, s, *, kg: int = 0, bf16_out: bool = False):
+    """x [M, K] bf16 against int8 codes q [nmat, K, N] (or [K, N]) with
+    float32 scales s [nmat, N]: [M, nmat*N], matrix m at columns m*N..,
+    each column scaled after its sum.  kg > 0 (one matrix): s [K / kg, N],
+    each group of kg rows' partial scaled before the groups are summed (the
+    O projection over head groups).  Float32, or rounded to bf16 after the
+    scale with ``bf16_out``."""
+    global int8_launches
+    q3 = q.reshape(-1, *q.shape[-2:])
+    nmat, K, N = q3.shape
+    if x.dim() != 2 or x.shape[1] != K or (kg and (nmat != 1 or K % kg)):
+        raise ValueError(f"int8 GEMV: x {tuple(x.shape)}, codes "
+                         f"{tuple(q.shape)}, kg {kg}")
+    s2 = s.reshape(-1, N)
+    if s2.shape[0] != (K // kg if kg else nmat):
+        raise ValueError(f"int8 GEMV: scales {tuple(s.shape)} do not fit")
+    if x.device.type == "cpu":
+        y = _gemv_int8_plain(x, q3, s2, kg)
+        return y.to(torch.bfloat16) if bf16_out else y
+    _check_int8(x, q3, s2)
+    M, dev = x.shape[0], x.device
+    y = torch.empty((M, nmat * N), device=dev,
+                    dtype=torch.bfloat16 if bf16_out else torch.float32)
+    err = _build.lib().cf_gemv_rows8(
+        x.data_ptr(), K, 0, q3.data_ptr(), s2.data_ptr(), kg,
+        None if bf16_out else y.data_ptr(), y.data_ptr() if bf16_out else None,
+        M, K, N, nmat, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "int8 GEMV")
+    int8_launches += 1
+    return y
+
+
+def _ffn_int8(x, w13_q, w13_s, w2_q, w2_s):
+    """The int8 SwiGLU FFN of x [M, hidden] bf16: gate and up = x @
+    bf16(w13_q[i]) * w13_s[i] in float32 (w13_q [2, hidden, f], w13_s
+    [2, f]), act = bf16(silu(gate) * up), out = bf16((act @ bf16(w2_q)) *
+    w2_s) (w2_q [f, hidden], w2_s [hidden]): [M, hidden] bf16."""
+    global ffn8_launches
+    M, hidden = x.shape
+    f = w13_q.shape[-1]
+    w13_s, w2_s = w13_s.reshape(2, f), w2_s.reshape(hidden)
+    if tuple(w13_q.shape) != (2, hidden, f) or \
+            tuple(w2_q.shape) != (f, hidden):
+        raise ValueError(f"int8 FFN: codes {tuple(w13_q.shape)} and "
+                         f"{tuple(w2_q.shape)} for x {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return _ffn_int8_plain(x, w13_q, w13_s, w2_q, w2_s)
+    _check_int8(x, w13_q, w13_s)
+    _check_int8(x, w2_q, w2_s)
+    dev = x.device
+    act = torch.empty((M, 2 * f), dtype=torch.float32, device=dev)
+    out = torch.empty((M, hidden), dtype=torch.bfloat16, device=dev)
+    err = _build.lib().cf_ffn8(
+        x.data_ptr(), w13_q.data_ptr(), w13_s.data_ptr(), w2_q.data_ptr(),
+        w2_s.data_ptr(), act.data_ptr(), out.data_ptr(), M, hidden, f,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "int8 FFN")
+    ffn8_launches += 1
+    return out

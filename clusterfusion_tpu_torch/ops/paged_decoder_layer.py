@@ -36,6 +36,16 @@ which repeat the kernels' arithmetic in PyTorch and round where they round:
   o is rounded to bf16 before the O-projection, whose sum over head groups
   is float32.
 
+Int8 weights (``ops.quant.QuantizedTensor``, per output column; the TPU
+kernel's ``wq_kind == "int8"``): ``llama_decoder_layer_paged`` takes int8
+``wqkv_g`` and ``wo_g`` together (scales [.., G, 1, C] and [.., G, 1,
+hidden]).  Each product is x_bf16 @ bf16(code) summed in float32: QKV
+scaled per head group and column after the sum over hidden, the O
+projection per group on each group's partial, before the groups are summed
+and the output is rounded to bf16.  On the card the codes stream through
+the GEMVs' int8 instances, never as a bf16 copy.  int4 weights raise
+``NotImplementedError`` (``ROADMAP.md`` queue 2, mode 1).
+
 The pools are updated in place: the returned pools are the tensors that
 were passed in.  Padding rows (``seq_lens`` 0 over a table row of page 0)
 append into the NULL page 0, which no request owns.
@@ -54,7 +64,8 @@ from clusterfusion_tpu_torch.ops.decoder_layer import (HEAD_GROUP,
                                                       _pick_head_group,
                                                       fuse_qkv_o_for_kernel)
 from clusterfusion_tpu_torch.ops._support import cdiv
-from clusterfusion_tpu_torch.ops.stack_kernel import _norm, _rope
+from clusterfusion_tpu_torch.ops.quant import QuantizedTensor
+from clusterfusion_tpu_torch.ops.stack_kernel import _norm, _rope, int8_operands
 
 _LOG2E = 1.4426950408889634
 _NEG_INF = -1e30
@@ -68,8 +79,12 @@ TILE = 32
 #: Largest GQA group the kernels take (``PA_MAX_GROUP``).
 MAX_GROUP = 16
 
-#: Calls of each wrapper that launched its kernel (CUDA tensors only).
-launches = {"paged_attention": 0, "llama_decoder_layer_paged": 0}
+#: Calls of each wrapper that launched its kernel (CUDA tensors only);
+#: "llama_decoder_layer_paged_int8" counts the layer's calls with int8
+#: weights (kernel 9's int8 mode), which "llama_decoder_layer_paged"
+#: counts too.
+launches = {"paged_attention": 0, "llama_decoder_layer_paged": 0,
+            "llama_decoder_layer_paged_int8": 0}
 
 
 def _refuse(what: str, window, softcap, bias_qkv=None) -> None:
@@ -163,7 +178,8 @@ def _check_pools(what, k_pool, v_pool, dev):
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
         if t.dtype != torch.bfloat16:
             raise NotImplementedError(f"{what}: only a bf16 KV pool is "
-                                      f"ported ({name} is {t.dtype})")
+                                      f"ported ({name} is {t.dtype}; "
+                                      "ROADMAP.md queue 2, mode 2)")
         if t.device != dev or not t.is_contiguous() or (
                 dev.type == "cuda" and t.data_ptr() % 16):
             raise ValueError(f"{what}: {name} must be a contiguous, 16-byte "
@@ -241,15 +257,20 @@ def llama_decoder_layer_paged_plain(input, residual, wqkv_g, wo_g,
                                     v_pool, layer_id, rms_w, eps, cos_t, sin_t,
                                     *, group: int, rope_style: str):
     """Plain PyTorch version of :func:`llama_decoder_layer_paged` (same
-    arguments, same results, pools appended in place)."""
+    arguments, same results, pools appended in place).  Int8 weights: each
+    product over the codes, scaled where the kernel scales (the module's
+    note)."""
     B, hidden = input.shape
     layer_id = int(layer_id)
-    w = wqkv_g[layer_id] if wqkv_g.dim() == 4 else wqkv_g
-    wo = wo_g[layer_id] if wo_g.dim() == 4 else wo_g
+    w = wqkv_g[layer_id] if wqkv_g.ndim == 4 else wqkv_g
+    wo = wo_g[layer_id] if wo_g.ndim == 4 else wo_g
     kv, hd = k_pool.shape[2], k_pool.shape[4]
     r = input.float() + residual.float()
     xn = _norm(r, rms_w.reshape(-1), eps)
-    qkv = torch.einsum("bd,Gdc->bGc", xn.float(), w.float())
+    if isinstance(w, QuantizedTensor):
+        qkv = torch.einsum("bd,Gdc->bGc", xn.float(), w.q.float()) * w.s[:, 0]
+    else:
+        qkv = torch.einsum("bd,Gdc->bGc", xn.float(), w.float())
     qkv = qkv.reshape(B, kv, group + 2, hd)
     pos = torch.as_tensor(positions, device=input.device).long()
     cos = cos_t[pos].float()[:, None]                       # [B, 1, hd]
@@ -263,7 +284,12 @@ def llama_decoder_layer_paged_plain(input, residual, wqkv_g, wo_g,
     o = _walk_plain(q.to(torch.bfloat16), q, k, v, k_pool, v_pool, table,
                     lens, layer_id)
     _append_plain(k_pool, v_pool, table, lens, layer_id, k, v)
-    out = o.reshape(B, -1).float() @ wo.reshape(-1, hidden).float()
+    if isinstance(wo, QuantizedTensor):   # each group's partial scaled, summed
+        G = wo.q.shape[0]
+        out = (torch.einsum("bGc,Gco->bGo", o.reshape(B, G, -1).float(),
+                            wo.q.float()) * wo.s[:, 0]).sum(dim=1)
+    else:
+        out = o.reshape(B, -1).float() @ wo.reshape(-1, hidden).float()
     return out.to(input.dtype), r.to(input.dtype), k_pool, v_pool
 
 
@@ -279,7 +305,9 @@ def llama_decoder_layer_paged(input, residual, wqkv_g, wo_g, block_table,
     (or one layer's [G, ...]); wo_g [L, G, hg*group*hd, hidden] (or [G,
     ...]); block_table [B, max_pages], seq_lens/positions [B] integer;
     pools [L, n_pages, kv_heads, page, hd] bf16; rms_w [hidden] or [1,
-    hidden]; cos_t/sin_t [max_pos, hd] full-dim float32 tables.
+    hidden]; cos_t/sin_t [max_pos, hd] full-dim float32 tables.  wqkv_g
+    and wo_g may be int8 ``QuantizedTensor``s together (the module's
+    note).
 
     Returns (output [B, hidden], residual_out [B, hidden], k_pool, v_pool),
     the new token's K/V written in place at ``block_table[b, seq_lens[b] //
@@ -291,8 +319,17 @@ def llama_decoder_layer_paged(input, residual, wqkv_g, wo_g, block_table,
     layer_id = int(layer_id)
     if not 0 <= layer_id < L:
         raise ValueError(f"layer_id {layer_id} outside the pool's {L} layers")
-    if wqkv_g.dim() not in (3, 4) or wo_g.dim() != wqkv_g.dim():
+    if wqkv_g.ndim not in (3, 4) or wo_g.ndim != wqkv_g.ndim:
         raise ValueError("wqkv_g/wo_g must both be [G, ...] or [L, G, ...]")
+    w8 = isinstance(wqkv_g, QuantizedTensor)
+    if any(isinstance(t, QuantizedTensor) and t.kind != "int8"
+           for t in (wqkv_g, wo_g)):
+        raise NotImplementedError("llama_decoder_layer_paged: int4 weights "
+                                  "are not ported yet (ROADMAP.md queue 2, "
+                                  "mode 1)")
+    if w8 != isinstance(wo_g, QuantizedTensor):
+        raise ValueError("llama_decoder_layer_paged: wqkv_g and wo_g are "
+                         "int8 together or not at all")
     G, hidden_w, C = wqkv_g.shape[-3:]
     hg = kv // G if G else 0
     if hidden_w != hidden or G * hg != kv or C != hg * (group + 2) * hd or \
@@ -303,19 +340,21 @@ def llama_decoder_layer_paged(input, residual, wqkv_g, wo_g, block_table,
     dev = input.device
     _check_pools("llama_decoder_layer_paged", k_pool, v_pool, dev)
     rms_w = rms_w.reshape(-1)
-    named = (("wqkv_g", wqkv_g), ("wo_g", wo_g), ("rms_w", rms_w),
-             ("input", input), ("residual", residual))
+    weights, scales = int8_operands(dict(wqkv_g=wqkv_g, wo_g=wo_g),
+                                    (C, hidden) if w8 else (), 0)
+    named = (("rms_w", rms_w), ("input", input), ("residual", residual),
+             *(() if w8 else tuple(weights.items())))
     for name, t in named:
         if t.dtype != torch.bfloat16:
             raise NotImplementedError(f"llama_decoder_layer_paged: {name} is "
-                                      f"{t.dtype}; only bf16 is ported "
-                                      "(quantized weights are not)")
+                                      f"{t.dtype}; only bf16 and int8 "
+                                      "weights are ported")
     if dev.type == "cpu":
         return llama_decoder_layer_paged_plain(
             input, residual, wqkv_g, wo_g, block_table, seq_lens, positions,
             k_pool, v_pool, layer_id, rms_w, eps, cos_t, sin_t, group=group,
             rope_style=rope_style)
-    for name, t in named:
+    for name, t in (*named, *weights.items(), *scales.items()):
         if t.device != dev or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"llama_decoder_layer_paged: {name} must be a "
                              f"contiguous, 16-byte aligned tensor on {dev}")
@@ -348,17 +387,21 @@ def llama_decoder_layer_paged(input, residual, wqkv_g, wo_g, block_table,
                           dtype=f32, device=dev)
     n_launch = ctypes.c_int(0)
     err = _build.lib().cf_paged_decoder_layer(
-        input.data_ptr(), residual.data_ptr(), wqkv_g.data_ptr(),
-        wo_g.data_ptr(), rms_w.data_ptr(), cos_f.data_ptr(), sin_f.data_ptr(),
+        input.data_ptr(), residual.data_ptr(), weights["wqkv_g"].data_ptr(),
+        weights["wo_g"].data_ptr(), rms_w.data_ptr(), cos_f.data_ptr(),
+        sin_f.data_ptr(),
         poss.data_ptr(), table.data_ptr(), lens.data_ptr(), k_pool.data_ptr(),
         v_pool.data_ptr(), out.data_ptr(), res_out.data_ptr(), xn.data_ptr(),
         o.data_ptr(), scratch.data_ptr(), B, hidden, kv, hg, group, hd, page,
         n_pages, table.shape[1], cos_f.shape[0], layer_id,
-        layer_id if wqkv_g.dim() == 4 else 0,
+        layer_id if wqkv_g.ndim == 4 else 0,
         1 if rope_style == "neox" else 0, float(eps), SPLIT,
-        ctypes.byref(n_launch), torch.cuda.current_stream(dev).cuda_stream)
+        ctypes.byref(n_launch), torch.cuda.current_stream(dev).cuda_stream,
+        *(scales[k].data_ptr() if k in scales else None
+          for k in ("wqkv_g_s", "wo_g_s")))
     _build.check(err, "llama_decoder_layer_paged")
     launches["llama_decoder_layer_paged"] += 1
+    launches["llama_decoder_layer_paged_int8"] += int(w8)
     return out, res_out, k_pool, v_pool
 
 

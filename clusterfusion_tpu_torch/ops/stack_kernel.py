@@ -148,8 +148,7 @@ def refuse_unported(what: str, head_dim: int, weights, final_norm, lm_head,
     """Raise on what the whole-stack kernels (``fused_decoder_stack``,
     ``fused_verify_stack``) do not take yet.  ``weights`` starts with the
     four projections; ``int8``: the kernel takes int8 QuantizedTensors for
-    all four of them and for ``lm_head`` (kernel 7 does, kernel 8 does
-    not)."""
+    all four of them and for ``lm_head`` (kernels 7 and 8 do)."""
     if window or softcap or bias_qkv is not None or ffn_act != "silu":
         raise NotImplementedError(f"{what}: window, softcap, QKV bias and "
                                   "GeGLU are not ported yet")
@@ -180,7 +179,8 @@ def refuse_unported(what: str, head_dim: int, weights, final_norm, lm_head,
                                   "ported")
     if k_cache.dtype != torch.bfloat16 or v_cache.dtype != torch.bfloat16:
         raise NotImplementedError(f"{what}: only a bf16 KV cache is ported "
-                                  "(int8/fp8 KV are not)")
+                                  "(int8/fp8 KV are not: ROADMAP.md queue 2, "
+                                  "mode 2)")
     if (final_norm is None) != (lm_head is None):
         raise ValueError("final_norm and lm_head go together")
 
@@ -216,6 +216,31 @@ def check_launch(kcfg: KernelConfig, tensors: dict, widths) -> None:
     for w in widths:
         if w % 8:
             raise ValueError(f"GEMV width {w} is not a multiple of 8")
+
+
+def int8_operands(weights: dict, widths, vocab: int):
+    """What the whole-stack kernels pass for ``weights`` (name -> tensor,
+    QuantizedTensor or None): (name -> tensor, with each int8 weight's
+    codes; name + "_s" -> its float32 scales).  Checks that int8 weights
+    are int8 codes with per-column scales over axis -2 and that each int8
+    GEMV width (``widths``, and the LM head's ``vocab`` when it is int8) is
+    a multiple of 16 (the int8 tensor maps' rows are 16-byte aligned)."""
+    weights, scales = dict(weights), {}
+    for name, w in weights.items():
+        if isinstance(w, QuantizedTensor):
+            if w.q.dtype != torch.int8 or w.s.dtype != torch.float32:
+                raise ValueError(f"{name}: int8 codes and float32 scales "
+                                 "are expected")
+            if w.axis != -2 or w.s.shape[-2] != 1:
+                raise ValueError(f"{name}: per-column scales over axis -2 "
+                                 "are expected")
+            weights[name], scales[name + "_s"] = w.q, w.s
+    for w in widths:
+        if w % 16:
+            raise ValueError(f"int8 GEMV width {w} is not a multiple of 16")
+    if "lm_head_s" in scales and vocab % 16:
+        raise ValueError(f"int8 LM head width {vocab} is not a multiple of 16")
+    return weights, scales
 
 
 def fused_decoder_stack_plain(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f,
@@ -446,22 +471,9 @@ def _stack(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f, w13, w2, k_cache,
     if x.dtype != torch.bfloat16 or x.numel() != hidden:
         raise ValueError("x must be bf16 [1, hidden]")
     dev = x.device
-    weights = dict(wqkv_f=wqkv_f, wo_f=wo_f, w13=w13, w2=w2, lm_head=lm_head)
-    scales = {}
-    for name, w in weights.items():
-        if isinstance(w, QuantizedTensor):
-            if w.q.dtype != torch.int8 or w.s.dtype != torch.float32:
-                raise ValueError(f"{name}: int8 codes and float32 scales "
-                                 "are expected")
-            if w.axis != -2 or w.s.shape[-2] != 1:
-                raise ValueError(f"{name}: per-column scales over axis -2 "
-                                 "are expected")
-            weights[name], scales[name + "_s"] = w.q, w.s
-    for w in (C, hidden, f_pad) if w8 else ():
-        if w % 16:
-            raise ValueError(f"int8 GEMV width {w} is not a multiple of 16")
-    if lm8 and vocab % 16:
-        raise ValueError(f"int8 LM head width {vocab} is not a multiple of 16")
+    weights, scales = int8_operands(
+        dict(wqkv_f=wqkv_f, wo_f=wo_f, w13=w13, w2=w2, lm_head=lm_head),
+        (C, hidden, f_pad) if w8 else (), vocab)
     check_launch(kcfg, dict(x=x, attn_norm=attn_norm, ffn_norm=ffn_norm,
                             k_cache=k_cache, v_cache=v_cache,
                             final_norm=final_norm, **weights, **scales),

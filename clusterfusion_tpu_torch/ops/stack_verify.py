@@ -24,6 +24,19 @@ rounds, which is not where the one-row stack rounds:
 
 With n=1 this computes what ``fused_decoder_stack`` computes but for those
 bf16 roundings of the current token's p and v.
+
+Int8 weights (``ops.quant.QuantizedTensor``, per output column; the TPU
+kernel's ``wq_kind == "int8"``): ``wqkv_f``, ``wo_f``, ``w13`` and ``w2``
+all int8, and ``lm_head`` int8 or bf16 on its own, as in
+``fused_decoder_stack``.  Each product is x_bf16 @ bf16(code) summed in
+float32, the scale applied where the TPU kernel applies it: QKV per head
+group and column after the sum over hidden; the O projection per group on
+each group's partial, before the sum over groups; gate and up per column
+before SwiGLU; down after the whole sum over f; the LM head after its sum.
+On the card the codes stream as they are through the GEMVs' int8
+instances (the rows GEMV's from 2 rows).  int4 weights, and
+``reduce_axis``, raise ``NotImplementedError`` (``ROADMAP.md`` queue 2,
+mode 1).
 """
 
 from __future__ import annotations
@@ -37,12 +50,15 @@ import torch.nn.functional as F
 from clusterfusion_tpu_torch.config import KernelConfig
 from clusterfusion_tpu_torch.ops import _build
 from clusterfusion_tpu_torch.ops._support import cdiv, glu_act
+from clusterfusion_tpu_torch.ops.quant import QuantizedTensor
 from clusterfusion_tpu_torch.ops.stack_kernel import (
     _LOG2E, _NEG_INF, _norm, _rope, _vocab_block, check_launch,
-    check_stack_kcfg, refuse_unported)
+    check_stack_kcfg, int8_operands, refuse_unported)
 
 #: Calls of :func:`fused_verify_stack` that launched the kernels.
 launches = 0
+#: Those of them with int8 weights (kernel 8's int8 mode).
+int8_launches = 0
 #: CUDA kernels the last such call launched (8 per layer + 1 or 2).
 last_step_kernels = 0
 #: Rows one call takes (the merge kernel keeps them in shared memory).
@@ -57,10 +73,13 @@ def fused_verify_stack_plain(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f,
     """Plain PyTorch version of :func:`fused_verify_stack` (same arguments,
     same results, caches appended in place).  ``kv_split`` is the kernel's
     split of the cached rows: bf16(p) is taken against each split's own
-    max, as the kernel takes it, so the two round p alike."""
+    max, as the kernel takes it, so the two round p alike.  Int8 weights:
+    each product over the codes, scaled where the kernel scales (the
+    module's note)."""
     pos = int(pos)
     n, hidden = x.shape
-    L = wqkv_f.shape[0]
+    L, G = wqkv_f.shape[:2]
+    w8 = isinstance(wqkv_f, QuantizedTensor)
     kv = k_cache.shape[1]
     hd, g = head_dim, group
     scale = _LOG2E / math.sqrt(hd)
@@ -75,7 +94,11 @@ def fused_verify_stack_plain(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f,
     for l in range(L):
         res = hx + res
         xn = _norm(res, attn_norm[l], eps)                        # [n, hidden]
-        qkv = torch.einsum("nd,Gdc->nGc", xn.float(), wqkv_f[l].float())
+        if w8:      # per head group and column, after the sum over hidden
+            qkv = torch.einsum("nd,Gdc->nGc", xn.float(),
+                               wqkv_f.q[l].float()) * wqkv_f.s[l][:, 0]
+        else:
+            qkv = torch.einsum("nd,Gdc->nGc", xn.float(), wqkv_f[l].float())
         qkv = qkv.reshape(n, kv, g + 2, hd)
         q = _rope(qkv[:, :, :g], cos_f, sin_f, rope_style) * scale   # [n,kv,g,hd]
         k_new = _rope(qkv[:, :, g], cos_f[:, 0], sin_f[:, 0], rope_style)
@@ -110,15 +133,30 @@ def fused_verify_stack_plain(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f,
         k_cache[l, :, pos:pos + n] = k_new.transpose(0, 1).to(k_cache.dtype)
         v_cache[l, :, pos:pos + n] = v_new.transpose(0, 1).to(v_cache.dtype)
         o_flat = o.permute(2, 0, 1, 3).reshape(n, kv * g * hd)
-        aout = o_flat.float() @ wo_f[l].reshape(-1, hidden).float()
+        if w8:      # each group's partial scaled, then the groups summed
+            aout = (torch.einsum("nGc,Gco->nGo",
+                                 o_flat.float().reshape(n, G, -1),
+                                 wo_f.q[l].float())
+                    * wo_f.s[l][:, 0]).sum(dim=1)
+        else:
+            aout = o_flat.float() @ wo_f[l].reshape(-1, hidden).float()
         res = aout + res
         xn2 = _norm(res, ffn_norm[l], eps)
-        y = torch.einsum("nd,udf->unf", xn2.float(), w13[l].float())
-        act = glu_act(y[0], y[1]).to(bf16)
-        hx = act.float() @ w2[l].float()
+        if w8:      # gate and up per column before SwiGLU; down after its sum
+            y = torch.einsum("nd,udf->unf", xn2.float(),
+                             w13.q[l].float()) * w13.s[l]
+            act = glu_act(y[0], y[1]).to(bf16)
+            hx = (act.float() @ w2.q[l].float()) * w2.s[l][0]
+        else:
+            y = torch.einsum("nd,udf->unf", xn2.float(), w13[l].float())
+            act = glu_act(y[0], y[1]).to(bf16)
+            hx = act.float() @ w2[l].float()
     if lm_head is not None:
         xn = _norm(hx + res, final_norm, eps)
-        logits = xn.float() @ lm_head.float()
+        if isinstance(lm_head, QuantizedTensor):
+            logits = (xn.float() @ lm_head.q.float()) * lm_head.s[0]
+        else:
+            logits = xn.float() @ lm_head.float()
         return logits, res.to(bf16), k_cache, v_cache
     return hx.to(bf16), res.to(bf16), k_cache, v_cache
 
@@ -153,7 +191,7 @@ def fused_verify_stack(
     given.  All n K/V rows are written at pos..pos+n-1 of every layer, in
     place.
     """
-    global launches, last_step_kernels
+    global launches, int8_launches, last_step_kernels
     if reduce_axis is not None:
         raise NotImplementedError("fused_verify_stack: reduce_axis (the tp "
                                   "mode of the decode stack) has no verify "
@@ -163,7 +201,7 @@ def fused_verify_stack(
                     lm_head, k_cache, v_cache, window=window,
                     bias_qkv=bias_qkv, ffn_act=ffn_act, softcap=softcap,
                     post_attn_norm=post_attn_norm,
-                    post_ffn_norm=post_ffn_norm)
+                    post_ffn_norm=post_ffn_norm, int8=True)
     check_stack_kcfg(kcfg)
     pos = int(pos)
     n, hidden = x.shape
@@ -200,10 +238,13 @@ def fused_verify_stack(
     if x.dtype != torch.bfloat16:
         raise ValueError("x must be bf16 [n, hidden]")
     dev = x.device
+    w8 = isinstance(wqkv_f, QuantizedTensor)
+    weights, scales = int8_operands(
+        dict(wqkv_f=wqkv_f, wo_f=wo_f, w13=w13, w2=w2, lm_head=lm_head),
+        (C, hidden, f_pad) if w8 else (), vocab)
     check_launch(kcfg, dict(x=x, attn_norm=attn_norm, ffn_norm=ffn_norm,
-                            wqkv_f=wqkv_f, wo_f=wo_f, w13=w13, w2=w2,
                             k_cache=k_cache, v_cache=v_cache,
-                            final_norm=final_norm, lm_head=lm_head),
+                            final_norm=final_norm, **weights, **scales),
                  (C, hidden, f_pad, vocab))
     cos_f = cos.to(device=dev, dtype=torch.float32).contiguous()
     sin_f = sin.to(device=dev, dtype=torch.float32).contiguous()
@@ -226,15 +267,19 @@ def fused_verify_stack(
 
     err = lib.cf_verify_stack(
         ptr(x), ptr(attn_norm), ptr(ffn_norm), ptr(cos_f), ptr(sin_f),
-        ptr(wqkv_f), ptr(wo_f), ptr(w13), ptr(w2), ptr(k_cache),
-        ptr(v_cache), ptr(final_norm), ptr(lm_head), ptr(x_out),
-        ptr(res_out), ptr(logits), ptr(scratch),
+        ptr(weights["wqkv_f"]), ptr(weights["wo_f"]), ptr(weights["w13"]),
+        ptr(weights["w2"]), ptr(k_cache), ptr(v_cache), ptr(final_norm),
+        ptr(weights["lm_head"]), ptr(x_out), ptr(res_out), ptr(logits),
+        ptr(scratch),
         n, L, hidden, kv_heads, hg, group, hd, cap, f_pad, vocab, pos,
         1 if rope_style == "neox" else 0, float(eps), kcfg.kv_split,
         kcfg.gemv_threads, ctypes.byref(n_launch),
-        torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.current_stream(dev).cuda_stream,
+        *(ptr(scales.get(k)) for k in ("wqkv_f_s", "wo_f_s", "w13_s", "w2_s",
+                                       "lm_head_s")))
     _build.check(err, "fused_verify_stack")
     launches += 1
+    int8_launches += int(w8)
     last_step_kernels = n_launch.value
     if lm_head is not None:
         return logits, res_out, k_cache, v_cache

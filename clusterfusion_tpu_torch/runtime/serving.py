@@ -13,7 +13,14 @@
   0 and seq_len 0, so their appends land in a page no request owns;
 - prompts are prefilled by ``models.llama.prefill`` (flash prefill per
   layer, in chunks of ``prefill_chunk`` tokens past that length) into a
-  temporary contiguous cache whose pages are then copied into the pool.
+  temporary contiguous cache whose pages are then copied into the pool;
+- int8 weights (``ops.quant``, per output column) run both steps: the
+  batched step's M=B products on the GEMVs' int8 instances (``ops.gemv``'s
+  ``_gemv_int8``/``_ffn_int8``; their plain twins on the CPU), the fused
+  step on ``llama_decoder_layer_paged``'s int8 mode and the same int8 FFN;
+  the default step stays ``"batched"``, as in the JAX engine.  int4
+  weights, ``kcfg.serving_w8a8`` and an int8/fp8 pool raise
+  ``NotImplementedError`` (``ROADMAP.md`` queue 2, modes 1, 6 and 2).
 
 The pools ``[L, num_pages, kv_heads, page, hd]`` (bf16) live on the
 parameters' device and are updated in place by the kernels and the
@@ -35,8 +42,10 @@ import torch
 from clusterfusion_tpu_torch.config import KernelConfig, LlamaConfig
 from clusterfusion_tpu_torch.models import llama as model
 from clusterfusion_tpu_torch.models.sampling import sample_batch
+from clusterfusion_tpu_torch.ops.gemv import _ffn_int8, _gemv_int8
 from clusterfusion_tpu_torch.ops.paged_decoder_layer import (
     llama_decoder_layer_paged, paged_attention)
+from clusterfusion_tpu_torch.ops.quant import QuantizedTensor
 from clusterfusion_tpu_torch.ops.reference import fused_add_rmsnorm_ref
 from clusterfusion_tpu_torch.runtime.native import PagedKVScheduler
 
@@ -81,23 +90,38 @@ def _prompt_logprobs(logits: torch.Tensor, targets) -> torch.Tensor:
                                                    device=logits.device))
 
 
-# -- batched bf16 projections around the paged walk (plain M=B products) ------
+# -- batched projections around the paged walk (M=B products) ----------------
 
 
-def batched_qkv_dot(xn: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """[B, h] @ [G, h, c] -> [B, G, c] bf16, float32 accumulation."""
+def _int8(w) -> bool:
+    return isinstance(w, QuantizedTensor) and w.kind == "int8"
+
+
+def batched_qkv_dot(xn: torch.Tensor, w) -> torch.Tensor:
+    """[B, h] @ [G, h, c] -> [B, G, c] bf16, float32 accumulation; int8:
+    each column's scale after the sum, then bf16 (JAX ``serving.py:164``)."""
+    if _int8(w):
+        G, _, c = w.shape
+        return _gemv_int8(xn, w.q, w.s, bf16_out=True).reshape(-1, G, c)
     return model._mm(xn[None], w).transpose(0, 1)
 
 
-def batched_o_dot(o3: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """[B, G, c] @ [G, c, hidden] summed over G -> [B, hidden] float32."""
+def batched_o_dot(o3: torch.Tensor, w) -> torch.Tensor:
+    """[B, G, c] @ [G, c, hidden] summed over G -> [B, hidden] float32;
+    int8: each group's partial scaled before the sum over G."""
     B, G, c = o3.shape
+    if _int8(w):
+        return _gemv_int8(o3.reshape(B, G * c), w.q.reshape(G * c, -1),
+                          w.s.reshape(G, -1), kg=c)
     return model._mm(o3.reshape(B, G * c), w.reshape(G * c, -1), out_f32=True)
 
 
-def batched_ffn(xn2: torch.Tensor, w13: torch.Tensor, w2: torch.Tensor,
-                ffn_act: str) -> torch.Tensor:
-    """Gated FFN of the batch (bf16 weights: the model's own FFN)."""
+def batched_ffn(xn2: torch.Tensor, w13, w2, ffn_act: str) -> torch.Tensor:
+    """Gated FFN of the batch: bf16 weights, the model's own FFN; int8
+    SwiGLU, gate and up scaled before it and down after its sum, on the
+    GEMVs' int8 instances."""
+    if _int8(w13):          # the engine admits only silu (_check_supported)
+        return _ffn_int8(xn2, w13.q, w13.s, w2.q, w2.s)
     return model._ffn(xn2, w13, w2, ffn_act)
 
 
@@ -194,14 +218,24 @@ class ServingEngine:
         model._check_supported(cfg)
         if kv_dtype != torch.bfloat16:
             raise NotImplementedError(f"kv_dtype {kv_dtype}: only a bf16 KV "
-                                      "pool is ported (int8/fp8 are not)")
+                                      "pool is ported (int8/fp8 are not: "
+                                      "ROADMAP.md queue 2, mode 2)")
         lw = params["layers"]
         weights = [lw[k] for k in ("wqkv_f", "wo_f", "w13", "w2")]
-        if any(not torch.is_tensor(w) or w.dtype != torch.bfloat16
+        if any(isinstance(w, QuantizedTensor) and w.kind != "int8"
                for w in weights + [params["lm_head"]]):
-            raise NotImplementedError("ServingEngine: only bf16 weights are "
-                                      "ported (quantized weights are not: "
-                                      "ROADMAP.md queue 2, mode 1)")
+            raise NotImplementedError("ServingEngine: int4 weights are not "
+                                      "ported yet (ROADMAP.md queue 2, "
+                                      "mode 1)")
+        if any(not isinstance(w, QuantizedTensor)
+               and w.dtype != torch.bfloat16
+               for w in weights + [params["lm_head"]]):
+            raise NotImplementedError("ServingEngine: only bf16 and int8 "
+                                      "weights are ported")
+        if kcfg.serving_w8a8:
+            raise NotImplementedError("ServingEngine: serving_w8a8 (int8 "
+                                      "activations) is not ported yet "
+                                      "(ROADMAP.md queue 2, mode 6)")
         if prefill_chunk is not None and prefill_chunk & (prefill_chunk - 1):
             # the chunk must divide every power-of-two capacity it splits
             raise ValueError(f"prefill_chunk {prefill_chunk} is not a power "

@@ -3,7 +3,7 @@ timed on one card.
 
     python3 scripts/tune_torch_gemv.py [--variants 4x32c1,6x32c1,3x32c1,4x64c1]
                                        [--threads 256,128,512] [--fused_step]
-                                       [--verify]
+                                       [--verify] [--int8]
 
 A variant ``SxRcP[rT]`` rebuilds the port's kernels with ``G1_STAGES = S``
 and ``G1_ROWS = R`` in ``csrc/common.cuh`` (ring stages and weight rows per
@@ -26,6 +26,11 @@ see the drift: A,B,B,A).  For each variant and each ``gemv_threads``
   five shapes at M 4 and 5 (gate/up as the SwiGLU pair, bf16 act out), L2
   cold as above, and kernel 8 at pos 600, n 5 and 9 (CUDA events, median
   of 20 calls);
+- with ``--int8``, the rows GEMV's int8 instance (kernels 8 and 9's int8
+  modes) at the same five shapes, M 4 and 5, on int8 codes with float32
+  scales (L2 cold as above; the rate counts the codes), and kernel 8's
+  int8 mode at pos 600, n 5 and 9, on the 7B weights regrouped to hg 8
+  and quantized as ``chip_smoke.py`` phase 17 does (median of 20 calls);
 - with ``--fused_step``, ``chip_smoke.py``'s phase 15 (b and c): mode 5
   of kernel 7 and the fused-collective tp 2 step on two virtual ranks.
 
@@ -140,6 +145,7 @@ def main() -> int:
     ap.add_argument("--threads", default="256,128,512")
     ap.add_argument("--fused_step", action="store_true")
     ap.add_argument("--verify", action="store_true")
+    ap.add_argument("--int8", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -206,6 +212,33 @@ def main() -> int:
             N // 2 if pair else N, torch.cuda.current_stream().cuda_stream),
             "cf_gemv_rows")
 
+    int8 = {}
+    if args.int8:
+        import chip_smoke
+        w8 = chip_smoke.int8_stack_weights(
+            lw, model.default_head_group(cfg),
+            model.default_head_group(cfg, "int8"))
+        int8["verify"] = {
+            n: (a[:5] + (w8["wqkv_f"], w8["wo_f"], w8["w13"], w8["w2"])
+                + a[9:]) for n, a in verify_args.items()}
+        for name, K, N in SHAPES:
+            shape = (2, K, N // 2) if name == "gate_up" else (K, N)
+            int8[name] = [
+                (torch.randint(-127, 128, shape, generator=gen, device=dev,
+                               dtype=torch.int8),
+                 torch.rand(shape[:-2] + (shape[-1],), generator=gen,
+                            device=dev) * 1e-2)
+                for _ in range(4)]
+
+    def rows_gemv8(x, qs, M, K, N, pair):
+        q, sc = qs
+        _build.check(_build.lib().cf_gemv_rows8(
+            x.data_ptr(), x.shape[1], int(pair), q.data_ptr(), sc.data_ptr(),
+            0, None if pair else rows_y.data_ptr(),
+            rows_act.data_ptr() if pair else None, M, K,
+            N // 2 if pair else N, 2 if pair else 1,
+            torch.cuda.current_stream().cuda_stream), "cf_gemv_rows8")
+
     lib_rates = {}
     for name, K, N in SHAPES:
         xs, ws = mats[name]
@@ -245,6 +278,21 @@ def main() -> int:
                 f"kernel8_n{n}_ms="
                 f"{step_ms(lambda a=a: sv.fused_verify_stack(*a, **kw)):.4f}"
                 for n, a in verify_args.items()), flush=True)
+        if args.int8:
+            parts = []
+            for M in (4, 5):
+                for name, K, N in SHAPES:
+                    ms = events_ms(rotating(
+                        lambda qs, M=M, K=K, N=N, name=name: rows_gemv8(
+                            rows_x[(M, name)], qs, M, K, N, name == "gate_up"),
+                        int8[name]))
+                    parts.append(f"M{M}_{name}={ms:.4f}ms/"
+                                 f"{K * N / ms / 1e9:.3f}TBps")
+            print(f"variant={v} rows_gemv8 " + " ".join(parts), flush=True)
+            print(f"variant={v} " + " ".join(
+                f"kernel8_int8_n{n}_ms="
+                f"{step_ms(lambda a=a: sv.fused_verify_stack(*a, **kw)):.4f}"
+                for n, a in int8["verify"].items()), flush=True)
         if args.fused_step:
             import chip_smoke
             print(f"variant={v} phase 15:", flush=True)

@@ -1128,7 +1128,7 @@ def test_stack_c_entries_refuse_head_dim_256(dev, entry):
                                    *[None] * 5)
     else:
         err = lib.cf_verify_stack(*p, 2, *dims, 1e-5, 64, 256,
-                                  ctypes.byref(n_launch), st)
+                                  ctypes.byref(n_launch), st, *[None] * 5)
     torch.cuda.synchronize()
     assert err == 1
     assert n_launch.value == 0
@@ -1748,3 +1748,273 @@ def test_stack_mode5_wait_is_bounded(dev):
         assert 1.9 < waited < 4.0
     finally:
         lb.close()
+
+
+# -- int8 weights on the rows GEMV (kernels 8 and 9, int8 serving) ------------
+
+
+def _int8_codes(dev, nmat, K, N, seed):
+    """Random int8 codes over the whole range and positive scales."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randint(-128, 128, (nmat, K, N), generator=g, dtype=torch.int8)
+    s = torch.rand((nmat, N), generator=g) * 1e-2 + 1e-3
+    return q.to(dev), s.to(dev)
+
+
+@pytest.mark.parametrize("M", [1, 2, 5, 8, 9, 16, 20])
+@pytest.mark.parametrize("K,N,nmat,kg", [(512, 256, 1, 0), (1024, 272, 3, 0),
+                                         (4096, 512, 1, 1024),
+                                         (2048, 4096, 1, 0)],
+                         ids=["one", "three_ragged", "groups", "wide"])
+@pytest.mark.parametrize("bf16_out", [False, True], ids=["f32", "bf16"])
+def test_rows_gemv8_matches_plain(dev, M, K, N, nmat, kg, bf16_out):
+    """The GEMVs' int8 instances (the rows GEMV's from 2 rows, the one-row
+    GEMV's at 1) against their plain twin: x_bf16 @ bf16(code) in float32,
+    the per-column scale after the sum (kg 0) or each group's scale on its
+    partial (kg > 0), the same bits on a repeat.  The codes take every
+    value of int8, -128 included."""
+    gemv = importlib.import_module("clusterfusion_tpu_torch.ops.gemv")
+    q, s = _int8_codes(dev, nmat, K, N, 70 + M)
+    if kg:
+        s = s.new_empty((K // kg, N)).uniform_(1e-3, 1e-2)
+    x = _randn((M, K), dev, 71)
+    before = gemv.int8_launches
+    y = gemv._gemv_int8(x, q, s, kg=kg, bf16_out=bf16_out)
+    again = gemv._gemv_int8(x, q, s, kg=kg, bf16_out=bf16_out)
+    torch.cuda.synchronize()
+    assert gemv.int8_launches == before + 2
+    ref = gemv._gemv_int8_plain(x.cpu(), q.cpu(), s.cpu(), kg)
+    assert y.shape == (M, nmat * N) and torch.equal(y, again)
+    if bf16_out:
+        ref = ref.to(torch.bfloat16)
+    torch.testing.assert_close(y.float().cpu(), ref.float(),
+                               atol=1e-3 * ref.abs().max().item(), rtol=1e-2)
+
+
+def test_rows_gemv8_scales_each_column_and_group(dev):
+    """Scale placement: a one-hot x row picks one k row of the codes, so
+    each output is code * scale exactly, column by column and (kg > 0) from
+    the scale row of that k row's group."""
+    gemv = importlib.import_module("clusterfusion_tpu_torch.ops.gemv")
+    K, N, kg = 512, 512, 128
+    q, _ = _int8_codes(dev, 1, K, N, 80)
+    s = torch.arange(1, K // kg * N + 1, dtype=torch.float32,
+                     device=dev).reshape(K // kg, N) * 1e-3
+    rows = [3, 130, 300, 511]
+    x = torch.zeros((len(rows), K), dtype=torch.bfloat16, device=dev)
+    x[torch.arange(len(rows)), rows] = 1
+    y = gemv._gemv_int8(x, q, s, kg=kg)
+    want = q[0, rows].float() * s[[r // kg for r in rows]]
+    assert torch.equal(y, want)
+    y1 = gemv._gemv_int8(x, q, s[:1])
+    assert torch.equal(y1, q[0, rows].float() * s[0])
+
+
+@pytest.mark.parametrize("M", [1, 4, 9])
+def test_ffn8_matches_plain(dev, M):
+    """The int8 FFN (the rows GEMV's pair form, gate and up each scaled
+    before the SwiGLU, then the down product scaled after its sum; at one
+    row the one-row GEMV's int8 instances) against its plain twin."""
+    gemv = importlib.import_module("clusterfusion_tpu_torch.ops.gemv")
+    from clusterfusion_tpu_torch.ops.quant import quantize_int8
+    hidden, f = 512, 1024
+    w13 = quantize_int8(_randn((2, hidden, f), dev, 90, hidden ** -0.5), -2)
+    w2 = quantize_int8(_randn((f, hidden), dev, 91, f ** -0.5), -2)
+    x = _randn((M, hidden), dev, 92)
+    before = gemv.ffn8_launches
+    out = gemv._ffn_int8(x, w13.q, w13.s, w2.q, w2.s)
+    again = gemv._ffn_int8(x, w13.q, w13.s, w2.q, w2.s)
+    torch.cuda.synchronize()
+    assert gemv.ffn8_launches == before + 2
+    ref = gemv._ffn_int8_plain(x.cpu(), w13.q.cpu(), w13.s.cpu().reshape(2, f),
+                               w2.q.cpu(), w2.s.cpu().reshape(hidden))
+    assert torch.equal(_bits(out), _bits(again))
+    torch.testing.assert_close(out.float().cpu(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.parametrize("n,pos", [(1, 37), (2, 0), (5, 37), (9, 300),
+                                   (17, 100)])
+@pytest.mark.parametrize("lm_kind", [None, "bf16", "int8"],
+                         ids=["no_lm", "lm_bf16", "lm_int8"])
+@pytest.mark.parametrize("n_heads,kv_heads,hg", INT8_SHAPES,
+                         ids=["hg4_G2", "hg8_G2", "hg8_G1"])
+def test_verify_int8_kernel_matches_plain(dev, n_heads, kv_heads, hg,
+                                          lm_kind, n, pos):
+    """Kernel 8's int8 mode against its plain twin at phase 9's limits,
+    rows at and above pos holding large garbage, the other rows untouched,
+    and the same bits on a repeat."""
+    from clusterfusion_tpu_torch.ops import stack_verify as sv
+    g, a, kc, vc, lm = _stack_args(dev, n_heads, kv_heads, hg, pos, seed=50)
+    kc[:, :, pos:] = _randn(kc[:, :, pos:].shape, dev, 51, 8.0)
+    vc[:, :, pos:] = _randn(vc[:, :, pos:].shape, dev, 52, 8.0)
+    w, head = _int8_stack(a, lm, lm_kind)
+    x = _randn((n, HIDDEN), dev, 53)
+    cfg = LlamaConfig.tiny()
+    cos, sin = model.rope_rows(cfg, pos, n, dev)
+    kw = dict(group=g, head_dim=HD, rope_style=cfg.rope_style, eps=1e-5,
+              **head)
+    args = [x, a["attn_norm"], a["ffn_norm"], cos, sin, w["wqkv_f"],
+            w["wo_f"], w["w13"], w["w2"]]
+    k0, v0 = kc.clone(), vc.clone()
+    kp, vp = kc.clone(), vc.clone()
+    k2, v2 = kc.clone(), vc.clone()
+    before = (sv.launches, sv.int8_launches)
+    out = sv.fused_verify_stack(*args, kc, vc, pos, **kw)
+    again = sv.fused_verify_stack(*args, k2, v2, pos, **kw)
+    torch.cuda.synchronize()
+    assert (sv.launches, sv.int8_launches) == (before[0] + 2, before[1] + 2)
+    assert sv.last_step_kernels == 8 * L - (pos == 0) * L + 1 + bool(head)
+    for got, want in zip((*again[:2], k2, v2), (*out[:2], kc, vc)):
+        assert torch.equal(got, want)
+    ref = sv.fused_verify_stack_plain(*args, kp, vp, pos, **kw)
+    if head:
+        err = (out[0] - ref[0]).abs().max().item()
+        assert err <= 2e-2 * ref[0].abs().max().item(), err
+    else:
+        torch.testing.assert_close(out[0].float(), ref[0].float(),
+                                   atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(out[1].float(), ref[1].float(), atol=2e-2,
+                               rtol=2e-2)
+    new = slice(pos, pos + n)
+    for got, want in ((kc, kp), (vc, vp)):
+        torch.testing.assert_close(got[:, :, new].float(),
+                                   want[:, :, new].float(), atol=0.05, rtol=0)
+    others = torch.ones(CAP, dtype=torch.bool, device=dev)
+    others[new] = False
+    assert torch.equal(kc[:, :, others], k0[:, :, others])
+    assert torch.equal(vc[:, :, others], v0[:, :, others])
+
+
+@pytest.mark.parametrize("B,lens", [(1, [37]), (4, [40, 0, 0, 0]),
+                                    (8, [0, 1, 15, 16, 63, 64, 100, 200])])
+@pytest.mark.parametrize("kv,hg", [(8, 4), (8, 8)], ids=["hg4_G2", "hg8_G1"])
+def test_paged_layer_int8_kernel_matches_plain(dev, B, lens, kv, hg):
+    """Kernel 9's int8 mode against its plain twin, NaN in every pool row
+    no request owns, the same bits on a repeat (into fresh pools)."""
+    from clusterfusion_tpu_torch.ops import paged_decoder_layer as pd
+    from clusterfusion_tpu_torch.ops.quant import quantize_int8
+    L, layer, hidden, g, hd, page = 2, 1, 512, 2, 128, 16
+    cfg = LlamaConfig.tiny()
+    cos_t, sin_t = model.rope_table(cfg, device=dev)
+    kp, vp, table, lens_t = _paged_pools(dev, L, kv, page, hd, lens, 60)
+    _nan_unowned(kp, vp, table, lens_t)
+    wqkv, wo = (quantize_int8(w, -2)
+                for w in _layer_weights(dev, L, hidden, kv, g, hd, hg, 61))
+    x = _randn((B, hidden), dev, 62)
+    res = _randn((B, hidden), dev, 63)
+    rms = 1 + _randn((hidden,), dev, 64, 0.1)
+    kr, vr = kp.clone(), vp.clone()
+    k2, v2 = kp.clone(), vp.clone()
+    args = (wqkv, wo, table, lens_t, lens_t)
+    kw = dict(group=g, rope_style=cfg.rope_style)
+    before = pd.launches["llama_decoder_layer_paged_int8"]
+    out = pd.llama_decoder_layer_paged(x, res, *args, kp, vp, layer, rms,
+                                       1e-5, cos_t, sin_t, **kw)
+    again = pd.llama_decoder_layer_paged(x, res, *args, k2, v2, layer, rms,
+                                         1e-5, cos_t, sin_t, **kw)
+    torch.cuda.synchronize()
+    assert pd.launches["llama_decoder_layer_paged_int8"] == before + 2
+    assert torch.equal(_bits(out[0]), _bits(again[0]))
+    assert torch.equal(_bits(kp), _bits(k2)) and torch.equal(_bits(vp),
+                                                             _bits(v2))
+    assert torch.isfinite(out[0].float()).all()
+    want = pd.llama_decoder_layer_paged_plain(x, res, *args, kr, vr, layer,
+                                              rms, 1e-5, cos_t, sin_t, **kw)
+    for i in (0, 1):
+        torch.testing.assert_close(out[i].float(), want[i].float(), atol=2e-2,
+                                   rtol=2e-2)
+    app = _appended_mask(kp, table, lens_t, layer)
+    torch.testing.assert_close(kp[app].float(), kr[app].float(), atol=0.05,
+                               rtol=0)
+    assert torch.equal(_bits(kp[~app]), _bits(kr[~app]))
+
+
+def test_int8_entries_refuse(dev):
+    """On the card the wrappers refuse int4 weights before any launch
+    (ROADMAP.md queue 2, mode 1), and the C entries refuse what the int8
+    instances do not take: a width that is not a multiple of 16, a scale
+    group that does not divide K, the pair form at one row."""
+    from clusterfusion_tpu_torch.ops import _build
+    from clusterfusion_tpu_torch.ops import paged_decoder_layer as pd
+    from clusterfusion_tpu_torch.ops import stack_verify as sv
+    from clusterfusion_tpu_torch.ops.quant import quantize_llama_params
+    pos, n = 37, 3
+    g, a, kc, vc, lm = _stack_args(dev, 16, 8, 4, pos, seed=65)
+    q4 = quantize_llama_params(
+        {"layers": {k: a[k] for k in ("wqkv_f", "wo_f", "w13", "w2")},
+         "lm_head": lm["lm_head"]}, "int4")["layers"]
+    cos, sin = model.rope_rows(LlamaConfig.tiny(), pos, n, dev)
+    before = sv.launches
+    with pytest.raises(NotImplementedError, match="queue 2, mode 1"):
+        sv.fused_verify_stack(_randn((n, HIDDEN), dev, 66), a["attn_norm"],
+                              a["ffn_norm"], cos, sin, q4["wqkv_f"],
+                              q4["wo_f"], q4["w13"], q4["w2"], kc, vc, pos,
+                              group=g, head_dim=HD, rope_style="gptj",
+                              eps=1e-5)
+    assert sv.launches == before
+    cos_t, sin_t = model.rope_table(LlamaConfig.tiny(), device=dev)
+    kp, vp, table, lens_t = _paged_pools(dev, 2, 8, 16, HD, [5, 9], 67)
+    with pytest.raises(NotImplementedError, match="queue 2, mode 1"):
+        pd.llama_decoder_layer_paged(
+            _randn((2, HIDDEN), dev, 68), _randn((2, HIDDEN), dev, 69),
+            q4["wqkv_f"], q4["wo_f"], table, lens_t, lens_t, kp, vp, 1,
+            a["attn_norm"][1], 1e-5, cos_t, sin_t, group=g)
+    lib = _build.lib()
+    x = _randn((4, 512), dev, 70)
+    q = torch.zeros((2, 512, 512), dtype=torch.int8, device=dev)
+    s = torch.ones((2, 512), device=dev)
+    y = torch.empty((4, 1024), device=dev)
+    yb = torch.empty((4, 512), dtype=torch.bfloat16, device=dev)
+    st = torch.cuda.current_stream(dev).cuda_stream
+    good = lib.cf_gemv_rows8(x.data_ptr(), 512, 0, q.data_ptr(), s.data_ptr(),
+                             0, y.data_ptr(), None, 4, 512, 512, 2, st)
+    assert good == 0
+    for args in ((0, 0, 4, 512, 504, 2), (0, 300, 4, 512, 512, 1),
+                 (1, 0, 1, 512, 512, 2)):
+        pair, kg, M, K, N, nmat = args
+        err = lib.cf_gemv_rows8(x.data_ptr(), 512, pair, q.data_ptr(),
+                                s.data_ptr(), kg, y.data_ptr(), yb.data_ptr(),
+                                M, K, N, nmat, st)
+        assert err != 0, args
+    torch.cuda.synchronize()
+
+
+def test_int8_engine_spec_and_serving_on_card(dev):
+    """The int8 engine on the card: ``spec_generate`` (self-draft and a bf16
+    draft) runs kernel 8's int8 mode once a round and emits the engine's
+    own greedy stream; ``generate`` and both serving steps run the int8
+    products and give each request the tokens it gets alone."""
+    from clusterfusion_tpu_torch.models.generation import Llama
+    from clusterfusion_tpu_torch.ops import paged_decoder_layer as pd
+    from clusterfusion_tpu_torch.ops import stack_verify as sv
+    from clusterfusion_tpu_torch.runtime import ServingEngine
+    gemv = importlib.import_module("clusterfusion_tpu_torch.ops.gemv")
+    cfg = LlamaConfig.tiny(max_seq_len=256)
+    eng = Llama.synthetic(cfg, quant="int8", device=dev)
+    prompt = list(range(1, 30))
+    ref = list(eng.stream_generate(prompt, 12, temperature=0.0))
+    for draft in (eng, Llama.synthetic(cfg, seed=1, device=dev)):
+        before = sv.int8_launches
+        toks = eng.spec_generate(prompt, 12, draft, n_draft=4)
+        assert sv.int8_launches - before == eng.spec_stats["rounds"]
+        assert toks == ref
+    prompts = [list(range(1, 9)), list(range(3, 40)), list(range(5, 21))]
+    for impl in ("batched", "fused"):
+        outs = []
+        for batch in (prompts, *([p] for p in prompts)):
+            srv = ServingEngine(eng.params, cfg, page_size=16, num_pages=32,
+                                max_batch=4, step_impl=impl)
+            for i, p in enumerate(batch):
+                srv.submit(i, p, 6, temperature=0.0)
+            before = (gemv.int8_launches, gemv.ffn8_launches,
+                      pd.launches["llama_decoder_layer_paged_int8"])
+            outs.append(srv.run())
+            assert (gemv.int8_launches > before[0]) == (impl == "batched")
+            assert gemv.ffn8_launches > before[1]
+            assert (pd.launches["llama_decoder_layer_paged_int8"] > before[2]) \
+                == (impl == "fused")
+        for i in range(len(prompts)):
+            assert outs[0][i] == outs[1 + i][0], (impl, i)
+    toks, _ = eng.generate([prompts[0]], 6, temperature=0.0)
+    assert toks[0] == outs[1][0]

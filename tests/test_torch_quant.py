@@ -367,6 +367,13 @@ def test_int8_engine_streams():
 
 
 def test_quantized_paths_still_refused(tree):
+    """What stays refused once int8 runs everywhere on one card
+    (``tests/test_torch_int8.py`` holds those paths): int4 weights in
+    kernels 7 and 8, ``spec_generate``, ``generate`` and the serving engine
+    (queue 2, mode 1); int8 weights with ``reduce_axis`` and in
+    ``shard_params`` (mode 1, the tp/sp steps); ``serving_w8a8`` (mode 6);
+    int8 and fp8 KV in the serving pools and kernel 8 (mode 2); ``chat
+    --quant int4``."""
     _, _, tp = tree
     tcfg = LlamaConfig.tiny()
     g, hd = tcfg.n_heads // tcfg.kv_heads, tcfg.head_dim_
@@ -380,18 +387,36 @@ def test_quantized_paths_still_refused(tree):
                 lw["wqkv_f"], lw["wo_f"], lw["w13"], lw["w2"], kc, vc, 3,
                 group=g, head_dim=hd, rope_style="gptj", eps=1e-5, **kw)
     from clusterfusion_tpu_torch.ops.stack_verify import fused_verify_stack
-    lw = tq.quantize_llama_params(tp, "int8")["layers"]
+    lw = tq.quantize_llama_params(tp, "int4")["layers"]
     cos2, sin2 = tmodel.rope_rows(tcfg, 3, 2)
     with pytest.raises(NotImplementedError, match="queue 2, mode 1"):
         fused_verify_stack(tp["embed"][[7, 8]], lw["attn_norm"],
                            lw["ffn_norm"], cos2, sin2, lw["wqkv_f"],
                            lw["wo_f"], lw["w13"], lw["w2"], kc, vc, 3,
                            group=g, head_dim=hd, rope_style="gptj", eps=1e-5)
+    eng4 = Llama(tp, tcfg, None, quant="int4")
+    with pytest.raises(NotImplementedError, match="queue 2, mode 1"):
+        eng4.spec_generate([1, 2, 3], 4, eng4)
+    with pytest.raises(NotImplementedError, match="queue 2, mode 1"):
+        eng4.generate([[1, 2, 3]], 4)
+    from clusterfusion_tpu_torch.config import KernelConfig
+    from clusterfusion_tpu_torch.runtime import ServingEngine
+    with pytest.raises(NotImplementedError, match="queue 2, mode 1"):
+        ServingEngine(eng4.params, tcfg)
     eng = Llama(tp, tcfg, None, quant="int8")
-    with pytest.raises(NotImplementedError, match="queue 2, mode 1"):
-        eng.spec_generate([1, 2, 3], 4, eng)
-    with pytest.raises(NotImplementedError, match="queue 2, mode 1"):
-        eng.generate([[1, 2, 3]], 4)
+    with pytest.raises(NotImplementedError, match="queue 2, mode 6"):
+        ServingEngine(eng.params, tcfg, kcfg=KernelConfig(serving_w8a8=True))
+    for kv_dtype in (torch.int8, torch.float8_e4m3fn):
+        with pytest.raises(NotImplementedError, match="queue 2, mode 2"):
+            ServingEngine(eng.params, tcfg, kv_dtype=kv_dtype)
+    lw = tq.quantize_llama_params(tp, "int8")["layers"]
+    for kv_dtype in (torch.int8, torch.float8_e4m3fn):
+        with pytest.raises(NotImplementedError, match="queue 2, mode 2"):
+            fused_verify_stack(
+                tp["embed"][[7, 8]], lw["attn_norm"], lw["ffn_norm"], cos2,
+                sin2, lw["wqkv_f"], lw["wo_f"], lw["w13"], lw["w2"],
+                kc.to(kv_dtype), vc.to(kv_dtype), 3, group=g, head_dim=hd,
+                rope_style="gptj", eps=1e-5)
     from clusterfusion_tpu_torch.parallel.mesh import AXES, Mesh
     from clusterfusion_tpu_torch.parallel.sharding import shard_params
     mesh = Mesh(shape=dict.fromkeys(AXES, 1), coords=dict.fromkeys(AXES, 0),
@@ -399,11 +424,8 @@ def test_quantized_paths_still_refused(tree):
     with pytest.raises(NotImplementedError, match="queue 2, mode 1"):
         shard_params(eng.params, tcfg, mesh)
     from clusterfusion_tpu_torch import chat
-    for flags in (["--synthetic", "--quant", "int4", "--device", "cpu"],
-                  ["--synthetic", "--quant", "int8", "--spec_draft",
-                   "synthetic", "--device", "cpu"]):
-        with pytest.raises(SystemExit, match="not yet ported"):
-            chat.main(flags)
+    with pytest.raises(SystemExit, match="not yet ported"):
+        chat.main(["--synthetic", "--quant", "int4", "--device", "cpu"])
 
 
 def test_chat_cli_int8(capsys):
