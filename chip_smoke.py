@@ -201,6 +201,47 @@ reuses phase 17's int8 weights, phases 20-22 phase 18's int8 engine):
    it gives in the batch; then ``Llama.generate`` at B 1 (fused) and B 4
    (batched) against the int8 plain path under the top-2-gap rule.
 
+Phases 24-26 run after 22, on phase 18's int8 engine (hg 8, G 4), while
+the bf16 engine is alive:
+
+24. kernel 6's int8 mode (``_fused_decoder_layer`` on an int8
+   ``QuantizedTensor`` pair), as phase 13 runs the bf16 mode: layer 1, a
+   4096-row cache, pos 600, large garbage at and above pos, on the whole
+   tree and on the first tp-2 shard's slices (16 kv heads, G 2): full mode
+   with the append and partials mode on [0, 300) and [300, 600) merged
+   against one partials call and, O-projected over the codes and scales,
+   against the full output, each against the int8 plain twin at phase 13's
+   limits, a repeat bit-identical, one launch a call; device time (a CUDA
+   graph of 20 calls replayed between two events) and call time beside the
+   bf16 kernel 6 on the same inputs, the twin's time, the byte bound, both
+   launch plans and phase stamps;
+25. the int8 tp and sp steps end to end in a one-rank NCCL group, as phase
+   14 runs the bf16 ones, with the engine's bf16 LM head and with an int8
+   head: ``shard_params`` views, a 512-token prefill, 32 greedy steps of
+   ``make_sharded_decode_step`` and 8 of ``make_sp_sharded_decode_step``,
+   each stream against kernel 7's int8 step (teacher forced) and the int8
+   plain path under the top-2-gap rule; ms per step and tokens/s beside
+   phase 14's; launches per step (kernel 6's int8 mode 32; kernel 2 32 in
+   the tp step, 0 in the sp step; ``_ffn_int8`` 32; ``_gemv_int8`` 32 O
+   products in the sp step and one LM-head product where the head is
+   int8); the memory a step allocates beyond what it holds (no bf16 copy
+   of a weight); busy time and the tp step's kernels by device time;
+26. kernel 7's int8 mode 5 at tp 2 on this card, over the loopback
+   communicator, as phase 15 (b) and (c) run bf16 (``[mode5_int8]``,
+   ``[fused_step_int8]``): the int8 tree with an int8 LM head in two tp
+   shards, each rank's step against the unsharded int8 kernel 7, first on
+   4 layers at phase 15's limits, then on all 32, where x_out and the
+   residual may also stray 1.25 times the bf16 mode-5 step's drift of
+   phase 15 (its largest error over the largest value: at full depth both
+   drift by a bf16 rounding a layer), the appended rows at phase 4's
+   limits, the ranks bit-identical, the gathered int8 LM head against the
+   ranks' own shards concatenated within 1e-3 of the largest logit; then
+   16 greedy steps of
+   ``make_sharded_decode_step(fused_collectives=True)`` on the int8 tree:
+   8L+3 kernels a rank, each step one call of kernel 7's int8 mode, no
+   standalone kernel 13 or 14, the ranks bit-identical; ms per pair step
+   beside phase 15's bf16 pair step.
+
 Then, where the machine has two cards or more:
 
 16. one rank per card (``torch.multiprocessing``, a ``file://`` store,
@@ -222,7 +263,10 @@ Then, where the machine has two cards or more:
    rank's median of 5 batches of 100 back-to-back calls, each batch started
    after ``synchronize`` and ``dist.barrier`` (paced by the host's calls);
    their device times are the profiler's per call over 50 calls, at the
-   rank that waited least and the one that waited most.
+   rank that waited least and the one that waited most.  Then the same two
+   steps on an int8 tree (the weights regrouped to 8 kv heads a group and
+   quantized per output column, the LM head too; ``step=fused_int8`` and
+   ``nccl_int8``), against kernel 7's int8 mode teacher-forced.
    ``python3 chip_smoke.py multicard`` runs phases 1, 2 and 16 alone.
 
 Then one JSON line per kernel table, the card line, and last
@@ -710,6 +754,9 @@ def busy_ms(fn, passes=()):
 
 
 K6_PHASES = ("norm", "qkv", "rope", "split_kv", "merge", "oproj", "fold")
+#: Figures a phase keeps for a later phase to print beside its own (the
+#: bf16 steps' ms beside the int8 steps').
+FIGURES = {}
 K5_PHASES = ("norm", "gate_up", "act", "down", "cluster_sum", "fold", "end")
 
 
@@ -1795,6 +1842,8 @@ def phase_sharded(eng, dev):
                 agree=f"{sum(a == b for a, b in zip(ref, toks))}/{n}",
                 disagree_where_gap_gt_0_1=bad,
                 min_top2_gap=f"{min(gaps):.3g}")
+            FIGURES[f"sharded_{name}_ms_per_step"] = dt * 1e3 / n
+            FIGURES[f"sharded_{name}_tokens_per_s"] = n / dt
             want2 = L * n if name == "tp" else 0
             if k6 != L * n or k2 != want2 or not finite or bad \
                     or flash != L or not views:
@@ -1913,9 +1962,11 @@ def phase_collectives(dev, hbm):
     return rows
 
 
-def phase_mode5(eng, dev, pos=600):
+def phase_mode5(eng, dev, pos=600, params=None, phase="mode5", drift=None):
     """Phase 15, second part: mode 5 of kernel 7 (``reduce_axis``) at tp 2
-    on this card.  The engine's 7B weights and a cache filled at random as
+    on this card (phase 26, ``phase="mode5_int8"``: the same on ``params``,
+    the int8 engine's tree with an int8 LM head: the O and down products
+    and the LM head's shard push through ring_gemv8_kernel).  The engine's 7B weights and a cache filled at random as
     in phase 4 are cut into two tp shards (``shard_params`` /
     ``shard_cache`` on a loopback communicator's meshes); each virtual rank
     runs ``fused_decoder_stack(reduce_axis="tp")`` without the LM head on
@@ -1928,13 +1979,19 @@ def phase_mode5(eng, dev, pos=600):
     the stack at the tp step's shapes: each rank's step with its LM-head
     shard and the logits gathered (8L+3 kernels), the ranks bit-identical
     and within 1e-3 of the largest logit of the plain version (the ranks'
-    own shards from the public call with the LM head, concatenated)."""
+    own shards from the public call with the LM head, concatenated).
+    ``drift`` (x_out's and the residual's largest error over their largest
+    value in phase 15's bf16 run): x_out and the residual may also stray up
+    to 1.25 times that share, since at full depth the two steps drift
+    apart by a bf16 rounding a layer (phase 26 holds 4 layers at the
+    limits above first)."""
     from clusterfusion_tpu_torch import parallel as par
     from clusterfusion_tpu_torch.models import llama as model
     from clusterfusion_tpu_torch.ops import stack_kernel as sk
     from clusterfusion_tpu_torch.parallel import collective as col
-    cfg, p = eng.cfg, eng.params
-    lw, L, tp = p["layers"], cfg.n_layers, 2
+    cfg, p = eng.cfg, eng.params if params is None else params
+    lw, tp = p["layers"], 2
+    L = lw["wqkv_f"].shape[0]
     g, hd = cfg.n_heads // cfg.kv_heads, cfg.head_dim_
     gen = torch.Generator(device=dev).manual_seed(2)
     kc, vc = model.init_cache(cfg, max_seq=1024, device=dev)
@@ -1980,22 +2037,28 @@ def phase_mode5(eng, dev, pos=600):
                 torch.cuda.current_stream(dev).wait_stream(s)
             return outs
 
-        k7, k13 = sk.launches, col.launches["all_reduce"]
+        k7, k13, i8 = sk.launches, col.launches["all_reduce"], sk.int8_launches
         outs = both()
         torch.cuda.synchronize()
         lb.check()
         per_step = sk.last_step_kernels
         k7, k13 = sk.launches - k7, col.launches["all_reduce"] - k13
+        i8 = sk.int8_launches - i8
         same = all(torch.equal(o[0], outs[0][0]) and
                    torch.equal(o[1], outs[0][1]) for o in outs)
-        errs, rows_ok, unchanged = [], True, True
+        errs, rows_ok, unchanged, row0, rel = [], True, True, [], [0.0, 0.0]
         others = torch.ones(kc.shape[2], dtype=torch.bool, device=dev)
         others[pos] = False
         for r, (xo, ro, k, v) in enumerate(outs):
-            for got, want in ((xo, ref[0]), (ro, ref[1])):
+            for j, (got, want) in enumerate(((xo, ref[0]), (ro, ref[1]))):
                 e = (got.float() - want.float()).abs().max().item()
+                m = want.float().abs().max().item()
                 errs.append(e)
-                rows_ok &= e <= 0.05 + 1e-2 * want.float().abs().max().item()
+                rel[j] = max(rel[j], e / m)
+                lim = 0.05 + 1e-2 * m
+                if drift is not None:
+                    lim = max(lim, 1.25 * drift[j] * m)
+                rows_ok &= e <= lim
             heads = slice(r * cfg.kv_heads // tp, (r + 1) * cfg.kv_heads // tp)
             row_err = torch.maximum(
                 (k[:, :, pos].float() - kr[:, heads, pos].float()).abs()
@@ -2008,6 +2071,7 @@ def phase_mode5(eng, dev, pos=600):
             rows_ok &= bool(row_err[0] <= 0.05) and \
                 bool((row_err <= 0.05 + 1e-2 * row_mag).all())
             errs.append(row_err.max().item())
+            row0.append(row_err[0].item())
             unchanged &= torch.equal(k[:, :, others], kc[:, heads][:, :, others])
             unchanged &= torch.equal(v[:, :, others], vc[:, heads][:, :, others])
         torch.cuda.synchronize()
@@ -2016,6 +2080,8 @@ def phase_mode5(eng, dev, pos=600):
             both()
         torch.cuda.synchronize()
         pair_ms = (time.perf_counter() - t0) * 1e2
+        FIGURES[f"{phase}_pair_ms"] = pair_ms
+        FIGURES[f"{phase}_drift"] = rel
         # kernel 14 inside the stack at the tp step's shapes (the LM head's
         # pushing product over each rank's 16000 columns and the gather's
         # wait) against its plain version: the ranks' own shards (the
@@ -2030,7 +2096,7 @@ def phase_mode5(eng, dev, pos=600):
         g_err = max((g[0] - want).abs().max().item() for g in gathered)
         g_tol = 1e-3 * want.abs().max().item()
         g_same = all(torch.equal(g, gathered[0]) for g in gathered)
-        say("mode5", kernel=14, in_stack=True, tp=tp, loopback=True,
+        say(phase, kernel=14, in_stack=True, tp=tp, loopback=True,
             shard=local[0].numel(), gather_vs_plain_max_abs_err=g_err,
             tol=f"{g_tol:.3g} (1e-3 of the largest logit: the pushing "
                 "product's K chunks may be cut otherwise than the plain "
@@ -2040,7 +2106,16 @@ def phase_mode5(eng, dev, pos=600):
         if g_err > g_tol or not g_same or gathered_kernels != 8 * L + 3:
             raise AssertionError("kernel 14 inside the stack disagrees with "
                                  "its plain version")
-        say("mode5", kernel=7, reduce_axis="tp", tp=tp, loopback=True,
+        int8 = {} if phase == "mode5" else dict(
+            layers=L, int8_launches=i8, bf16_both_ranks_ms_per_step=(
+                f"{FIGURES['mode5_pair_ms']:.3f}" if "mode5_pair_ms" in FIGURES
+                else "not measured"),
+            x_res_err_over_max=[round(v, 5) for v in rel],
+            bf16_x_res_err_over_max=[round(v, 5) for v in
+                                     FIGURES.get("mode5_drift", [])],
+            tol_x_res="0.05+1e-2*max|ref|" if drift is None else
+            "max(0.05+1e-2*max|ref|, 1.25*bf16 err/max*max|ref|)")
+        say(phase, kernel=7, reduce_axis="tp", tp=tp, loopback=True,
             pos=pos, x_out_err=f"{errs[0]:.4g}", residual_err=f"{errs[1]:.4g}",
             kv_row_err_max=f"{max(errs[2::3]):.4g}",
             tol="x/res 0.05+1e-2*max|ref|; rows layer 0 atol=0.05, "
@@ -2050,18 +2125,23 @@ def phase_mode5(eng, dev, pos=600):
             kernels_per_step=per_step, stack_launches=k7,
             reduces=k13,
             both_ranks_ms_per_step=f"{pair_ms:.3f}",
-            error_word=lb.ranks[0].error())
+            error_word=lb.ranks[0].error(), **int8)
         if not (same and rows_ok and unchanged and repeatable and k7 == tp
-                and k13 == 2 * L * tp and per_step == 8 * L + 1):
+                and k13 == 2 * L * tp and per_step == 8 * L + 1
+                and (phase == "mode5" or i8 == tp)):
             raise AssertionError("mode 5 disagrees with kernel 7's "
-                                 "unsharded step")
+                                 f"unsharded step (errors {errs}, layer 0's "
+                                 f"rows {row0})")
     finally:
         lb.close()
     return shards
 
 
-def phase_fused_step(eng, dev, shards, n=16):
-    """Phase 15, third part, this slice's path: ``make_sharded_decode_step(
+def phase_fused_step(eng, dev, shards, n=16, params=None,
+                     phase="fused_step"):
+    """Phase 15, third part (phase 26's, ``phase="fused_step_int8"``, on
+    ``params``, the int8 tree whose ``shards`` phase_mode5 cut, each step
+    one call of kernel 7's int8 mode): ``make_sharded_decode_step(
     fused_collectives=True)`` at tp 2 on this card, two virtual ranks on
     their own streams over a loopback communicator: a 512-token prefill
     (kernel 4) on the whole weights, then ``n`` greedy steps per rank, each
@@ -2080,10 +2160,11 @@ def phase_fused_step(eng, dev, shards, n=16):
     from clusterfusion_tpu_torch.parallel import collective as col
     from clusterfusion_tpu_torch.parallel.mesh import AXES
     cfg, L, tp = eng.cfg, eng.cfg.n_layers, len(shards)
+    p = eng.params if params is None else params
     text = ("The quick brown fox jumps over the lazy dog. " * 20)[:511]
     prompt = eng.tokenizer.encode(text, bos=True, eos=False)
     k0, v0 = model.init_cache(cfg, device=dev)
-    lg, k0, v0 = model.prefill(eng.params, k0, v0, prompt, cfg)
+    lg, k0, v0 = model.prefill(p, k0, v0, prompt, cfg)
     first, pos0 = int(torch.argmax(lg[-1])), len(prompt)
     # one step at tp 1 first, so that every kernel of the path is loaded
     # before a virtual rank spins on the card (see ``LoopbackComm``); the
@@ -2091,7 +2172,7 @@ def phase_fused_step(eng, dev, shards, n=16):
     alone = par.Mesh(shape={a: 1 for a in AXES}, coords={a: 0 for a in AXES},
                      groups={a: None for a in AXES})
     par.make_sharded_decode_step(cfg, alone, fused_collectives=True)(
-        eng.params, k0, v0, first, pos0)
+        p, k0, v0, first, pos0)
     lb = col.LoopbackComm(tp, dev)
     try:
         meshes = [lb.mesh(r) for r in range(tp)]
@@ -2105,7 +2186,7 @@ def phase_fused_step(eng, dev, shards, n=16):
         torch.cuda.synchronize()
         for k in col.launches:
             col.launches[k] = col.standalone[k] = 0
-        sk.launches = 0
+        sk.launches = sk.int8_launches = 0
         t0 = time.perf_counter()
         for i in range(n):
             for r in range(tp):
@@ -2119,6 +2200,8 @@ def phase_fused_step(eng, dev, shards, n=16):
         dt = time.perf_counter() - t0
         k13, k14, k7 = (col.launches["all_reduce"], col.launches["all_gather"],
                         sk.launches)
+        i8 = sk.int8_launches
+        FIGURES[f"{phase}_ms_per_step"] = dt * 1e3 / n
         alone13, alone14 = col.standalone["all_reduce"], \
             col.standalone["all_gather"]
         per_step = sk.last_step_kernels
@@ -2126,9 +2209,13 @@ def phase_fused_step(eng, dev, shards, n=16):
         same = all(torch.equal(a[1], b[1]) for o in outs[1:]
                    for a, b in zip(outs[0], o))
         tok_lists = [[int(t) for t, _ in o] for o in outs]
-        ref, gaps, bad = check_against_stack(eng.params, cfg, k0, v0, pos0,
+        ref, gaps, bad = check_against_stack(p, cfg, k0, v0, pos0,
                                              first, tok_lists[0])
-        say("fused_step", step="make_sharded_decode_step(fused_collectives"
+        int8 = {} if phase == "fused_step" else dict(
+            kernel7_int8_launches=i8, bf16_ms_per_step_both_ranks=(
+                f"{FIGURES['fused_step_ms_per_step']:.3f}"
+                if "fused_step_ms_per_step" in FIGURES else "not measured"))
+        say(phase, step="make_sharded_decode_step(fused_collectives"
             "=True)", tp=tp, loopback=True, prompt_tokens=pos0,
             new_tokens=n, ms_per_step_both_ranks=f"{dt * 1e3 / n:.3f}",
             kernel7_launches=k7, kernel13_reduces=k13, kernel14_gathers=k14,
@@ -2139,10 +2226,12 @@ def phase_fused_step(eng, dev, shards, n=16):
             ranks_logits_bit_identical=same, tokens=tok_lists[0][:8],
             kernel7_tokens=ref[:8],
             agree=f"{sum(a == b for a, b in zip(ref, tok_lists[0]))}/{n}",
-            disagree_where_gap_gt_0_1=bad, min_top2_gap=f"{min(gaps):.3g}")
+            disagree_where_gap_gt_0_1=bad, min_top2_gap=f"{min(gaps):.3g}",
+            **int8)
         if (k7 != n * tp or k13 != 2 * L * n * tp or k14 != n * tp or alone13
                 or alone14 or per_step != 8 * L + 3 or not same or bad
-                or any(t != tok_lists[0] for t in tok_lists)):
+                or any(t != tok_lists[0] for t in tok_lists)
+                or (phase != "fused_step" and i8 != n * tp)):
             raise AssertionError("the fused-collective tp step: launches, "
                                  "rank agreement or kernel 7 agreement wrong")
 
@@ -2157,10 +2246,10 @@ def phase_fused_step(eng, dev, shards, n=16):
         lb.check()
     finally:
         lb.close()
-    say_tp_profile("fused_step", ev, reps, wall, "fused", tp=tp,
+    say_tp_profile(phase, ev, reps, wall, "fused", tp=tp,
                    loopback=True, pos=pos0 + n, per="pair_step_(both_ranks)")
     for line in profiling.timeline(one, len(one) - 8, 8):
-        print(f"[fused_step_tail] {line}", flush=True)
+        print(f"[{phase}_tail] {line}", flush=True)
     return k13, k14
 
 
@@ -2996,6 +3085,357 @@ def phase_int8_serving(eng8, eng, dev, bf16_figures):
     return launch
 
 
+def graph_ms(fn, n: int = 20) -> float:
+    """Device ms per call of ``fn``, its calls back to back: one replay of
+    a CUDA graph of ``n`` calls between two CUDA events (the host's pace
+    left out), captured on a side stream after a warm-up call there (so
+    the wrappers' per-stream scratch exists before the capture)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / n
+
+
+def int8_head_tree(params):
+    """``params`` (the int8 engine's tree, bf16 LM head) with its LM head
+    quantized to int8 per output column (phase 17's int8 head)."""
+    from clusterfusion_tpu_torch.ops.quant import quantize_int8
+    return dict(params, lm_head=quantize_int8(params["lm_head"], -2))
+
+
+def tp2_shard(params, cfg, rank=0):
+    """Rank ``rank``'s ``shard_params`` slices of ``params`` at tp 2 (a mesh
+    with no process group: only the slicing)."""
+    from clusterfusion_tpu_torch import parallel as par
+    from clusterfusion_tpu_torch.parallel.mesh import AXES
+    mesh = par.Mesh(shape=dict(dict.fromkeys(AXES, 1), tp=2),
+                    coords=dict(dict.fromkeys(AXES, 0), tp=rank),
+                    groups=dict.fromkeys(AXES))
+    return par.shard_params(params, cfg, mesh)
+
+
+def phase_int8_layer(eng8, eng, dev, hbm, peak, pos=600, cap=4096, layer=1):
+    """Phase 24: kernel 6's int8 mode, as phase 13 runs the bf16 mode, on
+    layer 1 of the 7B int8 engine (hg 8, G 4), the whole tree and the
+    first tp-2 shard's slices (16 kv heads, G 2, by ``shard_params``): full
+    mode with the append at pos 600 of a 4096-row cache with large garbage
+    at and above pos (the output, residual and appended rows against the
+    int8 plain twin at phase 13's limits, every other row unchanged, a
+    repeat bit-identical, one launch a call); partials mode on [0, 300) and
+    [300, 600) merged against one partials call and, O-projected over the
+    int8 codes and scales, against the full output.  Then, on the whole
+    tree: device time (``graph_ms``; the profiler's busy time beside it)
+    and call time beside the bf16 kernel 6 on the same inputs (the bf16
+    engine's layer), the twin's time and the byte bound, the launch plans
+    and the phase stamps of both.  Returns the kernel table's row."""
+    from clusterfusion_tpu_torch.models import llama as model
+    from clusterfusion_tpu_torch.ops import decoder_layer as dl
+    cfg = eng8.cfg
+    g, hd, hidden = cfg.n_heads // cfg.kv_heads, cfg.head_dim_, cfg.hidden_dim
+    kvh = cfg.kv_heads
+    gen = torch.Generator(device=dev).manual_seed(24)
+
+    def rnd(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).bfloat16()
+
+    kc, vc = rnd((2, kvh, cap, hd)), rnd((2, kvh, cap, hd))
+    kc[:, :, pos:] *= 8                  # garbage the kernel must not read
+    vc[:, :, pos:] *= 8
+    x, res = rnd((1, hidden)), rnd((1, hidden))
+    norm = 1 + 0.1 * rnd((hidden,))
+    cos, sin = model.rope_row(cfg, pos, dev)
+    kw = dict(group=g, head_dim=hd, rope_style=cfg.rope_style,
+              fuse_residual=True, eps=cfg.norm_eps)
+    trees = {"whole": (eng8.params["layers"], kvh),
+             "tp2_shard": (tp2_shard(eng8.params, cfg)["layers"], kvh // 2)}
+    err = 0.0
+    for label, (lw, heads) in trees.items():
+        wq, wo = lw["wqkv_f"][layer], lw["wo_f"][layer]
+        kcl = kc[:, :heads].contiguous()
+        vcl = vc[:, :heads].contiguous()
+        args = (x, res, norm, cos, sin, wq, wo)
+        kk, vk = kcl.clone(), vcl.clone()
+        kr, vr = kcl.clone(), vcl.clone()
+        before = (dl.launches, dl.int8_launches)
+        out = dl._fused_decoder_layer(*args, kk, vk, pos, 1, append_kv=True,
+                                      **kw)
+        kernels = dl.last_call_kernels
+        launched = (dl.launches - before[0], dl.int8_launches - before[1])
+        kk2, vk2 = kcl.clone(), vcl.clone()
+        again = dl._fused_decoder_layer(*args, kk2, vk2, pos, 1,
+                                        append_kv=True, **kw)
+        ref = dl._fused_decoder_layer_plain(*args, kr, vr, pos, 1,
+                                            append_kv=True, **kw)
+        torch.cuda.synchronize()
+        repeat = all(_same_bits(out[i], again[i]) for i in range(4)) and \
+            _same_bits(kk, kk2) and _same_bits(vk, vk2)
+        e = max((out[i].float() - ref[i].float()).abs().max().item()
+                for i in (0, 1))
+        if label == "whole":
+            err = e
+        for i in (0, 1):
+            torch.testing.assert_close(out[i].float(), ref[i].float(),
+                                       **LIMITS_TOL)
+        row_err = max((a[1, :, pos].float() - b[1, :, pos].float()).abs()
+                      .max().item() for a, b in ((kk, kr), (vk, vr)))
+        new_err = max((out[i].float() - ref[i].float()).abs().max().item()
+                      for i in (2, 3))
+        others = torch.ones(cap, dtype=torch.bool, device=dev)
+        others[pos] = False
+        unchanged = (torch.equal(kk[:, :, others], kcl[:, :, others])
+                     and torch.equal(vk[:, :, others], vcl[:, :, others])
+                     and torch.equal(kk[0], kcl[0])
+                     and torch.equal(vk[0], vcl[0]))
+        say("layer_int8", kernel=6, tree=label, kv_heads=heads,
+            head_groups=wq.shape[0], mode="full+append", pos=pos, cap=cap,
+            max_abs_err=f"{e:.3g}", tol="atol=2e-2,rtol=2e-2",
+            appended_row_err=f"{row_err:.3g}",
+            k_new_v_new_err=f"{new_err:.3g}", tol_rows=0.05,
+            other_rows_unchanged=unchanged, repeat_bit_identical=repeat,
+            kernels_per_call=kernels, launches_int8=launched)
+        if not (row_err <= 0.05 and new_err <= 0.05 and unchanged and repeat
+                and kernels == 1 and launched == (1, 1)):
+            raise AssertionError(f"kernel 6's int8 mode ({label}): appended "
+                                 "rows disagree, other rows changed, a "
+                                 "repeat differs or the launches are wrong")
+        del kk2, vk2, again, kr, vr
+        # partials: two shards merged in the log2 domain vs one shard
+        pkw = dict(kw, emit_partials=True)
+        halves = [(kcl[:, :, :300].contiguous(), vcl[:, :, :300].contiguous(),
+                   300, 0), (kcl[:, :, 300:].contiguous(),
+                             vcl[:, :, 300:].contiguous(), pos - 300, 1)]
+        parts = [dl._fused_decoder_layer(*args, k, v, n, 1, fold_current=f,
+                                         **pkw) for k, v, n, f in halves]
+        whole = dl._fused_decoder_layer(*args, kcl, vcl, pos, 1,
+                                        fold_current=1, **pkw)
+        m = torch.stack([q[1][0] for q in parts])
+        alpha = torch.exp2(m - m.amax(dim=0))
+        l_g = sum(q[1][1] * a for q, a in zip(parts, alpha))
+        acc_g = sum(q[0] * a[:, None] for q, a in zip(parts, alpha))
+        o_merged = acc_g / l_g[:, None]
+        o_whole = whole[0] / whole[1][1][:, None]
+        merge_err = (o_merged - o_whole).abs().max().item()
+        G = wo.shape[0]                  # each group's partial scaled, summed
+        proj = (torch.einsum("Gc,Gco->Go",
+                             o_merged.bfloat16().float().reshape(G, -1),
+                             wo.q.float()) * wo.s[:, 0]).sum(dim=0)[None]
+        proj_err = (proj - out[0].float()).abs().max().item()
+        torch.cuda.synchronize()
+        say("layer_int8", kernel=6, tree=label,
+            mode="partials [0,300)+[300,600) merged",
+            o_err_vs_one_shard=f"{merge_err:.3g}", tol_o=2e-2,
+            oproj_err_vs_full=f"{proj_err:.3g}",
+            tol_out="atol=2e-2,rtol=2e-2")
+        torch.testing.assert_close(o_merged, o_whole, atol=2e-2, rtol=0)
+        torch.testing.assert_close(proj, out[0].float(), **LIMITS_TOL)
+        del parts, whole, halves
+        if label != "whole":
+            del kk, vk, kcl, vcl
+            continue
+        # times on the whole tree, beside the bf16 kernel 6 on the inputs
+        lw16 = eng.params["layers"]
+        args16 = (x, res, norm, cos, sin, lw16["wqkv_f"][layer],
+                  lw16["wo_f"][layer])
+        call = lambda: dl._fused_decoder_layer(  # noqa: E731
+            *args, kk, vk, pos, 1, append_kv=True, **kw)
+        call16 = lambda: dl._fused_decoder_layer(  # noqa: E731
+            *args16, kk, vk, pos, 1, append_kv=True, **kw)
+        ms, ms16 = graph_ms(call), graph_ms(call16)
+        prof_ms, _ = busy_ms(call)
+        prof16_ms, _ = busy_ms(call16)
+        call_ms = time_ms(call, 50)
+        call16_ms = time_ms(call16, 50)
+        for kind, fn, w8 in (("int8", call, True), ("bf16", call16, False)):
+            say("layer_int8_launch", kernel=6, weights=kind,
+                **dl.launch_plan(hidden, kvh, g, hd, int8=w8),
+                **launch_phases(dl, fn, 16 * kvh, K6_PHASES),
+                note="phases from %globaltimer stamps inside the one launch")
+        plain_ms = time_ms(lambda: dl._fused_decoder_layer_plain(
+            *args, kk, vk, pos, 1, append_kv=True, **kw), 5)
+        wbytes = _bytes(wq.q, wq.s, wo.q, wo.s)
+        bound, bound_by, nbytes = _layer_bound(
+            hbm, peak, wbytes, wq.q.numel() + wo.q.numel(), kvh, cfg.n_heads,
+            pos, hd, 5 * hidden * 2 + 4 * kvh * hd * 2)
+        say("layer_int8", kernel=6, ms=f"{ms:.4f}", graph_ms=f"{ms:.4f}",
+            profiler_busy_ms=f"{prof_ms:.4f}", call_ms=f"{call_ms:.4f}",
+            bf16_graph_ms_same_inputs=f"{ms16:.4f}",
+            bf16_profiler_busy_ms=f"{prof16_ms:.4f}",
+            bf16_call_ms=f"{call16_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            bound_ms=f"{bound:.4f}", bound_by=bound_by, bytes=nbytes,
+            weight_and_scale_bytes=wbytes,
+            rate_TBps=f"{nbytes / ms / 1e9:.3f}", library_ms="null")
+        del kk, vk, kcl, vcl
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                   bound_by=bound_by, library_ms=None)
+    return row
+
+
+def phase_int8_sharded(eng8, dev, tree8):
+    """Phase 25: the int8 tp and sp steps end to end in a one-rank NCCL
+    group, as phase 14 runs the bf16 ones: ``shard_params`` views of the
+    int8 engine's tree (bf16 LM head) and of ``tree8`` (its int8 head), a
+    512-token prefill, then 32 greedy steps of ``make_sharded_decode_step``
+    and 8 of ``make_sp_sharded_decode_step``, each stream against kernel
+    7's int8 step (teacher forced) and the int8 plain path under the
+    top-2-gap rule; ms per step and tokens/s beside phase 14's bf16 steps;
+    launches per step with the counts set to 0 just before (kernel 6 int8
+    32; kernel 2 32 in the tp step, 0 in the sp step; ``_ffn_int8`` 32;
+    ``_gemv_int8`` 32 O products in the sp step and one LM-head product
+    where the head is int8); the peak of memory allocated during a step
+    over what was allocated before it (a bf16 copy of one layer's FFN
+    weights would be 185 MB); then each step's device busy time and the
+    tp step's kernels by device time.  Returns kernel 6's int8 launches in
+    the bf16-head run (both steps)."""
+    import types
+
+    import torch.distributed as dist
+    from clusterfusion_tpu_torch import parallel as par
+    from clusterfusion_tpu_torch.config import MeshConfig
+    from clusterfusion_tpu_torch.models import llama as model
+    from clusterfusion_tpu_torch.ops import decoder_layer as dl
+    from clusterfusion_tpu_torch.ops import flash_prefill as fp
+    gm = importlib.import_module("clusterfusion_tpu_torch.ops.gemv")
+    rn = importlib.import_module("clusterfusion_tpu_torch.ops.rmsnorm")
+    cfg = eng8.cfg
+    L = cfg.n_layers
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    launched6 = None
+    try:
+        mesh = par.build_mesh(MeshConfig())
+        text = ("The quick brown fox jumps over the lazy dog. " * 20)[:511]
+        prompt = eng8.tokenizer.encode(text, bos=True, eos=False)
+        for head, full in (("bf16", eng8.params), ("int8", tree8)):
+            params = par.shard_params(full, cfg, mesh)
+            views = all(params["layers"][k] is full["layers"][k]
+                        or params["layers"][k].q is full["layers"][k].q
+                        for k in params["layers"])
+            k0, v0 = model.init_cache(cfg, device=dev)
+            fp.launches = 0
+            lg, k0, v0 = model.prefill(full, k0, v0, prompt, cfg)
+            first, flash, pos0 = int(torch.argmax(lg[-1])), fp.launches, \
+                len(prompt)
+            results = {}
+            for name, n, make, spec in (
+                    ("tp", 32, par.make_sharded_decode_step,
+                     par.cache_pspec()),
+                    ("sp", 8, par.make_sp_sharded_decode_step,
+                     par.cache_pspec_2d())):
+                step = make(cfg, mesh)
+                kc = par.shard_cache(k0.clone(), mesh, spec)
+                vc = par.shard_cache(v0.clone(), mesh, spec)
+                tok = torch.tensor(first, device=dev)
+                dl.launches = dl.int8_launches = 0
+                gm.int8_launches = gm.ffn8_launches = 0
+                for k in rn.launches:
+                    rn.launches[k] = 0
+                out = []
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i in range(n):
+                    lg, kc, vc = step(params, kc, vc, tok, pos0 + i)
+                    tok = torch.argmax(lg)
+                    out.append(tok)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                got = dict(kernel6=dl.launches, kernel6_int8=dl.int8_launches,
+                           kernel2=rn.launches["fused_add_rmsnorm"],
+                           ffn_int8=gm.ffn8_launches,
+                           gemv_int8=gm.int8_launches)
+                want = dict(kernel6=L * n, kernel6_int8=L * n,
+                            kernel2=L * n if name == "tp" else 0,
+                            ffn_int8=L * n,
+                            gemv_int8=(L * n if name == "sp" else 0)
+                            + (n if head == "int8" else 0))
+                # memory a step allocates beyond what it holds before
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                step(params, kc, vc, tok, pos0 + n)
+                torch.cuda.synchronize()
+                extra_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
+                toks = [int(t) for t in out]
+                finite = bool(torch.isfinite(lg).all())
+                ref, gaps, bad = check_against_stack(full, cfg, k0, v0, pos0,
+                                                     first, toks)
+                say("sharded_int8", step=name, lm_head=head,
+                    mesh="tp=1,sp=1 (one rank, nccl)", prompt_tokens=pos0,
+                    new_tokens=n, params_are_views=views,
+                    flash_prefill_launches=flash,
+                    ms_per_step=f"{dt * 1e3 / n:.3f}",
+                    tokens_per_s=f"{n / dt:.2f}",
+                    bf16_ms_per_step=(
+                        f"{FIGURES[f'sharded_{name}_ms_per_step']:.3f}"
+                        if f"sharded_{name}_ms_per_step" in FIGURES
+                        else "not measured"),
+                    bf16_tokens_per_s=(
+                        f"{FIGURES[f'sharded_{name}_tokens_per_s']:.2f}"
+                        if f"sharded_{name}_tokens_per_s" in FIGURES
+                        else "not measured"),
+                    launches=got,
+                    per_step={k: v / n for k, v in got.items()},
+                    peak_extra_alloc_mb_per_step=f"{extra_mb:.2f}",
+                    finite=finite, tokens=toks[:8], kernel7_tokens=ref[:8],
+                    agree=f"{sum(a == b for a, b in zip(ref, toks))}/{n}",
+                    disagree_where_gap_gt_0_1=bad,
+                    min_top2_gap=f"{min(gaps):.3g}")
+                if got != want or not finite or bad or flash != L \
+                        or not views or extra_mb > 32:
+                    raise AssertionError(
+                        f"the int8 {name} step ({head} head): launches {got} "
+                        f"(want {want}), tokens, kernel 7 agreement or "
+                        f"{extra_mb:.1f} MB allocated a step wrong")
+                plain, pgaps, pbad = check_against_plain(
+                    types.SimpleNamespace(cfg=cfg, params=full), dev, prompt,
+                    [first] + toks)
+                say("sharded_int8", step=name, lm_head=head,
+                    plain_tokens=plain, top2_gaps=[round(x, 3) for x in pgaps],
+                    disagree_where_gap_gt_0_1=pbad)
+                if pbad:
+                    raise AssertionError(f"the int8 {name} step and the plain "
+                                         f"path disagree at {pbad}")
+                results[name] = (step, kc, vc)
+                if head == "bf16":
+                    launched6 = (launched6 or 0) + got["kernel6_int8"]
+            busy = {}
+            for name, (st_, kc_, vc_) in results.items():
+                busy[name], _ = busy_ms(
+                    lambda: st_(params, kc_, vc_, first, pos0))  # noqa: B023
+            say("sharded_int8_busy", lm_head=head,
+                tp_device_busy_ms_per_step=f"{busy['tp']:.4f}",
+                sp_device_busy_ms_per_step=f"{busy['sp']:.4f}")
+            if head == "bf16":
+                step, kc, vc = results["tp"]
+                dev_ms, prof_wall, top = profile_by_kernel(
+                    lambda: step(params, kc, vc, first, pos0))
+                say("sharded_int8_profile", step="tp", lm_head=head,
+                    device_ms_per_step=f"{dev_ms:.4f}",
+                    profiled_wall_ms_per_step=f"{prof_wall:.4f}",
+                    device_busy_share_profiled=f"{dev_ms / prof_wall:.3f}")
+                for kname, kms, cnt in top:
+                    say("sharded_int8_profile", kernel=repr(kname),
+                        ms_per_step=f"{kms:.4f}", launches_per_step=f"{cnt:g}")
+            del results, k0, v0
+    finally:
+        dist.destroy_process_group()
+    return launched6
+
+
 def say_tp_profile(phase, ev, reps, wall, step, **where):
     """A tp step's device time by pass from ``reps`` profiled calls
     (``profiling.TP_STEP_PASSES``: kernel 7's GEMVs, split, merge, norms,
@@ -3533,7 +3973,11 @@ def _multicard_steps(rank, world, dev, mesh, n=32):
     ``make_sharded_decode_step(fused_collectives=True)`` and of the NCCL
     step, timed before any profiler; rank 0 holds both streams against
     kernel 7 teacher-forced on the whole weights, and every rank's logits
-    are held against rank 0's bits."""
+    are held against rank 0's bits.  Then the same two steps on the int8
+    tree (the weights regrouped to 8 kv heads a group, or 32 / world,
+    quantized per output column, the LM head too) from the same prefilled
+    caches: the fused step one call of kernel 7's int8 mode, the NCCL step
+    kernel 6's."""
     import torch.distributed as dist
     from clusterfusion_tpu_torch import parallel as par
     from clusterfusion_tpu_torch.config import LlamaConfig
@@ -3549,22 +3993,31 @@ def _multicard_steps(rank, world, dev, mesh, n=32):
     k0, v0 = model.init_cache(cfg, max_seq=1024, device=dev)
     lg, k0, v0 = model.prefill(full, k0, v0, prompt, cfg)
     first, pos0 = int(torch.argmax(lg[-1])), len(prompt)
+    hg8 = min(8, cfg.kv_heads // world)
+    full8 = int8_head_tree(dict(full, layers=dict(
+        full["layers"], **int8_stack_weights(full["layers"], 1, hg8))))
+    params8 = par.shard_params(full8, cfg, mesh)
     out, steps = {}, {}
-    for name, fused in (("fused", True), ("nccl", False)):
+    for name, fused, full_, params_ in (
+            ("fused", True, full, params), ("nccl", False, full, params),
+            ("fused_int8", True, full8, params8),
+            ("nccl_int8", False, full8, params8)):
+        int8 = name.endswith("_int8")
         step = par.make_sharded_decode_step(cfg, mesh,
                                             fused_collectives=fused)
         kc, vc = par.shard_cache(k0, mesh), par.shard_cache(v0, mesh)
         for i in range(2):                       # warm-up, rows rewritten
-            step(params, kc, vc, first, pos0 + i)
+            step(params_, kc, vc, first, pos0 + i)
         dist.barrier()
         torch.cuda.synchronize()
         for k in col.launches:
             col.launches[k] = col.standalone[k] = 0
         sk.launches = dl.launches = sk.last_step_kernels = 0
+        sk.int8_launches = dl.int8_launches = 0
         tok, toks, logs = torch.tensor(first, device=dev), [], []
         t0 = time.perf_counter()
         for i in range(n):
-            lg, kc, vc = step(params, kc, vc, tok, pos0 + i)
+            lg, kc, vc = step(params_, kc, vc, tok, pos0 + i)
             tok = torch.argmax(lg)
             toks.append(tok)
             logs.append(lg)
@@ -3581,6 +4034,9 @@ def _multicard_steps(rank, world, dev, mesh, n=32):
                         standalone13=col.standalone["all_reduce"],
                         standalone14=col.standalone["all_gather"],
                         kernel7_kernels_per_step=sk.last_step_kernels)
+        if int8:
+            launched.update(kernel7_int8=sk.int8_launches,
+                            kernel6_int8=dl.int8_launches)
         # the fused step: kernel 7 once, 8L+3 kernels, its 2L reduces and
         # the logits' gather inside them, no standalone kernel 13 or 14
         want = (dict(kernel7=n, kernel6=0, kernel13=2 * L * n, kernel14=n,
@@ -3590,10 +4046,13 @@ def _multicard_steps(rank, world, dev, mesh, n=32):
                 dict(kernel7=0, kernel6=L * n, kernel13=0, kernel14=0,
                      standalone13=0, standalone14=0,
                      kernel7_kernels_per_step=0))
+        if int8:
+            want.update(kernel7_int8=want["kernel7"],
+                        kernel6_int8=want["kernel6"])
         toks = [int(t) for t in toks]
         bad = []
         if rank == 0:
-            ref, gaps, bad = check_against_stack(full, cfg, k0, v0, pos0,
+            ref, gaps, bad = check_against_stack(full_, cfg, k0, v0, pos0,
                                                  first, toks)
             say("multicard", step=name, tp=world, prompt_tokens=pos0,
                 new_tokens=n, ms_per_step=f"{dt * 1e3 / n:.3f}",
@@ -3609,7 +4068,8 @@ def _multicard_steps(rank, world, dev, mesh, n=32):
                                  f"{launched} (want {want}), tokens {bad} or "
                                  f"ranks' logits identical: {same}")
         out[f"{name}_ms_per_step"] = dt * 1e3 / n
-        steps[name] = (step, kc, vc)
+        if not int8:
+            steps[name] = (step, kc, vc)
     # each step's device time by pass on rank 0, after the wall clocks (a
     # profiler session slows the launches after it); every rank profiles
     # the same calls once
@@ -3748,7 +4208,19 @@ def main() -> int:
     layer8 = phase_int8_paged_layer(eng8, eng, dev, hbm, peak)
     products8 = phase_int8_products(eng8, dev, hbm, peak)
     serving8_launches = phase_int8_serving(eng8, eng, dev, serving_bf16)
-    del eng, eng8
+    t24 = time.perf_counter()
+    tree8 = int8_head_tree(eng8.params)
+    layer8_row = phase_int8_layer(eng8, eng, dev, hbm, peak)
+    layer8_launches = phase_int8_sharded(eng8, dev, tree8)
+    phase_mode5(eng8, dev, params=dict(tree8, layers={
+        k: w[:4] for k, w in tree8["layers"].items()}),
+        phase="mode5_int8_4layers")
+    shards8 = phase_mode5(eng8, dev, params=tree8, phase="mode5_int8",
+                          drift=FIGURES.get("mode5_drift"))
+    phase_fused_step(eng8, dev, shards8, params=tree8,
+                     phase="fused_step_int8")
+    say("phases_24_26", seconds=f"{time.perf_counter() - t24:.1f}")
+    del eng, eng8, tree8, shards8
     torch.cuda.empty_cache()
     ds_rows = phase_deepseek_kernels(dev, hbm, peak)
     mla_launches, ffn_launches = phase_deepseek_e2e(dev)
@@ -3823,6 +4295,10 @@ def main() -> int:
              source="clusterfusion_tpu_torch/csrc/decoder_layer.cu",
              replaces="clusterfusion_tpu/ops/decoder_layer.py:421",
              launches=layer_launches_tp_sp, **layer_row),
+        dict(name="_fused_decoder_layer (int8 weights)", route="cuda",
+             source="clusterfusion_tpu_torch/csrc/decoder_layer.cu",
+             replaces="clusterfusion_tpu/ops/decoder_layer.py:421",
+             launches=layer8_launches, **layer8_row),
         dict(name="all_reduce", route="cuda",
              source="clusterfusion_tpu_torch/csrc/collective.cu",
              replaces="clusterfusion_tpu/parallel/collective.py:208",

@@ -325,6 +325,11 @@ resnorm_reduce_kernel(CfComm cm, const float* b, const __nv_bfloat16* w, float* 
 //   (the O projection, a stack of G matrices of kg rows summed as one)
 //   scales each block's partial by sc[(k0 / kg)*N + n] before the cluster
 //   sum, and the launcher picks K chunks that never straddle a group.
+//   Mode 5 of the stack in int8 (PUSH other than G1_Y, the TPU kernel's
+//   wq_kind == "int8" with reduce_axis): kg == 0 scales each sum before it
+//   is pushed, kg > 0 as above, so every rank pushes scaled partials; the
+//   scale is the same on every rank, so it commutes with the sum over the
+//   ranks, and the flags and epochs are the bf16 instance's.
 // (M, nrc and xrows are always 1 here; the row arithmetic stays general.)
 constexpr int G1_Y = 0, G1_PUSH_SUM = 1, G1_PUSH_GATHER = 2;
 constexpr int G1_COLS = 256;                       // columns per tile
@@ -376,7 +381,7 @@ __device__ __forceinline__ void s8_bf16_pairs(uint32_t a, uint32_t b, uint32_t (
 
 // The body of both ring GEMV kernels: bf16 weights w (W8 false; wmap, mat0,
 // sc and kg unused) or int8 codes through wmap with their scales (W8, w
-// unused; G1_Y only).
+// unused).
 template <bool SWIGLU, int PUSH, bool W8>
 __device__ __forceinline__ void ring_gemv_body(
     const void* __restrict__ xv, long long x_row, int f_off, const void* __restrict__ w,
@@ -384,7 +389,6 @@ __device__ __forceinline__ void ring_gemv_body(
     int nrc, int xrows, long long ws, long long y_row, long long yz,
     const __nv_bfloat16* __restrict__ nw, float eps, CfComm comm,
     const CUtensorMap* wmap, int mat0, const float* __restrict__ sc, int kg) {
-  static_assert(!W8 || PUSH == G1_Y, "the int8 instance writes y");
   namespace cg = cooperative_groups;
   constexpr int RB = 1;                                     // rows per block
   constexpr int NS = G1_STAGES, SB = G1_STAGE_BYTES;
@@ -536,6 +540,8 @@ __device__ __forceinline__ void ring_gemv_body(
       for (int q = 0; q < G1_MAX_CLUSTER; ++q)
         if (q < ks) s += v[q];
       if constexpr (PUSH != G1_Y) {
+        if constexpr (W8)                 // the per-column scale, before the push
+          if (kg == 0) s *= sc[(size_t)mat * N + n0 + c];
         red[i] = s;                       // red is free once the cluster has met
       } else {
         if constexpr (W8)                 // the matrix's per-column scale
@@ -587,18 +593,17 @@ __global__ void ring_gemv_kernel(const void* __restrict__ xv, long long x_row, i
 
 // The int8 instance: the codes through wmap (int8 [nmats][K][N], boxes of
 // G1_ROWS8 x G1_COLS; matrix mat0 + blockIdx.z), sc float32 scales, kg as
-// above.
-template <bool SWIGLU>
+// above; PUSH and comm as the bf16 instance's.
+template <bool SWIGLU, int PUSH>
 __global__ void ring_gemv8_kernel(const void* __restrict__ xv, long long x_row, int f_off,
                                   const __grid_constant__ CUtensorMap wmap, int mat0,
                                   float* __restrict__ y, __nv_bfloat16* __restrict__ yb,
                                   int M, int K, int N, int k_chunk, int nrc, int xrows,
                                   long long y_row, long long yz,
                                   const __nv_bfloat16* __restrict__ nw, float eps,
-                                  const float* __restrict__ sc, int kg) {
-  ring_gemv_body<SWIGLU, G1_Y, true>(xv, x_row, f_off, nullptr, y, yb, M, K, N, k_chunk, nrc,
-                                     xrows, 0, y_row, yz, nw, eps, CfComm{}, &wmap, mat0, sc,
-                                     kg);
+                                  const float* __restrict__ sc, int kg, CfComm comm) {
+  ring_gemv_body<SWIGLU, PUSH, true>(xv, x_row, f_off, nullptr, y, yb, M, K, N, k_chunk, nrc,
+                                     xrows, 0, y_row, yz, nw, eps, comm, &wmap, mat0, sc, kg);
 }
 
 // The tensor map ring_gemv8_kernel reads: nmats int8 [K, N] matrices
@@ -621,7 +626,7 @@ inline bool make_int8_weight_map(CUtensorMap* map, const void* w, int K, int N,
 // normalised first.  PUSH other than G1_Y (mode 5's producer; comm given,
 // one matrix): y is not written; the sums go to the ranks' slots instead,
 // one flag column per tile (at most COMM_FLAG_COLS tiles, 4N bytes at most
-// a slot).  W8 (G1_Y only): w is unused; ring_gemv8_kernel reads the
+// a slot).  W8: w is unused; ring_gemv8_kernel reads the
 // matrices mat0.. of wmap (make_int8_weight_map; N a multiple of 16) with
 // the scales sc and the scale group kg; kg > 0 keeps only the chunkings
 // whose chunks divide kg, and where none of those has every cluster
@@ -633,7 +638,6 @@ int launch_gemv1(const void* x, int f_off, const void* w, float* y, int K, int N
                  const __nv_bfloat16* nw = nullptr, float eps = 0.f,
                  const CfComm* comm = nullptr, const CUtensorMap* wmap = nullptr,
                  int mat0 = 0, const float* sc = nullptr, int kg = 0) {
-  static_assert(!W8 || PUSH == G1_Y, "the int8 instance writes y");
   if ((nw && SWIGLU) || K < 1 || N < 8 || N % 8 != 0 || nmat < 1 || threads < 32 ||
       threads % 32 != 0 || threads > G1_MAX_THREADS)
     return (int)cudaErrorInvalidValue;
@@ -650,7 +654,7 @@ int launch_gemv1(const void* x, int f_off, const void* w, float* y, int K, int N
   static Occ occ_cache[64];
   static int n_occ = 0;
   auto kern = [] {
-    if constexpr (W8) return ring_gemv8_kernel<SWIGLU>;
+    if constexpr (W8) return ring_gemv8_kernel<SWIGLU, PUSH>;
     else return ring_gemv_kernel<SWIGLU, PUSH>;
   }();
   if (!attrs_set) {
@@ -712,7 +716,8 @@ int launch_gemv1(const void* x, int f_off, const void* w, float* y, int K, int N
   cfg.numAttrs = pdl ? 2 : 1;
   if constexpr (W8)
     return (int)cudaLaunchKernelEx(&cfg, kern, x, 0LL, f_off, *wmap, mat0, y, yb, 1, K, N,
-                                   k_chunk, 1, 1, 0LL, yz, nw, eps, sc, kg);
+                                   k_chunk, 1, 1, 0LL, yz, nw, eps, sc, kg,
+                                   comm ? *comm : CfComm{});
   else
     return (int)cudaLaunchKernelEx(&cfg, kern, x, 0LL, f_off,
                                    static_cast<const __nv_bfloat16*>(w), y, yb, 1, K, N,
@@ -2021,13 +2026,15 @@ __device__ __forceinline__ void ol_stamp(unsigned long long* stamps, int k) {
     stamps[(size_t)(blockIdx.x + blockIdx.y * gridDim.x) * OL_STAMPS + k] = hopper::global_ns();
 }
 
-// The widest box dimension (a multiple of 8, at most 256 elements, TMA's
-// limit) that divides both a and b (multiples of 8): a box's inner width
-// when a tile of a columns starts at multiples of a in rows of b columns.
-inline int ol_box_width(int a, int b) {
-  for (int w = 256; w > 8; w -= 8)
+// The widest box dimension (a multiple of `unit`, at most 256 elements,
+// TMA's limit) that divides both a and b (multiples of unit): a box's inner
+// width when a tile of a columns starts at multiples of a in rows of b
+// columns.  TMA wants a box's inner extent in whole 16-byte units: 8 bf16
+// elements, 16 int8 ones.
+inline int ol_box_width(int a, int b, int unit = 8) {
+  for (int w = 256; w > unit; w -= unit)
     if (a % w == 0 && b % w == 0) return w;
-  return 8;
+  return unit;
 }
 
 // Ring stages, at most `want`, that fit beside `rest` bytes of other shared
@@ -2043,13 +2050,22 @@ inline int ol_stages(int rest, int want) {
 // first's), each summed as acc += x[j] * W[j][piece] in row order.  With
 // P <= OL_THREADS pieces a row, thread t takes piece t % P of the rows t /
 // P, t / P + RG, ... (RG = OL_THREADS / P row groups); with more, pieces
-// t, t + OL_THREADS, ... of every row.
-template <int NP>
+// t, t + OL_THREADS, ... of every row.  W8: the weights are int8 codes, a
+// piece 8 bytes (one 8-byte shared load, made exact floats by unpack8_s8),
+// and the FMA chain and its order are the bf16 product's.
+template <int NP, bool W8 = false>
 __device__ __forceinline__ void tile_gemv(const unsigned char* stage, int pitch, int p1,
                                           int half, int rows, const float* x, int P,
                                           float (&acc)[NP][8]) {
   const int t = threadIdx.x;
-  auto piece = [&](int p) { return stage + (p < p1 ? p * 16 : half + (p - p1) * 16); };
+  constexpr int PB = W8 ? 8 : 16;                 // bytes per piece
+  auto piece = [&](int p) { return stage + (p < p1 ? p * PB : half + (p - p1) * PB); };
+  auto load8 = [](const unsigned char* at, float* f) {
+    if constexpr (W8)
+      unpack8_s8(*reinterpret_cast<const uint2*>(at), f);
+    else
+      unpack8(*reinterpret_cast<const uint4*>(at), f);
+  };
   if (P <= OL_THREADS) {
     const int RG = OL_THREADS / P, p = t % P, rg = t / P;
     if (rg >= RG) return;
@@ -2057,7 +2073,7 @@ __device__ __forceinline__ void tile_gemv(const unsigned char* stage, int pitch,
 #pragma unroll 4
     for (int j = rg; j < rows; j += RG) {
       float f[8];
-      unpack8(*reinterpret_cast<const uint4*>(base + (size_t)j * pitch), f);
+      load8(base + (size_t)j * pitch, f);
       const float xj = x[j];
 #pragma unroll
       for (int c = 0; c < 8; ++c) acc[0][c] = fmaf(xj, f[c], acc[0][c]);
@@ -2070,7 +2086,7 @@ __device__ __forceinline__ void tile_gemv(const unsigned char* stage, int pitch,
         const int p = t + q * OL_THREADS;
         if (p < P) {
           float f[8];
-          unpack8(*reinterpret_cast<const uint4*>(piece(p) + (size_t)j * pitch), f);
+          load8(piece(p) + (size_t)j * pitch, f);
 #pragma unroll
           for (int c = 0; c < 8; ++c) acc[q][c] = fmaf(xj, f[c], acc[q][c]);
         }
@@ -2081,9 +2097,12 @@ __device__ __forceinline__ void tile_gemv(const unsigned char* stage, int pitch,
 
 // out[8p + c] = the sum of tile_gemv's acc over the row groups, in group
 // order (red: OL_RED_FLOATS floats of shared memory); out may be global.
+// SC: each sum times scale[8p + c] (an int8 product's per-column scale).
 // Ends with a barrier of the consumers.
-template <int NP>
-__device__ void tile_gemv_reduce(const float (&acc)[NP][8], int P, float* red, float* out) {
+template <int NP, bool SC>
+__device__ __forceinline__ void tile_gemv_reduce_body(const float (&acc)[NP][8], int P,
+                                                      float* red, float* out,
+                                                      const float* scale) {
   const int t = threadIdx.x;
   if (P <= OL_THREADS) {
     const int RG = OL_THREADS / P, p = t % P, rg = t / P;
@@ -2096,7 +2115,7 @@ __device__ void tile_gemv_reduce(const float (&acc)[NP][8], int P, float* red, f
     for (int e = t; e < P * 8; e += OL_THREADS) {
       float s = red[e];
       for (int q = 1; q < RG; ++q) s += red[(size_t)q * P * 8 + e];
-      out[e] = s;
+      out[e] = SC ? s * scale[e] : s;
     }
   } else {
 #pragma unroll
@@ -2104,10 +2123,23 @@ __device__ void tile_gemv_reduce(const float (&acc)[NP][8], int P, float* red, f
       const int p = t + q * OL_THREADS;
       if (p < P)
 #pragma unroll
-        for (int c = 0; c < 8; ++c) out[(size_t)p * 8 + c] = acc[q][c];
+        for (int c = 0; c < 8; ++c)
+          out[(size_t)p * 8 + c] = SC ? acc[q][c] * scale[(size_t)p * 8 + c] : acc[q][c];
     }
   }
   ol_cbar();
+}
+
+template <int NP>
+__device__ void tile_gemv_reduce(const float (&acc)[NP][8], int P, float* red, float* out) {
+  tile_gemv_reduce_body<NP, false>(acc, P, red, out, nullptr);
+}
+
+// The same, each sum scaled by scale[8p + c].
+template <int NP>
+__device__ void tile_gemv_reduce_scaled(const float (&acc)[NP][8], int P, float* red,
+                                        float* out, const float* scale) {
+  tile_gemv_reduce_body<NP, true>(acc, P, red, out, scale);
 }
 
 // The ordered fold across blocks, one launch, no sum by atomics, in two

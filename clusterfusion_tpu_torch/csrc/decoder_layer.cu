@@ -63,6 +63,23 @@
 //                 sum by atomics)
 // A producer warp issues the copies; the other eight warps compute.
 // Every sum runs in a fixed order, so a call repeats its bits exactly.
+//
+// Int8 weights (W8; the TPU kernel's wq_kind == "int8", ops/quant.py's
+// per-output-column QuantizedTensor): wqkv and wo hold int8 codes, sq
+// [G, hg*(g+2)*hd] and so [G, hidden] their float32 scales.  The codes
+// stream as they are, never a bf16 copy: 67 MB of a 7B layer instead of
+// 134.  A stage keeps its 16 KB and so holds twice the rows (the bytes in
+// flight per SM do not change); the boxes' inner widths are whole 16-byte
+// units of int8 columns (ol_box_width with unit 16: 7B's QKV slice of 128
+// columns a rank is one 128-byte box row).  A lane reads its 8 columns of
+// a row as one 8-byte shared load and makes exact floats of them
+// (tile_gemv<NP, true>), so the FMA chain and the fixed-order sums are the
+// bf16 path's.  The scales go where the TPU kernel applies them: each QKV
+// column of a rank's slice after the sum over hidden (before the DSM
+// gather), and each kv head's O-projection row by its head group's scale
+// so[h / hg] before the ordered fold sums the heads in order (the TPU
+// kernel sums a group's heads in one dot and then scales; the rounding
+// differs, not the function).  Partials mode streams the int8 QKV only.
 
 #include <string.h>
 
@@ -128,8 +145,9 @@ __host__ __device__ inline DlSmem dl_smem(const DlGeom& G) {
 // group's query rows hold no more code than the call runs; HDT: the head
 // dim when it is 128 (0: G.hd).  With both known (7B's g 1, hd 128) the
 // index arithmetic folds into shifts and the launch's code, fetched cold on
-// every call of a decode step, is the shorter.
-template <int GT, int HDT>
+// every call of a decode step, is the shorter.  W8: int8 weights with the
+// scales sq and so (unused, and null, in the bf16 instances).
+template <int GT, int HDT, bool W8>
 __global__ void __launch_bounds__(OL_BLOCK, 1)
 decoder_layer_kernel(const __grid_constant__ CUtensorMap qmap,
                      const __grid_constant__ CUtensorMap omap, DlGeom G,
@@ -141,7 +159,9 @@ decoder_layer_kernel(const __grid_constant__ CUtensorMap qmap,
                      __nv_bfloat16* __restrict__ res_out, __nv_bfloat16* __restrict__ k_new,
                      __nv_bfloat16* __restrict__ v_new, float* __restrict__ acc_out,
                      float* __restrict__ ml_out, float* part, unsigned* ctr,
-                     unsigned long long* stamps) {
+                     unsigned long long* stamps, const float* __restrict__ sq,
+                     const float* __restrict__ so) {
+  constexpr int EB = W8 ? 1 : 2;                  // bytes per weight
   extern __shared__ __align__(1024) unsigned char dl_sm[];
   const DlSmem S = dl_smem(G);
   uint64_t* full = reinterpret_cast<uint64_t*>(dl_sm);   // [nst] bytes landed
@@ -200,7 +220,7 @@ decoder_layer_kernel(const __grid_constant__ CUtensorMap qmap,
     unsigned char* dst = ring + s * OL_STAGE;
     if (lane != 0) return;
     if (u < nq) {
-      hopper::mbar_arrive_expect_tx(&full[s], (uint32_t)G.rq * G.cw * 2);
+      hopper::mbar_arrive_expect_tx(&full[s], (uint32_t)G.rq * G.cw * EB);
       hopper::tma_load_3d(dst, &qmap, &full[s], 0, (hin * cq + q0) / G.pw,
                           grp * G.hidden + u * G.rq);
     } else if (u < nq + nkv) {
@@ -220,7 +240,7 @@ decoder_layer_kernel(const __grid_constant__ CUtensorMap qmap,
                            &full[s]);
     } else {
       const int t = u - nq - nkv;
-      hopper::mbar_arrive_expect_tx(&full[s], (uint32_t)G.ro * G.oc * 2);
+      hopper::mbar_arrive_expect_tx(&full[s], (uint32_t)G.ro * G.oc * EB);
       hopper::tma_load_3d(dst, &omap, &full[s], 0, c0 / G.bw,
                           (grp * G.hg + hin) * ghd + t * G.ro);
     }
@@ -279,16 +299,21 @@ decoder_layer_kernel(const __grid_constant__ CUtensorMap qmap,
   ol_cbar();
   ol_stamp(stamps, 1);
 
-  // 2. QKV: this rank's columns, then every rank's gathered
+  // 2. QKV: this rank's columns (int8: each scaled after its sum), then
+  // every rank's gathered
   if (cql > 0) {
     float acc[1][8] = {};
     for (int t = 0; t < nq; ++t) {
       const unsigned char* st = wait();
-      tile_gemv<1>(st, G.cw * 2, cql / 8, 0, min(G.rq, G.hidden - t * G.rq), xs + t * G.rq,
-                   cql / 8, acc);
+      tile_gemv<1, W8>(st, G.cw * EB, cql / 8, 0, min(G.rq, G.hidden - t * G.rq),
+                       xs + t * G.rq, cql / 8, acc);
       release();
     }
-    tile_gemv_reduce<1>(acc, cql / 8, red, qkvp);
+    if constexpr (W8)
+      tile_gemv_reduce_scaled<1>(acc, cql / 8, red, qkvp,
+                                 sq + (size_t)grp * G.hg * cq + hin * cq + q0);
+    else
+      tile_gemv_reduce<1>(acc, cql / 8, red, qkvp);
   }
   ol_stamp(stamps, 2);
   ol_cluster_sync();                                 // every rank's columns are written
@@ -546,16 +571,21 @@ decoder_layer_kernel(const __grid_constant__ CUtensorMap qmap,
   ol_cbar();
   ol_stamp(stamps, 5);
 
-  // 6. O-projection of this rank's columns, then 7. the ordered fold
+  // 6. O-projection of this rank's columns (int8: the head's row scaled by
+  // its group's scale), then 7. the ordered fold
   if (!G.partials && ocl > 0) {
     float acc[OL_MAX_NP][8] = {};
     for (int t = 0; t < no; ++t) {
       const unsigned char* st = wait();
-      tile_gemv<OL_MAX_NP>(st, G.oc * 2, ocl / 8, 0, min(G.ro, ghd - t * G.ro), o + t * G.ro,
-                           ocl / 8, acc);
+      tile_gemv<OL_MAX_NP, W8>(st, G.oc * EB, ocl / 8, 0, min(G.ro, ghd - t * G.ro),
+                               o + t * G.ro, ocl / 8, acc);
       release();
     }
-    tile_gemv_reduce<OL_MAX_NP>(acc, ocl / 8, red, part + (size_t)h * G.hidden + c0);
+    if constexpr (W8)
+      tile_gemv_reduce_scaled<OL_MAX_NP>(acc, ocl / 8, red, part + (size_t)h * G.hidden + c0,
+                                         so + (size_t)grp * G.hidden + c0);
+    else
+      tile_gemv_reduce<OL_MAX_NP>(acc, ocl / 8, red, part + (size_t)h * G.hidden + c0);
     ol_stamp(stamps, 6);
     ordered_fold(part, G.hidden, G.kv, h, c0, ocl, ctr + rank * OL_FOLD_STRIDE, out, flag,
                  DL_FOLD_GROUP);
@@ -568,21 +598,25 @@ decoder_layer_kernel(const __grid_constant__ CUtensorMap qmap,
   ol_cluster_sync();                                 // peers have read this block's state
 }
 
-// The geometry at cluster size c, or nst == 0 if it does not fit.
-DlGeom dl_geom(DlGeom G, int c) {
+// The geometry at cluster size c (w8: the int8 mode's, whose stages hold
+// twice the rows and whose boxes' inner widths are multiples of 16
+// columns), or nst == 0 if it does not fit.
+DlGeom dl_geom(DlGeom G, int c, bool w8) {
   G.C = c;
   const int cq = (G.g + 2) * G.hd;
-  G.cw = ((cq + c - 1) / c + 7) / 8 * 8;
+  const int unit = w8 ? 16 : 8, eb = w8 ? 1 : 2;
+  G.cw = ((cq + c - 1) / c + unit - 1) / unit * unit;
   // wo columns per rank rounded to 64, so that a box's lines are >= 128 bytes
+  // (bf16; int8 lines are >= 64)
   G.oc = ((G.hidden + c - 1) / c + 63) / 64 * 64;
-  G.rq = std::min(256, OL_STAGE / (2 * G.cw));
-  G.ro = std::min(256, OL_STAGE / (2 * G.oc));
+  G.rq = std::min(256, OL_STAGE / (eb * G.cw));
+  G.ro = std::min(256, OL_STAGE / (eb * G.oc));
   G.tr = std::min(G.split, 64);
   // splits per chunk: as many as this call gives a rank, up to 32 KB of scores
   const int mine = G.ns > 0 ? (G.ns + c - 1) / c : 1;
   G.kch = std::max(1, std::min({64, mine, 8192 / (G.g * G.split)}));
-  G.pw = ol_box_width(G.cw, cq);
-  G.bw = ol_box_width(G.oc, G.hidden);
+  G.pw = ol_box_width(G.cw, cq, unit);
+  G.bw = ol_box_width(G.oc, G.hidden, unit);
   G.nst = 0;
   if (G.ro < 1 || G.oc / G.bw > 256 || G.cw / G.pw > 256 || G.hidden > OL_MAX_HIDDEN)
     return G;
@@ -591,36 +625,69 @@ DlGeom dl_geom(DlGeom G, int c) {
   return G;
 }
 
-using DlKernel = decltype(&decoder_layer_kernel<1, 0>);
+using DlKernel = decltype(&decoder_layer_kernel<1, 0, false>);
 
-template <int HDT>
+template <int HDT, bool W8>
 DlKernel dl_kernel_hd(int g) {
-  return g <= 1 ? decoder_layer_kernel<1, HDT>
-                : g <= 2 ? decoder_layer_kernel<2, HDT>
-                         : g <= 4 ? decoder_layer_kernel<4, HDT> : decoder_layer_kernel<8, HDT>;
+  return g <= 1   ? decoder_layer_kernel<1, HDT, W8>
+         : g <= 2 ? decoder_layer_kernel<2, HDT, W8>
+         : g <= 4 ? decoder_layer_kernel<4, HDT, W8>
+                  : decoder_layer_kernel<8, HDT, W8>;
 }
 
-// The instantiation for a group of g query rows of head dim hd.
-DlKernel dl_kernel(int g, int hd) {
-  return hd == 128 ? dl_kernel_hd<128>(g) : dl_kernel_hd<0>(g);
+// The instantiation for a group of g query rows of head dim hd (w8: int8
+// weights).
+DlKernel dl_kernel(int g, int hd, bool w8) {
+  if (w8) return hd == 128 ? dl_kernel_hd<128, true>(g) : dl_kernel_hd<0, true>(g);
+  return hd == 128 ? dl_kernel_hd<128, false>(g) : dl_kernel_hd<0, false>(g);
+}
+
+// The two weights' tensor maps of one call and the weight kind they were
+// encoded for; the launch takes its kernel instance from that kind, so a
+// map is never read by the instance of the other kind.
+struct DlMaps {
+  CUtensorMap q, o;
+  bool w8;
+};
+
+// Encode the maps for this geometry: wqkv as [G*hidden][hg*cq/pw][pw] in
+// boxes [rq][cw/pw][pw], wo (not in partials mode) as [kv*g*hd][hidden/bw]
+// [bw] in boxes [ro][oc/bw][bw]; bf16 or (w8) int8 elements.
+bool dl_maps(DlMaps* m, const DlGeom& G, const void* wqkv, const void* wo, bool w8) {
+  const CUtensorMapDataType type =
+      w8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const uint64_t eb = w8 ? 1 : 2;
+  const int ng = G.kv / G.hg, cq = (G.g + 2) * G.hd;
+  m->w8 = w8;
+  memset(&m->o, 0, sizeof(m->o));
+  return hopper::make_tensor_map_3d(&m->q, type, wqkv, G.pw, (uint64_t)G.hg * cq / G.pw,
+                                    (uint64_t)ng * G.hidden, (uint64_t)G.pw * eb,
+                                    (uint64_t)G.hg * cq * eb, G.pw, G.cw / G.pw, G.rq,
+                                    CU_TENSOR_MAP_SWIZZLE_NONE) &&
+         (G.partials ||
+          hopper::make_tensor_map_3d(&m->o, type, wo, G.bw, G.hidden / G.bw,
+                                     (uint64_t)G.kv * G.g * G.hd, (uint64_t)G.bw * eb,
+                                     (uint64_t)G.hidden * eb, G.bw, G.oc / G.bw, G.ro,
+                                     CU_TENSOR_MAP_SWIZZLE_NONE));
 }
 
 // The cluster size for this geometry on the current device (cached): the
 // largest, up to SMs / kv heads, whose kv_heads clusters the card holds all
 // at once; else the largest that fits at all.  *act (if given) receives
 // the clusters of that size the card holds.  Returns a cudaError_t.
-int dl_pick(int hidden, int kv_heads, int group, int hd, int kv_split, int* c_out,
+int dl_pick(int hidden, int kv_heads, int group, int hd, int kv_split, bool w8, int* c_out,
             int* act_out) {
   int num_sms = 0, max_cluster = 0;
-  const DlKernel kern = dl_kernel(group, hd);
+  const DlKernel kern = dl_kernel(group, hd, w8);
   CF_CHECK(ol_device(kern, &num_sms, &max_cluster));
-  static struct { int dev, hidden, kv, g, hd, split, c, act; } picks[32];
+  static struct { int dev, hidden, kv, g, hd, split, w8, c, act; } picks[32];
   static int n_picks = 0;
   int dev = 0;
   CF_CHECK((int)cudaGetDevice(&dev));
   for (int i = 0; i < n_picks; ++i)
     if (picks[i].dev == dev && picks[i].hidden == hidden && picks[i].kv == kv_heads &&
-        picks[i].g == group && picks[i].hd == hd && picks[i].split == kv_split) {
+        picks[i].g == group && picks[i].hd == hd && picks[i].split == kv_split &&
+        picks[i].w8 == (int)w8) {
       *c_out = picks[i].c;
       if (act_out) *act_out = picks[i].act;
       return 0;
@@ -631,7 +698,7 @@ int dl_pick(int hidden, int kv_heads, int group, int hd, int kv_split, int* c_ou
                              (group + 2) * hd / 8});
   int c = 0, act = 0;
   for (int t = cmax; t >= 1; --t) {
-    const DlGeom Gt = dl_geom(G, t);
+    const DlGeom Gt = dl_geom(G, t, w8);
     if (Gt.nst == 0) continue;
     const int a = ol_active_clusters(kern, t, dl_smem(Gt).total, t * kv_heads);
     if (a >= 1 && c == 0) {
@@ -645,7 +712,8 @@ int dl_pick(int hidden, int kv_heads, int group, int hd, int kv_split, int* c_ou
     }
   }
   if (c == 0) return (int)cudaErrorInvalidValue;
-  if (n_picks < 32) picks[n_picks++] = {dev, hidden, kv_heads, group, hd, kv_split, c, act};
+  if (n_picks < 32)
+    picks[n_picks++] = {dev, hidden, kv_heads, group, hd, kv_split, (int)w8, c, act};
   *c_out = c;
   if (act_out) *act_out = act;
   return 0;
@@ -654,26 +722,26 @@ int dl_pick(int hidden, int kv_heads, int group, int hd, int kv_split, int* c_ou
 }  // namespace
 
 // The launch plan of cf_decoder_layer for this geometry on the current
-// device, into info[0..20]: blocks per cluster, blocks, ring stages, shared
-// bytes per block, clusters the card holds at that size, then for cluster
-// sizes 1..16 the clusters the card holds (0 where none fits).  Returns a
-// cudaError_t.
+// device (w8: the int8 mode's), into info[0..20]: blocks per cluster,
+// blocks, ring stages, shared bytes per block, clusters the card holds at
+// that size, then for cluster sizes 1..16 the clusters the card holds (0
+// where none fits).  Returns a cudaError_t.
 extern "C" int cf_decoder_layer_plan(int hidden, int kv_heads, int group, int hd,
-                                     int kv_split, int* info) {
+                                     int kv_split, int w8, int* info) {
   int c = 0, act = 0;
-  CF_CHECK(dl_pick(hidden, kv_heads, group, hd, kv_split, &c, &act));
+  CF_CHECK(dl_pick(hidden, kv_heads, group, hd, kv_split, w8 != 0, &c, &act));
   DlGeom G{hidden, kv_heads, 1, group, hd, 0, 0, kv_split};
   G.ns = 1 << 20;
-  G = dl_geom(G, c);
+  const DlGeom Gc = dl_geom(G, c, w8 != 0);
   info[0] = c;
   info[1] = c * kv_heads;
-  info[2] = G.nst;
-  info[3] = dl_smem(G).total;
+  info[2] = Gc.nst;
+  info[3] = dl_smem(Gc).total;
   info[4] = act;
   for (int t = 1; t <= OL_MAX_CLUSTER; ++t) {
-    const DlGeom Gt = dl_geom(G, t);
-    info[4 + t] = Gt.nst ? ol_active_clusters(dl_kernel(group, hd), t, dl_smem(Gt).total,
-                                              t * kv_heads)
+    const DlGeom Gt = dl_geom(G, t, w8 != 0);
+    info[4 + t] = Gt.nst ? ol_active_clusters(dl_kernel(group, hd, w8 != 0), t,
+                                              dl_smem(Gt).total, t * kv_heads)
                          : 0;
   }
   return 0;
@@ -696,18 +764,23 @@ extern "C" long long cf_decoder_layer_scratch_floats(int hidden, int kv_heads) {
 // take turns with it).  stamps: nullptr, or zeroed uint64 [16 * kv_heads]
 // [OL_STAMPS] (rows past the launch's blocks stay 0) for the phases'
 // times: start, norm, QKV, rope, split-KV, merge, O-projection, fold.
-// *n_launches receives the number of kernels launched.  Returns a
-// cudaError_t (0 on success).
+// *n_launches receives the number of kernels launched.  w8: wqkv and wo
+// hold int8 codes and wqkv_s (float32 [G, hg*(g+2)*hd]) and wo_s (float32
+// [G, hidden]; unused in partials mode) their per-column scales; hidden a
+// multiple of 16.  Returns a cudaError_t (0 on success).
 extern "C" int cf_decoder_layer(
     const void* x, const void* residual, const void* rms_w, const void* cos,
     const void* sin, const void* wqkv, const void* wo, void* kc, void* vc,
     void* out, void* res_out, void* k_new, void* v_new, void* acc_out,
     void* ml_out, void* scratch, int hidden, int kv_heads, int hg, int group,
     int hd, int cap, int seq, int fold, int append, int neox, float eps,
-    int kv_split, void* stamps, int* n_launches, void* stream) {
+    int kv_split, void* stamps, int* n_launches, void* stream, const void* wqkv_s,
+    const void* wo_s, int w8) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   *n_launches = 0;
   const bool partials = acc_out != nullptr;
+  if (w8 && (wqkv_s == nullptr || (!partials && wo_s == nullptr) || hidden % 16 != 0))
+    return (int)cudaErrorInvalidValue;
   if (kv_heads < 1 || kv_heads > OL_FOLD_MAX_ROWS || hg < 1 || kv_heads % hg != 0 || seq < 0 || seq > cap ||
       (append && (partials || seq >= cap)) || hidden < 8 || hidden % 8 != 0 ||
       group < 1 || group > ATT_MAX_GROUP || hd < 32 || hd % 32 != 0 || hd > 128 ||
@@ -719,34 +792,24 @@ extern "C" int cf_decoder_layer(
   G.ns = (seq + kv_split - 1) / kv_split;
   G.eps = eps;
   int c = 0;
-  CF_CHECK(dl_pick(hidden, kv_heads, group, hd, kv_split, &c, nullptr));
-  G = dl_geom(G, c);
-  const int ng = kv_heads / hg, cq = (group + 2) * hd;
-  CUtensorMap qm, om;
-  memset(&om, 0, sizeof(om));
-  if (!hopper::make_tensor_map_bf16_3d(&qm, wqkv, G.pw, (uint64_t)hg * cq / G.pw,
-                                       (uint64_t)ng * hidden, (uint64_t)G.pw * 2,
-                                       (uint64_t)hg * cq * 2, G.pw, G.cw / G.pw, G.rq,
-                                       CU_TENSOR_MAP_SWIZZLE_NONE) ||
-      (!partials &&
-       !hopper::make_tensor_map_bf16_3d(&om, wo, G.bw, hidden / G.bw,
-                                        (uint64_t)kv_heads * group * hd, (uint64_t)G.bw * 2,
-                                        (uint64_t)hidden * 2, G.bw, G.oc / G.bw, G.ro,
-                                        CU_TENSOR_MAP_SWIZZLE_NONE)))
-    return (int)cudaErrorInvalidValue;
+  CF_CHECK(dl_pick(hidden, kv_heads, group, hd, kv_split, w8 != 0, &c, nullptr));
+  G = dl_geom(G, c, w8 != 0);
+  DlMaps m;
+  if (!dl_maps(&m, G, wqkv, wo, w8 != 0)) return (int)cudaErrorInvalidValue;
   float* part = static_cast<float*>(scratch);
   unsigned* ctr = reinterpret_cast<unsigned*>(
       part + (size_t)(kv_heads + ol_fold_groups(kv_heads, DL_FOLD_GROUP)) * hidden);
   CF_CHECK(launch_kernel_cluster(
-      dl_kernel(group, hd), dim3(1, c * kv_heads), dim3(OL_BLOCK), dl_smem(G).total, st,
-      false, c, qm, om, G, static_cast<const __nv_bfloat16*>(x),
+      dl_kernel(group, hd, m.w8), dim3(1, c * kv_heads), dim3(OL_BLOCK), dl_smem(G).total, st,
+      false, c, m.q, m.o, G, static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(residual), static_cast<const __nv_bfloat16*>(rms_w),
       static_cast<const float*>(cos), static_cast<const float*>(sin),
       static_cast<__nv_bfloat16*>(kc), static_cast<__nv_bfloat16*>(vc),
       static_cast<__nv_bfloat16*>(out), static_cast<__nv_bfloat16*>(res_out),
       static_cast<__nv_bfloat16*>(k_new), static_cast<__nv_bfloat16*>(v_new),
       static_cast<float*>(acc_out), static_cast<float*>(ml_out), part, ctr,
-      static_cast<unsigned long long*>(stamps)));
+      static_cast<unsigned long long*>(stamps), static_cast<const float*>(wqkv_s),
+      static_cast<const float*>(wo_s)));
   *n_launches = 1;
   return 0;
 }

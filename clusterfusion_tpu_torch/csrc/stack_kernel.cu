@@ -64,6 +64,15 @@
 // collective.cu's note.  Every rank carries the same bits of the hidden
 // pair, and the sequence has as many launches as at tp 1.
 //
+// Mode 5 with int8 weights (the TPU kernel's wq_kind == "int8" with
+// reduce_axis): the O and down products run ring_gemv8_kernel's PUSH
+// instances, which push sums already scaled (the O projection's per group
+// on each block's partial, the down projection's per column after the
+// cluster sum), and an int8 LM-head shard pushes through its
+// G1_PUSH_GATHER instance, scaled per column; the scale is the same on
+// every rank, so it commutes with the sum (or the gather) over the ranks.
+// The flags, epochs and waits are the bf16 sequence's.
+//
 // Mode 5 with the logits gathered (`gather`; the tp step of
 // parallel/decode.py): lm_head is this rank's vocab shard of n columns, and
 // the step ends in kernel 14's gather, again with no launch of its own
@@ -184,6 +193,9 @@ int preload_mode5() {
   CF_CHECK((int)cudaFuncGetAttributes(&a, ring_gemv_kernel<false, G1_PUSH_SUM>));
   CF_CHECK((int)cudaFuncGetAttributes(&a, ring_gemv_kernel<true, G1_PUSH_SUM>));
   CF_CHECK((int)cudaFuncGetAttributes(&a, ring_gemv_kernel<false, G1_PUSH_GATHER>));
+  CF_CHECK((int)cudaFuncGetAttributes(&a, ring_gemv8_kernel<false, G1_PUSH_SUM>));
+  CF_CHECK((int)cudaFuncGetAttributes(&a, ring_gemv8_kernel<true, G1_PUSH_SUM>));
+  CF_CHECK((int)cudaFuncGetAttributes(&a, ring_gemv8_kernel<false, G1_PUSH_GATHER>));
   CF_CHECK((int)cudaFuncGetAttributes(&a, resnorm_reduce_kernel));
   CF_CHECK((int)cudaFuncGetAttributes(&a, gather_wait_kernel));
   if (dev < 64) loaded[dev] = true;
@@ -202,6 +214,20 @@ int step_gemv(const void* x, int f_off, const void* w, const CUtensorMap* wmap, 
                                             true, st, nullptr, nullptr, 0.f, nullptr, wmap,
                                             mat0, sc, kg);
   return launch_gemv1<SWIGLU>(x, f_off, w, y, K, N, nmat, ws, yz, threads, true, st);
+}
+
+// One pushing product of mode 5 (one matrix, comm given): bf16 w, or (sc
+// given) the int8 matrix mat0 of wmap scaled as step_gemv's.
+template <bool SWIGLU, int PUSH>
+int push_gemv(const void* x, int f_off, const void* w, const CUtensorMap* wmap, int mat0,
+              const float* sc, int kg, int K, int N, int threads, cudaStream_t st,
+              const CfComm* cc) {
+  if (sc)
+    return launch_gemv1<SWIGLU, PUSH, true>(x, f_off, nullptr, nullptr, K, N, 1, 0, 0, threads,
+                                            true, st, nullptr, nullptr, 0.f, cc, wmap, mat0,
+                                            sc, kg);
+  return launch_gemv1<SWIGLU, PUSH>(x, f_off, w, nullptr, K, N, 1, 0, 0, threads, true, st,
+                                    nullptr, nullptr, 0.f, cc);
 }
 
 }  // namespace
@@ -228,8 +254,9 @@ extern "C" long long cf_stack_scratch_floats(int hidden, int kv_heads, int hg,
 // C], wo_s [L, G, hidden], w13_s [L, 2, f_pad], w2_s [L, hidden] their
 // float32 per-column scales (the O projection's per head group, applied to
 // each group's partial before the groups are summed); lm_s [vocab] given:
-// lm_head holds int8 codes.  Neither with comm.  Returns a cudaError_t (0
-// on success); every refusal comes before the first launch.
+// lm_head holds int8 codes.  Both also with comm (the pushes carry the
+// scaled sums).  Returns a cudaError_t (0 on success); every refusal comes
+// before the first launch.
 extern "C" int cf_decoder_stack(
     const void* x, const void* attn_norm, const void* ffn_norm, const void* cos,
     const void* sin, const void* wqkv, const void* wo, const void* w13,
@@ -254,8 +281,6 @@ extern "C" int cf_decoder_stack(
                  4LL * vocab > cc->slot_bytes))
     return (int)cudaErrorInvalidValue;
   if (w8 && (!wo_s || !w13_s || !w2_s))
-    return (int)cudaErrorInvalidValue;
-  if (cc && (w8 || lm_s))   // mode 5 streams bf16 weights only
     return (int)cudaErrorInvalidValue;
   if (lm_s && !lm_head)
     return (int)cudaErrorInvalidValue;
@@ -323,9 +348,8 @@ extern "C" int cf_decoder_stack(
     // (int8: each group's partial scaled by its s[G] first); then the
     // attention-out residual add + FFN RMSNorm
     if (cc) {   // Stage.ATTN: the ranks' O-projection partials, summed
-      CF_CHECK(launch_gemv1<false, G1_PUSH_SUM>(s.o, 0, wol, nullptr, (int)(G * Ko), hidden,
-                                                1, 0, 0, threads, true, st, nullptr, nullptr,
-                                                0.f, cc));
+      CF_CHECK((push_gemv<false, G1_PUSH_SUM>(s.o, 0, wol, &mo, l, so, (int)Ko, (int)(G * Ko),
+                                              hidden, threads, st, cc)));
       CF_CHECK(launch_kernel(resnorm_reduce_kernel, dim3(1), dim3(NORM_THREADS), 0, st,
           PDL_CHAIN, *cc, s.res_b, fn, s.res_a, s.xn, nullptr, nullptr, hidden, eps));
     } else {
@@ -341,9 +365,8 @@ extern "C" int cf_decoder_stack(
                               (long long)hidden * f_pad, f_pad, threads, st));
     ++n;
     if (cc)     // Stage.LINEAR: the down projection's partials go to the reduce
-      CF_CHECK(launch_gemv1<true, G1_PUSH_SUM>(s.gu, f_pad, w2l, nullptr, f_pad, hidden, 1, 0,
-                                               0, threads, true, st, nullptr, nullptr, 0.f,
-                                               cc));
+      CF_CHECK((push_gemv<true, G1_PUSH_SUM>(s.gu, f_pad, w2l, &m2, l, s2, 0, f_pad, hidden,
+                                             threads, st, cc)));
     else        // int8: scaled after the whole sum over f
       CF_CHECK(step_gemv<true>(s.gu, f_pad, w2l, &m2, l, s2, 0, s.hx, f_pad, hidden, 1, 0, 0,
                                threads, st));
@@ -365,8 +388,9 @@ extern "C" int cf_decoder_stack(
   ++n;
   const __nv_bfloat16* lm = static_cast<const __nv_bfloat16*>(lm_head);
   if (lm_head && gather) {   // kernel 14: this rank's shard pushed, then every rank's gathered
-    CF_CHECK(launch_gemv1<false, G1_PUSH_GATHER>(s.xn, 0, lm, nullptr, hidden, vocab, 1, 0, 0,
-                                                 threads, true, st, nullptr, nullptr, 0.f, cc));
+    CF_CHECK((push_gemv<false, G1_PUSH_GATHER>(s.xn, 0, lm, &mlm, 0,
+                                               static_cast<const float*>(lm_s), 0, hidden,
+                                               vocab, threads, st, cc)));
     CF_CHECK(launch_kernel(gather_wait_kernel, dim3((vocab + COMM_TILE - 1) / COMM_TILE),
                            dim3(GATHER_THREADS), 0, st, PDL_CHAIN, *cc,
                            static_cast<float*>(logits), vocab));

@@ -26,6 +26,16 @@ row written in place at ``seq_len`` of layer ``layer_id``),
 rows in the log2 domain for a merge across sequence shards, with the empty
 state m = -1e30, l = 0, acc = 0) and ``fold_current``.
 
+Int8 weights (``ops.quant.QuantizedTensor``, per output column; the TPU
+kernel's ``wq_kind == "int8"``): ``wqkv_f`` and ``wo_f`` int8 together.
+The codes stream as they are (never a bf16 copy) and each product sums
+over the codes in float32 (exact, |q| <= 127); the scales go where the TPU
+kernel applies them: each QKV column after its sum over hidden (``wqkv_f.s``
+is [G, 1, C]), and each kv head's O-projection partial by its head group's
+scale (``wo_f.s`` [G, 1, hidden]) before the heads are summed in order.
+int4 weights raise ``NotImplementedError`` (``ROADMAP.md`` queue 2, mode
+1).
+
 The public ops ``llama_decoder_layer`` (GPT-J rope, no residual add) and
 ``llama_decoder_layer_sglang`` (NEOX rope, fused residual) take the
 reference's tensor layouts and build the kernel layout on every call, as
@@ -43,7 +53,9 @@ import torch
 from clusterfusion_tpu_torch.config import KernelConfig
 from clusterfusion_tpu_torch.ops import _build
 from clusterfusion_tpu_torch.ops._support import stream_scratch
+from clusterfusion_tpu_torch.ops.quant import QuantizedTensor
 from clusterfusion_tpu_torch.ops.stack_kernel import (_norm, _rope,
+                                                      int8_operands,
                                                       split_attention_plain)
 
 _LOG2E = 1.4426950408889634
@@ -55,6 +67,8 @@ HEAD_GROUP = 8
 
 #: Calls of :func:`_fused_decoder_layer` that launched the kernels.
 launches = 0
+#: Those of them with int8 weights (the kernel's int8 mode).
+int8_launches = 0
 #: CUDA kernels the last such call launched.
 last_call_kernels = 0
 #: None, or a zeroed int64 CUDA tensor [16 * kv_heads, 8]: every call then
@@ -87,10 +101,11 @@ def fuse_qkv_o_for_kernel(wqkv_per_head, wo_per_head, kv_heads: int,
 
 def _layer_views(rms_w, wqkv_f, wo_f, layer_id: int, hidden: int):
     """One layer's (rms_w [hidden], wqkv [G, hidden, C], wo [G, R, hidden]
-    or None) from stacked ([L, ...]) or per-layer weights (views)."""
+    or None) from stacked ([L, ...]) or per-layer weights (views; an int8
+    weight's codes and scales alike)."""
     w = rms_w.reshape(-1, hidden)
     w = w[layer_id] if w.shape[0] > 1 else w[0]
-    if wqkv_f.dim() == 4:
+    if wqkv_f.ndim == 4:
         wqkv_f = wqkv_f[layer_id]
         wo_f = None if wo_f is None else wo_f[layer_id]
     return w, wqkv_f, wo_f
@@ -115,7 +130,12 @@ def _fused_decoder_layer_plain(
     if fuse_residual:
         h = h + residual.float().reshape(hidden)
     xn = _norm(h, rw, eps)
-    qkv = torch.einsum("d,Gdc->Gc", xn.float(), wqkv.float())
+    w8 = isinstance(wqkv, QuantizedTensor)
+    if w8:          # each column scaled after its sum over hidden
+        qkv = torch.einsum("d,Gdc->Gc", xn.float(),
+                           wqkv.q.float()) * wqkv.s[:, 0]
+    else:
+        qkv = torch.einsum("d,Gdc->Gc", xn.float(), wqkv.float())
     qkv = qkv.reshape(kv_heads, g + 2, hd)
     cos = cos_f.float().reshape(hd)
     sin = sin_f.float().reshape(hd)
@@ -133,7 +153,14 @@ def _fused_decoder_layer_plain(
                                                     l_sum.reshape(rows)]),
                 res_out, k_new, v_new)
     o = (acc / l_sum[..., None]).to(torch.bfloat16)
-    out = torch.einsum("Gc,Gco->o", o.reshape(G, -1).float(), wo.float())
+    if w8:          # each kv head's partial scaled by its group's scale,
+        hg = kv_heads // G      # then the heads summed in order
+        part = torch.einsum("hc,hco->ho", o.reshape(kv_heads, -1).float(),
+                            wo.q.reshape(kv_heads, g * hd, -1).float())
+        out = (part * wo.s[:, 0].repeat_interleave(hg, dim=0)).sum(dim=0)
+    else:
+        out = torch.einsum("Gc,Gco->o", o.reshape(G, -1).float(),
+                           wo.float())
     result = (out.to(dt)[None], res_out, k_new, v_new)
     if append_kv:
         k_cache[layer_id, :, seq] = k_new.to(k_cache.dtype)
@@ -143,14 +170,16 @@ def _fused_decoder_layer_plain(
 
 
 def launch_plan(hidden: int, kv_heads: int, group: int, head_dim: int,
-                kv_split: int = KernelConfig().kv_split) -> dict:
-    """The kernel's launch on the current card for this geometry: blocks
-    per cluster (one cluster per kv head), blocks, ring stages, shared
-    bytes per block, clusters of that size the card holds at once, and
-    (``held_by_size``) the clusters the card holds at each size 1..16."""
+                kv_split: int = KernelConfig().kv_split,
+                int8: bool = False) -> dict:
+    """The kernel's launch on the current card for this geometry (``int8``:
+    the int8 mode's): blocks per cluster (one cluster per kv head), blocks,
+    ring stages, shared bytes per block, clusters of that size the card
+    holds at once, and (``held_by_size``) the clusters the card holds at
+    each size 1..16."""
     info = (ctypes.c_int * 21)()
     _build.check(_build.lib().cf_decoder_layer_plan(
-        hidden, kv_heads, group, head_dim, kv_split, info),
+        hidden, kv_heads, group, head_dim, kv_split, int(int8), info),
         "_fused_decoder_layer plan")
     return dict(cluster=info[0], blocks=info[1], stages=info[2],
                 smem_bytes=info[3], clusters_held=info[4],
@@ -162,11 +191,20 @@ def _refuse(wqkv_f, wo_f, k_cache, v_cache, *, window, bias_qkv,
     if window or bias_qkv is not None or softcap:
         raise NotImplementedError("_fused_decoder_layer: sliding window, QKV "
                                   "bias and softcap are not ported yet")
-    if any(not isinstance(w, torch.Tensor) or w.dtype != torch.bfloat16
-           for w in (wqkv_f, wo_f) if w is not None):
-        raise NotImplementedError("_fused_decoder_layer: only bf16 weights "
-                                  "are ported (quantized weights are not: "
-                                  "ROADMAP.md queue 2, mode 1)")
+    weights = [w for w in (wqkv_f, wo_f) if w is not None]
+    quant = [w for w in weights if isinstance(w, QuantizedTensor)]
+    if any(w.kind != "int8" for w in quant):
+        raise NotImplementedError("_fused_decoder_layer: int4 weights are "
+                                  "not ported yet (ROADMAP.md queue 2, mode "
+                                  "1)")
+    if quant and len(quant) != len(weights):
+        raise ValueError("_fused_decoder_layer: wqkv_f and wo_f are int8 "
+                         "together or not at all")
+    if any(not isinstance(w, QuantizedTensor) and w.dtype != torch.bfloat16
+           for w in weights):
+        raise NotImplementedError("_fused_decoder_layer: only bf16 and int8 "
+                                  "weights are ported (ROADMAP.md queue 2, "
+                                  "mode 1)")
     if k_cache.dtype != torch.bfloat16 or v_cache.dtype != torch.bfloat16:
         raise NotImplementedError("_fused_decoder_layer: only a bf16 KV "
                                   "cache is ported (int8/fp8 KV are not: "
@@ -196,7 +234,8 @@ def _fused_decoder_layer(
     ``fuse_residual``); rms_w [hidden], [1, hidden] or the stack [L, hidden]
     / [L, 1, hidden]; cos_f/sin_f [1, head_dim] full-dim at the token's
     position; wqkv_f [G, hidden, hg*(group+2)*hd] and wo_f
-    [G, hg*group*hd, hidden], or their [L, ...] stacks; k_cache/v_cache
+    [G, hg*group*hd, hidden], or their [L, ...] stacks, bf16 or both int8
+    ``QuantizedTensor``s (the module's note); k_cache/v_cache
     [L, kv_heads, capacity, head_dim], layer ``layer_id`` read.
 
     Returns (out [1, hidden], res_out [1, hidden] or None without
@@ -207,7 +246,7 @@ def _fused_decoder_layer(
     ``fold_current`` 0 leaves the current token out of the softmax.
     ``window``, ``bias_qkv`` and ``softcap`` (the TPU kernel's sliding
     window, QKV bias and logit softcap) raise NotImplementedError."""
-    global launches, last_call_kernels
+    global launches, int8_launches, last_call_kernels
     _refuse(wqkv_f, wo_f, k_cache, v_cache, window=window, bias_qkv=bias_qkv,
             softcap=softcap)
     if append_kv and emit_partials:
@@ -268,9 +307,17 @@ def _fused_decoder_layer(
                               or t.numel() != hidden):
             raise ValueError(f"{name} must be bf16 [1, hidden]")
     kc_l, vc_l = k_cache[layer_id], v_cache[layer_id]
+    if emit_partials:
+        wo = None
+    w8 = isinstance(wqkv, QuantizedTensor)
+    ws, scales = int8_operands(dict(wqkv_f=wqkv, wo_f=wo),
+                               (C, hidden) if w8 else (), 0)
+    wqkv, wo = ws["wqkv_f"], ws["wo_f"]
+    sq, so = scales.get("wqkv_f_s"), scales.get("wo_f_s")
     for name, t in (("x", x), ("residual", res), ("rms_w", rw),
-                    ("wqkv_f", wqkv), ("wo_f", None if emit_partials else wo),
-                    ("k_cache", kc_l), ("v_cache", vc_l)):
+                    ("wqkv_f", wqkv), ("wo_f", wo), ("wqkv_f scales", sq),
+                    ("wo_f scales", so), ("k_cache", kc_l),
+                    ("v_cache", vc_l)):
         if t is None:
             continue
         if t.device != dev or not t.is_contiguous() or t.data_ptr() % 16:
@@ -305,16 +352,18 @@ def _fused_decoder_layer(
         return None if t is None else t.data_ptr()
 
     err = lib.cf_decoder_layer(
-        ptr(x), ptr(res), ptr(rw), ptr(cos), ptr(sin), ptr(wqkv),
-        None if emit_partials else ptr(wo), ptr(kc_l), ptr(vc_l), ptr(out),
-        ptr(res_out), ptr(k_new), ptr(v_new), ptr(acc), ptr(ml),
-        ptr(scratch), hidden, kv_heads, hg, group, hd, cap, seq, fold,
-        int(append_kv), 1 if rope_style == "neox" else 0, float(eps),
-        kcfg.kv_split, ptr(phase_stamps), ctypes.byref(n_launch), stream)
+        ptr(x), ptr(res), ptr(rw), ptr(cos), ptr(sin), ptr(wqkv), ptr(wo),
+        ptr(kc_l), ptr(vc_l), ptr(out), ptr(res_out), ptr(k_new),
+        ptr(v_new), ptr(acc), ptr(ml), ptr(scratch), hidden, kv_heads, hg,
+        group, hd, cap, seq, fold, int(append_kv),
+        1 if rope_style == "neox" else 0, float(eps), kcfg.kv_split,
+        ptr(phase_stamps), ctypes.byref(n_launch), stream, ptr(sq), ptr(so),
+        int(w8))
     if err:
         scratch.zero_()                 # the ticket counters start at 0
         _build.check(err, "_fused_decoder_layer")
     launches += 1
+    int8_launches += int(w8)
     last_call_kernels = n_launch.value
     if emit_partials:
         return acc, ml, res_out, k_new, v_new

@@ -30,8 +30,8 @@ each group's partial, before the sum over groups (``wo_f.s`` is [L, G, 1,
 hidden]); gate and up per column before SwiGLU; down per column after the
 whole sum over f; the LM head per column after its sum.  On the card the
 codes stream as they are (never a bf16 copy) through the ring GEMV's int8
-instance.  int4 weights, and int8 weights with ``reduce_axis``, raise
-``NotImplementedError`` on both devices (``ROADMAP.md`` queue 2, mode 1).
+instance.  int4 weights raise ``NotImplementedError`` on both devices
+(``ROADMAP.md`` queue 2, mode 1).
 
 Mode 5, ``reduce_axis`` (the JAX package's ``fused_collectives=True``):
 each rank holds its tp shards of the weights and caches, and the float32
@@ -45,7 +45,10 @@ and by ``all_reduce_plain`` on the CPU, in the same rank order.  ``mesh``
 this rank's vocab shard of the LM head, its logits gathered over the axis
 inside the stack's launches too (kernel 14: the LM head's product pushes
 its shard to every rank, one wait copies the ranks' shards out in rank
-order), and by ``all_gather_plain`` on the CPU.
+order), and by ``all_gather_plain`` on the CPU.  With int8 weights (and
+an int8 or bf16 LM-head shard) the pushing products push sums already
+scaled, as the TPU kernel scales before its reduces; the scale is the same
+on every rank, so it commutes with the sum over them.
 
 The caches are updated in place: the returned caches are the tensors that
 were passed in.
@@ -390,7 +393,7 @@ def _fused_decoder_stack_gathered(x, attn_norm, ffn_norm, cos, sin, wqkv_f,
                     (wqkv_f, wo_f, w13, w2, attn_norm, ffn_norm), final_norm,
                     lm_head, k_cache, v_cache, window=0, bias_qkv=None,
                     ffn_act="silu", softcap=0.0, post_attn_norm=None,
-                    post_ffn_norm=None)
+                    post_ffn_norm=None, int8=True)
     if lm_head is None:
         raise ValueError("the gathered step needs the LM head's shard")
     return _stack(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f, w13, w2,
@@ -408,11 +411,6 @@ def _stack(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f, w13, w2, k_cache,
     rank)."""
     global launches, int8_launches, last_step_kernels
     w8 = isinstance(wqkv_f, QuantizedTensor)
-    lm8 = isinstance(lm_head, QuantizedTensor)
-    if reduce_axis is not None and (w8 or lm8):
-        raise NotImplementedError(
-            "fused_decoder_stack: int8 weights with reduce_axis (mode 5) are "
-            "not ported yet (ROADMAP.md queue 2, mode 1)")
     if reduce_axis is not None and mesh is None:
         raise ValueError("reduce_axis needs the mesh whose axis it names")
     check_stack_kcfg(kcfg)

@@ -22,6 +22,14 @@ step, no plain call after them).  JAX runs the final norm and the LM head
 outside its kernel; the logits are the same function.  No NCCL call runs
 in that step.
 
+Int8 weights (``ops.quant.QuantizedTensor`` leaves, sharded by
+``shard_params``): kernel 6 takes the layer's int8 QKV and O (its int8
+mode); the FFN runs the GEMVs' int8 instances (``ops.gemv._ffn_int8``, the
+serving step's) and an int8 LM-head shard ``_gemv_int8``, so the codes
+stream as they are and no bf16 copy of a weight is made per call (JAX
+leaves these products to XLA; on the CPU they run their plain twins).  The
+fused step hands the int8 stacks to kernel 7's mode 5.
+
 Each rank's caches are updated in place; the step returns the same
 tensors.
 """
@@ -33,6 +41,8 @@ import torch
 from clusterfusion_tpu_torch.config import KernelConfig, LlamaConfig
 from clusterfusion_tpu_torch.models import llama as model
 from clusterfusion_tpu_torch.ops.decoder_layer import _fused_decoder_layer
+from clusterfusion_tpu_torch.ops.gemv import _gemv_int8
+from clusterfusion_tpu_torch.ops.quant import QuantizedTensor
 from clusterfusion_tpu_torch.ops.reference import fused_add_rmsnorm_ref
 from clusterfusion_tpu_torch.ops.rmsnorm import fused_add_rmsnorm
 from clusterfusion_tpu_torch.ops.stack_kernel import \
@@ -41,6 +51,7 @@ from clusterfusion_tpu_torch.parallel.collective import (Stage,
                                                          cluster_gather,
                                                          cluster_reduce)
 from clusterfusion_tpu_torch.parallel.mesh import Mesh
+from clusterfusion_tpu_torch.runtime.serving import batched_ffn
 
 
 def embed_and_rope(params, cfg: LlamaConfig, token, pos: int, dev):
@@ -53,11 +64,16 @@ def embed_and_rope(params, cfg: LlamaConfig, token, pos: int, dev):
 
 
 def lm_logits(params, x, residual, cfg: LlamaConfig, mesh: Mesh):
-    """Final norm over x + residual, this rank's LM-head columns, gathered
-    over tp: logits [vocab] float32."""
+    """Final norm over x + residual, this rank's LM-head columns (an int8
+    shard through ``_gemv_int8``), gathered over tp: logits [vocab]
+    float32."""
     xn, _ = fused_add_rmsnorm_ref(x, residual, params["final_norm"],
                                   cfg.norm_eps)
-    logits = model._lm_logits(xn[0], params["lm_head"])
+    lm = params["lm_head"]
+    if isinstance(lm, QuantizedTensor):
+        logits = _gemv_int8(xn, lm.q, lm.s)[0]
+    else:
+        logits = model._lm_logits(xn[0], lm)
     return cluster_gather(logits, "tp", mesh=mesh)
 
 
@@ -96,7 +112,7 @@ def make_sharded_decode_step(cfg: LlamaConfig, mesh: Mesh,
             ffn_in, residual = fused_add_rmsnorm(attn, residual,
                                                  lw["ffn_norm"][l],
                                                  cfg.norm_eps)
-            h = model._ffn(ffn_in, lw["w13"][l], lw["w2"][l], cfg.ffn_act)
+            h = batched_ffn(ffn_in, lw["w13"][l], lw["w2"][l], cfg.ffn_act)
             x = cluster_reduce(h, "tp", Stage.LINEAR, mesh=mesh)
         return lm_logits(params, x, residual, cfg, mesh), k_cache, v_cache
 

@@ -18,28 +18,50 @@ A spec is a tuple with one entry per tensor axis: the mesh axis that cuts
 it, or None.  ``shard_params`` and ``shard_cache`` return this rank's
 slices.  A slice that is the whole tensor is the tensor itself (a view, no
 copy); any other slice is made contiguous, a copy this rank owns.
+
+An int8 ``QuantizedTensor`` leaf (``ops.quant``) gets a spec node of the
+same class: its codes take the weight's spec, and so do its per-column
+scales except on their reduction axis, collapsed to 1, which replicates
+even where the weight cuts it (``w2``'s rows): every rank scales its
+partial sums by the same scale, which commutes with their sum over tp.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from clusterfusion_tpu_torch.config import LlamaConfig
 from clusterfusion_tpu_torch.models import llama as model
+from clusterfusion_tpu_torch.ops.quant import QuantizedTensor
 from clusterfusion_tpu_torch.parallel.mesh import Mesh
 
 Spec = Tuple[Optional[str], ...]
 
 
-def param_pspecs(cfg: LlamaConfig, tp: int) -> Dict[str, Any]:
-    """The spec tree matching the parameter tree of ``models.llama``."""
+def _qt_spec(spec: Spec, qt: QuantizedTensor) -> QuantizedTensor:
+    """The spec node of a quantized leaf: a ``QuantizedTensor`` of specs
+    (codes, scales) with the leaf's own fields.  The codes keep the
+    weight's spec; the scales too, but for an int8 leaf's collapsed
+    reduction axis, which replicates."""
+    sspec = list(spec) + [None] * (qt.s.dim() - len(spec))
+    if qt.kind == "int8":
+        sspec[qt.axis] = None
+    return QuantizedTensor(tuple(spec), tuple(sspec), qt.kind, qt.axis,
+                           qt.group_size, qt.pack_axis)
+
+
+def param_pspecs(cfg: LlamaConfig, tp: int, params=None) -> Dict[str, Any]:
+    """The spec tree matching the parameter tree of ``models.llama``; with
+    ``params``, each of its ``QuantizedTensor`` leaves gets a quantized
+    spec node (``_qt_spec``), so the two trees keep one shape."""
     if cfg.kv_heads % tp:
         raise ValueError(f"tp={tp} must divide kv_heads={cfg.kv_heads}")
     if cfg.ffn_dim % tp:
         raise ValueError(f"tp={tp} must divide ffn_dim={cfg.ffn_dim}")
-    return {
+    specs = {
         "embed": (None, None),
         "layers": {
             "wqkv_f": (None, "tp", None, None),
@@ -52,6 +74,13 @@ def param_pspecs(cfg: LlamaConfig, tp: int) -> Dict[str, Any]:
         "final_norm": (None,),
         "lm_head": (None, "tp"),
     }
+    if params is not None:
+        for name, w in params["layers"].items():
+            if isinstance(w, QuantizedTensor):
+                specs["layers"][name] = _qt_spec(specs["layers"][name], w)
+        if isinstance(params["lm_head"], QuantizedTensor):
+            specs["lm_head"] = _qt_spec(specs["lm_head"], params["lm_head"])
+    return specs
 
 
 def cache_pspec() -> Spec:
@@ -79,16 +108,21 @@ def shard_tensor(t: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
 def _tree_map(fn, tree, specs):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, QuantizedTensor):
+        return dataclasses.replace(tree, q=fn(tree.q, specs.q),
+                                   s=fn(tree.s, specs.s))
     return fn(tree, specs)
 
 
 def shard_params(params, cfg: LlamaConfig, mesh: Mesh):
     """This rank's slices of a full parameter tree (``models.llama``
-    layout).  The head-group axis G of ``wqkv_f``/``wo_f`` must divide by
-    tp: ``init_params(head_group=1)`` makes G = kv_heads.  A quantized
-    tree raises: no tp or sp step takes one yet."""
-    model.refuse_quantized(params, "shard_params")
-    specs = param_pspecs(cfg, mesh.shape["tp"])
+    layout), bf16 or with int8 ``QuantizedTensor`` weights (codes and
+    scales cut by ``param_pspecs(cfg, tp, params)``).  The head-group axis G
+    of ``wqkv_f``/``wo_f`` must divide by tp: ``init_params(head_group=1)``
+    makes G = kv_heads.  An int4 tree raises: no tp or sp step takes one
+    yet."""
+    model.refuse_quantized(params, "shard_params", allow=("int8",))
+    specs = param_pspecs(cfg, mesh.shape["tp"], params)
     return _tree_map(lambda t, s: shard_tensor(t, s, mesh), params, specs)
 
 

@@ -15,7 +15,10 @@ states merge across sp as the reference's split-KV merge does,
 (an empty shard has m = -1e30, l = 0: its weight 2^(m - m*) is 0).  Then
 the O-projection runs plain on the merged heads and is reduced over tp;
 the owner appends the token's K/V row; ``fused_add_rmsnorm_ref``, the FFN
-and a reduce over tp finish the layer, as in JAX.
+and a reduce over tp finish the layer, as in JAX.  With int8 weights
+kernel 6 streams the int8 QKV in partials mode; the O projection (each
+head group's partial scaled, then summed) and the FFN run the GEMVs' int8
+instances, where JAX dequantizes ``wo_f`` (``parallel.decode``'s note).
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ from clusterfusion_tpu_torch.parallel.collective import (Stage,
 from clusterfusion_tpu_torch.parallel.decode import embed_and_rope, lm_logits
 from clusterfusion_tpu_torch.parallel.mesh import Mesh
 from clusterfusion_tpu_torch.parallel.sharding import Spec
+from clusterfusion_tpu_torch.runtime.serving import (_int8, batched_ffn,
+                                                     batched_o_dot)
 
 
 def cache_pspec_2d() -> Spec:
@@ -79,7 +84,11 @@ def make_sp_sharded_decode_step(cfg: LlamaConfig, mesh: Mesh,
             l_g = psum(lsum * alpha, "sp", mesh=mesh)
             acc_g = psum(acc * alpha[:, None], "sp", mesh=mesh)
             o = (acc_g / l_g[:, None]).to(torch.bfloat16)
-            attn = model._oproj(o.reshape(1, -1), lw["wo_f"][l])
+            wo = lw["wo_f"][l]
+            if _int8(wo):
+                attn = batched_o_dot(o.reshape(1, wo.shape[0], -1), wo)
+            else:
+                attn = model._oproj(o.reshape(1, -1), wo)
             attn = cluster_reduce(attn.to(x.dtype), "tp", Stage.ATTN,
                                   mesh=mesh)
             if fold:                                  # the owner appends
@@ -87,7 +96,7 @@ def make_sp_sharded_decode_step(cfg: LlamaConfig, mesh: Mesh,
                 v_cache[l, :, pos_local] = v_new.to(v_cache.dtype)
             ffn_in, res = fused_add_rmsnorm_ref(attn, res, lw["ffn_norm"][l],
                                                 cfg.norm_eps)
-            h = model._ffn(ffn_in, lw["w13"][l], lw["w2"][l], cfg.ffn_act)
+            h = batched_ffn(ffn_in, lw["w13"][l], lw["w2"][l], cfg.ffn_act)
             x = cluster_reduce(h.to(x.dtype), "tp", Stage.LINEAR, mesh=mesh)
         return lm_logits(params, x, res, cfg, mesh), k_cache, v_cache
 

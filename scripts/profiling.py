@@ -143,7 +143,8 @@ def charged(ev):
 # to the ranks, and the LM head's product, which pushes its vocab shard
 # for the logits' gather; the down projection, the others; the split and
 # merge passes, the norms, mode 5's norms that wait for a reduce, and the
-# gather's wait), kernels 13 and 14 standalone, kernels 6 and 2.
+# gather's wait), kernels 13 and 14 standalone, kernels 6 and 2; then the
+# int8 instances of the ring GEMV (kernel 7's int8 mode 5 and its others).
 TP_STEP_PASSES = (("gemv_o_push", "ring_gemv_kernel<false, 1>"),
                   ("gemv_down_push", "ring_gemv_kernel<true, 1>"),
                   ("gemv_lm_push", "ring_gemv_kernel<false, 2>"),
@@ -154,7 +155,11 @@ TP_STEP_PASSES = (("gemv_o_push", "ring_gemv_kernel<false, 1>"),
                   ("reduce_norm", "resnorm_reduce_kernel"),
                   ("norm", "resnorm_kernel"), ("kernels13_14", "comm_kernel"),
                   ("kernel6", "decoder_layer_kernel"),
-                  ("kernel2", "rmsnorm_kernel"))
+                  ("kernel2", "rmsnorm_kernel"),
+                  ("gemv8_o_push", "ring_gemv8_kernel<false, 1>"),
+                  ("gemv8_down_push", "ring_gemv8_kernel<true, 1>"),
+                  ("gemv8_lm_push", "ring_gemv8_kernel<false, 2>"),
+                  ("gemv8", "ring_gemv8_kernel"))
 
 
 def breakdown(ev, reps: int, passes):

@@ -2018,3 +2018,273 @@ def test_int8_engine_spec_and_serving_on_card(dev):
             assert outs[0][i] == outs[1 + i][0], (impl, i)
     toks, _ = eng.generate([prompts[0]], 6, temperature=0.0)
     assert toks[0] == outs[1][0]
+
+
+# -- int8 weights in kernel 6 and in kernel 7's mode 5 ------------------------
+
+
+def _qt_slice(t, dim, n, i):
+    """Slice ``i`` of ``n`` of an int8 QuantizedTensor along ``dim`` (its
+    codes and scales alike), contiguous."""
+    import dataclasses
+    q = t.q.chunk(n, dim)[i].contiguous()
+    s = t.s.chunk(n, dim)[i].contiguous()
+    return dataclasses.replace(t, q=q, s=s)
+
+
+INT8_LAYER_MODES = ("full_append", "partials_fold1", "partials_fold0",
+                    "nan_full_append")
+
+
+@pytest.mark.parametrize("mode", INT8_LAYER_MODES)
+@pytest.mark.parametrize("n_heads,kv_heads,hg,shard", [
+    (8, 4, 1, False), (8, 4, 2, False), (16, 8, 4, True)],
+    ids=["hg1_G4", "hg2_G2", "hg4_tp2_shard"])
+def test_decoder_layer_int8_kernel_matches_plain(dev, n_heads, kv_heads, hg,
+                                                 shard, mode):
+    """Kernel 6's int8 mode against its plain twin: the layer's QKV and O
+    quantized per output column (stacked, layer 1 read), at head groups 1,
+    2 and (the first tp-2 shard's slices, G 2 -> 1 and half the kv heads)
+    4; one launch a call, counted as int8, the same bits on a repeat.  Rows
+    at and above seq hold garbage (NaN in the nan_ mode) that the kernel
+    never reads."""
+    from clusterfusion_tpu_torch.ops import decoder_layer as dl
+    from clusterfusion_tpu_torch.ops.quant import quantize_int8
+    seq, style, fuse, append, partials, fold = LAYER_MODES[mode]
+    g, a, kc, vc, _ = _stack_args(dev, n_heads, kv_heads, hg, seq, seed=80)
+    w = {k: quantize_int8(a[k], -2) for k in ("wqkv_f", "wo_f")}
+    if shard:
+        w = {k: _qt_slice(t, 1, 2, 0) for k, t in w.items()}
+        kc = kc[:, :kv_heads // 2].contiguous()
+        vc = vc[:, :kv_heads // 2].contiguous()
+    if mode.startswith("nan_"):
+        kc[:, :, seq:] = float("nan")
+        vc[:, :, seq:] = float("nan")
+    else:
+        kc[:, :, seq:] = _randn(kc[:, :, seq:].shape, dev, 81, 8.0)
+        vc[:, :, seq:] = _randn(vc[:, :, seq:].shape, dev, 82, 8.0)
+    res = _randn((1, HIDDEN), dev, 83)
+    cos, sin = model.rope_row(LlamaConfig.tiny(rope_style=style), seq, dev)
+    kw = dict(group=g, head_dim=HD, rope_style=style, fuse_residual=fuse,
+              eps=1e-5, emit_partials=partials, fold_current=fold,
+              append_kv=append)
+    args = [a["x"], res, a["attn_norm"], cos, sin, w["wqkv_f"], w["wo_f"]]
+    kp, vp = kc.clone(), vc.clone()
+    before = (dl.launches, dl.int8_launches)
+    out = dl._fused_decoder_layer(*args, kc, vc, seq, 1, **kw)
+    torch.cuda.synchronize()
+    assert (dl.launches, dl.int8_launches) == (before[0] + 1, before[1] + 1)
+    assert dl.last_call_kernels == 1
+    again = dl._fused_decoder_layer(*args, kc.clone(), vc.clone(), seq, 1,
+                                    **kw)
+    for x, y in zip(out, again):
+        assert (x is None and y is None) or _bits_equal(x, y)
+    ref = dl._fused_decoder_layer_plain(*args, kp, vp, seq, 1, **kw)
+    tol = dict(atol=2e-2, rtol=2e-2)
+    if partials:
+        torch.testing.assert_close(out[1], ref[1], **tol)
+        torch.testing.assert_close(out[0], ref[0], atol=5e-2, rtol=2e-2)
+        res_i = 2
+    else:
+        assert torch.isfinite(out[0].float()).all()
+        torch.testing.assert_close(out[0].float(), ref[0].float(), **tol)
+        res_i = 1
+    torch.testing.assert_close(out[res_i].float(), ref[res_i].float(), **tol)
+    for i in (res_i + 1, res_i + 2):
+        torch.testing.assert_close(out[i].float(), ref[i].float(), atol=0.05,
+                                   rtol=0)
+    others = torch.ones(CAP, dtype=torch.bool, device=dev)
+    if append:
+        others[seq] = False
+        torch.testing.assert_close(kc[1, :, seq].float(),
+                                   kp[1, :, seq].float(), atol=0.05, rtol=0)
+        assert _same_bits(kc[0, :, seq], kp[0, :, seq])
+    assert _same_bits(kc[:, :, others], kp[:, :, others])
+    assert _same_bits(vc[:, :, others], vp[:, :, others])
+
+
+@pytest.mark.parametrize("what", ["raw_int8", "int4", "int4_stack_mode5"])
+def test_int8_layer_entries_refuse(dev, what):
+    """Kernel 6 refuses a raw int8 tensor (not a QuantizedTensor) and an
+    int4 pair, and kernel 7 with reduce_axis refuses int4, each before any
+    launch (ROADMAP.md queue 2, mode 1)."""
+    from clusterfusion_tpu_torch.ops import decoder_layer as dl
+    from clusterfusion_tpu_torch.ops.quant import quantize_int4
+    seq = 37
+    g, a, kc, vc, _ = _stack_args(dev, 8, 4, 2, seq, seed=84)
+    cos, sin = model.rope_row(LlamaConfig.tiny(), seq, dev)
+    before = (dl.launches, sk.launches)
+    if what == "int4_stack_mode5":
+        q4 = {k: quantize_int4(a[k], -2) for k in ("wqkv_f", "wo_f", "w13",
+                                                     "w2")}
+        with pytest.raises(NotImplementedError, match="queue 2, mode 1"):
+            sk.fused_decoder_stack(
+                a["x"], a["attn_norm"], a["ffn_norm"], cos, sin,
+                q4["wqkv_f"], q4["wo_f"], q4["w13"], q4["w2"], kc, vc, seq,
+                group=g, head_dim=HD, rope_style="gptj", eps=1e-5,
+                reduce_axis="tp")
+    else:
+        if what == "raw_int8":
+            wq, wo = a["wqkv_f"].to(torch.int8), a["wo_f"].to(torch.int8)
+            match = "only bf16 and int8"
+        else:
+            wq, wo = (quantize_int4(a["wqkv_f"], -2),
+                      quantize_int4(a["wo_f"], -2))
+            match = "queue 2, mode 1"
+        with pytest.raises(NotImplementedError, match=match):
+            dl._fused_decoder_layer(
+                a["x"], _randn((1, HIDDEN), dev, 85), a["attn_norm"], cos,
+                sin, wq, wo, kc, vc, seq, 1, group=g, head_dim=HD,
+                rope_style="gptj", fuse_residual=True, eps=1e-5)
+    torch.cuda.synchronize()
+    assert (dl.launches, sk.launches) == before
+
+
+def _int8_mode5_shards(w, lm_head, kc, vc, meshes):
+    """Each virtual rank's int8 shards (codes and scales cut as
+    ``shard_params`` cuts them), LM-head shard (int8 or bf16) and
+    caches."""
+    import dataclasses
+
+    from clusterfusion_tpu_torch.ops.quant import QuantizedTensor
+    from clusterfusion_tpu_torch.parallel.sharding import (_qt_spec,
+                                                           shard_tensor)
+
+    def cut(t, spec, m):
+        if not isinstance(t, QuantizedTensor):
+            return shard_tensor(t, spec, m)
+        sp = _qt_spec(spec, t)
+        return dataclasses.replace(t, q=shard_tensor(t.q, sp.q, m),
+                                   s=shard_tensor(t.s, sp.s, m))
+
+    shards = [{k: cut(w[k], s, m) for k, s in MODE5_SPECS.items()}
+              for m in meshes]
+    heads = [cut(lm_head, (None, "tp"), m) for m in meshes]
+    caches = [(shard_tensor(kc, (None, "tp", None, None), m),
+               shard_tensor(vc, (None, "tp", None, None), m))
+              for m in meshes]
+    return shards, heads, caches
+
+
+@pytest.mark.parametrize("lm_kind", ["int8", "bf16"])
+@pytest.mark.parametrize("n_heads,kv_heads,hg", INT8_SHAPES[:2],
+                         ids=["hg4_G2", "hg8_G2"])
+def test_stack_int8_mode5_loopback_matches_unsharded(dev, n_heads, kv_heads,
+                                                     hg, lm_kind):
+    """Kernel 7's int8 mode 5 at tp 2 on one card: the O and down products
+    run ring_gemv8_kernel's G1_PUSH_SUM instance and the LM head's shard
+    (int8 or bf16) its G1_PUSH_GATHER instance, over a loopback
+    communicator.  Without the head, both ranks' x_out and residual are
+    bit-identical, repeat bit for bit, and agree with the unsharded int8
+    step (the G1_Y instance's sums) at atol 2e-2 / rtol 2e-2, with 8L+1
+    kernels a rank; each rank appends its heads' rows.  With the head
+    gathered (8L+3 kernels, one gather a rank, none standalone), the
+    ranks' logits are bit-identical and within 1e-3 of the largest logit
+    of the ranks' own shards from the public call with the LM head (the
+    G1_Y instance; the pushing product may cut its K chunks otherwise),
+    and within 2e-2 of kernel 7's unsharded logits."""
+    from clusterfusion_tpu_torch.ops.quant import quantize_int8
+    from clusterfusion_tpu_torch.parallel import collective as col
+    pos, tp = 37, 2
+    g, a, kc, vc, lm = _stack_args(dev, n_heads, kv_heads, hg, pos, seed=86)
+    w, _ = _int8_stack(a, lm, None)
+    lm_head = quantize_int8(lm["lm_head"], -2) if lm_kind == "int8" \
+        else lm["lm_head"]
+    cos, sin = model.rope_row(LlamaConfig.tiny(), pos, dev)
+    kw = dict(group=g, head_dim=HD, rope_style="gptj", eps=1e-5)
+    args = [a["x"], a["attn_norm"], a["ffn_norm"], cos, sin, w["wqkv_f"],
+            w["wo_f"], w["w13"], w["w2"]]
+    kr, vr = kc.clone(), vc.clone()
+    ref = sk.fused_decoder_stack(*args, kr, vr, pos, **kw)
+    ref_lg = sk.fused_decoder_stack(*args, kc.clone(), vc.clone(), pos,
+                                    final_norm=lm["final_norm"],
+                                    lm_head=lm_head, **kw)[0]
+    lb = col.LoopbackComm(tp, dev)
+    try:
+        meshes = [lb.mesh(r) for r in range(tp)]
+        shards, heads, caches = _int8_mode5_shards(w, lm_head, kc, vc, meshes)
+        streams = [torch.cuda.Stream(dev) for _ in range(tp)]
+        i8 = sk.int8_launches
+        outs, kernels = _mode5_step(a, shards, caches, meshes, streams, cos,
+                                    sin, pos, kw)
+        again, _ = _mode5_step(a, shards, caches, meshes, streams, cos, sin,
+                               pos, kw)
+        local, _ = _mode5_step(a, shards, caches, meshes, streams, cos, sin,
+                               pos, kw, head=(lm["final_norm"], heads))
+        g0, s0 = col.launches["all_gather"], col.standalone["all_gather"]
+        first, gk = _mode5_step(a, shards, caches, meshes, streams, cos, sin,
+                                pos, kw, head=(lm["final_norm"], heads),
+                                gather=True)
+        torch.cuda.synchronize(dev)
+        lb.check()
+        assert kernels == [8 * L + 1] * tp and gk == [8 * L + 3] * tp
+        assert sk.int8_launches == i8 + 4 * tp
+        assert col.launches["all_gather"] == g0 + tp
+        assert col.standalone["all_gather"] == s0
+    finally:
+        lb.close()
+    for r, (xo, ro, k, v) in enumerate(outs):
+        assert torch.equal(xo, outs[0][0]) and torch.equal(ro, outs[0][1])
+        assert torch.equal(xo, again[r][0]) and torch.equal(ro, again[r][1])
+        torch.testing.assert_close(xo.float(), ref[0].float(), atol=2e-2,
+                                   rtol=2e-2)
+        torch.testing.assert_close(ro.float(), ref[1].float(), atol=2e-2,
+                                   rtol=2e-2)
+        heads_r = slice(r * kv_heads // tp, (r + 1) * kv_heads // tp)
+        for got, full in ((k, kr), (v, vr)):
+            torch.testing.assert_close(got[:, :, pos].float(),
+                                       full[:, heads_r, pos].float(),
+                                       atol=0.05, rtol=0)
+    got = [o[0] for o in first]
+    assert got[0].shape == (1, VOCAB)
+    for r in range(tp):
+        assert torch.equal(got[r].view(torch.int32), got[0].view(torch.int32))
+    want = torch.cat([o[0] for o in local], dim=-1)
+    scale = want.abs().max().item()
+    assert (got[0] - want).abs().max().item() <= 1e-3 * scale
+    assert (got[0] - ref_lg).abs().max().item() <= \
+        2e-2 * ref_lg.abs().max().item()
+
+
+@pytest.mark.parametrize("which", ["tp", "sp", "fused"])
+def test_int8_sharded_steps_on_card_one_rank(dev, tmp_path, which):
+    """The int8 tp, sp and fused tp steps in a one-process group on the
+    card against ``decode_step(fused=True)`` on the same int8 tree (int8
+    LM head): kernel 6's int8 mode once a layer, the FFN on ``_ffn_int8``
+    once a layer, ``_gemv_int8`` for the sp step's O products and the LM
+    head; the fused step one call of kernel 7's int8 mode."""
+    import torch.distributed as dist
+
+    from clusterfusion_tpu_torch.config import MeshConfig
+    from clusterfusion_tpu_torch.ops import decoder_layer as dl
+    from clusterfusion_tpu_torch.ops.quant import quantize_llama_params
+    gm = importlib.import_module("clusterfusion_tpu_torch.ops.gemv")
+    from clusterfusion_tpu_torch import parallel as par
+    cfg = LlamaConfig.tiny(n_kv_heads=2, max_seq_len=64)
+    p = quantize_llama_params(model.init_params(cfg, seed=5, device=dev),
+                              "int8", lm_head=True)
+    kc, vc = model.init_cache(cfg, device=dev)
+    model.prefill(p, kc, vc, list(range(1, 21)), cfg)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        mesh = par.build_mesh(MeshConfig())
+        step = (par.make_sp_sharded_decode_step(cfg, mesh) if which == "sp"
+                else par.make_sharded_decode_step(
+                    cfg, mesh, fused_collectives=which == "fused"))
+        kr, vr = kc.clone(), vc.clone()
+        n = (dl.int8_launches, gm.ffn8_launches, gm.int8_launches,
+             sk.int8_launches)
+        lg, kc, vc = step(par.shard_params(p, cfg, mesh), kc, vc, 9, 20)
+        torch.cuda.synchronize()
+        got = (dl.int8_launches - n[0], gm.ffn8_launches - n[1],
+               gm.int8_launches - n[2], sk.int8_launches - n[3])
+    finally:
+        dist.destroy_process_group()
+    L_ = cfg.n_layers
+    assert got == {"tp": (L_, L_, 1, 0), "sp": (L_, L_, L_ + 1, 0),
+                   "fused": (0, 0, 0, 1)}[which]
+    ref, kr, vr = model.decode_step(p, kr, vr, 9, 20, cfg, fused=True)
+    scale = max(ref.abs().max().item(), 1.0)
+    assert (lg - ref).abs().max().item() < 0.05 * scale
+    torch.testing.assert_close(kc.float(), kr.float(), atol=0.05, rtol=0)

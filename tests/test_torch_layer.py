@@ -319,12 +319,18 @@ def _one_layer_args(layer_setup, **over):
     return args, kw
 
 
-@pytest.mark.parametrize("what", ["int8_weights", "window", "softcap",
-                                  "bias", "fp8_cache"])
+@pytest.mark.parametrize("what", ["int8_weights", "int4_weights", "window",
+                                  "softcap", "bias", "fp8_cache"])
 def test_fused_decoder_layer_refuses_unported(layer_setup, what):
+    """A raw int8 tensor (not a QuantizedTensor) and an int4 pair are
+    refused, as are the modes not ported yet."""
     args, kw = _one_layer_args(layer_setup)
     if what == "int8_weights":
         args["wqkv_f"] = args["wqkv_f"].to(torch.int8)
+    elif what == "int4_weights":
+        from clusterfusion_tpu_torch.ops.quant import quantize_int4
+        args["wqkv_f"] = quantize_int4(args["wqkv_f"], -2)
+        args["wo_f"] = quantize_int4(args["wo_f"], -2)
     elif what == "window":
         kw["window"] = 16
     elif what == "softcap":
@@ -333,7 +339,9 @@ def test_fused_decoder_layer_refuses_unported(layer_setup, what):
         kw["bias_qkv"] = torch.zeros(8)
     else:
         args["k_cache"] = args["k_cache"].to(torch.float8_e4m3fn)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError,
+                       match="queue 2, mode 1" if what == "int4_weights"
+                       else ""):
         tdl._fused_decoder_layer(**args, **kw)
 
 

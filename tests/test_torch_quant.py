@@ -367,11 +367,11 @@ def test_int8_engine_streams():
 
 
 def test_quantized_paths_still_refused(tree):
-    """What stays refused once int8 runs everywhere on one card
-    (``tests/test_torch_int8.py`` holds those paths): int4 weights in
-    kernels 7 and 8, ``spec_generate``, ``generate`` and the serving engine
-    (queue 2, mode 1); int8 weights with ``reduce_axis`` and in
-    ``shard_params`` (mode 1, the tp/sp steps); ``serving_w8a8`` (mode 6);
+    """What stays refused once int8 runs on every path
+    (``tests/test_torch_int8.py`` and ``tests/test_torch_int8_parallel.py``
+    hold those): int4 weights in kernels 7 (also with ``reduce_axis``) and
+    8, ``spec_generate``, ``generate``, the serving engine and
+    ``shard_params`` (queue 2, mode 1); ``serving_w8a8`` (mode 6);
     int8 and fp8 KV in the serving pools and kernel 8 (mode 2); ``chat
     --quant int4``."""
     _, _, tp = tree
@@ -379,7 +379,7 @@ def test_quantized_paths_still_refused(tree):
     g, hd = tcfg.n_heads // tcfg.kv_heads, tcfg.head_dim_
     kc, vc = tmodel.init_cache(tcfg, device="cpu")
     cos, sin = tmodel.rope_row(tcfg, 3)
-    for kind, kw in (("int4", {}), ("int8", dict(reduce_axis="tp"))):
+    for kind, kw in (("int4", {}), ("int4", dict(reduce_axis="tp"))):
         lw = tq.quantize_llama_params(tp, kind)["layers"]
         with pytest.raises(NotImplementedError, match="queue 2, mode 1"):
             sk.fused_decoder_stack(
@@ -422,7 +422,7 @@ def test_quantized_paths_still_refused(tree):
     mesh = Mesh(shape=dict.fromkeys(AXES, 1), coords=dict.fromkeys(AXES, 0),
                 groups=dict.fromkeys(AXES))
     with pytest.raises(NotImplementedError, match="queue 2, mode 1"):
-        shard_params(eng.params, tcfg, mesh)
+        shard_params(eng4.params, tcfg, mesh)
     from clusterfusion_tpu_torch import chat
     with pytest.raises(SystemExit, match="not yet ported"):
         chat.main(["--synthetic", "--quant", "int4", "--device", "cpu"])
