@@ -37,8 +37,9 @@ run with a non-zero exit code:
    a GQA shape and a lone 4095-row request, with NaN in every pool row no
    request owns (the tails of the last pages too): output (each head's
    row within 2e-2 of its own largest value), appended rows, every other
-   pool row unchanged, a repeat bit-identical; device busy time
-   (``torch.profiler``, the split and merge apart) beside the wall time of
+   pool row unchanged, a repeat bit-identical; device time (``queued_ms``:
+   calls back to back between CUDA events; ``torch.profiler``'s busy time
+   of the split and merge apart beside it) beside the wall time of
    a call, the plain twin's time and the bound (an SDPA over the same rows
    gathered beforehand is printed as context only);
 7. kernel 9, ``llama_decoder_layer_paged``, against its plain twin on one
@@ -75,8 +76,8 @@ run with a non-zero exit code:
    kernel 11 through the public op ``deepseek_decoder_layer`` over a
    4096-row cache, against its twin and the float32 oracle, a repeat
    bit-identical; kernel 5, ``fused_ffn``, stacked at 2048 x 11264; each
-   with its time (CUDA events and ``torch.profiler``; kernels 11 and 12 as
-   device busy time, by pass), the plain twin's and the bound;
+   with its time (CUDA events: ``queued_ms``, and ``torch.profiler``'s
+   busy time by pass beside it), the plain twin's and the bound;
 11. DeepSeek end to end: ``DeepSeekConfig(max_seq_len=4096)`` (the JAX
    benchmark's configuration, dense FFN, 27 layers) through
    ``generate_greedy``, 64 tokens after a 128-token prompt: prefill ms,
@@ -211,10 +212,10 @@ the bf16 engine is alive:
    with the append and partials mode on [0, 300) and [300, 600) merged
    against one partials call and, O-projected over the codes and scales,
    against the full output, each against the int8 plain twin at phase 13's
-   limits, a repeat bit-identical, one launch a call; device time (a CUDA
-   graph of 20 calls replayed between two events) and call time beside the
-   bf16 kernel 6 on the same inputs, the twin's time, the byte bound, both
-   launch plans and phase stamps;
+   limits, a repeat bit-identical, one launch a call; device time (20
+   calls queued behind a spin kernel between two events) and call time
+   beside the bf16 kernel 6 on the same inputs, the twin's time, the byte
+   bound, both launch plans and phase stamps;
 25. the int8 tp and sp steps end to end in a one-rank NCCL group, as phase
    14 runs the bf16 ones, with the engine's bf16 LM head and with an int8
    head: ``shard_params`` views, a 512-token prefill, 32 greedy steps of
@@ -241,6 +242,36 @@ the bf16 engine is alive:
    8L+3 kernels a rank, each step one call of kernel 7's int8 mode, no
    standalone kernel 13 or 14, the ranks bit-identical; ms per pair step
    beside phase 15's bf16 pair step.
+
+Phases 27-31 run after 26, on ``Llama.synthetic(llama2_7b, quant="int4")``
+(groups of 128, hg 8, the LM head bf16), beside the bf16 and int8 engines:
+
+27. kernel 7's int4 modes, W4A8 (the default) and exact, with the bf16 and
+   an int8 LM head, pos 600 over a random cache with NaN above pos,
+   against the int4 twin in the same mode at phase 4's limits: exact, the
+   first 1, 4 and all 32 layers; W4A8, each of the 32 layers from one
+   input, the kernel's own state after the layer before it (free-running,
+   W4A8 and its twin part far beyond bf16 drift: a rounding the two take
+   apart moves an int8 activation by a step); the int8 head at one layer;
+   repeats bit-identical, the int8 step's launches; ms beside the bf16
+   and int8 steps of the same run and the bound (codes and bf16 scales;
+   the float32 scale bytes read beside it); device time by pass;
+28. the int4 stream: 64 W4A8 greedy tokens after 512 and 16 exact ones,
+   prefill ms, tokens/s, launches, the first 8 against the eager prefill
+   and the int4 twin's steps under the top-2-gap rule;
+29. kernel 8's int4 modes at n 5 and 9, held as phase 27 holds kernel 7,
+   ms beside the bf16 kernel 8, the bound, device time by pass; then
+   ``spec_generate`` (phase 9's self and small drafts in W4A8, a
+   self-draft in the exact mode) against the engine's own stream;
+30. kernel 9's int4 mode (exact, as the TPU kernel's) as phase 21 holds
+   int8, and the int4 serving products as phase 23 holds int8's, with no
+   bf16 copy of a weight;
+31. int4 serving at B 8: one step of each kind against the plain-twin
+   step (4 layers at phase 9's limits, 32 within 1.25x the bf16 drift);
+   phase 8's mix through the default (fused) and the batched step,
+   tokens/s and ms a step beside each kind's device busy ms at
+   ``SERVE_LENS``, batching invariance; ``Llama.generate`` for one
+   prompt against the plain path.
 
 Then, where the machine has two cards or more:
 
@@ -291,7 +322,7 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "scripts"))
 import profiling  # noqa: E402
-from profiling import device_ms, timeline_by_pass  # noqa: E402
+from profiling import timeline_by_pass  # noqa: E402
 
 LIMITS_TOL = dict(atol=2e-2, rtol=2e-2)   # bf16 output rounding + sum order
 # paged_attention's twin rounds where the kernel rounds, so each head's
@@ -748,9 +779,39 @@ def nan_unowned(kp, vp, table, lens):
 def busy_ms(fn, passes=()):
     """Device busy ms per call of ``fn`` (``timeline_by_pass``: kernels
     launched with programmatic dependent launch overlap, so each is charged
-    from the end of those before it) and the busy ms by pass."""
-    busy, _, _, by_pass, _ = timeline_by_pass(fn, passes)
+    from the end of those before it) and the busy ms by pass; where no
+    profile saw a device event, ``queued_ms`` (nan if the calls cannot be
+    queued ahead) and nan by pass."""
+    try:
+        busy, _, _, by_pass, _ = timeline_by_pass(fn, passes)
+    except profiling.LostEvents:
+        try:
+            busy = queued_ms(fn)
+        except AssertionError:
+            busy = math.nan
+        profiling.note(no_device_events=True, busy_ms_from="queued_ms")
+        return busy, dict.fromkeys([*(k for k, _ in passes), "other"],
+                                   math.nan)
     return busy, by_pass
+
+
+def row_ms(fn, passes=()):
+    """A kernels-line row's ms, ``queued_ms`` (the profiler loses kernel
+    events, more the older the process, and a profile that lost some reads
+    low: ``scripts/profiler_events.py``), and the profiler's busy ms by
+    pass beside it (``busy_ms``)."""
+    return queued_ms(fn), busy_ms(fn, passes)[1]
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """``profiling.device_ms`` for the kernels line: a profile that lost
+    kernel events reads low, so then ``queued_ms`` of the calls stands
+    in."""
+    try:
+        return profiling.device_ms(fn, reps, whole=True)
+    except profiling.LostEvents:
+        profiling.note(lost_events=True, stands_in="queued_ms")
+        return queued_ms(fn)
 
 
 K6_PHASES = ("norm", "qkv", "rope", "split_kv", "merge", "oproj", "fold")
@@ -855,7 +916,7 @@ def phase_paged_attention(dev, hbm, peak):
         call = lambda: pd.paged_attention(  # noqa: E731
             q, k_new, v_new, kp, vp, table, lens, layer)
         call_ms = time_ms(call, 20)           # the host's time included
-        ms, by_pass = busy_ms(call, PAGED_PASSES)
+        ms, by_pass = row_ms(call, PAGED_PASSES)
         plain_ms = time_ms(lambda: pd.paged_attention_plain(
             q, k_new, v_new, kr, vr, table, lens, layer), 5)
         # context only: SDPA over the same rows gathered into contiguous
@@ -898,7 +959,6 @@ def phase_paged_attention(dev, hbm, peak):
 LAYER9_PASSES = (("gemv", "gemv_kernel"), ("norm", "resnorm_kernel"),
                  ("split", "paged_split_kernel"),
                  ("merge", "paged_merge_kernel"))
-LAYER9_INT8_PASSES = (("gemv", "gemv8_kernel"),) + LAYER9_PASSES[1:]
 
 
 def phase_paged_layer(eng, dev, hbm, peak):
@@ -954,7 +1014,7 @@ def phase_paged_layer(eng, dev, hbm, peak):
         call = lambda: pd.llama_decoder_layer_paged(  # noqa: E731
             x, res, *args, kp, vp, *tail, **kw)
         call_ms = time_ms(call, 20)           # the host's time included
-        ms, by_pass = busy_ms(call, LAYER9_PASSES)
+        ms, by_pass = row_ms(call, LAYER9_PASSES)
         plain_ms = time_ms(lambda: pd.llama_decoder_layer_paged_plain(
             x, res, *args, kr, vr, *tail, **kw), 3, warmup=1)
         w_elems = lw["wqkv_f"][layer].numel() + lw["wo_f"][layer].numel()
@@ -1047,12 +1107,15 @@ def phase_sglang(dev, hbm, peak, heads=32, hd=128):
         bound_by="bytes" if nbytes / hbm >= flops / peak else "operations")
 
 
-def check_against_plain(eng, dev, prompt, toks, n=8):
+def check_against_plain(eng, dev, prompt, toks, n=8, step=None):
     """Greedy tokens must match the plain path (eager prefill and decode on
-    the card, teacher-forced on ``toks``) wherever its top-2 gap > 0.1.
-    Returns (plain tokens, gaps, steps that disagree)."""
+    the card, teacher-forced on ``toks``; ``step(params, kc, vc, token,
+    pos, cfg)`` in place of the eager decode step when given) wherever its
+    top-2 gap > 0.1.  Returns (plain tokens, gaps, steps that disagree)."""
     from clusterfusion_tpu_torch.models import llama as model
     cfg = eng.cfg
+    if step is None:
+        step = functools.partial(model.decode_step, fused=False)
     kc, vc = model.init_cache(cfg, device=dev)
     lg, kc, vc = model.prefill(eng.params, kc, vc, prompt, cfg, flash=False)
     lg = lg[-1]
@@ -1061,8 +1124,7 @@ def check_against_plain(eng, dev, prompt, toks, n=8):
         top = torch.topk(lg, 2).values
         gaps.append((top[0] - top[1]).item())
         plain.append(int(torch.argmax(lg)))
-        lg, kc, vc = model.decode_step(eng.params, kc, vc, toks[i],
-                                       len(prompt) + i, cfg, fused=False)
+        lg, kc, vc = step(eng.params, kc, vc, toks[i], len(prompt) + i, cfg)
     bad = [i for i in range(n) if gaps[i] > 0.1 and plain[i] != toks[i]]
     return plain, gaps, bad
 
@@ -1341,26 +1403,27 @@ SPEC_NEW = 32
 SPEC_DRAFT = 4
 
 
-def spec_run(eng, dev, prompt, draft, ref, label, phase="spec"):
+def spec_run(eng, dev, prompt, draft, ref, label, phase="spec",
+             plain_step=None):
     """``spec_generate`` with ``draft``; checks its stream against
     ``stream_generate``'s (``ref``) and the plain path under the top-2-gap
-    rule, and one verify launch per round (with int8 weights, of kernel
-    8's int8 mode).  Returns (verify launches, rounds where a draft was
-    rejected at a top-2 gap > 0.1)."""
+    rule, and one verify launch per round (with int8 or int4 weights, of
+    kernel 8's int8 or int4 mode).  Returns (verify launches, rounds where
+    a draft was rejected at a top-2 gap > 0.1)."""
     from clusterfusion_tpu_torch.ops import flash_prefill as fp
     from clusterfusion_tpu_torch.ops import stack_kernel as sk
     from clusterfusion_tpu_torch.ops import stack_verify as sv
-    from clusterfusion_tpu_torch.ops.quant import QuantizedTensor
     fp.launches = sk.launches = sv.launches = sv.int8_launches = 0
+    sv.int4_launches = 0
     toks = eng.spec_generate(prompt, SPEC_NEW, draft, n_draft=SPEC_DRAFT)
     verify_launches, stack_launches, flash_launches = \
         sv.launches, sk.launches, fp.launches
-    int8_verify = sv.int8_launches
-    want_int8 = verify_launches if isinstance(
-        eng.params["layers"]["wqkv_f"], QuantizedTensor) else 0
-    if int8_verify != want_int8:
-        raise AssertionError(f"{label}: {int8_verify} int8 verify launches "
-                             f"of {verify_launches}")
+    int8_verify, int4_verify = sv.int8_launches, sv.int4_launches
+    kind = getattr(eng.params["layers"]["wqkv_f"], "kind", None)
+    if (int8_verify, int4_verify) != (verify_launches * (kind == "int8"),
+                                      verify_launches * (kind == "int4")):
+        raise AssertionError(f"{label}: {int8_verify} int8 and {int4_verify} "
+                             f"int4 verify launches of {verify_launches}")
     st, gs = dict(eng.spec_stats), eng.stats
     eos = eng.tokenizer.eos_id
     if not all(0 <= t < eng.cfg.vocab_size for t in toks) or \
@@ -1371,7 +1434,8 @@ def spec_run(eng, dev, prompt, draft, ref, label, phase="spec"):
         raise AssertionError(f"{label}: {verify_launches} verify and "
                              f"{stack_launches} stack launches for "
                              f"{st['rounds']} rounds")
-    plain, gaps, bad = check_against_plain(eng, dev, prompt, toks, len(toks))
+    plain, gaps, bad = check_against_plain(eng, dev, prompt, toks, len(toks),
+                                           plain_step)
     # where a round rejected a draft, the target's own token stands at the
     # round's last emitted place
     rejected, at = [], 1                       # toks[0] is the prefill's
@@ -1386,7 +1450,7 @@ def spec_run(eng, dev, prompt, draft, ref, label, phase="spec"):
         round_counts=st["round_counts"],
         tokens_per_s=f"{gs.tokens_per_s:.2f}", wall_s=f"{gs.total_s:.3f}",
         verify_launches=verify_launches, int8_verify_launches=int8_verify,
-        stack_launches=stack_launches,
+        int4_verify_launches=int4_verify, stack_launches=stack_launches,
         flash_prefill_launches=flash_launches,
         rejected_at=rejected,
         top2_gaps_at_rejections=[round(gaps[i], 3) for i in rejected],
@@ -1400,9 +1464,10 @@ def spec_run(eng, dev, prompt, draft, ref, label, phase="spec"):
     return verify_launches, [i for i in rejected if gaps[i] > 0.1]
 
 
-def phase_spec(eng, dev, phase="spec"):
+def phase_spec(eng, dev, phase="spec", plain_step=None):
     """``spec_generate`` at 7B: a self-draft and an unrelated small (bf16)
-    draft.  Returns the verify launches of the self-draft run."""
+    draft (``plain_step``: the plain decode step of ``check_against_plain``).
+    Returns the verify launches of the self-draft run."""
     from clusterfusion_tpu_torch.config import LlamaConfig
     from clusterfusion_tpu_torch.models.generation import Llama
     text = ("Speculative decoding drafts a few tokens and one verify step "
@@ -1415,7 +1480,7 @@ def phase_spec(eng, dev, phase="spec"):
     # a second engine on the same weights, with its own cache
     self_draft = Llama(eng.params, eng.cfg, eng.tokenizer, fused=True)
     launches, bad = spec_run(eng, dev, prompt, self_draft, ref, "self",
-                             phase)
+                             phase, plain_step)
     if bad:
         raise AssertionError(f"self-draft: drafts rejected at {bad} where "
                              "the target's top-2 gap exceeds 0.1")
@@ -1423,7 +1488,7 @@ def phase_spec(eng, dev, phase="spec"):
         LlamaConfig.tiny(hidden_dim=1024, n_heads=8, ffn_dim=2816, n_layers=4,
                          vocab_size=32000, max_seq_len=2048),
         seed=1, fused=True, device=dev)
-    spec_run(eng, dev, prompt, small, ref, "small", phase)
+    spec_run(eng, dev, prompt, small, ref, "small", phase, plain_step)
     return launches
 
 
@@ -1675,7 +1740,7 @@ def phase_layer(eng, dev, hbm, peak, pos=600, cap=4096, layer=1):
 
     call = lambda: dl._fused_decoder_layer(  # noqa: E731
         *args, kk, vk, pos, 1, append_kv=True, **kw)
-    ms, _ = busy_ms(call)
+    ms = queued_ms(call)
     call_ms = time_ms(call, 50)
     say("layer_launch", kernel=6, **dl.launch_plan(hidden, kvh, g, hd),
         **launch_phases(dl, call, 16 * kvh, K6_PHASES),
@@ -2620,27 +2685,45 @@ def phase_int8_verify(eng, dev, hbm, peak, w8, heads, pos=600):
     return rows[(5, "lm_bf16")]
 
 
-def phase_int8_paged_layer(eng8, eng, dev, hbm, peak):
-    """Phase 21: kernel 9's int8 mode alone on layer 1 of the 7B int8 tree
-    (phase 18's engine: hg 8, G 4) at B 4 (one request of 128 rows and the
-    engine's padding rows), 8 (the serving lens up to 2047) and 1, NaN in
-    every pool row no request owns: against its plain twin (atol 2e-2 /
-    rtol 2e-2; appended rows within 0.05, every other row bit-unchanged), a
-    repeat bit-identical; its device busy time by pass beside its byte
-    bound, the bf16 kernel 9 on the same inputs (the bf16 engine's layer 1,
-    hg 4) and the twin's.  Returns the kernels-line entry of B 4."""
+def quant_bytes(kind, ts):
+    """(bytes the work needs, bytes the kernels read, weights) of quantized
+    leaves: int8 codes and float32 scales; int4 codes two a byte with the
+    scales as bf16 (as the TPU kernels stream them; ``quantize_int4``
+    makes bf16 values), where the kernels read the float32 tensors."""
+    codes = sum(t.q.numel() for t in ts)
+    scales = sum(t.s.numel() for t in ts)
+    if kind == "int8":
+        return codes + 4 * scales, codes + 4 * scales, codes
+    return codes + 2 * scales, codes + 4 * scales, 2 * codes
+
+
+def phase_quant_paged_layer(engq, eng, dev, hbm, peak, kind):
+    """Phases 21 (``kind`` "int8") and 30 (a) ("int4", the exact mode the
+    TPU kernel always takes here): kernel 9's quantized mode alone on layer
+    1 of the 7B quantized tree (hg 8, G 4) at B 4 (one request of 128 rows
+    and the engine's padding rows), 8 (the serving lens up to 2047) and 1,
+    NaN in every pool row no request owns: against its plain twin (atol
+    2e-2 / rtol 2e-2; appended rows within 0.05, every other row
+    bit-unchanged), a repeat bit-identical; its device time (``queued_ms``:
+    the profiler, flaky on the card's torch late in a run, is spared here)
+    beside its byte bound (``quant_bytes``), the bf16 kernel 9 on the same
+    inputs (the bf16 engine's layer 1, hg 4) and the twin's.  Returns the
+    kernels-line entry of B 4."""
     from clusterfusion_tpu_torch.models import llama as model
     from clusterfusion_tpu_torch.ops import paged_decoder_layer as pd
-    cfg, lw8, lw = eng8.cfg, eng8.params["layers"], eng.params["layers"]
+    cfg, lwq, lw = engq.cfg, engq.params["layers"], eng.params["layers"]
     g, hd, kv, hidden = (cfg.n_heads // cfg.kv_heads, cfg.head_dim_,
                          cfg.kv_heads, cfg.hidden_dim)
     cos_t, sin_t = model.rope_table(cfg, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(21)
+    seed = 21 if kind == "int8" else 30
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    counter = f"llama_decoder_layer_paged_{kind}"
     layer, page = 1, 16
     rows = {}
     for B, lens_l in ((4, [128, 0, 0, 0]), (8, SERVE_LENS),
                       (1, SERVE_LENS[-1:])):
-        kp, vp, table, lens = paged_pools(dev, 2, kv, hd, page, lens_l, 22)
+        kp, vp, table, lens = paged_pools(dev, 2, kv, hd, page, lens_l,
+                                          seed + 1)
         x = torch.randn((B, hidden), generator=gen, device=dev).bfloat16()
         res = torch.randn((B, hidden), generator=gen, device=dev).bfloat16()
         if B == 4:
@@ -2650,17 +2733,17 @@ def phase_int8_paged_layer(eng8, eng, dev, hbm, peak):
         k0, v0 = kp.clone(), vp.clone()
         kr, vr = kp.clone(), vp.clone()
         k2, v2 = kp.clone(), vp.clone()
-        args = (lw8["wqkv_f"], lw8["wo_f"], table, lens, lens)
-        tail = (layer, lw8["attn_norm"][layer], cfg.norm_eps, cos_t, sin_t)
+        args = (lwq["wqkv_f"], lwq["wo_f"], table, lens, lens)
+        tail = (layer, lwq["attn_norm"][layer], cfg.norm_eps, cos_t, sin_t)
         kw = dict(group=g, rope_style=cfg.rope_style)
-        before = pd.launches["llama_decoder_layer_paged_int8"]
+        before = pd.launches[counter]
         out = pd.llama_decoder_layer_paged(x, res, *args, kp, vp, *tail, **kw)
         again = pd.llama_decoder_layer_paged(x, res, *args, k2, v2, *tail,
                                              **kw)
         ref = pd.llama_decoder_layer_paged_plain(x, res, *args, kr, vr, *tail,
                                                  **kw)
         torch.cuda.synchronize()
-        launched = pd.launches["llama_decoder_layer_paged_int8"] - before
+        launched = pd.launches[counter] - before
         repeat = (_same_bits(out[0], again[0]) and _same_bits(out[1], again[1])
                   and _same_bits(kp, k2) and _same_bits(vp, v2))
         finite = bool(torch.isfinite(out[0].float()).all())
@@ -2676,7 +2759,7 @@ def phase_int8_paged_layer(eng8, eng, dev, hbm, peak):
                      and _same_bits(vp[~app], v0[~app]))
         if not (repeat and finite and launched == 2 and row_err <= 0.05
                 and untouched):
-            raise AssertionError(f"kernel 9's int8 mode (B {B}) disagrees "
+            raise AssertionError(f"kernel 9's {kind} mode (B {B}) disagrees "
                                  "with its twin or itself, or its pools")
         del k2, v2, again, k0, v0
         call = lambda: pd.llama_decoder_layer_paged(  # noqa: E731
@@ -2685,30 +2768,27 @@ def phase_int8_paged_layer(eng8, eng, dev, hbm, peak):
             x, res, lw["wqkv_f"], lw["wo_f"], table, lens, lens, kp, vp,
             layer, lw["attn_norm"][layer], cfg.norm_eps, cos_t, sin_t, **kw)
         call_ms = time_ms(call, 20)
-        ms, by_pass = busy_ms(call, LAYER9_INT8_PASSES)
-        bf16_ms, _ = busy_ms(bf16_call, LAYER9_PASSES)
+        ms, bf16_ms = queued_ms(call), queued_ms(bf16_call)
         plain_ms = time_ms(lambda: pd.llama_decoder_layer_paged_plain(
             x, res, *args, kr, vr, *tail, **kw), 3, warmup=1)
-        w = [lw8["wqkv_f"][layer], lw8["wo_f"][layer]]
-        w_bytes = sum(t.q.numel() + 4 * t.s.numel() for t in w)
-        w_elems = sum(t.q.numel() for t in w)
+        w_bytes, w_read, w_elems = quant_bytes(
+            kind, [lwq["wqkv_f"][layer], lwq["wo_f"][layer]])
         n_rows = sum(lens_l)
         nbytes = w_bytes + 2 * (2 * n_rows * kv * hd + 4 * B * hidden + hidden
                                 + 2 * B * kv * hd)
         flops = 2 * B * w_elems + 4 * kv * g * hd * (n_rows + B)
         bound = max(nbytes / hbm, flops / peak) * 1e3
         bound_by = "bytes" if nbytes / hbm >= flops / peak else "operations"
-        say("paged_layer_int8", kernel=9, B=B, lens=lens_l,
-            hg=cfg.kv_heads // lw8["wqkv_f"].shape[1],
+        say(f"paged_layer_{kind}", kernel=9, B=B, lens=lens_l,
+            hg=cfg.kv_heads // lwq["wqkv_f"].shape[1],
             max_abs_err=f"{max_abs:.3g}", tol="atol=2e-2,rtol=2e-2",
             appended_row_err=f"{row_err:.3g}", tol_rows=0.05,
             other_rows_unchanged=untouched, nan_unowned_rows=True,
-            repeat_bit_identical=repeat, int8_launches=launched,
-            ms=f"{ms:.4f}", **{f"{k}_ms": f"{v:.4f}" for k, v in by_pass.items()},
-            call_ms=f"{call_ms:.4f}", bf16_ms_same_phase=f"{bf16_ms:.4f}",
+            repeat_bit_identical=repeat, **{f"{kind}_launches": launched},
+            queued_ms=f"{ms:.4f}", call_ms=f"{call_ms:.4f}",
+            bf16_queued_ms_same_phase=f"{bf16_ms:.4f}",
             plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound:.4f}",
-            bound_by=bound_by, weight_bytes=w_bytes,
-            weight_TBps=f"{w_bytes / ((by_pass['gemv']) * 1e-3) / 1e12:.3f}")
+            bound_by=bound_by, weight_bytes=w_bytes, weight_bytes_read=w_read)
         rows[B] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                        bound_ms=bound, bound_by=bound_by, library_ms=None)
         del kr, vr
@@ -2719,54 +2799,81 @@ def phase_int8_paged_layer(eng8, eng, dev, hbm, peak):
 PRODUCT_REL_TOL = 1e-2
 
 
-def phase_int8_products(eng8, dev, hbm, peak, layer=1):
-    """Phase 23: the int8 serving step's M=B products alone, through the
-    serving step's own calls (``batched_qkv_dot``, ``batched_o_dot``,
-    ``batched_ffn``, which launch ``_gemv_int8`` and ``_ffn_int8``) on
-    layer 1 of the 7B int8 tree: the QKV product (bf16 out, a scale per
-    column), the O product (each head group's partial scaled before the
-    sum over the groups) and the SwiGLU FFN, at B 8 (``max_batch``), 4
-    (``generate`` at B 4) and 1 (the fused step's FFN for one prompt).
-    Each against its plain twin within ``PRODUCT_REL_TOL`` of its largest
-    output, finite, a repeat bit-identical, two launches of its wrapper;
-    at B 8 the device busy ms (``torch.profiler``) and the CUDA-event ms of
-    a call beside the bound and the twin's.  Returns the
-    kernels-line figures of ``_gemv_int8`` (the layer's QKV and O products
-    at B 8) and of ``_ffn_int8`` (B 8)."""
+def phase_quant_products(engq, dev, hbm, peak, kind, layer=1):
+    """Phases 23 (``kind`` "int8") and 30 (b) ("int4", exact): the quantized
+    serving step's M=B products alone, through the serving step's own calls
+    (``batched_qkv_dot``, ``batched_o_dot``, ``batched_ffn``, which launch
+    ``_gemv_int8``/``_ffn_int8`` or ``_gemv_int4``/``_ffn_int4``) on layer
+    1 of the 7B quantized tree: the QKV product (bf16 out), the O product
+    (int8: each head group's partial scaled before the sum over the groups;
+    int4: the group scales along its rows) and the SwiGLU FFN, at B 8
+    (``max_batch``), 4 (``generate`` at B 4) and 1 (the fused step's FFN
+    for one prompt).  Each against its plain twin within
+    ``PRODUCT_REL_TOL`` of its largest output, finite, a repeat
+    bit-identical, two launches of its wrapper, and no bf16 copy of a
+    weight (the call allocates its outputs and scratch only); at B 8 the
+    device ms (``queued_ms``) and the CUDA-event ms of a call beside the
+    bound and the twin's.  Returns the kernels-line figures of
+    the QKV and O wrapper (B 8) and of the FFN's (B 8)."""
     from clusterfusion_tpu_torch.runtime import serving
     gemv = importlib.import_module("clusterfusion_tpu_torch.ops.gemv")
-    cfg, lw = eng8.cfg, eng8.params["layers"]
+    cfg, lw = engq.cfg, engq.params["layers"]
     wq, wo, w13, w2 = (lw[k][layer] for k in ("wqkv_f", "wo_f", "w13", "w2"))
     G, h, c = wq.shape
     co, f = wo.shape[1], w13.shape[-1]
     bf16 = torch.bfloat16
-    gen = torch.Generator(device=dev).manual_seed(23)
+    gen = torch.Generator(device=dev).manual_seed(23 if kind == "int8" else 32)
+    bits = kind[-1]
+    if kind == "int8":
+        def qkv_plain(xn):
+            return gemv._gemv_int8_plain(xn, wq.q, wq.s.reshape(G, c))
+
+        def o_plain(o3):
+            return gemv._gemv_int8_plain(o3.reshape(-1, G * co),
+                                         wo.q.reshape(G * co, h),
+                                         wo.s.reshape(G, h), co)
+
+        def ffn_plain(xn):
+            return gemv._ffn_int8_plain(xn, w13.q, w13.s.reshape(2, f), w2.q,
+                                        w2.s.reshape(h))
+    else:
+        def qkv_plain(xn):
+            return gemv._gemv_int4_plain(xn, wq.q, wq.s)
+
+        def o_plain(o3):
+            return gemv._gemv_int4_plain(o3.reshape(-1, G * co),
+                                         wo.q.reshape(-1, h),
+                                         wo.s.reshape(-1, h))
+
+        def ffn_plain(xn):
+            return gemv._ffn_int4_plain(xn, w13.q, w13.s, w2.q, w2.s)
     figures = {"gemv": {}, "ffn": {}}
     for B in (8, 4, 1):
         xn = torch.randn((B, h), generator=gen, device=dev).to(bf16)
         o3 = torch.randn((B, G, co), generator=gen, device=dev).to(bf16)
         cases = (
             ("qkv", "gemv", lambda: serving.batched_qkv_dot(xn, wq),
-             lambda: gemv._gemv_int8_plain(xn, wq.q, wq.s.reshape(G, c))
-             .to(bf16).reshape(B, G, c),
-             G * h * c + 4 * G * c + 2 * B * h + 2 * B * G * c,
+             lambda: qkv_plain(xn).to(bf16).reshape(B, G, c),
+             quant_bytes(kind, [wq]), 2 * B * h + 2 * B * G * c,
              2 * B * G * h * c),
             ("o", "gemv", lambda: serving.batched_o_dot(o3, wo),
-             lambda: gemv._gemv_int8_plain(
-                 o3.reshape(B, G * co), wo.q.reshape(G * co, h),
-                 wo.s.reshape(G, h), co),
-             G * co * h + 4 * G * h + 2 * B * G * co + 4 * B * h,
-             2 * B * G * co * h),
+             lambda: o_plain(o3), quant_bytes(kind, [wo]),
+             2 * B * G * co + 4 * B * h, 2 * B * G * co * h),
             ("ffn", "ffn", lambda: serving.batched_ffn(xn, w13, w2,
                                                        cfg.ffn_act),
-             lambda: gemv._ffn_int8_plain(xn, w13.q, w13.s.reshape(2, f),
-                                          w2.q, w2.s.reshape(h)),
-             3 * h * f + 4 * (2 * f + h) + 2 * B * h + 2 * B * h,
-             6 * B * h * f))
-        for label, wrapper, call, plain, nbytes, flops in cases:
-            count = "ffn8_launches" if wrapper == "ffn" else "int8_launches"
+             lambda: ffn_plain(xn), quant_bytes(kind, [w13, w2]),
+             2 * B * h + 2 * B * h, 6 * B * h * f))
+        for label, wrapper, call, plain, wbytes, io, flops in cases:
+            count = f"ffn{bits}_launches" if wrapper == "ffn" else \
+                f"int{bits}_launches"
             before = getattr(gemv, count)
-            out, again = call(), call()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            out = call()
+            torch.cuda.synchronize()
+            allocated = torch.cuda.max_memory_allocated(dev) - base
+            again = call()
             ref = plain()
             torch.cuda.synchronize()
             launched = getattr(gemv, count) - before
@@ -2774,30 +2881,36 @@ def phase_int8_products(eng8, dev, hbm, peak, layer=1):
             finite = bool(torch.isfinite(out.float()).all())
             err = (out.float() - ref.float()).abs().max().item()
             rel = err / ref.float().abs().max().item()
-            say("int8_products", product=label, wrapper=f"_{wrapper}_int8",
-                B=B, out_shape=list(out.shape), out_dtype=str(out.dtype),
-                max_abs_err=f"{err:.4g}", err_over_max=f"{rel:.4g}",
-                tol_over_max=PRODUCT_REL_TOL, finite=finite,
-                repeat_bit_identical=repeat, launches=launched)
+            # a bf16 copy of the weights would allocate 2 bytes a weight
+            weight_copy = allocated >= wbytes[2]
+            say(f"{kind}_products", product=label,
+                wrapper=f"_{wrapper}_{kind}", B=B, out_shape=list(out.shape),
+                out_dtype=str(out.dtype), max_abs_err=f"{err:.4g}",
+                err_over_max=f"{rel:.4g}", tol_over_max=PRODUCT_REL_TOL,
+                finite=finite, repeat_bit_identical=repeat, launches=launched,
+                bytes_allocated_by_call=allocated, bf16_weight_copy=weight_copy)
             if not (out.shape == ref.shape and rel <= PRODUCT_REL_TOL
-                    and finite and repeat and launched == 2):
-                raise AssertionError(f"the int8 {label} product (B {B}) "
+                    and finite and repeat and launched == 2
+                    and not weight_copy):
+                raise AssertionError(f"the {kind} {label} product (B {B}) "
                                      "disagrees with its plain twin or "
-                                     "itself, or did not launch")
+                                     "itself, did not launch, or copied a "
+                                     "weight")
             fig = figures[wrapper]
             fig["max_abs_err"] = max(fig.get("max_abs_err", 0.0), err)
             if B != 8:
                 continue
+            nbytes = wbytes[0] + io
             call_ms = time_ms(call, 20)
-            ms, _ = busy_ms(call)
+            ms = queued_ms(call)
             plain_ms = time_ms(plain, 3, warmup=1)
             bound = max(nbytes / hbm, flops / peak) * 1e3
-            say("int8_products", product=label, B=B, ms=f"{ms:.4f}",
+            say(f"{kind}_products", product=label, B=B, queued_ms=f"{ms:.4f}",
                 call_ms=f"{call_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
                 bound_ms=f"{bound:.4f}",
                 bound_by="bytes" if nbytes / hbm >= flops / peak
                 else "operations",
-                TBps=f"{nbytes / (ms * 1e-3) / 1e12:.3f}")
+                TBps=f"{(wbytes[1] + io) / (ms * 1e-3) / 1e12:.3f}")
             for key, v in (("ms", ms), ("plain_ms", plain_ms),
                            ("bytes", nbytes), ("flops", flops)):
                 fig[key] = fig.get(key, 0) + v
@@ -2817,7 +2930,8 @@ def step_vs_plain(eng, dev, depth=None, impls=("batched", "fused")):
     pages, NaN in every pool row no request owns, a distinct random token a
     row) on the first ``depth`` layers of ``eng`` (all by default), against
     the same step with the plain twins in place of ``_gemv_int8``,
-    ``_ffn_int8``, ``paged_attention`` and ``llama_decoder_layer_paged``,
+    ``_ffn_int8``, ``_gemv_int4``, ``_ffn_int4``, ``paged_attention`` and
+    ``llama_decoder_layer_paged``,
     on copies of the same pools.  Returns, per step kind: the logits'
     largest error over the largest logit, the least difference between two
     requests' plain logits over the same, each layer's largest error and
@@ -2860,7 +2974,15 @@ def step_vs_plain(eng, dev, depth=None, impls=("batched", "fused")):
         return gemv._ffn_int8_plain(x, w13_q, w13_s.reshape(2, -1), w2_q,
                                     w2_s.reshape(-1))
 
+    def gemv4_plain(x, q, s, *, kg=0, a8=False, bf16_out=False):
+        y = gemv._gemv_int4_plain(x, q, s, kg, a8)
+        return y.to(torch.bfloat16) if bf16_out else y
+
+    def ffn4_plain(x, w13_q, w13_s, w2_q, w2_s):
+        return gemv._ffn_int4_plain(x, w13_q, w13_s, w2_q, w2_s)
+
     plain_twins = dict(_gemv_int8=gemv_plain, _ffn_int8=ffn_plain,
+                       _gemv_int4=gemv4_plain, _ffn_int4=ffn4_plain,
                        paged_attention=pd.paged_attention_plain,
                        llama_decoder_layer_paged=pd
                        .llama_decoder_layer_paged_plain)
@@ -3085,29 +3207,35 @@ def phase_int8_serving(eng8, eng, dev, bf16_figures):
     return launch
 
 
-def graph_ms(fn, n: int = 20) -> float:
-    """Device ms per call of ``fn``, its calls back to back: one replay of
-    a CUDA graph of ``n`` calls between two CUDA events (the host's pace
-    left out), captured on a side stream after a warm-up call there (so
-    the wrappers' per-stream scratch exists before the capture)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
+def queued_ms(fn, n: int = 20) -> float:
+    """Device ms per call of ``fn``, its calls back to back: ``n`` calls
+    queued behind a spin kernel between two CUDA events, the spin long
+    enough that the host has queued them all before the first starts (the
+    host's pace left out; checked, and the spin doubled until it holds).
+    It needs neither the profiler nor a CUDA graph."""
+    fn()
     torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=side):
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(2e9 * 2 * max(host_s, 1e-3))   # twice that at 2 GHz
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
         for _ in range(n):
             fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / n
+        stop.record()
+        ahead = not start.query()
+        torch.cuda.synchronize()
+        if ahead:
+            return start.elapsed_time(stop) / n
+        cycles *= 2
+    raise AssertionError("queued_ms: the host did not queue the calls ahead "
+                         "of the card")
 
 
 def int8_head_tree(params):
@@ -3138,7 +3266,7 @@ def phase_int8_layer(eng8, eng, dev, hbm, peak, pos=600, cap=4096, layer=1):
     repeat bit-identical, one launch a call); partials mode on [0, 300) and
     [300, 600) merged against one partials call and, O-projected over the
     int8 codes and scales, against the full output.  Then, on the whole
-    tree: device time (``graph_ms``; the profiler's busy time beside it)
+    tree: device time (``queued_ms``; the profiler's busy time beside it)
     and call time beside the bf16 kernel 6 on the same inputs (the bf16
     engine's layer), the twin's time and the byte bound, the launch plans
     and the phase stamps of both.  Returns the kernel table's row."""
@@ -3254,7 +3382,7 @@ def phase_int8_layer(eng8, eng, dev, hbm, peak, pos=600, cap=4096, layer=1):
             *args, kk, vk, pos, 1, append_kv=True, **kw)
         call16 = lambda: dl._fused_decoder_layer(  # noqa: E731
             *args16, kk, vk, pos, 1, append_kv=True, **kw)
-        ms, ms16 = graph_ms(call), graph_ms(call16)
+        ms, ms16 = queued_ms(call), queued_ms(call16)
         prof_ms, _ = busy_ms(call)
         prof16_ms, _ = busy_ms(call16)
         call_ms = time_ms(call, 50)
@@ -3270,9 +3398,9 @@ def phase_int8_layer(eng8, eng, dev, hbm, peak, pos=600, cap=4096, layer=1):
         bound, bound_by, nbytes = _layer_bound(
             hbm, peak, wbytes, wq.q.numel() + wo.q.numel(), kvh, cfg.n_heads,
             pos, hd, 5 * hidden * 2 + 4 * kvh * hd * 2)
-        say("layer_int8", kernel=6, ms=f"{ms:.4f}", graph_ms=f"{ms:.4f}",
+        say("layer_int8", kernel=6, ms=f"{ms:.4f}", queued_ms=f"{ms:.4f}",
             profiler_busy_ms=f"{prof_ms:.4f}", call_ms=f"{call_ms:.4f}",
-            bf16_graph_ms_same_inputs=f"{ms16:.4f}",
+            bf16_queued_ms_same_inputs=f"{ms16:.4f}",
             bf16_profiler_busy_ms=f"{prof16_ms:.4f}",
             bf16_call_ms=f"{call16_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
             bound_ms=f"{bound:.4f}", bound_by=bound_by, bytes=nbytes,
@@ -3482,6 +3610,661 @@ MLA_PASSES = (("gemv", "ring_gemv_kernel"), ("absorb", "mla_absorb_kernel"),
               ("split", "mla_split_kernel"), ("merge", "mla_merge_kernel"))
 
 
+# -- int4 weights (phases 27-31) ---------------------------------------------
+
+INT4_MODES = (("w4a8", True), ("exact", False))
+INT4_CHECK_DEPTHS = (1, 4)
+INT4_PASSES = (("split", "attn_split_kernel"), ("gemv4", "ring_gemv4_kernel"),
+               ("gemv8", "ring_gemv8_kernel"), ("gemv", "ring_gemv_kernel"),
+               ("norms", "resnorm_kernel"), ("merge", "attn_merge_kernel"))
+INT4_VERIFY_PASSES = (("gemv4", "gemv4_kernel"), ("gemv", "gemv_kernel"),
+                      ("split", "attn_split_kernel"),
+                      ("norms", "resnorm_kernel"),
+                      ("merge", "verify_merge_kernel"))
+
+
+def int4_plain_step(a8):
+    """The int4 decode step's plain twin in one mode (kernel 7's
+    ``fused_decoder_stack_plain`` with the final norm and the LM head), for
+    ``check_against_plain``: W4A8 is another function than the eager path's
+    dequantized one."""
+    from clusterfusion_tpu_torch.models import llama as model
+    from clusterfusion_tpu_torch.ops import stack_kernel as sk
+
+    def step(params, kc, vc, token, pos, cfg):
+        cos, sin = model.rope_row(cfg, pos, kc.device)
+        tok = torch.as_tensor(token, device=kc.device).reshape(1)
+        lw = params["layers"]
+        logits, _, kc, vc = sk.fused_decoder_stack_plain(
+            params["embed"][tok], lw["attn_norm"], lw["ffn_norm"], cos, sin,
+            lw["wqkv_f"], lw["wo_f"], lw["w13"], lw["w2"], kc, vc, pos,
+            group=cfg.n_heads // cfg.kv_heads, head_dim=cfg.head_dim_,
+            rope_style=cfg.rope_style, eps=cfg.norm_eps,
+            final_norm=params["final_norm"], lm_head=params["lm_head"],
+            int4_w4a8=a8)
+        return logits[0], kc, vc
+
+    return step
+
+
+def w4a8_by_layer(fn, plain, args, kc, vc, pos, rows, layers, kcfg, kw,
+                  phase, **where):
+    """W4A8 (``fn``: kernel 7 or 8) held layer by layer, teacher-forced:
+    layer l of the kernel and of its plain twin from one input, the
+    kernel's own state after its layer l - 1 (x_out + residual_out, each
+    layer run alone from the last one's), at phase 4's limits for layer l:
+    logits within 2e-2 of the largest, the ``rows`` appended K/V rows at
+    atol 0.05 (layer 0) or 0.05 + 1e-2 of |row|, every other row
+    unchanged, finite.  Free-running, W4A8 and its twin part layer by
+    layer far beyond bf16 drift: a bf16 rounding the two take apart moves
+    an activation across a step of its int8 quantization (absmax/127),
+    which moves the next layer's input.  Prints one line; returns (the
+    largest logits max abs error, ok)."""
+    x, norms, rope, proj = args[0], args[1:3], args[3:5], args[5:]
+    bare = {k: v for k, v in kw.items() if k not in ("final_norm", "lm_head")}
+    new = slice(pos, pos + rows)
+    others = torch.ones(kc.shape[2], dtype=torch.bool, device=kc.device)
+    others[new] = False
+    lg_err, rels, errs, ok = 0.0, [], [], True
+    for l in range(layers):
+        one = (*(t[l:l + 1] for t in norms), *rope,
+               *(t[l:l + 1] for t in proj))
+        kk, vk = kc[l:l + 1].clone(), vc[l:l + 1].clone()
+        kp, vp = kk.clone(), vk.clone()
+        out = fn(x, *one, kk, vk, pos, kcfg=kcfg, **kw)
+        ref = plain(x, *one, kp, vp, pos, int4_w4a8=True, **kw)
+        err = (out[0] - ref[0]).abs().max().item()
+        rel = err / ref[0].abs().max().item()
+        row = max((a[:, :, new].float() - b[:, :, new].float()).abs().max()
+                  .item() for a, b in ((kk, kp), (vk, vp)))
+        mag = max(b[:, :, new].float().abs().max().item() for b in (kp, vp))
+        ok = (ok and rel <= 2e-2 and row <= 0.05 + (l > 0) * 1e-2 * mag
+              and _same_bits(kk[:, :, others], kp[:, :, others])
+              and _same_bits(vk[:, :, others], vp[:, :, others])
+              and bool(torch.isfinite(out[0]).all()))
+        lg_err = max(lg_err, err)
+        rels.append(round(rel, 4))
+        errs.append(round(row, 4))
+        if l + 1 < layers:
+            h, r, _, _ = fn(x, *one, kc[l:l + 1].clone(),
+                            vc[l:l + 1].clone(), pos, kcfg=kcfg, **bare)
+            x = (h.float() + r.float()).bfloat16()
+    say(phase, **where, mode="w4a8", held="layer by layer, teacher-forced",
+        layers=layers, pos=pos, logits_err_over_max_by_layer=rels,
+        logits_err_over_max_worst=max(rels), tol_logits=2e-2,
+        kv_rows_err_by_layer=errs, kv_rows_err_worst=max(errs),
+        tol_rows="layer 0 atol=0.05, deeper atol=0.05+rtol=1e-2",
+        within=ok)
+    return lg_err, ok
+
+
+def int4_engine(dev):
+    """``Llama.synthetic(llama2_7b, quant="int4")``: seed 0, hg 8, the four
+    projections int4 in groups of 128, the LM head bf16."""
+    from clusterfusion_tpu_torch.config import LlamaConfig
+    from clusterfusion_tpu_torch.models.generation import Llama
+    t0 = time.perf_counter()
+    eng = Llama.synthetic(LlamaConfig.llama2_7b(), seed=0, fused=True,
+                          quant="int4", device=dev)
+    torch.cuda.synchronize()
+    lw = eng.params["layers"]
+    proj = [lw[k] for k in ("wqkv_f", "wo_f", "w13", "w2")]
+    int4_only = all(getattr(w, "kind", None) == "int4" and w.group_size == 128
+                    and w.q.dtype == torch.int8 for w in proj)
+    say("e2e_int4", init_seconds=f"{time.perf_counter() - t0:.1f}",
+        head_group=eng.cfg.kv_heads // lw["wqkv_f"].shape[1],
+        projection_bytes_bf16_scales=quant_bytes("int4", proj)[0],
+        projection_bytes_f32_scales=quant_bytes("int4", proj)[1],
+        projections_int4=int4_only)
+    if not int4_only:
+        raise AssertionError("the int4 engine holds a projection that is not "
+                             "int4 in groups of 128")
+    return eng
+
+
+def phase_int4_stack(eng4, eng, eng8, dev, hbm, peak, pos=600):
+    """Phase 27: kernel 7's int4 modes (W4A8, the default, and exact) at
+    full Llama-2-7B width on the int4 engine's weights (hg 8, G 4), pos 600
+    over a random cache with NaN above pos, with the bf16 and with the int8
+    LM head: against the int4 plain twin in the same mode at phase 4's
+    limits (exact: the first 1, 4 and 32 layers; W4A8: each layer,
+    teacher-forced, ``w4a8_by_layer``; the int8 head: one layer), a
+    repeat bit-identical, the int8 step's launches; the
+    CUDA-event ms beside the bf16 step (the bf16 engine's weights, hg 4)
+    and the int8 step (the int8 engine's, hg 8) of this run, the bound
+    (codes and bf16 scales; the float32 scale bytes the kernel reads
+    beside it) and the twin's ms; then the device time by pass.  Returns
+    the kernels-line entries of both modes (bf16 head)."""
+    from clusterfusion_tpu_torch.config import KernelConfig
+    from clusterfusion_tpu_torch.models import llama as model
+    from clusterfusion_tpu_torch.ops import stack_kernel as sk
+    from clusterfusion_tpu_torch.ops.quant import quantize_int8
+    cfg, p = eng4.cfg, eng4.params
+    w4, lw, lw8 = p["layers"], eng.params["layers"], eng8.params["layers"]
+    g, hd, L = cfg.n_heads // cfg.kv_heads, cfg.head_dim_, cfg.n_layers
+    heads = {"lm_bf16": p["lm_head"], "lm_int8": quantize_int8(p["lm_head"], -2)}
+    gen = torch.Generator(device=dev).manual_seed(27)
+    kc, vc = model.init_cache(cfg, max_seq=1024, device=dev)
+    kc[:, :, :pos] = torch.randn(kc[:, :, :pos].shape, generator=gen,
+                                 device=dev).bfloat16()
+    vc[:, :, :pos] = torch.randn(vc[:, :, :pos].shape, generator=gen,
+                                 device=dev).bfloat16()
+    kc[:, :, pos + 1:] = float("nan")
+    vc[:, :, pos + 1:] = float("nan")
+    x = p["embed"][torch.tensor([7], device=dev)]
+    cos, sin = model.rope_row(cfg, pos, dev)
+    common = dict(group=g, head_dim=hd, rope_style=cfg.rope_style,
+                  eps=cfg.norm_eps, final_norm=p["final_norm"])
+    proj = [w4[k] for k in ("wqkv_f", "wo_f", "w13", "w2")]
+    args = (x, w4["attn_norm"], w4["ffn_norm"], cos, sin, *proj)
+    kk, vk = kc.clone(), vc.clone()
+    other = {kind: functools.partial(
+        sk.fused_decoder_stack, x, tree["attn_norm"], tree["ffn_norm"], cos,
+        sin, tree["wqkv_f"], tree["wo_f"], tree["w13"], tree["w2"], kk, vk,
+        pos, lm_head=p["lm_head"], **common)
+        for kind, tree in (("bf16", lw), ("int8", lw8))}
+    q_bytes, q_bytes_f32, _ = quant_bytes("int4", proj)
+    norm_bytes = 2 * (2 * L + 1) * cfg.hidden_dim
+    kv_read = 2 * L * cfg.kv_heads * pos * hd * 2
+    kv_write = 2 * L * cfg.kv_heads * hd * 2
+    weights = 2 * sum(t.q.numel() for t in proj) + p["lm_head"].numel()
+    flops = 2 * weights + 4 * L * cfg.n_heads * (pos + 1) * hd
+    hg = cfg.kv_heads // w4["wqkv_f"].shape[1]
+    keep = torch.ones(kc.shape[2], dtype=torch.bool, device=dev)
+    keep[pos] = False
+    rows = {}
+    for mode, a8 in INT4_MODES:
+        kcfg = KernelConfig(int4_w4a8=a8)
+        for label, head in heads.items():
+            kw = dict(common, lm_head=head)
+            # the int8 head is no int4 code: one layer is enough for it
+            depths = (1,) if label == "lm_int8" else (*INT4_CHECK_DEPTHS, L)
+            if a8:
+                lg_err, ok = w4a8_by_layer(
+                    sk.fused_decoder_stack, sk.fused_decoder_stack_plain,
+                    args, kc, vc, pos, 1, depths[-1], kcfg, kw, "stack_int4",
+                    kernel=7, head=label, hg=hg)
+                if not ok:
+                    raise AssertionError(
+                        f"kernel 7's W4A8 mode ({label}) disagrees with its "
+                        "plain twin at a layer")
+            for depth in depths:
+                dargs = (x, *(t[:depth] for t in args[1:3]), cos, sin,
+                         *(t[:depth] for t in proj))
+                kd, vd = kc[:depth].clone(), vc[:depth].clone()
+                k2, v2 = kd.clone(), vd.clone()
+                before = sk.int4_launches
+                out = sk.fused_decoder_stack(*dargs, kd, vd, pos, kcfg=kcfg,
+                                             **kw)
+                n_kernels = sk.last_step_kernels
+                ok = bool(torch.isfinite(out[0]).all()) and all(
+                    _same_bits(a[:, :, keep], b[:depth, :, keep])
+                    for a, b in ((kd, kc), (vd, vc)))
+                if not a8:      # W4A8: layer by layer above
+                    kp, vp = kc[:depth].clone(), vc[:depth].clone()
+                    ref = sk.fused_decoder_stack_plain(
+                        *dargs, kp, vp, pos, int4_w4a8=False, **kw)
+                    lg_err, ok = stack_vs_plain(
+                        "stack_int4", out, ref, kd, vd, kp, vp, pos, kernel=7,
+                        mode=mode, head=label, hg=hg, layers=depth,
+                        kernels_per_step=n_kernels)
+                    del kp, vp, ref
+                again = sk.fused_decoder_stack(*dargs, k2, v2, pos, kcfg=kcfg,
+                                               **kw)
+                torch.cuda.synchronize()
+                launched = sk.int4_launches - before
+                repeat = (torch.equal(again[0], out[0])
+                          and _same_bits(again[1], out[1])
+                          and _same_bits(k2, kd) and _same_bits(v2, vd))
+                say("stack_int4", mode=mode, head=label, layers=depth,
+                    repeat_bit_identical=repeat, int4_launches=launched,
+                    kernels_per_step=n_kernels)
+                if not (ok and repeat and launched == 2
+                        and n_kernels == 8 * depth + 2):
+                    raise AssertionError(
+                        f"kernel 7's int4 mode ({mode}, {label}, {depth} "
+                        "layers) disagrees with its plain twin or with "
+                        "itself, or launched otherwise")
+                del k2, v2, again, kd, vd
+            kk.copy_(kc)
+            vk.copy_(vc)
+            step = functools.partial(sk.fused_decoder_stack, *args, kk, vk,
+                                     pos, kcfg=kcfg, **kw)
+            step()
+            n_kernels = sk.last_step_kernels
+            other["int8"]()
+            if sk.last_step_kernels != n_kernels:
+                raise AssertionError("kernel 7's int4 and int8 steps launch "
+                                     "other counts")
+            ms = time_ms(step, 20)
+            bf16_ms = time_ms(other["bf16"], 20)
+            int8_ms = time_ms(other["int8"], 20)
+            ms_again = time_ms(step, 20)
+            lm_bytes = (head.q.numel() + head.s.numel() * 4
+                        if label == "lm_int8" else head.numel() * 2)
+            io = 4 * cfg.vocab_size + 2 * 2 * cfg.hidden_dim
+            nbytes = (q_bytes + norm_bytes + lm_bytes + kv_read + kv_write
+                      + io)
+            read = nbytes - q_bytes + q_bytes_f32
+            bound = max(nbytes / hbm, flops / peak) * 1e3
+            bound_by = "bytes" if nbytes / hbm >= flops / peak else "operations"
+            plain_ms = None
+            if label == "lm_bf16":
+                plain_ms = time_ms(lambda: sk.fused_decoder_stack_plain(
+                    *args, kc.clone(), vc.clone(), pos, int4_w4a8=a8, **kw),
+                    1, warmup=0)
+            say("stack_int4", mode=mode, head=label, ms_per_step=f"{ms:.4f}",
+                ms_per_step_again=f"{ms_again:.4f}",
+                bf16_ms_per_step_same_run=f"{bf16_ms:.4f}",
+                int8_ms_per_step_same_run=f"{int8_ms:.4f}",
+                plain_ms="not timed" if plain_ms is None else f"{plain_ms:.4f}",
+                bound_ms=f"{bound:.4f}", bound_by=bound_by,
+                bytes_per_step=nbytes, int4_codes_bf16_scale_bytes=q_bytes,
+                int4_codes_f32_scale_bytes_read=q_bytes_f32,
+                bound_ms_at_f32_scale_bytes=f"{read / hbm * 1e3:.4f}",
+                lm_bytes=lm_bytes)
+            if label == "lm_bf16":
+                rows[mode] = dict(max_abs_err=lg_err, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=bound, bound_by=bound_by,
+                                  library_ms=None)
+            if label != "lm_bf16" or not a8:    # the profiler, once a phase
+                continue
+            busy, span, own, by, n = timeline_by_pass(step, INT4_PASSES)
+            say("stack_int4_device", mode=mode, head=label,
+                busy_ms=f"{busy:.4f}", span_ms=f"{span:.4f}",
+                kernels_own_sum_ms=f"{own:.4f}",
+                **{f"{k}_ms": f"{v:.4f}" for k, v in by.items()},
+                **{f"{k}_launches": f"{v:g}" for k, v in n.items()},
+                gemv4_TBps=f"{q_bytes_f32 / (by['gemv4'] * 1e-3) / 1e12:.3f}",
+                note="each kernel charged from the end of those before it "
+                     "to its own end; gemv4_TBps over the codes and the "
+                     "float32 scales it reads")
+    return rows
+
+
+def phase_int4_e2e(eng4, dev):
+    """Phase 28: the int4 engine streams 64 greedy tokens after a 512-token
+    prompt through ``stream_generate`` in W4A8 (kernel 7's default int4
+    mode): prefill ms (warm), decode tokens/s, the launches of kernel 7's
+    int4 mode and of kernel 4, the first 8 tokens against the int4 plain
+    path under the top-2-gap rule; then 16 tokens in the exact mode the
+    same way.  Returns kernel 7's int4 launches of each mode's stream."""
+    from clusterfusion_tpu_torch.config import KernelConfig
+    from clusterfusion_tpu_torch.models import llama as model
+    from clusterfusion_tpu_torch.models.generation import Llama
+    from clusterfusion_tpu_torch.ops import flash_prefill as fp
+    from clusterfusion_tpu_torch.ops import stack_kernel as sk
+    cfg = eng4.cfg
+    text = ("The quick brown fox jumps over the lazy dog. " * 20)[:511]
+    prompt = eng4.tokenizer.encode(text, bos=True, eos=False)
+    kc, vc = model.init_cache(cfg, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.prefill(eng4.params, kc, vc, prompt, cfg)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    del kc, vc
+    launches = {}
+    for mode, a8, n_new in (("w4a8", True, 64), ("exact", False, 16)):
+        eng = Llama(eng4.params, cfg, eng4.tokenizer, fused=True,
+                    kcfg=KernelConfig(int4_w4a8=a8))
+        fp.launches = sk.launches = sk.int4_launches = 0
+        stamps, toks = [], []
+        for t in eng.stream_generate(prompt, n_new, temperature=0.0):
+            stamps.append(time.perf_counter())
+            toks.append(t)
+        flash_launches, int4 = fp.launches, sk.int4_launches
+        st = eng.stats
+        decode_s = stamps[-1] - stamps[0]
+        say("e2e_int4", mode=mode, prompt_tokens=len(prompt),
+            new_tokens=len(toks), prefill_ms=f"{st.prefill_s * 1e3:.2f}",
+            prefill_first_call_ms=f"{first_ms:.2f}",
+            decode_tokens_per_s=f"{(len(toks) - 1) / decode_s:.2f}",
+            decode_ms_per_step=f"{decode_s * 1e3 / (len(toks) - 1):.3f}",
+            flash_prefill_launches=flash_launches,
+            stack_int4_launches=int4, stack_launches=sk.launches)
+        if (flash_launches != cfg.n_layers or int4 < len(toks) - 1
+                or sk.launches != int4):
+            raise AssertionError(f"the int4 path ({mode}) did not run kernel "
+                                 "4 and kernel 7's int4 mode")
+        if len(toks) != n_new or not all(0 <= t < cfg.vocab_size
+                                         for t in toks):
+            raise AssertionError(f"bad tokens {toks}")
+        plain, gaps, bad = check_against_plain(eng, dev, prompt, toks,
+                                               step=int4_plain_step(a8))
+        say("e2e_int4", mode=mode, kernel_tokens=toks[:8], plain_tokens=plain,
+            agree=f"{sum(a == b for a, b in zip(plain, toks[:8]))}/8",
+            top2_gaps=[round(x, 3) for x in gaps],
+            disagree_where_gap_gt_0_1=bad,
+            note="plain path: the eager prefill, then kernel 7's int4 twin "
+                 "in the same mode")
+        if bad:
+            raise AssertionError(f"the int4 kernel ({mode}) and plain paths "
+                                 f"disagree at steps {bad}")
+        launches[mode] = int4
+    return launches
+
+
+def phase_int4_verify(eng4, eng, dev, hbm, peak, pos=600):
+    """Phase 29: kernel 8's int4 modes at full Llama-2-7B width on the int4
+    engine's weights, pos 600 over a random cache with NaN at and above
+    pos, at n 5 and 9, bf16 LM head: against the int4 plain twin at phase
+    9's limits (logits within 2e-2 of the largest, the appended rows at
+    atol 0.05, deeper layers + 1 % of |row|, every other row unchanged;
+    exact: the first 1, 4 and 32 layers; W4A8: each layer, teacher-forced,
+    ``w4a8_by_layer``), a repeat bit-identical at 1, 4 and 32 layers; the
+    CUDA-event ms beside the bound, the bf16 kernel 8 on the bf16 engine's
+    weights in this phase and the twin's;
+    the device time by pass.  Then ``spec_generate`` on the int4 engine
+    (phase 9's run: a self-draft and an unrelated small draft), and a
+    self-draft run in the exact mode.  Returns the kernels-line entries of
+    n 5 in both modes and the verify launches of the two self-draft runs."""
+    from clusterfusion_tpu_torch.config import KernelConfig
+    from clusterfusion_tpu_torch.models import llama as model
+    from clusterfusion_tpu_torch.models.generation import Llama
+    from clusterfusion_tpu_torch.ops import stack_verify as sv
+    cfg, p, lw = eng4.cfg, eng4.params, eng.params["layers"]
+    w4 = p["layers"]
+    g, hd, L = cfg.n_heads // cfg.kv_heads, cfg.head_dim_, cfg.n_layers
+    gen = torch.Generator(device=dev).manual_seed(29)
+    kc, vc = model.init_cache(cfg, max_seq=1024, device=dev)
+    kc[:, :, :pos] = torch.randn(kc[:, :, :pos].shape, generator=gen,
+                                 device=dev).bfloat16()
+    vc[:, :, :pos] = torch.randn(vc[:, :, :pos].shape, generator=gen,
+                                 device=dev).bfloat16()
+    kc[:, :, pos:] = float("nan")
+    vc[:, :, pos:] = float("nan")
+    common = dict(group=g, head_dim=hd, rope_style=cfg.rope_style,
+                  eps=cfg.norm_eps, final_norm=p["final_norm"],
+                  lm_head=p["lm_head"])
+    proj = [w4[k] for k in ("wqkv_f", "wo_f", "w13", "w2")]
+    q_bytes, q_bytes_f32, _ = quant_bytes("int4", proj)
+    norm_bytes = 2 * (2 * L + 1) * cfg.hidden_dim
+    weights = 2 * sum(t.q.numel() for t in proj) + p["lm_head"].numel()
+    kv_read = 2 * L * cfg.kv_heads * pos * hd * 2
+    lm_bytes = p["lm_head"].numel() * 2
+    rows = {}
+    for n in (5, 9):
+        x = p["embed"][torch.arange(n, device=dev) * 37 + 11]
+        cos, sin = model.rope_rows(cfg, pos, n, dev)
+        args = (x, w4["attn_norm"], w4["ffn_norm"], cos, sin, *proj)
+        new = slice(pos, pos + n)
+        others = torch.ones(kc.shape[2], dtype=torch.bool, device=dev)
+        others[new] = False
+        kv_write = 2 * L * cfg.kv_heads * n * hd * 2
+        io = n * cfg.hidden_dim * 2 * 2 + n * cfg.vocab_size * 4 + 2 * n * hd * 4
+        flops = 2 * n * weights + \
+            4 * L * cfg.n_heads * hd * (n * pos + n * (n + 1) // 2)
+        kk, vk = kc.clone(), vc.clone()
+        for mode, a8 in INT4_MODES:
+            kcfg = KernelConfig(int4_w4a8=a8)
+            if a8:
+                lg_err, ok = w4a8_by_layer(
+                    sv.fused_verify_stack, sv.fused_verify_stack_plain, args,
+                    kc, vc, pos, n, L, kcfg, common, "verify_int4", kernel=8,
+                    n=n)
+                if not ok:
+                    raise AssertionError(
+                        f"kernel 8's W4A8 mode (n {n}) disagrees with its "
+                        "plain twin at a layer")
+            for depth in (*INT4_CHECK_DEPTHS, L):
+                dargs = (x, *(t[:depth] for t in args[1:3]), cos, sin,
+                         *(t[:depth] for t in proj))
+                kd, vd = kc[:depth].clone(), vc[:depth].clone()
+                k2, v2 = kd.clone(), vd.clone()
+                before = sv.int4_launches
+                out = sv.fused_verify_stack(*dargs, kd, vd, pos, kcfg=kcfg,
+                                            **common)
+                again = sv.fused_verify_stack(*dargs, k2, v2, pos, kcfg=kcfg,
+                                              **common)
+                torch.cuda.synchronize()
+                launched = sv.int4_launches - before
+                unchanged = (_same_bits(kd[:, :, others], kc[:depth, :, others])
+                             and _same_bits(vd[:, :, others],
+                                            vc[:depth, :, others]))
+                finite = bool(torch.isfinite(out[0]).all())
+                repeat = (torch.equal(again[0], out[0]) and _same_bits(k2, kd)
+                          and _same_bits(v2, vd))
+                within, errs = True, {}
+                if not a8:      # W4A8: layer by layer above
+                    kr, vr = kc[:depth].clone(), vc[:depth].clone()
+                    ref = sv.fused_verify_stack_plain(
+                        *dargs, kr, vr, pos, int4_w4a8=False, **common)
+                    lg_err = (out[0] - ref[0]).abs().max().item()
+                    lg_rel = lg_err / ref[0].abs().max().item()
+                    dims = (1, 2, 3)
+                    row_err = torch.maximum(
+                        (kd[:, :, new].float() - kr[:, :, new].float()).abs().amax(dim=dims),
+                        (vd[:, :, new].float() - vr[:, :, new].float()).abs().amax(dim=dims))
+                    row_mag = torch.maximum(
+                        kr[:, :, new].float().abs().amax(dim=dims),
+                        vr[:, :, new].float().abs().amax(dim=dims))
+                    within = (lg_rel <= 2e-2 and bool(row_err[0] <= 0.05)
+                              and bool((row_err <= 0.05 + 1e-2 * row_mag).all()))
+                    errs = dict(
+                        logits_max_abs_err=f"{lg_err:.4g}",
+                        logits_err_over_max=f"{lg_rel:.4g}", tol_logits=2e-2,
+                        kv_rows_err_layer0=f"{row_err[0].item():.3g}",
+                        kv_rows_err_max=f"{row_err.max().item():.4g}",
+                        kv_rows_err_by_layer=[round(e, 4) for e in row_err[
+                            ::1 if depth <= 4 else 4].tolist()],
+                        kv_rows_max_abs=f"{row_mag.max().item():.3g}",
+                        tol_rows="atol=0.05+rtol=1e-2")
+                    del kr, vr, ref
+                say("verify_int4", kernel=8, n=n, mode=mode, pos=pos,
+                    layers=depth, **errs, other_rows_unchanged=unchanged,
+                    finite=finite, repeat_bit_identical=repeat,
+                    int4_launches=launched,
+                    kernels_per_call=sv.last_step_kernels)
+                if not (within and unchanged and finite and repeat
+                        and launched == 2):
+                    raise AssertionError(
+                        f"kernel 8's int4 mode (n {n}, {mode}, {depth} "
+                        "layers) disagrees with its plain twin or itself")
+                del k2, v2, again, kd, vd
+            kk.copy_(kc)
+            vk.copy_(vc)
+            step = functools.partial(sv.fused_verify_stack, *args, kk, vk,
+                                     pos, kcfg=kcfg, **common)
+            bf16_step = functools.partial(
+                sv.fused_verify_stack, x, lw["attn_norm"], lw["ffn_norm"],
+                cos, sin, lw["wqkv_f"], lw["wo_f"], lw["w13"], lw["w2"], kk,
+                vk, pos, **common)
+            ms = time_ms(step, 10)
+            bf16_ms = time_ms(bf16_step, 10)
+            plain_ms = None
+            if n == 5:
+                plain_ms = time_ms(lambda: sv.fused_verify_stack_plain(
+                    *args, kc.clone(), vc.clone(), pos, int4_w4a8=a8,
+                    **common), 1, warmup=0)
+            nbytes = q_bytes + norm_bytes + lm_bytes + kv_read + kv_write + io
+            bound = max(nbytes / hbm, flops / peak) * 1e3
+            bound_by = "bytes" if nbytes / hbm >= flops / peak else "operations"
+            say("verify_int4", n=n, mode=mode, ms_per_call=f"{ms:.4f}",
+                bf16_ms_per_call_same_phase=f"{bf16_ms:.4f}",
+                plain_ms="not timed" if plain_ms is None else f"{plain_ms:.4f}",
+                bound_ms=f"{bound:.4f}", bound_by=bound_by,
+                bytes_per_call=nbytes, int4_codes_bf16_scale_bytes=q_bytes,
+                int4_codes_f32_scale_bytes_read=q_bytes_f32)
+            if n == 5 and a8:                   # the profiler, once a phase
+                busy, span, own, by, cnt = timeline_by_pass(
+                    step, INT4_VERIFY_PASSES)
+                say("verify_int4_device", n=n, mode=mode,
+                    busy_ms=f"{busy:.4f}", span_ms=f"{span:.4f}",
+                    kernels_own_sum_ms=f"{own:.4f}",
+                    **{f"{k}_ms": f"{v:.4f}" for k, v in by.items()},
+                    **{f"{k}_launches": f"{v:g}" for k, v in cnt.items()},
+                    gemv4_TBps=f"{q_bytes_f32 / (by['gemv4'] * 1e-3) / 1e12:.3f}")
+            if n == 5:
+                rows[mode] = dict(max_abs_err=lg_err, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=bound, bound_by=bound_by,
+                                  library_ms=None)
+        del kk, vk
+    launches = {"w4a8": phase_spec(eng4, dev, "spec_int4",
+                                   int4_plain_step(True))}
+    exact = Llama(eng4.params, cfg, eng4.tokenizer, fused=True,
+                  kcfg=KernelConfig(int4_w4a8=False))
+    text = ("Speculative decoding drafts a few tokens and one verify step "
+            "scores them all. " * 3)[:127]
+    prompt = exact.tokenizer.encode(text, bos=True, eos=False)
+    ref = list(exact.stream_generate(prompt, SPEC_NEW, temperature=0.0))
+    self_draft = Llama(exact.params, cfg, exact.tokenizer, fused=True,
+                       kcfg=exact.kcfg)
+    launches["exact"], _ = spec_run(exact, dev, prompt, self_draft, ref,
+                                    "self_exact", "spec_int4",
+                                    int4_plain_step(False))
+    return rows, launches
+
+
+def phase_int4_serving(eng4, eng, dev, bf16_figures):
+    """Phase 31: int4 serving at B 8.  First one step of each kind against
+    the same step on the plain twins, as phase 22 holds int8 (4 layers at
+    phase 9's limits; all 32 within 1.25x the bf16 step's drift).  Then
+    phase 8's mix (8 requests of 32-512 prompt tokens, 32 new each) through
+    the default step (fused for an int4 tree: kernel 9's int4 mode and
+    ``_ffn_int4``) and the batched one (``_gemv_int4``/``_ffn_int4``
+    around kernel 10): tokens/s and ms a step beside phase 8's bf16
+    figures and the device busy ms of one step of that kind at
+    ``SERVE_LENS`` (``torch.profiler``), the launches; then
+    ``Llama.generate`` for one prompt (the fused step) against the int4
+    plain path under the top-2-gap rule.  Returns the launches of kernel 9's
+    int4 mode, ``_gemv_int4`` and ``_ffn_int4`` in the serving runs."""
+    from clusterfusion_tpu_torch.models import llama as model
+    from clusterfusion_tpu_torch.ops import paged_decoder_layer as pd
+    from clusterfusion_tpu_torch.runtime import ServingEngine
+    serving = importlib.import_module("clusterfusion_tpu_torch.runtime.serving")
+    gemv = importlib.import_module("clusterfusion_tpu_torch.ops.gemv")
+    for impl, r in step_vs_plain(eng4, dev, STEP_CHECK_DEPTH).items():
+        err, mag = r["row_err"], r["row_mag"]
+        rows_ok = err[0] <= 0.05 and all(e <= 0.05 + 1e-2 * m
+                                         for e, m in zip(err, mag))
+        say("serving_int4_step", step=impl, B=len(SERVE_LENS),
+            layers=r["layers"], logits_err_over_max=f"{r['logits_rel']:.4g}",
+            tol_logits=2e-2,
+            least_request_spread_over_max=f"{r['spread']:.4g}",
+            kv_rows_err_layer0=f"{err[0]:.3g}", tol_layer0=0.05,
+            kv_rows_err_by_layer=[round(x, 4) for x in err],
+            tol_rows="atol=0.05+rtol=1e-2",
+            other_rows_unchanged=r["unchanged"], finite=r["finite"])
+        if not (r["logits_rel"] <= 2e-2 and rows_ok and r["unchanged"]
+                and r["finite"] and r["spread"] > 2e-2):
+            raise AssertionError(f"the int4 {impl} serving step disagrees "
+                                 "with the same step on the plain twins")
+    full4, full16 = step_vs_plain(eng4, dev), step_vs_plain(eng, dev)
+    for impl, r in full4.items():
+        b = full16[impl]
+        say("serving_int4_step", step=impl, layers=r["layers"],
+            logits_err_over_max=f"{r['logits_rel']:.4g}",
+            bf16_logits_err_over_max=f"{b['logits_rel']:.4g}",
+            tol="1.25x the bf16 step's",
+            kv_rows_err_max=f"{max(r['row_err']):.4g}",
+            bf16_kv_rows_err_max=f"{max(b['row_err']):.4g}",
+            other_rows_unchanged=r["unchanged"], finite=r["finite"])
+        if not (r["logits_rel"] <= 1.25 * b["logits_rel"] and r["unchanged"]
+                and r["finite"]):
+            raise AssertionError(f"the int4 {impl} serving step drifts from "
+                                 "its twin more than the bf16 step")
+    cfg = eng4.cfg
+    if ServingEngine(eng4.params, cfg).step_impl != "fused":
+        raise AssertionError("an int4 tree does not default to the fused step")
+    text = "Serving many users at once on one card, page by page. " * 12
+    prompts = [eng4.tokenizer.encode(text[:n - 1], bos=True, eos=False)
+               for n in (32, 64, 128, 200, 256, 300, 400, 512)]
+    n_new = 32
+    # one step of each kind at SERVE_LENS, for its device busy time
+    L, kv, hd, page = cfg.n_layers, cfg.kv_heads, cfg.head_dim_, 16
+    _, _, table, lens = paged_pools(dev, 1, kv, hd, page, SERVE_LENS, 33)
+    shape = (L, int(table.max()) + 1, kv, page, hd)
+    kp = torch.zeros(shape, device=dev, dtype=torch.bfloat16)
+    vp = torch.zeros_like(kp)
+    tokens = torch.arange(len(SERVE_LENS), device=dev) * 7 + 3
+    rope = model.rope_table(cfg, device=dev)
+    temps, tops = [0.0] * len(SERVE_LENS), [0.9] * len(SERVE_LENS)
+    steps = dict(batched=serving._paged_decode_step_batched,
+                 fused=serving._paged_decode_step)
+    launch = dict(layer=0, gemv=0, ffn=0)
+    for impl in ("fused", "batched"):
+        def serve(batch, timed=False):
+            srv = ServingEngine(eng4.params, cfg, page_size=16, num_pages=136,
+                                max_batch=8,
+                                step_impl=None if impl == "fused" else impl)
+            step_s = []
+            if timed:
+                real_step = srv._step
+
+                def timed_step(*a):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = real_step(*a)
+                    torch.cuda.synchronize()
+                    step_s.append(time.perf_counter() - t0)
+                    return out
+
+                srv._step = timed_step
+            for i in batch:
+                srv.submit(i, prompts[i], n_new, temperature=0.0)
+            return srv.run(), step_s
+
+        serve([0])                                        # warm-up
+        pd.launches.update(dict.fromkeys(pd.launches, 0))
+        gemv.int4_launches = gemv.ffn4_launches = 0
+        out, step_s = serve(range(len(prompts)), timed=True)
+        pa, k9 = (pd.launches["paged_attention"],
+                  pd.launches["llama_decoder_layer_paged_int4"])
+        products, ffns = gemv.int4_launches, gemv.ffn4_launches
+        n_steps = len(step_s)
+        decode_tokens = sum(len(t) for t in out.values()) - len(prompts)
+        tps = decode_tokens / sum(step_s)
+        busy, _ = busy_ms(lambda: steps[impl](  # noqa: B023
+            eng4.params, kp, vp, tokens, lens, table, lens, None, temps, tops,
+            cfg, rope))
+        say("serving_int4", step=impl, requests=len(prompts), new_tokens=n_new,
+            decode_steps=n_steps, decode_tokens_per_s=f"{tps:.2f}",
+            ms_per_step=f"{sum(step_s) * 1e3 / n_steps:.3f}",
+            device_busy_ms_per_step_at_serve_lens=f"{busy:.4f}",
+            **({} if bf16_figures is None else dict(
+                bf16_decode_tokens_per_s_phase8=f"{bf16_figures['tokens_per_s']:.2f}",
+                bf16_ms_per_step_phase8=f"{bf16_figures['ms_per_step']:.3f}")),
+            paged_attention_launches=pa, layer_int4_launches=k9,
+            gemv_int4_launches=products, ffn_int4_launches=ffns)
+        ok = ffns == L * n_steps
+        if impl == "batched":
+            ok = ok and pa == L * n_steps and k9 == 0 and \
+                products == 2 * L * n_steps
+            launch["gemv"] = products
+        else:
+            ok = ok and k9 == L * n_steps and pa == 0 and products == 0
+            launch["layer"] = k9
+        launch["ffn"] += ffns
+        if not ok:
+            raise AssertionError(f"the int4 {impl} step did not launch its "
+                                 "kernels once per layer and step")
+        if any(len(t) != n_new or not all(0 <= x < cfg.vocab_size for x in t)
+               for t in out.values()):
+            raise AssertionError(f"bad int4 serving output {out}")
+        alone = serve([3])[0]
+        say("serving_int4", step=impl, request_3_alone_equal=alone[3] == out[3],
+            first_tokens=out[0][:8])
+        if alone[3] != out[3]:
+            raise AssertionError(f"int4 {impl} serving is not batching-"
+                                 "invariant")
+    pd.launches.update(dict.fromkeys(pd.launches, 0))
+    t0 = time.perf_counter()
+    toks, _ = eng4.generate(prompts[2:3], 16, temperature=0.0)
+    gen_s = time.perf_counter() - t0
+    k9 = pd.launches["llama_decoder_layer_paged_int4"]
+    plain, gaps, bad = check_against_plain(eng4, dev, prompts[2], toks[0], 8)
+    say("generate_int4", B=1, step="fused", tokens=toks[0][:8],
+        plain_tokens=plain, top2_gaps=[round(x, 3) for x in gaps],
+        disagree_where_gap_gt_0_1=bad, wall_s=f"{gen_s:.3f}",
+        layer_int4_launches=k9)
+    if bad or k9 < cfg.n_layers:
+        raise AssertionError("int4 generate disagrees with the plain path or "
+                             "did not run kernel 9's int4 mode")
+    launch["layer"] += k9
+    return launch
+
+
 def phase_deepseek_kernels(dev, hbm, peak, pos=600, cap=4096, seq11=4096):
     """Kernels 12, 11 and 5 at DeepSeek-V2-Lite geometry against their
     plain twins; returns their rows of the kernel table (kernel 11's with
@@ -3557,7 +4340,7 @@ def phase_deepseek_kernels(dev, hbm, peak, pos=600, cap=4096, seq11=4096):
         call = lambda: dl.deepseek_decoder_stack_layer(  # noqa: E731
             *stack_args, **kw12)
         call_ms = time_ms(call, 50)
-        ms, by_pass = busy_ms(call, MLA_PASSES)
+        ms, by_pass = row_ms(call, MLA_PASSES)
         plain_ms = time_ms(lambda: plain(before[layer], at, cos, sin), 5)
         b, by = bound(at, 2 * cache.shape[-1])
         say("mla_stack", kernel=12, pos=at, capacity=cap, heads=H, lora=lora,
@@ -3612,7 +4395,7 @@ def phase_deepseek_kernels(dev, hbm, peak, pos=600, cap=4096, seq11=4096):
     call = lambda: dl.deepseek_decoder_layer_fused(  # noqa: E731
         *fused_args, **dims)
     call_ms = time_ms(call, 50)
-    ms, by_pass = busy_ms(call, MLA_PASSES)
+    ms, by_pass = row_ms(call, MLA_PASSES)
     op_ms = time_ms(lambda: dl.deepseek_decoder_layer(**op_args, **dims),
                     20)
     plain_ms = time_ms(lambda: plain(c576, seq11, op_args["cos"],
@@ -3652,7 +4435,8 @@ def phase_deepseek_kernels(dev, hbm, peak, pos=600, cap=4096, seq11=4096):
                              f"{kernels5} kernels")
     call = lambda: ffn.fused_ffn(*ffn_args, **kw5)  # noqa: E731
     call_ms = time_ms(call, 50)
-    ms, _ = busy_ms(call)
+    ms = queued_ms(call)
+    prof_ms, _ = busy_ms(call)
     plain_ms = time_ms(lambda: ffn.fused_ffn_plain(*ffn_args, **kw5), 5)
     f_pad = lw["w2"].shape[-2]
     nbytes = 3 * hid * f_pad * 2 + 2 * hid + 4 * 2 * hid
@@ -3665,8 +4449,8 @@ def phase_deepseek_kernels(dev, hbm, peak, pos=600, cap=4096, seq11=4096):
     say("fused_ffn", kernel=5, hidden=hid, f_pad=f_pad,
         max_abs_err=f"{err:.3g}", tol="atol=2e-2,rtol=2e-2",
         residual_sum_exact=True, repeat_bit_identical=repeat5,
-        kernels_per_call=kernels5, ms=f"{ms:.4f}", busy_ms=f"{ms:.4f}",
-        call_ms=f"{call_ms:.4f}",
+        kernels_per_call=kernels5, ms=f"{ms:.4f}", queued_ms=f"{ms:.4f}",
+        profiler_busy_ms=f"{prof_ms:.4f}", call_ms=f"{call_ms:.4f}",
         plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b:.4f}", bound_by=by,
         weight_bytes=3 * hid * f_pad * 2, library_ms=None)
     rows[5] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
@@ -4205,8 +4989,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     stack8_launches, eng8 = phase_int8_e2e(dev)
     verify8_launches = phase_spec(eng8, dev, "spec_int8")
-    layer8 = phase_int8_paged_layer(eng8, eng, dev, hbm, peak)
-    products8 = phase_int8_products(eng8, dev, hbm, peak)
+    layer8 = phase_quant_paged_layer(eng8, eng, dev, hbm, peak, "int8")
+    products8 = phase_quant_products(eng8, dev, hbm, peak, "int8")
     serving8_launches = phase_int8_serving(eng8, eng, dev, serving_bf16)
     t24 = time.perf_counter()
     tree8 = int8_head_tree(eng8.params)
@@ -4220,7 +5004,18 @@ def main() -> int:
     phase_fused_step(eng8, dev, shards8, params=tree8,
                      phase="fused_step_int8")
     say("phases_24_26", seconds=f"{time.perf_counter() - t24:.1f}")
-    del eng, eng8, tree8, shards8
+    del tree8, shards8
+    torch.cuda.empty_cache()
+    t27 = time.perf_counter()
+    eng4 = int4_engine(dev)
+    stack4 = phase_int4_stack(eng4, eng, eng8, dev, hbm, peak)
+    stack4_launches = phase_int4_e2e(eng4, dev)
+    verify4, verify4_launches = phase_int4_verify(eng4, eng, dev, hbm, peak)
+    layer4 = phase_quant_paged_layer(eng4, eng, dev, hbm, peak, "int4")
+    products4 = phase_quant_products(eng4, dev, hbm, peak, "int4")
+    serving4_launches = phase_int4_serving(eng4, eng, dev, serving_bf16)
+    say("phases_27_31", seconds=f"{time.perf_counter() - t27:.1f}")
+    del eng, eng8, eng4
     torch.cuda.empty_cache()
     ds_rows = phase_deepseek_kernels(dev, hbm, peak)
     mla_launches, ffn_launches = phase_deepseek_e2e(dev)
@@ -4255,6 +5050,34 @@ def main() -> int:
              source="clusterfusion_tpu_torch/csrc/stack_verify.cu",
              replaces="clusterfusion_tpu/ops/stack_verify.py:432",
              launches=verify8_launches, **verify8),
+        dict(name="fused_decoder_stack (int4 weights, W4A8)", route="cuda",
+             source="clusterfusion_tpu_torch/csrc/stack_kernel.cu",
+             replaces="clusterfusion_tpu/ops/stack_kernel.py:204",
+             launches=stack4_launches["w4a8"], **stack4["w4a8"]),
+        dict(name="fused_decoder_stack (int4 weights, exact)", route="cuda",
+             source="clusterfusion_tpu_torch/csrc/stack_kernel.cu",
+             replaces="clusterfusion_tpu/ops/stack_kernel.py:204",
+             launches=stack4_launches["exact"], **stack4["exact"]),
+        dict(name="fused_verify_stack (int4 weights, W4A8)", route="cuda",
+             source="clusterfusion_tpu_torch/csrc/stack_verify.cu",
+             replaces="clusterfusion_tpu/ops/stack_verify.py:168",
+             launches=verify4_launches["w4a8"], **verify4["w4a8"]),
+        dict(name="fused_verify_stack (int4 weights, exact)", route="cuda",
+             source="clusterfusion_tpu_torch/csrc/stack_verify.cu",
+             replaces="clusterfusion_tpu/ops/stack_verify.py:168",
+             launches=verify4_launches["exact"], **verify4["exact"]),
+        dict(name="llama_decoder_layer_paged (int4 weights)", route="cuda",
+             source="clusterfusion_tpu_torch/csrc/paged_decoder_layer.cu",
+             replaces="clusterfusion_tpu/ops/paged_decoder_layer.py:166",
+             launches=serving4_launches["layer"], **layer4),
+        dict(name="_gemv_int4 (int4 serving QKV and O products)", route="cuda",
+             source="clusterfusion_tpu_torch/csrc/gemv.cu",
+             replaces="clusterfusion_tpu/runtime/serving.py:178",
+             launches=serving4_launches["gemv"], **products4["gemv"]),
+        dict(name="_ffn_int4 (int4 serving FFN)", route="cuda",
+             source="clusterfusion_tpu_torch/csrc/gemv.cu",
+             replaces="clusterfusion_tpu/models/llama.py:208",
+             launches=serving4_launches["ffn"], **products4["ffn"]),
         dict(name="llama_decoder_layer_paged (int8 weights)", route="cuda",
              source="clusterfusion_tpu_torch/csrc/paged_decoder_layer.cu",
              replaces="clusterfusion_tpu/ops/paged_decoder_layer.py:399",
@@ -4312,6 +5135,9 @@ def main() -> int:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms"):
             if k[key] is not None and not math.isfinite(k[key]):
                 raise AssertionError(f"{k['name']}: {key} is {k[key]}")
+        if k["ms"] < k["bound_ms"]:
+            raise AssertionError(f"{k['name']}: {k['ms']} ms is below its "
+                                 f"bound of {k['bound_ms']} ms")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -15,8 +15,11 @@ weights, byte tokenizer) is required, and ``--spec_draft`` takes only
 ``synthetic`` (a random tiny draft, seed 1, bf16 whatever ``--quant``
 is, as in the root ``chat.py``).  ``--quant int8`` runs the int8
 weight-only engine: kernel 7's int8 mode for the stream, and with
-``--spec_draft`` kernel 8's int8 mode for the verify.  ``--quant int4``,
-``--kv_int8`` and ``--kv_fp8`` exit "not yet ported".
+``--spec_draft`` kernel 8's int8 mode for the verify.  ``--quant int4``
+runs the int4 engine (groups of 128) the same way, in kernels 7's and 8's
+int4 modes, W4A8 as ``KernelConfig.int4_w4a8`` is by default (the header
+line names the mode).  ``--kv_int8`` and ``--kv_fp8`` exit "not yet
+ported".
 """
 
 from __future__ import annotations
@@ -41,8 +44,7 @@ def main(argv=None):
     ap.add_argument("--device", type=str, default="cuda")
     ap.add_argument("--quant", type=str, default=None,
                     choices=["int8", "int4"],
-                    help="weight-only quantization of the target (int8 is "
-                         "ported)")
+                    help="weight-only quantization of the target")
     ap.add_argument("--kv_fp8", action="store_true")
     ap.add_argument("--kv_int8", action="store_true")
     ap.add_argument("--spec_draft", type=str, default=None,
@@ -52,8 +54,7 @@ def main(argv=None):
                     help="draft tokens per speculative round")
     args = ap.parse_args(argv)
 
-    for flag, given in (("--quant int4", args.quant == "int4"),
-                        ("--kv_fp8", args.kv_fp8),
+    for flag, given in (("--kv_fp8", args.kv_fp8),
                         ("--kv_int8", args.kv_int8)):
         if given:
             sys.exit(f"{flag}: not yet ported")
@@ -74,7 +75,10 @@ def main(argv=None):
         draft = Llama.synthetic(LlamaConfig.tiny(max_seq_len=args.max_seq_len),
                                 seed=1, fused=fused, device=args.device)
     toks = gen.tokenizer.encode(args.prompt, bos=True, eos=False)
-    print(f"[prompt: {len(toks)} tokens | fused={gen.fused} | "
+    mode = ""
+    if args.quant == "int4":
+        mode = " W4A8" if gen.kcfg.int4_w4a8 else " exact"
+    print(f"[prompt: {len(toks)} tokens | fused={gen.fused}{mode} | "
           f"device={gen.device}"
           + (f" | quant={args.quant}" if args.quant else "")
           + (f" | spec n_draft={args.n_draft}" if draft else "") + "]")

@@ -226,13 +226,20 @@ class KernelConfig:
     read neither ``gemv_threads`` nor any other knob but ``kv_split``: each
     is one launch whose block size, ring stages and cluster size are
     constants or follow from the geometry and the card's SM count.
-    ``serving_w8a8``: the JAX package's int8-activation serving products;
-    not ported, so ``ServingEngine`` raises on it (``ROADMAP.md`` queue 2,
-    mode 6)."""
+    ``int4_w4a8``: the int4 product of kernels 7 and 8, as in the JAX
+    package (``clusterfusion_tpu/config.py:278-282``): True (the default)
+    quantizes each activation block to int8 per row (absmax / 127) and
+    sums each scale group's integer dot, scaled by its group scale (W4A8);
+    False takes the exact product over bf16(code * scale) (W4A16).  The
+    paged layer and the serving products always take the exact one, as
+    JAX's do.  ``serving_w8a8``: the JAX package's int8-activation serving
+    products; not ported, so ``ServingEngine`` raises on it (``ROADMAP.md``
+    queue 2, mode 6)."""
 
     kv_split: int = 64
     prefill_block_rows: int = 128
     gemv_threads: int = 256
+    int4_w4a8: bool = True
     serving_w8a8: bool = False
 
 

@@ -330,6 +330,20 @@ resnorm_reduce_kernel(CfComm cm, const float* b, const __nv_bfloat16* w, float* 
 //   is pushed, kg > 0 as above, so every rank pushes scaled partials; the
 //   scale is the same on every rank, so it commutes with the sum over the
 //   ranks, and the flags and epochs are the bf16 instance's.
+// - Int4 weights (ring_gemv4_kernel<SWIGLU, A8>; kernel 7's int4 modes, the
+//   TPU kernel's wq_kind == "int4"): W holds codes packed two a byte along
+//   K through the int8 map over the K/2 packed rows, sc float32 group
+//   scales of GS4 k rows.  A stage keeps its 16 KB box: 64 packed rows,
+//   128 k rows, one scale group, so K chunks are whole groups.  Exact
+//   (W4A16): a byte of a lane's 8-byte load becomes a bf16 pair of codes
+//   (s4_bf16_pairs), times the column's bf16 scale rounded once to bf16
+//   (the TPU kernels' _dequant_int4_tile), then the bf16 path's FMA chain.
+//   A8 (W4A8, KernelConfig.int4_w4a8): x is quantized to int8 against the
+//   absmax of its activation block (kg > 0: the block of kg k rows holding
+//   the chunk; 0: the row), as the TPU kernel quantizes each x it passes to
+//   w4a8_int4_dot; each warp sums a group's products in int32 with dp4a
+//   (exact), scales the sums by the column's scale at the group's end, and
+//   each block's partial is scaled by x's scale before the cluster sum.
 // (M, nrc and xrows are always 1 here; the row arithmetic stays general.)
 constexpr int G1_Y = 0, G1_PUSH_SUM = 1, G1_PUSH_GATHER = 2;
 constexpr int G1_COLS = 256;                       // columns per tile
@@ -343,8 +357,8 @@ constexpr int G1_SMEM_MAX = 227 * 1024;
 constexpr int G1_MAX_THREADS = 1024 - 32;          // consumers beside the producer
 constexpr int G1_MAX_CLUSTER = 16;                 // non-portable; 8 is portable
 static_assert(G1_COLS == COMM_TILE, "a reduce's flag column is one tile");
-static_assert(2 * G1_STAGES * sizeof(uint64_t) + 4 * (G1_MAX_THREADS / 32) + 4 <= G1_HEAD,
-              "barriers, the norm's sums and the epoch overflow the head");
+static_assert(2 * G1_STAGES * sizeof(uint64_t) + 4 * (G1_MAX_THREADS / 32) + 8 <= G1_HEAD,
+              "barriers, the norm's sums, W4A8's x scale and the epoch overflow the head");
 static_assert(G1_STAGES * G1_STAGE_BYTES >= 4 * G1_COLS * (G1_MAX_THREADS / 32 + 1),
               "the ring must hold the blocks' sums after the last stage");
 
@@ -379,10 +393,87 @@ __device__ __forceinline__ void s8_bf16_pairs(uint32_t a, uint32_t b, uint32_t (
     p[i] = __byte_perm(__float_as_uint(f[i]), __float_as_uint(f[4 + i]), 0x7632);
 }
 
-// The body of both ring GEMV kernels: bf16 weights w (W8 false; wmap, mat0,
-// sc and kg unused) or int8 codes through wmap with their scales (W8, w
-// unused).
-template <bool SWIGLU, int PUSH, bool W8>
+// The weight kinds of the GEMV bodies: bf16, int8 codes, int4 codes with
+// the exact product (W4A16) or with x quantized to int8 (W4A8).
+constexpr int WK_BF16 = 0, WK_INT8 = 1, WK_INT4 = 2, WK_INT4A8 = 3;
+// The int4 scale group (k rows): one 16 KB stage of packed codes.
+constexpr int GS4 = 128;
+
+__device__ __forceinline__ uint32_t bf162_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ __nv_bfloat162 bits_bf162(uint32_t u) {
+  return *reinterpret_cast<__nv_bfloat162*>(&u);
+}
+
+// Four bytes of int4 codes (byte i: k row 2b in the low nibble, 2b + 1 in
+// the high, of column i) -> four bf16 pairs, pair i = (bf16(lo_i) low half,
+// bf16(hi_i) high half), exactly: the nibbles, biased by 8 (xor), become
+// the low mantissa bits of the bf16 128 + u (a byte permute and a lop3 a
+// pair), and a bf16x2 subtraction of 136 leaves the signed code (-8..7).
+__device__ __forceinline__ void s4_bf16_pairs(uint32_t w, uint32_t (&p)[4]) {
+  const uint32_t b = w ^ 0x88888888u, h = b >> 4;
+  const __nv_bfloat162 bias = __floats2bfloat162_rn(136.f, 136.f);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t t = (__byte_perm(b, h, i | ((4 + i) << 8)) & 0x000F000Fu) | 0x43004300u;
+    p[i] = bf162_bits(__hsub2(bits_bf162(t), bias));
+  }
+}
+
+// dp4a: d = c + sum of the four byte products of a and b (a's bytes
+// unsigned, b's signed; ss: both signed), exact in int32.
+__device__ __forceinline__ int dp4a_us(uint32_t a, int b, int c) {
+  int d;
+  asm("dp4a.u32.s32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+__device__ __forceinline__ int dp4a_ss(int a, int b, int c) {
+  int d;
+  asm("dp4a.s32.s32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// Four columns of two packed int4 rows (w0: k rows 4p, 4p + 1 of columns
+// 0-3, a byte each; w1: k rows 4p + 2, 4p + 3) against xw, x8 of those four
+// k rows: a_c += sum over the four k rows of (code + 8) * x8.  The codes,
+// biased to 0..15 by an xor, are regrouped column by column with byte
+// permutes so that one dp4a takes a column's four.
+__device__ __forceinline__ void s4_dot4(uint32_t w0, uint32_t w1, int xw, int& a0, int& a1,
+                                        int& a2, int& a3) {
+  const uint32_t b0 = w0 ^ 0x88888888u, b1 = w1 ^ 0x88888888u;
+  const uint32_t l0 = b0 & 0x0F0F0F0Fu, h0 = (b0 >> 4) & 0x0F0F0F0Fu;
+  const uint32_t l1 = b1 & 0x0F0F0F0Fu, h1 = (b1 >> 4) & 0x0F0F0F0Fu;
+  const uint32_t p0 = __byte_perm(l0, h0, 0x5140), p1 = __byte_perm(l0, h0, 0x7362);
+  const uint32_t q0 = __byte_perm(l1, h1, 0x5140), q1 = __byte_perm(l1, h1, 0x7362);
+  a0 = dp4a_us(__byte_perm(p0, q0, 0x5410), xw, a0);
+  a1 = dp4a_us(__byte_perm(p0, q0, 0x7632), xw, a1);
+  a2 = dp4a_us(__byte_perm(p1, q1, 0x5410), xw, a2);
+  a3 = dp4a_us(__byte_perm(p1, q1, 0x7632), xw, a3);
+}
+
+// A code pair times its column's bf16 scale pair, rounded once to bf16 (the
+// TPU kernels' _dequant_int4_tile, a bf16 multiply).
+__device__ __forceinline__ uint32_t scale_pair(uint32_t p, uint32_t s2) {
+  return bf162_bits(__hmul2(bits_bf162(p), bits_bf162(s2)));
+}
+
+// bf16(s) in both halves of a register.
+__device__ __forceinline__ uint32_t bf16_pair_of(float s) {
+  return bf162_bits(__float2bfloat162_rn(s));
+}
+
+// W4A8's activation quantization of one value (the JAX package's
+// w4a8_int4_dot): rint(x / xs) in float32, round half to even.
+__device__ __forceinline__ float quant_x8(float x, float xs) {
+  return rintf(__fdiv_rn(x, xs));
+}
+
+// The body of the ring GEMV kernels: bf16 weights w (WK_BF16; wmap, mat0,
+// sc and kg unused), int8 codes through wmap with their scales (WK_INT8, w
+// unused) or int4 codes through wmap with their group scales (WK_INT4,
+// WK_INT4A8; w unused).
+template <bool SWIGLU, int PUSH, int WK>
 __device__ __forceinline__ void ring_gemv_body(
     const void* __restrict__ xv, long long x_row, int f_off, const void* __restrict__ w,
     float* __restrict__ y, __nv_bfloat16* __restrict__ yb, int M, int K, int N, int k_chunk,
@@ -392,8 +483,10 @@ __device__ __forceinline__ void ring_gemv_body(
   namespace cg = cooperative_groups;
   constexpr int RB = 1;                                     // rows per block
   constexpr int NS = G1_STAGES, SB = G1_STAGE_BYTES;
-  constexpr int ROWS = W8 ? G1_ROWS8 : G1_ROWS;            // weight rows per stage
-  constexpr int EB = W8 ? 1 : 2;                            // bytes per weight
+  constexpr bool W8 = WK == WK_INT8, W4 = WK >= WK_INT4, A8 = WK == WK_INT4A8;
+  constexpr int ROWS = W8 || W4 ? G1_ROWS8 : G1_ROWS;      // weight rows per stage
+  constexpr int EB = W8 || W4 ? 1 : 2;                      // bytes per weight
+  constexpr int KR = W4 ? 2 : 1;                            // k rows per weight row
   constexpr int RS = G1_COLS * EB;                          // bytes per row of a stage
   extern __shared__ __align__(128) unsigned char g1_sm[];
   uint64_t* full = reinterpret_cast<uint64_t*>(g1_sm);     // [NS]
@@ -409,9 +502,9 @@ __device__ __forceinline__ void ring_gemv_body(
   const int cols = min(G1_COLS, N - n0);
   const uint32_t seg = (uint32_t)cols * EB;
   const int k0 = rank * k_chunk, kn = min(k_chunk, K - k0);
-  const int nst = (kn + ROWS - 1) / ROWS;
+  const int nst = (kn + ROWS * KR - 1) / (ROWS * KR);
   const unsigned char* wp =        // bf16: this block's first row segment
-      W8 ? nullptr
+      W8 || W4 ? nullptr
          : static_cast<const unsigned char*>(w) + ((size_t)mat * ws + (size_t)k0 * N + n0) * EB;
 
   if (tid == 0) {
@@ -424,13 +517,15 @@ __device__ __forceinline__ void ring_gemv_body(
   __syncthreads();
   // producer: stage st's rows, one bulk copy per row, lanes in parallel
   // (int8: the stage's box of the tensor map, rows past K and columns past
-  // N zero-filled; rows past the chunk arrive and are not read)
+  // N zero-filled; rows past the chunk arrive and are not read; int4: the
+  // box of packed rows, 128 k rows, one scale group)
   auto issue = [&](int st) {
     const int s = st % NS;
-    if constexpr (W8) {
+    if constexpr (W8 || W4) {
       if (lane == 0) {
         hopper::mbar_arrive_expect_tx(&full[s], (uint32_t)SB);
-        hopper::tma_load_3d(ring + s * SB, wmap, &full[s], n0, k0 + st * ROWS, mat0 + mat);
+        hopper::tma_load_3d(ring + s * SB, wmap, &full[s], n0, k0 / KR + st * ROWS,
+                            mat0 + mat);
       }
     } else {
       const int rows = min(ROWS, kn - st * ROWS);
@@ -456,7 +551,40 @@ __device__ __forceinline__ void ring_gemv_body(
     }
   } else {
     const int ct = blockDim.x - 32;
-    if (SWIGLU) {
+    if constexpr (A8) {
+      // W4A8: x quantized to int8 against the absmax of its activation
+      // block (kg > 0: the kg rows holding this chunk, which the launcher
+      // keeps inside one; 0: the whole row), as the TPU kernels quantize
+      // each block they pass to w4a8_int4_dot; xs goes to the head's
+      // second-to-last word, and xs1 holds x8, four int8 k rows a word
+      auto xval = [&](int k) {
+        if constexpr (SWIGLU) {
+          const float* gu = static_cast<const float*>(xv);
+          const float g = gu[k], u = gu[f_off + k];
+          return bf16_round(g / (1.f + expf(-g)) * u);
+        } else {
+          return __bfloat162float(static_cast<const __nv_bfloat16*>(xv)[k]);
+        }
+      };
+      const int xb = kg > 0 ? kg : K, xb0 = k0 / xb * xb;
+      float* nred = reinterpret_cast<float*>(empty + NS);     // [ncw], in the head
+      float am = 0.f;
+      for (int i = tid - 32; i < xb; i += ct) am = fmaxf(am, fabsf(xval(xb0 + i)));
+      am = warp_max(am);
+      if (lane == 0) nred[wid - 1] = am;
+      hopper::named_barrier_sync(1, ct);
+      for (int q = 0; q < ncw; ++q) am = fmaxf(am, nred[q]);
+      const float xs = fmaxf(am, 1e-8f) * (1.f / 127.f);
+      if (tid == 32) reinterpret_cast<float*>(g1_sm + G1_HEAD)[-2] = xs;
+      int* xq = reinterpret_cast<int*>(xs1);    // x8, four k rows a word
+      for (int i = tid - 32; i < kn / 4; i += ct) {
+        uint32_t w = 0;
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          w |= ((uint32_t)(int)quant_x8(xval(k0 + 4 * i + b), xs) & 0xffu) << (8 * b);
+        xq[i] = (int)w;
+      }
+    } else if (SWIGLU) {
       const float* gu = static_cast<const float*>(xv) + k0;
       for (int i = tid - 32; i < kn; i += ct) {
         const float g = gu[i], u = gu[f_off + i];
@@ -486,6 +614,69 @@ __device__ __forceinline__ void ring_gemv_body(
     }
     hopper::named_barrier_sync(1, ct);
     const bool live = lane * 8 < cols;
+    if constexpr (W4) {
+      // int4: a stage is one scale group; a lane's 8-byte load is 8 columns
+      // of packed row r, k rows 2r and 2r + 1.  Exact (W4A16): the weights
+      // bf16(code * bf16(s)), the bf16 path's FMA chain.  W4A8: a warp takes
+      // packed rows in pairs (k rows 4p .. 4p + 3) and sums each column's
+      // four products in one dp4a of its biased codes against x8, exact in
+      // int32; at the stage's end the warp's integer sums of the group, less
+      // 8 * sum(x8) for the bias, are scaled by bf16(s) into acc.  The
+      // lane's scales are read before the stage's wait.
+      const float* sg = sc + ((size_t)mat * (K / GS4) + k0 / GS4) * N + n0 + lane * 8;
+      for (int st = 0; st < nst; ++st) {
+        const int s = st % NS;
+        float scl[8];
+        if (live) {
+          const float4* s4 = reinterpret_cast<const float4*>(sg + (size_t)st * N);
+          const float4 a = __ldg(s4), b = __ldg(s4 + 1);
+          scl[0] = a.x; scl[1] = a.y; scl[2] = a.z; scl[3] = a.w;
+          scl[4] = b.x; scl[5] = b.y; scl[6] = b.z; scl[7] = b.w;
+        }
+        hopper::mbar_wait(&full[s], (st / NS) & 1);
+        const int rows = min(ROWS, (kn - st * GS4) / 2);
+        if (live) {
+          const unsigned char* base = ring + s * SB + lane * 8;
+          if constexpr (A8) {
+            const int* xk = reinterpret_cast<const int*>(xs1) + st * (GS4 / 4);
+            int part[8], sx = 0;
+#pragma unroll
+            for (int c = 0; c < 8; ++c) part[c] = 0;
+            for (int q = wid - 1; q < rows / 2; q += ncw) {
+              const uint2 u0 = *reinterpret_cast<const uint2*>(base + 2 * q * RS);
+              const uint2 u1 = *reinterpret_cast<const uint2*>(base + (2 * q + 1) * RS);
+              const int xw = xk[q];
+              sx = dp4a_ss(xw, 0x01010101, sx);
+              s4_dot4(u0.x, u1.x, xw, part[0], part[1], part[2], part[3]);
+              s4_dot4(u0.y, u1.y, xw, part[4], part[5], part[6], part[7]);
+            }
+#pragma unroll
+            for (int c = 0; c < 8; ++c)
+              acc[c] = fmaf((float)(part[c] - 8 * sx), bf16_round(scl[c]), acc[c]);
+          } else {
+            const float* xk = xs1 + st * GS4;
+            uint32_t s2[8];
+#pragma unroll
+            for (int c = 0; c < 8; ++c) s2[c] = bf16_pair_of(scl[c]);
+            for (int r = wid - 1; r < rows; r += ncw) {
+              const uint2 u = *reinterpret_cast<const uint2*>(base + r * RS);
+              uint32_t p[2][4];
+              s4_bf16_pairs(u.x, p[0]);
+              s4_bf16_pairs(u.y, p[1]);
+              const float x0 = xk[2 * r], x1 = xk[2 * r + 1];
+#pragma unroll
+              for (int c = 0; c < 8; ++c) {
+                const uint32_t w2 = scale_pair(p[c / 4][c % 4], s2[c]);
+                acc[c] = fmaf(x0, __uint_as_float(w2 << 16), acc[c]);
+                acc[c] = fmaf(x1, __uint_as_float(w2 & 0xffff0000u), acc[c]);
+              }
+            }
+          }
+        }
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&empty[s]);
+      }
+    } else {
     for (int st = 0; st < nst; ++st) {
       const int s = st % NS;
       hopper::mbar_wait(&full[s], (st / NS) & 1);
@@ -508,6 +699,7 @@ __device__ __forceinline__ void ring_gemv_body(
       __syncwarp();
       if (lane == 0) hopper::mbar_arrive(&empty[s]);
     }
+    }
   }
   __syncthreads();   // every stage issued has landed and been read: the ring is free
   float* red = reinterpret_cast<float*>(ring);              // [ncw][G1_COLS]
@@ -522,6 +714,8 @@ __device__ __forceinline__ void ring_gemv_body(
     for (int q = 0; q < ncw; ++q) s += red[q * G1_COLS + c];
     if constexpr (W8)      // the block's scale group (K chunks never straddle one)
       if (kg > 0 && c < cols) s *= sc[(size_t)(k0 / kg) * N + n0 + c];
+    if constexpr (A8)      // the block's activation scale (W4A8)
+      s *= reinterpret_cast<const float*>(g1_sm + G1_HEAD)[-2];
     part[c] = s;
   }
   cg::cluster_group cluster = cg::this_cluster();
@@ -586,9 +780,9 @@ __global__ void ring_gemv_kernel(const void* __restrict__ xv, long long x_row, i
                                  long long ws, long long y_row, long long yz,
                                  const __nv_bfloat16* __restrict__ nw, float eps,
                                  CfComm comm) {
-  ring_gemv_body<SWIGLU, PUSH, false>(xv, x_row, f_off, w, y, yb, M, K, N, k_chunk, nrc,
-                                      xrows, ws, y_row, yz, nw, eps, comm, nullptr, 0,
-                                      nullptr, 0);
+  ring_gemv_body<SWIGLU, PUSH, WK_BF16>(xv, x_row, f_off, w, y, yb, M, K, N, k_chunk, nrc,
+                                        xrows, ws, y_row, yz, nw, eps, comm, nullptr, 0,
+                                        nullptr, 0);
 }
 
 // The int8 instance: the codes through wmap (int8 [nmats][K][N], boxes of
@@ -602,8 +796,30 @@ __global__ void ring_gemv8_kernel(const void* __restrict__ xv, long long x_row, 
                                   long long y_row, long long yz,
                                   const __nv_bfloat16* __restrict__ nw, float eps,
                                   const float* __restrict__ sc, int kg, CfComm comm) {
-  ring_gemv_body<SWIGLU, PUSH, true>(xv, x_row, f_off, nullptr, y, yb, M, K, N, k_chunk, nrc,
-                                     xrows, 0, y_row, yz, nw, eps, comm, &wmap, mat0, sc, kg);
+  ring_gemv_body<SWIGLU, PUSH, WK_INT8>(xv, x_row, f_off, nullptr, y, yb, M, K, N, k_chunk,
+                                        nrc, xrows, 0, y_row, yz, nw, eps, comm, &wmap, mat0,
+                                        sc, kg);
+}
+
+// The int4 instance (kernels 7 and 8 at one row, kernel 9 at B 1, the int4
+// serving products at M 1; the TPU kernels' wq_kind == "int4"): the packed
+// codes through wmap (int8 [nmats][K/2][N], boxes of G1_ROWS8 packed rows,
+// 128 k rows, x G1_COLS; matrix mat0 + blockIdx.z), sc float32 group
+// scales [nmat][K/GS4][N] (the TPU kernels stream them rounded to bf16; so
+// does this kernel's exact mode, and quantize_int4 makes them bf16 values),
+// y written (G1_Y only).  A8 (W4A8, KernelConfig.int4_w4a8): x quantized to
+// int8 per activation block of kg rows (0: the whole row).
+template <bool SWIGLU, bool A8>
+__global__ void ring_gemv4_kernel(const void* __restrict__ xv, long long x_row, int f_off,
+                                  const __grid_constant__ CUtensorMap wmap, int mat0,
+                                  float* __restrict__ y, __nv_bfloat16* __restrict__ yb,
+                                  int M, int K, int N, int k_chunk, int nrc, int xrows,
+                                  long long y_row, long long yz,
+                                  const __nv_bfloat16* __restrict__ nw, float eps,
+                                  const float* __restrict__ sc, int kg, CfComm comm) {
+  ring_gemv_body<SWIGLU, G1_Y, A8 ? WK_INT4A8 : WK_INT4>(
+      xv, x_row, f_off, nullptr, y, yb, M, K, N, k_chunk, nrc, xrows, 0, y_row, yz, nw, eps,
+      comm, &wmap, mat0, sc, kg);
 }
 
 // The tensor map ring_gemv8_kernel reads: nmats int8 [K, N] matrices
@@ -626,12 +842,16 @@ inline bool make_int8_weight_map(CUtensorMap* map, const void* w, int K, int N,
 // normalised first.  PUSH other than G1_Y (mode 5's producer; comm given,
 // one matrix): y is not written; the sums go to the ranks' slots instead,
 // one flag column per tile (at most COMM_FLAG_COLS tiles, 4N bytes at most
-// a slot).  W8: w is unused; ring_gemv8_kernel reads the
+// a slot).  WK_INT8: w is unused; ring_gemv8_kernel reads the
 // matrices mat0.. of wmap (make_int8_weight_map; N a multiple of 16) with
 // the scales sc and the scale group kg; kg > 0 keeps only the chunkings
 // whose chunks divide kg, and where none of those has every cluster
-// resident, the one of them with the most chunks.  Returns a cudaError_t.
-template <bool SWIGLU, int PUSH = G1_Y, bool W8 = false>
+// resident, the one of them with the most chunks.  WK_INT4 / WK_INT4A8
+// (G1_Y, no nw): ring_gemv4_kernel over the packed matrices of wmap
+// (make_int4_map at one row), K a multiple of GS4, chunks multiples of GS4
+// (one scale group a stage), sc the group scales, kg W4A8's activation
+// block (chunks kept inside one, as above).  Returns a cudaError_t.
+template <bool SWIGLU, int PUSH = G1_Y, int WK = WK_BF16>
 int launch_gemv1(const void* x, int f_off, const void* w, float* y, int K, int N,
                  int nmat, long long ws, long long yz, int threads, bool pdl,
                  cudaStream_t st, __nv_bfloat16* yb = nullptr,
@@ -641,20 +861,25 @@ int launch_gemv1(const void* x, int f_off, const void* w, float* y, int K, int N
   if ((nw && SWIGLU) || K < 1 || N < 8 || N % 8 != 0 || nmat < 1 || threads < 32 ||
       threads % 32 != 0 || threads > G1_MAX_THREADS)
     return (int)cudaErrorInvalidValue;
+  constexpr bool W8 = WK == WK_INT8, W4 = WK >= WK_INT4;
   if (W8 && (!wmap || !sc || N % 16 != 0 || kg < 0 ||
              (kg > 0 && (K % kg != 0 || nmat != 1))))
+    return (int)cudaErrorInvalidValue;
+  if (W4 && (!wmap || !sc || nw || PUSH != G1_Y || N % 16 != 0 || K % GS4 != 0 || kg < 0 ||
+             (kg > 0 && (K % kg != 0 || kg % GS4 != 0))))
     return (int)cudaErrorInvalidValue;
   if (PUSH != G1_Y && (!comm || nmat != 1 || (N + G1_COLS - 1) / G1_COLS > COMM_FLAG_COLS ||
                        4LL * N > comm->slot_bytes))
     return (int)cudaErrorInvalidValue;
-  constexpr int ROWS = W8 ? G1_ROWS8 : G1_ROWS;
+  constexpr int ROWS = W4 ? GS4 : W8 ? G1_ROWS8 : G1_ROWS;  // k rows per stage
   static bool attrs_set = false;
   static int max_cluster = 8;
   struct Occ { int ks, threads; size_t smem; int clusters; };
   static Occ occ_cache[64];
   static int n_occ = 0;
   auto kern = [] {
-    if constexpr (W8) return ring_gemv8_kernel<SWIGLU, PUSH>;
+    if constexpr (W4) return ring_gemv4_kernel<SWIGLU, WK == WK_INT4A8>;
+    else if constexpr (W8) return ring_gemv8_kernel<SWIGLU, PUSH>;
     else return ring_gemv_kernel<SWIGLU, PUSH>;
   }();
   if (!attrs_set) {
@@ -698,7 +923,8 @@ int launch_gemv1(const void* x, int f_off, const void* w, float* y, int K, int N
   };
   int ks = 0, k_chunk = K;
   for (int c = std::min(max_cluster, std::max(1, K / (2 * ROWS))); c >= 1; --c) {
-    const int kc = (K + c - 1) / c;
+    // int4: chunks of whole scale groups
+    const int kc = W4 ? ((K + c - 1) / c + GS4 - 1) / GS4 * GS4 : (K + c - 1) / c;
     if ((K + kc - 1) / kc != c) continue;               // every rank has rows
     if (kg > 0 && kg % kc != 0) continue;               // a chunk inside one scale group
     const size_t smem = ring_gemv_smem(kc);
@@ -714,7 +940,7 @@ int launch_gemv1(const void* x, int f_off, const void* w, float* y, int K, int N
   cfg.gridDim = dim3(ks, tiles, nmat);
   cfg.dynamicSmemBytes = ring_gemv_smem(k_chunk);
   cfg.numAttrs = pdl ? 2 : 1;
-  if constexpr (W8)
+  if constexpr (W8 || W4)
     return (int)cudaLaunchKernelEx(&cfg, kern, x, 0LL, f_off, *wmap, mat0, y, yb, 1, K, N,
                                    k_chunk, 1, 1, 0LL, yz, nw, eps, sc, kg,
                                    comm ? *comm : CfComm{});
@@ -798,6 +1024,38 @@ int launch_gemv1(const void* x, int f_off, const void* w, float* y, int K, int N
 //   kg > 0 (the O projection, G matrices of kg rows summed as one) scales
 //   each block's partial by sc[(k0 / kg)*N + n] before the cluster sum,
 //   and the launcher picks K chunks that never straddle a group.
+// Int4 weights (rows_gemv4_kernel<PAIR, A8>; kernels 8 and 9 in their int4
+// modes and the int4 serving step's M=B products, the TPU kernels' wq_kind
+// == "int4"): W holds packed codes (int8 [K/2, N], byte b = k rows 2b low
+// nibble, 2b + 1 high) through a map over the packed rows (make_int4_map),
+// sc float32 group scales [nmat][K/GS4][N].
+// - A stage keeps its 16 KB of codes: two boxes of [64][128] bytes, now
+//   128 k rows, one scale group, and x as four boxes of [rows][32] to cover
+//   them.  Three stages (RG4_STAGES), so three blocks still share an SM.
+// - An mma A register is one column's k rows 2t, 2t + 1: one byte of
+//   codes.  A lane owns four columns (its 32-bit word of a box row) and
+//   reads packed rows t and t + 4 of each 16-row step; its warp's two
+//   16-byte chunks of a box row are f % 4 and f % 4 + 4, so that under the
+//   swizzle its 32 lanes' words fall in 32 banks.  s4_bf16_pairs makes the
+//   bf16 pairs of the codes.
+// - Exact (W4A16, kernel 9 and the serving products; kernels 7 and 8 with
+//   int4_w4a8 False): each pair times its column's bf16 scale, rounded
+//   once (the TPU kernels' _dequant_int4_tile), then the bf16 instance's
+//   mma and float32 sums.
+// - W4A8 (A8; kernels 7 and 8's default): x is quantized to int8 per row
+//   against the absmax of its activation block (kg > 0: the kg k rows that
+//   hold this chunk, the launcher keeps chunks inside one; 0: the whole
+//   row) by quant_x8_kernel, launched just before under programmatic
+//   dependent launch: it writes bf16(rint(x / xs)) and the scales, and the
+//   GEMV streams that x8 as it streams a bf16 x.  (Quantizing inside the
+//   GEMV, each block reading its rows' whole activation blocks and
+//   rewriting each stage's x in place behind one more barrier, measured
+//   kernel 8's W4A8 products 1.5x as slow as the exact ones on the H100.)
+//   Codes and x8 are exact in bf16 and a group's sums stay under 2^17, so
+//   each group's mma sums are its exact integer dot (the JAX package's
+//   int32 group dot); at the group's end they are scaled by the column's s
+//   into the running sums, and each row's partial by its xs before the
+//   cluster sum.
 constexpr int RG_COLS = 256;                       // columns per tile
 constexpr int RG_BOX = 64;                         // weight columns per box (128 bytes)
 constexpr int RG_ROWS = 32;                        // k rows per stage
@@ -827,17 +1085,31 @@ static_assert(RG8_BOX_BYTES * RG_COLS / RG8_BOX == RG_COLS / RG_BOX * RG_BOX_BYT
               "an int8 stage streams the bf16 stage's weight bytes");
 static_assert(RG8_XBOX % 512 == 0 && RG8_XOFF % 1024 == 0 && RG8_STAGE_BYTES % 1024 == 0,
               "the swizzled boxes keep their alignment");
+constexpr int RG4_KROWS = 2 * RG8_ROWS;            // int4: k rows per stage
+constexpr int RG4_STAGES = 3;
+constexpr int RG4_STAGE_BYTES = RG8_XOFF + 4 * RG8_XBOX;     // codes and four x boxes
+constexpr int RG4_SMEM = 1024 + RG_HEAD + RG4_STAGES * RG4_STAGE_BYTES;
+static_assert(RG4_KROWS == GS4, "an int4 stage is one scale group");
+static_assert(RG4_STAGE_BYTES % 1024 == 0, "the swizzled boxes keep their alignment");
+static_assert(3 * (RG4_SMEM + 1024) <= 228 * 1024, "three int4 blocks share an SM");
+static_assert(RG4_STAGES * RG4_STAGE_BYTES >= 4 * RG_PITCH * RG_MAX_ROWS,
+              "the ring must hold the block's sums after the last stage");
 
-// The body of both rows GEMV kernels: bf16 weights (W8 false; mat0, sc and
-// kg unused) or int8 codes, matrices mat0.. of wmap, with their scales (W8).
-template <bool PAIR, bool W8>
+// The body of the rows GEMV kernels: bf16 weights (WK_BF16; mat0, sc, kg
+// and xs unused), int8 codes, matrices mat0.. of wmap, with their scales
+// (WK_INT8), or int4 codes with their group scales (WK_INT4, WK_INT4A8; in
+// W4A8 x holds x8 and xs the activation scales, [M][K / kg] or [M] at kg
+// 0, as quant_x8_kernel writes them).
+template <bool PAIR, int WK>
 __device__ __forceinline__ void rows_gemv_body(
     const CUtensorMap* wmap, const CUtensorMap* xmap, float* __restrict__ y,
     __nv_bfloat16* __restrict__ yb, int M, int K, int N, int k_chunk, int nrc, int xrows,
     long long y_row, long long yz, unsigned long long* __restrict__ stamps, int mat0,
-    const float* __restrict__ sc, int kg) {
+    const float* __restrict__ sc, int kg, const float* __restrict__ xs) {
   namespace cg = cooperative_groups;
-  constexpr int NS = RG_STAGES, SB = W8 ? RG8_STAGE_BYTES : RG_STAGE_BYTES;
+  constexpr bool W8 = WK == WK_INT8, W4 = WK >= WK_INT4, A8 = WK == WK_INT4A8;
+  constexpr int NS = W4 ? RG4_STAGES : RG_STAGES;
+  constexpr int SB = W4 ? RG4_STAGE_BYTES : W8 ? RG8_STAGE_BYTES : RG_STAGE_BYTES;
   constexpr int HALF = PAIR ? RG_COLS / 2 : RG_COLS;        // columns per slab
   extern __shared__ unsigned char rg_raw[];
   unsigned char* sm = rg_raw + ((1024u - (hopper::smem_u32(rg_raw) & 1023u)) & 1023u);
@@ -850,7 +1122,9 @@ __device__ __forceinline__ void rows_gemv_body(
   const int nr = min(RG_MAX_ROWS, M - r0);
   const int n0 = blockIdx.y * HALF;
   const int cols = min(HALF, N - n0);                       // per slab
-  constexpr int BOX = W8 ? RG8_BOX : RG_BOX, ROWS = W8 ? RG8_ROWS : RG_ROWS;
+  constexpr int BOX = W8 || W4 ? RG8_BOX : RG_BOX;
+  constexpr int ROWS = W4 ? RG4_KROWS : W8 ? RG8_ROWS : RG_ROWS;   // k rows per stage
+  constexpr int KR = W4 ? 2 : 1;                                     // k rows per code row
   const int nb = (cols + BOX - 1) / BOX;                    // boxes per slab
   const int k0 = rank * k_chunk, kn = min(k_chunk, K - k0);
   const int nst = (kn + ROWS - 1) / ROWS;
@@ -872,18 +1146,19 @@ __device__ __forceinline__ void rows_gemv_body(
   }
   __syncthreads();
   // producer (lane 0): stage st's weight boxes (PAIR: gate's, then up's
-  // at column HALF of the tile), then its x box (int8: two x boxes)
+  // at column HALF of the tile), then its x box (int8: two x boxes; int4:
+  // four, and its code boxes are of packed rows)
   auto issue_w = [&](int st) {
     unsigned char* stage = ring + (st % NS) * SB;
     uint64_t* bar = &full[st % NS];
-    if constexpr (W8) {
+    if constexpr (W8 || W4) {
       hopper::mbar_arrive_expect_tx(bar, (uint32_t)((PAIR ? 2 : 1) * nb * RG8_BOX_BYTES));
       for (int j = 0; j < nb; ++j) {
         hopper::tma_load_3d(stage + j * RG8_BOX_BYTES, wmap, bar, n0 + j * RG8_BOX,
-                            k0 + st * RG8_ROWS, mat0 + mat);
+                            k0 / KR + st * RG8_ROWS, mat0 + mat);
         if (PAIR)
           hopper::tma_load_3d(stage + (HALF / RG8_BOX + j) * RG8_BOX_BYTES, wmap, bar,
-                              n0 + j * RG8_BOX, k0 + st * RG8_ROWS, mat0 + 1);
+                              n0 + j * RG8_BOX, k0 / KR + st * RG8_ROWS, mat0 + 1);
       }
     } else {
       hopper::mbar_arrive_expect_tx(bar, (uint32_t)((PAIR ? 2 : 1) * nb * RG_BOX_BYTES));
@@ -898,7 +1173,13 @@ __device__ __forceinline__ void rows_gemv_body(
   };
   auto issue_x = [&](int st) {
     uint64_t* bar = &full[st % NS];
-    if constexpr (W8) {
+    if constexpr (W4) {
+      unsigned char* xs = ring + (st % NS) * SB + RG8_XOFF;
+      hopper::mbar_arrive_expect_tx(bar, (uint32_t)(4 * xrows * RG_ROWS * 2));
+      for (int i = 0; i < 4; ++i)
+        hopper::tma_load_3d(xs + i * RG8_XBOX, xmap, bar, k0 + st * RG4_KROWS + i * RG_ROWS, r0,
+                            0);
+    } else if constexpr (W8) {
       unsigned char* xs = ring + (st % NS) * SB + RG8_XOFF;
       hopper::mbar_arrive_expect_tx(bar, (uint32_t)(2 * xrows * RG_ROWS * 2));
       hopper::tma_load_3d(xs, xmap, bar, k0 + st * RG8_ROWS, r0, 0);
@@ -946,7 +1227,111 @@ __device__ __forceinline__ void rows_gemv_body(
     const int x_sw = (row >> 1) & 3;
     int s = 0;
     uint32_t phase = 0;
-    if constexpr (W8) {
+    if constexpr (W4) {
+      // int4: this lane's four tile columns c4 .. c4 + 3 are rows g and
+      // g + 8 of fragment 0, then of fragment 1: its word of 16-byte chunk
+      // ch of box f / 4; its k rows 2t + d and 2t + 8 + d of a 16-row step
+      // are packed rows t and t + 4 (chunk ^ (t + 4e) under the swizzle)
+      const int g = lane / 4, t = lane % 4, ch = f % 4 + 4 * (g / 4);
+      const int c4 = (f / 4) * RG8_BOX + 16 * ch + 4 * (g % 4);
+      int w_off[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        w_off[e] = (f / 4) * RG8_BOX_BYTES + (t + 4 * e) * 128 + ((ch ^ (t + 4 * e)) << 4) +
+                   4 * (g % 4);
+      const int x_off = RG8_XOFF + row * 64;
+      // the lane's scales: gate's or up's slab (PAIR), else the tile's
+      // matrix; columns past N read none
+      const int scol = c4 - (PAIR ? (f / 4) * RG8_BOX : 0);
+      const bool s_live = scol < cols;
+      const float* sg = sc + ((size_t)(PAIR ? f / 4 : mat) * (K / GS4) + k0 / GS4) * N + n0 +
+                        scol;
+      for (int st = 0; st < nst; ++st) {
+        const float4 s4 = s_live ? __ldg(reinterpret_cast<const float4*>(sg + (size_t)st * N))
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+        const float scl[4] = {s4.x, s4.y, s4.z, s4.w};
+        hopper::mbar_wait(&full[s], phase);
+        if (st == 0) stamp(2);
+        if (st == nst / 2) stamp(3);
+        const unsigned char* stage = ring + s * SB;
+        uint32_t s2[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) s2[q] = A8 ? 0u : bf16_pair_of(scl[q]);
+        float gacc[2][2][4];              // W4A8: the group's integer sums
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int rh = 0; rh < 2; ++rh)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) gacc[h][rh][c] = 0.f;
+#pragma unroll
+        for (int kb = 0; kb < RG4_KROWS; kb += 16) {
+          uint32_t b[4], lo[4], hi[4];
+          const unsigned char* xa = stage + x_off + (kb / RG_ROWS) * RG8_XBOX +
+                                    ((((kb % RG_ROWS) / 8 + (j & 1)) ^ x_sw) << 4);
+          if (two) {
+            hopper::ldmatrix_x4(b, xa);
+          } else {
+            uint32_t b2[2];
+            hopper::ldmatrix_x2(b2, xa);
+            b[0] = b2[0];
+            b[1] = b2[1];
+            b[2] = b[3] = 0u;
+          }
+          const unsigned char* wk = stage + (kb / 2) * 128;
+          s4_bf16_pairs(*reinterpret_cast<const uint32_t*>(wk + w_off[0]), lo);
+          s4_bf16_pairs(*reinterpret_cast<const uint32_t*>(wk + w_off[1]), hi);
+          if constexpr (!A8) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              lo[q] = scale_pair(lo[q], s2[q]);
+              hi[q] = scale_pair(hi[q], s2[q]);
+            }
+          }
+          const uint32_t a0[4] = {lo[0], lo[1], hi[0], hi[1]};
+          const uint32_t a1[4] = {lo[2], lo[3], hi[2], hi[3]};
+          float p[2][2][4];
+#pragma unroll
+          for (int rh = 0; rh < 2; ++rh)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) p[0][rh][c] = p[1][rh][c] = 0.f;
+          hopper::mma_m16n8k16_bf16(p[0][0], a0, b[0], b[1]);
+          hopper::mma_m16n8k16_bf16(p[1][0], a1, b[0], b[1]);
+          if (two) {
+            hopper::mma_m16n8k16_bf16(p[0][1], a0, b[2], b[3]);
+            hopper::mma_m16n8k16_bf16(p[1][1], a1, b[2], b[3]);
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int rh = 0; rh < 2; ++rh)
+#pragma unroll
+              for (int c = 0; c < 4; ++c) {
+                if constexpr (A8)
+                  gacc[h][rh][c] += p[h][rh][c];
+                else
+                  acc[h][rh][c] += p[h][rh][c];
+              }
+        }
+        if constexpr (A8) {   // the group's sums, scaled by their columns' s
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int rh = 0; rh < 2; ++rh)
+#pragma unroll
+              for (int c = 0; c < 4; ++c)
+                acc[h][rh][c] = fmaf(gacc[h][rh][c], bf16_round(scl[2 * h + c / 2]),
+                                     acc[h][rh][c]);
+        }
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&empty[s]);
+        if (++s == NS) {
+          s = 0;
+          phase ^= 1u;
+        }
+      }
+      stamp(4);
+    } else if constexpr (W8) {
       // int8: this lane's four tile columns 32f + 4g .. +3 are rows g and
       // g + 8 of fragment 0, then of fragment 1 (box f / 4, 16-byte chunk
       // 2(f % 4) + g / 4 at chunk ^ (k & 7) of box row k); its k rows in a
@@ -1070,7 +1455,29 @@ __device__ __forceinline__ void rows_gemv_body(
   float* part = reinterpret_cast<float*>(ring);             // [RG_MAX_ROWS][RG_PITCH]
   if (wid > 0) {
     const int g = lane / 4, t = lane % 4;
-    if constexpr (W8) {
+    if constexpr (W4) {
+      // tile columns c4 + 2h (rows g) and + 1 (rows g + 8), as the
+      // consumer loop owns them; W4A8: each x row's partial times its xs
+      // (rows past M: 0, never written)
+      const int f = wid - 1, c4 = (f / 4) * RG8_BOX + 16 * (f % 4 + 4 * (g / 4)) + 4 * (g % 4);
+      const int nbk = kg > 0 ? K / kg : 1, blk = kg > 0 ? k0 / kg : 0;
+      auto xs_of = [&](int r) {
+        return r < nr ? xs[(size_t)(r0 + r) * nbk + blk] : 0.f;
+      };
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int rh = 0; rh < 2; ++rh) {
+          if (rh == 1 && !two) break;
+          const int r = 8 * rh + 2 * t;
+          const float x0 = A8 ? xs_of(r) : 1.f, x1 = A8 ? xs_of(r + 1) : 1.f;
+          float* p = part + r * RG_PITCH + c4 + 2 * h;
+          p[0] = acc[h][rh][0] * x0;
+          p[RG_PITCH] = acc[h][rh][1] * x1;
+          p[1] = acc[h][rh][2] * x0;
+          p[RG_PITCH + 1] = acc[h][rh][3] * x1;
+        }
+    } else if constexpr (W8) {
       // tile columns 32(wid - 1) + 4g + 2h (rows g) and + 1 (rows g + 8);
       // kg > 0: each partial scaled by its column's scale in the block's
       // group first (PAIR has kg 0)
@@ -1180,8 +1587,8 @@ rows_gemv_kernel(const __grid_constant__ CUtensorMap wmap,
                  __nv_bfloat16* __restrict__ yb, int M, int K, int N, int k_chunk, int nrc,
                  int xrows, long long y_row, long long yz,
                  unsigned long long* __restrict__ stamps) {
-  rows_gemv_body<PAIR, false>(&wmap, &xmap, y, yb, M, K, N, k_chunk, nrc, xrows, y_row, yz,
-                              stamps, 0, nullptr, 0);
+  rows_gemv_body<PAIR, WK_BF16>(&wmap, &xmap, y, yb, M, K, N, k_chunk, nrc, xrows, y_row, yz,
+                                stamps, 0, nullptr, 0, nullptr);
 }
 
 // The int8 instance: the codes through wmap (int8 [nmats][K][N], boxes of
@@ -1195,8 +1602,71 @@ rows_gemv8_kernel(const __grid_constant__ CUtensorMap wmap,
                   int xrows, long long y_row, long long yz,
                   unsigned long long* __restrict__ stamps, int mat0,
                   const float* __restrict__ sc, int kg) {
-  rows_gemv_body<PAIR, true>(&wmap, &xmap, y, yb, M, K, N, k_chunk, nrc, xrows, y_row, yz,
-                             stamps, mat0, sc, kg);
+  rows_gemv_body<PAIR, WK_INT8>(&wmap, &xmap, y, yb, M, K, N, k_chunk, nrc, xrows, y_row, yz,
+                                stamps, mat0, sc, kg, nullptr);
+}
+
+// The int4 instance: the packed codes through wmap (int8 [nmats][K/2][N],
+// boxes of RG8_ROWS packed rows x RG8_BOX, 128-byte swizzle; matrices as
+// rows_gemv8_kernel's), sc float32 group scales [nmat][K/GS4][N]; A8: x is
+// x8 and xs its scales per activation block of kg k rows (0: the row).
+template <bool PAIR, bool A8>
+__global__ void __launch_bounds__(RG_BLOCK, 3)
+rows_gemv4_kernel(const __grid_constant__ CUtensorMap wmap,
+                  const __grid_constant__ CUtensorMap xmap, float* __restrict__ y,
+                  __nv_bfloat16* __restrict__ yb, int M, int K, int N, int k_chunk, int nrc,
+                  int xrows, long long y_row, long long yz,
+                  unsigned long long* __restrict__ stamps, int mat0,
+                  const float* __restrict__ sc, int kg, const float* __restrict__ xs) {
+  rows_gemv_body<PAIR, A8 ? WK_INT4A8 : WK_INT4>(&wmap, &xmap, y, yb, M, K, N, k_chunk, nrc,
+                                                 xrows, y_row, yz, stamps, mat0, sc, kg, xs);
+}
+
+// W4A8's activation quantization of M rows for the rows GEMV (JAX's
+// w4a8_int4_dot, its x per row): block (row, b) takes the b-th block of xb
+// values of row `row` of x (rows x_row apart), xs[row * nb + b] =
+// max(absmax, 1e-8) / 127 (nb = K / xb) and x8[row * K + k] =
+// bf16(rint(x / xs)), integers of at most 127 that bf16 holds exactly.
+// Under programmatic dependent launch it lets the GEMV after it start (the
+// GEMV streams its weights and reads x8 and xs after its own wait).  A
+// template, so that only the translation units that launch it emit it: a
+// copy emitted beside kernels 5 and 6 changed their SASS
+// (scripts/compare_sass.py).
+constexpr int QX_THREADS = 256;
+
+template <int THREADS>
+__global__ void __launch_bounds__(THREADS)
+quant_x8_kernel(const __nv_bfloat16* __restrict__ x, long long x_row, int K, int xb,
+                __nv_bfloat16* __restrict__ x8, float* __restrict__ xs) {
+  hopper::grid_dep_launch_dependents();
+  hopper::grid_dep_wait();
+  __shared__ float red[32];
+  const __nv_bfloat16* xr = x + (size_t)blockIdx.x * x_row + (size_t)blockIdx.y * xb;
+  float am = 0.f;
+  for (int i = threadIdx.x * 8; i < xb; i += THREADS * 8) {
+    float v[8];
+    unpack8(*reinterpret_cast<const uint4*>(xr + i), v);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) am = fmaxf(am, fabsf(v[c]));
+  }
+  am = warp_max(am);
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = am;
+  __syncthreads();
+  am = 0.f;
+  for (int w = 0; w < THREADS / 32; ++w) am = fmaxf(am, red[w]);
+  const float s = fmaxf(am, 1e-8f) * (1.f / 127.f);
+  if (threadIdx.x == 0) xs[(size_t)blockIdx.x * gridDim.y + blockIdx.y] = s;
+  __nv_bfloat16* out = x8 + (size_t)blockIdx.x * K + (size_t)blockIdx.y * xb;
+  for (int i = threadIdx.x * 8; i < xb; i += THREADS * 8) {
+    const uint4 u = *reinterpret_cast<const uint4*>(xr + i);
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+    uint32_t q[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      q[j] = hopper::pack_bf16(quant_x8(__uint_as_float(w[j] << 16), s),
+                               quant_x8(__uint_as_float(w[j] & 0xffff0000u), s));
+    *reinterpret_cast<uint4*>(out + i) = make_uint4(q[0], q[1], q[2], q[3]);
+  }
 }
 
 // A measurement hook (chip_smoke.py phase 9): while rg_probe.at >= 0, the
@@ -1219,21 +1689,37 @@ inline bool make_int8_rows_map(CUtensorMap* map, const void* w, int K, int N,
                                     CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-// An int8 weight map and the row count it was encoded for: the one-row
-// GEMV's boxes at one row, the rows GEMV's from 2.  for_rows(M) is the map
-// for a launch over M rows, or nullptr (which every int8 launcher refuses)
-// when the map was encoded for the other layout.
+// An int8 weight map, the row count it was encoded for and its kind: the
+// one-row GEMV's boxes at one row, the rows GEMV's from 2; int8 codes, or
+// int4 codes two a byte (a map over the K/2 packed rows).  for_rows(M,
+// int4) is the map for a launch over M rows of that kind, or nullptr
+// (which every quantized launcher refuses) when the map was encoded for
+// the other layout or the other kind.
 struct Int8Map {
   CUtensorMap map;
   bool one_row;
-  const CUtensorMap* for_rows(int M) const { return (M == 1) == one_row ? &map : nullptr; }
+  bool int4 = false;
+  const CUtensorMap* for_rows(int M, bool packed = false) const {
+    return (M == 1) == one_row && packed == int4 ? &map : nullptr;
+  }
 };
 
 // The map launch_ring_gemv8 reads for M rows of x.
 inline bool make_int8_map(Int8Map* m, const void* w, int K, int N, long long nmats, int M) {
   m->one_row = M == 1;
+  m->int4 = false;
   return m->one_row ? make_int8_weight_map(&m->map, w, K, N, nmats)
                     : make_int8_rows_map(&m->map, w, K, N, nmats);
+}
+
+// The map launch_ring_gemv4 reads for M rows of x: nmats int4 [K, N]
+// matrices packed along K (int8 [K/2, N] each, K*N/2 bytes apart; K a
+// multiple of GS4).
+inline bool make_int4_map(Int8Map* m, const void* w, int K, int N, long long nmats, int M) {
+  if (K % GS4 != 0) return false;
+  const bool ok = make_int8_map(m, w, K / 2, N, nmats, M);
+  m->int4 = true;
+  return ok;
 }
 
 // Launch rows_gemv_kernel<PAIR> (W8: rows_gemv8_kernel<PAIR>) over M >= 2
@@ -1249,18 +1735,20 @@ inline bool make_int8_map(Int8Map* m, const void* w, int K, int N, long long nma
 // in one wave (cudaOccupancyMaxActiveClusters), else one chunk (with kg >
 // 0 where that straddles a group, the most chunks allowed).  Returns a
 // cudaError_t.
-template <bool PAIR, bool W8>
+template <bool PAIR, int WK>
 int launch_rows(const __nv_bfloat16* x, long long x_row, const CUtensorMap* wmap, int mat0,
                 const float* sc, int kg, float* y, int M, int K, int N, int nmat,
                 long long y_row, long long yz, bool pdl, cudaStream_t st,
-                __nv_bfloat16* yb) {
-  constexpr int ROWS = W8 ? RG8_ROWS : RG_ROWS;
-  constexpr int SMEM = W8 ? RG8_SMEM : RG_SMEM;
+                __nv_bfloat16* yb, const float* xs = nullptr) {
+  constexpr bool W8 = WK == WK_INT8, W4 = WK >= WK_INT4;
+  constexpr int ROWS = W4 ? RG4_KROWS : W8 ? RG8_ROWS : RG_ROWS;
+  constexpr int SMEM = W4 ? RG4_SMEM : W8 ? RG8_SMEM : RG_SMEM;
   static bool attrs_set = false;
   static int max_cluster = 8;
   static int occ[G1_MAX_CLUSTER + 1];          // active clusters by size (0: not asked)
   auto kern = [] {
-    if constexpr (W8) return rows_gemv8_kernel<PAIR>;
+    if constexpr (W4) return rows_gemv4_kernel<PAIR, WK == WK_INT4A8>;
+    else if constexpr (W8) return rows_gemv8_kernel<PAIR>;
     else return rows_gemv_kernel<PAIR>;
   }();
   if (!attrs_set) {
@@ -1327,7 +1815,10 @@ int launch_rows(const __nv_bfloat16* x, long long x_row, const CUtensorMap* wmap
   if (rg_probe.at >= 0 && rg_probe.count++ == rg_probe.at) stamps = rg_probe.stamps;
   set_cluster(ks);
   cfg.numAttrs = pdl ? 2 : 1;
-  if constexpr (W8)
+  if constexpr (W4)
+    return (int)cudaLaunchKernelEx(&cfg, kern, *wmap, xmap, y, yb, M, K, N, k_chunk, nrc,
+                                   xrows, y_row, yz, stamps, mat0, sc, kg, xs);
+  else if constexpr (W8)
     return (int)cudaLaunchKernelEx(&cfg, kern, *wmap, xmap, y, yb, M, K, N, k_chunk, nrc,
                                    xrows, y_row, yz, stamps, mat0, sc, kg);
   else
@@ -1350,8 +1841,8 @@ int launch_rows_gemv(const __nv_bfloat16* x, long long x_row, const __nv_bfloat1
                                        (uint64_t)(nmat > 1 ? ws : (long long)K * N) * 2,
                                        RG_BOX, RG_ROWS, 1, CU_TENSOR_MAP_SWIZZLE_128B))
     return (int)cudaErrorInvalidValue;
-  return launch_rows<PAIR, false>(x, x_row, &wmap, 0, nullptr, 0, y, M, K, N, nmat, y_row, yz,
-                                  pdl, st, yb);
+  return launch_rows<PAIR, WK_BF16>(x, x_row, &wmap, 0, nullptr, 0, y, M, K, N, nmat, y_row,
+                                    yz, pdl, st, yb);
 }
 
 // The int8 rows GEMV over the matrices mat0.. of wmap (make_int8_map with
@@ -1367,8 +1858,38 @@ int launch_rows_gemv8(const __nv_bfloat16* x, long long x_row, const Int8Map* wm
       (kg > 0 && (PAIR || nmat != 1 || K % kg != 0)) ||
       (PAIR && (nmat != 2 || yb == nullptr)))
     return (int)cudaErrorInvalidValue;
-  return launch_rows<PAIR, true>(x, x_row, wmap->for_rows(M), mat0, sc, kg, y, M, K, N, nmat,
-                                 y_row, yz, pdl, st, yb);
+  return launch_rows<PAIR, WK_INT8>(x, x_row, wmap->for_rows(M), mat0, sc, kg, y, M, K, N,
+                                    nmat, y_row, yz, pdl, st, yb);
+}
+
+// The int4 rows GEMV over the packed matrices mat0.. of wmap (make_int4_map
+// with M >= 2; K a multiple of GS4, N of 16) with the group scales sc
+// [nmat][K/GS4][N]; A8 (W4A8): quant_x8_kernel first quantizes x per
+// activation block of kg k rows (0: the whole row; kg > 0: K and kg
+// multiples of it and of GS4, chunks kept inside one block) into the
+// caller's scratch x8 (bf16 [M][K]) and xs (float32 [M][K / kg or 1]),
+// and the GEMV reads those; as launch_rows otherwise.
+template <bool PAIR, bool A8>
+int launch_rows_gemv4(const __nv_bfloat16* x, long long x_row, const Int8Map* wmap,
+                      int mat0, const float* sc, int kg, float* y, int M, int K, int N,
+                      int nmat, long long y_row, long long yz, bool pdl, cudaStream_t st,
+                      __nv_bfloat16* yb = nullptr, __nv_bfloat16* x8 = nullptr,
+                      float* xs = nullptr) {
+  if (M < 2 || K < GS4 || K % GS4 != 0 || N < 16 || N % 16 != 0 || nmat < 1 ||
+      x_row % 8 != 0 || (uintptr_t)x % 16 != 0 || !wmap || !wmap->for_rows(M, true) || !sc ||
+      kg < 0 || (kg > 0 && (K % kg != 0 || kg % GS4 != 0)) ||
+      (PAIR && (nmat != 2 || yb == nullptr)) ||
+      (A8 && (!x8 || !xs || (uintptr_t)x8 % 16 != 0)))
+    return (int)cudaErrorInvalidValue;
+  if constexpr (A8) {
+    const int xb = kg > 0 ? kg : K;
+    CF_CHECK(launch_kernel(quant_x8_kernel<QX_THREADS>, dim3(M, K / xb), dim3(QX_THREADS), 0,
+                           st, pdl, x, x_row, K, xb, x8, xs));
+    return launch_rows<PAIR, WK_INT4A8>(x8, K, wmap->for_rows(M, true), mat0, sc, kg, y, M, K,
+                                        N, nmat, y_row, yz, true, st, yb, xs);
+  }
+  return launch_rows<PAIR, WK_INT4>(x, x_row, wmap->for_rows(M, true), mat0, sc, 0, y, M, K, N,
+                                    nmat, y_row, yz, pdl, st, yb);
 }
 
 // Any M of bf16 x: one row on float32 FMAs (x_row and y_row unused), more
@@ -1395,6 +1916,24 @@ inline int launch_ring_gemv8(const __nv_bfloat16* x, long long x_row, const Int8
                                            wmap ? wmap->for_rows(1) : nullptr, mat0, sc, kg);
   return launch_rows_gemv8<false>(x, x_row, wmap, mat0, sc, kg, y, M, K, N, nmat, y_row, yz,
                                   pdl, st, yb);
+}
+
+// Any M of bf16 x against the int4 matrices mat0.. of wmap (make_int4_map(...,
+// M); a map encoded for another M or kind is refused) with the group
+// scales sc; A8: W4A8 with activation blocks of kg k rows (0: the row):
+// one row on the one-row GEMV's int4 instance, more on the rows GEMV's.
+template <bool A8>
+int launch_ring_gemv4(const __nv_bfloat16* x, long long x_row, const Int8Map* wmap, int mat0,
+                      const float* sc, int kg, float* y, int M, int K, int N, int nmat,
+                      long long y_row, long long yz, int threads, bool pdl, cudaStream_t st,
+                      __nv_bfloat16* yb = nullptr, __nv_bfloat16* x8 = nullptr,
+                      float* xs = nullptr) {
+  if (M == 1)
+    return launch_gemv1<false, G1_Y, A8 ? WK_INT4A8 : WK_INT4>(
+        x, 0, nullptr, y, K, N, nmat, 0, yz, threads, pdl, st, yb, nullptr, 0.f, nullptr,
+        wmap ? wmap->for_rows(1, true) : nullptr, mat0, sc, A8 ? kg : 0);
+  return launch_rows_gemv4<false, A8>(x, x_row, wmap, mat0, sc, kg, y, M, K, N, nmat, y_row,
+                                      yz, pdl, st, yb, x8, xs);
 }
 
 // ---- Split-KV flash-decode of one bs=1 layer (the stack's and kernel 6's) ----

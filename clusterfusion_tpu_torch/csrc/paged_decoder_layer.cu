@@ -40,6 +40,14 @@
 // projection per group on each group's partial, before the groups are
 // summed and before out's bf16 rounding (the TPU kernel scales each group's
 // M=B dot, adds it to its float32 accumulator and rounds at the end).
+//
+// Int4 weights (the TPU kernel's wq_kind == "int4", which always takes the
+// exact tile dequant here, never W4A8): the two products stream the packed
+// codes through the GEMVs' int4 instances in their exact mode
+// (rows_gemv4_kernel<false, false> from 2 rows, ring_gemv4_kernel at one),
+// each weight bf16(code * s) with s the float32 group scale of its 128 k
+// rows; the O projection's scales vary along K ([G, Ko/G/128, hidden]), so
+// they sit inside the dequant and the groups need no scale of their own.
 
 #include "paged_attention.cuh"
 
@@ -63,10 +71,12 @@ extern "C" long long cf_paged_layer_scratch_floats(int B, int kv, int group, int
 // [B, kv*g*hd], and `scratch` of cf_paged_layer_scratch_floats(...) floats.
 // Writes out and res_out (bf16 [B, hidden]) and appends each request's K/V
 // row into the pools.  *n_launches receives the number of kernels
-// launched.  Int8 weights: wqkv_s given, wqkv and wo hold int8 codes and
-// wqkv_s [.., G, C] and wo_s [.., G, hidden] their float32 scales (the
-// layer's at w_layer), wo's applied per group before the groups' sum.
-// Returns a cudaError_t (0 on success).
+// launched.  wq_kind (common.cuh's WK_*): WK_BF16, WK_INT8 (wqkv and wo
+// hold int8 codes and wqkv_s [.., G, C] and wo_s [.., G, hidden] their
+// float32 scales, the layer's at w_layer, wo's applied per group before the
+// groups' sum) or WK_INT4 (codes packed two a byte along K, float32 group
+// scales wqkv_s [.., G, hidden/128, C] and wo_s [.., G, Ko/G/128,
+// hidden]).  Returns a cudaError_t (0 on success).
 extern "C" int cf_paged_decoder_layer(
     const void* x, const void* res, const void* wqkv, const void* wo,
     const void* rms_w, const void* cos, const void* sin, const void* positions,
@@ -74,7 +84,7 @@ extern "C" int cf_paged_decoder_layer(
     void* res_out, void* xn, void* o, void* scratch, int B, int hidden,
     int kv, int hg, int group, int hd, int page, int n_pages, int max_pages,
     int max_pos, int layer, int w_layer, int neox, float eps, int split,
-    int* n_launches, void* stream, const void* wqkv_s, const void* wo_s) {
+    int* n_launches, void* stream, const void* wqkv_s, const void* wo_s, int wq_kind) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   *n_launches = 0;
   if (B < 1 || hg < 1 || kv % hg != 0 || hidden % 8 != 0 || w_layer < 0 || split < 1)
@@ -83,21 +93,31 @@ extern "C" int cf_paged_decoder_layer(
   const long long C = (long long)hg * (group + 2) * hd;   // qkv columns per group
   const long long Ko = (long long)kv * group * hd;        // wo rows in all
   const int qkv_n = (int)(G * C);
-  const bool w8 = wqkv_s != nullptr;
-  const size_t eb = w8 ? 1 : 2;                          // bytes per weight
-  const void* wq = static_cast<const char*>(wqkv) + (size_t)w_layer * G * hidden * C * eb;
-  const void* wol = static_cast<const char*>(wo) + (size_t)w_layer * Ko * hidden * eb;
-  const float* sq = w8 ? static_cast<const float*>(wqkv_s) + (size_t)w_layer * G * C : nullptr;
-  const float* so = w8 ? static_cast<const float*>(wo_s) + (size_t)w_layer * G * hidden : nullptr;
+  const bool w8 = wq_kind == WK_INT8, w4 = wq_kind == WK_INT4;
+  if ((wq_kind != WK_BF16 && !w8 && !w4) || (wq_kind != WK_BF16) != (wqkv_s != nullptr))
+    return (int)cudaErrorInvalidValue;
+  // bytes of a layer's weights: bf16 2 a weight, int8 1, int4 1/2
+  const size_t num = w4 ? 1 : w8 ? 1 : 2, den = w4 ? 2 : 1;
+  const void* wq = static_cast<const char*>(wqkv) + (size_t)w_layer * G * hidden * C * num / den;
+  const void* wol = static_cast<const char*>(wo) + (size_t)w_layer * Ko * hidden * num / den;
+  const int gq = w4 ? hidden / GS4 : 1, go = w4 ? (int)(Ko / G / GS4) : 1;   // scale rows
+  const float* sq = w8 || w4 ? static_cast<const float*>(wqkv_s) + (size_t)w_layer * G * gq * C
+                             : nullptr;
+  const float* so = w8 || w4 ? static_cast<const float*>(wo_s) +
+                                   (size_t)w_layer * G * go * hidden
+                             : nullptr;
   __nv_bfloat16* xnb = static_cast<__nv_bfloat16*>(xn);
   __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(o);
   float* qkvf = static_cast<float*>(scratch);
-  if (C % 8 != 0 || (w8 && (!wo_s || C % 16 != 0 || hidden % 16 != 0)))
+  if (C % 8 != 0 || ((w8 || w4) && (!wo_s || C % 16 != 0 || hidden % 16 != 0)) ||
+      (w4 && (hidden % GS4 != 0 || (Ko / G) % GS4 != 0)))
     return (int)cudaErrorInvalidValue;
-  // int8: the layer's matrices as tensor maps (the one-row GEMV's at B 1)
+  // int8 and int4: the layer's matrices as tensor maps (the one-row GEMV's
+  // at B 1)
+  auto qmap = w4 ? make_int4_map : make_int8_map;
   Int8Map mq, mo;
-  if (w8 && (!make_int8_map(&mq, wq, hidden, (int)C, G, B) ||
-             !make_int8_map(&mo, wol, (int)Ko, hidden, 1, B)))
+  if ((w8 || w4) && (!qmap(&mq, wq, hidden, (int)C, G, B) ||
+                     !qmap(&mo, wol, (int)Ko, hidden, 1, B)))
     return (int)cudaErrorInvalidValue;
 
   // the first kernel waits for everything before it on the stream (no
@@ -110,7 +130,10 @@ extern "C" int cf_paged_decoder_layer(
       nullptr, 0, nullptr, 0);
   CF_CHECK((int)cudaGetLastError());
   ++*n_launches;
-  if (w8)
+  if (w4)
+    CF_CHECK(launch_ring_gemv4<false>(xnb, hidden, &mq, 0, sq, 0, qkvf, B, hidden, (int)C, G,
+                                      qkv_n, C, GEMV_THREADS, true, st));
+  else if (w8)
     CF_CHECK(launch_ring_gemv8(xnb, hidden, &mq, 0, sq, 0, qkvf, B, hidden, (int)C, G, qkv_n, C,
                                GEMV_THREADS, true, st));
   else
@@ -144,7 +167,11 @@ extern "C" int cf_paged_decoder_layer(
   CF_CHECK(launch_paged_attn<true>(a, B, hd, true, st));
   *n_launches += 2;
 
-  if (w8)      // each group's partial scaled, summed, then rounded to bf16
+  if (w4)      // the group scales inside the dequant, then rounded to bf16
+    CF_CHECK(launch_ring_gemv4<false>(ob, Ko, &mo, 0, so, 0, nullptr, B, (int)Ko, hidden, 1,
+                                      hidden, 0, GEMV_THREADS, true, st,
+                                      static_cast<__nv_bfloat16*>(out)));
+  else if (w8)      // each group's partial scaled, summed, then rounded to bf16
     CF_CHECK(launch_ring_gemv8(ob, Ko, &mo, 0, so, (int)(Ko / G), nullptr, B, (int)Ko, hidden,
                                1, hidden, 0, GEMV_THREADS, true, st,
                                static_cast<__nv_bfloat16*>(out)));

@@ -1,9 +1,9 @@
-// Whole-stack decode step for Hopper (sm_90a), bf16 or int8 weights: every
+// Whole-stack decode step for Hopper (sm_90a), bf16, int8 or int4 weights: every
 // layer of one bs=1 decode step, then the final RMSNorm and the LM head.
 //
 // Replaces the TPU kernel `fused_decoder_stack`
-// (clusterfusion_tpu/ops/stack_kernel.py, `_stack_kernel`) for bf16 or
-// int8 weights, a bf16 KV cache, no window, no bias and no sandwich norms,
+// (clusterfusion_tpu/ops/stack_kernel.py, `_stack_kernel`) for bf16, int8
+// or int4 weights, a bf16 KV cache, no window, no bias and no sandwich norms,
 // with the same layouts:
 //   wqkv_f [L, G, hidden, hg*(g+2)*hd]  columns per kv head [q_0..q_{g-1}|k|v]
 //   wo_f   [L, G, hg*g*hd, hidden]
@@ -27,6 +27,20 @@
 // before the groups are summed (K chunks never straddle a group); gate and
 // up per column before the SwiGLU; down after the whole sum over f; the LM
 // head after its sum.  The norms, the split and the merge do not change.
+//
+// Int4 weights (the TPU kernel's wq_kind == "int4"; ops/quant.py's
+// group-wise QuantizedTensor, groups of 128 k rows, codes packed two a
+// byte along K): the four projections stream their packed codes through
+// the ring GEMV's int4 instance (ring_gemv4_kernel, common.cuh; one 16 KB
+// stage is one scale group) with their float32 group scales, 3.29 GB of
+// codes a 7B step where int8 streams 6.6 GB; the LM head stays bf16 or
+// int8 on its own instances.  Two modes, as KernelConfig.int4_w4a8 picks
+// (the TPU kernel's _int4_dot): W4A8 quantizes each GEMV's x to int8 per
+// activation block (QKV and gate/up: the normed row; O: one head group's o;
+// down: one f-block of ffn_block rows), sums each scale group's integer dot
+// in float32 (exact) and scales it by its group scale, then by x's scale;
+// the exact mode (W4A16) takes bf16(code * s) as the weight.  The launch
+// sequence and count are the int8 step's.
 //
 // The TPU kernel walks a sequential (layer, phase) grid and carries the
 // hidden pair in VMEM scratch from step to step.  Hopper blocks run in
@@ -202,17 +216,28 @@ int preload_mode5() {
   return 0;
 }
 
-// One product of the step: bf16 weights w, or (sc given) the int8 matrices
-// mat0.. of wmap scaled by sc as ring_gemv8_kernel does (kg > 0: per scale
-// group of kg rows, before the cluster sum).
+// One product of the step, of weight kind wk (common.cuh's WK_*): bf16
+// weights w, or the int8 matrices mat0.. of wmap scaled by sc as
+// ring_gemv8_kernel does (kg > 0: per scale group of kg rows, before the
+// cluster sum), or the int4 matrices mat0.. of wmap with their group
+// scales sc (W4A8: kg is the activation block, 0 the whole row; the exact
+// mode takes none).
 template <bool SWIGLU>
-int step_gemv(const void* x, int f_off, const void* w, const CUtensorMap* wmap, int mat0,
-              const float* sc, int kg, float* y, int K, int N, int nmat, long long ws,
-              long long yz, int threads, cudaStream_t st) {
-  if (sc)
-    return launch_gemv1<SWIGLU, G1_Y, true>(x, f_off, nullptr, y, K, N, nmat, ws, yz, threads,
-                                            true, st, nullptr, nullptr, 0.f, nullptr, wmap,
-                                            mat0, sc, kg);
+int step_gemv(int wk, const void* x, int f_off, const void* w, const CUtensorMap* wmap,
+              int mat0, const float* sc, int kg, float* y, int K, int N, int nmat,
+              long long ws, long long yz, int threads, cudaStream_t st) {
+  if (wk == WK_INT8)
+    return launch_gemv1<SWIGLU, G1_Y, WK_INT8>(x, f_off, nullptr, y, K, N, nmat, ws, yz,
+                                               threads, true, st, nullptr, nullptr, 0.f,
+                                               nullptr, wmap, mat0, sc, kg);
+  if (wk == WK_INT4)
+    return launch_gemv1<SWIGLU, G1_Y, WK_INT4>(x, f_off, nullptr, y, K, N, nmat, ws, yz,
+                                               threads, true, st, nullptr, nullptr, 0.f,
+                                               nullptr, wmap, mat0, sc, 0);
+  if (wk == WK_INT4A8)
+    return launch_gemv1<SWIGLU, G1_Y, WK_INT4A8>(x, f_off, nullptr, y, K, N, nmat, ws, yz,
+                                                 threads, true, st, nullptr, nullptr, 0.f,
+                                                 nullptr, wmap, mat0, sc, kg);
   return launch_gemv1<SWIGLU>(x, f_off, w, y, K, N, nmat, ws, yz, threads, true, st);
 }
 
@@ -249,14 +274,22 @@ extern "C" long long cf_stack_scratch_floats(int hidden, int kv_heads, int hg,
 // for mode 5 (the reduces over tp; hidden at most REDUCE_MAX_HIDDEN), or
 // null.  gather (mode 5 with lm_head, vocab = this rank's shard, at most
 // COMM_FLAG_COLS tiles of 256): logits holds size * vocab floats, every
-// rank's shard in rank order.  Int8 weights (the TPU kernel's wq_kind ==
-// "int8"): wqkv_s given, wqkv/wo/w13/w2 hold int8 codes and wqkv_s [L, G,
-// C], wo_s [L, G, hidden], w13_s [L, 2, f_pad], w2_s [L, hidden] their
-// float32 per-column scales (the O projection's per head group, applied to
-// each group's partial before the groups are summed); lm_s [vocab] given:
-// lm_head holds int8 codes.  Both also with comm (the pushes carry the
-// scaled sums).  Returns a cudaError_t (0 on success); every refusal comes
-// before the first launch.
+// rank's shard in rank order.  wq_kind (common.cuh's WK_*) is the kind
+// of wqkv/wo/w13/w2.  Int8 weights (WK_INT8, the TPU kernel's wq_kind ==
+// "int8"): they hold int8 codes and wqkv_s [L, G, C], wo_s [L, G, hidden],
+// w13_s [L, 2, f_pad], w2_s [L, hidden] their float32 per-column scales
+// (the O projection's per head group, applied to each group's partial
+// before the groups are summed); also with comm (the pushes carry the
+// scaled sums).  Int4 weights (WK_INT4 exact, WK_INT4A8 W4A8; the TPU
+// kernel's "int4", no comm): codes packed two a byte along K ([L, G,
+// hidden/2, C] ...) and float32 group scales of GS4 rows, wqkv_s [L, G,
+// hidden/GS4, C], wo_s [L, G, Ko/GS4, hidden], w13_s [L, 2, hidden/GS4,
+// f_pad], w2_s [L, f_pad/GS4, hidden]; W4A8 quantizes the down product's x
+// per ffn_block rows (the TPU kernel's f-block), the O projection's per
+// head group, QKV's and gate/up's over the row.  lm_s [vocab] given:
+// lm_head holds int8 codes (a bf16 or int8 head beside any kind).
+// Returns a cudaError_t (0 on success); every refusal comes before the
+// first launch.
 extern "C" int cf_decoder_stack(
     const void* x, const void* attn_norm, const void* ffn_norm, const void* cos,
     const void* sin, const void* wqkv, const void* wo, const void* w13,
@@ -266,11 +299,17 @@ extern "C" int cf_decoder_stack(
     int cap, int f_pad, int vocab, int pos, int neox, float eps, int kv_split,
     int threads, int* n_launches, const void* comm, int gather, void* stream,
     const void* wqkv_s, const void* wo_s, const void* w13_s, const void* w2_s,
-    const void* lm_s) {
+    const void* lm_s, int wq_kind, int ffn_block) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const CfComm* cc = static_cast<const CfComm*>(comm);
-  const bool w8 = wqkv_s != nullptr;
+  const bool w8 = wq_kind == WK_INT8, w4 = wq_kind == WK_INT4 || wq_kind == WK_INT4A8;
   *n_launches = 0;
+  if (wq_kind < WK_BF16 || wq_kind > WK_INT4A8 || (wq_kind != WK_BF16) != (wqkv_s != nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (w4 && (cc || hidden % GS4 != 0 || f_pad % GS4 != 0 ||
+             (wq_kind == WK_INT4A8 && (ffn_block < GS4 || ffn_block % GS4 != 0 ||
+                                       f_pad % ffn_block != 0))))
+    return (int)cudaErrorInvalidValue;
   // hd 128 only: others (Gemma-2's 256) are not ported yet
   if (group > ATT_MAX_GROUP || hd != 128 || threads % 32 != 0 ||
       threads < 32 || threads > G1_MAX_THREADS || pos < 0 || pos >= cap ||
@@ -280,7 +319,7 @@ extern "C" int cf_decoder_stack(
                  (vocab + COMM_TILE - 1) / COMM_TILE > COMM_FLAG_COLS ||
                  4LL * vocab > cc->slot_bytes))
     return (int)cudaErrorInvalidValue;
-  if (w8 && (!wo_s || !w13_s || !w2_s))
+  if ((w8 || w4) && (!wo_s || !w13_s || !w2_s))
     return (int)cudaErrorInvalidValue;
   if (lm_s && !lm_head)
     return (int)cudaErrorInvalidValue;
@@ -294,18 +333,23 @@ extern "C" int cf_decoder_stack(
   const int G = kv_heads / hg;
   const long long C = (long long)hg * (group + 2) * hd;   // qkv columns per group
   const long long Ko = (long long)hg * group * hd;       // wo rows per group
-  const size_t eb = w8 ? 1 : 2;                          // bytes per weight
+  const size_t eb = 2;         // bytes per weight (the pointers below: bf16 only)
   const float* cosf = static_cast<const float*>(cos);
   const float* sinf = static_cast<const float*>(sin);
-  // int8: one tensor map per weight over all its layers' matrices
+  // int8 and int4: one tensor map per weight over all its layers'
+  // matrices (int4: over the packed rows)
+  const int kr = w4 ? 2 : 1;
   CUtensorMap mq, mo, m13, m2, mlm;
-  if (w8 && (!make_int8_weight_map(&mq, wqkv, hidden, (int)C, (long long)L * G) ||
-             !make_int8_weight_map(&mo, wo, (int)(G * Ko), hidden, L) ||
-             !make_int8_weight_map(&m13, w13, hidden, f_pad, 2LL * L) ||
-             !make_int8_weight_map(&m2, w2, f_pad, hidden, L)))
+  if ((w8 || w4) &&
+      (!make_int8_weight_map(&mq, wqkv, hidden / kr, (int)C, (long long)L * G) ||
+       !make_int8_weight_map(&mo, wo, (int)(G * Ko) / kr, hidden, L) ||
+       !make_int8_weight_map(&m13, w13, hidden / kr, f_pad, 2LL * L) ||
+       !make_int8_weight_map(&m2, w2, f_pad / kr, hidden, L)))
     return (int)cudaErrorInvalidValue;
   if (lm_s && !make_int8_weight_map(&mlm, lm_head, hidden, vocab, 1))
     return (int)cudaErrorInvalidValue;
+  const int gq = w4 ? hidden / GS4 : 1, go = w4 ? (int)(Ko / GS4) : 1;   // scale rows
+  const int gf = w4 ? f_pad / GS4 : 1;
   int n = 0;
 
   for (int l = 0; l < L; ++l) {
@@ -315,10 +359,17 @@ extern "C" int cf_decoder_stack(
     const char* wol = static_cast<const char*>(wo) + (size_t)l * G * Ko * hidden * eb;
     const char* w13l = static_cast<const char*>(w13) + (size_t)l * 2 * hidden * f_pad * eb;
     const char* w2l = static_cast<const char*>(w2) + (size_t)l * f_pad * hidden * eb;
-    const float* sq = w8 ? static_cast<const float*>(wqkv_s) + (size_t)l * G * C : nullptr;
-    const float* so = w8 ? static_cast<const float*>(wo_s) + (size_t)l * G * hidden : nullptr;
-    const float* s13 = w8 ? static_cast<const float*>(w13_s) + (size_t)l * 2 * f_pad : nullptr;
-    const float* s2 = w8 ? static_cast<const float*>(w2_s) + (size_t)l * hidden : nullptr;
+    const float *sq = nullptr, *so = nullptr, *s13 = nullptr, *s2 = nullptr;
+    if (w8 || w4) {
+      sq = static_cast<const float*>(wqkv_s) + (size_t)l * G * gq * C;
+      so = static_cast<const float*>(wo_s) + (size_t)l * G * go * hidden;
+      s13 = static_cast<const float*>(w13_s) + (size_t)l * 2 * gq * f_pad;
+      s2 = static_cast<const float*>(w2_s) + (size_t)l * gf * hidden;
+    }
+    // W4A8's activation blocks: the O projection's head group, the down
+    // product's f-block (int8: the O projection's scale group)
+    const int kg_o = wq_kind == WK_INT4 ? 0 : (int)Ko;
+    const int kg_d = wq_kind == WK_INT4A8 ? ffn_block : 0;
     __nv_bfloat16* kcl = static_cast<__nv_bfloat16*>(kc) + (size_t)l * kv_heads * cap * hd;
     __nv_bfloat16* vcl = static_cast<__nv_bfloat16*>(vc) + (size_t)l * kv_heads * cap * hd;
 
@@ -335,8 +386,8 @@ extern "C" int cf_decoder_stack(
           nullptr, hidden, eps, nullptr, 0, nullptr, 0));
     ++n;
     // the G head groups' QKV products, each scaled by its own s[G] (int8)
-    CF_CHECK(step_gemv<false>(s.xn, 0, wq, &mq, l * G, sq, 0, s.qkv, hidden, (int)C, G,
-                              (long long)hidden * C, C, threads, st));
+    CF_CHECK(step_gemv<false>(wq_kind, s.xn, 0, wq, &mq, l * G, sq, 0, s.qkv, hidden, (int)C,
+                              G, (long long)hidden * C, C, threads, st));
     ++n;
     // split-KV attention over rows < pos, then the merge with the current
     // token, which appends its bf16 k/v at row pos
@@ -353,23 +404,23 @@ extern "C" int cf_decoder_stack(
       CF_CHECK(launch_kernel(resnorm_reduce_kernel, dim3(1), dim3(NORM_THREADS), 0, st,
           PDL_CHAIN, *cc, s.res_b, fn, s.res_a, s.xn, nullptr, nullptr, hidden, eps));
     } else {
-      CF_CHECK(step_gemv<false>(s.o, 0, wol, &mo, l, so, (int)Ko, s.aout, (int)(G * Ko),
-                                hidden, 1, 0, 0, threads, st));
+      CF_CHECK(step_gemv<false>(wq_kind, s.o, 0, wol, &mo, l, so, kg_o, s.aout,
+                                (int)(G * Ko), hidden, 1, 0, 0, threads, st));
       CF_CHECK(launch_kernel(resnorm_kernel, dim3(1), dim3(NORM_THREADS), 0, st, PDL_CHAIN,
           s.aout, nullptr, s.res_b, nullptr, fn, s.res_a, nullptr, s.xn, nullptr,
           nullptr, hidden, eps, nullptr, 0, nullptr, 0));
     }
     n += 2;
     // gate and up, each column scaled before the down product's SwiGLU reads it
-    CF_CHECK(step_gemv<false>(s.xn, 0, w13l, &m13, 2 * l, s13, 0, s.gu, hidden, f_pad, 2,
-                              (long long)hidden * f_pad, f_pad, threads, st));
+    CF_CHECK(step_gemv<false>(wq_kind, s.xn, 0, w13l, &m13, 2 * l, s13, 0, s.gu, hidden,
+                              f_pad, 2, (long long)hidden * f_pad, f_pad, threads, st));
     ++n;
     if (cc)     // Stage.LINEAR: the down projection's partials go to the reduce
       CF_CHECK((push_gemv<true, G1_PUSH_SUM>(s.gu, f_pad, w2l, &m2, l, s2, 0, f_pad, hidden,
                                              threads, st, cc)));
     else        // int8: scaled after the whole sum over f
-      CF_CHECK(step_gemv<true>(s.gu, f_pad, w2l, &m2, l, s2, 0, s.hx, f_pad, hidden, 1, 0, 0,
-                               threads, st));
+      CF_CHECK(step_gemv<true>(wq_kind, s.gu, f_pad, w2l, &m2, l, s2, kg_d, s.hx, f_pad,
+                               hidden, 1, 0, 0, threads, st));
     ++n;
   }
 
@@ -396,9 +447,9 @@ extern "C" int cf_decoder_stack(
                            static_cast<float*>(logits), vocab));
     n += 2;
   } else if (lm_head) {      // int8 head: each logit scaled after its sum
-    CF_CHECK(step_gemv<false>(s.xn, 0, lm_head, &mlm, 0, static_cast<const float*>(lm_s), 0,
-                              static_cast<float*>(logits), hidden, vocab, 1, 0, 0, threads,
-                              st));
+    CF_CHECK(step_gemv<false>(lm_s ? WK_INT8 : WK_BF16, s.xn, 0, lm_head, &mlm, 0,
+                              static_cast<const float*>(lm_s), 0, static_cast<float*>(logits),
+                              hidden, vocab, 1, 0, 0, threads, st));
     ++n;
   }
   *n_launches = n;

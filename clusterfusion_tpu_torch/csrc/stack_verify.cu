@@ -46,6 +46,13 @@
 // and once per call the final resnorm and the LM-head GEMV (or the bf16
 // outputs without an LM head).  The hidden pair stays float32 across layers.
 //
+// Int8 and int4 weights run the GEMVs' int8 and int4 instances, as in
+// stack_kernel.cu: from 2 rows the rows GEMV's (rows_gemv8_kernel,
+// rows_gemv4_kernel; at n = 1 the one-row GEMV's).  In W4A8 each of the n
+// rows is quantized on its own, per activation block: from 2 rows by
+// common.cuh's quant_x8_kernel before each product (12 kernels a layer),
+// at one row inside the one-row GEMV (8).
+//
 // Query row r of kv head h is (head row i, token t) with r = i*n + t, the
 // TPU kernel's panel order.  The merge keeps the n fresh q, k and v rows of
 // its head in shared memory, so n <= MAX_N.
@@ -180,8 +187,8 @@ int set_attrs() {
 }
 
 struct Scratch {
-  float *hx, *res_a, *res_b, *aout, *qkv, *gu, *part_ml, *part_acc;
-  __nv_bfloat16 *xn, *o;
+  float *hx, *res_a, *res_b, *aout, *qkv, *gu, *part_ml, *part_acc, *xs;
+  __nv_bfloat16 *xn, *o, *x8;
   size_t floats;
 };
 
@@ -206,19 +213,32 @@ Scratch layout(float* base, int n, int hidden, int kv_heads, int group, int hd,
   s.part_acc = take(rows * ns_max * hd);
   s.xn = reinterpret_cast<__nv_bfloat16*>(take(((size_t)n * hidden + 1) / 2));
   s.o = reinterpret_cast<__nv_bfloat16*>(take((rows * hd + 1) / 2));
+  // W4A8: each product's x8 and its scales, one activation block of at
+  // least GS4 columns a scale
+  const size_t widest = std::max<size_t>({(size_t)hidden, rows * hd, (size_t)f_pad});
+  s.x8 = reinterpret_cast<__nv_bfloat16*>(take((n * widest + 1) / 2));
+  s.xs = take(n * (widest / GS4 + 1));
   s.floats = off;
   return s;
 }
 
-// One product of the verify: bf16 weights w, or (sc given) the int8
-// matrices mat0.. of wmap scaled by sc with the scale group kg (common.cuh's
-// launch_ring_gemv8).
-int verify_gemv(const __nv_bfloat16* x, long long x_row, const void* w, const Int8Map* wmap,
-                int mat0, const float* sc, int kg, float* y, int M, int K, int N, int nmat,
-                long long ws, long long y_row, long long yz, int threads, cudaStream_t st) {
-  if (sc)
+// One product of the verify, of weight kind wk (common.cuh's WK_*): bf16
+// weights w, or the int8 matrices mat0.. of wmap scaled by sc with the
+// scale group kg (common.cuh's launch_ring_gemv8), or the int4 ones with
+// their group scales (launch_ring_gemv4; W4A8: kg the activation block).
+int verify_gemv(int wk, const __nv_bfloat16* x, long long x_row, const void* w,
+                const Int8Map* wmap, int mat0, const float* sc, int kg, float* y, int M, int K,
+                int N, int nmat, long long ws, long long y_row, long long yz, int threads,
+                cudaStream_t st, const Scratch& s) {
+  if (wk == WK_INT8)
     return launch_ring_gemv8(x, x_row, wmap, mat0, sc, kg, y, M, K, N, nmat, y_row, yz,
                              threads, true, st);
+  if (wk == WK_INT4 || wk == WK_INT4A8)
+    return wk == WK_INT4A8 ? launch_ring_gemv4<true>(x, x_row, wmap, mat0, sc, kg, y, M, K, N,
+                                                     nmat, y_row, yz, threads, true, st,
+                                                     nullptr, s.x8, s.xs)
+                           : launch_ring_gemv4<false>(x, x_row, wmap, mat0, sc, 0, y, M, K, N,
+                                                      nmat, y_row, yz, threads, true, st);
   return launch_ring_gemv(x, x_row, static_cast<const __nv_bfloat16*>(w), y, M, K, N, nmat, ws,
                           y_row, yz, threads, true, st);
 }
@@ -272,15 +292,18 @@ extern "C" int cf_verify_probe_gemv(void* stamps, int at) {
 // nullptr: writes out_x/out_res (bf16 [n, hidden]); otherwise writes logits
 // (f32 [n, vocab]) and out_res.  K/V rows land in kc/vc at rows
 // pos..pos+n-1.  *n_launches receives the number of kernels launched.
-// Int8 weights (the TPU kernel's wq_kind == "int8"): wqkv_s given,
-// wqkv/wo/w13/w2 hold int8 codes and wqkv_s [L, G, C], wo_s [L, G, hidden],
-// w13_s [L, 2, f_pad], w2_s [L, hidden] their float32 per-column scales
-// (the O projection's per head group, applied to each group's partial
-// before the groups are summed); lm_s [vocab] given: lm_head holds int8
-// codes (a bf16 head beside int8 layers keeps its bf16 GEMV).  One tensor
-// map per weight over all its layers' matrices, encoded per call.  Returns
-// a cudaError_t (0 on success); every refusal comes before the first
-// launch.
+// wq_kind (common.cuh's WK_*) is the kind of wqkv/wo/w13/w2.  Int8
+// weights (WK_INT8, the TPU kernel's wq_kind == "int8"): int8 codes and
+// wqkv_s [L, G, C], wo_s [L, G, hidden], w13_s [L, 2, f_pad], w2_s [L,
+// hidden] their float32 per-column scales (the O projection's per head
+// group, applied to each group's partial before the groups are summed).
+// Int4 (WK_INT4 exact, WK_INT4A8 W4A8; "int4"): codes packed two a byte
+// along K and float32 group scales, as cf_decoder_stack takes them; W4A8
+// quantizes each row's x per block as there (ffn_block: the down
+// product's).  lm_s [vocab] given: lm_head holds int8 codes (a bf16 head
+// beside quantized layers keeps its bf16 GEMV).  One tensor map per weight
+// over all its layers' matrices, encoded per call.  Returns a cudaError_t
+// (0 on success); every refusal comes before the first launch.
 extern "C" int cf_verify_stack(
     const void* x, const void* attn_norm, const void* ffn_norm, const void* cos,
     const void* sin, const void* wqkv, const void* wo, const void* w13,
@@ -289,10 +312,17 @@ extern "C" int cf_verify_stack(
     void* scratch, int n, int L, int hidden, int kv_heads, int hg, int group,
     int hd, int cap, int f_pad, int vocab, int pos, int neox, float eps,
     int kv_split, int threads, int* n_launches, void* stream, const void* wqkv_s,
-    const void* wo_s, const void* w13_s, const void* w2_s, const void* lm_s) {
+    const void* wo_s, const void* w13_s, const void* w2_s, const void* lm_s, int wq_kind,
+    int ffn_block) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool w8 = wqkv_s != nullptr;
+  const bool w8 = wq_kind == WK_INT8, w4 = wq_kind == WK_INT4 || wq_kind == WK_INT4A8;
+  const bool a8 = wq_kind == WK_INT4A8;
   *n_launches = 0;
+  if (wq_kind < WK_BF16 || wq_kind > WK_INT4A8 || (wq_kind != WK_BF16) != (wqkv_s != nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (w4 && (hidden % GS4 != 0 || f_pad % GS4 != 0 ||
+             (a8 && (ffn_block < GS4 || ffn_block % GS4 != 0 || f_pad % ffn_block != 0))))
+    return (int)cudaErrorInvalidValue;
   // hd 128 only: others (Gemma-2's 256) are not ported yet
   const SplitPlan sp = split_plan(group * n);
   const size_t split_smem = attn_split_smem(sp.tile_rows, hd, kv_split, true);
@@ -303,7 +333,7 @@ extern "C" int cf_verify_stack(
       pos < 0 || pos + n > cap || kv_heads % hg != 0 ||
       split_smem > (size_t)G1_SMEM_MAX || merge_smem > (size_t)MERGE_SMEM_MAX)
     return (int)cudaErrorInvalidValue;
-  if ((w8 && (!wo_s || !w13_s || !w2_s)) || (lm_s && (!lm_head || !w8)))
+  if (((w8 || w4) && (!wo_s || !w13_s || !w2_s)) || (lm_s && (!lm_head || !(w8 || w4))))
     return (int)cudaErrorInvalidValue;
   CF_CHECK(set_attrs());
   Scratch s = layout(static_cast<float*>(scratch), n, hidden, kv_heads, group, hd,
@@ -313,17 +343,24 @@ extern "C" int cf_verify_stack(
   const long long Ko = (long long)hg * group * hd;       // wo rows per group
   const int qkv_n = kv_heads * (group + 2) * hd;
   const int o_n = kv_heads * group * hd;
-  const size_t eb = w8 ? 1 : 2;                          // bytes per weight
+  const size_t eb = 2;         // bytes per weight (the pointers below: bf16 only)
   const float* cosf = static_cast<const float*>(cos);
   const float* sinf = static_cast<const float*>(sin);
-  // int8: one tensor map per weight over all its layers' matrices, the
-  // one-row GEMV's at n == 1, the rows GEMV's from 2
+  // int8 and int4: one tensor map per weight over all its layers'
+  // matrices, the one-row GEMV's at n == 1, the rows GEMV's from 2
+  auto qmap = w4 ? make_int4_map : make_int8_map;
   Int8Map mq, mo, m13, m2, mlm;
-  if (w8 && (!make_int8_map(&mq, wqkv, hidden, (int)C, (long long)L * G, n) ||
-             !make_int8_map(&mo, wo, (int)(G * Ko), hidden, L, n) ||
-             !make_int8_map(&m13, w13, hidden, f_pad, 2LL * L, n) ||
-             !make_int8_map(&m2, w2, f_pad, hidden, L, n)))
+  if ((w8 || w4) && (!qmap(&mq, wqkv, hidden, (int)C, (long long)L * G, n) ||
+                     !qmap(&mo, wo, (int)(G * Ko), hidden, L, n) ||
+                     !qmap(&m13, w13, hidden, f_pad, 2LL * L, n) ||
+                     !qmap(&m2, w2, f_pad, hidden, L, n)))
     return (int)cudaErrorInvalidValue;
+  const int gq = w4 ? hidden / GS4 : 1, go = w4 ? (int)(Ko / GS4) : 1;   // scale rows
+  const int gf = w4 ? f_pad / GS4 : 1;
+  // W4A8's activation blocks (int8: the O projection's scale group); from
+  // 2 rows each W4A8 product is two launches, its x's quantization first
+  const int kg_o = wq_kind == WK_INT4 ? 0 : (int)Ko, kg_d = a8 ? ffn_block : 0;
+  const int qx = a8 && n >= 2 ? 1 : 0;
   if (lm_s && !make_int8_map(&mlm, lm_head, hidden, vocab, 1, n))
     return (int)cudaErrorInvalidValue;
   int k = 0;
@@ -335,10 +372,13 @@ extern "C" int cf_verify_stack(
     const char* wol = static_cast<const char*>(wo) + (size_t)l * G * Ko * hidden * eb;
     const char* w13l = static_cast<const char*>(w13) + (size_t)l * 2 * hidden * f_pad * eb;
     const char* w2l = static_cast<const char*>(w2) + (size_t)l * f_pad * hidden * eb;
-    const float* sq = w8 ? static_cast<const float*>(wqkv_s) + (size_t)l * G * C : nullptr;
-    const float* so = w8 ? static_cast<const float*>(wo_s) + (size_t)l * G * hidden : nullptr;
-    const float* s13 = w8 ? static_cast<const float*>(w13_s) + (size_t)l * 2 * f_pad : nullptr;
-    const float* s2 = w8 ? static_cast<const float*>(w2_s) + (size_t)l * hidden : nullptr;
+    const float *sq = nullptr, *so = nullptr, *s13 = nullptr, *s2 = nullptr;
+    if (w8 || w4) {
+      sq = static_cast<const float*>(wqkv_s) + (size_t)l * G * gq * C;
+      so = static_cast<const float*>(wo_s) + (size_t)l * G * go * hidden;
+      s13 = static_cast<const float*>(w13_s) + (size_t)l * 2 * gq * f_pad;
+      s2 = static_cast<const float*>(w2_s) + (size_t)l * gf * hidden;
+    }
     __nv_bfloat16* kcl = static_cast<__nv_bfloat16*>(kc) + (size_t)l * kv_heads * cap * hd;
     __nv_bfloat16* vcl = static_cast<__nv_bfloat16*>(vc) + (size_t)l * kv_heads * cap * hd;
 
@@ -351,9 +391,9 @@ extern "C" int cf_verify_stack(
         nullptr, hidden, eps, nullptr, 0, nullptr, 0));
     ++k;
     // the G head groups' QKV products (int8: each scaled by its own s[G])
-    CF_CHECK(verify_gemv(s.xn, hidden, wq, &mq, l * G, sq, 0, s.qkv, n, hidden, (int)C, G,
-                         (long long)hidden * C, qkv_n, C, threads, st));
-    ++k;
+    CF_CHECK(verify_gemv(wq_kind, s.xn, hidden, wq, &mq, l * G, sq, 0, s.qkv, n, hidden,
+                         (int)C, G, (long long)hidden * C, qkv_n, C, threads, st, s));
+    k += 1 + qx;
     if (ns > 0) {
       CF_CHECK(launch_kernel(sp.kern, dim3(kv_heads, ns, sp.tiles),
                              dim3(ATT_THREADS), split_smem, st, true, s.qkv, kcl, vcl, cosf,
@@ -367,9 +407,9 @@ extern "C" int cf_verify_stack(
     ++k;
     // wo_f[l] is [G * Ko, hidden] row-major: one product sums the groups
     // (int8: each group's partial scaled by its s[G] first)
-    CF_CHECK(verify_gemv(s.o, o_n, wol, &mo, l, so, (int)Ko, s.aout, n, (int)(G * Ko), hidden,
-                         1, 0, hidden, 0, threads, st));
-    ++k;
+    CF_CHECK(verify_gemv(wq_kind, s.o, o_n, wol, &mo, l, so, kg_o, s.aout, n, (int)(G * Ko),
+                         hidden, 1, 0, hidden, 0, threads, st, s));
+    k += 1 + qx;
     // attention-out residual add + FFN RMSNorm
     CF_CHECK(launch_kernel(resnorm_kernel, dim3(n), dim3(NORM_THREADS), 0, st, true,
         s.aout, nullptr, s.res_b, nullptr, fn, s.res_a, nullptr, s.xn, nullptr,
@@ -378,7 +418,27 @@ extern "C" int cf_verify_stack(
     // gate and up (int8: each column scaled before the SwiGLU); down (int8:
     // scaled after the whole sum over f)
     if (n == 1) {   // one row: f32 gate/up, SwiGLU in the down product's x
-      if (w8) {
+      if (w4) {
+        const CUtensorMap* m13r = m13.for_rows(1, true);
+        const CUtensorMap* m2r = m2.for_rows(1, true);
+        if (a8) {
+          CF_CHECK((launch_gemv1<false, G1_Y, WK_INT4A8>(
+              s.xn, 0, nullptr, s.gu, hidden, f_pad, 2, 0, f_pad, threads, true, st, nullptr,
+              nullptr, 0.f, nullptr, m13r, 2 * l, s13, 0)));
+          ++k;
+          CF_CHECK((launch_gemv1<true, G1_Y, WK_INT4A8>(
+              s.gu, f_pad, nullptr, s.hx, f_pad, hidden, 1, 0, 0, threads, true, st, nullptr,
+              nullptr, 0.f, nullptr, m2r, l, s2, kg_d)));
+        } else {
+          CF_CHECK((launch_gemv1<false, G1_Y, WK_INT4>(
+              s.xn, 0, nullptr, s.gu, hidden, f_pad, 2, 0, f_pad, threads, true, st, nullptr,
+              nullptr, 0.f, nullptr, m13r, 2 * l, s13, 0)));
+          ++k;
+          CF_CHECK((launch_gemv1<true, G1_Y, WK_INT4>(
+              s.gu, f_pad, nullptr, s.hx, f_pad, hidden, 1, 0, 0, threads, true, st, nullptr,
+              nullptr, 0.f, nullptr, m2r, l, s2, 0)));
+        }
+      } else if (w8) {
         CF_CHECK((launch_gemv1<false, G1_Y, true>(s.xn, 0, nullptr, s.gu, hidden, f_pad, 2, 0,
                                                   f_pad, threads, true, st, nullptr, nullptr,
                                                   0.f, nullptr, m13.for_rows(1), 2 * l, s13,
@@ -396,7 +456,22 @@ extern "C" int cf_verify_stack(
       }
     } else {        // the gate/up product writes act = bf16(silu(gate) * up)
       __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(s.gu);
-      if (w8) {
+      if (a8) {
+        CF_CHECK(launch_rows_gemv4<true, true>(s.xn, hidden, &m13, 2 * l, s13, 0, nullptr, n,
+                                               hidden, f_pad, 2, f_pad, 0, true, st, act,
+                                               s.x8, s.xs));
+        k += 2;
+        CF_CHECK(launch_rows_gemv4<false, true>(act, f_pad, &m2, l, s2, kg_d, s.hx, n, f_pad,
+                                                hidden, 1, hidden, 0, true, st, nullptr, s.x8,
+                                                s.xs));
+        ++k;
+      } else if (w4) {
+        CF_CHECK(launch_rows_gemv4<true, false>(s.xn, hidden, &m13, 2 * l, s13, 0, nullptr, n,
+                                                hidden, f_pad, 2, f_pad, 0, true, st, act));
+        ++k;
+        CF_CHECK(launch_rows_gemv4<false, false>(act, f_pad, &m2, l, s2, 0, s.hx, n, f_pad,
+                                                 hidden, 1, hidden, 0, true, st));
+      } else if (w8) {
         CF_CHECK(launch_rows_gemv8<true>(s.xn, hidden, &m13, 2 * l, s13, 0, nullptr, n, hidden,
                                          f_pad, 2, f_pad, 0, true, st, act));
         ++k;
@@ -422,9 +497,9 @@ extern "C" int cf_verify_stack(
         eps, nullptr, 0, nullptr, 0));
     ++k;
     // an int8 head: each logit scaled after its sum
-    CF_CHECK(verify_gemv(s.xn, hidden, lm_head, &mlm, 0, static_cast<const float*>(lm_s), 0,
-                         static_cast<float*>(logits), n, hidden, vocab, 1, 0, vocab, 0,
-                         threads, st));
+    CF_CHECK(verify_gemv(lm_s ? WK_INT8 : WK_BF16, s.xn, hidden, lm_head, &mlm, 0,
+                         static_cast<const float*>(lm_s), 0, static_cast<float*>(logits), n,
+                         hidden, vocab, 1, 0, vocab, 0, threads, st, s));
     ++k;
   } else {
     CF_CHECK(launch_kernel(resnorm_kernel, dim3(n), dim3(NORM_THREADS), 0, st, L > 0,

@@ -10,10 +10,13 @@ continuous-batching ``ServingEngine``, and ``text_completion`` /
 ``chat_completion`` (llama-2 ``[INST]`` templating) sit on it.  The
 fused-vs-eager switch is an argument, and the ``USE_CLUSTER_FUSION``
 environment variable is honoured when it is not given, as in the JAX
-package.  ``quant="int8"`` (or ``"int4"``) quantizes the projection
-weights (``ops.quant.quantize_llama_params``); ``stream_generate`` then
-runs kernel 7's int8 mode, and ``spec_generate``, ``generate`` and the
-completions raise ``NotImplementedError`` (``ROADMAP.md`` queue 2, mode 1).
+package.  ``quant="int8"`` or ``"int4"`` quantizes the projection
+weights (``ops.quant.quantize_llama_params``, int4 in groups of 128);
+``stream_generate`` then runs kernel 7's int8 or int4 mode (int4: W4A8
+unless ``kcfg.int4_w4a8`` is False), ``spec_generate`` kernel 8's, and
+``generate`` and the completions the serving engine's quantized steps
+(int4: the fused step, exact).  The prefill dequantizes, as the JAX
+package's does.
 """
 
 from __future__ import annotations
@@ -139,9 +142,9 @@ class Llama:
         rounds, drafts accepted, tokens, and the tokens each round
         emitted."""
         for eng in (self, draft):
-            # int8: kernels 7 and 8 in their int8 modes; int4 is not ported
+            # kernels 7 and 8 in their int8 or int4 modes
             model.refuse_quantized(eng.params, "spec_generate",
-                                   allow=("int8",))
+                                   allow=("int8", "int4"))
         cfg = self.cfg
         toks = list(prompt_tokens)
         span = n_draft + 1
@@ -199,9 +202,10 @@ class Llama:
         Each request owns its pages, so rows with shorter prompts never see
         other rows' padding, and sampling draws from the engine's generator
         seeded by ``seed``."""
-        # int8: the serving steps' int8 products (kernel 9's int8 mode for
-        # the fused step); int4 is not ported
-        model.refuse_quantized(self.params, "generate", allow=("int8",))
+        # the serving steps' int8 or int4 products (kernel 9's int8 or int4
+        # mode for the fused step, the default step for int4)
+        model.refuse_quantized(self.params, "generate",
+                               allow=("int8", "int4"))
         cfg = self.cfg
         prompts = [list(t) for t in prompt_tokens]
         if not prompts or not all(prompts):

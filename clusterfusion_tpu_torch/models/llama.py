@@ -15,8 +15,10 @@ inside it; the eager step follows the JAX package's eager layer.
 Weights may be int8 or int4 ``QuantizedTensor``s (``ops.quant``), as in the
 JAX package: the eager products dequantize the QKV and O weights, scale
 int8 gate/up and down products after the dot, and scale int8 LM-head
-logits; the fused step hands int8 weights to kernel 7's int8 mode (and the
-speculative verify to kernel 8's, ``models.speculative``).
+logits; the fused step hands int8 and int4 weights to kernel 7's int8 and
+int4 modes (and the speculative verify to kernel 8's,
+``models.speculative``).  The prefill dequantizes int4, as the JAX
+package's does.
 
 Unlike the JAX package, whose functions return new caches, the caches are
 updated in place here: every function that takes ``k_cache``/``v_cache``
@@ -189,15 +191,17 @@ def _mm(x: torch.Tensor, w: torch.Tensor, out_f32: bool = False):
     return y.float() if out_f32 else y
 
 
-def refuse_quantized(params: LlamaParams, what: str, allow=()) -> None:
+def refuse_quantized(params: LlamaParams, what: str, allow=(),
+                     item: str = "1") -> None:
     """Raise where ``what`` has no path yet for a quantized kind of the
-    tree's weights (``allow``: the kinds it has)."""
+    tree's weights (``allow``: the kinds it has; ``item``: the mode of
+    ``ROADMAP.md`` queue 2 that would add the others)."""
     kinds = {t.kind for t in (params["lm_head"], *params["layers"].values())
              if isinstance(t, QuantizedTensor)}
     if kinds - set(allow):
         raise NotImplementedError(f"{what}: {'/'.join(sorted(kinds))} "
                                   "weights are not ported yet (ROADMAP.md "
-                                  "queue 2, mode 1)")
+                                  f"queue 2, mode {item})")
 
 
 def _lm_logits(xn: torch.Tensor, lm) -> torch.Tensor:

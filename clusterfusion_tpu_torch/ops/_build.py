@@ -41,17 +41,19 @@ SIGNATURES = {
     "cf_stack_scratch_floats": ([_I] * 9, ctypes.c_longlong),
     "cf_decoder_stack": ([_P] * 17 + [_I] * 11
                          + [_F, _I, _I, ctypes.POINTER(_I), _P, _I, _P]
-                         + [_P] * 5, _I),
+                         + [_P] * 5 + [_I, _I], _I),
     "cf_verify_scratch_floats": ([_I] * 8, ctypes.c_longlong),
     "cf_verify_stack": ([_P] * 17 + [_I] * 12
-                        + [_F, _I, _I, ctypes.POINTER(_I), _P] + [_P] * 5, _I),
+                        + [_F, _I, _I, ctypes.POINTER(_I), _P] + [_P] * 5
+                        + [_I, _I], _I),
     "cf_verify_split": ([_P] * 7 + [_I] * 8 + [_P], _I),
     "cf_verify_probe_gemv": ([_P, _I], _I),
     "cf_paged_scratch_floats": ([_I] * 7, ctypes.c_longlong),
     "cf_paged_attention": ([_P] * 9 + [_I] * 9 + [_P], _I),
     "cf_paged_layer_scratch_floats": ([_I] * 7, ctypes.c_longlong),
     "cf_paged_decoder_layer": ([_P] * 17 + [_I] * 13
-                               + [_F, _I, ctypes.POINTER(_I), _P, _P, _P], _I),
+                               + [_F, _I, ctypes.POINTER(_I), _P, _P, _P, _I],
+                               _I),
     "cf_fused_ffn_scratch_floats": ([_I] * 2, ctypes.c_longlong),
     "cf_fused_ffn_plan": ([_I, _I, ctypes.POINTER(_I)], _I),
     "cf_fused_ffn": ([_P] * 8 + [_I] * 3 + [_F, _P, ctypes.POINTER(_I), _P],
@@ -64,6 +66,9 @@ SIGNATURES = {
     "cf_gemv_rows": ([_P, _LL, _I, _P, _P, _P, _I, _I, _I, _P], _I),
     "cf_gemv_rows8": ([_P, _LL, _I, _P, _P, _I, _P, _P] + [_I] * 4 + [_P], _I),
     "cf_ffn8": ([_P] * 7 + [_I] * 3 + [_P], _I),
+    "cf_gemv_rows4": ([_P, _LL, _I, _P, _P, _I, _P, _P] + [_I] * 5 + [_P] * 3,
+                      _I),
+    "cf_ffn4": ([_P] * 7 + [_I] * 3 + [_P], _I),
     "cf_decoder_layer_scratch_floats": ([_I] * 2, ctypes.c_longlong),
     "cf_decoder_layer_plan": ([_I] * 6 + [ctypes.POINTER(_I)], _I),
     "cf_decoder_layer": ([_P] * 16 + [_I] * 10

@@ -33,8 +33,10 @@ over the codes in float32 (exact, |q| <= 127); the scales go where the TPU
 kernel applies them: each QKV column after its sum over hidden (``wqkv_f.s``
 is [G, 1, C]), and each kv head's O-projection partial by its head group's
 scale (``wo_f.s`` [G, 1, hidden]) before the heads are summed in order.
-int4 weights raise ``NotImplementedError`` (``ROADMAP.md`` queue 2, mode
-1).
+int4 weights raise ``NotImplementedError`` here (``ROADMAP.md`` queue 2,
+mode 1.4).  The plain int4 products that the other kernels' twins share
+(``_dequant_int4_tile`` and ``_int4_dot``, the TPU kernels' own) live in
+this module, as in the JAX package.
 
 The public ops ``llama_decoder_layer`` (GPT-J rope, no residual add) and
 ``llama_decoder_layer_sglang`` (NEOX rope, fused residual) take the
@@ -53,12 +55,37 @@ import torch
 from clusterfusion_tpu_torch.config import KernelConfig
 from clusterfusion_tpu_torch.ops import _build
 from clusterfusion_tpu_torch.ops._support import stream_scratch
-from clusterfusion_tpu_torch.ops.quant import QuantizedTensor
+from clusterfusion_tpu_torch.ops.quant import (QuantizedTensor,
+                                               expand_group_scales,
+                                               unpack_int4_bitcast,
+                                               w4a8_int4_dot)
 from clusterfusion_tpu_torch.ops.stack_kernel import (_norm, _rope,
-                                                      int8_operands,
+                                                      quant_operands,
                                                       split_attention_plain)
 
 _LOG2E = 1.4426950408889634
+
+
+def _dequant_int4_tile(q: torch.Tensor, s: torch.Tensor, gs: int) -> torch.Tensor:
+    """Packed int4 tile [K/2, N] (packed along K) and group scales
+    [K/gs, N] -> bf16 [K, N]: bf16(code * bf16(s)), one bf16 rounding (the
+    JAX package's ``_dequant_int4_tile``, a bf16 multiply)."""
+    w = unpack_int4_bitcast(q).to(torch.bfloat16)
+    return w * expand_group_scales(s.to(torch.bfloat16), 0, gs)
+
+
+def _int4_dot(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, gs: int,
+              w4a8: bool) -> torch.Tensor:
+    """x [M, K] @ an int4 tile q [K/2, N] with group scales s [K/gs, N] ->
+    float32 [M, N], the scales taken as bf16 (as the TPU kernels stream
+    them): W4A8 (``w4a8`` and gs a multiple of 128, ``KernelConfig.
+    int4_w4a8``: ``ops.quant.w4a8_int4_dot``) or the exact product over
+    ``_dequant_int4_tile`` (any other group size falls back to it, as in
+    JAX)."""
+    sb = s.to(torch.bfloat16)
+    if w4a8 and gs % 128 == 0:
+        return w4a8_int4_dot(x, q, sb.float(), gs)
+    return x.to(torch.bfloat16).float() @ _dequant_int4_tile(q, sb, gs).float()
 #: Largest GQA group the kernels take (``ATT_MAX_GROUP`` in common.cuh).
 MAX_GROUP = 8
 #: KV heads per group of the public ops' weight layout (the JAX package's
@@ -196,7 +223,7 @@ def _refuse(wqkv_f, wo_f, k_cache, v_cache, *, window, bias_qkv,
     if any(w.kind != "int8" for w in quant):
         raise NotImplementedError("_fused_decoder_layer: int4 weights are "
                                   "not ported yet (ROADMAP.md queue 2, mode "
-                                  "1)")
+                                  "1.4)")
     if quant and len(quant) != len(weights):
         raise ValueError("_fused_decoder_layer: wqkv_f and wo_f are int8 "
                          "together or not at all")
@@ -310,7 +337,7 @@ def _fused_decoder_layer(
     if emit_partials:
         wo = None
     w8 = isinstance(wqkv, QuantizedTensor)
-    ws, scales = int8_operands(dict(wqkv_f=wqkv, wo_f=wo),
+    ws, scales = quant_operands(dict(wqkv_f=wqkv, wo_f=wo),
                                (C, hidden) if w8 else (), 0)
     wqkv, wo = ws["wqkv_f"], ws["wo_f"]
     sq, so = scales.get("wqkv_f_s"), scales.get("wo_f_s")

@@ -43,8 +43,16 @@ hidden]).  Each product is x_bf16 @ bf16(code) summed in float32: QKV
 scaled per head group and column after the sum over hidden, the O
 projection per group on each group's partial, before the groups are summed
 and the output is rounded to bf16.  On the card the codes stream through
-the GEMVs' int8 instances, never as a bf16 copy.  int4 weights raise
-``NotImplementedError`` (``ROADMAP.md`` queue 2, mode 1).
+the GEMVs' int8 instances, never as a bf16 copy.
+
+Int4 weights (the TPU kernel's ``wq_kind == "int4"``): ``wqkv_g`` and
+``wo_g`` int4 together (codes packed two a byte along K, group scales [..,
+G, K/gs, N]).  The TPU kernel always takes the exact tile dequant here:
+each product is x_bf16 @ bf16(code * s) summed in float32 (the O
+projection per head group, the groups summed in float32, then rounded to
+bf16).  On the card the packed codes stream through the GEMVs' int4
+instances in their exact mode, in group size 128 only (``ROADMAP.md``
+queue 2, mode 1.5).
 
 The pools are updated in place: the returned pools are the tensors that
 were passed in.  Padding rows (``seq_lens`` 0 over a table row of page 0)
@@ -61,11 +69,15 @@ import torch
 
 from clusterfusion_tpu_torch.ops import _build
 from clusterfusion_tpu_torch.ops.decoder_layer import (HEAD_GROUP,
+                                                      _int4_dot,
                                                       _pick_head_group,
                                                       fuse_qkv_o_for_kernel)
 from clusterfusion_tpu_torch.ops._support import cdiv
 from clusterfusion_tpu_torch.ops.quant import QuantizedTensor
-from clusterfusion_tpu_torch.ops.stack_kernel import _norm, _rope, int8_operands
+from clusterfusion_tpu_torch.ops.stack_kernel import (WK_BF16, WK_INT4, WK_INT8,
+                                                      _norm, _rope,
+                                                      check_int4_group,
+                                                      quant_operands)
 
 _LOG2E = 1.4426950408889634
 _NEG_INF = -1e30
@@ -84,7 +96,8 @@ MAX_GROUP = 16
 #: weights (kernel 9's int8 mode), which "llama_decoder_layer_paged"
 #: counts too.
 launches = {"paged_attention": 0, "llama_decoder_layer_paged": 0,
-            "llama_decoder_layer_paged_int8": 0}
+            "llama_decoder_layer_paged_int8": 0,
+            "llama_decoder_layer_paged_int4": 0}
 
 
 def _refuse(what: str, window, softcap, bias_qkv=None) -> None:
@@ -258,8 +271,8 @@ def llama_decoder_layer_paged_plain(input, residual, wqkv_g, wo_g,
                                     *, group: int, rope_style: str):
     """Plain PyTorch version of :func:`llama_decoder_layer_paged` (same
     arguments, same results, pools appended in place).  Int8 weights: each
-    product over the codes, scaled where the kernel scales (the module's
-    note)."""
+    product over the codes, scaled where the kernel scales; int4: the exact
+    products (the module's note)."""
     B, hidden = input.shape
     layer_id = int(layer_id)
     w = wqkv_g[layer_id] if wqkv_g.ndim == 4 else wqkv_g
@@ -267,7 +280,12 @@ def llama_decoder_layer_paged_plain(input, residual, wqkv_g, wo_g,
     kv, hd = k_pool.shape[2], k_pool.shape[4]
     r = input.float() + residual.float()
     xn = _norm(r, rms_w.reshape(-1), eps)
-    if isinstance(w, QuantizedTensor):
+    w4 = isinstance(w, QuantizedTensor) and w.kind == "int4"
+    if w4:
+        gs = w.group_size
+        qkv = torch.stack([_int4_dot(xn, w.q[i], w.s[i], gs, False)
+                           for i in range(w.q.shape[0])], dim=1)
+    elif isinstance(w, QuantizedTensor):
         qkv = torch.einsum("bd,Gdc->bGc", xn.float(), w.q.float()) * w.s[:, 0]
     else:
         qkv = torch.einsum("bd,Gdc->bGc", xn.float(), w.float())
@@ -284,7 +302,13 @@ def llama_decoder_layer_paged_plain(input, residual, wqkv_g, wo_g,
     o = _walk_plain(q.to(torch.bfloat16), q, k, v, k_pool, v_pool, table,
                     lens, layer_id)
     _append_plain(k_pool, v_pool, table, lens, layer_id, k, v)
-    if isinstance(wo, QuantizedTensor):   # each group's partial scaled, summed
+    if w4:                                # the groups' products, summed in order
+        G = wo.q.shape[0]
+        og = o.reshape(B, G, -1)
+        out = torch.zeros((B, hidden), dtype=torch.float32, device=input.device)
+        for i in range(G):
+            out = out + _int4_dot(og[:, i], wo.q[i], wo.s[i], gs, False)
+    elif isinstance(wo, QuantizedTensor):   # each group's partial scaled, summed
         G = wo.q.shape[0]
         out = (torch.einsum("bGc,Gco->bGo", o.reshape(B, G, -1).float(),
                             wo.q.float()) * wo.s[:, 0]).sum(dim=1)
@@ -306,8 +330,8 @@ def llama_decoder_layer_paged(input, residual, wqkv_g, wo_g, block_table,
     ...]); block_table [B, max_pages], seq_lens/positions [B] integer;
     pools [L, n_pages, kv_heads, page, hd] bf16; rms_w [hidden] or [1,
     hidden]; cos_t/sin_t [max_pos, hd] full-dim float32 tables.  wqkv_g
-    and wo_g may be int8 ``QuantizedTensor``s together (the module's
-    note).
+    and wo_g may be int8 or int4 ``QuantizedTensor``s together (the
+    module's note).
 
     Returns (output [B, hidden], residual_out [B, hidden], k_pool, v_pool),
     the new token's K/V written in place at ``block_table[b, seq_lens[b] //
@@ -321,15 +345,16 @@ def llama_decoder_layer_paged(input, residual, wqkv_g, wo_g, block_table,
         raise ValueError(f"layer_id {layer_id} outside the pool's {L} layers")
     if wqkv_g.ndim not in (3, 4) or wo_g.ndim != wqkv_g.ndim:
         raise ValueError("wqkv_g/wo_g must both be [G, ...] or [L, G, ...]")
-    w8 = isinstance(wqkv_g, QuantizedTensor)
-    if any(isinstance(t, QuantizedTensor) and t.kind != "int8"
-           for t in (wqkv_g, wo_g)):
-        raise NotImplementedError("llama_decoder_layer_paged: int4 weights "
-                                  "are not ported yet (ROADMAP.md queue 2, "
-                                  "mode 1)")
-    if w8 != isinstance(wo_g, QuantizedTensor):
+    quant = isinstance(wqkv_g, QuantizedTensor)
+    if quant != isinstance(wo_g, QuantizedTensor) or \
+            (quant and wqkv_g.kind != wo_g.kind):
         raise ValueError("llama_decoder_layer_paged: wqkv_g and wo_g are "
-                         "int8 together or not at all")
+                         "quantized together, of one kind, or not at all")
+    w8 = quant and wqkv_g.kind == "int8"
+    w4 = quant and wqkv_g.kind == "int4"
+    if w4:
+        check_int4_group(wqkv_g.group_size, "llama_decoder_layer_paged")
+        check_int4_group(wo_g.group_size, "llama_decoder_layer_paged")
     G, hidden_w, C = wqkv_g.shape[-3:]
     hg = kv // G if G else 0
     if hidden_w != hidden or G * hg != kv or C != hg * (group + 2) * hd or \
@@ -340,14 +365,14 @@ def llama_decoder_layer_paged(input, residual, wqkv_g, wo_g, block_table,
     dev = input.device
     _check_pools("llama_decoder_layer_paged", k_pool, v_pool, dev)
     rms_w = rms_w.reshape(-1)
-    weights, scales = int8_operands(dict(wqkv_g=wqkv_g, wo_g=wo_g),
-                                    (C, hidden) if w8 else (), 0)
+    weights, scales = quant_operands(dict(wqkv_g=wqkv_g, wo_g=wo_g),
+                                     (C, hidden) if quant else (), 0)
     named = (("rms_w", rms_w), ("input", input), ("residual", residual),
-             *(() if w8 else tuple(weights.items())))
+             *(() if quant else tuple(weights.items())))
     for name, t in named:
         if t.dtype != torch.bfloat16:
             raise NotImplementedError(f"llama_decoder_layer_paged: {name} is "
-                                      f"{t.dtype}; only bf16 and int8 "
+                                      f"{t.dtype}; only bf16, int8 and int4 "
                                       "weights are ported")
     if dev.type == "cpu":
         return llama_decoder_layer_paged_plain(
@@ -398,10 +423,12 @@ def llama_decoder_layer_paged(input, residual, wqkv_g, wo_g, block_table,
         1 if rope_style == "neox" else 0, float(eps), SPLIT,
         ctypes.byref(n_launch), torch.cuda.current_stream(dev).cuda_stream,
         *(scales[k].data_ptr() if k in scales else None
-          for k in ("wqkv_g_s", "wo_g_s")))
+          for k in ("wqkv_g_s", "wo_g_s")),
+        WK_INT4 if w4 else WK_INT8 if w8 else WK_BF16)
     _build.check(err, "llama_decoder_layer_paged")
     launches["llama_decoder_layer_paged"] += 1
     launches["llama_decoder_layer_paged_int8"] += int(w8)
+    launches["llama_decoder_layer_paged_int4"] += int(w4)
     return out, res_out, k_pool, v_pool
 
 

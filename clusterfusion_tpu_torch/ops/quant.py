@@ -11,8 +11,9 @@
   (``ops/stack_kernel.py``) streams ``q`` and applies ``s`` to its sums.
 - INT4 is symmetric group-wise along the reduction axis (default group
   128), two codes a byte (row 2b in the low nibble, 2b+1 in the high), its
-  scales rounded to bf16 before the codes are chosen.  No kernel of the
-  port takes it yet (``ROADMAP.md`` queue 2, mode 1): here it is data.
+  scales rounded to bf16 before the codes are chosen.  Kernels 7, 8 and 9
+  and the serving products take it in groups of 128 (the GEMVs' int4
+  instances; ``ops/decoder_layer.py`` holds the plain products).
 - KV formats: ``Int8KV`` (int8 rows with per-(head, position) scales in
   [L, H, R, 128] planes), the fp8 (e4m3) bit-twiddle decode, and the one
   writer of both layouts, ``cache_fill_rows``.  No kernel of the port
@@ -193,9 +194,21 @@ def quantize_int4(w: torch.Tensor, axis: int, group_size: int = 128,
     """Symmetric group-wise INT4 over reduction ``axis`` (codes in [-7, 7]),
     nibble-packed along ``pack_axis`` (default: the reduction axis).  The
     scales are rounded to bf16 before the codes are chosen, as the JAX
-    package streams them."""
+    package streams them.  A stacked tensor whose leading axis is neither
+    is quantized one leading slice at a time (the same codes: every group
+    lies in one slice), so the float32 temporaries are one slice's."""
     axis = _norm_axis(axis, w.ndim)
     pack_axis = axis if pack_axis is None else _norm_axis(pack_axis, w.ndim)
+    if w.ndim > 2 and -w.ndim not in (axis, pack_axis):
+        parts = [quantize_int4(w[i], axis, group_size, pack_axis)
+                 for i in range(w.shape[0])]
+        q = torch.empty((w.shape[0], *parts[0].q.shape), dtype=torch.int8,
+                        device=w.device)
+        s = torch.empty((w.shape[0], *parts[0].s.shape), dtype=torch.float32,
+                        device=w.device)
+        for i, t in enumerate(parts):
+            q[i], s[i] = t.q, t.s
+        return QuantizedTensor(q, s, "int4", axis, group_size, pack_axis)
     K = w.shape[axis]
     if K % group_size:
         raise ValueError(f"reduction size {K} is not a multiple of the group "

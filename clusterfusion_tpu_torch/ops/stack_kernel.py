@@ -30,8 +30,21 @@ each group's partial, before the sum over groups (``wo_f.s`` is [L, G, 1,
 hidden]); gate and up per column before SwiGLU; down per column after the
 whole sum over f; the LM head per column after its sum.  On the card the
 codes stream as they are (never a bf16 copy) through the ring GEMV's int8
-instance.  int4 weights raise ``NotImplementedError`` on both devices
-(``ROADMAP.md`` queue 2, mode 1).
+instance.
+
+Int4 weights (group-wise along K, two codes a byte; the TPU kernel's
+``wq_kind == "int4"``): the four projections int4 together, the LM head
+bf16 or int8 (the JAX package never makes an int4 head).  Each product is
+the TPU kernel's ``_int4_dot`` (``ops.decoder_layer``), with the scales as
+bf16: with ``kcfg.int4_w4a8`` (the default) W4A8, each activation block
+quantized to int8 per row against its absmax (QKV and gate/up: the normed
+row; the O projection: one head group's o; down: one f-block of
+``ffn_block_size(f_pad)``) and each scale group's integer dot scaled by its
+scale; else the exact product over bf16(code * s).  On the card the packed
+codes stream once through the ring GEMV's int4 instance
+(``ring_gemv4_kernel``), in the kernels' group size of 128 only
+(``ROADMAP.md`` queue 2, mode 1.5; the plain twin takes any); int4 with
+``reduce_axis`` is not ported (mode 1.4).
 
 Mode 5, ``reduce_axis`` (the JAX package's ``fused_collectives=True``):
 each rank holds its tp shards of the weights and caches, and the float32
@@ -65,6 +78,7 @@ import torch.nn.functional as F
 from clusterfusion_tpu_torch.config import KernelConfig
 from clusterfusion_tpu_torch.ops import _build
 from clusterfusion_tpu_torch.ops._support import glu_act
+from clusterfusion_tpu_torch.ops.ffn import ffn_block_size
 from clusterfusion_tpu_torch.ops.quant import QuantizedTensor
 from clusterfusion_tpu_torch.ops.rope import apply_rope_gptj, apply_rope_neox
 
@@ -75,6 +89,12 @@ _NEG_INF = -1e30
 launches = 0
 #: Those of them with int8 weights (kernel 7's int8 mode).
 int8_launches = 0
+#: Those of them with int4 weights (kernel 7's int4 modes).
+int4_launches = 0
+#: The int4 group size the kernels take (``GS4`` in ``csrc/common.cuh``).
+INT4_GROUP = 128
+#: The weight kinds of the C entries (``WK_*`` in ``csrc/common.cuh``).
+WK_BF16, WK_INT8, WK_INT4, WK_INT4A8 = 0, 1, 2, 3
 #: CUDA kernels the last such call launched (8 per layer + 1 or 2, mode 5
 #: too; 8 per layer + 3 with the logits gathered).
 last_step_kernels = 0
@@ -145,13 +165,25 @@ def split_attention_plain(q, k_cur, v_cur, kc, vc, seq: int, kv_split: int,
     return acc, m_f, l_f
 
 
+def check_int4_group(gs: int, what: str) -> None:
+    """Raise unless the int4 kernels take group size ``gs`` (128; the
+    plain twins take any)."""
+    if gs != INT4_GROUP:
+        raise NotImplementedError(
+            f"{what}: int4 group size {gs}; the kernels take "
+            f"{INT4_GROUP} only (ROADMAP.md queue 2, mode 1.5)")
+
+
 def refuse_unported(what: str, head_dim: int, weights, final_norm, lm_head,
                     k_cache, v_cache, *, window, bias_qkv, ffn_act, softcap,
-                    post_attn_norm, post_ffn_norm, int8: bool = False) -> None:
+                    post_attn_norm, post_ffn_norm, int8: bool = False,
+                    int4: bool = False) -> None:
     """Raise on what the whole-stack kernels (``fused_decoder_stack``,
     ``fused_verify_stack``) do not take yet.  ``weights`` starts with the
     four projections; ``int8``: the kernel takes int8 QuantizedTensors for
-    all four of them and for ``lm_head`` (kernels 7 and 8 do)."""
+    all four of them and for ``lm_head`` (kernels 7 and 8 do); ``int4``:
+    it takes them int4 in group size 128, beside a bf16 or int8 head
+    (kernels 7, without reduce_axis, and 8)."""
     if window or softcap or bias_qkv is not None or ffn_act != "silu":
         raise NotImplementedError(f"{what}: window, softcap, QKV bias and "
                                   "GeGLU are not ported yet")
@@ -167,25 +199,45 @@ def refuse_unported(what: str, head_dim: int, weights, final_norm, lm_head,
             f"{what}: head_dim {head_dim} (Gemma-2's 256) is not ported yet "
             "(ROADMAP.md queue 2, mode 3)")
     quant = [w for w in (*weights, lm_head) if isinstance(w, QuantizedTensor)]
-    if any(w.kind != "int8" for w in quant):
-        raise NotImplementedError(f"{what}: int4 weights are not ported yet "
-                                  "(ROADMAP.md queue 2, mode 1)")
+    kinds = {w.kind for w in quant}
+    if "int4" in kinds and not int4:
+        raise NotImplementedError(f"{what}: int4 weights are not ported here "
+                                  "yet (ROADMAP.md queue 2, mode 1.4)")
     if quant and not int8:
         raise NotImplementedError(f"{what}: quantized weights are not ported "
                                   "yet (ROADMAP.md queue 2, mode 1)")
     if quant and not all(isinstance(w, QuantizedTensor) for w in weights[:4]):
-        raise ValueError(f"{what}: wqkv_f, wo_f, w13 and w2 are int8 "
+        raise ValueError(f"{what}: wqkv_f, wo_f, w13 and w2 are quantized "
                          "together or not at all")
+    if len({w.kind for w in weights[:4] if isinstance(w, QuantizedTensor)}) > 1:
+        raise ValueError(f"{what}: wqkv_f, wo_f, w13 and w2 are of one kind")
+    if isinstance(lm_head, QuantizedTensor) and lm_head.kind == "int4":
+        raise NotImplementedError(f"{what}: an int4 LM head (no JAX path makes "
+                                  "one) is not ported (ROADMAP.md queue 2, "
+                                  "mode 1.5)")
+    for w in weights[:4]:
+        if isinstance(w, QuantizedTensor) and w.kind == "int4":
+            check_int4_group(w.group_size, what)
     if any(w is not None and not isinstance(w, QuantizedTensor)
            and w.dtype != torch.bfloat16 for w in (*weights, lm_head)):
-        raise NotImplementedError(f"{what}: only bf16 and int8 weights are "
-                                  "ported")
+        raise NotImplementedError(f"{what}: only bf16, int8 and int4 weights "
+                                  "are ported")
     if k_cache.dtype != torch.bfloat16 or v_cache.dtype != torch.bfloat16:
         raise NotImplementedError(f"{what}: only a bf16 KV cache is ported "
                                   "(int8/fp8 KV are not: ROADMAP.md queue 2, "
                                   "mode 2)")
     if (final_norm is None) != (lm_head is None):
         raise ValueError("final_norm and lm_head go together")
+
+
+def wq_kind_of(wqkv_f, kcfg: KernelConfig) -> int:
+    """The C entries' weight kind of a stack (``WK_*``): bf16, int8, or
+    int4 in W4A8 (``kcfg.int4_w4a8``) or in the exact mode."""
+    if not isinstance(wqkv_f, QuantizedTensor):
+        return WK_BF16
+    if wqkv_f.kind == "int8":
+        return WK_INT8
+    return WK_INT4A8 if kcfg.int4_w4a8 else WK_INT4
 
 
 def check_stack_kcfg(kcfg: KernelConfig) -> None:
@@ -221,22 +273,26 @@ def check_launch(kcfg: KernelConfig, tensors: dict, widths) -> None:
             raise ValueError(f"GEMV width {w} is not a multiple of 8")
 
 
-def int8_operands(weights: dict, widths, vocab: int):
-    """What the whole-stack kernels pass for ``weights`` (name -> tensor,
-    QuantizedTensor or None): (name -> tensor, with each int8 weight's
+def quant_operands(weights: dict, widths, vocab: int):
+    """What the kernels pass for ``weights`` (name -> tensor,
+    QuantizedTensor or None): (name -> tensor, with each quantized weight's
     codes; name + "_s" -> its float32 scales).  Checks that int8 weights
-    are int8 codes with per-column scales over axis -2 and that each int8
+    are int8 codes with per-column scales over axis -2, int4 weights codes
+    packed along axis -2 with group scales over it, and that each quantized
     GEMV width (``widths``, and the LM head's ``vocab`` when it is int8) is
-    a multiple of 16 (the int8 tensor maps' rows are 16-byte aligned)."""
+    a multiple of 16 (the tensor maps' rows are 16-byte aligned)."""
     weights, scales = dict(weights), {}
     for name, w in weights.items():
         if isinstance(w, QuantizedTensor):
             if w.q.dtype != torch.int8 or w.s.dtype != torch.float32:
                 raise ValueError(f"{name}: int8 codes and float32 scales "
                                  "are expected")
-            if w.axis != -2 or w.s.shape[-2] != 1:
+            if w.kind == "int8" and (w.axis != -2 or w.s.shape[-2] != 1):
                 raise ValueError(f"{name}: per-column scales over axis -2 "
                                  "are expected")
+            if w.kind == "int4" and (w.axis != -2 or w.pack_axis != -2):
+                raise ValueError(f"{name}: int4 codes packed along axis -2, "
+                                 "with group scales over it, are expected")
             weights[name], scales[name + "_s"] = w.q, w.s
     for w in widths:
         if w % 16:
@@ -251,7 +307,8 @@ def fused_decoder_stack_plain(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f,
                               head_dim: int, rope_style: str, eps: float,
                               final_norm=None, lm_head=None,
                               kv_split: int = KernelConfig().kv_split,
-                              reduce=None):
+                              reduce=None,
+                              int4_w4a8: bool = KernelConfig().int4_w4a8):
     """Plain PyTorch version of :func:`fused_decoder_stack` (same arguments,
     same results, caches appended in place).  ``kv_split`` is the kernel's
     split of the cached rows: bf16(p) is taken against each split's own
@@ -259,10 +316,21 @@ def fused_decoder_stack_plain(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f,
     (mode 5) sums a float32 [hidden] partial over the ranks; it is applied
     to the O-projection and to the down projection of every layer.  Int8
     weights: each product over the codes, scaled where the kernel scales
-    (the module's note)."""
+    (the module's note).  Int4 weights (any group size): the TPU kernel's
+    products, W4A8 with ``int4_w4a8`` (the module's note)."""
+    # the plain int4 products live beside kernel 6, which imports this module
+    from clusterfusion_tpu_torch.ops.decoder_layer import _int4_dot
     pos = int(pos)
     L, G, hidden, _ = wqkv_f.shape
-    w8 = isinstance(wqkv_f, QuantizedTensor)
+    w4 = isinstance(wqkv_f, QuantizedTensor) and wqkv_f.kind == "int4"
+    w8 = isinstance(wqkv_f, QuantizedTensor) and not w4
+    if w4:
+        gs, a8 = wqkv_f.group_size, int4_w4a8
+        bf = ffn_block_size(w2.shape[-2])
+
+        def dot4(xr, w, i):
+            """The int4 product of the row xr with matrix i of w."""
+            return _int4_dot(xr[None], w.q[i], w.s[i], gs, a8)[0]
     kv_heads = k_cache.shape[1]
     hd, g = head_dim, group
     scale = _LOG2E / math.sqrt(hd)
@@ -274,7 +342,9 @@ def fused_decoder_stack_plain(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f,
     for l in range(L):
         res = hx + res
         xn = _norm(res, attn_norm[l], eps)
-        if w8:      # per head group and column, after the sum over hidden
+        if w4:      # per head group, W4A8 over the normed row
+            qkv = torch.stack([dot4(xn, wqkv_f[l], i) for i in range(G)])
+        elif w8:    # per head group and column, after the sum over hidden
             qkv = torch.einsum("d,Gdc->Gc", xn.float(),
                                wqkv_f.q[l].float()) * wqkv_f.s[l][:, 0]
         else:
@@ -288,7 +358,12 @@ def fused_decoder_stack_plain(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f,
         o = (acc / l_f[..., None]).to(bf16)
         k_cache[l, :, pos] = k_cur.to(k_cache.dtype)
         v_cache[l, :, pos] = v_cur.to(v_cache.dtype)
-        if w8:      # each group's partial scaled, then the groups summed
+        if w4:      # the head groups' products, summed in order
+            og = o.reshape(G, -1)
+            aout = torch.zeros(hidden, dtype=torch.float32, device=x.device)
+            for i in range(G):
+                aout = aout + dot4(og[i], wo_f[l], i)
+        elif w8:    # each group's partial scaled, then the groups summed
             aout = (torch.einsum("Gc,Gco->Go", o.reshape(G, -1).float(),
                                  wo_f.q[l].float())
                     * wo_f.s[l][:, 0]).sum(dim=0)
@@ -299,7 +374,14 @@ def fused_decoder_stack_plain(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f,
             aout = reduce(aout)
         res = aout + res
         xn2 = _norm(res, ffn_norm[l], eps)
-        if w8:      # gate and up per column before SwiGLU; down after its sum
+        if w4:      # gate and up over the row; down per f-block, summed
+            y = torch.stack([dot4(xn2, w13[l], i) for i in range(2)])
+            act = glu_act(y[0], y[1]).to(bf16)
+            hx = torch.zeros(hidden, dtype=torch.float32, device=x.device)
+            for j in range(0, act.shape[0], bf):
+                hx = hx + _int4_dot(act[None, j:j + bf], w2.q[l, j // 2:(j + bf) // 2],
+                                    w2.s[l, j // gs:(j + bf) // gs], gs, a8)[0]
+        elif w8:    # gate and up per column before SwiGLU; down after its sum
             y = torch.einsum("d,udf->uf", xn2.float(),
                              w13.q[l].float()) * w13.s[l][:, 0]
             act = glu_act(y[0], y[1]).to(bf16)
@@ -365,7 +447,8 @@ def fused_decoder_stack(
                     lm_head, k_cache, v_cache, window=window,
                     bias_qkv=bias_qkv, ffn_act=ffn_act, softcap=softcap,
                     post_attn_norm=post_attn_norm,
-                    post_ffn_norm=post_ffn_norm, int8=True)
+                    post_ffn_norm=post_ffn_norm, int8=True,
+                    int4=reduce_axis is None)
     return _stack(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f, w13, w2,
                   k_cache, v_cache, pos, group=group, head_dim=head_dim,
                   rope_style=rope_style, eps=eps, kcfg=kcfg,
@@ -409,8 +492,9 @@ def _stack(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f, w13, w2, k_cache,
     """The two entries' common body, after ``refuse_unported``; ``gather``:
     the logits gathered over ``reduce_axis`` (where it has more than one
     rank)."""
-    global launches, int8_launches, last_step_kernels
-    w8 = isinstance(wqkv_f, QuantizedTensor)
+    global launches, int8_launches, int4_launches, last_step_kernels
+    w8 = isinstance(wqkv_f, QuantizedTensor) and wqkv_f.kind == "int8"
+    w4 = isinstance(wqkv_f, QuantizedTensor) and wqkv_f.kind == "int4"
     if reduce_axis is not None and mesh is None:
         raise ValueError("reduce_axis needs the mesh whose axis it names")
     check_stack_kcfg(kcfg)
@@ -449,7 +533,8 @@ def _stack(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f, w13, w2, k_cache,
             x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f, w13, w2, k_cache,
             v_cache, pos, group=group, head_dim=head_dim,
             rope_style=rope_style, eps=eps, final_norm=final_norm,
-            lm_head=lm_head, kv_split=kcfg.kv_split, reduce=reduce)
+            lm_head=lm_head, kv_split=kcfg.kv_split, reduce=reduce,
+            int4_w4a8=kcfg.int4_w4a8)
         if gather:
             logits = collective.cluster_gather(out[0][0], reduce_axis,
                                                backend="pallas", mesh=mesh)
@@ -469,9 +554,10 @@ def _stack(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f, w13, w2, k_cache,
     if x.dtype != torch.bfloat16 or x.numel() != hidden:
         raise ValueError("x must be bf16 [1, hidden]")
     dev = x.device
-    weights, scales = int8_operands(
+    weights, scales = quant_operands(
         dict(wqkv_f=wqkv_f, wo_f=wo_f, w13=w13, w2=w2, lm_head=lm_head),
-        (C, hidden, f_pad) if w8 else (), vocab)
+        (C, hidden, f_pad) if w8 or w4 else (), vocab)
+    wq_kind = wq_kind_of(wqkv_f, kcfg)
     check_launch(kcfg, dict(x=x, attn_norm=attn_norm, ffn_norm=ffn_norm,
                             k_cache=k_cache, v_cache=v_cache,
                             final_norm=final_norm, **weights, **scales),
@@ -508,10 +594,12 @@ def _stack(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f, w13, w2, k_cache,
         None if comm is None else comm.handle, int(gather),
         torch.cuda.current_stream(dev).cuda_stream,
         *(ptr(scales.get(k)) for k in ("wqkv_f_s", "wo_f_s", "w13_s", "w2_s",
-                                       "lm_head_s")))
+                                       "lm_head_s")),
+        wq_kind, ffn_block_size(f_pad))
     _build.check(err, "fused_decoder_stack")
     launches += 1
     int8_launches += int(w8)
+    int4_launches += int(w4)
     last_step_kernels = n_launch.value
     if comm is not None:
         collective.launches["all_reduce"] += 2 * L

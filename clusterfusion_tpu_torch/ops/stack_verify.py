@@ -34,9 +34,15 @@ group and column after the sum over hidden; the O projection per group on
 each group's partial, before the sum over groups; gate and up per column
 before SwiGLU; down after the whole sum over f; the LM head after its sum.
 On the card the codes stream as they are through the GEMVs' int8
-instances (the rows GEMV's from 2 rows).  int4 weights, and
-``reduce_axis``, raise ``NotImplementedError`` (``ROADMAP.md`` queue 2,
-mode 1).
+instances (the rows GEMV's from 2 rows).
+
+Int4 weights: the four projections int4 together, the LM head bf16 or
+int8, each product the TPU kernel's ``_int4_dot`` as in
+``fused_decoder_stack`` (W4A8 with ``kcfg.int4_w4a8``, each of the n rows
+quantized on its own per activation block; else exact), on the card
+through the GEMVs' int4 instances (the rows GEMV's ``rows_gemv4_kernel``
+from 2 rows, the ring GEMV's at one), in group size 128 only (``ROADMAP.md``
+queue 2, mode 1.5).  ``reduce_axis`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -50,16 +56,21 @@ import torch.nn.functional as F
 from clusterfusion_tpu_torch.config import KernelConfig
 from clusterfusion_tpu_torch.ops import _build
 from clusterfusion_tpu_torch.ops._support import cdiv, glu_act
+from clusterfusion_tpu_torch.ops.decoder_layer import _int4_dot
+from clusterfusion_tpu_torch.ops.ffn import ffn_block_size
 from clusterfusion_tpu_torch.ops.quant import QuantizedTensor
 from clusterfusion_tpu_torch.ops.stack_kernel import (
     _LOG2E, _NEG_INF, _norm, _rope, _vocab_block, check_launch,
-    check_stack_kcfg, int8_operands, refuse_unported)
+    check_stack_kcfg, quant_operands, refuse_unported, wq_kind_of)
 
 #: Calls of :func:`fused_verify_stack` that launched the kernels.
 launches = 0
 #: Those of them with int8 weights (kernel 8's int8 mode).
 int8_launches = 0
-#: CUDA kernels the last such call launched (8 per layer + 1 or 2).
+#: Those of them with int4 weights (kernel 8's int4 modes).
+int4_launches = 0
+#: CUDA kernels the last such call launched (8 per layer + 1 or 2; W4A8 from
+#: 2 rows: 12 per layer, each product's x quantized in a launch of its own).
 last_step_kernels = 0
 #: Rows one call takes (the merge kernel keeps them in shared memory).
 MAX_ROWS = 32
@@ -69,17 +80,23 @@ def fused_verify_stack_plain(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f,
                              w13, w2, k_cache, v_cache, pos, *, group: int,
                              head_dim: int, rope_style: str, eps: float,
                              final_norm=None, lm_head=None,
-                             kv_split: int = KernelConfig().kv_split):
+                             kv_split: int = KernelConfig().kv_split,
+                             int4_w4a8: bool = KernelConfig().int4_w4a8):
     """Plain PyTorch version of :func:`fused_verify_stack` (same arguments,
     same results, caches appended in place).  ``kv_split`` is the kernel's
     split of the cached rows: bf16(p) is taken against each split's own
     max, as the kernel takes it, so the two round p alike.  Int8 weights:
     each product over the codes, scaled where the kernel scales (the
-    module's note)."""
+    module's note).  Int4 weights (any group size): the TPU kernel's
+    products, W4A8 with ``int4_w4a8``."""
     pos = int(pos)
     n, hidden = x.shape
     L, G = wqkv_f.shape[:2]
-    w8 = isinstance(wqkv_f, QuantizedTensor)
+    w4 = isinstance(wqkv_f, QuantizedTensor) and wqkv_f.kind == "int4"
+    w8 = isinstance(wqkv_f, QuantizedTensor) and not w4
+    if w4:
+        gs, a8 = wqkv_f.group_size, int4_w4a8
+        bf = ffn_block_size(w2.shape[-2])
     kv = k_cache.shape[1]
     hd, g = head_dim, group
     scale = _LOG2E / math.sqrt(hd)
@@ -94,7 +111,10 @@ def fused_verify_stack_plain(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f,
     for l in range(L):
         res = hx + res
         xn = _norm(res, attn_norm[l], eps)                        # [n, hidden]
-        if w8:      # per head group and column, after the sum over hidden
+        if w4:      # per head group, each row's W4A8 over its normed row
+            qkv = torch.stack([_int4_dot(xn, wqkv_f.q[l, i], wqkv_f.s[l, i],
+                                         gs, a8) for i in range(G)], dim=1)
+        elif w8:    # per head group and column, after the sum over hidden
             qkv = torch.einsum("nd,Gdc->nGc", xn.float(),
                                wqkv_f.q[l].float()) * wqkv_f.s[l][:, 0]
         else:
@@ -133,7 +153,14 @@ def fused_verify_stack_plain(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f,
         k_cache[l, :, pos:pos + n] = k_new.transpose(0, 1).to(k_cache.dtype)
         v_cache[l, :, pos:pos + n] = v_new.transpose(0, 1).to(v_cache.dtype)
         o_flat = o.permute(2, 0, 1, 3).reshape(n, kv * g * hd)
-        if w8:      # each group's partial scaled, then the groups summed
+        if w4:      # the head groups' products, summed in order
+            og = o_flat.reshape(n, G, -1)
+            aout = torch.zeros((n, hidden), dtype=torch.float32,
+                               device=x.device)
+            for i in range(G):
+                aout = aout + _int4_dot(og[:, i], wo_f.q[l, i], wo_f.s[l, i],
+                                        gs, a8)
+        elif w8:    # each group's partial scaled, then the groups summed
             aout = (torch.einsum("nGc,Gco->nGo",
                                  o_flat.float().reshape(n, G, -1),
                                  wo_f.q[l].float())
@@ -142,7 +169,17 @@ def fused_verify_stack_plain(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f,
             aout = o_flat.float() @ wo_f[l].reshape(-1, hidden).float()
         res = aout + res
         xn2 = _norm(res, ffn_norm[l], eps)
-        if w8:      # gate and up per column before SwiGLU; down after its sum
+        if w4:      # gate and up over the rows; down per f-block, summed
+            y = [_int4_dot(xn2, w13.q[l, i], w13.s[l, i], gs, a8)
+                 for i in range(2)]
+            act = glu_act(y[0], y[1]).to(bf16)
+            hx = torch.zeros((n, hidden), dtype=torch.float32,
+                             device=x.device)
+            for j in range(0, act.shape[1], bf):
+                hx = hx + _int4_dot(act[:, j:j + bf],
+                                    w2.q[l, j // 2:(j + bf) // 2],
+                                    w2.s[l, j // gs:(j + bf) // gs], gs, a8)
+        elif w8:    # gate and up per column before SwiGLU; down after its sum
             y = torch.einsum("nd,udf->unf", xn2.float(),
                              w13.q[l].float()) * w13.s[l]
             act = glu_act(y[0], y[1]).to(bf16)
@@ -191,7 +228,7 @@ def fused_verify_stack(
     given.  All n K/V rows are written at pos..pos+n-1 of every layer, in
     place.
     """
-    global launches, int8_launches, last_step_kernels
+    global launches, int8_launches, int4_launches, last_step_kernels
     if reduce_axis is not None:
         raise NotImplementedError("fused_verify_stack: reduce_axis (the tp "
                                   "mode of the decode stack) has no verify "
@@ -201,7 +238,7 @@ def fused_verify_stack(
                     lm_head, k_cache, v_cache, window=window,
                     bias_qkv=bias_qkv, ffn_act=ffn_act, softcap=softcap,
                     post_attn_norm=post_attn_norm,
-                    post_ffn_norm=post_ffn_norm, int8=True)
+                    post_ffn_norm=post_ffn_norm, int8=True, int4=True)
     check_stack_kcfg(kcfg)
     pos = int(pos)
     n, hidden = x.shape
@@ -228,7 +265,8 @@ def fused_verify_stack(
             x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f, w13, w2, k_cache,
             v_cache, pos, group=group, head_dim=head_dim,
             rope_style=rope_style, eps=eps, final_norm=final_norm,
-            lm_head=lm_head, kv_split=kcfg.kv_split)
+            lm_head=lm_head, kv_split=kcfg.kv_split,
+            int4_w4a8=kcfg.int4_w4a8)
 
     if rope_style not in ("neox", "gptj"):
         raise ValueError(f"unknown rope style {rope_style!r}")
@@ -238,10 +276,12 @@ def fused_verify_stack(
     if x.dtype != torch.bfloat16:
         raise ValueError("x must be bf16 [n, hidden]")
     dev = x.device
-    w8 = isinstance(wqkv_f, QuantizedTensor)
-    weights, scales = int8_operands(
+    wq_kind = wq_kind_of(wqkv_f, kcfg)
+    w8 = isinstance(wqkv_f, QuantizedTensor) and wqkv_f.kind == "int8"
+    w4 = isinstance(wqkv_f, QuantizedTensor) and wqkv_f.kind == "int4"
+    weights, scales = quant_operands(
         dict(wqkv_f=wqkv_f, wo_f=wo_f, w13=w13, w2=w2, lm_head=lm_head),
-        (C, hidden, f_pad) if w8 else (), vocab)
+        (C, hidden, f_pad) if w8 or w4 else (), vocab)
     check_launch(kcfg, dict(x=x, attn_norm=attn_norm, ffn_norm=ffn_norm,
                             k_cache=k_cache, v_cache=v_cache,
                             final_norm=final_norm, **weights, **scales),
@@ -276,10 +316,12 @@ def fused_verify_stack(
         kcfg.gemv_threads, ctypes.byref(n_launch),
         torch.cuda.current_stream(dev).cuda_stream,
         *(ptr(scales.get(k)) for k in ("wqkv_f_s", "wo_f_s", "w13_s", "w2_s",
-                                       "lm_head_s")))
+                                       "lm_head_s")),
+        wq_kind, ffn_block_size(f_pad))
     _build.check(err, "fused_verify_stack")
     launches += 1
     int8_launches += int(w8)
+    int4_launches += int(w4)
     last_step_kernels = n_launch.value
     if lm_head is not None:
         return logits, res_out, k_cache, v_cache

@@ -121,7 +121,8 @@ def shard_params(params, cfg: LlamaConfig, mesh: Mesh):
     of ``wqkv_f``/``wo_f`` must divide by tp: ``init_params(head_group=1)``
     makes G = kv_heads.  An int4 tree raises: no tp or sp step takes one
     yet."""
-    model.refuse_quantized(params, "shard_params", allow=("int8",))
+    model.refuse_quantized(params, "shard_params", allow=("int8",),
+                           item="1.4")
     specs = param_pspecs(cfg, mesh.shape["tp"], params)
     return _tree_map(lambda t, s: shard_tensor(t, s, mesh), params, specs)
 

@@ -18,9 +18,16 @@
   batched step's M=B products on the GEMVs' int8 instances (``ops.gemv``'s
   ``_gemv_int8``/``_ffn_int8``; their plain twins on the CPU), the fused
   step on ``llama_decoder_layer_paged``'s int8 mode and the same int8 FFN;
-  the default step stays ``"batched"``, as in the JAX engine.  int4
-  weights, ``kcfg.serving_w8a8`` and an int8/fp8 pool raise
-  ``NotImplementedError`` (``ROADMAP.md`` queue 2, modes 1, 6 and 2).
+  the default step stays ``"batched"``, as in the JAX engine;
+- int4 weights (group size 128; ``ROADMAP.md`` queue 2, mode 1.5) run
+  both steps in the exact mode the JAX engine computes (x @ bf16(code *
+  s)): the fused step, the default for an int4 tree as in the JAX engine
+  (JAX ``runtime/serving.py:445-453``), on ``llama_decoder_layer_paged``'s
+  int4 mode and ``ops.gemv._ffn_int4``; the batched step on
+  ``_gemv_int4``/``_ffn_int4`` around ``paged_attention``.  Both stream
+  the packed codes; no bf16 copy of a weight is made;
+- ``kcfg.serving_w8a8`` and an int8/fp8 pool raise
+  ``NotImplementedError`` (``ROADMAP.md`` queue 2, modes 6 and 2).
 
 The pools ``[L, num_pages, kv_heads, page, hd]`` (bf16) live on the
 parameters' device and are updated in place by the kernels and the
@@ -42,11 +49,13 @@ import torch
 from clusterfusion_tpu_torch.config import KernelConfig, LlamaConfig
 from clusterfusion_tpu_torch.models import llama as model
 from clusterfusion_tpu_torch.models.sampling import sample_batch
-from clusterfusion_tpu_torch.ops.gemv import _ffn_int8, _gemv_int8
+from clusterfusion_tpu_torch.ops.gemv import (_ffn_int4, _ffn_int8, _gemv_int4,
+                                              _gemv_int8)
 from clusterfusion_tpu_torch.ops.paged_decoder_layer import (
     llama_decoder_layer_paged, paged_attention)
 from clusterfusion_tpu_torch.ops.quant import QuantizedTensor
 from clusterfusion_tpu_torch.ops.reference import fused_add_rmsnorm_ref
+from clusterfusion_tpu_torch.ops.stack_kernel import check_int4_group
 from clusterfusion_tpu_torch.runtime.native import PagedKVScheduler
 
 
@@ -97,31 +106,44 @@ def _int8(w) -> bool:
     return isinstance(w, QuantizedTensor) and w.kind == "int8"
 
 
+def _int4(w) -> bool:
+    return isinstance(w, QuantizedTensor) and w.kind == "int4"
+
+
 def batched_qkv_dot(xn: torch.Tensor, w) -> torch.Tensor:
     """[B, h] @ [G, h, c] -> [B, G, c] bf16, float32 accumulation; int8:
-    each column's scale after the sum, then bf16 (JAX ``serving.py:164``)."""
-    if _int8(w):
+    each column's scale after the sum, then bf16 (JAX ``serving.py:164``);
+    int4: the exact product over bf16(code * s)."""
+    if _int8(w) or _int4(w):
         G, _, c = w.shape
-        return _gemv_int8(xn, w.q, w.s, bf16_out=True).reshape(-1, G, c)
+        gemv = _gemv_int8 if _int8(w) else _gemv_int4
+        return gemv(xn, w.q, w.s, bf16_out=True).reshape(-1, G, c)
     return model._mm(xn[None], w).transpose(0, 1)
 
 
 def batched_o_dot(o3: torch.Tensor, w) -> torch.Tensor:
     """[B, G, c] @ [G, c, hidden] summed over G -> [B, hidden] float32;
-    int8: each group's partial scaled before the sum over G."""
+    int8: each group's partial scaled before the sum over G; int4: one
+    product over the G*c rows, the group scales along them."""
     B, G, c = o3.shape
     if _int8(w):
         return _gemv_int8(o3.reshape(B, G * c), w.q.reshape(G * c, -1),
                           w.s.reshape(G, -1), kg=c)
+    if _int4(w):
+        hidden = w.shape[-1]
+        return _gemv_int4(o3.reshape(B, G * c), w.q.reshape(-1, hidden),
+                          w.s.reshape(-1, hidden))
     return model._mm(o3.reshape(B, G * c), w.reshape(G * c, -1), out_f32=True)
 
 
 def batched_ffn(xn2: torch.Tensor, w13, w2, ffn_act: str) -> torch.Tensor:
     """Gated FFN of the batch: bf16 weights, the model's own FFN; int8
     SwiGLU, gate and up scaled before it and down after its sum, on the
-    GEMVs' int8 instances."""
+    GEMVs' int8 instances; int4 on their int4 instances, exact."""
     if _int8(w13):          # the engine admits only silu (_check_supported)
         return _ffn_int8(xn2, w13.q, w13.s, w2.q, w2.s)
+    if _int4(w13):
+        return _ffn_int4(xn2, w13.q, w13.s, w2.q, w2.s)
     return model._ffn(xn2, w13, w2, ffn_act)
 
 
@@ -222,16 +244,18 @@ class ServingEngine:
                                       "ROADMAP.md queue 2, mode 2)")
         lw = params["layers"]
         weights = [lw[k] for k in ("wqkv_f", "wo_f", "w13", "w2")]
-        if any(isinstance(w, QuantizedTensor) and w.kind != "int8"
-               for w in weights + [params["lm_head"]]):
-            raise NotImplementedError("ServingEngine: int4 weights are not "
-                                      "ported yet (ROADMAP.md queue 2, "
-                                      "mode 1)")
+        if _int4(params["lm_head"]):
+            raise NotImplementedError("ServingEngine: an int4 LM head (no JAX "
+                                      "path makes one) is not ported "
+                                      "(ROADMAP.md queue 2, mode 1.5)")
+        for w in weights:
+            if _int4(w):
+                check_int4_group(w.group_size, "ServingEngine")
         if any(not isinstance(w, QuantizedTensor)
                and w.dtype != torch.bfloat16
                for w in weights + [params["lm_head"]]):
-            raise NotImplementedError("ServingEngine: only bf16 and int8 "
-                                      "weights are ported")
+            raise NotImplementedError("ServingEngine: only bf16, int8 and "
+                                      "int4 weights are ported")
         if kcfg.serving_w8a8:
             raise NotImplementedError("ServingEngine: serving_w8a8 (int8 "
                                       "activations) is not ported yet "
@@ -246,7 +270,9 @@ class ServingEngine:
             # same step on the same inputs
             step_impl = "fused"
         if step_impl is None:
-            step_impl = "batched"
+            # int4: the fused step, as in the JAX engine, whose batched
+            # step would dequantize the weights per layer
+            step_impl = "fused" if _int4(lw["wqkv_f"]) else "batched"
         if step_impl not in ("batched", "fused"):
             raise ValueError(f"unknown step_impl {step_impl!r}")
         if max_pages_per_req is None:

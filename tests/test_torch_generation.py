@@ -141,7 +141,14 @@ def test_chat_cli(capsys):
                "--temperature", "0", "--max_seq_len", "64"])
     out = capsys.readouterr().out
     assert "fused=True" in out and "tokens/sec" in out
-    for flags in (["--synthetic", "--quant", "int4"], ["--synthetic", "--kv_int8"],
+    for flags in (["--synthetic", "--kv_int8"],
                   ["--synthetic", "--spec_draft", "x"], []):
         with pytest.raises(SystemExit, match="not yet ported"):
             chat.main(flags)
+    # --quant int4 runs: kernel 7's int4 twin in its default mode, W4A8
+    chat.main(["--synthetic", "--quant", "int4", "--device", "cpu",
+               "--max_gen_len", "3", "--temperature", "0", "--max_seq_len",
+               "64"])
+    out = capsys.readouterr().out
+    assert "fused=True W4A8" in out and "quant=int4" in out and \
+        "tokens/sec" in out

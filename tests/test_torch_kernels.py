@@ -1125,10 +1125,11 @@ def test_stack_c_entries_refuse_head_dim_256(dev, entry):
     if entry == "cf_decoder_stack":
         err = lib.cf_decoder_stack(*p, *dims, 1e-5, 64, 256,
                                    ctypes.byref(n_launch), None, 0, st,
-                                   *[None] * 5)
+                                   *[None] * 5, 0, 0)
     else:
         err = lib.cf_verify_stack(*p, 2, *dims, 1e-5, 64, 256,
-                                  ctypes.byref(n_launch), st, *[None] * 5)
+                                  ctypes.byref(n_launch), st, *[None] * 5,
+                                  0, 0)
     torch.cuda.synchronize()
     assert err == 1
     assert n_launch.value == 0
@@ -1931,35 +1932,40 @@ def test_paged_layer_int8_kernel_matches_plain(dev, B, lens, kv, hg):
 
 
 def test_int8_entries_refuse(dev):
-    """On the card the wrappers refuse int4 weights before any launch
-    (ROADMAP.md queue 2, mode 1), and the C entries refuse what the int8
-    instances do not take: a width that is not a multiple of 16, a scale
-    group that does not divide K, the pair form at one row."""
+    """On the card the wrappers refuse int4 weights in kernel 6 before any
+    launch (ROADMAP.md queue 2, mode 1.4), and int4 in a group size the
+    kernels do not take in kernel 9 (mode 1.5); the C entries refuse what
+    the int8 instances do not take: a width that is not a multiple of 16, a
+    scale group that does not divide K, the pair form at one row."""
     from clusterfusion_tpu_torch.ops import _build
+    from clusterfusion_tpu_torch.ops import decoder_layer as dl
     from clusterfusion_tpu_torch.ops import paged_decoder_layer as pd
-    from clusterfusion_tpu_torch.ops import stack_verify as sv
     from clusterfusion_tpu_torch.ops.quant import quantize_llama_params
-    pos, n = 37, 3
+    pos = 37
     g, a, kc, vc, lm = _stack_args(dev, 16, 8, 4, pos, seed=65)
     q4 = quantize_llama_params(
         {"layers": {k: a[k] for k in ("wqkv_f", "wo_f", "w13", "w2")},
          "lm_head": lm["lm_head"]}, "int4")["layers"]
-    cos, sin = model.rope_rows(LlamaConfig.tiny(), pos, n, dev)
-    before = sv.launches
-    with pytest.raises(NotImplementedError, match="queue 2, mode 1"):
-        sv.fused_verify_stack(_randn((n, HIDDEN), dev, 66), a["attn_norm"],
-                              a["ffn_norm"], cos, sin, q4["wqkv_f"],
-                              q4["wo_f"], q4["w13"], q4["w2"], kc, vc, pos,
-                              group=g, head_dim=HD, rope_style="gptj",
-                              eps=1e-5)
-    assert sv.launches == before
+    cos, sin = model.rope_row(LlamaConfig.tiny(), pos, dev)
+    before = dl.launches
+    with pytest.raises(NotImplementedError, match="queue 2, mode 1.4"):
+        dl._fused_decoder_layer(
+            a["x"], _randn((1, HIDDEN), dev, 66), a["attn_norm"], cos, sin,
+            q4["wqkv_f"], q4["wo_f"], kc, vc, pos, 1, group=g, head_dim=HD,
+            rope_style="gptj", fuse_residual=True, eps=1e-5)
+    assert dl.launches == before
+    q64 = quantize_llama_params(
+        {"layers": {k: a[k] for k in ("wqkv_f", "wo_f")}}, "int4", 64,
+        targets=("wqkv_f", "wo_f"))["layers"]
     cos_t, sin_t = model.rope_table(LlamaConfig.tiny(), device=dev)
     kp, vp, table, lens_t = _paged_pools(dev, 2, 8, 16, HD, [5, 9], 67)
-    with pytest.raises(NotImplementedError, match="queue 2, mode 1"):
+    before = pd.launches["llama_decoder_layer_paged"]
+    with pytest.raises(NotImplementedError, match="queue 2, mode 1.5"):
         pd.llama_decoder_layer_paged(
             _randn((2, HIDDEN), dev, 68), _randn((2, HIDDEN), dev, 69),
-            q4["wqkv_f"], q4["wo_f"], table, lens_t, lens_t, kp, vp, 1,
+            q64["wqkv_f"], q64["wo_f"], table, lens_t, lens_t, kp, vp, 1,
             a["attn_norm"][1], 1e-5, cos_t, sin_t, group=g)
+    assert pd.launches["llama_decoder_layer_paged"] == before
     lib = _build.lib()
     x = _randn((4, 512), dev, 70)
     q = torch.zeros((2, 512, 512), dtype=torch.int8, device=dev)
@@ -2013,6 +2019,426 @@ def test_int8_engine_spec_and_serving_on_card(dev):
             assert (gemv.int8_launches > before[0]) == (impl == "batched")
             assert gemv.ffn8_launches > before[1]
             assert (pd.launches["llama_decoder_layer_paged_int8"] > before[2]) \
+                == (impl == "fused")
+        for i in range(len(prompts)):
+            assert outs[0][i] == outs[1 + i][0], (impl, i)
+    toks, _ = eng.generate([prompts[0]], 6, temperature=0.0)
+    assert toks[0] == outs[1][0]
+
+
+# -- int4 weights on the ring and rows GEMVs (kernels 7, 8, 9, serving) -------
+
+
+def _int4_codes(dev, nmat, K, N, seed):
+    """Packed int4 codes [nmat, K/2, N] over every byte value (code -8
+    included) and float32 group scales [nmat, K/128, N] that are bf16
+    values."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randint(-128, 128, (nmat, K // 2, N), generator=g,
+                      dtype=torch.int8)
+    s = (torch.rand((nmat, K // 128, N), generator=g) * 0.05 + 0.01)
+    return q.to(dev), s.bfloat16().float().to(dev)
+
+
+@pytest.mark.parametrize("M", [1, 2, 5, 9, 16, 20])
+@pytest.mark.parametrize("K,N,nmat,kg", [(128, 256, 1, 0), (384, 272, 3, 0),
+                                         (4096, 512, 1, 1024),
+                                         (2048, 4096, 1, 0)],
+                         ids=["one_group", "three_groups_ragged", "blocks",
+                              "wide"])
+@pytest.mark.parametrize("a8", [False, True], ids=["exact", "w4a8"])
+def test_gemv4_matches_plain(dev, M, K, N, nmat, kg, a8):
+    """The GEMVs' int4 instances (the rows GEMV's from 2 rows, the one-row
+    GEMV's at 1) in both modes against their plain twin: K of one and of
+    three scale groups, x whose halves differ 10x in absmax (W4A8
+    quantizes per activation block: kg rows, or the row), the same bits on
+    a repeat."""
+    gemv = importlib.import_module("clusterfusion_tpu_torch.ops.gemv")
+    q, s = _int4_codes(dev, nmat, K, N, 170 + M)
+    x = _randn((M, K), dev, 171)
+    x[:, : K // 2] *= 10
+    before = gemv.int4_launches
+    y = gemv._gemv_int4(x, q, s, kg=kg, a8=a8)
+    again = gemv._gemv_int4(x, q, s, kg=kg, a8=a8)
+    torch.cuda.synchronize()
+    assert gemv.int4_launches == before + 2
+    assert y.shape == (M, nmat * N) and torch.equal(y, again)
+    ref = gemv._gemv_int4_plain(x.cpu(), q.cpu(), s.cpu(), kg, a8)
+    torch.testing.assert_close(y.cpu(), ref, atol=1e-3 * ref.abs().max().item(),
+                               rtol=1e-2)
+
+
+@pytest.mark.parametrize("M", [2, 9])
+@pytest.mark.parametrize("a8", [False, True], ids=["exact", "w4a8"])
+def test_gemv4_pair_matches_plain(dev, M, a8):
+    """The rows GEMV's int4 pair form (the verify's gate/up product):
+    bf16(silu(gate) * up) against the plain products."""
+    import ctypes
+
+    import torch.nn.functional as F
+
+    from clusterfusion_tpu_torch.ops import _build
+    gemv = importlib.import_module("clusterfusion_tpu_torch.ops.gemv")
+    K, N = 512, 384
+    q, s = _int4_codes(dev, 2, K, N, 180 + M)
+    x = _randn((M, K), dev, 181)
+    yb = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+    x8 = torch.empty((M, K), dtype=torch.bfloat16, device=dev)
+    xs = torch.empty((M, 1), device=dev)
+    err = _build.lib().cf_gemv_rows4(
+        x.data_ptr(), K, 1, q.data_ptr(), s.data_ptr(), 0, None, yb.data_ptr(),
+        M, K, N, 2, int(a8), x8.data_ptr(), xs.data_ptr(), ctypes.c_void_p(
+            torch.cuda.current_stream(dev).cuda_stream))
+    torch.cuda.synchronize()
+    assert err == 0
+    ref = gemv._gemv_int4_plain(x.cpu(), q.cpu(), s.cpu(), 0, a8)
+    want = (F.silu(ref[:, :N]) * ref[:, N:]).to(torch.bfloat16)
+    torch.testing.assert_close(yb.float().cpu(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.parametrize("M", [1, 16])
+def test_gemv4_unpacks_every_byte_and_rounds_once(dev, M):
+    """One-hot x rows pick single k rows of codes that take every byte
+    value in each column sweep: the exact mode's outputs are bf16(code * s)
+    bit for bit, the nibbles read as ``unpack_int4`` reads them (code -8
+    too), and s makes the product need 11 bits (trap 3: a kernel that
+    skipped the bf16 rounding would differ)."""
+    from clusterfusion_tpu_torch.ops.quant import unpack_int4
+    gemv = importlib.import_module("clusterfusion_tpu_torch.ops.gemv")
+    K, N = 256, 256
+    b = (torch.arange(K // 2)[:, None] + torch.arange(N)[None]) % 256
+    q = b.to(torch.uint8).view(torch.int8)
+    s = torch.full((K // 128, N), 255 / 128)          # bf16 1.9921875
+    codes = unpack_int4(q, 0).float()                 # [K, N]
+    ks = [(3 + 37 * i) % K for i in range(M)]
+    x = torch.zeros((M, K), dtype=torch.bfloat16)
+    x[torch.arange(M), ks] = 1
+    y = gemv._gemv_int4(x.to(dev), q.to(dev), s.to(dev))
+    torch.cuda.synchronize()
+    unrounded = codes[ks] * s[0]
+    want = unrounded.to(torch.bfloat16).float()
+    assert torch.equal(y.cpu(), want)
+    assert not torch.equal(want, unrounded)
+    assert set(codes[ks].flatten().tolist()) == set(range(-8, 8))
+
+
+@pytest.mark.parametrize("M", [1, 4, 9])
+def test_ffn4_matches_plain(dev, M):
+    """The int4 FFN (exact: the rows GEMV's int4 pair form, then the down
+    product; at one row the one-row GEMV's int4 instances) against its
+    plain twin."""
+    gemv = importlib.import_module("clusterfusion_tpu_torch.ops.gemv")
+    from clusterfusion_tpu_torch.ops.quant import quantize_int4
+    hidden, f = 512, 1024
+    w13 = quantize_int4(_randn((2, hidden, f), dev, 190, hidden ** -0.5), -2)
+    w2 = quantize_int4(_randn((f, hidden), dev, 191, f ** -0.5), -2)
+    x = _randn((M, hidden), dev, 192)
+    before = gemv.ffn4_launches
+    out = gemv._ffn_int4(x, w13.q, w13.s, w2.q, w2.s)
+    again = gemv._ffn_int4(x, w13.q, w13.s, w2.q, w2.s)
+    torch.cuda.synchronize()
+    assert gemv.ffn4_launches == before + 2
+    ref = gemv._ffn_int4_plain(x.cpu(), w13.q.cpu(), w13.s.cpu(), w2.q.cpu(),
+                               w2.s.cpu())
+    assert torch.equal(_bits(out), _bits(again))
+    torch.testing.assert_close(out.float().cpu(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_gemv4_entries_refuse(dev):
+    """The int4 C entry refuses what the int4 instances do not take: K not
+    a multiple of 128, a width not a multiple of 16, the pair form at one
+    row, an activation block that does not divide K, W4A8 from 2 rows
+    without its x8 scratch."""
+    import ctypes
+
+    from clusterfusion_tpu_torch.ops import _build
+    lib = _build.lib()
+    x = _randn((4, 512), dev, 193)
+    q = torch.zeros((2, 256, 512), dtype=torch.int8, device=dev)
+    s = torch.ones((2, 4, 512), device=dev)
+    y = torch.empty((4, 1024), device=dev)
+    yb = torch.empty((4, 512), dtype=torch.bfloat16, device=dev)
+    x8 = torch.empty((4, 512), dtype=torch.bfloat16, device=dev)
+    xs = torch.empty((4, 4), device=dev)
+    st = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    good = lib.cf_gemv_rows4(x.data_ptr(), 512, 0, q.data_ptr(), s.data_ptr(),
+                             0, y.data_ptr(), None, 4, 512, 512, 2, 1,
+                             x8.data_ptr(), xs.data_ptr(), st)
+    assert good == 0
+    for pair, kg, M, K, N, nmat, q8 in ((0, 0, 4, 448, 512, 1, x8),
+                                        (0, 0, 4, 512, 504, 2, x8),
+                                        (1, 0, 1, 512, 512, 2, x8),
+                                        (0, 384, 4, 512, 512, 1, x8),
+                                        (0, 0, 4, 512, 512, 1, None)):
+        err = lib.cf_gemv_rows4(x.data_ptr(), 512, pair, q.data_ptr(),
+                                s.data_ptr(), kg, y.data_ptr(), yb.data_ptr(),
+                                M, K, N, nmat, 1,
+                                None if q8 is None else q8.data_ptr(),
+                                xs.data_ptr(), st)
+        assert err != 0, (pair, kg, M, K, N, nmat)
+    torch.cuda.synchronize()
+
+
+def _int4_stack(a, lm, lm_kind):
+    """The stack's four projections quantized to int4 (groups of 128), and
+    the LM head as ``lm_kind`` says: None, "bf16" or "int8"."""
+    from clusterfusion_tpu_torch.ops.quant import (quantize_int8,
+                                                   quantize_llama_params)
+    q = quantize_llama_params(
+        {"layers": {k: a[k] for k in ("wqkv_f", "wo_f", "w13", "w2")},
+         "lm_head": lm["lm_head"]}, "int4")
+    head = {} if lm_kind is None else dict(
+        final_norm=lm["final_norm"],
+        lm_head=quantize_int8(lm["lm_head"], -2) if lm_kind == "int8"
+        else lm["lm_head"])
+    return q["layers"], head
+
+
+INT4_SHAPES = INT8_SHAPES[:2]
+
+
+def _w4a8_by_layer(kernel, plain, args, kc, vc, pos, kcfg, kw, held):
+    """W4A8 held layer by layer, teacher-forced: layer l of the kernel and
+    of its plain twin, both from the kernel's own state after its first l
+    layers (x_out + residual_out), at phase 4's limits (``held(out, ref,
+    kk, vk, kp, vp)``: each output within 2e-2 of its largest value).  A
+    bf16 rounding that the two take apart can move an activation across a
+    step of its int8 quantization, which moves every output of that
+    product a little, and over free-running layers that compounds; one
+    layer from one input must still agree."""
+    x, norms, rope, proj = args[0], args[1:3], args[3:5], args[5:]
+    bare = {k: v for k, v in kw.items() if k not in ("final_norm", "lm_head")}
+    for l in range(L):
+        xl = x
+        if l:
+            h, r, _, _ = kernel(x, *(t[:l] for t in norms), *rope,
+                                *(t[:l] for t in proj), kc[:l].clone(),
+                                vc[:l].clone(), pos, kcfg=kcfg, **bare)
+            xl = (h.float() + r.float()).bfloat16()
+        one = (xl, *(t[l:l + 1] for t in norms), *rope,
+               *(t[l:l + 1] for t in proj))
+        kk, vk = kc[l:l + 1].clone(), vc[l:l + 1].clone()
+        kp, vp = kk.clone(), vk.clone()
+        out = kernel(*one, kk, vk, pos, kcfg=kcfg, **kw)
+        ref = plain(*one, kp, vp, pos, int4_w4a8=True, **kw)
+        held(out, ref, kk, vk, kp, vp)
+
+
+@pytest.mark.parametrize("pos", [0, 37, CAP - 1])
+@pytest.mark.parametrize("lm_kind", [None, "bf16", "int8"],
+                         ids=["no_lm", "lm_bf16", "lm_int8"])
+@pytest.mark.parametrize("a8", [True, False], ids=["w4a8", "exact"])
+@pytest.mark.parametrize("n_heads,kv_heads,hg", INT4_SHAPES,
+                         ids=["hg4_G2", "hg8_G2"])
+def test_stack_int4_kernel_matches_plain(dev, n_heads, kv_heads, hg, a8,
+                                         lm_kind, pos):
+    """Kernel 7's int4 modes against their plain twin at phase 4's limits
+    (W4A8 layer by layer, teacher-forced), every cache row above pos NaN,
+    the same launches as the int8 mode and the same bits on a repeat."""
+    g, a, kc, vc, lm = _stack_args(dev, n_heads, kv_heads, hg, pos, seed=120)
+    kc[:, :, pos + 1:] = float("nan")
+    vc[:, :, pos + 1:] = float("nan")
+    w, head = _int4_stack(a, lm, lm_kind)
+    cfg = LlamaConfig.tiny()
+    cos, sin = model.rope_row(cfg, pos, dev)
+    kw = dict(group=g, head_dim=HD, rope_style=cfg.rope_style, eps=1e-5,
+              **head)
+    kcfg = KernelConfig(int4_w4a8=a8)
+    args = [a["x"], a["attn_norm"], a["ffn_norm"], cos, sin, w["wqkv_f"],
+            w["wo_f"], w["w13"], w["w2"]]
+    kp, vp = kc.clone(), vc.clone()
+    k2, v2 = kc.clone(), vc.clone()
+    before = (sk.launches, sk.int4_launches)
+    out = sk.fused_decoder_stack(*args, kc, vc, pos, kcfg=kcfg, **kw)
+    again = sk.fused_decoder_stack(*args, k2, v2, pos, kcfg=kcfg, **kw)
+    torch.cuda.synchronize()
+    assert (sk.launches, sk.int4_launches) == (before[0] + 2, before[1] + 2)
+    assert sk.last_step_kernels == 8 * L - (pos == 0) * L + 1 + bool(head)
+    for got, want in zip((*again[:2], k2, v2), (*out[:2], kc, vc)):
+        assert _same_bits(got, want) if got.dtype == torch.bfloat16 else \
+            torch.equal(got, want)
+    assert torch.isfinite(out[0].float()).all()
+
+    def held(out, ref, kc, vc, kp, vp):
+        tol = 2e-2
+        for i, (got, want) in enumerate(zip(out[:2], ref[:2])):
+            if a8 or head and i == 0:   # within 2e-2 of the largest value
+                err = (got.float() - want.float()).abs().max().item()
+                assert err <= tol * want.float().abs().max().item(), (i, err)
+            else:
+                torch.testing.assert_close(got.float(), want.float(),
+                                           atol=tol, rtol=2e-2)
+        for got, want in ((kc, kp), (vc, vp)):
+            torch.testing.assert_close(got[:, :, pos].float(),
+                                       want[:, :, pos].float(), atol=0.05,
+                                       rtol=0)
+        others = torch.ones(CAP, dtype=torch.bool, device=dev)
+        others[pos] = False
+        assert _same_bits(kc[:, :, others], kp[:, :, others])
+        assert _same_bits(vc[:, :, others], vp[:, :, others])
+
+    if a8:
+        _w4a8_by_layer(sk.fused_decoder_stack, sk.fused_decoder_stack_plain,
+                       args, kp, vp, pos, kcfg, kw, held)
+    else:
+        ref = sk.fused_decoder_stack_plain(*args, kp, vp, pos,
+                                           int4_w4a8=False, **kw)
+        held(out, ref, kc, vc, kp, vp)
+
+
+@pytest.mark.parametrize("n,pos", [(1, 37), (2, 0), (5, 37), (9, 300),
+                                   (17, 100)])
+@pytest.mark.parametrize("lm_kind", [None, "int8"], ids=["no_lm", "lm_int8"])
+@pytest.mark.parametrize("a8", [True, False], ids=["w4a8", "exact"])
+@pytest.mark.parametrize("n_heads,kv_heads,hg", INT4_SHAPES,
+                         ids=["hg4_G2", "hg8_G2"])
+def test_verify_int4_kernel_matches_plain(dev, n_heads, kv_heads, hg, a8,
+                                          lm_kind, n, pos):
+    """Kernel 8's int4 modes against their plain twin at phase 9's limits
+    (W4A8 layer by layer, teacher-forced), rows at and above pos holding
+    large garbage, the other rows untouched, and the same bits on a
+    repeat."""
+    from clusterfusion_tpu_torch.ops import stack_verify as sv
+    g, a, kc, vc, lm = _stack_args(dev, n_heads, kv_heads, hg, pos, seed=150)
+    kc[:, :, pos:] = _randn(kc[:, :, pos:].shape, dev, 151, 8.0)
+    vc[:, :, pos:] = _randn(vc[:, :, pos:].shape, dev, 152, 8.0)
+    w, head = _int4_stack(a, lm, lm_kind)
+    x = _randn((n, HIDDEN), dev, 153)
+    cfg = LlamaConfig.tiny()
+    cos, sin = model.rope_rows(cfg, pos, n, dev)
+    kw = dict(group=g, head_dim=HD, rope_style=cfg.rope_style, eps=1e-5,
+              **head)
+    args = [x, a["attn_norm"], a["ffn_norm"], cos, sin, w["wqkv_f"],
+            w["wo_f"], w["w13"], w["w2"]]
+    kcfg = KernelConfig(int4_w4a8=a8)
+    k0, v0 = kc.clone(), vc.clone()
+    kp, vp = kc.clone(), vc.clone()
+    k2, v2 = kc.clone(), vc.clone()
+    before = (sv.launches, sv.int4_launches)
+    out = sv.fused_verify_stack(*args, kc, vc, pos, kcfg=kcfg, **kw)
+    again = sv.fused_verify_stack(*args, k2, v2, pos, kcfg=kcfg, **kw)
+    torch.cuda.synchronize()
+    assert (sv.launches, sv.int4_launches) == (before[0] + 2, before[1] + 2)
+    # from 2 rows W4A8 quantizes the x of each of a layer's four products
+    # in a launch of its own
+    assert sv.last_step_kernels == 8 * L - (pos == 0) * L + 1 + bool(head) \
+        + 4 * L * (a8 and n > 1)
+    for got, want in zip((*again[:2], k2, v2), (*out[:2], kc, vc)):
+        assert torch.equal(got, want)
+    new = slice(pos, pos + n)
+    others = torch.ones(CAP, dtype=torch.bool, device=dev)
+    others[new] = False
+    assert torch.equal(kc[:, :, others], k0[:, :, others])
+    assert torch.equal(vc[:, :, others], v0[:, :, others])
+
+    def held(out, ref, kc, vc, kp, vp):
+        tol = 2e-2
+        for i, (got, want) in enumerate(zip(out[:2], ref[:2])):
+            if a8 or head and i == 0:   # within 2e-2 of the largest value
+                err = (got.float() - want.float()).abs().max().item()
+                assert err <= tol * want.float().abs().max().item(), (i, err)
+            else:
+                torch.testing.assert_close(got.float(), want.float(),
+                                           atol=tol, rtol=2e-2)
+        for got, want in ((kc, kp), (vc, vp)):
+            torch.testing.assert_close(got[:, :, new].float(),
+                                       want[:, :, new].float(), atol=0.05,
+                                       rtol=0)
+        assert torch.equal(kc[:, :, others], kp[:, :, others])
+        assert torch.equal(vc[:, :, others], vp[:, :, others])
+
+    if a8:
+        _w4a8_by_layer(sv.fused_verify_stack, sv.fused_verify_stack_plain,
+                       args, kp, vp, pos, kcfg, kw, held)
+    else:
+        ref = sv.fused_verify_stack_plain(*args, kp, vp, pos, int4_w4a8=False,
+                                          **kw)
+        held(out, ref, kc, vc, kp, vp)
+
+
+@pytest.mark.parametrize("B,lens", [(1, [37]), (4, [40, 0, 0, 0]),
+                                    (8, [0, 1, 15, 16, 63, 64, 100, 200])])
+@pytest.mark.parametrize("kv,hg", [(8, 4), (8, 8)], ids=["hg4_G2", "hg8_G1"])
+def test_paged_layer_int4_kernel_matches_plain(dev, B, lens, kv, hg):
+    """Kernel 9's int4 mode (exact) against its plain twin, NaN in every
+    pool row no request owns, the same bits on a repeat."""
+    from clusterfusion_tpu_torch.ops import paged_decoder_layer as pd
+    from clusterfusion_tpu_torch.ops.quant import quantize_int4
+    L, layer, hidden, g, hd, page = 2, 1, 512, 2, 128, 16
+    cfg = LlamaConfig.tiny()
+    cos_t, sin_t = model.rope_table(cfg, device=dev)
+    kp, vp, table, lens_t = _paged_pools(dev, L, kv, page, hd, lens, 160)
+    _nan_unowned(kp, vp, table, lens_t)
+    wqkv, wo = (quantize_int4(w, -2)
+                for w in _layer_weights(dev, L, hidden, kv, g, hd, hg, 161))
+    x = _randn((B, hidden), dev, 162)
+    res = _randn((B, hidden), dev, 163)
+    rms = 1 + _randn((hidden,), dev, 164, 0.1)
+    kr, vr = kp.clone(), vp.clone()
+    k2, v2 = kp.clone(), vp.clone()
+    args = (wqkv, wo, table, lens_t, lens_t)
+    kw = dict(group=g, rope_style=cfg.rope_style)
+    before = pd.launches["llama_decoder_layer_paged_int4"]
+    out = pd.llama_decoder_layer_paged(x, res, *args, kp, vp, layer, rms,
+                                       1e-5, cos_t, sin_t, **kw)
+    again = pd.llama_decoder_layer_paged(x, res, *args, k2, v2, layer, rms,
+                                         1e-5, cos_t, sin_t, **kw)
+    torch.cuda.synchronize()
+    assert pd.launches["llama_decoder_layer_paged_int4"] == before + 2
+    assert torch.equal(_bits(out[0]), _bits(again[0]))
+    assert torch.equal(_bits(kp), _bits(k2)) and torch.equal(_bits(vp),
+                                                             _bits(v2))
+    assert torch.isfinite(out[0].float()).all()
+    want = pd.llama_decoder_layer_paged_plain(x, res, *args, kr, vr, layer,
+                                              rms, 1e-5, cos_t, sin_t, **kw)
+    for i in (0, 1):
+        torch.testing.assert_close(out[i].float(), want[i].float(), atol=2e-2,
+                                   rtol=2e-2)
+    app = _appended_mask(kp, table, lens_t, layer)
+    torch.testing.assert_close(kp[app].float(), kr[app].float(), atol=0.05,
+                               rtol=0)
+    assert torch.equal(_bits(kp[~app]), _bits(kr[~app]))
+
+
+def test_int4_engine_spec_and_serving_on_card(dev):
+    """The int4 engine on the card: the stream runs kernel 7's int4 mode;
+    ``spec_generate`` (self-draft and a bf16 draft) runs kernel 8's int4
+    mode once a round and emits the engine's own greedy stream; both
+    serving steps run the int4 products (the fused one by default) and give
+    each request the tokens it gets alone; ``generate`` agrees."""
+    from clusterfusion_tpu_torch.models.generation import Llama
+    from clusterfusion_tpu_torch.ops import paged_decoder_layer as pd
+    from clusterfusion_tpu_torch.ops import stack_verify as sv
+    from clusterfusion_tpu_torch.runtime import ServingEngine
+    gemv = importlib.import_module("clusterfusion_tpu_torch.ops.gemv")
+    cfg = LlamaConfig.tiny(max_seq_len=256)
+    eng = Llama.synthetic(cfg, quant="int4", device=dev)
+    prompt = list(range(1, 30))
+    before = sk.int4_launches
+    ref = list(eng.stream_generate(prompt, 12, temperature=0.0))
+    assert sk.int4_launches - before == len(ref)   # a step after each token
+    for draft in (eng, Llama.synthetic(cfg, seed=1, device=dev)):
+        before = sv.int4_launches
+        toks = eng.spec_generate(prompt, 12, draft, n_draft=4)
+        assert sv.int4_launches - before == eng.spec_stats["rounds"]
+        assert toks == ref
+    assert ServingEngine(eng.params, cfg).step_impl == "fused"
+    prompts = [list(range(1, 9)), list(range(3, 40)), list(range(5, 21))]
+    for impl in ("batched", "fused"):
+        outs = []
+        for batch in (prompts, *([p] for p in prompts)):
+            srv = ServingEngine(eng.params, cfg, page_size=16, num_pages=32,
+                                max_batch=4, step_impl=impl)
+            for i, p in enumerate(batch):
+                srv.submit(i, p, 6, temperature=0.0)
+            before = (gemv.int4_launches, gemv.ffn4_launches,
+                      pd.launches["llama_decoder_layer_paged_int4"])
+            outs.append(srv.run())
+            assert (gemv.int4_launches > before[0]) == (impl == "batched")
+            assert gemv.ffn4_launches > before[1]
+            assert (pd.launches["llama_decoder_layer_paged_int4"] > before[2]) \
                 == (impl == "fused")
         for i in range(len(prompts)):
             assert outs[0][i] == outs[1 + i][0], (impl, i)

@@ -367,45 +367,52 @@ def test_int8_engine_streams():
 
 
 def test_quantized_paths_still_refused(tree):
-    """What stays refused once int8 runs on every path
-    (``tests/test_torch_int8.py`` and ``tests/test_torch_int8_parallel.py``
-    hold those): int4 weights in kernels 7 (also with ``reduce_axis``) and
-    8, ``spec_generate``, ``generate``, the serving engine and
-    ``shard_params`` (queue 2, mode 1); ``serving_w8a8`` (mode 6);
-    int8 and fp8 KV in the serving pools and kernel 8 (mode 2); ``chat
-    --quant int4``."""
+    """What stays refused once int8 runs on every path and int4 on the
+    single-card ones (``tests/test_torch_int8.py``,
+    ``tests/test_torch_int8_parallel.py`` and ``tests/test_torch_int4.py``
+    hold those): int4 in kernel 7 with ``reduce_axis`` and in
+    ``shard_params`` (queue 2, mode 1.4); int4 in a group size other than
+    128 in kernels 7 and 8, ``spec_generate``, ``generate`` and the serving
+    engine (mode 1.5); ``serving_w8a8``, with int8 or int4 weights (mode
+    6); int8 and fp8 KV in the serving pools and kernel 8 (mode 2); ``chat
+    --quant int4 --kv_int8``."""
     _, _, tp = tree
     tcfg = LlamaConfig.tiny()
     g, hd = tcfg.n_heads // tcfg.kv_heads, tcfg.head_dim_
     kc, vc = tmodel.init_cache(tcfg, device="cpu")
     cos, sin = tmodel.rope_row(tcfg, 3)
-    for kind, kw in (("int4", {}), ("int4", dict(reduce_axis="tp"))):
-        lw = tq.quantize_llama_params(tp, kind)["layers"]
-        with pytest.raises(NotImplementedError, match="queue 2, mode 1"):
+    for gs, kw, item in ((128, dict(reduce_axis="tp"), "1.4"),
+                         (64, {}, "1.5")):
+        lw = tq.quantize_llama_params(tp, "int4", gs)["layers"]
+        with pytest.raises(NotImplementedError,
+                           match=f"queue 2, mode {item}"):
             sk.fused_decoder_stack(
                 tp["embed"][[7]], lw["attn_norm"], lw["ffn_norm"], cos, sin,
                 lw["wqkv_f"], lw["wo_f"], lw["w13"], lw["w2"], kc, vc, 3,
                 group=g, head_dim=hd, rope_style="gptj", eps=1e-5, **kw)
     from clusterfusion_tpu_torch.ops.stack_verify import fused_verify_stack
-    lw = tq.quantize_llama_params(tp, "int4")["layers"]
     cos2, sin2 = tmodel.rope_rows(tcfg, 3, 2)
-    with pytest.raises(NotImplementedError, match="queue 2, mode 1"):
+    with pytest.raises(NotImplementedError, match="queue 2, mode 1.5"):
         fused_verify_stack(tp["embed"][[7, 8]], lw["attn_norm"],
                            lw["ffn_norm"], cos2, sin2, lw["wqkv_f"],
                            lw["wo_f"], lw["w13"], lw["w2"], kc, vc, 3,
                            group=g, head_dim=hd, rope_style="gptj", eps=1e-5)
-    eng4 = Llama(tp, tcfg, None, quant="int4")
-    with pytest.raises(NotImplementedError, match="queue 2, mode 1"):
-        eng4.spec_generate([1, 2, 3], 4, eng4)
-    with pytest.raises(NotImplementedError, match="queue 2, mode 1"):
-        eng4.generate([[1, 2, 3]], 4)
+    from clusterfusion_tpu_torch.models.tokenizer import ByteTokenizer
+    eng64 = Llama(tq.quantize_llama_params(tp, "int4", 64), tcfg,
+                  ByteTokenizer())
+    with pytest.raises(NotImplementedError, match="queue 2, mode 1.5"):
+        eng64.spec_generate([1, 2, 3], 4, eng64)
+    with pytest.raises(NotImplementedError, match="queue 2, mode 1.5"):
+        eng64.generate([[1, 2, 3]], 4)
     from clusterfusion_tpu_torch.config import KernelConfig
     from clusterfusion_tpu_torch.runtime import ServingEngine
-    with pytest.raises(NotImplementedError, match="queue 2, mode 1"):
-        ServingEngine(eng4.params, tcfg)
+    with pytest.raises(NotImplementedError, match="queue 2, mode 1.5"):
+        ServingEngine(eng64.params, tcfg)
+    eng4 = Llama(tp, tcfg, None, quant="int4")
     eng = Llama(tp, tcfg, None, quant="int8")
-    with pytest.raises(NotImplementedError, match="queue 2, mode 6"):
-        ServingEngine(eng.params, tcfg, kcfg=KernelConfig(serving_w8a8=True))
+    for e in (eng, eng4):
+        with pytest.raises(NotImplementedError, match="queue 2, mode 6"):
+            ServingEngine(e.params, tcfg, kcfg=KernelConfig(serving_w8a8=True))
     for kv_dtype in (torch.int8, torch.float8_e4m3fn):
         with pytest.raises(NotImplementedError, match="queue 2, mode 2"):
             ServingEngine(eng.params, tcfg, kv_dtype=kv_dtype)
@@ -421,11 +428,12 @@ def test_quantized_paths_still_refused(tree):
     from clusterfusion_tpu_torch.parallel.sharding import shard_params
     mesh = Mesh(shape=dict.fromkeys(AXES, 1), coords=dict.fromkeys(AXES, 0),
                 groups=dict.fromkeys(AXES))
-    with pytest.raises(NotImplementedError, match="queue 2, mode 1"):
+    with pytest.raises(NotImplementedError, match="queue 2, mode 1.4"):
         shard_params(eng4.params, tcfg, mesh)
     from clusterfusion_tpu_torch import chat
     with pytest.raises(SystemExit, match="not yet ported"):
-        chat.main(["--synthetic", "--quant", "int4", "--device", "cpu"])
+        chat.main(["--synthetic", "--quant", "int4", "--kv_int8", "--device",
+                   "cpu"])
 
 
 def test_chat_cli_int8(capsys):
