@@ -273,6 +273,29 @@ Phases 27-31 run after 26, on ``Llama.synthetic(llama2_7b, quant="int4")``
    ``SERVE_LENS``, batching invariance; ``Llama.generate`` for one
    prompt against the plain path.
 
+Phases 32-34 run after 31, on the same int4 engine, in both int4 modes:
+
+32. kernel 6's int4 modes at layer 1, pos 600, on the whole tree and the
+   first tp-2 shard (``shard_params`` on the int4 tree): full mode with
+   the append and partials mode against the int4 twin at phase 13's
+   limits, repeats bit-identical, two kernels a W4A8 call (the layer,
+   then the ring GEMV's W4A8 O product over the head groups' o) and one
+   an exact call; ms (``queued_ms``) beside the int8 and bf16 kernel 6 on
+   the same inputs, the bound, the launch plans and phase stamps;
+33. the int4 tp and sp steps in a one-rank NCCL group (16 and 8 tokens
+   after 512): the exact streams against kernel 7's exact int4 step
+   teacher-forced under the top-2-gap rule, each W4A8 layer of one step
+   against kernel 6's twin from the same inputs; launches a step and the
+   memory a step allocates (no bf16 copy of a weight);
+34. kernel 7's int4 mode 5 as a tp-2 pair on this card at 4 and 32
+   layers: exact against the unsharded exact step (4 layers running free
+   at phase 15's limits; at 32 the free-running drift printed and each
+   layer held teacher-forced), W4A8 against its twin over the ranks
+   (``fused_decoder_stack_plain_ranks``) layer by layer, teacher-forced;
+   the 32-layer pair's ms beside the bf16 and int8 pairs, the bound; then
+   4 steps of the fused tp-2 step in each mode (8L+3 kernels a rank; the
+   exact stream against kernel 7's exact step).
+
 Then, where the machine has two cards or more:
 
 16. one rank per card (``torch.multiprocessing``, a ``file://`` store,
@@ -297,7 +320,9 @@ Then, where the machine has two cards or more:
    rank that waited least and the one that waited most.  Then the same two
    steps on an int8 tree (the weights regrouped to 8 kv heads a group and
    quantized per output column, the LM head too; ``step=fused_int8`` and
-   ``nccl_int8``), against kernel 7's int8 mode teacher-forced.
+   ``nccl_int8``), against kernel 7's int8 mode teacher-forced, and on
+   the int4 tree in the exact mode (``step=fused_int4`` and
+   ``nccl_int4``), against kernel 7's exact int4 mode.
    ``python3 chip_smoke.py multicard`` runs phases 1, 2 and 16 alone.
 
 Then one JSON line per kernel table, the card line, and last
@@ -1816,19 +1841,20 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def check_against_stack(params, cfg, k0, v0, pos0, first, toks):
-    """Teacher-force kernel 7's step (``decode_step(fused=True)``) on the
-    whole weights ``params`` along a sharded step's stream from copies of
-    the same prefilled caches: every token must be kernel 7's wherever its
-    top-2 gap exceeds 0.1.  Returns (kernel 7's tokens, gaps, steps that
-    disagree)."""
+def check_against_stack(params, cfg, k0, v0, pos0, first, toks, kcfg=None):
+    """Teacher-force kernel 7's step (``decode_step(fused=True)``, with
+    ``kcfg``: an int4 tree's mode) on the whole weights ``params`` along a
+    sharded step's stream from copies of the same prefilled caches: every
+    token must be kernel 7's wherever its top-2 gap exceeds 0.1.  Returns
+    (kernel 7's tokens, gaps, steps that disagree)."""
+    from clusterfusion_tpu_torch.config import KernelConfig
     from clusterfusion_tpu_torch.models import llama as model
     kc, vc = k0.clone(), v0.clone()
     inputs = [first] + list(toks[:-1])
     ref, gaps = [], []
     for i, t in enumerate(inputs):
         lg, kc, vc = model.decode_step(params, kc, vc, t, pos0 + i, cfg,
-                                       fused=True)
+                                       kcfg or KernelConfig(), fused=True)
         top = torch.topk(lg, 2).values
         gaps.append((top[0] - top[1]).item())
         ref.append(int(torch.argmax(lg)))
@@ -2203,7 +2229,7 @@ def phase_mode5(eng, dev, pos=600, params=None, phase="mode5", drift=None):
 
 
 def phase_fused_step(eng, dev, shards, n=16, params=None,
-                     phase="fused_step"):
+                     phase="fused_step", kcfg=None, stack_check=True):
     """Phase 15, third part (phase 26's, ``phase="fused_step_int8"``, on
     ``params``, the int8 tree whose ``shards`` phase_mode5 cut, each step
     one call of kernel 7's int8 mode): ``make_sharded_decode_step(
@@ -2217,8 +2243,13 @@ def phase_fused_step(eng, dev, shards, n=16, params=None,
     (teacher forced) wherever the top-2 gap exceeds 0.1.  Then the pair
     step's device time by pass (``torch.profiler``; the tail's LM product
     and gather wait beside kernel 7's passes) and the last kernels of one
-    profiled pair step.  Returns kernel 13's reduces and kernel 14's
-    gathers."""
+    profiled pair step.  Phase 34 runs it on the int4 tree in both modes
+    (``kcfg``): the exact step is kernel 7's exact function and is held the
+    same way; the W4A8 step quantizes the down product per f-block of the
+    rank's shard, another function than the unsharded W4A8 step, so
+    ``stack_check=False`` keeps its launches, ranks and finiteness checks
+    and leaves its agreement to phase 34's layer-by-layer check.  Returns
+    kernel 13's reduces and kernel 14's gathers."""
     from clusterfusion_tpu_torch import parallel as par
     from clusterfusion_tpu_torch.models import llama as model
     from clusterfusion_tpu_torch.ops import stack_kernel as sk
@@ -2234,14 +2265,17 @@ def phase_fused_step(eng, dev, shards, n=16, params=None,
     # one step at tp 1 first, so that every kernel of the path is loaded
     # before a virtual rank spins on the card (see ``LoopbackComm``); the
     # row it writes at pos0 is rewritten by the first step below
+    from clusterfusion_tpu_torch.config import KernelConfig
+    kcfg = kcfg or KernelConfig()
     alone = par.Mesh(shape={a: 1 for a in AXES}, coords={a: 0 for a in AXES},
                      groups={a: None for a in AXES})
-    par.make_sharded_decode_step(cfg, alone, fused_collectives=True)(
+    par.make_sharded_decode_step(cfg, alone, kcfg, fused_collectives=True)(
         p, k0, v0, first, pos0)
     lb = col.LoopbackComm(tp, dev)
     try:
         meshes = [lb.mesh(r) for r in range(tp)]
-        steps = [par.make_sharded_decode_step(cfg, m, fused_collectives=True)
+        steps = [par.make_sharded_decode_step(cfg, m, kcfg,
+                                              fused_collectives=True)
                  for m in meshes]
         caches = [[par.shard_cache(k0, m), par.shard_cache(v0, m)]
                   for m in meshes]
@@ -2251,7 +2285,7 @@ def phase_fused_step(eng, dev, shards, n=16, params=None,
         torch.cuda.synchronize()
         for k in col.launches:
             col.launches[k] = col.standalone[k] = 0
-        sk.launches = sk.int8_launches = 0
+        sk.launches = sk.int8_launches = sk.int4_launches = 0
         t0 = time.perf_counter()
         for i in range(n):
             for r in range(tp):
@@ -2265,8 +2299,9 @@ def phase_fused_step(eng, dev, shards, n=16, params=None,
         dt = time.perf_counter() - t0
         k13, k14, k7 = (col.launches["all_reduce"], col.launches["all_gather"],
                         sk.launches)
-        i8 = sk.int8_launches
+        i8 = sk.int8_launches + sk.int4_launches
         FIGURES[f"{phase}_ms_per_step"] = dt * 1e3 / n
+        FIGURES[f"{phase}_launches"] = k7
         alone13, alone14 = col.standalone["all_reduce"], \
             col.standalone["all_gather"]
         per_step = sk.last_step_kernels
@@ -2274,12 +2309,23 @@ def phase_fused_step(eng, dev, shards, n=16, params=None,
         same = all(torch.equal(a[1], b[1]) for o in outs[1:]
                    for a, b in zip(outs[0], o))
         tok_lists = [[int(t) for t, _ in o] for o in outs]
-        ref, gaps, bad = check_against_stack(p, cfg, k0, v0, pos0,
-                                             first, tok_lists[0])
-        int8 = {} if phase == "fused_step" else dict(
-            kernel7_int8_launches=i8, bf16_ms_per_step_both_ranks=(
+        finite = all(bool(torch.isfinite(lg).all()) for _, lg in outs[0])
+        if stack_check:
+            ref, gaps, bad = check_against_stack(p, cfg, k0, v0, pos0,
+                                                 first, tok_lists[0], kcfg)
+            held = dict(kernel7_tokens=ref[:8], agree=(
+                f"{sum(a == b for a, b in zip(ref, tok_lists[0]))}/{n}"),
+                disagree_where_gap_gt_0_1=bad,
+                min_top2_gap=f"{min(gaps):.3g}")
+        else:
+            bad, held = [], dict(kernel7_tokens="not held (another function "
+                                 "than the unsharded step; phase 34 holds "
+                                 "its layers)")
+        int8 = {} if phase == "fused_step" else {
+            f"kernel7_{phase.rsplit('_', 1)[-1]}_launches": i8,
+            "bf16_ms_per_step_both_ranks": (
                 f"{FIGURES['fused_step_ms_per_step']:.3f}"
-                if "fused_step_ms_per_step" in FIGURES else "not measured"))
+                if "fused_step_ms_per_step" in FIGURES else "not measured")}
         say(phase, step="make_sharded_decode_step(fused_collectives"
             "=True)", tp=tp, loopback=True, prompt_tokens=pos0,
             new_tokens=n, ms_per_step_both_ranks=f"{dt * 1e3 / n:.3f}",
@@ -2289,12 +2335,10 @@ def phase_fused_step(eng, dev, shards, n=16, params=None,
                               f"{k14 / n / tp:g}",
             kernels_per_rank_step=per_step,
             ranks_logits_bit_identical=same, tokens=tok_lists[0][:8],
-            kernel7_tokens=ref[:8],
-            agree=f"{sum(a == b for a, b in zip(ref, tok_lists[0]))}/{n}",
-            disagree_where_gap_gt_0_1=bad, min_top2_gap=f"{min(gaps):.3g}",
-            **int8)
+            finite=finite, **held, **int8)
         if (k7 != n * tp or k13 != 2 * L * n * tp or k14 != n * tp or alone13
                 or alone14 or per_step != 8 * L + 3 or not same or bad
+                or not finite
                 or any(t != tok_lists[0] for t in tok_lists)
                 or (phase != "fused_step" and i8 != n * tp)):
             raise AssertionError("the fused-collective tp step: launches, "
@@ -2318,13 +2362,13 @@ def phase_fused_step(eng, dev, shards, n=16, params=None,
     return k13, k14
 
 
-def int8_stack_weights(lw, hg_from, hg_to):
+def quant_stack_weights(lw, hg_from, hg_to, kind="int8"):
     """The four projections of a bf16 tree whose groups hold ``hg_from`` kv
     heads, regrouped to ``hg_to`` (the quantized engines' layout) and
-    quantized to int8 per output column one layer at a time, so that the
-    float32 temporaries are one layer's (a stacked float32 copy of the 7B
-    ``w13`` alone is 11.8 GB)."""
-    from clusterfusion_tpu_torch.ops.quant import QuantizedTensor, quantize_int8
+    quantized (``kind``: int8 per output column, or int4 in groups of 128)
+    one layer at a time, so that the float32 temporaries are one layer's (a
+    stacked float32 copy of the 7B ``w13`` alone is 11.8 GB)."""
+    from clusterfusion_tpu_torch.ops.quant import QuantizedTensor, quantize
     L, G, h, C = lw["wqkv_f"].shape
     r = hg_to // hg_from
 
@@ -2340,14 +2384,14 @@ def int8_stack_weights(lw, hg_from, hg_to):
     for name in ("wqkv_f", "wo_f", "w13", "w2"):
         q = s = None
         for l in range(L):
-            t = quantize_int8(regroup(name, lw[name][l]), -2)
+            t = quantize(regroup(name, lw[name][l]), kind, -2)
             if q is None:
                 q = torch.empty((L, *t.q.shape), dtype=torch.int8,
                                 device=t.q.device)
                 s = torch.empty((L, *t.s.shape), dtype=torch.float32,
                                 device=t.s.device)
             q[l], s[l] = t.q, t.s
-        out[name] = QuantizedTensor(q, s, "int8", -2, 0, -2)
+        out[name] = QuantizedTensor(q, s, kind, -2, t.group_size, -2)
     return out
 
 
@@ -2375,7 +2419,7 @@ def phase_int8_stack(eng, dev, hbm, peak, pos=600):
     lw = p["layers"]
     g, hd, L = cfg.n_heads // cfg.kv_heads, cfg.head_dim_, cfg.n_layers
     hg8 = model.default_head_group(cfg, "int8")
-    w8 = int8_stack_weights(lw, model.default_head_group(cfg), hg8)
+    w8 = quant_stack_weights(lw, model.default_head_group(cfg), hg8)
     heads = {"lm_bf16": p["lm_head"], "lm_int8": quantize_int8(p["lm_head"], -2)}
     gen = torch.Generator(device=dev).manual_seed(2)
     kc, vc = model.init_cache(cfg, max_seq=1024, device=dev)
@@ -3387,9 +3431,9 @@ def phase_int8_layer(eng8, eng, dev, hbm, peak, pos=600, cap=4096, layer=1):
         prof16_ms, _ = busy_ms(call16)
         call_ms = time_ms(call, 50)
         call16_ms = time_ms(call16, 50)
-        for kind, fn, w8 in (("int8", call, True), ("bf16", call16, False)):
+        for kind, fn in (("int8", call), ("bf16", call16)):
             say("layer_int8_launch", kernel=6, weights=kind,
-                **dl.launch_plan(hidden, kvh, g, hd, int8=w8),
+                **dl.launch_plan(hidden, kvh, g, hd, kind=kind),
                 **launch_phases(dl, fn, 16 * kvh, K6_PHASES),
                 note="phases from %globaltimer stamps inside the one launch")
         plain_ms = time_ms(lambda: dl._fused_decoder_layer_plain(
@@ -4265,6 +4309,641 @@ def phase_int4_serving(eng4, eng, dev, bf16_figures):
     return launch
 
 
+# -- int4 on the multi-card paths (phases 32-34) ------------------------------
+
+
+def int4_layer_proj(o, wo, a8):
+    """The int4 O projection of the merged partials' o [kv*g, hd] (bf16) as
+    kernel 6's twin projects it: each head group's o by ``_int4_dot``, the
+    groups' float32 partials summed in order."""
+    from clusterfusion_tpu_torch.ops.decoder_layer import _int4_dot
+    og = o.bfloat16().reshape(wo.shape[0], -1)
+    out = 0.0
+    for i in range(og.shape[0]):
+        out = out + _int4_dot(og[i][None], wo.q[i], wo.s[i], wo.group_size,
+                              a8)[0]
+    return out[None]
+
+
+def phase_int4_layer(eng4, eng8, eng, dev, hbm, peak, pos=600, cap=4096,
+                     layer=1):
+    """Phase 32: kernel 6's int4 modes (W4A8 and exact), as phase 24 runs
+    the int8 mode, on layer 1 of the 7B int4 engine (hg 8, G 4), the whole
+    tree and the first tp-2 shard's slices (16 kv heads, G 2, by
+    ``shard_params`` on the int4 tree): full mode with the append at pos 600
+    of a 4096-row cache with large garbage at and above pos (the output,
+    residual and appended rows against the int4 plain twin in the same mode
+    at phase 13's limits, every other row unchanged, a repeat
+    bit-identical, counted as int4, two kernels a W4A8 call (the layer,
+    then the ring GEMV's W4A8 O projection over the head groups' o) and one
+    an exact call); partials mode on [0, 300) and [300, 600) merged against
+    one partials call and, O-projected as the twin projects (each head
+    group's o by ``_int4_dot``), against the full output.  Then, on the
+    whole tree, each mode's device time (``queued_ms``; the profiler's busy
+    time beside it) beside the int8 and the bf16 kernel 6 on the same
+    inputs (phases 24 and 13's weights), the twin's time, the byte bound
+    (codes, float32 scales, K/V rows), the launch plans and the phase
+    stamps.  Returns the kernel table's rows by mode."""
+    from clusterfusion_tpu_torch.config import KernelConfig
+    from clusterfusion_tpu_torch.models import llama as model
+    from clusterfusion_tpu_torch.ops import decoder_layer as dl
+    cfg = eng4.cfg
+    g, hd, hidden = cfg.n_heads // cfg.kv_heads, cfg.head_dim_, cfg.hidden_dim
+    kvh = cfg.kv_heads
+    gen = torch.Generator(device=dev).manual_seed(32)
+
+    def rnd(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).bfloat16()
+
+    kc, vc = rnd((2, kvh, cap, hd)), rnd((2, kvh, cap, hd))
+    kc[:, :, pos:] *= 8                  # garbage the kernel must not read
+    vc[:, :, pos:] *= 8
+    x, res = rnd((1, hidden)), rnd((1, hidden))
+    norm = 1 + 0.1 * rnd((hidden,))
+    cos, sin = model.rope_row(cfg, pos, dev)
+    trees = {"whole": (eng4.params["layers"], kvh),
+             "tp2_shard": (tp2_shard(eng4.params, cfg)["layers"], kvh // 2)}
+    rows, times = {}, {}
+    for mode, a8 in INT4_MODES:
+        kw = dict(group=g, head_dim=hd, rope_style=cfg.rope_style,
+                  fuse_residual=True, eps=cfg.norm_eps,
+                  kcfg=KernelConfig(int4_w4a8=a8))
+        for label, (lw, heads) in trees.items():
+            wq, wo = lw["wqkv_f"][layer], lw["wo_f"][layer]
+            kcl = kc[:, :heads].contiguous()
+            vcl = vc[:, :heads].contiguous()
+            args = (x, res, norm, cos, sin, wq, wo)
+            kk, vk = kcl.clone(), vcl.clone()
+            kr, vr = kcl.clone(), vcl.clone()
+            before = (dl.launches, dl.int4_launches)
+            out = dl._fused_decoder_layer(*args, kk, vk, pos, 1,
+                                          append_kv=True, **kw)
+            kernels = dl.last_call_kernels
+            launched = (dl.launches - before[0], dl.int4_launches - before[1])
+            kk2, vk2 = kcl.clone(), vcl.clone()
+            again = dl._fused_decoder_layer(*args, kk2, vk2, pos, 1,
+                                            append_kv=True, **kw)
+            ref = dl._fused_decoder_layer_plain(*args, kr, vr, pos, 1,
+                                                append_kv=True, **kw)
+            torch.cuda.synchronize()
+            repeat = all(_same_bits(out[i], again[i]) for i in range(4)) and \
+                _same_bits(kk, kk2) and _same_bits(vk, vk2)
+            e = max((out[i].float() - ref[i].float()).abs().max().item()
+                    for i in (0, 1))
+            for i in (0, 1):
+                torch.testing.assert_close(out[i].float(), ref[i].float(),
+                                           **LIMITS_TOL)
+            row_err = max((a[1, :, pos].float() - b[1, :, pos].float()).abs()
+                          .max().item() for a, b in ((kk, kr), (vk, vr)))
+            new_err = max((out[i].float() - ref[i].float()).abs().max().item()
+                          for i in (2, 3))
+            others = torch.ones(cap, dtype=torch.bool, device=dev)
+            others[pos] = False
+            unchanged = (torch.equal(kk[:, :, others], kcl[:, :, others])
+                         and torch.equal(vk[:, :, others], vcl[:, :, others])
+                         and torch.equal(kk[0], kcl[0])
+                         and torch.equal(vk[0], vcl[0]))
+            want_kernels = 2 if a8 else 1
+            say("layer_int4", kernel=6, mode=mode, tree=label,
+                kv_heads=heads, head_groups=wq.shape[0], call="full+append",
+                pos=pos, cap=cap, max_abs_err=f"{e:.3g}",
+                tol="atol=2e-2,rtol=2e-2", appended_row_err=f"{row_err:.3g}",
+                k_new_v_new_err=f"{new_err:.3g}", tol_rows=0.05,
+                other_rows_unchanged=unchanged, repeat_bit_identical=repeat,
+                kernels_per_call=kernels, launches_int4=launched)
+            if not (row_err <= 0.05 and new_err <= 0.05 and unchanged
+                    and repeat and kernels == want_kernels
+                    and launched == (1, 1)):
+                raise AssertionError(f"kernel 6's int4 {mode} mode ({label}): "
+                                     "appended rows disagree, other rows "
+                                     "changed, a repeat differs or the "
+                                     "launches are wrong")
+            del kk2, vk2, again, kr, vr
+            # partials: two shards merged in the log2 domain vs one shard
+            pkw = dict(kw, emit_partials=True)
+            halves = [(kcl[:, :, :300].contiguous(),
+                       vcl[:, :, :300].contiguous(), 300, 0),
+                      (kcl[:, :, 300:].contiguous(),
+                       vcl[:, :, 300:].contiguous(), pos - 300, 1)]
+            parts = [dl._fused_decoder_layer(*args, k, v, n, 1,
+                                             fold_current=f, **pkw)
+                     for k, v, n, f in halves]
+            whole = dl._fused_decoder_layer(*args, kcl, vcl, pos, 1,
+                                            fold_current=1, **pkw)
+            m = torch.stack([q[1][0] for q in parts])
+            alpha = torch.exp2(m - m.amax(dim=0))
+            l_g = sum(q[1][1] * a for q, a in zip(parts, alpha))
+            acc_g = sum(q[0] * a[:, None] for q, a in zip(parts, alpha))
+            o_merged = acc_g / l_g[:, None]
+            o_whole = whole[0] / whole[1][1][:, None]
+            merge_err = (o_merged - o_whole).abs().max().item()
+            proj = int4_layer_proj(o_merged, wo, a8)
+            proj_err = (proj - out[0].float()).abs().max().item()
+            torch.cuda.synchronize()
+            say("layer_int4", kernel=6, mode=mode, tree=label,
+                call="partials [0,300)+[300,600) merged",
+                o_err_vs_one_shard=f"{merge_err:.3g}", tol_o=2e-2,
+                oproj_err_vs_full=f"{proj_err:.3g}",
+                tol_out="atol=2e-2,rtol=2e-2")
+            torch.testing.assert_close(o_merged, o_whole, atol=2e-2, rtol=0)
+            torch.testing.assert_close(proj, out[0].float(), **LIMITS_TOL)
+            del parts, whole, halves
+            if label != "whole":
+                del kk, vk, kcl, vcl
+                continue
+            call = lambda: dl._fused_decoder_layer(  # noqa: E731
+                *args, kk, vk, pos, 1, append_kv=True, **kw)
+            ms = queued_ms(call)
+            prof_ms, _ = busy_ms(call)
+            times[mode] = (ms, prof_ms)
+            say("layer_int4_launch", kernel=6, mode=mode,
+                **dl.launch_plan(hidden, kvh, g, hd, kind=mode),
+                **launch_phases(dl, call, 16 * kvh, K6_PHASES),
+                note="phases from %globaltimer stamps inside the layer's "
+                     "launch (W4A8: no O phase; its O projection is the "
+                     "second kernel)")
+            plain_ms = time_ms(lambda: dl._fused_decoder_layer_plain(
+                *args, kk, vk, pos, 1, append_kv=True, **kw), 3)
+            wbytes = _bytes(wq.q, wq.s, wo.q, wo.s)
+            # the layer's o written and read back between the two kernels
+            io = 5 * hidden * 2 + 4 * kvh * hd * 2 + (
+                2 * 2 * kvh * g * hd if a8 else 0)
+            bound, bound_by, nbytes = _layer_bound(
+                hbm, peak, wbytes, 2 * (wq.q.numel() + wo.q.numel()), kvh,
+                cfg.n_heads, pos, hd, io)
+            rows[mode] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms,
+                              bound_ms=bound, bound_by=bound_by,
+                              library_ms=None)
+            say("layer_int4", kernel=6, mode=mode, ms=f"{ms:.4f}",
+                queued_ms=f"{ms:.4f}", profiler_busy_ms=f"{prof_ms:.4f}",
+                plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound:.4f}",
+                bound_by=bound_by, bytes=nbytes,
+                code_and_scale_bytes=wbytes,
+                rate_TBps=f"{nbytes / ms / 1e9:.3f}", library_ms="null")
+            del kk, vk, kcl, vcl
+    # the int8 and bf16 kernel 6 on the same inputs (their engines' layer)
+    kw = dict(group=g, head_dim=hd, rope_style=cfg.rope_style,
+              fuse_residual=True, eps=cfg.norm_eps)
+    same = {}
+    for kind, e_ in (("int8", eng8), ("bf16", eng)):
+        lw_ = e_.params["layers"]
+        kk, vk = kc.clone(), vc.clone()
+        a_ = (x, res, norm, cos, sin, lw_["wqkv_f"][layer], lw_["wo_f"][layer])
+        same[kind] = queued_ms(lambda: dl._fused_decoder_layer(  # noqa: B023
+            *a_, kk, vk, pos, 1, append_kv=True, **kw))
+        del kk, vk
+    say("layer_int4", kernel=6, pos=pos, hg=kvh // trees["whole"][0][
+        "wqkv_f"].shape[1],
+        w4a8_queued_ms=f"{times['w4a8'][0]:.4f}",
+        exact_queued_ms=f"{times['exact'][0]:.4f}",
+        w4a8_profiler_busy_ms=f"{times['w4a8'][1]:.4f}",
+        exact_profiler_busy_ms=f"{times['exact'][1]:.4f}",
+        int8_queued_ms_same_inputs=f"{same['int8']:.4f}",
+        bf16_queued_ms_same_inputs=f"{same['bf16']:.4f}")
+    return rows
+
+
+class LayerTwinCheck:
+    """Kernel 6 held against its plain twin on every call a step makes,
+    teacher-forced: ``mod._fused_decoder_layer`` (the name a step module
+    calls) is wrapped so that each call's layer is also run through
+    ``_fused_decoder_layer_plain`` from the same inputs (a copy of the
+    layer's cache rows), outputs at phase 13's limits, new rows at 0.05;
+    the partials (sp) at phase 13's partials limits.  The largest errors
+    are kept in ``worst`` and any call past a limit in ``bad``."""
+
+    def __init__(self, mod):
+        from clusterfusion_tpu_torch.ops import decoder_layer as dl
+        self.mod, self.real, self.dl = mod, mod._fused_decoder_layer, dl
+        self.worst, self.bad, self.calls = [0.0, 0.0], [], 0
+
+    def __enter__(self):
+        self.mod._fused_decoder_layer = self._call
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._fused_decoder_layer = self.real
+
+    def _call(self, x, residual, rms_w, cos, sin, wqkv_f, wo_f, k_cache,
+              v_cache, seq_len, layer_id=0, **kw):
+        l = int(layer_id)
+        kc1, vc1 = k_cache[l:l + 1].clone(), v_cache[l:l + 1].clone()
+        out = self.real(x, residual, rms_w, cos, sin, wqkv_f, wo_f, k_cache,
+                        v_cache, seq_len, layer_id, **kw)
+        ref = self.dl._fused_decoder_layer_plain(
+            x, residual, rms_w[l], cos, sin, wqkv_f[l],
+            None if wo_f is None else wo_f[l], kc1, vc1, seq_len, 0, **kw)
+        partials = kw.get("emit_partials", False)
+        pairs = ((out[1], ref[1], 2e-2, 2e-2), (out[0], ref[0], 5e-2, 2e-2)) \
+            if partials else ((out[0], ref[0], 2e-2, 2e-2),
+                              (out[1], ref[1], 2e-2, 2e-2))
+        rows = ((out[3], ref[3], 0.05, 0), (out[4], ref[4], 0.05, 0)) \
+            if partials else ((out[2], ref[2], 0.05, 0),
+                              (out[3], ref[3], 0.05, 0))
+        for i, (a, b, atol, rtol) in enumerate((*pairs, *rows)):
+            d = (a.float() - b.float()).abs()
+            lim = atol + rtol * b.float().abs()
+            j = 0 if i < 2 else 1
+            self.worst[j] = max(self.worst[j], d.max().item())
+            if not bool((d <= lim).all()) or not bool(torch.isfinite(a).all()):
+                self.bad.append((l, i))
+        self.calls += 1
+        return out
+
+
+def phase_int4_sharded(eng4, dev):
+    """Phase 33: the int4 tp and sp steps end to end in a one-rank NCCL
+    group, as phase 25 runs the int8 ones, in both int4 modes: the int4
+    engine's tree (hg 8, the bf16 LM head) by ``shard_params``, a 512-token
+    prefill, then 16 greedy steps of ``make_sharded_decode_step`` and 8 of
+    ``make_sp_sharded_decode_step``.  The step is JAX's function: kernel 6
+    in the mode (W4A8 or exact QKV and O), the FFN exact on ``_ffn_int4``
+    (the sp step's O projection on ``_gemv_int4``).  Exact: the streams
+    against kernel 7's exact int4 step teacher-forced under the top-2-gap
+    rule (the same function).  W4A8: one more step with every layer held
+    against kernel 6's twin, teacher-forced (``LayerTwinCheck``).  Launches
+    per step with the counts set to 0 just before (kernel 6 int4 32; kernel
+    2 32 in the tp step, 0 in the sp step; ``_ffn_int4`` 32; ``_gemv_int4``
+    32 O products in the sp step), ms per step, and the peak of memory a
+    step allocates over what it held before (a bf16 copy of one layer's
+    FFN weights would be 185 MB, of its O weights 34 MB).  Returns kernel
+    6's int4 launches by mode (both steps)."""
+    import torch.distributed as dist
+    from clusterfusion_tpu_torch import parallel as par
+    from clusterfusion_tpu_torch.config import KernelConfig, MeshConfig
+    from clusterfusion_tpu_torch.models import llama as model
+    from clusterfusion_tpu_torch.ops import decoder_layer as dl
+    from clusterfusion_tpu_torch.parallel import decode as par_decode
+    from clusterfusion_tpu_torch.parallel import sp_decode as par_sp
+    gm = importlib.import_module("clusterfusion_tpu_torch.ops.gemv")
+    rn = importlib.import_module("clusterfusion_tpu_torch.ops.rmsnorm")
+    cfg, full = eng4.cfg, eng4.params
+    L = cfg.n_layers
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    launched6 = {}
+    try:
+        mesh = par.build_mesh(MeshConfig())
+        params = par.shard_params(full, cfg, mesh)
+        views = all(params["layers"][k] is full["layers"][k]
+                    or params["layers"][k].q is full["layers"][k].q
+                    for k in params["layers"])
+        text = ("The quick brown fox jumps over the lazy dog. " * 20)[:511]
+        prompt = eng4.tokenizer.encode(text, bos=True, eos=False)
+        k0, v0 = model.init_cache(cfg, device=dev)
+        lg, k0, v0 = model.prefill(full, k0, v0, prompt, cfg)
+        first, pos0 = int(torch.argmax(lg[-1])), len(prompt)
+        for mode, a8 in INT4_MODES:
+            kcfg = KernelConfig(int4_w4a8=a8)
+            launched6[mode] = 0
+            for name, n, make, spec, mod in (
+                    ("tp", 16, par.make_sharded_decode_step,
+                     par.cache_pspec(), par_decode),
+                    ("sp", 8, par.make_sp_sharded_decode_step,
+                     par.cache_pspec_2d(), par_sp)):
+                step = make(cfg, mesh, kcfg)
+                kc = par.shard_cache(k0.clone(), mesh, spec)
+                vc = par.shard_cache(v0.clone(), mesh, spec)
+                tok = torch.tensor(first, device=dev)
+                dl.launches = dl.int4_launches = 0
+                gm.int4_launches = gm.ffn4_launches = gm.int8_launches = 0
+                for k in rn.launches:
+                    rn.launches[k] = 0
+                out = []
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i in range(n):
+                    lg, kc, vc = step(params, kc, vc, tok, pos0 + i)
+                    tok = torch.argmax(lg)
+                    out.append(tok)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                got = dict(kernel6=dl.launches, kernel6_int4=dl.int4_launches,
+                           kernel2=rn.launches["fused_add_rmsnorm"],
+                           ffn_int4=gm.ffn4_launches,
+                           gemv_int4=gm.int4_launches,
+                           gemv_int8=gm.int8_launches)
+                want = dict(kernel6=L * n, kernel6_int4=L * n,
+                            kernel2=L * n if name == "tp" else 0,
+                            ffn_int4=L * n,
+                            gemv_int4=L * n if name == "sp" else 0,
+                            gemv_int8=0)
+                launched6[mode] += got["kernel6_int4"]
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                step(params, kc, vc, tok, pos0 + n)
+                torch.cuda.synchronize()
+                extra_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
+                toks = [int(t) for t in out]
+                finite = bool(torch.isfinite(lg).all())
+                if a8:          # one more step, each layer against the twin
+                    with LayerTwinCheck(mod) as chk:
+                        step(params, kc, vc, tok, pos0 + n)
+                    torch.cuda.synchronize()
+                    check = dict(held="each layer against kernel 6's twin, "
+                                      "teacher-forced",
+                                 layer_calls=chk.calls,
+                                 worst_out_err=f"{chk.worst[0]:.3g}",
+                                 worst_row_err=f"{chk.worst[1]:.3g}",
+                                 past_limits=chk.bad)
+                    bad = chk.bad or chk.calls != L
+                else:
+                    ref, gaps, badt = check_against_stack(
+                        full, cfg, k0, v0, pos0, first, toks, kcfg)
+                    check = dict(held="stream vs kernel 7's exact int4 step,"
+                                      " teacher-forced",
+                                 kernel7_tokens=ref[:8],
+                                 agree=f"{sum(a == b for a, b in zip(ref, toks))}"
+                                       f"/{n}",
+                                 disagree_where_gap_gt_0_1=badt,
+                                 min_top2_gap=f"{min(gaps):.3g}")
+                    bad = badt
+                say("sharded_int4", step=name, mode=mode, lm_head="bf16",
+                    mesh="tp=1,sp=1 (one rank, nccl)", prompt_tokens=pos0,
+                    new_tokens=n, params_are_views=views,
+                    ms_per_step=f"{dt * 1e3 / n:.3f}",
+                    tokens_per_s=f"{n / dt:.2f}", launches=got,
+                    per_step={k: v / n for k, v in got.items()},
+                    peak_extra_alloc_mb_per_step=f"{extra_mb:.2f}",
+                    finite=finite, tokens=toks[:8], **check)
+                if got != want or not finite or bad or not views \
+                        or extra_mb > 32:
+                    raise AssertionError(
+                        f"the int4 {name} step ({mode}): launches {got} "
+                        f"(want {want}), the check ({bad}) or "
+                        f"{extra_mb:.1f} MB allocated a step wrong")
+                del kc, vc
+        del k0, v0
+    finally:
+        dist.destroy_process_group()
+    return launched6
+
+
+def phase_int4_mode5(eng4, dev, hbm, pos=600):
+    """Phase 34: kernel 7's int4 mode 5 as a tp-2 pair step on this card
+    (phase 26's form: two virtual ranks on their own streams over a
+    loopback communicator, ``shard_params`` / ``shard_cache`` of the int4
+    engine's tree and of a cache filled at random, no LM head), at 4 layers
+    and at all 32, in both modes: the O and down products run
+    ring_gemv4_kernel's G1_PUSH_SUM instances.  Each pair step: 8L+1
+    kernels a rank, counted as int4, the ranks' x_out and residual
+    bit-identical.  Exact, the unsharded exact step's function: at 4
+    layers x_out and the residual within 0.05 + 1e-2 of the largest value
+    of kernel 7's unsharded exact step running free, the appended rows at
+    phase 4's limits; at 32 layers the free-running shares are printed
+    beside phase 15's bf16 pair's (bf16 flips taken apart compound layer
+    by layer, on this tree further than on the bf16 one: ``PERF.md``) and
+    every layer is held one at a time, teacher-forced, against the
+    unsharded exact step from the pair's own state (``w4a8_by_layer``'s
+    rule: x_out and the residual within 2e-2 of their largest value, rows
+    at 0.05 + 1e-2 of |row|).  W4A8, whose down product quantizes per
+    f-block of the rank's shard (512 rows at tp 2; the unsharded step's
+    are 1024): held the same way against its own twin over the ranks
+    (``fused_decoder_stack_plain_ranks``), at 4 and 32 layers.  Then the
+    32-layer pair step's time in each mode (10 back to back, as phase 26
+    times its pair), beside phase 15's
+    bf16 and phase 26's int8 pair steps, the byte bound of the pair (every
+    shard read once: codes, float32 scales, K/V rows < pos) and the twin's
+    time.  Returns (the kernel table's rows by mode, the 32-layer shards)."""
+    from clusterfusion_tpu_torch import parallel as par
+    from clusterfusion_tpu_torch.config import KernelConfig
+    from clusterfusion_tpu_torch.models import llama as model
+    from clusterfusion_tpu_torch.ops import stack_kernel as sk
+    from clusterfusion_tpu_torch.parallel import collective as col
+    cfg, tree, tp = eng4.cfg, eng4.params, 2
+    g, hd = cfg.n_heads // cfg.kv_heads, cfg.head_dim_
+    gen = torch.Generator(device=dev).manual_seed(34)
+    kc, vc = model.init_cache(cfg, max_seq=1024, device=dev)
+    kc[:, :, :pos] = torch.randn(kc[:, :, :pos].shape, generator=gen,
+                                 device=dev).bfloat16()
+    vc[:, :, :pos] = torch.randn(vc[:, :, :pos].shape, generator=gen,
+                                 device=dev).bfloat16()
+    x0 = tree["embed"][torch.tensor([7], device=dev)]
+    cos, sin = model.rope_row(cfg, pos, dev)
+    others = torch.ones(kc.shape[2], dtype=torch.bool, device=dev)
+    others[pos] = False
+    lb = col.LoopbackComm(tp, dev)
+    rows, shards = {}, None
+    try:
+        meshes = [lb.mesh(r) for r in range(tp)]
+        shards = [par.shard_params(tree, cfg, m) for m in meshes]
+        caches = [(par.shard_cache(kc, m), par.shard_cache(vc, m))
+                  for m in meshes]
+        streams = [torch.cuda.Stream(dev) for _ in range(tp)]
+        names = ("attn_norm", "ffn_norm", "wqkv_f", "wo_f", "w13", "w2")
+
+        def pair(x, ly, kcfg, caches_=None):
+            """Each rank's mode-5 step over layers ``ly`` (a slice) from x,
+            on its own stream, with copies of its caches' layers."""
+            cs = caches_ or [(k[ly].clone(), v[ly].clone())
+                             for k, v in caches]
+            outs = []
+            for r in range(tp):
+                streams[r].wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(streams[r]):
+                    sl = shards[r]["layers"]
+                    outs.append(sk.fused_decoder_stack(
+                        x, *(sl[k][ly] for k in names[:2]), cos, sin,
+                        *(sl[k][ly] for k in names[2:]), *cs[r], pos,
+                        group=g, head_dim=hd, rope_style=cfg.rope_style,
+                        eps=cfg.norm_eps, kcfg=kcfg, reduce_axis="tp",
+                        mesh=meshes[r]))
+            for st_ in streams:
+                torch.cuda.current_stream(dev).wait_stream(st_)
+            return outs
+
+        # every kernel of the path loaded before a virtual rank spins (see
+        # ``LoopbackComm``): each mode's unsharded step first
+        for _, a8 in INT4_MODES:
+            lw = tree["layers"]
+            sk.fused_decoder_stack(
+                x0, lw["attn_norm"][:1], lw["ffn_norm"][:1], cos, sin,
+                *(lw[k][:1] for k in names[2:]), kc[:1].clone(),
+                vc[:1].clone(), pos, group=g, head_dim=hd,
+                rope_style=cfg.rope_style, eps=cfg.norm_eps,
+                kcfg=KernelConfig(int4_w4a8=a8))
+        for layers in (4, cfg.n_layers):
+            ly = slice(0, layers)
+            for mode, a8 in INT4_MODES:
+                kcfg = KernelConfig(int4_w4a8=a8)
+                n4, k7 = sk.int4_launches, sk.launches
+                outs = pair(x0, ly, kcfg)
+                torch.cuda.synchronize()
+                lb.check()
+                per_step = sk.last_step_kernels
+                n4, k7 = sk.int4_launches - n4, sk.launches - k7
+                same = all(torch.equal(o[0], outs[0][0]) and
+                           torch.equal(o[1], outs[0][1]) for o in outs)
+                finite = all(bool(torch.isfinite(o[0].float()).all())
+                             for o in outs)
+                ok = (same and finite and n4 == tp and k7 == tp
+                      and per_step == 8 * layers + 1)
+                held = {}
+                if not a8:      # free-running against the unsharded step
+                    lw = tree["layers"]
+                    kr, vr = kc[ly].clone(), vc[ly].clone()
+                    ref = sk.fused_decoder_stack(
+                        x0, lw["attn_norm"][ly], lw["ffn_norm"][ly], cos, sin,
+                        *(lw[k][ly] for k in names[2:]), kr, vr, pos,
+                        group=g, head_dim=hd, rope_style=cfg.rope_style,
+                        eps=cfg.norm_eps, kcfg=kcfg)
+                    errs, rel, row_err, strict = [], [], 0.0, layers <= 4
+                    for j in (0, 1):
+                        e = max((o[j].float() - ref[j].float()).abs().max()
+                                .item() for o in outs)
+                        mx = ref[j].float().abs().max().item()
+                        errs.append(e)
+                        rel.append(round(e / mx, 5))
+                        ok &= e <= 0.05 + 1e-2 * mx or not strict
+                    for r, o in enumerate(outs):
+                        heads = slice(r * cfg.kv_heads // tp,
+                                      (r + 1) * cfg.kv_heads // tp)
+                        for a, b, c in ((o[2], kr, 0), (o[3], vr, 1)):
+                            want = b[:, heads, pos].float()
+                            d = (a[:, :, pos].float() - want).abs()
+                            lim = 0.05 + 1e-2 * want.abs().amax(dim=(1, 2))
+                            if strict:      # layer 0 at 0.05, deeper + 1e-2
+                                ok &= bool(d[0].max() <= 0.05) and bool(
+                                    (d.amax(dim=(1, 2)) <= lim).all())
+                            row_err = max(row_err, d.max().item())
+                            ok &= torch.equal(a[:, :, others],
+                                              caches[r][c][ly][:, :, others])
+                    held = dict(free_running_vs="kernel 7's unsharded exact "
+                                                "step",
+                                x_out_err=f"{errs[0]:.4g}",
+                                residual_err=f"{errs[1]:.4g}",
+                                err_over_max=rel, kv_row_err=f"{row_err:.4g}",
+                                bf16_pair_err_over_max=[
+                                    round(v, 5)
+                                    for v in FIGURES.get("mode5_drift", [])],
+                                tol="x/res 0.05+1e-2*max|ref|; rows layer 0 "
+                                    "atol=0.05, deeper atol=0.05+rtol=1e-2"
+                                if strict else "reported (the free-running "
+                                "steps part by bf16 flips layer by layer); "
+                                "held one layer at a time below")
+                if a8 or layers > 4:
+                    # layer by layer, teacher-forced: each layer of the pair
+                    # from the pair's own state, against the unsharded exact
+                    # step (exact) or the twin over the ranks (W4A8)
+                    x, rels, rerr, amax = x0, [], [], 0.0
+                    for l in range(layers):
+                        one = slice(l, l + 1)
+                        got = pair(x, one, kcfg)
+                        if a8:
+                            want = sk.fused_decoder_stack_plain_ranks(
+                                [(x, *(shards[r]["layers"][k][one]
+                                       for k in names[:2]), cos, sin,
+                                  *(shards[r]["layers"][k][one]
+                                    for k in names[2:]),
+                                  caches[r][0][one].clone(),
+                                  caches[r][1][one].clone(), pos)
+                                 for r in range(tp)],
+                                group=g, head_dim=hd,
+                                rope_style=cfg.rope_style, eps=cfg.norm_eps,
+                                kv_split=kcfg.kv_split, int4_w4a8=True)
+                        else:
+                            lw = tree["layers"]
+                            u = sk.fused_decoder_stack(
+                                x, lw["attn_norm"][one], lw["ffn_norm"][one],
+                                cos, sin, *(lw[k][one] for k in names[2:]),
+                                kc[one].clone(), vc[one].clone(), pos,
+                                group=g, head_dim=hd,
+                                rope_style=cfg.rope_style, eps=cfg.norm_eps,
+                                kcfg=kcfg)
+                            h_ = cfg.kv_heads // tp
+                            want = [(u[0], u[1], u[2][:, r * h_:(r + 1) * h_],
+                                     u[3][:, r * h_:(r + 1) * h_])
+                                    for r in range(tp)]
+                        torch.cuda.synchronize()
+                        lb.check()
+                        d_ = [((got[r][j].float() - want[r][j].float()).abs()
+                               .max().item(), want[r][j].float().abs().max()
+                               .item()) for r in range(tp) for j in (0, 1)]
+                        e = max(a / b for a, b in d_)
+                        amax = max(amax, *(a for a, _ in d_))
+                        re_ = 0.0
+                        for r in range(tp):
+                            for j in (2, 3):
+                                a = got[r][j][:, :, pos].float()
+                                b = want[r][j][:, :, pos].float()
+                                d = (a - b).abs().max().item()
+                                re_ = max(re_, d)
+                                ok &= d <= 0.05 + (l > 0) * 1e-2 * \
+                                    b.abs().max().item()
+                        ok &= e <= 2e-2
+                        rels.append(round(e, 4))
+                        rerr.append(round(re_, 4))
+                        x = (got[0][0].float() + got[0][1].float()).bfloat16()
+                    held.update(
+                        by_layer_vs=("its twin over the ranks" if a8 else
+                                     "kernel 7's unsharded exact step")
+                        + ", teacher-forced",
+                        err_over_max_by_layer=rels,
+                        err_over_max_worst=max(rels),
+                        kv_rows_err_worst=max(rerr),
+                        tol_by_layer="x/res within 2e-2 of the largest; rows "
+                                     "layer 0 atol=0.05, deeper "
+                                     "atol=0.05+rtol=1e-2")
+                    if layers == cfg.n_layers:
+                        rows[mode] = dict(max_abs_err=amax)
+                say("mode5_int4", kernel=7, mode=mode, reduce_axis="tp",
+                    tp=tp, loopback=True, layers=layers, pos=pos,
+                    ranks_bit_identical=same, finite=finite,
+                    kernels_per_step=per_step, stack_launches=k7,
+                    int4_launches=n4, within=ok, **held)
+                if not ok:
+                    raise AssertionError(f"kernel 7's int4 mode 5 ({mode}, "
+                                         f"{layers} layers) disagrees or its "
+                                         "launches are wrong")
+        # the 32-layer pair step's time in each mode, its bound and twin
+        ly = slice(0, cfg.n_layers)
+        nbytes = sum(_bytes(w.q, w.s) for sh in shards
+                     for w in (sh["layers"][k] for k in names[2:])) + sum(
+            _bytes(sh["layers"]["attn_norm"], sh["layers"]["ffn_norm"])
+            for sh in shards) + 2 * kc[:, :, :pos].numel() * 2
+        bound = nbytes / hbm * 1e3
+        for mode, a8 in INT4_MODES:
+            kcfg = KernelConfig(int4_w4a8=a8)
+            cs = [(k.clone(), v.clone()) for k, v in caches]
+            pair(x0, ly, kcfg, cs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()     # phase 26's pair timing: the
+            for _ in range(10):          # launches of 10 pair steps exceed
+                pair(x0, ly, kcfg, cs)   # the launch queue, so no queuing
+            torch.cuda.synchronize()     # ahead of the card (queued_ms)
+            ms = (time.perf_counter() - t0) * 1e2
+            lb.check()
+            t0 = time.perf_counter()
+            sk.fused_decoder_stack_plain_ranks(
+                [(x0, *(shards[r]["layers"][k] for k in names[:2]), cos,
+                  sin, *(shards[r]["layers"][k] for k in names[2:]),
+                  caches[r][0].clone(), caches[r][1].clone(), pos)
+                 for r in range(tp)],
+                group=g, head_dim=hd, rope_style=cfg.rope_style,
+                eps=cfg.norm_eps, kv_split=kcfg.kv_split, int4_w4a8=a8)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            rows[mode].update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                              bound_by="bytes", library_ms=None)
+            FIGURES[f"mode5_int4_{mode}_pair_ms"] = ms
+            say("mode5_int4", kernel=7, mode=mode, layers=cfg.n_layers,
+                both_ranks_ms_per_step=f"{ms:.4f}",
+                bf16_both_ranks_ms_per_step=(
+                    f"{FIGURES['mode5_pair_ms']:.3f}"
+                    if "mode5_pair_ms" in FIGURES else "not measured"),
+                int8_both_ranks_ms_per_step=(
+                    f"{FIGURES['mode5_int8_pair_ms']:.3f}"
+                    if "mode5_int8_pair_ms" in FIGURES else "not measured"),
+                plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound:.4f}",
+                bound_by="bytes", bytes=nbytes,
+                rate_TBps=f"{nbytes / ms / 1e9:.3f}")
+    finally:
+        lb.close()
+    return rows, shards
+
+
 def phase_deepseek_kernels(dev, hbm, peak, pos=600, cap=4096, seq11=4096):
     """Kernels 12, 11 and 5 at DeepSeek-V2-Lite geometry against their
     plain twins; returns their rows of the kernel table (kernel 11's with
@@ -4761,10 +5440,13 @@ def _multicard_steps(rank, world, dev, mesh, n=32):
     tree (the weights regrouped to 8 kv heads a group, or 32 / world,
     quantized per output column, the LM head too) from the same prefilled
     caches: the fused step one call of kernel 7's int8 mode, the NCCL step
-    kernel 6's."""
+    kernel 6's.  Then the same on the int4 tree (regrouped alike, groups of
+    128, the bf16 LM head) in the exact mode, whose sharded steps are
+    kernel 7's exact function: kernel 7's int4 mode 5, kernel 6's int4
+    mode."""
     import torch.distributed as dist
     from clusterfusion_tpu_torch import parallel as par
-    from clusterfusion_tpu_torch.config import LlamaConfig
+    from clusterfusion_tpu_torch.config import KernelConfig, LlamaConfig
     from clusterfusion_tpu_torch.models import llama as model
     from clusterfusion_tpu_torch.ops import decoder_layer as dl
     from clusterfusion_tpu_torch.ops import stack_kernel as sk
@@ -4779,15 +5461,23 @@ def _multicard_steps(rank, world, dev, mesh, n=32):
     first, pos0 = int(torch.argmax(lg[-1])), len(prompt)
     hg8 = min(8, cfg.kv_heads // world)
     full8 = int8_head_tree(dict(full, layers=dict(
-        full["layers"], **int8_stack_weights(full["layers"], 1, hg8))))
+        full["layers"], **quant_stack_weights(full["layers"], 1, hg8))))
     params8 = par.shard_params(full8, cfg, mesh)
+    full4 = dict(full, layers=dict(
+        full["layers"], **quant_stack_weights(full["layers"], 1, hg8,
+                                              "int4")))
+    params4 = par.shard_params(full4, cfg, mesh)
+    exact = KernelConfig(int4_w4a8=False)
     out, steps = {}, {}
     for name, fused, full_, params_ in (
             ("fused", True, full, params), ("nccl", False, full, params),
             ("fused_int8", True, full8, params8),
-            ("nccl_int8", False, full8, params8)):
-        int8 = name.endswith("_int8")
-        step = par.make_sharded_decode_step(cfg, mesh,
+            ("nccl_int8", False, full8, params8),
+            ("fused_int4", True, full4, params4),
+            ("nccl_int4", False, full4, params4)):
+        int8, int4 = name.endswith("_int8"), name.endswith("_int4")
+        kcfg = exact if int4 else KernelConfig()
+        step = par.make_sharded_decode_step(cfg, mesh, kcfg,
                                             fused_collectives=fused)
         kc, vc = par.shard_cache(k0, mesh), par.shard_cache(v0, mesh)
         for i in range(2):                       # warm-up, rows rewritten
@@ -4798,6 +5488,7 @@ def _multicard_steps(rank, world, dev, mesh, n=32):
             col.launches[k] = col.standalone[k] = 0
         sk.launches = dl.launches = sk.last_step_kernels = 0
         sk.int8_launches = dl.int8_launches = 0
+        sk.int4_launches = dl.int4_launches = 0
         tok, toks, logs = torch.tensor(first, device=dev), [], []
         t0 = time.perf_counter()
         for i in range(n):
@@ -4821,6 +5512,9 @@ def _multicard_steps(rank, world, dev, mesh, n=32):
         if int8:
             launched.update(kernel7_int8=sk.int8_launches,
                             kernel6_int8=dl.int8_launches)
+        if int4:
+            launched.update(kernel7_int4=sk.int4_launches,
+                            kernel6_int4=dl.int4_launches)
         # the fused step: kernel 7 once, 8L+3 kernels, its 2L reduces and
         # the logits' gather inside them, no standalone kernel 13 or 14
         want = (dict(kernel7=n, kernel6=0, kernel13=2 * L * n, kernel14=n,
@@ -4833,11 +5527,14 @@ def _multicard_steps(rank, world, dev, mesh, n=32):
         if int8:
             want.update(kernel7_int8=want["kernel7"],
                         kernel6_int8=want["kernel6"])
+        if int4:
+            want.update(kernel7_int4=want["kernel7"],
+                        kernel6_int4=want["kernel6"])
         toks = [int(t) for t in toks]
         bad = []
         if rank == 0:
             ref, gaps, bad = check_against_stack(full_, cfg, k0, v0, pos0,
-                                                 first, toks)
+                                                 first, toks, kcfg)
             say("multicard", step=name, tp=world, prompt_tokens=pos0,
                 new_tokens=n, ms_per_step=f"{dt * 1e3 / n:.3f}",
                 tokens_per_s=f"{n / dt:.2f}", **launched,
@@ -4852,7 +5549,7 @@ def _multicard_steps(rank, world, dev, mesh, n=32):
                                  f"{launched} (want {want}), tokens {bad} or "
                                  f"ranks' logits identical: {same}")
         out[f"{name}_ms_per_step"] = dt * 1e3 / n
-        if not int8:
+        if not int8 and not int4:
             steps[name] = (step, kc, vc)
     # each step's device time by pass on rank 0, after the wall clocks (a
     # profiler session slows the launches after it); every rank profiles
@@ -4945,7 +5642,7 @@ def main() -> int:
         phase_build()
         phase_multicard(card_rates(torch.cuda.get_device_name(0))[0])
         return 0
-    from clusterfusion_tpu_torch.config import LlamaConfig
+    from clusterfusion_tpu_torch.config import KernelConfig, LlamaConfig
     from clusterfusion_tpu_torch.models.generation import Llama
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5015,7 +5712,20 @@ def main() -> int:
     products4 = phase_quant_products(eng4, dev, hbm, peak, "int4")
     serving4_launches = phase_int4_serving(eng4, eng, dev, serving_bf16)
     say("phases_27_31", seconds=f"{time.perf_counter() - t27:.1f}")
-    del eng, eng8, eng4
+    t32 = time.perf_counter()
+    layer4_rows = phase_int4_layer(eng4, eng8, eng, dev, hbm, peak)
+    del eng, eng8
+    torch.cuda.empty_cache()
+    layer4_launches = phase_int4_sharded(eng4, dev)
+    mode5_rows, shards4 = phase_int4_mode5(eng4, dev, hbm)
+    mode5_launches = {}
+    for mode, a8 in INT4_MODES:
+        phase_fused_step(eng4, dev, shards4, n=4, params=eng4.params,
+                         phase=f"fused_step_int4_{mode}",
+                         kcfg=KernelConfig(int4_w4a8=a8), stack_check=not a8)
+        mode5_launches[mode] = FIGURES[f"fused_step_int4_{mode}_launches"]
+    say("phases_32_34", seconds=f"{time.perf_counter() - t32:.1f}")
+    del eng4, shards4
     torch.cuda.empty_cache()
     ds_rows = phase_deepseek_kernels(dev, hbm, peak)
     mla_launches, ffn_launches = phase_deepseek_e2e(dev)
@@ -5122,6 +5832,18 @@ def main() -> int:
              source="clusterfusion_tpu_torch/csrc/decoder_layer.cu",
              replaces="clusterfusion_tpu/ops/decoder_layer.py:421",
              launches=layer8_launches, **layer8_row),
+        *(dict(name=f"_fused_decoder_layer (int4 weights, {label})",
+               route="cuda",
+               source="clusterfusion_tpu_torch/csrc/decoder_layer.cu",
+               replaces="clusterfusion_tpu/ops/decoder_layer.py:421",
+               launches=layer4_launches[mode], **layer4_rows[mode])
+          for mode, label in (("w4a8", "W4A8"), ("exact", "exact"))),
+        *(dict(name=f"fused_decoder_stack mode 5 (int4 weights, {label})",
+               route="cuda",
+               source="clusterfusion_tpu_torch/csrc/stack_kernel.cu",
+               replaces="clusterfusion_tpu/ops/stack_kernel.py:524",
+               launches=mode5_launches[mode], **mode5_rows[mode])
+          for mode, label in (("w4a8", "W4A8"), ("exact", "exact"))),
         dict(name="all_reduce", route="cuda",
              source="clusterfusion_tpu_torch/csrc/collective.cu",
              replaces="clusterfusion_tpu/parallel/collective.py:208",

@@ -330,7 +330,7 @@ resnorm_reduce_kernel(CfComm cm, const float* b, const __nv_bfloat16* w, float* 
 //   is pushed, kg > 0 as above, so every rank pushes scaled partials; the
 //   scale is the same on every rank, so it commutes with the sum over the
 //   ranks, and the flags and epochs are the bf16 instance's.
-// - Int4 weights (ring_gemv4_kernel<SWIGLU, A8>; kernel 7's int4 modes, the
+// - Int4 weights (ring_gemv4_kernel<SWIGLU, PUSH, A8>; kernel 7's int4 modes, the
 //   TPU kernel's wq_kind == "int4"): W holds codes packed two a byte along
 //   K through the int8 map over the K/2 packed rows, sc float32 group
 //   scales of GS4 k rows.  A stage keeps its 16 KB box: 64 packed rows,
@@ -344,6 +344,12 @@ resnorm_reduce_kernel(CfComm cm, const float* b, const __nv_bfloat16* w, float* 
 //   w4a8_int4_dot; each warp sums a group's products in int32 with dp4a
 //   (exact), scales the sums by the column's scale at the group's end, and
 //   each block's partial is scaled by x's scale before the cluster sum.
+//   Mode 5 in int4 (G1_PUSH_SUM; the TPU kernel's "int4" with
+//   reduce_axis): what is pushed is already scaled (the group scales
+//   inside the sum, W4A8's x scale on each block's partial before the
+//   cluster sum); the group scales are the same on every rank, so the sum
+//   over the ranks is the sum of what each would have written.  The LM
+//   head is never int4, so there is no int4 G1_PUSH_GATHER instance.
 // (M, nrc and xrows are always 1 here; the row arithmetic stays general.)
 constexpr int G1_Y = 0, G1_PUSH_SUM = 1, G1_PUSH_GATHER = 2;
 constexpr int G1_COLS = 256;                       // columns per tile
@@ -807,9 +813,11 @@ __global__ void ring_gemv8_kernel(const void* __restrict__ xv, long long x_row, 
 // 128 k rows, x G1_COLS; matrix mat0 + blockIdx.z), sc float32 group
 // scales [nmat][K/GS4][N] (the TPU kernels stream them rounded to bf16; so
 // does this kernel's exact mode, and quantize_int4 makes them bf16 values),
-// y written (G1_Y only).  A8 (W4A8, KernelConfig.int4_w4a8): x quantized to
-// int8 per activation block of kg rows (0: the whole row).
-template <bool SWIGLU, bool A8>
+// y written (G1_Y), or the sums pushed (G1_PUSH_SUM: mode 5's O and down
+// products; every sum is already scaled, so the ranks' partials add).  A8
+// (W4A8, KernelConfig.int4_w4a8): x quantized to int8 per activation block
+// of kg rows (0: the whole row).
+template <bool SWIGLU, int PUSH, bool A8>
 __global__ void ring_gemv4_kernel(const void* __restrict__ xv, long long x_row, int f_off,
                                   const __grid_constant__ CUtensorMap wmap, int mat0,
                                   float* __restrict__ y, __nv_bfloat16* __restrict__ yb,
@@ -817,7 +825,7 @@ __global__ void ring_gemv4_kernel(const void* __restrict__ xv, long long x_row, 
                                   long long y_row, long long yz,
                                   const __nv_bfloat16* __restrict__ nw, float eps,
                                   const float* __restrict__ sc, int kg, CfComm comm) {
-  ring_gemv_body<SWIGLU, G1_Y, A8 ? WK_INT4A8 : WK_INT4>(
+  ring_gemv_body<SWIGLU, PUSH, A8 ? WK_INT4A8 : WK_INT4>(
       xv, x_row, f_off, nullptr, y, yb, M, K, N, k_chunk, nrc, xrows, 0, y_row, yz, nw, eps,
       comm, &wmap, mat0, sc, kg);
 }
@@ -847,7 +855,7 @@ inline bool make_int8_weight_map(CUtensorMap* map, const void* w, int K, int N,
 // the scales sc and the scale group kg; kg > 0 keeps only the chunkings
 // whose chunks divide kg, and where none of those has every cluster
 // resident, the one of them with the most chunks.  WK_INT4 / WK_INT4A8
-// (G1_Y, no nw): ring_gemv4_kernel over the packed matrices of wmap
+// (G1_Y or G1_PUSH_SUM, no nw): ring_gemv4_kernel over the packed matrices of wmap
 // (make_int4_map at one row), K a multiple of GS4, chunks multiples of GS4
 // (one scale group a stage), sc the group scales, kg W4A8's activation
 // block (chunks kept inside one, as above).  Returns a cudaError_t.
@@ -865,8 +873,8 @@ int launch_gemv1(const void* x, int f_off, const void* w, float* y, int K, int N
   if (W8 && (!wmap || !sc || N % 16 != 0 || kg < 0 ||
              (kg > 0 && (K % kg != 0 || nmat != 1))))
     return (int)cudaErrorInvalidValue;
-  if (W4 && (!wmap || !sc || nw || PUSH != G1_Y || N % 16 != 0 || K % GS4 != 0 || kg < 0 ||
-             (kg > 0 && (K % kg != 0 || kg % GS4 != 0))))
+  if (W4 && (!wmap || !sc || nw || PUSH == G1_PUSH_GATHER || N % 16 != 0 || K % GS4 != 0 ||
+             kg < 0 || (kg > 0 && (K % kg != 0 || kg % GS4 != 0))))
     return (int)cudaErrorInvalidValue;
   if (PUSH != G1_Y && (!comm || nmat != 1 || (N + G1_COLS - 1) / G1_COLS > COMM_FLAG_COLS ||
                        4LL * N > comm->slot_bytes))
@@ -878,7 +886,7 @@ int launch_gemv1(const void* x, int f_off, const void* w, float* y, int K, int N
   static Occ occ_cache[64];
   static int n_occ = 0;
   auto kern = [] {
-    if constexpr (W4) return ring_gemv4_kernel<SWIGLU, WK == WK_INT4A8>;
+    if constexpr (W4) return ring_gemv4_kernel<SWIGLU, PUSH, WK == WK_INT4A8>;
     else if constexpr (W8) return ring_gemv8_kernel<SWIGLU, PUSH>;
     else return ring_gemv_kernel<SWIGLU, PUSH>;
   }();
@@ -922,7 +930,11 @@ int launch_gemv1(const void* x, int f_off, const void* w, float* y, int K, int N
     return n;
   };
   int ks = 0, k_chunk = K;
-  for (int c = std::min(max_cluster, std::max(1, K / (2 * ROWS))); c >= 1; --c) {
+  // at least two stages a block, but W4A8 chunks inside activation blocks
+  // of one scale group take one
+  int cmax = std::max(1, K / (2 * ROWS));
+  if (W4 && kg > 0) cmax = std::max(cmax, K / kg);
+  for (int c = std::min(max_cluster, cmax); c >= 1; --c) {
     // int4: chunks of whole scale groups
     const int kc = W4 ? ((K + c - 1) / c + GS4 - 1) / GS4 * GS4 : (K + c - 1) / c;
     if ((K + kc - 1) / kc != c) continue;               // every rank has rows
@@ -2679,6 +2691,111 @@ template <int NP>
 __device__ void tile_gemv_reduce_scaled(const float (&acc)[NP][8], int P, float* red,
                                         float* out, const float* scale) {
   tile_gemv_reduce_body<NP, true>(acc, P, red, out, scale);
+}
+
+// One 8-column piece of a stage of int4 codes (kernel 6's int4 instances):
+// packed rows r0, r0 + rstep, ... (A8: pairs of them) of `rows`, `pitch`
+// bytes apart from base (the piece's first byte), row j holding k rows 2j
+// (low nibbles) and 2j + 1 (high) of 8 columns, a byte each.  The stage's
+// k rows are kr0.. of the matrix; k row k falls in scale group (kr0 + k) /
+// GS4, whose float32 scales of the piece's columns are sc[group * sstride
+// + 0..7] (reloaded, and rounded to bf16 as the TPU kernel streams them,
+// when the rows enter a new group).  Exact (A8 false): x holds the stage's
+// k rows as floats; the weights are bf16(code * bf16(s)) and the chain the
+// ring GEMV's exact one.  A8 (W4A8): x8 holds them as int8, four k rows a
+// word; a pair of packed rows (four k rows) is one dp4a a column on the
+// biased codes, summed in int32 within a group, and at the group's end
+// (sum - 8 * sum(x8)) * bf16(s) joins acc (x's scale is the caller's).
+template <bool A8>
+__device__ __forceinline__ void gemv4_piece(const unsigned char* base, int pitch, int rows,
+                                            int r0, int rstep, int kr0, const float* x,
+                                            const int* x8, const float* sc, size_t sstride,
+                                            float (&acc)[8]) {
+  int cur = -1;
+  float scl[8];
+  auto load = [&](int grp) {
+    const float4* s4 = reinterpret_cast<const float4*>(sc + (size_t)grp * sstride);
+    const float4 a = __ldg(s4), b = __ldg(s4 + 1);
+    scl[0] = a.x; scl[1] = a.y; scl[2] = a.z; scl[3] = a.w;
+    scl[4] = b.x; scl[5] = b.y; scl[6] = b.z; scl[7] = b.w;
+  };
+  if constexpr (A8) {
+    int part[8], sx = 0;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) part[c] = 0;
+    auto flush = [&]() {
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        acc[c] = fmaf((float)(part[c] - 8 * sx), bf16_round(scl[c]), acc[c]);
+        part[c] = 0;
+      }
+      sx = 0;
+    };
+    for (int q = r0; q < rows / 2; q += rstep) {
+      const int grp = (kr0 + 4 * q) / GS4;
+      if (grp != cur) {
+        if (cur >= 0) flush();
+        load(grp);
+        cur = grp;
+      }
+      const uint2 u0 = *reinterpret_cast<const uint2*>(base + (size_t)(2 * q) * pitch);
+      const uint2 u1 = *reinterpret_cast<const uint2*>(base + (size_t)(2 * q + 1) * pitch);
+      const int xw = x8[q];
+      sx = dp4a_ss(xw, 0x01010101, sx);
+      s4_dot4(u0.x, u1.x, xw, part[0], part[1], part[2], part[3]);
+      s4_dot4(u0.y, u1.y, xw, part[4], part[5], part[6], part[7]);
+    }
+    if (cur >= 0) flush();
+  } else {
+    uint32_t s2[8];
+#pragma unroll 2
+    for (int j = r0; j < rows; j += rstep) {
+      const int grp = (kr0 + 2 * j) / GS4;
+      if (grp != cur) {
+        load(grp);
+#pragma unroll
+        for (int c = 0; c < 8; ++c) s2[c] = bf16_pair_of(scl[c]);
+        cur = grp;
+      }
+      const uint2 u = *reinterpret_cast<const uint2*>(base + (size_t)j * pitch);
+      uint32_t pr[2][4];
+      s4_bf16_pairs(u.x, pr[0]);
+      s4_bf16_pairs(u.y, pr[1]);
+      const float x0 = x[2 * j], x1 = x[2 * j + 1];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const uint32_t w2 = scale_pair(pr[c / 4][c % 4], s2[c]);
+        acc[c] = fmaf(x0, __uint_as_float(w2 << 16), acc[c]);
+        acc[c] = fmaf(x1, __uint_as_float(w2 & 0xffff0000u), acc[c]);
+      }
+    }
+  }
+}
+
+// tile_gemv for a stage of int4 codes: thread t's pieces as tile_gemv
+// takes them (P pieces of 8 columns, 8 bytes, a row; with P <= OL_THREADS
+// row groups of packed rows, A8: of pairs of them), each through
+// gemv4_piece; sc points at the scales of the tile's first column.
+template <int NP, bool A8>
+__device__ __forceinline__ void tile_gemv4(const unsigned char* stage, int pitch, int rows,
+                                           int kr0, const float* x, const int* x8, int P,
+                                           const float* sc, size_t sstride,
+                                           float (&acc)[NP][8]) {
+  const int t = threadIdx.x;
+  if (P <= OL_THREADS) {
+    const int RG = OL_THREADS / P, p = t % P, rg = t / P;
+    if (rg < RG)
+      gemv4_piece<A8>(stage + 8 * p, pitch, rows, rg, RG, kr0, x, x8, sc + 8 * p, sstride,
+                      acc[0]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < NP; ++q) {
+      const int p = t + q * OL_THREADS;
+      if (p < P)
+        gemv4_piece<A8>(stage + 8 * p, pitch, rows, 0, 1, kr0, x, x8, sc + 8 * p, sstride,
+                        acc[q]);
+    }
+  }
 }
 
 // The ordered fold across blocks, one launch, no sum by atomics, in two

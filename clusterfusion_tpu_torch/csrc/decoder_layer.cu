@@ -5,7 +5,7 @@
 //
 // Replaces the TPU kernel `_fused_decoder_layer`
 // (clusterfusion_tpu/ops/decoder_layer.py, `_decoder_layer_kernel`) for
-// bf16 weights, a bf16 KV cache, no window, no bias and no softcap, with
+// bf16, int8 or int4 weights, a bf16 KV cache, no window, no bias and no softcap, with
 // one layer's slices of its layouts:
 //   wqkv [G, hidden, hg*(g+2)*hd]   columns per kv head [q_0..q_{g-1}|k|v]
 //   wo   [G, hg*g*hd, hidden]       caches [kv_heads, cap, hd]
@@ -80,6 +80,27 @@
 // so[h / hg] before the ordered fold sums the heads in order (the TPU
 // kernel sums a group's heads in one dot and then scales; the rounding
 // differs, not the function).  Partials mode streams the int8 QKV only.
+//
+// Int4 weights (WK_INT4 exact, WK_INT4A8 W4A8; the TPU kernel's wq_kind ==
+// "int4", ops/quant.py's group-wise QuantizedTensor, groups of GS4 = 128
+// k rows, codes packed two a byte along K): wqkv [G, hidden/2, C] and wo
+// [G, hg*g*hd/2, hidden] hold the code pairs, sq [G, hidden/128, C] and so
+// [G, hg*g*hd/128, hidden] the float32 group scales.  The code pairs
+// stream as they are through the same 16 KB stages (a stage row is a
+// packed row: two k rows), never a bf16 copy; each thread finds the scale
+// group of its rows itself (gemv4_piece, common.cuh) and rounds the scale
+// to bf16 as the TPU kernel streams it.  Exact: the weights are bf16(code
+// * s), the int8 path's FMA chain.  W4A8 (KernelConfig.int4_w4a8): every
+// block quantizes the normed row to int8 against its absmax, sums each
+// group's dp4a products in int32 and scales them by the group's scale at
+// the group's end, and x's scale after the sum.  The O projection in W4A8
+// cannot stay inside the clusters: the TPU kernel quantizes a whole head
+// group's o (hg heads, hg clusters) against one absmax.  So the layer
+// writes o and one launch of the ring GEMV's W4A8 instance projects it
+// (kernel 7's W4A8 O projection: chunks inside one head group, a fixed
+// summation order), two launches a call.  The exact O stays in the
+// layer's own tile loop and ordered fold.  Partials mode streams the int4
+// QKV only.
 
 #include <string.h>
 
@@ -115,10 +136,11 @@ struct DlGeom {
 
 // Shared-memory offsets (bytes) of one block.
 struct DlSmem {
-  int xs, qkvp, qkv, qs, qb, kr, cs, small, A, o, sc, pst, red, ring, total;
+  int xs, qkvp, qkv, qs, qb, kr, cs, small, A, o, sc, pst, red, ring, total, x8;
 };
 
-__host__ __device__ inline DlSmem dl_smem(const DlGeom& G) {
+// x8: W4A8's int8 x of the row (hidden bytes) too.
+__host__ __device__ inline DlSmem dl_smem(const DlGeom& G, bool x8 = false) {
   const int ghd = G.g * G.hd, cq = ghd + 2 * G.hd;
   const int red = OL_WARPS * ghd > OL_RED_FLOATS ? OL_WARPS * ghd : OL_RED_FLOATS;
   DlSmem s;
@@ -136,6 +158,7 @@ __host__ __device__ inline DlSmem dl_smem(const DlGeom& G) {
   s.sc = ol_take(off, 4 * G.g * G.kch * G.split);   // a chunk's scores, then p
   s.pst = ol_take(off, 4 * 2 * G.g * G.kch);  // per (split, row): max, sum
   s.red = ol_take(off, 4 * red);
+  s.x8 = x8 ? ol_take(off, G.hidden) : 0;
   s.ring = (off + 1023) / 1024 * 1024;
   s.total = s.ring + G.nst * OL_STAGE;
   return s;
@@ -145,9 +168,12 @@ __host__ __device__ inline DlSmem dl_smem(const DlGeom& G) {
 // group's query rows hold no more code than the call runs; HDT: the head
 // dim when it is 128 (0: G.hd).  With both known (7B's g 1, hd 128) the
 // index arithmetic folds into shifts and the launch's code, fetched cold on
-// every call of a decode step, is the shorter.  W8: int8 weights with the
-// scales sq and so (unused, and null, in the bf16 instances).
-template <int GT, int HDT, bool W8>
+// every call of a decode step, is the shorter.  WK (common.cuh's WK_*): the
+// weight kind; int8 and int4 weights come with the scales sq and so
+// (unused, and null, in the bf16 instances).  WK_INT4A8 writes o (bf16
+// [kv*g*hd]) to `out` and projects nothing (the ring GEMV's W4A8 instance
+// runs the O projection after it).
+template <int GT, int HDT, int WK>
 __global__ void __launch_bounds__(OL_BLOCK, 1)
 decoder_layer_kernel(const __grid_constant__ CUtensorMap qmap,
                      const __grid_constant__ CUtensorMap omap, DlGeom G,
@@ -161,9 +187,11 @@ decoder_layer_kernel(const __grid_constant__ CUtensorMap qmap,
                      float* __restrict__ ml_out, float* part, unsigned* ctr,
                      unsigned long long* stamps, const float* __restrict__ sq,
                      const float* __restrict__ so) {
-  constexpr int EB = W8 ? 1 : 2;                  // bytes per weight
+  constexpr bool W8 = WK == WK_INT8, W4 = WK >= WK_INT4, A8 = WK == WK_INT4A8;
+  constexpr int EB = W8 || W4 ? 1 : 2;            // bytes per weight (int4: a code pair)
+  constexpr int KR = W4 ? 2 : 1;                  // k rows per weight row
   extern __shared__ __align__(1024) unsigned char dl_sm[];
-  const DlSmem S = dl_smem(G);
+  const DlSmem S = dl_smem(G, A8);
   uint64_t* full = reinterpret_cast<uint64_t*>(dl_sm);   // [nst] bytes landed
   uint64_t* empty = full + OL_MAX_STAGES;                // [nst] consumers done
   int* flag = reinterpret_cast<int*>(dl_sm + 16 * OL_MAX_STAGES);
@@ -197,7 +225,8 @@ decoder_layer_kernel(const __grid_constant__ CUtensorMap qmap,
   // the tile sequence: QKV rows, then per chunk of this rank's splits
   // (rank, rank + C, ...; only the globally last split can be short) the K
   // tiles, then the V tiles; then wo rows
-  const int nq = cql > 0 ? (G.hidden + G.rq - 1) / G.rq : 0;
+  const int hrows = G.hidden / KR;                // wqkv rows (int4: packed)
+  const int nq = cql > 0 ? (hrows + G.rq - 1) / G.rq : 0;
   const int nmine = G.ns > rank ? (G.ns - 1 - rank) / C + 1 : 0;
   const int ntf = (G.split + G.tr - 1) / G.tr;   // K (or V) tiles of a full split
   int nkv = 0;
@@ -205,7 +234,7 @@ decoder_layer_kernel(const __grid_constant__ CUtensorMap qmap,
     const int nl = min(G.split, G.seq - (rank + (nmine - 1) * C) * G.split);
     nkv = 2 * (ntf * (nmine - 1) + (nl + G.tr - 1) / G.tr);
   }
-  const int no = (G.partials || ocl == 0) ? 0 : (ghd + G.ro - 1) / G.ro;
+  const int no = (A8 || G.partials || ocl == 0) ? 0 : (ghd / KR + G.ro - 1) / G.ro;
   const int total = nq + nkv + no;
   const int grp = h / G.hg, hin = h % G.hg;
   const __nv_bfloat16* kh = kc + (size_t)h * G.cap * hd;
@@ -222,7 +251,7 @@ decoder_layer_kernel(const __grid_constant__ CUtensorMap qmap,
     if (u < nq) {
       hopper::mbar_arrive_expect_tx(&full[s], (uint32_t)G.rq * G.cw * EB);
       hopper::tma_load_3d(dst, &qmap, &full[s], 0, (hin * cq + q0) / G.pw,
-                          grp * G.hidden + u * G.rq);
+                          grp * hrows + u * G.rq);
     } else if (u < nq + nkv) {
       int v = u - nq;
       const int c = v / (2 * G.kch * ntf), j0 = c * G.kch;
@@ -242,7 +271,7 @@ decoder_layer_kernel(const __grid_constant__ CUtensorMap qmap,
       const int t = u - nq - nkv;
       hopper::mbar_arrive_expect_tx(&full[s], (uint32_t)G.ro * G.oc * EB);
       hopper::tma_load_3d(dst, &omap, &full[s], 0, c0 / G.bw,
-                          (grp * G.hg + hin) * ghd + t * G.ro);
+                          (grp * G.hg + hin) * ghd / KR + t * G.ro);
     }
   };
   int u = 0;                                      // the next tile to read
@@ -297,19 +326,52 @@ decoder_layer_kernel(const __grid_constant__ CUtensorMap qmap,
   }
   for (int e = tid; e < ghd; e += OL_THREADS) A[e] = 0.f;
   ol_cbar();
+  // W4A8: xn quantized to int8 against the row's absmax (JAX's
+  // w4a8_int4_dot on the normed row), four k rows a word; every block
+  // computes the same bits
+  float xsc = 1.f;
+  int* x8 = reinterpret_cast<int*>(dl_sm + S.x8);
+  if constexpr (A8) {
+    float am = 0.f;
+    for (int i = tid; i < G.hidden; i += OL_THREADS) am = fmaxf(am, fabsf(xs[i]));
+    am = warp_max(am);
+    if (lane == 0) red[wid] = am;
+    ol_cbar();
+#pragma unroll
+    for (int w = 0; w < OL_WARPS; ++w) am = fmaxf(am, red[w]);
+    xsc = fmaxf(am, 1e-8f) * (1.f / 127.f);
+    for (int i = tid; i < G.hidden / 4; i += OL_THREADS) {
+      uint32_t w = 0;
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        w |= ((uint32_t)(int)quant_x8(xs[4 * i + b], xsc) & 0xffu) << (8 * b);
+      x8[i] = (int)w;
+    }
+    ol_cbar();
+  }
   ol_stamp(stamps, 1);
 
-  // 2. QKV: this rank's columns (int8: each scaled after its sum), then
-  // every rank's gathered
+  // 2. QKV: this rank's columns (int8: each scaled after its sum; int4:
+  // the group scales inside it, W4A8's x scale after it), then every
+  // rank's gathered
   if (cql > 0) {
     float acc[1][8] = {};
     for (int t = 0; t < nq; ++t) {
       const unsigned char* st = wait();
-      tile_gemv<1, W8>(st, G.cw * EB, cql / 8, 0, min(G.rq, G.hidden - t * G.rq),
-                       xs + t * G.rq, cql / 8, acc);
+      if constexpr (W4)
+        tile_gemv4<1, A8>(st, G.cw, min(G.rq, hrows - t * G.rq), 2 * t * G.rq,
+                          xs + 2 * t * G.rq, x8 + t * G.rq / 2, cql / 8,
+                          sq + ((size_t)grp * (G.hidden / GS4)) * G.hg * cq + hin * cq + q0,
+                          (size_t)G.hg * cq, acc);
+      else
+        tile_gemv<1, W8>(st, G.cw * EB, cql / 8, 0, min(G.rq, G.hidden - t * G.rq),
+                         xs + t * G.rq, cql / 8, acc);
       release();
     }
-    if constexpr (W8)
+    if constexpr (A8) {
+      tile_gemv_reduce<1>(acc, cql / 8, red, qkvp);
+      for (int e = tid; e < cql; e += OL_THREADS) qkvp[e] *= xsc;
+    } else if constexpr (W8)
       tile_gemv_reduce_scaled<1>(acc, cql / 8, red, qkvp,
                                  sq + (size_t)grp * G.hg * cq + hin * cq + q0);
     else
@@ -564,6 +626,8 @@ decoder_layer_kernel(const __grid_constant__ CUtensorMap qmap,
           ml_out[G.kv * g + row] = l;
         }
       }
+    } else if constexpr (A8) {    // o_flat for the ring GEMV's O projection
+      if (rank == 0) out[(size_t)h * ghd + e] = __float2bfloat16(acc / l);
     } else {
       o[e] = bf16_round(acc / l);
     }
@@ -572,13 +636,20 @@ decoder_layer_kernel(const __grid_constant__ CUtensorMap qmap,
   ol_stamp(stamps, 5);
 
   // 6. O-projection of this rank's columns (int8: the head's row scaled by
-  // its group's scale), then 7. the ordered fold
-  if (!G.partials && ocl > 0) {
+  // its group's scale; exact int4: the group scales inside the sum), then
+  // 7. the ordered fold
+  if (!A8 && !G.partials && ocl > 0) {
     float acc[OL_MAX_NP][8] = {};
     for (int t = 0; t < no; ++t) {
       const unsigned char* st = wait();
-      tile_gemv<OL_MAX_NP, W8>(st, G.oc * EB, ocl / 8, 0, min(G.ro, ghd - t * G.ro),
-                               o + t * G.ro, ocl / 8, acc);
+      if constexpr (W4)
+        tile_gemv4<OL_MAX_NP, false>(
+            st, G.oc, min(G.ro, ghd / 2 - t * G.ro), hin * ghd + 2 * t * G.ro,
+            o + 2 * t * G.ro, nullptr, ocl / 8,
+            so + (size_t)grp * (G.hg * ghd / GS4) * G.hidden + c0, (size_t)G.hidden, acc);
+      else
+        tile_gemv<OL_MAX_NP, W8>(st, G.oc * EB, ocl / 8, 0, min(G.ro, ghd - t * G.ro),
+                                 o + t * G.ro, ocl / 8, acc);
       release();
     }
     if constexpr (W8)
@@ -598,19 +669,22 @@ decoder_layer_kernel(const __grid_constant__ CUtensorMap qmap,
   ol_cluster_sync();                                 // peers have read this block's state
 }
 
-// The geometry at cluster size c (w8: the int8 mode's, whose stages hold
-// twice the rows and whose boxes' inner widths are multiples of 16
-// columns), or nst == 0 if it does not fit.
-DlGeom dl_geom(DlGeom G, int c, bool w8) {
+// The geometry at cluster size c for weight kind wk (int8 and int4: stages
+// of 16 KB hold rows of int8 codes or of int4 code pairs, two k rows a
+// byte, and the boxes' inner widths are multiples of 16 columns), or nst
+// == 0 if it does not fit.
+DlGeom dl_geom(DlGeom G, int c, int wk) {
   G.C = c;
+  const bool q8 = wk != WK_BF16;
   const int cq = (G.g + 2) * G.hd;
-  const int unit = w8 ? 16 : 8, eb = w8 ? 1 : 2;
+  const int unit = q8 ? 16 : 8, eb = q8 ? 1 : 2;
   G.cw = ((cq + c - 1) / c + unit - 1) / unit * unit;
   // wo columns per rank rounded to 64, so that a box's lines are >= 128 bytes
   // (bf16; int8 lines are >= 64)
   G.oc = ((G.hidden + c - 1) / c + 63) / 64 * 64;
   G.rq = std::min(256, OL_STAGE / (eb * G.cw));
   G.ro = std::min(256, OL_STAGE / (eb * G.oc));
+  if (wk >= WK_INT4) G.rq &= ~1;         // W4A8 reads packed rows in pairs
   G.tr = std::min(G.split, 64);
   // splits per chunk: as many as this call gives a rank, up to 32 KB of scores
   const int mine = G.ns > 0 ? (G.ns + c - 1) / c : 1;
@@ -618,76 +692,88 @@ DlGeom dl_geom(DlGeom G, int c, bool w8) {
   G.pw = ol_box_width(G.cw, cq, unit);
   G.bw = ol_box_width(G.oc, G.hidden, unit);
   G.nst = 0;
-  if (G.ro < 1 || G.oc / G.bw > 256 || G.cw / G.pw > 256 || G.hidden > OL_MAX_HIDDEN)
+  if (G.rq < 1 || G.ro < 1 || G.oc / G.bw > 256 || G.cw / G.pw > 256 ||
+      G.hidden > OL_MAX_HIDDEN)
     return G;
-  G.nst = ol_stages(dl_smem(G).ring, DL_STAGES);
+  G.nst = ol_stages(dl_smem(G, wk == WK_INT4A8).ring, DL_STAGES);
   if (G.nst < 2) G.nst = 0;
   return G;
 }
 
-using DlKernel = decltype(&decoder_layer_kernel<1, 0, false>);
+using DlKernel = decltype(&decoder_layer_kernel<1, 0, WK_BF16>);
 
-template <int HDT, bool W8>
+template <int HDT, int WK>
 DlKernel dl_kernel_hd(int g) {
-  return g <= 1   ? decoder_layer_kernel<1, HDT, W8>
-         : g <= 2 ? decoder_layer_kernel<2, HDT, W8>
-         : g <= 4 ? decoder_layer_kernel<4, HDT, W8>
-                  : decoder_layer_kernel<8, HDT, W8>;
+  return g <= 1   ? decoder_layer_kernel<1, HDT, WK>
+         : g <= 2 ? decoder_layer_kernel<2, HDT, WK>
+         : g <= 4 ? decoder_layer_kernel<4, HDT, WK>
+                  : decoder_layer_kernel<8, HDT, WK>;
 }
 
-// The instantiation for a group of g query rows of head dim hd (w8: int8
-// weights).
-DlKernel dl_kernel(int g, int hd, bool w8) {
-  if (w8) return hd == 128 ? dl_kernel_hd<128, true>(g) : dl_kernel_hd<0, true>(g);
-  return hd == 128 ? dl_kernel_hd<128, false>(g) : dl_kernel_hd<0, false>(g);
+template <int WK>
+DlKernel dl_kernel_wk(int g, int hd) {
+  return hd == 128 ? dl_kernel_hd<128, WK>(g) : dl_kernel_hd<0, WK>(g);
+}
+
+// The instantiation for a group of g query rows of head dim hd and weight
+// kind wk.
+DlKernel dl_kernel(int g, int hd, int wk) {
+  return wk == WK_INT8     ? dl_kernel_wk<WK_INT8>(g, hd)
+         : wk == WK_INT4   ? dl_kernel_wk<WK_INT4>(g, hd)
+         : wk == WK_INT4A8 ? dl_kernel_wk<WK_INT4A8>(g, hd)
+                           : dl_kernel_wk<WK_BF16>(g, hd);
 }
 
 // The two weights' tensor maps of one call and the weight kind they were
 // encoded for; the launch takes its kernel instance from that kind, so a
-// map is never read by the instance of the other kind.
+// map is never read by the instance of another kind.
 struct DlMaps {
   CUtensorMap q, o;
-  bool w8;
+  int wk;
 };
 
 // Encode the maps for this geometry: wqkv as [G*hidden][hg*cq/pw][pw] in
-// boxes [rq][cw/pw][pw], wo (not in partials mode) as [kv*g*hd][hidden/bw]
-// [bw] in boxes [ro][oc/bw][bw]; bf16 or (w8) int8 elements.
-bool dl_maps(DlMaps* m, const DlGeom& G, const void* wqkv, const void* wo, bool w8) {
+// boxes [rq][cw/pw][pw], wo (not in partials mode, nor in W4A8, whose O
+// projection is the ring GEMV's) as [kv*g*hd][hidden/bw][bw] in boxes
+// [ro][oc/bw][bw]; bf16 or int8 elements (int4: int8 code pairs, the rows
+// halved).
+bool dl_maps(DlMaps* m, const DlGeom& G, const void* wqkv, const void* wo, int wk) {
+  const bool q8 = wk != WK_BF16;
   const CUtensorMapDataType type =
-      w8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  const uint64_t eb = w8 ? 1 : 2;
+      q8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const uint64_t eb = q8 ? 1 : 2, kr = wk >= WK_INT4 ? 2 : 1;
   const int ng = G.kv / G.hg, cq = (G.g + 2) * G.hd;
-  m->w8 = w8;
+  m->wk = wk;
   memset(&m->o, 0, sizeof(m->o));
   return hopper::make_tensor_map_3d(&m->q, type, wqkv, G.pw, (uint64_t)G.hg * cq / G.pw,
-                                    (uint64_t)ng * G.hidden, (uint64_t)G.pw * eb,
+                                    (uint64_t)ng * G.hidden / kr, (uint64_t)G.pw * eb,
                                     (uint64_t)G.hg * cq * eb, G.pw, G.cw / G.pw, G.rq,
                                     CU_TENSOR_MAP_SWIZZLE_NONE) &&
-         (G.partials ||
+         (G.partials || wk == WK_INT4A8 ||
           hopper::make_tensor_map_3d(&m->o, type, wo, G.bw, G.hidden / G.bw,
-                                     (uint64_t)G.kv * G.g * G.hd, (uint64_t)G.bw * eb,
+                                     (uint64_t)G.kv * G.g * G.hd / kr, (uint64_t)G.bw * eb,
                                      (uint64_t)G.hidden * eb, G.bw, G.oc / G.bw, G.ro,
                                      CU_TENSOR_MAP_SWIZZLE_NONE));
 }
 
-// The cluster size for this geometry on the current device (cached): the
-// largest, up to SMs / kv heads, whose kv_heads clusters the card holds all
-// at once; else the largest that fits at all.  *act (if given) receives
-// the clusters of that size the card holds.  Returns a cudaError_t.
-int dl_pick(int hidden, int kv_heads, int group, int hd, int kv_split, bool w8, int* c_out,
+// The cluster size for this geometry and weight kind on the current device
+// (cached): the largest, up to SMs / kv heads, whose kv_heads clusters the
+// card holds all at once; else the largest that fits at all.  *act (if
+// given) receives the clusters of that size the card holds.  Returns a
+// cudaError_t.
+int dl_pick(int hidden, int kv_heads, int group, int hd, int kv_split, int wk, int* c_out,
             int* act_out) {
   int num_sms = 0, max_cluster = 0;
-  const DlKernel kern = dl_kernel(group, hd, w8);
+  const DlKernel kern = dl_kernel(group, hd, wk);
   CF_CHECK(ol_device(kern, &num_sms, &max_cluster));
-  static struct { int dev, hidden, kv, g, hd, split, w8, c, act; } picks[32];
+  static struct { int dev, hidden, kv, g, hd, split, wk, c, act; } picks[32];
   static int n_picks = 0;
   int dev = 0;
   CF_CHECK((int)cudaGetDevice(&dev));
   for (int i = 0; i < n_picks; ++i)
     if (picks[i].dev == dev && picks[i].hidden == hidden && picks[i].kv == kv_heads &&
         picks[i].g == group && picks[i].hd == hd && picks[i].split == kv_split &&
-        picks[i].w8 == (int)w8) {
+        picks[i].wk == wk) {
       *c_out = picks[i].c;
       if (act_out) *act_out = picks[i].act;
       return 0;
@@ -698,9 +784,10 @@ int dl_pick(int hidden, int kv_heads, int group, int hd, int kv_split, bool w8, 
                              (group + 2) * hd / 8});
   int c = 0, act = 0;
   for (int t = cmax; t >= 1; --t) {
-    const DlGeom Gt = dl_geom(G, t, w8);
+    const DlGeom Gt = dl_geom(G, t, wk);
     if (Gt.nst == 0) continue;
-    const int a = ol_active_clusters(kern, t, dl_smem(Gt).total, t * kv_heads);
+    const int a =
+        ol_active_clusters(kern, t, dl_smem(Gt, wk == WK_INT4A8).total, t * kv_heads);
     if (a >= 1 && c == 0) {
       c = t;
       act = a;
@@ -713,7 +800,7 @@ int dl_pick(int hidden, int kv_heads, int group, int hd, int kv_split, bool w8, 
   }
   if (c == 0) return (int)cudaErrorInvalidValue;
   if (n_picks < 32)
-    picks[n_picks++] = {dev, hidden, kv_heads, group, hd, kv_split, (int)w8, c, act};
+    picks[n_picks++] = {dev, hidden, kv_heads, group, hd, kv_split, wk, c, act};
   *c_out = c;
   if (act_out) *act_out = act;
   return 0;
@@ -722,26 +809,28 @@ int dl_pick(int hidden, int kv_heads, int group, int hd, int kv_split, bool w8, 
 }  // namespace
 
 // The launch plan of cf_decoder_layer for this geometry on the current
-// device (w8: the int8 mode's), into info[0..20]: blocks per cluster,
-// blocks, ring stages, shared bytes per block, clusters the card holds at
-// that size, then for cluster sizes 1..16 the clusters the card holds (0
-// where none fits).  Returns a cudaError_t.
+// device (wk: the weight kind, common.cuh's WK_*), into info[0..20]: blocks
+// per cluster, blocks, ring stages, shared bytes per block, clusters the
+// card holds at that size, then for cluster sizes 1..16 the clusters the
+// card holds (0 where none fits).  Returns a cudaError_t.
 extern "C" int cf_decoder_layer_plan(int hidden, int kv_heads, int group, int hd,
-                                     int kv_split, int w8, int* info) {
+                                     int kv_split, int wk, int* info) {
+  if (wk < WK_BF16 || wk > WK_INT4A8) return (int)cudaErrorInvalidValue;
   int c = 0, act = 0;
-  CF_CHECK(dl_pick(hidden, kv_heads, group, hd, kv_split, w8 != 0, &c, &act));
+  CF_CHECK(dl_pick(hidden, kv_heads, group, hd, kv_split, wk, &c, &act));
   DlGeom G{hidden, kv_heads, 1, group, hd, 0, 0, kv_split};
   G.ns = 1 << 20;
-  const DlGeom Gc = dl_geom(G, c, w8 != 0);
+  const bool x8 = wk == WK_INT4A8;
+  const DlGeom Gc = dl_geom(G, c, wk);
   info[0] = c;
   info[1] = c * kv_heads;
   info[2] = Gc.nst;
-  info[3] = dl_smem(Gc).total;
+  info[3] = dl_smem(Gc, x8).total;
   info[4] = act;
   for (int t = 1; t <= OL_MAX_CLUSTER; ++t) {
-    const DlGeom Gt = dl_geom(G, t, w8 != 0);
-    info[4 + t] = Gt.nst ? ol_active_clusters(dl_kernel(group, hd, w8 != 0), t,
-                                              dl_smem(Gt).total, t * kv_heads)
+    const DlGeom Gt = dl_geom(G, t, wk);
+    info[4 + t] = Gt.nst ? ol_active_clusters(dl_kernel(group, hd, wk), t,
+                                              dl_smem(Gt, x8).total, t * kv_heads)
                          : 0;
   }
   return 0;
@@ -754,8 +843,8 @@ extern "C" long long cf_decoder_layer_scratch_floats(int hidden, int kv_heads) {
   return ol_fold_floats(kv_heads, hidden, DL_FOLD_GROUP);
 }
 
-// The attention half of one layer at `seq` cached rows, on `stream`, one
-// launch.  x, residual (nullptr: no residual add), rms_w, out, res_out
+// The attention half of one layer at `seq` cached rows, on `stream`.
+// x, residual (nullptr: no residual add), rms_w, out, res_out
 // (nullptr: not written) are bf16 [hidden]; cos/sin f32 [hd]; k_new/v_new
 // bf16 [kv, hd]; kc/vc the layer's bf16 [kv, cap, hd] cache, row `seq`
 // written when `append`.  acc_out (f32 [kv*g, hd]) and ml_out (f32
@@ -764,10 +853,20 @@ extern "C" long long cf_decoder_layer_scratch_floats(int hidden, int kv_heads) {
 // take turns with it).  stamps: nullptr, or zeroed uint64 [16 * kv_heads]
 // [OL_STAMPS] (rows past the launch's blocks stay 0) for the phases'
 // times: start, norm, QKV, rope, split-KV, merge, O-projection, fold.
-// *n_launches receives the number of kernels launched.  w8: wqkv and wo
-// hold int8 codes and wqkv_s (float32 [G, hg*(g+2)*hd]) and wo_s (float32
-// [G, hidden]; unused in partials mode) their per-column scales; hidden a
-// multiple of 16.  Returns a cudaError_t (0 on success).
+// *n_launches receives the number of kernels launched.  wk (common.cuh's
+// WK_*): the weight kind.  WK_INT8: wqkv and wo hold int8 codes and wqkv_s
+// (float32 [G, hg*(g+2)*hd]) and wo_s (float32 [G, hidden]; unused in
+// partials mode) their per-column scales; hidden a multiple of 16.
+// WK_INT4 (exact) and WK_INT4A8 (W4A8): wqkv [G, hidden/2, C] and wo [G,
+// hg*g*hd/2, hidden] hold int4 codes packed two a byte along K, wqkv_s
+// [G, hidden/GS4, C] and wo_s [G, hg*g*hd/GS4, hidden] their float32 group
+// scales; hidden and hg*g*hd multiples of GS4.  W4A8 (not in partials
+// mode) is two launches: the layer writes o (bf16 [kv*g*hd]) into o_buf,
+// and the ring GEMV's W4A8 instance (o_threads consumer threads) projects
+// the head groups' o as one [kv*g*hd, hidden] product whose activation
+// blocks are the head groups (the TPU kernel quantizes each head group's
+// o_flat against its own absmax, and no cluster holds a whole group), out
+// = bf16 of its sums.  Returns a cudaError_t (0 on success).
 extern "C" int cf_decoder_layer(
     const void* x, const void* residual, const void* rms_w, const void* cos,
     const void* sin, const void* wqkv, const void* wo, void* kc, void* vc,
@@ -775,11 +874,19 @@ extern "C" int cf_decoder_layer(
     void* ml_out, void* scratch, int hidden, int kv_heads, int hg, int group,
     int hd, int cap, int seq, int fold, int append, int neox, float eps,
     int kv_split, void* stamps, int* n_launches, void* stream, const void* wqkv_s,
-    const void* wo_s, int w8) {
+    const void* wo_s, int wk, void* o_buf, int o_threads) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   *n_launches = 0;
   const bool partials = acc_out != nullptr;
-  if (w8 && (wqkv_s == nullptr || (!partials && wo_s == nullptr) || hidden % 16 != 0))
+  const bool w4 = wk == WK_INT4 || wk == WK_INT4A8, a8 = wk == WK_INT4A8 && !partials;
+  if (wk < WK_BF16 || wk > WK_INT4A8) return (int)cudaErrorInvalidValue;
+  if (wk != WK_BF16 &&
+      (wqkv_s == nullptr || (!partials && wo_s == nullptr) || hidden % 16 != 0))
+    return (int)cudaErrorInvalidValue;
+  if (w4 && (hidden % GS4 != 0 || (hg * group * hd) % GS4 != 0))
+    return (int)cudaErrorInvalidValue;
+  if (a8 && (o_buf == nullptr || o_threads < 32 || o_threads % 32 != 0 ||
+             o_threads > G1_MAX_THREADS))
     return (int)cudaErrorInvalidValue;
   if (kv_heads < 1 || kv_heads > OL_FOLD_MAX_ROWS || hg < 1 || kv_heads % hg != 0 || seq < 0 || seq > cap ||
       (append && (partials || seq >= cap)) || hidden < 8 || hidden % 8 != 0 ||
@@ -792,24 +899,36 @@ extern "C" int cf_decoder_layer(
   G.ns = (seq + kv_split - 1) / kv_split;
   G.eps = eps;
   int c = 0;
-  CF_CHECK(dl_pick(hidden, kv_heads, group, hd, kv_split, w8 != 0, &c, nullptr));
-  G = dl_geom(G, c, w8 != 0);
+  CF_CHECK(dl_pick(hidden, kv_heads, group, hd, kv_split, wk, &c, nullptr));
+  G = dl_geom(G, c, wk);
   DlMaps m;
-  if (!dl_maps(&m, G, wqkv, wo, w8 != 0)) return (int)cudaErrorInvalidValue;
+  if (!dl_maps(&m, G, wqkv, wo, wk)) return (int)cudaErrorInvalidValue;
+  CUtensorMap om;                 // W4A8's O projection: wo as one packed matrix
+  const int ko = kv_heads * group * hd;
+  if (a8 && !make_int8_weight_map(&om, wo, ko / 2, hidden, 1))
+    return (int)cudaErrorInvalidValue;
   float* part = static_cast<float*>(scratch);
   unsigned* ctr = reinterpret_cast<unsigned*>(
       part + (size_t)(kv_heads + ol_fold_groups(kv_heads, DL_FOLD_GROUP)) * hidden);
   CF_CHECK(launch_kernel_cluster(
-      dl_kernel(group, hd, m.w8), dim3(1, c * kv_heads), dim3(OL_BLOCK), dl_smem(G).total, st,
-      false, c, m.q, m.o, G, static_cast<const __nv_bfloat16*>(x),
+      dl_kernel(group, hd, m.wk), dim3(1, c * kv_heads), dim3(OL_BLOCK),
+      dl_smem(G, m.wk == WK_INT4A8).total, st, false, c, m.q, m.o, G,
+      static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(residual), static_cast<const __nv_bfloat16*>(rms_w),
       static_cast<const float*>(cos), static_cast<const float*>(sin),
       static_cast<__nv_bfloat16*>(kc), static_cast<__nv_bfloat16*>(vc),
-      static_cast<__nv_bfloat16*>(out), static_cast<__nv_bfloat16*>(res_out),
+      static_cast<__nv_bfloat16*>(a8 ? o_buf : out), static_cast<__nv_bfloat16*>(res_out),
       static_cast<__nv_bfloat16*>(k_new), static_cast<__nv_bfloat16*>(v_new),
       static_cast<float*>(acc_out), static_cast<float*>(ml_out), part, ctr,
       static_cast<unsigned long long*>(stamps), static_cast<const float*>(wqkv_s),
       static_cast<const float*>(wo_s)));
   *n_launches = 1;
+  if (a8) {
+    CF_CHECK((launch_gemv1<false, G1_Y, WK_INT4A8>(
+        o_buf, 0, nullptr, nullptr, ko, hidden, 1, 0, 0, o_threads, true, st,
+        static_cast<__nv_bfloat16*>(out), nullptr, 0.f, nullptr, &om, 0,
+        static_cast<const float*>(wo_s), hg * group * hd)));
+    *n_launches = 2;
+  }
   return 0;
 }

@@ -87,6 +87,15 @@
 // every rank, so it commutes with the sum (or the gather) over the ranks.
 // The flags, epochs and waits are the bf16 sequence's.
 //
+// Mode 5 with int4 weights (the TPU kernel's wq_kind == "int4" with
+// reduce_axis): the O and down products run ring_gemv4_kernel's
+// G1_PUSH_SUM instances, whose pushed sums are already scaled (each
+// group's integer dot by its group scale; W4A8: each block's partial by
+// x's scale).  The activation blocks are those of this rank's shard: the
+// O projection's head group and the down product's f-block of the shard's
+// f_pad (ffn_block, JAX's block on a shard), so a sharded W4A8 step is not
+// the unsharded one's function.  The LM head stays bf16 or int8.
+//
 // Mode 5 with the logits gathered (`gather`; the tp step of
 // parallel/decode.py): lm_head is this rank's vocab shard of n columns, and
 // the step ends in kernel 14's gather, again with no launch of its own
@@ -210,6 +219,10 @@ int preload_mode5() {
   CF_CHECK((int)cudaFuncGetAttributes(&a, ring_gemv8_kernel<false, G1_PUSH_SUM>));
   CF_CHECK((int)cudaFuncGetAttributes(&a, ring_gemv8_kernel<true, G1_PUSH_SUM>));
   CF_CHECK((int)cudaFuncGetAttributes(&a, ring_gemv8_kernel<false, G1_PUSH_GATHER>));
+  CF_CHECK((int)cudaFuncGetAttributes(&a, ring_gemv4_kernel<false, G1_PUSH_SUM, false>));
+  CF_CHECK((int)cudaFuncGetAttributes(&a, ring_gemv4_kernel<true, G1_PUSH_SUM, false>));
+  CF_CHECK((int)cudaFuncGetAttributes(&a, ring_gemv4_kernel<false, G1_PUSH_SUM, true>));
+  CF_CHECK((int)cudaFuncGetAttributes(&a, ring_gemv4_kernel<true, G1_PUSH_SUM, true>));
   CF_CHECK((int)cudaFuncGetAttributes(&a, resnorm_reduce_kernel));
   CF_CHECK((int)cudaFuncGetAttributes(&a, gather_wait_kernel));
   if (dev < 64) loaded[dev] = true;
@@ -241,16 +254,29 @@ int step_gemv(int wk, const void* x, int f_off, const void* w, const CUtensorMap
   return launch_gemv1<SWIGLU>(x, f_off, w, y, K, N, nmat, ws, yz, threads, true, st);
 }
 
-// One pushing product of mode 5 (one matrix, comm given): bf16 w, or (sc
-// given) the int8 matrix mat0 of wmap scaled as step_gemv's.
+// One pushing product of mode 5 (one matrix, comm given), of weight kind
+// wk: bf16 w, or the int8 matrix mat0 of wmap scaled as step_gemv's, or
+// (G1_PUSH_SUM only: the LM head is never int4) the int4 matrix mat0 of
+// wmap with its group scales (W4A8: kg the activation block).
 template <bool SWIGLU, int PUSH>
-int push_gemv(const void* x, int f_off, const void* w, const CUtensorMap* wmap, int mat0,
-              const float* sc, int kg, int K, int N, int threads, cudaStream_t st,
+int push_gemv(int wk, const void* x, int f_off, const void* w, const CUtensorMap* wmap,
+              int mat0, const float* sc, int kg, int K, int N, int threads, cudaStream_t st,
               const CfComm* cc) {
-  if (sc)
+  if (wk == WK_INT8)
     return launch_gemv1<SWIGLU, PUSH, true>(x, f_off, nullptr, nullptr, K, N, 1, 0, 0, threads,
                                             true, st, nullptr, nullptr, 0.f, cc, wmap, mat0,
                                             sc, kg);
+  if constexpr (PUSH == G1_PUSH_SUM) {
+    if (wk == WK_INT4)
+      return launch_gemv1<SWIGLU, PUSH, WK_INT4>(x, f_off, nullptr, nullptr, K, N, 1, 0, 0,
+                                                 threads, true, st, nullptr, nullptr, 0.f, cc,
+                                                 wmap, mat0, sc, 0);
+    if (wk == WK_INT4A8)
+      return launch_gemv1<SWIGLU, PUSH, WK_INT4A8>(x, f_off, nullptr, nullptr, K, N, 1, 0, 0,
+                                                   threads, true, st, nullptr, nullptr, 0.f,
+                                                   cc, wmap, mat0, sc, kg);
+  }
+  if (wk != WK_BF16) return (int)cudaErrorInvalidValue;
   return launch_gemv1<SWIGLU, PUSH>(x, f_off, w, nullptr, K, N, 1, 0, 0, threads, true, st,
                                     nullptr, nullptr, 0.f, cc);
 }
@@ -281,7 +307,7 @@ extern "C" long long cf_stack_scratch_floats(int hidden, int kv_heads, int hg,
 // (the O projection's per head group, applied to each group's partial
 // before the groups are summed); also with comm (the pushes carry the
 // scaled sums).  Int4 weights (WK_INT4 exact, WK_INT4A8 W4A8; the TPU
-// kernel's "int4", no comm): codes packed two a byte along K ([L, G,
+// kernel's "int4", with or without comm): codes packed two a byte along K ([L, G,
 // hidden/2, C] ...) and float32 group scales of GS4 rows, wqkv_s [L, G,
 // hidden/GS4, C], wo_s [L, G, Ko/GS4, hidden], w13_s [L, 2, hidden/GS4,
 // f_pad], w2_s [L, f_pad/GS4, hidden]; W4A8 quantizes the down product's x
@@ -306,7 +332,7 @@ extern "C" int cf_decoder_stack(
   *n_launches = 0;
   if (wq_kind < WK_BF16 || wq_kind > WK_INT4A8 || (wq_kind != WK_BF16) != (wqkv_s != nullptr))
     return (int)cudaErrorInvalidValue;
-  if (w4 && (cc || hidden % GS4 != 0 || f_pad % GS4 != 0 ||
+  if (w4 && (hidden % GS4 != 0 || f_pad % GS4 != 0 ||
              (wq_kind == WK_INT4A8 && (ffn_block < GS4 || ffn_block % GS4 != 0 ||
                                        f_pad % ffn_block != 0))))
     return (int)cudaErrorInvalidValue;
@@ -399,8 +425,8 @@ extern "C" int cf_decoder_stack(
     // (int8: each group's partial scaled by its s[G] first); then the
     // attention-out residual add + FFN RMSNorm
     if (cc) {   // Stage.ATTN: the ranks' O-projection partials, summed
-      CF_CHECK((push_gemv<false, G1_PUSH_SUM>(s.o, 0, wol, &mo, l, so, (int)Ko, (int)(G * Ko),
-                                              hidden, threads, st, cc)));
+      CF_CHECK((push_gemv<false, G1_PUSH_SUM>(wq_kind, s.o, 0, wol, &mo, l, so, kg_o,
+                                              (int)(G * Ko), hidden, threads, st, cc)));
       CF_CHECK(launch_kernel(resnorm_reduce_kernel, dim3(1), dim3(NORM_THREADS), 0, st,
           PDL_CHAIN, *cc, s.res_b, fn, s.res_a, s.xn, nullptr, nullptr, hidden, eps));
     } else {
@@ -416,8 +442,8 @@ extern "C" int cf_decoder_stack(
                               f_pad, 2, (long long)hidden * f_pad, f_pad, threads, st));
     ++n;
     if (cc)     // Stage.LINEAR: the down projection's partials go to the reduce
-      CF_CHECK((push_gemv<true, G1_PUSH_SUM>(s.gu, f_pad, w2l, &m2, l, s2, 0, f_pad, hidden,
-                                             threads, st, cc)));
+      CF_CHECK((push_gemv<true, G1_PUSH_SUM>(wq_kind, s.gu, f_pad, w2l, &m2, l, s2, kg_d,
+                                             f_pad, hidden, threads, st, cc)));
     else        // int8: scaled after the whole sum over f
       CF_CHECK(step_gemv<true>(wq_kind, s.gu, f_pad, w2l, &m2, l, s2, kg_d, s.hx, f_pad,
                                hidden, 1, 0, 0, threads, st));
@@ -439,7 +465,7 @@ extern "C" int cf_decoder_stack(
   ++n;
   const __nv_bfloat16* lm = static_cast<const __nv_bfloat16*>(lm_head);
   if (lm_head && gather) {   // kernel 14: this rank's shard pushed, then every rank's gathered
-    CF_CHECK((push_gemv<false, G1_PUSH_GATHER>(s.xn, 0, lm, &mlm, 0,
+    CF_CHECK((push_gemv<false, G1_PUSH_GATHER>(lm_s ? WK_INT8 : WK_BF16, s.xn, 0, lm, &mlm, 0,
                                                static_cast<const float*>(lm_s), 0, hidden,
                                                vocab, threads, st, cc)));
     CF_CHECK(launch_kernel(gather_wait_kernel, dim3((vocab + COMM_TILE - 1) / COMM_TILE),

@@ -33,10 +33,20 @@ over the codes in float32 (exact, |q| <= 127); the scales go where the TPU
 kernel applies them: each QKV column after its sum over hidden (``wqkv_f.s``
 is [G, 1, C]), and each kv head's O-projection partial by its head group's
 scale (``wo_f.s`` [G, 1, hidden]) before the heads are summed in order.
-int4 weights raise ``NotImplementedError`` here (``ROADMAP.md`` queue 2,
-mode 1.4).  The plain int4 products that the other kernels' twins share
-(``_dequant_int4_tile`` and ``_int4_dot``, the TPU kernels' own) live in
-this module, as in the JAX package.
+
+Int4 weights (group-wise along K, groups of 128, two codes a byte; the TPU
+kernel's ``wq_kind == "int4"``): both products are the TPU kernel's
+``_int4_dot`` with the scales as bf16, per head group, the groups' float32
+O partials summed in order: W4A8 with ``kcfg.int4_w4a8`` (QKV's x the
+normed row, the O projection's one head group's o, each quantized to int8
+against its own absmax), else the exact product over bf16(code * s).  On
+the card the code pairs stream as they are through the kernel's own ring;
+in W4A8 the O projection is a second launch, the ring GEMV's W4A8
+instance over the head groups' o (no thread-block cluster holds a whole
+head group), so a full-mode W4A8 call is two kernels.  The plain int4
+products that the other kernels' twins share (``_dequant_int4_tile`` and
+``_int4_dot``, the TPU kernels' own) live in this module, as in the JAX
+package.
 
 The public ops ``llama_decoder_layer`` (GPT-J rope, no residual add) and
 ``llama_decoder_layer_sglang`` (NEOX rope, fused residual) take the
@@ -59,9 +69,14 @@ from clusterfusion_tpu_torch.ops.quant import (QuantizedTensor,
                                                expand_group_scales,
                                                unpack_int4_bitcast,
                                                w4a8_int4_dot)
-from clusterfusion_tpu_torch.ops.stack_kernel import (_norm, _rope,
+from clusterfusion_tpu_torch.ops.stack_kernel import (WK_BF16, WK_INT4,
+                                                      WK_INT4A8, WK_INT8,
+                                                      _norm, _rope,
+                                                      check_int4_group,
+                                                      check_stack_kcfg,
                                                       quant_operands,
-                                                      split_attention_plain)
+                                                      split_attention_plain,
+                                                      wq_kind_of)
 
 _LOG2E = 1.4426950408889634
 
@@ -91,12 +106,19 @@ MAX_GROUP = 8
 #: KV heads per group of the public ops' weight layout (the JAX package's
 #: default ``KernelConfig.head_group``).
 HEAD_GROUP = 8
+#: Most head groups W4A8's O projection takes: the ring GEMV keeps each K
+#: chunk inside one head group, and a tile's chunks are one cluster of at
+#: most 16 blocks (``G1_MAX_CLUSTER``).
+MAX_O_GROUPS = 16
 
 #: Calls of :func:`_fused_decoder_layer` that launched the kernels.
 launches = 0
 #: Those of them with int8 weights (the kernel's int8 mode).
 int8_launches = 0
-#: CUDA kernels the last such call launched.
+#: Those of them with int4 weights (the kernel's int4 modes).
+int4_launches = 0
+#: CUDA kernels the last such call launched (2 in W4A8's full mode: the
+#: layer and the ring GEMV's O projection).
 last_call_kernels = 0
 #: None, or a zeroed int64 CUDA tensor [16 * kv_heads, 8]: every call then
 #: writes each block's %globaltimer (ns) at the kernel's phase boundaries
@@ -157,8 +179,13 @@ def _fused_decoder_layer_plain(
     if fuse_residual:
         h = h + residual.float().reshape(hidden)
     xn = _norm(h, rw, eps)
-    w8 = isinstance(wqkv, QuantizedTensor)
-    if w8:          # each column scaled after its sum over hidden
+    w8 = isinstance(wqkv, QuantizedTensor) and wqkv.kind == "int8"
+    w4 = isinstance(wqkv, QuantizedTensor) and wqkv.kind == "int4"
+    if w4:          # the TPU kernel's _int4_dot per head group
+        gs, a8 = wqkv.group_size, kcfg.int4_w4a8
+        qkv = torch.stack([_int4_dot(xn[None], wqkv.q[i], wqkv.s[i], gs, a8)[0]
+                           for i in range(G)])
+    elif w8:        # each column scaled after its sum over hidden
         qkv = torch.einsum("d,Gdc->Gc", xn.float(),
                            wqkv.q.float()) * wqkv.s[:, 0]
     else:
@@ -180,7 +207,12 @@ def _fused_decoder_layer_plain(
                                                     l_sum.reshape(rows)]),
                 res_out, k_new, v_new)
     o = (acc / l_sum[..., None]).to(torch.bfloat16)
-    if w8:          # each kv head's partial scaled by its group's scale,
+    if w4:          # each head group's o, its partials summed in order
+        og = o.reshape(G, -1)
+        out = torch.zeros(hidden, dtype=torch.float32, device=x.device)
+        for i in range(G):
+            out = out + _int4_dot(og[i][None], wo.q[i], wo.s[i], gs, a8)[0]
+    elif w8:        # each kv head's partial scaled by its group's scale,
         hg = kv_heads // G      # then the heads summed in order
         part = torch.einsum("hc,hco->ho", o.reshape(kv_heads, -1).float(),
                             wo.q.reshape(kv_heads, g * hd, -1).float())
@@ -196,17 +228,26 @@ def _fused_decoder_layer_plain(
     return result
 
 
+#: The C entries' weight kind (``WK_*``) of each mode of the kernel.
+WEIGHT_KINDS = {"bf16": WK_BF16, "int8": WK_INT8, "exact": WK_INT4,
+                "w4a8": WK_INT4A8}
+
+
 def launch_plan(hidden: int, kv_heads: int, group: int, head_dim: int,
                 kv_split: int = KernelConfig().kv_split,
-                int8: bool = False) -> dict:
-    """The kernel's launch on the current card for this geometry (``int8``:
-    the int8 mode's): blocks per cluster (one cluster per kv head), blocks,
-    ring stages, shared bytes per block, clusters of that size the card
-    holds at once, and (``held_by_size``) the clusters the card holds at
-    each size 1..16."""
+                kind: str = "bf16") -> dict:
+    """The kernel's launch on the current card for this geometry in the
+    weights' ``kind`` (``WEIGHT_KINDS``: bf16, int8, or int4 "exact" or
+    "w4a8"): blocks per cluster (one cluster per kv head), blocks, ring
+    stages, shared bytes per block, clusters of that size the card holds
+    at once, and (``held_by_size``) the clusters the card holds at each
+    size 1..16."""
+    if kind not in WEIGHT_KINDS:
+        raise ValueError(f"weight kind {kind!r}: one of {list(WEIGHT_KINDS)}")
+    wk = WEIGHT_KINDS[kind]
     info = (ctypes.c_int * 21)()
     _build.check(_build.lib().cf_decoder_layer_plan(
-        hidden, kv_heads, group, head_dim, kv_split, int(int8), info),
+        hidden, kv_heads, group, head_dim, kv_split, wk, info),
         "_fused_decoder_layer plan")
     return dict(cluster=info[0], blocks=info[1], stages=info[2],
                 smem_bytes=info[3], clusters_held=info[4],
@@ -217,21 +258,22 @@ def _refuse(wqkv_f, wo_f, k_cache, v_cache, *, window, bias_qkv,
             softcap) -> None:
     if window or bias_qkv is not None or softcap:
         raise NotImplementedError("_fused_decoder_layer: sliding window, QKV "
-                                  "bias and softcap are not ported yet")
+                                  "bias and softcap are not ported yet "
+                                  "(ROADMAP.md queue 2, mode 3)")
     weights = [w for w in (wqkv_f, wo_f) if w is not None]
     quant = [w for w in weights if isinstance(w, QuantizedTensor)]
-    if any(w.kind != "int8" for w in quant):
-        raise NotImplementedError("_fused_decoder_layer: int4 weights are "
-                                  "not ported yet (ROADMAP.md queue 2, mode "
-                                  "1.4)")
-    if quant and len(quant) != len(weights):
-        raise ValueError("_fused_decoder_layer: wqkv_f and wo_f are int8 "
-                         "together or not at all")
+    if quant and (len(quant) != len(weights)
+                  or len({w.kind for w in quant}) > 1):
+        raise ValueError("_fused_decoder_layer: wqkv_f and wo_f are "
+                         "quantized together, of one kind, or not at all")
+    for w in quant:
+        if w.kind == "int4":
+            check_int4_group(w.group_size, "_fused_decoder_layer")
     if any(not isinstance(w, QuantizedTensor) and w.dtype != torch.bfloat16
            for w in weights):
-        raise NotImplementedError("_fused_decoder_layer: only bf16 and int8 "
-                                  "weights are ported (ROADMAP.md queue 2, "
-                                  "mode 1)")
+        raise NotImplementedError("_fused_decoder_layer: only bf16, int8 "
+                                  "and int4 weights are ported (ROADMAP.md "
+                                  "queue 2, mode 1)")
     if k_cache.dtype != torch.bfloat16 or v_cache.dtype != torch.bfloat16:
         raise NotImplementedError("_fused_decoder_layer: only a bf16 KV "
                                   "cache is ported (int8/fp8 KV are not: "
@@ -262,7 +304,8 @@ def _fused_decoder_layer(
     / [L, 1, hidden]; cos_f/sin_f [1, head_dim] full-dim at the token's
     position; wqkv_f [G, hidden, hg*(group+2)*hd] and wo_f
     [G, hg*group*hd, hidden], or their [L, ...] stacks, bf16 or both int8
-    ``QuantizedTensor``s (the module's note); k_cache/v_cache
+    or both int4 ``QuantizedTensor``s (the module's note; int4 in groups
+    of 128, W4A8 as ``kcfg.int4_w4a8`` says); k_cache/v_cache
     [L, kv_heads, capacity, head_dim], layer ``layer_id`` read.
 
     Returns (out [1, hidden], res_out [1, hidden] or None without
@@ -273,7 +316,7 @@ def _fused_decoder_layer(
     ``fold_current`` 0 leaves the current token out of the softmax.
     ``window``, ``bias_qkv`` and ``softcap`` (the TPU kernel's sliding
     window, QKV bias and logit softcap) raise NotImplementedError."""
-    global launches, int8_launches, last_call_kernels
+    global launches, int8_launches, int4_launches, last_call_kernels
     _refuse(wqkv_f, wo_f, k_cache, v_cache, window=window, bias_qkv=bias_qkv,
             softcap=softcap)
     if append_kv and emit_partials:
@@ -336,9 +379,21 @@ def _fused_decoder_layer(
     kc_l, vc_l = k_cache[layer_id], v_cache[layer_id]
     if emit_partials:
         wo = None
-    w8 = isinstance(wqkv, QuantizedTensor)
+    quant = isinstance(wqkv, QuantizedTensor)
+    w4 = quant and wqkv.kind == "int4"
+    wk = wq_kind_of(wqkv, kcfg)
+    # W4A8's O projection runs on the ring GEMV after the layer (the
+    # module's note): its consumer threads, and the layer's o between them
+    o_proj8 = wk == WK_INT4A8 and not emit_partials
+    if o_proj8:
+        check_stack_kcfg(kcfg)
+        if G > MAX_O_GROUPS:        # a cluster's chunks, one head group each
+            raise NotImplementedError(
+                f"_fused_decoder_layer: W4A8's O projection over {G} head "
+                f"groups (at most {MAX_O_GROUPS}; ROADMAP.md queue 2, mode "
+                "1.5)")
     ws, scales = quant_operands(dict(wqkv_f=wqkv, wo_f=wo),
-                               (C, hidden) if w8 else (), 0)
+                               (C, hidden) if quant else (), 0)
     wqkv, wo = ws["wqkv_f"], ws["wo_f"]
     sq, so = scales.get("wqkv_f_s"), scales.get("wo_f_s")
     for name, t in (("x", x), ("residual", res), ("rms_w", rw),
@@ -367,6 +422,8 @@ def _fused_decoder_layer(
     else:
         out = torch.empty((1, hidden), dtype=bf16, device=dev)
         acc = ml = None
+    o_buf = torch.empty(kv_heads * group * hd, dtype=bf16, device=dev) \
+        if o_proj8 else None
     lib = _build.lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     scratch = stream_scratch(
@@ -385,12 +442,13 @@ def _fused_decoder_layer(
         group, hd, cap, seq, fold, int(append_kv),
         1 if rope_style == "neox" else 0, float(eps), kcfg.kv_split,
         ptr(phase_stamps), ctypes.byref(n_launch), stream, ptr(sq), ptr(so),
-        int(w8))
+        wk, ptr(o_buf), kcfg.gemv_threads)
     if err:
         scratch.zero_()                 # the ticket counters start at 0
         _build.check(err, "_fused_decoder_layer")
     launches += 1
-    int8_launches += int(w8)
+    int8_launches += int(wk == WK_INT8)
+    int4_launches += int(w4)
     last_call_kernels = n_launch.value
     if emit_partials:
         return acc, ml, res_out, k_new, v_new

@@ -43,8 +43,7 @@ row; the O projection: one head group's o; down: one f-block of
 scale; else the exact product over bf16(code * s).  On the card the packed
 codes stream once through the ring GEMV's int4 instance
 (``ring_gemv4_kernel``), in the kernels' group size of 128 only
-(``ROADMAP.md`` queue 2, mode 1.5; the plain twin takes any); int4 with
-``reduce_axis`` is not ported (mode 1.4).
+(``ROADMAP.md`` queue 2, mode 1.5; the plain twin takes any).
 
 Mode 5, ``reduce_axis`` (the JAX package's ``fused_collectives=True``):
 each rank holds its tp shards of the weights and caches, and the float32
@@ -59,9 +58,14 @@ this rank's vocab shard of the LM head, its logits gathered over the axis
 inside the stack's launches too (kernel 14: the LM head's product pushes
 its shard to every rank, one wait copies the ranks' shards out in rank
 order), and by ``all_gather_plain`` on the CPU.  With int8 weights (and
-an int8 or bf16 LM-head shard) the pushing products push sums already
-scaled, as the TPU kernel scales before its reduces; the scale is the same
-on every rank, so it commutes with the sum over them.
+an int8 or bf16 LM-head shard) and with int4 weights the pushing products
+push sums already scaled, as the TPU kernel scales before its reduces; the
+scales are the same on every rank, so they commute with the sum over them.
+W4A8's activation blocks are this rank's: the O projection's head group
+and the down product's f-block of the shard's ``f_pad``
+(``ffn_block_size`` of it, JAX's block on a shard), so a sharded W4A8
+step is not the unsharded one's function; the plain twin quantizes the
+same blocks.
 
 The caches are updated in place: the returned caches are the tensors that
 were passed in.
@@ -176,14 +180,11 @@ def check_int4_group(gs: int, what: str) -> None:
 
 def refuse_unported(what: str, head_dim: int, weights, final_norm, lm_head,
                     k_cache, v_cache, *, window, bias_qkv, ffn_act, softcap,
-                    post_attn_norm, post_ffn_norm, int8: bool = False,
-                    int4: bool = False) -> None:
+                    post_attn_norm, post_ffn_norm) -> None:
     """Raise on what the whole-stack kernels (``fused_decoder_stack``,
     ``fused_verify_stack``) do not take yet.  ``weights`` starts with the
-    four projections; ``int8``: the kernel takes int8 QuantizedTensors for
-    all four of them and for ``lm_head`` (kernels 7 and 8 do); ``int4``:
-    it takes them int4 in group size 128, beside a bf16 or int8 head
-    (kernels 7, without reduce_axis, and 8)."""
+    four projections, which the kernels take bf16, int8 or int4 (in group
+    size 128), beside a bf16 or int8 ``lm_head``."""
     if window or softcap or bias_qkv is not None or ffn_act != "silu":
         raise NotImplementedError(f"{what}: window, softcap, QKV bias and "
                                   "GeGLU are not ported yet")
@@ -199,13 +200,6 @@ def refuse_unported(what: str, head_dim: int, weights, final_norm, lm_head,
             f"{what}: head_dim {head_dim} (Gemma-2's 256) is not ported yet "
             "(ROADMAP.md queue 2, mode 3)")
     quant = [w for w in (*weights, lm_head) if isinstance(w, QuantizedTensor)]
-    kinds = {w.kind for w in quant}
-    if "int4" in kinds and not int4:
-        raise NotImplementedError(f"{what}: int4 weights are not ported here "
-                                  "yet (ROADMAP.md queue 2, mode 1.4)")
-    if quant and not int8:
-        raise NotImplementedError(f"{what}: quantized weights are not ported "
-                                  "yet (ROADMAP.md queue 2, mode 1)")
     if quant and not all(isinstance(w, QuantizedTensor) for w in weights[:4]):
         raise ValueError(f"{what}: wqkv_f, wo_f, w13 and w2 are quantized "
                          "together or not at all")
@@ -402,6 +396,48 @@ def fused_decoder_stack_plain(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f,
     return hx.to(bf16)[None], res.to(bf16)[None], k_cache, v_cache
 
 
+def fused_decoder_stack_plain_ranks(rank_args, **kw):
+    """The plain twin of one mode-5 step of every rank of a tp axis, in one
+    process: rank r runs ``fused_decoder_stack_plain(*rank_args[r], **kw)``
+    (its shards and caches) on a thread of its own, and the ranks meet at
+    each of the step's reduces, which sum their float32 partials in rank
+    order (kernel 13's order).  Returns each rank's result.  It holds the
+    card's mode 5 where the sharded step is not the unsharded one's
+    function (W4A8: the down product's blocks are the shard's)."""
+    import threading
+    n = len(rank_args)
+    parts, outs, errs = [None] * n, [None] * n, []
+    meet = threading.Barrier(n)
+
+    def reducer(r):
+        def reduce(t):
+            parts[r] = t
+            meet.wait()
+            total = parts[0]
+            for p in parts[1:]:
+                total = total + p
+            meet.wait()                 # every rank has read every part
+            return total
+        return reduce
+
+    def run(r):
+        try:
+            outs[r] = fused_decoder_stack_plain(*rank_args[r],
+                                                reduce=reducer(r), **kw)
+        except BaseException as e:      # noqa: BLE001 (re-raised below)
+            errs.append(e)
+            meet.abort()
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errs:
+        raise errs[0]
+    return outs
+
+
 def fused_decoder_stack(
     x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f, w13, w2,
     k_cache, v_cache, pos,
@@ -447,8 +483,7 @@ def fused_decoder_stack(
                     lm_head, k_cache, v_cache, window=window,
                     bias_qkv=bias_qkv, ffn_act=ffn_act, softcap=softcap,
                     post_attn_norm=post_attn_norm,
-                    post_ffn_norm=post_ffn_norm, int8=True,
-                    int4=reduce_axis is None)
+                    post_ffn_norm=post_ffn_norm)
     return _stack(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f, w13, w2,
                   k_cache, v_cache, pos, group=group, head_dim=head_dim,
                   rope_style=rope_style, eps=eps, kcfg=kcfg,
@@ -476,7 +511,7 @@ def _fused_decoder_stack_gathered(x, attn_norm, ffn_norm, cos, sin, wqkv_f,
                     (wqkv_f, wo_f, w13, w2, attn_norm, ffn_norm), final_norm,
                     lm_head, k_cache, v_cache, window=0, bias_qkv=None,
                     ffn_act="silu", softcap=0.0, post_attn_norm=None,
-                    post_ffn_norm=None, int8=True)
+                    post_ffn_norm=None)
     if lm_head is None:
         raise ValueError("the gathered step needs the LM head's shard")
     return _stack(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f, w13, w2,

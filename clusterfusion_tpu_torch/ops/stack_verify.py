@@ -238,7 +238,7 @@ def fused_verify_stack(
                     lm_head, k_cache, v_cache, window=window,
                     bias_qkv=bias_qkv, ffn_act=ffn_act, softcap=softcap,
                     post_attn_norm=post_attn_norm,
-                    post_ffn_norm=post_ffn_norm, int8=True, int4=True)
+                    post_ffn_norm=post_ffn_norm)
     check_stack_kcfg(kcfg)
     pos = int(pos)
     n, hidden = x.shape

@@ -22,13 +22,16 @@ step, no plain call after them).  JAX runs the final norm and the LM head
 outside its kernel; the logits are the same function.  No NCCL call runs
 in that step.
 
-Int8 weights (``ops.quant.QuantizedTensor`` leaves, sharded by
-``shard_params``): kernel 6 takes the layer's int8 QKV and O (its int8
-mode); the FFN runs the GEMVs' int8 instances (``ops.gemv._ffn_int8``, the
-serving step's) and an int8 LM-head shard ``_gemv_int8``, so the codes
-stream as they are and no bf16 copy of a weight is made per call (JAX
-leaves these products to XLA; on the CPU they run their plain twins).  The
-fused step hands the int8 stacks to kernel 7's mode 5.
+Int8 and int4 weights (``ops.quant.QuantizedTensor`` leaves, sharded by
+``shard_params``): kernel 6 takes the layer's quantized QKV and O (its
+int8 mode, or its int4 modes, W4A8 or exact as ``kcfg.int4_w4a8`` says);
+the FFN runs the GEMVs' int8 instances (``ops.gemv._ffn_int8``, the
+serving step's) or their int4 ones (``_ffn_int4``, exact: JAX dequantizes
+the FFN's int4 weights), and an int8 LM-head shard ``_gemv_int8`` (JAX
+makes no int4 head), so the codes stream as they are and no bf16 copy of
+a weight is made per call (JAX leaves these products to XLA; on the CPU
+they run their plain twins).  The fused step hands the int8 or int4
+stacks to kernel 7's mode 5.
 
 Each rank's caches are updated in place; the step returns the same
 tensors.

@@ -19,11 +19,16 @@ it, or None.  ``shard_params`` and ``shard_cache`` return this rank's
 slices.  A slice that is the whole tensor is the tensor itself (a view, no
 copy); any other slice is made contiguous, a copy this rank owns.
 
-An int8 ``QuantizedTensor`` leaf (``ops.quant``) gets a spec node of the
-same class: its codes take the weight's spec, and so do its per-column
-scales except on their reduction axis, collapsed to 1, which replicates
-even where the weight cuts it (``w2``'s rows): every rank scales its
-partial sums by the same scale, which commutes with their sum over tp.
+A ``QuantizedTensor`` leaf (``ops.quant``) gets a spec node of the same
+class: its codes take the weight's spec, and so do its scales, as in JAX.
+An int8 leaf's per-column scales collapse the reduction axis to 1, which
+replicates even where the weight cuts it (``w2``'s rows): every rank
+scales its partial sums by the same scale, which commutes with their sum
+over tp.  An int4 leaf's group-scale rows are cut with the weight (two
+codes a byte along the reduction axis, one scale row per group of k
+rows), so a cut falls on a group boundary wherever the scale rows divide
+over the axis, and ``shard_params`` raises, naming the leaf, where they do
+not (``w2``'s rows at tp 4 at 7B are 2816 = 22 groups of 128).
 """
 
 from __future__ import annotations
@@ -34,7 +39,6 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from clusterfusion_tpu_torch.config import LlamaConfig
-from clusterfusion_tpu_torch.models import llama as model
 from clusterfusion_tpu_torch.ops.quant import QuantizedTensor
 from clusterfusion_tpu_torch.parallel.mesh import Mesh
 
@@ -88,8 +92,10 @@ def cache_pspec() -> Spec:
     return (None, "tp", None, None)
 
 
-def shard_tensor(t: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
-    """This rank's slice of ``t`` under ``spec``."""
+def shard_tensor(t: torch.Tensor, spec: Spec, mesh: Mesh,
+                 what: str = "tensor") -> torch.Tensor:
+    """This rank's slice of ``t`` (named ``what`` in errors) under
+    ``spec``."""
     if len(spec) != t.dim():
         raise ValueError(f"spec {spec} does not fit a {t.dim()}-d tensor")
     out = t
@@ -98,33 +104,35 @@ def shard_tensor(t: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
             continue
         n = mesh.shape[axis]
         if t.shape[dim] % n:
-            raise ValueError(f"axis {dim} of {tuple(t.shape)} does not "
-                             f"divide over {axis}={n}")
+            raise ValueError(f"{what}: axis {dim} of {tuple(t.shape)} does "
+                             f"not divide over {axis}={n}")
         step = t.shape[dim] // n
         out = out.narrow(dim, mesh.coords[axis] * step, step)
     return out if out is t else out.contiguous()
 
 
-def _tree_map(fn, tree, specs):
+def _tree_map(fn, tree, specs, name=""):
+    """fn(leaf, spec, name) over the tree; a quantized leaf's codes and
+    scales are named ``name.q`` and ``name.s``."""
     if isinstance(tree, dict):
-        return {k: _tree_map(fn, v, specs[k]) for k, v in tree.items()}
+        return {k: _tree_map(fn, v, specs[k], k) for k, v in tree.items()}
     if isinstance(tree, QuantizedTensor):
-        return dataclasses.replace(tree, q=fn(tree.q, specs.q),
-                                   s=fn(tree.s, specs.s))
-    return fn(tree, specs)
+        return dataclasses.replace(tree, q=fn(tree.q, specs.q, name + ".q"),
+                                   s=fn(tree.s, specs.s, name + ".s"))
+    return fn(tree, specs, name)
 
 
 def shard_params(params, cfg: LlamaConfig, mesh: Mesh):
     """This rank's slices of a full parameter tree (``models.llama``
-    layout), bf16 or with int8 ``QuantizedTensor`` weights (codes and
-    scales cut by ``param_pspecs(cfg, tp, params)``).  The head-group axis G
-    of ``wqkv_f``/``wo_f`` must divide by tp: ``init_params(head_group=1)``
-    makes G = kv_heads.  An int4 tree raises: no tp or sp step takes one
-    yet."""
-    model.refuse_quantized(params, "shard_params", allow=("int8",),
-                           item="1.4")
+    layout), bf16 or with int8 or int4 ``QuantizedTensor`` weights (codes
+    and scales cut by ``param_pspecs(cfg, tp, params)``; an int4 leaf's
+    cuts on whole scale groups, or a ValueError naming it).  The head-group
+    axis G of
+    ``wqkv_f``/``wo_f`` must divide by tp: ``init_params(head_group=1)``
+    makes G = kv_heads."""
     specs = param_pspecs(cfg, mesh.shape["tp"], params)
-    return _tree_map(lambda t, s: shard_tensor(t, s, mesh), params, specs)
+    return _tree_map(lambda t, s, name: shard_tensor(t, s, mesh, name),
+                     params, specs)
 
 
 def shard_cache(cache: torch.Tensor, mesh: Mesh,

@@ -15,10 +15,13 @@ states merge across sp as the reference's split-KV merge does,
 (an empty shard has m = -1e30, l = 0: its weight 2^(m - m*) is 0).  Then
 the O-projection runs plain on the merged heads and is reduced over tp;
 the owner appends the token's K/V row; ``fused_add_rmsnorm_ref``, the FFN
-and a reduce over tp finish the layer, as in JAX.  With int8 weights
-kernel 6 streams the int8 QKV in partials mode; the O projection (each
-head group's partial scaled, then summed) and the FFN run the GEMVs' int8
-instances, where JAX dequantizes ``wo_f`` (``parallel.decode``'s note).
+and a reduce over tp finish the layer, as in JAX.  With int8 or int4
+weights kernel 6 streams the quantized QKV in partials mode (int4: W4A8
+or exact, as ``kcfg.int4_w4a8`` says); the O projection and the FFN run
+the GEMVs' int8 instances (each head group's O partial scaled, then
+summed) or their int4 ones (exact, the group scales along the O rows),
+where JAX dequantizes ``wo_f`` and the FFN's weights: the same function,
+and no bf16 copy of a weight (``parallel.decode``'s note).
 """
 
 from __future__ import annotations
@@ -35,8 +38,8 @@ from clusterfusion_tpu_torch.parallel.collective import (Stage,
 from clusterfusion_tpu_torch.parallel.decode import embed_and_rope, lm_logits
 from clusterfusion_tpu_torch.parallel.mesh import Mesh
 from clusterfusion_tpu_torch.parallel.sharding import Spec
-from clusterfusion_tpu_torch.runtime.serving import (_int8, batched_ffn,
-                                                     batched_o_dot)
+from clusterfusion_tpu_torch.ops.quant import QuantizedTensor
+from clusterfusion_tpu_torch.runtime.serving import batched_ffn, batched_o_dot
 
 
 def cache_pspec_2d() -> Spec:
@@ -85,7 +88,7 @@ def make_sp_sharded_decode_step(cfg: LlamaConfig, mesh: Mesh,
             acc_g = psum(acc * alpha[:, None], "sp", mesh=mesh)
             o = (acc_g / l_g[:, None]).to(torch.bfloat16)
             wo = lw["wo_f"][l]
-            if _int8(wo):
+            if isinstance(wo, QuantizedTensor):
                 attn = batched_o_dot(o.reshape(1, wo.shape[0], -1), wo)
             else:
                 attn = model._oproj(o.reshape(1, -1), wo)

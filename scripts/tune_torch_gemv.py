@@ -215,7 +215,7 @@ def main() -> int:
     int8 = {}
     if args.int8:
         import chip_smoke
-        w8 = chip_smoke.int8_stack_weights(
+        w8 = chip_smoke.quant_stack_weights(
             lw, model.default_head_group(cfg),
             model.default_head_group(cfg, "int8"))
         int8["verify"] = {

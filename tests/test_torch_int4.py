@@ -496,8 +496,10 @@ def test_int4_engine_defaults_to_fused_and_generates(serving_tree,
 def test_int4_refusals_name_their_items(mha):
     """What stays refused with int4 weights, each with its ROADMAP.md
     item: group sizes other than 128 in the kernels' wrappers and the
-    serving engine (mode 1.5), an int4 LM head (1.5), int4 in kernel 7
-    with ``reduce_axis`` and in kernel 6 (1.4), W8A8 serving (6)."""
+    serving engine (mode 1.5), an int4 LM head (1.5), W8A8 serving (6);
+    and what mode 1.4 opened now runs: int4 in kernel 7 with
+    ``reduce_axis`` (on an axis of one rank, the unsharded step's bits) and
+    in kernel 6 (its plain twin here, both int4 modes)."""
     d, tcfg = mha[False], mha["tcfg"]
     tp = d["tp"]
     g, hd = tcfg.n_heads // tcfg.kv_heads, tcfg.head_dim_
@@ -531,19 +533,34 @@ def test_int4_refusals_name_their_items(mha):
         ServingEngine(dict(tp, lm_head=head4), tcfg)
     with pytest.raises(NotImplementedError, match="queue 2, mode 6"):
         ServingEngine(tp, tcfg, kcfg=KernelConfig(serving_w8a8=True))
-    with pytest.raises(NotImplementedError, match="queue 2, mode 1.4"):
-        sk.fused_decoder_stack(tp["embed"][[7]], *(args[:4]),
-                               *(tp["layers"][k] for k in
-                                 ("wqkv_f", "wo_f", "w13", "w2")),
-                               *args[8:], reduce_axis="tp", **kw)
+    from clusterfusion_tpu_torch.parallel.mesh import AXES, Mesh
+    one = Mesh(shape=dict.fromkeys(AXES, 1), coords=dict.fromkeys(AXES, 0),
+               groups=dict.fromkeys(AXES))
+    w4 = [tp["layers"][k] for k in ("wqkv_f", "wo_f", "w13", "w2")]
+
+    def stack(**kw5):
+        return sk.fused_decoder_stack(
+            tp["embed"][[7]], *(args[:4]), *w4, d["kc"].clone(),
+            d["vc"].clone(), PROMPT, **kw5, **kw)
+
+    got, want = stack(reduce_axis="tp", mesh=one), stack()
+    assert all(torch.equal(a, b) for a, b in zip(got[:2], want[:2]))
+    with pytest.raises(NotImplementedError, match="queue 2, mode 1.5"):
+        sk.fused_decoder_stack(tp["embed"][[7]], *(args[:4]), *w4,
+                               *args[8:], final_norm=tp["final_norm"],
+                               lm_head=head4, reduce_axis="tp", mesh=one,
+                               **kw)
     lw = tp["layers"]
-    with pytest.raises(NotImplementedError, match="queue 2, mode 1.4"):
-        tdl._fused_decoder_layer(
-            tp["embed"][[7]], None, lw["attn_norm"][0], cos.float(),
-            sin.float(), lw["wqkv_f"][0], lw["wo_f"][0], d["kc"][0].clone(),
-            d["vc"][0].clone(), PROMPT, group=g, head_dim=hd,
+    outs = {}
+    for a8 in (True, False):
+        outs[a8] = tdl._fused_decoder_layer(
+            tp["embed"][[7]], None, lw["attn_norm"], cos.float(),
+            sin.float(), lw["wqkv_f"], lw["wo_f"], d["kc"].clone(),
+            d["vc"].clone(), PROMPT, 0, group=g, head_dim=hd,
             rope_style=tcfg.rope_style, fuse_residual=False,
-            eps=tcfg.norm_eps)
+            eps=tcfg.norm_eps, kcfg=KernelConfig(int4_w4a8=a8))[0]
+        assert torch.isfinite(outs[a8].float()).all()
+    assert not torch.equal(outs[True], outs[False])
 
 
 def test_chat_cli_int4(capsys):

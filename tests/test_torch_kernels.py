@@ -1352,6 +1352,76 @@ def test_decoder_layer_public_ops_match_plain(dev, op):
                                    rtol=2e-2)
 
 
+@pytest.mark.parametrize("op", ["sglang", "meta", "paged_sglang"])
+def test_public_layer_ops_match_the_oracles(dev, op):
+    """The public ops over kernels 6 and 9 on the card against the float32
+    layer oracles of ``ops/reference.py`` on the same inputs (kernel 6 at
+    32 heads of 128 over 37 rows, kernel 9's sglang entry at B 3 over
+    shuffled pool rows): outputs within 1e-1 and a mean error under 1e-2,
+    residual at 2e-2, new rows at 5e-2 (``tests/test_torch_layer.py``'s
+    tolerances against the JAX ops; the kernels round to bf16 where the
+    oracles do not)."""
+    from clusterfusion_tpu_torch.ops import decoder_layer as dl
+    from clusterfusion_tpu_torch.ops import paged_decoder_layer as pd
+    from clusterfusion_tpu_torch.ops import reference as ref
+    hidden, heads, hd, seq = 4096, 32, 128, 37
+    ang = torch.linspace(0.1, 1.0, hd // 2, device=dev)
+    t = dict(x=_randn((1, hidden), dev, 170), res=_randn((1, hidden), dev, 171),
+             wqkv=_randn((3 * hidden, hidden), dev, 172, hidden ** -0.5),
+             wo=_randn((hidden, hidden), dev, 173, hidden ** -0.5),
+             k=_randn((seq, hidden), dev, 174), v=_randn((seq, hidden), dev, 175),
+             rms=1 + _randn((hidden,), dev, 176, 0.1))
+    if op == "sglang":
+        args = (t["x"], t["res"], t["wqkv"], t["wo"], t["k"], t["v"],
+                t["rms"], 1e-5, ang.cos(), ang.sin())
+        got = dl.llama_decoder_layer_sglang(*args)
+        want = ref.llama_decoder_layer_sglang_ref(*args, n_heads=heads,
+                                                  head_dim=hd)
+        checks = ((1, 2e-2), (2, 5e-2), (3, 5e-2))
+    elif op == "meta":
+        cos = ang.repeat_interleave(2).cos()[None]
+        sin = ang.repeat_interleave(2).sin()[None]
+        args = (t["x"], t["wqkv"], t["wo"], t["k"], t["v"], t["rms"], cos,
+                sin)
+        got = dl.llama_decoder_layer(*args)
+        want = ref.llama_decoder_layer_ref(*args, n_heads=heads, head_dim=hd)
+        checks = ((1, 5e-2), (2, 5e-2))
+    else:
+        hidden, heads = 512, 4
+        lens = [5, 140, 1]
+        total = sum(lens) + len(lens)
+        g = torch.Generator().manual_seed(177)
+        indices = torch.randperm(total + 7, generator=g)[:total].int().to(dev)
+        indptr = torch.tensor(np.cumsum([0] + [n + 1 for n in lens]),
+                              dtype=torch.int32, device=dev)
+        pos = torch.tensor(lens, dtype=torch.int32, device=dev)
+        kc = _randn((2, total + 7, hidden), dev, 178)
+        vc = _randn((2, total + 7, hidden), dev, 179)
+        angle = torch.outer(torch.arange(160, device=dev).float(),
+                            0.3 * torch.arange(hd // 2, device=dev) + 0.1)
+        cos_sin = torch.cat([angle.cos(), angle.sin()], -1)
+        x, res = _randn((3, hidden), dev, 180), _randn((3, hidden), dev, 181)
+        wq = _randn((3 * hidden, hidden), dev, 182, 0.05)
+        wo = _randn((hidden, hidden), dev, 183, 0.05)
+        rms = 1 + _randn((hidden,), dev, 184, 0.1)
+        want = ref.llama_decoder_layer_batch_paged_ref(
+            x, res, wq, wo, indptr, indices, kc[1], vc[1], rms, 1e-5, pos,
+            cos_sin, n_heads=heads, head_dim=hd)
+        got = pd.llama_decoder_layer_batch_decode_sglang(
+            x, res, wq, wo, indptr, indices, kc, vc, 1, rms, 1e-5, pos,
+            cos_sin, n_heads=heads, head_dim=hd)
+        new = indices[indptr[1:].long() - 1].long()
+        got = (got[0], got[1], kc[1, new], vc[1, new])
+        want = (want[0], want[1], want[2][new], want[3][new])
+        checks = ((1, 2e-2), (2, 5e-2), (3, 5e-2))
+    torch.cuda.synchronize()
+    for i, tol in checks:
+        err = (got[i].float() - want[i].float()).abs().max().item()
+        assert err < tol, (i, err)
+    err = (got[0].float() - want[0].float()).abs()
+    assert err.max().item() < 1e-1 and err.mean().item() < 1e-2
+
+
 @pytest.mark.parametrize("which", ["tp", "sp"])
 def test_sharded_steps_on_card_one_rank(dev, tmp_path, which):
     """The tp and sp steps in a one-process group on the card against
@@ -1932,11 +2002,12 @@ def test_paged_layer_int8_kernel_matches_plain(dev, B, lens, kv, hg):
 
 
 def test_int8_entries_refuse(dev):
-    """On the card the wrappers refuse int4 weights in kernel 6 before any
-    launch (ROADMAP.md queue 2, mode 1.4), and int4 in a group size the
-    kernels do not take in kernel 9 (mode 1.5); the C entries refuse what
-    the int8 instances do not take: a width that is not a multiple of 16, a
-    scale group that does not divide K, the pair form at one row."""
+    """On the card kernel 6 takes int4 weights (mode 1.4: one W4A8 call is
+    its two kernels, counted as int4) and refuses them, before any launch,
+    in a group size the kernels do not take, as kernel 9 does (mode 1.5);
+    the C entries refuse what the int8 instances do not take: a width that
+    is not a multiple of 16, a scale group that does not divide K, the pair
+    form at one row."""
     from clusterfusion_tpu_torch.ops import _build
     from clusterfusion_tpu_torch.ops import decoder_layer as dl
     from clusterfusion_tpu_torch.ops import paged_decoder_layer as pd
@@ -1947,16 +2018,25 @@ def test_int8_entries_refuse(dev):
         {"layers": {k: a[k] for k in ("wqkv_f", "wo_f", "w13", "w2")},
          "lm_head": lm["lm_head"]}, "int4")["layers"]
     cos, sin = model.rope_row(LlamaConfig.tiny(), pos, dev)
-    before = dl.launches
-    with pytest.raises(NotImplementedError, match="queue 2, mode 1.4"):
-        dl._fused_decoder_layer(
-            a["x"], _randn((1, HIDDEN), dev, 66), a["attn_norm"], cos, sin,
-            q4["wqkv_f"], q4["wo_f"], kc, vc, pos, 1, group=g, head_dim=HD,
-            rope_style="gptj", fuse_residual=True, eps=1e-5)
-    assert dl.launches == before
+    before = (dl.launches, dl.int4_launches)
+    out = dl._fused_decoder_layer(
+        a["x"], _randn((1, HIDDEN), dev, 66), a["attn_norm"], cos, sin,
+        q4["wqkv_f"], q4["wo_f"], kc, vc, pos, 1, group=g, head_dim=HD,
+        rope_style="gptj", fuse_residual=True, eps=1e-5)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out[0].float()).all()
+    assert (dl.launches, dl.int4_launches) == (before[0] + 1, before[1] + 1)
+    assert dl.last_call_kernels == 2
     q64 = quantize_llama_params(
         {"layers": {k: a[k] for k in ("wqkv_f", "wo_f")}}, "int4", 64,
         targets=("wqkv_f", "wo_f"))["layers"]
+    before = dl.launches
+    with pytest.raises(NotImplementedError, match="queue 2, mode 1.5"):
+        dl._fused_decoder_layer(
+            a["x"], _randn((1, HIDDEN), dev, 66), a["attn_norm"], cos, sin,
+            q64["wqkv_f"], q64["wo_f"], kc, vc, pos, 1, group=g, head_dim=HD,
+            rope_style="gptj", fuse_residual=True, eps=1e-5)
+    assert dl.launches == before
     cos_t, sin_t = model.rope_table(LlamaConfig.tiny(), device=dev)
     kp, vp, table, lens_t = _paged_pools(dev, 2, 8, 16, HD, [5, 9], 67)
     before = pd.launches["llama_decoder_layer_paged"]
@@ -2531,39 +2611,60 @@ def test_decoder_layer_int8_kernel_matches_plain(dev, n_heads, kv_heads, hg,
 
 @pytest.mark.parametrize("what", ["raw_int8", "int4", "int4_stack_mode5"])
 def test_int8_layer_entries_refuse(dev, what):
-    """Kernel 6 refuses a raw int8 tensor (not a QuantizedTensor) and an
-    int4 pair, and kernel 7 with reduce_axis refuses int4, each before any
-    launch (ROADMAP.md queue 2, mode 1)."""
+    """Kernel 6 refuses a raw int8 tensor (not a QuantizedTensor) before
+    any launch (ROADMAP.md queue 2, mode 1); since mode 1.4 it takes an
+    int4 pair, and kernel 7 with reduce_axis (on an axis of one rank) int4
+    weights, each launching its kernels once, counted as int4, and
+    refuses int4 beside an int8 wo, or an int8 KV cache (mode 2), before
+    any launch."""
     from clusterfusion_tpu_torch.ops import decoder_layer as dl
-    from clusterfusion_tpu_torch.ops.quant import quantize_int4
+    from clusterfusion_tpu_torch.ops.quant import quantize_int4, quantize_int8
+    from clusterfusion_tpu_torch.parallel.mesh import AXES, Mesh
     seq = 37
     g, a, kc, vc, _ = _stack_args(dev, 8, 4, 2, seq, seed=84)
     cos, sin = model.rope_row(LlamaConfig.tiny(), seq, dev)
-    before = (dl.launches, sk.launches)
+    before = (dl.launches, sk.launches, dl.int4_launches, sk.int4_launches)
     if what == "int4_stack_mode5":
         q4 = {k: quantize_int4(a[k], -2) for k in ("wqkv_f", "wo_f", "w13",
                                                      "w2")}
-        with pytest.raises(NotImplementedError, match="queue 2, mode 1"):
-            sk.fused_decoder_stack(
-                a["x"], a["attn_norm"], a["ffn_norm"], cos, sin,
-                q4["wqkv_f"], q4["wo_f"], q4["w13"], q4["w2"], kc, vc, seq,
-                group=g, head_dim=HD, rope_style="gptj", eps=1e-5,
-                reduce_axis="tp")
-    else:
-        if what == "raw_int8":
-            wq, wo = a["wqkv_f"].to(torch.int8), a["wo_f"].to(torch.int8)
-            match = "only bf16 and int8"
-        else:
-            wq, wo = (quantize_int4(a["wqkv_f"], -2),
-                      quantize_int4(a["wo_f"], -2))
-            match = "queue 2, mode 1"
-        with pytest.raises(NotImplementedError, match=match):
+        one = Mesh(shape=dict.fromkeys(AXES, 1),
+                   coords=dict.fromkeys(AXES, 0), groups=dict.fromkeys(AXES))
+        out = sk.fused_decoder_stack(
+            a["x"], a["attn_norm"], a["ffn_norm"], cos, sin,
+            q4["wqkv_f"], q4["wo_f"], q4["w13"], q4["w2"], kc, vc, seq,
+            group=g, head_dim=HD, rope_style="gptj", eps=1e-5,
+            reduce_axis="tp", mesh=one)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out[0].float()).all()
+        assert (sk.launches, sk.int4_launches) == (before[1] + 1,
+                                                   before[3] + 1)
+        return
+    if what == "raw_int8":
+        wq, wo = a["wqkv_f"].to(torch.int8), a["wo_f"].to(torch.int8)
+        with pytest.raises(NotImplementedError, match="only bf16, int8"):
             dl._fused_decoder_layer(
                 a["x"], _randn((1, HIDDEN), dev, 85), a["attn_norm"], cos,
                 sin, wq, wo, kc, vc, seq, 1, group=g, head_dim=HD,
                 rope_style="gptj", fuse_residual=True, eps=1e-5)
+        torch.cuda.synchronize()
+        assert (dl.launches, sk.launches) == before[:2]
+        return
+    wq, wo = quantize_int4(a["wqkv_f"], -2), quantize_int4(a["wo_f"], -2)
+    for bad, cache, err in ((quantize_int8(a["wo_f"], -2), kc, ValueError),
+                            (wo, kc.to(torch.int8), NotImplementedError)):
+        with pytest.raises(err):
+            dl._fused_decoder_layer(
+                a["x"], _randn((1, HIDDEN), dev, 85), a["attn_norm"], cos,
+                sin, wq, bad, cache, cache, seq, 1, group=g, head_dim=HD,
+                rope_style="gptj", fuse_residual=True, eps=1e-5)
+    assert dl.launches == before[0]
+    out = dl._fused_decoder_layer(
+        a["x"], _randn((1, HIDDEN), dev, 85), a["attn_norm"], cos, sin, wq,
+        wo, kc, vc, seq, 1, group=g, head_dim=HD, rope_style="gptj",
+        fuse_residual=True, eps=1e-5)
     torch.cuda.synchronize()
-    assert (dl.launches, sk.launches) == before
+    assert torch.isfinite(out[0].float()).all()
+    assert (dl.launches, dl.int4_launches) == (before[0] + 1, before[2] + 1)
 
 
 def _int8_mode5_shards(w, lm_head, kc, vc, meshes):
@@ -2714,3 +2815,263 @@ def test_int8_sharded_steps_on_card_one_rank(dev, tmp_path, which):
     scale = max(ref.abs().max().item(), 1.0)
     assert (lg - ref).abs().max().item() < 0.05 * scale
     torch.testing.assert_close(kc.float(), kr.float(), atol=0.05, rtol=0)
+
+
+INT4_LAYER_CASES = {
+    # name: (hidden, n_heads, kv_heads, hg, hd)
+    "g1_hg1": (512, 8, 8, 1, 128),
+    "g1_hg8": (1024, 8, 8, 8, 128),
+    "g8_hg1": (512, 16, 2, 1, 128),
+    "g8_hg2": (512, 32, 4, 2, 128),
+    "hd64_g1_hg2": (512, 8, 8, 2, 64),
+    "hd64_g8_hg2": (512, 32, 4, 2, 64),
+    "7b_hg8": (4096, 32, 32, 8, 128),
+}
+
+
+def _near_largest(got, want, tol=2e-2):
+    """W4A8's rule (phase 4's): every value within tol of the largest."""
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("mode", INT8_LAYER_MODES)
+@pytest.mark.parametrize("a8", [True, False], ids=["w4a8", "exact"])
+@pytest.mark.parametrize("case", list(INT4_LAYER_CASES))
+def test_decoder_layer_int4_kernel_matches_plain(dev, case, a8, mode):
+    """Kernel 6's int4 modes against their plain twin (groups 1 and 8,
+    head groups 1, 2 and 8, hd 128 and 64 where a head group's o is whole
+    scale groups, and the 7B layer): counted as int4, two kernels a W4A8
+    full-mode call (the layer, then the ring GEMV's W4A8 O projection over
+    the head groups' o), one otherwise, the same bits on a repeat.  Exact
+    at atol 2e-2 / rtol 2e-2; W4A8, which a bf16 rounding taken apart can
+    move by a step of its int8 activations, within 2e-2 of each output's
+    largest value.  Rows at and above seq hold garbage (NaN in the nan_
+    mode) that the kernel never reads."""
+    from clusterfusion_tpu_torch.ops import decoder_layer as dl
+    from clusterfusion_tpu_torch.ops.quant import quantize_int4
+    hidden, n_heads, kv_heads, hg, hd = INT4_LAYER_CASES[case]
+    seq, style, fuse, append, partials, fold = LAYER_MODES[mode]
+    g, args, kc, vc = _layer_case(dev, hidden, n_heads, kv_heads, hg, hd,
+                                  CAP, seq, seed=130)
+    if mode.startswith("nan_"):
+        kc[:, :, seq:] = float("nan")
+        vc[:, :, seq:] = float("nan")
+    args = list(args)
+    args[5], args[6] = quantize_int4(args[5], -2), quantize_int4(args[6], -2)
+    cfg = LlamaConfig.tiny(hidden_dim=hidden, n_heads=n_heads,
+                           n_kv_heads=kv_heads, head_dim=hd, rope_style=style)
+    args[3], args[4] = model.rope_row(cfg, seq, dev)
+    kw = dict(group=g, head_dim=hd, rope_style=style, fuse_residual=fuse,
+              eps=1e-5, emit_partials=partials, fold_current=fold,
+              append_kv=append, kcfg=KernelConfig(int4_w4a8=a8))
+    kp, vp = kc.clone(), vc.clone()
+    before = (dl.launches, dl.int4_launches)
+    out = dl._fused_decoder_layer(*args, kc, vc, seq, 0, **kw)
+    torch.cuda.synchronize()
+    assert (dl.launches, dl.int4_launches) == (before[0] + 1, before[1] + 1)
+    assert dl.last_call_kernels == (2 if a8 and not partials else 1)
+    again = dl._fused_decoder_layer(*args, kc.clone(), vc.clone(), seq, 0,
+                                    **kw)
+    for x, y in zip(out, again):
+        assert (x is None and y is None) or _bits_equal(x, y)
+    ref = dl._fused_decoder_layer_plain(*args, kp, vp, seq, 0, **kw)
+    tol = dict(atol=2e-2, rtol=2e-2)
+    outs = (1, 0) if partials else (0,)
+    for i in outs:
+        assert torch.isfinite(out[i].float()).all()
+        if a8:
+            _near_largest(out[i], ref[i])
+        else:
+            torch.testing.assert_close(out[i].float(), ref[i].float(),
+                                       **(tol if i or not partials else
+                                          dict(atol=5e-2, rtol=2e-2)))
+    res_i = 2 if partials else 1
+    torch.testing.assert_close(out[res_i].float(), ref[res_i].float(), **tol)
+    for i in (res_i + 1, res_i + 2):
+        torch.testing.assert_close(out[i].float(), ref[i].float(), atol=0.05,
+                                   rtol=0)
+    others = torch.ones(CAP, dtype=torch.bool, device=dev)
+    if append:
+        others[seq] = False
+        torch.testing.assert_close(kc[0, :, seq].float(),
+                                   kp[0, :, seq].float(), atol=0.05, rtol=0)
+    assert _same_bits(kc[:, :, others], kp[:, :, others])
+    assert _same_bits(vc[:, :, others], vp[:, :, others])
+
+
+def _int4_mode5_pair(dev, a, shards, caches, meshes, streams, cos, sin, pos,
+                     kw, layers):
+    """One mode-5 pair step over ``layers`` (a slice) of every rank's int4
+    shards from x = a["x"]: (outs, kernels)."""
+    sub = dict(a, attn_norm=a["attn_norm"][layers],
+               ffn_norm=a["ffn_norm"][layers])
+    sh = [{k: v[layers] for k, v in s.items()} for s in shards]
+    cs = [(k[layers].clone(), v[layers].clone()) for k, v in caches]
+    outs, kernels = _mode5_step(sub, sh, cs, meshes, streams, cos, sin, pos,
+                                kw)
+    return outs, kernels, cs
+
+
+@pytest.mark.parametrize("a8", [False, True], ids=["exact", "w4a8"])
+@pytest.mark.parametrize("n_heads,kv_heads,hg", INT4_SHAPES,
+                         ids=["hg4_G2", "hg8_G2"])
+def test_stack_int4_mode5_loopback(dev, n_heads, kv_heads, hg, a8):
+    """Kernel 7's int4 mode 5 at tp 2 on one card: the O and down products
+    run ring_gemv4_kernel's G1_PUSH_SUM instances over a loopback
+    communicator, 8L+1 kernels a rank, counted as int4; both ranks' x_out
+    and residual are bit-identical and repeat bit for bit.  Exact: the same
+    function as the unsharded step, held against its G1_Y sums at atol
+    2e-2 / rtol 2e-2, each rank's appended rows at 0.05.  W4A8: the down
+    product's activation blocks are the shard's f-blocks, so it is held
+    against its own twin over the ranks
+    (``fused_decoder_stack_plain_ranks``) layer by layer, teacher-forced
+    (``_w4a8_by_layer``'s rule: each output within 2e-2 of its largest)."""
+    from clusterfusion_tpu_torch.parallel import collective as col
+    from clusterfusion_tpu_torch.parallel.sharding import _qt_spec, shard_tensor
+    import dataclasses
+    pos, tp = 37, 2
+    g, a, kc, vc, lm = _stack_args(dev, n_heads, kv_heads, hg, pos, seed=140)
+    w, _ = _int4_stack(a, lm, None)
+    cos, sin = model.rope_row(LlamaConfig.tiny(), pos, dev)
+    kcfg = KernelConfig(int4_w4a8=a8)
+    kw = dict(group=g, head_dim=HD, rope_style="gptj", eps=1e-5, kcfg=kcfg)
+    args = [a["x"], a["attn_norm"], a["ffn_norm"], cos, sin, w["wqkv_f"],
+            w["wo_f"], w["w13"], w["w2"]]
+    kr, vr = kc.clone(), vc.clone()
+    ref = sk.fused_decoder_stack(*args, kr, vr, pos, **kw)
+    lb = col.LoopbackComm(tp, dev)
+    try:
+        meshes = [lb.mesh(r) for r in range(tp)]
+
+        def cut(t, spec, m):
+            sp = _qt_spec(spec, t)
+            return dataclasses.replace(t, q=shard_tensor(t.q, sp.q, m),
+                                       s=shard_tensor(t.s, sp.s, m))
+
+        shards = [{k: cut(w[k], s, m) for k, s in MODE5_SPECS.items()}
+                  for m in meshes]
+        caches = [(shard_tensor(kc, (None, "tp", None, None), m),
+                   shard_tensor(vc, (None, "tp", None, None), m))
+                  for m in meshes]
+        streams = [torch.cuda.Stream(dev) for _ in range(tp)]
+        n4 = sk.int4_launches
+        outs, kernels, cs = _int4_mode5_pair(dev, a, shards, caches, meshes,
+                                             streams, cos, sin, pos, kw,
+                                             slice(0, L))
+        again, _, _ = _int4_mode5_pair(dev, a, shards, caches, meshes,
+                                       streams, cos, sin, pos, kw,
+                                       slice(0, L))
+        torch.cuda.synchronize(dev)
+        lb.check()
+        assert kernels == [8 * L + 1] * tp
+        assert sk.int4_launches == n4 + 2 * tp
+        for r, (xo, ro, _, _) in enumerate(outs):
+            assert torch.equal(xo, outs[0][0]) and torch.equal(ro, outs[0][1])
+            assert torch.equal(xo, again[r][0]) and torch.equal(ro, again[r][1])
+            assert torch.isfinite(xo.float()).all()
+        if not a8:
+            for r, (xo, ro, k, v) in enumerate(outs):
+                torch.testing.assert_close(xo.float(), ref[0].float(),
+                                           atol=2e-2, rtol=2e-2)
+                torch.testing.assert_close(ro.float(), ref[1].float(),
+                                           atol=2e-2, rtol=2e-2)
+                heads_r = slice(r * kv_heads // tp, (r + 1) * kv_heads // tp)
+                for got, full in ((k, kr), (v, vr)):
+                    torch.testing.assert_close(got[:, :, pos].float(),
+                                               full[:, heads_r, pos].float(),
+                                               atol=0.05, rtol=0)
+            return
+        pkw = dict(group=g, head_dim=HD, rope_style="gptj", eps=1e-5,
+                   int4_w4a8=True, kv_split=kcfg.kv_split)
+        x = a["x"]
+        for l in range(L):
+            xl = x
+            if l:
+                prev, _, _ = _int4_mode5_pair(dev, a, shards, caches, meshes,
+                                              streams, cos, sin, pos, kw,
+                                              slice(0, l))
+                torch.cuda.synchronize(dev)
+                xl = (prev[0][0].float() + prev[0][1].float()).bfloat16()
+            one = slice(l, l + 1)
+            got, _, cs = _int4_mode5_pair(dev, dict(a, x=xl), shards, caches,
+                                          meshes, streams, cos, sin, pos, kw,
+                                          one)
+            torch.cuda.synchronize(dev)
+            lb.check()
+            want = sk.fused_decoder_stack_plain_ranks(
+                [(xl, a["attn_norm"][one], a["ffn_norm"][one], cos, sin,
+                  *(shards[r][k][one] for k in ("wqkv_f", "wo_f", "w13",
+                                                "w2")),
+                  caches[r][0][one].clone(), caches[r][1][one].clone(), pos)
+                 for r in range(tp)], **pkw)
+            for r in range(tp):
+                for i in (0, 1):
+                    _near_largest(got[r][i], want[r][i])
+                for i in (2, 3):
+                    torch.testing.assert_close(
+                        got[r][i][:, :, pos].float(),
+                        want[r][i][:, :, pos].float(), atol=0.05, rtol=0)
+    finally:
+        lb.close()
+
+
+@pytest.mark.parametrize("a8", [True, False], ids=["w4a8", "exact"])
+@pytest.mark.parametrize("which", ["tp", "sp", "fused"])
+def test_int4_sharded_steps_on_card_one_rank(dev, tmp_path, which, a8):
+    """The int4 tp, sp and fused tp steps in a one-process group on the
+    card: kernel 6's int4 mode once a layer, the FFN on ``_ffn_int4`` once
+    a layer, ``_gemv_int4`` for the sp step's O products, the int8 LM head
+    on ``_gemv_int8``; the fused step one call of kernel 7's int4 mode.
+    Held against the same step on the CPU (the plain twins) from the same
+    tree and caches: logits within 5 % of the largest, caches at 0.05; the
+    exact steps also against ``decode_step(fused=True)``, the same
+    function, at the same limits."""
+    import torch.distributed as dist
+
+    from clusterfusion_tpu_torch.config import MeshConfig
+    from clusterfusion_tpu_torch.ops import decoder_layer as dl
+    from clusterfusion_tpu_torch.ops.quant import quantize_llama_params
+    gm = importlib.import_module("clusterfusion_tpu_torch.ops.gemv")
+    from clusterfusion_tpu_torch import parallel as par
+    cfg = LlamaConfig.tiny(n_kv_heads=2, max_seq_len=64)
+    kcfg = KernelConfig(int4_w4a8=a8)
+    p = quantize_llama_params(model.init_params(cfg, seed=6, device="cpu"),
+                              "int4", lm_head=True)
+    kc, vc = model.init_cache(cfg, device="cpu")
+    model.prefill(p, kc, vc, list(range(1, 21)), cfg)
+    pd_ = {k: ({n: t.to(dev) for n, t in v.items()} if k == "layers"
+               else v.to(dev)) for k, v in p.items()}
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        mesh = par.build_mesh(MeshConfig())
+        step = (par.make_sp_sharded_decode_step(cfg, mesh, kcfg)
+                if which == "sp" else par.make_sharded_decode_step(
+                    cfg, mesh, kcfg, fused_collectives=which == "fused"))
+        kd, vd = kc.to(dev), vc.to(dev)
+        n = (dl.int4_launches, gm.ffn4_launches, gm.int4_launches,
+             gm.int8_launches, sk.int4_launches)
+        lg, kd, vd = step(par.shard_params(pd_, cfg, mesh), kd, vd, 9, 20)
+        torch.cuda.synchronize()
+        got = (dl.int4_launches - n[0], gm.ffn4_launches - n[1],
+               gm.int4_launches - n[2], gm.int8_launches - n[3],
+               sk.int4_launches - n[4])
+        lc, kc2, vc2 = step(par.shard_params(p, cfg, mesh), kc.clone(),
+                            vc.clone(), 9, 20)
+    finally:
+        dist.destroy_process_group()
+    L_ = cfg.n_layers
+    assert got == {"tp": (L_, L_, 0, 1, 0), "sp": (L_, L_, L_, 1, 0),
+                   "fused": (0, 0, 0, 0, 1)}[which]
+    wants = [(lc, kc2)]
+    if not a8:
+        ref, kr, _ = model.decode_step(pd_, kc.to(dev), vc.to(dev), 9, 20,
+                                       cfg, kcfg, fused=True)
+        wants.append((ref, kr))
+    for want, kw_ in wants:
+        want = want.to(dev)
+        scale = max(want.abs().max().item(), 1.0)
+        assert (lg - want).abs().max().item() < 0.05 * scale
+        torch.testing.assert_close(kd.float(), kw_.to(dev).float(), atol=0.05,
+                                   rtol=0)

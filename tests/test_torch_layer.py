@@ -302,6 +302,94 @@ def test_llama_decoder_layer_matches_jax(seqlen):
 
 
 # --------------------------------------------------------------------------
+# The float32 layer oracles (ops/reference.py) against JAX's, and the
+# public ops against them
+# --------------------------------------------------------------------------
+
+
+def _sglang_ref_inputs(seqlen):
+    d = _public_inputs(seqlen, seqlen + 2000)
+    angle = np.random.default_rng(98).uniform(size=HD // 2) * np.pi
+    return d, (_arr(np.cos(angle), jnp.float32),
+               _arr(np.sin(angle), jnp.float32))
+
+
+def _meta_ref_inputs(seqlen):
+    d = _public_inputs(seqlen, seqlen + 3000)
+    inv = 1.0 / (10000.0 ** (np.arange(0, HD, 2) / HD))
+    ang = np.repeat(seqlen * inv, 2)[None]
+    return d, (_arr(np.cos(ang), jnp.float32), _arr(np.sin(ang), jnp.float32))
+
+
+@pytest.mark.parametrize("window", [0, 16])
+@pytest.mark.parametrize("seqlen", [1, 37])
+def test_sglang_layer_oracle_matches_jax(seqlen, window):
+    """``llama_decoder_layer_sglang_ref`` (and ``_attend_single`` inside it,
+    with and without a window) against JAX's: both float32 from the same
+    bf16 inputs, so within a bf16 rounding of each output."""
+    from clusterfusion_tpu.ops import reference as jref
+    from clusterfusion_tpu_torch.ops import reference as tref
+    d, ((jc, tc), (js, ts)) = _sglang_ref_inputs(seqlen)
+    names = ("input", "residual", "w_qkv", "w_o", "k_cache", "v_cache",
+             "rms_w")
+    kw = dict(n_heads=HEADS, head_dim=HD, window=window)
+    want = jref.llama_decoder_layer_sglang_ref(*[d[k][0] for k in names],
+                                               1e-5, jc, js, **kw)
+    got = tref.llama_decoder_layer_sglang_ref(*[d[k][1] for k in names],
+                                              1e-5, tc, ts, **kw)
+    for g_, w_ in zip(got, want):
+        assert g_.dtype == torch.bfloat16 and g_.shape == (1, HIDDEN)
+        np.testing.assert_allclose(_np(g_), np.asarray(w_, np.float32),
+                                   rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("seqlen", [1, 37])
+def test_meta_layer_oracle_matches_jax(seqlen):
+    """``llama_decoder_layer_ref`` against JAX's (float32, within a bf16
+    rounding of each output)."""
+    from clusterfusion_tpu.ops import reference as jref
+    from clusterfusion_tpu_torch.ops import reference as tref
+    d, ((jc, tc), (js, ts)) = _meta_ref_inputs(seqlen)
+    names = ("input", "w_qkv", "w_o", "k_cache", "v_cache", "rms_w")
+    kw = dict(n_heads=HEADS, head_dim=HD)
+    want = jref.llama_decoder_layer_ref(*[d[k][0] for k in names], jc, js,
+                                        **kw)
+    got = tref.llama_decoder_layer_ref(*[d[k][1] for k in names], tc, ts,
+                                       **kw)
+    for g_, w_ in zip(got, want):
+        np.testing.assert_allclose(_np(g_), np.asarray(w_, np.float32),
+                                   rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("seqlen", [1, 37])
+def test_public_layer_ops_match_the_oracles(seqlen):
+    """Kernel 6's public ops (their plain twin here) against the float32
+    oracles at the tolerances of the JAX ops' tests above: the twin rounds
+    the normed row, q, p and o to bf16 where the kernel does, the oracle
+    does not."""
+    from clusterfusion_tpu_torch.ops import reference as tref
+    d, ((_, tc), (_, ts)) = _sglang_ref_inputs(seqlen)
+    names = ("input", "residual", "w_qkv", "w_o", "k_cache", "v_cache",
+             "rms_w")
+    args = [d[k][1] for k in names]
+    got = tdl.llama_decoder_layer_sglang(*args, 1e-5, tc, ts)
+    want = tref.llama_decoder_layer_sglang_ref(*args, 1e-5, tc, ts,
+                                               n_heads=HEADS, head_dim=HD)
+    for i, tol in ((1, 2e-2), (2, 5e-2), (3, 5e-2), (0, 1e-1)):
+        assert _max_err(got[i], _np(want[i])) < tol, i
+    assert _mae(got[0], _np(want[0])) < 1e-2
+    d, ((_, tc), (_, ts)) = _meta_ref_inputs(seqlen)
+    names = ("input", "w_qkv", "w_o", "k_cache", "v_cache", "rms_w")
+    args = [d[k][1] for k in names]
+    got = tdl.llama_decoder_layer(*args, tc, ts)
+    want = tref.llama_decoder_layer_ref(*args, tc, ts, n_heads=HEADS,
+                                        head_dim=HD)
+    for i, tol in ((1, 5e-2), (2, 5e-2), (0, 1e-1)):
+        assert _max_err(got[i], _np(want[i])) < tol, i
+    assert _mae(got[0], _np(want[0])) < 1e-2
+
+
+# --------------------------------------------------------------------------
 # Refusals: what the kernels do not take raises, never falls back
 # --------------------------------------------------------------------------
 
@@ -322,15 +410,16 @@ def _one_layer_args(layer_setup, **over):
 @pytest.mark.parametrize("what", ["int8_weights", "int4_weights", "window",
                                   "softcap", "bias", "fp8_cache"])
 def test_fused_decoder_layer_refuses_unported(layer_setup, what):
-    """A raw int8 tensor (not a QuantizedTensor) and an int4 pair are
-    refused, as are the modes not ported yet."""
+    """A raw int8 tensor (not a QuantizedTensor) and an int4 pair in a
+    group size the kernels do not take (64; mode 1.5: groups of 128 run
+    since mode 1.4) are refused, as are the modes not ported yet."""
     args, kw = _one_layer_args(layer_setup)
     if what == "int8_weights":
         args["wqkv_f"] = args["wqkv_f"].to(torch.int8)
     elif what == "int4_weights":
         from clusterfusion_tpu_torch.ops.quant import quantize_int4
-        args["wqkv_f"] = quantize_int4(args["wqkv_f"], -2)
-        args["wo_f"] = quantize_int4(args["wo_f"], -2)
+        args["wqkv_f"] = quantize_int4(args["wqkv_f"], -2, 64)
+        args["wo_f"] = quantize_int4(args["wo_f"], -2, 64)
     elif what == "window":
         kw["window"] = 16
     elif what == "softcap":
@@ -340,7 +429,7 @@ def test_fused_decoder_layer_refuses_unported(layer_setup, what):
     else:
         args["k_cache"] = args["k_cache"].to(torch.float8_e4m3fn)
     with pytest.raises(NotImplementedError,
-                       match="queue 2, mode 1" if what == "int4_weights"
+                       match="queue 2, mode 1.5" if what == "int4_weights"
                        else ""):
         tdl._fused_decoder_layer(**args, **kw)
 

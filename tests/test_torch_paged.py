@@ -182,6 +182,71 @@ def test_sglang_entry_matches_jax():
     np.testing.assert_array_equal(_np(tkc)[0], _np(tk_in)[0])
 
 
+def _sglang_case(seed):
+    """Page size 1, indptr/indices naming shuffled pool rows: numpy
+    inputs of kernel 9's sglang entry (layer 1 of two)."""
+    rng = np.random.RandomState(seed)
+    heads, hd, hidden, L = 4, 128, 512, 2
+    lens = [5, 140, 1]
+    B, total = len(lens), sum(lens) + len(lens)
+    num_pages = total + 7
+    d = dict(indices=rng.permutation(num_pages)[:total].astype(np.int32),
+             indptr=np.cumsum([0] + [n + 1 for n in lens]).astype(np.int32),
+             x=rng.randn(B, hidden), res=rng.randn(B, hidden),
+             wq=rng.randn(3 * hidden, hidden) * 0.05,
+             wo=rng.randn(hidden, hidden) * 0.05,
+             kc=rng.randn(L, num_pages, hidden),
+             vc=rng.randn(L, num_pages, hidden),
+             rms=1 + 0.1 * rng.randn(hidden),
+             pos=np.asarray(lens, np.int32))
+    angle = np.outer(np.arange(160), 0.3 * np.arange(hd // 2) + 0.1)
+    d["cos_sin"] = np.concatenate([np.cos(angle), np.sin(angle)], -1) \
+        .astype(np.float32)
+    return d, heads, hd
+
+
+def test_paged_layer_oracle_matches_jax_and_the_sglang_entry():
+    """``llama_decoder_layer_batch_paged_ref`` (float32) against JAX's, to a
+    bf16 rounding of each output and every pool row equal; then kernel 9's
+    sglang entry (its plain twin here) against the oracle at this file's
+    tolerance, the appended rows within 0.05."""
+    from clusterfusion_tpu.ops import reference as jref
+    from clusterfusion_tpu_torch.ops import reference as tref
+    d, heads, hd = _sglang_case(5)
+    layer = 1
+    pair = {k: _pair(d[k]) for k in ("x", "res", "wq", "wo", "kc", "vc",
+                                     "rms")}
+    idx = {k: (jnp.asarray(d[k]), torch.from_numpy(d[k]))
+           for k in ("indptr", "indices", "pos", "cos_sin")}
+    kw = dict(n_heads=heads, head_dim=hd)
+
+    def args(side):
+        a = [pair[k][side] for k in ("x", "res", "wq", "wo")]
+        a += [idx["indptr"][side], idx["indices"][side]]
+        a += [pair["kc"][side][layer], pair["vc"][side][layer]]
+        a += [pair["rms"][side], 1e-5, idx["pos"][side],
+              idx["cos_sin"][side]]
+        return a
+
+    want = jref.llama_decoder_layer_batch_paged_ref(*args(0), **kw)
+    ref = tref.llama_decoder_layer_batch_paged_ref(*args(1), **kw)
+    for t, j in zip(ref[:2], want[:2]):
+        np.testing.assert_allclose(_np(t), _np(j), rtol=1e-2, atol=1e-2)
+    for t, j in zip(ref[2:], want[2:]):
+        np.testing.assert_allclose(_np(t), _np(j), rtol=1e-2, atol=1e-2)
+    tkc, tvc = pair["kc"][1].clone(), pair["vc"][1].clone()
+    out = pd.llama_decoder_layer_batch_decode_sglang(
+        pair["x"][1], pair["res"][1], pair["wq"][1], pair["wo"][1],
+        idx["indptr"][1], idx["indices"][1], tkc, tvc, layer,
+        pair["rms"][1], 1e-5, idx["pos"][1], idx["cos_sin"][1], **kw)
+    for t, r in zip(out[:2], ref[:2]):
+        np.testing.assert_allclose(_np(t), _np(r), **TOL)
+    new = d["indices"][d["indptr"][1:] - 1]
+    for t, r in ((tkc, ref[2]), (tvc, ref[3])):
+        np.testing.assert_allclose(_np(t)[layer, new], _np(r)[new], rtol=0,
+                                   atol=0.05)
+
+
 @pytest.mark.parametrize("g,page,lens", [
     (1, 16, [0, 1, 127, 128, 129, 300]),
     (4, 1, [0, 130, 37]),

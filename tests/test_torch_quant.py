@@ -367,29 +367,58 @@ def test_int8_engine_streams():
 
 
 def test_quantized_paths_still_refused(tree):
-    """What stays refused once int8 runs on every path and int4 on the
-    single-card ones (``tests/test_torch_int8.py``,
-    ``tests/test_torch_int8_parallel.py`` and ``tests/test_torch_int4.py``
-    hold those): int4 in kernel 7 with ``reduce_axis`` and in
-    ``shard_params`` (queue 2, mode 1.4); int4 in a group size other than
-    128 in kernels 7 and 8, ``spec_generate``, ``generate`` and the serving
-    engine (mode 1.5); ``serving_w8a8``, with int8 or int4 weights (mode
-    6); int8 and fp8 KV in the serving pools and kernel 8 (mode 2); ``chat
-    --quant int4 --kv_int8``."""
+    """What stays refused once int8 and int4 run on every path
+    (``tests/test_torch_int8.py``, ``tests/test_torch_int8_parallel.py``,
+    ``tests/test_torch_int4.py`` and ``tests/test_torch_int4_parallel.py``
+    hold those), and that mode 1.4's paths now run: int4 in kernel 7 with
+    ``reduce_axis`` (on an axis of one rank, the unsharded step's bits)
+    and in ``shard_params``; still refused, int4 in a group size other than
+    128 in kernels 6, 7 (with ``reduce_axis`` too) and 8,
+    ``spec_generate``, ``generate`` and the serving engine, and an int4 LM
+    head in mode 5 (mode 1.5); ``serving_w8a8``, with int8 or int4 weights
+    (mode 6); int8 and fp8 KV in the serving pools, kernel 8 and kernel 6
+    on int4 weights (mode 2); ``chat --quant int4 --kv_int8``."""
     _, _, tp = tree
     tcfg = LlamaConfig.tiny()
     g, hd = tcfg.n_heads // tcfg.kv_heads, tcfg.head_dim_
     kc, vc = tmodel.init_cache(tcfg, device="cpu")
     cos, sin = tmodel.rope_row(tcfg, 3)
-    for gs, kw, item in ((128, dict(reduce_axis="tp"), "1.4"),
-                         (64, {}, "1.5")):
-        lw = tq.quantize_llama_params(tp, "int4", gs)["layers"]
-        with pytest.raises(NotImplementedError,
-                           match=f"queue 2, mode {item}"):
-            sk.fused_decoder_stack(
-                tp["embed"][[7]], lw["attn_norm"], lw["ffn_norm"], cos, sin,
-                lw["wqkv_f"], lw["wo_f"], lw["w13"], lw["w2"], kc, vc, 3,
-                group=g, head_dim=hd, rope_style="gptj", eps=1e-5, **kw)
+    from clusterfusion_tpu_torch.parallel.mesh import AXES, Mesh
+    mesh = Mesh(shape=dict.fromkeys(AXES, 1), coords=dict.fromkeys(AXES, 0),
+                groups=dict.fromkeys(AXES))
+    mode5 = dict(reduce_axis="tp", mesh=mesh)
+    lw4 = tq.quantize_llama_params(tp, "int4", 128)["layers"]
+
+    def stack4(lw, **kw):
+        return sk.fused_decoder_stack(
+            tp["embed"][[7]], lw["attn_norm"], lw["ffn_norm"], cos, sin,
+            lw["wqkv_f"], lw["wo_f"], lw["w13"], lw["w2"], kc.clone(),
+            vc.clone(), 3, group=g, head_dim=hd, rope_style="gptj",
+            eps=1e-5, **kw)
+
+    # mode 1.4: int4 with reduce_axis runs (one rank: the unsharded step)
+    got, want = stack4(lw4, **mode5), stack4(lw4)
+    assert all(torch.equal(a, b) for a, b in zip(got[:2], want[:2]))
+    lm4 = tq.quantize(tp["lm_head"], "int4", -2, 128)
+    with pytest.raises(NotImplementedError, match="queue 2, mode 1.5"):
+        sk._fused_decoder_stack_gathered(
+            tp["embed"][[7]], lw4["attn_norm"], lw4["ffn_norm"], cos, sin,
+            lw4["wqkv_f"], lw4["wo_f"], lw4["w13"], lw4["w2"], kc.clone(),
+            vc.clone(), 3, group=g, head_dim=hd, rope_style="gptj",
+            eps=1e-5, final_norm=tp["final_norm"], lm_head=lm4,
+            reduce_axis="tp", mesh=mesh)
+    lw = tq.quantize_llama_params(tp, "int4", 64)["layers"]
+    for kw in ({}, mode5):
+        with pytest.raises(NotImplementedError, match="queue 2, mode 1.5"):
+            stack4(lw, **kw)
+    from clusterfusion_tpu_torch.ops import decoder_layer as tdl
+    for w, cache, item in ((lw, kc, "1.5"), (lw4, kc.to(torch.int8), "2")):
+        with pytest.raises(NotImplementedError, match=f"queue 2, mode {item}"):
+            tdl._fused_decoder_layer(
+                tp["embed"][[7]], tp["embed"][[8]], w["attn_norm"], cos, sin,
+                w["wqkv_f"], w["wo_f"], cache, cache, 3, 1, group=g,
+                head_dim=hd, rope_style="gptj", fuse_residual=True,
+                eps=1e-5)
     from clusterfusion_tpu_torch.ops.stack_verify import fused_verify_stack
     cos2, sin2 = tmodel.rope_rows(tcfg, 3, 2)
     with pytest.raises(NotImplementedError, match="queue 2, mode 1.5"):
@@ -424,12 +453,11 @@ def test_quantized_paths_still_refused(tree):
                 sin2, lw["wqkv_f"], lw["wo_f"], lw["w13"], lw["w2"],
                 kc.to(kv_dtype), vc.to(kv_dtype), 3, group=g, head_dim=hd,
                 rope_style="gptj", eps=1e-5)
-    from clusterfusion_tpu_torch.parallel.mesh import AXES, Mesh
     from clusterfusion_tpu_torch.parallel.sharding import shard_params
-    mesh = Mesh(shape=dict.fromkeys(AXES, 1), coords=dict.fromkeys(AXES, 0),
-                groups=dict.fromkeys(AXES))
-    with pytest.raises(NotImplementedError, match="queue 2, mode 1.4"):
-        shard_params(eng4.params, tcfg, mesh)
+    shards = shard_params(eng4.params, tcfg, mesh)    # mode 1.4: it cuts
+    for name, w in eng4.params["layers"].items():
+        assert shards["layers"][name] is w if not isinstance(
+            w, tq.QuantizedTensor) else shards["layers"][name].q is w.q
     from clusterfusion_tpu_torch import chat
     with pytest.raises(SystemExit, match="not yet ported"):
         chat.main(["--synthetic", "--quant", "int4", "--kv_int8", "--device",
