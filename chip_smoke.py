@@ -273,7 +273,32 @@ Phases 27-31 run after 26, on ``Llama.synthetic(llama2_7b, quant="int4")``
    ``SERVE_LENS``, batching invariance; ``Llama.generate`` for one
    prompt against the plain path.
 
-Phases 32-34 run after 31, on the same int4 engine, in both int4 modes:
+Phases 35-37 run after 31, while the bf16, int8 and int4 engines are
+alive (before 32-34, which free the first two):
+
+35. kernel 7 with an ``Int8KV`` and an fp8 cache at 7B width, capacity
+   4096, pos 600 and 4000, over random rows with NaN scales (int8) or NaN
+   bytes 0x7F (fp8) above pos: bf16 and int8 weights over 32 layers
+   against the plain twin at phase 4's limits (layer 0's int8 codes
+   within 1 and scales at rtol 1e-5, fp8 rows within one e4m3 step; the
+   deeper rows' values at phase 4's limits plus one step of the format),
+   every other row and scale unchanged, one kv8 launch counted a call;
+   int4 W4A8 weights layer by layer, teacher-forced (``w4a8_by_layer``);
+   CUDA-event step times, two readings in turns, beside the bf16-KV step
+   on the same inputs, the bound (8-bit rows and scales below pos), the
+   twin's time and the device time by pass at pos 600;
+36. kernel 8 at n 5 the same way, pos 600 and 1022 (the five appends
+   straddle plane row 8), with the call times beside the bf16-KV verify;
+37. 64-token streams after 512 with an int8, an fp8 and a bf16 cache
+   (tokens/s side by side; kernel 7's kv8 launches; the first 8 tokens
+   against the plain path on the same cache kind), each 8-bit run after
+   one teacher-forced step against the twin; ``spec_generate`` (self-
+   draft, 32 tokens after 128) with each 8-bit cache (kernel 8's kv8
+   launches, one a round); ``python -m clusterfusion_tpu_torch.chat
+   --synthetic --kv_int8`` and ``--kv_fp8 --spec_draft synthetic`` on the
+   card, exit 0.
+
+Phases 32-34 run after 35-37, on the same int4 engine, in both int4 modes:
 
 32. kernel 6's int4 modes at layer 1, pos 600, on the whole tree and the
    first tp-2 shard (``shard_params`` on the int4 tree): full mode with
@@ -526,6 +551,50 @@ def _same_bits(a, b) -> bool:
     """Bit equality of two bf16 tensors (NaN rows compare equal)."""
     return a.shape == b.shape and torch.equal(a.view(torch.int16),
                                               b.view(torch.int16))
+
+
+# A cache below is a bf16 tensor, an fp8 tensor or an ``Int8KV`` pair
+# (int8 rows, float32 scales in [L, kv, R, 128] planes).
+
+def kv_positions(c) -> int:
+    return c.shape[2]
+
+
+def kv_take(c, lo, hi):
+    """A copy of layers lo..hi-1 of a cache."""
+    if hasattr(c, "s"):
+        return type(c)(c.q[lo:hi].clone(), c.s[lo:hi].clone())
+    return c[lo:hi].clone()
+
+
+def _kv_scales(c):
+    L, H, R, _ = c.s.shape
+    return c.s.view(L, H, R * 128)
+
+
+def kv_values(c, rows):
+    """Rows ``rows`` (positions) of every layer as float32 [L, kv, n, hd]
+    values (int8: codes times scales)."""
+    if hasattr(c, "s"):
+        return c.q[:, :, rows].float() * _kv_scales(c)[:, :, rows, None]
+    return c[:, :, rows].float()
+
+
+def kv_same_bits(a, b, rows) -> bool:
+    """Bit equality of two caches at positions ``rows`` (a bool mask over
+    the capacity; NaN compares equal): rows, and an Int8KV's scales."""
+    if hasattr(a, "s"):
+        sa, sb = _kv_scales(a), _kv_scales(b)
+        cap = a.q.shape[2]
+        return (torch.equal(a.q[:, :, rows], b.q[:, :, rows])
+                and torch.equal(sa[:, :, :cap][:, :, rows].view(torch.int32),
+                                sb[:, :, :cap][:, :, rows].view(torch.int32))
+                and torch.equal(sa[:, :, cap:].view(torch.int32),
+                                sb[:, :, cap:].view(torch.int32)))
+    if a.dtype == torch.float8_e4m3fn:
+        return torch.equal(a[:, :, rows].view(torch.uint8),
+                           b[:, :, rows].view(torch.uint8))
+    return _same_bits(a[:, :, rows], b[:, :, rows])
 
 
 STACK_KV_SPLITS = (32, 64, 128)
@@ -1135,13 +1204,15 @@ def phase_sglang(dev, hbm, peak, heads=32, hd=128):
 def check_against_plain(eng, dev, prompt, toks, n=8, step=None):
     """Greedy tokens must match the plain path (eager prefill and decode on
     the card, teacher-forced on ``toks``; ``step(params, kc, vc, token,
-    pos, cfg)`` in place of the eager decode step when given) wherever its
-    top-2 gap > 0.1.  Returns (plain tokens, gaps, steps that disagree)."""
+    pos, cfg)`` in place of the eager decode step when given; a cache of
+    the engine's ``kv_dtype``) wherever its top-2 gap > 0.1.  Returns
+    (plain tokens, gaps, steps that disagree)."""
     from clusterfusion_tpu_torch.models import llama as model
     cfg = eng.cfg
     if step is None:
         step = functools.partial(model.decode_step, fused=False)
-    kc, vc = model.init_cache(cfg, device=dev)
+    kc, vc = model.init_cache(cfg, device=dev,
+                              dtype=getattr(eng, "kv_dtype", torch.bfloat16))
     lg, kc, vc = model.prefill(eng.params, kc, vc, prompt, cfg, flash=False)
     lg = lg[-1]
     plain, gaps = [], []
@@ -3667,11 +3738,12 @@ INT4_VERIFY_PASSES = (("gemv4", "gemv4_kernel"), ("gemv", "gemv_kernel"),
                       ("merge", "verify_merge_kernel"))
 
 
-def int4_plain_step(a8):
-    """The int4 decode step's plain twin in one mode (kernel 7's
-    ``fused_decoder_stack_plain`` with the final norm and the LM head), for
+def stack_plain_step(a8):
+    """The decode step's plain twin (kernel 7's ``fused_decoder_stack_plain``
+    with the final norm and the LM head; int4 weights in one mode), for
     ``check_against_plain``: W4A8 is another function than the eager path's
-    dequantized one."""
+    dequantized one, and an 8-bit cache's eager step attends its own row
+    quantized, where kernel 7 folds it in float32."""
     from clusterfusion_tpu_torch.models import llama as model
     from clusterfusion_tpu_torch.ops import stack_kernel as sk
 
@@ -3692,7 +3764,7 @@ def int4_plain_step(a8):
 
 
 def w4a8_by_layer(fn, plain, args, kc, vc, pos, rows, layers, kcfg, kw,
-                  phase, **where):
+                  phase, rows_rtol=0.0, **where):
     """W4A8 (``fn``: kernel 7 or 8) held layer by layer, teacher-forced:
     layer l of the kernel and of its plain twin from one input, the
     kernel's own state after its layer l - 1 (x_out + residual_out, each
@@ -3702,42 +3774,47 @@ def w4a8_by_layer(fn, plain, args, kc, vc, pos, rows, layers, kcfg, kw,
     unchanged, finite.  Free-running, W4A8 and its twin part layer by
     layer far beyond bf16 drift: a bf16 rounding the two take apart moves
     an activation across a step of its int8 quantization (absmax/127),
-    which moves the next layer's input.  Prints one line; returns (the
-    largest logits max abs error, ok)."""
+    which moves the next layer's input.  An 8-bit cache (phases 35-36):
+    the rows' values (int8 dequantized), ``rows_rtol`` of |row| more (one
+    step of the 8-bit format).  Prints one line; returns (the largest
+    logits max abs error, ok)."""
     x, norms, rope, proj = args[0], args[1:3], args[3:5], args[5:]
     bare = {k: v for k, v in kw.items() if k not in ("final_norm", "lm_head")}
     new = slice(pos, pos + rows)
-    others = torch.ones(kc.shape[2], dtype=torch.bool, device=kc.device)
+    others = torch.ones(kv_positions(kc), dtype=torch.bool, device=x.device)
     others[new] = False
     lg_err, rels, errs, ok = 0.0, [], [], True
     for l in range(layers):
         one = (*(t[l:l + 1] for t in norms), *rope,
                *(t[l:l + 1] for t in proj))
-        kk, vk = kc[l:l + 1].clone(), vc[l:l + 1].clone()
-        kp, vp = kk.clone(), vk.clone()
+        kk, vk = kv_take(kc, l, l + 1), kv_take(vc, l, l + 1)
+        kp, vp = kv_take(kk, 0, 1), kv_take(vk, 0, 1)
         out = fn(x, *one, kk, vk, pos, kcfg=kcfg, **kw)
         ref = plain(x, *one, kp, vp, pos, int4_w4a8=True, **kw)
         err = (out[0] - ref[0]).abs().max().item()
         rel = err / ref[0].abs().max().item()
-        row = max((a[:, :, new].float() - b[:, :, new].float()).abs().max()
-                  .item() for a, b in ((kk, kp), (vk, vp)))
-        mag = max(b[:, :, new].float().abs().max().item() for b in (kp, vp))
-        ok = (ok and rel <= 2e-2 and row <= 0.05 + (l > 0) * 1e-2 * mag
-              and _same_bits(kk[:, :, others], kp[:, :, others])
-              and _same_bits(vk[:, :, others], vp[:, :, others])
+        row = max((kv_values(a, new) - kv_values(b, new)).abs().max().item()
+                  for a, b in ((kk, kp), (vk, vp)))
+        mag = max(kv_values(b, new).abs().max().item() for b in (kp, vp))
+        ok = (ok and rel <= 2e-2
+              and row <= 0.05 + ((l > 0) * 1e-2 + rows_rtol) * mag
+              and kv_same_bits(kk, kp, others)
+              and kv_same_bits(vk, vp, others)
               and bool(torch.isfinite(out[0]).all()))
         lg_err = max(lg_err, err)
         rels.append(round(rel, 4))
         errs.append(round(row, 4))
         if l + 1 < layers:
-            h, r, _, _ = fn(x, *one, kc[l:l + 1].clone(),
-                            vc[l:l + 1].clone(), pos, kcfg=kcfg, **bare)
+            h, r, _, _ = fn(x, *one, kv_take(kc, l, l + 1),
+                            kv_take(vc, l, l + 1), pos, kcfg=kcfg, **bare)
             x = (h.float() + r.float()).bfloat16()
     say(phase, **where, mode="w4a8", held="layer by layer, teacher-forced",
         layers=layers, pos=pos, logits_err_over_max_by_layer=rels,
         logits_err_over_max_worst=max(rels), tol_logits=2e-2,
         kv_rows_err_by_layer=errs, kv_rows_err_worst=max(errs),
-        tol_rows="layer 0 atol=0.05, deeper atol=0.05+rtol=1e-2",
+        tol_rows="layer 0 atol=0.05, deeper atol=0.05+rtol=1e-2"
+                 + (f", and rtol={rows_rtol:.4g} of the 8-bit step"
+                    if rows_rtol else ""),
         within=ok)
     return lg_err, ok
 
@@ -3975,7 +4052,7 @@ def phase_int4_e2e(eng4, dev):
                                          for t in toks):
             raise AssertionError(f"bad tokens {toks}")
         plain, gaps, bad = check_against_plain(eng, dev, prompt, toks,
-                                               step=int4_plain_step(a8))
+                                               step=stack_plain_step(a8))
         say("e2e_int4", mode=mode, kernel_tokens=toks[:8], plain_tokens=plain,
             agree=f"{sum(a == b for a, b in zip(plain, toks[:8]))}/8",
             top2_gaps=[round(x, 3) for x in gaps],
@@ -4145,7 +4222,7 @@ def phase_int4_verify(eng4, eng, dev, hbm, peak, pos=600):
                                   library_ms=None)
         del kk, vk
     launches = {"w4a8": phase_spec(eng4, dev, "spec_int4",
-                                   int4_plain_step(True))}
+                                   stack_plain_step(True))}
     exact = Llama(eng4.params, cfg, eng4.tokenizer, fused=True,
                   kcfg=KernelConfig(int4_w4a8=False))
     text = ("Speculative decoding drafts a few tokens and one verify step "
@@ -4156,7 +4233,7 @@ def phase_int4_verify(eng4, eng, dev, hbm, peak, pos=600):
                        kcfg=exact.kcfg)
     launches["exact"], _ = spec_run(exact, dev, prompt, self_draft, ref,
                                     "self_exact", "spec_int4",
-                                    int4_plain_step(False))
+                                    stack_plain_step(False))
     return rows, launches
 
 
@@ -4307,6 +4384,467 @@ def phase_int4_serving(eng4, eng, dev, bf16_figures):
                              "did not run kernel 9's int4 mode")
     launch["layer"] += k9
     return launch
+
+
+# -- 8-bit KV caches in kernels 7 and 8 (phases 35-37) ------------------------
+
+# (label, kv_dtype) of the two 8-bit formats
+KV8_FORMATS = (("int8", "int8"), ("fp8", torch.float8_e4m3fn))
+# a stored row may sit one step of its format apart where the two f32 rows
+# it comes from straddle a rounding boundary: one int8 code (|row| / 127)
+# or one e4m3 step (1/8 of the value)
+KV8_STEP = {"int8": 1 / 127, "fp8": 0.125}
+KV8_PASSES = (("split", "attn_split_kernel"), ("gemv", "ring_gemv_kernel"),
+              ("norms", "resnorm_kernel"), ("merge", "attn_merge8_kernel"))
+
+
+def kv8_cache(kc, vc, fmt, pos):
+    """bf16 caches as an 8-bit pair: rows < pos stored as the kernels store
+    rows (int8: ``quantize_kv_rows`` into an ``init_kv_int8`` pair; fp8: a
+    cast), every scale at and above pos NaN (int8) or every byte 0x7F, an
+    e4m3 NaN (fp8): the kernels never read them."""
+    from clusterfusion_tpu_torch.ops import quant as tq
+    out = []
+    for c in (kc, vc):
+        L, H, cap, hd = c.shape
+        if fmt == "int8":
+            pair = tq.init_kv_int8(L, H, cap, hd, device=c.device)
+            for l in range(L):       # a layer at a time: small f32 copies
+                tq.cache_write_layer(pair, l, c[l, :, :pos].float(), 0)
+            _kv_scales(pair)[:, :, pos:] = float("nan")
+        else:
+            pair = c.to(torch.float8_e4m3fn)
+            pair.view(torch.uint8)[:, :, pos:] = 0x7F
+        out.append(pair)
+    return out
+
+
+def kv8_vs_plain(phase, fmt, out, ref, kk, vk, kc, vc, pos, rows, **where):
+    """A step of kernel 7 or 8 on an 8-bit cache (``out``, caches kk/vk)
+    against its plain twin's (``ref``, kc/vc) at phase 4's limits: logits
+    within 2e-2 of the largest; the ``rows`` appended rows at layer 0 int8
+    codes within 1 and scales at rtol 1e-5 (the same f32 row up to a sum
+    order) or fp8 rows within one e4m3 step, and the values of every layer
+    at atol 0.05 + rtol 1e-2 of |row| (layer 0: atol 0.05) plus one step of
+    the format; every other row and scale unchanged bit for bit; finite
+    outputs.  Prints one line; returns (logits max abs error, ok)."""
+    torch.cuda.synchronize()
+    new = list(range(pos, pos + rows))
+    lg_err = (out[0] - ref[0]).abs().max().item()
+    lg_rel = lg_err / ref[0].abs().max().item()
+    err = torch.maximum(*((kv_values(a, new) - kv_values(b, new)).abs()
+                          .amax(dim=(1, 2, 3))
+                          for a, b in ((kk, kc), (vk, vc))))
+    mag = torch.maximum(*(kv_values(b, new).abs().amax(dim=(1, 2, 3))
+                          for b in (kc, vc)))
+    step = KV8_STEP[fmt]
+    tol = 0.05 + (1e-2 + step) * mag
+    tol[0] = 0.05 + step * mag[0]
+    rows_ok = bool((err <= tol).all())
+    if fmt == "int8":
+        codes = max((a.q[0][:, new].int() - b.q[0][:, new].int()).abs().max()
+                    .item() for a, b in ((kk, kc), (vk, vc)))
+        scale0 = max(((_kv_scales(a)[0][:, new] - _kv_scales(b)[0][:, new])
+                      .abs() / _kv_scales(b)[0][:, new]).max().item()
+                     for a, b in ((kk, kc), (vk, vc)))
+        first = dict(codes_max_diff_layer0=codes, tol_codes=1,
+                     scales_rel_err_layer0=f"{scale0:.3g}", tol_scales=1e-5)
+        first_ok = codes <= 1 and scale0 <= 1e-5
+    else:
+        e0 = max(((a[0][:, new].float() - b[0][:, new].float()).abs()
+                  - 0.125 * b[0][:, new].float().abs()).max().item()
+                 for a, b in ((kk, kc), (vk, vc)))
+        first = dict(e4m3_excess_over_one_step_layer0=f"{e0:.3g}")
+        first_ok = e0 <= 1e-6
+    others = torch.ones(kv_positions(kc), dtype=torch.bool,
+                        device=out[0].device)
+    others[new] = False
+    unchanged = kv_same_bits(kk, kc, others) and kv_same_bits(vk, vc, others)
+    finite = bool(torch.isfinite(out[0]).all()) and bool(
+        torch.isfinite(out[1].float()).all())
+    say(phase, **where, kv=fmt, pos=pos, rows=rows,
+        logits_max_abs_err=f"{lg_err:.4g}",
+        logits_err_over_max=f"{lg_rel:.4g}",
+        tol_logits=2e-2, **first, row_err_by_layer=[round(e, 4) for e in
+                                                  err[::4].tolist()],
+        row_err_over_tol_worst=f"{(err / tol).max().item():.3g}",
+        tol_rows=f"atol=0.05+rtol=1e-2 (layer 0: atol=0.05), +{step:.4g} of "
+                 "|row| (one step of the format)",
+        other_rows_unchanged=unchanged, nan_above_pos=True, finite=finite)
+    return lg_err, (lg_rel <= 2e-2 and rows_ok and first_ok and unchanged
+                    and finite)
+
+
+def kv8_bound(cfg, p, hbm, peak, pos, n, fmt):
+    """(bound ms, bound_by, bytes) of a step of n rows at pos with a cache
+    of ``fmt`` ("bf16", "int8", "fp8"): every weight once (bf16 or
+    quantized: the tensors' own bytes), the rows below pos (int8: and their
+    float32 scales), the n rows written (and their scales), x, the residual
+    and the logits."""
+    lw = p["layers"]
+    L, kvh, hd = cfg.n_layers, cfg.kv_heads, cfg.head_dim_
+
+    def nbytes_of(t):
+        if hasattr(t, "q"):
+            return t.q.numel() + t.s.numel() * 4
+        return t.numel() * t.element_size()
+    wbytes = sum(nbytes_of(t) for t in
+                 (lw["wqkv_f"], lw["wo_f"], lw["w13"], lw["w2"],
+                  lw["attn_norm"], lw["ffn_norm"], p["final_norm"],
+                  p["lm_head"]))
+    per_row = 2 * L * kvh * {"bf16": 2 * hd, "int8": hd + 4, "fp8": hd}[fmt]
+    nbytes = wbytes + per_row * (pos + n) + n * (2 * 2 * cfg.hidden_dim
+                                                 + 4 * cfg.vocab_size)
+
+    def count(t):
+        return t.q.numel() * (2 if t.kind == "int4" else 1) \
+            if hasattr(t, "q") else t.numel()
+    weights = sum(count(t) for t in (lw["wqkv_f"], lw["wo_f"], lw["w13"],
+                                     lw["w2"], p["lm_head"]))
+    flops = 2 * n * weights + 4 * L * cfg.n_heads * hd * (
+        n * pos + n * (n + 1) // 2)
+    bound = max(nbytes / hbm, flops / peak) * 1e3
+    return bound, "bytes" if nbytes / hbm >= flops / peak else "operations", \
+        nbytes
+
+
+def kv8_engines(eng, eng8, eng4):
+    """(label, engine, KernelConfig) of the weights phases 35-36 run: bf16,
+    int8 and int4 in W4A8 (the default)."""
+    from clusterfusion_tpu_torch.config import KernelConfig
+    return (("bf16", eng, KernelConfig()), ("int8", eng8, KernelConfig()),
+            ("int4_w4a8", eng4, KernelConfig(int4_w4a8=True)))
+
+
+def phase_kv8_stack(eng, eng8, eng4, dev, hbm, peak, cap=4096):
+    """Phase 35: kernel 7 with an ``Int8KV`` and an fp8 cache at full
+    Llama-2-7B width, capacity 4096, pos 600 and 4000, over random rows
+    with NaN scales (int8) or NaN bytes (fp8) above pos: with bf16 and int8
+    weights over all 32 layers against the plain twin (``kv8_vs_plain``),
+    with int4 W4A8 weights layer by layer, teacher-forced
+    (``w4a8_by_layer``); the kv8 launch counted once a call; CUDA-event
+    step times, two readings in turns, beside the bf16-KV step on the same
+    inputs, the bound (8-bit rows and scales below pos) and, at pos 600
+    with bf16 weights, the twin's time and the device time by pass.
+    Returns the kernels-line rows of both formats (bf16 weights, pos
+    600)."""
+    from clusterfusion_tpu_torch.models import llama as model
+    from clusterfusion_tpu_torch.ops import stack_kernel as sk
+    cfg = eng.cfg
+    g, hd, L = cfg.n_heads // cfg.kv_heads, cfg.head_dim_, cfg.n_layers
+    gen = torch.Generator(device=dev).manual_seed(35)
+    shape = (L, cfg.kv_heads, cap, hd)
+    kb = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    vb = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    rows, errs = {}, {}
+    for pos in (600, 4000):
+        caches = {fmt: kv8_cache(kb, vb, fmt, pos) for fmt, _ in KV8_FORMATS}
+        cos, sin = model.rope_row(cfg, pos, dev)
+        for wname, e, kcfg in kv8_engines(eng, eng8, eng4):
+            p, lw = e.params, e.params["layers"]
+            x = p["embed"][torch.tensor([7], device=dev)]
+            kw = dict(group=g, head_dim=hd, rope_style=cfg.rope_style,
+                      eps=cfg.norm_eps, final_norm=p["final_norm"],
+                      lm_head=p["lm_head"])
+            args = (x, lw["attn_norm"], lw["ffn_norm"], cos, sin,
+                    lw["wqkv_f"], lw["wo_f"], lw["w13"], lw["w2"])
+            steps = {"bf16": functools.partial(
+                sk.fused_decoder_stack, *args, kb, vb, pos, kcfg=kcfg, **kw)}
+            for fmt, _ in KV8_FORMATS:
+                kc8, vc8 = caches[fmt]
+                kind = sk_kind(fmt)
+                if wname == "int4_w4a8":
+                    lg_err, ok = w4a8_by_layer(
+                        sk.fused_decoder_stack, sk.fused_decoder_stack_plain,
+                        args, kc8, vc8, pos, 1, L, kcfg, kw, "stack_kv8",
+                        rows_rtol=KV8_STEP[fmt], kernel=7, kv=fmt,
+                        weights=wname)
+                else:
+                    kk, vk = kv_take(kc8, 0, L), kv_take(vc8, 0, L)
+                    kp, vp = kv_take(kc8, 0, L), kv_take(vc8, 0, L)
+                    before = (sk.launches, sk.kv8_launches[kind])
+                    out = sk.fused_decoder_stack(*args, kk, vk, pos,
+                                                 kcfg=kcfg, **kw)
+                    n_kernels = sk.last_step_kernels
+                    counted = (sk.launches - before[0],
+                               sk.kv8_launches[kind] - before[1])
+                    ref = sk.fused_decoder_stack_plain(*args, kp, vp, pos,
+                                                       **kw)
+                    lg_err, ok = kv8_vs_plain(
+                        "stack_kv8", fmt, out, ref, kk, vk, kp, vp, pos, 1,
+                        kernel=7, weights=wname, layers=L,
+                        kernels_per_step=n_kernels, launches_counted=counted)
+                    ok = ok and counted == (1, 1) and n_kernels == 8 * L + 2
+                    del kk, vk, kp, vp, out, ref
+                if not ok:
+                    raise AssertionError(f"kernel 7 with an {fmt} cache "
+                                         f"({wname} weights, pos {pos}) "
+                                         "disagrees with its plain twin")
+                errs[fmt] = lg_err
+                kk, vk = kv_take(kc8, 0, L), kv_take(vc8, 0, L)
+                steps[fmt] = functools.partial(sk.fused_decoder_stack, *args,
+                                               kk, vk, pos, kcfg=kcfg, **kw)
+            order = ("bf16", "int8", "fp8", "fp8", "int8", "bf16")
+            reps = 20 if (pos, wname) == (600, "bf16") else 10
+            ms = {k: [] for k in steps}
+            for k in order:
+                ms[k].append(time_ms(steps[k], reps))
+            for fmt, _ in KV8_FORMATS:
+                bound, bound_by, nbytes = kv8_bound(cfg, p, hbm, peak, pos, 1,
+                                                    fmt)
+                bf_bound = kv8_bound(cfg, p, hbm, peak, pos, 1, "bf16")[0]
+                say("stack_kv8", kv=fmt, weights=wname, pos=pos,
+                    ms_per_step=[f"{v:.4f}" for v in ms[fmt]],
+                    bf16_kv_ms_per_step_same_inputs=[f"{v:.4f}"
+                                                     for v in ms["bf16"]],
+                    bound_ms=f"{bound:.4f}", bound_by=bound_by,
+                    bytes_per_step=nbytes, bf16_kv_bound_ms=f"{bf_bound:.4f}")
+                if (pos, wname) != (600, "bf16"):
+                    continue
+                kc8, vc8 = caches[fmt]
+                plain_ms = time_ms(lambda: sk.fused_decoder_stack_plain(
+                    *args, kv_take(kc8, 0, L), kv_take(vc8, 0, L), pos,
+                    **kw), 1, warmup=0)
+                rows[fmt] = dict(max_abs_err=errs[fmt],
+                                 ms=statistics.mean(ms[fmt]),
+                                 plain_ms=plain_ms, bound_ms=bound,
+                                 bound_by=bound_by, library_ms=None)
+                busy, span, own, by, n = timeline_by_pass(steps[fmt],
+                                                          KV8_PASSES)
+                say("stack_kv8_device", kv=fmt, weights=wname, pos=pos,
+                    busy_ms=f"{busy:.4f}", span_ms=f"{span:.4f}",
+                    **{f"{k}_ms": f"{v:.4f}" for k, v in by.items()},
+                    **{f"{k}_launches": f"{v:g}" for k, v in n.items()},
+                    note="each kernel charged from the end of those before "
+                         "it to its own end")
+            del steps
+        del caches
+    del kb, vb
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_kv8_verify(eng, eng8, eng4, dev, hbm, peak, cap=4096, n=5):
+    """Phase 36: kernel 8 at n 5 with an ``Int8KV`` and an fp8 cache at
+    Llama-2-7B width, pos 600 and 1022 (the five appends straddle plane row
+    8), NaN above pos: bf16 and int8 weights over all 32 layers against the
+    plain twin, int4 W4A8 layer by layer, teacher-forced; with bf16
+    weights the CUDA-event call times, two readings in turns, beside the
+    bf16-KV verify on the same inputs, the bound and (pos 600) the twin's
+    time.  Returns the kernels-line rows of both formats (bf16 weights,
+    pos 600)."""
+    from clusterfusion_tpu_torch.models import llama as model
+    from clusterfusion_tpu_torch.ops import stack_verify as sv
+    cfg = eng.cfg
+    g, hd, L = cfg.n_heads // cfg.kv_heads, cfg.head_dim_, cfg.n_layers
+    gen = torch.Generator(device=dev).manual_seed(36)
+    shape = (L, cfg.kv_heads, cap, hd)
+    kb = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    vb = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    rows = {}
+    for pos in (600, 1022):
+        caches = {fmt: kv8_cache(kb, vb, fmt, pos) for fmt, _ in KV8_FORMATS}
+        cos, sin = model.rope_rows(cfg, pos, n, dev)
+        for wname, e, kcfg in kv8_engines(eng, eng8, eng4):
+            p, lw = e.params, e.params["layers"]
+            x = p["embed"][torch.arange(n, device=dev) * 37 + 11]
+            kw = dict(group=g, head_dim=hd, rope_style=cfg.rope_style,
+                      eps=cfg.norm_eps, final_norm=p["final_norm"],
+                      lm_head=p["lm_head"])
+            args = (x, lw["attn_norm"], lw["ffn_norm"], cos, sin,
+                    lw["wqkv_f"], lw["wo_f"], lw["w13"], lw["w2"])
+            for fmt, _ in KV8_FORMATS:
+                kc8, vc8 = caches[fmt]
+                kind = sk_kind(fmt)
+                if wname == "int4_w4a8":
+                    _, ok = w4a8_by_layer(
+                        sv.fused_verify_stack, sv.fused_verify_stack_plain,
+                        args, kc8, vc8, pos, n, L, kcfg, kw, "verify_kv8",
+                        rows_rtol=KV8_STEP[fmt], kernel=8, kv=fmt, n=n,
+                        weights=wname)
+                    lg_err = None
+                else:
+                    kk, vk = kv_take(kc8, 0, L), kv_take(vc8, 0, L)
+                    kp, vp = kv_take(kc8, 0, L), kv_take(vc8, 0, L)
+                    before = sv.kv8_launches[kind]
+                    out = sv.fused_verify_stack(*args, kk, vk, pos, kcfg=kcfg,
+                                                **kw)
+                    counted = sv.kv8_launches[kind] - before
+                    ref = sv.fused_verify_stack_plain(*args, kp, vp, pos,
+                                                      **kw)
+                    lg_err, ok = kv8_vs_plain(
+                        "verify_kv8", fmt, out, ref, kk, vk, kp, vp, pos, n,
+                        kernel=8, n=n, weights=wname, layers=L,
+                        kernels_per_call=sv.last_step_kernels,
+                        launches_counted=counted)
+                    ok = ok and counted == 1
+                    del kk, vk, kp, vp, out, ref
+                if not ok:
+                    raise AssertionError(f"kernel 8 with an {fmt} cache "
+                                         f"({wname} weights, pos {pos}) "
+                                         "disagrees with its plain twin")
+                if wname == "bf16" and pos == 600:
+                    rows[fmt] = dict(max_abs_err=lg_err)
+            if wname != "bf16":
+                continue
+            kk8 = {fmt: (kv_take(c[0], 0, L), kv_take(c[1], 0, L))
+                   for fmt, c in caches.items()}
+            steps = {"bf16": functools.partial(
+                sv.fused_verify_stack, *args, kb, vb, pos, **kw)}
+            steps.update({fmt: functools.partial(
+                sv.fused_verify_stack, *args, *kk8[fmt], pos, **kw)
+                for fmt in kk8})
+            ms = {k: [] for k in steps}
+            for k in ("bf16", "int8", "fp8", "fp8", "int8", "bf16"):
+                ms[k].append(time_ms(steps[k], 10))
+            for fmt, _ in KV8_FORMATS:
+                bound, bound_by, nbytes = kv8_bound(cfg, p, hbm, peak, pos, n,
+                                                    fmt)
+                say("verify_kv8", kv=fmt, weights=wname, pos=pos, n=n,
+                    ms_per_call=[f"{v:.4f}" for v in ms[fmt]],
+                    bf16_kv_ms_per_call_same_inputs=[f"{v:.4f}"
+                                                     for v in ms["bf16"]],
+                    bound_ms=f"{bound:.4f}", bound_by=bound_by,
+                    bytes_per_call=nbytes)
+                if pos != 600:
+                    continue
+                kc8, vc8 = caches[fmt]
+                plain_ms = time_ms(lambda: sv.fused_verify_stack_plain(
+                    *args, kv_take(kc8, 0, L), kv_take(vc8, 0, L), pos,
+                    **kw), 1, warmup=0)
+                rows[fmt].update(ms=statistics.mean(ms[fmt]),
+                                 plain_ms=plain_ms, bound_ms=bound,
+                                 bound_by=bound_by, library_ms=None)
+            del steps, kk8
+        del caches
+    del kb, vb
+    torch.cuda.empty_cache()
+    return rows
+
+
+def sk_kind(fmt):
+    from clusterfusion_tpu_torch.ops import stack_kernel as sk
+    return sk.KV_INT8 if fmt == "int8" else sk.KV_FP8
+
+
+def kv8_step_check(eng, dev, prompt, fmt, phase):
+    """One teacher-forced step on the engine's 8-bit cache after the
+    prompt (prefilled through kernel 4) against the plain-twin step, at
+    phase 4's limits (``kv8_vs_plain``): random 7B weights repeat a token,
+    so a stream alone could hide a wrong kernel."""
+    from clusterfusion_tpu_torch.models import llama as model
+    from clusterfusion_tpu_torch.ops import stack_kernel as sk
+    cfg, p = eng.cfg, eng.params
+    lw = p["layers"]
+    kc, vc = model.init_cache(cfg, device=dev, dtype=eng.kv_dtype)
+    model.prefill(p, kc, vc, prompt, cfg)
+    pos = len(prompt)
+    kp, vp = kv_take(kc, 0, cfg.n_layers), kv_take(vc, 0, cfg.n_layers)
+    cos, sin = model.rope_row(cfg, pos, dev)
+    x = p["embed"][torch.tensor([prompt[-1]], device=dev)]
+    kw = dict(group=cfg.n_heads // cfg.kv_heads, head_dim=cfg.head_dim_,
+              rope_style=cfg.rope_style, eps=cfg.norm_eps,
+              final_norm=p["final_norm"], lm_head=p["lm_head"])
+    args = (x, lw["attn_norm"], lw["ffn_norm"], cos, sin, lw["wqkv_f"],
+            lw["wo_f"], lw["w13"], lw["w2"])
+    out = sk.fused_decoder_stack(*args, kc, vc, pos, **kw)
+    ref = sk.fused_decoder_stack_plain(*args, kp, vp, pos, **kw)
+    _, ok = kv8_vs_plain(phase, fmt, out, ref, kc, vc, kp, vp, pos, 1,
+                         kernel=7, check="teacher-forced step after the "
+                         "prompt's prefill")
+    if not ok:
+        raise AssertionError(f"kernel 7 with an {fmt} cache disagrees with "
+                             "its twin after the prefill")
+
+
+def phase_kv8_e2e(eng, dev):
+    """Phase 37: 64-token greedy streams after a 512-token prompt with an
+    ``Int8KV``, an fp8 and a bf16 cache (the engine's bf16 weights;
+    tokens/s side by side, kernel 7's kv8 launches, the first 8 tokens
+    against the plain path: the eager prefill on the same cache kind, then
+    kernel 7's twin), each 8-bit run after one teacher-forced step against
+    the twin (``kv8_step_check``); then ``spec_generate`` (self-draft, 32
+    tokens after 128) with each 8-bit cache (kernel 8's kv8 launches, one
+    a round, ``spec_run``'s checks); then ``python -m
+    clusterfusion_tpu_torch.chat --synthetic --kv_int8`` and ``--kv_fp8
+    --spec_draft synthetic`` on the card, exit 0.  Returns {fmt: (kernel
+    7's kv8 launches in the stream, kernel 8's in the spec run)}."""
+    from clusterfusion_tpu_torch.models.generation import Llama
+    from clusterfusion_tpu_torch.ops import stack_kernel as sk
+    from clusterfusion_tpu_torch.ops import stack_verify as sv
+    cfg = eng.cfg
+    text = ("The quick brown fox jumps over the lazy dog. " * 20)[:511]
+    prompt = eng.tokenizer.encode(text, bos=True, eos=False)
+    n_new = 64
+    launches, tok_s = {}, {}
+    for fmt, kv_dtype in (("bf16", torch.bfloat16), *KV8_FORMATS):
+        e = Llama(eng.params, cfg, eng.tokenizer, fused=True,
+                  kv_dtype=kv_dtype)
+        if fmt != "bf16":
+            kv8_step_check(e, dev, prompt, fmt, "e2e_kv8")
+        kind = None if fmt == "bf16" else sk_kind(fmt)
+        before = dict(sk.kv8_launches)
+        sk.launches = 0
+        stamps, toks = [], []
+        for t in e.stream_generate(prompt, n_new, temperature=0.0):
+            stamps.append(time.perf_counter())
+            toks.append(t)
+        decode_s = stamps[-1] - stamps[0]
+        tok_s[fmt] = (len(toks) - 1) / decode_s
+        kv8 = 0 if kind is None else sk.kv8_launches[kind] - before[kind]
+        plain, gaps, bad = check_against_plain(e, dev, prompt, toks,
+                                               step=stack_plain_step(True))
+        say("e2e_kv8", kv=fmt, prompt_tokens=len(prompt), new_tokens=len(toks),
+            prefill_ms=f"{e.stats.prefill_s * 1e3:.2f}",
+            decode_tokens_per_s=f"{tok_s[fmt]:.2f}",
+            decode_ms_per_step=f"{decode_s * 1e3 / (len(toks) - 1):.3f}",
+            stack_launches=sk.launches, stack_kv8_launches=kv8,
+            kernel_tokens=toks[:8], plain_tokens=plain,
+            top2_gaps=[round(x, 3) for x in gaps],
+            disagree_where_gap_gt_0_1=bad)
+        if len(toks) != n_new or bad or sk.launches < n_new - 1 or (
+                kind is not None and kv8 != sk.launches):
+            raise AssertionError(f"the {fmt}-KV stream failed its checks")
+        launches[fmt] = [kv8]
+    say("e2e_kv8", tokens_per_s_int8=f"{tok_s['int8']:.2f}",
+        tokens_per_s_fp8=f"{tok_s['fp8']:.2f}",
+        tokens_per_s_bf16=f"{tok_s['bf16']:.2f}")
+    spec_text = ("Speculative decoding drafts a few tokens and one verify "
+                 "step scores them all. " * 3)[:127]
+    spec_prompt = eng.tokenizer.encode(spec_text, bos=True, eos=False)
+    for fmt, kv_dtype in KV8_FORMATS:
+        e = Llama(eng.params, cfg, eng.tokenizer, fused=True,
+                  kv_dtype=kv_dtype)
+        ref = list(e.stream_generate(spec_prompt, SPEC_NEW, temperature=0.0))
+        draft = Llama(eng.params, cfg, eng.tokenizer, fused=True,
+                      kv_dtype=kv_dtype)
+        before = sv.kv8_launches[sk_kind(fmt)]
+        verify, bad = spec_run(e, dev, spec_prompt, draft, ref, "self",
+                               f"spec_kv8_{fmt}", stack_plain_step(True))
+        counted = sv.kv8_launches[sk_kind(fmt)] - before
+        say(f"spec_kv8_{fmt}", kv8_verify_launches=counted)
+        if bad or counted != verify:
+            raise AssertionError(f"spec_generate with an {fmt} cache failed "
+                                 "its checks")
+        launches[fmt].append(counted)
+    for flags in (["--kv_int8"], ["--kv_fp8", "--spec_draft", "synthetic"]):
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "clusterfusion_tpu_torch.chat",
+             "--synthetic", "--max_gen_len", "16", "--temperature", "0",
+             *flags], capture_output=True, text=True, timeout=300,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        tail = res.stdout.strip().splitlines()
+        say("chat_kv8", flags=" ".join(flags), rc=res.returncode,
+            seconds=f"{time.perf_counter() - t0:.1f}",
+            header=repr(tail[0] if tail else ""),
+            footer=repr(tail[-1] if tail else ""))
+        kind = "int8" if "--kv_int8" in flags else "fp8"
+        if res.returncode != 0 or f"kv={kind}" not in res.stdout or \
+                "tokens/sec" not in res.stdout:
+            raise AssertionError(f"chat {' '.join(flags)} failed: "
+                                 f"{res.stderr[-2000:]}")
+    return launches
 
 
 # -- int4 on the multi-card paths (phases 32-34) ------------------------------
@@ -5712,6 +6250,12 @@ def main() -> int:
     products4 = phase_quant_products(eng4, dev, hbm, peak, "int4")
     serving4_launches = phase_int4_serving(eng4, eng, dev, serving_bf16)
     say("phases_27_31", seconds=f"{time.perf_counter() - t27:.1f}")
+    torch.cuda.empty_cache()
+    t35 = time.perf_counter()
+    stack_kv8 = phase_kv8_stack(eng, eng8, eng4, dev, hbm, peak)
+    verify_kv8 = phase_kv8_verify(eng, eng8, eng4, dev, hbm, peak)
+    kv8_launches = phase_kv8_e2e(eng, dev)
+    say("phases_35_37", seconds=f"{time.perf_counter() - t35:.1f}")
     t32 = time.perf_counter()
     layer4_rows = phase_int4_layer(eng4, eng8, eng, dev, hbm, peak)
     del eng, eng8
@@ -5744,6 +6288,18 @@ def main() -> int:
              source="clusterfusion_tpu_torch/csrc/stack_kernel.cu",
              replaces="clusterfusion_tpu/ops/stack_kernel.py:604",
              launches=stack8_launches, **stack8),
+        *(dict(name=f"fused_decoder_stack ({fmt} KV cache)", route="cuda",
+               source="clusterfusion_tpu_torch/csrc/stack_kernel.cu",
+               replaces="clusterfusion_tpu/ops/stack_kernel.py:"
+                        + ("593" if fmt == "int8" else "303"),
+               launches=kv8_launches[fmt][0], **stack_kv8[fmt])
+          for fmt in ("int8", "fp8")),
+        *(dict(name=f"fused_verify_stack ({fmt} KV cache)", route="cuda",
+               source="clusterfusion_tpu_torch/csrc/stack_verify.cu",
+               replaces="clusterfusion_tpu/ops/stack_verify.py:"
+                        + ("470" if fmt == "int8" else "264"),
+               launches=kv8_launches[fmt][1], **verify_kv8[fmt])
+          for fmt in ("int8", "fp8")),
         dict(name="paged_attention", route="cuda",
              source="clusterfusion_tpu_torch/csrc/paged_attention.cu",
              replaces="clusterfusion_tpu/ops/paged_decoder_layer.py:932",

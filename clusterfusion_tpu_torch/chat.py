@@ -9,6 +9,9 @@ Usage:
     python -m clusterfusion_tpu_torch.chat --synthetic --quant int8
     python -m clusterfusion_tpu_torch.chat --synthetic --quant int8 \
         --spec_draft synthetic
+    python -m clusterfusion_tpu_torch.chat --synthetic --kv_int8
+    python -m clusterfusion_tpu_torch.chat --synthetic --kv_fp8 \
+        --spec_draft synthetic
 
 Loading a checkpoint is not ported yet, so ``--synthetic`` (random
 weights, byte tokenizer) is required, and ``--spec_draft`` takes only
@@ -18,8 +21,11 @@ weight-only engine: kernel 7's int8 mode for the stream, and with
 ``--spec_draft`` kernel 8's int8 mode for the verify.  ``--quant int4``
 runs the int4 engine (groups of 128) the same way, in kernels 7's and 8's
 int4 modes, W4A8 as ``KernelConfig.int4_w4a8`` is by default (the header
-line names the mode).  ``--kv_int8`` and ``--kv_fp8`` exit "not yet
-ported".
+line names the mode).  ``--kv_int8`` (an ``Int8KV`` cache: int8 rows with
+per-position scales) and ``--kv_fp8`` (float8 e4m3) give the target an
+8-bit KV cache: kernel 7's 8-bit modes for the stream, kernel 8's for the
+verify (the draft keeps a bf16 cache); ``--kv_int8`` wins when both are
+given, as in the root ``chat.py``, and the header line names the kind.
 """
 
 from __future__ import annotations
@@ -54,22 +60,23 @@ def main(argv=None):
                     help="draft tokens per speculative round")
     args = ap.parse_args(argv)
 
-    for flag, given in (("--kv_fp8", args.kv_fp8),
-                        ("--kv_int8", args.kv_int8)):
-        if given:
-            sys.exit(f"{flag}: not yet ported")
     if args.spec_draft not in (None, "synthetic"):
         sys.exit("--spec_draft: loading a draft checkpoint is not yet ported")
     if not args.synthetic:
         sys.exit("loading a checkpoint is not yet ported: pass --synthetic")
 
+    import torch
+
     from clusterfusion_tpu_torch.config import LlamaConfig
     from clusterfusion_tpu_torch.models.generation import Llama
 
     fused = not args.eager
+    kv = "int8" if args.kv_int8 else "fp8" if args.kv_fp8 else None
+    kv_dtype = {"int8": "int8", "fp8": torch.float8_e4m3fn,
+                None: torch.bfloat16}[kv]
     cfg = LlamaConfig.tiny(max_seq_len=args.max_seq_len)
     gen = Llama.synthetic(cfg, fused=fused, quant=args.quant,
-                          device=args.device)
+                          device=args.device, kv_dtype=kv_dtype)
     draft = None
     if args.spec_draft == "synthetic":
         draft = Llama.synthetic(LlamaConfig.tiny(max_seq_len=args.max_seq_len),
@@ -81,6 +88,7 @@ def main(argv=None):
     print(f"[prompt: {len(toks)} tokens | fused={gen.fused}{mode} | "
           f"device={gen.device}"
           + (f" | quant={args.quant}" if args.quant else "")
+          + (f" | kv={kv}" if kv else "")
           + (f" | spec n_draft={args.n_draft}" if draft else "") + "]")
     t0 = time.perf_counter()
     if draft is not None:

@@ -12,8 +12,11 @@
 
 #include <algorithm>
 
+#include <type_traits>
+
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -1957,22 +1960,99 @@ int launch_ring_gemv4(const __nv_bfloat16* x, long long x_row, const Int8Map* wm
 // dots, p = exp2(s - split max) rounded to bf16 for the p.V sums.  The
 // merge pass folds the partials and (fold) the current token, whose q.k and
 // v join in f32 as the TPU kernel folds them.
+//
+// 8-bit caches (the TPU kernel's kv_kind, ops/quant.py's formats): the cache
+// kind KV is a template parameter of the split pass and of both merges.
+// KV_INT8 (Int8KV): int8 rows [kv, cap, hd] and float32 scales, position
+// p's of kv head h at ks[h * srow + p] of the layer's flattened [R, 128]
+// plane (srow = R * 128); a score is (bf16(q) . code) * sk, and p enters
+// the P.V dot as bf16(p * sv), the TPU kernel's order.  KV_FP8 (e4m3, no
+// scale): a row decodes exactly, e4m3 denormals (magnitude bits < 8, |v| <=
+// 0.0137) flushed to 0 as the TPU kernel's bit-twiddle decode flushes them
+// (ops/quant.py fp8_decode_scaled).  The rows stream as bytes (a 128-wide
+// row is 128 bytes); the current token's fold stays float32 and only its
+// stored copy is 8-bit: int8 codes rint(x / s) with s = max(|x|, 1e-8) *
+// (1/127) of the float32 row, or e4m3 straight from float32, saturating.
 constexpr int ATT_THREADS = 128;
 constexpr int ATT_MAX_GROUP = 8;        // query rows of one token's kv head
 constexpr int ATT_MAX_ROWS = 16;        // query rows of a tile of n tokens (the verify)
 constexpr int ATT_TILE = 64;            // cache rows per ring stage
 constexpr int ATT_MAX_SPLIT = 1024;
+constexpr int KV_BF16 = 0, KV_INT8 = 1, KV_FP8 = 2;   // the cache kinds
 
 // Shared memory of the split pass for `nq` query rows a block: two
-// barriers, a two-stage ring of [min(split, ATT_TILE), hd] bf16 tiles, q in
-// bf16 and f32, the split's scores, and (one token) the P.V slices' sums.
-inline size_t attn_split_smem(int nq, int hd, int split, bool tokens = false) {
+// barriers, a two-stage ring of [min(split, ATT_TILE), hd] tiles (bf16, or
+// bytes of an 8-bit cache, which the n-token form converts to one bf16
+// tile), q in bf16 and f32, the split's scores, (one token) the P.V
+// slices' sums, and (int8) the split's K and V scales.
+inline size_t attn_split_smem(int nq, int hd, int split, bool tokens = false,
+                              int kv = KV_BF16) {
   const size_t tr = (size_t)std::min(split, ATT_TILE);
   const size_t slices = tokens ? 0 : ATT_THREADS / (hd / 8);
-  return 16 + 2 * tr * hd * 2 + (size_t)nq * hd * (2 + 4) +
-         sizeof(float) * ((size_t)nq * split + slices * nq * hd);
+  const size_t ring = kv == KV_BF16 ? 2 * tr * hd * 2 : 2 * tr * hd + (tokens ? tr * hd * 2 : 0);
+  return 16 + ring + (size_t)nq * hd * (2 + 4) +
+         sizeof(float) * ((size_t)nq * split + slices * nq * hd +
+                          (kv == KV_INT8 ? 2 * (size_t)split : 0));
 }
-constexpr int ATT_SPLIT_SMEM_MAX = 112 * 1024;   // >= attn_split_smem(8, 128, 1024)
+constexpr int ATT_SPLIT_SMEM_MAX = 112 * 1024;   // >= attn_split_smem(8, 128, 1024, false, kv)
+
+// Eight e4m3 codes of one byte each -> eight floats, exactly, denormals
+// flushed to 0: the magnitude bits placed at bit 20 with 120 added to the
+// exponent are the float (the TPU kernel's decode, re-biased to 2^0).
+__device__ __forceinline__ void unpack8_e4m3(const uint2& u, float* f) {
+  const uint32_t w[2] = {u.x, u.y};
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const uint32_t c = (w[i] >> (8 * b)) & 0xffu, mag = c & 0x7fu;
+      f[4 * i + b] = __uint_as_float((mag < 8 ? 0u : (mag << 20) + 0x3C000000u) |
+                                     ((c & 0x80u) << 24));
+    }
+}
+
+// Eight codes of an 8-bit cache row (KV_INT8 or KV_FP8) -> eight floats.
+template <int KV>
+__device__ __forceinline__ void unpack8_kv(const uint2& u, float* f) {
+  if constexpr (KV == KV_INT8)
+    unpack8_s8(u, f);
+  else
+    unpack8_e4m3(u, f);
+}
+
+// Maximum over the block; every thread gets the result.  `red` holds 32 floats.
+__device__ __forceinline__ float block_max(float x, float* red) {
+  const int lane = threadIdx.x % 32, wid = threadIdx.x / 32;
+  const int nw = (blockDim.x + 31) / 32;
+  x = warp_max(x);
+  __syncthreads();
+  if (lane == 0) red[wid] = x;
+  __syncthreads();
+  return warp_max(lane < nw ? red[lane] : NEG_INF);
+}
+
+// The stored copy of one float32 cache row of hd values (x: the block's
+// row in shared memory or registers, read as x(d)) in an 8-bit cache:
+// KV_INT8 writes codes rint(x / s) at dst and s = max(|x|, 1e-8) * (1/127)
+// at *scale (ops/quant.py quantize_kv_rows: an IEEE division, ties to
+// even); KV_FP8 writes e4m3 straight from float32, saturating at +-448.
+// Every thread of the block calls it (the int8 maximum is a block's).
+template <int KV, typename Row>
+__device__ __forceinline__ void store_row8(Row x, int hd, uint8_t* dst, float* scale,
+                                           float* red) {
+  if constexpr (KV == KV_INT8) {
+    float a = 0.f;
+    for (int d = threadIdx.x; d < hd; d += blockDim.x) a = fmaxf(a, fabsf(x(d)));
+    const float s = fmaxf(block_max(a, red), 1e-8f) * (1.0f / 127.0f);
+    for (int d = threadIdx.x; d < hd; d += blockDim.x)
+      dst[d] = (uint8_t)(int8_t)rintf(x(d) / s);
+    if (threadIdx.x == 0) *scale = s;
+    __syncthreads();                       // red may be reused
+  } else {
+    for (int d = threadIdx.x; d < hd; d += blockDim.x)
+      dst[d] = __nv_cvt_float_to_fp8(x(d), __NV_SATFINITE, __NV_E4M3);
+  }
+}
 
 // Split pass over cache rows [s*split, min((s+1)*split, seq)) of kv head
 // h = blockIdx.x, s = blockIdx.y.  One token (the stack; MAXR =
@@ -2001,14 +2081,21 @@ constexpr int ATT_SPLIT_SMEM_MAX = 112 * 1024;   // >= attn_split_smem(8, 128, 1
 // the rows (row r goes to slice r % slices); the slices' sums meet in
 // shared memory in slice order.  TOKENS: both products on mma.sync (see
 // the note in the kernel), and the copies go out before the PDL wait.
-template <int MAXR, bool TOKENS>
+// KV (the cache kind, see above): an 8-bit tile streams as bytes; the
+// one-token form decodes each 8-byte piece of a row to floats where it
+// reads the bf16 one, and the n-token form converts each tile to one bf16
+// tile (exact) before its mma.sync reads it.  KV_INT8 reads the split's
+// scales (ks/vs, row stride srow) into shared memory once.
+template <int MAXR, bool TOKENS, int KV = KV_BF16>
 __global__ void __launch_bounds__(ATT_THREADS)
 attn_split_kernel(const float* __restrict__ qkv,
-                  const __nv_bfloat16* __restrict__ kc,
-                  const __nv_bfloat16* __restrict__ vc,
+                  const void* __restrict__ kc,
+                  const void* __restrict__ vc,
                   const float* __restrict__ cos, const float* __restrict__ sin,
                   float* __restrict__ part_ml, float* __restrict__ part_acc,
-                  int group, int hd, int cap, int seq, int split, int neox, int n_tok) {
+                  int group, int hd, int cap, int seq, int split, int neox, int n_tok,
+                  const float* __restrict__ ks, const float* __restrict__ vs, int srow) {
+  using KT = std::conditional_t<KV == KV_BF16, __nv_bfloat16, uint8_t>;   // a row element
   extern __shared__ __align__(16) unsigned char att_sm[];
   const int tr = min(split, ATT_TILE);
   // q rows: this block's, all of them, and the first's index
@@ -2016,8 +2103,10 @@ attn_split_kernel(const float* __restrict__ qkv,
   const int r0 = TOKENS ? blockIdx.z * MAXR : 0;
   const int nq = TOKENS ? min(MAXR, qrows - r0) : group;
   uint64_t* bar = reinterpret_cast<uint64_t*>(att_sm);                       // [2]
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(att_sm + 16);       // [2][tr][hd]
-  __nv_bfloat16* qb = ring + 2 * tr * hd;                                    // [nq][hd]
+  KT* ring = reinterpret_cast<KT*>(att_sm + 16);                             // [2][tr][hd]
+  // an 8-bit n-token tile converted to bf16 for the mma.sync: [tr][hd]
+  __nv_bfloat16* cvt = reinterpret_cast<__nv_bfloat16*>(ring + 2 * tr * hd);
+  __nv_bfloat16* qb = cvt + (KV != KV_BF16 && TOKENS ? tr * hd : 0);        // [nq][hd]
   float* raw = reinterpret_cast<float*>(qb + nq * hd);                       // [nq][hd]
   float* sc = raw + nq * hd;                                                 // [nq][split]
   float* red = sc + nq * split;                                              // [slices][nq][hd]
@@ -2027,9 +2116,45 @@ attn_split_kernel(const float* __restrict__ qkv,
   const int j0 = s * split;
   const int n = min(split, seq - j0);
   const int nt = (n + tr - 1) / tr;        // tiles of K, then as many of V
-  const uint32_t row_bytes = (uint32_t)hd * 2;
-  const __nv_bfloat16* kh = kc + ((size_t)h * cap + j0) * hd;
-  const __nv_bfloat16* vh = vc + ((size_t)h * cap + j0) * hd;
+  const uint32_t row_bytes = (uint32_t)hd * sizeof(KT);
+  const KT* kh = static_cast<const KT*>(kc) + ((size_t)h * cap + j0) * hd;
+  const KT* vh = static_cast<const KT*>(vc) + ((size_t)h * cap + j0) * hd;
+  // KV_INT8: the split's K and V scales, after the slices' sums
+  float* sks = red + (TOKENS ? 0 : (ATT_THREADS / (hd / 8)) * nq * hd);     // [split]
+  float* svs = sks + split;                                                  // [split]
+  // KV_INT8: p enters the P.V dot as bf16(p * sv)
+  auto p_in = [&](float p, int j) {
+    if constexpr (KV == KV_INT8)
+      return bf16_round(p * svs[j]);
+    else
+      return bf16_round(p);
+  };
+  // KV_INT8: a score is the dot times the row's K scale
+  auto score = [&](float dot, int j) {
+    if constexpr (KV == KV_INT8)
+      return dot * sks[j];
+    else
+      return dot;
+  };
+  // the n-token products' bf16 tile of stage `u`: the ring's own, or
+  // (8-bit) its rows converted into cvt by to_bf16, every thread taking part
+  auto bf16_tile = [&](int u) -> const __nv_bfloat16* {
+    if constexpr (KV == KV_BF16)
+      return ring + (u & 1) * tr * hd;
+    else
+      return cvt;
+  };
+  auto to_bf16 = [&](int u, int trows) {
+    const uint2* src = reinterpret_cast<const uint2*>(ring + (u & 1) * tr * hd);
+    uint4* dst = reinterpret_cast<uint4*>(cvt);
+    for (int e = tid; e < trows * hd / 8; e += blockDim.x) {
+      float f[8];
+      unpack8_kv<KV>(src[e], f);
+      dst[e] = make_uint4(hopper::pack_bf16(f[0], f[1]), hopper::pack_bf16(f[2], f[3]),
+                          hopper::pack_bf16(f[4], f[5]), hopper::pack_bf16(f[6], f[7]));
+    }
+    __syncthreads();
+  };
   // thread 0: tile u of K_0..K_{nt-1}, V_0..V_{nt-1} into stage u % 2
   auto issue = [&](int u) {
     const int t = u < nt ? u : u - nt;
@@ -2087,6 +2212,12 @@ attn_split_kernel(const float* __restrict__ qkv,
       qb[e] = __float2bfloat16(rope_at(raw + i * hd, d, hd, cos, sin, neox) * scale);
     }
   }
+  if constexpr (KV == KV_INT8) {
+    for (int j = tid; j < n; j += blockDim.x) {
+      sks[j] = ks[(size_t)h * srow + j0 + j];
+      svs[j] = vs[(size_t)h * srow + j0 + j];
+    }
+  }
   __syncthreads();
 
   // TOKENS (hd 128): Q.K and P.V on mma.sync m16n8k16, the q rows as M
@@ -2110,10 +2241,11 @@ attn_split_kernel(const float* __restrict__ qkv,
     for (int t = 0; t < nt; ++t) {
       hopper::mbar_wait(&bar[t & 1], (t >> 1) & 1);
       const int trows = min(tr, n - t * tr), kb0 = wid * 16;
+      if constexpr (KV != KV_BF16) to_bf16(t, trows);
       if (kb0 < trows) {
         // lane's ldmatrix row: keys kb0 + (lane / 16) * 8 .., d (lane / 8 & 1) * 8 ..
         const __nv_bfloat16* krow =
-            ring + (t & 1) * tr * hd +
+            bf16_tile(t) +
             min(kb0 + (lane / 16) * 8 + lane % 8, tr - 1) * hd + ((lane / 8) & 1) * 8;
         float sk[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
@@ -2135,7 +2267,7 @@ attn_split_kernel(const float* __restrict__ qkv,
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             const int row = g + (c >> 1) * 8, k = kb0 + 8 * j + 2 * tq + (c & 1);
-            if (row < nq && k < trows) sc[row * split + t * tr + k] = sk[j][c];
+            if (row < nq && k < trows) sc[row * split + t * tr + k] = score(sk[j][c], t * tr + k);
           }
       }
       __syncthreads();                     // stage t & 1 is read
@@ -2151,12 +2283,15 @@ attn_split_kernel(const float* __restrict__ qkv,
 #pragma unroll
       for (int i = 0; i < MAXR; ++i) acc[i] = 0.f;
       if (r < trows) {
-        const __nv_bfloat16* krow = ring + (t & 1) * tr * hd + r * hd + half * (hd / 2);
+        const KT* krow = ring + (t & 1) * tr * hd + r * hd + half * (hd / 2);
         const __nv_bfloat16* qhalf = qb + half * (hd / 2);
         for (int c = 0; c < np; ++c) {
           const int pc = (c + tid) % np;
           float kf[8];
-          unpack8(*reinterpret_cast<const uint4*>(krow + pc * 8), kf);
+          if constexpr (KV == KV_BF16)
+            unpack8(*reinterpret_cast<const uint4*>(krow + pc * 8), kf);
+          else
+            unpack8_kv<KV>(*reinterpret_cast<const uint2*>(krow + pc * 8), kf);
 #pragma unroll
           for (int i = 0; i < MAXR; ++i) {
             if (i < nq) {
@@ -2172,7 +2307,7 @@ attn_split_kernel(const float* __restrict__ qkv,
       for (int i = 0; i < MAXR; ++i) {
         if (i < nq) {
           acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], 1);
-          if (half == 0 && r < trows) sc[i * split + t * tr + r] = acc[i];
+          if (half == 0 && r < trows) sc[i * split + t * tr + r] = score(acc[i], t * tr + r);
         }
       }
       __syncthreads();                       // stage t & 1 is read
@@ -2189,7 +2324,7 @@ attn_split_kernel(const float* __restrict__ qkv,
     for (int j = lane; j < n; j += 32) {
       const float p = exp2f(sc[i * split + j] - mx);
       sum += p;
-      sc[i * split + j] = bf16_round(p);   // the p.V dot takes bf16 p
+      sc[i * split + j] = p_in(p, j);      // the p.V dot takes bf16 p
     }
     sum = warp_sum(sum);
     if (lane == 0) {
@@ -2210,6 +2345,7 @@ attn_split_kernel(const float* __restrict__ qkv,
       const int u = nt + t;
       hopper::mbar_wait(&bar[u & 1], (u >> 1) & 1);
       const int trows = min(tr, n - t * tr);
+      if constexpr (KV != KV_BF16) to_bf16(u, trows);
       const float* pt = sc + t * tr;
       for (int k0 = 0; k0 < trows; k0 += 16) {
         // P rows g, g + 8 and keys k0 + 2tq (+1, +8, +9) as A; 0 past nq / trows
@@ -2221,7 +2357,7 @@ attn_split_kernel(const float* __restrict__ qkv,
                                 hopper::pack_bf16(p_at(g + 8, ka), p_at(g + 8, ka + 1)),
                                 hopper::pack_bf16(p_at(g, ka + 8), p_at(g, ka + 9)),
                                 hopper::pack_bf16(p_at(g + 8, ka + 8), p_at(g + 8, ka + 9))};
-        const __nv_bfloat16* vrow = ring + (u & 1) * tr * hd +
+        const __nv_bfloat16* vrow = bf16_tile(u) +
                                     min(k0 + ((lane / 8) & 1) * 8 + lane % 8, tr - 1) * hd +
                                     32 * wid + (lane / 16) * 8;
 #pragma unroll
@@ -2273,11 +2409,14 @@ attn_split_kernel(const float* __restrict__ qkv,
       hopper::mbar_wait(&bar[u & 1], (u >> 1) & 1);
       const int trows = min(tr, n - t * tr);
       if (sl < slices) {
-        const __nv_bfloat16* vt = ring + (u & 1) * tr * hd + cg * 8;
+        const KT* vt = ring + (u & 1) * tr * hd + cg * 8;
         const float* pt = sc + t * tr;
         for (int r = sl; r < trows; r += slices) {
           float vf[8];
-          unpack8(*reinterpret_cast<const uint4*>(vt + r * hd), vf);
+          if constexpr (KV == KV_BF16)
+            unpack8(*reinterpret_cast<const uint4*>(vt + r * hd), vf);
+          else
+            unpack8_kv<KV>(*reinterpret_cast<const uint2*>(vt + r * hd), vf);
 #pragma unroll
           for (int i = 0; i < MAXR; ++i) {
             if (i < nq) {
@@ -2428,13 +2567,120 @@ int launch_attention(const float* qkv, const __nv_bfloat16* kc_read,
   if (ns > 0) {
     CF_CHECK(launch_kernel(attn_split_kernel<ATT_MAX_GROUP, false>, dim3(kv_heads, ns),
                            dim3(ATT_THREADS), split_smem, st, pdl, qkv, kc_read, vc_read, cos,
-                           sin, part_ml, part_acc, group, hd, cap, seq, split, neox, 1));
+                           sin, part_ml, part_acc, group, hd, cap, seq, split, neox, 1,
+                           (const float*)nullptr, (const float*)nullptr, 0));
     ++*n;
   }
   CF_CHECK(launch_kernel(attn_merge_kernel, dim3(kv_heads), dim3(ATT_THREADS), merge_smem,
                          st, pdl, qkv, part_ml, part_acc, cos, sin, kc_append, vc_append,
                          knew, vnew, o, acc_out, ml_out, group, hd, cap, seq, ns, fold,
                          neox));
+  ++*n;
+  return 0;
+}
+
+// The merge pass of the stack on an 8-bit cache (KV): attn_merge_kernel's
+// fold of the ns split partials and the current token from the f32 q/k/v,
+// and o[r*hd + d] = bf16(acc / l); the append stores the float32 k and v
+// rows at row `seq` as store_row8 does (int8: their scales at ks/vs[h *
+// srow + seq]).  A template, so that only the unit that launches it
+// (stack_kernel.cu) emits it; the bf16 kernel above keeps its own body.
+template <int KV>
+__global__ void __launch_bounds__(ATT_THREADS)
+attn_merge8_kernel(const float* __restrict__ qkv,
+                   const float* __restrict__ part_ml,
+                   const float* __restrict__ part_acc,
+                   const float* __restrict__ cos, const float* __restrict__ sin,
+                   uint8_t* __restrict__ kc, uint8_t* __restrict__ vc,
+                   __nv_bfloat16* __restrict__ o, int group, int hd, int cap, int seq,
+                   int ns, int neox, float* __restrict__ ks, float* __restrict__ vs,
+                   int srow) {
+  hopper::grid_dep_launch_dependents();   // the O-projection may start
+  hopper::grid_dep_wait();
+  extern __shared__ float sm[];
+  float* raw = sm;                       // [(group+2)][hd]: q rows, k, v
+  float* qr = raw + (group + 2) * hd;    // [group][hd] roped, scaled
+  float* kr = qr + group * hd;           // [hd] roped k
+  float* scur = kr + hd;                 // [group]
+  __shared__ float red[32];
+  const int h = blockIdx.x, tid = threadIdx.x;
+  const float* src = qkv + (size_t)h * (group + 2) * hd;
+  for (int e = tid; e < (group + 2) * hd; e += blockDim.x) raw[e] = src[e];
+  __syncthreads();
+  const float scale = LOG2E / sqrtf((float)hd);
+  const float* vraw = raw + (group + 1) * hd;
+  for (int d = tid; d < hd; d += blockDim.x) {
+    for (int i = 0; i < group; ++i)
+      qr[i * hd + d] = rope_at(raw + i * hd, d, hd, cos, sin, neox) * scale;
+    kr[d] = rope_at(raw + group * hd, d, hd, cos, sin, neox);
+  }
+  __syncthreads();
+  const size_t row = ((size_t)h * cap + seq) * hd;
+  const size_t at = (size_t)h * srow + seq;   // int8: the row's scale
+  store_row8<KV>([&](int d) { return kr[d]; }, hd, kc + row, ks ? ks + at : nullptr, red);
+  store_row8<KV>([&](int d) { return vraw[d]; }, hd, vc + row, vs ? vs + at : nullptr, red);
+  for (int i = 0; i < group; ++i) {
+    float part = 0.f;
+    for (int d = tid; d < hd; d += blockDim.x) part += qr[i * hd + d] * kr[d];
+    part = block_sum(part, red);
+    if (tid == 0) scur[i] = part;
+  }
+  __syncthreads();
+  for (int d = tid; d < hd; d += blockDim.x) {
+    for (int i = 0; i < group; ++i) {
+      const float sc = scur[i];
+      float mx = sc;
+      for (int s = 0; s < ns; ++s)
+        mx = fmaxf(mx, part_ml[(((size_t)h * ns + s) * group + i) * 2]);
+      const float pc = exp2f(sc - mx);
+      float l = pc, acc = pc * vraw[d];
+      for (int s = 0; s < ns; ++s) {
+        const size_t idx = ((size_t)h * ns + s) * group + i;
+        const float e = exp2f(part_ml[idx * 2] - mx);
+        l = fmaf(part_ml[idx * 2 + 1], e, l);
+        acc = fmaf(part_acc[idx * hd + d], e, acc);
+      }
+      o[((size_t)h * group + i) * hd + d] = __float2bfloat16(acc / l);
+    }
+  }
+}
+
+// The split pass (when seq > 0) and attn_merge8_kernel of one layer of the
+// stack on an 8-bit cache (KV) on `st`, as launch_attention launches the
+// bf16 ones: kc/vc the layer's 8-bit rows, read below seq and appended at
+// seq; KV_INT8: ks/vs the layer's scale planes, row stride srow.  *n
+// counts the launches.  Returns a cudaError_t.
+template <int KV>
+int launch_attention8(const float* qkv, uint8_t* kc, uint8_t* vc, const float* cos,
+                      const float* sin, float* part_ml, float* part_acc, __nv_bfloat16* o,
+                      float* ks, float* vs, int srow, int kv_heads, int group, int hd,
+                      int cap, int seq, int split, int neox, cudaStream_t st, int* n,
+                      bool pdl) {
+  if (group < 1 || group > ATT_MAX_GROUP || hd % 32 != 0 || hd > 4 * 32 ||
+      split < 1 || split > ATT_MAX_SPLIT || seq < 0 || seq > cap ||
+      (KV == KV_INT8 && (!ks || !vs || srow < cap)))
+    return (int)cudaErrorInvalidValue;
+  static bool attrs_set = false;
+  if (!attrs_set) {
+    CF_CHECK((int)cudaFuncSetAttribute(attn_split_kernel<ATT_MAX_GROUP, false, KV>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       ATT_SPLIT_SMEM_MAX));
+    attrs_set = true;
+  }
+  const int ns = (seq + split - 1) / split;
+  const size_t split_smem = attn_split_smem(group, hd, split, false, KV);
+  const size_t merge_smem = sizeof(float) * ((size_t)(2 * group + 3) * hd + group);
+  if (split_smem > (size_t)ATT_SPLIT_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  if (ns > 0) {
+    CF_CHECK(launch_kernel(attn_split_kernel<ATT_MAX_GROUP, false, KV>, dim3(kv_heads, ns),
+                           dim3(ATT_THREADS), split_smem, st, pdl, qkv, (const void*)kc,
+                           (const void*)vc, cos, sin, part_ml, part_acc, group, hd, cap, seq,
+                           split, neox, 1, (const float*)ks, (const float*)vs, srow));
+    ++*n;
+  }
+  CF_CHECK(launch_kernel(attn_merge8_kernel<KV>, dim3(kv_heads), dim3(ATT_THREADS), merge_smem,
+                         st, pdl, qkv, part_ml, part_acc, cos, sin, kc, vc, o, group, hd, cap,
+                         seq, ns, neox, ks, vs, srow));
   ++*n;
   return 0;
 }

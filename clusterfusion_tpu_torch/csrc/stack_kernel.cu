@@ -3,7 +3,8 @@
 //
 // Replaces the TPU kernel `fused_decoder_stack`
 // (clusterfusion_tpu/ops/stack_kernel.py, `_stack_kernel`) for bf16, int8
-// or int4 weights, a bf16 KV cache, no window, no bias and no sandwich norms,
+// or int4 weights, a bf16, int8 (Int8KV) or fp8 e4m3 KV cache (8-bit: not
+// in mode 5), no window, no bias and no sandwich norms,
 // with the same layouts:
 //   wqkv_f [L, G, hidden, hg*(g+2)*hd]  columns per kv head [q_0..q_{g-1}|k|v]
 //   wo_f   [L, G, hg*g*hd, hidden]
@@ -107,10 +108,19 @@
 // the step is 8L+3 kernels: no plain norm, no torch.mm and no standalone
 // gather after the stack.
 //
+// 8-bit KV caches (the TPU kernel's kv_kind: ops/quant.py's Int8KV, int8
+// rows with per-position float32 scales in [L, kv, R, 128] planes, or fp8
+// e4m3 rows): the split pass reads the 8-bit rows below pos (int8: and
+// their scales) and the merge stores the current token's float32 k and v
+// rows as int8 codes with their scales, or as e4m3, at row pos, while the
+// token's own fold stays float32 (common.cuh's note on the cache kinds).
+// A 7B step at pos 600 then reads 0.16 GB of rows and scales where bf16
+// reads 0.31 GB.  The weights and their kinds do not change.
+//
 // The split and merge passes are common.cuh's attn_split_kernel and
-// attn_merge_kernel, shared with the single layer (decoder_layer.cu): the
-// split pass bulk-copies each split's K and V rows into shared memory and
-// works on a tile's rows at once.  The GEMVs are common.cuh's ring GEMV at
+// attn_merge_kernel (attn_merge8_kernel for an 8-bit cache): the split
+// pass bulk-copies each split's K and V rows into shared memory and works
+// on a tile's rows at once.  The GEMVs are common.cuh's ring GEMV at
 // one row (ring_gemv_kernel): a producer warp bulk-copies 256-column weight tiles
 // through a ring of shared-memory stages, consumer warps do the FMAs, and
 // the K chunks of a tile meet inside a thread-block cluster in a fixed
@@ -314,8 +324,10 @@ extern "C" long long cf_stack_scratch_floats(int hidden, int kv_heads, int hg,
 // per ffn_block rows (the TPU kernel's f-block), the O projection's per
 // head group, QKV's and gate/up's over the row.  lm_s [vocab] given:
 // lm_head holds int8 codes (a bf16 or int8 head beside any kind).
-// Returns a cudaError_t (0 on success); every refusal comes before the
-// first launch.
+// kv_kind (common.cuh's KV_*): the cache kind of kc/vc; KV_INT8: int8 rows
+// and ks/vs their float32 scale planes [L, kv_heads, srow] (srow = R * 128
+// >= cap); KV_FP8: e4m3 rows.  Not with comm (mode 5).  Returns a
+// cudaError_t (0 on success); every refusal comes before the first launch.
 extern "C" int cf_decoder_stack(
     const void* x, const void* attn_norm, const void* ffn_norm, const void* cos,
     const void* sin, const void* wqkv, const void* wo, const void* w13,
@@ -325,12 +337,17 @@ extern "C" int cf_decoder_stack(
     int cap, int f_pad, int vocab, int pos, int neox, float eps, int kv_split,
     int threads, int* n_launches, const void* comm, int gather, void* stream,
     const void* wqkv_s, const void* wo_s, const void* w13_s, const void* w2_s,
-    const void* lm_s, int wq_kind, int ffn_block) {
+    const void* lm_s, int wq_kind, int ffn_block, int kv_kind, void* ks, void* vs,
+    int srow) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const CfComm* cc = static_cast<const CfComm*>(comm);
   const bool w8 = wq_kind == WK_INT8, w4 = wq_kind == WK_INT4 || wq_kind == WK_INT4A8;
   *n_launches = 0;
   if (wq_kind < WK_BF16 || wq_kind > WK_INT4A8 || (wq_kind != WK_BF16) != (wqkv_s != nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (kv_kind < KV_BF16 || kv_kind > KV_FP8 || (kv_kind != KV_BF16 && cc) ||
+      (kv_kind == KV_INT8) != (ks != nullptr) || (ks != nullptr) != (vs != nullptr) ||
+      (kv_kind == KV_INT8 && srow < cap))
     return (int)cudaErrorInvalidValue;
   if (w4 && (hidden % GS4 != 0 || f_pad % GS4 != 0 ||
              (wq_kind == WK_INT4A8 && (ffn_block < GS4 || ffn_block % GS4 != 0 ||
@@ -398,6 +415,11 @@ extern "C" int cf_decoder_stack(
     const int kg_d = wq_kind == WK_INT4A8 ? ffn_block : 0;
     __nv_bfloat16* kcl = static_cast<__nv_bfloat16*>(kc) + (size_t)l * kv_heads * cap * hd;
     __nv_bfloat16* vcl = static_cast<__nv_bfloat16*>(vc) + (size_t)l * kv_heads * cap * hd;
+    // an 8-bit cache's layer: rows of hd bytes, int8 scales per kv head
+    uint8_t* kcl8 = static_cast<uint8_t*>(kc) + (size_t)l * kv_heads * cap * hd;
+    uint8_t* vcl8 = static_cast<uint8_t*>(vc) + (size_t)l * kv_heads * cap * hd;
+    float* ksl = ks ? static_cast<float*>(ks) + (size_t)l * kv_heads * srow : nullptr;
+    float* vsl = vs ? static_cast<float*>(vs) + (size_t)l * kv_heads * srow : nullptr;
 
     // residual add + attention RMSNorm (mode 5: after layer 0, over the
     // down projection's reduce)
@@ -416,11 +438,20 @@ extern "C" int cf_decoder_stack(
                               G, (long long)hidden * C, C, threads, st));
     ++n;
     // split-KV attention over rows < pos, then the merge with the current
-    // token, which appends its bf16 k/v at row pos
-    CF_CHECK(launch_attention(s.qkv, kcl, vcl, cosf, sinf, s.part_ml, s.part_acc,
-                              kcl, vcl, nullptr, nullptr, s.o, nullptr, nullptr,
-                              kv_heads, group, hd, cap, pos, kv_split, 1, neox,
-                              st, &n, PDL_CHAIN));
+    // token, which appends its k/v at row pos (bf16, or 8-bit)
+    if (kv_kind == KV_INT8)
+      CF_CHECK(launch_attention8<KV_INT8>(s.qkv, kcl8, vcl8, cosf, sinf, s.part_ml, s.part_acc,
+                                          s.o, ksl, vsl, srow, kv_heads, group, hd, cap, pos,
+                                          kv_split, neox, st, &n, PDL_CHAIN));
+    else if (kv_kind == KV_FP8)
+      CF_CHECK(launch_attention8<KV_FP8>(s.qkv, kcl8, vcl8, cosf, sinf, s.part_ml, s.part_acc,
+                                         s.o, nullptr, nullptr, 0, kv_heads, group, hd, cap,
+                                         pos, kv_split, neox, st, &n, PDL_CHAIN));
+    else
+      CF_CHECK(launch_attention(s.qkv, kcl, vcl, cosf, sinf, s.part_ml, s.part_acc,
+                                kcl, vcl, nullptr, nullptr, s.o, nullptr, nullptr,
+                                kv_heads, group, hd, cap, pos, kv_split, 1, neox,
+                                st, &n, PDL_CHAIN));
     // wo_f[l] is [G * Ko, hidden] row-major: one product sums the groups
     // (int8: each group's partial scaled by its s[G] first); then the
     // attention-out residual add + FFN RMSNorm

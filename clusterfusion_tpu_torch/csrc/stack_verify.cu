@@ -1,10 +1,10 @@
-// Whole-stack bf16 verify of n rows for Hopper (sm_90a): every layer of one
+// Whole-stack verify of n rows for Hopper (sm_90a): every layer of one
 // speculative-decoding verify, then the final RMSNorm and the LM head.
 //
 // Replaces the TPU kernel `fused_verify_stack`
-// (clusterfusion_tpu/ops/stack_verify.py, `_verify_kernel`) for bf16
-// weights, a bf16 KV cache, no window, no bias and no sandwich norms, with
-// the layouts of stack_kernel.cu.  Row t of x is the token at position
+// (clusterfusion_tpu/ops/stack_verify.py, `_verify_kernel`) for bf16, int8
+// or int4 weights, a bf16, int8 (Int8KV) or fp8 e4m3 KV cache, no window,
+// no bias and no sandwich norms, with the layouts of stack_kernel.cu.  Row t of x is the token at position
 // pos + t; it attends every cached row < pos and the fresh rows 0..t, and
 // all n K/V rows are appended at pos..pos+n-1 of every layer.  Cache rows
 // at and above pos are never read: they may hold rows of rejected drafts.
@@ -53,6 +53,15 @@
 // common.cuh's quant_x8_kernel before each product (12 kernels a layer),
 // at one row inside the one-row GEMV (8).
 //
+// 8-bit KV caches (common.cuh's note on the cache kinds): the split pass's
+// n-token form converts each 8-bit tile to bf16 before its mma.sync (int8:
+// the scores scaled by sk, p by sv before its bf16 rounding), and the merge
+// stores each fresh row from float32, per (kv head, token): int8 codes and
+// scales (the n positions may straddle a 128-column plane row: the planes
+// are flat per kv head) or e4m3.  The causal block of fresh rows stays
+// float32 K with bf16-rounded V, whatever the cache kind, as in the TPU
+// kernel.
+//
 // Query row r of kv head h is (head row i, token t) with r = i*n + t, the
 // TPU kernel's panel order.  The merge keeps the n fresh q, k and v rows of
 // its head in shared memory, so n <= MAX_N.
@@ -67,18 +76,22 @@ constexpr int MERGE_SMEM_MAX = 96 * 1024;
 // Merge of kv head h = blockIdx.x, q head row i = blockIdx.y and token t =
 // blockIdx.z: the split partials plus the causal block of the fresh rows j
 // <= t, o[t*kv*group*hd + (h*group + i)*hd + d] = bf16(acc / l).  The
-// blocks with i = 0 append fresh row t's bf16 K/V at pos + t.  One block
-// per query row, so that the partials of every row are read at once (a
-// block per q head row walked its n rows' splits one after another); the
-// splits' maximum is exact in any order and their sum runs in a fixed one.
+// blocks with i = 0 append fresh row t's K/V at pos + t (bf16, or as
+// store_row8 stores it: int8 with its scales at ks/vs[h * srow + pos + t],
+// or e4m3).  One block per query row, so that the partials of every row are
+// read at once (a block per q head row walked its n rows' splits one after
+// another); the splits' maximum is exact in any order and their sum runs in
+// a fixed one.
+template <int KV>
 __global__ void __launch_bounds__(ATT_THREADS)
 verify_merge_kernel(const float* __restrict__ qkv,
                     const float* __restrict__ part_ml,
                     const float* __restrict__ part_acc,
                     const float* __restrict__ cos, const float* __restrict__ sin,
-                    __nv_bfloat16* __restrict__ kc, __nv_bfloat16* __restrict__ vc,
+                    void* __restrict__ kc, void* __restrict__ vc,
                     __nv_bfloat16* __restrict__ o, int n, int group, int hd,
-                    int cap, int pos, int ns, int neox) {
+                    int cap, int pos, int ns, int neox, float* __restrict__ ks,
+                    float* __restrict__ vs, int srow) {
   hopper::grid_dep_launch_dependents();   // the O-projection may start
   hopper::grid_dep_wait();
   extern __shared__ float sm[];
@@ -106,10 +119,12 @@ verify_merge_kernel(const float* __restrict__ qkv,
     vb[e] = bf16_round(vd);
     if (j == t) {
       qr[d] = rope_at(head + i * hd, d, hd, ct, st, neox) * scale;
-      if (i == 0) {
-        const size_t row = ((size_t)h * cap + pos + t) * hd + d;
-        kc[row] = __float2bfloat16(kd);
-        vc[row] = __float2bfloat16(vd);
+      if constexpr (KV == KV_BF16) {
+        if (i == 0) {
+          const size_t row = ((size_t)h * cap + pos + t) * hd + d;
+          static_cast<__nv_bfloat16*>(kc)[row] = __float2bfloat16(kd);
+          static_cast<__nv_bfloat16*>(vc)[row] = __float2bfloat16(vd);
+        }
       }
     }
   }
@@ -117,6 +132,17 @@ verify_merge_kernel(const float* __restrict__ qkv,
   for (int s = tid; s < ns; s += blockDim.x)
     mx = fmaxf(mx, part_ml[(qrow + (size_t)s * rows) * 2]);
   __syncthreads();
+  if constexpr (KV != KV_BF16) {
+    if (i == 0) {                        // fresh row t's stored copy, from float32
+      const size_t row = ((size_t)h * cap + pos + t) * hd;
+      const float* vt = qkv + t * qkv_n + (size_t)h * (group + 2) * hd + (group + 1) * hd;
+      const size_t at = (size_t)h * srow + pos + t;   // int8: the row's scale
+      store_row8<KV>([&](int d) { return kr[t * hd + d]; }, hd,
+                     static_cast<uint8_t*>(kc) + row, ks ? ks + at : nullptr, red);
+      store_row8<KV>([&](int d) { return vt[d]; }, hd, static_cast<uint8_t*>(vc) + row,
+                     vs ? vs + at : nullptr, red);
+    }
+  }
   for (int j = wid; j <= t; j += nw) {   // one warp per fresh row
     float part = 0.f;
     for (int d = lane; d < hd; d += 32) part = fmaf(qr[d], kr[j * hd + d], part);
@@ -154,35 +180,65 @@ verify_merge_kernel(const float* __restrict__ qkv,
 
 size_t align16(size_t n) { return (n + 15) / 16 * 16; }
 
-// The split pass's instance for `rows` query rows a kv head: tiles of up
-// to 8 rows where they fit, else of up to ATT_MAX_ROWS.
+// The split pass's instance for `rows` query rows a kv head, of cache kind
+// KV: tiles of up to 8 rows where they fit, else of up to ATT_MAX_ROWS.
 struct SplitPlan {
-  void (*kern)(const float*, const __nv_bfloat16*, const __nv_bfloat16*, const float*,
-               const float*, float*, float*, int, int, int, int, int, int, int);
+  void (*kern)(const float*, const void*, const void*, const float*, const float*, float*,
+               float*, int, int, int, int, int, int, int, const float*, const float*, int);
   int tile_rows, tiles;
 };
+template <int KV = KV_BF16>
 SplitPlan split_plan(int rows) {
   if (rows <= ATT_MAX_GROUP)
-    return {attn_split_kernel<ATT_MAX_GROUP, true>, rows, 1};
-  return {attn_split_kernel<ATT_MAX_ROWS, true>, std::min(rows, ATT_MAX_ROWS),
+    return {attn_split_kernel<ATT_MAX_GROUP, true, KV>, rows, 1};
+  return {attn_split_kernel<ATT_MAX_ROWS, true, KV>, std::min(rows, ATT_MAX_ROWS),
           (rows + ATT_MAX_ROWS - 1) / ATT_MAX_ROWS};
 }
 
-// The split and merge passes' shared-memory allowances, set once.
+// The split and merge passes' shared-memory allowances, set once for each
+// cache kind.
+template <int KV = KV_BF16>
 int set_attrs() {
   static bool attrs_set = false;
   if (!attrs_set) {
-    CF_CHECK((int)cudaFuncSetAttribute(attn_split_kernel<ATT_MAX_GROUP, true>,
+    CF_CHECK((int)cudaFuncSetAttribute(attn_split_kernel<ATT_MAX_GROUP, true, KV>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        G1_SMEM_MAX));
-    CF_CHECK((int)cudaFuncSetAttribute(attn_split_kernel<ATT_MAX_ROWS, true>,
+    CF_CHECK((int)cudaFuncSetAttribute(attn_split_kernel<ATT_MAX_ROWS, true, KV>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        G1_SMEM_MAX));
-    CF_CHECK((int)cudaFuncSetAttribute(verify_merge_kernel,
+    CF_CHECK((int)cudaFuncSetAttribute(verify_merge_kernel<KV>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        MERGE_SMEM_MAX));
     attrs_set = true;
   }
+  return 0;
+}
+
+// One layer's split pass (when pos > 0) and merge, of cache kind KV, on
+// `st` under PDL; *k counts the launches.  kc/vc are the layer's rows,
+// ks/vs its int8 scale planes (row stride srow).
+template <int KV>
+int verify_attention(const float* qkv, const float* cosf, const float* sinf, float* part_ml,
+                     float* part_acc, void* kc, void* vc, __nv_bfloat16* o, int n,
+                     int kv_heads, int group, int hd, int cap, int pos, int kv_split, int neox,
+                     float* ks, float* vs, int srow, cudaStream_t st, int* k) {
+  CF_CHECK(set_attrs<KV>());
+  const SplitPlan sp = split_plan<KV>(group * n);
+  const size_t split_smem = attn_split_smem(sp.tile_rows, hd, kv_split, true, KV);
+  const int ns = (pos + kv_split - 1) / kv_split;
+  const size_t merge_smem = sizeof(float) * ((size_t)(2 * n + 1) * hd + n + ns);
+  if (ns > 0) {
+    CF_CHECK(launch_kernel(sp.kern, dim3(kv_heads, ns, sp.tiles), dim3(ATT_THREADS), split_smem,
+                           st, true, qkv, (const void*)kc, (const void*)vc, cosf, sinf,
+                           part_ml, part_acc, group, hd, cap, pos, kv_split, neox, n,
+                           (const float*)ks, (const float*)vs, srow));
+    ++*k;
+  }
+  CF_CHECK(launch_kernel(verify_merge_kernel<KV>, dim3(kv_heads, group, n), dim3(ATT_THREADS),
+                         merge_smem, st, true, qkv, part_ml, part_acc, cosf, sinf, kc, vc, o,
+                         n, group, hd, cap, pos, ns, neox, ks, vs, srow));
+  ++*k;
   return 0;
 }
 
@@ -272,10 +328,10 @@ extern "C" int cf_verify_split(const void* qkv, const void* kc, const void* vc,
   const int ns = (seq + split - 1) / split;
   return launch_kernel(sp.kern, dim3(kv_heads, ns, sp.tiles),
                        dim3(ATT_THREADS), smem, static_cast<cudaStream_t>(stream), false,
-                       static_cast<const float*>(qkv), static_cast<const __nv_bfloat16*>(kc),
-                       static_cast<const __nv_bfloat16*>(vc), static_cast<const float*>(cos),
+                       static_cast<const float*>(qkv), kc, vc, static_cast<const float*>(cos),
                        static_cast<const float*>(sin), static_cast<float*>(part_ml),
-                       static_cast<float*>(part_acc), group, hd, cap, seq, split, neox, n);
+                       static_cast<float*>(part_acc), group, hd, cap, seq, split, neox, n,
+                       (const float*)nullptr, (const float*)nullptr, 0);
 }
 
 // The phase stamps of one of kernel 8's products inside a call (chip_smoke.py
@@ -302,8 +358,10 @@ extern "C" int cf_verify_probe_gemv(void* stamps, int at) {
 // quantizes each row's x per block as there (ffn_block: the down
 // product's).  lm_s [vocab] given: lm_head holds int8 codes (a bf16 head
 // beside quantized layers keeps its bf16 GEMV).  One tensor map per weight
-// over all its layers' matrices, encoded per call.  Returns a cudaError_t
-// (0 on success); every refusal comes before the first launch.
+// over all its layers' matrices, encoded per call.  kv_kind (common.cuh's
+// KV_*): the cache kind, as cf_decoder_stack takes it (ks/vs: int8 scale
+// planes [L, kv_heads, srow]).  Returns a cudaError_t (0 on success); every
+// refusal comes before the first launch.
 extern "C" int cf_verify_stack(
     const void* x, const void* attn_norm, const void* ffn_norm, const void* cos,
     const void* sin, const void* wqkv, const void* wo, const void* w13,
@@ -313,7 +371,7 @@ extern "C" int cf_verify_stack(
     int hd, int cap, int f_pad, int vocab, int pos, int neox, float eps,
     int kv_split, int threads, int* n_launches, void* stream, const void* wqkv_s,
     const void* wo_s, const void* w13_s, const void* w2_s, const void* lm_s, int wq_kind,
-    int ffn_block) {
+    int ffn_block, int kv_kind, void* ks, void* vs, int srow) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool w8 = wq_kind == WK_INT8, w4 = wq_kind == WK_INT4 || wq_kind == WK_INT4A8;
   const bool a8 = wq_kind == WK_INT4A8;
@@ -325,7 +383,7 @@ extern "C" int cf_verify_stack(
     return (int)cudaErrorInvalidValue;
   // hd 128 only: others (Gemma-2's 256) are not ported yet
   const SplitPlan sp = split_plan(group * n);
-  const size_t split_smem = attn_split_smem(sp.tile_rows, hd, kv_split, true);
+  const size_t split_smem = attn_split_smem(sp.tile_rows, hd, kv_split, true, kv_kind);
   const int ns = (pos + kv_split - 1) / kv_split;
   const size_t merge_smem = sizeof(float) * ((size_t)(2 * n + 1) * hd + n + ns);
   if (n < 1 || n > MAX_N || hd != 128 || group < 1 || threads % 32 != 0 || threads < 32 ||
@@ -333,9 +391,11 @@ extern "C" int cf_verify_stack(
       pos < 0 || pos + n > cap || kv_heads % hg != 0 ||
       split_smem > (size_t)G1_SMEM_MAX || merge_smem > (size_t)MERGE_SMEM_MAX)
     return (int)cudaErrorInvalidValue;
+  if (kv_kind < KV_BF16 || kv_kind > KV_FP8 || (kv_kind == KV_INT8) != (ks != nullptr) ||
+      (ks != nullptr) != (vs != nullptr) || (kv_kind == KV_INT8 && srow < cap))
+    return (int)cudaErrorInvalidValue;
   if (((w8 || w4) && (!wo_s || !w13_s || !w2_s)) || (lm_s && (!lm_head || !(w8 || w4))))
     return (int)cudaErrorInvalidValue;
-  CF_CHECK(set_attrs());
   Scratch s = layout(static_cast<float*>(scratch), n, hidden, kv_heads, group, hd,
                      cap, f_pad, kv_split);
   const int G = kv_heads / hg;
@@ -379,8 +439,12 @@ extern "C" int cf_verify_stack(
       s13 = static_cast<const float*>(w13_s) + (size_t)l * 2 * gq * f_pad;
       s2 = static_cast<const float*>(w2_s) + (size_t)l * gf * hidden;
     }
-    __nv_bfloat16* kcl = static_cast<__nv_bfloat16*>(kc) + (size_t)l * kv_heads * cap * hd;
-    __nv_bfloat16* vcl = static_cast<__nv_bfloat16*>(vc) + (size_t)l * kv_heads * cap * hd;
+    // the layer's rows (2 bytes a value, or 1 in an 8-bit cache) and scales
+    const size_t eb_kv = kv_kind == KV_BF16 ? 2 : 1;
+    char* kcl = static_cast<char*>(kc) + (size_t)l * kv_heads * cap * hd * eb_kv;
+    char* vcl = static_cast<char*>(vc) + (size_t)l * kv_heads * cap * hd * eb_kv;
+    float* ksl = ks ? static_cast<float*>(ks) + (size_t)l * kv_heads * srow : nullptr;
+    float* vsl = vs ? static_cast<float*>(vs) + (size_t)l * kv_heads * srow : nullptr;
 
     // residual add + attention RMSNorm per row (the call's first kernel
     // waits for everything before it on the stream; the rest overlap)
@@ -394,17 +458,18 @@ extern "C" int cf_verify_stack(
     CF_CHECK(verify_gemv(wq_kind, s.xn, hidden, wq, &mq, l * G, sq, 0, s.qkv, n, hidden,
                          (int)C, G, (long long)hidden * C, qkv_n, C, threads, st, s));
     k += 1 + qx;
-    if (ns > 0) {
-      CF_CHECK(launch_kernel(sp.kern, dim3(kv_heads, ns, sp.tiles),
-                             dim3(ATT_THREADS), split_smem, st, true, s.qkv, kcl, vcl, cosf,
-                             sinf, s.part_ml, s.part_acc, group, hd, cap, pos, kv_split,
-                             neox, n));
-      ++k;
-    }
-    CF_CHECK(launch_kernel(verify_merge_kernel, dim3(kv_heads, group, n), dim3(ATT_THREADS),
-                           merge_smem, st, true, s.qkv, s.part_ml, s.part_acc, cosf, sinf,
-                           kcl, vcl, s.o, n, group, hd, cap, pos, ns, neox));
-    ++k;
+    if (kv_kind == KV_INT8)
+      CF_CHECK(verify_attention<KV_INT8>(s.qkv, cosf, sinf, s.part_ml, s.part_acc, kcl, vcl,
+                                         s.o, n, kv_heads, group, hd, cap, pos, kv_split,
+                                         neox, ksl, vsl, srow, st, &k));
+    else if (kv_kind == KV_FP8)
+      CF_CHECK(verify_attention<KV_FP8>(s.qkv, cosf, sinf, s.part_ml, s.part_acc, kcl, vcl,
+                                        s.o, n, kv_heads, group, hd, cap, pos, kv_split, neox,
+                                        nullptr, nullptr, 0, st, &k));
+    else
+      CF_CHECK(verify_attention<KV_BF16>(s.qkv, cosf, sinf, s.part_ml, s.part_acc, kcl, vcl,
+                                         s.o, n, kv_heads, group, hd, cap, pos, kv_split,
+                                         neox, nullptr, nullptr, 0, st, &k));
     // wo_f[l] is [G * Ko, hidden] row-major: one product sums the groups
     // (int8: each group's partial scaled by its s[G] first)
     CF_CHECK(verify_gemv(wq_kind, s.o, o_n, wol, &mo, l, so, kg_o, s.aout, n, (int)(G * Ko),

@@ -16,7 +16,11 @@ weights (``ops.quant.quantize_llama_params``, int4 in groups of 128);
 unless ``kcfg.int4_w4a8`` is False), ``spec_generate`` kernel 8's, and
 ``generate`` and the completions the serving engine's quantized steps
 (int4: the fused step, exact).  The prefill dequantizes, as the JAX
-package's does.
+package's does.  ``kv_dtype="int8"`` (an ``Int8KV`` cache) or
+``torch.float8_e4m3fn`` gives ``stream_generate`` and ``spec_generate`` an
+8-bit KV cache (kernels 7 and 8 in their 8-bit modes; the draft keeps its
+own ``kv_dtype``); ``generate`` hands it to the serving engine, which does
+not take one yet (``ROADMAP.md`` queue 2, item 2.3).
 """
 
 from __future__ import annotations
@@ -61,16 +65,19 @@ class Llama:
     def __init__(self, params, cfg: LlamaConfig, tokenizer,
                  kcfg: Optional[KernelConfig] = None,
                  fused: Optional[bool] = None,
-                 quant: Optional[str] = None):
+                 quant: Optional[str] = None,
+                 kv_dtype=torch.bfloat16):
         """quant: None | "int8" | "int4", weight-only quantization of the
-        four projections (the LM head stays bf16), as in the JAX
-        package."""
+        four projections (the LM head stays bf16), as in the JAX package;
+        kv_dtype: the KV cache's, bf16, "int8" (``Int8KV``) or
+        ``torch.float8_e4m3fn``."""
         if quant:
             params = quantize_llama_params(params, quant)
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.kcfg = kcfg or KernelConfig()
+        self.kv_dtype = kv_dtype
         self.device = params["embed"].device
         if fused is None:
             fused = os.getenv("USE_CLUSTER_FUSION", "true").lower() == "true"
@@ -80,7 +87,7 @@ class Llama:
     @staticmethod
     def synthetic(cfg: LlamaConfig, seed: int = 0,
                   fused: Optional[bool] = None, quant: Optional[str] = None,
-                  device=None) -> "Llama":
+                  device=None, kv_dtype=torch.bfloat16) -> "Llama":
         """Random-weight engine with a byte tokenizer, made on ``device``
         (CUDA by default; raises when there is none); ``quant`` picks the
         quantized engines' wider head grouping, then quantizes."""
@@ -89,7 +96,7 @@ class Llama:
             cfg, seed, head_group=model.default_head_group(cfg, quant),
             device=dev)
         return Llama(params, cfg, load_tokenizer("bytes"), fused=fused,
-                     quant=quant)
+                     quant=quant, kv_dtype=kv_dtype)
 
     def stream_generate(self, prompt_tokens: Sequence[int],
                         max_gen_len: int, temperature: float = 0.6,
@@ -101,7 +108,8 @@ class Llama:
         if len(toks) + max_gen_len > cfg.max_seq_len:
             raise ValueError(f"{len(toks)} prompt + {max_gen_len} new tokens "
                              f"exceed max_seq_len {cfg.max_seq_len}")
-        k_cache, v_cache = model.init_cache(cfg, device=self.device)
+        k_cache, v_cache = model.init_cache(cfg, device=self.device,
+                                            dtype=self.kv_dtype)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
 
@@ -149,10 +157,12 @@ class Llama:
         toks = list(prompt_tokens)
         span = n_draft + 1
         t0 = time.perf_counter()
-        k_cache, v_cache = model.init_cache(cfg, device=self.device)
+        k_cache, v_cache = model.init_cache(cfg, device=self.device,
+                                            dtype=self.kv_dtype)
         logits, k_cache, v_cache = model.prefill(
             self.params, k_cache, v_cache, toks, cfg, kcfg=self.kcfg)
-        kd, vd = model.init_cache(draft.cfg, device=draft.device)
+        kd, vd = model.init_cache(draft.cfg, device=draft.device,
+                                  dtype=draft.kv_dtype)
         model.prefill(draft.params, kd, vd, toks, draft.cfg, kcfg=draft.kcfg)
         tok = torch.argmax(logits[-1])
         out = [int(tok)]
@@ -222,7 +232,8 @@ class Llama:
         eng = ServingEngine(
             self.params, cfg, page_size=page, num_pages=need + 1,
             max_batch=mb, kcfg=self.kcfg, eos_id=self.tokenizer.eos_id,
-            seed=seed, step_impl="fused" if (self.fused and B == 1) else None)
+            kv_dtype=self.kv_dtype, seed=seed,
+            step_impl="fused" if (self.fused and B == 1) else None)
         t0 = time.perf_counter()
         for i, toks in enumerate(prompts):
             eng.submit(i, toks, min(max_gen_len, cfg.max_seq_len - len(toks)),

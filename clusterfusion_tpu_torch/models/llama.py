@@ -20,6 +20,16 @@ int4 modes (and the speculative verify to kernel 8's,
 ``models.speculative``).  The prefill dequantizes int4, as the JAX
 package's does.
 
+The KV cache may be 8-bit (``init_cache(dtype="int8")``: an ``Int8KV``
+pair; ``dtype=torch.float8_e4m3fn``), as in the JAX package, and each path
+reads it as the JAX package's does: the fused step through kernel 7's
+8-bit modes (the current token attends unquantized, only its stored copy
+is 8-bit); the eager step appends its row first and attends it quantized
+(``ops.quant.cache_write_layer`` / ``cache_read_layer``, fp8 denormals
+kept); the prefill attends over the dequantized prefix, rounded to bf16,
+and its own fresh bf16 rows, and fills the cache afterwards
+(``cache_fill_rows``).
+
 Unlike the JAX package, whose functions return new caches, the caches are
 updated in place here: every function that takes ``k_cache``/``v_cache``
 writes the new rows into those tensors and returns the same tensors.
@@ -38,7 +48,10 @@ from clusterfusion_tpu_torch.ops._support import (glu_act, resolve_device,
                                                   round_up)
 from clusterfusion_tpu_torch.ops.decoder_layer import fuse_qkv_o_for_kernel
 from clusterfusion_tpu_torch.ops.flash_prefill import flash_prefill_attention
-from clusterfusion_tpu_torch.ops.quant import QuantizedTensor, maybe_dequantize
+from clusterfusion_tpu_torch.ops.quant import (Int8KV, QuantizedTensor,
+                                               cache_read_layer,
+                                               cache_write_layer,
+                                               init_kv_int8, maybe_dequantize)
 from clusterfusion_tpu_torch.ops.reference import (fused_add_rmsnorm_ref,
                                                    rmsnorm_ref)
 from clusterfusion_tpu_torch.ops.rope import (apply_rope_gptj, apply_rope_neox,
@@ -165,13 +178,27 @@ def rope_row(cfg: LlamaConfig, pos: int, device="cpu"):
     return rope_rows(cfg, pos, 1, device)
 
 
-def init_cache(cfg: LlamaConfig, max_seq: Optional[int] = None, device=None):
-    """Zero-filled bf16 caches [L, kv_heads, capacity, head_dim] x2."""
+def init_cache(cfg: LlamaConfig, max_seq: Optional[int] = None, device=None,
+               dtype=torch.bfloat16):
+    """Zero-filled caches [L, kv_heads, capacity, head_dim] x2 of ``dtype``
+    (bf16, or ``torch.float8_e4m3fn``).  ``dtype`` "int8" (or
+    ``torch.int8``): an ``Int8KV`` pair (int8 rows, scale planes of ones),
+    its capacity rounded up to a multiple of 128 above 128, as in the JAX
+    package."""
     dev = resolve_device(device)
     cap = max_seq or cfg.max_seq_len
+    if dtype in ("int8", torch.int8):
+        if cap > 128:
+            cap = -(-cap // 128) * 128
+        return tuple(init_kv_int8(cfg.n_layers, cfg.kv_heads, cap,
+                                  cfg.head_dim_, device=dev)
+                     for _ in range(2))
+    if dtype not in (torch.bfloat16, torch.float8_e4m3fn):
+        raise ValueError(f"KV cache dtype {dtype}: bf16, int8 or "
+                         "float8_e4m3fn")
     shape = (cfg.n_layers, cfg.kv_heads, cap, cfg.head_dim_)
-    return (torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-            torch.zeros(shape, dtype=torch.bfloat16, device=dev))
+    return (torch.zeros(shape, dtype=dtype, device=dev),
+            torch.zeros(shape, dtype=dtype, device=dev))
 
 
 # --------------------------------------------------------------------------
@@ -273,9 +300,14 @@ def prefill_chunk(params: LlamaParams, k_cache, v_cache, tokens, cfg: LlamaConfi
                   kcfg: KernelConfig = KernelConfig()):
     """Process tokens [T] at positions pos0..pos0+T-1, filling the caches in
     place (the first ``pos0`` positions must be filled).  Returns
-    (logits [T, vocab] f32, k_cache, v_cache)."""
+    (logits [T, vocab] f32, k_cache, v_cache).  An 8-bit cache: each
+    layer attends over its prefix, dequantized and rounded to bf16, and
+    the chunk's own bf16 rows, then stores the chunk's float32 k and bf16
+    v rows as ``cache_fill_rows`` stores them (JAX fills every layer after
+    the last; a layer's rows are the same either way)."""
     _check_supported(cfg)
     dev = k_cache.device
+    kv8 = isinstance(k_cache, Int8KV) or k_cache.dtype == torch.float8_e4m3fn
     tokens = torch.as_tensor(tokens, dtype=torch.long, device=dev)
     T = tokens.shape[0]
     kv, g, hd = cfg.kv_heads, cfg.n_heads // cfg.kv_heads, cfg.head_dim_
@@ -289,23 +321,31 @@ def prefill_chunk(params: LlamaParams, k_cache, v_cache, tokens, cfg: LlamaConfi
         q = _apply_rope(q, cos[..., None, None, :], sin[..., None, None, :],
                         cfg.rope_style)                    # float32
         k = _apply_rope(k, cos[..., None, :], sin[..., None, :], cfg.rope_style)
-        k_new = k[0].transpose(0, 1).to(k_cache.dtype)     # [kv, T, hd]
-        v_new = v[0].transpose(0, 1).to(v_cache.dtype)
-        k_cache[l, :, pos0:pos0 + T] = k_new
-        v_cache[l, :, pos0:pos0 + T] = v_new
+        k_rows, v_rows = k[0].transpose(0, 1), v[0].transpose(0, 1)
+        if kv8:     # [dequantized prefix; the chunk's rows], in bf16
+            bf16 = torch.bfloat16
+            k_pre = cache_read_layer(k_cache, l, pos0).to(bf16)
+            v_ctx = torch.cat([cache_read_layer(v_cache, l, pos0).to(bf16),
+                               v_rows.to(bf16)], dim=1)
+            k_fl = torch.cat([k_pre, k_rows.to(bf16)], dim=1)
+            cache_write_layer(k_cache, l, k_rows, pos0)
+            cache_write_layer(v_cache, l, v_rows, pos0)
+        else:
+            k_cache[l, :, pos0:pos0 + T] = k_rows.to(k_cache.dtype)
+            v_cache[l, :, pos0:pos0 + T] = v_rows.to(v_cache.dtype)
+            # the cache's layer is read in place (rows hd apart)
+            k_pre = k_cache[l, :, :pos0]
+            k_fl = k_cache[l, :, :pos0 + T]
+            v_ctx = v_cache[l, :, :pos0 + T]
         if flash:
             q4 = q[0].permute(1, 0, 2, 3).to(torch.bfloat16).contiguous()
-            # the cache's layer is read in place (rows hd apart)
-            o4 = flash_prefill_attention(
-                q4, k_cache[l, :, :pos0 + T], v_cache[l, :, :pos0 + T],
-                q_offset=pos0, kcfg=kcfg)
+            o4 = flash_prefill_attention(q4, k_fl, v_ctx, q_offset=pos0,
+                                         kcfg=kcfg)
             o = o4.permute(1, 0, 2, 3)[None]               # [1,T,kv,g,hd]
         else:
             # float32 oracle over the full score matrix; the chunk's own
             # keys enter unrounded, as in the JAX package
-            k_ctx = torch.cat([k_cache[l, :, :pos0].float(),
-                               k[0].transpose(0, 1).float()], dim=1)
-            v_ctx = v_cache[l, :, :pos0 + T]
+            k_ctx = torch.cat([k_pre.float(), k_rows.float()], dim=1)
             scale = 1.0 / math.sqrt(hd)
             scores = torch.einsum("btkgd,ksd->bkgts", q.float(),
                                   k_ctx.float()) * scale
@@ -339,17 +379,20 @@ def prefill(params: LlamaParams, k_cache, v_cache, tokens, cfg: LlamaConfig,
 def _eager_layer(x, residual, p, l, k_cache, v_cache, pos, cos, sin,
                  cfg: LlamaConfig):
     """One layer of the eager decode step (``llama.py:560-603`` of the JAX
-    package): rounds the hidden pair to bf16 every layer."""
+    package): rounds the hidden pair to bf16 every layer; an 8-bit cache
+    is appended and read as the JAX package's ``_cache_append`` and
+    ``_cache_layer`` do."""
     g, hd = cfg.n_heads // cfg.kv_heads, cfg.head_dim_
     xn, residual = fused_add_rmsnorm_ref(x, residual, p["attn_norm"][l],
                                          cfg.norm_eps)
     q, k, v = _qkv_eager(xn[None], p["wqkv_f"][l], cfg)   # q [1,1,kv,g,hd]
     q = _apply_rope(q, cos[0], sin[0], cfg.rope_style)
     k = _apply_rope(k, cos[0], sin[0], cfg.rope_style)
-    k_cache[l, :, pos] = k[0, 0].to(k_cache.dtype)
-    v_cache[l, :, pos] = v[0, 0].to(v_cache.dtype)
-    kl = k_cache[l, :, :pos + 1].float()          # rows > pos are masked out
-    vl = v_cache[l, :, :pos + 1]
+    # the row is stored first and attended as stored (8-bit: quantized)
+    cache_write_layer(k_cache, l, k[0, 0][:, None], pos)
+    cache_write_layer(v_cache, l, v[0, 0][:, None], pos)
+    kl = cache_read_layer(k_cache, l, pos + 1)    # rows > pos are masked out
+    vl = cache_read_layer(v_cache, l, pos + 1)
     scores = torch.einsum("kgd,ksd->kgs", q[0, 0].float(), kl) / math.sqrt(hd)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     o = torch.einsum("kgs,ksd->kgd", probs.float(), vl.float()).to(x.dtype)

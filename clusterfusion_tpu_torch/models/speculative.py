@@ -31,6 +31,8 @@ from clusterfusion_tpu_torch.config import KernelConfig, LlamaConfig
 from clusterfusion_tpu_torch.models.llama import (
     LlamaParams, _apply_rope, _check_supported, _ffn, _lm_logits, _oproj,
     _qkv_eager, decode_step, rope_rows)
+from clusterfusion_tpu_torch.ops.quant import (cache_read_layer,
+                                               cache_write_layer)
 from clusterfusion_tpu_torch.ops.reference import fused_add_rmsnorm_ref
 from clusterfusion_tpu_torch.ops.stack_kernel import _vocab_block
 from clusterfusion_tpu_torch.ops.stack_verify import fused_verify_stack
@@ -40,7 +42,10 @@ def _eager_verify_layer(x, residual, p, l, k_cache, v_cache, pos, cos, sin,
                         cfg: LlamaConfig):
     """One layer of the eager n-row verify (``speculative.py:131-185`` of
     the JAX package).  Unlike the one-token eager layer, the softmax
-    probabilities enter the p.V product in float32."""
+    probabilities enter the p.V product in float32.  An 8-bit cache is
+    appended and read as the one-token eager layer appends and reads it
+    (the n rows attended as stored; JAX's eager verify takes fp8, and its
+    update cannot take an ``Int8KV`` pair)."""
     n = x.shape[0]
     hd = cfg.head_dim_
     xn, residual = fused_add_rmsnorm_ref(x, residual, p["attn_norm"][l],
@@ -49,10 +54,10 @@ def _eager_verify_layer(x, residual, p, l, k_cache, v_cache, pos, cos, sin,
     q = _apply_rope(q, cos[..., None, None, :], sin[..., None, None, :],
                     cfg.rope_style)
     k = _apply_rope(k, cos[..., None, :], sin[..., None, :], cfg.rope_style)
-    k_cache[l, :, pos:pos + n] = k[0].transpose(0, 1).to(k_cache.dtype)
-    v_cache[l, :, pos:pos + n] = v[0].transpose(0, 1).to(v_cache.dtype)
-    kl = k_cache[l, :, :pos + n].float()        # later rows are masked out
-    vl = v_cache[l, :, :pos + n].float()
+    cache_write_layer(k_cache, l, k[0].transpose(0, 1), pos)
+    cache_write_layer(v_cache, l, v[0].transpose(0, 1), pos)
+    kl = cache_read_layer(k_cache, l, pos + n)  # later rows are masked out
+    vl = cache_read_layer(v_cache, l, pos + n)
     scores = torch.einsum("tkgd,ksd->kgts", q[0].float(), kl) / math.sqrt(hd)
     qpos = pos + torch.arange(n, device=x.device)[:, None]
     kpos = torch.arange(pos + n, device=x.device)[None, :]

@@ -41,11 +41,11 @@ SIGNATURES = {
     "cf_stack_scratch_floats": ([_I] * 9, ctypes.c_longlong),
     "cf_decoder_stack": ([_P] * 17 + [_I] * 11
                          + [_F, _I, _I, ctypes.POINTER(_I), _P, _I, _P]
-                         + [_P] * 5 + [_I, _I], _I),
+                         + [_P] * 5 + [_I, _I, _I, _P, _P, _I], _I),
     "cf_verify_scratch_floats": ([_I] * 8, ctypes.c_longlong),
     "cf_verify_stack": ([_P] * 17 + [_I] * 12
                         + [_F, _I, _I, ctypes.POINTER(_I), _P] + [_P] * 5
-                        + [_I, _I], _I),
+                        + [_I, _I, _I, _P, _P, _I], _I),
     "cf_verify_split": ([_P] * 7 + [_I] * 8 + [_P], _I),
     "cf_verify_probe_gemv": ([_P, _I], _I),
     "cf_paged_scratch_floats": ([_I] * 7, ctypes.c_longlong),

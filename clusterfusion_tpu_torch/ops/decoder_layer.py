@@ -276,8 +276,8 @@ def _refuse(wqkv_f, wo_f, k_cache, v_cache, *, window, bias_qkv,
                                   "queue 2, mode 1)")
     if k_cache.dtype != torch.bfloat16 or v_cache.dtype != torch.bfloat16:
         raise NotImplementedError("_fused_decoder_layer: only a bf16 KV "
-                                  "cache is ported (int8/fp8 KV are not: "
-                                  "ROADMAP.md queue 2, mode 2)")
+                                  "cache is ported (fp8 KV in kernel 6: "
+                                  "ROADMAP.md queue 2, mode 2, item 2.2)")
 
 
 def _fused_decoder_layer(

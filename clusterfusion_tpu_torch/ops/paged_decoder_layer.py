@@ -191,8 +191,9 @@ def _check_pools(what, k_pool, v_pool, dev):
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
         if t.dtype != torch.bfloat16:
             raise NotImplementedError(f"{what}: only a bf16 KV pool is "
-                                      f"ported ({name} is {t.dtype}; "
-                                      "ROADMAP.md queue 2, mode 2)")
+                                      f"ported ({name} is {t.dtype}; fp8 "
+                                      "pools: ROADMAP.md queue 2, mode 2, "
+                                      "item 2.3)")
         if t.device != dev or not t.is_contiguous() or (
                 dev.type == "cuda" and t.data_ptr() % 16):
             raise ValueError(f"{what}: {name} must be a contiguous, 16-byte "

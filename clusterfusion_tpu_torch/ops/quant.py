@@ -15,9 +15,12 @@
   and the serving products take it in groups of 128 (the GEMVs' int4
   instances; ``ops/decoder_layer.py`` holds the plain products).
 - KV formats: ``Int8KV`` (int8 rows with per-(head, position) scales in
-  [L, H, R, 128] planes), the fp8 (e4m3) bit-twiddle decode, and the one
-  writer of both layouts, ``cache_fill_rows``.  No kernel of the port
-  takes an 8-bit cache yet (queue 2, mode 2).
+  [L, H, R, 128] planes), the fp8 (e4m3) bit-twiddle decode, the one
+  writer of both layouts, ``cache_fill_rows`` (``cache_write_layer`` for
+  one layer), and ``cache_read_layer``, the eager paths' dequantized read.
+  Kernels 7 and 8 (``ops/stack_kernel.py``, ``ops/stack_verify.py``) take
+  both 8-bit formats; kernels 6, 9 and 10 and the serving pools do not yet
+  (``ROADMAP.md`` queue 2, items 2.2 and 2.3).
 
 Codes and scales are bit-equal to the JAX package's: both divide in
 float32 and round half to even, in the same order of operations.  Unlike
@@ -32,8 +35,9 @@ from typing import NamedTuple, Tuple
 import torch
 
 __all__ = ["FP8_DECODE_FIX", "Int8KV", "QuantizedTensor", "cache_fill_rows",
-           "expand_group_scales", "fp8_decode_scaled", "init_kv_int8",
-           "kv_scales_flat", "maybe_dequantize", "quantize",
+           "cache_read_layer", "cache_write_layer", "expand_group_scales",
+           "fp8_decode_scaled", "init_kv_int8", "kv_scales_flat",
+           "maybe_dequantize", "quantize",
            "quantize_deepseek_params", "quantize_int4", "quantize_int8",
            "quantize_kv_rows", "quantize_llama_params", "unpack_int4",
            "unpack_int4_bitcast", "w4a8_int4_dot"]
@@ -53,6 +57,10 @@ class Int8KV(NamedTuple):
     @property
     def shape(self):
         return self.q.shape
+
+    @property
+    def device(self):
+        return self.q.device
 
 
 def init_kv_int8(n_layers: int, kv_heads: int, cap: int, head_dim: int,
@@ -94,6 +102,32 @@ def cache_fill_rows(cache, rows: torch.Tensor, pos0: int):
         return cache
     cache[:, :, pos0:pos0 + T] = rows.to(cache.dtype)
     return cache
+
+
+def cache_write_layer(cache, l: int, rows: torch.Tensor, pos0: int):
+    """Write [kv, T, hd] rows at positions pos0..pos0+T-1 of layer ``l``, in
+    place, as :func:`cache_fill_rows` writes them (the eager paths' append).
+    Returns the cache."""
+    T = rows.shape[1]
+    if isinstance(cache, Int8KV):
+        q8, s = quantize_kv_rows(rows)                 # s [kv, T]
+        cache.q[l, :, pos0:pos0 + T] = q8
+        H, R = cache.s.shape[1:3]
+        cache.s[l].view(H, R * 128)[:, pos0:pos0 + T] = s.to(cache.s.dtype)
+        return cache
+    cache[l, :, pos0:pos0 + T] = rows.to(cache.dtype)
+    return cache
+
+
+def cache_read_layer(cache, l: int, n: int) -> torch.Tensor:
+    """Rows 0..n-1 of layer ``l`` as float32 [kv, n, hd]: an ``Int8KV``
+    dequantized (codes times scales), fp8 converted as XLA converts it
+    (denormals kept).  The JAX package's eager read (``_cache_layer``)."""
+    if isinstance(cache, Int8KV):
+        H, R = cache.s.shape[1:3]
+        s = cache.s[l].reshape(H, R * 128)[:, :n]
+        return cache.q[l, :, :n].float() * s[:, :, None]
+    return cache[l, :, :n].float()
 
 
 # e4m3's 7 magnitude bits placed at bit 4 of a bf16 pattern, with 64 added

@@ -67,8 +67,20 @@ and the down product's f-block of the shard's ``f_pad``
 step is not the unsharded one's function; the plain twin quantizes the
 same blocks.
 
+8-bit KV caches (the TPU kernel's ``kv_kind``): an ``Int8KV`` pair
+(``ops.quant``: int8 rows, float32 scales per (kv head, position) in [L,
+kv, R, 128] planes) or a ``float8_e4m3fn`` pair, beside any weight kind,
+not in mode 5 (``ROADMAP.md`` queue 2, item 2.2).  The rows below ``pos``
+are read as the TPU kernel reads them: int8 scores are (bf16(q) . code) *
+sk and p enters the p.V dot as bf16(p * sv); fp8 rows decode exactly with
+e4m3 denormals (|v| <= 0.0137) flushed to 0 (``fp8_decode_scaled``).  The
+current token's fold stays float32, and only its stored copy is 8-bit:
+int8 codes and scale from the float32 row (``quantize_kv_rows``), or e4m3
+straight from float32 (saturating at +-448, where the JAX package's CPU
+cast gives NaN).
+
 The caches are updated in place: the returned caches are the tensors that
-were passed in.
+were passed in (an ``Int8KV`` pair is returned as the same pair).
 """
 
 from __future__ import annotations
@@ -83,7 +95,11 @@ from clusterfusion_tpu_torch.config import KernelConfig
 from clusterfusion_tpu_torch.ops import _build
 from clusterfusion_tpu_torch.ops._support import glu_act
 from clusterfusion_tpu_torch.ops.ffn import ffn_block_size
-from clusterfusion_tpu_torch.ops.quant import QuantizedTensor
+from clusterfusion_tpu_torch.ops.quant import (FP8_DECODE_FIX, Int8KV,
+                                               QuantizedTensor,
+                                               cache_write_layer,
+                                               fp8_decode_scaled,
+                                               kv_scales_flat)
 from clusterfusion_tpu_torch.ops.rope import apply_rope_gptj, apply_rope_neox
 
 _LOG2E = 1.4426950408889634
@@ -99,6 +115,10 @@ int4_launches = 0
 INT4_GROUP = 128
 #: The weight kinds of the C entries (``WK_*`` in ``csrc/common.cuh``).
 WK_BF16, WK_INT8, WK_INT4, WK_INT4A8 = 0, 1, 2, 3
+#: The cache kinds of the C entries (``KV_*`` in ``csrc/common.cuh``).
+KV_BF16, KV_INT8, KV_FP8 = 0, 1, 2
+#: Calls of :func:`fused_decoder_stack` with an 8-bit cache, by kind.
+kv8_launches = {KV_INT8: 0, KV_FP8: 0}
 #: CUDA kernels the last such call launched (8 per layer + 1 or 2, mode 5
 #: too; 8 per layer + 3 with the logits gathered).
 last_step_kernels = 0
@@ -130,31 +150,57 @@ def _norm(h: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return (h * torch.rsqrt(var + eps) * w.float()).to(torch.bfloat16)
 
 
+def kv_rows_plain(c: torch.Tensor) -> torch.Tensor:
+    """Cache rows as the kernels read them, float32: bf16 and int8 codes
+    exactly, fp8 through the TPU kernel's decode (e4m3 denormals flushed to
+    0)."""
+    if c.dtype == torch.float8_e4m3fn:
+        return fp8_decode_scaled(c).float() * FP8_DECODE_FIX
+    return c.float()
+
+
+def kv_layer(cache, l: int):
+    """Layer ``l`` of a cache as (rows [kv, cap, hd], flat scales [kv, cap]
+    or None)."""
+    if isinstance(cache, Int8KV):
+        cap = cache.q.shape[2]
+        return cache.q[l], kv_scales_flat(cache.s[l:l + 1], cap)[0]
+    return cache[l], None
+
+
 def split_attention_plain(q, k_cur, v_cur, kc, vc, seq: int, kv_split: int,
-                          fold: bool = True):
+                          fold: bool = True, ks=None, vs=None):
     """The kernels' split-KV flash-decode (``attn_split_kernel`` and
     ``attn_merge_kernel`` of ``csrc/common.cuh``) in PyTorch.
 
     q [kv, g, hd] float32, roped and pre-scaled by 1/sqrt(hd)*log2(e);
-    k_cur/v_cur [kv, hd] float32; kc/vc [kv, cap, hd] of which rows < seq
-    are read.  Per split of ``kv_split`` rows: the max m_s, the sum of
-    exp2(s - m_s) and bf16(p) @ V with q rounded to bf16; then the merge,
-    with the current token folded in float32 when ``fold``.  Returns the
-    unnormalised state (acc [kv, g, hd], m [kv, g], l [kv, g]); with
-    nothing folded it is (0, -1e30, 0)."""
+    k_cur/v_cur [kv, hd] float32; kc/vc [kv, cap, hd] (bf16, int8 codes or
+    fp8) of which rows < seq are read (:func:`kv_rows_plain`), and for
+    int8 codes their scales ks/vs [kv, cap].  Per split of ``kv_split``
+    rows: the max m_s, the sum of exp2(s - m_s) and bf16(p) @ V with q
+    rounded to bf16 (int8: s = (q . code) * sk and bf16(p * sv) @ codes);
+    then the merge, with the current token folded in float32 when
+    ``fold``.  Returns the unnormalised state (acc [kv, g, hd], m [kv, g],
+    l [kv, g]); with nothing folded it is (0, -1e30, 0)."""
     kv_heads, g, hd = q.shape
     bf16 = torch.bfloat16
     ns = -(-seq // kv_split)
     pad = ns * kv_split - seq
-    kcp = F.pad(kc[:, :seq].float(), (0, 0, 0, pad))
-    vcp = F.pad(vc[:, :seq].float(), (0, 0, 0, pad))
-    s = torch.einsum("kgd,ksd->kgs", q.to(bf16).float(), kcp)
-    s = F.pad(s[..., :seq], (0, pad), value=_NEG_INF)
+    kcp = F.pad(kv_rows_plain(kc[:, :seq]), (0, 0, 0, pad))
+    vcp = F.pad(kv_rows_plain(vc[:, :seq]), (0, 0, 0, pad))
+    s = torch.einsum("kgd,ksd->kgs", q.to(bf16).float(), kcp)[..., :seq]
+    if ks is not None:
+        s = s * ks[:, None, :seq]
+    s = F.pad(s, (0, pad), value=_NEG_INF)
     s = s.reshape(kv_heads, g, ns, kv_split)
     m_s = s.amax(dim=-1, keepdim=True)
     p = torch.exp2(s - m_s)
     l_s = p.sum(dim=-1)                                        # [kv, g, ns]
-    pv_s = torch.einsum("kgns,knsd->kgnd", p.to(bf16).float(),
+    p_in = p
+    if vs is not None:
+        p_in = p * F.pad(vs[:, :seq], (0, pad)).reshape(kv_heads, 1, ns,
+                                                        kv_split)
+    pv_s = torch.einsum("kgns,knsd->kgnd", p_in.to(bf16).float(),
                         vcp.reshape(kv_heads, ns, kv_split, hd))
     m_s = m_s[..., 0]
     s_cur = (q * k_cur[:, None]).sum(dim=-1)                   # [kv, g]
@@ -216,12 +262,50 @@ def refuse_unported(what: str, head_dim: int, weights, final_norm, lm_head,
            and w.dtype != torch.bfloat16 for w in (*weights, lm_head)):
         raise NotImplementedError(f"{what}: only bf16, int8 and int4 weights "
                                   "are ported")
-    if k_cache.dtype != torch.bfloat16 or v_cache.dtype != torch.bfloat16:
-        raise NotImplementedError(f"{what}: only a bf16 KV cache is ported "
-                                  "(int8/fp8 KV are not: ROADMAP.md queue 2, "
-                                  "mode 2)")
+    kv_kind_of(k_cache, v_cache, what)
     if (final_norm is None) != (lm_head is None):
         raise ValueError("final_norm and lm_head go together")
+
+
+def kv_kind_of(k_cache, v_cache, what: str) -> int:
+    """The C entries' cache kind (``KV_*``) of a K/V pair: bf16, an
+    ``Int8KV`` pair or a ``float8_e4m3fn`` pair.  A pair of two kinds, and
+    any other dtype (an int8 tensor without scales, as the JAX package's
+    serving pools hold one, too), raise."""
+    kinds = []
+    for c in (k_cache, v_cache):
+        if isinstance(c, Int8KV):
+            kinds.append(KV_INT8)
+        elif c.dtype == torch.bfloat16:
+            kinds.append(KV_BF16)
+        elif c.dtype == torch.float8_e4m3fn:
+            kinds.append(KV_FP8)
+        else:
+            raise NotImplementedError(
+                f"{what}: a {c.dtype} KV cache; the kernels take bf16, an "
+                "Int8KV pair (int8 rows with their scales) or float8_e4m3fn "
+                "(ROADMAP.md queue 2, mode 2)")
+    if kinds[0] != kinds[1]:
+        raise ValueError(f"{what}: k_cache and v_cache are of one kind")
+    return kinds[0]
+
+
+def _kv_operands(k_cache, v_cache, kind: int, cap: int):
+    """What the C entries take of a cache pair: (k rows, v rows, k scale
+    planes, v scale planes, plane row stride R * 128); the planes None and
+    the stride 0 but for an ``Int8KV`` pair, whose planes must cover the
+    capacity."""
+    if kind != KV_INT8:
+        return k_cache, v_cache, None, None, 0
+    for c in (k_cache, v_cache):
+        if c.s.dtype != torch.float32 or c.s.shape[-1] != 128 or \
+                c.s.shape[:2] != c.q.shape[:2]:
+            raise ValueError("Int8KV scales must be float32 [L, kv, R, 128]")
+        if c.s.shape[2] * 128 < cap:
+            raise ValueError(f"Int8KV scale planes of {c.s.shape[2]} x 128 "
+                             f"positions do not cover the capacity {cap}")
+    return (k_cache.q, v_cache.q, k_cache.s, v_cache.s,
+            k_cache.s.shape[2] * 128)
 
 
 def wq_kind_of(wqkv_f, kcfg: KernelConfig) -> int:
@@ -311,7 +395,9 @@ def fused_decoder_stack_plain(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f,
     to the O-projection and to the down projection of every layer.  Int8
     weights: each product over the codes, scaled where the kernel scales
     (the module's note).  Int4 weights (any group size): the TPU kernel's
-    products, W4A8 with ``int4_w4a8`` (the module's note)."""
+    products, W4A8 with ``int4_w4a8`` (the module's note).  8-bit caches:
+    read and appended as the kernels read and append them (the module's
+    note)."""
     # the plain int4 products live beside kernel 6, which imports this module
     from clusterfusion_tpu_torch.ops.decoder_layer import _int4_dot
     pos = int(pos)
@@ -347,11 +433,14 @@ def fused_decoder_stack_plain(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f,
         q = _rope(qkv[:, :g], cos_f, sin_f, rope_style) * scale   # [kv, g, hd]
         k_cur = _rope(qkv[:, g], cos_f, sin_f, rope_style)         # [kv, hd]
         v_cur = qkv[:, g + 1]
-        acc, _, l_f = split_attention_plain(q, k_cur, v_cur, k_cache[l],
-                                            v_cache[l], pos, kv_split)
+        kcl, ksl = kv_layer(k_cache, l)
+        vcl, vsl = kv_layer(v_cache, l)
+        acc, _, l_f = split_attention_plain(q, k_cur, v_cur, kcl, vcl, pos,
+                                            kv_split, ks=ksl, vs=vsl)
         o = (acc / l_f[..., None]).to(bf16)
-        k_cache[l, :, pos] = k_cur.to(k_cache.dtype)
-        v_cache[l, :, pos] = v_cur.to(v_cache.dtype)
+        # the stored copy, from float32 (8-bit: quantized or e4m3)
+        cache_write_layer(k_cache, l, k_cur[:, None], pos)
+        cache_write_layer(v_cache, l, v_cur[:, None], pos)
         if w4:      # the head groups' products, summed in order
             og = o.reshape(G, -1)
             aout = torch.zeros(hidden, dtype=torch.float32, device=x.device)
@@ -530,12 +619,19 @@ def _stack(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f, w13, w2, k_cache,
     global launches, int8_launches, int4_launches, last_step_kernels
     w8 = isinstance(wqkv_f, QuantizedTensor) and wqkv_f.kind == "int8"
     w4 = isinstance(wqkv_f, QuantizedTensor) and wqkv_f.kind == "int4"
+    kv_kind = kv_kind_of(k_cache, v_cache, "fused_decoder_stack")
     if reduce_axis is not None and mesh is None:
         raise ValueError("reduce_axis needs the mesh whose axis it names")
+    if reduce_axis is not None and kv_kind != KV_BF16:
+        raise NotImplementedError("fused_decoder_stack: an 8-bit KV cache "
+                                  "with reduce_axis (mode 5, the tp step) is "
+                                  "not ported yet (ROADMAP.md queue 2, item "
+                                  "2.2)")
     check_stack_kcfg(kcfg)
     pos = int(pos)
     L, G, hidden, C = wqkv_f.shape
     _, kv_heads, cap, hd = k_cache.shape
+    kq, vq, ksp, vsp, srow = _kv_operands(k_cache, v_cache, kv_kind, cap)
     hg = kv_heads // G
     f_pad = w2.shape[-2]
     if hd != head_dim or C != hg * (group + 2) * hd:
@@ -594,8 +690,9 @@ def _stack(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f, w13, w2, k_cache,
         (C, hidden, f_pad) if w8 or w4 else (), vocab)
     wq_kind = wq_kind_of(wqkv_f, kcfg)
     check_launch(kcfg, dict(x=x, attn_norm=attn_norm, ffn_norm=ffn_norm,
-                            k_cache=k_cache, v_cache=v_cache,
-                            final_norm=final_norm, **weights, **scales),
+                            k_cache=kq, v_cache=vq, k_scales=ksp,
+                            v_scales=vsp, final_norm=final_norm, **weights,
+                            **scales),
                  (C, hidden, f_pad, vocab))
     cos_f = cos.to(device=dev, dtype=torch.float32).reshape(hd).contiguous()
     sin_f = sin.to(device=dev, dtype=torch.float32).reshape(hd).contiguous()
@@ -620,7 +717,7 @@ def _stack(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f, w13, w2, k_cache,
     err = lib.cf_decoder_stack(
         ptr(x), ptr(attn_norm), ptr(ffn_norm), ptr(cos_f), ptr(sin_f),
         ptr(weights["wqkv_f"]), ptr(weights["wo_f"]), ptr(weights["w13"]),
-        ptr(weights["w2"]), ptr(k_cache), ptr(v_cache), ptr(final_norm),
+        ptr(weights["w2"]), ptr(kq), ptr(vq), ptr(final_norm),
         ptr(weights["lm_head"]), ptr(x_out),
         ptr(res_out), ptr(logits), ptr(scratch),
         L, hidden, kv_heads, hg, group, hd, cap, f_pad, vocab, pos,
@@ -630,11 +727,13 @@ def _stack(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f, w13, w2, k_cache,
         torch.cuda.current_stream(dev).cuda_stream,
         *(ptr(scales.get(k)) for k in ("wqkv_f_s", "wo_f_s", "w13_s", "w2_s",
                                        "lm_head_s")),
-        wq_kind, ffn_block_size(f_pad))
+        wq_kind, ffn_block_size(f_pad), kv_kind, ptr(ksp), ptr(vsp), srow)
     _build.check(err, "fused_decoder_stack")
     launches += 1
     int8_launches += int(w8)
     int4_launches += int(w4)
+    if kv_kind != KV_BF16:
+        kv8_launches[kv_kind] += 1
     last_step_kernels = n_launch.value
     if comm is not None:
         collective.launches["all_reduce"] += 2 * L

@@ -43,6 +43,15 @@ quantized on its own per activation block; else exact), on the card
 through the GEMVs' int4 instances (the rows GEMV's ``rows_gemv4_kernel``
 from 2 rows, the ring GEMV's at one), in group size 128 only (``ROADMAP.md``
 queue 2, mode 1.5).  ``reduce_axis`` raises ``NotImplementedError``.
+
+8-bit KV caches (an ``Int8KV`` pair or a ``float8_e4m3fn`` pair), as
+``fused_decoder_stack`` takes them: the rows below ``pos`` are read as the
+TPU kernel reads them (int8: scores times sk, bf16(p * sv) into the p.V
+dot; fp8: e4m3 denormals flushed to 0), and each fresh row's stored copy is
+quantized per (kv head, token) from float32 (int8: the n positions may
+straddle a 128-column plane row) or cast to e4m3.  The n x n causal block
+of fresh rows stays float32 K with bf16-rounded V, whatever the cache
+kind.
 """
 
 from __future__ import annotations
@@ -58,10 +67,12 @@ from clusterfusion_tpu_torch.ops import _build
 from clusterfusion_tpu_torch.ops._support import cdiv, glu_act
 from clusterfusion_tpu_torch.ops.decoder_layer import _int4_dot
 from clusterfusion_tpu_torch.ops.ffn import ffn_block_size
-from clusterfusion_tpu_torch.ops.quant import QuantizedTensor
+from clusterfusion_tpu_torch.ops.quant import (QuantizedTensor,
+                                               cache_write_layer)
 from clusterfusion_tpu_torch.ops.stack_kernel import (
-    _LOG2E, _NEG_INF, _norm, _rope, _vocab_block, check_launch,
-    check_stack_kcfg, quant_operands, refuse_unported, wq_kind_of)
+    _LOG2E, _NEG_INF, KV_BF16, KV_FP8, KV_INT8, _kv_operands, _norm, _rope,
+    _vocab_block, check_launch, check_stack_kcfg, kv_kind_of, kv_layer,
+    kv_rows_plain, quant_operands, refuse_unported, wq_kind_of)
 
 #: Calls of :func:`fused_verify_stack` that launched the kernels.
 launches = 0
@@ -69,6 +80,8 @@ launches = 0
 int8_launches = 0
 #: Those of them with int4 weights (kernel 8's int4 modes).
 int4_launches = 0
+#: Those of them with an 8-bit cache, by kind (``stack_kernel.KV_*``).
+kv8_launches = {KV_INT8: 0, KV_FP8: 0}
 #: CUDA kernels the last such call launched (8 per layer + 1 or 2; W4A8 from
 #: 2 rows: 12 per layer, each product's x quantized in a launch of its own).
 last_step_kernels = 0
@@ -88,7 +101,8 @@ def fused_verify_stack_plain(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f,
     max, as the kernel takes it, so the two round p alike.  Int8 weights:
     each product over the codes, scaled where the kernel scales (the
     module's note).  Int4 weights (any group size): the TPU kernel's
-    products, W4A8 with ``int4_w4a8``."""
+    products, W4A8 with ``int4_w4a8``.  8-bit caches: read and appended as
+    the kernels read and append them (the module's note)."""
     pos = int(pos)
     n, hidden = x.shape
     L, G = wqkv_f.shape[:2]
@@ -130,15 +144,25 @@ def fused_verify_stack_plain(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f,
         l_f = acc = 0.0
         if ns:
             # split-KV pass over rows < pos: per split of kv_split rows a
-            # max m_s, a sum l_s of exp2(s - m_s), and bf16(p) @ V
-            kc = F.pad(k_cache[l, :, :pos].float(), (0, 0, 0, pad))
-            vc = F.pad(v_cache[l, :, :pos].float(), (0, 0, 0, pad))
-            s = torch.einsum("tkgd,ksd->kgts", q.to(bf16).float(), kc)
-            s = F.pad(s[..., :pos], (0, pad), value=_NEG_INF)
+            # max m_s, a sum l_s of exp2(s - m_s), and bf16(p) @ V (int8:
+            # scores times sk, bf16(p * sv) @ codes)
+            kcl, ksl = kv_layer(k_cache, l)
+            vcl, vsl = kv_layer(v_cache, l)
+            kc = F.pad(kv_rows_plain(kcl[:, :pos]), (0, 0, 0, pad))
+            vc = F.pad(kv_rows_plain(vcl[:, :pos]), (0, 0, 0, pad))
+            s = torch.einsum("tkgd,ksd->kgts", q.to(bf16).float(),
+                             kc)[..., :pos]
+            if ksl is not None:
+                s = s * ksl[:, None, None, :pos]
+            s = F.pad(s, (0, pad), value=_NEG_INF)
             s = s.reshape(kv, g, n, ns, kv_split)
             m_s = s.amax(dim=-1, keepdim=True)
             p = torch.exp2(s - m_s)
-            pv_s = torch.einsum("kgtns,knsd->kgtnd", p.to(bf16).float(),
+            p_in = p
+            if vsl is not None:
+                p_in = p * F.pad(vsl[:, :pos], (0, pad)).reshape(
+                    kv, 1, 1, ns, kv_split)
+            pv_s = torch.einsum("kgtns,knsd->kgtnd", p_in.to(bf16).float(),
                                 vc.reshape(kv, ns, kv_split, hd))
             m_s = m_s[..., 0]                                     # [kv,g,n,ns]
             m_f = torch.maximum(m_f, m_s.amax(dim=-1))
@@ -150,8 +174,9 @@ def fused_verify_stack_plain(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f,
         acc = acc + torch.einsum("kgtj,jkd->kgtd", p_cur.to(bf16).float(),
                                  v_new.to(bf16).float())
         o = (acc / l_f[..., None]).to(bf16)                       # [kv,g,n,hd]
-        k_cache[l, :, pos:pos + n] = k_new.transpose(0, 1).to(k_cache.dtype)
-        v_cache[l, :, pos:pos + n] = v_new.transpose(0, 1).to(v_cache.dtype)
+        # the stored copies, from float32 (8-bit: per (kv head, token))
+        cache_write_layer(k_cache, l, k_new.transpose(0, 1), pos)
+        cache_write_layer(v_cache, l, v_new.transpose(0, 1), pos)
         o_flat = o.permute(2, 0, 1, 3).reshape(n, kv * g * hd)
         if w4:      # the head groups' products, summed in order
             og = o_flat.reshape(n, G, -1)
@@ -229,6 +254,7 @@ def fused_verify_stack(
     place.
     """
     global launches, int8_launches, int4_launches, last_step_kernels
+    kv_kind = kv_kind_of(k_cache, v_cache, "fused_verify_stack")
     if reduce_axis is not None:
         raise NotImplementedError("fused_verify_stack: reduce_axis (the tp "
                                   "mode of the decode stack) has no verify "
@@ -244,6 +270,7 @@ def fused_verify_stack(
     n, hidden = x.shape
     L, G, _, C = wqkv_f.shape
     _, kv_heads, cap, hd = k_cache.shape
+    kq, vq, ksp, vsp, srow = _kv_operands(k_cache, v_cache, kv_kind, cap)
     hg = kv_heads // G
     f_pad = w2.shape[-2]
     if hd != head_dim or C != hg * (group + 2) * hd:
@@ -283,8 +310,9 @@ def fused_verify_stack(
         dict(wqkv_f=wqkv_f, wo_f=wo_f, w13=w13, w2=w2, lm_head=lm_head),
         (C, hidden, f_pad) if w8 or w4 else (), vocab)
     check_launch(kcfg, dict(x=x, attn_norm=attn_norm, ffn_norm=ffn_norm,
-                            k_cache=k_cache, v_cache=v_cache,
-                            final_norm=final_norm, **weights, **scales),
+                            k_cache=kq, v_cache=vq, k_scales=ksp,
+                            v_scales=vsp, final_norm=final_norm, **weights,
+                            **scales),
                  (C, hidden, f_pad, vocab))
     cos_f = cos.to(device=dev, dtype=torch.float32).contiguous()
     sin_f = sin.to(device=dev, dtype=torch.float32).contiguous()
@@ -308,7 +336,7 @@ def fused_verify_stack(
     err = lib.cf_verify_stack(
         ptr(x), ptr(attn_norm), ptr(ffn_norm), ptr(cos_f), ptr(sin_f),
         ptr(weights["wqkv_f"]), ptr(weights["wo_f"]), ptr(weights["w13"]),
-        ptr(weights["w2"]), ptr(k_cache), ptr(v_cache), ptr(final_norm),
+        ptr(weights["w2"]), ptr(kq), ptr(vq), ptr(final_norm),
         ptr(weights["lm_head"]), ptr(x_out), ptr(res_out), ptr(logits),
         ptr(scratch),
         n, L, hidden, kv_heads, hg, group, hd, cap, f_pad, vocab, pos,
@@ -317,11 +345,13 @@ def fused_verify_stack(
         torch.cuda.current_stream(dev).cuda_stream,
         *(ptr(scales.get(k)) for k in ("wqkv_f_s", "wo_f_s", "w13_s", "w2_s",
                                        "lm_head_s")),
-        wq_kind, ffn_block_size(f_pad))
+        wq_kind, ffn_block_size(f_pad), kv_kind, ptr(ksp), ptr(vsp), srow)
     _build.check(err, "fused_verify_stack")
     launches += 1
     int8_launches += int(w8)
     int4_launches += int(w4)
+    if kv_kind != KV_BF16:
+        kv8_launches[kv_kind] += 1
     last_step_kernels = n_launch.value
     if lm_head is not None:
         return logits, res_out, k_cache, v_cache

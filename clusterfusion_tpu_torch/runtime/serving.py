@@ -240,8 +240,9 @@ class ServingEngine:
         model._check_supported(cfg)
         if kv_dtype != torch.bfloat16:
             raise NotImplementedError(f"kv_dtype {kv_dtype}: only a bf16 KV "
-                                      "pool is ported (int8/fp8 are not: "
-                                      "ROADMAP.md queue 2, mode 2)")
+                                      "pool is ported (fp8 pools in kernels "
+                                      "9 and 10: ROADMAP.md queue 2, mode 2, "
+                                      "item 2.3)")
         lw = params["layers"]
         weights = [lw[k] for k in ("wqkv_f", "wo_f", "w13", "w2")]
         if _int4(params["lm_head"]):

@@ -141,10 +141,14 @@ def test_chat_cli(capsys):
                "--temperature", "0", "--max_seq_len", "64"])
     out = capsys.readouterr().out
     assert "fused=True" in out and "tokens/sec" in out
-    for flags in (["--synthetic", "--kv_int8"],
-                  ["--synthetic", "--spec_draft", "x"], []):
+    for flags in (["--synthetic", "--spec_draft", "x"], []):
         with pytest.raises(SystemExit, match="not yet ported"):
             chat.main(flags)
+    # --kv_int8 runs: kernel 7's twin on an Int8KV cache
+    chat.main(["--synthetic", "--kv_int8", "--device", "cpu", "--max_gen_len",
+               "3", "--temperature", "0", "--max_seq_len", "64"])
+    out = capsys.readouterr().out
+    assert "kv=int8" in out and "tokens/sec" in out
     # --quant int4 runs: kernel 7's int4 twin in its default mode, W4A8
     chat.main(["--synthetic", "--quant", "int4", "--device", "cpu",
                "--max_gen_len", "3", "--temperature", "0", "--max_seq_len",

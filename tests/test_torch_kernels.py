@@ -1125,11 +1125,11 @@ def test_stack_c_entries_refuse_head_dim_256(dev, entry):
     if entry == "cf_decoder_stack":
         err = lib.cf_decoder_stack(*p, *dims, 1e-5, 64, 256,
                                    ctypes.byref(n_launch), None, 0, st,
-                                   *[None] * 5, 0, 0)
+                                   *[None] * 5, 0, 0, 0, None, None, 0)
     else:
         err = lib.cf_verify_stack(*p, 2, *dims, 1e-5, 64, 256,
                                   ctypes.byref(n_launch), st, *[None] * 5,
-                                  0, 0)
+                                  0, 0, 0, None, None, 0)
     torch.cuda.synchronize()
     assert err == 1
     assert n_launch.value == 0
@@ -3075,3 +3075,264 @@ def test_int4_sharded_steps_on_card_one_rank(dev, tmp_path, which, a8):
         assert (lg - want).abs().max().item() < 0.05 * scale
         torch.testing.assert_close(kd.float(), kw_.to(dev).float(), atol=0.05,
                                    rtol=0)
+
+
+# -- 8-bit KV caches in kernels 7 and 8 (Int8KV, fp8 e4m3)
+
+KV8_FORMATS = ("int8", "fp8")
+
+
+def _kv8(kc, vc, fmt, pos):
+    """bf16 caches as an 8-bit pair: rows < pos quantized as the kernels
+    store rows (int8: ``quantize_kv_rows``, fp8: a cast), rows at and above
+    pos NaN scales (int8) or NaN bytes 0x7F (fp8), which the kernels never
+    read."""
+    from clusterfusion_tpu_torch.ops import quant as tq
+    out = []
+    for c in (kc, vc):
+        L_, H, cap, hd = c.shape
+        if fmt == "int8":
+            pair = tq.init_kv_int8(L_, H, cap, hd, device=c.device)
+            tq.cache_fill_rows(pair, c[:, :, :pos].float(), 0)
+            pair.s.view(L_, H, -1)[:, :, pos:] = float("nan")
+        else:
+            pair = c.float().to(torch.float8_e4m3fn)
+            pair.view(torch.uint8)[:, :, pos:] = 0x7F
+        out.append(pair)
+    return out
+
+
+def _kv8_clone(c):
+    from clusterfusion_tpu_torch.ops import quant as tq
+    return tq.Int8KV(c.q.clone(), c.s.clone()) if isinstance(c, tq.Int8KV) \
+        else c.clone()
+
+
+def _kv8_rows_held(got, want, rows, first_layer_tight):
+    """Appended rows of an 8-bit cache against the twin's: int8 codes within
+    1 and scales at rtol 1e-5 at layer 0 (the same f32 row up to a sum
+    order), dequantized rows at atol 0.05 + scales at rtol 1e-2 in every
+    layer; fp8 rows within one e4m3 step (rtol 0.125) + 0.05.  Every other
+    row keeps its bits (codes, scales, bytes)."""
+    from clusterfusion_tpu_torch.ops import quant as tq
+    if isinstance(got, tq.Int8KV):
+        L_, H = got.q.shape[:2]
+        gs = got.s.view(L_, H, -1)
+        ws = want.s.view(L_, H, -1)
+        if first_layer_tight:
+            dq = (got.q[0][:, rows].int() - want.q[0][:, rows].int()).abs()
+            assert dq.max().item() <= 1
+            torch.testing.assert_close(gs[0][:, rows], ws[0][:, rows],
+                                       rtol=1e-5, atol=0)
+        torch.testing.assert_close(gs[:, :, rows], ws[:, :, rows], rtol=1e-2,
+                                   atol=0)
+        torch.testing.assert_close(
+            got.q[:, :, rows].float() * gs[:, :, rows, None],
+            want.q[:, :, rows].float() * ws[:, :, rows, None], atol=0.05,
+            rtol=0)
+        others = torch.ones(got.q.shape[2], dtype=torch.bool,
+                            device=got.q.device)
+        others[rows] = False
+        assert torch.equal(got.q[:, :, others], want.q[:, :, others])
+        so = torch.ones(gs.shape[2], dtype=torch.bool, device=gs.device)
+        so[rows] = False
+        assert torch.equal(gs[:, :, so].view(torch.int32),
+                           ws[:, :, so].view(torch.int32))
+    else:
+        torch.testing.assert_close(got[:, :, rows].float(),
+                                   want[:, :, rows].float(), atol=0.05,
+                                   rtol=0.125)
+        others = torch.ones(got.shape[2], dtype=torch.bool, device=got.device)
+        others[rows] = False
+        assert torch.equal(got.view(torch.uint8)[:, :, others],
+                           want.view(torch.uint8)[:, :, others])
+
+
+def _kv8_weights(a, lm, weights):
+    if weights == "int8":
+        return _int8_stack(a, lm, "bf16")
+    if weights == "int4":
+        return _int4_stack(a, lm, "bf16")
+    return a, dict(final_norm=lm["final_norm"], lm_head=lm["lm_head"])
+
+
+@pytest.mark.parametrize("kv_split", [KV_SPLIT_DEFAULT, 32],
+                         ids=["ks_default", "ks32"])
+@pytest.mark.parametrize("pos", [0, 37, 127, 128, 300, CAP - 1])
+@pytest.mark.parametrize("weights", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("fmt", KV8_FORMATS)
+def test_stack_kv8_kernel_matches_plain(dev, fmt, weights, pos, kv_split):
+    """Kernel 7 on an Int8KV and an fp8 cache against its plain twin at the
+    same kv_split, with bf16, int8 and int4 (exact) weights, the appends at
+    and around a plane row's boundary, NaN above pos."""
+    shape = (4, 4, 2) if weights == "bf16" else INT8_SHAPES[0]
+    g, a, kc, vc, lm = _stack_args(dev, *shape, pos, seed=90)
+    k8, v8 = _kv8(kc, vc, fmt, pos)
+    w, head = _kv8_weights(a, lm, weights)
+    cfg = LlamaConfig.tiny()
+    cos, sin = model.rope_row(cfg, pos, dev)
+    kcfg = KernelConfig(kv_split=kv_split, int4_w4a8=False)
+    kw = dict(group=g, head_dim=HD, rope_style=cfg.rope_style, eps=1e-5,
+              **head)
+    args = [a["x"], a["attn_norm"], a["ffn_norm"], cos, sin, w["wqkv_f"],
+            w["wo_f"], w["w13"], w["w2"]]
+    kp, vp = _kv8_clone(k8), _kv8_clone(v8)
+    kind = sk.KV_INT8 if fmt == "int8" else sk.KV_FP8
+    before = (sk.launches, sk.kv8_launches[kind])
+    out = sk.fused_decoder_stack(*args, k8, v8, pos, kcfg=kcfg, **kw)
+    torch.cuda.synchronize()
+    assert (sk.launches, sk.kv8_launches[kind]) == (before[0] + 1,
+                                                    before[1] + 1)
+    assert sk.last_step_kernels == 8 * L - (pos == 0) * L + 2
+    ref = sk.fused_decoder_stack_plain(*args, kp, vp, pos, kv_split=kv_split,
+                                       int4_w4a8=False, **kw)
+    assert torch.isfinite(out[0]).all()
+    err = (out[0] - ref[0]).abs().max().item()
+    assert err <= 2e-2 * ref[0].abs().max().item(), err
+    torch.testing.assert_close(out[1].float(), ref[1].float(), atol=2e-2,
+                               rtol=2e-2)
+    for got, want in ((k8, kp), (v8, vp)):
+        _kv8_rows_held(got, want, [pos], True)
+
+
+@pytest.mark.parametrize("n,pos", [(1, 37), (2, 0), (5, 126), (9, 300),
+                                   (17, 120)])
+@pytest.mark.parametrize("weights", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("fmt", KV8_FORMATS)
+def test_verify_kv8_kernel_matches_plain(dev, fmt, weights, n, pos):
+    """Kernel 8 on an Int8KV and an fp8 cache against its plain twin, the
+    fresh rows straddling a plane row (5 from 126, 17 from 120), NaN above
+    pos."""
+    from clusterfusion_tpu_torch.ops import stack_verify as sv
+    shape = (4, 4, 2) if weights == "bf16" else INT8_SHAPES[0]
+    g, a, kc, vc, lm = _stack_args(dev, *shape, pos, seed=91)
+    k8, v8 = _kv8(kc, vc, fmt, pos)
+    w, head = _kv8_weights(a, lm, weights)
+    x = _randn((n, HIDDEN), dev, 92)
+    cos, sin = model.rope_rows(LlamaConfig.tiny(), pos, n, dev)
+    kw = dict(group=g, head_dim=HD, rope_style="gptj", eps=1e-5, **head)
+    args = [x, a["attn_norm"], a["ffn_norm"], cos, sin, w["wqkv_f"],
+            w["wo_f"], w["w13"], w["w2"]]
+    kp, vp = _kv8_clone(k8), _kv8_clone(v8)
+    kind = sk.KV_INT8 if fmt == "int8" else sk.KV_FP8
+    before = sv.kv8_launches[kind]
+    kcfg = KernelConfig(kv_split=128, int4_w4a8=False)
+    out = sv.fused_verify_stack(*args, k8, v8, pos, kcfg=kcfg, **kw)
+    torch.cuda.synchronize()
+    assert sv.kv8_launches[kind] == before + 1
+    ref = sv.fused_verify_stack_plain(*args, kp, vp, pos, kv_split=128,
+                                      int4_w4a8=False, **kw)
+    assert torch.isfinite(out[0]).all()
+    err = (out[0] - ref[0]).abs().max().item()
+    assert err <= 2e-2 * ref[0].abs().max().item(), err
+    for got, want in ((k8, kp), (v8, vp)):
+        _kv8_rows_held(got, want, list(range(pos, pos + n)), True)
+
+
+@pytest.mark.parametrize("fmt", KV8_FORMATS)
+def test_kv8_kernels_are_bit_reproducible(dev, fmt):
+    """Kernels 7 and 8 on an 8-bit cache give the same bits on every call,
+    the appended codes, scales and bytes too."""
+    from clusterfusion_tpu_torch.ops import stack_verify as sv
+    pos = 300
+    g, a, kc, vc, lm = _stack_args(dev, 4, 4, 2, pos, seed=93)
+    k8, v8 = _kv8(kc, vc, fmt, pos)
+    cfg = LlamaConfig.tiny()
+    kw = dict(group=g, head_dim=HD, rope_style=cfg.rope_style, eps=1e-5,
+              **lm)
+    w = [a[k] for k in ("wqkv_f", "wo_f", "w13", "w2")]
+    for n in (1, 5):
+        cos, sin = model.rope_rows(cfg, pos, n, dev)
+        x = _randn((n, HIDDEN), dev, 94)
+        fn = sk.fused_decoder_stack if n == 1 else sv.fused_verify_stack
+        runs = []
+        for _ in range(3):
+            k, v = _kv8_clone(k8), _kv8_clone(v8)
+            out = fn(x, a["attn_norm"], a["ffn_norm"], cos, sin, *w, k, v,
+                     pos, **kw)
+            runs.append((out[0], out[1], k.q, k.s.view(torch.int32), v.q,
+                         v.s.view(torch.int32)) if fmt == "int8"
+                        else (out[0], out[1], k.view(torch.uint8),
+                              v.view(torch.uint8)))
+        torch.cuda.synchronize()
+        for run in runs[1:]:
+            for got, want in zip(run, runs[0]):
+                assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("fmt", KV8_FORMATS)
+def test_stack_kv8_kernel_at_7b(dev, fmt):
+    """Kernel 7 and kernel 8 (n 5) on an 8-bit cache at Llama-2-7B widths
+    (two layers, cap 4096) against their twins, at pos 600 and 4000 (n 5
+    from 1022: the fresh rows straddle plane row 8)."""
+    from clusterfusion_tpu_torch.ops import stack_verify as sv
+    cfg = LlamaConfig.llama2_7b()
+    hidden, kvh, g = cfg.hidden_dim, cfg.kv_heads, cfg.n_heads // cfg.kv_heads
+    hg, G, f_pad, cap = 4, cfg.kv_heads // 4, 11264, 4096
+    a = dict(attn_norm=1 + _randn((L, hidden), dev, 95, 0.1),
+             ffn_norm=1 + _randn((L, hidden), dev, 96, 0.1),
+             wqkv_f=_randn((L, G, hidden, hg * (g + 2) * HD), dev, 97,
+                           hidden ** -0.5),
+             wo_f=_randn((L, G, hg * g * HD, hidden), dev, 98,
+                         (g * HD) ** -0.5),
+             w13=_randn((L, 2, hidden, f_pad), dev, 99, hidden ** -0.5),
+             w2=_randn((L, f_pad, hidden), dev, 100, f_pad ** -0.5))
+    lm = dict(final_norm=1 + _randn((hidden,), dev, 101, 0.1),
+              lm_head=_randn((hidden, cfg.vocab_size), dev, 102,
+                             hidden ** -0.5))
+    kc = _randn((L, kvh, cap, HD), dev, 103)
+    vc = _randn((L, kvh, cap, HD), dev, 104)
+    kw = dict(group=g, head_dim=HD, rope_style=cfg.rope_style, eps=1e-5,
+              **lm)
+    w = [a[k] for k in ("wqkv_f", "wo_f", "w13", "w2")]
+    for fn, plain, n, pos in ((sk.fused_decoder_stack,
+                               sk.fused_decoder_stack_plain, 1, 600),
+                              (sk.fused_decoder_stack,
+                               sk.fused_decoder_stack_plain, 1, 4000),
+                              (sv.fused_verify_stack,
+                               sv.fused_verify_stack_plain, 5, 1022)):
+        k8, v8 = _kv8(kc, vc, fmt, pos)
+        kp, vp = _kv8_clone(k8), _kv8_clone(v8)
+        cos, sin = model.rope_rows(cfg, pos, n, dev)
+        x = _randn((n, hidden), dev, 105)
+        out = fn(x, a["attn_norm"], a["ffn_norm"], cos, sin, *w, k8, v8, pos,
+                 **kw)
+        ref = plain(x, a["attn_norm"], a["ffn_norm"], cos, sin, *w, kp, vp,
+                    pos, **kw)
+        torch.cuda.synchronize()
+        err = (out[0] - ref[0]).abs().max().item()
+        assert err <= 2e-2 * ref[0].abs().max().item(), (pos, err)
+        for got, want in ((k8, kp), (v8, vp)):
+            _kv8_rows_held(got, want, list(range(pos, pos + n)), True)
+
+
+@pytest.mark.parametrize("fmt", KV8_FORMATS)
+def test_kv8_engine_streams_on_card(dev, fmt):
+    """An engine with an 8-bit cache on the card: ``stream_generate`` runs
+    kernel 7's 8-bit mode once a token and ``spec_generate`` (self-draft)
+    kernel 8's once a round; the stream agrees with the eager step's
+    wherever its top-2 gap clears 0.1, and spec with the stream where the
+    stream's gap does."""
+    from clusterfusion_tpu_torch.models.generation import Llama
+    from clusterfusion_tpu_torch.ops import stack_verify as sv
+    kv_dtype = "int8" if fmt == "int8" else torch.float8_e4m3fn
+    kind = sk.KV_INT8 if fmt == "int8" else sk.KV_FP8
+    cfg = LlamaConfig.tiny(n_kv_heads=2, max_seq_len=256)
+    eng = Llama.synthetic(cfg, seed=5, device=dev, kv_dtype=kv_dtype)
+    prompt = list(range(1, 121))
+    b7, b8 = sk.kv8_launches[kind], sv.kv8_launches[kind]
+    stream = list(eng.stream_generate(prompt, 12, temperature=0.0))
+    assert sk.kv8_launches[kind] - b7 == 12
+    spec = eng.spec_generate(prompt, 12, eng, n_draft=3)
+    assert sv.kv8_launches[kind] - b8 == eng.spec_stats["rounds"] >= 1
+    kc, vc = model.init_cache(cfg, device=dev, dtype=kv_dtype)
+    lg, kc, vc = model.prefill(eng.params, kc, vc, prompt, cfg)
+    for i, t in enumerate(stream):
+        top = torch.topk(lg.reshape(-1, lg.shape[-1])[-1], 2).values
+        if (top[0] - top[1]).item() > 0.1:
+            assert int(torch.argmax(lg.reshape(-1, lg.shape[-1])[-1])) == t
+            assert spec[i] == t
+        else:
+            break
+        lg, kc, vc = model.decode_step(eng.params, kc, vc, t, len(prompt) + i,
+                                       cfg, fused=False)

@@ -376,8 +376,10 @@ def test_quantized_paths_still_refused(tree):
     128 in kernels 6, 7 (with ``reduce_axis`` too) and 8,
     ``spec_generate``, ``generate`` and the serving engine, and an int4 LM
     head in mode 5 (mode 1.5); ``serving_w8a8``, with int8 or int4 weights
-    (mode 6); int8 and fp8 KV in the serving pools, kernel 8 and kernel 6
-    on int4 weights (mode 2); ``chat --quant int4 --kv_int8``."""
+    (mode 6); int8 and fp8 KV in the serving pools (mode 2, item 2.3) and
+    kernel 6 on int4 weights (item 2.2), and an int8 tensor without scales
+    in kernel 8 (mode 2).  Since item 2.1 kernel 8 takes an fp8 cache and
+    ``chat --quant int4 --kv_int8`` runs."""
     _, _, tp = tree
     tcfg = LlamaConfig.tiny()
     g, hd = tcfg.n_heads // tcfg.kv_heads, tcfg.head_dim_
@@ -446,22 +448,29 @@ def test_quantized_paths_still_refused(tree):
         with pytest.raises(NotImplementedError, match="queue 2, mode 2"):
             ServingEngine(eng.params, tcfg, kv_dtype=kv_dtype)
     lw = tq.quantize_llama_params(tp, "int8")["layers"]
-    for kv_dtype in (torch.int8, torch.float8_e4m3fn):
-        with pytest.raises(NotImplementedError, match="queue 2, mode 2"):
-            fused_verify_stack(
-                tp["embed"][[7, 8]], lw["attn_norm"], lw["ffn_norm"], cos2,
-                sin2, lw["wqkv_f"], lw["wo_f"], lw["w13"], lw["w2"],
-                kc.to(kv_dtype), vc.to(kv_dtype), 3, group=g, head_dim=hd,
-                rope_style="gptj", eps=1e-5)
+
+    def verify8(kc8, vc8):
+        return fused_verify_stack(
+            tp["embed"][[7, 8]], lw["attn_norm"], lw["ffn_norm"], cos2, sin2,
+            lw["wqkv_f"], lw["wo_f"], lw["w13"], lw["w2"], kc8, vc8, 3,
+            group=g, head_dim=hd, rope_style="gptj", eps=1e-5)
+
+    with pytest.raises(NotImplementedError, match="queue 2, mode 2"):
+        verify8(kc.to(torch.int8), vc.to(torch.int8))
+    # item 2.1: an fp8 cache runs (kernel 8's twin), its rows appended
+    kc8, vc8 = kc.to(torch.float8_e4m3fn), vc.to(torch.float8_e4m3fn)
+    out = verify8(kc8, vc8)
+    assert torch.isfinite(out[0].float()).all()
+    assert kc8[:, :, 3:5].float().any()
     from clusterfusion_tpu_torch.parallel.sharding import shard_params
     shards = shard_params(eng4.params, tcfg, mesh)    # mode 1.4: it cuts
     for name, w in eng4.params["layers"].items():
         assert shards["layers"][name] is w if not isinstance(
             w, tq.QuantizedTensor) else shards["layers"][name].q is w.q
     from clusterfusion_tpu_torch import chat
-    with pytest.raises(SystemExit, match="not yet ported"):
-        chat.main(["--synthetic", "--quant", "int4", "--kv_int8", "--device",
-                   "cpu"])
+    chat.main(["--synthetic", "--quant", "int4", "--kv_int8", "--device",
+               "cpu", "--max_gen_len", "2", "--temperature", "0",
+               "--max_seq_len", "64"])
 
 
 def test_chat_cli_int8(capsys):
