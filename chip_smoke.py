@@ -298,7 +298,29 @@ alive (before 32-34, which free the first two):
    --synthetic --kv_int8`` and ``--kv_fp8 --spec_draft synthetic`` on the
    card, exit 0.
 
-Phases 32-34 run after 35-37, on the same int4 engine, in both int4 modes:
+Phases 38-40 run after 37, while the bf16, int8 and int4 engines live (8-bit
+caches on the multi-card paths):
+
+38. kernel 6's fp8 mode at layer 1 of the 7B bf16, int8 and int4 (exact
+   and W4A8) engines, cap 4096, pos 600 and 4000, NaN bytes above pos, in
+   full mode with and without the append, partials and ``fold_current=0``,
+   against its twin at phase 13's limits (the appended e4m3 row within one
+   code of the twin's, the share of equal bytes printed), repeats
+   bit-identical; ``queued_ms`` beside the bf16-KV layer on the same
+   inputs, the twin's time, the byte bound;
+39. kernel 7's mode 5 at tp 2 on this card with an ``Int8KV`` and an fp8
+   cache (phase 15's form and limits against kernel 7's unsharded 8-bit
+   step, the gathered-head form), 8 steps of the fused tp-2 step on each
+   (8L+3 kernels a rank), and one int8-weight run (4 layers, fp8); the
+   pair step's ms beside phase 15's bf16 pair, its twin's time, the bound;
+40. the tp, sp and fused tp steps on 8-bit caches in phase 14's one-rank
+   NCCL group after a 512-token prefill: 32 fp8 tp steps, 8 fp8 sp steps,
+   32 fused steps on each format, each stream after one teacher-forced
+   step against the twin and held against kernel 7's single-card 8-bit
+   step under the top-2-gap rule; launches a step, ms per step and
+   tokens/s beside phase 14's bf16-KV steps.
+
+Phases 32-34 run after 35-40, on the same int4 engine, in both int4 modes:
 
 32. kernel 6's int4 modes at layer 1, pos 600, on the whole tree and the
    first tp-2 shard (``shard_params`` on the int4 tree): full mode with
@@ -345,9 +367,12 @@ Then, where the machine has two cards or more:
    rank that waited least and the one that waited most.  Then the same two
    steps on an int8 tree (the weights regrouped to 8 kv heads a group and
    quantized per output column, the LM head too; ``step=fused_int8`` and
-   ``nccl_int8``), against kernel 7's int8 mode teacher-forced, and on
+   ``nccl_int8``), against kernel 7's int8 mode teacher-forced, on
    the int4 tree in the exact mode (``step=fused_int4`` and
-   ``nccl_int4``), against kernel 7's exact int4 mode.
+   ``nccl_int4``), against kernel 7's exact int4 mode, and on 8-bit
+   caches prefilled alike (``step=fused_fp8``, ``nccl_fp8`` and
+   ``fused_kvint8``: kernel 7's 8-bit mode 5, kernel 6's fp8 mode),
+   against kernel 7's single-card step on the same cache.
    ``python3 chip_smoke.py multicard`` runs phases 1, 2 and 16 alone.
 
 Then one JSON line per kernel table, the card line, and last
@@ -595,6 +620,13 @@ def kv_same_bits(a, b, rows) -> bool:
         return torch.equal(a[:, :, rows].view(torch.uint8),
                            b[:, :, rows].view(torch.uint8))
     return _same_bits(a[:, :, rows], b[:, :, rows])
+
+
+def kv_heads(c, heads):
+    """The kv heads ``heads`` (a slice) of a cache, a view."""
+    if hasattr(c, "s"):
+        return type(c)(c.q[:, heads], c.s[:, heads])
+    return c[:, heads]
 
 
 STACK_KV_SPLITS = (32, 64, 128)
@@ -1726,11 +1758,13 @@ def phase_norms_gemv(eng, dev, hbm, peak):
     return rows, launches
 
 
-def _layer_bound(hbm, peak, wbytes, weights, kvh, heads, rows, hd, io_bytes):
-    """Bound of one attention half: the weights and the K/V rows < seq read
-    once, the inputs and outputs once; two operations per weight and four
-    per (head, row, element) of the attention."""
-    nbytes = wbytes + 2 * kvh * rows * hd * 2 + io_bytes
+def _layer_bound(hbm, peak, wbytes, weights, kvh, heads, rows, hd, io_bytes,
+                 row_bytes=2):
+    """Bound of one attention half: the weights and the K/V rows < seq
+    (``row_bytes`` an element: 2 bf16, 1 fp8) read once, the inputs and
+    outputs once; two operations per weight and four per (head, row,
+    element) of the attention."""
+    nbytes = wbytes + 2 * kvh * rows * hd * row_bytes + io_bytes
     flops = 2 * weights + 4 * heads * (rows + 1) * hd
     bound_by = "bytes" if nbytes / hbm >= flops / peak else "operations"
     return max(nbytes / hbm, flops / peak) * 1e3, bound_by, nbytes
@@ -1915,12 +1949,13 @@ def _free_port() -> int:
 def check_against_stack(params, cfg, k0, v0, pos0, first, toks, kcfg=None):
     """Teacher-force kernel 7's step (``decode_step(fused=True)``, with
     ``kcfg``: an int4 tree's mode) on the whole weights ``params`` along a
-    sharded step's stream from copies of the same prefilled caches: every
+    sharded step's stream from copies of the same prefilled caches (bf16,
+    fp8 or ``Int8KV``): every
     token must be kernel 7's wherever its top-2 gap exceeds 0.1.  Returns
     (kernel 7's tokens, gaps, steps that disagree)."""
     from clusterfusion_tpu_torch.config import KernelConfig
     from clusterfusion_tpu_torch.models import llama as model
-    kc, vc = k0.clone(), v0.clone()
+    kc, vc = kv_take(k0, 0, k0.shape[0]), kv_take(v0, 0, v0.shape[0])
     inputs = [first] + list(toks[:-1])
     ref, gaps = [], []
     for i, t in enumerate(inputs):
@@ -2124,7 +2159,8 @@ def phase_collectives(dev, hbm):
     return rows
 
 
-def phase_mode5(eng, dev, pos=600, params=None, phase="mode5", drift=None):
+def phase_mode5(eng, dev, pos=600, params=None, phase="mode5", drift=None,
+                kv=None):
     """Phase 15, second part: mode 5 of kernel 7 (``reduce_axis``) at tp 2
     on this card (phase 26, ``phase="mode5_int8"``: the same on ``params``,
     the int8 engine's tree with an int8 LM head: the O and down products
@@ -2146,7 +2182,11 @@ def phase_mode5(eng, dev, pos=600, params=None, phase="mode5", drift=None):
     value in phase 15's bf16 run): x_out and the residual may also stray up
     to 1.25 times that share, since at full depth the two steps drift
     apart by a bf16 rounding a layer (phase 26 holds 4 layers at the
-    limits above first)."""
+    limits above first).  ``kv`` ("int8" or "fp8"; phase 39): the cache
+    is that 8-bit pair (``kv8_cache``: NaN scales or bytes above pos), cut
+    by ``shard_cache`` (an ``Int8KV``'s rows and scale planes on the kv
+    axis), the appended rows held as above plus one step of the format,
+    kernel 7's 8-bit launches counted once a rank."""
     from clusterfusion_tpu_torch import parallel as par
     from clusterfusion_tpu_torch.models import llama as model
     from clusterfusion_tpu_torch.ops import stack_kernel as sk
@@ -2161,19 +2201,26 @@ def phase_mode5(eng, dev, pos=600, params=None, phase="mode5", drift=None):
                                  device=dev).bfloat16()
     vc[:, :, :pos] = torch.randn(vc[:, :, :pos].shape, generator=gen,
                                  device=dev).bfloat16()
+    if kv is not None:
+        kc, vc = kv8_cache(kc, vc, kv, pos)
+    step = 0.0 if kv is None else KV8_STEP[kv]
     x = p["embed"][torch.tensor([7], device=dev)]
     cos, sin = model.rope_row(cfg, pos, dev)
     kw = dict(group=g, head_dim=hd, rope_style=cfg.rope_style,
               eps=cfg.norm_eps)
     refs = []
     for _ in range(3):
-        kr, vr = kc.clone(), vc.clone()
+        kr, vr = kv_take(kc, 0, kc.shape[0]), kv_take(vc, 0, vc.shape[0])
         refs.append(sk.fused_decoder_stack(
             x, lw["attn_norm"], lw["ffn_norm"], cos, sin, lw["wqkv_f"],
             lw["wo_f"], lw["w13"], lw["w2"], kr, vr, pos, **kw))
     ref = refs[0]
-    repeatable = all(torch.equal(a, b) for r in refs[1:]
-                     for a, b in zip(r, ref))
+    every = torch.ones(kc.shape[2], dtype=torch.bool, device=dev)
+    repeatable = all(torch.equal(r[0], ref[0]) and torch.equal(r[1], ref[1])
+                     and kv_same_bits(r[2], ref[2], every)
+                     and kv_same_bits(r[3], ref[3], every)
+                     for r in refs[1:])
+    quant = hasattr(lw["wqkv_f"], "q")
     lb = col.LoopbackComm(tp, dev)
     meshes = [lb.mesh(r) for r in range(tp)]
     shards = [par.shard_params(p, cfg, m) for m in meshes]
@@ -2200,12 +2247,14 @@ def phase_mode5(eng, dev, pos=600, params=None, phase="mode5", drift=None):
             return outs
 
         k7, k13, i8 = sk.launches, col.launches["all_reduce"], sk.int8_launches
+        n8 = sum(sk.kv8_launches.values())
         outs = both()
         torch.cuda.synchronize()
         lb.check()
         per_step = sk.last_step_kernels
         k7, k13 = sk.launches - k7, col.launches["all_reduce"] - k13
         i8 = sk.int8_launches - i8
+        n8 = sum(sk.kv8_launches.values()) - n8
         same = all(torch.equal(o[0], outs[0][0]) and
                    torch.equal(o[1], outs[0][1]) for o in outs)
         errs, rows_ok, unchanged, row0, rel = [], True, True, [], [0.0, 0.0]
@@ -2222,20 +2271,19 @@ def phase_mode5(eng, dev, pos=600, params=None, phase="mode5", drift=None):
                     lim = max(lim, 1.25 * drift[j] * m)
                 rows_ok &= e <= lim
             heads = slice(r * cfg.kv_heads // tp, (r + 1) * cfg.kv_heads // tp)
-            row_err = torch.maximum(
-                (k[:, :, pos].float() - kr[:, heads, pos].float()).abs()
-                .amax(dim=(1, 2)),
-                (v[:, :, pos].float() - vr[:, heads, pos].float()).abs()
-                .amax(dim=(1, 2)))
-            row_mag = torch.maximum(
-                kr[:, heads, pos].float().abs().amax(dim=(1, 2)),
-                vr[:, heads, pos].float().abs().amax(dim=(1, 2)))
-            rows_ok &= bool(row_err[0] <= 0.05) and \
-                bool((row_err <= 0.05 + 1e-2 * row_mag).all())
+            # the stack's L layers (the cache may hold more, NaN at pos)
+            row_err = torch.maximum(*(
+                (kv_values(a, [pos]) - kv_values(kv_heads(b, heads), [pos]))
+                [:L].abs().amax(dim=(1, 2, 3)) for a, b in ((k, kr), (v, vr))))
+            row_mag = torch.maximum(*(
+                kv_values(kv_heads(b, heads), [pos])[:L].abs()
+                .amax(dim=(1, 2, 3)) for b in (kr, vr)))
+            rows_ok &= bool(row_err[0] <= 0.05 + step * row_mag[0]) and \
+                bool((row_err <= 0.05 + (1e-2 + step) * row_mag).all())
             errs.append(row_err.max().item())
             row0.append(row_err[0].item())
-            unchanged &= torch.equal(k[:, :, others], kc[:, heads][:, :, others])
-            unchanged &= torch.equal(v[:, :, others], vc[:, heads][:, :, others])
+            unchanged &= kv_same_bits(k, kv_heads(kc, heads), others)
+            unchanged &= kv_same_bits(v, kv_heads(vc, heads), others)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(10):
@@ -2244,6 +2292,7 @@ def phase_mode5(eng, dev, pos=600, params=None, phase="mode5", drift=None):
         pair_ms = (time.perf_counter() - t0) * 1e2
         FIGURES[f"{phase}_pair_ms"] = pair_ms
         FIGURES[f"{phase}_drift"] = rel
+        FIGURES[f"{phase}_max_abs_err"] = max(errs[0::3] + errs[1::3])
         # kernel 14 inside the stack at the tp step's shapes (the LM head's
         # pushing product over each rank's 16000 columns and the gather's
         # wait) against its plain version: the ranks' own shards (the
@@ -2268,8 +2317,9 @@ def phase_mode5(eng, dev, pos=600, params=None, phase="mode5", drift=None):
         if g_err > g_tol or not g_same or gathered_kernels != 8 * L + 3:
             raise AssertionError("kernel 14 inside the stack disagrees with "
                                  "its plain version")
-        int8 = {} if phase == "mode5" else dict(
-            layers=L, int8_launches=i8, bf16_both_ranks_ms_per_step=(
+        int8 = {} if not quant and kv is None else dict(
+            layers=L, int8_launches=i8, kv8_launches=n8,
+            bf16_both_ranks_ms_per_step=(
                 f"{FIGURES['mode5_pair_ms']:.3f}" if "mode5_pair_ms" in FIGURES
                 else "not measured"),
             x_res_err_over_max=[round(v, 5) for v in rel],
@@ -2278,10 +2328,13 @@ def phase_mode5(eng, dev, pos=600, params=None, phase="mode5", drift=None):
             tol_x_res="0.05+1e-2*max|ref|" if drift is None else
             "max(0.05+1e-2*max|ref|, 1.25*bf16 err/max*max|ref|)")
         say(phase, kernel=7, reduce_axis="tp", tp=tp, loopback=True,
-            pos=pos, x_out_err=f"{errs[0]:.4g}", residual_err=f"{errs[1]:.4g}",
+            pos=pos, kv=kv or "bf16", x_out_err=f"{errs[0]:.4g}",
+            residual_err=f"{errs[1]:.4g}",
             kv_row_err_max=f"{max(errs[2::3]):.4g}",
             tol="x/res 0.05+1e-2*max|ref|; rows layer 0 atol=0.05, "
-                "deeper atol=0.05+rtol=1e-2",
+                "deeper atol=0.05+rtol=1e-2"
+                + ("" if kv is None else f", +{step:.4g} of |row| (one step "
+                   "of the format)"),
             ranks_bit_identical=same, other_rows_unchanged=unchanged,
             kernel7_repeats_bit_identical=repeatable,
             kernels_per_step=per_step, stack_launches=k7,
@@ -2290,7 +2343,8 @@ def phase_mode5(eng, dev, pos=600, params=None, phase="mode5", drift=None):
             error_word=lb.ranks[0].error(), **int8)
         if not (same and rows_ok and unchanged and repeatable and k7 == tp
                 and k13 == 2 * L * tp and per_step == 8 * L + 1
-                and (phase == "mode5" or i8 == tp)):
+                and (not quant or i8 == tp)
+                and n8 == (0 if kv is None else tp)):
             raise AssertionError("mode 5 disagrees with kernel 7's "
                                  f"unsharded step (errors {errs}, layer 0's "
                                  f"rows {row0})")
@@ -2300,7 +2354,8 @@ def phase_mode5(eng, dev, pos=600, params=None, phase="mode5", drift=None):
 
 
 def phase_fused_step(eng, dev, shards, n=16, params=None,
-                     phase="fused_step", kcfg=None, stack_check=True):
+                     phase="fused_step", kcfg=None, stack_check=True,
+                     kv=None):
     """Phase 15, third part (phase 26's, ``phase="fused_step_int8"``, on
     ``params``, the int8 tree whose ``shards`` phase_mode5 cut, each step
     one call of kernel 7's int8 mode): ``make_sharded_decode_step(
@@ -2319,8 +2374,11 @@ def phase_fused_step(eng, dev, shards, n=16, params=None,
     same way; the W4A8 step quantizes the down product per f-block of the
     rank's shard, another function than the unsharded W4A8 step, so
     ``stack_check=False`` keeps its launches, ranks and finiteness checks
-    and leaves its agreement to phase 34's layer-by-layer check.  Returns
-    kernel 13's reduces and kernel 14's gathers."""
+    and leaves its agreement to phase 34's layer-by-layer check.  Phase 39
+    runs it on an 8-bit cache (``kv``: "int8", an ``Int8KV`` pair, or
+    "fp8"), prefilled and cut by ``shard_cache`` alike, each step one call
+    of kernel 7's 8-bit mode 5 a rank.  Returns kernel 13's reduces and
+    kernel 14's gathers."""
     from clusterfusion_tpu_torch import parallel as par
     from clusterfusion_tpu_torch.models import llama as model
     from clusterfusion_tpu_torch.ops import stack_kernel as sk
@@ -2330,9 +2388,11 @@ def phase_fused_step(eng, dev, shards, n=16, params=None,
     p = eng.params if params is None else params
     text = ("The quick brown fox jumps over the lazy dog. " * 20)[:511]
     prompt = eng.tokenizer.encode(text, bos=True, eos=False)
-    k0, v0 = model.init_cache(cfg, device=dev)
+    k0, v0 = model.init_cache(cfg, device=dev, dtype=dict(
+        KV8_FORMATS).get(kv, torch.bfloat16))
     lg, k0, v0 = model.prefill(p, k0, v0, prompt, cfg)
     first, pos0 = int(torch.argmax(lg[-1])), len(prompt)
+    quant = hasattr(p["layers"]["wqkv_f"], "q")
     # one step at tp 1 first, so that every kernel of the path is loaded
     # before a virtual rank spins on the card (see ``LoopbackComm``); the
     # row it writes at pos0 is rewritten by the first step below
@@ -2357,6 +2417,8 @@ def phase_fused_step(eng, dev, shards, n=16, params=None,
         for k in col.launches:
             col.launches[k] = col.standalone[k] = 0
         sk.launches = sk.int8_launches = sk.int4_launches = 0
+        for k in sk.kv8_launches:
+            sk.kv8_launches[k] = 0
         t0 = time.perf_counter()
         for i in range(n):
             for r in range(tp):
@@ -2371,8 +2433,10 @@ def phase_fused_step(eng, dev, shards, n=16, params=None,
         k13, k14, k7 = (col.launches["all_reduce"], col.launches["all_gather"],
                         sk.launches)
         i8 = sk.int8_launches + sk.int4_launches
+        k8 = sum(sk.kv8_launches.values())
         FIGURES[f"{phase}_ms_per_step"] = dt * 1e3 / n
         FIGURES[f"{phase}_launches"] = k7
+        FIGURES[f"{phase}_kv8_launches"] = k8
         alone13, alone14 = col.standalone["all_reduce"], \
             col.standalone["all_gather"]
         per_step = sk.last_step_kernels
@@ -2393,10 +2457,13 @@ def phase_fused_step(eng, dev, shards, n=16, params=None,
                                  "than the unsharded step; phase 34 holds "
                                  "its layers)")
         int8 = {} if phase == "fused_step" else {
-            f"kernel7_{phase.rsplit('_', 1)[-1]}_launches": i8,
             "bf16_ms_per_step_both_ranks": (
                 f"{FIGURES['fused_step_ms_per_step']:.3f}"
                 if "fused_step_ms_per_step" in FIGURES else "not measured")}
+        if quant:
+            int8[f"kernel7_{phase.rsplit('_', 1)[-1]}_launches"] = i8
+        if kv is not None:
+            int8.update(kv=kv, kernel7_kv8_launches=k8)
         say(phase, step="make_sharded_decode_step(fused_collectives"
             "=True)", tp=tp, loopback=True, prompt_tokens=pos0,
             new_tokens=n, ms_per_step_both_ranks=f"{dt * 1e3 / n:.3f}",
@@ -2411,7 +2478,8 @@ def phase_fused_step(eng, dev, shards, n=16, params=None,
                 or alone14 or per_step != 8 * L + 3 or not same or bad
                 or not finite
                 or any(t != tok_lists[0] for t in tok_lists)
-                or (phase != "fused_step" and i8 != n * tp)):
+                or (quant and i8 != n * tp)
+                or k8 != (0 if kv is None else n * tp)):
             raise AssertionError("the fused-collective tp step: launches, "
                                  "rank agreement or kernel 7 agreement wrong")
 
@@ -4847,6 +4915,433 @@ def phase_kv8_e2e(eng, dev):
     return launches
 
 
+# -- 8-bit KV caches on the multi-card paths (phases 38-40) -------------------
+
+
+def e4m3_one_step(got, want):
+    """Two e4m3 rows stored from float32 rows that differ by a sum order:
+    (every byte equal or one code apart, as adjacent values of one sign
+    are, or both zero or the least denormal; the share of equal bytes)."""
+    a, b = got.view(torch.uint8).int(), want.view(torch.uint8).int()
+    near = ((a ^ b) & 0x80 == 0) & ((a - b).abs() <= 1)
+    near |= ((a & 0x7F) <= 1) & ((b & 0x7F) <= 1)
+    return bool(near.all()), (a == b).float().mean().item()
+
+
+# (label, engine attribute, KernelConfig keywords) of phase 38's weights
+KV8_LAYER_WEIGHTS = (("bf16", 0, {}), ("int8", 1, {}),
+                     ("int4_exact", 2, dict(int4_w4a8=False)),
+                     ("int4_w4a8", 2, dict(int4_w4a8=True)))
+# kernel 6's modes phase 38 holds: (label, keywords)
+KV8_LAYER_MODES = (("full_append", dict(append_kv=True)), ("full", {}),
+                   ("partials", dict(emit_partials=True)),
+                   ("fold0", dict(emit_partials=True, fold_current=0)))
+
+
+def phase_kv8_layer(eng, eng8, eng4, dev, hbm, peak, cap=4096, layer=1):
+    """Phase 38: kernel 6's fp8 mode at full Llama-2-7B width, layer 1 of
+    the bf16, int8 and int4 engines (int4 exact and W4A8), an fp8 cache of
+    4096 rows at pos 600 and 4000 with NaN bytes (0x7F) at and above pos,
+    in full mode with and without the append, partials mode and
+    partials with ``fold_current=0``: each against
+    ``_fused_decoder_layer_plain`` at phase 13's limits (outputs and
+    residual atol 2e-2 / rtol 2e-2, partials' acc 5e-2, k_new and v_new
+    0.05), the appended e4m3 row within one code of the twin's (e4m3 of
+    float32 rows that differ by a sum order; the share of equal bytes
+    printed), every other byte unchanged, a repeat bit-identical, counted
+    as fp8, one kernel a call (two in W4A8's full mode).  Then
+    ``queued_ms`` of the fp8 layer beside the bf16-KV layer on the same
+    inputs at both positions (bf16 weights) and of each weight kind at pos
+    600, the twin's time and the byte bound (weights, e4m3 rows below
+    pos).  Returns the kernels-line row (bf16 weights, pos 600)."""
+    from clusterfusion_tpu_torch.config import KernelConfig
+    from clusterfusion_tpu_torch.models import llama as model
+    from clusterfusion_tpu_torch.ops import decoder_layer as dl
+    cfg = eng.cfg
+    g, hd, hidden = cfg.n_heads // cfg.kv_heads, cfg.head_dim_, cfg.hidden_dim
+    kvh = cfg.kv_heads
+    gen = torch.Generator(device=dev).manual_seed(38)
+
+    def rnd(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).bfloat16()
+
+    kc, vc = rnd((2, kvh, cap, hd)), rnd((2, kvh, cap, hd))
+    x, res = rnd((1, hidden)), rnd((1, hidden))
+    norm = 1 + 0.1 * rnd((hidden,))
+    engines = (eng, eng8, eng4)
+    row, times = None, {}
+    for pos in (600, 4000):
+        k8, v8 = kv8_cache(kc, vc, "fp8", pos)
+        cos, sin = model.rope_row(cfg, pos, dev)
+        others = torch.ones(cap, dtype=torch.bool, device=dev)
+        others[pos] = False
+        for label, which, kcfg_kw in KV8_LAYER_WEIGHTS:
+            lw = engines[which].params["layers"]
+            args = (x, res, norm, cos, sin, lw["wqkv_f"][layer],
+                    lw["wo_f"][layer])
+            kw = dict(group=g, head_dim=hd, rope_style=cfg.rope_style,
+                      fuse_residual=True, eps=cfg.norm_eps,
+                      kcfg=KernelConfig(**kcfg_kw))
+            a8 = label == "int4_w4a8"
+            for mode, extra in KV8_LAYER_MODES:
+                partials = "emit_partials" in extra
+                kk, vk = k8.clone(), v8.clone()
+                kp, vp = k8.clone(), v8.clone()
+                before = (dl.launches, dl.fp8_launches)
+                out = dl._fused_decoder_layer(*args, kk, vk, pos, 1, **kw,
+                                              **extra)
+                kernels = dl.last_call_kernels
+                launched = (dl.launches - before[0],
+                            dl.fp8_launches - before[1])
+                kk2, vk2 = k8.clone(), v8.clone()
+                again = dl._fused_decoder_layer(*args, kk2, vk2, pos, 1, **kw,
+                                                **extra)
+                ref = dl._fused_decoder_layer_plain(*args, kp, vp, pos, 1,
+                                                    **kw, **extra)
+                torch.cuda.synchronize()
+                n_out = 5 if partials else 4
+                repeat = all(torch.equal(a.view(torch.uint8),
+                                         b.view(torch.uint8))
+                             for a, b in zip(out[:n_out], again[:n_out])
+                             if a is not None)
+                repeat &= kv_same_bits(kk, kk2, others | ~others) and \
+                    kv_same_bits(vk, vk2, others | ~others)
+                # outputs at phase 13's limits: (got, want, atol, rtol)
+                res_i = 2 if partials else 1
+                held = ([(out[1], ref[1], 2e-2, 2e-2),
+                         (out[0], ref[0], 5e-2, 2e-2)] if partials
+                        else [(out[0], ref[0], 2e-2, 2e-2)])
+                held.append((out[res_i], ref[res_i], 2e-2, 2e-2))
+                held += [(out[i], ref[i], 0.05, 0.0)
+                         for i in (res_i + 1, res_i + 2)]
+                errs = [(a.float() - b.float()).abs().max().item()
+                        for a, b, _, _ in held]
+                within = all(bool(((a.float() - b.float()).abs()
+                                   <= at + rt * b.float().abs()).all())
+                             for a, b, at, rt in held)
+                finite = all(bool(torch.isfinite(a.float()).all())
+                             for a, _, _, _ in held)
+                rows = dict(other_bytes_unchanged=(
+                    kv_same_bits(kk, k8, others) and
+                    kv_same_bits(vk, v8, others)))
+                ok_rows = rows["other_bytes_unchanged"]
+                if "append_kv" in extra:
+                    nk, eq_k = e4m3_one_step(kk[1, :, pos], kp[1, :, pos])
+                    nv, eq_v = e4m3_one_step(vk[1, :, pos], vp[1, :, pos])
+                    rows.update(appended_within_one_code=nk and nv,
+                                appended_bytes_equal_share=(
+                                    f"{min(eq_k, eq_v):.4f}"))
+                    ok_rows &= nk and nv
+                else:
+                    ok_rows &= kv_same_bits(kk, k8, others | ~others)
+                want_kernels = 2 if a8 and not partials else 1
+                say("layer_kv8", kernel=6, kv="fp8", weights=label, mode=mode,
+                    pos=pos, cap=cap, max_abs_err=f"{max(errs[:-2]):.3g}",
+                    k_new_v_new_err=f"{max(errs[-2:]):.3g}",
+                    tol="phase 13's: out/res atol 2e-2+rtol 2e-2 (partials' "
+                        "acc 5e-2), k_new/v_new 0.05", within=within,
+                    finite=finite, repeat_bit_identical=repeat,
+                    kernels_per_call=kernels, launches_fp8=launched, **rows)
+                if not (within and finite and repeat and ok_rows
+                        and kernels == want_kernels and launched == (1, 1)):
+                    raise AssertionError(f"kernel 6's fp8 mode ({label}, "
+                                         f"{mode}, pos {pos}) disagrees with "
+                                         "its twin")
+                if (pos, label, mode) == (600, "bf16", "full_append"):
+                    row = dict(max_abs_err=max(errs[:-2]), library_ms=None)
+                del kk, vk, kp, vp, kk2, vk2, out, again, ref
+            if label == "bf16" or pos == 600:
+                kk, vk = k8.clone(), v8.clone()
+                times[pos, label] = queued_ms(
+                    lambda: dl._fused_decoder_layer(  # noqa: B023
+                        *args, kk, vk, pos, 1, append_kv=True, **kw))
+            if label == "bf16":
+                kb, vb = kc.clone(), vc.clone()
+                times[pos, "bf16_kv"] = queued_ms(
+                    lambda: dl._fused_decoder_layer(  # noqa: B023
+                        *args, kb, vb, pos, 1, append_kv=True, **kw))
+                wq, wo = args[5], args[6]
+                io = 5 * hidden * 2 + 2 * kvh * hd * 2 + 2 * kvh * hd
+                bound, bound_by, nbytes = _layer_bound(
+                    hbm, peak, _bytes(wq, wo), wq.numel() + wo.numel(), kvh,
+                    cfg.n_heads, pos, hd, io, row_bytes=1)
+                times[pos, "bound"] = (bound, bound_by, nbytes)
+                if pos == 600:
+                    kp, vp = k8.clone(), v8.clone()
+                    plain_ms = time_ms(lambda: dl._fused_decoder_layer_plain(
+                        *args, kp, vp, pos, 1, append_kv=True, **kw), 3)
+                    kk, vk = k8.clone(), v8.clone()
+                    row.update(ms=times[pos, label], plain_ms=plain_ms,
+                               bound_ms=bound, bound_by=bound_by)
+                    say("layer_kv8_launch", kernel=6, kv="fp8",
+                        **dl.launch_plan(hidden, kvh, g, hd, kv="fp8"),
+                        **launch_phases(dl, lambda: dl._fused_decoder_layer(
+                            *args, kk, vk, pos, 1, append_kv=True, **kw),
+                            16 * kvh, K6_PHASES))
+    for pos in (600, 4000):
+        bound, bound_by, nbytes = times[pos, "bound"]
+        say("layer_kv8", kernel=6, kv="fp8", pos=pos, weights="bf16",
+            queued_ms=f"{times[pos, 'bf16']:.4f}",
+            bf16_kv_queued_ms_same_inputs=f"{times[pos, 'bf16_kv']:.4f}",
+            bound_ms=f"{bound:.4f}", bound_by=bound_by, bytes=nbytes,
+            rate_TBps=f"{nbytes / times[pos, 'bf16'] / 1e9:.3f}")
+    say("layer_kv8", kernel=6, kv="fp8", pos=600,
+        **{f"{label}_queued_ms": f"{times[600, label]:.4f}"
+           for label, _, _ in KV8_LAYER_WEIGHTS},
+        plain_ms=f"{row['plain_ms']:.4f}", library_ms="null")
+    return row
+
+
+def mode5_kv8_bound(cfg, lw, hbm, peak, pos, fmt):
+    """(bound ms, bound_by, bytes) of a mode-5 pair step without the LM
+    head at tp 2 on one card: both ranks' shards of the four projections
+    and the norms read once, the 8-bit rows below pos (int8: and their
+    scales) and the row written, x in, x_out and the residual out."""
+    L, kvh, hd = lw["wqkv_f"].shape[0], cfg.kv_heads, cfg.head_dim_
+
+    def size(t):
+        return t.q.numel() + 4 * t.s.numel() if hasattr(t, "q") \
+            else t.numel() * t.element_size()
+
+    def count(t):
+        return t.q.numel() * (2 if t.kind == "int4" else 1) \
+            if hasattr(t, "q") else t.numel()
+    names = ("wqkv_f", "wo_f", "w13", "w2")
+    wbytes = sum(size(lw[k]) for k in (*names, "attn_norm", "ffn_norm"))
+    per_row = 2 * L * kvh * {"int8": hd + 4, "fp8": hd}[fmt]
+    nbytes = wbytes + per_row * (pos + 1) + 3 * 2 * cfg.hidden_dim
+    flops = 2 * sum(count(lw[k]) for k in names) + \
+        4 * L * cfg.n_heads * hd * (pos + 1)
+    bound_by = "bytes" if nbytes / hbm >= flops / peak else "operations"
+    return max(nbytes / hbm, flops / peak) * 1e3, bound_by, nbytes
+
+
+def phase_kv8_mode5(eng, eng8, dev, hbm, peak, pos=600):
+    """Phase 39: kernel 7's mode 5 with an ``Int8KV`` and an fp8 cache at
+    tp 2 on this card (``phase_mode5`` with its cache kind: two virtual
+    ranks against kernel 7's unsharded 8-bit step on the same cache, the
+    ranks bit-identical, then the gathered-head form; 4 of the engine's
+    bf16 layers at phase 15's limits, then all 32, where x_out and the
+    residual may also stray 1.25 times phase 15's bf16 share, as phase 26
+    holds int8 weights: the sharded and unsharded steps drift apart by a
+    bf16 rounding a layer), then ``phase_fused_step`` on the same
+    cache kind (8 steps of the fused tp-2 step after a 512-token prefill
+    into the 8-bit cache, each rank's step one call of kernel 7's 8-bit
+    mode 5), and once with int8 weights (4 layers of phase 26's tree, an
+    fp8 cache).  The pair step's twin (``fused_decoder_stack_plain_ranks``)
+    is timed once on the ranks' shards.  Returns the kernels-line rows by
+    format and the fused steps' 8-bit launches."""
+    from clusterfusion_tpu_torch import parallel as par
+    from clusterfusion_tpu_torch.models import llama as model
+    from clusterfusion_tpu_torch.ops import stack_kernel as sk
+    from clusterfusion_tpu_torch.parallel import collective as col
+    cfg, p = eng.cfg, eng.params
+    g, hd = cfg.n_heads // cfg.kv_heads, cfg.head_dim_
+    rows, launches = {}, {}
+    for fmt in ("int8", "fp8"):
+        phase = f"mode5_kv8_{fmt}"
+        phase_mode5(eng, dev, pos=pos, phase=f"{phase}_4layers", kv=fmt,
+                    params=dict(p, layers={k: w[:4] for k, w in
+                                           p["layers"].items()}))
+        shards = phase_mode5(eng, dev, pos=pos, phase=phase, kv=fmt,
+                             drift=FIGURES.get("mode5_drift"))
+        # the pair step's twin on the ranks' shards, timed once
+        gen = torch.Generator(device=dev).manual_seed(39)
+        kc, vc = model.init_cache(cfg, max_seq=1024, device=dev)
+        kc[:, :, :pos] = torch.randn(kc[:, :, :pos].shape, generator=gen,
+                                     device=dev).bfloat16()
+        vc[:, :, :pos] = torch.randn(vc[:, :, :pos].shape, generator=gen,
+                                     device=dev).bfloat16()
+        kc, vc = kv8_cache(kc, vc, fmt, pos)
+        lb = col.LoopbackComm(2, dev)
+        try:
+            meshes = [lb.mesh(r) for r in range(2)]
+            x = p["embed"][torch.tensor([7], device=dev)]
+            cos, sin = model.rope_row(cfg, pos, dev)
+            rank_args = []
+            for r, m in enumerate(meshes):
+                sl = shards[r]["layers"]
+                rank_args.append((x, sl["attn_norm"], sl["ffn_norm"], cos, sin,
+                                  sl["wqkv_f"], sl["wo_f"], sl["w13"],
+                                  sl["w2"], par.shard_cache(kc, m),
+                                  par.shard_cache(vc, m), pos))
+        finally:
+            lb.close()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sk.fused_decoder_stack_plain_ranks(
+            rank_args, group=g, head_dim=hd, rope_style=cfg.rope_style,
+            eps=cfg.norm_eps)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        del rank_args, kc, vc
+        bound, bound_by, nbytes = mode5_kv8_bound(cfg, p["layers"], hbm, peak,
+                                                  pos, fmt)
+        ms = FIGURES[f"{phase}_pair_ms"]
+        rows[fmt] = dict(max_abs_err=FIGURES[f"{phase}_max_abs_err"], ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound,
+                         bound_by=bound_by, library_ms=None)
+        phase_fused_step(eng, dev, shards, n=8,
+                         phase=f"fused_step_kv8_{fmt}", kv=fmt)
+        launches[fmt] = FIGURES[f"fused_step_kv8_{fmt}_kv8_launches"]
+        say(phase, kernel=7, kv=fmt, pair_ms=f"{ms:.3f}",
+            bf16_pair_ms=(f"{FIGURES['mode5_pair_ms']:.3f}"
+                          if "mode5_pair_ms" in FIGURES else "not measured"),
+            plain_ms=f"{plain_ms:.2f}", bound_ms=f"{bound:.4f}",
+            bound_by=bound_by, bytes=nbytes, library_ms="null",
+            fused_step_kv8_launches=launches[fmt])
+        del shards
+        torch.cuda.empty_cache()
+    tree8 = int8_head_tree(eng8.params)
+    shards8 = phase_mode5(eng8, dev, pos=pos, kv="fp8",
+                          phase="mode5_kv8_fp8_int8_4layers",
+                          params=dict(tree8, layers={
+                              k: w[:4] for k, w in tree8["layers"].items()}))
+    del tree8, shards8
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
+def phase_kv8_sharded(eng, dev):
+    """Phase 40: the tp, sp and fused tp steps on 8-bit caches end to end
+    in the one-rank NCCL group of phase 14: a 512-token prefill (kernel 4)
+    into an fp8 and an ``Int8KV`` cache, then 32 greedy steps of the fp8
+    tp step, 8 of the fp8 sp step, and 32 of the fused tp step with each
+    format.  Before each stream one teacher-forced step against the plain
+    twin (the kernel-6 steps: every layer's call against kernel 6's twin,
+    ``LayerTwinCheck``; the fused step: against
+    ``fused_decoder_stack_plain`` at phase 4's limits, ``kv8_vs_plain``),
+    since random 7B weights repeat a token; each stream against kernel 7's
+    single-card step on the same 8-bit cache, teacher-forced, under the
+    top-2-gap rule.  Counts are set to 0 just before each stream and read
+    just after: kernel 6's fp8 launches (L a step) or kernel 7's 8-bit
+    ones (one a step).  ms per step and tokens/s beside phase 14's bf16-KV
+    steps.  Returns {"k6_fp8": kernel 6's fp8 launches in the tp and sp
+    streams, "k7_int8", "k7_fp8": kernel 7's in the fused streams}."""
+    import torch.distributed as dist
+    from clusterfusion_tpu_torch import parallel as par
+    from clusterfusion_tpu_torch.config import MeshConfig
+    from clusterfusion_tpu_torch.models import llama as model
+    from clusterfusion_tpu_torch.ops import decoder_layer as dl
+    from clusterfusion_tpu_torch.ops import stack_kernel as sk
+    from clusterfusion_tpu_torch.parallel import decode as par_decode
+    from clusterfusion_tpu_torch.parallel import sp_decode as par_sp
+    cfg, L = eng.cfg, eng.cfg.n_layers
+    lw = eng.params["layers"]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    launched = {"k6_fp8": 0}
+    try:
+        mesh = par.build_mesh(MeshConfig())
+        params = par.shard_params(eng.params, cfg, mesh)
+        text = ("The quick brown fox jumps over the lazy dog. " * 20)[:511]
+        prompt = eng.tokenizer.encode(text, bos=True, eos=False)
+        for fmt, kv_dtype in (("fp8", torch.float8_e4m3fn), ("int8", "int8")):
+            k0, v0 = model.init_cache(cfg, device=dev, dtype=kv_dtype)
+            lg, k0, v0 = model.prefill(eng.params, k0, v0, prompt, cfg)
+            first, pos0 = int(torch.argmax(lg[-1])), len(prompt)
+            runs = [("fused", 32, par.make_sharded_decode_step,
+                     par.cache_pspec(), None)]
+            if fmt == "fp8":
+                runs = [("tp", 32, par.make_sharded_decode_step,
+                         par.cache_pspec(), par_decode),
+                        ("sp", 8, par.make_sp_sharded_decode_step,
+                         par.cache_pspec_2d(), par_sp)] + runs
+            for name, n, make, spec, mod in runs:
+                step = make(cfg, mesh, fused_collectives=True) \
+                    if name == "fused" else make(cfg, mesh)
+
+                def fresh():
+                    return (par.shard_cache(kv_take(k0, 0, L), mesh, spec),
+                            par.shard_cache(kv_take(v0, 0, L), mesh, spec))
+                kc, vc = fresh()
+                if mod is not None:     # every layer against kernel 6's twin
+                    with LayerTwinCheck(mod) as chk:
+                        step(params, kc, vc, first, pos0)
+                    torch.cuda.synchronize()
+                    twin = dict(held="each layer against kernel 6's twin, "
+                                     "teacher-forced",
+                                layer_calls=chk.calls,
+                                worst_out_err=f"{chk.worst[0]:.3g}",
+                                worst_row_err=f"{chk.worst[1]:.3g}",
+                                past_limits=chk.bad)
+                    twin_ok = not chk.bad and chk.calls == L
+                else:                   # the whole step against its twin
+                    kp, vp = fresh()
+                    lg1, _, _ = step(params, kc, vc, first, pos0)
+                    cos, sin = model.rope_row(cfg, pos0, dev)
+                    x = eng.params["embed"][torch.tensor([first], device=dev)]
+                    ref = sk.fused_decoder_stack_plain(
+                        x, lw["attn_norm"], lw["ffn_norm"], cos, sin,
+                        lw["wqkv_f"], lw["wo_f"], lw["w13"], lw["w2"], kp, vp,
+                        pos0, group=cfg.n_heads // cfg.kv_heads,
+                        head_dim=cfg.head_dim_, rope_style=cfg.rope_style,
+                        eps=cfg.norm_eps, final_norm=eng.params["final_norm"],
+                        lm_head=eng.params["lm_head"])
+                    # the step returns no residual: its logits stand in
+                    # for kv8_vs_plain's finiteness check of one
+                    _, twin_ok = kv8_vs_plain(
+                        "kv8_sharded", fmt, (lg1[None], lg1[None]), ref, kc,
+                        vc, kp, vp, pos0, 1, step=name,
+                        check="teacher-forced step against the plain twin")
+                    twin = dict(held="the step against "
+                                     "fused_decoder_stack_plain, "
+                                     "teacher-forced")
+                    del kp, vp
+                kc, vc = fresh()
+                tok = torch.tensor(first, device=dev)
+                dl.launches = dl.fp8_launches = sk.launches = 0
+                for k in sk.kv8_launches:
+                    sk.kv8_launches[k] = 0
+                out = []
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i in range(n):
+                    lg, kc, vc = step(params, kc, vc, tok, pos0 + i)
+                    tok = torch.argmax(lg)
+                    out.append(tok)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                got = dict(kernel6=dl.launches, kernel6_fp8=dl.fp8_launches,
+                           kernel7=sk.launches,
+                           kernel7_kv8=sum(sk.kv8_launches.values()))
+                want = dict(kernel6=0, kernel6_fp8=0, kernel7=n,
+                            kernel7_kv8=n) if name == "fused" else dict(
+                    kernel6=L * n, kernel6_fp8=L * n, kernel7=0,
+                    kernel7_kv8=0)
+                if name == "fused":
+                    launched[f"k7_{fmt}"] = got["kernel7_kv8"]
+                else:
+                    launched["k6_fp8"] += got["kernel6_fp8"]
+                toks = [int(t) for t in out]
+                finite = bool(torch.isfinite(lg).all())
+                ref, gaps, bad = check_against_stack(eng.params, cfg, k0, v0,
+                                                     pos0, first, toks)
+                bf16 = FIGURES.get(f"sharded_{name}_ms_per_step")
+                say("kv8_sharded", step=name, kv=fmt,
+                    mesh="tp=1,sp=1 (one rank, nccl)", prompt_tokens=pos0,
+                    new_tokens=n, ms_per_step=f"{dt * 1e3 / n:.3f}",
+                    tokens_per_s=f"{n / dt:.2f}",
+                    bf16_kv_ms_per_step=("not measured" if bf16 is None
+                                         else f"{bf16:.3f}"),
+                    launches=got, finite=finite, tokens=toks[:8],
+                    kernel7_tokens=ref[:8],
+                    agree=f"{sum(a == b for a, b in zip(ref, toks))}/{n}",
+                    disagree_where_gap_gt_0_1=bad,
+                    min_top2_gap=f"{min(gaps):.3g}", **twin)
+                if got != want or not finite or bad or not twin_ok:
+                    raise AssertionError(
+                        f"the {name} step on an {fmt} cache: launches {got} "
+                        f"(want {want}), kernel 7 agreement ({bad}) or the "
+                        "twin check wrong")
+                del kc, vc
+            del k0, v0
+    finally:
+        dist.destroy_process_group()
+    return launched
+
+
 # -- int4 on the multi-card paths (phases 32-34) ------------------------------
 
 
@@ -5981,7 +6476,10 @@ def _multicard_steps(rank, world, dev, mesh, n=32):
     kernel 6's.  Then the same on the int4 tree (regrouped alike, groups of
     128, the bf16 LM head) in the exact mode, whose sharded steps are
     kernel 7's exact function: kernel 7's int4 mode 5, kernel 6's int4
-    mode."""
+    mode.  Then the bf16 weights on 8-bit caches prefilled alike: the
+    fused and the NCCL step on an fp8 cache (kernel 7's 8-bit mode 5,
+    kernel 6's fp8 mode) and the fused step on an ``Int8KV`` cache (the
+    NCCL step refuses one, as JAX's does)."""
     import torch.distributed as dist
     from clusterfusion_tpu_torch import parallel as par
     from clusterfusion_tpu_torch.config import KernelConfig, LlamaConfig
@@ -6006,18 +6504,29 @@ def _multicard_steps(rank, world, dev, mesh, n=32):
                                               "int4")))
     params4 = par.shard_params(full4, cfg, mesh)
     exact = KernelConfig(int4_w4a8=False)
+    caches = {None: (k0, v0)}
+    for fmt, kv_dtype in KV8_FORMATS:
+        kq, vq = model.init_cache(cfg, max_seq=1024, device=dev,
+                                  dtype=kv_dtype)
+        _, kq, vq = model.prefill(full, kq, vq, prompt, cfg)
+        caches[fmt] = (kq, vq)
     out, steps = {}, {}
     for name, fused, full_, params_ in (
             ("fused", True, full, params), ("nccl", False, full, params),
             ("fused_int8", True, full8, params8),
             ("nccl_int8", False, full8, params8),
             ("fused_int4", True, full4, params4),
-            ("nccl_int4", False, full4, params4)):
+            ("nccl_int4", False, full4, params4),
+            ("fused_fp8", True, full, params), ("nccl_fp8", False, full, params),
+            ("fused_kvint8", True, full, params)):
         int8, int4 = name.endswith("_int8"), name.endswith("_int4")
+        fmt = "fp8" if name.endswith("_fp8") else (
+            "int8" if name.endswith("_kvint8") else None)
         kcfg = exact if int4 else KernelConfig()
         step = par.make_sharded_decode_step(cfg, mesh, kcfg,
                                             fused_collectives=fused)
-        kc, vc = par.shard_cache(k0, mesh), par.shard_cache(v0, mesh)
+        k0_, v0_ = caches[fmt]
+        kc, vc = par.shard_cache(k0_, mesh), par.shard_cache(v0_, mesh)
         for i in range(2):                       # warm-up, rows rewritten
             step(params_, kc, vc, first, pos0 + i)
         dist.barrier()
@@ -6027,6 +6536,9 @@ def _multicard_steps(rank, world, dev, mesh, n=32):
         sk.launches = dl.launches = sk.last_step_kernels = 0
         sk.int8_launches = dl.int8_launches = 0
         sk.int4_launches = dl.int4_launches = 0
+        dl.fp8_launches = 0
+        for k in sk.kv8_launches:
+            sk.kv8_launches[k] = 0
         tok, toks, logs = torch.tensor(first, device=dev), [], []
         t0 = time.perf_counter()
         for i in range(n):
@@ -6053,6 +6565,9 @@ def _multicard_steps(rank, world, dev, mesh, n=32):
         if int4:
             launched.update(kernel7_int4=sk.int4_launches,
                             kernel6_int4=dl.int4_launches)
+        if fmt is not None:
+            launched.update(kernel7_kv8=sum(sk.kv8_launches.values()),
+                            kernel6_fp8=dl.fp8_launches)
         # the fused step: kernel 7 once, 8L+3 kernels, its 2L reduces and
         # the logits' gather inside them, no standalone kernel 13 or 14
         want = (dict(kernel7=n, kernel6=0, kernel13=2 * L * n, kernel14=n,
@@ -6068,12 +6583,16 @@ def _multicard_steps(rank, world, dev, mesh, n=32):
         if int4:
             want.update(kernel7_int4=want["kernel7"],
                         kernel6_int4=want["kernel6"])
+        if fmt is not None:
+            want.update(kernel7_kv8=want["kernel7"],
+                        kernel6_fp8=want["kernel6"])
         toks = [int(t) for t in toks]
         bad = []
         if rank == 0:
-            ref, gaps, bad = check_against_stack(full_, cfg, k0, v0, pos0,
+            ref, gaps, bad = check_against_stack(full_, cfg, k0_, v0_, pos0,
                                                  first, toks, kcfg)
-            say("multicard", step=name, tp=world, prompt_tokens=pos0,
+            say("multicard", step=name, tp=world, kv=fmt or "bf16",
+                prompt_tokens=pos0,
                 new_tokens=n, ms_per_step=f"{dt * 1e3 / n:.3f}",
                 tokens_per_s=f"{n / dt:.2f}", **launched,
                 ranks_logits_bit_identical=same, tokens=toks[:8],
@@ -6087,7 +6606,7 @@ def _multicard_steps(rank, world, dev, mesh, n=32):
                                  f"{launched} (want {want}), tokens {bad} or "
                                  f"ranks' logits identical: {same}")
         out[f"{name}_ms_per_step"] = dt * 1e3 / n
-        if not int8 and not int4:
+        if not int8 and not int4 and fmt is None:
             steps[name] = (step, kc, vc)
     # each step's device time by pass on rank 0, after the wall clocks (a
     # profiler session slows the launches after it); every rank profiles
@@ -6256,6 +6775,11 @@ def main() -> int:
     verify_kv8 = phase_kv8_verify(eng, eng8, eng4, dev, hbm, peak)
     kv8_launches = phase_kv8_e2e(eng, dev)
     say("phases_35_37", seconds=f"{time.perf_counter() - t35:.1f}")
+    t38 = time.perf_counter()
+    layer_kv8 = phase_kv8_layer(eng, eng8, eng4, dev, hbm, peak)
+    mode5_kv8, fused_kv8_launches = phase_kv8_mode5(eng, eng8, dev, hbm, peak)
+    sharded_kv8_launches = phase_kv8_sharded(eng, dev)
+    say("phases_38_40", seconds=f"{time.perf_counter() - t38:.1f}")
     t32 = time.perf_counter()
     layer4_rows = phase_int4_layer(eng4, eng8, eng, dev, hbm, peak)
     del eng, eng8
@@ -6384,6 +6908,16 @@ def main() -> int:
              source="clusterfusion_tpu_torch/csrc/decoder_layer.cu",
              replaces="clusterfusion_tpu/ops/decoder_layer.py:421",
              launches=layer_launches_tp_sp, **layer_row),
+        dict(name="_fused_decoder_layer (fp8 KV cache)", route="cuda",
+             source="clusterfusion_tpu_torch/csrc/decoder_layer.cu",
+             replaces="clusterfusion_tpu/ops/decoder_layer.py:421",
+             launches=sharded_kv8_launches["k6_fp8"], **layer_kv8),
+        *(dict(name=f"fused_decoder_stack mode 5 ({fmt} KV cache)",
+               route="cuda",
+               source="clusterfusion_tpu_torch/csrc/stack_kernel.cu",
+               replaces="clusterfusion_tpu/ops/stack_kernel.py:524",
+               launches=fused_kv8_launches[fmt], **mode5_kv8[fmt])
+          for fmt in ("int8", "fp8")),
         dict(name="_fused_decoder_layer (int8 weights)", route="cuda",
              source="clusterfusion_tpu_torch/csrc/decoder_layer.cu",
              replaces="clusterfusion_tpu/ops/decoder_layer.py:421",

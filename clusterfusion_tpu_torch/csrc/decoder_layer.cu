@@ -5,14 +5,15 @@
 //
 // Replaces the TPU kernel `_fused_decoder_layer`
 // (clusterfusion_tpu/ops/decoder_layer.py, `_decoder_layer_kernel`) for
-// bf16, int8 or int4 weights, a bf16 KV cache, no window, no bias and no softcap, with
-// one layer's slices of its layouts:
+// bf16, int8 or int4 weights, a bf16 or fp8 e4m3 KV cache, no window, no
+// bias and no softcap, with one layer's slices of its layouts:
 //   wqkv [G, hidden, hg*(g+2)*hd]   columns per kv head [q_0..q_{g-1}|k|v]
 //   wo   [G, hg*g*hd, hidden]       caches [kv_heads, cap, hd]
 // (the wrapper passes pointers into the [L, ...] stacks; nothing is
 // copied).  Its modes, as the TPU kernel's:
 //   residual    h = x + residual, res_out = bf16(h); or (nullptr) h = x
-//   append      write the bf16 k/v rows at row `seq` of the cache
+//   append      write the k/v rows at row `seq` of the cache (bf16, or
+//               e4m3 of the float32 rows)
 //   fold        fold the current token into the softmax state or not
 //   partials    (acc_out given) no O-projection: write the unnormalised
 //               acc [kv*g, hd] and ml [2, kv*g] (log2-domain max and sum,
@@ -101,6 +102,19 @@
 // summation order), two launches a call.  The exact O stays in the
 // layer's own tile loop and ordered fold.  Partials mode streams the int4
 // QKV only.
+//
+// An fp8 e4m3 KV cache (KV == KV_FP8; the TPU kernel's kv_kind == "fp8",
+// beside any weight kind, in every mode): a row is hd bytes, so each K or V
+// tile of G.tr rows is one bulk copy of half the bf16 tile's bytes into the
+// same 16 KB stages.  Q.K and P.V keep the bf16 path's pieces of 8 elements
+// (a piece is 8 bytes, one 8-byte shared load) and decode each byte exactly
+// to float with e4m3 denormals (|v| <= 0.0137) flushed to 0, as the TPU
+// kernel's fp8_decode_scaled (common.cuh's unpack8_e4m3, kernel 7's
+// decode); the score is bf16(q) . k in float32 and p stays bf16-rounded.
+// The append stores e4m3 straight from the float32 roped k and the float32
+// v (saturating at +-448), no bf16 step between; k_new/v_new stay bf16 and
+// the current token's fold stays float32.  An Int8KV cache is not taken:
+// the TPU kernel reads none either.
 
 #include <string.h>
 
@@ -172,16 +186,20 @@ __host__ __device__ inline DlSmem dl_smem(const DlGeom& G, bool x8 = false) {
 // weight kind; int8 and int4 weights come with the scales sq and so
 // (unused, and null, in the bf16 instances).  WK_INT4A8 writes o (bf16
 // [kv*g*hd]) to `out` and projects nothing (the ring GEMV's W4A8 instance
-// runs the O projection after it).
-template <int GT, int HDT, int WK>
+// runs the O projection after it).  KV: the cache kind (KV_BF16 or
+// KV_FP8, whose rows are bytes).
+template <int KV>
+using dl_row_t = std::conditional_t<KV == KV_FP8, uint8_t, __nv_bfloat16>;
+
+template <int GT, int HDT, int WK, int KV = KV_BF16>
 __global__ void __launch_bounds__(OL_BLOCK, 1)
 decoder_layer_kernel(const __grid_constant__ CUtensorMap qmap,
                      const __grid_constant__ CUtensorMap omap, DlGeom G,
                      const __nv_bfloat16* __restrict__ x,
                      const __nv_bfloat16* __restrict__ res,
                      const __nv_bfloat16* __restrict__ rms_w, const float* __restrict__ cos,
-                     const float* __restrict__ sin, __nv_bfloat16* kc,
-                     __nv_bfloat16* vc, __nv_bfloat16* __restrict__ out,
+                     const float* __restrict__ sin, dl_row_t<KV>* kc,
+                     dl_row_t<KV>* vc, __nv_bfloat16* __restrict__ out,
                      __nv_bfloat16* __restrict__ res_out, __nv_bfloat16* __restrict__ k_new,
                      __nv_bfloat16* __restrict__ v_new, float* __restrict__ acc_out,
                      float* __restrict__ ml_out, float* part, unsigned* ctr,
@@ -190,6 +208,8 @@ decoder_layer_kernel(const __grid_constant__ CUtensorMap qmap,
   constexpr bool W8 = WK == WK_INT8, W4 = WK >= WK_INT4, A8 = WK == WK_INT4A8;
   constexpr int EB = W8 || W4 ? 1 : 2;            // bytes per weight (int4: a code pair)
   constexpr int KR = W4 ? 2 : 1;                  // k rows per weight row
+  constexpr bool F8 = KV == KV_FP8;
+  constexpr int KB = F8 ? 1 : 2;                  // bytes per cache element
   extern __shared__ __align__(1024) unsigned char dl_sm[];
   const DlSmem S = dl_smem(G, A8);
   uint64_t* full = reinterpret_cast<uint64_t*>(dl_sm);   // [nst] bytes landed
@@ -237,8 +257,8 @@ decoder_layer_kernel(const __grid_constant__ CUtensorMap qmap,
   const int no = (A8 || G.partials || ocl == 0) ? 0 : (ghd / KR + G.ro - 1) / G.ro;
   const int total = nq + nkv + no;
   const int grp = h / G.hg, hin = h % G.hg;
-  const __nv_bfloat16* kh = kc + (size_t)h * G.cap * hd;
-  const __nv_bfloat16* vh = vc + (size_t)h * G.cap * hd;
+  const dl_row_t<KV>* kh = kc + (size_t)h * G.cap * hd;
+  const dl_row_t<KV>* vh = vc + (size_t)h * G.cap * hd;
 
   // the producer (lane 0): tile u into stage u % nst.  A QKV box is [rq rows]
   // [cw/pw][pw] of the map over the layer's wqkv as [G*hidden][hg*(g+2)*hd
@@ -263,7 +283,7 @@ decoder_layer_kernel(const __grid_constant__ CUtensorMap qmap,
       if (is_v) v -= ntk;
       const int r0 = (rank + (j0 + v / ntf) * C) * G.split, t = v % ntf;
       const int n = min(G.split, G.seq - r0);
-      const uint32_t bytes = (uint32_t)min(G.tr, n - t * G.tr) * hd * 2;
+      const uint32_t bytes = (uint32_t)min(G.tr, n - t * G.tr) * hd * KB;
       hopper::mbar_arrive_expect_tx(&full[s], bytes);
       hopper::bulk_load_1d(dst, (is_v ? vh : kh) + (size_t)(r0 + t * G.tr) * hd, bytes,
                            &full[s]);
@@ -402,8 +422,13 @@ decoder_layer_kernel(const __grid_constant__ CUtensorMap qmap,
       v_new[(size_t)h * hd + d] = __float2bfloat16(vcur[d]);
       if (G.append) {
         const size_t row = ((size_t)h * G.cap + G.seq) * hd + d;
-        kc[row] = __float2bfloat16(kd);
-        vc[row] = __float2bfloat16(vcur[d]);
+        if constexpr (F8) {     // e4m3 of the float32 rows
+          kc[row] = __nv_cvt_float_to_fp8(kd, __NV_SATFINITE, __NV_E4M3);
+          vc[row] = __nv_cvt_float_to_fp8(vcur[d], __NV_SATFINITE, __NV_E4M3);
+        } else {
+          kc[row] = __float2bfloat16(kd);
+          vc[row] = __float2bfloat16(vcur[d]);
+        }
       }
     }
   }
@@ -455,12 +480,15 @@ decoder_layer_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
         for (int i = 0; i < GT; ++i) a[i] = a2[i] = 0.f;
         if (kr_row < rows) {
-          const unsigned char* krow = st + kr_row * hd * 2;
+          const unsigned char* krow = st + kr_row * hd * KB;
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             if (c < npq) {
               float kf[8];
-              unpack8(*reinterpret_cast<const uint4*>(krow + kpc[c] * 16), kf);
+              if constexpr (F8)   // a piece of 8 e4m3 bytes
+                unpack8_e4m3(*reinterpret_cast<const uint2*>(krow + kpc[c] * 8), kf);
+              else
+                unpack8(*reinterpret_cast<const uint4*>(krow + kpc[c] * 16), kf);
 #pragma unroll
               for (int i = 0; i < GT; ++i) {
                 if (i < g) {
@@ -543,7 +571,10 @@ decoder_layer_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll 4
           for (int rr = sl; rr < rows; rr += slices) {
             float vf[8];
-            unpack8(*reinterpret_cast<const uint4*>(st + rr * hd * 2 + cgi * 16), vf);
+            if constexpr (F8)
+              unpack8_e4m3(*reinterpret_cast<const uint2*>(st + rr * hd + cgi * 8), vf);
+            else
+              unpack8(*reinterpret_cast<const uint4*>(st + rr * hd * 2 + cgi * 16), vf);
 #pragma unroll
             for (int i = 0; i < GT; ++i) {
               if (i < g) {
@@ -700,28 +731,41 @@ DlGeom dl_geom(DlGeom G, int c, int wk) {
   return G;
 }
 
-using DlKernel = decltype(&decoder_layer_kernel<1, 0, WK_BF16>);
+template <int KV>
+using DlKernel = decltype(&decoder_layer_kernel<1, 0, WK_BF16, KV>);
 
-template <int HDT, int WK>
-DlKernel dl_kernel_hd(int g) {
-  return g <= 1   ? decoder_layer_kernel<1, HDT, WK>
-         : g <= 2 ? decoder_layer_kernel<2, HDT, WK>
-         : g <= 4 ? decoder_layer_kernel<4, HDT, WK>
-                  : decoder_layer_kernel<8, HDT, WK>;
+template <int HDT, int WK, int KV>
+DlKernel<KV> dl_kernel_hd(int g) {
+  return g <= 1   ? decoder_layer_kernel<1, HDT, WK, KV>
+         : g <= 2 ? decoder_layer_kernel<2, HDT, WK, KV>
+         : g <= 4 ? decoder_layer_kernel<4, HDT, WK, KV>
+                  : decoder_layer_kernel<8, HDT, WK, KV>;
 }
 
-template <int WK>
-DlKernel dl_kernel_wk(int g, int hd) {
-  return hd == 128 ? dl_kernel_hd<128, WK>(g) : dl_kernel_hd<0, WK>(g);
+template <int WK, int KV>
+DlKernel<KV> dl_kernel_wk(int g, int hd) {
+  return hd == 128 ? dl_kernel_hd<128, WK, KV>(g) : dl_kernel_hd<0, WK, KV>(g);
 }
 
-// The instantiation for a group of g query rows of head dim hd and weight
-// kind wk.
-DlKernel dl_kernel(int g, int hd, int wk) {
-  return wk == WK_INT8     ? dl_kernel_wk<WK_INT8>(g, hd)
-         : wk == WK_INT4   ? dl_kernel_wk<WK_INT4>(g, hd)
-         : wk == WK_INT4A8 ? dl_kernel_wk<WK_INT4A8>(g, hd)
-                           : dl_kernel_wk<WK_BF16>(g, hd);
+// The instantiation for a group of g query rows of head dim hd, weight
+// kind wk and cache kind KV (KV_BF16 or KV_FP8).
+template <int KV>
+DlKernel<KV> dl_kernel(int g, int hd, int wk) {
+  return wk == WK_INT8     ? dl_kernel_wk<WK_INT8, KV>(g, hd)
+         : wk == WK_INT4   ? dl_kernel_wk<WK_INT4, KV>(g, hd)
+         : wk == WK_INT4A8 ? dl_kernel_wk<WK_INT4A8, KV>(g, hd)
+                           : dl_kernel_wk<WK_BF16, KV>(g, hd);
+}
+
+// ol_device and ol_active_clusters of the instance for (g, hd, wk, kv).
+int dl_device(int g, int hd, int wk, int kv, int* num_sms, int* max_cluster) {
+  return kv == KV_FP8 ? ol_device(dl_kernel<KV_FP8>(g, hd, wk), num_sms, max_cluster)
+                      : ol_device(dl_kernel<KV_BF16>(g, hd, wk), num_sms, max_cluster);
+}
+
+int dl_active(int g, int hd, int wk, int kv, int c, size_t smem, int blocks) {
+  return kv == KV_FP8 ? ol_active_clusters(dl_kernel<KV_FP8>(g, hd, wk), c, smem, blocks)
+                      : ol_active_clusters(dl_kernel<KV_BF16>(g, hd, wk), c, smem, blocks);
 }
 
 // The two weights' tensor maps of one call and the weight kind they were
@@ -756,24 +800,23 @@ bool dl_maps(DlMaps* m, const DlGeom& G, const void* wqkv, const void* wo, int w
                                      CU_TENSOR_MAP_SWIZZLE_NONE));
 }
 
-// The cluster size for this geometry and weight kind on the current device
-// (cached): the largest, up to SMs / kv heads, whose kv_heads clusters the
-// card holds all at once; else the largest that fits at all.  *act (if
-// given) receives the clusters of that size the card holds.  Returns a
-// cudaError_t.
-int dl_pick(int hidden, int kv_heads, int group, int hd, int kv_split, int wk, int* c_out,
-            int* act_out) {
+// The cluster size for this geometry, weight kind and cache kind on the
+// current device (cached): the largest, up to SMs / kv heads, whose kv_heads
+// clusters the card holds all at once; else the largest that fits at all.
+// *act (if given) receives the clusters of that size the card holds.
+// Returns a cudaError_t.
+int dl_pick(int hidden, int kv_heads, int group, int hd, int kv_split, int wk, int kv,
+            int* c_out, int* act_out) {
   int num_sms = 0, max_cluster = 0;
-  const DlKernel kern = dl_kernel(group, hd, wk);
-  CF_CHECK(ol_device(kern, &num_sms, &max_cluster));
-  static struct { int dev, hidden, kv, g, hd, split, wk, c, act; } picks[32];
+  CF_CHECK(dl_device(group, hd, wk, kv, &num_sms, &max_cluster));
+  static struct { int dev, hidden, kv, g, hd, split, wk, kvk, c, act; } picks[32];
   static int n_picks = 0;
   int dev = 0;
   CF_CHECK((int)cudaGetDevice(&dev));
   for (int i = 0; i < n_picks; ++i)
     if (picks[i].dev == dev && picks[i].hidden == hidden && picks[i].kv == kv_heads &&
         picks[i].g == group && picks[i].hd == hd && picks[i].split == kv_split &&
-        picks[i].wk == wk) {
+        picks[i].wk == wk && picks[i].kvk == kv) {
       *c_out = picks[i].c;
       if (act_out) *act_out = picks[i].act;
       return 0;
@@ -787,7 +830,7 @@ int dl_pick(int hidden, int kv_heads, int group, int hd, int kv_split, int wk, i
     const DlGeom Gt = dl_geom(G, t, wk);
     if (Gt.nst == 0) continue;
     const int a =
-        ol_active_clusters(kern, t, dl_smem(Gt, wk == WK_INT4A8).total, t * kv_heads);
+        dl_active(group, hd, wk, kv, t, dl_smem(Gt, wk == WK_INT4A8).total, t * kv_heads);
     if (a >= 1 && c == 0) {
       c = t;
       act = a;
@@ -800,24 +843,41 @@ int dl_pick(int hidden, int kv_heads, int group, int hd, int kv_split, int wk, i
   }
   if (c == 0) return (int)cudaErrorInvalidValue;
   if (n_picks < 32)
-    picks[n_picks++] = {dev, hidden, kv_heads, group, hd, kv_split, wk, c, act};
+    picks[n_picks++] = {dev, hidden, kv_heads, group, hd, kv_split, wk, kv, c, act};
   *c_out = c;
   if (act_out) *act_out = act;
   return 0;
 }
 
+// One launch of the layer kernel of cache kind KV (the arguments after the
+// cache rows as decoder_layer_kernel takes them).
+template <int KV, typename... Args>
+int dl_launch(const DlGeom& G, const DlMaps& m, int c, cudaStream_t st, const void* x,
+              const void* res, const void* rms_w, const float* cos, const float* sin, void* kc,
+              void* vc, Args... rest) {
+  return launch_kernel_cluster(dl_kernel<KV>(G.g, G.hd, m.wk), dim3(1, c * G.kv),
+                               dim3(OL_BLOCK), dl_smem(G, m.wk == WK_INT4A8).total, st, false,
+                               c, m.q, m.o, G, static_cast<const __nv_bfloat16*>(x),
+                               static_cast<const __nv_bfloat16*>(res),
+                               static_cast<const __nv_bfloat16*>(rms_w), cos, sin,
+                               static_cast<dl_row_t<KV>*>(kc), static_cast<dl_row_t<KV>*>(vc),
+                               rest...);
+}
+
 }  // namespace
 
 // The launch plan of cf_decoder_layer for this geometry on the current
-// device (wk: the weight kind, common.cuh's WK_*), into info[0..20]: blocks
-// per cluster, blocks, ring stages, shared bytes per block, clusters the
-// card holds at that size, then for cluster sizes 1..16 the clusters the
-// card holds (0 where none fits).  Returns a cudaError_t.
+// device (wk: the weight kind, common.cuh's WK_*; kv: the cache kind,
+// KV_BF16 or KV_FP8), into info[0..20]: blocks per cluster, blocks, ring
+// stages, shared bytes per block, clusters the card holds at that size,
+// then for cluster sizes 1..16 the clusters the card holds (0 where none
+// fits).  Returns a cudaError_t.
 extern "C" int cf_decoder_layer_plan(int hidden, int kv_heads, int group, int hd,
-                                     int kv_split, int wk, int* info) {
-  if (wk < WK_BF16 || wk > WK_INT4A8) return (int)cudaErrorInvalidValue;
+                                     int kv_split, int wk, int kv, int* info) {
+  if (wk < WK_BF16 || wk > WK_INT4A8 || (kv != KV_BF16 && kv != KV_FP8))
+    return (int)cudaErrorInvalidValue;
   int c = 0, act = 0;
-  CF_CHECK(dl_pick(hidden, kv_heads, group, hd, kv_split, wk, &c, &act));
+  CF_CHECK(dl_pick(hidden, kv_heads, group, hd, kv_split, wk, kv, &c, &act));
   DlGeom G{hidden, kv_heads, 1, group, hd, 0, 0, kv_split};
   G.ns = 1 << 20;
   const bool x8 = wk == WK_INT4A8;
@@ -829,8 +889,7 @@ extern "C" int cf_decoder_layer_plan(int hidden, int kv_heads, int group, int hd
   info[4] = act;
   for (int t = 1; t <= OL_MAX_CLUSTER; ++t) {
     const DlGeom Gt = dl_geom(G, t, wk);
-    info[4 + t] = Gt.nst ? ol_active_clusters(dl_kernel(group, hd, wk), t,
-                                              dl_smem(Gt, x8).total, t * kv_heads)
+    info[4 + t] = Gt.nst ? dl_active(group, hd, wk, kv, t, dl_smem(Gt, x8).total, t * kv_heads)
                          : 0;
   }
   return 0;
@@ -846,8 +905,9 @@ extern "C" long long cf_decoder_layer_scratch_floats(int hidden, int kv_heads) {
 // The attention half of one layer at `seq` cached rows, on `stream`.
 // x, residual (nullptr: no residual add), rms_w, out, res_out
 // (nullptr: not written) are bf16 [hidden]; cos/sin f32 [hd]; k_new/v_new
-// bf16 [kv, hd]; kc/vc the layer's bf16 [kv, cap, hd] cache, row `seq`
-// written when `append`.  acc_out (f32 [kv*g, hd]) and ml_out (f32
+// bf16 [kv, hd]; kc/vc the layer's [kv, cap, hd] cache of kind kv_kind
+// (KV_BF16: bf16 rows; KV_FP8: e4m3 rows, the appended row e4m3 of the
+// float32 row), row `seq` written when `append`.  acc_out (f32 [kv*g, hd]) and ml_out (f32
 // [2, kv*g]) given: partials mode, wo and out unused.  scratch: see
 // cf_decoder_layer_scratch_floats (one per stream: calls on one stream
 // take turns with it).  stamps: nullptr, or zeroed uint64 [16 * kv_heads]
@@ -874,12 +934,13 @@ extern "C" int cf_decoder_layer(
     void* ml_out, void* scratch, int hidden, int kv_heads, int hg, int group,
     int hd, int cap, int seq, int fold, int append, int neox, float eps,
     int kv_split, void* stamps, int* n_launches, void* stream, const void* wqkv_s,
-    const void* wo_s, int wk, void* o_buf, int o_threads) {
+    const void* wo_s, int wk, void* o_buf, int o_threads, int kv_kind) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   *n_launches = 0;
   const bool partials = acc_out != nullptr;
   const bool w4 = wk == WK_INT4 || wk == WK_INT4A8, a8 = wk == WK_INT4A8 && !partials;
-  if (wk < WK_BF16 || wk > WK_INT4A8) return (int)cudaErrorInvalidValue;
+  if (wk < WK_BF16 || wk > WK_INT4A8 || (kv_kind != KV_BF16 && kv_kind != KV_FP8))
+    return (int)cudaErrorInvalidValue;
   if (wk != WK_BF16 &&
       (wqkv_s == nullptr || (!partials && wo_s == nullptr) || hidden % 16 != 0))
     return (int)cudaErrorInvalidValue;
@@ -899,7 +960,7 @@ extern "C" int cf_decoder_layer(
   G.ns = (seq + kv_split - 1) / kv_split;
   G.eps = eps;
   int c = 0;
-  CF_CHECK(dl_pick(hidden, kv_heads, group, hd, kv_split, wk, &c, nullptr));
+  CF_CHECK(dl_pick(hidden, kv_heads, group, hd, kv_split, wk, kv_kind, &c, nullptr));
   G = dl_geom(G, c, wk);
   DlMaps m;
   if (!dl_maps(&m, G, wqkv, wo, wk)) return (int)cudaErrorInvalidValue;
@@ -910,18 +971,19 @@ extern "C" int cf_decoder_layer(
   float* part = static_cast<float*>(scratch);
   unsigned* ctr = reinterpret_cast<unsigned*>(
       part + (size_t)(kv_heads + ol_fold_groups(kv_heads, DL_FOLD_GROUP)) * hidden);
-  CF_CHECK(launch_kernel_cluster(
-      dl_kernel(group, hd, m.wk), dim3(1, c * kv_heads), dim3(OL_BLOCK),
-      dl_smem(G, m.wk == WK_INT4A8).total, st, false, c, m.q, m.o, G,
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(residual), static_cast<const __nv_bfloat16*>(rms_w),
-      static_cast<const float*>(cos), static_cast<const float*>(sin),
-      static_cast<__nv_bfloat16*>(kc), static_cast<__nv_bfloat16*>(vc),
-      static_cast<__nv_bfloat16*>(a8 ? o_buf : out), static_cast<__nv_bfloat16*>(res_out),
-      static_cast<__nv_bfloat16*>(k_new), static_cast<__nv_bfloat16*>(v_new),
-      static_cast<float*>(acc_out), static_cast<float*>(ml_out), part, ctr,
-      static_cast<unsigned long long*>(stamps), static_cast<const float*>(wqkv_s),
-      static_cast<const float*>(wo_s)));
+  auto launch = [&](auto kind) {
+    return dl_launch<decltype(kind)::value>(
+        G, m, c, st, x, residual, rms_w, static_cast<const float*>(cos),
+        static_cast<const float*>(sin), kc, vc, static_cast<__nv_bfloat16*>(a8 ? o_buf : out),
+        static_cast<__nv_bfloat16*>(res_out), static_cast<__nv_bfloat16*>(k_new),
+        static_cast<__nv_bfloat16*>(v_new), static_cast<float*>(acc_out),
+        static_cast<float*>(ml_out), part, ctr, static_cast<unsigned long long*>(stamps),
+        static_cast<const float*>(wqkv_s), static_cast<const float*>(wo_s));
+  };
+  if (kv_kind == KV_FP8)
+    CF_CHECK(launch(std::integral_constant<int, KV_FP8>()));
+  else
+    CF_CHECK(launch(std::integral_constant<int, KV_BF16>()));
   *n_launches = 1;
   if (a8) {
     CF_CHECK((launch_gemv1<false, G1_Y, WK_INT4A8>(

@@ -3,8 +3,8 @@
 //
 // Replaces the TPU kernel `fused_decoder_stack`
 // (clusterfusion_tpu/ops/stack_kernel.py, `_stack_kernel`) for bf16, int8
-// or int4 weights, a bf16, int8 (Int8KV) or fp8 e4m3 KV cache (8-bit: not
-// in mode 5), no window, no bias and no sandwich norms,
+// or int4 weights, a bf16, int8 (Int8KV) or fp8 e4m3 KV cache (in mode 5
+// too), no window, no bias and no sandwich norms,
 // with the same layouts:
 //   wqkv_f [L, G, hidden, hg*(g+2)*hd]  columns per kv head [q_0..q_{g-1}|k|v]
 //   wo_f   [L, G, hg*g*hd, hidden]
@@ -115,7 +115,11 @@
 // rows as int8 codes with their scales, or as e4m3, at row pos, while the
 // token's own fold stays float32 (common.cuh's note on the cache kinds).
 // A 7B step at pos 600 then reads 0.16 GB of rows and scales where bf16
-// reads 0.31 GB.  The weights and their kinds do not change.
+// reads 0.31 GB.  The weights and their kinds do not change.  In mode 5
+// each rank holds its kv heads' rows (and scale planes); the split and
+// merge passes know nothing of the reduces, which ride the products and
+// the norms, and run the same PDL chain as on a bf16 cache (the split
+// waits for the QKV product, the merge lets the O product start).
 //
 // The split and merge passes are common.cuh's attn_split_kernel and
 // attn_merge_kernel (attn_merge8_kernel for an 8-bit cache): the split
@@ -235,6 +239,11 @@ int preload_mode5() {
   CF_CHECK((int)cudaFuncGetAttributes(&a, ring_gemv4_kernel<true, G1_PUSH_SUM, true>));
   CF_CHECK((int)cudaFuncGetAttributes(&a, resnorm_reduce_kernel));
   CF_CHECK((int)cudaFuncGetAttributes(&a, gather_wait_kernel));
+  // the 8-bit caches' split and merge passes (mode 5 on an 8-bit cache)
+  CF_CHECK((int)cudaFuncGetAttributes(&a, attn_split_kernel<ATT_MAX_GROUP, false, KV_INT8>));
+  CF_CHECK((int)cudaFuncGetAttributes(&a, attn_split_kernel<ATT_MAX_GROUP, false, KV_FP8>));
+  CF_CHECK((int)cudaFuncGetAttributes(&a, attn_merge8_kernel<KV_INT8>));
+  CF_CHECK((int)cudaFuncGetAttributes(&a, attn_merge8_kernel<KV_FP8>));
   if (dev < 64) loaded[dev] = true;
   return 0;
 }
@@ -326,8 +335,9 @@ extern "C" long long cf_stack_scratch_floats(int hidden, int kv_heads, int hg,
 // lm_head holds int8 codes (a bf16 or int8 head beside any kind).
 // kv_kind (common.cuh's KV_*): the cache kind of kc/vc; KV_INT8: int8 rows
 // and ks/vs their float32 scale planes [L, kv_heads, srow] (srow = R * 128
-// >= cap); KV_FP8: e4m3 rows.  Not with comm (mode 5).  Returns a
-// cudaError_t (0 on success); every refusal comes before the first launch.
+// >= cap); KV_FP8: e4m3 rows; with comm too (mode 5: this rank's heads).
+// Returns a cudaError_t (0 on success); every refusal comes before the
+// first launch.
 extern "C" int cf_decoder_stack(
     const void* x, const void* attn_norm, const void* ffn_norm, const void* cos,
     const void* sin, const void* wqkv, const void* wo, const void* w13,
@@ -345,7 +355,7 @@ extern "C" int cf_decoder_stack(
   *n_launches = 0;
   if (wq_kind < WK_BF16 || wq_kind > WK_INT4A8 || (wq_kind != WK_BF16) != (wqkv_s != nullptr))
     return (int)cudaErrorInvalidValue;
-  if (kv_kind < KV_BF16 || kv_kind > KV_FP8 || (kv_kind != KV_BF16 && cc) ||
+  if (kv_kind < KV_BF16 || kv_kind > KV_FP8 ||
       (kv_kind == KV_INT8) != (ks != nullptr) || (ks != nullptr) != (vs != nullptr) ||
       (kv_kind == KV_INT8 && srow < cap))
     return (int)cudaErrorInvalidValue;

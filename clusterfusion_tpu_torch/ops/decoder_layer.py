@@ -48,10 +48,23 @@ products that the other kernels' twins share (``_dequant_int4_tile`` and
 ``_int4_dot``, the TPU kernels' own) live in this module, as in the JAX
 package.
 
+An fp8 e4m3 KV cache (``torch.float8_e4m3fn`` pair; the TPU kernel's
+``kv_kind == "fp8"``), beside any weight kind and in every mode: the rows
+below ``seq_len`` are read as the TPU kernel reads them, each byte decoded
+exactly with e4m3 denormals (|v| <= 0.0137) flushed to 0
+(``fp8_decode_scaled``), the score bf16(q) . k in float32 and p rounded to
+bf16 for the p.V dot; the append stores e4m3 straight from the float32
+roped k and the float32 v (the TPU kernel's ``kv_s.astype`` of a float32
+row; the card saturates at +-448, where the JAX package's CPU cast gives
+NaN), while ``k_new``/``v_new`` stay bf16 and the current token's fold
+float32.  An ``Int8KV`` pair raises: the JAX package's kernel 6, and so
+its tp and sp steps, take none (its tp step runs one through
+``fused_collectives=True``, kernel 7's mode 5).
+
 The public ops ``llama_decoder_layer`` (GPT-J rope, no residual add) and
 ``llama_decoder_layer_sglang`` (NEOX rope, fused residual) take the
-reference's tensor layouts and build the kernel layout on every call, as
-the JAX package does.
+reference's tensor layouts (bf16 or fp8 caches) and build the kernel
+layout on every call, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -65,11 +78,12 @@ import torch
 from clusterfusion_tpu_torch.config import KernelConfig
 from clusterfusion_tpu_torch.ops import _build
 from clusterfusion_tpu_torch.ops._support import stream_scratch
-from clusterfusion_tpu_torch.ops.quant import (QuantizedTensor,
+from clusterfusion_tpu_torch.ops.quant import (Int8KV, QuantizedTensor,
                                                expand_group_scales,
                                                unpack_int4_bitcast,
                                                w4a8_int4_dot)
-from clusterfusion_tpu_torch.ops.stack_kernel import (WK_BF16, WK_INT4,
+from clusterfusion_tpu_torch.ops.stack_kernel import (KV_BF16, KV_FP8,
+                                                      WK_BF16, WK_INT4,
                                                       WK_INT4A8, WK_INT8,
                                                       _norm, _rope,
                                                       check_int4_group,
@@ -117,6 +131,8 @@ launches = 0
 int8_launches = 0
 #: Those of them with int4 weights (the kernel's int4 modes).
 int4_launches = 0
+#: Those of them with an fp8 e4m3 KV cache (the kernel's fp8 mode).
+fp8_launches = 0
 #: CUDA kernels the last such call launched (2 in W4A8's full mode: the
 #: layer and the ring GEMV's O projection).
 last_call_kernels = 0
@@ -221,9 +237,9 @@ def _fused_decoder_layer_plain(
         out = torch.einsum("Gc,Gco->o", o.reshape(G, -1).float(),
                            wo.float())
     result = (out.to(dt)[None], res_out, k_new, v_new)
-    if append_kv:
-        k_cache[layer_id, :, seq] = k_new.to(k_cache.dtype)
-        v_cache[layer_id, :, seq] = v_new.to(v_cache.dtype)
+    if append_kv:   # from float32 (bf16: k_new's bits; fp8: e4m3 of f32)
+        k_cache[layer_id, :, seq] = k_cur.to(k_cache.dtype)
+        v_cache[layer_id, :, seq] = v_cur.to(v_cache.dtype)
         return result + (k_cache, v_cache)
     return result
 
@@ -231,31 +247,60 @@ def _fused_decoder_layer_plain(
 #: The C entries' weight kind (``WK_*``) of each mode of the kernel.
 WEIGHT_KINDS = {"bf16": WK_BF16, "int8": WK_INT8, "exact": WK_INT4,
                 "w4a8": WK_INT4A8}
+#: The C entries' cache kind (``KV_*``) of each cache the kernel takes.
+CACHE_KINDS = {"bf16": KV_BF16, "fp8": KV_FP8}
 
 
 def launch_plan(hidden: int, kv_heads: int, group: int, head_dim: int,
                 kv_split: int = KernelConfig().kv_split,
-                kind: str = "bf16") -> dict:
+                kind: str = "bf16", kv: str = "bf16") -> dict:
     """The kernel's launch on the current card for this geometry in the
     weights' ``kind`` (``WEIGHT_KINDS``: bf16, int8, or int4 "exact" or
-    "w4a8"): blocks per cluster (one cluster per kv head), blocks, ring
-    stages, shared bytes per block, clusters of that size the card holds
-    at once, and (``held_by_size``) the clusters the card holds at each
-    size 1..16."""
+    "w4a8") and the cache's ``kv`` (``CACHE_KINDS``): blocks per cluster
+    (one cluster per kv head), blocks, ring stages, shared bytes per block,
+    clusters of that size the card holds at once, and (``held_by_size``)
+    the clusters the card holds at each size 1..16."""
     if kind not in WEIGHT_KINDS:
         raise ValueError(f"weight kind {kind!r}: one of {list(WEIGHT_KINDS)}")
+    if kv not in CACHE_KINDS:
+        raise ValueError(f"cache kind {kv!r}: one of {list(CACHE_KINDS)}")
     wk = WEIGHT_KINDS[kind]
     info = (ctypes.c_int * 21)()
     _build.check(_build.lib().cf_decoder_layer_plan(
-        hidden, kv_heads, group, head_dim, kv_split, wk, info),
-        "_fused_decoder_layer plan")
+        hidden, kv_heads, group, head_dim, kv_split, wk, CACHE_KINDS[kv],
+        info), "_fused_decoder_layer plan")
     return dict(cluster=info[0], blocks=info[1], stages=info[2],
                 smem_bytes=info[3], clusters_held=info[4],
                 held_by_size=list(info[5:21]))
 
 
+def cache_kind(k_cache, v_cache) -> int:
+    """The C entry's cache kind (``KV_*``) of a K/V pair: bf16 or
+    ``float8_e4m3fn``.  A pair of two kinds raises ValueError; an
+    ``Int8KV`` pair, or any other dtype, NotImplementedError."""
+    kinds = {Int8KV if isinstance(c, Int8KV) else c.dtype
+             for c in (k_cache, v_cache)}
+    if len(kinds) > 1:
+        raise ValueError("_fused_decoder_layer: k_cache and v_cache are of "
+                         "one kind")
+    kind = kinds.pop()
+    if kind is Int8KV:
+        raise NotImplementedError(
+            "_fused_decoder_layer: an Int8KV cache; the JAX package's kernel "
+            "6, and so its tp and sp steps, take none (the tp step runs one "
+            "with fused_collectives=True: kernel 7's mode 5)")
+    if kind == torch.bfloat16:
+        return KV_BF16
+    if kind == torch.float8_e4m3fn:
+        return KV_FP8
+    raise NotImplementedError(f"_fused_decoder_layer: a {kind} KV cache; "
+                              "the kernel takes bf16 or float8_e4m3fn "
+                              "(ROADMAP.md queue 2, mode 2)")
+
+
 def _refuse(wqkv_f, wo_f, k_cache, v_cache, *, window, bias_qkv,
-            softcap) -> None:
+            softcap) -> int:
+    """Raise on what the kernel does not take; the cache kind."""
     if window or bias_qkv is not None or softcap:
         raise NotImplementedError("_fused_decoder_layer: sliding window, QKV "
                                   "bias and softcap are not ported yet "
@@ -274,10 +319,7 @@ def _refuse(wqkv_f, wo_f, k_cache, v_cache, *, window, bias_qkv,
         raise NotImplementedError("_fused_decoder_layer: only bf16, int8 "
                                   "and int4 weights are ported (ROADMAP.md "
                                   "queue 2, mode 1)")
-    if k_cache.dtype != torch.bfloat16 or v_cache.dtype != torch.bfloat16:
-        raise NotImplementedError("_fused_decoder_layer: only a bf16 KV "
-                                  "cache is ported (fp8 KV in kernel 6: "
-                                  "ROADMAP.md queue 2, mode 2, item 2.2)")
+    return cache_kind(k_cache, v_cache)
 
 
 def _fused_decoder_layer(
@@ -306,7 +348,8 @@ def _fused_decoder_layer(
     [G, hg*group*hd, hidden], or their [L, ...] stacks, bf16 or both int8
     or both int4 ``QuantizedTensor``s (the module's note; int4 in groups
     of 128, W4A8 as ``kcfg.int4_w4a8`` says); k_cache/v_cache
-    [L, kv_heads, capacity, head_dim], layer ``layer_id`` read.
+    [L, kv_heads, capacity, head_dim], bf16 or fp8 e4m3 (the module's
+    note), layer ``layer_id`` read.
 
     Returns (out [1, hidden], res_out [1, hidden] or None without
     ``fuse_residual``, k_new [kv, hd], v_new [kv, hd]), plus (k_cache,
@@ -316,9 +359,10 @@ def _fused_decoder_layer(
     ``fold_current`` 0 leaves the current token out of the softmax.
     ``window``, ``bias_qkv`` and ``softcap`` (the TPU kernel's sliding
     window, QKV bias and logit softcap) raise NotImplementedError."""
-    global launches, int8_launches, int4_launches, last_call_kernels
-    _refuse(wqkv_f, wo_f, k_cache, v_cache, window=window, bias_qkv=bias_qkv,
-            softcap=softcap)
+    global launches, int8_launches, int4_launches, fp8_launches
+    global last_call_kernels
+    kv_kind = _refuse(wqkv_f, wo_f, k_cache, v_cache, window=window,
+                      bias_qkv=bias_qkv, softcap=softcap)
     if append_kv and emit_partials:
         raise ValueError("_fused_decoder_layer: partials mode does not "
                          "append (the owner of the position appends)")
@@ -442,13 +486,14 @@ def _fused_decoder_layer(
         group, hd, cap, seq, fold, int(append_kv),
         1 if rope_style == "neox" else 0, float(eps), kcfg.kv_split,
         ptr(phase_stamps), ctypes.byref(n_launch), stream, ptr(sq), ptr(so),
-        wk, ptr(o_buf), kcfg.gemv_threads)
+        wk, ptr(o_buf), kcfg.gemv_threads, kv_kind)
     if err:
         scratch.zero_()                 # the ticket counters start at 0
         _build.check(err, "_fused_decoder_layer")
     launches += 1
     int8_launches += int(wk == WK_INT8)
     int4_launches += int(w4)
+    fp8_launches += int(kv_kind == KV_FP8)
     last_call_kernels = n_launch.value
     if emit_partials:
         return acc, ml, res_out, k_new, v_new

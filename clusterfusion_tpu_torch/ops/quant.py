@@ -19,8 +19,10 @@
   writer of both layouts, ``cache_fill_rows`` (``cache_write_layer`` for
   one layer), and ``cache_read_layer``, the eager paths' dequantized read.
   Kernels 7 and 8 (``ops/stack_kernel.py``, ``ops/stack_verify.py``) take
-  both 8-bit formats; kernels 6, 9 and 10 and the serving pools do not yet
-  (``ROADMAP.md`` queue 2, items 2.2 and 2.3).
+  both 8-bit formats, kernel 7's mode 5 too; kernel 6
+  (``ops/decoder_layer.py``) takes fp8, as the TPU kernel does; kernels 9
+  and 10 and the serving pools do not yet (``ROADMAP.md`` queue 2, item
+  2.3).
 
 Codes and scales are bit-equal to the JAX package's: both divide in
 float32 and round half to even, in the same order of operations.  Unlike

@@ -70,7 +70,9 @@ same blocks.
 8-bit KV caches (the TPU kernel's ``kv_kind``): an ``Int8KV`` pair
 (``ops.quant``: int8 rows, float32 scales per (kv head, position) in [L,
 kv, R, 128] planes) or a ``float8_e4m3fn`` pair, beside any weight kind,
-not in mode 5 (``ROADMAP.md`` queue 2, item 2.2).  The rows below ``pos``
+in mode 5 too (each rank's tp shard of the pair: ``parallel.shard_cache``
+cuts an ``Int8KV``'s rows and scale planes on the kv axis; the split and
+merge passes know nothing of the reduces).  The rows below ``pos``
 are read as the TPU kernel reads them: int8 scores are (bf16(q) . code) *
 sk and p enters the p.V dot as bf16(p * sv); fp8 rows decode exactly with
 e4m3 denormals (|v| <= 0.0137) flushed to 0 (``fp8_decode_scaled``).  The
@@ -622,11 +624,6 @@ def _stack(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f, w13, w2, k_cache,
     kv_kind = kv_kind_of(k_cache, v_cache, "fused_decoder_stack")
     if reduce_axis is not None and mesh is None:
         raise ValueError("reduce_axis needs the mesh whose axis it names")
-    if reduce_axis is not None and kv_kind != KV_BF16:
-        raise NotImplementedError("fused_decoder_stack: an 8-bit KV cache "
-                                  "with reduce_axis (mode 5, the tp step) is "
-                                  "not ported yet (ROADMAP.md queue 2, item "
-                                  "2.2)")
     check_stack_kcfg(kcfg)
     pos = int(pos)
     L, G, hidden, C = wqkv_f.shape

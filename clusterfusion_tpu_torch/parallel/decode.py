@@ -33,8 +33,16 @@ a weight is made per call (JAX leaves these products to XLA; on the CPU
 they run their plain twins).  The fused step hands the int8 or int4
 stacks to kernel 7's mode 5.
 
+8-bit KV caches, where JAX's steps run them: an fp8 e4m3 pair in both
+kinds of step (kernel 6's fp8 mode appends e4m3 of the float32 row;
+kernel 7's mode 5 the same), and an ``Int8KV`` pair (``shard_cache`` cuts
+its rows and scale planes on the kv axis) only with
+``fused_collectives=True``: kernel 7's mode 5 reads it and appends int8
+codes and scales of the float32 row.  The step without it raises kernel
+6's refusal before any launch, as JAX's kernel 6 takes no ``Int8KV``.
+
 Each rank's caches are updated in place; the step returns the same
-tensors.
+tensors (an ``Int8KV`` pair as the same pair).
 """
 
 from __future__ import annotations
@@ -89,9 +97,11 @@ def make_sharded_decode_step(cfg: LlamaConfig, mesh: Mesh,
     (logits [vocab] f32, k_cache, v_cache)``
 
     with this rank's ``shard_params`` slices and ``shard_cache`` caches
-    ([L, kv_heads/tp, capacity, hd]); ``pos`` is the number of cached
-    tokens.  ``fused_collectives=True``: the whole stack as one kernel
-    sequence per rank with the all-reduces inside it (see above)."""
+    ([L, kv_heads/tp, capacity, hd]; bf16, fp8, or with
+    ``fused_collectives`` an ``Int8KV`` pair); ``pos`` is the number of
+    cached tokens.  ``fused_collectives=True``: the whole stack as one
+    kernel sequence per rank with the all-reduces inside it (see
+    above)."""
     model._check_supported(cfg)
     g, hd = cfg.n_heads // cfg.kv_heads, cfg.head_dim_
     if fused_collectives:

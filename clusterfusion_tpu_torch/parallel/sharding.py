@@ -12,7 +12,11 @@ Megatron-style tensor parallelism on the fused layouts, as in JAX:
   zero columns of the padded FFN land on the last rank as exact no-ops;
 - ``lm_head [hidden, vocab]`` on its columns (vocab-sharded logits);
 - the KV caches ``[L, kv_heads, capacity, hd]`` on their kv heads over tp
-  and, for the sequence-parallel step, on their capacity over sp.
+  and, for the sequence-parallel step, on their capacity over sp.  An fp8
+  cache is a tensor like any other; an ``Int8KV`` pair (``ops.quant``) is
+  cut on its kv axis alone, its rows ``[L, kv, S, hd]`` and its scale
+  planes ``[L, kv, R, 128]`` alike, as JAX's ``device_put`` of the pair
+  cuts both (no JAX step cuts one over sp).
 
 A spec is a tuple with one entry per tensor axis: the mesh axis that cuts
 it, or None.  ``shard_params`` and ``shard_cache`` return this rank's
@@ -39,7 +43,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from clusterfusion_tpu_torch.config import LlamaConfig
-from clusterfusion_tpu_torch.ops.quant import QuantizedTensor
+from clusterfusion_tpu_torch.ops.quant import Int8KV, QuantizedTensor
 from clusterfusion_tpu_torch.parallel.mesh import Mesh
 
 Spec = Tuple[Optional[str], ...]
@@ -135,9 +139,18 @@ def shard_params(params, cfg: LlamaConfig, mesh: Mesh):
                      params, specs)
 
 
-def shard_cache(cache: torch.Tensor, mesh: Mesh,
-                spec: Spec = cache_pspec()) -> torch.Tensor:
-    """This rank's slice of a full [L, kv_heads, capacity, hd] cache
-    (``cache_pspec()`` for the tp step, ``cache_pspec_2d()`` for the sp
-    step)."""
-    return shard_tensor(cache, spec, mesh)
+def shard_cache(cache, mesh: Mesh, spec: Spec = cache_pspec()):
+    """This rank's slice of a full [L, kv_heads, capacity, hd] cache, bf16
+    or fp8 (``cache_pspec()`` for the tp step, ``cache_pspec_2d()`` for the
+    sp step), or of an ``Int8KV`` pair under a spec that keeps the
+    sequence whole: its rows and scale planes cut on the kv axis, an
+    ``Int8KV`` returned."""
+    if not isinstance(cache, Int8KV):
+        return shard_tensor(cache, spec, mesh)
+    if len(spec) != 4 or spec[2] is not None or spec[3] is not None:
+        raise NotImplementedError(
+            f"shard_cache: an Int8KV pair under {spec}: it is cut on its kv "
+            "axis only (no JAX step runs an Int8KV cut over sp, and its "
+            "scale planes do not follow the positions' axis)")
+    return Int8KV(shard_tensor(cache.q, spec, mesh, "Int8KV rows"),
+                  shard_tensor(cache.s, spec, mesh, "Int8KV scales"))

@@ -22,6 +22,13 @@ the GEMVs' int8 instances (each head group's O partial scaled, then
 summed) or their int4 ones (exact, the group scales along the O rows),
 where JAX dequantizes ``wo_f`` and the FFN's weights: the same function,
 and no bf16 copy of a weight (``parallel.decode``'s note).
+
+An fp8 e4m3 cache (each rank's ``capacity/sp`` slice a plain tensor):
+kernel 6's fp8 mode reads the rows, and the owner appends the bf16
+``k_new``/``v_new`` cast to e4m3, as JAX's sp step casts its bf16 row (a
+double rounding: the tp steps store e4m3 of the float32 row, so the two
+kinds of step may store different bits for the same row).  An ``Int8KV``
+pair raises kernel 6's refusal: JAX's sp step runs none.
 """
 
 from __future__ import annotations
@@ -56,8 +63,8 @@ def make_sp_sharded_decode_step(cfg: LlamaConfig, mesh: Mesh,
 
     with this rank's ``shard_params`` slices and caches cut by
     ``shard_cache(cache, mesh, cache_pspec_2d())`` ([L, kv_heads/tp,
-    capacity/sp, hd]; the capacity must divide by sp); ``pos`` is the
-    global number of cached tokens."""
+    capacity/sp, hd], bf16 or fp8; the capacity must divide by sp);
+    ``pos`` is the global number of cached tokens."""
     model._check_supported(cfg)
     g, hd = cfg.n_heads // cfg.kv_heads, cfg.head_dim_
 
@@ -94,7 +101,7 @@ def make_sp_sharded_decode_step(cfg: LlamaConfig, mesh: Mesh,
                 attn = model._oproj(o.reshape(1, -1), wo)
             attn = cluster_reduce(attn.to(x.dtype), "tp", Stage.ATTN,
                                   mesh=mesh)
-            if fold:                                  # the owner appends
+            if fold:        # the owner appends the bf16 row (fp8: cast, as JAX)
                 k_cache[l, :, pos_local] = k_new.to(k_cache.dtype)
                 v_cache[l, :, pos_local] = v_new.to(v_cache.dtype)
             ffn_in, res = fused_add_rmsnorm_ref(attn, res, lw["ffn_norm"][l],

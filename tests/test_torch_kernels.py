@@ -3336,3 +3336,245 @@ def test_kv8_engine_streams_on_card(dev, fmt):
             break
         lg, kc, vc = model.decode_step(eng.params, kc, vc, t, len(prompt) + i,
                                        cfg, fused=False)
+
+
+# -- 8-bit KV caches on the multi-card paths (kernel 6's fp8 mode, kernel 7's
+# mode 5 on Int8KV and fp8, the tp, sp and fused tp steps)
+
+
+def _fp8_pair(kc, vc, seq):
+    """bf16 caches as an fp8 e4m3 pair, NaN bytes 0x7F at and above seq
+    (rows kernel 6 never reads)."""
+    out = []
+    for c in (kc, vc):
+        f = c.float().to(torch.float8_e4m3fn)
+        f.view(torch.uint8)[:, :, seq:] = 0x7F
+        out.append(f)
+    return out
+
+
+def _e4m3_one_step(got, want):
+    """Two e4m3 rows whose float32 sources differ by a sum order: every
+    byte equal or one code apart (adjacent values of one sign; both zero
+    or the least denormal); returns the share of equal bytes."""
+    a = got.view(torch.uint8).int()
+    b = want.view(torch.uint8).int()
+    near = ((a ^ b) & 0x80 == 0) & ((a - b).abs() <= 1)
+    near |= ((a & 0x7F) <= 1) & ((b & 0x7F) <= 1)
+    assert near.all(), int((~near).sum())
+    return (a == b).float().mean().item()
+
+
+FP8_LAYER_MODES = ("full_append", "partials_fold1", "partials_fold0",
+                   "seq0_append", "nan_full_append")
+FP8_LAYER_CASES = ("g1_hg1", "g8_hg2", "hd64_g8_hg2", "7b_hg8")
+
+
+@pytest.mark.parametrize("mode", FP8_LAYER_MODES)
+@pytest.mark.parametrize("weights", ["bf16", "int8", "exact", "w4a8"])
+@pytest.mark.parametrize("case", FP8_LAYER_CASES)
+def test_decoder_layer_fp8_kv_matches_plain(dev, case, weights, mode):
+    """Kernel 6's fp8 mode against its plain twin in every weight kind
+    (bf16, int8, int4 exact and W4A8) at groups 1 and 8, head groups 1, 2
+    and 8, hd 128 and 64, and the 7B layer: counted as fp8 (and as its
+    weight kind), the same bits on a repeat, at the weight kinds' limits
+    (W4A8 within 2e-2 of each output's largest value, else atol 2e-2 /
+    rtol 2e-2, partials' acc 5e-2).  The appended e4m3 row is within one
+    code of the twin's (e4m3 of float32 rows that differ by a sum order),
+    and every other byte, the NaN bytes above seq too, keeps its bits."""
+    from clusterfusion_tpu_torch.ops import decoder_layer as dl
+    from clusterfusion_tpu_torch.ops.quant import quantize_int4, quantize_int8
+    hidden, n_heads, kv_heads, hg, hd = INT4_LAYER_CASES[case]
+    seq, style, fuse, append, partials, fold = LAYER_MODES[mode]
+    g, args, kc, vc = _layer_case(dev, hidden, n_heads, kv_heads, hg, hd,
+                                  CAP, seq, seed=150)
+    kc, vc = _fp8_pair(kc, vc, seq)
+    args = list(args)
+    if weights == "int8":
+        args[5], args[6] = (quantize_int8(args[5], -2),
+                            quantize_int8(args[6], -2))
+    elif weights != "bf16":
+        args[5], args[6] = (quantize_int4(args[5], -2),
+                            quantize_int4(args[6], -2))
+    cfg = LlamaConfig.tiny(hidden_dim=hidden, n_heads=n_heads,
+                           n_kv_heads=kv_heads, head_dim=hd, rope_style=style)
+    args[3], args[4] = model.rope_row(cfg, seq, dev)
+    a8 = weights == "w4a8"
+    kw = dict(group=g, head_dim=hd, rope_style=style, fuse_residual=fuse,
+              eps=1e-5, emit_partials=partials, fold_current=fold,
+              append_kv=append, kcfg=KernelConfig(int4_w4a8=a8))
+    kp, vp = kc.clone(), vc.clone()
+    before = (dl.launches, dl.fp8_launches)
+    out = dl._fused_decoder_layer(*args, kc, vc, seq, 0, **kw)
+    torch.cuda.synchronize()
+    assert (dl.launches, dl.fp8_launches) == (before[0] + 1, before[1] + 1)
+    assert dl.last_call_kernels == (2 if a8 and not partials else 1)
+    k2, v2 = kp.clone(), vp.clone()
+    again = dl._fused_decoder_layer(*args, k2, v2, seq, 0, **kw)
+    for x, y in zip(out, again):
+        assert (x is None and y is None) or _bits_equal(x, y)
+    ref = dl._fused_decoder_layer_plain(*args, kp, vp, seq, 0, **kw)
+    tol = dict(atol=2e-2, rtol=2e-2)
+    for i in ((1, 0) if partials else (0,)):
+        assert torch.isfinite(out[i].float()).all()
+        if a8:
+            _near_largest(out[i], ref[i])
+        else:
+            torch.testing.assert_close(out[i].float(), ref[i].float(),
+                                       **(tol if i or not partials else
+                                          dict(atol=5e-2, rtol=2e-2)))
+    res_i = 2 if partials else 1
+    torch.testing.assert_close(out[res_i].float(), ref[res_i].float(), **tol)
+    for i in (res_i + 1, res_i + 2):
+        torch.testing.assert_close(out[i].float(), ref[i].float(), atol=0.05,
+                                   rtol=0)
+    others = torch.ones(CAP, dtype=torch.bool, device=dev)
+    if append:
+        others[seq] = False
+        for c, c2, p in ((kc, k2, kp), (vc, v2, vp)):
+            _e4m3_one_step(c[0, :, seq], p[0, :, seq])
+            assert _bits_equal(c[0, :, seq], c2[0, :, seq])
+    for c, p in ((kc, kp), (vc, vp)):
+        assert _bits_equal(c[:, :, others], p[:, :, others])
+
+
+def test_decoder_layer_refuses_int8kv_on_card(dev):
+    """Kernel 6 on the card refuses an ``Int8KV`` pair (the JAX package's
+    kernel 6 takes none) and a pair of two kinds before any launch."""
+    from clusterfusion_tpu_torch.ops import decoder_layer as dl
+    from clusterfusion_tpu_torch.ops import quant as tq
+    g, args, kc, vc = _layer_case(dev, 512, 8, 8, 1, 128, CAP, 37, seed=151)
+    k8 = tq.init_kv_int8(1, 8, CAP, 128, device=dev)
+    f8, _ = _fp8_pair(kc, vc, 37)
+    kw = dict(group=g, head_dim=128, rope_style="neox", fuse_residual=True,
+              eps=1e-5)
+    n = dl.launches
+    with pytest.raises(NotImplementedError, match="take none"):
+        dl._fused_decoder_layer(*args, k8, k8, 37, 0, **kw)
+    for a, b in ((f8, vc), (kc, k8)):
+        with pytest.raises(ValueError, match="one kind"):
+            dl._fused_decoder_layer(*args, a, b, 37, 0, **kw)
+    assert dl.launches == n
+
+
+@pytest.mark.parametrize("weights", ["bf16", "int8"])
+@pytest.mark.parametrize("fmt", KV8_FORMATS)
+def test_stack_kv8_mode5_loopback_matches_unsharded(dev, fmt, weights):
+    """Kernel 7's mode 5 on an 8-bit cache at tp 2 on one card (two
+    virtual ranks on their own streams over a loopback communicator, each
+    with its ``shard_cache`` slice of the pair): 8L+1 kernels a rank,
+    counted as 8-bit; both ranks' x_out and residual bit-identical, a
+    repeat the same bits, within 2e-2 of kernel 7's unsharded step on the
+    same cache; each rank's appended rows as the unsharded step's of its
+    heads (``_kv8_rows_held``: every other row keeps its bits).  With the
+    LM head gathered (8L+3 kernels) the ranks' logits are bit-identical
+    and within 2e-2 of the unsharded logits."""
+    from clusterfusion_tpu_torch.ops.quant import Int8KV
+    from clusterfusion_tpu_torch.parallel import collective as col
+    from clusterfusion_tpu_torch.parallel.sharding import shard_cache
+    pos, tp = 130, 2
+    g, a, kc, vc, lm = _stack_args(dev, 16, 8, 4, pos, seed=152)
+    head = dict(final_norm=lm["final_norm"], lm_head=lm["lm_head"])
+    if weights == "int8":
+        w, head = _int8_stack(a, lm, "bf16")
+        a = dict(a, **w)
+    k8, v8 = _kv8(kc, vc, fmt, pos)
+    cos, sin = model.rope_row(LlamaConfig.tiny(), pos, dev)
+    kw = dict(group=g, head_dim=HD, rope_style="gptj", eps=1e-5)
+    args = [a["x"], a["attn_norm"], a["ffn_norm"], cos, sin, a["wqkv_f"],
+            a["wo_f"], a["w13"], a["w2"]]
+    kr, vr = _kv8_clone(k8), _kv8_clone(v8)
+    ref = sk.fused_decoder_stack(*args, kr, vr, pos, **kw)
+    ref_lg = sk.fused_decoder_stack(*args, _kv8_clone(k8), _kv8_clone(v8),
+                                    pos, **head, **kw)[0]
+    kind = sk.KV_INT8 if fmt == "int8" else sk.KV_FP8
+    lb = col.LoopbackComm(tp, dev)
+    try:
+        meshes = [lb.mesh(r) for r in range(tp)]
+        shards, heads, _ = _int8_mode5_shards(a, head["lm_head"], kc, vc,
+                                              meshes)
+        caches = [(shard_cache(_kv8_clone(k8), m),
+                   shard_cache(_kv8_clone(v8), m)) for m in meshes]
+        assert all(isinstance(c[0], Int8KV) == (fmt == "int8")
+                   for c in caches)
+        streams = [torch.cuda.Stream(dev) for _ in range(tp)]
+        n8 = sk.kv8_launches[kind]
+        outs, kernels = _mode5_step(a, shards, caches, meshes, streams, cos,
+                                    sin, pos, kw)
+        again, _ = _mode5_step(a, shards, [(_kv8_clone(k), _kv8_clone(v))
+                                           for k, v in caches],
+                               meshes, streams, cos, sin, pos, kw)
+        first, gk = _mode5_step(a, shards, [(_kv8_clone(k), _kv8_clone(v))
+                                            for k, v in caches],
+                                meshes, streams, cos, sin, pos, kw,
+                                head=(head["final_norm"], heads), gather=True)
+        torch.cuda.synchronize(dev)
+        lb.check()
+        assert kernels == [8 * L + 1] * tp and gk == [8 * L + 3] * tp
+        assert sk.kv8_launches[kind] == n8 + 3 * tp
+    finally:
+        lb.close()
+    for r, (xo, ro, k, v) in enumerate(outs):
+        assert torch.equal(xo, outs[0][0]) and torch.equal(ro, outs[0][1])
+        assert torch.equal(xo, again[r][0]) and torch.equal(ro, again[r][1])
+        torch.testing.assert_close(xo.float(), ref[0].float(), atol=2e-2,
+                                   rtol=2e-2)
+        torch.testing.assert_close(ro.float(), ref[1].float(), atol=2e-2,
+                                   rtol=2e-2)
+        heads_r = slice(r * 8 // tp, (r + 1) * 8 // tp)
+        for got, full in ((k, kr), (v, vr)):
+            want = Int8KV(full.q[:, heads_r], full.s[:, heads_r]) \
+                if fmt == "int8" else full[:, heads_r]
+            _kv8_rows_held(got, want, [pos], True)
+    lg = [o[0] for o in first]
+    for r in range(tp):
+        assert torch.equal(lg[r].view(torch.int32), lg[0].view(torch.int32))
+    assert (lg[0] - ref_lg).abs().max().item() <= \
+        2e-2 * ref_lg.abs().max().item()
+
+
+@pytest.mark.parametrize("which", ["tp_fp8", "sp_fp8", "fused_fp8",
+                                   "fused_int8"])
+def test_kv8_sharded_steps_on_card_one_rank(dev, tmp_path, which):
+    """The tp, sp and fused tp steps on an 8-bit cache in a one-process
+    group on the card, after a 130-token prefill: kernel 6's fp8 mode once
+    a layer (tp, sp), or one call of kernel 7's 8-bit mode 5 (fused, fp8
+    and ``Int8KV``); against ``decode_step(fused=True)`` on the same cache
+    (kernel 7's single-card 8-bit step): logits within 5 % of the largest,
+    the appended rows as ``_kv8_rows_held`` holds them beside the twin's
+    (the sp step stores e4m3 of the bf16 row, one step at most apart)."""
+    import torch.distributed as dist
+
+    from clusterfusion_tpu_torch.config import MeshConfig
+    from clusterfusion_tpu_torch.ops import decoder_layer as dl
+    from clusterfusion_tpu_torch import parallel as par
+    step_kind, fmt = which.split("_")
+    kv_dtype = "int8" if fmt == "int8" else torch.float8_e4m3fn
+    kind = sk.KV_INT8 if fmt == "int8" else sk.KV_FP8
+    cfg = LlamaConfig.tiny(n_kv_heads=2, max_seq_len=256)
+    p = model.init_params(cfg, seed=7, device=dev)
+    kc, vc = model.init_cache(cfg, device=dev, dtype=kv_dtype)
+    pos = 130
+    model.prefill(p, kc, vc, list(range(1, pos + 1)), cfg)
+    kr, vr = _kv8_clone(kc), _kv8_clone(vc)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        mesh = par.build_mesh(MeshConfig())
+        step = (par.make_sp_sharded_decode_step(cfg, mesh)
+                if step_kind == "sp" else par.make_sharded_decode_step(
+                    cfg, mesh, fused_collectives=step_kind == "fused"))
+        n = (dl.fp8_launches, sk.kv8_launches[kind])
+        lg, kc2, vc2 = step(par.shard_params(p, cfg, mesh), kc, vc, 9, pos)
+        torch.cuda.synchronize()
+        got = (dl.fp8_launches - n[0], sk.kv8_launches[kind] - n[1])
+    finally:
+        dist.destroy_process_group()
+    assert kc2 is kc and vc2 is vc
+    L_ = cfg.n_layers
+    assert got == ((0, 1) if step_kind == "fused" else (L_, 0))
+    ref, kr, vr = model.decode_step(p, kr, vr, 9, pos, cfg, fused=True)
+    scale = max(ref.abs().max().item(), 1.0)
+    assert (lg - ref).abs().max().item() < 0.05 * scale
+    for got_c, want_c in ((kc, kr), (vc, vr)):
+        _kv8_rows_held(got_c, want_c, [pos], step_kind == "fused")

@@ -439,10 +439,12 @@ def test_chat_kv8(capsys, flags):
 
 
 def test_kv8_refusals_name_their_items(base):
-    """What stays refused: an 8-bit cache in kernel 7's mode 5 (item 2.2),
-    a pair of two kinds, an int8 tensor without scales, planes that do not
-    cover the capacity; kernel 6 (2.2) and the serving engine, so
-    ``generate`` too (2.3)."""
+    """What stays refused: a pair of two kinds, an int8 tensor without
+    scales, planes that do not cover the capacity; an ``Int8KV`` pair in
+    kernel 6 (the JAX package's kernel 6 takes none); the serving engine,
+    so ``generate`` too (2.3).  Since item 2.2 kernel 7's mode 5 takes
+    both formats (on an axis of one rank, the unsharded step's bits) and
+    kernel 6 an fp8 pair."""
     from clusterfusion_tpu_torch.ops import decoder_layer as tdl
     from clusterfusion_tpu_torch.parallel.mesh import AXES, Mesh
     from clusterfusion_tpu_torch.runtime import ServingEngine
@@ -463,8 +465,9 @@ def test_kv8_refusals_name_their_items(base):
             group=g, head_dim=hd, rope_style="gptj", eps=1e-5, **kw)
 
     for kc, vc in ((k8, v8), (f8, f8.clone())):
-        with pytest.raises(NotImplementedError, match="queue 2, item 2.2"):
-            stack(kc, vc, reduce_axis="tp", mesh=mesh)
+        got = stack(_clone(kc), _clone(vc), reduce_axis="tp", mesh=mesh)
+        want = stack(_clone(kc), _clone(vc))
+        assert all(torch.equal(a, b) for a, b in zip(got[:2], want[:2]))
     for kc, vc in ((k8, f8), (f8, bf)):
         with pytest.raises(ValueError, match="one kind"):
             stack(kc, vc)
@@ -473,13 +476,15 @@ def test_kv8_refusals_name_their_items(base):
     short = tq.Int8KV(k8.q, k8.s[:, :, :1])
     with pytest.raises(ValueError, match="cover the capacity"):
         stack(short, tq.Int8KV(v8.q, v8.s[:, :, :1]))
-    for cache in (f8, k8):
-        with pytest.raises(NotImplementedError, match="item 2.2"):
-            tdl._fused_decoder_layer(
-                tp["embed"][[7]], tp["embed"][[8]], lw["attn_norm"], cos,
-                sin, lw["wqkv_f"], lw["wo_f"], cache, cache, 3, 1,
-                group=g, head_dim=hd, rope_style="gptj", fuse_residual=True,
-                eps=1e-5)
+    def layer(kc, vc):
+        return tdl._fused_decoder_layer(
+            tp["embed"][[7]], tp["embed"][[8]], lw["attn_norm"], cos, sin,
+            lw["wqkv_f"], lw["wo_f"], kc, vc, 3, 1, group=g, head_dim=hd,
+            rope_style="gptj", fuse_residual=True, eps=1e-5)
+
+    with pytest.raises(NotImplementedError, match="take none"):
+        layer(k8, v8)
+    assert torch.isfinite(layer(f8, f8.clone())[0].float()).all()
     for kv_dtype in ("int8", FP8):
         with pytest.raises(NotImplementedError, match="item 2.3"):
             ServingEngine(tp, tcfg, kv_dtype=kv_dtype)

@@ -412,7 +412,9 @@ def _one_layer_args(layer_setup, **over):
 def test_fused_decoder_layer_refuses_unported(layer_setup, what):
     """A raw int8 tensor (not a QuantizedTensor) and an int4 pair in a
     group size the kernels do not take (64; mode 1.5: groups of 128 run
-    since mode 1.4) are refused, as are the modes not ported yet."""
+    since mode 1.4) are refused, as are the modes not ported yet, and an
+    fp8 k cache beside a bf16 v cache (since item 2.2 an fp8 pair runs;
+    a pair of two kinds raises ValueError)."""
     args, kw = _one_layer_args(layer_setup)
     if what == "int8_weights":
         args["wqkv_f"] = args["wqkv_f"].to(torch.int8)
@@ -428,9 +430,10 @@ def test_fused_decoder_layer_refuses_unported(layer_setup, what):
         kw["bias_qkv"] = torch.zeros(8)
     else:
         args["k_cache"] = args["k_cache"].to(torch.float8_e4m3fn)
-    with pytest.raises(NotImplementedError,
+    with pytest.raises(ValueError if what == "fp8_cache"
+                       else NotImplementedError,
                        match="queue 2, mode 1.5" if what == "int4_weights"
-                       else ""):
+                       else "one kind" if what == "fp8_cache" else ""):
         tdl._fused_decoder_layer(**args, **kw)
 
 
