@@ -320,7 +320,32 @@ caches on the multi-card paths):
    step under the top-2-gap rule; launches a step, ms per step and
    tokens/s beside phase 14's bf16-KV steps.
 
-Phases 32-34 run after 35-40, on the same int4 engine, in both int4 modes:
+Phases 41-43 run after 40, with the same engines (fp8 e4m3 serving pools):
+
+41. kernel 10 on fp8 pools at phase 6's 7B geometry (kv 32, group 1, B 8,
+   lens up to 2047) and Llama-3-8B's GQA geometry (kv 8, group 4), NaN
+   (0x7f) in every unowned pool row, against its twin at phase 6's limits,
+   the appended e4m3 codes within one code of the twin's, every other byte
+   unchanged, a repeat bit-identical; ms (``queued_ms``) and the split and
+   merge busy ms beside kernel 10 on bf16 pools of the same values, the
+   twin's time, the byte bound;
+42. kernel 9 on fp8 pools at phase 7's geometry (B 4, 8 and 1) with the
+   bf16, int8 and int4 (exact) 7B layers, and one hd-64 layer at
+   TinyLlama-1.1B's widths (its append stores e4m3 of the bf16 row, the
+   7B layers e4m3 of the float32 row), each against its twin (phase 7's
+   limits, appended codes within one code, other bytes unchanged, repeats
+   bit-identical); ms beside the bf16-pool layer of each weight kind;
+43. ``ServingEngine(kv_dtype=float8_e4m3fn)``: one step of each kind on
+   fp8 pools against the plain-twin step (4 layers at phase 22's logits
+   limit, layer 0's rows within one code; 32 layers within
+   ``FP8_STEP_DRIFT`` times the bf16-pool step's drift); phase 8's mix
+   through both steps on fp8 and on bf16 pools (tokens/s, ms a step,
+   device busy ms a step side by side; fp8 launches once per layer and
+   step; request 3 alone as in the batch); ``Llama.generate`` with an
+   fp8 cache at B 1 (fused) and B 4 (batched) against the plain path on
+   an fp8 cache under the top-2-gap rule.
+
+Phases 32-34 run after 35-43, on the same int4 engine, in both int4 modes:
 
 32. kernel 6's int4 modes at layer 1, pos 600, on the whole tree and the
    first tp-2 shard (``shard_params`` on the int4 tree): full mode with
@@ -3108,10 +3133,12 @@ def phase_quant_products(engq, dev, hbm, peak, kind, layer=1):
     return rows
 
 
-def step_vs_plain(eng, dev, depth=None, impls=("batched", "fused")):
+def step_vs_plain(eng, dev, depth=None, impls=("batched", "fused"),
+                  kv_dtype=torch.bfloat16):
     """One serving step of each kind at B 8 (``SERVE_LENS`` over shuffled
     pages, NaN in every pool row no request owns, a distinct random token a
-    row) on the first ``depth`` layers of ``eng`` (all by default), against
+    row; pools of ``kv_dtype``, an fp8 pool holding e4m3 of the same random
+    rows) on the first ``depth`` layers of ``eng`` (all by default), against
     the same step with the plain twins in place of ``_gemv_int8``,
     ``_ffn_int8``, ``_gemv_int4``, ``_ffn_int4``, ``paged_attention`` and
     ``llama_decoder_layer_paged``,
@@ -3119,7 +3146,8 @@ def step_vs_plain(eng, dev, depth=None, impls=("batched", "fused")):
     largest error over the largest logit, the least difference between two
     requests' plain logits over the same, each layer's largest error and
     |row| over the appended K/V rows, whether every other pool row is
-    bit-unchanged and whether the outputs are finite."""
+    bit-unchanged and whether the outputs are finite; on fp8 pools also
+    ``codes0``, ``e4m3_one_step`` of layer 0's appended rows."""
     from clusterfusion_tpu_torch.models import llama as model
     from clusterfusion_tpu_torch.ops import paged_decoder_layer as pd
     from clusterfusion_tpu_torch.ops.reference import fused_add_rmsnorm_ref
@@ -3137,12 +3165,17 @@ def step_vs_plain(eng, dev, depth=None, impls=("batched", "fused")):
     k0 = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
     v0 = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
     nan_unowned(k0, v0, table, lens)
+    k0, v0 = k0.to(kv_dtype), v0.to(kv_dtype)
     tokens = torch.randperm(cfg.vocab_size, generator=gen, device=dev)[:B]
     # (page, row) of each request's appended row
     at = [(int(table[b, n // page]), n % page) for b, n in enumerate(SERVE_LENS)]
 
     def appended(pool):                       # [L, B, kv, hd] float32
-        return torch.stack([pool[:, pg, :, r] for pg, r in at], 1).float()
+        return torch.stack([pool[:, pg, :, r].float() for pg, r in at], 1)
+
+    def appended_bytes(pool):                 # [L, B, kv, hd * itemsize]
+        return torch.stack([pool[:, pg, :, r].contiguous().view(torch.uint8)
+                            for pg, r in at], 1)
 
     temps, tops = [0.0] * B, [0.9] * B
     rope = model.rope_table(cfg, device=dev)
@@ -3208,6 +3241,12 @@ def step_vs_plain(eng, dev, depth=None, impls=("batched", "fused")):
                                 (av - rv).abs().amax(dim=dims))
         row_mag = torch.maximum(rk.abs().amax(dim=dims),
                                 rv.abs().amax(dim=dims))
+        codes0 = (e4m3_one_step(appended_bytes(kp)[0], appended_bytes(kr)[0])
+                  if kv_dtype == torch.float8_e4m3fn else None)
+        if codes0 is not None:
+            near_v, eq_v = e4m3_one_step(appended_bytes(vp)[0],
+                                         appended_bytes(vr)[0])
+            codes0 = (codes0[0] and near_v, min(codes0[1], eq_v))
         for pg, r in at:            # the appended rows back: all else as before
             kp[:, pg, :, r] = k0[:, pg, :, r]
             vp[:, pg, :, r] = v0[:, pg, :, r]
@@ -3218,7 +3257,8 @@ def step_vs_plain(eng, dev, depth=None, impls=("batched", "fused")):
             spread=min((lp[i] - lp[j]).abs().max().item() / top
                        for i in range(B) for j in range(i)),
             row_err=row_err.tolist(), row_mag=row_mag.tolist(),
-            unchanged=_same_bits(kp, k0) and _same_bits(vp, v0),
+            codes0=codes0,
+            unchanged=_same_bytes(kp, k0) and _same_bytes(vp, v0),
             finite=bool(torch.isfinite(lk).all() and torch.isfinite(ak).all()
                         and torch.isfinite(av).all()))
         del pools, kp, vp, kr, vr
@@ -5342,6 +5382,522 @@ def phase_kv8_sharded(eng, dev):
     return launched
 
 
+# -- fp8 e4m3 pools in kernels 9 and 10, fp8 serving (phases 41-43) ----------
+
+FP8 = torch.float8_e4m3fn
+
+
+def _same_bytes(a, b) -> bool:
+    """Byte equality of two tensors of one dtype and shape (NaN too)."""
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.reshape(-1).view(torch.uint8),
+                            b.reshape(-1).view(torch.uint8)))
+
+
+def appended_rows(pool, table, lens, layer):
+    """The row each request's append wrote, [B, kv, hd] in the pool's dtype
+    (``lens`` before the call)."""
+    page = pool.shape[3]
+    return torch.stack([pool[layer, int(table[b, n // page]), :, n % page]
+                        .view(torch.uint8)
+                        for b, n in enumerate(lens.tolist())]).view(pool.dtype)
+
+
+def fp8_appends_check(got_k, got_v, want_k, want_v, table, lens, layer,
+                      k0, v0):
+    """The appended e4m3 rows of two pools within one code of the twin's
+    (``e4m3_one_step``; the share of equal bytes) and every other byte of
+    the kernel's pools as before the call."""
+    app = append_mask(got_k, table, lens, layer)
+    near_k, eq_k = e4m3_one_step(appended_rows(got_k, table, lens, layer),
+                                 appended_rows(want_k, table, lens, layer))
+    near_v, eq_v = e4m3_one_step(appended_rows(got_v, table, lens, layer),
+                                 appended_rows(want_v, table, lens, layer))
+    untouched = (torch.equal(got_k.view(torch.uint8)[~app],
+                             k0.view(torch.uint8)[~app])
+                 and torch.equal(got_v.view(torch.uint8)[~app],
+                                 v0.view(torch.uint8)[~app]))
+    return near_k and near_v, min(eq_k, eq_v), untouched
+
+
+def fp8_bound(hbm, peak, n_rows, kv, g, hd, B, other_bytes, flops):
+    """(bound ms, what bounds it, bytes): ``other_bytes`` plus the e4m3 K
+    and V rows below lens read once, and ``flops`` plus the walk's."""
+    nbytes = other_bytes + 2 * n_rows * kv * hd
+    flops = flops + 4 * kv * g * hd * (n_rows + B)
+    bound = max(nbytes / hbm, flops / peak) * 1e3
+    return bound, "bytes" if nbytes / hbm >= flops / peak else "operations", \
+        nbytes
+
+
+def phase_fp8_paged_attention(dev, hbm, peak):
+    """Phase 41: kernel 10 on fp8 e4m3 pools, at phase 6's Llama-2-7B
+    geometry (kv 32, group 1, B 8, ``SERVE_LENS``) and at Llama-3-8B's GQA
+    geometry (``LlamaConfig.llama3_8b()``: kv 8, group 4, hd 128), page 16,
+    NaN (0x7f) in every pool row no request owns: against
+    ``paged_attention_plain`` on copies of the same pools at phase 6's
+    limits (o atol 2e-2 / rtol 2e-2, each head's row within 2 % of its
+    largest value), the appended e4m3 codes within one code of the twin's
+    (both store e4m3 of the same bf16 row: the share of equal bytes is
+    printed), every other byte unchanged, a repeat bit-identical, one fp8
+    launch a call.  Then ``queued_ms`` of the call beside kernel 10 on bf16
+    pools holding the same values (the busy ms of the split and merge
+    apart beside each), the twin's time and the byte bound.  Returns the
+    kernels-line row of the 7B geometry."""
+    from clusterfusion_tpu_torch.config import LlamaConfig
+    from clusterfusion_tpu_torch.ops import paged_decoder_layer as pd
+    gen = torch.Generator(device=dev).manual_seed(41)
+    c3 = LlamaConfig.llama3_8b()
+    rows = {}
+    for label, kv, g in (("llama2_7b", 32, 1),
+                         ("llama3_8b_gqa", c3.kv_heads,
+                          c3.n_heads // c3.kv_heads)):
+        hd, page, L, layer, B = 128, 16, 2, 1, len(SERVE_LENS)
+        kb, vb, table, lens = paged_pools(dev, L, kv, hd, page, SERVE_LENS, 41)
+        nan_unowned(kb, vb, table, lens)
+        kp, vp = kb.to(FP8), vb.to(FP8)
+        kb, vb = kp.to(torch.bfloat16), vp.to(torch.bfloat16)  # same values
+        q = torch.randn((B, kv, g, hd), generator=gen, device=dev).bfloat16()
+        k_new = torch.randn((B, kv, hd), generator=gen, device=dev).bfloat16()
+        v_new = torch.randn((B, kv, hd), generator=gen, device=dev).bfloat16()
+        k0, v0 = kp.clone(), vp.clone()
+        k2, v2 = kp.clone(), vp.clone()
+        kr, vr = kp.clone(), vp.clone()
+        before = pd.launches["paged_attention_fp8"]
+        out, _, _ = pd.paged_attention(q, k_new, v_new, kp, vp, table, lens,
+                                       layer)
+        again, _, _ = pd.paged_attention(q, k_new, v_new, k2, v2, table, lens,
+                                         layer)
+        launched = pd.launches["paged_attention_fp8"] - before
+        ref, _, _ = pd.paged_attention_plain(q, k_new, v_new, kr, vr, table,
+                                             lens, layer)
+        torch.cuda.synchronize()
+        repeat = (_same_bits(out, again) and _same_bytes(kp, k2)
+                  and _same_bytes(vp, v2))
+        finite = bool(torch.isfinite(out.float()).all())
+        max_abs = (out.float() - ref.float()).abs().max().item()
+        torch.testing.assert_close(out.float(), ref.float(), **LIMITS_TOL)
+        row_rel = row_rel_err(out, ref, hd)
+        near, eq_share, untouched = fp8_appends_check(
+            kp, vp, kr, vr, table, lens, layer, k0, v0)
+        say("paged_attention_fp8", kernel=10, kv_pool="fp8", shape=label, B=B,
+            kv=kv, group=g, page=page, lens=SERVE_LENS,
+            max_abs_err=f"{max_abs:.3g}", tol="atol=2e-2,rtol=2e-2",
+            row_rel_err=f"{row_rel:.3g}", tol_row_rel=ROW_REL_TOL,
+            appended_within_one_code=near,
+            appended_bytes_equal_share=f"{eq_share:.4f}",
+            other_bytes_unchanged=untouched, nan_unowned_rows=True,
+            repeat_bit_identical=repeat, finite=finite, fp8_launches=launched)
+        if not (repeat and finite and row_rel <= ROW_REL_TOL and near
+                and untouched and launched == 2):
+            raise AssertionError(f"kernel 10 on fp8 pools ({label}) disagrees "
+                                 "with its twin or itself, or its pools")
+        del k2, v2, again, k0, v0
+        call = lambda: pd.paged_attention(  # noqa: E731
+            q, k_new, v_new, kp, vp, table, lens, layer)
+        bf16_call = lambda: pd.paged_attention(  # noqa: E731
+            q, k_new, v_new, kb, vb, table, lens, layer)
+        ms, by_pass = row_ms(call, PAGED_PASSES)
+        bf16_ms, bf16_pass = row_ms(bf16_call, PAGED_PASSES)
+        plain_ms = time_ms(lambda: pd.paged_attention_plain(
+            q, k_new, v_new, kr, vr, table, lens, layer), 5)
+        n_rows = sum(SERVE_LENS)
+        # q in, o out, k/v_new in (bf16); the appended e4m3 rows
+        io = 2 * 2 * q.numel() + 2 * 2 * B * kv * hd + 2 * B * kv * hd
+        bound, bound_by, nbytes = fp8_bound(hbm, peak, n_rows, kv, g, hd, B,
+                                            io, 0)
+        bf16_bound = max((nbytes + 2 * n_rows * kv * hd) / hbm,
+                         4 * kv * g * hd * (n_rows + B) / peak) * 1e3
+        say("paged_attention_fp8", kernel=10, kv_pool="fp8", shape=label,
+            queued_ms=f"{ms:.4f}", split_ms=f"{by_pass['split']:.4f}",
+            merge_ms=f"{by_pass['merge']:.4f}",
+            bf16_pool_queued_ms_same_values=f"{bf16_ms:.4f}",
+            bf16_split_ms=f"{bf16_pass['split']:.4f}",
+            bf16_merge_ms=f"{bf16_pass['merge']:.4f}",
+            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound:.4f}",
+            bound_by=bound_by, bf16_pool_bound_ms=f"{bf16_bound:.4f}",
+            bytes=nbytes, TBps=f"{nbytes / (ms * 1e-3) / 1e12:.3f}",
+            library_ms="null")
+        rows[label] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound, bound_by=bound_by, library_ms=None)
+        del kp, vp, kb, vb, kr, vr
+    return rows["llama2_7b"]
+
+
+# (label, engine index) of the weights phase 42 runs kernel 9's fp8 mode on
+FP8_LAYER_WEIGHTS = (("bf16", 0), ("int8", 1), ("int4_exact", 2))
+
+
+def fp8_layer_case(pd, args, tail, kw, x, res, kp, vp, table, lens, layer):
+    """One checked call of kernel 9 on fp8 pools (``phase_fp8_paged_layer``):
+    (max error, rows within one code, equal share, other bytes unchanged,
+    repeat bit-identical, finite, fp8 launches of its two calls, the twin's
+    pools)."""
+    k0, v0 = kp.clone(), vp.clone()
+    k2, v2 = kp.clone(), vp.clone()
+    kr, vr = kp.clone(), vp.clone()
+    before = pd.launches["llama_decoder_layer_paged_fp8"]
+    out = pd.llama_decoder_layer_paged(x, res, *args, kp, vp, *tail, **kw)
+    again = pd.llama_decoder_layer_paged(x, res, *args, k2, v2, *tail, **kw)
+    launched = pd.launches["llama_decoder_layer_paged_fp8"] - before
+    ref = pd.llama_decoder_layer_paged_plain(x, res, *args, kr, vr, *tail,
+                                             **kw)
+    torch.cuda.synchronize()
+    repeat = (_same_bits(out[0], again[0]) and _same_bits(out[1], again[1])
+              and _same_bytes(kp, k2) and _same_bytes(vp, v2))
+    finite = bool(torch.isfinite(out[0].float()).all())
+    max_abs = max((out[i].float() - ref[i].float()).abs().max().item()
+                  for i in (0, 1))
+    for i in (0, 1):
+        torch.testing.assert_close(out[i].float(), ref[i].float(),
+                                   **LIMITS_TOL)
+    near, eq_share, untouched = fp8_appends_check(kp, vp, kr, vr, table, lens,
+                                                  layer, k0, v0)
+    return max_abs, near, eq_share, untouched, repeat, finite, launched, \
+        (kr, vr)
+
+
+def phase_fp8_paged_layer(eng, eng8, eng4, dev, hbm, peak):
+    """Phase 42: kernel 9 on fp8 e4m3 pools at phase 7's geometry (layer 1
+    of the 7B engines, page 16; B 4 with the engine's padding rows and B 1
+    at 2047 rows, and B 8 at ``SERVE_LENS`` with bf16 weights), NaN (0x7f)
+    in every pool row no request owns, with bf16, int8 and int4 (exact)
+    weights; then one hd-64 layer (random weights at TinyLlama-1.1B's
+    widths: hidden 2048, 32 heads of 64, kv 4; B 8) whose append stores
+    e4m3 of the bf16 row (the TPU wrapper's scatter), where the 7B layers
+    store e4m3 of the float32 row.  Each against
+    ``llama_decoder_layer_paged_plain`` on copies of the pools at phase
+    7's limits (out and res_out atol 2e-2 / rtol 2e-2), the appended codes
+    within one code of the twin's (e4m3 of float32 rows that differ by a
+    sum order; the share of equal bytes printed), every other byte
+    unchanged, a repeat bit-identical, one fp8 launch a call.
+    ``queued_ms`` of each weight kind at B 4 beside the same layer on bf16
+    pools holding the same values, the twin's time and the byte bound.
+    Returns the kernels-line row (bf16 weights, B 4)."""
+    from clusterfusion_tpu_torch.config import LlamaConfig
+    from clusterfusion_tpu_torch.models import llama as model
+    from clusterfusion_tpu_torch.ops import paged_decoder_layer as pd
+    cfg = eng.cfg
+    g, hd, kv, hidden = (cfg.n_heads // cfg.kv_heads, cfg.head_dim_,
+                         cfg.kv_heads, cfg.hidden_dim)
+    cos_t, sin_t = model.rope_table(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(42)
+    layer, page = 1, 16
+    kw = dict(group=g, rope_style=cfg.rope_style)
+    engines = (eng, eng8, eng4)
+    row = None
+    for B, lens_l in ((4, [128, 0, 0, 0]), (8, SERVE_LENS),
+                      (1, SERVE_LENS[-1:])):
+        kb, vb, table, lens = paged_pools(dev, 2, kv, hd, page, lens_l, 42)
+        x = torch.randn((B, hidden), generator=gen, device=dev).bfloat16()
+        res = torch.randn((B, hidden), generator=gen, device=dev).bfloat16()
+        if B == 4:          # padding rows as the engine pads them
+            table[1:] = 0
+            x[2:], res[2:] = x[1], res[1]
+        nan_unowned(kb, vb, table, lens)
+        k8, v8 = kb.to(FP8), vb.to(FP8)
+        kb, vb = k8.to(torch.bfloat16), v8.to(torch.bfloat16)
+        for label, which in FP8_LAYER_WEIGHTS:
+            if B == 8 and label != "bf16":
+                continue
+            lw = engines[which].params["layers"]
+            args = (lw["wqkv_f"], lw["wo_f"], table, lens, lens)
+            tail = (layer, lw["attn_norm"][layer], cfg.norm_eps, cos_t, sin_t)
+            kp, vp = k8.clone(), v8.clone()
+            max_abs, near, eq_share, untouched, repeat, finite, launched, \
+                (kr, vr) = fp8_layer_case(pd, args, tail, kw, x, res, kp, vp,
+                                          table, lens, layer)
+            timed = {}
+            if B == 4:
+                timed = dict(
+                    queued_ms=queued_ms(functools.partial(
+                        pd.llama_decoder_layer_paged, x, res, *args, kp, vp,
+                        *tail, **kw)),
+                    bf16_pool_queued_ms_same_values=queued_ms(
+                        functools.partial(pd.llama_decoder_layer_paged, x, res,
+                                          *args, kb, vb, *tail, **kw)))
+            say("paged_layer_fp8", kernel=9, kv_pool="fp8", weights=label, B=B,
+                lens=lens_l, max_abs_err=f"{max_abs:.3g}",
+                tol="atol=2e-2,rtol=2e-2", append_rule="e4m3(float32 row)",
+                appended_within_one_code=near,
+                appended_bytes_equal_share=f"{eq_share:.4f}",
+                other_bytes_unchanged=untouched, nan_unowned_rows=True,
+                repeat_bit_identical=repeat, finite=finite,
+                fp8_launches=launched,
+                **{k: f"{v:.4f}" for k, v in timed.items()})
+            if not (near and untouched and repeat and finite
+                    and launched == 2):
+                raise AssertionError(f"kernel 9 on fp8 pools ({label} "
+                                     f"weights, B {B}) disagrees with its "
+                                     "twin or itself, or its pools")
+            if B == 4 and label == "bf16":
+                plain_ms = time_ms(functools.partial(
+                    pd.llama_decoder_layer_paged_plain, x, res, *args, kr, vr,
+                    *tail, **kw), 3, warmup=1)
+                w_elems = lw["wqkv_f"][layer].numel() + lw["wo_f"][layer].numel()
+                io = 2 * (w_elems + 4 * B * hidden + hidden) + 2 * B * kv * hd
+                bound, bound_by, nbytes = fp8_bound(
+                    hbm, peak, sum(lens_l), kv, g, hd, B, io, 2 * B * w_elems)
+                say("paged_layer_fp8", kernel=9, kv_pool="fp8", weights=label,
+                    B=B, plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound:.4f}",
+                    bound_by=bound_by, bytes=nbytes, library_ms="null")
+                row = dict(max_abs_err=max_abs, ms=timed["queued_ms"],
+                           plain_ms=plain_ms, bound_ms=bound,
+                           bound_by=bound_by, library_ms=None)
+            del kp, vp, kr, vr
+        del k8, v8, kb, vb
+    # hd 64: the append stores e4m3 of the bf16 row (rule of the TPU
+    # wrapper's scatter); random weights at TinyLlama-1.1B's widths
+    ct = LlamaConfig.tinyllama_1b()
+    kvt, gt, hdt, hid = ct.kv_heads, ct.n_heads // ct.kv_heads, ct.head_dim_, \
+        ct.hidden_dim
+    G, hg = 2, ct.kv_heads // 2
+    B = len(SERVE_LENS)
+    wq = (torch.randn((G, hid, hg * (gt + 2) * hdt), generator=gen,
+                      device=dev) * hid ** -0.5).bfloat16()
+    wo = (torch.randn((G, hg * gt * hdt, hid), generator=gen, device=dev)
+          * (kvt * gt * hdt) ** -0.5).bfloat16()
+    norm = (1 + 0.1 * torch.randn((hid,), generator=gen, device=dev)).bfloat16()
+    x = torch.randn((B, hid), generator=gen, device=dev).bfloat16()
+    res = torch.randn((B, hid), generator=gen, device=dev).bfloat16()
+    kb, vb, table, lens = paged_pools(dev, 2, kvt, hdt, page, SERVE_LENS, 43)
+    nan_unowned(kb, vb, table, lens)
+    kp, vp = kb.to(FP8), vb.to(FP8)
+    cos_s, sin_s = model.rope_table(ct, device=dev)
+    args = (wq, wo, table, lens, lens)
+    tail = (layer, norm, ct.norm_eps, cos_s, sin_s)
+    kwt = dict(group=gt, rope_style=ct.rope_style)
+    max_abs, near, eq_share, untouched, repeat, finite, launched, (kr, vr) = \
+        fp8_layer_case(pd, args, tail, kwt, x, res, kp, vp, table, lens, layer)
+    say("paged_layer_fp8", kernel=9, kv_pool="fp8", weights="bf16 (random)",
+        model="tinyllama_1b widths", hd=hdt, kv=kvt, group=gt, B=B,
+        lens=SERVE_LENS, max_abs_err=f"{max_abs:.3g}",
+        tol="atol=2e-2,rtol=2e-2", append_rule="e4m3(bf16 row)",
+        appended_within_one_code=near,
+        appended_bytes_equal_share=f"{eq_share:.4f}",
+        other_bytes_unchanged=untouched, nan_unowned_rows=True,
+        repeat_bit_identical=repeat, finite=finite, fp8_launches=launched)
+    if not (near and untouched and repeat and finite and launched == 2):
+        raise AssertionError("kernel 9 on fp8 pools at hd 64 disagrees with "
+                             "its twin or itself, or its pools")
+    return row
+
+
+# the fp8 serving step's drift from its plain-twin step at full depth, as a
+# multiple of the bf16-pool step's drift measured in the same phase (the
+# multiple phases 22 and 31 allow int8 and int4 weights; on an H100 the fp8
+# pools drifted 0.96x (batched) and 0.82x (fused) as far as bf16 pools)
+FP8_STEP_DRIFT = 1.25
+
+
+def step_busy_ms(fn, reps=2):
+    """Device busy ms of one call of a serving step (``timeline_by_pass``
+    over ``reps`` calls: a 7B step is ~2000 kernels, and fewer calls keep
+    each profile small), ``queued_ms`` where no profile kept its events."""
+    try:
+        return timeline_by_pass(fn, (), reps)[0]
+    except profiling.LostEvents:
+        profiling.note(no_device_events=True, busy_ms_from="queued_ms")
+        return queued_ms(fn)
+
+
+def fp8_step_vs_plain(eng, dev):
+    """Phase 43 (a): ``step_vs_plain`` on fp8 pools (e4m3 of the random rows,
+    NaN in every unowned row), both step kinds, against the same step on
+    the plain twins.  At ``STEP_CHECK_DEPTH`` layers: the logits within
+    2e-2 of the largest logit, layer 0's appended rows within one e4m3 code
+    of the twin's (the rows they store differ by a sum order at most),
+    every layer's within atol 0.08 + rtol 0.125 of its largest |row| (one
+    e4m3 step), every other byte unchanged, the requests' plain logits
+    apart by more than the limit.  At all 32 layers, the fp8 step's logits
+    no further from its twin's than ``FP8_STEP_DRIFT`` times the bf16-pool
+    step's from its own, measured here on the same weights, table and
+    tokens."""
+    for impl, r in step_vs_plain(eng, dev, STEP_CHECK_DEPTH,
+                                 kv_dtype=FP8).items():
+        err, mag = r["row_err"], r["row_mag"]
+        rows_ok = r["codes0"][0] and all(e <= 0.08 + 0.125 * m
+                                         for e, m in zip(err, mag))
+        say("serving_fp8_step", step=impl, kv_pool="fp8", B=len(SERVE_LENS),
+            layers=r["layers"], lens=SERVE_LENS,
+            logits_err_over_max=f"{r['logits_rel']:.4g}", tol_logits=2e-2,
+            least_request_spread_over_max=f"{r['spread']:.4g}",
+            layer0_rows_within_one_code=r["codes0"][0],
+            layer0_bytes_equal_share=f"{r['codes0'][1]:.4f}",
+            kv_rows_err_by_layer=[round(x, 4) for x in err],
+            kv_rows_max_abs=f"{max(mag):.3g}", tol_rows="atol=0.08+rtol=0.125",
+            other_bytes_unchanged=r["unchanged"], nan_unowned_rows=True,
+            finite=r["finite"])
+        if not (r["logits_rel"] <= 2e-2 and rows_ok and r["unchanged"]
+                and r["finite"] and r["spread"] > 2e-2):
+            raise AssertionError(f"the {impl} serving step on fp8 pools "
+                                 "disagrees with the same step on the plain "
+                                 "twins")
+    full8, full16 = step_vs_plain(eng, dev, kv_dtype=FP8), step_vs_plain(eng,
+                                                                         dev)
+    for impl, r in full8.items():
+        b = full16[impl]
+        say("serving_fp8_step", step=impl, kv_pool="fp8", layers=r["layers"],
+            logits_err_over_max=f"{r['logits_rel']:.4g}",
+            bf16_pool_logits_err_over_max=f"{b['logits_rel']:.4g}",
+            tol=f"{FP8_STEP_DRIFT}x the bf16-pool step's",
+            kv_rows_err_max=f"{max(r['row_err']):.4g}",
+            bf16_pool_kv_rows_err_max=f"{max(b['row_err']):.4g}",
+            other_bytes_unchanged=r["unchanged"], finite=r["finite"])
+        if not (r["logits_rel"] <= FP8_STEP_DRIFT * b["logits_rel"]
+                and r["unchanged"] and r["finite"] and b["unchanged"]
+                and b["finite"]):
+            raise AssertionError(f"the {impl} serving step on fp8 pools "
+                                 "drifts from its twin more than "
+                                 f"{FP8_STEP_DRIFT}x the bf16-pool step")
+
+
+def phase_fp8_serving(eng, dev):
+    """Phase 43: ``ServingEngine(kv_dtype=torch.float8_e4m3fn)``.  First
+    ``fp8_step_vs_plain``; then phase 8's mix (page 16, eight requests of
+    32-512 prompt tokens, 32 new each) through the batched step (kernel 10
+    on e4m3 pools) and the fused step (kernel 9 on them), each beside the
+    same run on bf16 pools in this phase: tokens/s, ms a step and the
+    device busy ms of one step at ``SERVE_LENS`` (``busy_ms``: walls swing
+    between runs, so busy time is the figure to compare), the fp8
+    launches (once per layer and step), every token in range, request 3
+    alone equal to its tokens in the batch; then ``Llama.generate`` with an
+    fp8 cache at B 1 (the fused step) and B 4 (the batched one), each
+    request 0 against the plain path on an fp8 cache (eager prefill and
+    decode on the card) under the top-2-gap rule.  Returns the fp8
+    launches of kernels 10 and 9 on that path (the serving runs and
+    ``generate``)."""
+    from clusterfusion_tpu_torch.models import llama as model
+    from clusterfusion_tpu_torch.models.generation import Llama
+    from clusterfusion_tpu_torch.ops import paged_decoder_layer as pd
+    from clusterfusion_tpu_torch.runtime import ServingEngine
+    serving = importlib.import_module("clusterfusion_tpu_torch.runtime.serving")
+    t0 = time.perf_counter()
+    fp8_step_vs_plain(eng, dev)
+    seconds = dict(step_checks=time.perf_counter() - t0)
+    cfg = eng.cfg
+    text = "Serving many users at once on one card, page by page. " * 12
+    prompts = [eng.tokenizer.encode(text[:n - 1], bos=True, eos=False)
+               for n in (32, 64, 128, 200, 256, 300, 400, 512)]
+    n_new = 32
+    L, kv, hd, page = cfg.n_layers, cfg.kv_heads, cfg.head_dim_, 16
+    _, _, table, lens = paged_pools(dev, 1, kv, hd, page, SERVE_LENS, 43)
+    shape = (L, int(table.max()) + 1, kv, page, hd)
+    tokens = torch.arange(len(SERVE_LENS), device=dev) * 7 + 3
+    rope = model.rope_table(cfg, device=dev)
+    temps, tops = [0.0] * len(SERVE_LENS), [0.9] * len(SERVE_LENS)
+    steps = dict(batched=serving._paged_decode_step_batched,
+                 fused=serving._paged_decode_step)
+    counter = dict(batched="paged_attention", fused="llama_decoder_layer_paged")
+    launch = dict(paged_attention=0, layer=0)
+    figures = {}
+
+    def serve(batch, impl, kv_dtype, timed=False, new=n_new):
+        srv = ServingEngine(eng.params, cfg, page_size=16, num_pages=136,
+                            max_batch=8, step_impl=impl, kv_dtype=kv_dtype)
+        step_s = []
+        if timed:
+            real_step = srv._step
+
+            def timed_step(*a):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = real_step(*a)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                return out
+
+            srv._step = timed_step
+        for i in batch:
+            srv.submit(i, prompts[i], new, temperature=0.0)
+        return srv.run(), step_s, srv.k_pool.dtype
+
+    for impl in ("batched", "fused"):
+        for pool in ("bf16", "fp8"):
+            t0 = time.perf_counter()
+            kv_dtype = FP8 if pool == "fp8" else torch.bfloat16
+            serve([0], impl, kv_dtype, new=2)              # warm-up
+            pd.launches.update(dict.fromkeys(pd.launches, 0))
+            out, step_s, pool_dtype = serve(range(len(prompts)), impl,
+                                            kv_dtype, timed=True)
+            got = dict(pd.launches)
+            n_steps = len(step_s)
+            decode_tokens = sum(len(t) for t in out.values()) - len(prompts)
+            kp = torch.zeros(shape, device=dev, dtype=kv_dtype)
+            vp = torch.zeros_like(kp)
+            t1 = time.perf_counter()
+            busy = step_busy_ms(functools.partial(
+                steps[impl], eng.params, kp, vp, tokens, lens, table, lens,
+                None, temps, tops, cfg, rope))
+            seconds[f"busy_{impl}_{pool}"] = time.perf_counter() - t1
+            del kp, vp
+            figures[impl, pool] = dict(
+                tokens_per_s=decode_tokens / sum(step_s),
+                ms_per_step=sum(step_s) * 1e3 / n_steps, busy_ms=busy)
+            fp8_count = got[counter[impl] + "_fp8"]
+            say("serving_fp8", step=impl, kv_pool=pool, requests=len(prompts),
+                new_tokens=n_new, decode_steps=n_steps,
+                decode_tokens_per_s=f"{figures[impl, pool]['tokens_per_s']:.2f}",
+                ms_per_step=f"{figures[impl, pool]['ms_per_step']:.3f}",
+                device_busy_ms_per_step_at_serve_lens=f"{busy:.4f}",
+                pool_dtype=str(pool_dtype),
+                **{f"{k}_launches": v for k, v in got.items() if v})
+            want = L * n_steps if pool == "fp8" else 0
+            if got[counter[impl]] != L * n_steps or fp8_count != want or \
+                    pool_dtype != kv_dtype:
+                raise AssertionError(f"the {impl} step on {pool} pools did not "
+                                     "launch its kernel once per layer and "
+                                     "step")
+            if any(len(t) != n_new or not all(0 <= x < cfg.vocab_size
+                                              for x in t)
+                   for t in out.values()):
+                raise AssertionError(f"bad {pool}-pool serving output {out}")
+            if pool == "fp8":
+                launch["paged_attention" if impl == "batched" else "layer"] += \
+                    fp8_count
+                alone = serve([3], impl, kv_dtype)[0]
+                say("serving_fp8", step=impl, kv_pool=pool,
+                    request_3_alone_equal=alone[3] == out[3],
+                    first_tokens=out[0][:8])
+                if alone[3] != out[3]:
+                    raise AssertionError(f"fp8-pool {impl} serving is not "
+                                         "batching-invariant")
+            seconds[f"serve_{impl}_{pool}"] = (time.perf_counter() - t0
+                                               - seconds[f"busy_{impl}_{pool}"])
+        f8, f16 = figures[impl, "fp8"], figures[impl, "bf16"]
+        say("serving_fp8", step=impl,
+            busy_ms_fp8_over_bf16=f"{f8['busy_ms'] / f16['busy_ms']:.4f}",
+            tokens_per_s_fp8=f"{f8['tokens_per_s']:.2f}",
+            tokens_per_s_bf16=f"{f16['tokens_per_s']:.2f}")
+    t0 = time.perf_counter()
+    e8 = Llama(eng.params, cfg, eng.tokenizer, fused=True, kv_dtype=FP8)
+    for B in (1, 4):
+        pd.launches.update(dict.fromkeys(pd.launches, 0))
+        t0 = time.perf_counter()
+        toks, _ = e8.generate(prompts[2:2 + B], 16, temperature=0.0)
+        gen_s = time.perf_counter() - t0
+        got = dict(pd.launches)
+        plain, gaps, bad = check_against_plain(e8, dev, prompts[2], toks[0], 8)
+        say("generate_fp8", B=B, step="fused" if B == 1 else "batched",
+            kv_dtype="float8_e4m3fn", tokens=toks[0][:8], plain_tokens=plain,
+            top2_gaps=[round(x, 3) for x in gaps],
+            disagree_where_gap_gt_0_1=bad, wall_s=f"{gen_s:.3f}",
+            **{f"{k}_launches": v for k, v in got.items() if v})
+        k9, k10 = got["llama_decoder_layer_paged_fp8"], \
+            got["paged_attention_fp8"]
+        ran = (k9 >= cfg.n_layers and k10 == 0) if B == 1 else \
+            (k10 >= cfg.n_layers and k9 == 0)
+        if bad or not ran:
+            raise AssertionError(f"generate with an fp8 cache at B {B}: "
+                                 f"disagrees at {bad} or did not run its "
+                                 "fp8 kernel")
+        launch["layer"] += k9
+        launch["paged_attention"] += k10
+    seconds["generate"] = time.perf_counter() - t0
+    say("serving_fp8", **{f"{k}_s": f"{v:.1f}" for k, v in seconds.items()})
+    return launch
+
+
 # -- int4 on the multi-card paths (phases 32-34) ------------------------------
 
 
@@ -6780,6 +7336,16 @@ def main() -> int:
     mode5_kv8, fused_kv8_launches = phase_kv8_mode5(eng, eng8, dev, hbm, peak)
     sharded_kv8_launches = phase_kv8_sharded(eng, dev)
     say("phases_38_40", seconds=f"{time.perf_counter() - t38:.1f}")
+    t41 = time.perf_counter()
+    paged_fp8 = phase_fp8_paged_attention(dev, hbm, peak)
+    t42 = time.perf_counter()
+    layer_fp8 = phase_fp8_paged_layer(eng, eng8, eng4, dev, hbm, peak)
+    t43 = time.perf_counter()
+    serving_fp8_launches = phase_fp8_serving(eng, dev)
+    t44 = time.perf_counter()
+    say("phases_41_43", seconds=f"{t44 - t41:.1f}",
+        phase41_s=f"{t42 - t41:.1f}", phase42_s=f"{t43 - t42:.1f}",
+        phase43_s=f"{t44 - t43:.1f}")
     t32 = time.perf_counter()
     layer4_rows = phase_int4_layer(eng4, eng8, eng, dev, hbm, peak)
     del eng, eng8
@@ -6832,6 +7398,14 @@ def main() -> int:
              source="clusterfusion_tpu_torch/csrc/paged_decoder_layer.cu",
              replaces="clusterfusion_tpu/ops/paged_decoder_layer.py:399",
              launches=layer_launches, **layer),
+        dict(name="paged_attention (fp8 KV pool)", route="cuda",
+             source="clusterfusion_tpu_torch/csrc/paged_attention.cu",
+             replaces="clusterfusion_tpu/ops/paged_decoder_layer.py:932",
+             launches=serving_fp8_launches["paged_attention"], **paged_fp8),
+        dict(name="llama_decoder_layer_paged (fp8 KV pool)", route="cuda",
+             source="clusterfusion_tpu_torch/csrc/paged_decoder_layer.cu",
+             replaces="clusterfusion_tpu/ops/paged_decoder_layer.py:399",
+             launches=serving_fp8_launches["layer"], **layer_fp8),
         dict(name="fused_verify_stack", route="cuda",
              source="clusterfusion_tpu_torch/csrc/stack_verify.cu",
              replaces="clusterfusion_tpu/ops/stack_verify.py:432",

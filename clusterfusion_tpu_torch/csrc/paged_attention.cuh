@@ -45,6 +45,21 @@
 //   values, after griddepcontrol.wait), the merge ropes q and k again and
 //   folds q, k and v in float32; the appended rows are bf16(k), bf16(v).
 //
+// The pool kind KV (common.cuh's KV_BF16 or KV_FP8) is a template parameter
+// of both kernels; the pool pointers are pa_row_t<KV>, so the bf16
+// instances keep their types.  KV_FP8 (the TPU kernels' e4m3 pools): the
+// rows are bytes (an hd-64 row is 64 B, so every bulk copy stays a multiple
+// of 16 bytes), each 8-byte piece decoded exactly with e4m3 denormals
+// flushed to 0 (unpack8_e4m3, the TPU kernels' _kv_tile); scores and
+// bf16(p).V as the bf16 instance computes them.  The current row and its
+// append follow the TPU kernels' two rules:
+//   kernel 10: the row is e4m3 of the bf16 k_new/v_new (saturating at
+//     +-448), folded as stored (denormals kept) and appended as stored;
+//   kernel 9: the fold stays float32; the append stores e4m3 of the
+//     float32 row where the TPU kernel appends in-kernel (hd % 128 == 0
+//     and page % 8 == 0), else e4m3 of its bf16 rounding (the TPU
+//     wrapper's scatter of the bf16 k_new, a double rounding).
+//
 // A request whose lens or position is out of range gets NaN outputs and no
 // append, which the serving engine's numeric watchdog reports.
 
@@ -59,7 +74,12 @@ constexpr int PA_TILE = 32;        // rows per barrier and per online-softmax st
 constexpr int PA_MAX_GROUP = 16;
 constexpr int PA_SMEM_MAX = 227 * 1024;
 
-struct PagedArgs {
+// A pool element of kind KV: bf16, or an e4m3 byte.
+template <int KV>
+using pa_row_t = std::conditional_t<KV == KV_FP8, uint8_t, __nv_bfloat16>;
+
+template <int KV>
+struct PagedArgsT {
   const __nv_bfloat16* q;
   const __nv_bfloat16* k_new;
   const __nv_bfloat16* v_new;
@@ -67,8 +87,8 @@ struct PagedArgs {
   const float* cos;                // [max_pos, hd] full-dim tables
   const float* sin;
   const int* positions;            // [B]
-  __nv_bfloat16* k_pool;           // [L, n_pages, kv, page, hd]
-  __nv_bfloat16* v_pool;
+  pa_row_t<KV>* k_pool;            // [L, n_pages, kv, page, hd]
+  pa_row_t<KV>* v_pool;
   const int* table;                // [B, max_pages]
   const int* lens;                 // [B] cached rows, current token excluded
   __nv_bfloat16* o;                // [B, kv * g * hd]
@@ -77,6 +97,7 @@ struct PagedArgs {
   int kv, group, page, n_pages, max_pages, layer, max_pos, neox, split, ns;
   float qscale;                    // kernel 10: log2(e)/sqrt(hd), as float
 };
+using PagedArgs = PagedArgsT<KV_BF16>;
 
 // Splits per request: enough for the longest request the table can hold.
 inline int paged_splits(int max_pages, int page, int split) {
@@ -88,31 +109,57 @@ inline size_t paged_partial_floats(int B, int kv, int group, int hd, int ns) {
   return (size_t)B * kv * ns * group * (2 + (size_t)hd);
 }
 
-// Bytes of the split pass's row area: the split's K and V rows, and after
-// the last tile the P.V slices' sums.
-__host__ __device__ inline size_t paged_rows_bytes(int hd, int group, int split) {
-  const size_t kv_rows = 2 * (size_t)split * hd * 2;
+// Bytes of the split pass's row area: the split's K and V rows of `rb`
+// bytes an element, and after the last tile the P.V slices' sums.
+__host__ __device__ inline size_t paged_rows_bytes(int hd, int group, int split, int rb) {
+  const size_t kv_rows = 2 * (size_t)split * hd * rb;
   const size_t sums = sizeof(float) * (PA_THREADS / (hd / 8)) * (size_t)group * hd;
   return kv_rows > sums ? kv_rows : sums;
 }
 
 // Shared memory of the split pass: a barrier per tile, the row area, q in
 // bf16, a tile's scores and the running (max, sum, alpha) of each query row.
-inline size_t paged_split_smem(int hd, int group, int split) {
+inline size_t paged_split_smem(int hd, int group, int split, int rb) {
   const size_t tiles = (size_t)(split + PA_TILE - 1) / PA_TILE;
-  return (tiles * 8 + 15) / 16 * 16 + paged_rows_bytes(hd, group, split) +
+  return (tiles * 8 + 15) / 16 * 16 + paged_rows_bytes(hd, group, split, rb) +
          (size_t)group * hd * 2 + sizeof(float) * ((size_t)group * PA_TILE + 4 * group);
 }
 
-__device__ __forceinline__ bool paged_bad(const PagedArgs& a, int n_past, int pos,
+template <int KV>
+__device__ __forceinline__ bool paged_bad(const PagedArgsT<KV>& a, int n_past, int pos,
                                           bool from_qkv) {
   return n_past < 0 || n_past >= a.max_pages * a.page ||
          (from_qkv && (pos < 0 || pos >= a.max_pos));
 }
 
+// Eight pool elements at p (16 bytes of bf16, 8 of e4m3) -> eight floats.
+template <int KV>
+__device__ __forceinline__ void pa_unpack8(const pa_row_t<KV>* p, float* f) {
+  if constexpr (KV == KV_FP8)
+    unpack8_e4m3(*reinterpret_cast<const uint2*>(p), f);
+  else
+    unpack8(*reinterpret_cast<const uint4*>(p), f);
+}
+
+// One e4m3 code -> its float, exactly, denormals kept (a plain convert;
+// 0x7f/0xff are e4m3fn's NaN).
+__device__ __forceinline__ float e4m3_to_float(uint8_t c) {
+  const uint32_t mag = c & 0x7fu;
+  const float v = mag == 0x7fu ? __int_as_float(0x7fc00000)
+                  : mag < 8   ? (float)mag * (1.0f / 512.0f)
+                              : __uint_as_float((mag << 20) + 0x3C000000u);
+  return (c & 0x80u) ? -v : v;
+}
+
+__device__ __forceinline__ uint8_t float_to_e4m3(float x) {
+  return (uint8_t)__nv_cvt_float_to_fp8(x, __NV_SATFINITE, __NV_E4M3);
+}
+
 // GMAX: the group rounded up to a power of two (the unrolled row count).
-template <int HD, int GMAX, bool FROM_QKV>
-__global__ void __launch_bounds__(PA_THREADS) paged_split_kernel(PagedArgs a) {
+template <int HD, int GMAX, bool FROM_QKV, int KV>
+__global__ void __launch_bounds__(PA_THREADS) paged_split_kernel(PagedArgsT<KV> a) {
+  using row_t = pa_row_t<KV>;
+  constexpr int RB = (int)sizeof(row_t);       // bytes a pool element
   constexpr int CHUNKS = HD / 8;               // 16-byte pieces per row
   constexpr int NW = PA_THREADS / 32;
   constexpr int TPR = PA_THREADS / PA_TILE;    // threads per row in the scores
@@ -125,10 +172,11 @@ __global__ void __launch_bounds__(PA_THREADS) paged_split_kernel(PagedArgs a) {
   const int tiles = (S + PA_TILE - 1) / PA_TILE;
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);                    // [tiles]
   unsigned char* rows = smem + (tiles * 8 + 15) / 16 * 16;
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(rows);           // [S][HD]
-  __nv_bfloat16* vs = ks + (size_t)S * HD;                               // [S][HD]
+  row_t* ks = reinterpret_cast<row_t*>(rows);                           // [S][HD]
+  row_t* vs = ks + (size_t)S * HD;                                       // [S][HD]
   float* red = reinterpret_cast<float*>(rows);     // [SL][g][HD] once the rows are read
-  __nv_bfloat16* qw = reinterpret_cast<__nv_bfloat16*>(rows + paged_rows_bytes(HD, g, S));  // [g][HD]
+  __nv_bfloat16* qw =
+      reinterpret_cast<__nv_bfloat16*>(rows + paged_rows_bytes(HD, g, S, RB));  // [g][HD]
   float* sc = reinterpret_cast<float*>(qw + g * HD);                     // [g][PA_TILE]
   float* st = sc + g * PA_TILE;                                          // [g][4]
 
@@ -154,14 +202,15 @@ __global__ void __launch_bounds__(PA_THREADS) paged_split_kernel(PagedArgs a) {
   // steps, or a kernel the stream has finished).
   if (wid == 0) {
     for (int t = lane; t < nt; t += 32)
-      hopper::mbar_arrive_expect_tx(&bar[t], (uint32_t)min(PA_TILE, n - t * PA_TILE) * HD * 4);
+      hopper::mbar_arrive_expect_tx(&bar[t],
+                                    (uint32_t)min(PA_TILE, n - t * PA_TILE) * HD * 2 * RB);
     __syncwarp();
     for (int j = j0 + lane; j < j0 + n; j += 32) {
       if (j != j0 && j % a.page != 0 && (j - j0) % PA_TILE != 0) continue;  // not a run's first row
       const int end = min(min(j0 + n, (j / a.page + 1) * a.page),
                           j0 + ((j - j0) / PA_TILE + 1) * PA_TILE);
       const size_t off = ((head0 + (size_t)trow[j / a.page] * kv) * a.page + j % a.page) * HD;
-      const uint32_t bytes = (uint32_t)(end - j) * HD * 2;
+      const uint32_t bytes = (uint32_t)(end - j) * HD * RB;
       uint64_t* tb = &bar[(j - j0) / PA_TILE];
       hopper::bulk_load_1d(ks + (size_t)(j - j0) * HD, a.k_pool + off, bytes, tb);
       hopper::bulk_load_1d(vs + (size_t)(j - j0) * HD, a.v_pool + off, bytes, tb);
@@ -204,7 +253,7 @@ __global__ void __launch_bounds__(PA_THREADS) paged_split_kernel(PagedArgs a) {
     // 1. scores of the g query rows against the tile's rows: TPR threads a
     //    row, each over CPT pieces taken in an order staggered by row
     {
-      const __nv_bfloat16* kr = ks + (size_t)(t * PA_TILE + r) * HD + part * CPT * 8;
+      const row_t* kr = ks + (size_t)(t * PA_TILE + r) * HD + part * CPT * 8;
       const __nv_bfloat16* qp = qw + part * CPT * 8;
       float sa[GMAX];
 #pragma unroll
@@ -214,7 +263,7 @@ __global__ void __launch_bounds__(PA_THREADS) paged_split_kernel(PagedArgs a) {
         for (int c0 = 0; c0 < CPT; ++c0) {
           const int c = (c0 + r) % CPT;
           float f[8];
-          unpack8(*reinterpret_cast<const uint4*>(kr + c * 8), f);
+          pa_unpack8<KV>(kr + c * 8, f);
 #pragma unroll
           for (int i = 0; i < GMAX; ++i) {
             if (i < g) {
@@ -265,7 +314,7 @@ __global__ void __launch_bounds__(PA_THREADS) paged_split_kernel(PagedArgs a) {
     }
     for (int rr = sl; rr < rows_t; rr += SL) {
       float v[8];
-      unpack8(*reinterpret_cast<const uint4*>(vs + (size_t)(t * PA_TILE + rr) * HD + cg * 8), v);
+      pa_unpack8<KV>(vs + (size_t)(t * PA_TILE + rr) * HD + cg * 8, v);
 #pragma unroll
       for (int i = 0; i < GMAX; ++i) {
         if (i < g) {
@@ -305,8 +354,8 @@ __global__ void __launch_bounds__(PA_THREADS) paged_split_kernel(PagedArgs a) {
 // append.  Warp w takes query rows w, w + 4, ...: the splits' maxima and
 // sums (lanes over splits, summed in a fixed butterfly), each split's
 // weight into shared memory; then every (row, column) sums its splits.
-template <int HD, bool FROM_QKV>
-__global__ void __launch_bounds__(PA_THREADS) paged_merge_kernel(PagedArgs a) {
+template <int HD, bool FROM_QKV, int KV>
+__global__ void __launch_bounds__(PA_THREADS) paged_merge_kernel(PagedArgsT<KV> a) {
   constexpr int NW = PA_THREADS / 32;
   hopper::grid_dep_launch_dependents();
   hopper::grid_dep_wait();                      // the split pass has completed
@@ -344,8 +393,13 @@ __global__ void __launch_bounds__(PA_THREADS) paged_merge_kernel(PagedArgs a) {
       qf[e] = bf16_round(__bfloat162float(qs[e]) * a.qscale);
     const size_t row = ((size_t)b * kv + h) * HD;
     for (int e = tid; e < HD; e += PA_THREADS) {
-      kcur[e] = __bfloat162float(a.k_new[row + e]);
-      vcur[e] = __bfloat162float(a.v_new[row + e]);
+      if constexpr (KV == KV_FP8) {     // the row as stored: e4m3 of the bf16 row
+        kcur[e] = e4m3_to_float(float_to_e4m3(__bfloat162float(a.k_new[row + e])));
+        vcur[e] = e4m3_to_float(float_to_e4m3(__bfloat162float(a.v_new[row + e])));
+      } else {
+        kcur[e] = __bfloat162float(a.k_new[row + e]);
+        vcur[e] = __bfloat162float(a.v_new[row + e]);
+      }
     }
   }
   __syncthreads();
@@ -386,8 +440,17 @@ __global__ void __launch_bounds__(PA_THREADS) paged_merge_kernel(PagedArgs a) {
     const size_t head0 = (size_t)a.layer * a.n_pages * kv + h;
     const size_t pg = (size_t)a.table[(size_t)b * a.max_pages + n_past / a.page];
     const size_t off = ((head0 + pg * kv) * a.page + n_past % a.page) * HD + tid;
-    a.k_pool[off] = __float2bfloat16(kcur[tid]);
-    a.v_pool[off] = __float2bfloat16(vcur[tid]);
+    if constexpr (KV == KV_FP8) {
+      // kernel 10: kcur holds e4m3 values, stored back unchanged; kernel 9:
+      // e4m3 of the float32 row, or of its bf16 rounding (the module's note)
+      const bool f32_row = !FROM_QKV || (HD % 128 == 0 && a.page % 8 == 0);
+      const float k = kcur[tid], v = vcur[tid];
+      a.k_pool[off] = float_to_e4m3(f32_row ? k : bf16_round(k));
+      a.v_pool[off] = float_to_e4m3(f32_row ? v : bf16_round(v));
+    } else {
+      a.k_pool[off] = __float2bfloat16(kcur[tid]);
+      a.v_pool[off] = __float2bfloat16(vcur[tid]);
+    }
   }
 }
 
@@ -401,23 +464,23 @@ int paged_allow_smem() {
   return err;
 }
 
-template <int HD, int GMAX, bool FROM_QKV>
-int launch_paged_attn_g(const PagedArgs& a, int B, bool pdl, cudaStream_t st) {
-  auto split = paged_split_kernel<HD, GMAX, FROM_QKV>;
-  auto merge = paged_merge_kernel<HD, FROM_QKV>;
-  const size_t smem = paged_split_smem(HD, a.group, a.split);
+template <int HD, int GMAX, bool FROM_QKV, int KV>
+int launch_paged_attn_g(const PagedArgsT<KV>& a, int B, bool pdl, cudaStream_t st) {
+  auto split = paged_split_kernel<HD, GMAX, FROM_QKV, KV>;
+  auto merge = paged_merge_kernel<HD, FROM_QKV, KV>;
+  const size_t smem = paged_split_smem(HD, a.group, a.split, (int)sizeof(pa_row_t<KV>));
   const size_t merge_smem =
       sizeof(float) * ((size_t)a.group * HD + 2 * HD + 4 * a.group + (size_t)a.group * a.ns);
   if (smem > (size_t)PA_SMEM_MAX || merge_smem > (size_t)PA_SMEM_MAX)
     return (int)cudaErrorInvalidValue;
-  CF_CHECK((paged_allow_smem<paged_split_kernel<HD, GMAX, FROM_QKV>>()));
-  CF_CHECK((paged_allow_smem<paged_merge_kernel<HD, FROM_QKV>>()));
+  CF_CHECK((paged_allow_smem<paged_split_kernel<HD, GMAX, FROM_QKV, KV>>()));
+  CF_CHECK((paged_allow_smem<paged_merge_kernel<HD, FROM_QKV, KV>>()));
   CF_CHECK(launch_kernel(split, dim3(a.ns, a.kv, B), dim3(PA_THREADS), smem, st, pdl, a));
   return launch_kernel(merge, dim3(a.kv, B), dim3(PA_THREADS), merge_smem, st, true, a);
 }
 
-template <int HD, bool FROM_QKV>
-int launch_paged_attn_hd(const PagedArgs& a, int B, bool pdl, cudaStream_t st) {
+template <int HD, bool FROM_QKV, int KV>
+int launch_paged_attn_hd(const PagedArgsT<KV>& a, int B, bool pdl, cudaStream_t st) {
   if (a.group == 1) return launch_paged_attn_g<HD, 1, FROM_QKV>(a, B, pdl, st);
   if (a.group == 2) return launch_paged_attn_g<HD, 2, FROM_QKV>(a, B, pdl, st);
   if (a.group <= 4) return launch_paged_attn_g<HD, 4, FROM_QKV>(a, B, pdl, st);
@@ -430,8 +493,8 @@ int launch_paged_attn_hd(const PagedArgs& a, int B, bool pdl, cudaStream_t st) {
 // (its q comes from the kernel before it), the merge always.  a.ns and
 // the scratch must hold paged_splits(max_pages, page, split) splits.
 // Returns a cudaError_t.
-template <bool FROM_QKV>
-int launch_paged_attn(const PagedArgs& a, int B, int hd, bool pdl, cudaStream_t st) {
+template <bool FROM_QKV, int KV>
+int launch_paged_attn(const PagedArgsT<KV>& a, int B, int hd, bool pdl, cudaStream_t st) {
   if (B < 1 || a.kv < 1 || a.group < 1 || a.group > PA_MAX_GROUP || a.page < 1 ||
       a.max_pages < 1 || a.layer < 0 || a.split < 1 ||
       a.ns != paged_splits(a.max_pages, a.page, a.split))

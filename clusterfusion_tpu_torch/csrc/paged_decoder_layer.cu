@@ -4,8 +4,9 @@
 //
 // Replaces the TPU kernel `llama_decoder_layer_paged`
 // (clusterfusion_tpu/ops/paged_decoder_layer.py, `_paged_kernel`), which
-// the fused serving step runs once per layer, for bf16 weights and pool, no
-// bias, window or softcap.  Layouts as there:
+// the fused serving step runs once per layer, for bf16, int8 or int4
+// weights, a bf16 or fp8 e4m3 pool, no bias, window or softcap.  Layouts as
+// there:
 //   wqkv_f [L, G, hidden, hg*(g+2)*hd]  columns per kv head [q_0..q_{g-1}|k|v]
 //   wo_f   [L, G, hg*g*hd, hidden]      pools [L, n_pages, kv, page, hd]
 // The layer of the weight stacks is picked by offset (`w_layer`); no
@@ -29,7 +30,9 @@
 //   split      per (split, kv head, request): the split's cached rows,
 //              bulk-copied; q roped from qkv (paged_attention.cuh)
 //   merge      the current token and the splits in order; o; the append of
-//              bf16 k/v (paged_attention.cuh)
+//              bf16 k/v, or on an e4m3 pool e4m3 of the float32 k/v (of
+//              their bf16 rounding at hd 64 or page % 8 != 0, where the
+//              TPU wrapper scatters the bf16 rows; paged_attention.cuh)
 //   ring gemv  out[b] = bf16(o[b] @ wo_f[l])  (summed over head groups)
 // Every sum has a fixed order, so a call's bits repeat.
 //
@@ -76,7 +79,8 @@ extern "C" long long cf_paged_layer_scratch_floats(int B, int kv, int group, int
 // float32 scales, the layer's at w_layer, wo's applied per group before the
 // groups' sum) or WK_INT4 (codes packed two a byte along K, float32 group
 // scales wqkv_s [.., G, hidden/128, C] and wo_s [.., G, Ko/G/128,
-// hidden]).  Returns a cudaError_t (0 on success).
+// hidden]).  kv_kind (common.cuh's KV_*): KV_BF16 or KV_FP8 (e4m3) pools.
+// Returns a cudaError_t (0 on success).
 extern "C" int cf_paged_decoder_layer(
     const void* x, const void* res, const void* wqkv, const void* wo,
     const void* rms_w, const void* cos, const void* sin, const void* positions,
@@ -84,10 +88,12 @@ extern "C" int cf_paged_decoder_layer(
     void* res_out, void* xn, void* o, void* scratch, int B, int hidden,
     int kv, int hg, int group, int hd, int page, int n_pages, int max_pages,
     int max_pos, int layer, int w_layer, int neox, float eps, int split,
-    int* n_launches, void* stream, const void* wqkv_s, const void* wo_s, int wq_kind) {
+    int* n_launches, void* stream, const void* wqkv_s, const void* wo_s, int wq_kind,
+    int kv_kind) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   *n_launches = 0;
-  if (B < 1 || hg < 1 || kv % hg != 0 || hidden % 8 != 0 || w_layer < 0 || split < 1)
+  if (B < 1 || hg < 1 || kv % hg != 0 || hidden % 8 != 0 || w_layer < 0 || split < 1 ||
+      (kv_kind != KV_BF16 && kv_kind != KV_FP8))
     return (int)cudaErrorInvalidValue;
   const int G = kv / hg;
   const long long C = (long long)hg * (group + 2) * hd;   // qkv columns per group
@@ -142,29 +148,35 @@ extern "C" int cf_paged_decoder_layer(
                               true, st));
   ++*n_launches;
 
-  PagedArgs a{};
-  a.qkv = qkvf;
-  a.cos = static_cast<const float*>(cos);
-  a.sin = static_cast<const float*>(sin);
-  a.positions = static_cast<const int*>(positions);
-  a.k_pool = static_cast<__nv_bfloat16*>(k_pool);
-  a.v_pool = static_cast<__nv_bfloat16*>(v_pool);
-  a.table = static_cast<const int*>(table);
-  a.lens = static_cast<const int*>(lens);
-  a.o = ob;
-  a.kv = kv;
-  a.group = group;
-  a.page = page;
-  a.n_pages = n_pages;
-  a.max_pages = max_pages;
-  a.layer = layer;
-  a.max_pos = max_pos;
-  a.neox = neox;
-  a.split = split;
-  a.ns = paged_splits(max_pages, page, split);
-  a.part_ml = qkvf + (size_t)B * qkv_n;
-  a.part_acc = a.part_ml + (size_t)B * kv * a.ns * group * 2;
-  CF_CHECK(launch_paged_attn<true>(a, B, hd, true, st));
+  // the split pass and the merge on pools of the kind's element type
+  auto walk = [&](auto kind) {
+    constexpr int KV = decltype(kind)::value;
+    PagedArgsT<KV> a{};
+    a.qkv = qkvf;
+    a.cos = static_cast<const float*>(cos);
+    a.sin = static_cast<const float*>(sin);
+    a.positions = static_cast<const int*>(positions);
+    a.k_pool = static_cast<pa_row_t<KV>*>(k_pool);
+    a.v_pool = static_cast<pa_row_t<KV>*>(v_pool);
+    a.table = static_cast<const int*>(table);
+    a.lens = static_cast<const int*>(lens);
+    a.o = ob;
+    a.kv = kv;
+    a.group = group;
+    a.page = page;
+    a.n_pages = n_pages;
+    a.max_pages = max_pages;
+    a.layer = layer;
+    a.max_pos = max_pos;
+    a.neox = neox;
+    a.split = split;
+    a.ns = paged_splits(max_pages, page, split);
+    a.part_ml = qkvf + (size_t)B * qkv_n;
+    a.part_acc = a.part_ml + (size_t)B * kv * a.ns * group * 2;
+    return launch_paged_attn<true>(a, B, hd, true, st);
+  };
+  CF_CHECK(kv_kind == KV_FP8 ? walk(std::integral_constant<int, KV_FP8>())
+                             : walk(std::integral_constant<int, KV_BF16>()));
   *n_launches += 2;
 
   if (w4)      // the group scales inside the dequant, then rounded to bf16

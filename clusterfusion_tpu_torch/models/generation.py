@@ -19,8 +19,9 @@ unless ``kcfg.int4_w4a8`` is False), ``spec_generate`` kernel 8's, and
 package's does.  ``kv_dtype="int8"`` (an ``Int8KV`` cache) or
 ``torch.float8_e4m3fn`` gives ``stream_generate`` and ``spec_generate`` an
 8-bit KV cache (kernels 7 and 8 in their 8-bit modes; the draft keeps its
-own ``kv_dtype``); ``generate`` hands it to the serving engine, which does
-not take one yet (``ROADMAP.md`` queue 2, item 2.3).
+own ``kv_dtype``); ``generate`` and the completions hand it to the serving
+engine, whose pools take fp8 (kernels 9 and 10 on e4m3 pools) and refuse
+"int8" (JAX's int8 pools are unscaled; ``ROADMAP.md`` section 3).
 """
 
 from __future__ import annotations

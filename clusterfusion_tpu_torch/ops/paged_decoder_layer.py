@@ -1,9 +1,10 @@
 """Batched decode over a paged KV cache (twin of
 ``clusterfusion_tpu/ops/paged_decoder_layer.py``).
 
-The pools are ``[L, n_pages, kv_heads, page, hd]`` bf16; request ``b``
-owns the pages ``block_table[b]`` and has ``seq_lens[b]`` cached rows (the
-current token excluded).  Two kernels:
+The pools are ``[L, n_pages, kv_heads, page, hd]``, bf16 or float8 e4m3
+(``torch.float8_e4m3fn``, both of one dtype); request ``b`` owns the pages
+``block_table[b]`` and has ``seq_lens[b]`` cached rows (the current token
+excluded).  Two kernels:
 
 - ``paged_attention`` (``csrc/paged_attention.cu``): each request's
   flash-decode over its pages plus the current token, and the append of
@@ -28,11 +29,13 @@ which repeat the kernels' arithmetic in PyTorch and round where they round:
   float32;
 - ``paged_attention``: q is scaled by log2(e)/sqrt(hd) and rounded to bf16
   (as the TPU wrapper does before its kernel; on the card inside the
-  kernels); the current token's K/V are cast to bf16 and folded in float32;
+  kernels); the current token's K/V are cast to bf16 (then to the pool's
+  dtype) and folded in float32;
 - ``llama_decoder_layer_paged``: x + residual is summed in float32
   (``res_out`` is its bf16), the QKV product stays float32, q and k are
   roped in float32; q is rounded to bf16 for the walk's dots only, and the
-  current q, k and v join the fold unrounded; the appended rows are bf16;
+  current q, k and v join the fold unrounded; the appended rows are bf16
+  (fp8 pools: below);
   o is rounded to bf16 before the O-projection, whose sum over head groups
   is float32.
 
@@ -44,6 +47,18 @@ scaled per head group and column after the sum over hidden, the O
 projection per group on each group's partial, before the groups are summed
 and the output is rounded to bf16.  On the card the codes stream through
 the GEMVs' int8 instances, never as a bf16 copy.
+
+An fp8 e4m3 pool (the TPU kernels' ``_kv_tile``): the past rows are read
+exactly with e4m3 denormals (|v| <= 0.0137) flushed to 0
+(``fp8_decode_scaled``); scores and bf16(p).V as on a bf16 pool.  The
+current row follows each TPU kernel's rule: ``paged_attention`` stores
+e4m3 of the bf16 ``k_new``/``v_new`` and folds that row as stored
+(denormals kept); ``llama_decoder_layer_paged`` folds its float32 row and
+appends e4m3 of it where the TPU kernel appends in-kernel (hd % 128 == 0
+and page % 8 == 0), else e4m3 of its bf16 rounding (the TPU wrapper's
+scatter of the bf16 ``k_new``, a double rounding).  The card saturates at
++-448, as PyTorch's cast does, where the JAX package's CPU cast gives NaN.
+Int8 pools (JAX's are unscaled) and every other dtype are refused.
 
 Int4 weights (the TPU kernel's ``wq_kind == "int4"``): ``wqkv_g`` and
 ``wo_g`` int4 together (codes packed two a byte along K, group scales [..,
@@ -74,13 +89,15 @@ from clusterfusion_tpu_torch.ops.decoder_layer import (HEAD_GROUP,
                                                       fuse_qkv_o_for_kernel)
 from clusterfusion_tpu_torch.ops._support import cdiv
 from clusterfusion_tpu_torch.ops.quant import QuantizedTensor
-from clusterfusion_tpu_torch.ops.stack_kernel import (WK_BF16, WK_INT4, WK_INT8,
-                                                      _norm, _rope,
-                                                      check_int4_group,
+from clusterfusion_tpu_torch.ops.stack_kernel import (KV_BF16, KV_FP8, WK_BF16,
+                                                      WK_INT4, WK_INT8, _norm,
+                                                      _rope, check_int4_group,
+                                                      kv_rows_plain,
                                                       quant_operands)
 
 _LOG2E = 1.4426950408889634
 _NEG_INF = -1e30
+FP8 = torch.float8_e4m3fn
 #: Cached rows per block of the kernels' split pass (and per split of the
 #: twins' walk): each request's rows are cut into splits of SPLIT rows,
 #: each split bulk-copied whole into one block's shared memory.  Chosen on
@@ -93,11 +110,12 @@ MAX_GROUP = 16
 
 #: Calls of each wrapper that launched its kernel (CUDA tensors only);
 #: "llama_decoder_layer_paged_int8" counts the layer's calls with int8
-#: weights (kernel 9's int8 mode), which "llama_decoder_layer_paged"
-#: counts too.
+#: weights (kernel 9's int8 mode), the "_fp8" keys the calls on fp8 pools;
+#: the wrapper's own key counts them too.
 launches = {"paged_attention": 0, "llama_decoder_layer_paged": 0,
             "llama_decoder_layer_paged_int8": 0,
-            "llama_decoder_layer_paged_int4": 0}
+            "llama_decoder_layer_paged_int4": 0,
+            "paged_attention_fp8": 0, "llama_decoder_layer_paged_fp8": 0}
 
 
 def _refuse(what: str, window, softcap, bias_qkv=None) -> None:
@@ -129,8 +147,9 @@ def _walk_plain(q_walk, q_fold, k_cur, v_cur, k_pool, v_pool, table, lens,
         valid = (pos % (nt * TILE) < split)[None] & (row[None] < lens[:, None])
         pg = table[:, (row // page).clamp(max=table.shape[1] - 1)]   # [B, S]
         keep = valid[..., None, None]         # rows past the end never enter
-        k = torch.where(keep, k_pool[layer][pg, :, row % page].float(), 0.)
-        v = torch.where(keep, v_pool[layer][pg, :, row % page].float(), 0.)
+        k, v = (torch.where(keep, kv_rows_plain(_rows(p[layer], pg,
+                                                      row % page)), 0.)
+                for p in (k_pool, v_pool))
         s = torch.einsum("bkgd,bskd->bkgs", q_walk.float(), k)
         s = s.masked_fill(~valid[:, None, None], _NEG_INF)
         s = s.reshape(B, kv, g, ns, nt, TILE)
@@ -157,15 +176,27 @@ def _walk_plain(q_walk, q_fold, k_cur, v_cur, k_pool, v_pool, table, lens,
     return o.to(torch.bfloat16)
 
 
+def _bytes_of(pool):
+    """An fp8 pool as its bytes (indexed reads and writes of e4m3 go
+    through them), any other pool as it is."""
+    return pool.view(torch.uint8) if pool.dtype == FP8 else pool
+
+
+def _rows(pool_l, pg, r):
+    """``pool_l[pg, :, r]`` of one layer's pool, in its dtype."""
+    return _bytes_of(pool_l)[pg, :, r].view(pool_l.dtype)
+
+
 def _append_plain(k_pool, v_pool, table, lens, layer: int, k_row, v_row):
     """Row ``lens[b]`` of request b's pages (layer ``layer``) <- k_row[b],
-    v_row[b] ([B, kv, hd], cast to the pool dtype)."""
+    v_row[b] ([B, kv, hd], cast to the pool dtype; e4m3 saturating)."""
     page = k_pool.shape[3]
     lens = lens.long()
     pg = table.long()[torch.arange(lens.shape[0], device=lens.device),
                       lens // page]
-    k_pool[layer][pg, :, lens % page] = k_row.to(k_pool.dtype)
-    v_pool[layer][pg, :, lens % page] = v_row.to(v_pool.dtype)
+    for pool, row in ((k_pool, k_row), (v_pool, v_row)):
+        _bytes_of(pool)[layer][pg, :, lens % page] = \
+            _bytes_of(row.to(pool.dtype))
 
 
 def _scaled_q(q: torch.Tensor) -> torch.Tensor:
@@ -179,7 +210,9 @@ def paged_attention_plain(q, k_new, v_new, k_pool, v_pool, block_table,
     same results, pools appended in place)."""
     B = q.shape[0]
     qs = _scaled_q(q)
-    k_b, v_b = k_new.to(k_pool.dtype), v_new.to(v_pool.dtype)
+    # the current row as the pool stores it (fp8: e4m3 of the bf16 row),
+    # folded as stored
+    k_b, v_b = (t.to(torch.bfloat16).to(k_pool.dtype) for t in (k_new, v_new))
     o = _walk_plain(qs, qs, k_b, v_b, k_pool, v_pool, block_table, seq_lens,
                     int(layer_id))
     _append_plain(k_pool, v_pool, block_table, seq_lens, int(layer_id), k_b,
@@ -187,19 +220,24 @@ def paged_attention_plain(q, k_new, v_new, k_pool, v_pool, block_table,
     return o.reshape(B, -1), k_pool, v_pool
 
 
-def _check_pools(what, k_pool, v_pool, dev):
+def _check_pools(what, k_pool, v_pool, dev) -> int:
+    """The pools' kind for the C entries (``KV_BF16`` or ``KV_FP8``)."""
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
-        if t.dtype != torch.bfloat16:
-            raise NotImplementedError(f"{what}: only a bf16 KV pool is "
-                                      f"ported ({name} is {t.dtype}; fp8 "
-                                      "pools: ROADMAP.md queue 2, mode 2, "
-                                      "item 2.3)")
+        if t.dtype not in (torch.bfloat16, FP8):
+            raise NotImplementedError(
+                f"{what}: {name} is {t.dtype}; the kernels take a bf16 or "
+                "float8_e4m3fn KV pool (JAX's int8 pools are unscaled and "
+                "stay refused: ROADMAP.md section 3)")
         if t.device != dev or not t.is_contiguous() or (
                 dev.type == "cuda" and t.data_ptr() % 16):
             raise ValueError(f"{what}: {name} must be a contiguous, 16-byte "
                              f"aligned tensor on {dev}")
+    if k_pool.dtype != v_pool.dtype:
+        raise ValueError(f"{what}: k_pool is {k_pool.dtype}, v_pool "
+                         f"{v_pool.dtype}")
     if k_pool.shape != v_pool.shape:
         raise ValueError(f"{what}: pool shapes differ")
+    return KV_FP8 if k_pool.dtype == FP8 else KV_BF16
 
 
 @functools.lru_cache(maxsize=64)
@@ -220,7 +258,8 @@ def paged_attention(q, k_new, v_new, k_pool, v_pool, block_table, seq_lens,
 
     q [B, kv_heads, group, hd] (roped, unscaled); k_new/v_new
     [B, kv_heads, hd] (roped current token); pools [L, n_pages, kv_heads,
-    page, hd] bf16; block_table [B, max_pages] and seq_lens [B] integer.
+    page, hd] bf16 or float8_e4m3fn (the module's note); block_table [B,
+    max_pages] and seq_lens [B] integer.
     Attends each request's ``seq_lens[b]`` cached rows of layer
     ``layer_id`` plus the current token, appends the current K/V at
     ``block_table[b, seq_lens[b] // page], seq_lens[b] % page`` and returns
@@ -237,7 +276,7 @@ def paged_attention(q, k_new, v_new, k_pool, v_pool, block_table, seq_lens,
                          " disagree")
     if not 0 <= int(layer_id) < L:
         raise ValueError(f"layer_id {layer_id} outside the pool's {L} layers")
-    _check_pools("paged_attention", k_pool, v_pool, q.device)
+    kind = _check_pools("paged_attention", k_pool, v_pool, q.device)
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_new, v_new, k_pool, v_pool,
                                      block_table, seq_lens, layer_id)
@@ -260,9 +299,10 @@ def paged_attention(q, k_new, v_new, k_pool, v_pool, block_table, seq_lens,
         q_b.data_ptr(), k_b.data_ptr(), v_b.data_ptr(), k_pool.data_ptr(),
         v_pool.data_ptr(), table.data_ptr(), lens.data_ptr(), o.data_ptr(),
         scratch.data_ptr(), B, kv, g, hd, page, n_pages, table.shape[1],
-        int(layer_id), SPLIT, torch.cuda.current_stream(dev).cuda_stream)
+        int(layer_id), SPLIT, torch.cuda.current_stream(dev).cuda_stream, kind)
     _build.check(err, "paged_attention")
     launches["paged_attention"] += 1
+    launches["paged_attention_fp8"] += int(kind == KV_FP8)
     return o, k_pool, v_pool
 
 
@@ -302,6 +342,9 @@ def llama_decoder_layer_paged_plain(input, residual, wqkv_g, wo_g,
     lens = torch.as_tensor(seq_lens, device=input.device)
     o = _walk_plain(q.to(torch.bfloat16), q, k, v, k_pool, v_pool, table,
                     lens, layer_id)
+    if k_pool.dtype == FP8 and (hd % 128 or k_pool.shape[3] % 8):
+        # where the TPU wrapper scatters its bf16 k_new: e4m3 of bf16(k)
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
     _append_plain(k_pool, v_pool, table, lens, layer_id, k, v)
     if w4:                                # the groups' products, summed in order
         G = wo.q.shape[0]
@@ -329,8 +372,9 @@ def llama_decoder_layer_paged(input, residual, wqkv_g, wo_g, block_table,
     input/residual [B, hidden] bf16; wqkv_g [L, G, hidden, hg*(group+2)*hd]
     (or one layer's [G, ...]); wo_g [L, G, hg*group*hd, hidden] (or [G,
     ...]); block_table [B, max_pages], seq_lens/positions [B] integer;
-    pools [L, n_pages, kv_heads, page, hd] bf16; rms_w [hidden] or [1,
-    hidden]; cos_t/sin_t [max_pos, hd] full-dim float32 tables.  wqkv_g
+    pools [L, n_pages, kv_heads, page, hd] bf16 or float8_e4m3fn (the
+    module's note); rms_w [hidden] or [1, hidden]; cos_t/sin_t [max_pos,
+    hd] full-dim float32 tables.  wqkv_g
     and wo_g may be int8 or int4 ``QuantizedTensor``s together (the
     module's note).
 
@@ -364,7 +408,7 @@ def llama_decoder_layer_paged(input, residual, wqkv_g, wo_g, block_table,
                          f"/{tuple(wo_g.shape)} do not fit kv {kv}, group "
                          f"{group}, hd {hd}, hidden {hidden}")
     dev = input.device
-    _check_pools("llama_decoder_layer_paged", k_pool, v_pool, dev)
+    kind = _check_pools("llama_decoder_layer_paged", k_pool, v_pool, dev)
     rms_w = rms_w.reshape(-1)
     weights, scales = quant_operands(dict(wqkv_g=wqkv_g, wo_g=wo_g),
                                      (C, hidden) if quant else (), 0)
@@ -425,11 +469,12 @@ def llama_decoder_layer_paged(input, residual, wqkv_g, wo_g, block_table,
         ctypes.byref(n_launch), torch.cuda.current_stream(dev).cuda_stream,
         *(scales[k].data_ptr() if k in scales else None
           for k in ("wqkv_g_s", "wo_g_s")),
-        WK_INT4 if w4 else WK_INT8 if w8 else WK_BF16)
+        WK_INT4 if w4 else WK_INT8 if w8 else WK_BF16, kind)
     _build.check(err, "llama_decoder_layer_paged")
     launches["llama_decoder_layer_paged"] += 1
     launches["llama_decoder_layer_paged_int8"] += int(w8)
     launches["llama_decoder_layer_paged_int4"] += int(w4)
+    launches["llama_decoder_layer_paged_fp8"] += int(kind == KV_FP8)
     return out, res_out, k_pool, v_pool
 
 

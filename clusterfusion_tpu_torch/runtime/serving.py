@@ -26,11 +26,17 @@
   int4 mode and ``ops.gemv._ffn_int4``; the batched step on
   ``_gemv_int4``/``_ffn_int4`` around ``paged_attention``.  Both stream
   the packed codes; no bf16 copy of a weight is made;
-- ``kcfg.serving_w8a8`` and an int8/fp8 pool raise
-  ``NotImplementedError`` (``ROADMAP.md`` queue 2, modes 6 and 2).
+- ``kv_dtype=torch.float8_e4m3fn`` gives e4m3 pools, as in the JAX
+  engine, on both steps and every weight kind: the kernels read the past
+  rows with e4m3 denormals flushed (the TPU kernels' decode) and append
+  each step's row by their own rules (``ops.paged_decoder_layer``'s
+  note); the prefill cache is made in the pool's dtype, as JAX makes it;
+- ``kcfg.serving_w8a8`` raises ``NotImplementedError`` (``ROADMAP.md``
+  queue 2, mode 6), and so does an int8 pool (JAX's are unscaled;
+  ``ROADMAP.md`` section 3) or any pool dtype but bf16 and fp8.
 
-The pools ``[L, num_pages, kv_heads, page, hd]`` (bf16) live on the
-parameters' device and are updated in place by the kernels and the
+The pools ``[L, num_pages, kv_heads, page, hd]`` (bf16 or e4m3) live on
+the parameters' device and are updated in place by the kernels and the
 prefill copy: ``engine.k_pool``/``v_pool`` stay the same tensors for the
 engine's life.  PyTorch compiles nothing, so the JAX engine's per-shape
 step cache has no counterpart here; the power-of-two page-walk width and
@@ -52,7 +58,7 @@ from clusterfusion_tpu_torch.models.sampling import sample_batch
 from clusterfusion_tpu_torch.ops.gemv import (_ffn_int4, _ffn_int8, _gemv_int4,
                                               _gemv_int8)
 from clusterfusion_tpu_torch.ops.paged_decoder_layer import (
-    llama_decoder_layer_paged, paged_attention)
+    _bytes_of, llama_decoder_layer_paged, paged_attention)
 from clusterfusion_tpu_torch.ops.quant import QuantizedTensor
 from clusterfusion_tpu_torch.ops.reference import fused_add_rmsnorm_ref
 from clusterfusion_tpu_torch.ops.stack_kernel import check_int4_group
@@ -238,11 +244,11 @@ class ServingEngine:
                  prefill_chunk: Optional[int] = 1024,
                  step_impl: Optional[str] = None):
         model._check_supported(cfg)
-        if kv_dtype != torch.bfloat16:
-            raise NotImplementedError(f"kv_dtype {kv_dtype}: only a bf16 KV "
-                                      "pool is ported (fp8 pools in kernels "
-                                      "9 and 10: ROADMAP.md queue 2, mode 2, "
-                                      "item 2.3)")
+        if kv_dtype not in (torch.bfloat16, torch.float8_e4m3fn):
+            raise NotImplementedError(f"kv_dtype {kv_dtype}: the serving "
+                                      "pools are bf16 or float8_e4m3fn (JAX's "
+                                      "int8 pools are unscaled and stay "
+                                      "refused: ROADMAP.md section 3)")
         lw = params["layers"]
         weights = [lw[k] for k in ("wqkv_f", "wo_f", "w13", "w2")]
         if _int4(params["lm_head"]):
@@ -292,8 +298,8 @@ class ServingEngine:
         dev = params["embed"].device
         shape = (cfg.n_layers, num_pages, cfg.kv_heads, page_size,
                  cfg.head_dim_)
-        self.k_pool = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
-        self.v_pool = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+        self.k_pool = torch.zeros(shape, dtype=kv_dtype, device=dev)
+        self.v_pool = torch.zeros(shape, dtype=kv_dtype, device=dev)
         self._rope = model.rope_table(cfg, device=dev)
         self._reqs: Dict[int, _Req] = {}
         self._gen = torch.Generator(device=dev)
@@ -368,9 +374,9 @@ class ServingEngine:
         pages = torch.as_tensor(owned[:n_used].astype(np.int64), device=dev)
         L, kvh, hd = cfg.n_layers, cfg.kv_heads, cfg.head_dim_
         for pool, c in ((self.k_pool, kc), (self.v_pool, vc)):
-            pool[:, pages] = (c[:, :, :n_used * page]
-                              .reshape(L, kvh, n_used, page, hd)
-                              .transpose(1, 2))
+            _bytes_of(pool)[:, pages] = _bytes_of(
+                c[:, :, :n_used * page].reshape(L, kvh, n_used, page, hd)
+                .transpose(1, 2))
         if readmit:
             # resume mid-generation: the next step feeds the last generated
             # token; sampling again would duplicate a token in the output

@@ -691,6 +691,122 @@ def test_paged_layer_kernel_matches_plain(dev, B, kv, g, hd, hg, page, lens,
     assert torch.equal(kp[~app], kr[~app]) and torch.equal(vp[~app], vr[~app])
 
 
+def _e4m3_one_code(a, b):
+    """(every byte of two e4m3 tensors equal or one code apart, as adjacent
+    values of one sign are, or both zero or the least denormal; the share
+    of equal bytes)."""
+    x, y = a.view(torch.uint8).int(), b.view(torch.uint8).int()
+    near = (((x ^ y) & 0x80) == 0) & ((x - y).abs() <= 1)
+    near |= ((x & 0x7F) <= 1) & ((y & 0x7F) <= 1)
+    return bool(near.all()), (x == y).float().mean().item()
+
+
+def _fp8_pools(dev, L, kv, page, hd, lens, seed):
+    """``_paged_pools`` in e4m3, NaN (0x7f) in every unowned row."""
+    kp, vp, table, lens_t = _paged_pools(dev, L, kv, page, hd, lens, seed)
+    _nan_unowned(kp, vp, table, lens_t)
+    return (kp.to(torch.float8_e4m3fn), vp.to(torch.float8_e4m3fn), table,
+            lens_t)
+
+
+@pytest.mark.parametrize("B,kv,g,hd,page,lens", [
+    (4, 2, 1, 128, 16, [0, 1, 17, 64]),
+    (3, 2, 4, 64, 8, [5, 64, 130]),
+    (3, 4, 1, 128, 1, [0, 7, 70]),
+    (2, 2, 7, 128, 16, [33, 100]),
+    (5, 2, 4, 128, 16, [127, 128, 129, 48, 0]),
+])
+def test_paged_attention_fp8_pool_matches_plain(dev, B, kv, g, hd, page,
+                                                lens):
+    """Kernel 10 on e4m3 pools: against its twin (outputs at atol 2e-2 /
+    rtol 2e-2, each head's row within 2 % of its largest value), the
+    appended codes equal to the twin's (both store e4m3 of the same bf16
+    row), every other byte untouched, a repeat bit-identical, each call
+    counted as fp8."""
+    from clusterfusion_tpu_torch.ops import paged_decoder_layer as pd
+    L, layer = 2, 1
+    kp, vp, table, lens_t = _fp8_pools(dev, L, kv, page, hd, lens, 3)
+    q = _randn((B, kv, g, hd), dev, 10)
+    k_new = _randn((B, kv, hd), dev, 11)
+    v_new = _randn((B, kv, hd), dev, 12)
+    k0, k2, v2, kr, vr = kp.clone(), kp.clone(), vp.clone(), kp.clone(), \
+        vp.clone()
+    before = pd.launches["paged_attention_fp8"]
+    o, _, _ = pd.paged_attention(q, k_new, v_new, kp, vp, table, lens_t, layer)
+    o2, _, _ = pd.paged_attention(q, k_new, v_new, k2, v2, table, lens_t,
+                                  layer)
+    want, _, _ = pd.paged_attention_plain(q, k_new, v_new, kr, vr, table,
+                                          lens_t, layer)
+    torch.cuda.synchronize()
+    assert pd.launches["paged_attention_fp8"] == before + 2
+    assert torch.equal(_bits(o), _bits(o2))
+    torch.testing.assert_close(o.float(), want.float(), atol=2e-2, rtol=2e-2)
+    got, ref = o.float().reshape(-1, hd), want.float().reshape(-1, hd)
+    rel = (got - ref).abs().amax(-1) / ref.abs().amax(-1).clamp_min(1e-6)
+    assert rel.max().item() <= 2e-2
+    for a, b in ((kp, kr), (vp, vr), (kp, k2), (vp, v2)):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    app = _appended_mask(kp, table, lens_t, layer)
+    assert torch.equal(kp.view(torch.uint8)[~app], k0.view(torch.uint8)[~app])
+
+
+@pytest.mark.parametrize("weights", ["bf16", "int8"])
+@pytest.mark.parametrize("kv,g,hd,hg,page,lens", [
+    (2, 1, 128, 2, 16, [0, 1, 17, 200]),       # e4m3 of the float32 row
+    (2, 4, 128, 1, 8, [5, 64, 130]),           # e4m3 of the float32 row
+    (2, 2, 128, 2, 4, [5, 64, 130]),           # page % 8: of the bf16 row
+    (2, 4, 64, 1, 8, [0, 9, 70]),              # hd 64: of the bf16 row
+    (4, 1, 128, 4, 1, [5, 0, 40]),             # page 1: of the bf16 row
+])
+def test_paged_layer_fp8_pool_matches_plain(dev, kv, g, hd, hg, page, lens,
+                                            weights):
+    """Kernel 9 on e4m3 pools with bf16 and int8 weights: against its twin
+    (outputs at atol 2e-2 / rtol 2e-2), the appended codes within one code
+    of the twin's and at least 99 % equal (the twin and the kernel round
+    float32 rows that differ by a sum order; storing by the other append
+    rule would move about one code in 30), every other byte untouched, a
+    repeat bit-identical, each call counted as fp8."""
+    from clusterfusion_tpu_torch.ops import paged_decoder_layer as pd
+    from clusterfusion_tpu_torch.ops import quant as tq
+    L, layer, hidden, B = 2, 1, 512, len(lens)
+    cfg = LlamaConfig.tiny(rope_style="neox", head_dim=hd)
+    cos_t, sin_t = model.rope_table(cfg, device=dev)
+    kp, vp, table, lens_t = _fp8_pools(dev, L, kv, page, hd, lens, 5)
+    wqkv, wo = _layer_weights(dev, L, hidden, kv, g, hd, hg, 20)
+    if weights == "int8":
+        lw = tq.quantize_llama_params(
+            {"layers": {"wqkv_f": wqkv, "wo_f": wo}}, "int8",
+            targets=("wqkv_f", "wo_f"))["layers"]
+        wqkv, wo = lw["wqkv_f"], lw["wo_f"]
+    x = _randn((B, hidden), dev, 30)
+    res = _randn((B, hidden), dev, 31)
+    rms = 1 + _randn((hidden,), dev, 32, 0.1)
+    k0, k2, v2, kr, vr = kp.clone(), kp.clone(), vp.clone(), kp.clone(), \
+        vp.clone()
+    args = (wqkv, wo, table, lens_t, lens_t)
+    tail = (layer, rms, 1e-5, cos_t, sin_t)
+    kw = dict(group=g, rope_style="neox")
+    before = pd.launches["llama_decoder_layer_paged_fp8"]
+    out = pd.llama_decoder_layer_paged(x, res, *args, kp, vp, *tail, **kw)
+    again = pd.llama_decoder_layer_paged(x, res, *args, k2, v2, *tail, **kw)
+    want = pd.llama_decoder_layer_paged_plain(x, res, *args, kr, vr, *tail,
+                                              **kw)
+    torch.cuda.synchronize()
+    assert pd.launches["llama_decoder_layer_paged_fp8"] == before + 2
+    for i in (0, 1):
+        assert torch.equal(_bits(out[i]), _bits(again[i]))
+        torch.testing.assert_close(out[i].float(), want[i].float(),
+                                   atol=2e-2, rtol=2e-2)
+    app = _appended_mask(kp, table, lens_t, layer)
+    for a, b, a2 in ((kp, kr, k2), (vp, vr, v2)):
+        assert torch.equal(a.view(torch.uint8), a2.view(torch.uint8))
+        near, equal = _e4m3_one_code(a[app], b[app])
+        assert near and equal >= 0.99, equal
+        assert torch.equal(a.view(torch.uint8)[~app],
+                           b.view(torch.uint8)[~app])
+    assert torch.equal(kp.view(torch.uint8)[~app], k0.view(torch.uint8)[~app])
+
+
 def test_sglang_entry_kernel_matches_plain(dev):
     """The page-1 sglang entry on the card against the same call on CPU
     tensors (the plain twin)."""

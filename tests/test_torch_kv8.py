@@ -441,10 +441,11 @@ def test_chat_kv8(capsys, flags):
 def test_kv8_refusals_name_their_items(base):
     """What stays refused: a pair of two kinds, an int8 tensor without
     scales, planes that do not cover the capacity; an ``Int8KV`` pair in
-    kernel 6 (the JAX package's kernel 6 takes none); the serving engine,
-    so ``generate`` too (2.3).  Since item 2.2 kernel 7's mode 5 takes
-    both formats (on an axis of one rank, the unsharded step's bits) and
-    kernel 6 an fp8 pair."""
+    kernel 6 (the JAX package's kernel 6 takes none); an "int8" pool in
+    the serving engine, so ``generate`` too (JAX's int8 pools are
+    unscaled).  Since item 2.2 kernel 7's mode 5 takes both formats (on an
+    axis of one rank, the unsharded step's bits) and kernel 6 an fp8 pair;
+    since item 2.3 the engine, and so ``generate``, serves fp8 pools."""
     from clusterfusion_tpu_torch.ops import decoder_layer as tdl
     from clusterfusion_tpu_torch.parallel.mesh import AXES, Mesh
     from clusterfusion_tpu_torch.runtime import ServingEngine
@@ -485,9 +486,12 @@ def test_kv8_refusals_name_their_items(base):
     with pytest.raises(NotImplementedError, match="take none"):
         layer(k8, v8)
     assert torch.isfinite(layer(f8, f8.clone())[0].float()).all()
-    for kv_dtype in ("int8", FP8):
-        with pytest.raises(NotImplementedError, match="item 2.3"):
-            ServingEngine(tp, tcfg, kv_dtype=kv_dtype)
-        eng = Llama(tp, tcfg, ByteTokenizer(), kv_dtype=kv_dtype)
-        with pytest.raises(NotImplementedError, match="item 2.3"):
-            eng.generate([[1, 2, 3]], 2)
+    with pytest.raises(NotImplementedError, match="int8 pools are unscaled"):
+        ServingEngine(tp, tcfg, kv_dtype="int8")
+    eng = Llama(tp, tcfg, ByteTokenizer(), kv_dtype="int8")
+    with pytest.raises(NotImplementedError, match="int8 pools are unscaled"):
+        eng.generate([[1, 2, 3]], 2)
+    assert ServingEngine(tp, tcfg, kv_dtype=FP8).k_pool.dtype == FP8
+    (toks,), _ = Llama(tp, tcfg, ByteTokenizer(), kv_dtype=FP8).generate(
+        [[1, 2, 3]], 2, temperature=0.0)
+    assert len(toks) == 2

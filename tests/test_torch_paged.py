@@ -286,6 +286,9 @@ def test_paged_kernels_refuse_unported_variants(kw):
         pd.paged_attention(q, kn, kn, kp, kp.clone(), *args, 0, **kw)
     with pytest.raises(NotImplementedError):           # non-bf16 pool
         pd.paged_attention(q, kn, kn, kp.float(), kp.float(), *args, 0)
+    kp8 = kp.to(torch.int8)                            # JAX's unscaled int8
+    with pytest.raises(NotImplementedError, match="int8"):
+        pd.paged_attention(q, kn, kn, kp8, kp8.clone(), *args, 0)
     w = torch.zeros((1, 2, 512, 3 * 64), dtype=torch.bfloat16)
     wo = torch.zeros((1, 2, 64, 512), dtype=torch.bfloat16)
     x = torch.zeros((1, 512), dtype=torch.bfloat16)
@@ -296,6 +299,9 @@ def test_paged_kernels_refuse_unported_variants(kw):
         pd.llama_decoder_layer_paged(*layer_args, **kw)
     with pytest.raises(NotImplementedError):
         pd.llama_decoder_layer_paged(*layer_args, bias_qkv=torch.zeros(3))
+    with pytest.raises(NotImplementedError, match="int8"):   # int8 pools
+        pd.llama_decoder_layer_paged(*layer_args[:7], kp8, kp8.clone(),
+                                     *layer_args[9:])
     with pytest.raises(NotImplementedError):           # int8 weights
         pd.llama_decoder_layer_paged(x, x, w.to(torch.int8), wo, *args,
                                      args[1], kp, kp.clone(), 0,

@@ -376,10 +376,11 @@ def test_quantized_paths_still_refused(tree):
     128 in kernels 6, 7 (with ``reduce_axis`` too) and 8,
     ``spec_generate``, ``generate`` and the serving engine, and an int4 LM
     head in mode 5 (mode 1.5); ``serving_w8a8``, with int8 or int4 weights
-    (mode 6); int8 and fp8 KV in the serving pools (mode 2, item 2.3) and
-    kernel 6 on int4 weights (item 2.2), and an int8 tensor without scales
-    in kernel 8 (mode 2).  Since item 2.1 kernel 8 takes an fp8 cache and
-    ``chat --quant int4 --kv_int8`` runs."""
+    (mode 6); int8 KV in the serving pools (JAX's are unscaled,
+    ``ROADMAP.md`` section 3) and kernel 6 on int4 weights (item 2.2), and
+    an int8 tensor without scales in kernel 8 (mode 2).  Since item 2.1
+    kernel 8 takes an fp8 cache and ``chat --quant int4 --kv_int8`` runs;
+    since item 2.3 the serving pools take fp8 beside int8 weights."""
     _, _, tp = tree
     tcfg = LlamaConfig.tiny()
     g, hd = tcfg.n_heads // tcfg.kv_heads, tcfg.head_dim_
@@ -444,9 +445,10 @@ def test_quantized_paths_still_refused(tree):
     for e in (eng, eng4):
         with pytest.raises(NotImplementedError, match="queue 2, mode 6"):
             ServingEngine(e.params, tcfg, kcfg=KernelConfig(serving_w8a8=True))
-    for kv_dtype in (torch.int8, torch.float8_e4m3fn):
-        with pytest.raises(NotImplementedError, match="queue 2, mode 2"):
-            ServingEngine(eng.params, tcfg, kv_dtype=kv_dtype)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md section 3"):
+        ServingEngine(eng.params, tcfg, kv_dtype=torch.int8)
+    f8 = ServingEngine(eng.params, tcfg, kv_dtype=torch.float8_e4m3fn)
+    assert f8.k_pool.dtype == f8.v_pool.dtype == torch.float8_e4m3fn
     lw = tq.quantize_llama_params(tp, "int8")["layers"]
 
     def verify8(kc8, vc8):

@@ -50,10 +50,10 @@ def params():
     return jp, params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
 
 
-def _gaps(tp, prompt, tokens):
+def _gaps(tp, prompt, tokens, kv_dtype=torch.bfloat16):
     """Top-2 logit gaps of the float32 eager path at each of ``tokens``,
-    teacher-forced along them."""
-    kc, vc = tmodel.init_cache(TCFG, device="cpu")
+    teacher-forced along them, on a cache of ``kv_dtype``."""
+    kc, vc = tmodel.init_cache(TCFG, device="cpu", dtype=kv_dtype)
     lg, kc, vc = tmodel.prefill(tp, kc, vc, prompt, TCFG, flash=False)
     lg, gaps = lg[-1], []
     for i, t in enumerate(tokens):
@@ -74,10 +74,10 @@ def _rule_bites():
     assert sum(g > GAP for g in gaps) >= 0.5 * len(gaps) > 0, gaps
 
 
-def _agreed(tp, prompt, t_toks, j_toks):
+def _agreed(tp, prompt, t_toks, j_toks, kv_dtype=torch.bfloat16):
     """Length of the prefix the rule holds the port to; asserts it."""
     assert len(t_toks) == len(j_toks), (t_toks, j_toks)
-    gaps = _gaps(tp, prompt, j_toks)
+    gaps = _gaps(tp, prompt, j_toks, kv_dtype)
     for i, (a, b) in enumerate(zip(t_toks, j_toks)):
         if gaps[i] > GAP:
             assert a == b, (i, t_toks, j_toks, gaps)
@@ -86,10 +86,11 @@ def _agreed(tp, prompt, t_toks, j_toks):
     return len(j_toks)
 
 
-def _check_engines(tp, prompts, t_res, j_res, logprobs=False):
+def _check_engines(tp, prompts, t_res, j_res, logprobs=False,
+                   kv_dtype=torch.bfloat16):
     for rid, prompt in prompts.items():
         t, j = t_res[rid], j_res[rid]
-        n = _agreed(tp, prompt, t.generated, j.generated)
+        n = _agreed(tp, prompt, t.generated, j.generated, kv_dtype)
         if logprobs:
             np.testing.assert_allclose(t.logprobs[:n], j.logprobs[:n],
                                        atol=LP_TOL)
@@ -335,7 +336,7 @@ def test_engine_refuses_unported_configs(params, cfg_kw):
 
 def test_engine_refuses_unported_pools_and_weights(params):
     _, tp = params
-    for dt in (torch.float16, torch.float8_e4m3fn, torch.int8):
+    for dt in (torch.float16, torch.int8):         # fp8 pools are served
         with pytest.raises(NotImplementedError):
             ServingEngine(tp, TCFG, kv_dtype=dt)
     q8 = dict(tp, layers=dict(tp["layers"],
