@@ -345,7 +345,30 @@ Phases 41-43 run after 40, with the same engines (fp8 e4m3 serving pools):
    fp8 cache at B 1 (fused) and B 4 (batched) against the plain path on
    an fp8 cache under the top-2-gap rule.
 
-Phases 32-34 run after 35-43, on the same int4 engine, in both int4 modes:
+Phases 44-46 run after 43, on TinyLlama-1.1B's widths (22 layers, hidden
+2048, 32 heads on 4 kv heads, head dim 64, FFN 5632, vocab 32000, neox
+rope; random weights from seed 0), through kernel 7's hd-64 form (the TPU
+kernel's defer_append variant):
+
+44. kernel 7 at full width, capacity 1024, pos 600, NaN above pos: bf16,
+   int8, int4 exact and int4 W4A8 weights on a bf16 cache, bf16 and int4
+   W4A8 weights on an ``Int8KV`` and an fp8 cache, each against its plain
+   twin at phase 4's limits (an 8-bit cache: layer 0's codes within one
+   and 99 % equal, its int8 scales within 2^-8; W4A8 layer by layer,
+   teacher-forced), repeats bit-identical, launches counted; each step's
+   ms (CUDA events, two readings in turns) beside the Llama-2-7B hd-128
+   step timed in the same turns, device ms, the bound; the split and
+   merge passes' busy ms;
+45. TinyLlama's bs=1 stream: 64 greedy tokens after a 512-token prompt in
+   bf16 and at the JAX package's operating point (int4 W4A8 weights, an
+   ``Int8KV`` cache): tokens/s, ms a step, device busy ms a step, launches,
+   the first 8 tokens against the plain path under the top-2-gap rule;
+46. kernel 7's mode 5 at hd 64 as a tp-2 pair on this card (2 kv heads a
+   rank), bf16 and int4 W4A8 + ``Int8KV``, each layer teacher-forced
+   against ``fused_decoder_stack_plain_ranks``, the pair's ms; then 8
+   steps of the fused tp-2 step on each (``phase_fused_step``).
+
+Phases 32-34 run after 35-46, on the same int4 engine, in both int4 modes:
 
 32. kernel 6's int4 modes at layer 1, pos 600, on the whole tree and the
    first tp-2 shard (``shard_params`` on the int4 tree): full mode with
@@ -397,7 +420,11 @@ Then, where the machine has two cards or more:
    ``nccl_int4``), against kernel 7's exact int4 mode, and on 8-bit
    caches prefilled alike (``step=fused_fp8``, ``nccl_fp8`` and
    ``fused_kvint8``: kernel 7's 8-bit mode 5, kernel 6's fp8 mode),
-   against kernel 7's single-card step on the same cache.
+   against kernel 7's single-card step on the same cache.  Then the fused
+   tp step at head dim 64 on TinyLlama's widths (its 4 kv heads over the
+   ranks), bf16 and int4 W4A8 + ``Int8KV`` (``step=fused_hd64``,
+   ``fused_hd64_int4_kvint8``), 16 steps after a 512-token prefill, the
+   bf16 stream against kernel 7 teacher-forced.
    ``python3 chip_smoke.py multicard`` runs phases 1, 2 and 16 alone.
 
 Then one JSON line per kernel table, the card line, and last
@@ -4527,15 +4554,19 @@ def kv8_cache(kc, vc, fmt, pos):
     return out
 
 
-def kv8_vs_plain(phase, fmt, out, ref, kk, vk, kc, vc, pos, rows, **where):
+def kv8_vs_plain(phase, fmt, out, ref, kk, vk, kc, vc, pos, rows,
+                 scale_rtol=1e-5, equal_share=None, **where):
     """A step of kernel 7 or 8 on an 8-bit cache (``out``, caches kk/vk)
     against its plain twin's (``ref``, kc/vc) at phase 4's limits: logits
     within 2e-2 of the largest; the ``rows`` appended rows at layer 0 int8
-    codes within 1 and scales at rtol 1e-5 (the same f32 row up to a sum
-    order) or fp8 rows within one e4m3 step, and the values of every layer
-    at atol 0.05 + rtol 1e-2 of |row| (layer 0: atol 0.05) plus one step of
-    the format; every other row and scale unchanged bit for bit; finite
-    outputs.  Prints one line; returns (logits max abs error, ok)."""
+    codes within 1 and scales at rtol ``scale_rtol`` (1e-5: the same f32
+    row up to a sum order; at hd 64 both store the bf16-rounded row, whose
+    absmax a bf16 rounding may move by 2^-8) or fp8 rows within one e4m3
+    step, and (``equal_share``) that share of layer 0's codes or bytes
+    equal; the values of every layer at atol 0.05 + rtol 1e-2 of |row|
+    (layer 0: atol 0.05) plus one step of the format; every other row and
+    scale unchanged bit for bit; finite outputs.  Prints one line; returns
+    (logits max abs error, ok)."""
     torch.cuda.synchronize()
     new = list(range(pos, pos + rows))
     lg_err = (out[0] - ref[0]).abs().max().item()
@@ -4556,14 +4587,24 @@ def kv8_vs_plain(phase, fmt, out, ref, kk, vk, kc, vc, pos, rows, **where):
                       .abs() / _kv_scales(b)[0][:, new]).max().item()
                      for a, b in ((kk, kc), (vk, vc)))
         first = dict(codes_max_diff_layer0=codes, tol_codes=1,
-                     scales_rel_err_layer0=f"{scale0:.3g}", tol_scales=1e-5)
-        first_ok = codes <= 1 and scale0 <= 1e-5
+                     scales_rel_err_layer0=f"{scale0:.3g}",
+                     tol_scales=f"{scale_rtol:.3g}")
+        first_ok = codes <= 1 and scale0 <= scale_rtol
+        same = min((a.q[0][:, new] == b.q[0][:, new]).float().mean().item()
+                   for a, b in ((kk, kc), (vk, vc)))
     else:
         e0 = max(((a[0][:, new].float() - b[0][:, new].float()).abs()
                   - 0.125 * b[0][:, new].float().abs()).max().item()
                  for a, b in ((kk, kc), (vk, vc)))
         first = dict(e4m3_excess_over_one_step_layer0=f"{e0:.3g}")
         first_ok = e0 <= 1e-6
+        same = min((a[0][:, new].view(torch.uint8)
+                    == b[0][:, new].view(torch.uint8)).float().mean().item()
+                   for a, b in ((kk, kc), (vk, vc)))
+    if equal_share is not None:
+        first.update(codes_equal_share_layer0=f"{same:.4f}",
+                     tol_equal_share=equal_share)
+        first_ok = first_ok and same >= equal_share
     others = torch.ones(kv_positions(kc), dtype=torch.bool,
                         device=out[0].device)
     others[new] = False
@@ -4583,13 +4624,29 @@ def kv8_vs_plain(phase, fmt, out, ref, kk, vk, kc, vc, pos, rows, **where):
                     and finite)
 
 
+def ffn_unpadded(cfg, lw):
+    """``lw``'s w13 and w2 cut to ``cfg.ffn_dim`` (views): the zero columns
+    and rows that ``padded_ffn_dim`` adds are no work of the step, so a
+    bound leaves them out (int4 w2: two k rows a byte, a scale row per
+    group; int8 w2: one scale per output column, kept whole)."""
+    F, w13, w2 = cfg.ffn_dim, lw["w13"], lw["w2"]
+    if not hasattr(w13, "q"):
+        return w13[..., :F], w2[:, :F]
+    four = w2.kind == "int4"
+    return (dataclasses.replace(w13, q=w13.q[..., :F], s=w13.s[..., :F]),
+            dataclasses.replace(w2, q=w2.q[:, :F // 2 if four else F],
+                                s=w2.s[:, :F // w2.group_size] if four
+                                else w2.s))
+
+
 def kv8_bound(cfg, p, hbm, peak, pos, n, fmt):
     """(bound ms, bound_by, bytes) of a step of n rows at pos with a cache
     of ``fmt`` ("bf16", "int8", "fp8"): every weight once (bf16 or
-    quantized: the tensors' own bytes), the rows below pos (int8: and their
-    float32 scales), the n rows written (and their scales), x, the residual
-    and the logits."""
-    lw = p["layers"]
+    quantized: the tensors' own bytes, the FFN at ``cfg.ffn_dim``), the
+    rows below pos (int8: and their float32 scales), the n rows written
+    (and their scales), x, the residual and the logits."""
+    lw = dict(p["layers"])
+    lw["w13"], lw["w2"] = ffn_unpadded(cfg, lw)
     L, kvh, hd = cfg.n_layers, cfg.kv_heads, cfg.head_dim_
 
     def nbytes_of(t):
@@ -5135,8 +5192,11 @@ def phase_kv8_layer(eng, eng8, eng4, dev, hbm, peak, cap=4096, layer=1):
 def mode5_kv8_bound(cfg, lw, hbm, peak, pos, fmt):
     """(bound ms, bound_by, bytes) of a mode-5 pair step without the LM
     head at tp 2 on one card: both ranks' shards of the four projections
-    and the norms read once, the 8-bit rows below pos (int8: and their
-    scales) and the row written, x in, x_out and the residual out."""
+    (the FFN at ``cfg.ffn_dim``) and the norms read once, the 8-bit rows
+    below pos (int8: and their scales) and the row written, x in, x_out and
+    the residual out."""
+    lw = dict(lw)
+    lw["w13"], lw["w2"] = ffn_unpadded(cfg, lw)
     L, kvh, hd = lw["wqkv_f"].shape[0], cfg.kv_heads, cfg.head_dim_
 
     def size(t):
@@ -5896,6 +5956,489 @@ def phase_fp8_serving(eng, dev):
     seconds["generate"] = time.perf_counter() - t0
     say("serving_fp8", **{f"{k}_s": f"{v:.1f}" for k, v in seconds.items()})
     return launch
+
+
+# -- head dim 64 in kernel 7 (phases 44-46) -----------------------------------
+
+# (label, weight kind, KernelConfig.int4_w4a8, cache) of phase 44's runs
+HD64_RUNS = (("bf16", "bf16", True, "bf16"), ("int8", "int8", True, "bf16"),
+             ("int4_exact", "int4", False, "bf16"),
+             ("int4_w4a8", "int4", True, "bf16"),
+             ("bf16_kvint8", "bf16", True, "int8"),
+             ("bf16_fp8", "bf16", True, "fp8"),
+             ("int4_w4a8_kvint8", "int4", True, "int8"),
+             ("int4_w4a8_fp8", "int4", True, "fp8"))
+# the kernels line's rows: (name, run)
+HD64_ROWS = (("fused_decoder_stack (hd 64)", "bf16"),
+             ("fused_decoder_stack (hd 64, int4 + Int8KV)",
+              "int4_w4a8_kvint8"))
+HD64_LIB_NULL = ("no single PyTorch call computes a whole decode step (22 "
+                 "layers, the attention over the cache and the LM head)")
+# kernel 7's passes at hd 64, by kernel name (every weight and cache kind)
+HD64_PASSES = (("split", "attn_split_kernel"), ("merge", "attn_merge"),
+               ("gemv4", "ring_gemv4_kernel"), ("gemv8", "ring_gemv8_kernel"),
+               ("gemv", "ring_gemv_kernel"), ("norms", "resnorm_kernel"))
+
+
+def tinyllama_engines(dev):
+    """Phases 44-46's engines: ``Llama.synthetic(tinyllama_1b)`` with seed
+    0 in bf16 (head group 4, so G 1) and at JAX's operating point
+    (``quant="int4"``, ``kv_dtype="int8"``: the same bf16 weights quantized
+    in groups of 128, the LM head bf16, an ``Int8KV`` cache), and the int8
+    tree of the same weights."""
+    from clusterfusion_tpu_torch.config import LlamaConfig
+    from clusterfusion_tpu_torch.models.generation import Llama
+    from clusterfusion_tpu_torch.ops.quant import quantize_llama_params
+    t0 = time.perf_counter()
+    cfg = LlamaConfig.tinyllama_1b()
+    eng = Llama.synthetic(cfg, seed=0, fused=True, device=dev)
+    eng4 = Llama.synthetic(cfg, seed=0, fused=True, quant="int4",
+                           kv_dtype="int8", device=dev)
+    tree8 = quantize_llama_params(eng.params, "int8")
+    torch.cuda.synchronize()
+    lw = eng.params["layers"]
+    say("hd64_init", model="tinyllama_1b", layers=cfg.n_layers,
+        hidden=cfg.hidden_dim, heads=cfg.n_heads, kv_heads=cfg.kv_heads,
+        head_dim=cfg.head_dim_, ffn=cfg.ffn_dim, vocab=cfg.vocab_size,
+        head_group=cfg.kv_heads // lw["wqkv_f"].shape[1],
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    return eng, eng4, tree8
+
+
+def phase_hd64_stack(eng7b, eng, eng4, tree8, dev, hbm, peak, pos=600,
+                     cap=1024):
+    """Phase 44: kernel 7 at head dim 64 (the TPU kernel's defer_append
+    variant) at TinyLlama-1.1B's full width (22 layers, hidden 2048, 32
+    heads on 4 kv heads, FFN 5632 padded to 6144, vocab 32000, neox rope;
+    hg 4, G 1), capacity 1024, pos 600 over random rows with NaN above pos
+    (an 8-bit cache: ``kv8_cache``, NaN scales or 0x7F bytes), with the LM
+    head: bf16, int8, int4 exact and int4 W4A8 weights on a bf16 cache,
+    bf16 and int4 W4A8 weights on an ``Int8KV`` and an fp8 cache
+    (``HD64_RUNS``).  Each against its plain twin at phase 4's limits
+    (``stack_vs_plain``; ``kv8_vs_plain`` with layer 0's scales within 2^-8
+    and 99 % of its codes equal; W4A8 layer by layer, teacher-forced,
+    ``w4a8_by_layer``), a repeat bit-identical, one launch counted (and
+    one quantized and one 8-bit launch where they apply), 8L+2 kernels.
+    Then each step's CUDA-event time, two readings in turns, beside the
+    Llama-2-7B hd-128 step (phase 4's inputs made again) in the same
+    turns, each step's device time (``queued_ms`` over 3 calls), the byte bound
+    (``kv8_bound``) and, for the kernels line's two runs, the twin's time
+    and the busy ms by pass (``HD64_PASSES``).  Returns {run: kernels-line
+    row}."""
+    from clusterfusion_tpu_torch.config import KernelConfig
+    from clusterfusion_tpu_torch.models import llama as model
+    from clusterfusion_tpu_torch.ops import stack_kernel as sk
+    t0 = time.perf_counter()
+    cfg = eng.cfg
+    g, hd, L = cfg.n_heads // cfg.kv_heads, cfg.head_dim_, cfg.n_layers
+    gen = torch.Generator(device=dev).manual_seed(44)
+    shape = (L, cfg.kv_heads, cap, hd)
+    kb = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    vb = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    kb[:, :, pos + 1:] = float("nan")
+    vb[:, :, pos + 1:] = float("nan")
+    caches = {"bf16": (kb, vb)}
+    for fmt, _ in KV8_FORMATS:
+        caches[fmt] = kv8_cache(kb, vb, fmt, pos)
+    trees = {"bf16": eng.params, "int8": tree8, "int4": eng4.params}
+    cos, sin = model.rope_row(cfg, pos, dev)
+    x = eng.params["embed"][torch.tensor([7], device=dev)]
+    errs, steps, ok_all = {}, {}, True
+    for label, kind, a8, kv in HD64_RUNS:
+        p = trees[kind]
+        lw = p["layers"]
+        kcfg = KernelConfig(int4_w4a8=a8)
+        kw = dict(group=g, head_dim=hd, rope_style=cfg.rope_style,
+                  eps=cfg.norm_eps, final_norm=p["final_norm"],
+                  lm_head=p["lm_head"])
+        args = (x, lw["attn_norm"], lw["ffn_norm"], cos, sin, lw["wqkv_f"],
+                lw["wo_f"], lw["w13"], lw["w2"])
+        kc, vc = caches[kv]
+        fresh = lambda: (kv_take(kc, 0, L), kv_take(vc, 0, L))  # noqa: E731
+        kk, vk = fresh()
+        k2, v2 = fresh()
+        n0 = (sk.launches, sk.int8_launches + sk.int4_launches,
+              sum(sk.kv8_launches.values()))
+        out = sk.fused_decoder_stack(*args, kk, vk, pos, kcfg=kcfg, **kw)
+        n_kernels = sk.last_step_kernels
+        again = sk.fused_decoder_stack(*args, k2, v2, pos, kcfg=kcfg, **kw)
+        torch.cuda.synchronize()
+        counted = (sk.launches - n0[0],
+                   sk.int8_launches + sk.int4_launches - n0[1],
+                   sum(sk.kv8_launches.values()) - n0[2])
+        every = torch.ones(cap, dtype=torch.bool, device=dev)
+        repeat = (torch.equal(out[0], again[0])
+                  and torch.equal(out[1].view(torch.int16),
+                                  again[1].view(torch.int16))
+                  and kv_same_bits(kk, k2, every)
+                  and kv_same_bits(vk, v2, every))
+        want_counted = (2, 2 * (kind != "bf16"), 2 * (kv != "bf16"))
+        where = dict(kernel=7, head_dim=hd, run=label,
+                     kernels_per_step=n_kernels, launches_counted=counted,
+                     repeat_bit_identical=repeat)
+        if kind == "int4" and a8:
+            lg_err, ok = w4a8_by_layer(
+                sk.fused_decoder_stack, sk.fused_decoder_stack_plain, args,
+                kc, vc, pos, 1, L, kcfg, kw, "hd64_stack",
+                rows_rtol=KV8_STEP.get(kv, 0.0), **where)
+        else:
+            kp, vp = fresh()
+            ref = sk.fused_decoder_stack_plain(*args, kp, vp, pos,
+                                               int4_w4a8=a8, **kw)
+            if kv == "bf16":
+                lg_err, ok = stack_vs_plain("hd64_stack", out, ref, kk, vk,
+                                            kp, vp, pos, layers=L, **where)
+            else:
+                lg_err, ok = kv8_vs_plain(
+                    "hd64_stack", kv, out, ref, kk, vk, kp, vp, pos, 1,
+                    scale_rtol=2.0 ** -8, equal_share=0.99, layers=L,
+                    **where)
+            del kp, vp, ref
+        ok = (ok and repeat and counted == want_counted
+              and n_kernels == 8 * L + 2)
+        ok_all &= ok
+        errs[label] = lg_err
+        steps[label] = functools.partial(sk.fused_decoder_stack, *args, kk,
+                                         vk, pos, kcfg=kcfg, **kw)
+        del out, again, k2, v2
+    if not ok_all:
+        raise AssertionError("kernel 7 at hd 64 disagrees with its plain "
+                             "twin, or its launches or repeats are wrong")
+    check_s = time.perf_counter() - t0
+    # the Llama-2-7B hd-128 step on phase 4's inputs, timed in the same turns
+    cfg7 = eng7b.cfg
+    p7, lw7 = eng7b.params, eng7b.params["layers"]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    k7, v7 = model.init_cache(cfg7, max_seq=1024, device=dev)
+    k7[:, :, :pos] = torch.randn(k7[:, :, :pos].shape, generator=gen,
+                                 device=dev).bfloat16()
+    v7[:, :, :pos] = torch.randn(v7[:, :, :pos].shape, generator=gen,
+                                 device=dev).bfloat16()
+    cos7, sin7 = model.rope_row(cfg7, pos, dev)
+    steps["llama2_7b_hd128"] = functools.partial(
+        sk.fused_decoder_stack, p7["embed"][torch.tensor([7], device=dev)],
+        lw7["attn_norm"], lw7["ffn_norm"], cos7, sin7, lw7["wqkv_f"],
+        lw7["wo_f"], lw7["w13"], lw7["w2"], k7, v7, pos,
+        group=cfg7.n_heads // cfg7.kv_heads, head_dim=cfg7.head_dim_,
+        rope_style=cfg7.rope_style, eps=cfg7.norm_eps,
+        final_norm=p7["final_norm"], lm_head=p7["lm_head"])
+    names = list(steps)
+    ms = {k: [] for k in names}
+    for k in names + names[::-1]:
+        ms[k].append(time_ms(steps[k], 10))
+    # 3 calls queued: a step is 178-258 kernels, and more calls overflow
+    # the launch queue, so the host falls behind the card
+    dev_ms = {k: queued_ms(f, 3) for k, f in steps.items()}
+    rows = {}
+    for label, kind, a8, kv in HD64_RUNS:
+        bound, bound_by, nbytes = kv8_bound(cfg, trees[kind], hbm, peak, pos,
+                                            1, kv)
+        say("hd64_stack", run=label, pos=pos,
+            ms_per_step=[f"{v:.4f}" for v in ms[label]],
+            device_ms_per_step=f"{dev_ms[label]:.4f}",
+            llama2_7b_hd128_ms_per_step=[f"{v:.4f}"
+                                         for v in ms["llama2_7b_hd128"]],
+            llama2_7b_hd128_device_ms=f"{dev_ms['llama2_7b_hd128']:.4f}",
+            bound_ms=f"{bound:.4f}", bound_by=bound_by, bytes_per_step=nbytes,
+            ms_over_bound=f"{statistics.mean(ms[label]) / bound:.2f}")
+        if label not in dict((r, n) for n, r in HD64_ROWS):
+            continue
+        plain_ms = time_ms(functools.partial(
+            sk.fused_decoder_stack_plain, *steps[label].args[:9],
+            kv_take(caches[kv][0], 0, L), kv_take(caches[kv][1], 0, L), pos,
+            int4_w4a8=a8, **{k: v for k, v in steps[label].keywords.items()
+                             if k != "kcfg"}), 1, warmup=0)
+        rows[label] = dict(max_abs_err=errs[label],
+                           ms=statistics.mean(ms[label]), plain_ms=plain_ms,
+                           bound_ms=bound, bound_by=bound_by,
+                           library_ms=None)
+        # the split and merge passes at hd 64, by device time
+        busy, by = busy_ms(steps[label], HD64_PASSES)
+        say("hd64_stack_device", run=label, pos=pos, busy_ms=f"{busy:.4f}",
+            **{f"{k}_ms": f"{v:.4f}" for k, v in by.items()},
+            split_us_per_layer=f"{by['split'] * 1e3 / L:.2f}",
+            merge_us_per_layer=f"{by['merge'] * 1e3 / L:.2f}",
+            note="each kernel charged from the end of those before it to its "
+                 "own end", library_ms="null: " + HD64_LIB_NULL)
+    del steps, caches, kb, vb, k7, v7
+    torch.cuda.empty_cache()
+    say("hd64_stack", check_s=f"{check_s:.1f}",
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    return rows
+
+
+def phase_hd64_e2e(eng, eng4, dev):
+    """Phase 45: TinyLlama-1.1B's bs=1 stream, as phase 5 runs the 7B one:
+    ``stream_generate`` of 64 greedy tokens after a 512-token prompt, in
+    bf16 and at the JAX package's operating point (int4 W4A8 weights, an
+    ``Int8KV`` cache), counts set to 0 just before and read just after
+    (kernel 4 once a layer, kernel 7 once a step, 8-bit and int4 launches
+    as each applies); tokens/s, ms a step, the prefill's ms and one step's
+    device busy ms (``busy_ms`` by pass); the first 8 tokens against the
+    plain path under the top-2-gap rule (bf16: the eager prefill and
+    step; the operating point: the eager prefill into an ``Int8KV`` cache
+    and kernel 7's plain twin in W4A8, ``stack_plain_step``).  Returns
+    {run: kernel 7's launches}."""
+    from clusterfusion_tpu_torch.models import llama as model
+    from clusterfusion_tpu_torch.ops import flash_prefill as fp
+    from clusterfusion_tpu_torch.ops import stack_kernel as sk
+    t0 = time.perf_counter()
+    cfg = eng.cfg
+    text = ("The quick brown fox jumps over the lazy dog. " * 20)[:511]
+    prompt = eng.tokenizer.encode(text, bos=True, eos=False)
+    launches = {}
+    for run, e, plain_step in (("bf16", eng, None),
+                               ("int4_w4a8_kvint8", eng4,
+                                stack_plain_step(True))):
+        # a warm stream first: the timed run below pays no first-call costs
+        list(e.stream_generate(prompt[:32], 4, temperature=0.0))
+        torch.cuda.synchronize()
+        fp.launches = sk.launches = 0
+        sk.int8_launches = sk.int4_launches = 0
+        for k in sk.kv8_launches:
+            sk.kv8_launches[k] = 0
+        stamps, toks = [], []
+        for t in e.stream_generate(prompt, 64, temperature=0.0):
+            stamps.append(time.perf_counter())
+            toks.append(t)
+        got = dict(flash_prefill=fp.launches, stack=sk.launches,
+                   stack_int4=sk.int4_launches,
+                   stack_kv8=sum(sk.kv8_launches.values()))
+        decode_s = stamps[-1] - stamps[0]
+        quant = run != "bf16"
+        ran = (got["flash_prefill"] == cfg.n_layers
+               and got["stack"] >= len(toks) - 1
+               and got["stack_int4"] == got["stack"] * quant
+               and got["stack_kv8"] == got["stack"] * quant)
+        # one step's device time at the prompt's end, by pass
+        kc, vc = model.init_cache(cfg, device=dev, dtype=e.kv_dtype)
+        _, kc, vc = model.prefill(e.params, kc, vc, prompt, cfg)
+        busy, by = busy_ms(lambda: model.decode_step(  # noqa: B023
+            e.params, kc, vc, toks[0], len(prompt), cfg, e.kcfg, True),
+            HD64_PASSES)
+        del kc, vc
+        plain, gaps, bad = check_against_plain(e, dev, prompt, toks,
+                                               step=plain_step)
+        say("hd64_e2e", model="tinyllama_1b", run=run,
+            prompt_tokens=len(prompt), new_tokens=len(toks),
+            prefill_ms=f"{e.stats.prefill_s * 1e3:.2f}",
+            decode_tokens_per_s=f"{(len(toks) - 1) / decode_s:.2f}",
+            decode_ms_per_step=f"{decode_s * 1e3 / (len(toks) - 1):.3f}",
+            device_busy_ms_per_step=f"{busy:.4f}",
+            **{f"busy_{k}_ms": f"{v:.4f}" for k, v in by.items()},
+            **{f"{k}_launches": v for k, v in got.items()},
+            kernel_tokens=toks[:8], plain_tokens=plain,
+            plain="eager" if plain_step is None else "kernel 7's twin (W4A8)",
+            top2_gaps=[round(v, 3) for v in gaps],
+            disagree_where_gap_gt_0_1=bad)
+        if not ran or bad or len(toks) != 64 or not all(
+                0 <= t < cfg.vocab_size for t in toks):
+            raise AssertionError(f"TinyLlama's stream ({run}): launches "
+                                 f"{got}, tokens disagree at {bad}")
+        launches[run] = got["stack"]
+    say("hd64_e2e", seconds=f"{time.perf_counter() - t0:.1f}")
+    return launches
+
+
+def phase_hd64_mode5(eng, dev, hbm, peak, pos=600):
+    """Phase 46: kernel 7's mode 5 at head dim 64 as a tp-2 pair on this
+    card (phase 26's form: two virtual ranks on their own streams over a
+    loopback communicator, no LM head) on TinyLlama-1.1B's widths, its
+    weights made with head group 2 (G 2, so that the head groups divide
+    over the ranks: 2 kv heads a rank), with bf16 weights on a bf16 cache
+    and with int4 W4A8 weights on an ``Int8KV`` cache, pos 600 over random
+    rows (``shard_params`` / ``shard_cache``): all 22 layers, 8L+1 kernels
+    a rank, the ranks' x_out and residual bit-identical and repeated bit
+    for bit; each layer from the pair's own state (teacher-forced) within
+    2e-2 of the largest value of its twin over the ranks
+    (``fused_decoder_stack_plain_ranks``), the appended rows at phase 4's
+    limits (Int8KV: plus one code).  The 22-layer pair step's time (10
+    back to back, as phase 26 times its pair) beside the twin's and the
+    bound (both ranks' shards, rows and scales read once).  Then
+    ``phase_fused_step`` on each tree: 8 steps of the fused tp-2 step
+    after a 512-token prefill (bf16 held against kernel 7's unsharded step
+    teacher-forced; W4A8 + Int8KV, another function than the unsharded
+    step, checked for launches, ranks and finiteness)."""
+    from clusterfusion_tpu_torch import parallel as par
+    from clusterfusion_tpu_torch.config import KernelConfig
+    from clusterfusion_tpu_torch.models import llama as model
+    from clusterfusion_tpu_torch.models.generation import Llama
+    from clusterfusion_tpu_torch.ops import stack_kernel as sk
+    from clusterfusion_tpu_torch.ops.quant import quantize_llama_params
+    from clusterfusion_tpu_torch.parallel import collective as col
+    t0 = time.perf_counter()
+    cfg, tp = eng.cfg, 2
+    g, hd, L = cfg.n_heads // cfg.kv_heads, cfg.head_dim_, cfg.n_layers
+    tree = model.init_params(cfg, seed=46, head_group=2, device=dev)
+    tree4 = quantize_llama_params(tree, "int4")
+    gen = torch.Generator(device=dev).manual_seed(46)
+    kb, vb = model.init_cache(cfg, max_seq=1024, device=dev)
+    kb[:, :, :pos] = torch.randn(kb[:, :, :pos].shape, generator=gen,
+                                 device=dev).bfloat16()
+    vb[:, :, :pos] = torch.randn(vb[:, :, :pos].shape, generator=gen,
+                                 device=dev).bfloat16()
+    caches_by = {"bf16": (kb, vb), "int8": kv8_cache(kb, vb, "int8", pos)}
+    cos, sin = model.rope_row(cfg, pos, dev)
+    kw = dict(group=g, head_dim=hd, rope_style=cfg.rope_style,
+              eps=cfg.norm_eps)
+    names = ("attn_norm", "ffn_norm", "wqkv_f", "wo_f", "w13", "w2")
+    kcfg = KernelConfig(int4_w4a8=True)
+    out_rows = {}
+    for run, p, kv in (("bf16", tree, "bf16"),
+                       ("int4_w4a8_kvint8", tree4, "int8")):
+        step_tol = KV8_STEP.get(kv, 0.0)
+        lb = col.LoopbackComm(tp, dev)
+        try:
+            meshes = [lb.mesh(r) for r in range(tp)]
+            shards = [par.shard_params(p, cfg, m) for m in meshes]
+            kc, vc = caches_by[kv]
+            caches = [(par.shard_cache(kc, m), par.shard_cache(vc, m))
+                      for m in meshes]
+            streams = [torch.cuda.Stream(dev) for _ in range(tp)]
+            x0 = p["embed"][torch.tensor([7], device=dev)]
+
+            def pair(x, ly, cs=None):
+                cs = cs or [(kv_take(k, ly.start, ly.stop),
+                             kv_take(v, ly.start, ly.stop))
+                            for k, v in caches]
+                outs = []
+                for r in range(tp):
+                    streams[r].wait_stream(torch.cuda.current_stream(dev))
+                    with torch.cuda.stream(streams[r]):
+                        sl = shards[r]["layers"]
+                        outs.append(sk.fused_decoder_stack(
+                            x, *(sl[k][ly] for k in names[:2]), cos, sin,
+                            *(sl[k][ly] for k in names[2:]), *cs[r], pos,
+                            kcfg=kcfg, reduce_axis="tp", mesh=meshes[r],
+                            **kw))
+                for st_ in streams:
+                    torch.cuda.current_stream(dev).wait_stream(st_)
+                return outs
+
+            # every kernel of the path loaded before a virtual rank spins
+            # (see ``LoopbackComm``): the unsharded step first
+            lw = p["layers"]
+            sk.fused_decoder_stack(
+                x0, lw["attn_norm"][:1], lw["ffn_norm"][:1], cos, sin,
+                *(lw[k][:1] for k in names[2:]), kv_take(kc, 0, 1),
+                kv_take(vc, 0, 1), pos, kcfg=kcfg, **kw)
+            n0 = (sk.launches, sum(sk.kv8_launches.values()))
+            whole = slice(0, L)
+            outs = pair(x0, whole)
+            per_step = sk.last_step_kernels
+            again = pair(x0, whole)
+            torch.cuda.synchronize()
+            lb.check()
+            n7, n8 = sk.launches - n0[0], sum(sk.kv8_launches.values()) - n0[1]
+            same = all(_same_bits(o[j], outs[0][j]) and
+                       _same_bits(a[j], outs[0][j])
+                       for o, a in zip(outs, again) for j in (0, 1))
+            finite = all(bool(torch.isfinite(o[0].float()).all())
+                         for o in outs)
+            ok = (same and finite and per_step == 8 * L + 1
+                  and n7 == 2 * tp and n8 == 2 * tp * (kv != "bf16"))
+            # layer by layer, teacher-forced, against the twin over the ranks
+            x, rels, rerr, amax = x0, [], [], 0.0
+            for l in range(L):
+                one = slice(l, l + 1)
+                got = pair(x, one)
+                want = sk.fused_decoder_stack_plain_ranks(
+                    [(x, *(shards[r]["layers"][k][one] for k in names[:2]),
+                      cos, sin,
+                      *(shards[r]["layers"][k][one] for k in names[2:]),
+                      kv_take(caches[r][0], l, l + 1),
+                      kv_take(caches[r][1], l, l + 1), pos)
+                     for r in range(tp)],
+                    kv_split=kcfg.kv_split, int4_w4a8=True, **kw)
+                torch.cuda.synchronize()
+                lb.check()
+                d_ = [((got[r][j].float() - want[r][j].float()).abs().max()
+                       .item(), want[r][j].float().abs().max().item())
+                      for r in range(tp) for j in (0, 1)]
+                e = max(a / b for a, b in d_)
+                amax = max(amax, *(a for a, _ in d_))
+                re_ = 0.0
+                for r in range(tp):
+                    for j in (2, 3):
+                        a_ = kv_values(got[r][j], [pos])
+                        b_ = kv_values(want[r][j], [pos])
+                        d = (a_ - b_).abs().max().item()
+                        re_ = max(re_, d)
+                        ok &= d <= 0.05 + ((l > 0) * 1e-2 + step_tol) * \
+                            b_.abs().max().item()
+                ok &= e <= 2e-2
+                rels.append(round(e, 4))
+                rerr.append(round(re_, 4))
+                x = (got[0][0].float() + got[0][1].float()).bfloat16()
+            # the 22-layer pair step's time, its twin's and its bound
+            cs = [(kv_take(k, 0, L), kv_take(v, 0, L)) for k, v in caches]
+            pair(x0, whole, cs)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(10):
+                pair(x0, whole, cs)
+            torch.cuda.synchronize()
+            pair_ms = (time.perf_counter() - t1) * 1e2
+            lb.check()
+            t1 = time.perf_counter()
+            sk.fused_decoder_stack_plain_ranks(
+                [(x0, *(shards[r]["layers"][k] for k in names[:2]), cos, sin,
+                  *(shards[r]["layers"][k] for k in names[2:]),
+                  kv_take(caches[r][0], 0, L), kv_take(caches[r][1], 0, L),
+                  pos) for r in range(tp)],
+                kv_split=kcfg.kv_split, int4_w4a8=True, **kw)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t1) * 1e3
+        finally:
+            lb.close()
+        if kv != "bf16":
+            bound, bound_by, nbytes = mode5_kv8_bound(cfg, p["layers"], hbm,
+                                                      peak, pos, kv)
+        else:
+            lw = dict(p["layers"])
+            lw["w13"], lw["w2"] = ffn_unpadded(cfg, lw)
+            nbytes = sum(_bytes(lw[k]) for k in names) + \
+                2 * L * cfg.kv_heads * 2 * hd * (pos + 1) + \
+                3 * 2 * cfg.hidden_dim
+            flops = 2 * sum(lw[k].numel() for k in names[2:]) + \
+                4 * L * cfg.n_heads * hd * (pos + 1)
+            bound = max(nbytes / hbm, flops / peak) * 1e3
+            bound_by = "bytes" if nbytes / hbm >= flops / peak \
+                else "operations"
+        say("hd64_mode5", kernel=7, run=run, reduce_axis="tp", tp=tp,
+            loopback=True, layers=L, pos=pos, head_group=2,
+            kv_heads_per_rank=cfg.kv_heads // tp,
+            ranks_bit_identical_and_repeat=same, finite=finite,
+            kernels_per_step=per_step, stack_launches=n7, kv8_launches=n8,
+            held="each layer vs fused_decoder_stack_plain_ranks, "
+                 "teacher-forced",
+            err_over_max_by_layer=rels, err_over_max_worst=max(rels),
+            kv_rows_err_worst=max(rerr),
+            tol="x/res within 2e-2 of the largest; rows layer 0 atol=0.05, "
+                "deeper atol=0.05+rtol=1e-2" + (f", +{step_tol:.4g} of |row|"
+                                                if step_tol else ""),
+            both_ranks_ms_per_step=f"{pair_ms:.4f}",
+            plain_ms=f"{plain_ms:.2f}", bound_ms=f"{bound:.4f}",
+            bound_by=bound_by, bytes=nbytes, within=ok)
+        if not ok:
+            raise AssertionError(f"kernel 7's mode 5 at hd 64 ({run}) "
+                                 "disagrees with its twin over the ranks, or "
+                                 "its launches or bits are wrong")
+        out_rows[run] = dict(max_abs_err=amax, ms=pair_ms, plain_ms=plain_ms,
+                             bound_ms=bound)
+        e = Llama(p, cfg, eng.tokenizer, fused=True,
+                  kv_dtype="int8" if kv == "int8" else torch.bfloat16)
+        phase_fused_step(e, dev, shards, n=8, params=p,
+                         phase=f"hd64_fused_step_{run}", kcfg=kcfg,
+                         stack_check=run == "bf16",
+                         kv=None if kv == "bf16" else kv)
+        del shards, caches, e
+        torch.cuda.empty_cache()
+    del tree, tree4, caches_by, kb, vb
+    torch.cuda.empty_cache()
+    say("hd64_mode5", seconds=f"{time.perf_counter() - t0:.1f}")
+    return out_rows
+
 
 
 # -- int4 on the multi-card paths (phases 32-34) ------------------------------
@@ -7200,6 +7743,105 @@ def _multicard_steps(rank, world, dev, mesh, n=32):
     return out
 
 
+def _multicard_hd64(rank, world, dev, mesh, n=16):
+    """Phase 16, third part: the fused tp step at head dim 64 on
+    TinyLlama-1.1B's widths, its 4 kv heads over the ranks (head group
+    4 / world, so that G = world: one kv head a rank at 4 cards), with
+    bf16 weights on a bf16 cache and at the operating point (int4 W4A8, an
+    ``Int8KV`` cache): a 512-token prefill, then ``n`` greedy steps of
+    ``make_sharded_decode_step(fused_collectives=True)``, counts set to 0
+    before and read after (one kernel-7 call a step with 8L+3 kernels, its
+    2L reduces and the logits' gather inside it, nothing standalone), every
+    rank's logits bit-identical to rank 0's; rank 0 holds the bf16 stream
+    against kernel 7 teacher-forced (the W4A8 step quantizes the shard's
+    own f-blocks, another function than the unsharded step)."""
+    import torch.distributed as dist
+    from clusterfusion_tpu_torch import parallel as par
+    from clusterfusion_tpu_torch.config import KernelConfig, LlamaConfig
+    from clusterfusion_tpu_torch.models import llama as model
+    from clusterfusion_tpu_torch.ops import stack_kernel as sk
+    from clusterfusion_tpu_torch.ops.quant import quantize_llama_params
+    from clusterfusion_tpu_torch.parallel import collective as col
+    cfg = LlamaConfig.tinyllama_1b()
+    if cfg.kv_heads % world:
+        if rank == 0:
+            print(f"[multicard_hd64] skipped tp={world} kv_heads="
+                  f"{cfg.kv_heads}", flush=True)
+        return {}
+    L, out = cfg.n_layers, {}
+    full = model.init_params(cfg, seed=0, head_group=cfg.kv_heads // world,
+                             device=dev)
+    prompt = [(i * 37 + 11) % cfg.vocab_size for i in range(512)]
+    for name, tree, kv in (("fused_hd64", full, torch.bfloat16),
+                           ("fused_hd64_int4_kvint8",
+                            quantize_llama_params(full, "int4"), "int8")):
+        kcfg = KernelConfig(int4_w4a8=True)
+        k0, v0 = model.init_cache(cfg, max_seq=1024, device=dev, dtype=kv)
+        lg, k0, v0 = model.prefill(tree, k0, v0, prompt, cfg)
+        first, pos0 = int(torch.argmax(lg[-1])), len(prompt)
+        params = par.shard_params(tree, cfg, mesh)
+        step = par.make_sharded_decode_step(cfg, mesh, kcfg,
+                                            fused_collectives=True)
+        kc, vc = par.shard_cache(k0, mesh), par.shard_cache(v0, mesh)
+        step(params, kc, vc, first, pos0)       # warm-up, row rewritten
+        dist.barrier()
+        torch.cuda.synchronize()
+        for k in col.launches:
+            col.launches[k] = col.standalone[k] = 0
+        sk.launches = sk.int4_launches = sk.last_step_kernels = 0
+        for k in sk.kv8_launches:
+            sk.kv8_launches[k] = 0
+        tok, toks, logs = torch.tensor(first, device=dev), [], []
+        t0 = time.perf_counter()
+        for i in range(n):
+            lg, kc, vc = step(params, kc, vc, tok, pos0 + i)
+            tok = torch.argmax(lg)
+            toks.append(tok)
+            logs.append(lg)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        mine = torch.stack(logs)
+        every = [torch.empty_like(mine) for _ in range(world)]
+        dist.all_gather(every, mine, group=mesh.groups["tp"])
+        same = all(_bits_equal(e, every[0]) for e in every)
+        quant = name != "fused_hd64"
+        launched = dict(kernel7=sk.launches, kernel7_int4=sk.int4_launches,
+                        kernel7_kv8=sum(sk.kv8_launches.values()),
+                        kernel13=col.launches["all_reduce"],
+                        kernel14=col.launches["all_gather"],
+                        standalone13=col.standalone["all_reduce"],
+                        standalone14=col.standalone["all_gather"],
+                        kernel7_kernels_per_step=sk.last_step_kernels)
+        want = dict(kernel7=n, kernel7_int4=n * quant, kernel7_kv8=n * quant,
+                    kernel13=2 * L * n, kernel14=n, standalone13=0,
+                    standalone14=0, kernel7_kernels_per_step=8 * L + 3)
+        toks = [int(t) for t in toks]
+        finite = bool(torch.isfinite(mine).all())
+        bad, held = [], {}
+        if rank == 0:
+            if not quant:
+                ref, gaps, bad = check_against_stack(tree, cfg, k0, v0, pos0,
+                                                     first, toks, kcfg)
+                held = dict(kernel7_tokens=ref[:8], agree=(
+                    f"{sum(a == b for a, b in zip(ref, toks))}/{n}"),
+                    disagree_where_gap_gt_0_1=bad,
+                    min_top2_gap=f"{min(gaps):.3g}")
+            say("multicard_hd64", step=name, tp=world, model="tinyllama_1b",
+                head_dim=cfg.head_dim_, kv_heads_per_rank=cfg.kv_heads // world,
+                prompt_tokens=pos0, new_tokens=n,
+                ms_per_step=f"{dt * 1e3 / n:.3f}",
+                tokens_per_s=f"{n / dt:.2f}", **launched,
+                ranks_logits_bit_identical=same, finite=finite,
+                tokens=toks[:8], **held)
+        dist.barrier()
+        if launched != want or bad or not same or not finite:
+            raise AssertionError(f"rank {rank}, the {name} step: launches "
+                                 f"{launched} (want {want}), tokens {bad}, "
+                                 f"ranks' logits identical: {same}")
+        out[f"{name}_ms_per_step"] = dt * 1e3 / n
+    return out
+
+
 def _multicard_rank(rank, world, tmp, hbm):
     """One rank of phase 16 (``torch.multiprocessing`` target)."""
     import torch.distributed as dist
@@ -7215,6 +7857,7 @@ def _multicard_rank(rank, world, tmp, hbm):
         mesh = par.build_mesh(MeshConfig(tp=world))
         out = _multicard_collectives(rank, world, dev, mesh, hbm)
         out.update(_multicard_steps(rank, world, dev, mesh))
+        out.update(_multicard_hd64(rank, world, dev, mesh))
         dist.barrier()
     finally:
         col.release_communicators()
@@ -7346,6 +7989,18 @@ def main() -> int:
     say("phases_41_43", seconds=f"{t44 - t41:.1f}",
         phase41_s=f"{t42 - t41:.1f}", phase42_s=f"{t43 - t42:.1f}",
         phase43_s=f"{t44 - t43:.1f}")
+    eng_t, eng_t4, tree_t8 = tinyllama_engines(dev)
+    hd64_rows = phase_hd64_stack(eng, eng_t, eng_t4, tree_t8, dev, hbm, peak)
+    t45 = time.perf_counter()
+    hd64_launches = phase_hd64_e2e(eng_t, eng_t4, dev)
+    t46 = time.perf_counter()
+    phase_hd64_mode5(eng_t, dev, hbm, peak)
+    t47 = time.perf_counter()
+    say("phases_44_46", seconds=f"{t47 - t44:.1f}",
+        phase44_s=f"{t45 - t44:.1f}", phase45_s=f"{t46 - t45:.1f}",
+        phase46_s=f"{t47 - t46:.1f}")
+    del eng_t, eng_t4, tree_t8
+    torch.cuda.empty_cache()
     t32 = time.perf_counter()
     layer4_rows = phase_int4_layer(eng4, eng8, eng, dev, hbm, peak)
     del eng, eng8
@@ -7374,6 +8029,11 @@ def main() -> int:
              source="clusterfusion_tpu_torch/csrc/stack_kernel.cu",
              replaces="clusterfusion_tpu/ops/stack_kernel.py:524",
              launches=stack_launches, **stack),
+        *(dict(name=name, route="cuda",
+               source="clusterfusion_tpu_torch/csrc/stack_kernel.cu",
+               replaces="clusterfusion_tpu/ops/stack_kernel.py:524",
+               launches=hd64_launches[run], **hd64_rows[run])
+          for name, run in HD64_ROWS),
         dict(name="fused_decoder_stack (int8 weights)", route="cuda",
              source="clusterfusion_tpu_torch/csrc/stack_kernel.cu",
              replaces="clusterfusion_tpu/ops/stack_kernel.py:604",

@@ -1970,9 +1970,19 @@ int launch_ring_gemv4(const __nv_bfloat16* x, long long x_row, const Int8Map* wm
 // scale): a row decodes exactly, e4m3 denormals (magnitude bits < 8, |v| <=
 // 0.0137) flushed to 0 as the TPU kernel's bit-twiddle decode flushes them
 // (ops/quant.py fp8_decode_scaled).  The rows stream as bytes (a 128-wide
-// row is 128 bytes); the current token's fold stays float32 and only its
+// row is 128 bytes, a 64-wide one 64: every bulk copy stays a whole number
+// of 16-byte units); the current token's fold stays float32 and only its
 // stored copy is 8-bit: int8 codes rint(x / s) with s = max(|x|, 1e-8) *
-// (1/127) of the float32 row, or e4m3 straight from float32, saturating.
+// (1/127) of the float32 row, or e4m3 straight from float32, saturating
+// (the one-token stack at hd 64: of the row rounded to bf16 first, as the
+// TPU kernel's deferred append stores it).
+//
+// Head dims: the one-token split and both merges take hd as a runtime
+// argument (a multiple of 32 up to 128; the stack runs 64 and 128): the
+// Q.K halves are hd / 16 pieces of 16 bytes (8 bytes of an 8-bit row),
+// and the P.V pass has ATT_THREADS / (hd / 8) slices of rows (16 at hd
+// 64, 8 at 128), so the slices' sums take the same shared memory at
+// either width.
 constexpr int ATT_THREADS = 128;
 constexpr int ATT_MAX_GROUP = 8;        // query rows of one token's kv head
 constexpr int ATT_MAX_ROWS = 16;        // query rows of a tile of n tokens (the verify)
@@ -2583,8 +2593,12 @@ int launch_attention(const float* qkv, const __nv_bfloat16* kc_read,
 // fold of the ns split partials and the current token from the f32 q/k/v,
 // and o[r*hd + d] = bf16(acc / l); the append stores the float32 k and v
 // rows at row `seq` as store_row8 does (int8: their scales at ks/vs[h *
-// srow + seq]).  A template, so that only the unit that launches it
-// (stack_kernel.cu) emits it; the bf16 kernel above keeps its own body.
+// srow + seq]), or with `row_bf16` those rows rounded to bf16 first (the
+// TPU kernel's hd-64 form, whose deferred append lands the bf16 rows:
+// int8 codes and scale of the bf16 row, e4m3 of the bf16 row); the fold
+// takes the float32 rows either way.  A template, so that only the unit
+// that launches it (stack_kernel.cu) emits it; the bf16 kernel above keeps
+// its own body.
 template <int KV>
 __global__ void __launch_bounds__(ATT_THREADS)
 attn_merge8_kernel(const float* __restrict__ qkv,
@@ -2594,7 +2608,7 @@ attn_merge8_kernel(const float* __restrict__ qkv,
                    uint8_t* __restrict__ kc, uint8_t* __restrict__ vc,
                    __nv_bfloat16* __restrict__ o, int group, int hd, int cap, int seq,
                    int ns, int neox, float* __restrict__ ks, float* __restrict__ vs,
-                   int srow) {
+                   int srow, int row_bf16) {
   hopper::grid_dep_launch_dependents();   // the O-projection may start
   hopper::grid_dep_wait();
   extern __shared__ float sm[];
@@ -2617,8 +2631,10 @@ attn_merge8_kernel(const float* __restrict__ qkv,
   __syncthreads();
   const size_t row = ((size_t)h * cap + seq) * hd;
   const size_t at = (size_t)h * srow + seq;   // int8: the row's scale
-  store_row8<KV>([&](int d) { return kr[d]; }, hd, kc + row, ks ? ks + at : nullptr, red);
-  store_row8<KV>([&](int d) { return vraw[d]; }, hd, vc + row, vs ? vs + at : nullptr, red);
+  store_row8<KV>([&](int d) { return row_bf16 ? bf16_round(kr[d]) : kr[d]; }, hd, kc + row,
+                 ks ? ks + at : nullptr, red);
+  store_row8<KV>([&](int d) { return row_bf16 ? bf16_round(vraw[d]) : vraw[d]; }, hd, vc + row,
+                 vs ? vs + at : nullptr, red);
   for (int i = 0; i < group; ++i) {
     float part = 0.f;
     for (int d = tid; d < hd; d += blockDim.x) part += qr[i * hd + d] * kr[d];
@@ -2648,14 +2664,15 @@ attn_merge8_kernel(const float* __restrict__ qkv,
 // The split pass (when seq > 0) and attn_merge8_kernel of one layer of the
 // stack on an 8-bit cache (KV) on `st`, as launch_attention launches the
 // bf16 ones: kc/vc the layer's 8-bit rows, read below seq and appended at
-// seq; KV_INT8: ks/vs the layer's scale planes, row stride srow.  *n
-// counts the launches.  Returns a cudaError_t.
+// seq (from the bf16-rounded rows when row_bf16); KV_INT8: ks/vs the
+// layer's scale planes, row stride srow.  *n counts the launches.  Returns
+// a cudaError_t.
 template <int KV>
 int launch_attention8(const float* qkv, uint8_t* kc, uint8_t* vc, const float* cos,
                       const float* sin, float* part_ml, float* part_acc, __nv_bfloat16* o,
                       float* ks, float* vs, int srow, int kv_heads, int group, int hd,
                       int cap, int seq, int split, int neox, cudaStream_t st, int* n,
-                      bool pdl) {
+                      bool pdl, bool row_bf16) {
   if (group < 1 || group > ATT_MAX_GROUP || hd % 32 != 0 || hd > 4 * 32 ||
       split < 1 || split > ATT_MAX_SPLIT || seq < 0 || seq > cap ||
       (KV == KV_INT8 && (!ks || !vs || srow < cap)))
@@ -2680,7 +2697,7 @@ int launch_attention8(const float* qkv, uint8_t* kc, uint8_t* vc, const float* c
   }
   CF_CHECK(launch_kernel(attn_merge8_kernel<KV>, dim3(kv_heads), dim3(ATT_THREADS), merge_smem,
                          st, pdl, qkv, part_ml, part_acc, cos, sin, kc, vc, o, group, hd, cap,
-                         seq, ns, neox, ks, vs, srow));
+                         seq, ns, neox, ks, vs, srow, (int)row_bf16));
   ++*n;
   return 0;
 }

@@ -4,8 +4,8 @@
 // Replaces the TPU kernel `fused_decoder_stack`
 // (clusterfusion_tpu/ops/stack_kernel.py, `_stack_kernel`) for bf16, int8
 // or int4 weights, a bf16, int8 (Int8KV) or fp8 e4m3 KV cache (in mode 5
-// too), no window, no bias and no sandwich norms,
-// with the same layouts:
+// too), head dim 128 or 64 (its defer_append variant), no window, no bias
+// and no sandwich norms, with the same layouts:
 //   wqkv_f [L, G, hidden, hg*(g+2)*hd]  columns per kv head [q_0..q_{g-1}|k|v]
 //   wo_f   [L, G, hg*g*hd, hidden]
 //   w13    [L, 2, hidden, f_pad]        w2 [L, f_pad, hidden]
@@ -120,6 +120,18 @@
 // merge passes know nothing of the reduces, which ride the products and
 // the norms, and run the same PDL chain as on a bf16 cache (the split
 // waits for the QKV product, the merge lets the O product start).
+//
+// Head dim 64 (TinyLlama; the TPU kernel's defer_append variant, which
+// emits the new rows as bf16 outputs and lands them after the call): the
+// same launches, the split and merge passes taking hd as a runtime
+// argument, with the TPU kernel's two hd-64 rules.  An 8-bit cache stores
+// the new rows rounded to bf16 first (int8 codes and scale of the bf16
+// row, e4m3 of the bf16 row), while the token's fold stays float32; a bf16
+// cache stores bf16 of the float32 row either way.  The O projection of
+// int4 weights is the exact product (bf16(code * s)) in W4A8 too, since
+// the TPU kernel's per-row O contraction at hd 64 dequantizes its tile.
+// The split reads only rows below pos, so appending in the merge gives
+// what the TPU kernel's deferred update gives.
 //
 // The split and merge passes are common.cuh's attn_split_kernel and
 // attn_merge_kernel (attn_merge8_kernel for an 8-bit cache): the split
@@ -363,8 +375,9 @@ extern "C" int cf_decoder_stack(
              (wq_kind == WK_INT4A8 && (ffn_block < GS4 || ffn_block % GS4 != 0 ||
                                        f_pad % ffn_block != 0))))
     return (int)cudaErrorInvalidValue;
-  // hd 128 only: others (Gemma-2's 256) are not ported yet
-  if (group > ATT_MAX_GROUP || hd != 128 || threads % 32 != 0 ||
+  // hd 128, or 64 (the TPU kernel's defer_append variant); others
+  // (Gemma-2's 256) are not ported yet
+  if (group > ATT_MAX_GROUP || (hd != 128 && hd != 64) || threads % 32 != 0 ||
       threads < 32 || threads > G1_MAX_THREADS || pos < 0 || pos >= cap ||
       kv_heads % hg != 0)
     return (int)cudaErrorInvalidValue;
@@ -420,8 +433,11 @@ extern "C" int cf_decoder_stack(
       s2 = static_cast<const float*>(w2_s) + (size_t)l * gf * hidden;
     }
     // W4A8's activation blocks: the O projection's head group, the down
-    // product's f-block (int8: the O projection's scale group)
-    const int kg_o = wq_kind == WK_INT4 ? 0 : (int)Ko;
+    // product's f-block (int8: the O projection's scale group); at hd 64
+    // the O projection of int4 weights is exact (the TPU kernel's per-row
+    // contraction dequantizes its tile)
+    const int wk_o = wq_kind == WK_INT4A8 && hd % 128 != 0 ? WK_INT4 : wq_kind;
+    const int kg_o = wk_o == WK_INT4 ? 0 : (int)Ko;
     const int kg_d = wq_kind == WK_INT4A8 ? ffn_block : 0;
     __nv_bfloat16* kcl = static_cast<__nv_bfloat16*>(kc) + (size_t)l * kv_heads * cap * hd;
     __nv_bfloat16* vcl = static_cast<__nv_bfloat16*>(vc) + (size_t)l * kv_heads * cap * hd;
@@ -448,15 +464,16 @@ extern "C" int cf_decoder_stack(
                               G, (long long)hidden * C, C, threads, st));
     ++n;
     // split-KV attention over rows < pos, then the merge with the current
-    // token, which appends its k/v at row pos (bf16, or 8-bit)
+    // token, which appends its k/v at row pos (bf16, or 8-bit: at hd 64 of
+    // the bf16-rounded rows)
     if (kv_kind == KV_INT8)
       CF_CHECK(launch_attention8<KV_INT8>(s.qkv, kcl8, vcl8, cosf, sinf, s.part_ml, s.part_acc,
                                           s.o, ksl, vsl, srow, kv_heads, group, hd, cap, pos,
-                                          kv_split, neox, st, &n, PDL_CHAIN));
+                                          kv_split, neox, st, &n, PDL_CHAIN, hd % 128 != 0));
     else if (kv_kind == KV_FP8)
       CF_CHECK(launch_attention8<KV_FP8>(s.qkv, kcl8, vcl8, cosf, sinf, s.part_ml, s.part_acc,
                                          s.o, nullptr, nullptr, 0, kv_heads, group, hd, cap,
-                                         pos, kv_split, neox, st, &n, PDL_CHAIN));
+                                         pos, kv_split, neox, st, &n, PDL_CHAIN, hd % 128 != 0));
     else
       CF_CHECK(launch_attention(s.qkv, kcl, vcl, cosf, sinf, s.part_ml, s.part_acc,
                                 kcl, vcl, nullptr, nullptr, s.o, nullptr, nullptr,
@@ -466,12 +483,12 @@ extern "C" int cf_decoder_stack(
     // (int8: each group's partial scaled by its s[G] first); then the
     // attention-out residual add + FFN RMSNorm
     if (cc) {   // Stage.ATTN: the ranks' O-projection partials, summed
-      CF_CHECK((push_gemv<false, G1_PUSH_SUM>(wq_kind, s.o, 0, wol, &mo, l, so, kg_o,
+      CF_CHECK((push_gemv<false, G1_PUSH_SUM>(wk_o, s.o, 0, wol, &mo, l, so, kg_o,
                                               (int)(G * Ko), hidden, threads, st, cc)));
       CF_CHECK(launch_kernel(resnorm_reduce_kernel, dim3(1), dim3(NORM_THREADS), 0, st,
           PDL_CHAIN, *cc, s.res_b, fn, s.res_a, s.xn, nullptr, nullptr, hidden, eps));
     } else {
-      CF_CHECK(step_gemv<false>(wq_kind, s.o, 0, wol, &mo, l, so, kg_o, s.aout,
+      CF_CHECK(step_gemv<false>(wk_o, s.o, 0, wol, &mo, l, so, kg_o, s.aout,
                                 (int)(G * Ko), hidden, 1, 0, 0, threads, st));
       CF_CHECK(launch_kernel(resnorm_kernel, dim3(1), dim3(NORM_THREADS), 0, st, PDL_CHAIN,
           s.aout, nullptr, s.res_b, nullptr, fn, s.res_a, nullptr, s.xn, nullptr,

@@ -81,6 +81,20 @@ int8 codes and scale from the float32 row (``quantize_kv_rows``), or e4m3
 straight from float32 (saturating at +-448, where the JAX package's CPU
 cast gives NaN).
 
+Head dims 128 and 64.  At 64 (TinyLlama; the TPU kernel's
+``defer_append`` variant, which emits the new rows as bf16 outputs and
+lands them with ``cache_fill_rows`` after the call) two rules change, as
+in the TPU kernel: the stored copy is taken from the bf16-rounded row
+(an 8-bit cache stores int8 codes and scale of the bf16 row, or e4m3 of
+the bf16 row; a bf16 cache stores the same bf16 row either way), while
+the token's fold stays float32; and the O projection of int4 weights is
+the exact product over bf16(code * s) whatever ``kcfg.int4_w4a8`` says
+(the TPU kernel's per-row O contraction at hd 64 dequantizes its tile).
+The split reads rows below ``pos`` only, so appending inside the step
+gives the results of the TPU kernel's deferred update.  Kernel 8 (the
+verify) keeps hd 128: the JAX package's verify has no hd-64 form, and its
+``spec_verify`` scores the drafts eagerly there.
+
 The caches are updated in place: the returned caches are the tensors that
 were passed in (an ``Int8KV`` pair is returned as the same pair).
 """
@@ -226,27 +240,33 @@ def check_int4_group(gs: int, what: str) -> None:
             f"{INT4_GROUP} only (ROADMAP.md queue 2, mode 1.5)")
 
 
+#: The head dims kernel 7 takes (64: the TPU kernel's defer_append variant).
+STACK_HEAD_DIMS = (64, 128)
+
+
 def refuse_unported(what: str, head_dim: int, weights, final_norm, lm_head,
                     k_cache, v_cache, *, window, bias_qkv, ffn_act, softcap,
                     post_attn_norm, post_ffn_norm) -> None:
     """Raise on what the whole-stack kernels (``fused_decoder_stack``,
     ``fused_verify_stack``) do not take yet.  ``weights`` starts with the
     four projections, which the kernels take bf16, int8 or int4 (in group
-    size 128), beside a bf16 or int8 ``lm_head``."""
+    size 128), beside a bf16 or int8 ``lm_head``.  Head dims: 64 and 128
+    (the verify refuses 64 itself, first)."""
     if window or softcap or bias_qkv is not None or ffn_act != "silu":
         raise NotImplementedError(f"{what}: window, softcap, QKV bias and "
                                   "GeGLU are not ported yet")
     if post_attn_norm is not None or post_ffn_norm is not None:
         raise NotImplementedError(f"{what}: sandwich norms are not ported "
                                   "yet")
-    if head_dim < 128:
-        raise NotImplementedError(
-            f"{what}: head_dim {head_dim} < 128 (the TPU stack kernel's "
-            "defer_append variant) is not ported yet")
-    if head_dim != 128:
+    if head_dim == 256:
         raise NotImplementedError(
             f"{what}: head_dim {head_dim} (Gemma-2's 256) is not ported yet "
             "(ROADMAP.md queue 2, mode 3)")
+    if head_dim not in STACK_HEAD_DIMS:
+        raise NotImplementedError(
+            f"{what}: head_dim {head_dim}; the kernels take "
+            f"{' and '.join(map(str, STACK_HEAD_DIMS))} (no JAX model runs "
+            "another through the stack)")
     quant = [w for w in (*weights, lm_head) if isinstance(w, QuantizedTensor)]
     if quant and not all(isinstance(w, QuantizedTensor) for w in weights[:4]):
         raise ValueError(f"{what}: wqkv_f, wo_f, w13 and w2 are quantized "
@@ -399,18 +419,22 @@ def fused_decoder_stack_plain(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f,
     (the module's note).  Int4 weights (any group size): the TPU kernel's
     products, W4A8 with ``int4_w4a8`` (the module's note).  8-bit caches:
     read and appended as the kernels read and append them (the module's
-    note)."""
+    note).  Head dim 64: the TPU kernel's hd-64 rules (the module's note):
+    the stored rows from the bf16-rounded k and v, the int4 O product
+    exact."""
     # the plain int4 products live beside kernel 6, which imports this module
     from clusterfusion_tpu_torch.ops.decoder_layer import _int4_dot
     pos = int(pos)
     L, G, hidden, _ = wqkv_f.shape
     w4 = isinstance(wqkv_f, QuantizedTensor) and wqkv_f.kind == "int4"
     w8 = isinstance(wqkv_f, QuantizedTensor) and not w4
+    # hd 64: the TPU kernel's defer_append variant (the module's note)
+    defer = head_dim % 128 != 0
     if w4:
         gs, a8 = wqkv_f.group_size, int4_w4a8
         bf = ffn_block_size(w2.shape[-2])
 
-        def dot4(xr, w, i):
+        def dot4(xr, w, i, a8=a8):
             """The int4 product of the row xr with matrix i of w."""
             return _int4_dot(xr[None], w.q[i], w.s[i], gs, a8)[0]
     kv_heads = k_cache.shape[1]
@@ -440,14 +464,17 @@ def fused_decoder_stack_plain(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f,
         acc, _, l_f = split_attention_plain(q, k_cur, v_cur, kcl, vcl, pos,
                                             kv_split, ks=ksl, vs=vsl)
         o = (acc / l_f[..., None]).to(bf16)
-        # the stored copy, from float32 (8-bit: quantized or e4m3)
-        cache_write_layer(k_cache, l, k_cur[:, None], pos)
-        cache_write_layer(v_cache, l, v_cur[:, None], pos)
-        if w4:      # the head groups' products, summed in order
+        # the stored copy, from float32 (8-bit: quantized or e4m3), or at
+        # hd 64 from the bf16 row the TPU kernel's deferred append lands
+        k_row, v_row = (k_cur.to(bf16), v_cur.to(bf16)) if defer \
+            else (k_cur, v_cur)
+        cache_write_layer(k_cache, l, k_row[:, None], pos)
+        cache_write_layer(v_cache, l, v_row[:, None], pos)
+        if w4:      # the head groups' products, summed in order (hd 64: exact)
             og = o.reshape(G, -1)
             aout = torch.zeros(hidden, dtype=torch.float32, device=x.device)
             for i in range(G):
-                aout = aout + dot4(og[i], wo_f[l], i)
+                aout = aout + dot4(og[i], wo_f[l], i, a8 and not defer)
         elif w8:    # each group's partial scaled, then the groups summed
             aout = (torch.einsum("Gc,Gco->Go", o.reshape(G, -1).float(),
                                  wo_f.q[l].float())

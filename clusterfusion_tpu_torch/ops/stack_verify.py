@@ -259,6 +259,13 @@ def fused_verify_stack(
         raise NotImplementedError("fused_verify_stack: reduce_axis (the tp "
                                   "mode of the decode stack) has no verify "
                                   "counterpart")
+    if head_dim % 128:
+        raise NotImplementedError(
+            f"fused_verify_stack: head_dim {head_dim}: the JAX package's "
+            "verify kernel keeps hd >= 128, and its spec_verify scores the "
+            "drafts eagerly below that (clusterfusion_tpu/models/"
+            "speculative.py:74-82), as models.speculative does here; no hd-64 "
+            "form exists to port")
     refuse_unported("fused_verify_stack", head_dim,
                     (wqkv_f, wo_f, w13, w2, attn_norm, ffn_norm), final_norm,
                     lm_head, k_cache, v_cache, window=window,

@@ -124,7 +124,9 @@ def test_chunked_prefill_matches_whole_on_card(dev):
 HIDDEN, L, HD, F_PAD, VOCAB, CAP = 512, 2, 128, 1024, 384, 640
 
 
-def _stack_args(dev, n_heads, kv_heads, hg, pos, seed=0, hidden=HIDDEN):
+def _stack_args(dev, n_heads, kv_heads, hg, pos, seed=0, hidden=HIDDEN,
+                hd=HD):
+    HD = hd
     g, G = n_heads // kv_heads, kv_heads // hg
     a = dict(
         x=_randn((1, hidden), dev, seed),
@@ -1227,8 +1229,9 @@ def test_verify_split_pass_matches_plain(dev, n, kv, g, seq, split):
 
 @pytest.mark.parametrize("entry", ["cf_decoder_stack", "cf_verify_stack"])
 def test_stack_c_entries_refuse_head_dim_256(dev, entry):
-    """Kernels 7 and 8 take hd 128 only: called directly at hd 256, each C
-    entry returns cudaErrorInvalidValue (1) before it launches anything."""
+    """Kernel 8 takes hd 128 only and kernel 7 hd 128 and 64: called
+    directly at hd 256 (Gemma-2's), each C entry returns
+    cudaErrorInvalidValue (1) before it launches anything."""
     from clusterfusion_tpu_torch.ops import _build
     import ctypes
     lib = _build.lib()
@@ -3694,3 +3697,295 @@ def test_kv8_sharded_steps_on_card_one_rank(dev, tmp_path, which):
     assert (lg - ref).abs().max().item() < 0.05 * scale
     for got_c, want_c in ((kc, kr), (vc, vr)):
         _kv8_rows_held(got_c, want_c, [pos], step_kind == "fused")
+
+
+# -- head dim 64 in kernel 7 (the TPU kernel's defer_append variant)
+
+# (n_heads, kv_heads, hg) at hd 64: TinyLlama's group 8 on 4 kv heads in one
+# head group of 4 (its bf16 and quantized grouping), and group 2 over 2
+# head groups (the O projection's groups summed)
+HD64_SHAPES = [(32, 4, 4), (8, 4, 2)]
+# weight kind: (stack weights, KernelConfig.int4_w4a8)
+HD64_WEIGHTS = {"bf16": ("bf16", True), "int8": ("int8", True),
+                "int4_w4a8": ("int4", True), "int4_exact": ("int4", False)}
+
+
+def _kv_layers(c, lo, hi):
+    """A copy of layers lo..hi-1 of a bf16, fp8 or Int8KV cache."""
+    from clusterfusion_tpu_torch.ops import quant as tq
+    if isinstance(c, tq.Int8KV):
+        return tq.Int8KV(c.q[lo:hi].clone(), c.s[lo:hi].clone())
+    return c[lo:hi].clone()
+
+
+def _hd64_case(dev, shape, weights, kv, pos, seed):
+    """Kernel 7's inputs at hd 64: (kw, args, k cache, v cache, kcfg), the
+    caches bf16 with NaN above pos, or 8-bit as ``_kv8`` makes them."""
+    g, a, kc, vc, lm = _stack_args(dev, *shape, pos, seed=seed, hd=64)
+    kind, a8 = HD64_WEIGHTS[weights]
+    w, head = _kv8_weights(a, lm, kind)
+    if kv == "bf16":
+        kc[:, :, pos + 1:] = float("nan")
+        vc[:, :, pos + 1:] = float("nan")
+    else:
+        kc, vc = _kv8(kc, vc, kv, pos)
+    cfg = LlamaConfig.tiny(head_dim=64, rope_style="neox")
+    cos, sin = model.rope_row(cfg, pos, dev)
+    kw = dict(group=g, head_dim=64, rope_style="neox", eps=1e-5, **head)
+    args = [a["x"], a["attn_norm"], a["ffn_norm"], cos, sin, w["wqkv_f"],
+            w["wo_f"], w["w13"], w["w2"]]
+    return kw, args, kc, vc, KernelConfig(int4_w4a8=a8)
+
+
+def _hd64_rows_held(got, want, pos, kv, tight):
+    """Appended rows at hd 64 against the twin's: bf16 at atol 0.05; 8-bit
+    as ``_kv8_rows_held`` holds every layer, and at layer 0 (``tight``)
+    int8 codes within 1 and scales within one bf16 step of the row's
+    absmax (2^-8: both store the bf16-rounded row, whose absmax a bf16
+    rounding may move), fp8 bytes within one code and 99 % equal."""
+    if kv == "bf16":
+        torch.testing.assert_close(got[:, :, pos].float(),
+                                   want[:, :, pos].float(), atol=0.05, rtol=0)
+        others = torch.ones(got.shape[2], dtype=torch.bool, device=got.device)
+        others[pos] = False
+        assert _same_bits(got[:, :, others], want[:, :, others])
+        return
+    _kv8_rows_held(got, want, [pos], False)
+    if not tight:
+        return
+    if kv == "int8":
+        dq = (got.q[0, :, pos].int() - want.q[0, :, pos].int()).abs()
+        assert dq.max().item() <= 1
+        L_, H = got.q.shape[:2]
+        torch.testing.assert_close(got.s.view(L_, H, -1)[0, :, pos],
+                                   want.s.view(L_, H, -1)[0, :, pos],
+                                   rtol=2.0 ** -8, atol=0)
+    else:
+        gb = got.view(torch.uint8)[0, :, pos].int()
+        wb = want.view(torch.uint8)[0, :, pos].int()
+        assert (gb - wb).abs().max().item() <= 1
+        assert (gb == wb).float().mean().item() >= 0.99
+
+
+@pytest.mark.parametrize("pos", [0, 37, 300, CAP - 1])
+@pytest.mark.parametrize("kv", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("weights", list(HD64_WEIGHTS))
+@pytest.mark.parametrize("shape", HD64_SHAPES, ids=["g8_hg4", "g2_hg2"])
+def test_hd64_stack_kernel_matches_plain(dev, shape, weights, kv, pos):
+    """Kernel 7 at hd 64 against its plain twin, with bf16, int8, int4
+    W4A8 and int4 exact weights on a bf16, an Int8KV and an fp8 cache, NaN
+    above pos: one launch counted (and one 8-bit launch), 8L+1 kernels and
+    the LM head's; logits within 2e-2 of the largest and the residual at
+    atol/rtol 2e-2 (W4A8: each layer from one input, teacher-forced, as
+    ``_w4a8_by_layer`` holds it); the appended rows (the bf16-row rule of
+    hd 64 on an 8-bit cache) as ``_hd64_rows_held`` holds them."""
+    kw, args, kc, vc, kcfg = _hd64_case(dev, shape, weights, kv, pos, 160)
+    kind = {"int8": sk.KV_INT8, "fp8": sk.KV_FP8}.get(kv)
+    kp, vp = _kv8_clone(kc), _kv8_clone(vc)
+    before = (sk.launches, sk.kv8_launches.get(kind, 0))
+    out = sk.fused_decoder_stack(*args, kc, vc, pos, kcfg=kcfg, **kw)
+    torch.cuda.synchronize()
+    assert sk.launches == before[0] + 1
+    assert kind is None or sk.kv8_launches[kind] == before[1] + 1
+    assert sk.last_step_kernels == 8 * L - (pos == 0) * L + 2
+    assert torch.isfinite(out[0]).all()
+    if weights != "int4_w4a8":
+        ref = sk.fused_decoder_stack_plain(*args, kp, vp, pos,
+                                           int4_w4a8=kcfg.int4_w4a8, **kw)
+        err = (out[0] - ref[0]).abs().max().item()
+        assert err <= 2e-2 * ref[0].abs().max().item(), err
+        torch.testing.assert_close(out[1].float(), ref[1].float(), atol=2e-2,
+                                   rtol=2e-2)
+        for got, want in ((kc, kp), (vc, vp)):
+            _hd64_rows_held(got, want, pos, kv, True)
+        return
+    # W4A8: layer l of the kernel and of its twin from one input, the
+    # kernel's own state after its first l layers
+    x, norms, rope, proj = args[0], args[1:3], args[3:5], args[5:]
+    bare = {k: v for k, v in kw.items() if k not in ("final_norm", "lm_head")}
+    for l in range(L):
+        xl = x
+        if l:
+            h, r, _, _ = sk.fused_decoder_stack(
+                x, *(t[:l] for t in norms), *rope, *(t[:l] for t in proj),
+                _kv_layers(kp, 0, l), _kv_layers(vp, 0, l), pos, kcfg=kcfg,
+                **bare)
+            xl = (h.float() + r.float()).bfloat16()
+        one = (xl, *(t[l:l + 1] for t in norms), *rope,
+               *(t[l:l + 1] for t in proj))
+        kk, vk = _kv_layers(kp, l, l + 1), _kv_layers(vp, l, l + 1)
+        kt, vt = _kv_layers(kp, l, l + 1), _kv_layers(vp, l, l + 1)
+        got = sk.fused_decoder_stack(*one, kk, vk, pos, kcfg=kcfg, **kw)
+        ref = sk.fused_decoder_stack_plain(*one, kt, vt, pos, int4_w4a8=True,
+                                           **kw)
+        for a_, b_ in zip(got[:2], ref[:2]):
+            err = (a_.float() - b_.float()).abs().max().item()
+            assert err <= 2e-2 * b_.float().abs().max().item(), (l, err)
+        for g_, w_ in ((kk, kt), (vk, vt)):
+            _hd64_rows_held(g_, w_, pos, kv, True)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("weights", ["bf16", "int4_w4a8"])
+def test_hd64_stack_kernel_is_bit_reproducible(dev, weights, kv):
+    """Kernel 7 at hd 64 gives the same bits on every call: logits,
+    residual and the appended rows (codes, scales, bytes)."""
+    runs = []
+    for _ in range(3):
+        kw, args, kc, vc, kcfg = _hd64_case(dev, HD64_SHAPES[0], weights, kv,
+                                            300, 161)
+        out = sk.fused_decoder_stack(*args, kc, vc, 300, kcfg=kcfg, **kw)
+        caches = [c.q for c in (kc, vc)] + [c.s.view(torch.int32)
+                                            for c in (kc, vc)] \
+            if kv == "int8" else [c.view(torch.uint8) for c in (kc, vc)]
+        runs.append((out[0], out[1].view(torch.int16), *caches))
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        for got, want in zip(run, runs[0]):
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["bf16-bf16", "int4_w4a8-int8"])
+def test_hd64_stack_mode5_loopback_matches_twin(dev, case):
+    """Kernel 7's mode 5 at hd 64 as a tp-2 pair on one card (two virtual
+    ranks on their own streams over a loopback communicator, each with its
+    ``shard_params`` / ``shard_cache`` slices of a tree of 16 heads on 4 kv
+    heads in head groups of 2): 8L+1 kernels a rank, both ranks' x_out and
+    residual bit-identical and repeated bit for bit; each layer, from the
+    pair's own state (teacher-forced), within 2e-2 of the largest value of
+    its twin over the ranks (``fused_decoder_stack_plain_ranks``), the
+    appended rows as ``_hd64_rows_held``.  Runs bf16 weights on a bf16
+    cache, and int4 W4A8 weights on an Int8KV cache."""
+    from clusterfusion_tpu_torch import parallel as par
+    from clusterfusion_tpu_torch.ops.quant import quantize_llama_params
+    from clusterfusion_tpu_torch.parallel import collective as col
+    weights, kv = case.split("-")
+    pos, tp = 130, 2
+    cfg = LlamaConfig.tiny(n_heads=16, n_kv_heads=4, head_dim=64,
+                           rope_style="neox", max_seq_len=CAP)
+    p = model.init_params(cfg, seed=162, head_group=2, device=dev)
+    if weights != "bf16":
+        p = quantize_llama_params(p, "int4")
+    kc, vc = model.init_cache(cfg, device=dev)
+    kc[:, :, :pos] = _randn(kc[:, :, :pos].shape, dev, 163)
+    vc[:, :, :pos] = _randn(vc[:, :, :pos].shape, dev, 164)
+    if kv != "bf16":
+        kc, vc = _kv8(kc, vc, kv, pos)
+    cos, sin = model.rope_row(cfg, pos, dev)
+    kcfg = KernelConfig(int4_w4a8=True)
+    kw = dict(group=4, head_dim=64, rope_style="neox", eps=cfg.norm_eps)
+    names = ("attn_norm", "ffn_norm", "wqkv_f", "wo_f", "w13", "w2")
+    lb = col.LoopbackComm(tp, dev)
+    try:
+        meshes = [lb.mesh(r) for r in range(tp)]
+        shards = [par.shard_params(p, cfg, m)["layers"] for m in meshes]
+        caches = [(par.shard_cache(kc, m), par.shard_cache(vc, m))
+                  for m in meshes]
+        streams = [torch.cuda.Stream(dev) for _ in range(tp)]
+
+        def pair(x, ly):
+            cs = [(_kv_layers(k, ly.start, ly.stop),
+                   _kv_layers(v, ly.start, ly.stop)) for k, v in caches]
+            outs, n = [], []
+            for r in range(tp):
+                streams[r].wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(streams[r]):
+                    sl = shards[r]
+                    outs.append(sk.fused_decoder_stack(
+                        x, *(sl[k][ly] for k in names[:2]), cos, sin,
+                        *(sl[k][ly] for k in names[2:]), *cs[r], pos,
+                        kcfg=kcfg, reduce_axis="tp", mesh=meshes[r], **kw))
+                    n.append(sk.last_step_kernels)
+            for st in streams:
+                torch.cuda.current_stream(dev).wait_stream(st)
+            return outs, n
+
+        x0 = p["embed"][torch.tensor([5], device=dev)]
+        outs, n = pair(x0, slice(0, L))
+        again, _ = pair(x0, slice(0, L))
+        torch.cuda.synchronize(dev)
+        lb.check()
+        assert n == [8 * L + 1] * tp
+        for o, a_ in zip(outs, again):
+            for j in (0, 1):
+                assert _same_bits(o[j], outs[0][j])
+                assert _same_bits(o[j], a_[j])
+        x = x0
+        for l in range(L):
+            one = slice(l, l + 1)
+            got, _ = pair(x, one)
+            want = sk.fused_decoder_stack_plain_ranks(
+                [(x, *(shards[r][k][one] for k in names[:2]), cos, sin,
+                  *(shards[r][k][one] for k in names[2:]),
+                  _kv_layers(caches[r][0], l, l + 1),
+                  _kv_layers(caches[r][1], l, l + 1), pos)
+                 for r in range(tp)], int4_w4a8=True, **kw)
+            torch.cuda.synchronize(dev)
+            lb.check()
+            for g_, w_ in zip(got, want):
+                for j in (0, 1):
+                    err = (g_[j].float() - w_[j].float()).abs().max().item()
+                    assert err <= 2e-2 * w_[j].float().abs().max().item()
+                for j in (2, 3):
+                    _hd64_rows_held(g_[j], w_[j], pos, kv, True)
+            x = (got[0][0].float() + got[0][1].float()).bfloat16()
+    finally:
+        lb.close()
+
+
+@pytest.mark.parametrize("hd", [32, 96])
+def test_stack_c_entry_refuses_other_head_dims(dev, hd):
+    """Kernel 7's C entry takes hd 64 and 128 (the only widths a card test
+    covers): at 32 and 96 it returns cudaErrorInvalidValue (1) before it
+    launches anything."""
+    from clusterfusion_tpu_torch.ops import _build
+    import ctypes
+    lib = _build.lib()
+    buf = torch.zeros(1 << 20, device=dev)
+    p = [buf.data_ptr()] * 17
+    n_launch = ctypes.c_int(-1)
+    st = torch.cuda.current_stream(dev).cuda_stream
+    dims = [1, 512, 2, 1, 2, hd, 64, 512, 0, 8, 1]
+    err = lib.cf_decoder_stack(*p, *dims, 1e-5, 64, 256,
+                               ctypes.byref(n_launch), None, 0, st,
+                               *[None] * 5, 0, 0, 0, None, None, 0)
+    torch.cuda.synchronize()
+    assert err == 1
+    assert n_launch.value == 0
+
+
+@pytest.mark.parametrize("quant,kv", [(None, "bf16"), ("int4", "int8")])
+def test_hd64_engine_streams_on_card(dev, quant, kv):
+    """``Llama.stream_generate`` at the JAX package's hd-64 test geometry
+    on the card (fused: one kernel-7 launch a token), bf16 and at the
+    operating point int4 W4A8 + Int8KV: 12 greedy tokens after a 20-token
+    prompt, teacher-forced into the plain twin's step (the same cache
+    kind) wherever its top-2 gap exceeds 0.1."""
+    from clusterfusion_tpu_torch.models.generation import Llama
+    cfg = LlamaConfig.tiny(head_dim=64, n_kv_heads=2, n_layers=2,
+                           max_seq_len=256, rope_style="neox")
+    eng = Llama.synthetic(cfg, seed=11, fused=True, quant=quant, device=dev,
+                          kv_dtype="int8" if kv == "int8" else torch.bfloat16)
+    prompt = [1 + (7 * i) % 300 for i in range(20)]
+    before = sk.launches
+    toks = list(eng.stream_generate(prompt, 12, temperature=0.0))
+    torch.cuda.synchronize()
+    assert len(toks) == 12 and sk.launches - before == 12
+    kc, vc = model.init_cache(cfg, device=dev, dtype=eng.kv_dtype)
+    lg, kc, vc = model.prefill(eng.params, kc, vc, prompt, cfg)
+    lg = lg[-1]
+    lw = eng.params["layers"]
+    for i, t in enumerate(toks):
+        top = torch.topk(lg, 2).values
+        if (top[0] - top[1]).item() > 0.1:
+            assert int(torch.argmax(lg)) == t, i
+        pos = len(prompt) + i
+        cos, sin = model.rope_row(cfg, pos, dev)
+        x = eng.params["embed"][torch.tensor([t], device=dev)]
+        lg, _, kc, vc = sk.fused_decoder_stack_plain(
+            x, lw["attn_norm"], lw["ffn_norm"], cos, sin, lw["wqkv_f"],
+            lw["wo_f"], lw["w13"], lw["w2"], kc, vc, pos, group=2,
+            head_dim=64, rope_style="neox", eps=cfg.norm_eps,
+            final_norm=eng.params["final_norm"],
+            lm_head=eng.params["lm_head"])
+        lg = lg[0]

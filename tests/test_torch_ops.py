@@ -176,7 +176,8 @@ def test_flash_prefill_refuses_unported_variants():
 HIDDEN, L, HD, F_PAD, VOCAB, CAP, POS, EPS = 512, 2, 128, 1024, 384, 256, 37, 1e-5
 
 
-def _stack_inputs(n_heads, kv_heads, hg, rope_style, seed=3):
+def _stack_inputs(n_heads, kv_heads, hg, rope_style, seed=3, hd=HD):
+    HD = hd
     g = n_heads // kv_heads
     G = kv_heads // hg
     rng = np.random.RandomState(seed)
@@ -329,16 +330,23 @@ def test_stack_wrapper_on_cpu_is_plain_and_refuses_variants():
 @pytest.mark.parametrize("head_dim", [256, 64, 128])
 @pytest.mark.parametrize("op", ["stack", "verify"])
 def test_stacks_take_head_dim_128_only(op, head_dim):
-    """Kernels 7 and 8 take hd 128 only: 256 (Gemma-2's) and 64 raise
-    NotImplementedError before any work, here as on the card (the wrappers
-    refuse before they look at the device), and 128 goes on running."""
+    """Head dims of kernels 7 and 8: 128 runs in both, and 64 (the TPU
+    stack kernel's defer_append variant) in kernel 7, whose twin runs here
+    on inputs built at hd 64 and appends row POS; 256 (Gemma-2's) raises
+    NotImplementedError in both before any work, here as on the card (the
+    wrappers refuse before they look at the device), and so does the
+    verify at 64, naming the JAX package's eager verify (it has no hd-64
+    form)."""
     from clusterfusion_tpu_torch.ops import stack_verify as sv
-    g, _, t = _stack_inputs(4, 2, 2, "gptj")
+    g, _, t = _stack_inputs(4, 2, 2, "gptj",
+                            hd=64 if head_dim == 64 else HD)
     args = [t[k].clone() for k in _ARGS]
     fn = fused_decoder_stack if op == "stack" else sv.fused_verify_stack
     kw = dict(group=g, head_dim=head_dim, rope_style="gptj", eps=EPS)
-    if head_dim != 128:
-        with pytest.raises(NotImplementedError, match=f"head_dim {head_dim}"):
+    if head_dim == 256 or (op, head_dim) == ("verify", 64):
+        match = f"head_dim {head_dim}" + (".*eagerly" if head_dim == 64
+                                          else "")
+        with pytest.raises(NotImplementedError, match=match):
             fn(*args, POS, **kw)
         assert torch.equal(args[9], t["k_cache"])
         assert torch.equal(args[10], t["v_cache"])
@@ -346,6 +354,12 @@ def test_stacks_take_head_dim_128_only(op, head_dim):
         out = fn(*args, POS, **kw)
         assert tuple(out[0].shape) == (1, HIDDEN)
         assert bool(torch.isfinite(out[0].float()).all())
+        # the appended row, and no other
+        for c, c0 in ((args[9], t["k_cache"]), (args[10], t["v_cache"])):
+            assert bool(c[:, :, POS].abs().amax(dim=-1).gt(0).all())
+            others = torch.ones(CAP, dtype=torch.bool)
+            others[POS] = False
+            assert torch.equal(c[:, :, others], c0[:, :, others])
 
 
 @pytest.mark.parametrize("V", [32000, 384, 128256, 32001, 100])
