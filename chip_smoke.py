@@ -283,7 +283,7 @@ alive (before 32-34, which free the first two):
    within 1 and scales at rtol 1e-5, fp8 rows within one e4m3 step; the
    deeper rows' values at phase 4's limits plus one step of the format),
    every other row and scale unchanged, one kv8 launch counted a call;
-   int4 W4A8 weights layer by layer, teacher-forced (``w4a8_by_layer``);
+   int4 W4A8 weights layer by layer, teacher-forced (``hold_by_layer``);
    CUDA-event step times, two readings in turns, beside the bf16-KV step
    on the same inputs, the bound (8-bit rows and scales below pos), the
    twin's time and the device time by pass at pos 600;
@@ -390,6 +390,39 @@ Phases 32-34 run after 35-46, on the same int4 engine, in both int4 modes:
    the 32-layer pair's ms beside the bf16 and int8 pairs, the bound; then
    4 steps of the fused tp-2 step in each mode (8L+3 kernels a rank; the
    exact stream against kernel 7's exact step).
+
+After the DeepSeek phases, the Mistral-7B cell (``LlamaConfig.mistral_7b()``
+at full width and all 32 layers, ``max_seq_len`` 8192, sliding window 4096,
+random weights from seed 0; every other engine freed first):
+
+47. kernel 7's window at pos 4600 and 8000 over a random cache of 8192
+   rows, NaN above pos: windows 0, 4096, 100, pos + 1 and 1, each against
+   its plain twin at kv_split 64 layer by layer, teacher-forced, at phase
+   4's limits (at Mistral's width the free-running 32-layer drift reaches
+   them without a window too; it is printed, and with a window held at
+   1.25x window 0's on the same inputs); pos + 1 gives window 0's
+   bits, 4096 differs from 0 at pos 8000, 7L+2 kernels at window 1; the
+   step at pos 8000 with windows 4096 and 0 in turns (CUDA events, device
+   ms with calls queued, the split and merge passes' busy ms) beside the
+   bound; then JAX's window matrix at pos 4600, held the same way: int8 +
+   ``Int8KV``, int4 W4A8 + ``Int8KV``, int4 exact + fp8;
+48. kernel 4's window against its twin: the 4608-token prompt (window
+   4096), a 1024-query chunk at q_offset 4608 and TinyLlama's hd-64 heads
+   (window 1000), each head's row within 2e-2 of its largest value, and
+   the kernel at window -+ 64 outside that limit; a window over every key
+   gives window 0's bits; the prompt's call time beside its twin's, an
+   SDPA call with a boolean window mask and the bound over the kept pairs;
+49. kernel 8's window at n 5, pos 4600, windows 0, 4096 and 100, against
+   its twin layer by layer (stale rows at and above pos), the free-running
+   drift with a window at 1.25x window 0's, a repeat bit-identical, its
+   time;
+50. end to end: ``stream_generate`` of 64 greedy tokens after a
+   4608-token prompt (every step past the window; kernel 4 32 times and
+   kernel 7 once a token, counted from 0), every token against the eager
+   path under the top-2-gap rule; then ``spec_generate`` (n_draft 4, 32
+   tokens) with the target as its own draft, one kernel-8 launch a
+   round, drafts accepted, its stream equal to the greedy stream's where
+   the gap exceeds 0.1.  ``[phases_47_50]`` prints their seconds.
 
 Then, where the machine has two cards or more:
 
@@ -3898,9 +3931,9 @@ def stack_plain_step(a8):
     return step
 
 
-def w4a8_by_layer(fn, plain, args, kc, vc, pos, rows, layers, kcfg, kw,
+def hold_by_layer(fn, plain, args, kc, vc, pos, rows, layers, kcfg, kw,
                   phase, rows_rtol=0.0, **where):
-    """W4A8 (``fn``: kernel 7 or 8) held layer by layer, teacher-forced:
+    """Kernel 7 or 8 (``fn``) held layer by layer, teacher-forced:
     layer l of the kernel and of its plain twin from one input, the
     kernel's own state after its layer l - 1 (x_out + residual_out, each
     layer run alone from the last one's), at phase 4's limits for layer l:
@@ -3911,8 +3944,13 @@ def w4a8_by_layer(fn, plain, args, kc, vc, pos, rows, layers, kcfg, kw,
     an activation across a step of its int8 quantization (absmax/127),
     which moves the next layer's input.  An 8-bit cache (phases 35-36):
     the rows' values (int8 dequantized), ``rows_rtol`` of |row| more (one
-    step of the 8-bit format).  Prints one line; returns (the largest
-    logits max abs error, ok)."""
+    step of the 8-bit format).  The twin runs W4A8 where ``kcfg`` does
+    (``int4_w4a8``; it changes nothing for bf16 and int8 weights): bf16,
+    int8 and exact int4 steps are held the same way (phase 47 holds its
+    32-layer Mistral-7B steps so, as their free-running drift reaches
+    phase 4's limits without a window too).  Prints one line; returns (the
+    largest logits max abs error, ok)."""
+    a8 = kcfg.int4_w4a8
     x, norms, rope, proj = args[0], args[1:3], args[3:5], args[5:]
     bare = {k: v for k, v in kw.items() if k not in ("final_norm", "lm_head")}
     new = slice(pos, pos + rows)
@@ -3925,7 +3963,7 @@ def w4a8_by_layer(fn, plain, args, kc, vc, pos, rows, layers, kcfg, kw,
         kk, vk = kv_take(kc, l, l + 1), kv_take(vc, l, l + 1)
         kp, vp = kv_take(kk, 0, 1), kv_take(vk, 0, 1)
         out = fn(x, *one, kk, vk, pos, kcfg=kcfg, **kw)
-        ref = plain(x, *one, kp, vp, pos, int4_w4a8=True, **kw)
+        ref = plain(x, *one, kp, vp, pos, int4_w4a8=a8, **kw)
         err = (out[0] - ref[0]).abs().max().item()
         rel = err / ref[0].abs().max().item()
         row = max((kv_values(a, new) - kv_values(b, new)).abs().max().item()
@@ -3943,7 +3981,10 @@ def w4a8_by_layer(fn, plain, args, kc, vc, pos, rows, layers, kcfg, kw,
             h, r, _, _ = fn(x, *one, kv_take(kc, l, l + 1),
                             kv_take(vc, l, l + 1), pos, kcfg=kcfg, **bare)
             x = (h.float() + r.float()).bfloat16()
-    say(phase, **where, mode="w4a8", held="layer by layer, teacher-forced",
+    kind = getattr(proj[0], "kind", "bf16")
+    say(phase, **where,
+        mode=("w4a8" if a8 else "exact") if kind == "int4" else kind,
+        held="layer by layer, teacher-forced",
         layers=layers, pos=pos, logits_err_over_max_by_layer=rels,
         logits_err_over_max_worst=max(rels), tol_logits=2e-2,
         kv_rows_err_by_layer=errs, kv_rows_err_worst=max(errs),
@@ -3984,7 +4025,7 @@ def phase_int4_stack(eng4, eng, eng8, dev, hbm, peak, pos=600):
     over a random cache with NaN above pos, with the bf16 and with the int8
     LM head: against the int4 plain twin in the same mode at phase 4's
     limits (exact: the first 1, 4 and 32 layers; W4A8: each layer,
-    teacher-forced, ``w4a8_by_layer``; the int8 head: one layer), a
+    teacher-forced, ``hold_by_layer``; the int8 head: one layer), a
     repeat bit-identical, the int8 step's launches; the
     CUDA-event ms beside the bf16 step (the bf16 engine's weights, hg 4)
     and the int8 step (the int8 engine's, hg 8) of this run, the bound
@@ -4036,7 +4077,7 @@ def phase_int4_stack(eng4, eng, eng8, dev, hbm, peak, pos=600):
             # the int8 head is no int4 code: one layer is enough for it
             depths = (1,) if label == "lm_int8" else (*INT4_CHECK_DEPTHS, L)
             if a8:
-                lg_err, ok = w4a8_by_layer(
+                lg_err, ok = hold_by_layer(
                     sk.fused_decoder_stack, sk.fused_decoder_stack_plain,
                     args, kc, vc, pos, 1, depths[-1], kcfg, kw, "stack_int4",
                     kernel=7, head=label, hg=hg)
@@ -4208,7 +4249,7 @@ def phase_int4_verify(eng4, eng, dev, hbm, peak, pos=600):
     9's limits (logits within 2e-2 of the largest, the appended rows at
     atol 0.05, deeper layers + 1 % of |row|, every other row unchanged;
     exact: the first 1, 4 and 32 layers; W4A8: each layer, teacher-forced,
-    ``w4a8_by_layer``), a repeat bit-identical at 1, 4 and 32 layers; the
+    ``hold_by_layer``), a repeat bit-identical at 1, 4 and 32 layers; the
     CUDA-event ms beside the bound, the bf16 kernel 8 on the bf16 engine's
     weights in this phase and the twin's;
     the device time by pass.  Then ``spec_generate`` on the int4 engine
@@ -4255,7 +4296,7 @@ def phase_int4_verify(eng4, eng, dev, hbm, peak, pos=600):
         for mode, a8 in INT4_MODES:
             kcfg = KernelConfig(int4_w4a8=a8)
             if a8:
-                lg_err, ok = w4a8_by_layer(
+                lg_err, ok = hold_by_layer(
                     sv.fused_verify_stack, sv.fused_verify_stack_plain, args,
                     kc, vc, pos, n, L, kcfg, common, "verify_int4", kernel=8,
                     n=n)
@@ -4639,12 +4680,14 @@ def ffn_unpadded(cfg, lw):
                                 else w2.s))
 
 
-def kv8_bound(cfg, p, hbm, peak, pos, n, fmt):
+def kv8_bound(cfg, p, hbm, peak, pos, n, fmt, window=0):
     """(bound ms, bound_by, bytes) of a step of n rows at pos with a cache
     of ``fmt`` ("bf16", "int8", "fp8"): every weight once (bf16 or
     quantized: the tensors' own bytes, the FFN at ``cfg.ffn_dim``), the
-    rows below pos (int8: and their float32 scales), the n rows written
-    (and their scales), x, the residual and the logits."""
+    rows below pos (int8: and their float32 scales) that a row attends
+    (under a sliding window, those at and above pos + 1 - window), the n
+    rows written (and their scales), x, the residual and the logits; each
+    row's attention over the positions it attends."""
     lw = dict(p["layers"])
     lw["w13"], lw["w2"] = ffn_unpadded(cfg, lw)
     L, kvh, hd = cfg.n_layers, cfg.kv_heads, cfg.head_dim_
@@ -4658,16 +4701,18 @@ def kv8_bound(cfg, p, hbm, peak, pos, n, fmt):
                   lw["attn_norm"], lw["ffn_norm"], p["final_norm"],
                   p["lm_head"]))
     per_row = 2 * L * kvh * {"bf16": 2 * hd, "int8": hd + 4, "fp8": hd}[fmt]
-    nbytes = wbytes + per_row * (pos + n) + n * (2 * 2 * cfg.hidden_dim
-                                                 + 4 * cfg.vocab_size)
+    read = min(pos, window - 1) if window else pos
+    nbytes = wbytes + per_row * (read + n) + n * (2 * 2 * cfg.hidden_dim
+                                                  + 4 * cfg.vocab_size)
 
     def count(t):
         return t.q.numel() * (2 if t.kind == "int4" else 1) \
             if hasattr(t, "q") else t.numel()
     weights = sum(count(t) for t in (lw["wqkv_f"], lw["wo_f"], lw["w13"],
                                      lw["w2"], p["lm_head"]))
-    flops = 2 * n * weights + 4 * L * cfg.n_heads * hd * (
-        n * pos + n * (n + 1) // 2)
+    attended = sum(min(pos + t + 1, window) if window else pos + t + 1
+                   for t in range(n))
+    flops = 2 * n * weights + 4 * L * cfg.n_heads * hd * attended
     bound = max(nbytes / hbm, flops / peak) * 1e3
     return bound, "bytes" if nbytes / hbm >= flops / peak else "operations", \
         nbytes
@@ -4687,7 +4732,7 @@ def phase_kv8_stack(eng, eng8, eng4, dev, hbm, peak, cap=4096):
     with NaN scales (int8) or NaN bytes (fp8) above pos: with bf16 and int8
     weights over all 32 layers against the plain twin (``kv8_vs_plain``),
     with int4 W4A8 weights layer by layer, teacher-forced
-    (``w4a8_by_layer``); the kv8 launch counted once a call; CUDA-event
+    (``hold_by_layer``); the kv8 launch counted once a call; CUDA-event
     step times, two readings in turns, beside the bf16-KV step on the same
     inputs, the bound (8-bit rows and scales below pos) and, at pos 600
     with bf16 weights, the twin's time and the device time by pass.
@@ -4719,7 +4764,7 @@ def phase_kv8_stack(eng, eng8, eng4, dev, hbm, peak, cap=4096):
                 kc8, vc8 = caches[fmt]
                 kind = sk_kind(fmt)
                 if wname == "int4_w4a8":
-                    lg_err, ok = w4a8_by_layer(
+                    lg_err, ok = hold_by_layer(
                         sk.fused_decoder_stack, sk.fused_decoder_stack_plain,
                         args, kc8, vc8, pos, 1, L, kcfg, kw, "stack_kv8",
                         rows_rtol=KV8_STEP[fmt], kernel=7, kv=fmt,
@@ -4822,7 +4867,7 @@ def phase_kv8_verify(eng, eng8, eng4, dev, hbm, peak, cap=4096, n=5):
                 kc8, vc8 = caches[fmt]
                 kind = sk_kind(fmt)
                 if wname == "int4_w4a8":
-                    _, ok = w4a8_by_layer(
+                    _, ok = hold_by_layer(
                         sv.fused_verify_stack, sv.fused_verify_stack_plain,
                         args, kc8, vc8, pos, n, L, kcfg, kw, "verify_kv8",
                         rows_rtol=KV8_STEP[fmt], kernel=8, kv=fmt, n=n,
@@ -6017,7 +6062,7 @@ def phase_hd64_stack(eng7b, eng, eng4, tree8, dev, hbm, peak, pos=600,
     (``HD64_RUNS``).  Each against its plain twin at phase 4's limits
     (``stack_vs_plain``; ``kv8_vs_plain`` with layer 0's scales within 2^-8
     and 99 % of its codes equal; W4A8 layer by layer, teacher-forced,
-    ``w4a8_by_layer``), a repeat bit-identical, one launch counted (and
+    ``hold_by_layer``), a repeat bit-identical, one launch counted (and
     one quantized and one 8-bit launch where they apply), 8L+2 kernels.
     Then each step's CUDA-event time, two readings in turns, beside the
     Llama-2-7B hd-128 step (phase 4's inputs made again) in the same
@@ -6077,7 +6122,7 @@ def phase_hd64_stack(eng7b, eng, eng4, tree8, dev, hbm, peak, pos=600,
                      kernels_per_step=n_kernels, launches_counted=counted,
                      repeat_bit_identical=repeat)
         if kind == "int4" and a8:
-            lg_err, ok = w4a8_by_layer(
+            lg_err, ok = hold_by_layer(
                 sk.fused_decoder_stack, sk.fused_decoder_stack_plain, args,
                 kc, vc, pos, 1, L, kcfg, kw, "hd64_stack",
                 rows_rtol=KV8_STEP.get(kv, 0.0), **where)
@@ -6828,7 +6873,7 @@ def phase_int4_mode5(eng4, dev, hbm, pos=600):
     beside phase 15's bf16 pair's (bf16 flips taken apart compound layer
     by layer, on this tree further than on the bf16 one: ``PERF.md``) and
     every layer is held one at a time, teacher-forced, against the
-    unsharded exact step from the pair's own state (``w4a8_by_layer``'s
+    unsharded exact step from the pair's own state (``hold_by_layer``'s
     rule: x_out and the residual within 2e-2 of their largest value, rows
     at 0.05 + 1e-2 of |row|).  W4A8, whose down product quantizes per
     f-block of the rank's shard (512 rows at tp 2; the unsharded step's
@@ -7426,6 +7471,536 @@ def phase_deepseek_e2e(dev):
     return k12, k5
 
 
+#: Phases 47-50's cell: Mistral-7B at full width and depth, a cache of
+#: 8192 positions, random weights from seed 0.
+MISTRAL_CAP = 8192
+MISTRAL_WINDOW = 4096
+#: Kernel 7's windows at each position (None: pos + 1, which reaches row 0)
+MISTRAL_STACK_WINDOWS = (MISTRAL_WINDOW, 100, None, 1, 0)
+MISTRAL_STACK_POS = (4600, 8000)
+#: The stream's prompt and new tokens: every step past the window
+MISTRAL_PROMPT, MISTRAL_NEW, MISTRAL_SPEC_NEW = 4608, 64, 32
+# a windowed step's free-running 32-layer drift over window 0's on the same
+# inputs (kernel 7 read at most 1.17 at pos 4600 and 8000 in its first runs)
+DRIFT_OVER_WINDOW_0 = 1.25
+MISTRAL_ROWS = (("flash_prefill_attention (sliding window)", "flash",
+                 "flash_prefill.cu", "flash_prefill.py:131"),
+                ("fused_decoder_stack (sliding window)", "stack",
+                 "stack_kernel.cu", "stack_kernel.py:524"),
+                ("fused_verify_stack (sliding window)", "verify",
+                 "stack_verify.cu", "stack_verify.py:432"))
+MISTRAL_LIB_NULL = ("no single PyTorch call computes the windowed decode "
+                    "step or verify")
+
+
+def mistral_engine(dev):
+    """``Llama.synthetic(mistral_7b)`` with ``max_seq_len`` 8192, seed 0:
+    hidden 4096, 32 heads on 8 kv heads of 128, FFN 14336, vocab 32000,
+    neox rope, ``sliding_window`` 4096 (pattern "all"), 32 layers."""
+    from clusterfusion_tpu_torch.config import LlamaConfig
+    from clusterfusion_tpu_torch.models.generation import Llama
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(LlamaConfig.mistral_7b(),
+                              max_seq_len=MISTRAL_CAP)
+    eng = Llama.synthetic(cfg, seed=0, fused=True, device=dev)
+    torch.cuda.synchronize()
+    lw = eng.params["layers"]
+    say("mistral_init", model="mistral_7b", layers=cfg.n_layers,
+        hidden=cfg.hidden_dim, heads=cfg.n_heads, kv_heads=cfg.kv_heads,
+        head_dim=cfg.head_dim_, ffn=cfg.ffn_dim, vocab=cfg.vocab_size,
+        sliding_window=cfg.sliding_window, window_pattern=cfg.window_pattern,
+        max_seq_len=cfg.max_seq_len,
+        head_group=cfg.kv_heads // lw["wqkv_f"].shape[1],
+        param_bytes=sum(t.numel() * 2 for t in
+                        [eng.params["embed"], eng.params["lm_head"],
+                         *lw.values()]),
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    return eng
+
+
+def _mistral_stack_case(cfg, p, dev, pos, seed):
+    """Kernel 7's inputs at ``pos`` on the tree ``p``: token 7's row, rope
+    row pos, random bf16 rows below pos and NaN above it, the LM head."""
+    from clusterfusion_tpu_torch.models import llama as model
+    lw = p["layers"]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape = (cfg.n_layers, cfg.kv_heads, MISTRAL_CAP, cfg.head_dim_)
+    kc = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    vc = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    kc[:, :, pos + 1:] = float("nan")
+    vc[:, :, pos + 1:] = float("nan")
+    cos, sin = model.rope_row(cfg, pos, dev)
+    x = p["embed"][torch.tensor([7], device=dev)]
+    args = (x, lw["attn_norm"], lw["ffn_norm"], cos, sin, lw["wqkv_f"],
+            lw["wo_f"], lw["w13"], lw["w2"])
+    kw = dict(group=cfg.n_heads // cfg.kv_heads, head_dim=cfg.head_dim_,
+              rope_style=cfg.rope_style, eps=cfg.norm_eps,
+              final_norm=p["final_norm"], lm_head=p["lm_head"])
+    return args, kw, kc, vc
+
+
+def step_drift(phase, out, ref, kk, vk, kp, vp, pos, rows, **where):
+    """Print a free-running step of kernel 7 or 8 (``out``, caches kk/vk)
+    beside its plain twin's (``ref``, kp/vp): the logits' error over the
+    largest logit and the appended rows' error by layer (the drift that
+    compounds over the layers; held layer by layer, ``hold_by_layer``).
+    Returns (every other row unchanged bit for bit and the output finite,
+    the logits' max abs error, that error over the largest logit)."""
+    torch.cuda.synchronize()
+    new = list(range(pos, pos + rows))
+    err = (out[0] - ref[0]).abs().max().item()
+    rel = err / ref[0].abs().max().item()
+    rows_err = torch.maximum(*((kv_values(a, new) - kv_values(b, new)).abs()
+                               .amax(dim=(1, 2, 3))
+                               for a, b in ((kk, kp), (vk, vp))))
+    others = torch.ones(kv_positions(kp), dtype=torch.bool,
+                        device=out[0].device)
+    others[new] = False
+    unchanged = kv_same_bits(kk, kp, others) and kv_same_bits(vk, vp, others)
+    finite = bool(torch.isfinite(out[0]).all())
+    say(phase, **where, pos=pos,
+        held="free-running (printed; held by layer and, with a window, "
+             f"against window 0: at most {DRIFT_OVER_WINDOW_0}x its drift)",
+        logits_err_over_max=f"{rel:.4g}",
+        row_err_by_layer=[round(e, 4) for e in rows_err[::4].tolist()],
+        other_rows_unchanged=unchanged, finite=finite)
+    return unchanged and finite, err, rel
+
+
+def phase_mistral_stack(eng, dev, hbm, peak):
+    """Phase 47: kernel 7's sliding window at Mistral-7B's full width and
+    depth, capacity 8192, over random rows with NaN above pos: at pos 4600
+    and 8000, windows 0, 4096 (Mistral's), 100 (starting inside a split of
+    kv_split 64), pos + 1 (reaching row 0) and 1 (the current token alone:
+    no split pass), each against its plain twin at the same kv_split layer
+    by layer, teacher-forced, at phase 4's limits (``hold_by_layer``; at
+    this width the free-running 32-layer drift reaches those limits
+    without a window too: ``step_drift`` prints it); the free-running step
+    must drift at most DRIFT_OVER_WINDOW_0 times window 0's on the same
+    inputs, leave every other row unchanged, launch 8L+2 kernels (7L+2 at
+    window 1), give window 0's bits at window pos + 1 (logits and appended
+    rows) and, at pos 8000, differ from window 0 at window 4096.  Then at
+    pos 8000 the step at windows 4096 and 0 in turns (CUDA events, A B B
+    A), their device time with calls queued and their split and merge
+    passes' busy time (``busy_ms``), beside the byte bound (``kv8_bound``:
+    the weights and the 4095 rows in the window).  Then one step of each
+    of JAX's window x weight x cache pairs (``phase_mistral_matrix``).
+    Returns the kernels line's row (pos 8000, window 4096)."""
+    from clusterfusion_tpu_torch.config import KernelConfig
+    from clusterfusion_tpu_torch.ops import stack_kernel as sk
+    t0 = time.perf_counter()
+    cfg, L = eng.cfg, eng.cfg.n_layers
+    kcfg = KernelConfig()
+    ok_all, logits, errs, drift, steps = True, {}, {}, {}, {}
+    for pos in MISTRAL_STACK_POS:
+        args, kw, kc, vc = _mistral_stack_case(cfg, eng.params, dev, pos, 47)
+        for w in (0, *(pos + 1 if w is None else w
+                       for w in MISTRAL_STACK_WINDOWS if w != 0)):
+            where = dict(kernel=7, window=w, kv_split=kcfg.kv_split)
+            kk, vk = kc.clone(), vc.clone()
+            kp, vp = kc.clone(), vc.clone()
+            n0 = sk.launches
+            out = sk.fused_decoder_stack(*args, kk, vk, pos, kcfg=kcfg,
+                                         window=w, **kw)
+            n_kernels = sk.last_step_kernels
+            ref = sk.fused_decoder_stack_plain(*args, kp, vp, pos,
+                                               kv_split=kcfg.kv_split,
+                                               window=w, **kw)
+            want = 8 * L + 2 - (w == 1) * L
+            ok, errs[pos, w], drift[pos, w] = step_drift(
+                "mistral_stack", out, ref, kk, vk, kp, vp, pos, 1, layers=L,
+                kernels_per_step=n_kernels, want_kernels=want, **where)
+            ok_all &= ok and n_kernels == want and sk.launches == n0 + 1
+            ok_all &= drift[pos, w] <= DRIFT_OVER_WINDOW_0 * drift[pos, 0]
+            logits[pos, w] = (out[0], kk[:, :, pos].clone(),
+                              vk[:, :, pos].clone())
+            del kk, vk, kp, vp, out, ref
+            ok_all &= hold_by_layer(
+                sk.fused_decoder_stack, sk.fused_decoder_stack_plain, args,
+                kc, vc, pos, 1, L, kcfg, dict(kw, window=w), "mistral_stack",
+                **where)[1]
+        full, none = logits[pos, pos + 1], logits[pos, 0]
+        same = torch.equal(full[0], none[0]) and all(
+            _same_bits(a, b) for a, b in zip(full[1:], none[1:]))
+        differ = (logits[pos, MISTRAL_WINDOW][0]
+                  - none[0]).abs().max().item()
+        say("mistral_stack", pos=pos, window_pos_plus_1_bits_equal_window_0=same,
+            window_4096_vs_0_max_abs_diff=f"{differ:.4g}")
+        ok_all &= same and (pos < MISTRAL_WINDOW or differ > 1e-3)
+        if pos == MISTRAL_STACK_POS[-1]:
+            for w in (MISTRAL_WINDOW, 0):
+                steps[w] = functools.partial(
+                    sk.fused_decoder_stack, *args, kc.clone(), vc.clone(),
+                    pos, kcfg=kcfg, window=w, **kw)
+        del kc, vc
+    if not ok_all:
+        raise AssertionError("kernel 7's window disagrees with its plain "
+                             "twin, or its bits, launches or effect are "
+                             "wrong")
+    check_s = time.perf_counter() - t0
+    pos = MISTRAL_STACK_POS[-1]
+    ms = {w: [] for w in steps}
+    for w in (MISTRAL_WINDOW, 0, 0, MISTRAL_WINDOW):
+        ms[w].append(time_ms(steps[w], 10))
+    # device time a step, calls back to back (3: a step is 258 kernels)
+    queued = {w: queued_ms(f, 3) for w, f in steps.items()}
+    by = {w: busy_ms(f, STACK_PASSES) for w, f in steps.items()}
+    args, kw, kc, vc = _mistral_stack_case(cfg, eng.params, dev, pos, 47)
+    plain_ms = time_ms(lambda: sk.fused_decoder_stack_plain(
+        *args, kc, vc, pos, window=MISTRAL_WINDOW, **kw), 1, warmup=0)
+    del kc, vc
+    bound, bound_by, nbytes = kv8_bound(cfg, eng.params, hbm, peak, pos, 1,
+                                        "bf16", MISTRAL_WINDOW)
+    bound0, _, nbytes0 = kv8_bound(cfg, eng.params, hbm, peak, pos, 1, "bf16")
+    say("mistral_stack_time", kernel=7, pos=pos,
+        ms_per_step_window_4096=[f"{v:.4f}" for v in ms[MISTRAL_WINDOW]],
+        ms_per_step_window_0=[f"{v:.4f}" for v in ms[0]],
+        device_ms_window_4096=f"{queued[MISTRAL_WINDOW]:.4f}",
+        device_ms_window_0=f"{queued[0]:.4f}",
+        busy_ms_window_4096=f"{by[MISTRAL_WINDOW][0]:.4f}",
+        busy_ms_window_0=f"{by[0][0]:.4f}",
+        split_ms_window_4096=f"{by[MISTRAL_WINDOW][1]['split']:.4f}",
+        split_ms_window_0=f"{by[0][1]['split']:.4f}",
+        merge_ms_window_4096=f"{by[MISTRAL_WINDOW][1]['merge']:.4f}",
+        merge_ms_window_0=f"{by[0][1]['merge']:.4f}",
+        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound:.4f}",
+        bound_by=bound_by, bytes_per_step=nbytes,
+        bound_ms_window_0=f"{bound0:.4f}", bytes_per_step_window_0=nbytes0,
+        ms_over_bound=f"{statistics.mean(ms[MISTRAL_WINDOW]) / bound:.2f}",
+        library_ms="null: " + MISTRAL_LIB_NULL)
+    row = dict(max_abs_err=errs[pos, MISTRAL_WINDOW],
+               ms=statistics.mean(ms[MISTRAL_WINDOW]), plain_ms=plain_ms,
+               bound_ms=bound, bound_by=bound_by, library_ms=None)
+    del steps
+    torch.cuda.empty_cache()
+    t_matrix = time.perf_counter()
+    phase_mistral_matrix(eng, dev, hbm, peak)
+    say("mistral_stack", check_s=f"{check_s:.1f}",
+        matrix_s=f"{time.perf_counter() - t_matrix:.1f}",
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    return row
+
+
+def phase_mistral_matrix(eng, dev, hbm, peak):
+    """Phase 47's weight x cache pairs (JAX's ``test_window_quant_kv_matrix``)
+    at Mistral-7B width, window 4096, pos 4600, each against its plain twin
+    layer by layer, teacher-forced (``hold_by_layer``, one step of the
+    8-bit format more): int8 + ``Int8KV``, int4 W4A8 + ``Int8KV``, int4
+    exact + fp8; the free-running step printed (``step_drift``), every
+    other row unchanged; each step's time beside its bound.  The int8 and
+    int4 trees regroup the bf16 one to 8 kv heads a group
+    (``quant_stack_weights``)."""
+    from clusterfusion_tpu_torch.config import KernelConfig
+    from clusterfusion_tpu_torch.ops import stack_kernel as sk
+    cfg, p = eng.cfg, eng.params
+    L, pos = cfg.n_layers, MISTRAL_STACK_POS[0]
+    hg = cfg.kv_heads // p["layers"]["wqkv_f"].shape[1]
+    ok_all = True
+    for kind, a8, fmt in (("int8", True, "int8"), ("int4", True, "int8"),
+                          ("int4", False, "fp8")):
+        tree = dict(p, layers=dict(p["layers"], **quant_stack_weights(
+            p["layers"], hg, cfg.kv_heads, kind)))
+        args, kw, kc, vc = _mistral_stack_case(cfg, tree, dev, pos, 48)
+        kw["window"] = MISTRAL_WINDOW
+        k8, v8 = kv8_cache(kc, vc, fmt, pos)
+        del kc, vc
+        kcfg = KernelConfig(int4_w4a8=a8)
+        label = f"{kind}{'_w4a8' if kind == 'int4' and a8 else ''}+kv_{fmt}"
+        where = dict(kernel=7, run=label, window=MISTRAL_WINDOW)
+        kk, vk = kv_take(k8, 0, L), kv_take(v8, 0, L)
+        kp, vp = kv_take(k8, 0, L), kv_take(v8, 0, L)
+        out = sk.fused_decoder_stack(*args, kk, vk, pos, kcfg=kcfg, **kw)
+        ref = sk.fused_decoder_stack_plain(*args, kp, vp, pos, int4_w4a8=a8,
+                                           **kw)
+        ok = step_drift("mistral_matrix", out, ref, kk, vk, kp, vp, pos, 1,
+                        layers=L, **where)[0]
+        del kk, vk, kp, vp, out, ref
+        ok &= hold_by_layer(sk.fused_decoder_stack,
+                            sk.fused_decoder_stack_plain, args, k8, v8, pos,
+                            1, L, kcfg, kw, "mistral_matrix",
+                            rows_rtol=KV8_STEP[fmt], **where)[1]
+        ms = time_ms(functools.partial(sk.fused_decoder_stack, *args, k8, v8,
+                                       pos, kcfg=kcfg, **kw), 5)
+        bound, bound_by, nbytes = kv8_bound(cfg, tree, hbm, peak, pos, 1, fmt,
+                                            MISTRAL_WINDOW)
+        say("mistral_matrix_time", run=label, pos=pos, ms_per_step=f"{ms:.4f}",
+            bound_ms=f"{bound:.4f}", bound_by=bound_by, bytes_per_step=nbytes)
+        ok_all &= ok
+        del tree, args, k8, v8
+        torch.cuda.empty_cache()
+    if not ok_all:
+        raise AssertionError("kernel 7's window disagrees with its plain twin "
+                             "on a quantized tree or an 8-bit cache")
+
+
+def phase_mistral_flash(eng, dev, hbm, peak):
+    """Phase 48: kernel 4's window at Mistral-7B's attention geometry (8 kv
+    heads, group 4, hd 128) against its plain twin: the 4608-token prompt
+    with window 4096 (its keys past 4096 masked below the window), a chunk
+    of 1024 queries at q_offset 4608, and TinyLlama's hd-64 heads (kv 4,
+    group 8) over 2048 tokens with window 1000.  Each head's output row
+    within ROW_REL_TOL of its own largest |value| (``row_rel_err``: a row
+    over ~4096 keys holds values near 0.03, so an absolute limit would
+    pass a wrong window), and the kernel run at window - 64 and window +
+    64 (a window edge one key tile off) must miss that limit against the
+    twin at the window; window = the keys' count gives window 0's bits.  The 4608-token call's time
+    (CUDA events) beside the plain twin's, one SDPA call with a boolean
+    window mask (``library_ms``; the port never calls it), the same
+    kernel without a window and the bound over the pairs the window keeps.
+    Returns the kernels line's row."""
+    from clusterfusion_tpu_torch.ops import flash_prefill as fp
+    F = torch.nn.functional
+    cfg = eng.cfg
+    kv, g, hd = cfg.kv_heads, cfg.n_heads // cfg.kv_heads, cfg.head_dim_
+    gen = torch.Generator(device=dev).manual_seed(48)
+    row = None
+    for label, kv_, g_, T, q_off, hd_, w in (
+            ("mistral_prompt", kv, g, MISTRAL_PROMPT, 0, hd, MISTRAL_WINDOW),
+            ("mistral_chunk", kv, g, 1024, MISTRAL_PROMPT, hd,
+             MISTRAL_WINDOW),
+            ("hd64_gqa", 4, 8, 2048, 0, 64, 1000)):
+        keys = q_off + T
+        q = torch.randn((kv_, T, g_, hd_), generator=gen,
+                        device=dev).bfloat16()
+        k = torch.randn((kv_, keys, hd_), generator=gen, device=dev).bfloat16()
+        v = torch.randn((kv_, keys, hd_), generator=gen, device=dev).bfloat16()
+        call = functools.partial(fp.flash_prefill_attention, q, k, v,
+                                 q_offset=q_off, window=w)
+        out = call()
+        ref = fp.flash_prefill_attention_plain(q, k, v, q_offset=q_off,
+                                               window=w)
+        none = fp.flash_prefill_attention(q, k, v, q_offset=q_off)
+        wide = fp.flash_prefill_attention(q, k, v, q_offset=q_off,
+                                          window=keys)
+        # a window edge one key tile off, against the twin at the window
+        off = {d: row_rel_err(fp.flash_prefill_attention(
+            q, k, v, q_offset=q_off, window=w + d), ref, hd_)
+            for d in (-64, 64)}
+        torch.cuda.synchronize()
+        finite = bool(torch.isfinite(out).all())
+        max_abs = (out.float() - ref.float()).abs().max().item()
+        rms = ref.float().square().mean().sqrt().item()
+        row_rel = row_rel_err(out, ref, hd_)
+        same = _same_bits(none, wide)
+        differ = (out.float() - none.float()).abs().max().item()
+        say("mistral_flash", kernel=4, shape=label, kv=kv_, group=g_, T=T,
+            hd=hd_, q_offset=q_off, window=w, finite=finite,
+            max_abs_err=f"{max_abs:.3g}", ref_rms=f"{rms:.4g}",
+            max_abs_err_over_ref_rms=f"{max_abs / rms:.3g}",
+            row_rel_err=f"{row_rel:.3g}", tol_row_rel=ROW_REL_TOL,
+            row_rel_err_window_minus_64=f"{off[-64]:.3g}",
+            row_rel_err_window_plus_64=f"{off[64]:.3g}",
+            window_keys_bits_equal_window_0=same,
+            window_vs_none_max_abs_diff=f"{differ:.3g}")
+        if not (finite and same and differ > 1e-3 and row_rel <= ROW_REL_TOL
+                and min(off.values()) > ROW_REL_TOL):
+            raise AssertionError(f"kernel 4's window {label}: finite "
+                                 f"{finite}, bits {same}, row error "
+                                 f"{row_rel:.3g}, window -+64 {off}")
+        if label != "mistral_prompt":
+            continue
+        ms = time_ms(call, 20)
+        ms_none = time_ms(functools.partial(fp.flash_prefill_attention, q, k,
+                                            v, q_offset=q_off), 20)
+        plain_ms = time_ms(functools.partial(
+            fp.flash_prefill_attention_plain, q, k, v, q_offset=q_off,
+            window=w), 3, warmup=1)
+        qs = q.permute(0, 2, 1, 3).reshape(1, kv_ * g_, T, hd_).contiguous()
+        qpos = q_off + torch.arange(T, device=dev)[:, None]
+        kpos = torch.arange(keys, device=dev)[None, :]
+        mask = (kpos <= qpos) & (kpos > qpos - w)
+        lib_ms = time_ms(functools.partial(
+            F.scaled_dot_product_attention, qs, k[None], v[None],
+            attn_mask=mask, enable_gqa=g_ > 1), 20)
+        pairs = kv_ * g_ * sum(min(q_off + i + 1, w) for i in range(T))
+        flops = 4 * hd_ * pairs
+        nbytes = 2 * (2 * q.numel() + 2 * kv_ * keys * hd_)
+        bound = max(flops / peak, nbytes / hbm) * 1e3
+        bound_by = "operations" if flops / peak > nbytes / hbm else "bytes"
+        say("mistral_flash_time", kernel=4, shape=label, window=w,
+            ms=f"{ms:.4f}", ms_without_window=f"{ms_none:.4f}",
+            plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}",
+            library="scaled_dot_product_attention, boolean window mask",
+            bound_ms=f"{bound:.4f}", bound_by=bound_by,
+            tflops=f"{flops / ms / 1e9:.1f}",
+            share_of_peak=f"{flops / ms / 1e9 / (peak / 1e12):.3f}")
+        row = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound, bound_by=bound_by, library_ms=lib_ms)
+    return row
+
+
+def phase_mistral_verify(eng, dev, hbm, peak, n=5):
+    """Phase 49: kernel 8's window at Mistral-7B width, n 5 at pos 4600
+    over a random cache with large stale rows at and above pos, windows
+    0, 4096 and 100 (each token its own bound), against its plain twin
+    layer by layer, teacher-forced, at phase 9's limits
+    (``hold_by_layer``), the free-running call printed (``step_drift``),
+    its drift with a window at most DRIFT_OVER_WINDOW_0 times window 0's,
+    every other row unchanged and a repeat bit-identical; the window-4096
+    call's time beside the twin's and the bound.  Returns the kernels
+    line's row."""
+    from clusterfusion_tpu_torch.config import KernelConfig
+    from clusterfusion_tpu_torch.models import llama as model
+    from clusterfusion_tpu_torch.ops import stack_verify as sv
+    cfg, p = eng.cfg, eng.params
+    lw, L, pos = p["layers"], cfg.n_layers, MISTRAL_STACK_POS[0]
+    gen = torch.Generator(device=dev).manual_seed(49)
+    shape = (L, cfg.kv_heads, MISTRAL_CAP, cfg.head_dim_)
+    kc = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    vc = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    kc[:, :, pos:] *= 8
+    vc[:, :, pos:] *= 8
+    x = p["embed"][torch.arange(n, device=dev) * 37 + 11]
+    cos, sin = model.rope_rows(cfg, pos, n, dev)
+    args = (x, lw["attn_norm"], lw["ffn_norm"], cos, sin, lw["wqkv_f"],
+            lw["wo_f"], lw["w13"], lw["w2"])
+    kw = dict(group=cfg.n_heads // cfg.kv_heads, head_dim=cfg.head_dim_,
+              rope_style=cfg.rope_style, eps=cfg.norm_eps,
+              final_norm=p["final_norm"], lm_head=p["lm_head"])
+    kcfg = KernelConfig()
+    row, ok_all, drift = None, True, {}
+    for w in (0, MISTRAL_WINDOW, 100):
+        kk, vk = kc.clone(), vc.clone()
+        out = sv.fused_verify_stack(*args, kk, vk, pos, window=w, **kw)
+        n_kernels = sv.last_step_kernels
+        kp, vp = kc.clone(), vc.clone()
+        ref = sv.fused_verify_stack_plain(*args, kp, vp, pos, window=w, **kw)
+        again = sv.fused_verify_stack(*args, kc.clone(), vc.clone(), pos,
+                                      window=w, **kw)
+        repeat = torch.equal(again[0], out[0])
+        where = dict(kernel=8, n=n, window=w)
+        ok, err, drift[w] = step_drift(
+            "mistral_verify", out, ref, kk, vk, kp, vp, pos, n, layers=L,
+            kernels_per_call=n_kernels, repeat_bit_identical=repeat, **where)
+        ok_all &= ok and repeat and n_kernels == 8 * L + 2
+        ok_all &= drift[w] <= DRIFT_OVER_WINDOW_0 * drift[0]
+        ok_all &= hold_by_layer(
+            sv.fused_verify_stack, sv.fused_verify_stack_plain, args, kc, vc,
+            pos, n, L, kcfg, dict(kw, window=w), "mistral_verify",
+            **where)[1]
+        if w == MISTRAL_WINDOW:
+            ms = time_ms(lambda: sv.fused_verify_stack(
+                *args, kk, vk, pos, window=w, **kw), 10)
+            plain_ms = time_ms(lambda: sv.fused_verify_stack_plain(
+                *args, kp, vp, pos, window=w, **kw), 1, warmup=0)
+            bound, bound_by, nbytes = kv8_bound(cfg, p, hbm, peak, pos, n,
+                                                "bf16", w)
+            say("mistral_verify_time", n=n, pos=pos, window=w,
+                ms_per_call=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+                bound_ms=f"{bound:.4f}", bound_by=bound_by,
+                bytes_per_call=nbytes, library_ms="null: " + MISTRAL_LIB_NULL)
+            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound, bound_by=bound_by, library_ms=None)
+        del kk, vk, kp, vp, out, ref, again
+    if not ok_all:
+        raise AssertionError("kernel 8's window disagrees with its plain twin")
+    del kc, vc
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_mistral_e2e(eng, dev):
+    """Phase 50: Mistral-7B's bs=1 paths end to end, window 4096.  The
+    stream: ``stream_generate`` of 64 greedy tokens after a 4608-token
+    prompt (so every decode step is past the window), the launch counts
+    of kernels 4 and 7 set to 0 just before it and read just after (32
+    and 64), prefill ms and tokens/s, every token against the plain path
+    (eager prefill and decode on the card, windowed, teacher-forced)
+    wherever its top-2 gap exceeds 0.1.  Then ``spec_generate`` (n_draft
+    4, 32 tokens) with the target as its own draft (its own cache), its
+    kernel-8 count set to 0 just before: one verify launch a round, some
+    drafts accepted (so verify rows 1-4 decide tokens), its stream equal
+    to the greedy stream's wherever the top-2 gap at the first difference
+    exceeds 0.1.  Returns the launches {flash, stack, verify}."""
+    from clusterfusion_tpu_torch.models.generation import Llama
+    from clusterfusion_tpu_torch.ops import flash_prefill as fp
+    from clusterfusion_tpu_torch.ops import stack_kernel as sk
+    from clusterfusion_tpu_torch.ops import stack_verify as sv
+    t0 = time.perf_counter()
+    cfg = eng.cfg
+    text = ("A sliding window keeps the last four thousand positions. "
+            * 90)[:MISTRAL_PROMPT - 1]
+    prompt = eng.tokenizer.encode(text, bos=True, eos=False)
+    assert len(prompt) == MISTRAL_PROMPT
+    fp.launches = sk.launches = 0
+    stamps, toks = [], []
+    for t in eng.stream_generate(prompt, MISTRAL_NEW, temperature=0.0):
+        stamps.append(time.perf_counter())
+        toks.append(t)
+    launches = dict(flash=fp.launches, stack=sk.launches)
+    st = eng.stats
+    tok_s = (len(toks) - 1) / (stamps[-1] - stamps[0])
+    say("mistral_e2e", prompt_tokens=len(prompt), new_tokens=len(toks),
+        window=cfg.sliding_window, prefill_ms=f"{st.prefill_s * 1e3:.2f}",
+        decode_tokens_per_s=f"{tok_s:.2f}",
+        decode_ms_per_step=f"{1e3 / tok_s:.3f}",
+        flash_prefill_launches=launches["flash"],
+        stack_launches=launches["stack"])
+    # a step follows each yielded token, the last one's too
+    if launches != dict(flash=cfg.n_layers, stack=len(toks)) or \
+            len(toks) != MISTRAL_NEW or \
+            not all(0 <= t < cfg.vocab_size for t in toks):
+        raise AssertionError(f"the Mistral stream did not run kernels 4 and "
+                             f"7 as expected: {launches}, {len(toks)} tokens")
+    plain, gaps, bad = check_against_plain(eng, dev, prompt, toks, len(toks))
+    agree = sum(a == b for a, b in zip(plain, toks))
+    say("mistral_e2e", kernel_tokens=toks[:8], plain_tokens=plain[:8],
+        agree=f"{agree}/{len(toks)}",
+        min_top2_gap=f"{min(gaps):.3f}",
+        disagree_where_gap_gt_0_1=bad)
+    if bad:
+        raise AssertionError(f"the Mistral stream and the plain path "
+                             f"disagree at steps {bad}")
+    draft = Llama(eng.params, cfg, eng.tokenizer, fused=True)
+    sv.launches = 0
+    spec = eng.spec_generate(prompt, MISTRAL_SPEC_NEW, draft, n_draft=4)
+    launches["verify"] = sv.launches
+    ss, gs = dict(eng.spec_stats), eng.stats
+    div = next((i for i, (a, b) in enumerate(zip(spec, toks)) if a != b),
+               None)
+    say("mistral_spec", draft="the target", n_draft=4,
+        tokens=len(spec), rounds=ss["rounds"],
+        accepted_drafts=ss["accepted_drafts"],
+        round_counts=ss["round_counts"], tokens_per_s=f"{gs.tokens_per_s:.2f}",
+        verify_launches=launches["verify"],
+        equal_to_stream=spec == toks[:len(spec)],
+        first_difference_from_stream=div,
+        top2_gap_there=None if div is None else f"{gaps[div]:.3f}",
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    if launches["verify"] != ss["rounds"] or len(spec) != MISTRAL_SPEC_NEW \
+            or not ss["accepted_drafts"]:
+        raise AssertionError(f"spec_generate: {launches['verify']} verify "
+                             f"launches for {ss['rounds']} rounds, "
+                             f"{ss['accepted_drafts']} drafts accepted")
+    if div is not None and gaps[div] > 0.1:
+        raise AssertionError(f"spec_generate and the stream differ at {div}, "
+                             f"top-2 gap {gaps[div]:.3f}")
+    return launches
+
+
+def phase_mistral(dev, hbm, peak):
+    """Phases 47-50 (the Mistral-7B cell): returns {kernel: kernels-line
+    row} and the main path's launches."""
+    t0 = time.perf_counter()
+    eng = mistral_engine(dev)
+    t47 = time.perf_counter()
+    rows = dict(stack=phase_mistral_stack(eng, dev, hbm, peak))
+    t48 = time.perf_counter()
+    rows["flash"] = phase_mistral_flash(eng, dev, hbm, peak)
+    t49 = time.perf_counter()
+    rows["verify"] = phase_mistral_verify(eng, dev, hbm, peak)
+    t50 = time.perf_counter()
+    launches = phase_mistral_e2e(eng, dev)
+    t51 = time.perf_counter()
+    say("phases_47_50", seconds=f"{t51 - t0:.1f}",
+        init_s=f"{t47 - t0:.1f}", phase47_s=f"{t48 - t47:.1f}",
+        phase48_s=f"{t49 - t48:.1f}", phase49_s=f"{t50 - t49:.1f}",
+        phase50_s=f"{t51 - t50:.1f}")
+    del eng
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
 def _multicard_world(count: int) -> int:
     """Ranks of phase 16: the most cards that divide the 32 kv heads."""
     for w in (8, 4, 2):
@@ -8019,6 +8594,7 @@ def main() -> int:
     ds_rows = phase_deepseek_kernels(dev, hbm, peak)
     mla_launches, ffn_launches = phase_deepseek_e2e(dev)
     torch.cuda.empty_cache()
+    mistral_rows, mistral_launches = phase_mistral(dev, hbm, peak)
     phase_multicard(hbm)
     kernels = [
         dict(name="flash_prefill_attention", route="cuda",
@@ -8038,6 +8614,11 @@ def main() -> int:
              source="clusterfusion_tpu_torch/csrc/stack_kernel.cu",
              replaces="clusterfusion_tpu/ops/stack_kernel.py:604",
              launches=stack8_launches, **stack8),
+        *(dict(name=name, route="cuda",
+               source="clusterfusion_tpu_torch/csrc/" + src,
+               replaces="clusterfusion_tpu/ops/" + tpu,
+               launches=mistral_launches[key], **mistral_rows[key])
+          for name, key, src, tpu in MISTRAL_ROWS),
         *(dict(name=f"fused_decoder_stack ({fmt} KV cache)", route="cuda",
                source="clusterfusion_tpu_torch/csrc/stack_kernel.cu",
                replaces="clusterfusion_tpu/ops/stack_kernel.py:"

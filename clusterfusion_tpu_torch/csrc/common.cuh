@@ -2065,7 +2065,8 @@ __device__ __forceinline__ void store_row8(Row x, int hd, uint8_t* dst, float* s
 }
 
 // Split pass over cache rows [s*split, min((s+1)*split, seq)) of kv head
-// h = blockIdx.x, s = blockIdx.y.  One token (the stack; MAXR =
+// h = blockIdx.x, s = blockIdx.y (counted from the first live split under
+// a window, see below).  One token (the stack; MAXR =
 // ATT_MAX_GROUP): the group's q rows of qkv [kv][(group+2)*hd], cos/sin
 // one row; writes part_ml [kv, ns, g, 2] (max, sum) and part_acc [kv, ns,
 // g, hd].  TOKENS (n_tok tokens, the verify stack; hd 128): qkv is
@@ -2096,6 +2097,20 @@ __device__ __forceinline__ void store_row8(Row x, int hd, uint8_t* dst, float* s
 // reads the bf16 one, and the n-token form converts each tile to one bf16
 // tile (exact) before its mma.sync reads it.  KV_INT8 reads the split's
 // scales (ks/vs, row stride srow) into shared memory once.
+//
+// Sliding window (`window` > 0, Mistral's semantics): the token at
+// position p attends cached rows >= p + 1 - window (one token: p = seq;
+// TOKENS: token t at seq + t, each row its own bound).  The splits keep
+// their boundaries (multiples of `split` from row 0); the grid's blockIdx.y
+// counts from the first split that holds a row at or above token 0's
+// bound (the lowest), and the launcher sizes the grid to the live splits
+// alone, so rows of earlier splits are neither copied nor computed.  Rows
+// below a q row's bound in a live split are masked: they take no part in
+// its max, and their p is 0; a split with no live row for a q row writes
+// (max NEG_INF, sum 0) and zeros, which the merges fold as nothing.
+// part_ml/part_acc are indexed by the live split (blockIdx.y, of
+// gridDim.y).  window 0 (or >= seq + n_tok) masks nothing and runs the
+// arithmetic of no window, bit for bit.
 template <int MAXR, bool TOKENS, int KV = KV_BF16>
 __global__ void __launch_bounds__(ATT_THREADS)
 attn_split_kernel(const float* __restrict__ qkv,
@@ -2104,7 +2119,8 @@ attn_split_kernel(const float* __restrict__ qkv,
                   const float* __restrict__ cos, const float* __restrict__ sin,
                   float* __restrict__ part_ml, float* __restrict__ part_acc,
                   int group, int hd, int cap, int seq, int split, int neox, int n_tok,
-                  const float* __restrict__ ks, const float* __restrict__ vs, int srow) {
+                  const float* __restrict__ ks, const float* __restrict__ vs, int srow,
+                  int window) {
   using KT = std::conditional_t<KV == KV_BF16, __nv_bfloat16, uint8_t>;   // a row element
   extern __shared__ __align__(16) unsigned char att_sm[];
   const int tr = min(split, ATT_TILE);
@@ -2123,7 +2139,11 @@ attn_split_kernel(const float* __restrict__ qkv,
   const int h = blockIdx.x, s = blockIdx.y, ns = gridDim.y;
   const int tid = threadIdx.x, lane = tid % 32, wid = tid / 32;
   const int nw = blockDim.x / 32;
-  const int j0 = s * split;
+  // the first cached row q row r (of all qrows) attends: its token's bound
+  auto row_lo = [&](int r) {
+    return window > 0 ? max(0, seq + (TOKENS ? r % n_tok : 0) + 1 - window) : 0;
+  };
+  const int j0 = (row_lo(0) / split + s) * split;
   const int n = min(split, seq - j0);
   const int nt = (n + tr - 1) / tr;        // tiles of K, then as many of V
   const uint32_t row_bytes = (uint32_t)hd * sizeof(KT);
@@ -2326,13 +2346,16 @@ attn_split_kernel(const float* __restrict__ qkv,
   }
 
   // softmax statistics per query row: warp i handles rows i, i+nw, ...
+  // (the window: rows j < jlo of this split are masked for row i)
   for (int i = wid; i < nq; i += nw) {
+    const int jlo = row_lo(r0 + i) - j0;
     float mx = NEG_INF;
-    for (int j = lane; j < n; j += 32) mx = fmaxf(mx, sc[i * split + j]);
+    for (int j = lane; j < n; j += 32)
+      if (j >= jlo) mx = fmaxf(mx, sc[i * split + j]);
     mx = warp_max(mx);
     float sum = 0.f;
     for (int j = lane; j < n; j += 32) {
-      const float p = exp2f(sc[i * split + j] - mx);
+      const float p = j >= jlo ? exp2f(sc[i * split + j] - mx) : 0.f;
       sum += p;
       sc[i * split + j] = p_in(p, j);      // the p.V dot takes bf16 p
     }
@@ -2549,9 +2572,19 @@ size_t attn_partial_floats(int kv_heads, int group, int hd, int seq, int split) 
   return (size_t)kv_heads * ns * group * (2 + (size_t)hd);
 }
 
-// Launch the split pass (when seq > 0) and the merge pass of one layer on
-// `st`; part_ml/part_acc hold kv*ns*group*2 and kv*ns*group*hd floats.
-// *n counts the launches.  Returns a cudaError_t.
+// The splits of `split` rows the split pass runs over `seq` cached rows
+// under a window (0: none) for the token at position seq (the verify's
+// first, whose bound is the lowest): from the first that holds a row at or
+// above seq + 1 - window to the last, none where no row is in the window.
+inline int attn_live_splits(int seq, int split, int window) {
+  const int wlo = window > 0 ? std::max(0, seq + 1 - window) : 0;
+  return wlo < seq ? (seq + split - 1) / split - wlo / split : 0;
+}
+
+// Launch the split pass (when a cached row is in the window) and the merge
+// pass of one layer on `st`; part_ml/part_acc hold kv*ns*group*2 and
+// kv*ns*group*hd floats.  window: 0, or the sliding window (the split pass's
+// note).  *n counts the launches.  Returns a cudaError_t.
 int launch_attention(const float* qkv, const __nv_bfloat16* kc_read,
                      const __nv_bfloat16* vc_read, const float* cos,
                      const float* sin, float* part_ml, float* part_acc,
@@ -2559,9 +2592,9 @@ int launch_attention(const float* qkv, const __nv_bfloat16* kc_read,
                      __nv_bfloat16* knew, __nv_bfloat16* vnew, __nv_bfloat16* o,
                      float* acc_out, float* ml_out, int kv_heads, int group,
                      int hd, int cap, int seq, int split, int fold, int neox,
-                     cudaStream_t st, int* n, bool pdl = false) {
+                     cudaStream_t st, int* n, bool pdl = false, int window = 0) {
   if (group < 1 || group > ATT_MAX_GROUP || hd % 32 != 0 || hd > 4 * 32 ||
-      split < 1 || split > ATT_MAX_SPLIT || seq < 0 || seq > cap)
+      split < 1 || split > ATT_MAX_SPLIT || seq < 0 || seq > cap || window < 0)
     return (int)cudaErrorInvalidValue;
   static bool attrs_set = false;
   if (!attrs_set) {
@@ -2570,7 +2603,7 @@ int launch_attention(const float* qkv, const __nv_bfloat16* kc_read,
                                        ATT_SPLIT_SMEM_MAX));
     attrs_set = true;
   }
-  const int ns = (seq + split - 1) / split;
+  const int ns = attn_live_splits(seq, split, window);
   const size_t split_smem = attn_split_smem(group, hd, split);
   const size_t merge_smem = sizeof(float) * ((size_t)(2 * group + 3) * hd + group);
   if (split_smem > (size_t)ATT_SPLIT_SMEM_MAX) return (int)cudaErrorInvalidValue;
@@ -2578,7 +2611,7 @@ int launch_attention(const float* qkv, const __nv_bfloat16* kc_read,
     CF_CHECK(launch_kernel(attn_split_kernel<ATT_MAX_GROUP, false>, dim3(kv_heads, ns),
                            dim3(ATT_THREADS), split_smem, st, pdl, qkv, kc_read, vc_read, cos,
                            sin, part_ml, part_acc, group, hd, cap, seq, split, neox, 1,
-                           (const float*)nullptr, (const float*)nullptr, 0));
+                           (const float*)nullptr, (const float*)nullptr, 0, window));
     ++*n;
   }
   CF_CHECK(launch_kernel(attn_merge_kernel, dim3(kv_heads), dim3(ATT_THREADS), merge_smem,
@@ -2661,20 +2694,21 @@ attn_merge8_kernel(const float* __restrict__ qkv,
   }
 }
 
-// The split pass (when seq > 0) and attn_merge8_kernel of one layer of the
-// stack on an 8-bit cache (KV) on `st`, as launch_attention launches the
-// bf16 ones: kc/vc the layer's 8-bit rows, read below seq and appended at
+// The split pass (when a cached row is in the window) and
+// attn_merge8_kernel of one layer of the stack on an 8-bit cache (KV) on
+// `st`, as launch_attention launches the bf16 ones: kc/vc the layer's
+// 8-bit rows, read below seq and appended at
 // seq (from the bf16-rounded rows when row_bf16); KV_INT8: ks/vs the
-// layer's scale planes, row stride srow.  *n counts the launches.  Returns
-// a cudaError_t.
+// layer's scale planes, row stride srow; window: 0 or the sliding window.
+// *n counts the launches.  Returns a cudaError_t.
 template <int KV>
 int launch_attention8(const float* qkv, uint8_t* kc, uint8_t* vc, const float* cos,
                       const float* sin, float* part_ml, float* part_acc, __nv_bfloat16* o,
                       float* ks, float* vs, int srow, int kv_heads, int group, int hd,
                       int cap, int seq, int split, int neox, cudaStream_t st, int* n,
-                      bool pdl, bool row_bf16) {
+                      bool pdl, bool row_bf16, int window) {
   if (group < 1 || group > ATT_MAX_GROUP || hd % 32 != 0 || hd > 4 * 32 ||
-      split < 1 || split > ATT_MAX_SPLIT || seq < 0 || seq > cap ||
+      split < 1 || split > ATT_MAX_SPLIT || seq < 0 || seq > cap || window < 0 ||
       (KV == KV_INT8 && (!ks || !vs || srow < cap)))
     return (int)cudaErrorInvalidValue;
   static bool attrs_set = false;
@@ -2684,7 +2718,7 @@ int launch_attention8(const float* qkv, uint8_t* kc, uint8_t* vc, const float* c
                                        ATT_SPLIT_SMEM_MAX));
     attrs_set = true;
   }
-  const int ns = (seq + split - 1) / split;
+  const int ns = attn_live_splits(seq, split, window);
   const size_t split_smem = attn_split_smem(group, hd, split, false, KV);
   const size_t merge_smem = sizeof(float) * ((size_t)(2 * group + 3) * hd + group);
   if (split_smem > (size_t)ATT_SPLIT_SMEM_MAX) return (int)cudaErrorInvalidValue;
@@ -2692,7 +2726,8 @@ int launch_attention8(const float* qkv, uint8_t* kc, uint8_t* vc, const float* c
     CF_CHECK(launch_kernel(attn_split_kernel<ATT_MAX_GROUP, false, KV>, dim3(kv_heads, ns),
                            dim3(ATT_THREADS), split_smem, st, pdl, qkv, (const void*)kc,
                            (const void*)vc, cos, sin, part_ml, part_acc, group, hd, cap, seq,
-                           split, neox, 1, (const float*)ks, (const float*)vs, srow));
+                           split, neox, 1, (const float*)ks, (const float*)vs, srow,
+                           window));
     ++*n;
   }
   CF_CHECK(launch_kernel(attn_merge8_kernel<KV>, dim3(kv_heads), dim3(ATT_THREADS), merge_smem,

@@ -6,9 +6,10 @@
 // the same layouts: q [kv_heads, T, group, hd] (contiguous), k/v
 // [kv_heads, S, hd] with rows of hd contiguous elements and any head
 // stride (a view of a cache is read where it lies), out [kv_heads, T,
-// group, hd], all bf16.  Query i sits at absolute position q_offset + i
-// and attends keys 0 .. q_offset + i; keys past q_offset + T - 1 are never
-// read.
+// group, hd], all bf16.  Query i sits at absolute position p = q_offset +
+// i and attends keys 0 .. p, or with a sliding window (Mistral's
+// semantics, `window` > 0) keys p + 1 - window .. p; keys past q_offset +
+// T - 1 are never read.
 //
 // What bounds it: a causal prefill does 4 hd kv group T(T+1)/2 operations
 // on (2 T group + 2 (q_offset + T)) kv hd bf16 values.  At short prompts
@@ -47,6 +48,17 @@
 //   copied nor computed (a warpgroup whose rows end earlier than its
 //   block's also skips the block's last tiles); only tiles crossing the
 //   diagonal are masked elementwise.
+// - Sliding window: a block starts at the key tile that holds its lowest
+//   query's first key, max(0, q_offset + r0 / group + 1 - window) / BK;
+//   tiles wholly below it are neither copied nor computed (a warpgroup
+//   whose rows start later also skips the block's first tiles), so a long
+//   prompt costs O(T window), not O(T^2).  Tiles that cross the diagonal
+//   or a row's lower edge are masked elementwise.  A row can then meet a
+//   whole tile of masked keys while its running max is still -inf: its
+//   rescale and its probabilities are taken as 0 there (never exp2 of
+//   -inf - -inf), and the epilogue divides by max(l, 1e-30), as the TPU
+//   kernel does under a window.  window 0 runs the same instructions on
+//   the same values as before, so its bits do not change.
 // - Ragged edges: T*group off the row tile and q_offset + T off the key
 //   tile are zero-filled by TMA (the K/V maps end at key q_offset + T - 1)
 //   and masked; the output store clips rows past T*group.
@@ -83,7 +95,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
                      const __grid_constant__ CUtensorMap kmap,
                      const __grid_constant__ CUtensorMap vmap,
                      const __grid_constant__ CUtensorMap omap, int T,
-                     int group, int q_offset, float qscale) {
+                     int group, int q_offset, int window, float qscale) {
   using C = Cfg<HD, NWG>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t bar_q;
@@ -98,6 +110,9 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
   const int rows = T * group;
   const int r0 = (gridDim.y - 1 - blockIdx.y) * C::BR;  // longest first
   const int n_kt = (q_offset + (min(r0 + C::BR, rows) - 1) / group) / BK + 1;
+  // the first key of query p under the window (0 without one)
+  auto key_lo = [&](int p) { return window > 0 ? max(0, p + 1 - window) : 0; };
+  const int kt0 = key_lo(q_offset + r0 / group) / BK;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -120,9 +135,9 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
       for (int j = 0; j < C::CB; ++j)
         tma_load_3d(qs + j * C::BR * ROWB, &qmap, &bar_q, 64 * j, r0, h);
-      for (int kt = 0; kt < n_kt; ++kt) {
-        const int s = kt % STAGES;
-        const uint32_t ph = (kt / STAGES) & 1;
+      for (int kt = kt0; kt < n_kt; ++kt) {
+        const int s = (kt - kt0) % STAGES;
+        const uint32_t ph = ((kt - kt0) / STAGES) & 1;
         mbar_wait(&empty_k[s], ph ^ 1);
         mbar_arrive_expect_tx(&full_k[s], C::KV_BYTES);
 #pragma unroll
@@ -145,13 +160,17 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
   const int rw0 = r0 + 64 * wg;
   const bool wg_rows = rw0 < rows;
   // key tiles this warpgroup needs, and the first that crosses its diagonal
-  const int n_kt_w =
-      wg_rows ? (q_offset + (min(rw0 + 64, rows) - 1) / group) / BK + 1 : 0;
+  const int q_hi = q_offset + (min(rw0 + 64, rows) - 1) / group;
+  const int n_kt_w = wg_rows ? q_hi / BK + 1 : 0;
+  const int kt0_w = key_lo(q_offset + rw0 / group) / BK;
   const int diag_lo = q_offset + rw0 / group;
+  // keys below this bound are outside the window of some row here
+  const int win_hi = key_lo(q_hi);
   // accumulator rows of this thread: rq (slots 0, 1) and rq + 8 (2, 3)
   const int rq = rw0 + 16 * wl + lane / 4;
   const int qpos0 = q_offset + rq / group;
   const int qpos1 = q_offset + (rq + 8) / group;
+  const int lo0 = key_lo(qpos0), lo1 = key_lo(qpos1);
   const int c2 = 2 * (lane % 4);
 
   float o[HD / 2];
@@ -163,10 +182,10 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
   const uint32_t k_base = smem_u32(ks), v_base = smem_u32(vs);
 
   mbar_wait(&bar_q, 0);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int s = kt % STAGES;
-    const uint32_t ph = (kt / STAGES) & 1;
-    const bool active = kt < n_kt_w;
+  for (int kt = kt0; kt < n_kt; ++kt) {
+    const int s = (kt - kt0) % STAGES;
+    const uint32_t ph = ((kt - kt0) / STAGES) & 1;
+    const bool active = kt >= kt0_w && kt < n_kt_w;
     float sacc[32];
     uint32_t pa[BK / 16][4];
 
@@ -192,14 +211,15 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
     if (lane == 0) mbar_arrive(&empty_k[s]);
 
     if (active) {
-      if (kt * BK + BK - 1 > diag_lo) {        // tile crosses the diagonal
+      // the tile crosses the diagonal or the window's lower edge
+      if (kt * BK + BK - 1 > diag_lo || kt * BK < win_hi) {
 #pragma unroll
         for (int nb = 0; nb < BK / 8; ++nb)
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
             const int key = kt * BK + 8 * nb + c2 + j;
-            if (key > qpos0) sacc[4 * nb + j] = -INFINITY;
-            if (key > qpos1) sacc[4 * nb + 2 + j] = -INFINITY;
+            if (key > qpos0 || key < lo0) sacc[4 * nb + j] = -INFINITY;
+            if (key > qpos1 || key < lo1) sacc[4 * nb + 2 + j] = -INFINITY;
           }
       }
       float mx0 = m0, mx1 = m1;
@@ -213,12 +233,15 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
         mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
         mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
       }
-      // key 0 lies in tile 0 and is live for every row: mx is finite
-      const float alpha0 = fast_exp2((m0 - mx0) * qscale);
-      const float alpha1 = fast_exp2((m1 - mx1) * qscale);
+      // without a window key 0 is live for every row, so mx is finite; a
+      // window can mask a row's whole first tile, leaving mx at -inf: its
+      // rescale (of l = 0, o = 0) is then 0 and its p are exp2(-inf) = 0
+      const float alpha0 = m0 == -INFINITY ? 0.f : fast_exp2((m0 - mx0) * qscale);
+      const float alpha1 = m1 == -INFINITY ? 0.f : fast_exp2((m1 - mx1) * qscale);
       m0 = mx0;
       m1 = mx1;
-      const float mb0 = mx0 * qscale, mb1 = mx1 * qscale;
+      const float mb0 = mx0 == -INFINITY ? 0.f : mx0 * qscale;
+      const float mb1 = mx1 == -INFINITY ? 0.f : mx1 * qscale;
       float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
       for (int nb = 0; nb < BK / 8; ++nb)
@@ -276,7 +299,9 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  // every real row has l >= 1 (its diagonal key); padded rows past T*group
+  // may have none in a window, and are clipped by the store
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
   // the warpgroup's Q rows are consumed: they take its output rows
   uint8_t* slab = qs + wg * 64 * ROWB;
   named_barrier_sync(1 + wg, 128);
@@ -302,8 +327,8 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
 
 template <int HD, int NWG>
 int launch(const void* q, const void* k, const void* v, void* o, int kv_heads,
-           int T, int group, int q_offset, long long k_hs, long long v_hs,
-           cudaStream_t stream) {
+           int T, int group, int q_offset, int window, long long k_hs,
+           long long v_hs, cudaStream_t stream) {
   using C = Cfg<HD, NWG>;
   const uint64_t rows = (uint64_t)T * group;
   const uint64_t keys = (uint64_t)q_offset + T;   // the maps end at the
@@ -324,7 +349,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int kv_heads,
   dim3 grid(kv_heads, (unsigned)((rows + C::BR - 1) / C::BR));
   const float qscale = 1.4426950408889634f / sqrtf((float)HD);
   flash_prefill_kernel<HD, NWG><<<grid, C::THREADS, C::SMEM, stream>>>(
-      qm, km, vm, om, T, group, q_offset, qscale);
+      qm, km, vm, om, T, group, q_offset, window, qscale);
   return (int)cudaGetLastError();
 }
 
@@ -334,28 +359,31 @@ int launch(const void* q, const void* k, const void* v, void* o, int kv_heads,
 // stride or alignment the tensor maps refuse).  block_rows: 64 or 128
 // panel rows per block; head_dim: 64 or 128.  k/v rows are head_dim
 // contiguous elements; k_head_stride / v_head_stride are in elements
-// (multiples of 8, base addresses 16-byte aligned).
+// (multiples of 8, base addresses 16-byte aligned).  window: 0 for full
+// causal attention, else the sliding window (query p attends keys >= p +
+// 1 - window).
 extern "C" int cf_flash_prefill(const void* q, const void* k, const void* v,
                                 void* o, int kv_heads, int T, int group, int S,
                                 int head_dim, int q_offset, int block_rows,
                                 long long k_head_stride,
-                                long long v_head_stride, void* stream) {
+                                long long v_head_stride, int window,
+                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (T <= 0 || kv_heads <= 0) return 0;
-  if (group <= 0 || q_offset < 0 || q_offset + T > S)
+  if (group <= 0 || q_offset < 0 || q_offset + T > S || window < 0)
     return (int)cudaErrorInvalidValue;
   if (head_dim == 128 && block_rows == 128)
     return launch<128, 2>(q, k, v, o, kv_heads, T, group, q_offset,
-                          k_head_stride, v_head_stride, st);
+                          window, k_head_stride, v_head_stride, st);
   if (head_dim == 128 && block_rows == 64)
     return launch<128, 1>(q, k, v, o, kv_heads, T, group, q_offset,
-                          k_head_stride, v_head_stride, st);
+                          window, k_head_stride, v_head_stride, st);
   if (head_dim == 64 && block_rows == 128)
     return launch<64, 2>(q, k, v, o, kv_heads, T, group, q_offset,
-                         k_head_stride, v_head_stride, st);
+                         window, k_head_stride, v_head_stride, st);
   if (head_dim == 64 && block_rows == 64)
     return launch<64, 1>(q, k, v, o, kv_heads, T, group, q_offset,
-                         k_head_stride, v_head_stride, st);
+                         window, k_head_stride, v_head_stride, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -4,8 +4,9 @@
 // Replaces the TPU kernel `fused_decoder_stack`
 // (clusterfusion_tpu/ops/stack_kernel.py, `_stack_kernel`) for bf16, int8
 // or int4 weights, a bf16, int8 (Int8KV) or fp8 e4m3 KV cache (in mode 5
-// too), head dim 128 or 64 (its defer_append variant), no window, no bias
-// and no sandwich norms, with the same layouts:
+// too), head dim 128 or 64 (its defer_append variant), a sliding window
+// on one card (Mistral's, below), no bias and no sandwich norms, with the
+// same layouts:
 //   wqkv_f [L, G, hidden, hg*(g+2)*hd]  columns per kv head [q_0..q_{g-1}|k|v]
 //   wo_f   [L, G, hg*g*hd, hidden]
 //   w13    [L, 2, hidden, f_pad]        w2 [L, f_pad, hidden]
@@ -132,6 +133,18 @@
 // the TPU kernel's per-row O contraction at hd 64 dequantizes its tile.
 // The split reads only rows below pos, so appending in the merge gives
 // what the TPU kernel's deferred update gives.
+//
+// Sliding window (`window` > 0, Mistral's semantics, the TPU kernel's
+// wlo = seq + 1 - window): the token at pos attends cached rows >= pos + 1
+// - window and itself.  The split pass keeps its split boundaries
+// (multiples of kv_split from row 0) and runs only the splits that hold a
+// row in the window, the first of them masked below pos + 1 - window, so
+// rows below the window cost no bytes, as the TPU kernel's aliased chunks
+// cost none; the merge folds those splits alone.  The window is a runtime
+// argument of the same kernels (no template instance of its own); window 0,
+// or one that reaches row 0, gives the bits of no window.  window 1 reads
+// no cached row and launches no split block, as pos 0 does.  Mode 5 (comm)
+// takes no window yet.
 //
 // The split and merge passes are common.cuh's attn_split_kernel and
 // attn_merge_kernel (attn_merge8_kernel for an 8-bit cache): the split
@@ -348,6 +361,7 @@ extern "C" long long cf_stack_scratch_floats(int hidden, int kv_heads, int hg,
 // kv_kind (common.cuh's KV_*): the cache kind of kc/vc; KV_INT8: int8 rows
 // and ks/vs their float32 scale planes [L, kv_heads, srow] (srow = R * 128
 // >= cap); KV_FP8: e4m3 rows; with comm too (mode 5: this rank's heads).
+// window: 0 for full attention, else the sliding window (one card only).
 // Returns a cudaError_t (0 on success); every refusal comes before the
 // first launch.
 extern "C" int cf_decoder_stack(
@@ -360,11 +374,12 @@ extern "C" int cf_decoder_stack(
     int threads, int* n_launches, const void* comm, int gather, void* stream,
     const void* wqkv_s, const void* wo_s, const void* w13_s, const void* w2_s,
     const void* lm_s, int wq_kind, int ffn_block, int kv_kind, void* ks, void* vs,
-    int srow) {
+    int srow, int window) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const CfComm* cc = static_cast<const CfComm*>(comm);
   const bool w8 = wq_kind == WK_INT8, w4 = wq_kind == WK_INT4 || wq_kind == WK_INT4A8;
   *n_launches = 0;
+  if (window < 0 || (window > 0 && cc)) return (int)cudaErrorInvalidValue;
   if (wq_kind < WK_BF16 || wq_kind > WK_INT4A8 || (wq_kind != WK_BF16) != (wqkv_s != nullptr))
     return (int)cudaErrorInvalidValue;
   if (kv_kind < KV_BF16 || kv_kind > KV_FP8 ||
@@ -463,22 +478,24 @@ extern "C" int cf_decoder_stack(
     CF_CHECK(step_gemv<false>(wq_kind, s.xn, 0, wq, &mq, l * G, sq, 0, s.qkv, hidden, (int)C,
                               G, (long long)hidden * C, C, threads, st));
     ++n;
-    // split-KV attention over rows < pos, then the merge with the current
-    // token, which appends its k/v at row pos (bf16, or 8-bit: at hd 64 of
-    // the bf16-rounded rows)
+    // split-KV attention over rows < pos (those in the window), then the
+    // merge with the current token, which appends its k/v at row pos
+    // (bf16, or 8-bit: at hd 64 of the bf16-rounded rows)
     if (kv_kind == KV_INT8)
       CF_CHECK(launch_attention8<KV_INT8>(s.qkv, kcl8, vcl8, cosf, sinf, s.part_ml, s.part_acc,
                                           s.o, ksl, vsl, srow, kv_heads, group, hd, cap, pos,
-                                          kv_split, neox, st, &n, PDL_CHAIN, hd % 128 != 0));
+                                          kv_split, neox, st, &n, PDL_CHAIN, hd % 128 != 0,
+                                          window));
     else if (kv_kind == KV_FP8)
       CF_CHECK(launch_attention8<KV_FP8>(s.qkv, kcl8, vcl8, cosf, sinf, s.part_ml, s.part_acc,
                                          s.o, nullptr, nullptr, 0, kv_heads, group, hd, cap,
-                                         pos, kv_split, neox, st, &n, PDL_CHAIN, hd % 128 != 0));
+                                         pos, kv_split, neox, st, &n, PDL_CHAIN, hd % 128 != 0,
+                                         window));
     else
       CF_CHECK(launch_attention(s.qkv, kcl, vcl, cosf, sinf, s.part_ml, s.part_acc,
                                 kcl, vcl, nullptr, nullptr, s.o, nullptr, nullptr,
                                 kv_heads, group, hd, cap, pos, kv_split, 1, neox,
-                                st, &n, PDL_CHAIN));
+                                st, &n, PDL_CHAIN, window));
     // wo_f[l] is [G * Ko, hidden] row-major: one product sums the groups
     // (int8: each group's partial scaled by its s[G] first); then the
     // attention-out residual add + FFN RMSNorm

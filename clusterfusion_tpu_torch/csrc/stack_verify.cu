@@ -3,11 +3,21 @@
 //
 // Replaces the TPU kernel `fused_verify_stack`
 // (clusterfusion_tpu/ops/stack_verify.py, `_verify_kernel`) for bf16, int8
-// or int4 weights, a bf16, int8 (Int8KV) or fp8 e4m3 KV cache, no window,
-// no bias and no sandwich norms, with the layouts of stack_kernel.cu.  Row t of x is the token at position
-// pos + t; it attends every cached row < pos and the fresh rows 0..t, and
-// all n K/V rows are appended at pos..pos+n-1 of every layer.  Cache rows
-// at and above pos are never read: they may hold rows of rejected drafts.
+// or int4 weights, a bf16, int8 (Int8KV) or fp8 e4m3 KV cache, a sliding
+// window (Mistral's, below), no bias and no sandwich norms, with the
+// layouts of stack_kernel.cu.  Row t of x is the token at position pos +
+// t; it attends every cached row < pos and the fresh rows 0..t, and all n
+// K/V rows are appended at pos..pos+n-1 of every layer.  Cache rows at and
+// above pos are never read: they may hold rows of rejected drafts.
+//
+// Sliding window (`window` > 0; the TPU kernel's per-row bound): token t
+// attends positions >= pos + t + 1 - window, cached and fresh.  The split
+// pass runs the splits from the first that holds a row in token 0's window
+// (the lowest bound) and masks each q row below its own token's bound; a
+// split can hold no live row for a later token, and then its partial is
+// (NEG_INF, 0, 0), which the merge folds as nothing.  The merge masks the
+// fresh rows j < t + 1 - window of token t too.  A runtime argument, no
+// template instance of its own.
 //
 // What bounds it: the products read every weight once for up to 16 rows
 // (13.4 GB at Llama-2-7B) and do 2n operations per weight byte, far under
@@ -75,7 +85,8 @@ constexpr int MERGE_SMEM_MAX = 96 * 1024;
 
 // Merge of kv head h = blockIdx.x, q head row i = blockIdx.y and token t =
 // blockIdx.z: the split partials plus the causal block of the fresh rows j
-// <= t, o[t*kv*group*hd + (h*group + i)*hd + d] = bf16(acc / l).  The
+// <= t (under a window, j >= t + 1 - window), o[t*kv*group*hd +
+// (h*group + i)*hd + d] = bf16(acc / l).  The
 // blocks with i = 0 append fresh row t's K/V at pos + t (bf16, or as
 // store_row8 stores it: int8 with its scales at ks/vs[h * srow + pos + t],
 // or e4m3).  One block per query row, so that the partials of every row are
@@ -91,7 +102,7 @@ verify_merge_kernel(const float* __restrict__ qkv,
                     void* __restrict__ kc, void* __restrict__ vc,
                     __nv_bfloat16* __restrict__ o, int n, int group, int hd,
                     int cap, int pos, int ns, int neox, float* __restrict__ ks,
-                    float* __restrict__ vs, int srow) {
+                    float* __restrict__ vs, int srow, int window) {
   hopper::grid_dep_launch_dependents();   // the O-projection may start
   hopper::grid_dep_wait();
   extern __shared__ float sm[];
@@ -108,6 +119,7 @@ verify_merge_kernel(const float* __restrict__ qkv,
   const size_t qrow = (size_t)h * ns * rows + (size_t)i * n + t;   // split 0's row
   const size_t qkv_n = (size_t)kv_heads * (group + 2) * hd;
   const float scale = LOG2E / sqrtf((float)hd);
+  const int jlo = window > 0 ? max(0, t + 1 - window) : 0;   // fresh rows attended
   for (int e = tid; e < (t + 1) * hd; e += blockDim.x) {
     const int j = e / hd, d = e % hd;
     const float* head = qkv + j * qkv_n + (size_t)h * (group + 2) * hd;
@@ -154,7 +166,7 @@ verify_merge_kernel(const float* __restrict__ qkv,
   __syncthreads();
   mx = NEG_INF;
   for (int w = 0; w < nw; ++w) mx = fmaxf(mx, red[w]);
-  for (int j = 0; j <= t; ++j) mx = fmaxf(mx, scur[j]);
+  for (int j = jlo; j <= t; ++j) mx = fmaxf(mx, scur[j]);
   float lp = 0.f;
   for (int s = tid; s < ns; s += blockDim.x) {
     const size_t idx = qrow + (size_t)s * rows;
@@ -168,7 +180,7 @@ verify_merge_kernel(const float* __restrict__ qkv,
 #pragma unroll 8
     for (int s = 0; s < ns; ++s)
       acc = fmaf(part_acc[(qrow + (size_t)s * rows) * hd + d], es[s], acc);
-    for (int j = 0; j <= t; ++j) {
+    for (int j = jlo; j <= t; ++j) {
       const float p = exp2f(scur[j] - mx);
       l += p;
       acc = fmaf(bf16_round(p), vb[j * hd + d], acc);
@@ -184,7 +196,8 @@ size_t align16(size_t n) { return (n + 15) / 16 * 16; }
 // KV: tiles of up to 8 rows where they fit, else of up to ATT_MAX_ROWS.
 struct SplitPlan {
   void (*kern)(const float*, const void*, const void*, const float*, const float*, float*,
-               float*, int, int, int, int, int, int, int, const float*, const float*, int);
+               float*, int, int, int, int, int, int, int, const float*, const float*, int,
+               int);
   int tile_rows, tiles;
 };
 template <int KV = KV_BF16>
@@ -215,29 +228,30 @@ int set_attrs() {
   return 0;
 }
 
-// One layer's split pass (when pos > 0) and merge, of cache kind KV, on
-// `st` under PDL; *k counts the launches.  kc/vc are the layer's rows,
-// ks/vs its int8 scale planes (row stride srow).
+// One layer's split pass (when a cached row is in token 0's window) and
+// merge, of cache kind KV, on `st` under PDL; *k counts the launches.
+// kc/vc are the layer's rows, ks/vs its int8 scale planes (row stride
+// srow); window: 0 or the sliding window.
 template <int KV>
 int verify_attention(const float* qkv, const float* cosf, const float* sinf, float* part_ml,
                      float* part_acc, void* kc, void* vc, __nv_bfloat16* o, int n,
                      int kv_heads, int group, int hd, int cap, int pos, int kv_split, int neox,
-                     float* ks, float* vs, int srow, cudaStream_t st, int* k) {
+                     float* ks, float* vs, int srow, int window, cudaStream_t st, int* k) {
   CF_CHECK(set_attrs<KV>());
   const SplitPlan sp = split_plan<KV>(group * n);
   const size_t split_smem = attn_split_smem(sp.tile_rows, hd, kv_split, true, KV);
-  const int ns = (pos + kv_split - 1) / kv_split;
+  const int ns = attn_live_splits(pos, kv_split, window);
   const size_t merge_smem = sizeof(float) * ((size_t)(2 * n + 1) * hd + n + ns);
   if (ns > 0) {
     CF_CHECK(launch_kernel(sp.kern, dim3(kv_heads, ns, sp.tiles), dim3(ATT_THREADS), split_smem,
                            st, true, qkv, (const void*)kc, (const void*)vc, cosf, sinf,
                            part_ml, part_acc, group, hd, cap, pos, kv_split, neox, n,
-                           (const float*)ks, (const float*)vs, srow));
+                           (const float*)ks, (const float*)vs, srow, window));
     ++*k;
   }
   CF_CHECK(launch_kernel(verify_merge_kernel<KV>, dim3(kv_heads, group, n), dim3(ATT_THREADS),
                          merge_smem, st, true, qkv, part_ml, part_acc, cosf, sinf, kc, vc, o,
-                         n, group, hd, cap, pos, ns, neox, ks, vs, srow));
+                         n, group, hd, cap, pos, ns, neox, ks, vs, srow, window));
   ++*k;
   return 0;
 }
@@ -313,25 +327,28 @@ extern "C" long long cf_verify_scratch_floats(int n, int hidden, int kv_heads,
 // n-token instance; the card tests hold it against the plain split): qkv
 // f32 [n][kv*(group+2)*hd], cos/sin f32 [n, hd], caches bf16 [kv, cap, hd]
 // of which rows < seq are read in splits of `split`; writes part_ml
-// [kv, ns, group*n, 2] and part_acc [kv, ns, group*n, hd].  Returns a
-// cudaError_t (0 on success).
+// [kv, ns, group*n, 2] and part_acc [kv, ns, group*n, hd], ns the splits
+// that hold a row in token 0's window (all of them without one: window 0).
+// Returns a cudaError_t (0 on success; nothing is launched when ns is 0).
 extern "C" int cf_verify_split(const void* qkv, const void* kc, const void* vc,
                                const void* cos, const void* sin, void* part_ml,
                                void* part_acc, int n, int kv_heads, int group, int hd,
-                               int cap, int seq, int split, int neox, void* stream) {
+                               int cap, int seq, int split, int neox, int window,
+                               void* stream) {
   const SplitPlan sp = split_plan(group * n);
   const size_t smem = attn_split_smem(sp.tile_rows, hd, split, true);
   if (n < 1 || group < 1 || hd != 128 || split < 1 || split > ATT_MAX_SPLIT || seq < 1 ||
-      seq > cap || smem > (size_t)G1_SMEM_MAX)
+      seq > cap || window < 0 || smem > (size_t)G1_SMEM_MAX)
     return (int)cudaErrorInvalidValue;
   CF_CHECK(set_attrs());
-  const int ns = (seq + split - 1) / split;
+  const int ns = attn_live_splits(seq, split, window);
+  if (ns == 0) return 0;
   return launch_kernel(sp.kern, dim3(kv_heads, ns, sp.tiles),
                        dim3(ATT_THREADS), smem, static_cast<cudaStream_t>(stream), false,
                        static_cast<const float*>(qkv), kc, vc, static_cast<const float*>(cos),
                        static_cast<const float*>(sin), static_cast<float*>(part_ml),
                        static_cast<float*>(part_acc), group, hd, cap, seq, split, neox, n,
-                       (const float*)nullptr, (const float*)nullptr, 0);
+                       (const float*)nullptr, (const float*)nullptr, 0, window);
 }
 
 // The phase stamps of one of kernel 8's products inside a call (chip_smoke.py
@@ -360,8 +377,9 @@ extern "C" int cf_verify_probe_gemv(void* stamps, int at) {
 // beside quantized layers keeps its bf16 GEMV).  One tensor map per weight
 // over all its layers' matrices, encoded per call.  kv_kind (common.cuh's
 // KV_*): the cache kind, as cf_decoder_stack takes it (ks/vs: int8 scale
-// planes [L, kv_heads, srow]).  Returns a cudaError_t (0 on success); every
-// refusal comes before the first launch.
+// planes [L, kv_heads, srow]).  window: 0 for full attention, else the
+// sliding window.  Returns a cudaError_t (0 on success); every refusal
+// comes before the first launch.
 extern "C" int cf_verify_stack(
     const void* x, const void* attn_norm, const void* ffn_norm, const void* cos,
     const void* sin, const void* wqkv, const void* wo, const void* w13,
@@ -371,11 +389,12 @@ extern "C" int cf_verify_stack(
     int hd, int cap, int f_pad, int vocab, int pos, int neox, float eps,
     int kv_split, int threads, int* n_launches, void* stream, const void* wqkv_s,
     const void* wo_s, const void* w13_s, const void* w2_s, const void* lm_s, int wq_kind,
-    int ffn_block, int kv_kind, void* ks, void* vs, int srow) {
+    int ffn_block, int kv_kind, void* ks, void* vs, int srow, int window) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool w8 = wq_kind == WK_INT8, w4 = wq_kind == WK_INT4 || wq_kind == WK_INT4A8;
   const bool a8 = wq_kind == WK_INT4A8;
   *n_launches = 0;
+  if (window < 0) return (int)cudaErrorInvalidValue;
   if (wq_kind < WK_BF16 || wq_kind > WK_INT4A8 || (wq_kind != WK_BF16) != (wqkv_s != nullptr))
     return (int)cudaErrorInvalidValue;
   if (w4 && (hidden % GS4 != 0 || f_pad % GS4 != 0 ||
@@ -461,15 +480,15 @@ extern "C" int cf_verify_stack(
     if (kv_kind == KV_INT8)
       CF_CHECK(verify_attention<KV_INT8>(s.qkv, cosf, sinf, s.part_ml, s.part_acc, kcl, vcl,
                                          s.o, n, kv_heads, group, hd, cap, pos, kv_split,
-                                         neox, ksl, vsl, srow, st, &k));
+                                         neox, ksl, vsl, srow, window, st, &k));
     else if (kv_kind == KV_FP8)
       CF_CHECK(verify_attention<KV_FP8>(s.qkv, cosf, sinf, s.part_ml, s.part_acc, kcl, vcl,
                                         s.o, n, kv_heads, group, hd, cap, pos, kv_split, neox,
-                                        nullptr, nullptr, 0, st, &k));
+                                        nullptr, nullptr, 0, window, st, &k));
     else
       CF_CHECK(verify_attention<KV_BF16>(s.qkv, cosf, sinf, s.part_ml, s.part_acc, kcl, vcl,
                                          s.o, n, kv_heads, group, hd, cap, pos, kv_split,
-                                         neox, nullptr, nullptr, 0, st, &k));
+                                         neox, nullptr, nullptr, 0, window, st, &k));
     // wo_f[l] is [G * Ko, hidden] row-major: one product sums the groups
     // (int8: each group's partial scaled by its s[G] first)
     CF_CHECK(verify_gemv(wq_kind, s.o, o_n, wol, &mo, l, so, kg_o, s.aout, n, (int)(G * Ko),

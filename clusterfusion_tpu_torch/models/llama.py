@@ -30,6 +30,14 @@ kept); the prefill attends over the dequantized prefix, rounded to bf16,
 and its own fresh bf16 rows, and fills the cache afterwards
 (``cache_fill_rows``).
 
+A sliding window (``cfg.sliding_window``, Mistral's semantics: position p
+attends positions ``>= p + 1 - window``) in the pattern ``"all"`` runs on
+the single-card bs=1 entries: the prefill (kernel 4's window), the decode
+step, fused (kernel 7's) and eager, and the speculative verify
+(``models.speculative``, kernel 8's).  The serving engine, the tp and sp
+steps and Gemma-2's ``"even"`` pattern refuse it by name
+(:func:`_check_supported`).
+
 Unlike the JAX package, whose functions return new caches, the caches are
 updated in place here: every function that takes ``k_cache``/``v_cache``
 writes the new rows into those tensors and returns the same tensors.
@@ -135,13 +143,28 @@ def init_params(cfg: LlamaConfig, seed: int = 0,
     }
 
 
-def _check_supported(cfg: LlamaConfig) -> None:
-    if (cfg.sliding_window or cfg.qkv_bias or cfg.sandwich_norms
-            or cfg.attn_logit_softcap or cfg.final_logit_softcap
-            or cfg.ffn_act != "silu"):
+def _check_supported(cfg: LlamaConfig, what: str,
+                     window: bool = False) -> None:
+    """Raise, naming ``what``, on a config the entry does not run:
+    ``window`` says whether it runs a sliding window in Mistral's pattern
+    (the single-card bs=1 entries do).  Gemma-2's ``"even"`` pattern, QKV
+    bias, sandwich norms, softcaps and GeGLU raise everywhere."""
+    if cfg.sliding_window and cfg.window_pattern != "all":
         raise NotImplementedError(
-            "sliding window, QKV bias, sandwich norms, softcaps and GeGLU "
-            "are not ported yet")
+            f"{what}: window_pattern {cfg.window_pattern!r} (Gemma-2's "
+            "interleaved local/global layers) is not ported yet (ROADMAP.md "
+            "queue 2, mode 3)")
+    if cfg.sliding_window and not window:
+        raise NotImplementedError(
+            f"{what}: a sliding window is not ported to this path yet (it "
+            "needs the window in kernels 6, 9 and 10: ROADMAP.md queue 2, "
+            "mode 3); the single-card prefill, decode and speculative "
+            "verify run it")
+    if (cfg.qkv_bias or cfg.sandwich_norms or cfg.attn_logit_softcap
+            or cfg.final_logit_softcap or cfg.ffn_act != "silu"):
+        raise NotImplementedError(
+            f"{what}: QKV bias, sandwich norms, softcaps and GeGLU are not "
+            "ported yet (ROADMAP.md queue 2, mode 3)")
 
 
 def rope_table(cfg: LlamaConfig, max_pos: Optional[int] = None,
@@ -304,8 +327,11 @@ def prefill_chunk(params: LlamaParams, k_cache, v_cache, tokens, cfg: LlamaConfi
     layer attends over its prefix, dequantized and rounded to bf16, and
     the chunk's own bf16 rows, then stores the chunk's float32 k and bf16
     v rows as ``cache_fill_rows`` stores them (JAX fills every layer after
-    the last; a layer's rows are the same either way)."""
-    _check_supported(cfg)
+    the last; a layer's rows are the same either way).  A sliding window
+    masks keys below ``p + 1 - window`` for query p, in the kernel and in
+    the oracle."""
+    _check_supported(cfg, "prefill", window=True)
+    win = cfg.sliding_window
     dev = k_cache.device
     kv8 = isinstance(k_cache, Int8KV) or k_cache.dtype == torch.float8_e4m3fn
     tokens = torch.as_tensor(tokens, dtype=torch.long, device=dev)
@@ -340,7 +366,7 @@ def prefill_chunk(params: LlamaParams, k_cache, v_cache, tokens, cfg: LlamaConfi
         if flash:
             q4 = q[0].permute(1, 0, 2, 3).to(torch.bfloat16).contiguous()
             o4 = flash_prefill_attention(q4, k_fl, v_ctx, q_offset=pos0,
-                                         kcfg=kcfg)
+                                         window=win, kcfg=kcfg)
             o = o4.permute(1, 0, 2, 3)[None]               # [1,T,kv,g,hd]
         else:
             # float32 oracle over the full score matrix; the chunk's own
@@ -351,7 +377,10 @@ def prefill_chunk(params: LlamaParams, k_cache, v_cache, tokens, cfg: LlamaConfi
                                   k_ctx.float()) * scale
             qpos = pos0 + torch.arange(T, device=dev)[:, None]
             kpos = torch.arange(pos0 + T, device=dev)[None, :]
-            scores = scores.masked_fill(~(kpos <= qpos), -1e30)
+            live = kpos <= qpos
+            if win:
+                live = live & (kpos > qpos - win)
+            scores = scores.masked_fill(~live, -1e30)
             probs = torch.softmax(scores, dim=-1)
             o = torch.einsum("bkgts,ksd->btkgd", probs,
                              v_ctx.float()).to(h.dtype)
@@ -381,7 +410,8 @@ def _eager_layer(x, residual, p, l, k_cache, v_cache, pos, cos, sin,
     """One layer of the eager decode step (``llama.py:560-603`` of the JAX
     package): rounds the hidden pair to bf16 every layer; an 8-bit cache
     is appended and read as the JAX package's ``_cache_append`` and
-    ``_cache_layer`` do."""
+    ``_cache_layer`` do; a sliding window masks rows below ``pos + 1 -
+    window``."""
     g, hd = cfg.n_heads // cfg.kv_heads, cfg.head_dim_
     xn, residual = fused_add_rmsnorm_ref(x, residual, p["attn_norm"][l],
                                          cfg.norm_eps)
@@ -394,6 +424,8 @@ def _eager_layer(x, residual, p, l, k_cache, v_cache, pos, cos, sin,
     kl = cache_read_layer(k_cache, l, pos + 1)    # rows > pos are masked out
     vl = cache_read_layer(v_cache, l, pos + 1)
     scores = torch.einsum("kgd,ksd->kgs", q[0, 0].float(), kl) / math.sqrt(hd)
+    if cfg.sliding_window:
+        scores[..., :max(0, pos + 1 - cfg.sliding_window)] = -1e30
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     o = torch.einsum("kgs,ksd->kgd", probs.float(), vl.float()).to(x.dtype)
     attn = _oproj(o.reshape(1, -1), p["wo_f"][l])
@@ -412,8 +444,8 @@ def decode_step(params: LlamaParams, k_cache, v_cache, token, pos: int,
 
     fused=True: one ``fused_decoder_stack`` call (final norm and LM head
     inside it when the vocab has a 128-aligned block); fused=False: the
-    eager layer loop."""
-    _check_supported(cfg)
+    eager layer loop.  A sliding window runs in both (kernel 7's window)."""
+    _check_supported(cfg, "decode_step", window=True)
     pos = int(pos)
     g, hd = cfg.n_heads // cfg.kv_heads, cfg.head_dim_
     dev = k_cache.device
@@ -424,7 +456,7 @@ def decode_step(params: LlamaParams, k_cache, v_cache, token, pos: int,
     lw = params["layers"]
     if fused:
         common = dict(group=g, head_dim=hd, rope_style=cfg.rope_style,
-                      eps=cfg.norm_eps, kcfg=kcfg)
+                      eps=cfg.norm_eps, kcfg=kcfg, window=cfg.sliding_window)
         if _vocab_block(cfg.vocab_size) > 0:
             logits, _, k_cache, v_cache = fused_decoder_stack(
                 x, lw["attn_norm"], lw["ffn_norm"], cos, sin, lw["wqkv_f"],

@@ -45,7 +45,8 @@ def _eager_verify_layer(x, residual, p, l, k_cache, v_cache, pos, cos, sin,
     probabilities enter the p.V product in float32.  An 8-bit cache is
     appended and read as the one-token eager layer appends and reads it
     (the n rows attended as stored; JAX's eager verify takes fp8, and its
-    update cannot take an ``Int8KV`` pair)."""
+    update cannot take an ``Int8KV`` pair).  A sliding window masks each
+    row t below its own bound ``pos + t + 1 - window``."""
     n = x.shape[0]
     hd = cfg.head_dim_
     xn, residual = fused_add_rmsnorm_ref(x, residual, p["attn_norm"][l],
@@ -61,7 +62,10 @@ def _eager_verify_layer(x, residual, p, l, k_cache, v_cache, pos, cos, sin,
     scores = torch.einsum("tkgd,ksd->kgts", q[0].float(), kl) / math.sqrt(hd)
     qpos = pos + torch.arange(n, device=x.device)[:, None]
     kpos = torch.arange(pos + n, device=x.device)[None, :]
-    scores = scores.masked_fill(~(kpos <= qpos), -1e30)
+    live = kpos <= qpos
+    if cfg.sliding_window:
+        live = live & (kpos > qpos - cfg.sliding_window)
+    scores = scores.masked_fill(~live, -1e30)
     probs = torch.softmax(scores, dim=-1)
     o = torch.einsum("kgts,ksd->tkgd", probs, vl).to(x.dtype)
     attn = _oproj(o.reshape(n, -1), p["wo_f"][l])
@@ -82,8 +86,9 @@ def verify_step(params: LlamaParams, k_cache, v_cache, tokens, pos: int,
     fused=True: one ``fused_verify_stack`` call (final norm and LM head
     inside it when the vocab has a 128-aligned block); fused=False: the
     eager oracle, n rows wide.  Head dims that are not a multiple of 128
-    take the eager path, as in the JAX package."""
-    _check_supported(cfg)
+    take the eager path, as in the JAX package.  A sliding window runs in
+    both (kernel 8's window)."""
+    _check_supported(cfg, "verify_step", window=True)
     pos = int(pos)
     dev = k_cache.device
     tokens = torch.as_tensor(tokens, dtype=torch.long, device=dev).reshape(-1)
@@ -96,7 +101,7 @@ def verify_step(params: LlamaParams, k_cache, v_cache, tokens, pos: int,
     lw = params["layers"]
     if fused:
         common = dict(group=g, head_dim=hd, rope_style=cfg.rope_style,
-                      eps=cfg.norm_eps, kcfg=kcfg)
+                      eps=cfg.norm_eps, kcfg=kcfg, window=cfg.sliding_window)
         if _vocab_block(cfg.vocab_size) > 0:
             logits, _, k_cache, v_cache = fused_verify_stack(
                 x, lw["attn_norm"], lw["ffn_norm"], cos, sin, lw["wqkv_f"],

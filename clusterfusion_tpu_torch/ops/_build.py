@@ -37,16 +37,16 @@ _LL = ctypes.c_longlong
 _PP = ctypes.POINTER(ctypes.c_void_p)
 # C signature of every exported function: (argtypes, restype)
 SIGNATURES = {
-    "cf_flash_prefill": ([_P] * 4 + [_I] * 7 + [_LL, _LL, _P], _I),
+    "cf_flash_prefill": ([_P] * 4 + [_I] * 7 + [_LL, _LL, _I, _P], _I),
     "cf_stack_scratch_floats": ([_I] * 9, ctypes.c_longlong),
     "cf_decoder_stack": ([_P] * 17 + [_I] * 11
                          + [_F, _I, _I, ctypes.POINTER(_I), _P, _I, _P]
-                         + [_P] * 5 + [_I, _I, _I, _P, _P, _I], _I),
+                         + [_P] * 5 + [_I, _I, _I, _P, _P, _I, _I], _I),
     "cf_verify_scratch_floats": ([_I] * 8, ctypes.c_longlong),
     "cf_verify_stack": ([_P] * 17 + [_I] * 12
                         + [_F, _I, _I, ctypes.POINTER(_I), _P] + [_P] * 5
-                        + [_I, _I, _I, _P, _P, _I], _I),
-    "cf_verify_split": ([_P] * 7 + [_I] * 8 + [_P], _I),
+                        + [_I, _I, _I, _P, _P, _I, _I], _I),
+    "cf_verify_split": ([_P] * 7 + [_I] * 9 + [_P], _I),
     "cf_verify_probe_gemv": ([_P, _I], _I),
     "cf_paged_scratch_floats": ([_I] * 7, ctypes.c_longlong),
     "cf_paged_attention": ([_P] * 9 + [_I] * 9 + [_P, _I], _I),

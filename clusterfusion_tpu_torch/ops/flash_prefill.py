@@ -8,6 +8,8 @@ TPU kernel's layouts: q ``[kv_heads, T, group, hd]`` and k/v
 K and V may be strided views (a layer of a KV cache, ``k_cache[l, :,
 :pos0 + T]``): each row's ``hd`` elements are contiguous, rows are ``hd``
 apart, and the head stride is free; the kernel reads them where they lie.
+A sliding window (Mistral's semantics, ``window`` > 0: query p attends
+keys ``p + 1 - window .. p``) is a runtime argument of the same kernel.
 """
 
 from __future__ import annotations
@@ -24,10 +26,11 @@ launches = 0
 
 
 def flash_prefill_attention_plain(q: torch.Tensor, k: torch.Tensor,
-                                  v: torch.Tensor, *,
-                                  q_offset: int = 0) -> torch.Tensor:
+                                  v: torch.Tensor, *, q_offset: int = 0,
+                                  window: int = 0) -> torch.Tensor:
     """Plain PyTorch version in float32 math: query i (position
-    ``q_offset + i``) attends keys ``0 .. q_offset + i``."""
+    p = ``q_offset + i``) attends keys ``0 .. p``, or ``p + 1 - window ..
+    p`` with a window."""
     kv_heads, T, group, hd = q.shape
     S = q_offset + T
     kf = k[:, :S].float()
@@ -35,7 +38,10 @@ def flash_prefill_attention_plain(q: torch.Tensor, k: torch.Tensor,
     scores = torch.einsum("ktgd,ksd->ktgs", q.float(), kf) / math.sqrt(hd)
     qpos = q_offset + torch.arange(T, device=q.device)[:, None]
     kpos = torch.arange(S, device=q.device)[None, :]
-    mask = (kpos <= qpos)[None, :, None, :]
+    mask = kpos <= qpos
+    if window:
+        mask = mask & (kpos > qpos - window)
+    mask = mask[None, :, None, :]
     scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("ktgs,ksd->ktgd", probs, vf).to(q.dtype)
@@ -51,14 +57,21 @@ def flash_prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q [kv_heads, T, group, hd]; k/v [kv_heads, S, hd] with
     ``S >= q_offset + T`` (keys past ``q_offset + T - 1`` are never read),
     rows of ``hd`` contiguous elements ``hd`` apart, any head stride.
-    Returns [kv_heads, T, group, hd] in q's dtype.  CUDA tensors run the
+    Returns [kv_heads, T, group, hd] in q's dtype.  ``window`` > 0: the
+    sliding window (Mistral's semantics: query p attends keys ``p + 1 -
+    window .. p``; 0 is full causal attention).  CUDA tensors run the
     kernel; CPU tensors run :func:`flash_prefill_attention_plain`.  Raises
-    on other K/V layouts and on ``kcfg.prefill_block_rows`` outside
-    {64, 128}, on either device."""
+    on other K/V layouts, on a negative window and on
+    ``kcfg.prefill_block_rows`` outside {64, 128}, on either device, and on
+    a softcap (Gemma-2's), which is not ported."""
     global launches
-    if window or softcap:
+    if softcap:
         raise NotImplementedError(
-            "flash_prefill_attention: window and softcap are not ported yet")
+            "flash_prefill_attention: the attention softcap (Gemma-2) is not "
+            "ported yet (ROADMAP.md queue 2, mode 3)")
+    window = int(window)
+    if window < 0:
+        raise ValueError(f"window {window} < 0")
     kv_heads, T, group, hd = q.shape
     S = k.shape[1]
     if k.shape != (kv_heads, S, hd) or v.shape != (kv_heads, S, hd):
@@ -73,7 +86,8 @@ def flash_prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if kcfg.prefill_block_rows not in (64, 128):
         raise ValueError("prefill_block_rows must be 64 or 128")
     if q.device.type == "cpu":
-        return flash_prefill_attention_plain(q, k, v, q_offset=q_offset)
+        return flash_prefill_attention_plain(q, k, v, q_offset=q_offset,
+                                             window=window)
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError("flash_prefill_attention: q, k, v must share one "
                          "CUDA device")
@@ -94,7 +108,7 @@ def flash_prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = lib.cf_flash_prefill(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), kv_heads, T,
         group, S, hd, q_offset, kcfg.prefill_block_rows, k.stride(0),
-        v.stride(0), torch.cuda.current_stream(q.device).cuda_stream)
+        v.stride(0), window, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_prefill_attention")
     launches += 1
     return out

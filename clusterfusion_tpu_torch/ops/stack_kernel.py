@@ -95,6 +95,15 @@ gives the results of the TPU kernel's deferred update.  Kernel 8 (the
 verify) keeps hd 128: the JAX package's verify has no hd-64 form, and its
 ``spec_verify`` scores the drafts eagerly there.
 
+Sliding window (Mistral's semantics, ``window`` > 0 with
+``window_pattern="all"``; the TPU kernel's ``wlo = seq + 1 - window``): the
+token at ``pos`` attends cached rows ``>= pos + 1 - window`` and itself, on
+one card (mode 5 takes no window yet).  The split pass keeps its split
+boundaries and runs only the splits that hold a row in the window, masking
+the first of them below the bound, so rows below the window cost no bytes;
+``window >= pos + 1`` gives the bits of no window.  Gemma-2's ``"even"``
+pattern is refused.
+
 The caches are updated in place: the returned caches are the tensors that
 were passed in (an ``Int8KV`` pair is returned as the same pair).
 """
@@ -184,8 +193,18 @@ def kv_layer(cache, l: int):
     return cache[l], None
 
 
+def first_live_row(seq: int, kv_split: int, window: int) -> int:
+    """The first cached row the split pass reads under a window for the
+    token at ``seq`` (0 without one): the start of the split that holds
+    row ``seq + 1 - window``; ``seq`` when no cached row is in the window.
+    The kernels' ``attn_live_splits``."""
+    wlo = max(0, seq + 1 - window) if window > 0 else 0
+    return wlo // kv_split * kv_split if wlo < seq else seq
+
+
 def split_attention_plain(q, k_cur, v_cur, kc, vc, seq: int, kv_split: int,
-                          fold: bool = True, ks=None, vs=None):
+                          fold: bool = True, ks=None, vs=None,
+                          window: int = 0):
     """The kernels' split-KV flash-decode (``attn_split_kernel`` and
     ``attn_merge_kernel`` of ``csrc/common.cuh``) in PyTorch.
 
@@ -196,26 +215,34 @@ def split_attention_plain(q, k_cur, v_cur, kc, vc, seq: int, kv_split: int,
     rows: the max m_s, the sum of exp2(s - m_s) and bf16(p) @ V with q
     rounded to bf16 (int8: s = (q . code) * sk and bf16(p * sv) @ codes);
     then the merge, with the current token folded in float32 when
-    ``fold``.  Returns the unnormalised state (acc [kv, g, hd], m [kv, g],
-    l [kv, g]); with nothing folded it is (0, -1e30, 0)."""
+    ``fold``.  ``window`` > 0: only the splits that hold a row ``>= seq + 1
+    - window`` run, their rows below it masked (p 0), as the kernel's
+    split pass does (:func:`first_live_row`).  Returns the unnormalised
+    state (acc [kv, g, hd], m [kv, g], l [kv, g]); with nothing folded it
+    is (0, -1e30, 0)."""
     kv_heads, g, hd = q.shape
     bf16 = torch.bfloat16
-    ns = -(-seq // kv_split)
-    pad = ns * kv_split - seq
-    kcp = F.pad(kv_rows_plain(kc[:, :seq]), (0, 0, 0, pad))
-    vcp = F.pad(kv_rows_plain(vc[:, :seq]), (0, 0, 0, pad))
-    s = torch.einsum("kgd,ksd->kgs", q.to(bf16).float(), kcp)[..., :seq]
+    j0 = first_live_row(seq, kv_split, window)
+    n = seq - j0
+    ns = -(-n // kv_split)
+    pad = ns * kv_split - n
+    kcp = F.pad(kv_rows_plain(kc[:, j0:seq]), (0, 0, 0, pad))
+    vcp = F.pad(kv_rows_plain(vc[:, j0:seq]), (0, 0, 0, pad))
+    s = torch.einsum("kgd,ksd->kgs", q.to(bf16).float(), kcp)[..., :n]
     if ks is not None:
-        s = s * ks[:, None, :seq]
+        s = s * ks[:, None, j0:seq]
+    # rows below the window's bound (the first live split's) are masked
+    below = max(0, seq + 1 - window) - j0 if window > 0 else 0
+    s[..., :below] = _NEG_INF
     s = F.pad(s, (0, pad), value=_NEG_INF)
     s = s.reshape(kv_heads, g, ns, kv_split)
     m_s = s.amax(dim=-1, keepdim=True)
-    p = torch.exp2(s - m_s)
+    p = torch.exp2(s - m_s)        # 0 below the bound: m_s is finite
     l_s = p.sum(dim=-1)                                        # [kv, g, ns]
     p_in = p
     if vs is not None:
-        p_in = p * F.pad(vs[:, :seq], (0, pad)).reshape(kv_heads, 1, ns,
-                                                        kv_split)
+        p_in = p * F.pad(vs[:, j0:seq], (0, pad)).reshape(kv_heads, 1, ns,
+                                                          kv_split)
     pv_s = torch.einsum("kgns,knsd->kgnd", p_in.to(bf16).float(),
                         vcp.reshape(kv_heads, ns, kv_split, hd))
     m_s = m_s[..., 0]
@@ -246,15 +273,25 @@ STACK_HEAD_DIMS = (64, 128)
 
 def refuse_unported(what: str, head_dim: int, weights, final_norm, lm_head,
                     k_cache, v_cache, *, window, bias_qkv, ffn_act, softcap,
-                    post_attn_norm, post_ffn_norm) -> None:
+                    post_attn_norm, post_ffn_norm,
+                    window_pattern: str = "all") -> None:
     """Raise on what the whole-stack kernels (``fused_decoder_stack``,
     ``fused_verify_stack``) do not take yet.  ``weights`` starts with the
     four projections, which the kernels take bf16, int8 or int4 (in group
-    size 128), beside a bf16 or int8 ``lm_head``.  Head dims: 64 and 128
-    (the verify refuses 64 itself, first)."""
-    if window or softcap or bias_qkv is not None or ffn_act != "silu":
-        raise NotImplementedError(f"{what}: window, softcap, QKV bias and "
-                                  "GeGLU are not ported yet")
+    size 128), beside a bf16 or int8 ``lm_head``.  A sliding window in
+    Mistral's pattern ``"all"``; Gemma-2's ``"even"`` pattern is refused.
+    Head dims: 64 and 128 (the verify refuses 64 itself, first)."""
+    if window < 0:
+        raise ValueError(f"{what}: window {window} < 0")
+    if window and window_pattern != "all":
+        raise NotImplementedError(
+            f"{what}: window_pattern {window_pattern!r} (Gemma-2's "
+            "interleaved local/global layers) is not ported yet (ROADMAP.md "
+            "queue 2, mode 3)")
+    if softcap or bias_qkv is not None or ffn_act != "silu":
+        raise NotImplementedError(f"{what}: softcap, QKV bias and GeGLU are "
+                                  "not ported yet (ROADMAP.md queue 2, "
+                                  "mode 3)")
     if post_attn_norm is not None or post_ffn_norm is not None:
         raise NotImplementedError(f"{what}: sandwich norms are not ported "
                                   "yet")
@@ -408,7 +445,8 @@ def fused_decoder_stack_plain(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f,
                               final_norm=None, lm_head=None,
                               kv_split: int = KernelConfig().kv_split,
                               reduce=None,
-                              int4_w4a8: bool = KernelConfig().int4_w4a8):
+                              int4_w4a8: bool = KernelConfig().int4_w4a8,
+                              window: int = 0):
     """Plain PyTorch version of :func:`fused_decoder_stack` (same arguments,
     same results, caches appended in place).  ``kv_split`` is the kernel's
     split of the cached rows: bf16(p) is taken against each split's own
@@ -421,7 +459,8 @@ def fused_decoder_stack_plain(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f,
     read and appended as the kernels read and append them (the module's
     note).  Head dim 64: the TPU kernel's hd-64 rules (the module's note):
     the stored rows from the bf16-rounded k and v, the int4 O product
-    exact."""
+    exact.  ``window``: the sliding window, the split arithmetic of
+    :func:`split_attention_plain`."""
     # the plain int4 products live beside kernel 6, which imports this module
     from clusterfusion_tpu_torch.ops.decoder_layer import _int4_dot
     pos = int(pos)
@@ -462,7 +501,8 @@ def fused_decoder_stack_plain(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f,
         kcl, ksl = kv_layer(k_cache, l)
         vcl, vsl = kv_layer(v_cache, l)
         acc, _, l_f = split_attention_plain(q, k_cur, v_cur, kcl, vcl, pos,
-                                            kv_split, ks=ksl, vs=vsl)
+                                            kv_split, ks=ksl, vs=vsl,
+                                            window=window)
         o = (acc / l_f[..., None]).to(bf16)
         # the stored copy, from float32 (8-bit: quantized or e4m3), or at
         # hd 64 from the bf16 row the TPU kernel's deferred append lands
@@ -595,18 +635,30 @@ def fused_decoder_stack(
     sums per layer summed over that mesh axis inside the step; every rank
     returns the same x_out and residual_out, and with ``lm_head`` (this
     rank's vocab shard, a multiple of 8 columns) the logits of its shard.
+
+    ``window`` > 0 (with ``window_pattern="all"``): the sliding window
+    (the module's note), on one card: with ``reduce_axis`` it raises, as
+    mode 5 takes no window yet.
     """
+    window = int(window)
     refuse_unported("fused_decoder_stack", head_dim,
                     (wqkv_f, wo_f, w13, w2, attn_norm, ffn_norm), final_norm,
                     lm_head, k_cache, v_cache, window=window,
                     bias_qkv=bias_qkv, ffn_act=ffn_act, softcap=softcap,
                     post_attn_norm=post_attn_norm,
-                    post_ffn_norm=post_ffn_norm)
+                    post_ffn_norm=post_ffn_norm,
+                    window_pattern=window_pattern)
+    if window and reduce_axis is not None:
+        raise NotImplementedError(
+            "fused_decoder_stack: a sliding window in mode 5 (reduce_axis) "
+            "is not ported yet (kernel 7's mode 5 with kernels 6, 9 and 10: "
+            "ROADMAP.md queue 2, mode 3)")
     return _stack(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f, w13, w2,
                   k_cache, v_cache, pos, group=group, head_dim=head_dim,
                   rope_style=rope_style, eps=eps, kcfg=kcfg,
                   final_norm=final_norm, lm_head=lm_head,
-                  reduce_axis=reduce_axis, mesh=mesh, gather=False)
+                  reduce_axis=reduce_axis, mesh=mesh, gather=False,
+                  window=window)
 
 
 def _fused_decoder_stack_gathered(x, attn_norm, ffn_norm, cos, sin, wqkv_f,
@@ -641,10 +693,11 @@ def _fused_decoder_stack_gathered(x, attn_norm, ffn_norm, cos, sin, wqkv_f,
 
 def _stack(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f, w13, w2, k_cache,
            v_cache, pos, *, group, head_dim, rope_style, eps, kcfg,
-           final_norm, lm_head, reduce_axis, mesh, gather: bool):
+           final_norm, lm_head, reduce_axis, mesh, gather: bool,
+           window: int = 0):
     """The two entries' common body, after ``refuse_unported``; ``gather``:
     the logits gathered over ``reduce_axis`` (where it has more than one
-    rank)."""
+    rank); ``window``: the sliding window (one card)."""
     global launches, int8_launches, int4_launches, last_step_kernels
     w8 = isinstance(wqkv_f, QuantizedTensor) and wqkv_f.kind == "int8"
     w4 = isinstance(wqkv_f, QuantizedTensor) and wqkv_f.kind == "int4"
@@ -689,7 +742,7 @@ def _stack(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f, w13, w2, k_cache,
             v_cache, pos, group=group, head_dim=head_dim,
             rope_style=rope_style, eps=eps, final_norm=final_norm,
             lm_head=lm_head, kv_split=kcfg.kv_split, reduce=reduce,
-            int4_w4a8=kcfg.int4_w4a8)
+            int4_w4a8=kcfg.int4_w4a8, window=window)
         if gather:
             logits = collective.cluster_gather(out[0][0], reduce_axis,
                                                backend="pallas", mesh=mesh)
@@ -751,7 +804,8 @@ def _stack(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f, w13, w2, k_cache,
         torch.cuda.current_stream(dev).cuda_stream,
         *(ptr(scales.get(k)) for k in ("wqkv_f_s", "wo_f_s", "w13_s", "w2_s",
                                        "lm_head_s")),
-        wq_kind, ffn_block_size(f_pad), kv_kind, ptr(ksp), ptr(vsp), srow)
+        wq_kind, ffn_block_size(f_pad), kv_kind, ptr(ksp), ptr(vsp), srow,
+        window)
     _build.check(err, "fused_decoder_stack")
     launches += 1
     int8_launches += int(w8)

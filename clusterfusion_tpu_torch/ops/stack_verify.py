@@ -52,6 +52,14 @@ quantized per (kv head, token) from float32 (int8: the n positions may
 straddle a 128-column plane row) or cast to e4m3.  The n x n causal block
 of fresh rows stays float32 K with bf16-rounded V, whatever the cache
 kind.
+
+Sliding window (Mistral's semantics, ``window`` > 0 with
+``window_pattern="all"``; the TPU kernel's per-row bound): token t at
+``pos + t`` attends positions ``>= pos + t + 1 - window``, cached and
+fresh.  The split pass runs the splits from the one that holds token 0's
+bound (the lowest) and masks each row below its own; a split with no live
+row for a later token gives that row p 0 and a max of -1e30, which the
+merge folds as nothing.  The fresh n x n block is masked the same way.
 """
 
 from __future__ import annotations
@@ -71,8 +79,8 @@ from clusterfusion_tpu_torch.ops.quant import (QuantizedTensor,
                                                cache_write_layer)
 from clusterfusion_tpu_torch.ops.stack_kernel import (
     _LOG2E, _NEG_INF, KV_BF16, KV_FP8, KV_INT8, _kv_operands, _norm, _rope,
-    _vocab_block, check_launch, check_stack_kcfg, kv_kind_of, kv_layer,
-    kv_rows_plain, quant_operands, refuse_unported, wq_kind_of)
+    _vocab_block, check_launch, check_stack_kcfg, first_live_row, kv_kind_of,
+    kv_layer, kv_rows_plain, quant_operands, refuse_unported, wq_kind_of)
 
 #: Calls of :func:`fused_verify_stack` that launched the kernels.
 launches = 0
@@ -94,7 +102,8 @@ def fused_verify_stack_plain(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f,
                              head_dim: int, rope_style: str, eps: float,
                              final_norm=None, lm_head=None,
                              kv_split: int = KernelConfig().kv_split,
-                             int4_w4a8: bool = KernelConfig().int4_w4a8):
+                             int4_w4a8: bool = KernelConfig().int4_w4a8,
+                             window: int = 0):
     """Plain PyTorch version of :func:`fused_verify_stack` (same arguments,
     same results, caches appended in place).  ``kv_split`` is the kernel's
     split of the cached rows: bf16(p) is taken against each split's own
@@ -102,7 +111,9 @@ def fused_verify_stack_plain(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f,
     each product over the codes, scaled where the kernel scales (the
     module's note).  Int4 weights (any group size): the TPU kernel's
     products, W4A8 with ``int4_w4a8``.  8-bit caches: read and appended as
-    the kernels read and append them (the module's note)."""
+    the kernels read and append them (the module's note).  ``window``: the
+    sliding window, split and masked as the kernels do (the module's
+    note)."""
     pos = int(pos)
     n, hidden = x.shape
     L, G = wqkv_f.shape[:2]
@@ -118,8 +129,19 @@ def fused_verify_stack_plain(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f,
     sin_f = sin.float().reshape(n, 1, 1, hd)
     bf16 = torch.bfloat16
     causal = torch.ones((n, n), dtype=torch.bool, device=x.device).tril()
-    ns = cdiv(pos, kv_split)
-    pad = ns * kv_split - pos
+    # the splits from the one that holds token 0's window bound; each
+    # token's rows below its own bound (cached and fresh) are masked
+    j0 = first_live_row(pos, kv_split, window)
+    nc = pos - j0                                 # cached rows read
+    ns = cdiv(nc, kv_split)
+    pad = ns * kv_split - nc
+    live = torch.ones((n, nc), dtype=torch.bool, device=x.device)
+    if window > 0:
+        tok = torch.arange(n, device=x.device)
+        live = (j0 + torch.arange(nc, device=x.device))[None] >= \
+            (pos + tok + 1 - window)[:, None]
+        causal = causal & (tok[None] >= (tok + 1 - window)[:, None])
+    live = F.pad(live, (0, pad)).reshape(n, ns, kv_split)
     hx = x.float()
     res = torch.zeros_like(hx)
     for l in range(L):
@@ -148,19 +170,21 @@ def fused_verify_stack_plain(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f,
             # scores times sk, bf16(p * sv) @ codes)
             kcl, ksl = kv_layer(k_cache, l)
             vcl, vsl = kv_layer(v_cache, l)
-            kc = F.pad(kv_rows_plain(kcl[:, :pos]), (0, 0, 0, pad))
-            vc = F.pad(kv_rows_plain(vcl[:, :pos]), (0, 0, 0, pad))
+            kc = F.pad(kv_rows_plain(kcl[:, j0:pos]), (0, 0, 0, pad))
+            vc = F.pad(kv_rows_plain(vcl[:, j0:pos]), (0, 0, 0, pad))
             s = torch.einsum("tkgd,ksd->kgts", q.to(bf16).float(),
-                             kc)[..., :pos]
+                             kc)[..., :nc]
             if ksl is not None:
-                s = s * ksl[:, None, None, :pos]
+                s = s * ksl[:, None, None, j0:pos]
             s = F.pad(s, (0, pad), value=_NEG_INF)
-            s = s.reshape(kv, g, n, ns, kv_split)
+            s = s.reshape(kv, g, n, ns, kv_split).masked_fill(~live,
+                                                              _NEG_INF)
             m_s = s.amax(dim=-1, keepdim=True)
-            p = torch.exp2(s - m_s)
+            # p 0 where masked: a split with no live row keeps l 0 and acc 0
+            p = torch.exp2(s - m_s) * live
             p_in = p
             if vsl is not None:
-                p_in = p * F.pad(vsl[:, :pos], (0, pad)).reshape(
+                p_in = p * F.pad(vsl[:, j0:pos], (0, pad)).reshape(
                     kv, 1, 1, ns, kv_split)
             pv_s = torch.einsum("kgtns,knsd->kgtnd", p_in.to(bf16).float(),
                                 vc.reshape(kv, ns, kv_split, hd))
@@ -251,9 +275,11 @@ def fused_verify_stack(
     residual_out [n, hidden], k_cache, v_cache), or (logits [n, vocab] f32,
     residual_out, k_cache, v_cache) when ``final_norm`` and ``lm_head`` are
     given.  All n K/V rows are written at pos..pos+n-1 of every layer, in
-    place.
+    place.  ``window`` > 0 (with ``window_pattern="all"``): the sliding
+    window (the module's note).
     """
     global launches, int8_launches, int4_launches, last_step_kernels
+    window = int(window)
     kv_kind = kv_kind_of(k_cache, v_cache, "fused_verify_stack")
     if reduce_axis is not None:
         raise NotImplementedError("fused_verify_stack: reduce_axis (the tp "
@@ -271,7 +297,8 @@ def fused_verify_stack(
                     lm_head, k_cache, v_cache, window=window,
                     bias_qkv=bias_qkv, ffn_act=ffn_act, softcap=softcap,
                     post_attn_norm=post_attn_norm,
-                    post_ffn_norm=post_ffn_norm)
+                    post_ffn_norm=post_ffn_norm,
+                    window_pattern=window_pattern)
     check_stack_kcfg(kcfg)
     pos = int(pos)
     n, hidden = x.shape
@@ -300,7 +327,7 @@ def fused_verify_stack(
             v_cache, pos, group=group, head_dim=head_dim,
             rope_style=rope_style, eps=eps, final_norm=final_norm,
             lm_head=lm_head, kv_split=kcfg.kv_split,
-            int4_w4a8=kcfg.int4_w4a8)
+            int4_w4a8=kcfg.int4_w4a8, window=window)
 
     if rope_style not in ("neox", "gptj"):
         raise ValueError(f"unknown rope style {rope_style!r}")
@@ -352,7 +379,8 @@ def fused_verify_stack(
         torch.cuda.current_stream(dev).cuda_stream,
         *(ptr(scales.get(k)) for k in ("wqkv_f_s", "wo_f_s", "w13_s", "w2_s",
                                        "lm_head_s")),
-        wq_kind, ffn_block_size(f_pad), kv_kind, ptr(ksp), ptr(vsp), srow)
+        wq_kind, ffn_block_size(f_pad), kv_kind, ptr(ksp), ptr(vsp), srow,
+        window)
     _build.check(err, "fused_verify_stack")
     launches += 1
     int8_launches += int(w8)

@@ -102,7 +102,7 @@ def make_sharded_decode_step(cfg: LlamaConfig, mesh: Mesh,
     cached tokens.  ``fused_collectives=True``: the whole stack as one
     kernel sequence per rank with the all-reduces inside it (see
     above)."""
-    model._check_supported(cfg)
+    model._check_supported(cfg, "make_sharded_decode_step")
     g, hd = cfg.n_heads // cfg.kv_heads, cfg.head_dim_
     if fused_collectives:
         return _make_fused_collective_decode_step(cfg, mesh, kcfg)

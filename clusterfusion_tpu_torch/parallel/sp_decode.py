@@ -65,7 +65,7 @@ def make_sp_sharded_decode_step(cfg: LlamaConfig, mesh: Mesh,
     ``shard_cache(cache, mesh, cache_pspec_2d())`` ([L, kv_heads/tp,
     capacity/sp, hd], bf16 or fp8; the capacity must divide by sp);
     ``pos`` is the global number of cached tokens."""
-    model._check_supported(cfg)
+    model._check_supported(cfg, "make_sp_sharded_decode_step")
     g, hd = cfg.n_heads // cfg.kv_heads, cfg.head_dim_
 
     @torch.no_grad()

@@ -1209,7 +1209,7 @@ def test_verify_split_pass_matches_plain(dev, n, kv, g, seq, split):
     _build.check(_build.lib().cf_verify_split(
         qkv.data_ptr(), kc.data_ptr(), vc.data_ptr(), cos.contiguous().data_ptr(),
         sin.contiguous().data_ptr(), ml.data_ptr(), acc.data_ptr(), n, kv, g,
-        hd, cap, seq, split, 1, torch.cuda.current_stream(dev).cuda_stream),
+        hd, cap, seq, split, 1, 0, torch.cuda.current_stream(dev).cuda_stream),
         "cf_verify_split")
     torch.cuda.synchronize()
     m_all = ml[..., 0].amax(dim=1)                              # [kv, rows]
@@ -1244,11 +1244,11 @@ def test_stack_c_entries_refuse_head_dim_256(dev, entry):
     if entry == "cf_decoder_stack":
         err = lib.cf_decoder_stack(*p, *dims, 1e-5, 64, 256,
                                    ctypes.byref(n_launch), None, 0, st,
-                                   *[None] * 5, 0, 0, 0, None, None, 0)
+                                   *[None] * 5, 0, 0, 0, None, None, 0, 0)
     else:
         err = lib.cf_verify_stack(*p, 2, *dims, 1e-5, 64, 256,
                                   ctypes.byref(n_launch), st, *[None] * 5,
-                                  0, 0, 0, None, None, 0)
+                                  0, 0, 0, None, None, 0, 0)
     torch.cuda.synchronize()
     assert err == 1
     assert n_launch.value == 0
@@ -3948,7 +3948,7 @@ def test_stack_c_entry_refuses_other_head_dims(dev, hd):
     dims = [1, 512, 2, 1, 2, hd, 64, 512, 0, 8, 1]
     err = lib.cf_decoder_stack(*p, *dims, 1e-5, 64, 256,
                                ctypes.byref(n_launch), None, 0, st,
-                               *[None] * 5, 0, 0, 0, None, None, 0)
+                               *[None] * 5, 0, 0, 0, None, None, 0, 0)
     torch.cuda.synchronize()
     assert err == 1
     assert n_launch.value == 0
@@ -3989,3 +3989,222 @@ def test_hd64_engine_streams_on_card(dev, quant, kv):
             final_norm=eng.params["final_norm"],
             lm_head=eng.params["lm_head"])
         lg = lg[0]
+
+
+# -- sliding window (Mistral's) in kernels 4, 7 and 8
+
+# kv, T, group, hd, q_offset, window, block rows: windows inside a key
+# tile, across tiles, of 1, chunked (q_offset > 0), at both head dims
+WINDOW_FLASH_CASES = [(2, 300, 1, 128, 0, 64, 64), (2, 300, 4, 128, 0, 100, 128),
+                      (2, 200, 2, 64, 130, 77, 128), (1, 1024, 1, 128, 0, 1, 128),
+                      (2, 513, 8, 64, 0, 200, 64), (2, 45, 3, 128, 17, 5, 128),
+                      (1, 2048, 1, 128, 0, 700, 128)]
+
+
+@pytest.mark.parametrize("kv,T,g,hd,q_offset,window,rows", WINDOW_FLASH_CASES,
+                         ids=["-".join(map(str, c)) for c in WINDOW_FLASH_CASES])
+def test_flash_prefill_window_matches_plain(dev, kv, T, g, hd, q_offset,
+                                            window, rows):
+    """Kernel 4 with a window against its plain twin (atol 2e-2, the
+    causal case's), finite; a window that reaches key 0 for every query
+    (>= q_offset + T) gives window 0's bits."""
+    S = q_offset + T
+    q = _randn((kv, T, g, hd), dev, 70)
+    k = _randn((kv, S, hd), dev, 71)
+    v = _randn((kv, S, hd), dev, 72)
+    kcfg = KernelConfig(prefill_block_rows=rows)
+    out = fp.flash_prefill_attention(q, k, v, q_offset=q_offset,
+                                     window=window, kcfg=kcfg)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    ref = fp.flash_prefill_attention_plain(q, k, v, q_offset=q_offset,
+                                           window=window)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    full = fp.flash_prefill_attention(q, k, v, q_offset=q_offset, kcfg=kcfg)
+    wide = fp.flash_prefill_attention(q, k, v, q_offset=q_offset, window=S,
+                                      kcfg=kcfg)
+    assert _same_bits(full, wide)
+
+
+@pytest.mark.parametrize("window", [1, 2, 64, 100, 236, 300, 301, 4096])
+@pytest.mark.parametrize("fmt", ["bf16", "int8", "fp8"])
+def test_stack_window_matches_plain(dev, fmt, window):
+    """Kernel 7 with a window at pos 300 (kv_split 64: 100 starts inside the
+    split of rows 192-255; 236 at its first row; 1 reads no cached row and
+    launches no split pass) against its plain twin on each cache kind, NaN
+    above pos; a window that reaches row 0 (>= pos + 1) gives window 0's
+    bits; a repeat gives the same bits."""
+    pos, kv_split = 300, 64
+    g, a, kc, vc, lm = _stack_args(dev, 8, 2, 1, pos, seed=93)
+    kc[:, :, pos + 1:] = float("nan")
+    vc[:, :, pos + 1:] = float("nan")
+    if fmt != "bf16":
+        kc, vc = _kv8(kc, vc, fmt, pos)
+    cfg = LlamaConfig.tiny(rope_style="neox")
+    cos, sin = model.rope_row(cfg, pos, dev)
+    kcfg = KernelConfig(kv_split=kv_split)
+    kw = dict(group=g, head_dim=HD, rope_style="neox", eps=1e-5, **lm)
+    args = [a["x"], a["attn_norm"], a["ffn_norm"], cos, sin, a["wqkv_f"],
+            a["wo_f"], a["w13"], a["w2"]]
+    clone = _kv8_clone if fmt != "bf16" else torch.clone
+    kk, vk = clone(kc), clone(vc)
+    out = sk.fused_decoder_stack(*args, kk, vk, pos, kcfg=kcfg, window=window,
+                                 **kw)
+    torch.cuda.synchronize()
+    assert sk.last_step_kernels == 8 * L + 2 - (window == 1) * L
+    kp, vp = clone(kc), clone(vc)
+    ref = sk.fused_decoder_stack_plain(*args, kp, vp, pos, kv_split=kv_split,
+                                       window=window, **kw)
+    assert torch.isfinite(out[0]).all()
+    err = (out[0] - ref[0]).abs().max().item()
+    assert err <= 2e-2 * ref[0].abs().max().item(), err
+    torch.testing.assert_close(out[1].float(), ref[1].float(), atol=2e-2,
+                               rtol=2e-2)
+    if fmt == "bf16":
+        torch.testing.assert_close(kk[:, :, pos].float(), kp[:, :, pos].float(),
+                                   atol=0.05, rtol=0)
+    else:
+        for got, want in ((kk, kp), (vk, vp)):
+            _kv8_rows_held(got, want, [pos], True)
+    again = sk.fused_decoder_stack(*args, clone(kc), clone(vc), pos,
+                                   kcfg=kcfg, window=window, **kw)
+    assert torch.equal(again[0], out[0])
+    if window >= pos + 1:
+        none = sk.fused_decoder_stack(*args, clone(kc), clone(vc), pos,
+                                      kcfg=kcfg, **kw)
+        assert torch.equal(none[0], out[0])
+
+
+# window, n, pos, kv_split: inside a split; a first live split (320-335)
+# dead for tokens 3 and 4; windows shorter than n (fresh rows masked too);
+# one that reaches row 0 for every token (>= pos + n)
+WINDOW_VERIFY_CASES = [(100, 5, 300, 64), (8, 5, 340, 16), (3, 5, 300, 64),
+                       (1, 5, 300, 64), (305, 5, 300, 64), (4096, 9, 300, 128)]
+
+
+@pytest.mark.parametrize("window,n,pos,kv_split", WINDOW_VERIFY_CASES,
+                         ids=["-".join(map(str, c)) for c in WINDOW_VERIFY_CASES])
+@pytest.mark.parametrize("fmt", ["bf16", "int8"])
+def test_verify_window_matches_plain(dev, fmt, window, n, pos, kv_split):
+    """Kernel 8 with a window against its plain twin, large garbage at and
+    above pos; a window >= pos + n gives window 0's bits."""
+    from clusterfusion_tpu_torch.ops import stack_verify as sv
+    g, a, kc, vc, lm = _stack_args(dev, 8, 2, 1, pos, seed=94)
+    kc[:, :, pos:] = _randn(kc[:, :, pos:].shape, dev, 95, 8.0)
+    vc[:, :, pos:] = _randn(vc[:, :, pos:].shape, dev, 96, 8.0)
+    if fmt != "bf16":
+        kc, vc = _kv8(kc, vc, fmt, pos)
+    clone = _kv8_clone if fmt != "bf16" else torch.clone
+    x = _randn((n, HIDDEN), dev, 97)
+    cos, sin = model.rope_rows(LlamaConfig.tiny(rope_style="neox"), pos, n,
+                               dev)
+    kcfg = KernelConfig(kv_split=kv_split)
+    kw = dict(group=g, head_dim=HD, rope_style="neox", eps=1e-5, **lm)
+    args = [x, a["attn_norm"], a["ffn_norm"], cos, sin, a["wqkv_f"],
+            a["wo_f"], a["w13"], a["w2"]]
+    kk, vk = clone(kc), clone(vc)
+    out = sv.fused_verify_stack(*args, kk, vk, pos, kcfg=kcfg, window=window,
+                                **kw)
+    torch.cuda.synchronize()
+    assert sv.last_step_kernels == 8 * L + 2 - (window == 1) * L
+    kp, vp = clone(kc), clone(vc)
+    ref = sv.fused_verify_stack_plain(*args, kp, vp, pos, kv_split=kv_split,
+                                      window=window, **kw)
+    assert torch.isfinite(out[0]).all()
+    err = (out[0] - ref[0]).abs().max().item()
+    assert err <= 2e-2 * ref[0].abs().max().item(), err
+    if fmt != "bf16":
+        for got, want in ((kk, kp), (vk, vp)):
+            _kv8_rows_held(got, want, list(range(pos, pos + n)), True)
+    if window >= pos + n:
+        none = sv.fused_verify_stack(*args, clone(kc), clone(vc), pos,
+                                     kcfg=kcfg, **kw)
+        assert torch.equal(none[0], out[0])
+
+
+@pytest.mark.parametrize("window", [8, 100, 4096])
+def test_verify_split_pass_window_matches_plain(dev, window):
+    """Kernel 8's split pass under a window alone (cf_verify_split), n 5 at
+    seq 340, splits of 16: the grid holds the splits from the one with
+    token 0's bound; token t's rows merged against ``split_attention_plain``
+    at window - t (the same bound, the same split boundaries, so the same
+    roundings).  At window 8 the first live split holds no live row for
+    tokens 3 and 4: their partials are (-1e30, 0, 0)."""
+    from clusterfusion_tpu_torch.ops import _build
+    from clusterfusion_tpu_torch.ops.stack_kernel import (
+        _LOG2E, _rope, first_live_row, split_attention_plain)
+    n, kv, g, hd, cap, seq, split, style = 5, 2, 2, 128, 512, 340, 16, "neox"
+    rows = g * n
+    qkv = _randn((n, kv * (g + 2) * hd), dev, 80).float()
+    kc = _randn((kv, cap, hd), dev, 81)
+    vc = _randn((kv, cap, hd), dev, 82)
+    kc[:, seq:] = float("nan")
+    vc[:, seq:] = float("nan")
+    cos, sin = model.rope_rows(LlamaConfig.tiny(rope_style=style), seq, n, dev)
+    ns = -(-(seq - first_live_row(seq, split, window)) // split)
+    ml = torch.full((kv, ns, rows, 2), float("nan"), device=dev)
+    acc = torch.full((kv, ns, rows, hd), float("nan"), device=dev)
+    _build.check(_build.lib().cf_verify_split(
+        qkv.data_ptr(), kc.data_ptr(), vc.data_ptr(), cos.contiguous().data_ptr(),
+        sin.contiguous().data_ptr(), ml.data_ptr(), acc.data_ptr(), n, kv, g,
+        hd, cap, seq, split, 1, window,
+        torch.cuda.current_stream(dev).cuda_stream), "cf_verify_split")
+    torch.cuda.synchronize()
+    assert torch.isfinite(ml).all() and torch.isfinite(acc).all()
+    m_all = ml[..., 0].amax(dim=1)                              # [kv, rows]
+    e = torch.exp2(ml[..., 0] - m_all[:, None])
+    o_k = (acc * e[..., None]).sum(dim=1) / \
+        (ml[..., 1] * e).sum(dim=1)[..., None]
+    raw = qkv.reshape(n, kv, g + 2, hd)[:, :, :g]               # [n, kv, g, hd]
+    q = _rope(raw, cos[:, None, None], sin[:, None, None], style)
+    q = q * (_LOG2E / hd ** 0.5)
+    zero = torch.zeros((kv, hd), device=dev)
+    for t in range(n):
+        acc_p, _, l_p = split_attention_plain(q[t], zero, zero, kc, vc, seq,
+                                              split, fold=False,
+                                              window=window - t)
+        # row i*n + t of each kv head is q head i at token t
+        torch.testing.assert_close(o_k[:, t::n], acc_p / l_p[..., None],
+                                   atol=2e-3, rtol=2e-3)
+    if window == 8:      # tokens 3 and 4 have no live row in split 320-335
+        dead = ml[:, 0, 3::n]
+        assert (dead[..., 0] == -1e30).all() and (dead[..., 1] == 0).all()
+        assert (acc[:, 0, 3::n] == 0).all()
+
+
+def test_windowed_engine_runs_kernels_4_7_8(dev):
+    """A windowed tiny Mistral-shaped engine on the card: stream_generate
+    (kernel 4 once a layer, kernel 7 once a step, one after each token,
+    every step past the window) teacher-forced into the eager step wherever the top-2 gap
+    exceeds 0.1, and a self-draft spec_generate (one kernel-8 launch a
+    round) whose stream equals stream_generate's there too."""
+    from clusterfusion_tpu_torch.models.generation import Llama
+    from clusterfusion_tpu_torch.ops import stack_verify as sv
+    cfg = LlamaConfig.tiny(sliding_window=24, n_kv_heads=2, rope_style="neox",
+                           max_seq_len=256)
+    eng = Llama.synthetic(cfg, seed=12, fused=True, device=dev)
+    prompt = [1 + (5 * i) % 300 for i in range(40)]
+    before = (fp.launches, sk.launches)
+    toks = list(eng.stream_generate(prompt, 16, temperature=0.0))
+    torch.cuda.synchronize()
+    assert (fp.launches - before[0], sk.launches - before[1]) == \
+        (cfg.n_layers, 16)
+    kc, vc = model.init_cache(cfg, device=dev)
+    lg, kc, vc = model.prefill(eng.params, kc, vc, prompt, cfg, flash=False)
+    lg = lg[-1]
+    gaps = []
+    for i, t in enumerate(toks):
+        top = torch.topk(lg, 2).values
+        gaps.append((top[0] - top[1]).item())
+        if gaps[-1] > 0.1:
+            assert int(torch.argmax(lg)) == t, i
+        lg, kc, vc = model.decode_step(eng.params, kc, vc, t, len(prompt) + i,
+                                       cfg, fused=False)
+    draft = Llama(eng.params, cfg, eng.tokenizer, fused=True)
+    v0 = sv.launches
+    spec = eng.spec_generate(prompt, 16, draft, n_draft=4)
+    assert sv.launches - v0 == eng.spec_stats["rounds"]
+    # the streams may part only where the target's top-2 gap is <= 0.1
+    div = next((i for i, (a, b) in enumerate(zip(spec, toks)) if a != b),
+               None)
+    assert div is None or gaps[div] <= 0.1, (div, spec, toks)

@@ -173,11 +173,14 @@ def test_decode_loop_matches_jax(mha):
 
 
 def test_entry_points_refuse_unported_configs():
-    cfg = LlamaConfig.tiny(sliding_window=16)
+    """Gemma-2's interleaved window pattern and QKV bias stay refused (a
+    window in Mistral's pattern runs: tests/test_torch_window.py)."""
     p = tmodel.init_params(LlamaConfig.tiny(), device="cpu")
-    kc, vc = tmodel.init_cache(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tmodel.prefill(p, kc, vc, [1, 2], cfg)
+    for cfg in (LlamaConfig.tiny(sliding_window=16, window_pattern="even"),
+                LlamaConfig.tiny(qkv_bias=True)):
+        kc, vc = tmodel.init_cache(cfg, device="cpu")
+        with pytest.raises(NotImplementedError):
+            tmodel.prefill(p, kc, vc, [1, 2], cfg)
 
 
 @pytest.mark.parametrize("kv_heads,hg", [(None, 2), (2, None)])

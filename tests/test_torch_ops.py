@@ -163,10 +163,13 @@ def test_flash_prefill_plain_matches_jax():
 
 
 def test_flash_prefill_refuses_unported_variants():
+    """The softcap (Gemma-2's) is refused; a sliding window is ported (its
+    parity tests are in tests/test_torch_window.py), a negative one is
+    refused."""
     q = torch.zeros(1, 4, 1, 128, dtype=torch.bfloat16)
     k = torch.zeros(1, 4, 128, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError):
-        flash_prefill_attention(q, k, k, window=2)
+    with pytest.raises(ValueError):
+        flash_prefill_attention(q, k, k, window=-2)
     with pytest.raises(NotImplementedError):
         flash_prefill_attention(q, k, k, softcap=30.0)
 
@@ -317,7 +320,7 @@ def test_stack_wrapper_on_cpu_is_plain_and_refuses_variants():
     got = fused_decoder_stack(*args, POS, **kw)
     for a, b in zip(want, got):
         assert torch.equal(a, b)
-    for bad in (dict(window=8), dict(softcap=50.0),
+    for bad in (dict(window=8, window_pattern="even"), dict(softcap=50.0),
                 dict(ffn_act="gelu_tanh"),
                 dict(bias_qkv=torch.zeros(L, 1, 8 * HD))):
         with pytest.raises(NotImplementedError):

@@ -182,15 +182,17 @@ def test_verify_refuses_bad_rows_and_configs(mha):
             tspec.verify_step(mha["tp"], kc, vc, [1, 2, 3], cap - 2, cfg,
                               fused=fused)
     with pytest.raises(NotImplementedError):
-        tspec.verify_step(mha["tp"], kc, vc, [1, 2],
-                          PROMPT, LlamaConfig.tiny(sliding_window=16))
+        tspec.verify_step(mha["tp"], kc, vc, [1, 2], PROMPT,
+                          LlamaConfig.tiny(sliding_window=16,
+                                           window_pattern="even"))
     lw = mha["tp"]["layers"]
     cos, sin = tmodel.rope_rows(cfg, PROMPT, 2)
     args = (mha["tp"]["embed"][:2], lw["attn_norm"], lw["ffn_norm"], cos,
             sin, lw["wqkv_f"], lw["wo_f"], lw["w13"], lw["w2"], kc, vc,
             PROMPT)
     common = dict(group=1, head_dim=128, rope_style="gptj", eps=1e-5)
-    for extra in (dict(window=8), dict(softcap=30.0), dict(ffn_act="gelu_tanh"),
+    for extra in (dict(window=8, window_pattern="even"), dict(softcap=30.0),
+                  dict(ffn_act="gelu_tanh"),
                   dict(reduce_axis="tp"), dict(post_attn_norm=lw["ffn_norm"],
                                                post_ffn_norm=lw["ffn_norm"])):
         with pytest.raises(NotImplementedError):
