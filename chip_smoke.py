@@ -1318,27 +1318,35 @@ def phase_sglang(dev, hbm, peak, heads=32, hd=128):
         bound_by="bytes" if nbytes / hbm >= flops / peak else "operations")
 
 
-def check_against_plain(eng, dev, prompt, toks, n=8, step=None):
-    """Greedy tokens must match the plain path (eager prefill and decode on
-    the card, teacher-forced on ``toks``; ``step(params, kc, vc, token,
-    pos, cfg)`` in place of the eager decode step when given; a cache of
-    the engine's ``kv_dtype``) wherever its top-2 gap > 0.1.  Returns
-    (plain tokens, gaps, steps that disagree)."""
+def plain_logits(params, cfg, dev, prompt, toks, kv_dtype=torch.bfloat16,
+                 step=None):
+    """The plain path's logits before each of ``toks`` (eager prefill and
+    decode on the card, teacher-forced on ``toks``; ``step(params, kc, vc,
+    token, pos, cfg)`` in place of the eager decode step when given; a
+    cache of ``kv_dtype``), one at a time."""
     from clusterfusion_tpu_torch.models import llama as model
-    cfg = eng.cfg
     if step is None:
         step = functools.partial(model.decode_step, fused=False)
-    kc, vc = model.init_cache(cfg, device=dev,
-                              dtype=getattr(eng, "kv_dtype", torch.bfloat16))
-    lg, kc, vc = model.prefill(eng.params, kc, vc, prompt, cfg, flash=False)
+    kc, vc = model.init_cache(cfg, device=dev, dtype=kv_dtype)
+    lg, kc, vc = model.prefill(params, kc, vc, prompt, cfg, flash=False)
     lg = lg[-1]
+    for i, t in enumerate(toks):
+        yield lg
+        if i + 1 < len(toks):
+            lg, kc, vc = step(params, kc, vc, t, len(prompt) + i, cfg)
+
+
+def check_against_plain(eng, dev, prompt, toks, n=8, step=None):
+    """Greedy tokens must match the plain path (``plain_logits``, a cache of
+    the engine's ``kv_dtype``) wherever its top-2 gap > 0.1.  Returns
+    (plain tokens, gaps, steps that disagree)."""
     plain, gaps = [], []
-    for i in range(n):
+    for lg in plain_logits(eng.params, eng.cfg, dev, prompt, toks[:n],
+                           getattr(eng, "kv_dtype", torch.bfloat16), step):
         top = torch.topk(lg, 2).values
         gaps.append((top[0] - top[1]).item())
         plain.append(int(torch.argmax(lg)))
-        lg, kc, vc = step(eng.params, kc, vc, toks[i], len(prompt) + i, cfg)
-    bad = [i for i in range(n) if gaps[i] > 0.1 and plain[i] != toks[i]]
+    bad = [i for i, g in enumerate(gaps) if g > 0.1 and plain[i] != toks[i]]
     return plain, gaps, bad
 
 
@@ -7329,7 +7337,7 @@ def deepseek_plain_check(params, cfg, prompt, toks, n=8):
         plain.append(int(torch.argmax(lg)))
         lg, cache = ds.decode_step(params, cache, toks[i], len(prompt) + i,
                                    cfg, fused=False)
-    bad = [i for i in range(n) if gaps[i] > 0.1 and plain[i] != toks[i]]
+    bad = [i for i, g in enumerate(gaps) if g > 0.1 and plain[i] != toks[i]]
     return plain, gaps, bad
 
 
@@ -7488,7 +7496,11 @@ MISTRAL_ROWS = (("flash_prefill_attention (sliding window)", "flash",
                 ("fused_decoder_stack (sliding window)", "stack",
                  "stack_kernel.cu", "stack_kernel.py:524"),
                 ("fused_verify_stack (sliding window)", "verify",
-                 "stack_verify.cu", "stack_verify.py:432"))
+                 "stack_verify.cu", "stack_verify.py:432"),
+                ("paged_attention (sliding window)", "paged_window",
+                 "paged_attention.cu", "paged_decoder_layer.py:932"),
+                ("llama_decoder_layer_paged (sliding window)", "layer_window",
+                 "paged_decoder_layer.cu", "paged_decoder_layer.py:399"))
 MISTRAL_LIB_NULL = ("no single PyTorch call computes the windowed decode "
                     "step or verify")
 
@@ -7943,6 +7955,7 @@ def phase_mistral_e2e(eng, dev):
         raise AssertionError(f"the Mistral stream did not run kernels 4 and "
                              f"7 as expected: {launches}, {len(toks)} tokens")
     plain, gaps, bad = check_against_plain(eng, dev, prompt, toks, len(toks))
+    FIGURES["mistral_stream"] = (prompt, toks, gaps)      # for phase 53
     agree = sum(a == b for a, b in zip(plain, toks))
     say("mistral_e2e", kernel_tokens=toks[:8], plain_tokens=plain[:8],
         agree=f"{agree}/{len(toks)}",
@@ -7978,8 +7991,560 @@ def phase_mistral_e2e(eng, dev):
     return launches
 
 
+#: Phases 51-53: kernels 10 and 9 with Mistral's window, then the engine
+#: with its rolling page buffer, on the Mistral-7B tree of phases 47-50.
+SERVE_WINDOW_LENS = [0, 37, 4095, 4096, 4097, 4608, 6000, 8000]
+SERVE_WINDOW_LAYER_LENS = [4095, 4608, 6000, 8000]
+#: one page: the kernel run this far off the window must miss the limit
+WINDOW_EDGE = 16
+SERVE_WINDOW_NEW = 64
+#: phase 53's prompt lengths past request 0 (phase 50's 4608 tokens)
+SERVE_WINDOW_PROMPTS = [4100 + 72 * i for i in range(1, 8)]
+SERVE_WINDOW_LIB_NULL = ("no single PyTorch call pages, windows and "
+                         "appends")
+
+
+def first_live(n, window):
+    """The first cached row of a request of ``n`` rows in the window."""
+    return min(n, max(0, n + 1 - window)) if window else 0
+
+
+def window_inputs(kb, vb, table, lens, window, dtype):
+    """The rolling buffer's view of bf16 pools: (table with the slots
+    wholly below each request's bound on the NULL page 0, copies of the
+    pools in ``dtype`` with NaN in page 0 and in every row below each
+    bound)."""
+    page = kb.shape[3]
+    t = table.clone()
+    kw, vw = kb.clone(), vb.clone()
+    kw[:, 0] = vw[:, 0] = float("nan")
+    for b, n in enumerate(lens.tolist()):
+        lo = first_live(n, window)
+        j = torch.arange(lo, device=kb.device)
+        kw[:, table[b, j // page].long(), :, j % page] = float("nan")
+        vw[:, table[b, j // page].long(), :, j % page] = float("nan")
+        t[b, :lo // page] = 0
+    return t, kw.to(dtype), vw.to(dtype)
+
+
+def window_row_bound(hbm, peak, lens, window, kv, g, hd, B, other_bytes=0,
+                     flops=0, rb=2):
+    """(bound ms, bound_by, bytes): ``other_bytes`` plus the K and V rows
+    of ``rb`` bytes an element in each request's window read once, and the
+    walk's operations plus ``flops``."""
+    rows = sum(n - first_live(n, window) for n in lens)
+    nbytes = other_bytes + 2 * rows * kv * hd * rb
+    flops = flops + 4 * kv * g * hd * (rows + B)
+    bound = max(nbytes / hbm, flops / peak) * 1e3
+    return bound, "bytes" if nbytes / hbm >= flops / peak else "operations", \
+        nbytes
+
+
+def windowed_case(label, call, plain, kb, vb, table, lens, window, rows_of,
+                  appended_ok, dtype, **where):
+    """One checked window of kernel 10 or 9 (``call``/``plain`` take
+    (pools, table, window) and return the output and the pools) on pools
+    of ``dtype`` made from the bf16 ``kb``/``vb``: the kernel over NaN in
+    page 0 and below every bound (``window_inputs``) against its twin over
+    the same, each row (``rows_of``: elements a row) within ROW_REL_TOL,
+    finite, the appends by ``appended_ok`` and every other byte unchanged;
+    where the window lies inside a request's rows, the kernel at window -+
+    WINDOW_EDGE on the pools without that NaN must miss that limit against
+    the twin at the window.  Returns (ok, max abs error)."""
+    tw, kw, vw = window_inputs(kb, vb, table, lens, window, dtype)
+    kp, vp = kb.to(dtype), vb.to(dtype)
+    k0, v0 = kw.clone(), vw.clone()
+    kr, vr = kw.clone(), vw.clone()
+    out, kk, vk = call(kw, vw, tw, window)
+    ref, _, _ = plain(kr, vr, tw, window)
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(out.float()).all())
+    max_abs = (out.float() - ref.float()).abs().max().item()
+    rel = row_rel_err(out, ref, rows_of)
+    app = append_mask(kk, tw, lens, 1)          # layer 1 of two
+    appended = appended_ok(kk, vk, kr, vr, tw)
+    untouched = (_same_bytes(kk[~app], k0[~app])
+                 and _same_bytes(vk[~app], v0[~app]))
+    ref_clean = plain(kp.clone(), vp.clone(), table, window)[0]
+    edge = {}
+    for d in (-WINDOW_EDGE, WINDOW_EDGE):
+        if window + d >= 1 and window <= int(lens.max()):
+            got = call(kp.clone(), vp.clone(), table, window + d)[0]
+            edge[d] = row_rel_err(got, ref_clean, rows_of)
+    torch.cuda.synchronize()
+    say(label, **where, window=window, lens=lens.tolist(), finite=finite,
+        max_abs_err=f"{max_abs:.3g}", row_rel_err=f"{rel:.3g}",
+        tol_row_rel=ROW_REL_TOL, appended_ok=appended,
+        other_bytes_unchanged=untouched,
+        nan_in_page_0_and_below_each_bound=True,
+        **{f"row_rel_err_window_{'minus' if d < 0 else 'plus'}_{abs(d)}":
+           f"{e:.3g}" for d, e in edge.items()})
+    ok = (finite and rel <= ROW_REL_TOL and appended and untouched
+          and all(e > ROW_REL_TOL for e in edge.values()))
+    return ok, max_abs
+
+
+def past_row_0_bits(call, kp, vp, table, lens):
+    """Window max(lens) + 1 against window 0: the output and both pools
+    equal bit for bit."""
+    a = call(kp.clone(), vp.clone(), table, 0)
+    b = call(kp.clone(), vp.clone(), table, int(lens.max()) + 1)
+    torch.cuda.synchronize()
+    return all(_same_bytes(x, y) for x, y in zip(a, b))
+
+
+def phase_window_paged_attention(dev, hbm, peak, cfg):
+    """Phase 51: kernel 10 with Mistral's window at Mistral-7B's attention
+    geometry (kv 8, group 4, hd 128, page 16, B 8 at lens 0 (a padding row
+    on the NULL page), 37, 4095-4097, 4608, 6000 and 8000), windows 4096,
+    100 (its bound inside a page and a split), 1 and max(lens) + 1, on bf16
+    and fp8 pools (``windowed_case``: NaN in page 0 and below every bound,
+    the slots wholly below it on page 0; the appended rows equal to the
+    twin's; window -+16 missing the limit), window max(lens) + 1 giving
+    window 0's bits; one hd-64 case (kv 4, group 8, window 100).  Then B 8
+    at lens 8000: window 4096 against window 0 (CUDA events, calls back to
+    back, and the split and merge passes' busy time), and window 0 at lens
+    4095 over a table of 501 pages and of 256 (the cost of the dead split
+    blocks the first grid keeps), beside the twin and the byte bound.
+    Returns the kernels line's row."""
+    from clusterfusion_tpu_torch.ops import paged_decoder_layer as pd
+    kv, g, hd = cfg.kv_heads, cfg.n_heads // cfg.kv_heads, cfg.head_dim_
+    gen = torch.Generator(device=dev).manual_seed(51)
+    page, layer, ok_all = 16, 1, True
+    for kv_, g_, hd_, lens_l, windows, pools in (
+            (kv, g, hd, SERVE_WINDOW_LENS,
+             (MISTRAL_WINDOW, 100, 1, max(SERVE_WINDOW_LENS) + 1),
+             ("bf16", "fp8")),
+            (4, 8, 64, SERVE_WINDOW_LENS, (100,), ("bf16",))):
+        B = len(lens_l)
+        kb, vb, table, lens = paged_pools(dev, 2, kv_, hd_, page, lens_l, 51)
+        table[0] = 0                       # the padding row: the NULL page
+        nan_unowned(kb, vb, table, lens)
+        q = torch.randn((B, kv_, g_, hd_), generator=gen,
+                        device=dev).bfloat16()
+        kn = torch.randn((B, kv_, hd_), generator=gen, device=dev).bfloat16()
+        vn = torch.randn((B, kv_, hd_), generator=gen, device=dev).bfloat16()
+        for pool in pools:
+            dtype = FP8 if pool == "fp8" else torch.bfloat16
+            kp, vp = kb.to(dtype), vb.to(dtype)
+
+            def call(k, v, t, w):
+                return pd.paged_attention(q, kn, vn, k, v, t, lens, layer,
+                                          window=w)
+
+            def plain(k, v, t, w):
+                return pd.paged_attention_plain(q, kn, vn, k, v, t, lens,
+                                                layer, window=w)
+
+            def appended_ok(kk, vk, kr, vr, t):
+                return _same_bytes(kk, kr) and _same_bytes(vk, vr)
+
+            for w in windows:
+                ok, _ = windowed_case(
+                    "window_paged_attention", call, plain, kb, vb, table,
+                    lens, w, hd_, appended_ok, dtype, kernel=10,
+                    kv_pool=pool, kv=kv_, group=g_, hd=hd_, B=B, page=page)
+                ok_all &= ok
+            bits = past_row_0_bits(call, kp, vp, table, lens)
+            say("window_paged_attention", kernel=10, kv_pool=pool, hd=hd_,
+                window_max_lens_plus_1_bits_equal_window_0=bits)
+            ok_all &= bits
+    if not ok_all:
+        raise AssertionError("kernel 10's window disagrees with its twin, "
+                             "reads below a bound, or its edge is off")
+    # the row: B 8 at the longest lens, window 4096 against window 0
+    B, n_max = 8, max(SERVE_WINDOW_LENS)
+    kb, vb, table, lens = paged_pools(dev, 2, kv, hd, page, [n_max] * B, 52)
+    q = torch.randn((B, kv, g, hd), generator=gen, device=dev).bfloat16()
+    kn = torch.randn((B, kv, hd), generator=gen, device=dev).bfloat16()
+    vn = torch.randn((B, kv, hd), generator=gen, device=dev).bfloat16()
+    kr, vr = kb.clone(), vb.clone()
+    calls = {w: functools.partial(pd.paged_attention, q, kn, vn, kb, vb,
+                                  table, lens, layer, window=w)
+             for w in (MISTRAL_WINDOW, 0)}
+    out = calls[MISTRAL_WINDOW]()
+    ref = pd.paged_attention_plain(q, kn, vn, kr, vr, table, lens, layer,
+                                   window=MISTRAL_WINDOW)
+    max_abs = (out[0].float() - ref[0].float()).abs().max().item()
+    rel = row_rel_err(out[0], ref[0], hd)
+    ms = {w: [] for w in calls}
+    for w in (MISTRAL_WINDOW, 0, 0, MISTRAL_WINDOW):
+        ms[w].append(queued_ms(calls[w]))
+    by = {w: busy_ms(f, PAGED_PASSES) for w, f in calls.items()}
+    plain_ms = time_ms(lambda: pd.paged_attention_plain(
+        q, kn, vn, kr, vr, table, lens, layer, window=MISTRAL_WINDOW), 3,
+        warmup=1)
+    # window 0 at the window's rows, over the wide table and a narrow one
+    lens_d = torch.full_like(lens, MISTRAL_WINDOW - 1)
+    narrow = table[:, :MISTRAL_WINDOW // page].clone()
+    dead = {name: queued_ms(functools.partial(
+        pd.paged_attention, q, kn, vn, kb, vb, t, lens_d, layer))
+        for name, t in (("wide", table), ("narrow", narrow))}
+    io = 2 * (2 * q.numel() + 4 * B * kv * hd)
+    bound, bound_by, nbytes = window_row_bound(
+        hbm, peak, lens.tolist(), MISTRAL_WINDOW, kv, g, hd, B, io)
+    bound0, _, nbytes0 = window_row_bound(hbm, peak, lens.tolist(), 0, kv, g,
+                                          hd, B, io)
+    ns = pd.cdiv(table.shape[1] * page, pd.SPLIT)
+    live = ns - first_live(n_max, MISTRAL_WINDOW) // pd.SPLIT
+    say("window_paged_attention_time", kernel=10, B=B, lens=n_max, kv=kv,
+        group=g, hd=hd, page=page, split=pd.SPLIT,
+        row_rel_err=f"{rel:.3g}", max_abs_err=f"{max_abs:.3g}",
+        ms_window_4096=[f"{v:.4f}" for v in ms[MISTRAL_WINDOW]],
+        ms_window_0=[f"{v:.4f}" for v in ms[0]],
+        split_ms_window_4096=f"{by[MISTRAL_WINDOW][1]['split']:.4f}",
+        merge_ms_window_4096=f"{by[MISTRAL_WINDOW][1]['merge']:.4f}",
+        split_ms_window_0=f"{by[0][1]['split']:.4f}",
+        merge_ms_window_0=f"{by[0][1]['merge']:.4f}",
+        grid_splits=ns, live_splits_window_4096=live,
+        lens_dead_case=MISTRAL_WINDOW - 1,
+        ms_dead_case_table_pages={table.shape[1]: f"{dead['wide']:.4f}",
+                                  narrow.shape[1]: f"{dead['narrow']:.4f}"},
+        dead_split_blocks_ms=f"{dead['wide'] - dead['narrow']:.4f}",
+        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound:.4f}",
+        bound_by=bound_by, bytes=nbytes, bound_ms_window_0=f"{bound0:.4f}",
+        bytes_window_0=nbytes0,
+        library_ms="null: " + SERVE_WINDOW_LIB_NULL)
+    if not rel <= ROW_REL_TOL:
+        raise AssertionError(f"kernel 10 at lens {n_max}, window "
+                             f"{MISTRAL_WINDOW}: row error {rel:.3g}")
+    return dict(max_abs_err=max_abs, ms=statistics.mean(ms[MISTRAL_WINDOW]),
+                plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                library_ms=None)
+
+
+def phase_window_paged_layer(eng, tree4, dev, hbm, peak):
+    """Phase 52: kernel 9 with Mistral's window on layer 1 of the Mistral-7B
+    tree, B 4 at lens 4095, 4608, 6000 and 8000 (positions = lens), windows
+    4096, 100, 1 and max(lens) + 1, as phase 51 holds kernel 10
+    (``windowed_case``; each request's output row of 4096 within
+    ROW_REL_TOL of its own largest value; the appended rows within 0.05 on
+    bf16 pools, within one e4m3 code on fp8 ones): bf16, int8 and int4
+    (exact, ``tree4``) weights on bf16 pools and bf16 weights on an fp8
+    pool; one hd-64 layer (random weights at TinyLlama-1.1B's widths,
+    window 100).  Then the bf16 layer at window 4096 and at window 0
+    (calls back to back) beside its twin and the byte bound (the QKV and O
+    weights once and the rows in the windows).  Returns the kernels line's
+    row."""
+    from clusterfusion_tpu_torch.config import LlamaConfig
+    from clusterfusion_tpu_torch.models import llama as model
+    from clusterfusion_tpu_torch.ops import paged_decoder_layer as pd
+    cfg, p = eng.cfg, eng.params
+    g, hd, kv, hidden = (cfg.n_heads // cfg.kv_heads, cfg.head_dim_,
+                         cfg.kv_heads, cfg.hidden_dim)
+    gen = torch.Generator(device=dev).manual_seed(52)
+    layer, page, ok_all, row = 1, 16, True, None
+    hg = cfg.kv_heads // p["layers"]["wqkv_f"].shape[1]
+    two = {k: w[:2] for k, w in p["layers"].items()}
+    lw8 = quant_stack_weights(two, hg, cfg.kv_heads, "int8")
+    lw4 = tree4["layers"]
+    ct = LlamaConfig.tinyllama_1b()
+    G, hgt = 2, ct.kv_heads // 2
+    gt = ct.n_heads // ct.kv_heads
+    hd64 = dict(
+        wqkv_f=(torch.randn((2, G, ct.hidden_dim, hgt * (gt + 2) * 64),
+                            generator=gen, device=dev)
+                * ct.hidden_dim ** -0.5).bfloat16(),
+        wo_f=(torch.randn((2, G, hgt * gt * 64, ct.hidden_dim), generator=gen,
+                          device=dev) * (ct.kv_heads * gt * 64) ** -0.5
+              ).bfloat16(),
+        attn_norm=(1 + 0.1 * torch.randn((2, ct.hidden_dim), generator=gen,
+                                         device=dev)).bfloat16())
+    lens_l = SERVE_WINDOW_LAYER_LENS
+    B = len(lens_l)
+    windows = (MISTRAL_WINDOW, 100, 1, max(lens_l) + 1)
+    for label, c, lw, pool, ws in (
+            ("bf16", cfg, p["layers"], "bf16", windows),
+            ("int8", cfg, dict(two, **lw8), "bf16", windows),
+            ("int4_exact", cfg, lw4, "bf16", windows),
+            ("bf16", cfg, p["layers"], "fp8", windows),
+            ("bf16 (random, tinyllama widths)", ct, hd64, "bf16", (100,))):
+        kvc, gc, hdc, hid = (c.kv_heads, c.n_heads // c.kv_heads, c.head_dim_,
+                             c.hidden_dim)
+        cos_t, sin_t = model.rope_table(dataclasses.replace(
+            c, max_seq_len=MISTRAL_CAP), device=dev)
+        kb, vb, table, lens = paged_pools(dev, 2, kvc, hdc, page, lens_l, 53)
+        nan_unowned(kb, vb, table, lens)
+        dtype = FP8 if pool == "fp8" else torch.bfloat16
+        kp, vp = kb.to(dtype), vb.to(dtype)
+        x = torch.randn((B, hid), generator=gen, device=dev).bfloat16()
+        res = torch.randn((B, hid), generator=gen, device=dev).bfloat16()
+        tail = (layer, lw["attn_norm"][layer], c.norm_eps, cos_t, sin_t)
+        kw = dict(group=gc, rope_style=c.rope_style)
+
+        def call(k, v, t, w, lw=lw, x=x, res=res, lens=lens, tail=tail,
+                 kw=kw):
+            out = pd.llama_decoder_layer_paged(
+                x, res, lw["wqkv_f"], lw["wo_f"], t, lens, lens, k, v, *tail,
+                window=w, **kw)
+            return out[0], out[2], out[3]
+
+        def plain(k, v, t, w, lw=lw, x=x, res=res, lens=lens, tail=tail,
+                  kw=kw):
+            out = pd.llama_decoder_layer_paged_plain(
+                x, res, lw["wqkv_f"], lw["wo_f"], t, lens, lens, k, v, *tail,
+                window=w, **kw)
+            return out[0], out[2], out[3]
+
+        def appended_ok(kk, vk, kr, vr, t, lens=lens, pool=pool):
+            if pool == "fp8":
+                return all(e4m3_one_step(appended_rows(a, t, lens, layer),
+                                         appended_rows(b, t, lens, layer))[0]
+                           for a, b in ((kk, kr), (vk, vr)))
+            return max((appended_rows(a, t, lens, layer).float()
+                        - appended_rows(b, t, lens, layer).float()).abs()
+                       .max().item() for a, b in ((kk, kr), (vk, vr))) <= 0.05
+
+        for w in ws:
+            ok, max_abs = windowed_case(
+                "window_paged_layer", call, plain, kb, vb, table, lens, w,
+                hid, appended_ok, dtype, kernel=9, weights=label,
+                kv_pool=pool, hd=hdc, B=B)
+            ok_all &= ok
+        if len(ws) > 1:
+            bits = past_row_0_bits(call, kp, vp, table, lens)
+            say("window_paged_layer", kernel=9, weights=label, kv_pool=pool,
+                window_max_lens_plus_1_bits_equal_window_0=bits)
+            ok_all &= bits
+        if label == "bf16" and pool == "bf16":
+            calls = {w: functools.partial(call, kp, vp, table, w)
+                     for w in (MISTRAL_WINDOW, 0)}
+            out = calls[MISTRAL_WINDOW]()[0]
+            kr, vr = kp.clone(), vp.clone()
+            ref = plain(kr, vr, table, MISTRAL_WINDOW)[0]
+            max_abs = (out.float() - ref.float()).abs().max().item()
+            ms = {w: [] for w in calls}
+            for w in (MISTRAL_WINDOW, 0, 0, MISTRAL_WINDOW):
+                ms[w].append(queued_ms(calls[w]))
+            by = busy_ms(calls[MISTRAL_WINDOW], LAYER9_PASSES)[1]
+            plain_ms = time_ms(functools.partial(plain, kr, vr, table,
+                                                 MISTRAL_WINDOW), 3, warmup=1)
+            w_elems = lw["wqkv_f"][layer].numel() + lw["wo_f"][layer].numel()
+            io = 2 * (w_elems + 4 * B * hid + hid + 2 * B * kvc * hdc)
+            bound, bound_by, nbytes = window_row_bound(
+                hbm, peak, lens_l, MISTRAL_WINDOW, kvc, gc, hdc, B, io,
+                2 * B * w_elems)
+            say("window_paged_layer_time", kernel=9, weights=label, B=B,
+                lens=lens_l, ms_window_4096=[f"{v:.4f}"
+                                             for v in ms[MISTRAL_WINDOW]],
+                ms_window_0=[f"{v:.4f}" for v in ms[0]],
+                **{f"{k}_ms_window_4096": f"{v:.4f}" for k, v in by.items()},
+                plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound:.4f}",
+                bound_by=bound_by, bytes=nbytes, weight_bytes=2 * w_elems,
+                library_ms="null: " + SERVE_WINDOW_LIB_NULL)
+            row = dict(max_abs_err=max_abs,
+                       ms=statistics.mean(ms[MISTRAL_WINDOW]),
+                       plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                       library_ms=None)
+        del kb, vb, kp, vp
+    del lw8, two
+    torch.cuda.empty_cache()
+    if not ok_all:
+        raise AssertionError("kernel 9's window disagrees with its twin, "
+                             "reads below a bound, or its edge is off")
+    return row
+
+
+def window_prompts(eng):
+    """Phase 53's eight prompts of 4100-4608 tokens: request 0 is phase
+    50's prompt, the others other texts."""
+    prompts = [FIGURES["mistral_stream"][0]]
+    for i, n in enumerate(SERVE_WINDOW_PROMPTS, 1):
+        text = (f"Request {i} reads a long document, page after page. "
+                * 120)[:n - 1]
+        prompts.append(eng.tokenizer.encode(text, bos=True, eos=False))
+    return prompts
+
+
+def near_argmax(params, cfg, dev, prompt, toks, kv_dtype):
+    """Every served token against the plain path (``plain_logits``,
+    windowed, a cache of ``kv_dtype``): (the steps whose token lies 0.02 x
+    the largest |logit| or more below the plain argmax, the largest such
+    distance over that scale, the plain top-2 gaps)."""
+    bad, worst, gaps = [], 0.0, []
+    for i, lg in enumerate(plain_logits(params, cfg, dev, prompt, toks,
+                                        kv_dtype)):
+        lg = lg.float()
+        gap = (lg.max() - lg[toks[i]]).item() / max(lg.abs().max().item(), 1.0)
+        top = torch.topk(lg, 2).values
+        gaps.append((top[0] - top[1]).item())
+        worst = max(worst, gap)
+        if gap >= 0.02:
+            bad.append(i)
+    return bad, worst, gaps
+
+
+def serve_window(eng, params, dev, prompts, impl, kv_dtype, label):
+    """One run of ``ServingEngine`` with Mistral's window and its rolling
+    page buffer: page 16, ``max_batch`` 8, a pool of 8 x 257 + 1 + 8
+    pages (full context needs more), every prompt past the window, 64
+    greedy tokens each.  The kernels' launch counts are set to 0 just
+    before the run and read just after.  Returns (outputs, launches,
+    figures, the last step's arguments)."""
+    from clusterfusion_tpu_torch.ops import flash_prefill as fp
+    from clusterfusion_tpu_torch.ops import paged_decoder_layer as pd
+    from clusterfusion_tpu_torch.runtime import ServingEngine
+    cfg, page, mb, n_new = eng.cfg, 16, 8, SERVE_WINDOW_NEW
+    window_pages = -(-cfg.sliding_window // page) + 1
+    num_pages = mb * window_pages + 1 + 8
+    full_need = sum(-(-(len(p) + n_new) // page) for p in prompts)
+    srv = ServingEngine(params, cfg, page_size=page, num_pages=num_pages,
+                        max_batch=mb, kv_dtype=kv_dtype, step_impl=impl)
+    pre_ms, step_s, batch, peak_pages, last = [], [], [], [0], []
+    real_prefill, real_step = srv._prefill_into_pool, srv._step
+    total = srv.sched.num_pages - 1
+
+    def timed_prefill(req):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_prefill(req)
+        torch.cuda.synchronize()
+        pre_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def timed_step(*a):
+        batch.append(int((a[6] > 0).sum()))
+        peak_pages[0] = max(peak_pages[0], total - srv.sched.free_pages)
+        last[:] = a
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_step(*a)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        return out
+
+    srv._prefill_into_pool, srv._step = timed_prefill, timed_step
+    for i, pr in enumerate(prompts):
+        srv.submit(i, pr, n_new, temperature=0.0)
+    fp.launches = 0
+    pd.launches.update(dict.fromkeys(pd.launches, 0))
+    out = srv.run()
+    launches = dict(pd.launches, flash=fp.launches)
+    steps = len(step_s)
+    decode_tokens = sum(len(t) for t in out.values()) - len(prompts)
+    fig = dict(tokens_per_s=decode_tokens / sum(step_s),
+               ms_per_step=sum(step_s) * 1e3 / steps)
+    busy = step_busy_ms(lambda: real_step(*last))
+    say("serving_window", run=label, step=impl, kv_pool=str(kv_dtype),
+        requests=len(prompts), prompt_tokens=[len(p) for p in prompts],
+        new_tokens=n_new, window=cfg.sliding_window, page=page,
+        window_pages=window_pages, pool_pages=num_pages,
+        full_context_pages=full_need, peak_pages_in_use=peak_pages[0],
+        decode_steps=steps, batch_rows_min=min(batch),
+        decode_tokens_per_s=f"{fig['tokens_per_s']:.2f}",
+        ms_per_step=f"{fig['ms_per_step']:.3f}",
+        device_busy_ms_last_step=f"{busy:.3f}",
+        prefill_ms_per_request=[round(x, 1) for x in pre_ms],
+        prefills=len(pre_ms), flash_prefill_launches=launches["flash"],
+        **{k: v for k, v in launches.items() if k != "flash" and v})
+    key = "paged_attention" if impl == "batched" else \
+        "llama_decoder_layer_paged"
+    want = cfg.n_layers * steps
+    ok = (len(pre_ms) == len(prompts) and min(batch) == len(prompts)
+          and steps == n_new - 1 and num_pages < full_need
+          and peak_pages[0] <= mb * window_pages
+          and launches[key] == want and launches[key + "_window"] == want
+          and launches["flash"] == cfg.n_layers * sum(
+              -(-len(p) // 1024) for p in prompts)
+          and (kv_dtype != FP8 or launches[key + "_fp8"] == want)
+          and all(len(t) == n_new and all(0 <= x < cfg.vocab_size for x in t)
+                  for t in out.values())
+          and all(r.error is None for r in srv.last_results.values()))
+    if not ok:
+        raise AssertionError(f"serving with the window ({label}): "
+                             f"{len(pre_ms)} prefills, batch {min(batch)}, "
+                             f"{steps} steps, launches {launches}, peak "
+                             f"pages {peak_pages[0]}")
+    del srv, last
+    torch.cuda.empty_cache()
+    return out, launches, dict(fig, busy_ms=busy, prefill_ms=pre_ms,
+                               peak_pages=peak_pages[0],
+                               full_need=full_need)
+
+
+def phase_window_serving(eng, tree4, dev):
+    """Phase 53: ``ServingEngine`` with Mistral's window and its rolling
+    page buffer on Mistral-7B (``serve_window``: eight requests of
+    4100-4608 prompt tokens, each past the window, 64 greedy tokens, in a
+    pool of 2065 pages where full context needs 2336: all admitted at
+    once, none preempted, at most 257 pages a request), through the
+    batched step (kernel 10) and the fused step (kernel 9) on bf16 pools,
+    then the int4 (exact) tree's default fused step on an fp8 pool.  Each
+    run: every served token of requests 0 and 5 within 0.02 x the largest
+    |logit| of the plain path's argmax fed the same prefix
+    (``near_argmax``); request 0 against phase 50's bs=1 stream on the same
+    prompt (equal up to the first difference, where the plain top-2 gap is
+    at most 0.1, phase 8's limit).  Then ``Llama.generate`` at B 4 on the
+    same config, held the same way against the batched run.  Returns the
+    launches {paged, layer} of the bf16 runs."""
+    t0 = time.perf_counter()
+    cfg = eng.cfg
+    prompts = window_prompts(eng)
+    s_prompt, s_toks, s_gaps = FIGURES["mistral_stream"]
+    runs, launches, plain_gaps, ok_all = {}, {}, {}, True
+    for label, impl, kvd, params in (
+            ("bf16_batched", "batched", torch.bfloat16, eng.params),
+            ("bf16_fused", "fused", torch.bfloat16, eng.params),
+            ("int4_fused_fp8_pool", "fused", FP8, tree4)):
+        out, lc, fig = serve_window(eng, params, dev, prompts, impl, kvd,
+                                    label)
+        runs[label] = (out, fig)
+        launches[label] = lc
+        for rid in (0, 5):
+            bad, worst, gaps = near_argmax(params, cfg, dev, prompts[rid],
+                                           out[rid], kvd)
+            plain_gaps[label, rid] = gaps
+            say("serving_window", run=label, request=rid,
+                kernel_tokens=out[rid][:8],
+                worst_gap_over_scale=f"{worst:.4f}", tol=0.02,
+                steps_past_tol=bad, min_top2_gap=f"{min(gaps):.3f}")
+            ok_all &= not bad
+        if params is not eng.params:
+            continue                       # the stream ran the bf16 tree
+        div = next((i for i, (a, b) in enumerate(zip(out[0], s_toks))
+                    if a != b), None)
+        say("serving_window", run=label, request=0,
+            vs_phase_50_stream_first_difference=div,
+            stream_top2_gap_there=None if div is None
+            else f"{s_gaps[div]:.3f}")
+        ok_all &= div is None or s_gaps[div] <= 0.1
+    from clusterfusion_tpu_torch.ops import paged_decoder_layer as pd
+    # generate at B 4: requests 0 and 5 first, held by their plain gaps
+    # along the batched run's tokens (the byte tokenizer's eos may end a
+    # row early)
+    pd.launches.update(dict.fromkeys(pd.launches, 0))
+    rids = (0, 5, 1, 2)
+    gen_toks, _ = eng.generate([prompts[r] for r in rids], 8,
+                               temperature=0.0)
+    gen_launch = pd.launches["paged_attention_window"]
+    ref = runs["bf16_batched"][0]
+    divs = [next((i for i, (a, b) in enumerate(zip(gen_toks[j], ref[r]))
+                  if a != b), None) for j, r in enumerate(rids)]
+    say("generate_window", B=4, requests=list(rids), new_tokens=8,
+        tokens=[t[:4] for t in gen_toks],
+        paged_attention_window_launches=gen_launch,
+        first_difference_from_batched_run=divs,
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    ok_all &= (all(0 < len(t) <= 8 for t in gen_toks) and gen_launch > 0
+               and gen_launch % cfg.n_layers == 0
+               and all(divs[j] is None or divs[j] >= len(gen_toks[j])
+                       or plain_gaps["bf16_batched", r][divs[j]] <= 0.1
+                       for j, r in enumerate(rids[:2])))
+    b, f = runs["bf16_batched"][1], runs["bf16_fused"][1]
+    say("serving_window", batched_tokens_per_s=f"{b['tokens_per_s']:.2f}",
+        fused_tokens_per_s=f"{f['tokens_per_s']:.2f}",
+        int4_fp8_tokens_per_s=
+        f"{runs['int4_fused_fp8_pool'][1]['tokens_per_s']:.2f}",
+        peak_pages=b["peak_pages"], full_context_pages=b["full_need"])
+    if not ok_all:
+        raise AssertionError("windowed serving disagrees with the plain path "
+                             "or with the bs=1 stream")
+    return dict(paged=launches["bf16_batched"]["paged_attention_window"],
+                layer=launches["bf16_fused"]
+                ["llama_decoder_layer_paged_window"])
+
+
 def phase_mistral(dev, hbm, peak):
-    """Phases 47-50 (the Mistral-7B cell): returns {kernel: kernels-line
+    """Phases 47-53 (the Mistral-7B cell): returns {kernel: kernels-line
     row} and the main path's launches."""
     t0 = time.perf_counter()
     eng = mistral_engine(dev)
@@ -7996,7 +8561,23 @@ def phase_mistral(dev, hbm, peak):
         init_s=f"{t47 - t0:.1f}", phase47_s=f"{t48 - t47:.1f}",
         phase48_s=f"{t49 - t48:.1f}", phase49_s=f"{t50 - t49:.1f}",
         phase50_s=f"{t51 - t50:.1f}")
-    del eng
+    rows["paged_window"] = phase_window_paged_attention(dev, hbm, peak,
+                                                        eng.cfg)
+    t52 = time.perf_counter()
+    lw = eng.params["layers"]
+    tree4 = dict(eng.params, layers=dict(lw, **quant_stack_weights(
+        lw, eng.cfg.kv_heads // lw["wqkv_f"].shape[1], eng.cfg.kv_heads,
+        "int4")))
+    rows["layer_window"] = phase_window_paged_layer(eng, tree4, dev, hbm,
+                                                    peak)
+    t53 = time.perf_counter()
+    serve = phase_window_serving(eng, tree4, dev)
+    launches.update(paged_window=serve["paged"], layer_window=serve["layer"])
+    t54 = time.perf_counter()
+    say("phases_51_53", seconds=f"{t54 - t51:.1f}",
+        phase51_s=f"{t52 - t51:.1f}", phase52_s=f"{t53 - t52:.1f}",
+        phase53_s=f"{t54 - t53:.1f}")
+    del eng, tree4, lw
     torch.cuda.empty_cache()
     return rows, launches
 

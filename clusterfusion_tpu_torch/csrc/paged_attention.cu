@@ -4,7 +4,8 @@
 // Replaces the TPU kernel `paged_attention`
 // (clusterfusion_tpu/ops/paged_decoder_layer.py, `_paged_attn_kernel`),
 // which the batched serving step runs once per layer between its M=B
-// projections, for a bf16 or fp8 e4m3 pool and no window or softcap.
+// projections, for a bf16 or fp8 e4m3 pool, with or without Mistral's
+// sliding window (no softcap).
 // Layouts as there: q [B, kv, g, hd] (scaled by log2(e)/sqrt(hd) and
 // rounded to bf16 inside the kernels, as the TPU wrapper does before its
 // kernel), k_new/v_new [B, kv, hd] bf16 (an fp8 pool stores and folds
@@ -39,7 +40,7 @@ static int paged_attention_kind(const void* q, const void* k_new, const void* v_
                                 void* k_pool, void* v_pool, const void* table,
                                 const void* lens, void* o, void* scratch, int B, int kv,
                                 int group, int hd, int page, int n_pages, int max_pages,
-                                int layer, int split, void* stream) {
+                                int layer, int split, void* stream, int window) {
   PagedArgsT<KV> a{};
   a.q = static_cast<const __nv_bfloat16*>(q);
   a.k_new = static_cast<const __nv_bfloat16*>(k_new);
@@ -57,6 +58,7 @@ static int paged_attention_kind(const void* q, const void* k_new, const void* v_
   a.layer = layer;
   a.split = split;
   a.ns = paged_splits(max_pages, page, split);
+  a.window = window;
   a.qscale = (float)(1.4426950408889634 / std::sqrt((double)hd));
   a.part_ml = static_cast<float*>(scratch);
   a.part_acc = a.part_ml + (size_t)B * kv * a.ns * group * 2;
@@ -66,20 +68,21 @@ static int paged_attention_kind(const void* q, const void* k_new, const void* v_
 // Attend each request's lens[b] cached rows of layer `layer` plus the
 // current token, write o, and append k_new/v_new at row lens[b] (two
 // launches).  kv_kind (common.cuh's KV_*): KV_BF16 pools, or KV_FP8 e4m3
-// pools.  `scratch` holds cf_paged_scratch_floats(...) floats.  Returns a
+// pools.  window > 0: each request attends its cached rows >= lens[b] + 1 -
+// window and the current token (0: all rows).  `scratch` holds cf_paged_scratch_floats(...) floats.  Returns a
 // cudaError_t (0 on success).
 extern "C" int cf_paged_attention(const void* q, const void* k_new,
                                   const void* v_new, void* k_pool, void* v_pool,
                                   const void* table, const void* lens, void* o,
                                   void* scratch, int B, int kv, int group, int hd,
                                   int page, int n_pages, int max_pages, int layer,
-                                  int split, void* stream, int kv_kind) {
+                                  int split, void* stream, int kv_kind, int window) {
   if (kv_kind == KV_FP8)
     return paged_attention_kind<KV_FP8>(q, k_new, v_new, k_pool, v_pool, table, lens, o,
                                         scratch, B, kv, group, hd, page, n_pages, max_pages,
-                                        layer, split, stream);
+                                        layer, split, stream, window);
   if (kv_kind != KV_BF16) return (int)cudaErrorInvalidValue;
   return paged_attention_kind<KV_BF16>(q, k_new, v_new, k_pool, v_pool, table, lens, o,
                                        scratch, B, kv, group, hd, page, n_pages, max_pages,
-                                       layer, split, stream);
+                                       layer, split, stream, window);
 }

@@ -35,6 +35,19 @@
 //   which no request reads.  Any page size >= 1 works (page 1 is the
 //   sglang layout), since every run of rows computes its own address.
 //
+// Sliding window (Mistral's semantics, a.window > 0; a runtime argument of
+//   every instance): the token at lens[b] attends cached rows >= wlo =
+//   max(0, lens[b] + 1 - window) and itself.  The split boundaries stay at
+//   multiples of `split` from row 0; a split that ends at or below wlo
+//   exits at once, and in the first live split the rows below wlo are
+//   never copied (its runs start at wlo) and are masked out of the
+//   softmax, so what their table slots point at (the NULL page 0 under the
+//   serving engine's rolling page buffer, which every padding row's append
+//   writes) never reaches shared memory.  The merge folds the live splits
+//   wlo / split .. n-1 in order, or none when no cached row is in the
+//   window (window 1).  window >= lens[b] + 1 runs window 0's
+//   instructions, so it gives window 0's bits.
+//
 // FROM_QKV = false (kernel 10): q [B, kv, g, hd] bf16, which both kernels
 //   scale by qscale = log2(e)/sqrt(hd) and round to bf16 again (as the
 //   TPU wrapper does before its kernel); k_new/v_new [B, kv, hd] bf16.
@@ -95,6 +108,7 @@ struct PagedArgsT {
   float* part_ml;                  // [B, kv, ns, g, 2] (max, sum) per split
   float* part_acc;                 // [B, kv, ns, g, hd]
   int kv, group, page, n_pages, max_pages, layer, max_pos, neox, split, ns;
+  int window;                      // sliding window (0: none)
   float qscale;                    // kernel 10: log2(e)/sqrt(hd), as float
 };
 using PagedArgs = PagedArgsT<KV_BF16>;
@@ -130,6 +144,13 @@ __device__ __forceinline__ bool paged_bad(const PagedArgsT<KV>& a, int n_past, i
                                           bool from_qkv) {
   return n_past < 0 || n_past >= a.max_pages * a.page ||
          (from_qkv && (pos < 0 || pos >= a.max_pos));
+}
+
+// The first cached row of request b in the window: max(0, lens + 1 -
+// window), or lens itself when no cached row is in it (window 1).
+template <int KV>
+__device__ __forceinline__ int paged_first_live(const PagedArgsT<KV>& a, int n_past) {
+  return a.window > 0 ? min(n_past, max(0, n_past + 1 - a.window)) : 0;
 }
 
 // Eight pool elements at p (16 bytes of bf16, 8 of e4m3) -> eight floats.
@@ -185,28 +206,32 @@ __global__ void __launch_bounds__(PA_THREADS) paged_split_kernel(PagedArgsT<KV> 
   const int n_past = a.lens[b];
   const int pos = FROM_QKV ? a.positions[b] : 0;
   const int j0 = s * S;
-  if (paged_bad(a, n_past, pos, FROM_QKV) || j0 >= n_past) return;
+  if (paged_bad(a, n_past, pos, FROM_QKV)) return;
+  // the split's first live row (j0 unless the window's bound lies in it)
+  const int jl = max(j0, paged_first_live(a, n_past));
+  if (jl >= n_past || jl >= j0 + S) return;     // past the end, or below the window
   const int n = min(S, n_past - j0);
-  const int nt = (n + PA_TILE - 1) / PA_TILE;
+  const int r0 = jl - j0;                        // rows [0, r0) of the split are masked
+  const int t0 = r0 / PA_TILE, nt = (n + PA_TILE - 1) / PA_TILE;
   const int* trow = a.table + (size_t)b * a.max_pages;
   const size_t head0 = (size_t)a.layer * a.n_pages * kv + h;   // (layer, page 0, h)
 
   if (tid == 0) {
-    for (int t = 0; t < nt; ++t) hopper::mbar_init(&bar[t], 1);
+    for (int t = t0; t < nt; ++t) hopper::mbar_init(&bar[t], 1);
     hopper::fence_barrier_init();
   }
   __syncthreads();
-  // Warp 0: rows [j0, j0 + n) of K and of V, one copy per run of rows on
+  // Warp 0: rows [jl, j0 + n) of K and of V, one copy per run of rows on
   // one page and in one tile; tile t's K and V bytes complete on bar[t].
   // The pool rows < lens[b] were written before this launch (earlier
   // steps, or a kernel the stream has finished).
   if (wid == 0) {
-    for (int t = lane; t < nt; t += 32)
-      hopper::mbar_arrive_expect_tx(&bar[t],
-                                    (uint32_t)min(PA_TILE, n - t * PA_TILE) * HD * 2 * RB);
+    for (int t = t0 + lane; t < nt; t += 32)
+      hopper::mbar_arrive_expect_tx(
+          &bar[t], (uint32_t)(min(n, (t + 1) * PA_TILE) - max(r0, t * PA_TILE)) * HD * 2 * RB);
     __syncwarp();
-    for (int j = j0 + lane; j < j0 + n; j += 32) {
-      if (j != j0 && j % a.page != 0 && (j - j0) % PA_TILE != 0) continue;  // not a run's first row
+    for (int j = jl + lane; j < j0 + n; j += 32) {
+      if (j != jl && j % a.page != 0 && (j - j0) % PA_TILE != 0) continue;  // not a run's first row
       const int end = min(min(j0 + n, (j / a.page + 1) * a.page),
                           j0 + ((j - j0) / PA_TILE + 1) * PA_TILE);
       const size_t off = ((head0 + (size_t)trow[j / a.page] * kv) * a.page + j % a.page) * HD;
@@ -247,8 +272,9 @@ __global__ void __launch_bounds__(PA_THREADS) paged_split_kernel(PagedArgsT<KV> 
   for (int i = 0; i < GMAX; ++i)
 #pragma unroll
     for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
-  for (int t = 0; t < nt; ++t) {
+  for (int t = t0; t < nt; ++t) {
     const int rows_t = min(PA_TILE, n - t * PA_TILE);
+    const int lo_t = t == t0 ? r0 - t * PA_TILE : 0;   // rows below it masked
     hopper::mbar_wait(&bar[t], 0);
     // 1. scores of the g query rows against the tile's rows: TPR threads a
     //    row, each over CPT pieces taken in an order staggered by row
@@ -258,7 +284,7 @@ __global__ void __launch_bounds__(PA_THREADS) paged_split_kernel(PagedArgsT<KV> 
       float sa[GMAX];
 #pragma unroll
       for (int i = 0; i < GMAX; ++i) sa[i] = 0.f;
-      if (r < rows_t) {
+      if (r >= lo_t && r < rows_t) {
 #pragma unroll
         for (int c0 = 0; c0 < CPT; ++c0) {
           const int c = (c0 + r) % CPT;
@@ -287,12 +313,13 @@ __global__ void __launch_bounds__(PA_THREADS) paged_split_kernel(PagedArgsT<KV> 
     __syncthreads();
     // 2. online softmax within the split: lane j takes the tile's row j; p
     //    against the running max, summed unrounded, kept as bf16(p) (0 past
-    //    the end, by select)
+    //    the end and below the window, by select)
     for (int i = wid; i < g; i += NW) {
-      const float sj = lane < rows_t ? sc[i * PA_TILE + lane] : NEG_INF;
+      const bool live = lane >= lo_t && lane < rows_t;
+      const float sj = live ? sc[i * PA_TILE + lane] : NEG_INF;
       const float m_old = st[4 * i];
       const float m_new = fmaxf(m_old, warp_max(sj));
-      const float p = lane < rows_t ? exp2f(sj - m_new) : 0.f;
+      const float p = live ? exp2f(sj - m_new) : 0.f;
       const float sum = warp_sum(p);
       sc[i * PA_TILE + lane] = bf16_round(p);
       if (lane == 0) {
@@ -312,7 +339,9 @@ __global__ void __launch_bounds__(PA_THREADS) paged_split_kernel(PagedArgsT<KV> 
         for (int c = 0; c < 8; ++c) acc[i][c] *= al;
       }
     }
-    for (int rr = sl; rr < rows_t; rr += SL) {
+    // (the rows below the window were never copied: skipped, not weighted)
+    for (int rr = sl + (lo_t > sl ? (lo_t - sl + SL - 1) / SL * SL : 0); rr < rows_t;
+         rr += SL) {
       float v[8];
       pa_unpack8<KV>(vs + (size_t)(t * PA_TILE + rr) * HD + cg * 8, v);
 #pragma unroll
@@ -350,10 +379,11 @@ __global__ void __launch_bounds__(PA_THREADS) paged_split_kernel(PagedArgsT<KV> 
 }
 
 // Merge of kv head h = blockIdx.x of request b = blockIdx.y: the current
-// token first, then the splits 0..nsb-1 in order, in float32; o, then the
-// append.  Warp w takes query rows w, w + 4, ...: the splits' maxima and
-// sums (lanes over splits, summed in a fixed butterfly), each split's
-// weight into shared memory; then every (row, column) sums its splits.
+// token first, then the live splits s_lo..nsb-1 in order, in float32; o,
+// then the append.  Warp w takes query rows w, w + 4, ...: the splits'
+// maxima and sums (lanes over splits, summed in a fixed butterfly), each
+// split's weight into shared memory; then every (row, column) sums its
+// splits.
 template <int HD, bool FROM_QKV, int KV>
 __global__ void __launch_bounds__(PA_THREADS) paged_merge_kernel(PagedArgsT<KV> a) {
   constexpr int NW = PA_THREADS / 32;
@@ -404,16 +434,19 @@ __global__ void __launch_bounds__(PA_THREADS) paged_merge_kernel(PagedArgsT<KV> 
   }
   __syncthreads();
   const int nsb = (n_past + a.split - 1) / a.split;
+  const int first = paged_first_live(a, n_past);
+  const int s_lo = first < n_past ? first / a.split : nsb;   // the first live split
   const size_t part0 = ((size_t)b * kv + h) * a.ns * g;
   for (int i = wid; i < g; i += NW) {
     float dot = 0.f;
     for (int e = lane; e < HD; e += 32) dot = fmaf(qf[i * HD + e], kcur[e], dot);
     const float s_cur = warp_sum(dot);
     float mx = s_cur;
-    for (int s = lane; s < nsb; s += 32) mx = fmaxf(mx, a.part_ml[(part0 + (size_t)s * g + i) * 2]);
+    for (int s = s_lo + lane; s < nsb; s += 32)
+      mx = fmaxf(mx, a.part_ml[(part0 + (size_t)s * g + i) * 2]);
     mx = warp_max(mx);
     float l = 0.f;
-    for (int s = lane; s < nsb; s += 32) {
+    for (int s = s_lo + lane; s < nsb; s += 32) {
       const size_t idx = part0 + (size_t)s * g + i;
       const float ws = exp2f(a.part_ml[idx * 2] - mx);
       w[i * a.ns + s] = ws;
@@ -432,7 +465,7 @@ __global__ void __launch_bounds__(PA_THREADS) paged_merge_kernel(PagedArgsT<KV> 
     float acc = st[4 * i + 3] * vcur[d];
     const float* pa = a.part_acc + part0 * HD + (size_t)i * HD + d;
 #pragma unroll 8
-    for (int s = 0; s < nsb; ++s) acc = fmaf(pa[(size_t)s * g * HD], w[i * a.ns + s], acc);
+    for (int s = s_lo; s < nsb; ++s) acc = fmaf(pa[(size_t)s * g * HD], w[i * a.ns + s], acc);
     ob[e] = __float2bfloat16(acc / st[4 * i + 2]);
   }
   // append the current K/V row
@@ -496,7 +529,7 @@ int launch_paged_attn_hd(const PagedArgsT<KV>& a, int B, bool pdl, cudaStream_t 
 template <bool FROM_QKV, int KV>
 int launch_paged_attn(const PagedArgsT<KV>& a, int B, int hd, bool pdl, cudaStream_t st) {
   if (B < 1 || a.kv < 1 || a.group < 1 || a.group > PA_MAX_GROUP || a.page < 1 ||
-      a.max_pages < 1 || a.layer < 0 || a.split < 1 ||
+      a.max_pages < 1 || a.layer < 0 || a.split < 1 || a.window < 0 ||
       a.ns != paged_splits(a.max_pages, a.page, a.split))
     return (int)cudaErrorInvalidValue;
   if (hd == 128) return launch_paged_attn_hd<128, FROM_QKV>(a, B, pdl, st);

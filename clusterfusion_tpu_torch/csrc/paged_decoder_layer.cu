@@ -5,8 +5,8 @@
 // Replaces the TPU kernel `llama_decoder_layer_paged`
 // (clusterfusion_tpu/ops/paged_decoder_layer.py, `_paged_kernel`), which
 // the fused serving step runs once per layer, for bf16, int8 or int4
-// weights, a bf16 or fp8 e4m3 pool, no bias, window or softcap.  Layouts as
-// there:
+// weights, a bf16 or fp8 e4m3 pool, with or without Mistral's sliding
+// window (no bias or softcap).  Layouts as there:
 //   wqkv_f [L, G, hidden, hg*(g+2)*hd]  columns per kv head [q_0..q_{g-1}|k|v]
 //   wo_f   [L, G, hg*g*hd, hidden]      pools [L, n_pages, kv, page, hd]
 // The layer of the weight stacks is picked by offset (`w_layer`); no
@@ -80,7 +80,9 @@ extern "C" long long cf_paged_layer_scratch_floats(int B, int kv, int group, int
 // groups' sum) or WK_INT4 (codes packed two a byte along K, float32 group
 // scales wqkv_s [.., G, hidden/128, C] and wo_s [.., G, Ko/G/128,
 // hidden]).  kv_kind (common.cuh's KV_*): KV_BF16 or KV_FP8 (e4m3) pools.
-// Returns a cudaError_t (0 on success).
+// window > 0: each request attends its cached rows >= lens[b] + 1 - window
+// and the current token (0: all rows; paged_attention.cuh).  Returns a
+// cudaError_t (0 on success).
 extern "C" int cf_paged_decoder_layer(
     const void* x, const void* res, const void* wqkv, const void* wo,
     const void* rms_w, const void* cos, const void* sin, const void* positions,
@@ -89,7 +91,7 @@ extern "C" int cf_paged_decoder_layer(
     int kv, int hg, int group, int hd, int page, int n_pages, int max_pages,
     int max_pos, int layer, int w_layer, int neox, float eps, int split,
     int* n_launches, void* stream, const void* wqkv_s, const void* wo_s, int wq_kind,
-    int kv_kind) {
+    int kv_kind, int window) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   *n_launches = 0;
   if (B < 1 || hg < 1 || kv % hg != 0 || hidden % 8 != 0 || w_layer < 0 || split < 1 ||
@@ -171,6 +173,7 @@ extern "C" int cf_paged_decoder_layer(
     a.neox = neox;
     a.split = split;
     a.ns = paged_splits(max_pages, page, split);
+    a.window = window;
     a.part_ml = qkvf + (size_t)B * qkv_n;
     a.part_acc = a.part_ml + (size_t)B * kv * a.ns * group * 2;
     return launch_paged_attn<true>(a, B, hd, true, st);

@@ -21,7 +21,12 @@ package's does.  ``kv_dtype="int8"`` (an ``Int8KV`` cache) or
 8-bit KV cache (kernels 7 and 8 in their 8-bit modes; the draft keeps its
 own ``kv_dtype``); ``generate`` and the completions hand it to the serving
 engine, whose pools take fp8 (kernels 9 and 10 on e4m3 pools) and refuse
-"int8" (JAX's int8 pools are unscaled; ``ROADMAP.md`` section 3).
+"int8" (JAX's int8 pools are unscaled; ``ROADMAP.md`` section 3).  A
+config with Mistral's sliding window (pattern ``"all"``) runs every entry:
+``stream_generate`` and ``spec_generate`` on kernels 4, 7 and 8's window,
+``generate`` and the completions on the engine's windowed kernels 9 and 10
+and its rolling page buffer (``generate`` still sizes the pool for the
+full context, which the rolling buffer never needs).
 """
 
 from __future__ import annotations

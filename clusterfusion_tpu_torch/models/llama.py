@@ -34,9 +34,9 @@ A sliding window (``cfg.sliding_window``, Mistral's semantics: position p
 attends positions ``>= p + 1 - window``) in the pattern ``"all"`` runs on
 the single-card bs=1 entries: the prefill (kernel 4's window), the decode
 step, fused (kernel 7's) and eager, and the speculative verify
-(``models.speculative``, kernel 8's).  The serving engine, the tp and sp
-steps and Gemma-2's ``"even"`` pattern refuse it by name
-(:func:`_check_supported`).
+(``models.speculative``, kernel 8's), and in the serving engine (kernels
+9 and 10's, ``runtime.serving``).  The tp and sp steps and Gemma-2's
+``"even"`` pattern refuse it by name (:func:`_check_supported`).
 
 Unlike the JAX package, whose functions return new caches, the caches are
 updated in place here: every function that takes ``k_cache``/``v_cache``
@@ -147,8 +147,9 @@ def _check_supported(cfg: LlamaConfig, what: str,
                      window: bool = False) -> None:
     """Raise, naming ``what``, on a config the entry does not run:
     ``window`` says whether it runs a sliding window in Mistral's pattern
-    (the single-card bs=1 entries do).  Gemma-2's ``"even"`` pattern, QKV
-    bias, sandwich norms, softcaps and GeGLU raise everywhere."""
+    (the single-card entries do: bs=1 and the serving engine).  Gemma-2's
+    ``"even"`` pattern, QKV bias, sandwich norms, softcaps and GeGLU raise
+    everywhere."""
     if cfg.sliding_window and cfg.window_pattern != "all":
         raise NotImplementedError(
             f"{what}: window_pattern {cfg.window_pattern!r} (Gemma-2's "
@@ -156,10 +157,11 @@ def _check_supported(cfg: LlamaConfig, what: str,
             "queue 2, mode 3)")
     if cfg.sliding_window and not window:
         raise NotImplementedError(
-            f"{what}: a sliding window is not ported to this path yet (it "
-            "needs the window in kernels 6, 9 and 10: ROADMAP.md queue 2, "
-            "mode 3); the single-card prefill, decode and speculative "
-            "verify run it")
+            f"{what}: a sliding window is not ported to the multi-card "
+            "paths yet (it needs the window in kernel 6 and kernel 7's mode "
+            "5, the next slice: ROADMAP.md queue 2, mode 3.1); the "
+            "single-card prefill, decode, speculative verify and serving "
+            "engine run it")
     if (cfg.qkv_bias or cfg.sandwich_norms or cfg.attn_logit_softcap
             or cfg.final_logit_softcap or cfg.ffn_act != "silu"):
         raise NotImplementedError(

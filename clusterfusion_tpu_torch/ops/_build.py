@@ -49,11 +49,11 @@ SIGNATURES = {
     "cf_verify_split": ([_P] * 7 + [_I] * 9 + [_P], _I),
     "cf_verify_probe_gemv": ([_P, _I], _I),
     "cf_paged_scratch_floats": ([_I] * 7, ctypes.c_longlong),
-    "cf_paged_attention": ([_P] * 9 + [_I] * 9 + [_P, _I], _I),
+    "cf_paged_attention": ([_P] * 9 + [_I] * 9 + [_P, _I, _I], _I),
     "cf_paged_layer_scratch_floats": ([_I] * 7, ctypes.c_longlong),
     "cf_paged_decoder_layer": ([_P] * 17 + [_I] * 13
                                + [_F, _I, ctypes.POINTER(_I), _P, _P, _P, _I,
-                                  _I],
+                                  _I, _I],
                                _I),
     "cf_fused_ffn_scratch_floats": ([_I] * 2, ctypes.c_longlong),
     "cf_fused_ffn_plan": ([_I, _I, ctypes.POINTER(_I)], _I),

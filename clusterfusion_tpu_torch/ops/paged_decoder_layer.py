@@ -69,6 +69,17 @@ bf16).  On the card the packed codes stream through the GEMVs' int4
 instances in their exact mode, in group size 128 only (``ROADMAP.md``
 queue 2, mode 1.5).
 
+Sliding window (Mistral's semantics, ``window`` > 0 with
+``window_pattern="all"``; the TPU kernels' ``wlo = seq + 1 - window``): the
+token at ``seq_lens[b]`` attends cached rows ``>= seq_lens[b] + 1 -
+window`` and itself.  The splits keep their boundaries from row 0; only
+those that hold a row in the window run, and the rows below the bound in
+the first of them are never read (on the card never copied) and weigh
+nothing, so table slots below the window may hold the NULL page 0, as the
+serving engine's rolling page buffer leaves them.  A window that reaches
+row 0 gives the bits of no window.  Gemma-2's ``"even"`` pattern is refused
+(``ROADMAP.md`` queue 2, mode 3).
+
 The pools are updated in place: the returned pools are the tensors that
 were passed in.  Padding rows (``seq_lens`` 0 over a table row of page 0)
 append into the NULL page 0, which no request owns.
@@ -110,25 +121,44 @@ MAX_GROUP = 16
 
 #: Calls of each wrapper that launched its kernel (CUDA tensors only);
 #: "llama_decoder_layer_paged_int8" counts the layer's calls with int8
-#: weights (kernel 9's int8 mode), the "_fp8" keys the calls on fp8 pools;
-#: the wrapper's own key counts them too.
+#: weights (kernel 9's int8 mode), the "_fp8" keys the calls on fp8 pools,
+#: the "_window" keys those with a sliding window; the wrapper's own key
+#: counts them too.
 launches = {"paged_attention": 0, "llama_decoder_layer_paged": 0,
             "llama_decoder_layer_paged_int8": 0,
             "llama_decoder_layer_paged_int4": 0,
-            "paged_attention_fp8": 0, "llama_decoder_layer_paged_fp8": 0}
+            "paged_attention_fp8": 0, "llama_decoder_layer_paged_fp8": 0,
+            "paged_attention_window": 0,
+            "llama_decoder_layer_paged_window": 0}
 
 
-def _refuse(what: str, window, softcap, bias_qkv=None) -> None:
-    if window or softcap or bias_qkv is not None:
-        raise NotImplementedError(f"{what}: sliding window, softcap and QKV "
-                                  "bias are not ported yet")
+def _refuse(what: str, window, softcap, bias_qkv=None,
+            window_pattern: str = "all") -> int:
+    """Raise on what the kernels do not take; returns the window as an
+    int."""
+    window = int(window)
+    if window < 0:
+        raise ValueError(f"{what}: window {window} < 0")
+    if window_pattern not in ("all", "even"):
+        raise ValueError(f"{what}: unknown window_pattern {window_pattern!r}")
+    if window and window_pattern == "even":
+        raise NotImplementedError(
+            f"{what}: window_pattern 'even' (Gemma-2's interleaved local/"
+            "global layers and their split pools) is not ported yet "
+            "(ROADMAP.md queue 2, mode 3.3)")
+    if softcap or bias_qkv is not None:
+        raise NotImplementedError(f"{what}: softcap and QKV bias are not "
+                                  "ported yet (ROADMAP.md queue 2, mode 3's "
+                                  "later slices)")
+    return window
 
 
 def _walk_plain(q_walk, q_fold, k_cur, v_cur, k_pool, v_pool, table, lens,
-                layer: int, split: int | None = None):
+                layer: int, split: int | None = None, window: int = 0):
     """The kernels' walk: q_walk/q_fold [B, kv, g, hd] (scaled; q_walk
     bf16-valued), k_cur/v_cur [B, kv, hd], rows in splits of ``split``
-    (default ``SPLIT``).  Returns o [B, kv, g, hd] bf16."""
+    (default ``SPLIT``); ``window`` > 0: only rows ``>= lens[b] + 1 -
+    window`` (the module's note).  Returns o [B, kv, g, hd] bf16."""
     split = SPLIT if split is None else split
     B, kv, g, hd = q_walk.shape
     page = k_pool.shape[3]
@@ -145,8 +175,12 @@ def _walk_plain(q_walk, q_fold, k_cur, v_cur, k_pool, v_pool, table, lens,
         pos = torch.arange(S, device=dev)
         row = (pos // (nt * TILE)) * split + pos % (nt * TILE)    # request row
         valid = (pos % (nt * TILE) < split)[None] & (row[None] < lens[:, None])
+        if window:
+            wlo = (lens + 1 - window).clamp(min=0)
+            valid = valid & (row[None] >= wlo[:, None])
         pg = table[:, (row // page).clamp(max=table.shape[1] - 1)]   # [B, S]
-        keep = valid[..., None, None]         # rows past the end never enter
+        # rows past the end or below the window never enter
+        keep = valid[..., None, None]
         k, v = (torch.where(keep, kv_rows_plain(_rows(p[layer], pg,
                                                       row % page)), 0.)
                 for p in (k_pool, v_pool))
@@ -205,7 +239,7 @@ def _scaled_q(q: torch.Tensor) -> torch.Tensor:
 
 
 def paged_attention_plain(q, k_new, v_new, k_pool, v_pool, block_table,
-                          seq_lens, layer_id: int):
+                          seq_lens, layer_id: int, window: int = 0):
     """Plain PyTorch version of :func:`paged_attention` (same arguments,
     same results, pools appended in place)."""
     B = q.shape[0]
@@ -214,7 +248,7 @@ def paged_attention_plain(q, k_new, v_new, k_pool, v_pool, block_table,
     # folded as stored
     k_b, v_b = (t.to(torch.bfloat16).to(k_pool.dtype) for t in (k_new, v_new))
     o = _walk_plain(qs, qs, k_b, v_b, k_pool, v_pool, block_table, seq_lens,
-                    int(layer_id))
+                    int(layer_id), window=int(window))
     _append_plain(k_pool, v_pool, block_table, seq_lens, int(layer_id), k_b,
                   v_b)
     return o.reshape(B, -1), k_pool, v_pool
@@ -253,7 +287,8 @@ def _indices(dev, *ts):
 
 
 def paged_attention(q, k_new, v_new, k_pool, v_pool, block_table, seq_lens,
-                    layer_id, *, window: int = 0, softcap: float = 0.0):
+                    layer_id, *, window: int = 0, softcap: float = 0.0,
+                    window_pattern: str = "all"):
     """Batched paged flash-decode attention + in-place append.
 
     q [B, kv_heads, group, hd] (roped, unscaled); k_new/v_new
@@ -265,8 +300,10 @@ def paged_attention(q, k_new, v_new, k_pool, v_pool, block_table, seq_lens,
     ``block_table[b, seq_lens[b] // page], seq_lens[b] % page`` and returns
     (o [B, kv_heads*group*hd] bf16, k_pool, v_pool).  On the card each
     request's rows are walked in splits of ``SPLIT`` rows, one block each
-    (two launches: the split pass and the merge)."""
-    _refuse("paged_attention", window, softcap)
+    (two launches: the split pass and the merge).  ``window`` > 0: the
+    sliding window (the module's note)."""
+    window = _refuse("paged_attention", window, softcap,
+                     window_pattern=window_pattern)
     B, kv, g, hd = q.shape
     L, n_pages, kv_p, page, hd_p = k_pool.shape
     if (kv_p, hd_p) != (kv, hd) or k_new.shape != (B, kv, hd) or \
@@ -279,7 +316,7 @@ def paged_attention(q, k_new, v_new, k_pool, v_pool, block_table, seq_lens,
     kind = _check_pools("paged_attention", k_pool, v_pool, q.device)
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_new, v_new, k_pool, v_pool,
-                                     block_table, seq_lens, layer_id)
+                                     block_table, seq_lens, layer_id, window)
     dev = q.device
     if hd not in (64, 128) or g > MAX_GROUP:
         raise NotImplementedError(f"paged_attention: head_dim {hd} or group "
@@ -299,17 +336,20 @@ def paged_attention(q, k_new, v_new, k_pool, v_pool, block_table, seq_lens,
         q_b.data_ptr(), k_b.data_ptr(), v_b.data_ptr(), k_pool.data_ptr(),
         v_pool.data_ptr(), table.data_ptr(), lens.data_ptr(), o.data_ptr(),
         scratch.data_ptr(), B, kv, g, hd, page, n_pages, table.shape[1],
-        int(layer_id), SPLIT, torch.cuda.current_stream(dev).cuda_stream, kind)
+        int(layer_id), SPLIT, torch.cuda.current_stream(dev).cuda_stream, kind,
+        window)
     _build.check(err, "paged_attention")
     launches["paged_attention"] += 1
     launches["paged_attention_fp8"] += int(kind == KV_FP8)
+    launches["paged_attention_window"] += int(window > 0)
     return o, k_pool, v_pool
 
 
 def llama_decoder_layer_paged_plain(input, residual, wqkv_g, wo_g,
                                     block_table, seq_lens, positions, k_pool,
                                     v_pool, layer_id, rms_w, eps, cos_t, sin_t,
-                                    *, group: int, rope_style: str):
+                                    *, group: int, rope_style: str,
+                                    window: int = 0):
     """Plain PyTorch version of :func:`llama_decoder_layer_paged` (same
     arguments, same results, pools appended in place).  Int8 weights: each
     product over the codes, scaled where the kernel scales; int4: the exact
@@ -341,7 +381,7 @@ def llama_decoder_layer_paged_plain(input, residual, wqkv_g, wo_g,
     table = torch.as_tensor(block_table, device=input.device)
     lens = torch.as_tensor(seq_lens, device=input.device)
     o = _walk_plain(q.to(torch.bfloat16), q, k, v, k_pool, v_pool, table,
-                    lens, layer_id)
+                    lens, layer_id, window=int(window))
     if k_pool.dtype == FP8 and (hd % 128 or k_pool.shape[3] % 8):
         # where the TPU wrapper scatters its bf16 k_new: e4m3 of bf16(k)
         k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
@@ -366,7 +406,8 @@ def llama_decoder_layer_paged(input, residual, wqkv_g, wo_g, block_table,
                               rms_w, eps: float, cos_t, sin_t, *,
                               group: int = 1, rope_style: str = "neox",
                               bias_qkv=None, window: int = 0,
-                              softcap: float = 0.0):
+                              softcap: float = 0.0,
+                              window_pattern: str = "all"):
     """Paged batch-decode attention half of a Llama layer.
 
     input/residual [B, hidden] bf16; wqkv_g [L, G, hidden, hg*(group+2)*hd]
@@ -381,8 +422,10 @@ def llama_decoder_layer_paged(input, residual, wqkv_g, wo_g, block_table,
     Returns (output [B, hidden], residual_out [B, hidden], k_pool, v_pool),
     the new token's K/V written in place at ``block_table[b, seq_lens[b] //
     page], seq_lens[b] % page`` of layer ``layer_id``.  Stacked weights are
-    read at ``layer_id``."""
-    _refuse("llama_decoder_layer_paged", window, softcap, bias_qkv)
+    read at ``layer_id``.  ``window`` > 0: the sliding window (the module's
+    note)."""
+    window = _refuse("llama_decoder_layer_paged", window, softcap, bias_qkv,
+                     window_pattern)
     B, hidden = input.shape
     L, n_pages, kv, page, hd = k_pool.shape
     layer_id = int(layer_id)
@@ -423,7 +466,7 @@ def llama_decoder_layer_paged(input, residual, wqkv_g, wo_g, block_table,
         return llama_decoder_layer_paged_plain(
             input, residual, wqkv_g, wo_g, block_table, seq_lens, positions,
             k_pool, v_pool, layer_id, rms_w, eps, cos_t, sin_t, group=group,
-            rope_style=rope_style)
+            rope_style=rope_style, window=window)
     for name, t in (*named, *weights.items(), *scales.items()):
         if t.device != dev or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"llama_decoder_layer_paged: {name} must be a "
@@ -469,12 +512,13 @@ def llama_decoder_layer_paged(input, residual, wqkv_g, wo_g, block_table,
         ctypes.byref(n_launch), torch.cuda.current_stream(dev).cuda_stream,
         *(scales[k].data_ptr() if k in scales else None
           for k in ("wqkv_g_s", "wo_g_s")),
-        WK_INT4 if w4 else WK_INT8 if w8 else WK_BF16, kind)
+        WK_INT4 if w4 else WK_INT8 if w8 else WK_BF16, kind, window)
     _build.check(err, "llama_decoder_layer_paged")
     launches["llama_decoder_layer_paged"] += 1
     launches["llama_decoder_layer_paged_int8"] += int(w8)
     launches["llama_decoder_layer_paged_int4"] += int(w4)
     launches["llama_decoder_layer_paged_fp8"] += int(kind == KV_FP8)
+    launches["llama_decoder_layer_paged_window"] += int(window > 0)
     return out, res_out, k_pool, v_pool
 
 

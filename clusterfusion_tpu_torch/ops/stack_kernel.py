@@ -651,8 +651,8 @@ def fused_decoder_stack(
     if window and reduce_axis is not None:
         raise NotImplementedError(
             "fused_decoder_stack: a sliding window in mode 5 (reduce_axis) "
-            "is not ported yet (kernel 7's mode 5 with kernels 6, 9 and 10: "
-            "ROADMAP.md queue 2, mode 3)")
+            "is not ported yet (kernel 7's mode 5 with kernel 6, the next "
+            "slice: ROADMAP.md queue 2, mode 3.1)")
     return _stack(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f, w13, w2,
                   k_cache, v_cache, pos, group=group, head_dim=head_dim,
                   rope_style=rope_style, eps=eps, kcfg=kcfg,

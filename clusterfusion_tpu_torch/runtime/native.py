@@ -100,16 +100,36 @@ class PagedKVScheduler:
     def set_window(self, window_tokens: int) -> int:
         """Rolling-buffer mode for a token window: installs the minimal
         safe page cap ``ceil(window/page_size) + 1`` (the +1 is the filling
-        tail page) and returns it.  A smaller cap would let the scheduler
-        recycle a page that still holds in-window KV.  Must be called
-        before any request is added."""
+        tail page) through :meth:`set_window_pages` and returns it.  Must
+        be called before any request is added."""
         if window_tokens <= 0:
             raise ValueError(f"window_tokens must be > 0, got "
                              f"{window_tokens}")
         window_pages = -(-window_tokens // self.page_size) + 1
-        if self._lib.cf_pool_set_window(self._h, window_pages) != 0:
-            raise ValueError("set_window: requests already present")
+        self.set_window_pages(window_pages, _window_tokens=window_tokens)
         return window_pages
+
+    def set_window_pages(self, window_pages: int,
+                         _window_tokens: int | None = None) -> None:
+        """Rolling-buffer mode: cap each request's real pages at
+        ``window_pages``; block-table slots below the window hold the NULL
+        page 0, which the window-aware kernels never read.  Must be set
+        before any request is added (0 turns it off).
+
+        The token window must satisfy ``window <= (window_pages - 1) *
+        page_size + 1``, or recycling overwrites KV rows still in the
+        window; pass ``_window_tokens`` to have that checked
+        (:meth:`set_window` does)."""
+        if _window_tokens is not None and \
+                _window_tokens > (window_pages - 1) * self.page_size + 1:
+            raise ValueError(
+                f"window_pages={window_pages} unsafe for a "
+                f"{_window_tokens}-token window at page_size="
+                f"{self.page_size}: recycling would overwrite in-window KV "
+                f"(need >= {-(-_window_tokens // self.page_size) + 1})")
+        if self._lib.cf_pool_set_window(self._h, window_pages) != 0:
+            raise ValueError("set_window_pages: bad value or requests "
+                             "already present")
 
     def __del__(self):
         if getattr(self, "_h", None):

@@ -31,6 +31,13 @@
   rows with e4m3 denormals flushed (the TPU kernels' decode) and append
   each step's row by their own rules (``ops.paged_decoder_layer``'s
   note); the prefill cache is made in the pool's dtype, as JAX makes it;
+- a sliding window (Mistral's, ``cfg.sliding_window`` with pattern
+  ``"all"``) runs both steps: the kernels walk only each request's rows in
+  the window, and the scheduler keeps its rolling page buffer, as the JAX
+  engine does (JAX ``runtime/serving.py:434-441``), so a request owns at
+  most ``ceil(window / page) + 1`` real pages whatever its context length;
+  table slots below the window hold the NULL page 0, which no kernel reads
+  and no prefill writes.  Gemma-2's ``"even"`` pattern is refused;
 - ``kcfg.serving_w8a8`` raises ``NotImplementedError`` (``ROADMAP.md``
   queue 2, mode 6), and so does an int8 pool (JAX's are unscaled;
   ``ROADMAP.md`` section 3) or any pool dtype but bf16 and fp8.
@@ -181,7 +188,8 @@ def _paged_decode_step(params, k_pool, v_pool, tokens, positions, block_table,
         attn, residual, _, _ = llama_decoder_layer_paged(
             x, residual, lw["wqkv_f"], lw["wo_f"], block_table, seq_lens,
             positions, k_pool, v_pool, l, lw["attn_norm"][l], cfg.norm_eps,
-            cos_t, sin_t, group=g, rope_style=cfg.rope_style)
+            cos_t, sin_t, group=g, rope_style=cfg.rope_style,
+            window=cfg.sliding_window)
         xn2, residual = fused_add_rmsnorm_ref(attn, residual,
                                               lw["ffn_norm"][l], cfg.norm_eps)
         x = batched_ffn(xn2, lw["w13"][l], lw["w2"][l], cfg.ffn_act)
@@ -218,7 +226,7 @@ def _paged_decode_step_batched(params, k_pool, v_pool, tokens, positions,
                               cfg.rope_style)
         k = model._apply_rope(k, cos[:, None], sin[:, None], cfg.rope_style)
         o, _, _ = paged_attention(q, k, v, k_pool, v_pool, block_table,
-                                  seq_lens, l)
+                                  seq_lens, l, window=cfg.sliding_window)
         attn = batched_o_dot(o.reshape(B, G, -1), lw["wo_f"][l]).to(x.dtype)
         xn2, residual = fused_add_rmsnorm_ref(attn, residual,
                                               lw["ffn_norm"][l], cfg.norm_eps)
@@ -243,7 +251,7 @@ class ServingEngine:
                  kv_dtype=torch.bfloat16, seed: int = 0,
                  prefill_chunk: Optional[int] = 1024,
                  step_impl: Optional[str] = None):
-        model._check_supported(cfg, "ServingEngine")
+        model._check_supported(cfg, "ServingEngine", window=True)
         if kv_dtype not in (torch.bfloat16, torch.float8_e4m3fn):
             raise NotImplementedError(f"kv_dtype {kv_dtype}: the serving "
                                       "pools are bf16 or float8_e4m3fn (JAX's "
@@ -291,6 +299,10 @@ class ServingEngine:
         self.page_size = page_size
         self.prefill_chunk = prefill_chunk
         self.sched = PagedKVScheduler(num_pages, page_size, max_pages_per_req)
+        if cfg.sliding_window:
+            # the rolling page buffer: ceil(window/page) + 1 real pages a
+            # request at most (set_window checks the recycle-safety bound)
+            self.sched.set_window(cfg.sliding_window)
         self.max_batch = max_batch
         self.step_impl = step_impl
         self._step = (_paged_decode_step_batched if step_impl == "batched"
@@ -337,7 +349,9 @@ class ServingEngine:
         tokens are prefilled: the pages copied into the pool are those the
         JAX engine writes from its padded run, and rows past the tokens are
         never read.  Runs longer than ``prefill_chunk`` go in chunks of
-        that many tokens (``model.prefill_chunk``)."""
+        that many tokens (``model.prefill_chunk``).  Under the rolling page
+        buffer the table slots below the window hold the NULL page 0: only
+        the real pages are written."""
         cfg, page = self.cfg, self.page_size
         readmit = bool(req.generated)
         cached = req.prompt + (req.generated[:-1] if readmit else [])
@@ -371,12 +385,14 @@ class ServingEngine:
             req.prompt_logprobs = [0.0] + plp
         owned = self.sched.request_pages(req.id)
         n_used = min(len(owned), cap // page)
-        pages = torch.as_tensor(owned[:n_used].astype(np.int64), device=dev)
+        real = np.flatnonzero(owned[:n_used])          # slots of real pages
+        pages = torch.as_tensor(owned[real].astype(np.int64), device=dev)
+        slots = torch.as_tensor(real, device=dev)
         L, kvh, hd = cfg.n_layers, cfg.kv_heads, cfg.head_dim_
         for pool, c in ((self.k_pool, kc), (self.v_pool, vc)):
             _bytes_of(pool)[:, pages] = _bytes_of(
                 c[:, :, :n_used * page].reshape(L, kvh, n_used, page, hd)
-                .transpose(1, 2))
+                .transpose(1, 2))[:, slots]
         if readmit:
             # resume mid-generation: the next step feeds the last generated
             # token; sampling again would duplicate a token in the output

@@ -4208,3 +4208,200 @@ def test_windowed_engine_runs_kernels_4_7_8(dev):
     div = next((i for i, (a, b) in enumerate(zip(spec, toks)) if a != b),
                None)
     assert div is None or gaps[div] <= 0.1, (div, spec, toks)
+
+
+# -- sliding window (Mistral's) in the serving kernels 9 and 10
+
+
+def _window_view(kp, vp, table, lens, window, dtype=torch.bfloat16):
+    """The rolling page buffer's view of bf16 pools: (a table whose slots
+    wholly below each request's bound hold the NULL page 0, copies of the
+    pools in ``dtype`` with NaN in page 0 and in every row below each
+    bound)."""
+    page = kp.shape[3]
+    t, kw, vw = table.clone(), kp.clone(), vp.clone()
+    kw[:, 0] = vw[:, 0] = float("nan")
+    for b, n in enumerate(lens.tolist()):
+        lo = max(0, n + 1 - window)
+        j = torch.arange(lo, device=kp.device)
+        kw[:, table[b, j // page].long(), :, j % page] = float("nan")
+        vw[:, table[b, j // page].long(), :, j % page] = float("nan")
+        t[b, :lo // page] = 0
+    return t, kw.to(dtype), vw.to(dtype)
+
+
+def _raw(t):
+    """A bf16 or e4m3 tensor's bits, one integer an element."""
+    return t.view(torch.uint8 if t.dtype == torch.float8_e4m3fn
+                  else torch.int16)
+
+
+# windows: one row, inside a page and a split, a split's edge, and one past
+# row 0 for every request (window 0's bits)
+WINDOW_PAGED_WINDOWS = [1, 12, 100, 128, 1001]
+WINDOW_PAGED_LENS = [0, 37, 129, 300, 1000]
+
+
+@pytest.mark.parametrize("window", WINDOW_PAGED_WINDOWS)
+@pytest.mark.parametrize("kv,g,hd,page,pool", [
+    (2, 4, 128, 16, "bf16"), (2, 1, 64, 8, "bf16"), (4, 2, 128, 1, "bf16"),
+    (2, 4, 128, 16, "fp8")])
+def test_paged_attention_window_matches_plain(dev, kv, g, hd, page, pool,
+                                              window):
+    """Kernel 10 with a window over the rolling buffer's table, NaN in page
+    0, below every bound and in every unowned row: against its twin (atol
+    2e-2 / rtol 2e-2, each head's row within 2 % of its largest value),
+    finite, the pools byte-equal to the twin's, a repeat bit-identical, the
+    call counted as windowed; a window past row 0 gives window 0's bits."""
+    from clusterfusion_tpu_torch.ops import paged_decoder_layer as pd
+    lens = WINDOW_PAGED_LENS
+    B, L, layer = len(lens), 2, 1
+    kp, vp, table, lens_t = _paged_pools(dev, L, kv, page, hd, lens, 61)
+    table[0] = 0                                   # a padding row
+    _nan_unowned(kp, vp, table, lens_t)
+    dtype = torch.float8_e4m3fn if pool == "fp8" else torch.bfloat16
+    q = _randn((B, kv, g, hd), dev, 62)
+    k_new = _randn((B, kv, hd), dev, 63)
+    v_new = _randn((B, kv, hd), dev, 64)
+    tw, kw, vw = _window_view(kp, vp, table, lens_t, window, dtype)
+    kp, vp = kp.to(dtype), vp.to(dtype)
+    k2, v2, kr, vr = kw.clone(), vw.clone(), kw.clone(), vw.clone()
+    before = pd.launches["paged_attention_window"]
+    o, _, _ = pd.paged_attention(q, k_new, v_new, kw, vw, tw, lens_t, layer,
+                                 window=window)
+    o2, _, _ = pd.paged_attention(q, k_new, v_new, k2, v2, tw, lens_t, layer,
+                                  window=window)
+    want, _, _ = pd.paged_attention_plain(q, k_new, v_new, kr, vr, tw, lens_t,
+                                          layer, window=window)
+    torch.cuda.synchronize()
+    assert pd.launches["paged_attention_window"] == before + 2
+    assert torch.isfinite(o.float()).all()
+    assert torch.equal(_bits(o), _bits(o2))
+    torch.testing.assert_close(o.float(), want.float(), atol=2e-2, rtol=2e-2)
+    got, ref = o.float().reshape(-1, hd), want.float().reshape(-1, hd)
+    rel = (got - ref).abs().amax(-1) / ref.abs().amax(-1).clamp_min(1e-6)
+    assert rel.max().item() <= 2e-2
+    for a, b in ((kw, kr), (vw, vr), (kw, k2), (vw, v2)):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    if window > max(lens):
+        none, k0, v0 = pd.paged_attention(q, k_new, v_new, kp.clone(),
+                                          vp.clone(), table, lens_t, layer)
+        wide, k1, v1 = pd.paged_attention(q, k_new, v_new, kp.clone(),
+                                          vp.clone(), table, lens_t, layer,
+                                          window=window)
+        assert torch.equal(_bits(none), _bits(wide))
+        assert torch.equal(k0.view(torch.uint8), k1.view(torch.uint8))
+
+
+@pytest.mark.parametrize("window", WINDOW_PAGED_WINDOWS)
+@pytest.mark.parametrize("weights,hd,page,pool", [
+    ("bf16", 128, 16, "bf16"), ("int8", 128, 16, "bf16"),
+    ("int4", 128, 16, "bf16"), ("bf16", 64, 8, "bf16"),
+    ("bf16", 128, 16, "fp8")])
+def test_paged_layer_window_matches_plain(dev, weights, hd, page, pool,
+                                          window):
+    """Kernel 9 with a window, the same pools and NaN rows: against its
+    twin (atol 2e-2 / rtol 2e-2), finite, the appended rows within 0.05
+    (bf16) or one e4m3 code, every other byte untouched, a repeat
+    bit-identical; a window past row 0 gives window 0's bits."""
+    from clusterfusion_tpu_torch.ops import paged_decoder_layer as pd
+    from clusterfusion_tpu_torch.ops import quant as tq
+    lens = WINDOW_PAGED_LENS[1:]
+    B, kv, g, hg, L, layer, hidden = len(lens), 2, 4, 1, 2, 1, 512
+    cfg = LlamaConfig.tiny(rope_style="neox", head_dim=hd, max_seq_len=2048)
+    cos_t, sin_t = model.rope_table(cfg, device=dev)
+    kp, vp, table, lens_t = _paged_pools(dev, L, kv, page, hd, lens, 65)
+    _nan_unowned(kp, vp, table, lens_t)
+    dtype = torch.float8_e4m3fn if pool == "fp8" else torch.bfloat16
+    wqkv, wo = _layer_weights(dev, L, hidden, kv, g, hd, hg, 66)
+    if weights != "bf16":
+        lw = tq.quantize_llama_params(
+            {"layers": {"wqkv_f": wqkv, "wo_f": wo}}, weights,
+            targets=("wqkv_f", "wo_f"))["layers"]
+        wqkv, wo = lw["wqkv_f"], lw["wo_f"]
+    x = _randn((B, hidden), dev, 67)
+    res = _randn((B, hidden), dev, 68)
+    rms = 1 + _randn((hidden,), dev, 69, 0.1)
+    tw, kw, vw = _window_view(kp, vp, table, lens_t, window, dtype)
+    kp, vp = kp.to(dtype), vp.to(dtype)
+    k0, k2, v2, kr, vr = kw.clone(), kw.clone(), vw.clone(), kw.clone(), \
+        vw.clone()
+    tail = (layer, rms, 1e-5, cos_t, sin_t)
+    kwargs = dict(group=g, rope_style="neox", window=window)
+    before = pd.launches["llama_decoder_layer_paged_window"]
+    out = pd.llama_decoder_layer_paged(x, res, wqkv, wo, tw, lens_t, lens_t,
+                                       kw, vw, *tail, **kwargs)
+    again = pd.llama_decoder_layer_paged(x, res, wqkv, wo, tw, lens_t, lens_t,
+                                         k2, v2, *tail, **kwargs)
+    want = pd.llama_decoder_layer_paged_plain(x, res, wqkv, wo, tw, lens_t,
+                                              lens_t, kr, vr, *tail, **kwargs)
+    torch.cuda.synchronize()
+    assert pd.launches["llama_decoder_layer_paged_window"] == before + 2
+    assert torch.isfinite(out[0].float()).all()
+    for i in (0, 1):
+        assert torch.equal(_bits(out[i]), _bits(again[i]))
+        torch.testing.assert_close(out[i].float(), want[i].float(),
+                                   atol=2e-2, rtol=2e-2)
+    app = _appended_mask(kw, tw, lens_t, layer)
+    for a, b, a2 in ((kw, kr, k2), (vw, vr, v2)):
+        assert torch.equal(a.view(torch.uint8), a2.view(torch.uint8))
+        if pool == "fp8":
+            assert _e4m3_one_code(a[app], b[app])[0]
+        else:
+            torch.testing.assert_close(a[app].float(), b[app].float(),
+                                       atol=0.05, rtol=0)
+        assert torch.equal(_raw(a)[~app], _raw(b)[~app])
+    assert torch.equal(_raw(kw)[~app], _raw(k0)[~app])
+    if window > max(lens):
+        kw0 = dict(kwargs, window=0)
+        none = pd.llama_decoder_layer_paged(x, res, wqkv, wo, table, lens_t,
+                                            lens_t, kp.clone(), vp.clone(),
+                                            *tail, **kw0)
+        wide = pd.llama_decoder_layer_paged(x, res, wqkv, wo, table, lens_t,
+                                            lens_t, kp.clone(), vp.clone(),
+                                            *tail, **kwargs)
+        for a, b in zip(none, wide):
+            assert torch.equal(_raw(a), _raw(b))
+
+
+@pytest.mark.parametrize("impl,kv", [("batched", "bf16"), ("fused", "bf16"),
+                                     ("fused", "fp8")])
+def test_windowed_serving_engine_on_card(dev, impl, kv):
+    """A windowed tiny Mistral-shaped engine on the card with its rolling
+    page buffer (window 24, page 8: 4 real pages a request at most), a pool
+    smaller than full context needs: three requests past the window, all
+    admitted at once, each token within 0.02 x the largest |logit| of the
+    plain path's argmax fed the same prefix, kernel 10 or 9 launched once a
+    layer and step with the window."""
+    from clusterfusion_tpu_torch.ops import paged_decoder_layer as pd
+    from clusterfusion_tpu_torch.runtime import ServingEngine
+    fp8 = torch.float8_e4m3fn
+    cfg = LlamaConfig.tiny(sliding_window=24, n_kv_heads=2, rope_style="neox",
+                           max_seq_len=256)
+    params = model.init_params(cfg, 12, device=dev)
+    prompts = [[1 + (7 * i + r) % 300 for i in range(n)]
+               for r, n in enumerate((40, 57, 90))]
+    n_new = 12
+    eng = ServingEngine(params, cfg, page_size=8, num_pages=3 * 4 + 1,
+                        max_batch=4, step_impl=impl,
+                        kv_dtype=fp8 if kv == "fp8" else torch.bfloat16)
+    for i, p in enumerate(prompts):
+        eng.submit(i, p, n_new, temperature=0.0)
+    key = "paged_attention" if impl == "batched" else \
+        "llama_decoder_layer_paged"
+    before = pd.launches[key + "_window"]
+    out = eng.run()
+    torch.cuda.synchronize()
+    assert pd.launches[key + "_window"] - before == cfg.n_layers * (n_new - 1)
+    for i, p in enumerate(prompts):
+        assert eng.last_results[i].error is None and len(out[i]) == n_new
+        kc, vc = model.init_cache(cfg, device=dev,
+                                  dtype=fp8 if kv == "fp8" else torch.bfloat16)
+        lg, kc, vc = model.prefill(params, kc, vc, p, cfg, flash=False)
+        lg = lg[-1].float()
+        for j, t in enumerate(out[i]):
+            scale = max(lg.abs().max().item(), 1.0)
+            assert (lg.max() - lg[t]).item() < 0.02 * scale, (i, j)
+            lg, kc, vc = model.decode_step(params, kc, vc, t, len(p) + j, cfg,
+                                           fused=False)
+            lg = lg.float()

@@ -273,7 +273,8 @@ def test_split_walk_matches_one_split(g, page, lens):
     np.testing.assert_allclose(_np(split), _np(one), **TOL)
 
 
-@pytest.mark.parametrize("kw", [dict(window=8), dict(softcap=30.0)],
+@pytest.mark.parametrize("kw", [dict(window=8, window_pattern="even"),
+                                dict(softcap=30.0)],
                          ids=["window", "softcap"])
 def test_paged_kernels_refuse_unported_variants(kw):
     rng = np.random.RandomState(3)
@@ -297,6 +298,11 @@ def test_paged_kernels_refuse_unported_variants(kw):
                   torch.ones(512, dtype=torch.bfloat16), 1e-5, cos, cos)
     with pytest.raises(NotImplementedError):
         pd.llama_decoder_layer_paged(*layer_args, **kw)
+    if "window" in kw:                     # a negative window is an error
+        with pytest.raises(ValueError, match="window"):
+            pd.paged_attention(q, kn, kn, kp, kp.clone(), *args, 0, window=-1)
+        with pytest.raises(ValueError, match="window"):
+            pd.llama_decoder_layer_paged(*layer_args, window=-1)
     with pytest.raises(NotImplementedError):
         pd.llama_decoder_layer_paged(*layer_args, bias_qkv=torch.zeros(3))
     with pytest.raises(NotImplementedError, match="int8"):   # int8 pools

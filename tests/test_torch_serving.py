@@ -50,18 +50,18 @@ def params():
     return jp, params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
 
 
-def _gaps(tp, prompt, tokens, kv_dtype=torch.bfloat16):
-    """Top-2 logit gaps of the float32 eager path at each of ``tokens``,
-    teacher-forced along them, on a cache of ``kv_dtype``."""
-    kc, vc = tmodel.init_cache(TCFG, device="cpu", dtype=kv_dtype)
-    lg, kc, vc = tmodel.prefill(tp, kc, vc, prompt, TCFG, flash=False)
+def _gaps(tp, prompt, tokens, kv_dtype=torch.bfloat16, cfg=TCFG):
+    """Top-2 logit gaps of the float32 eager path of ``cfg`` at each of
+    ``tokens``, teacher-forced along them, on a cache of ``kv_dtype``."""
+    kc, vc = tmodel.init_cache(cfg, device="cpu", dtype=kv_dtype)
+    lg, kc, vc = tmodel.prefill(tp, kc, vc, prompt, cfg, flash=False)
     lg, gaps = lg[-1], []
     for i, t in enumerate(tokens):
         top = torch.topk(lg, 2).values
         gaps.append(float(top[0] - top[1]))
         if i + 1 < len(tokens):
             lg, kc, vc = tmodel.decode_step(tp, kc, vc, t, len(prompt) + i,
-                                            TCFG, fused=False)
+                                            cfg, fused=False)
     _gaps_seen.extend(gaps)
     return gaps
 
@@ -74,10 +74,10 @@ def _rule_bites():
     assert sum(g > GAP for g in gaps) >= 0.5 * len(gaps) > 0, gaps
 
 
-def _agreed(tp, prompt, t_toks, j_toks, kv_dtype=torch.bfloat16):
+def _agreed(tp, prompt, t_toks, j_toks, kv_dtype=torch.bfloat16, cfg=TCFG):
     """Length of the prefix the rule holds the port to; asserts it."""
     assert len(t_toks) == len(j_toks), (t_toks, j_toks)
-    gaps = _gaps(tp, prompt, j_toks, kv_dtype)
+    gaps = _gaps(tp, prompt, j_toks, kv_dtype, cfg)
     for i, (a, b) in enumerate(zip(t_toks, j_toks)):
         if gaps[i] > GAP:
             assert a == b, (i, t_toks, j_toks, gaps)
@@ -325,7 +325,8 @@ def test_prefill_fault_is_isolated(params, monkeypatch):
 
 
 @pytest.mark.parametrize("cfg_kw", [
-    dict(sliding_window=16), dict(attn_logit_softcap=50.0),
+    dict(sliding_window=16, window_pattern="even"),
+    dict(attn_logit_softcap=50.0),
     dict(final_logit_softcap=30.0), dict(qkv_bias=True),
     dict(sandwich_norms=True), dict(ffn_act="gelu_tanh")])
 def test_engine_refuses_unported_configs(params, cfg_kw):

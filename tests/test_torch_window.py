@@ -38,10 +38,9 @@ eager paths and plain masked softmaxes): a window that reaches row 0 gives
 the bits of no window in all three twins; window 1 attends the current
 token alone; a window that starts inside a split; a verify whose first live
 split holds no live row for its later tokens (their partials fold as
-nothing, no NaN); a window changes the result.  Then the refusals: the
-serving engine, ``Llama.generate``, both tp steps, the sp step and kernel
-7's mode 5 refuse a window by name, and Gemma-2's ``"even"`` pattern is
-refused everywhere.
+nothing, no NaN); a window changes the result.  Then the refusals: both
+tp steps, the sp step and kernel 7's mode 5 refuse a window by name, and
+Gemma-2's ``"even"`` pattern is refused everywhere.
 """
 
 import dataclasses
@@ -409,20 +408,14 @@ def test_window_changes_the_result():
 # ---- what stays refused -----------------------------------------------------
 
 def test_paths_without_a_window_refuse_it_by_name():
-    """The serving engine (so ``Llama.generate``), both tp steps and the sp
-    step run kernels 6, 9 and 10, which take no window yet; kernel 7's
-    mode 5 neither.  Each raises NotImplementedError naming the window."""
-    from clusterfusion_tpu_torch.models.generation import Llama
-    from clusterfusion_tpu_torch.models.tokenizer import load_tokenizer
+    """Both tp steps and the sp step run kernel 6, which takes no window
+    yet; kernel 7's mode 5 neither.  Each raises NotImplementedError naming
+    the window.  (The serving engine and ``Llama.generate`` run it:
+    ``tests/test_torch_window_serving.py``.)"""
     from clusterfusion_tpu_torch.parallel import (make_sharded_decode_step,
                                                   make_sp_sharded_decode_step)
-    from clusterfusion_tpu_torch.runtime.serving import ServingEngine
     _, tcfg = _cfgs(16)
     tp = tmodel.init_params(tcfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="window.*kernels 6, 9"):
-        ServingEngine(tp, tcfg)
-    with pytest.raises(NotImplementedError, match="window"):
-        Llama(tp, tcfg, load_tokenizer("bytes")).generate([[1, 2, 3]], 4)
     for fused in (False, True):
         with pytest.raises(NotImplementedError, match="window"):
             make_sharded_decode_step(tcfg, None, fused_collectives=fused)
