@@ -423,6 +423,26 @@ random weights from seed 0; every other engine freed first):
    tokens) with the target as its own draft, one kernel-8 launch a
    round, drafts accepted, its stream equal to the greedy stream's where
    the gap exceeds 0.1.  ``[phases_47_50]`` prints their seconds.
+51-53. kernels 10 and 9 with the window and the engine with its rolling
+   page buffer (``phase_window_paged_attention``,
+   ``phase_window_paged_layer``, ``phase_window_serving``).
+54. kernel 6's window on layer 1 of the same tree over an 8192-row cache,
+   NaN below each bound and above pos: pos 4600 and 8000, windows 0, 4096,
+   100, pos + 1 and 1, bf16 and fp8 caches, int8 and int4-exact weights,
+   each against its twin at phase 13's limits (pos + 1 gives window 0's
+   bits); partials over four virtual shards of 2048 rows with the sp
+   step's bound (``shard_window_lo``) at pos 4600 and 6500, every shard
+   case, merged by the sp algebra against the unsharded call; the layer
+   at pos 8000, windows 4096 and 0, by ``queued_ms`` beside the bound;
+55. kernel 7's mode 5 with the window as a tp-2 pair on this card (the
+   tree regrouped to head group 1), pos 8000, windows 4096 and 1, against
+   the one-card window step: 4 layers free, 32 layer by layer
+   teacher-forced, the ranks' bits, 8L+1 kernels (7L+1 at window 1), the
+   pair's ms beside the bound; then 4 fused tp-2 steps after 4608 tokens;
+56. the tp and sp steps with the window in phase 14's one-rank NCCL group:
+   16 and 8 greedy steps after 4608 tokens against kernel 7's window step,
+   ms a step, kernels 6 and 2 counted.  ``[phases_54_56]`` prints their
+   seconds.
 
 Then, where the machine has two cards or more:
 
@@ -457,7 +477,11 @@ Then, where the machine has two cards or more:
    tp step at head dim 64 on TinyLlama's widths (its 4 kv heads over the
    ranks), bf16 and int4 W4A8 + ``Int8KV`` (``step=fused_hd64``,
    ``fused_hd64_int4_kvint8``), 16 steps after a 512-token prefill, the
-   bf16 stream against kernel 7 teacher-forced.
+   bf16 stream against kernel 7 teacher-forced.  Then Mistral-7B (window
+   4096, head group 1) after a 6143-token prefill: 16 steps of the fused
+   and of the NCCL tp step and 8 of the sp step at sp = the card count
+   (at 4 cards every shard case occurs), each against kernel 7's window
+   step teacher-forced on rank 0 (``step=mistral_*``).
    ``python3 chip_smoke.py multicard`` runs phases 1, 2 and 16 alone.
 
 Then one JSON line per kernel table, the card line, and last
@@ -2061,7 +2085,8 @@ def check_against_stack(params, cfg, k0, v0, pos0, first, toks, kcfg=None):
     return ref, gaps, bad
 
 
-def phase_sharded(eng, dev):
+def phase_sharded(eng, dev, prompt=None, steps=(32, 8), phase="sharded",
+                  plain=True):
     """The tp and sp fused decode steps end to end in a one-rank NCCL
     group: ``build_mesh(MeshConfig())``, ``shard_params`` (views of the
     engine's weights), a 512-token prefill through ``prefill`` (kernel 4),
@@ -2069,7 +2094,11 @@ def phase_sharded(eng, dev):
     ``make_sp_sharded_decode_step``, each stream against kernel 7's step and
     the plain path under the top-2-gap rule, with ms per step, tokens/s,
     launches of kernels 6 and 2 per step and the tp step's kernels by
-    device time.  Returns the launches of kernels 6 (both steps) and 2."""
+    device time.  Phase 56 runs it on the Mistral-7B engine (``prompt``:
+    phase 50's 4608 tokens, ``steps`` 16 and 8, the streams against kernel
+    7's one-card window step, not the plain path, ``plain=False``; every
+    kernel-6 launch a windowed one).  Returns the launches of kernels 6
+    (both steps) and 2."""
     import torch.distributed as dist
     from clusterfusion_tpu_torch.config import MeshConfig
     from clusterfusion_tpu_torch.models import llama as model
@@ -2087,8 +2116,10 @@ def phase_sharded(eng, dev):
         params = par.shard_params(eng.params, cfg, mesh)
         views = all(params["layers"][k] is eng.params["layers"][k]
                     for k in params["layers"])
-        text = ("The quick brown fox jumps over the lazy dog. " * 20)[:511]
-        prompt = eng.tokenizer.encode(text, bos=True, eos=False)
+        if prompt is None:
+            text = ("The quick brown fox jumps over the lazy dog. "
+                    * 20)[:511]
+            prompt = eng.tokenizer.encode(text, bos=True, eos=False)
         k0, v0 = model.init_cache(cfg, device=dev)
         fp.launches = 0
         lg, k0, v0 = model.prefill(eng.params, k0, v0, prompt, cfg)
@@ -2097,14 +2128,15 @@ def phase_sharded(eng, dev):
         pos0 = len(prompt)
         results = {}
         for name, n, make, spec in (
-                ("tp", 32, par.make_sharded_decode_step, par.cache_pspec()),
-                ("sp", 8, par.make_sp_sharded_decode_step,
+                ("tp", steps[0], par.make_sharded_decode_step,
+                 par.cache_pspec()),
+                ("sp", steps[1], par.make_sp_sharded_decode_step,
                  par.cache_pspec_2d())):
             step = make(cfg, mesh)
             kc = par.shard_cache(k0.clone(), mesh, spec)
             vc = par.shard_cache(v0.clone(), mesh, spec)
             tok = torch.tensor(first, device=dev)
-            dl.launches = 0
+            dl.launches = dl.window_launches = 0
             for k in rn.launches:
                 rn.launches[k] = 0
             out = []
@@ -2117,11 +2149,13 @@ def phase_sharded(eng, dev):
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             k6, k2 = dl.launches, rn.launches["fused_add_rmsnorm"]
+            k6w = dl.window_launches
             toks = [int(t) for t in out]
             finite = bool(torch.isfinite(lg).all())
             ref, gaps, bad = check_against_stack(eng.params, cfg, k0, v0,
                                                  pos0, first, toks)
-            say("sharded", step=name, mesh="tp=1,sp=1 (one rank, nccl)",
+            say(phase, step=name, mesh="tp=1,sp=1 (one rank, nccl)",
+                window=cfg.sliding_window, kernel6_window_launches=k6w,
                 prompt_tokens=pos0, new_tokens=n, params_are_views=views,
                 flash_prefill_launches=flash,
                 ms_per_step=f"{dt * 1e3 / n:.3f}",
@@ -2132,21 +2166,23 @@ def phase_sharded(eng, dev):
                 agree=f"{sum(a == b for a, b in zip(ref, toks))}/{n}",
                 disagree_where_gap_gt_0_1=bad,
                 min_top2_gap=f"{min(gaps):.3g}")
-            FIGURES[f"sharded_{name}_ms_per_step"] = dt * 1e3 / n
-            FIGURES[f"sharded_{name}_tokens_per_s"] = n / dt
+            FIGURES[f"{phase}_{name}_ms_per_step"] = dt * 1e3 / n
+            FIGURES[f"{phase}_{name}_tokens_per_s"] = n / dt
             want2 = L * n if name == "tp" else 0
             if k6 != L * n or k2 != want2 or not finite or bad \
-                    or flash != L or not views:
+                    or flash != L or not views \
+                    or k6w != (k6 if cfg.sliding_window else 0):
                 raise AssertionError(f"the {name} step: launches, tokens or "
                                      "kernel 7 agreement wrong")
-            plain, pgaps, pbad = check_against_plain(eng, dev, prompt,
-                                                     [first] + toks)
-            say("sharded", step=name, plain_tokens=plain,
-                top2_gaps=[round(x, 3) for x in pgaps],
-                disagree_where_gap_gt_0_1=pbad)
-            if pbad:
-                raise AssertionError(f"the {name} step and the plain path "
-                                     f"disagree at {pbad}")
+            if plain:
+                plain_t, pgaps, pbad = check_against_plain(eng, dev, prompt,
+                                                           [first] + toks)
+                say(phase, step=name, plain_tokens=plain_t,
+                    top2_gaps=[round(x, 3) for x in pgaps],
+                    disagree_where_gap_gt_0_1=pbad)
+                if pbad:
+                    raise AssertionError(f"the {name} step and the plain "
+                                         f"path disagree at {pbad}")
             results[name] = (k6, k2, step, kc, vc)
         # each step's device busy time, and the tp step's kernels by device
         # time (one position, repeated)
@@ -2158,14 +2194,15 @@ def phase_sharded(eng, dev):
         _, _, step, kc, vc = results["tp"]
         dev_ms, prof_wall, top = profile_by_kernel(
             lambda: step(params, kc, vc, first, pos0))
-        say("sharded_busy", tp_device_busy_ms_per_step=f"{busy['tp']:.4f}",
+        say(f"{phase}_busy", tp_device_busy_ms_per_step=f"{busy['tp']:.4f}",
             sp_device_busy_ms_per_step=f"{busy['sp']:.4f}")
-        say("sharded_profile", step="tp", device_ms_per_step=f"{dev_ms:.4f}",
+        FIGURES[f"{phase}_busy"] = busy
+        say(f"{phase}_profile", step="tp", device_ms_per_step=f"{dev_ms:.4f}",
             profiled_wall_ms_per_step=f"{prof_wall:.4f}",
             device_busy_share_profiled=f"{dev_ms / prof_wall:.3f}")
         for kname, kms, cnt in top:
-            say("sharded_profile", kernel=repr(kname), ms_per_step=f"{kms:.4f}",
-                launches_per_step=f"{cnt:g}")
+            say(f"{phase}_profile", kernel=repr(kname),
+                ms_per_step=f"{kms:.4f}", launches_per_step=f"{cnt:g}")
     finally:
         dist.destroy_process_group()
     return results["tp"][0] + results["sp"][0], results["tp"][1]
@@ -2448,7 +2485,7 @@ def phase_mode5(eng, dev, pos=600, params=None, phase="mode5", drift=None,
 
 def phase_fused_step(eng, dev, shards, n=16, params=None,
                      phase="fused_step", kcfg=None, stack_check=True,
-                     kv=None):
+                     kv=None, prompt=None):
     """Phase 15, third part (phase 26's, ``phase="fused_step_int8"``, on
     ``params``, the int8 tree whose ``shards`` phase_mode5 cut, each step
     one call of kernel 7's int8 mode): ``make_sharded_decode_step(
@@ -2470,8 +2507,9 @@ def phase_fused_step(eng, dev, shards, n=16, params=None,
     and leaves its agreement to phase 34's layer-by-layer check.  Phase 39
     runs it on an 8-bit cache (``kv``: "int8", an ``Int8KV`` pair, or
     "fp8"), prefilled and cut by ``shard_cache`` alike, each step one call
-    of kernel 7's 8-bit mode 5 a rank.  Returns kernel 13's reduces and
-    kernel 14's gathers."""
+    of kernel 7's 8-bit mode 5 a rank.  Phase 55 runs it on the Mistral-7B
+    tree after ``prompt`` (phase 50's 4608 tokens), every step past the
+    window.  Returns kernel 13's reduces and kernel 14's gathers."""
     from clusterfusion_tpu_torch import parallel as par
     from clusterfusion_tpu_torch.models import llama as model
     from clusterfusion_tpu_torch.ops import stack_kernel as sk
@@ -2479,8 +2517,9 @@ def phase_fused_step(eng, dev, shards, n=16, params=None,
     from clusterfusion_tpu_torch.parallel.mesh import AXES
     cfg, L, tp = eng.cfg, eng.cfg.n_layers, len(shards)
     p = eng.params if params is None else params
-    text = ("The quick brown fox jumps over the lazy dog. " * 20)[:511]
-    prompt = eng.tokenizer.encode(text, bos=True, eos=False)
+    if prompt is None:
+        text = ("The quick brown fox jumps over the lazy dog. " * 20)[:511]
+        prompt = eng.tokenizer.encode(text, bos=True, eos=False)
     k0, v0 = model.init_cache(cfg, device=dev, dtype=dict(
         KV8_FORMATS).get(kv, torch.bfloat16))
     lg, k0, v0 = model.prefill(p, k0, v0, prompt, cfg)
@@ -2594,6 +2633,24 @@ def phase_fused_step(eng, dev, shards, n=16, params=None,
     return k13, k14
 
 
+def regroup_heads(name, w, hg_from, hg_to):
+    """``wqkv_f`` [..., G, hidden, hg*C1] or ``wo_f`` [..., G, hg*R1,
+    hidden], whose head groups hold ``hg_from`` kv heads, regrouped to
+    ``hg_to`` (wqkv_f's columns and wo_f's rows are per kv head in head
+    order either way; ``shard_params`` cuts the groups over tp, so G must
+    divide by it); any other weight as it is."""
+    if name == "wo_f":
+        *lead, G, r, h = w.shape
+        return w.reshape(*lead, G * hg_from // hg_to, r // hg_from * hg_to, h)
+    if name != "wqkv_f":
+        return w
+    *lead, G, h, C = w.shape
+    kv, c1, n = G * hg_from, C // hg_from, len(lead)
+    per = w.reshape(*lead, G, h, hg_from, c1).movedim(n + 2, n + 1)
+    per = per.reshape(*lead, kv // hg_to, hg_to, h, c1).movedim(n + 1, n + 2)
+    return per.reshape(*lead, kv // hg_to, h, hg_to * c1)
+
+
 def quant_stack_weights(lw, hg_from, hg_to, kind="int8"):
     """The four projections of a bf16 tree whose groups hold ``hg_from`` kv
     heads, regrouped to ``hg_to`` (the quantized engines' layout) and
@@ -2601,22 +2658,13 @@ def quant_stack_weights(lw, hg_from, hg_to, kind="int8"):
     one layer at a time, so that the float32 temporaries are one layer's (a
     stacked float32 copy of the 7B ``w13`` alone is 11.8 GB)."""
     from clusterfusion_tpu_torch.ops.quant import QuantizedTensor, quantize
-    L, G, h, C = lw["wqkv_f"].shape
-    r = hg_to // hg_from
-
-    def regroup(name, w):
-        if name == "wqkv_f":     # group j's columns: old groups j*r.. in turn
-            return w.reshape(G // r, r, h, C).permute(0, 2, 1, 3).reshape(
-                G // r, h, r * C)
-        if name == "wo_f":       # group j's rows: old groups j*r.. in turn
-            return w.reshape(G // r, r * w.shape[1], h)
-        return w
-
+    L = lw["wqkv_f"].shape[0]
     out = {}
     for name in ("wqkv_f", "wo_f", "w13", "w2"):
         q = s = None
         for l in range(L):
-            t = quantize(regroup(name, lw[name][l]), kind, -2)
+            t = quantize(regroup_heads(name, lw[name][l], hg_from, hg_to),
+                         kind, -2)
             if q is None:
                 q = torch.empty((L, *t.q.shape), dtype=torch.int8,
                                 device=t.q.device)
@@ -5242,12 +5290,13 @@ def phase_kv8_layer(eng, eng8, eng4, dev, hbm, peak, cap=4096, layer=1):
     return row
 
 
-def mode5_kv8_bound(cfg, lw, hbm, peak, pos, fmt):
+def mode5_kv8_bound(cfg, lw, hbm, peak, pos, fmt, window=0):
     """(bound ms, bound_by, bytes) of a mode-5 pair step without the LM
     head at tp 2 on one card: both ranks' shards of the four projections
-    (the FFN at ``cfg.ffn_dim``) and the norms read once, the 8-bit rows
-    below pos (int8: and their scales) and the row written, x in, x_out and
-    the residual out."""
+    (the FFN at ``cfg.ffn_dim``) and the norms read once, the rows below
+    pos (``fmt`` "bf16", or 8-bit: int8 with their scales; under a sliding
+    ``window`` those at and above pos + 1 - window) and the row written, x
+    in, x_out and the residual out."""
     lw = dict(lw)
     lw["w13"], lw["w2"] = ffn_unpadded(cfg, lw)
     L, kvh, hd = lw["wqkv_f"].shape[0], cfg.kv_heads, cfg.head_dim_
@@ -5261,10 +5310,11 @@ def mode5_kv8_bound(cfg, lw, hbm, peak, pos, fmt):
             if hasattr(t, "q") else t.numel()
     names = ("wqkv_f", "wo_f", "w13", "w2")
     wbytes = sum(size(lw[k]) for k in (*names, "attn_norm", "ffn_norm"))
-    per_row = 2 * L * kvh * {"int8": hd + 4, "fp8": hd}[fmt]
-    nbytes = wbytes + per_row * (pos + 1) + 3 * 2 * cfg.hidden_dim
+    per_row = 2 * L * kvh * {"bf16": 2 * hd, "int8": hd + 4, "fp8": hd}[fmt]
+    attended = min(pos + 1, window) if window else pos + 1
+    nbytes = wbytes + per_row * attended + 3 * 2 * cfg.hidden_dim
     flops = 2 * sum(count(lw[k]) for k in names) + \
-        4 * L * cfg.n_heads * hd * (pos + 1)
+        4 * L * cfg.n_heads * hd * attended
     bound_by = "bytes" if nbytes / hbm >= flops / peak else "operations"
     return max(nbytes / hbm, flops / peak) * 1e3, bound_by, nbytes
 
@@ -7497,6 +7547,10 @@ MISTRAL_ROWS = (("flash_prefill_attention (sliding window)", "flash",
                  "stack_kernel.cu", "stack_kernel.py:524"),
                 ("fused_verify_stack (sliding window)", "verify",
                  "stack_verify.cu", "stack_verify.py:432"),
+                ("_fused_decoder_layer (sliding window)", "layer6_window",
+                 "decoder_layer.cu", "decoder_layer.py:421"),
+                ("fused_decoder_stack mode 5 (sliding window)",
+                 "mode5_window", "stack_kernel.cu", "stack_kernel.py:524"),
                 ("paged_attention (sliding window)", "paged_window",
                  "paged_attention.cu", "paged_decoder_layer.py:932"),
                 ("llama_decoder_layer_paged (sliding window)", "layer_window",
@@ -8543,8 +8597,483 @@ def phase_window_serving(eng, tree4, dev):
                 ["llama_decoder_layer_paged_window"])
 
 
+# -- Mistral's window on the multi-card paths (phases 54-56) -----------------
+
+#: Phase 54: kernel 6's positions and windows (None: pos + 1, reaching row
+#: 0), and the sp step's four virtual shards of K6_SHARD rows at each of
+#: K6_SHARD_POS (4600: shard 0 cut by the window, 1 inside, 2 the owner, 3
+#: empty; 6500: shard 0 wholly below the window, 1 cut, 2 inside, 3 the
+#: owner).
+K6_WINDOW_POS = (4600, 8000)
+K6_WINDOWS = (0, MISTRAL_WINDOW, 100, None, 1)
+K6_SHARD, K6_SHARD_POS = 2048, (4600, 6500)
+#: Phase 55: the pair's position and windows, the layers it runs free.
+MODE5_WINDOW_POS, MODE5_WINDOWS, MODE5_FREE_LAYERS = 8000, (MISTRAL_WINDOW,
+                                                            1), 4
+#: Phase 56: greedy steps of the tp and the sp step.
+SHARDED_WINDOW_STEPS = (16, 8)
+K6_WINDOW_LIB_NULL = ("no single PyTorch call computes the fused layer "
+                      "half or the mode-5 step")
+
+
+def nan_outside(c, lo, hi):
+    """NaN in every row of the cache ``c`` below ``lo`` and at and above
+    ``hi`` (e4m3: the NaN byte 0x7F), in place; returns ``c``."""
+    fp8 = c.dtype == torch.float8_e4m3fn
+    v = c.view(torch.uint8) if fp8 else c
+    nan = 0x7F if fp8 else float("nan")
+    v[:, :, :max(lo, 0)] = nan
+    v[:, :, hi:] = nan
+    return c
+
+
+def phase_window_layer(eng, dev, hbm, peak, layer=1):
+    """Phase 54: kernel 6's sliding window (``_fused_decoder_layer`` with
+    ``window`` and ``window_lo``) at Mistral-7B's width, layer 1 of the
+    engine's tree (head group 8), over a random 8192-row cache with NaN
+    above pos and below each window's bound: at pos 4600 and 8000, windows
+    0, 4096, 100, pos + 1 and 1, on bf16 and fp8 caches, full mode with the
+    append, each against its plain twin at phase 13's limits (out and
+    residual atol 2e-2 + rtol 2e-2; k_new, v_new and the appended row
+    0.05, fp8 plus one e4m3 step), finite, every other row's bits
+    unchanged, one kernel; window pos + 1 gives window 0's bits.  One case
+    with int8 weights (layer 1 quantized per output column) and one with
+    int4 weights in the exact mode (groups of 128) at pos 8000, window
+    4096.  Then partials mode with the sp step's bound
+    (``shard_window_lo``) over four virtual shards of 2048 rows, at pos
+    4600 and 6500 (``K6_SHARD_POS``): each shard against its twin (m and l
+    at 2e-2, acc at atol 5e-2 + rtol 2e-2), the wholly-below and empty
+    shards exactly (m = -1e30, l = 0, acc = 0), the four merged by the sp
+    step's algebra against one partials call over the whole cache with
+    the window (o within 2e-2).  Then the bf16 layer at pos 8000, windows
+    4096 and 0, by ``queued_ms`` beside the bound (the weights and the rows
+    in the window), its launch plan and phases.  Returns the kernels
+    line's row (pos 8000, window 4096, bf16)."""
+    from clusterfusion_tpu_torch.config import KernelConfig
+    from clusterfusion_tpu_torch.models import llama as model
+    from clusterfusion_tpu_torch.ops import decoder_layer as dl
+    from clusterfusion_tpu_torch.parallel.sp_decode import shard_window_lo
+    t0 = time.perf_counter()
+    cfg, lw = eng.cfg, eng.params["layers"]
+    g, hd, hidden = cfg.n_heads // cfg.kv_heads, cfg.head_dim_, cfg.hidden_dim
+    kvh, cap = cfg.kv_heads, MISTRAL_CAP
+    hg = kvh // lw["wqkv_f"].shape[1]
+    gen = torch.Generator(device=dev).manual_seed(54)
+
+    def rnd(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).bfloat16()
+
+    base = [rnd((1, kvh, cap, hd)) for _ in range(2)]
+    x, res = rnd((1, hidden)), rnd((1, hidden))
+    norm = 1 + 0.1 * rnd((hidden,))
+    kw = dict(group=g, head_dim=hd, rope_style=cfg.rope_style,
+              fuse_residual=True, eps=cfg.norm_eps)
+    one = {k: lw[k][layer:layer + 1] for k in ("wqkv_f", "wo_f", "w13", "w2")}
+    weights = {"bf16": (lw["wqkv_f"][layer], lw["wo_f"][layer], True)}
+    for kind, a8 in (("int8", True), ("int4", False)):
+        q = quant_stack_weights(one, hg, hg, kind)
+        weights[kind] = (q["wqkv_f"], q["wo_f"], a8)
+    fmts = dict(bf16=torch.bfloat16, fp8=torch.float8_e4m3fn)
+
+    def cache(pos, lo, fmt):
+        return [nan_outside(b.to(fmts[fmt], copy=True), lo, pos)
+                for b in base]
+
+    cases = [(pos, w, fmt, "bf16") for pos in K6_WINDOW_POS
+             for fmt in fmts for w in K6_WINDOWS]
+    cases += [(K6_WINDOW_POS[-1], MISTRAL_WINDOW, "bf16", wts)
+              for wts in ("int8", "int4")]
+    ok_all, outs, errs = True, {}, {}
+    for pos, w, fmt, wts in cases:
+        w = pos + 1 if w is None else w
+        lo = pos + 1 - w if w else 0
+        wq, wo, a8 = weights[wts]
+        kcfg = KernelConfig(int4_w4a8=a8)
+        cos, sin = model.rope_row(cfg, pos, dev)
+        kc, vc = cache(pos, lo, fmt)
+        kk, vk, kp, vp = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        args = (x, res, norm, cos, sin, wq, wo)
+        out = dl._fused_decoder_layer(*args, kk, vk, pos, 0, append_kv=True,
+                                      window=w, kcfg=kcfg, **kw)
+        n_kernels = dl.last_call_kernels
+        ref = dl._fused_decoder_layer_plain(*args, kp, vp, pos, 0,
+                                            append_kv=True, window=w,
+                                            kcfg=kcfg, **kw)
+        torch.cuda.synchronize()
+        err = max((out[i].float() - ref[i].float()).abs().max().item()
+                  for i in (0, 1))
+        within = all(bool(torch.isclose(out[i].float(), ref[i].float(),
+                                        **LIMITS_TOL).all()) for i in (0, 1))
+        new_err = max((out[i].float() - ref[i].float()).abs().max().item()
+                      for i in (2, 3))
+        step = KV8_STEP["fp8"] if fmt == "fp8" else 0.0
+        row_err = max((kv_values(a, [pos]) - kv_values(b, [pos])).abs().max()
+                      .item() for a, b in ((kk, kp), (vk, vp)))
+        row_mag = max(kv_values(b, [pos]).abs().max().item()
+                      for b in (kp, vp))
+        others = torch.ones(cap, dtype=torch.bool, device=dev)
+        others[pos] = False
+        unchanged = kv_same_bits(kk, kc, others) and \
+            kv_same_bits(vk, vc, others)
+        finite = all(bool(torch.isfinite(out[i].float()).all())
+                     for i in range(4))
+        ok = (within and new_err <= 0.05 and finite and unchanged
+              and row_err <= 0.05 + step * row_mag and n_kernels == 1)
+        say("window_layer", kernel=6, pos=pos, window=w, window_lo=lo,
+            cache=fmt, weights=wts, max_abs_err=f"{err:.4g}",
+            tol="out/res atol=2e-2+rtol=2e-2, new rows 0.05"
+                + (" + one e4m3 step" if step else ""),
+            k_new_v_new_err=f"{new_err:.4g}",
+            appended_row_err=f"{row_err:.4g}", finite=finite,
+            nan_below_bound_and_above_pos=True,
+            other_rows_unchanged=unchanged, kernels=n_kernels,
+            **dl.launch_plan(hidden, kvh, g, hd,
+                             kind=dict(int4="exact").get(wts, wts), kv=fmt,
+                             seq_len=pos, window=w), within=ok)
+        ok_all &= ok
+        outs[pos, w, fmt, wts] = [t.clone() for t in out[:4]] + [
+            kk[0, :, pos].clone(), vk[0, :, pos].clone()]
+        errs[pos, w, fmt, wts] = err
+        del kc, vc, kk, vk, kp, vp
+    for pos in K6_WINDOW_POS:
+        for fmt in fmts:
+            same = all(_bits_equal(a, b) for a, b in zip(
+                outs[pos, pos + 1, fmt, "bf16"], outs[pos, 0, fmt, "bf16"]))
+            say("window_layer", pos=pos, cache=fmt,
+                window_pos_plus_1_bits_equal_window_0=same)
+            ok_all &= same
+    del outs
+
+    # partials: the sp step's bound over four virtual shards, merged
+    wq, wo, _ = weights["bf16"]
+    for pos in K6_SHARD_POS:
+        lo_g = pos + 1 - MISTRAL_WINDOW
+        cos, sin = model.rope_row(cfg, pos, dev)
+        args = (x, res, norm, cos, sin, wq, wo)
+        kc, vc = cache(pos, lo_g, "bf16")
+        pkw = dict(kw, emit_partials=True, window=MISTRAL_WINDOW)
+        whole = dl._fused_decoder_layer(*args, kc, vc, pos, 0,
+                                        fold_current=1, **pkw)
+        parts, kinds = [], []
+        for s in range(cap // K6_SHARD):
+            start = s * K6_SHARD
+            seq = min(max(pos - start, 0), K6_SHARD)
+            fold = int(start <= pos < start + K6_SHARD)
+            lo = shard_window_lo(pos, MISTRAL_WINDOW, start)
+            ks = kc[:, :, start:start + K6_SHARD].contiguous()
+            vs = vc[:, :, start:start + K6_SHARD].contiguous()
+            got = dl._fused_decoder_layer(*args, ks, vs, seq, 0,
+                                          fold_current=fold, window_lo=lo,
+                                          **pkw)
+            ref = dl._fused_decoder_layer_plain(*args, ks, vs, seq, 0,
+                                                fold_current=fold,
+                                                window_lo=lo, **pkw)
+            torch.cuda.synchronize()
+            kind = ("empty" if seq == 0 else "below" if lo >= seq
+                    else "inside" if lo <= 0 else "cut") \
+                + ("+owner" if fold else "")
+            ml_err = (got[1] - ref[1]).abs().max().item()
+            acc_err = (got[0] - ref[0]).abs().max().item()
+            ok = (bool(torch.isclose(got[1], ref[1], atol=2e-2,
+                                     rtol=2e-2).all())
+                  and bool(torch.isclose(got[0], ref[0], atol=5e-2,
+                                         rtol=2e-2).all()))
+            exact = None
+            if kind in ("empty", "below"):
+                exact = bool(torch.all(got[1][0] == -1e30)
+                             and torch.all(got[1][1] == 0)
+                             and torch.all(got[0] == 0))
+                ok &= exact
+            say("window_layer_shard", kernel=6, pos=pos, shard=s,
+                rows=f"{start}-{start + K6_SHARD - 1}", seq_local=seq,
+                window_lo=lo, fold=fold, case=kind,
+                ml_err=f"{ml_err:.4g}", acc_err=f"{acc_err:.4g}",
+                tol="m,l atol=2e-2+rtol=2e-2; acc atol=5e-2+rtol=2e-2",
+                empty_state_exact=exact, within=ok)
+            ok_all &= ok
+            parts.append(got)
+            kinds.append(kind)
+        m = torch.stack([q[1][0] for q in parts])
+        m_g = m.amax(dim=0)
+        alpha = torch.exp2(m - m_g)
+        l_g = sum(q[1][1] * a for q, a in zip(parts, alpha))
+        acc_g = sum(q[0] * a[:, None] for q, a in zip(parts, alpha))
+        o_err = (acc_g / l_g[:, None]
+                 - whole[0] / whole[1][1][:, None]).abs().max().item()
+        say("window_layer_shard", pos=pos, shards=kinds,
+            merged_o_err_vs_unsharded=f"{o_err:.4g}", tol_o=2e-2)
+        ok_all &= o_err <= 2e-2
+        del kc, vc, parts, whole
+    if not ok_all:
+        raise AssertionError("kernel 6's window disagrees with its plain "
+                             "twin, or its bits, rows or shards are wrong")
+    check_s = time.perf_counter() - t0
+
+    # the bf16 layer at pos 8000, windows 4096 and 0, on the card's clock
+    pos = K6_WINDOW_POS[-1]
+    cos, sin = model.rope_row(cfg, pos, dev)
+    args = (x, res, norm, cos, sin, wq, wo)
+    ms, bounds, calls = {}, {}, {}
+    for w in (MISTRAL_WINDOW, 0):
+        kc, vc = cache(pos, pos + 1 - w if w else 0, "bf16")
+        calls[w] = functools.partial(dl._fused_decoder_layer, *args, kc, vc,
+                                     pos, 0, append_kv=True, window=w, **kw)
+        ms[w] = queued_ms(calls[w])
+        bounds[w] = _layer_bound(
+            hbm, peak, _bytes(wq, wo), wq.numel() + wo.numel(), kvh,
+            cfg.n_heads, min(pos, w - 1) if w else pos, hd,
+            5 * hidden * 2 + 4 * kvh * hd * 2)
+    phases = launch_phases(dl, calls[MISTRAL_WINDOW], 16 * kvh, K6_PHASES)
+    kc, vc = cache(pos, pos + 1 - MISTRAL_WINDOW, "bf16")
+    plain_ms = time_ms(lambda: dl._fused_decoder_layer_plain(
+        *args, kc, vc, pos, 0, append_kv=True, window=MISTRAL_WINDOW, **kw),
+        3)
+    bound, bound_by, nbytes = bounds[MISTRAL_WINDOW]
+    say("window_layer_time", kernel=6, pos=pos, cap=cap,
+        ms_window_4096=f"{ms[MISTRAL_WINDOW]:.4f}", ms_window_0=f"{ms[0]:.4f}",
+        how="queued_ms: 20 calls queued behind a spin, CUDA events",
+        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound:.4f}",
+        bound_by=bound_by, bytes=nbytes,
+        bound_ms_window_0=f"{bounds[0][0]:.4f}", bytes_window_0=bounds[0][2],
+        ms_over_bound=f"{ms[MISTRAL_WINDOW] / bound:.2f}",
+        **dl.launch_plan(hidden, kvh, g, hd, seq_len=pos,
+                         window=MISTRAL_WINDOW),
+        **phases, library_ms="null: " + K6_WINDOW_LIB_NULL,
+        check_s=f"{check_s:.1f}", seconds=f"{time.perf_counter() - t0:.1f}")
+    del base, kc, vc, calls
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=errs[pos, MISTRAL_WINDOW, "bf16", "bf16"],
+                ms=ms[MISTRAL_WINDOW], plain_ms=plain_ms, bound_ms=bound,
+                bound_by=bound_by, library_ms=None)
+
+
+def phase_window_mode5(eng, dev, hbm, peak):
+    """Phase 55: kernel 7's mode 5 with Mistral's window as a tp-2 pair on
+    this card (phase 46's form: two virtual ranks on their own streams
+    over a loopback communicator), the engine's tree regrouped to one kv
+    head a group (``shard_params`` cuts the groups over the ranks: 4 kv
+    heads a rank), pos 8000 over random rows with NaN above pos, no LM
+    head, at windows 4096 and 1, against kernel 7's one-card window step
+    on the same cache at phase 15's limits (x_out and the residual within
+    0.05 + 1e-2 of the largest value, the appended rows at phase 4's
+    limits, every other row's bits unchanged): the first 4 layers running
+    free, then all 32 layer by layer, teacher-forced (each layer from the
+    pair's own state).  The 32-layer pair's ranks bit-identical and
+    repeated, 8L+1 kernels a rank (7L+1 at window 1: no split pass), its
+    ms (10 pair steps back to back, as phase 26 times its pair) at windows
+    4096 and 0 beside the bound (both ranks' weights and the rows in the
+    window read once).  Then ``phase_fused_step``: 4 steps of the fused
+    tp-2 step with the LM head after phase 50's 4608-token prompt, against
+    kernel 7's one-card window step teacher-forced.  Returns (the kernels
+    line's row, the fused step's kernel-7 launches)."""
+    from clusterfusion_tpu_torch import parallel as par
+    from clusterfusion_tpu_torch.ops import stack_kernel as sk
+    from clusterfusion_tpu_torch.parallel import collective as col
+    t0 = time.perf_counter()
+    cfg, tp, L, pos = eng.cfg, 2, eng.cfg.n_layers, MODE5_WINDOW_POS
+    lw = eng.params["layers"]
+    hg = cfg.kv_heads // lw["wqkv_f"].shape[1]
+    p1 = dict(eng.params, layers=dict(lw, **{
+        k: regroup_heads(k, lw[k], hg, 1).contiguous()
+        for k in ("wqkv_f", "wo_f")}))
+    args, kw, kc, vc = _mistral_stack_case(cfg, p1, dev, pos, 55)
+    bare = {k: v for k, v in kw.items() if k not in ("final_norm",
+                                                     "lm_head")}
+    x, norms, rope, proj = args[0], args[1:3], args[3:5], args[5:]
+    names = ("attn_norm", "ffn_norm", "wqkv_f", "wo_f", "w13", "w2")
+    lb = col.LoopbackComm(tp, dev)
+    ok_all, errs, pair_ms = True, {}, {}
+    try:
+        meshes = [lb.mesh(r) for r in range(tp)]
+        shards = [par.shard_params(p1, cfg, m) for m in meshes]
+        streams = [torch.cuda.Stream(dev) for _ in range(tp)]
+
+        def pair(xin, ly, caches, w):
+            outs = []
+            for r in range(tp):
+                streams[r].wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(streams[r]):
+                    sl = shards[r]["layers"]
+                    outs.append(sk.fused_decoder_stack(
+                        xin, *(sl[k][ly] for k in names[:2]), *rope,
+                        *(sl[k][ly] for k in names[2:]), *caches[r], pos,
+                        window=w, reduce_axis="tp", mesh=meshes[r], **bare))
+            for st_ in streams:
+                torch.cuda.current_stream(dev).wait_stream(st_)
+            return outs
+
+        def rank_caches(lo, hi):
+            return [(par.shard_cache(kv_take(kc, lo, hi), m),
+                     par.shard_cache(kv_take(vc, lo, hi), m))
+                    for m in meshes]
+
+        def one_card(xin, lo, hi, w):
+            k, v = kv_take(kc, lo, hi), kv_take(vc, lo, hi)
+            out = sk.fused_decoder_stack(
+                xin, *(t[lo:hi] for t in norms), *rope,
+                *(t[lo:hi] for t in proj), k, v, pos, window=w, **bare)
+            return out[0], out[1], k, v
+
+        def held(got, want, lo, hi, r, l0):
+            """(x/res error over the largest value, rows error, within)."""
+            rel, ok = 0.0, True
+            for j in (0, 1):
+                e = (got[j].float() - want[j].float()).abs().max().item()
+                m_ = want[j].float().abs().max().item()
+                rel = max(rel, e / m_)
+                ok &= e <= 0.05 + 1e-2 * m_
+            hs = slice(r * cfg.kv_heads // tp, (r + 1) * cfg.kv_heads // tp)
+            rows = 0.0
+            others = torch.ones(MISTRAL_CAP, dtype=torch.bool, device=dev)
+            others[pos] = False
+            for a, b, before in ((got[2], want[2], kc), (got[3], want[3], vc)):
+                d = (kv_values(a, [pos]) - kv_values(kv_heads(b, hs), [pos])
+                     ).abs().amax(dim=(1, 2, 3))
+                mag = kv_values(kv_heads(b, hs), [pos]).abs().amax(
+                    dim=(1, 2, 3))
+                lim = 0.05 + 1e-2 * mag
+                if l0:
+                    lim[0] = 0.05
+                ok &= bool((d <= lim).all())
+                rows = max(rows, d.max().item())
+                ok &= kv_same_bits(a, kv_heads(kv_take(before, lo, hi), hs),
+                                   others)
+            return rel, rows, ok
+
+        # every kernel of the path loaded before a virtual rank spins (see
+        # ``LoopbackComm``): the one-card step first
+        one_card(x, 0, 1, MISTRAL_WINDOW)
+        for w in MODE5_WINDOWS:
+            n = MODE5_FREE_LAYERS
+            got = pair(x, slice(0, n), rank_caches(0, n), w)
+            per_free = sk.last_step_kernels
+            want = one_card(x, 0, n, w)
+            torch.cuda.synchronize()
+            lb.check()
+            free = [held(got[r], want, 0, n, r, True) for r in range(tp)]
+            ok = all(f[2] for f in free) and \
+                per_free == 8 * n + 1 - n * (w == 1)
+            # all 32 layers, layer by layer, teacher-forced
+            xin, rels, rows = x, [], []
+            for l in range(L):
+                got1 = pair(xin, slice(l, l + 1), rank_caches(l, l + 1), w)
+                want1 = one_card(xin, l, l + 1, w)
+                torch.cuda.synchronize()
+                lb.check()
+                h1 = [held(got1[r], want1, l, l + 1, r, l == 0)
+                      for r in range(tp)]
+                ok &= all(h[2] for h in h1)
+                rels.append(round(max(h[0] for h in h1), 5))
+                rows.append(round(max(h[1] for h in h1), 4))
+                xin = (got1[0][0].float() + got1[0][1].float()).bfloat16()
+            # the 32-layer pair: ranks' bits, a repeat, the launches
+            k0 = sk.launches
+            whole = pair(x, slice(0, L), rank_caches(0, L), w)
+            per_step = sk.last_step_kernels
+            again = pair(x, slice(0, L), rank_caches(0, L), w)
+            torch.cuda.synchronize()
+            lb.check()
+            same = all(_same_bits(o[j], whole[0][j]) and
+                       _same_bits(a[j], whole[0][j])
+                       for o, a in zip(whole, again) for j in (0, 1))
+            finite = all(bool(torch.isfinite(o[0].float()).all())
+                         for o in whole)
+            want_k = 8 * L + 1 - L * (w == 1)
+            ok &= (same and finite and per_step == want_k
+                   and sk.launches - k0 == 2 * tp)
+            errs[w] = max(max(f[0] for f in free), max(rels))
+            say("window_mode5", kernel=7, reduce_axis="tp", tp=tp,
+                loopback=True, pos=pos, window=w, head_group=1,
+                kv_heads_per_rank=cfg.kv_heads // tp,
+                free_layers=n, free_x_res_err_over_max=[
+                    round(f[0], 5) for f in free],
+                free_rows_err=[round(f[1], 4) for f in free],
+                free_kernels_per_step=per_free,
+                held="32 layers one by one vs kernel 7's one-card window "
+                     "step, teacher-forced",
+                x_res_err_over_max_by_layer=rels,
+                x_res_err_over_max_worst=max(rels),
+                rows_err_by_layer=rows, rows_err_worst=max(rows),
+                tol="x/res 0.05+1e-2*max|ref|; rows layer 0 atol=0.05, "
+                    "deeper atol=0.05+rtol=1e-2",
+                kernels_per_step=per_step, want_kernels=want_k,
+                ranks_bit_identical_and_repeat=same, finite=finite,
+                within=ok)
+            ok_all &= ok
+            del got, want, whole, again
+        # the 32-layer pair's time at windows 4096 and 0, beside the bound
+        for w in (MISTRAL_WINDOW, 0):
+            cs = rank_caches(0, L)
+            pair(x, slice(0, L), cs, w)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(10):
+                pair(x, slice(0, L), cs, w)
+            torch.cuda.synchronize()
+            pair_ms[w] = (time.perf_counter() - t1) * 1e2
+            lb.check()
+            del cs
+        t1 = time.perf_counter()
+        sk.fused_decoder_stack_plain_ranks(
+            [(x, *(shards[r]["layers"][k] for k in names[:2]), *rope,
+              *(shards[r]["layers"][k] for k in names[2:]),
+              *(par.shard_cache(kv_take(c, 0, L), meshes[r])
+                for c in (kc, vc)), pos) for r in range(tp)],
+            window=MISTRAL_WINDOW, **bare)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t1) * 1e3
+    finally:
+        lb.close()
+    if not ok_all:
+        raise AssertionError("kernel 7's mode 5 with the window disagrees "
+                             "with the one-card window step, or its bits or "
+                             "launches are wrong")
+    bound, bound_by, nbytes = mode5_kv8_bound(cfg, p1["layers"], hbm, peak,
+                                              pos, "bf16", MISTRAL_WINDOW)
+    bound0 = mode5_kv8_bound(cfg, p1["layers"], hbm, peak, pos, "bf16")
+    say("window_mode5_time", kernel=7, tp=tp, loopback=True, layers=L,
+        pos=pos, both_ranks_ms_per_step_window_4096=(
+            f"{pair_ms[MISTRAL_WINDOW]:.4f}"),
+        both_ranks_ms_per_step_window_0=f"{pair_ms[0]:.4f}",
+        how="10 pair steps back to back, host clock after a synchronize",
+        plain_ms=f"{plain_ms:.2f}", bound_ms=f"{bound:.4f}",
+        bound_by=bound_by, bytes=nbytes, bound_ms_window_0=f"{bound0[0]:.4f}",
+        ms_over_bound=f"{pair_ms[MISTRAL_WINDOW] / bound:.2f}",
+        library_ms="null: " + K6_WINDOW_LIB_NULL)
+    row = dict(max_abs_err=errs[MISTRAL_WINDOW], ms=pair_ms[MISTRAL_WINDOW],
+               plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+               library_ms=None)
+    del kc, vc
+    torch.cuda.empty_cache()
+    phase_fused_step(eng, dev, shards, n=4, params=p1,
+                     phase="window_fused_step",
+                     prompt=FIGURES["mistral_stream"][0])
+    launches = FIGURES["window_fused_step_launches"]
+    del shards, p1
+    torch.cuda.empty_cache()
+    say("window_mode5", seconds=f"{time.perf_counter() - t0:.1f}")
+    return row, launches
+
+
+def phase_window_sharded(eng, dev):
+    """Phase 56: the tp and sp steps with Mistral's window end to end in a
+    one-rank NCCL group (phase 14's form, ``phase_sharded``): phase 50's
+    4608-token prompt through the windowed prefill (kernel 4), then 16
+    greedy steps of ``make_sharded_decode_step`` (kernel 6 with its default
+    bound, the append inside it, kernel 2 between the halves) and 8 of
+    ``make_sp_sharded_decode_step`` (kernel 6 in partials mode with the
+    shard's bound), each stream against kernel 7's one-card window step
+    teacher-forced under the top-2-gap rule, ms a step and launches of
+    kernels 6 (every one windowed) and 2.  Returns kernel 6's launches."""
+    k6, _ = phase_sharded(eng, dev, prompt=FIGURES["mistral_stream"][0],
+                          steps=SHARDED_WINDOW_STEPS,
+                          phase="window_sharded", plain=False)
+    return k6
+
+
 def phase_mistral(dev, hbm, peak):
-    """Phases 47-53 (the Mistral-7B cell): returns {kernel: kernels-line
+    """Phases 47-56 (the Mistral-7B cell): returns {kernel: kernels-line
     row} and the main path's launches."""
     t0 = time.perf_counter()
     eng = mistral_engine(dev)
@@ -8577,7 +9106,19 @@ def phase_mistral(dev, hbm, peak):
     say("phases_51_53", seconds=f"{t54 - t51:.1f}",
         phase51_s=f"{t52 - t51:.1f}", phase52_s=f"{t53 - t52:.1f}",
         phase53_s=f"{t54 - t53:.1f}")
-    del eng, tree4, lw
+    del tree4, lw
+    torch.cuda.empty_cache()
+    rows["layer6_window"] = phase_window_layer(eng, dev, hbm, peak)
+    t55 = time.perf_counter()
+    rows["mode5_window"], launches["mode5_window"] = phase_window_mode5(
+        eng, dev, hbm, peak)
+    t56 = time.perf_counter()
+    launches["layer6_window"] = phase_window_sharded(eng, dev)
+    t57 = time.perf_counter()
+    say("phases_54_56", seconds=f"{t57 - t54:.1f}",
+        phase54_s=f"{t55 - t54:.1f}", phase55_s=f"{t56 - t55:.1f}",
+        phase56_s=f"{t57 - t56:.1f}")
+    del eng
     torch.cuda.empty_cache()
     return rows, launches
 
@@ -8998,6 +9539,128 @@ def _multicard_hd64(rank, world, dev, mesh, n=16):
     return out
 
 
+#: Phase 16's Mistral-7B prompt: at sp 4 (shards of 2048 rows) its first
+#: step finds shard 0 wholly below the window, shard 1 inside it from its
+#: first row, shard 2 inside it and the owner, shard 3 empty; the next
+#: steps cut shard 1 and make shard 3 the owner.
+MULTICARD_MISTRAL_PROMPT = 6143
+
+
+def _shard_case(pos, window, start, cap_l):
+    """The sp step's case of the shard at ``start`` for the token at pos."""
+    from clusterfusion_tpu_torch.parallel.sp_decode import shard_window_lo
+    seq = min(max(pos - start, 0), cap_l)
+    lo = shard_window_lo(pos, window, start)
+    kind = ("empty" if seq == 0 else "below" if lo >= seq
+            else "inside" if lo <= 0 else "cut")
+    return kind + ("+owner" if start <= pos < start + cap_l else "")
+
+
+def _multicard_mistral(rank, world, dev, mesh, n=16, n_sp=8):
+    """Phase 16, fourth part: Mistral-7B (window 4096, capacity 8192, seed
+    0, head group 1) on every rank, a 6143-token prefill (kernel 4's
+    window), then ``n`` greedy steps of the fused tp step (kernel 7's mode
+    5 with the window, 8L+3 kernels) and of the NCCL tp step (kernel 6
+    with its default bound), then ``n_sp`` steps of the sp step at sp =
+    the card count (kernel 6 in partials mode with each shard's bound; at
+    4 cards every shard case occurs: ``MULTICARD_MISTRAL_PROMPT``).  Rank 0
+    holds each stream against kernel 7's one-card window step
+    teacher-forced under the top-2-gap rule; every rank's logits are held
+    against rank 0's bits (the fused step's must be equal)."""
+    import torch.distributed as dist
+    from clusterfusion_tpu_torch import parallel as par
+    from clusterfusion_tpu_torch.config import LlamaConfig, MeshConfig
+    from clusterfusion_tpu_torch.models import llama as model
+    from clusterfusion_tpu_torch.ops import decoder_layer as dl
+    from clusterfusion_tpu_torch.ops import stack_kernel as sk
+    from clusterfusion_tpu_torch.parallel import collective as col
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(LlamaConfig.mistral_7b(),
+                              max_seq_len=MISTRAL_CAP)
+    L, W = cfg.n_layers, cfg.sliding_window
+    full = model.init_params(cfg, seed=0, head_group=1, device=dev)
+    prompt = [(i * 37 + 11) % cfg.vocab_size
+              for i in range(MULTICARD_MISTRAL_PROMPT)]
+    k0, v0 = model.init_cache(cfg, device=dev)
+    lg, k0, v0 = model.prefill(full, k0, v0, prompt, cfg)
+    first, pos0 = int(torch.argmax(lg[-1])), len(prompt)
+    sp_mesh = par.build_mesh(MeshConfig(sp=world))
+    out = {}
+    for name, m, fused, steps in (("mistral_fused", mesh, True, n),
+                                  ("mistral_nccl", mesh, False, n),
+                                  ("mistral_sp", sp_mesh, None, n_sp)):
+        axis = "tp" if fused is not None else "sp"
+        spec = par.cache_pspec() if axis == "tp" else par.cache_pspec_2d()
+        params = par.shard_params(full, cfg, m)
+        step = par.make_sp_sharded_decode_step(cfg, m) if fused is None \
+            else par.make_sharded_decode_step(cfg, m, fused_collectives=fused)
+        kc = par.shard_cache(k0.clone(), m, spec)
+        vc = par.shard_cache(v0.clone(), m, spec)
+        for i in range(2):                       # warm-up, rows rewritten
+            step(params, kc, vc, first, pos0 + i)
+        dist.barrier()
+        torch.cuda.synchronize()
+        for k in col.launches:
+            col.launches[k] = col.standalone[k] = 0
+        sk.launches = dl.launches = dl.window_launches = 0
+        sk.last_step_kernels = 0
+        tok, toks, logs = torch.tensor(first, device=dev), [], []
+        t1 = time.perf_counter()
+        for i in range(steps):
+            lg, kc, vc = step(params, kc, vc, tok, pos0 + i)
+            tok = torch.argmax(lg)
+            toks.append(tok)
+            logs.append(lg)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        mine = torch.stack(logs)
+        every = [torch.empty_like(mine) for _ in range(world)]
+        dist.all_gather(every, mine, group=m.groups[axis])
+        same = all(_bits_equal(e, every[0]) for e in every)
+        launched = dict(kernel7=sk.launches, kernel6=dl.launches,
+                        kernel6_window=dl.window_launches,
+                        kernel13=col.launches["all_reduce"],
+                        kernel14=col.launches["all_gather"],
+                        kernel7_kernels_per_step=sk.last_step_kernels)
+        want = (dict(kernel7=steps, kernel6=0, kernel6_window=0,
+                     kernel13=2 * L * steps, kernel14=steps,
+                     kernel7_kernels_per_step=8 * L + 3) if fused else
+                dict(kernel7=0, kernel6=L * steps, kernel6_window=L * steps,
+                     kernel13=0, kernel14=0, kernel7_kernels_per_step=0))
+        toks = [int(t) for t in toks]
+        bad = []
+        if rank == 0:
+            ref, gaps, bad = check_against_stack(full, cfg, k0, v0, pos0,
+                                                 first, toks)
+            cases = {}
+            if axis == "sp":
+                cap_l = MISTRAL_CAP // world
+                cases = dict(shard_cases=[
+                    [_shard_case(pos0 + i, W, s * cap_l, cap_l)
+                     for i in range(steps)] for s in range(world)])
+            say("multicard", step=name, tp=world if axis == "tp" else 1,
+                sp=world if axis == "sp" else 1, window=W,
+                prompt_tokens=pos0, new_tokens=steps,
+                ms_per_step=f"{dt * 1e3 / steps:.3f}",
+                tokens_per_s=f"{steps / dt:.2f}", **launched,
+                ranks_logits_bit_identical=same, tokens=toks[:8],
+                kernel7_tokens=ref[:8],
+                agree=f"{sum(a == b for a, b in zip(ref, toks))}/{steps}",
+                disagree_where_gap_gt_0_1=bad,
+                min_top2_gap=f"{min(gaps):.3g}", **cases)
+        dist.barrier()
+        if launched != want or bad or (fused and not same):
+            raise AssertionError(f"rank {rank}, the {name} step: launches "
+                                 f"{launched} (want {want}), tokens {bad} or "
+                                 f"ranks' logits identical: {same}")
+        out[f"{name}_ms_per_step"] = dt * 1e3 / steps
+        del params, kc, vc, step
+        torch.cuda.empty_cache()
+    if rank == 0:
+        say("multicard_mistral", seconds=f"{time.perf_counter() - t0:.1f}")
+    return out
+
+
 def _multicard_rank(rank, world, tmp, hbm):
     """One rank of phase 16 (``torch.multiprocessing`` target)."""
     import torch.distributed as dist
@@ -9014,6 +9677,7 @@ def _multicard_rank(rank, world, tmp, hbm):
         out = _multicard_collectives(rank, world, dev, mesh, hbm)
         out.update(_multicard_steps(rank, world, dev, mesh))
         out.update(_multicard_hd64(rank, world, dev, mesh))
+        out.update(_multicard_mistral(rank, world, dev, mesh))
         dist.barrier()
     finally:
         col.release_communicators()
@@ -9027,8 +9691,9 @@ def phase_multicard(hbm):
     """Phase 16, where the machine has two cards or more: one rank per card
     (``torch.multiprocessing``, a ``file://`` store, NCCL); kernels 13 and
     14 over NVLink against their plain versions and NCCL, then the fused
-    and the NCCL tp steps end to end.  A failure in any rank fails the run.
-    On one card it prints that it did not run."""
+    and the NCCL tp steps end to end, and Mistral-7B's windowed fused, NCCL
+    and sp steps (``_multicard_mistral``).  A failure in any rank fails
+    the run.  On one card it prints that it did not run."""
     import tempfile
 
     import torch.multiprocessing as mp

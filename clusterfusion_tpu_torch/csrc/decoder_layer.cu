@@ -5,8 +5,9 @@
 //
 // Replaces the TPU kernel `_fused_decoder_layer`
 // (clusterfusion_tpu/ops/decoder_layer.py, `_decoder_layer_kernel`) for
-// bf16, int8 or int4 weights, a bf16 or fp8 e4m3 KV cache, no window, no
-// bias and no softcap, with one layer's slices of its layouts:
+// bf16, int8 or int4 weights, a bf16 or fp8 e4m3 KV cache, a sliding
+// window (Mistral's, with the sp step's shard bound; below), no bias and
+// no softcap, with one layer's slices of its layouts:
 //   wqkv [G, hidden, hg*(g+2)*hd]   columns per kv head [q_0..q_{g-1}|k|v]
 //   wo   [G, hg*g*hd, hidden]       caches [kv_heads, cap, hd]
 // (the wrapper passes pointers into the [L, ...] stacks; nothing is
@@ -44,8 +45,9 @@
 //                 crosses ranks), so all hold the same bits of q, k and v
 //   3. rope       q roped, pre-scaled by 1/sqrt(hd)*log2(e), bf16 for the
 //                 dots; rank 0 writes k_new/v_new and (append) row `seq`
-//   4. split-KV   split s (kv_split rows < seq) is rank s % C's; a rank
-//                 walks its splits in chunks (up to 32 KB of scores): the
+//   4. split-KV   live split s (kv_split rows < seq; see the window) is
+//                 rank s % C's; a rank walks its splits in chunks (up to
+//                 32 KB of scores): the
 //                 chunk's K rows (one bulk copy per tile; only rows < seq
 //                 are copied, so row `seq` and whatever lies above it are
 //                 never read), each split's max m_s and sum l_s of
@@ -115,6 +117,27 @@
 // v (saturating at +-448), no bf16 step between; k_new/v_new stay bf16 and
 // the current token's fold stays float32.  An Int8KV cache is not taken:
 // the TPU kernel reads none either.
+//
+// Sliding window (the TPU kernel's `window` and prefetched `window_lo`,
+// Mistral's pattern): the token attends the cached rows >= lo and itself,
+// lo the window's bound in this cache's own rows (seq + 1 - window on one
+// card; the sp step's shard translates the global bound into its rows,
+// pos + 1 - window - start, which may lie below 0 or at or above seq), the
+// entry clamping it to [0, seq].  The splits keep their boundaries
+// (multiples of kv_split from row 0, so a bound at or below row 0 runs the
+// arithmetic of no window bit for bit).  Splits wholly below lo are not
+// walked at all (the TPU kernel aliases their chunks and skips them); the
+// live ones are f = lo / kv_split onwards, and live split 0 starts at row
+// lo: its bulk copies start at the bound's row (rows of 64 to 256 bytes,
+// so every copy stays 16-byte aligned) and no byte below it is fetched, so
+// whatever lies there (NaN too) reaches no output.  The round-robin of
+// splits over a cluster's ranks starts at the first live split, so a
+// window of a few splits still spreads over the ranks.  A rank with no
+// live split, and a whole cluster with none (a shard below the window),
+// keeps the empty state (m = -1e30, l = 0, acc = 0) through the merge, so
+// partials mode without the fold writes exactly that.  The append writes
+// row seq, which always lies in the window.  The bound is a runtime
+// argument of the same instances (no template instance of its own).
 
 #include <string.h>
 
@@ -146,6 +169,8 @@ struct DlGeom {
   int kch;   // splits per chunk of the split-KV walk
   int nst;   // ring stages
   float eps;
+  int lo;    // the first cached row read: the window's bound in [0, seq] (0: none)
+  int f;     // the first live split (the one holding row lo): splits f .. f+ns-1
 };
 
 // Shared-memory offsets (bytes) of one block.
@@ -242,17 +267,28 @@ decoder_layer_kernel(const __grid_constant__ CUtensorMap qmap,
   const int q0 = rank * G.cw, cql = max(0, min(G.cw, cq - q0));
   const int c0 = rank * G.oc, ocl = max(0, min(G.oc, G.hidden - c0));
 
-  // the tile sequence: QKV rows, then per chunk of this rank's splits
-  // (rank, rank + C, ...; only the globally last split can be short) the K
-  // tiles, then the V tiles; then wo rows
+  // the tile sequence: QKV rows, then per chunk of this rank's splits the
+  // K tiles, then the V tiles; then wo rows.  This rank's j-th split is
+  // live split rank + j*C (the round-robin starts at the first live split,
+  // so a short window keeps the ranks busy alike), rows [split_r0(j),
+  // split_r0(j) + split_rows(j)): live split 0 starts at the window's
+  // bound G.lo, and only it and the last live split can be short
   const int hrows = G.hidden / KR;                // wqkv rows (int4: packed)
   const int nq = cql > 0 ? (hrows + G.rq - 1) / G.rq : 0;
   const int nmine = G.ns > rank ? (G.ns - 1 - rank) / C + 1 : 0;
   const int ntf = (G.split + G.tr - 1) / G.tr;   // K (or V) tiles of a full split
-  int nkv = 0;
+  auto split_r0 = [&](int j) {
+    const int s = rank + j * C;
+    return s == 0 ? G.lo : (G.f + s) * G.split;
+  };
+  auto split_rows = [&](int j) {
+    return min((G.f + rank + j * C + 1) * G.split, G.seq) - split_r0(j);
+  };
+  auto split_tiles = [&](int j) { return (split_rows(j) + G.tr - 1) / G.tr; };
+  int nkv = 2 * ntf * nmine;                      // less the short splits' missing tiles
   if (nmine > 0) {
-    const int nl = min(G.split, G.seq - (rank + (nmine - 1) * C) * G.split);
-    nkv = 2 * (ntf * (nmine - 1) + (nl + G.tr - 1) / G.tr);
+    if (rank == 0) nkv += 2 * (split_tiles(0) - ntf);
+    if (rank != 0 || nmine > 1) nkv += 2 * (split_tiles(nmine - 1) - ntf);
   }
   const int no = (A8 || G.partials || ocl == 0) ? 0 : (ghd / KR + G.ro - 1) / G.ro;
   const int total = nq + nkv + no;
@@ -263,7 +299,11 @@ decoder_layer_kernel(const __grid_constant__ CUtensorMap qmap,
   // the producer (lane 0): tile u into stage u % nst.  A QKV box is [rq rows]
   // [cw/pw][pw] of the map over the layer's wqkv as [G*hidden][hg*(g+2)*hd
   // /pw][pw]; a wo box [ro rows][oc/bw][bw] of the map over wo as
-  // [kv*g*hd][hidden/bw][bw]; what lies past the tensor arrives as zeros
+  // [kv*g*hd][hidden/bw][bw]; what lies past the tensor arrives as zeros.
+  // K/V tiles follow a cursor (tiles are issued in order): split pj, its
+  // tile pt, of the chunk starting at split pc, its V tiles when pv
+  int pj = 0, pt = 0, pc = 0;
+  bool pv = false;
   auto issue = [&](int u) {
     const int s = u % G.nst;
     unsigned char* dst = ring + s * OL_STAGE;
@@ -273,20 +313,18 @@ decoder_layer_kernel(const __grid_constant__ CUtensorMap qmap,
       hopper::tma_load_3d(dst, &qmap, &full[s], 0, (hin * cq + q0) / G.pw,
                           grp * hrows + u * G.rq);
     } else if (u < nq + nkv) {
-      int v = u - nq;
-      const int c = v / (2 * G.kch * ntf), j0 = c * G.kch;
-      v -= c * 2 * G.kch * ntf;
-      const int nsc = min(G.kch, nmine - j0);
-      const int nl = min(G.split, G.seq - (rank + (j0 + nsc - 1) * C) * G.split);
-      const int ntk = ntf * (nsc - 1) + (nl + G.tr - 1) / G.tr;   // K tiles of the chunk
-      const bool is_v = v >= ntk;
-      if (is_v) v -= ntk;
-      const int r0 = (rank + (j0 + v / ntf) * C) * G.split, t = v % ntf;
-      const int n = min(G.split, G.seq - r0);
-      const uint32_t bytes = (uint32_t)min(G.tr, n - t * G.tr) * hd * KB;
+      const uint32_t bytes = (uint32_t)min(G.tr, split_rows(pj) - pt * G.tr) * hd * KB;
       hopper::mbar_arrive_expect_tx(&full[s], bytes);
-      hopper::bulk_load_1d(dst, (is_v ? vh : kh) + (size_t)(r0 + t * G.tr) * hd, bytes,
-                           &full[s]);
+      hopper::bulk_load_1d(dst, (pv ? vh : kh) + (size_t)(split_r0(pj) + pt * G.tr) * hd,
+                           bytes, &full[s]);
+      if (++pt == split_tiles(pj)) {              // the chunk's next split, its V
+        pt = 0;                                   // tiles after its K tiles, then
+        if (++pj == min(pc + G.kch, nmine)) {     // the next chunk
+          if (pv) pc += G.kch;
+          pj = pc;
+          pv = !pv;
+        }
+      }
     } else {
       const int t = u - nq - nkv;
       hopper::mbar_arrive_expect_tx(&full[s], (uint32_t)G.ro * G.oc * EB);
@@ -468,7 +506,6 @@ decoder_layer_kernel(const __grid_constant__ CUtensorMap qmap,
       qv[i][c] = GT <= 2 && i < g && c < npq
                      ? *reinterpret_cast<const uint4*>(qb + i * hd + kpc[c] * 8)
                      : make_uint4(0u, 0u, 0u, 0u);
-  auto split_rows = [&](int j) { return min(G.split, G.seq - (rank + j * C) * G.split); };
   for (int j0 = 0; j0 < nmine; j0 += G.kch) {
     const int nsc = min(G.kch, nmine - j0);
     for (int jj = 0; jj < nsc; ++jj) {
@@ -926,7 +963,9 @@ extern "C" long long cf_decoder_layer_scratch_floats(int hidden, int kv_heads) {
 // the head groups' o as one [kv*g*hd, hidden] product whose activation
 // blocks are the head groups (the TPU kernel quantizes each head group's
 // o_flat against its own absmax, and no cluster holds a whole group), out
-// = bf16 of its sums.  Returns a cudaError_t (0 on success).
+// = bf16 of its sums.  window_lo: the sliding window's bound in this
+// cache's rows, the first row read (0: no window; at or above seq, clamped
+// to seq: no cached row is read).  Returns a cudaError_t (0 on success).
 extern "C" int cf_decoder_layer(
     const void* x, const void* residual, const void* rms_w, const void* cos,
     const void* sin, const void* wqkv, const void* wo, void* kc, void* vc,
@@ -934,7 +973,7 @@ extern "C" int cf_decoder_layer(
     void* ml_out, void* scratch, int hidden, int kv_heads, int hg, int group,
     int hd, int cap, int seq, int fold, int append, int neox, float eps,
     int kv_split, void* stamps, int* n_launches, void* stream, const void* wqkv_s,
-    const void* wo_s, int wk, void* o_buf, int o_threads, int kv_kind) {
+    const void* wo_s, int wk, void* o_buf, int o_threads, int kv_kind, int window_lo) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   *n_launches = 0;
   const bool partials = acc_out != nullptr;
@@ -957,7 +996,11 @@ extern "C" int cf_decoder_layer(
     return (int)cudaErrorInvalidValue;
   DlGeom G{hidden, kv_heads, hg, group, hd, cap, seq, kv_split, fold ? 1 : 0,
            neox ? 1 : 0, append ? 1 : 0, partials ? 1 : 0};
-  G.ns = (seq + kv_split - 1) / kv_split;
+  // the window's bound: rows below lo are neither read nor weighed; the
+  // splits keep their boundaries, and the live ones are f .. f + ns - 1
+  G.lo = std::min(std::max(window_lo, 0), seq);
+  G.f = G.lo < seq ? G.lo / kv_split : (seq + kv_split - 1) / kv_split;
+  G.ns = (seq + kv_split - 1) / kv_split - G.f;
   G.eps = eps;
   int c = 0;
   CF_CHECK(dl_pick(hidden, kv_heads, group, hd, kv_split, wk, kv_kind, &c, nullptr));

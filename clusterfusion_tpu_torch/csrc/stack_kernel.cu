@@ -5,7 +5,7 @@
 // (clusterfusion_tpu/ops/stack_kernel.py, `_stack_kernel`) for bf16, int8
 // or int4 weights, a bf16, int8 (Int8KV) or fp8 e4m3 KV cache (in mode 5
 // too), head dim 128 or 64 (its defer_append variant), a sliding window
-// on one card (Mistral's, below), no bias and no sandwich norms, with the
+// (Mistral's, below; in mode 5 too), no bias and no sandwich norms, with the
 // same layouts:
 //   wqkv_f [L, G, hidden, hg*(g+2)*hd]  columns per kv head [q_0..q_{g-1}|k|v]
 //   wo_f   [L, G, hg*g*hd, hidden]
@@ -143,8 +143,12 @@
 // cost none; the merge folds those splits alone.  The window is a runtime
 // argument of the same kernels (no template instance of its own); window 0,
 // or one that reaches row 0, gives the bits of no window.  window 1 reads
-// no cached row and launches no split block, as pos 0 does.  Mode 5 (comm)
-// takes no window yet.
+// no cached row and launches no split block, as pos 0 does.  In mode 5
+// (comm) each rank runs the same split and merge over its own kv heads:
+// the window decides which rows a head reads and nothing of the reduces,
+// which ride the O and down products and the norms after them, so the
+// PDL chain and the flags are those of no window, with one kernel a
+// layer fewer at window 1 (7L+3 with the logits gathered).
 //
 // The split and merge passes are common.cuh's attn_split_kernel and
 // attn_merge_kernel (attn_merge8_kernel for an 8-bit cache): the split
@@ -361,7 +365,7 @@ extern "C" long long cf_stack_scratch_floats(int hidden, int kv_heads, int hg,
 // kv_kind (common.cuh's KV_*): the cache kind of kc/vc; KV_INT8: int8 rows
 // and ks/vs their float32 scale planes [L, kv_heads, srow] (srow = R * 128
 // >= cap); KV_FP8: e4m3 rows; with comm too (mode 5: this rank's heads).
-// window: 0 for full attention, else the sliding window (one card only).
+// window: 0 for full attention, else the sliding window (with comm too).
 // Returns a cudaError_t (0 on success); every refusal comes before the
 // first launch.
 extern "C" int cf_decoder_stack(
@@ -379,7 +383,7 @@ extern "C" int cf_decoder_stack(
   const CfComm* cc = static_cast<const CfComm*>(comm);
   const bool w8 = wq_kind == WK_INT8, w4 = wq_kind == WK_INT4 || wq_kind == WK_INT4A8;
   *n_launches = 0;
-  if (window < 0 || (window > 0 && cc)) return (int)cudaErrorInvalidValue;
+  if (window < 0) return (int)cudaErrorInvalidValue;
   if (wq_kind < WK_BF16 || wq_kind > WK_INT4A8 || (wq_kind != WK_BF16) != (wqkv_s != nullptr))
     return (int)cudaErrorInvalidValue;
   if (kv_kind < KV_BF16 || kv_kind > KV_FP8 ||

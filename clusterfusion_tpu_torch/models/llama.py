@@ -34,9 +34,10 @@ A sliding window (``cfg.sliding_window``, Mistral's semantics: position p
 attends positions ``>= p + 1 - window``) in the pattern ``"all"`` runs on
 the single-card bs=1 entries: the prefill (kernel 4's window), the decode
 step, fused (kernel 7's) and eager, and the speculative verify
-(``models.speculative``, kernel 8's), and in the serving engine (kernels
-9 and 10's, ``runtime.serving``).  The tp and sp steps and Gemma-2's
-``"even"`` pattern refuse it by name (:func:`_check_supported`).
+(``models.speculative``, kernel 8's), in the serving engine (kernels 9
+and 10's, ``runtime.serving``) and in the tp and sp steps (kernel 6's and
+kernel 7's mode 5, ``parallel``).  Gemma-2's ``"even"`` pattern is refused
+by name (:func:`_check_supported`).
 
 Unlike the JAX package, whose functions return new caches, the caches are
 updated in place here: every function that takes ``k_cache``/``v_cache``
@@ -143,11 +144,9 @@ def init_params(cfg: LlamaConfig, seed: int = 0,
     }
 
 
-def _check_supported(cfg: LlamaConfig, what: str,
-                     window: bool = False) -> None:
-    """Raise, naming ``what``, on a config the entry does not run:
-    ``window`` says whether it runs a sliding window in Mistral's pattern
-    (the single-card entries do: bs=1 and the serving engine).  Gemma-2's
+def _check_supported(cfg: LlamaConfig, what: str) -> None:
+    """Raise, naming ``what``, on a config the entry does not run.  Every
+    Llama entry runs a sliding window in Mistral's pattern; Gemma-2's
     ``"even"`` pattern, QKV bias, sandwich norms, softcaps and GeGLU raise
     everywhere."""
     if cfg.sliding_window and cfg.window_pattern != "all":
@@ -155,13 +154,6 @@ def _check_supported(cfg: LlamaConfig, what: str,
             f"{what}: window_pattern {cfg.window_pattern!r} (Gemma-2's "
             "interleaved local/global layers) is not ported yet (ROADMAP.md "
             "queue 2, mode 3)")
-    if cfg.sliding_window and not window:
-        raise NotImplementedError(
-            f"{what}: a sliding window is not ported to the multi-card "
-            "paths yet (it needs the window in kernel 6 and kernel 7's mode "
-            "5, the next slice: ROADMAP.md queue 2, mode 3.1); the "
-            "single-card prefill, decode, speculative verify and serving "
-            "engine run it")
     if (cfg.qkv_bias or cfg.sandwich_norms or cfg.attn_logit_softcap
             or cfg.final_logit_softcap or cfg.ffn_act != "silu"):
         raise NotImplementedError(
@@ -332,7 +324,7 @@ def prefill_chunk(params: LlamaParams, k_cache, v_cache, tokens, cfg: LlamaConfi
     the last; a layer's rows are the same either way).  A sliding window
     masks keys below ``p + 1 - window`` for query p, in the kernel and in
     the oracle."""
-    _check_supported(cfg, "prefill", window=True)
+    _check_supported(cfg, "prefill")
     win = cfg.sliding_window
     dev = k_cache.device
     kv8 = isinstance(k_cache, Int8KV) or k_cache.dtype == torch.float8_e4m3fn
@@ -447,7 +439,7 @@ def decode_step(params: LlamaParams, k_cache, v_cache, token, pos: int,
     fused=True: one ``fused_decoder_stack`` call (final norm and LM head
     inside it when the vocab has a 128-aligned block); fused=False: the
     eager layer loop.  A sliding window runs in both (kernel 7's window)."""
-    _check_supported(cfg, "decode_step", window=True)
+    _check_supported(cfg, "decode_step")
     pos = int(pos)
     g, hd = cfg.n_heads // cfg.kv_heads, cfg.head_dim_
     dev = k_cache.device

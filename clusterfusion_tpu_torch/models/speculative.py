@@ -88,7 +88,7 @@ def verify_step(params: LlamaParams, k_cache, v_cache, tokens, pos: int,
     eager oracle, n rows wide.  Head dims that are not a multiple of 128
     take the eager path, as in the JAX package.  A sliding window runs in
     both (kernel 8's window)."""
-    _check_supported(cfg, "verify_step", window=True)
+    _check_supported(cfg, "verify_step")
     pos = int(pos)
     dev = k_cache.device
     tokens = torch.as_tensor(tokens, dtype=torch.long, device=dev).reshape(-1)

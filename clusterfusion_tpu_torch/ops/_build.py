@@ -74,7 +74,7 @@ SIGNATURES = {
     "cf_decoder_layer_plan": ([_I] * 7 + [ctypes.POINTER(_I)], _I),
     "cf_decoder_layer": ([_P] * 16 + [_I] * 10
                          + [_F, _I, _P, ctypes.POINTER(_I), _P, _P, _P, _I,
-                            _P, _I, _I],
+                            _P, _I, _I, _I],
                          _I),
     "cf_error_string": ([_I], ctypes.c_char_p),
     "cf_comm_preload": ([], _I),

@@ -61,6 +61,22 @@ float32.  An ``Int8KV`` pair raises: the JAX package's kernel 6, and so
 its tp and sp steps, take none (its tp step runs one through
 ``fused_collectives=True``, kernel 7's mode 5).
 
+Sliding window (Mistral's, ``window`` > 0 with ``window_pattern="all"``;
+the TPU kernel's ``window`` and prefetched ``window_lo``): the token
+attends the cached rows at or above the bound and itself.  The bound is
+``window_lo``, the first in-window row in this cache's own coordinates
+(the sp step's shards translate the global ``pos + 1 - window`` into
+theirs: ``parallel.sp_decode.shard_window_lo``), by default ``seq_len + 1
+- window``; below 0 every cached row is in the window (the bits of no
+window), at or above ``seq_len`` none is (partials mode then gives the
+empty state, m = -1e30, l = 0, acc = 0, unless the token is folded).  The
+split pass keeps its split boundaries (multiples of ``kcfg.kv_split``
+from row 0) and reads only the splits that hold a row in the window, the
+first of them from the bound's row: rows below the bound are neither
+copied nor weighed, so whatever they hold (NaN too) cannot reach an
+output.  The append writes row ``seq_len``, which always lies in the
+window.  Gemma-2's ``"even"`` pattern, QKV bias and the softcap raise.
+
 The public ops ``llama_decoder_layer`` (GPT-J rope, no residual add) and
 ``llama_decoder_layer_sglang`` (NEOX rope, fused residual) take the
 reference's tensor layouts (bf16 or fp8 caches) and build the kernel
@@ -88,8 +104,11 @@ from clusterfusion_tpu_torch.ops.stack_kernel import (KV_BF16, KV_FP8,
                                                       _norm, _rope,
                                                       check_int4_group,
                                                       check_stack_kcfg,
+                                                      first_live_row,
                                                       quant_operands,
                                                       split_attention_plain,
+                                                      window_lo as
+                                                      window_lo_of,
                                                       wq_kind_of)
 
 _LOG2E = 1.4426950408889634
@@ -133,6 +152,8 @@ int8_launches = 0
 int4_launches = 0
 #: Those of them with an fp8 e4m3 KV cache (the kernel's fp8 mode).
 fp8_launches = 0
+#: Those of them with a sliding window.
+window_launches = 0
 #: CUDA kernels the last such call launched (2 in W4A8's full mode: the
 #: layer and the ring GEMV's O projection).
 last_call_kernels = 0
@@ -181,6 +202,7 @@ def _fused_decoder_layer_plain(
     seq_len, layer_id=0, *, group: int, head_dim: int, rope_style: str,
     fuse_residual: bool, eps: float, kcfg: KernelConfig = KernelConfig(),
     emit_partials: bool = False, fold_current=1, append_kv: bool = False,
+    window: int = 0, window_lo=None,
 ):
     """Plain PyTorch version of :func:`_fused_decoder_layer` (same
     arguments, same results, the cache appended in place)."""
@@ -214,7 +236,8 @@ def _fused_decoder_layer_plain(
     v_cur = qkv[:, g + 1]
     acc, m, l_sum = split_attention_plain(
         q, k_cur, v_cur, k_cache[layer_id], v_cache[layer_id], seq,
-        kcfg.kv_split, fold=bool(int(fold_current)))
+        kcfg.kv_split, fold=bool(int(fold_current)), window=window,
+        lo=window_lo)
     k_new, v_new = k_cur.to(dt), v_cur.to(dt)
     res_out = h.to(dt)[None] if fuse_residual else None
     if emit_partials:
@@ -253,13 +276,17 @@ CACHE_KINDS = {"bf16": KV_BF16, "fp8": KV_FP8}
 
 def launch_plan(hidden: int, kv_heads: int, group: int, head_dim: int,
                 kv_split: int = KernelConfig().kv_split,
-                kind: str = "bf16", kv: str = "bf16") -> dict:
+                kind: str = "bf16", kv: str = "bf16", seq_len: int = 0,
+                window: int = 0, window_lo=None) -> dict:
     """The kernel's launch on the current card for this geometry in the
     weights' ``kind`` (``WEIGHT_KINDS``: bf16, int8, or int4 "exact" or
     "w4a8") and the cache's ``kv`` (``CACHE_KINDS``): blocks per cluster
     (one cluster per kv head), blocks, ring stages, shared bytes per block,
     clusters of that size the card holds at once, and (``held_by_size``)
-    the clusters the card holds at each size 1..16."""
+    the clusters the card holds at each size 1..16.  With ``seq_len`` (and
+    the call's ``window`` / ``window_lo``) also the call's split-KV walk:
+    the first row it reads, its live splits, and the ranks of a cluster
+    that get a split (``busy_ranks``; the others only merge)."""
     if kind not in WEIGHT_KINDS:
         raise ValueError(f"weight kind {kind!r}: one of {list(WEIGHT_KINDS)}")
     if kv not in CACHE_KINDS:
@@ -269,9 +296,25 @@ def launch_plan(hidden: int, kv_heads: int, group: int, head_dim: int,
     _build.check(_build.lib().cf_decoder_layer_plan(
         hidden, kv_heads, group, head_dim, kv_split, wk, CACHE_KINDS[kv],
         info), "_fused_decoder_layer plan")
-    return dict(cluster=info[0], blocks=info[1], stages=info[2],
+    plan = dict(cluster=info[0], blocks=info[1], stages=info[2],
                 smem_bytes=info[3], clusters_held=info[4],
                 held_by_size=list(info[5:21]))
+    if seq_len:
+        first, live = live_splits(seq_len, kv_split, window, window_lo)
+        plan.update(first_row=first, live_splits=live,
+                    busy_ranks=min(live, plan["cluster"]))
+    return plan
+
+
+def live_splits(seq: int, kv_split: int, window: int = 0, window_lo=None):
+    """(the first cached row the split pass reads, the splits it reads)
+    for ``seq`` cached rows under the window's bound, as the kernel
+    numbers them: split boundaries at multiples of ``kv_split`` from row
+    0, the first live split cut at the bound."""
+    lo = window_lo_of(seq, window, window_lo)
+    j0 = first_live_row(seq, kv_split, window, window_lo)
+    first = 0 if lo is None else min(max(lo, 0), seq)
+    return first, -(-(seq - j0) // kv_split)
 
 
 def cache_kind(k_cache, v_cache) -> int:
@@ -298,13 +341,20 @@ def cache_kind(k_cache, v_cache) -> int:
                               "(ROADMAP.md queue 2, mode 2)")
 
 
-def _refuse(wqkv_f, wo_f, k_cache, v_cache, *, window, bias_qkv,
-            softcap) -> int:
+def _refuse(wqkv_f, wo_f, k_cache, v_cache, *, window, window_pattern,
+            bias_qkv, softcap) -> int:
     """Raise on what the kernel does not take; the cache kind."""
-    if window or bias_qkv is not None or softcap:
-        raise NotImplementedError("_fused_decoder_layer: sliding window, QKV "
-                                  "bias and softcap are not ported yet "
-                                  "(ROADMAP.md queue 2, mode 3)")
+    if window < 0:
+        raise ValueError(f"_fused_decoder_layer: window {window} < 0")
+    if window and window_pattern != "all":
+        raise NotImplementedError(
+            f"_fused_decoder_layer: window_pattern {window_pattern!r} "
+            "(Gemma-2's interleaved local/global layers) is not ported yet "
+            "(ROADMAP.md queue 2, mode 3)")
+    if bias_qkv is not None or softcap:
+        raise NotImplementedError("_fused_decoder_layer: QKV bias and "
+                                  "softcap are not ported yet (ROADMAP.md "
+                                  "queue 2, mode 3)")
     weights = [w for w in (wqkv_f, wo_f) if w is not None]
     quant = [w for w in weights if isinstance(w, QuantizedTensor)]
     if quant and (len(quant) != len(weights)
@@ -336,8 +386,10 @@ def _fused_decoder_layer(
     fold_current=1,
     append_kv: bool = False,
     window: int = 0,
+    window_lo=None,
     bias_qkv=None,
     softcap: float = 0.0,
+    window_pattern: str = "all",
 ):
     """The attention half of one layer at ``seq_len`` cached rows.
 
@@ -357,12 +409,18 @@ def _fused_decoder_layer(
     ``seq_len``); with ``emit_partials`` (acc [kv*group, hd] f32,
     ml [2, kv*group] f32, res_out, k_new, v_new) and no O-projection.
     ``fold_current`` 0 leaves the current token out of the softmax.
-    ``window``, ``bias_qkv`` and ``softcap`` (the TPU kernel's sliding
-    window, QKV bias and logit softcap) raise NotImplementedError."""
+    ``window`` > 0: the sliding window (Mistral's pattern ``"all"``) from
+    the bound ``window_lo``, an int in this cache's coordinates, by
+    default ``seq_len + 1 - window`` (the module's note).
+    ``bias_qkv``, ``softcap`` and the ``"even"`` pattern (the TPU kernel's
+    QKV bias, logit softcap and Gemma-2's layers) raise
+    NotImplementedError."""
     global launches, int8_launches, int4_launches, fp8_launches
-    global last_call_kernels
+    global window_launches, last_call_kernels
+    window = int(window)
     kv_kind = _refuse(wqkv_f, wo_f, k_cache, v_cache, window=window,
-                      bias_qkv=bias_qkv, softcap=softcap)
+                      window_pattern=window_pattern, bias_qkv=bias_qkv,
+                      softcap=softcap)
     if append_kv and emit_partials:
         raise ValueError("_fused_decoder_layer: partials mode does not "
                          "append (the owner of the position appends)")
@@ -397,10 +455,11 @@ def _fused_decoder_layer(
                   fuse_residual=fuse_residual, eps=eps, kcfg=kcfg,
                   emit_partials=emit_partials, fold_current=fold,
                   append_kv=append_kv)
+    lo = window_lo_of(seq, window, window_lo)
     if x.device.type == "cpu":
         return _fused_decoder_layer_plain(
             x, residual, rms_w, cos_f, sin_f, wqkv_f, wo_f, k_cache, v_cache,
-            seq, layer_id, **common)
+            seq, layer_id, **common, window=window, window_lo=lo)
 
     dev = x.device
     if group > MAX_GROUP or hd % 32 or hd > 128:
@@ -486,7 +545,8 @@ def _fused_decoder_layer(
         group, hd, cap, seq, fold, int(append_kv),
         1 if rope_style == "neox" else 0, float(eps), kcfg.kv_split,
         ptr(phase_stamps), ctypes.byref(n_launch), stream, ptr(sq), ptr(so),
-        wk, ptr(o_buf), kcfg.gemv_threads, kv_kind)
+        wk, ptr(o_buf), kcfg.gemv_threads, kv_kind,
+        0 if lo is None else min(max(lo, 0), seq))
     if err:
         scratch.zero_()                 # the ticket counters start at 0
         _build.check(err, "_fused_decoder_layer")
@@ -494,6 +554,7 @@ def _fused_decoder_layer(
     int8_launches += int(wk == WK_INT8)
     int4_launches += int(w4)
     fp8_launches += int(kv_kind == KV_FP8)
+    window_launches += int(lo is not None)
     last_call_kernels = n_launch.value
     if emit_partials:
         return acc, ml, res_out, k_new, v_new

@@ -98,11 +98,13 @@ verify) keeps hd 128: the JAX package's verify has no hd-64 form, and its
 Sliding window (Mistral's semantics, ``window`` > 0 with
 ``window_pattern="all"``; the TPU kernel's ``wlo = seq + 1 - window``): the
 token at ``pos`` attends cached rows ``>= pos + 1 - window`` and itself, on
-one card (mode 5 takes no window yet).  The split pass keeps its split
+one card and in mode 5 alike (each rank's split and merge over its own kv
+heads; the window changes no reduce).  The split pass keeps its split
 boundaries and runs only the splits that hold a row in the window, masking
 the first of them below the bound, so rows below the window cost no bytes;
-``window >= pos + 1`` gives the bits of no window.  Gemma-2's ``"even"``
-pattern is refused.
+``window >= pos + 1`` gives the bits of no window, and window 1 launches
+no split pass (7L+2 kernels, 7L+3 with the logits gathered).  Gemma-2's
+``"even"`` pattern is refused.
 
 The caches are updated in place: the returned caches are the tensors that
 were passed in (an ``Int8KV`` pair is returned as the same pair).
@@ -145,7 +147,7 @@ KV_BF16, KV_INT8, KV_FP8 = 0, 1, 2
 #: Calls of :func:`fused_decoder_stack` with an 8-bit cache, by kind.
 kv8_launches = {KV_INT8: 0, KV_FP8: 0}
 #: CUDA kernels the last such call launched (8 per layer + 1 or 2, mode 5
-#: too; 8 per layer + 3 with the logits gathered).
+#: too; 8 per layer + 3 with the logits gathered; 7 per layer at window 1).
 last_step_kernels = 0
 
 
@@ -193,18 +195,30 @@ def kv_layer(cache, l: int):
     return cache[l], None
 
 
-def first_live_row(seq: int, kv_split: int, window: int) -> int:
+def window_lo(seq: int, window: int, lo=None):
+    """The first cached row in the window of the token at ``seq``: ``lo``
+    where it is given (a caller's bound in its own coordinates, as the sp
+    step's shards take it), else ``seq + 1 - window``; None without a
+    window.  It may lie below 0 (every row in the window) or at or above
+    ``seq`` (no cached row in it)."""
+    if window <= 0:
+        return None
+    return seq + 1 - window if lo is None else int(lo)
+
+
+def first_live_row(seq: int, kv_split: int, window: int, lo=None) -> int:
     """The first cached row the split pass reads under a window for the
     token at ``seq`` (0 without one): the start of the split that holds
-    row ``seq + 1 - window``; ``seq`` when no cached row is in the window.
-    The kernels' ``attn_live_splits``."""
-    wlo = max(0, seq + 1 - window) if window > 0 else 0
+    the bound (:func:`window_lo`); ``seq`` when no cached row is in the
+    window.  The kernels' ``attn_live_splits``."""
+    lo = window_lo(seq, window, lo)
+    wlo = 0 if lo is None else max(0, lo)
     return wlo // kv_split * kv_split if wlo < seq else seq
 
 
 def split_attention_plain(q, k_cur, v_cur, kc, vc, seq: int, kv_split: int,
                           fold: bool = True, ks=None, vs=None,
-                          window: int = 0):
+                          window: int = 0, lo=None):
     """The kernels' split-KV flash-decode (``attn_split_kernel`` and
     ``attn_merge_kernel`` of ``csrc/common.cuh``) in PyTorch.
 
@@ -215,25 +229,28 @@ def split_attention_plain(q, k_cur, v_cur, kc, vc, seq: int, kv_split: int,
     rows: the max m_s, the sum of exp2(s - m_s) and bf16(p) @ V with q
     rounded to bf16 (int8: s = (q . code) * sk and bf16(p * sv) @ codes);
     then the merge, with the current token folded in float32 when
-    ``fold``.  ``window`` > 0: only the splits that hold a row ``>= seq + 1
-    - window`` run, their rows below it masked (p 0), as the kernel's
-    split pass does (:func:`first_live_row`).  Returns the unnormalised
-    state (acc [kv, g, hd], m [kv, g], l [kv, g]); with nothing folded it
-    is (0, -1e30, 0)."""
+    ``fold``.  ``window`` > 0: only the splits that hold a row at or above
+    the bound (:func:`window_lo`: ``lo``, else ``seq + 1 - window``) run,
+    as the kernels' split passes do (:func:`first_live_row`); rows below
+    the bound are neither read nor weighed, so whatever they hold (NaN
+    too) cannot reach the result, and a bound at or below row 0 gives the
+    bits of no window.  Returns the unnormalised state (acc [kv, g, hd], m
+    [kv, g], l [kv, g]); with nothing folded it is (0, -1e30, 0)."""
     kv_heads, g, hd = q.shape
     bf16 = torch.bfloat16
-    j0 = first_live_row(seq, kv_split, window)
-    n = seq - j0
+    lo = window_lo(seq, window, lo)
+    wlo = 0 if lo is None else min(max(lo, 0), seq)
+    j0 = first_live_row(seq, kv_split, window, lo)
+    n, below = seq - j0, wlo - j0
     ns = -(-n // kv_split)
     pad = ns * kv_split - n
-    kcp = F.pad(kv_rows_plain(kc[:, j0:seq]), (0, 0, 0, pad))
-    vcp = F.pad(kv_rows_plain(vc[:, j0:seq]), (0, 0, 0, pad))
+    # zeros stand in for the first live split's rows below the bound
+    kcp = F.pad(kv_rows_plain(kc[:, wlo:seq]), (0, 0, below, pad))
+    vcp = F.pad(kv_rows_plain(vc[:, wlo:seq]), (0, 0, below, pad))
     s = torch.einsum("kgd,ksd->kgs", q.to(bf16).float(), kcp)[..., :n]
     if ks is not None:
-        s = s * ks[:, None, j0:seq]
-    # rows below the window's bound (the first live split's) are masked
-    below = max(0, seq + 1 - window) - j0 if window > 0 else 0
-    s[..., :below] = _NEG_INF
+        s = s * F.pad(ks[:, wlo:seq], (below, 0))[:, None]
+    s[..., :below] = _NEG_INF              # masked: no part in the max
     s = F.pad(s, (0, pad), value=_NEG_INF)
     s = s.reshape(kv_heads, g, ns, kv_split)
     m_s = s.amax(dim=-1, keepdim=True)
@@ -241,8 +258,8 @@ def split_attention_plain(q, k_cur, v_cur, kc, vc, seq: int, kv_split: int,
     l_s = p.sum(dim=-1)                                        # [kv, g, ns]
     p_in = p
     if vs is not None:
-        p_in = p * F.pad(vs[:, j0:seq], (0, pad)).reshape(kv_heads, 1, ns,
-                                                          kv_split)
+        p_in = p * F.pad(vs[:, wlo:seq], (below, pad)).reshape(kv_heads, 1,
+                                                               ns, kv_split)
     pv_s = torch.einsum("kgns,knsd->kgnd", p_in.to(bf16).float(),
                         vcp.reshape(kv_heads, ns, kv_split, hd))
     m_s = m_s[..., 0]
@@ -637,8 +654,7 @@ def fused_decoder_stack(
     rank's vocab shard, a multiple of 8 columns) the logits of its shard.
 
     ``window`` > 0 (with ``window_pattern="all"``): the sliding window
-    (the module's note), on one card: with ``reduce_axis`` it raises, as
-    mode 5 takes no window yet.
+    (the module's note), with or without ``reduce_axis``.
     """
     window = int(window)
     refuse_unported("fused_decoder_stack", head_dim,
@@ -648,11 +664,6 @@ def fused_decoder_stack(
                     post_attn_norm=post_attn_norm,
                     post_ffn_norm=post_ffn_norm,
                     window_pattern=window_pattern)
-    if window and reduce_axis is not None:
-        raise NotImplementedError(
-            "fused_decoder_stack: a sliding window in mode 5 (reduce_axis) "
-            "is not ported yet (kernel 7's mode 5 with kernel 6, the next "
-            "slice: ROADMAP.md queue 2, mode 3.1)")
     return _stack(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f, w13, w2,
                   k_cache, v_cache, pos, group=group, head_dim=head_dim,
                   rope_style=rope_style, eps=eps, kcfg=kcfg,
@@ -666,20 +677,23 @@ def _fused_decoder_stack_gathered(x, attn_norm, ffn_norm, cos, sin, wqkv_f,
                                   group: int, head_dim: int, rope_style: str,
                                   eps: float, final_norm, lm_head,
                                   reduce_axis: str, mesh,
-                                  kcfg: KernelConfig = KernelConfig()):
+                                  kcfg: KernelConfig = KernelConfig(),
+                                  window: int = 0):
     """:func:`fused_decoder_stack` in mode 5 with this rank's vocab shard as
     ``lm_head`` (a multiple of 8 columns, at most 65536), its logits
     gathered over ``reduce_axis`` in rank order: (logits [1, vocab] f32,
     the same bits on every rank, residual_out, k_cache, v_cache).  On the
     card the gather runs inside the stack's launches (kernel 14: the LM
     head's product pushes the shard to every rank and one wait copies the
-    shards out; 8 kernels a layer and 3, nothing after them); on the CPU
-    the plain stack's logits go through ``all_gather_plain``.  The tp step
-    of ``parallel.decode`` runs it; on an axis of size 1 it is the
-    unsharded step with the LM head."""
+    shards out; 8 kernels a layer and 3, nothing after them, 7 a layer at
+    window 1); on the CPU the plain stack's logits go through
+    ``all_gather_plain``.  The tp step of ``parallel.decode`` runs it, with
+    the config's sliding ``window`` (Mistral's pattern); on an axis of size
+    1 it is the unsharded step with the LM head."""
+    window = int(window)
     refuse_unported("fused_decoder_stack", head_dim,
                     (wqkv_f, wo_f, w13, w2, attn_norm, ffn_norm), final_norm,
-                    lm_head, k_cache, v_cache, window=0, bias_qkv=None,
+                    lm_head, k_cache, v_cache, window=window, bias_qkv=None,
                     ffn_act="silu", softcap=0.0, post_attn_norm=None,
                     post_ffn_norm=None)
     if lm_head is None:
@@ -688,7 +702,8 @@ def _fused_decoder_stack_gathered(x, attn_norm, ffn_norm, cos, sin, wqkv_f,
                   k_cache, v_cache, pos, group=group, head_dim=head_dim,
                   rope_style=rope_style, eps=eps, kcfg=kcfg,
                   final_norm=final_norm, lm_head=lm_head,
-                  reduce_axis=reduce_axis, mesh=mesh, gather=True)
+                  reduce_axis=reduce_axis, mesh=mesh, gather=True,
+                  window=window)
 
 
 def _stack(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f, w13, w2, k_cache,
@@ -697,7 +712,7 @@ def _stack(x, attn_norm, ffn_norm, cos, sin, wqkv_f, wo_f, w13, w2, k_cache,
            window: int = 0):
     """The two entries' common body, after ``refuse_unported``; ``gather``:
     the logits gathered over ``reduce_axis`` (where it has more than one
-    rank); ``window``: the sliding window (one card)."""
+    rank); ``window``: the sliding window."""
     global launches, int8_launches, int4_launches, last_step_kernels
     w8 = isinstance(wqkv_f, QuantizedTensor) and wqkv_f.kind == "int8"
     w4 = isinstance(wqkv_f, QuantizedTensor) and wqkv_f.kind == "int4"

@@ -41,6 +41,13 @@ its rows and scale planes on the kv axis) only with
 codes and scales of the float32 row.  The step without it raises kernel
 6's refusal before any launch, as JAX's kernel 6 takes no ``Int8KV``.
 
+Mistral's sliding window (``cfg.sliding_window``, pattern ``"all"``): both
+kinds of step pass it to their kernel, kernel 6 with its default bound
+``pos + 1 - window`` (each rank holds every position of its kv heads) and
+kernel 7's mode 5 through ``_fused_decoder_stack_gathered``; the rows below
+the window are not read, and window 1 drops the split pass from mode 5's
+sequence (7L+3 kernels a rank and step).
+
 Each rank's caches are updated in place; the step returns the same
 tensors (an ``Int8KV`` pair as the same pair).
 """
@@ -120,7 +127,8 @@ def make_sharded_decode_step(cfg: LlamaConfig, mesh: Mesh,
                 x, residual, lw["attn_norm"], cos, sin, lw["wqkv_f"],
                 lw["wo_f"], k_cache, v_cache, pos, l, group=g, head_dim=hd,
                 rope_style=cfg.rope_style, fuse_residual=True,
-                eps=cfg.norm_eps, kcfg=kcfg, append_kv=True)
+                eps=cfg.norm_eps, kcfg=kcfg, append_kv=True,
+                window=cfg.sliding_window)
             attn = cluster_reduce(attn, "tp", Stage.ATTN, mesh=mesh)
             ffn_in, residual = fused_add_rmsnorm(attn, residual,
                                                  lw["ffn_norm"][l],
@@ -152,7 +160,8 @@ def _make_fused_collective_decode_step(cfg: LlamaConfig, mesh: Mesh,
             lw["wo_f"], lw["w13"], lw["w2"], k_cache, v_cache, pos, group=g,
             head_dim=hd, rope_style=cfg.rope_style, eps=cfg.norm_eps,
             final_norm=params["final_norm"], lm_head=params["lm_head"],
-            reduce_axis="tp", mesh=mesh, kcfg=kcfg)
+            reduce_axis="tp", mesh=mesh, kcfg=kcfg,
+            window=cfg.sliding_window)
         return logits[0], k_cache, v_cache
 
     return step

@@ -23,6 +23,16 @@ summed) or their int4 ones (exact, the group scales along the O rows),
 where JAX dequantizes ``wo_f`` and the FFN's weights: the same function,
 and no bf16 copy of a weight (``parallel.decode``'s note).
 
+Mistral's sliding window (``cfg.sliding_window``, pattern ``"all"``): the
+window is defined on global positions, ``[pos + 1 - window, pos]``, and
+each shard hands kernel 6 its bound in its own rows,
+``shard_window_lo(pos, window, start)`` = ``pos + 1 - window - start`` (JAX's
+``win_lo``).  Below 0 the whole slice lies in the window; at or above the
+shard's ``seq_local`` none of it does: kernel 6 then walks no split and,
+unless the shard owns ``pos`` and folds the token, gives the empty state,
+which the merge weighs 0.  So a shard may be wholly below the window,
+cut by it, inside it, the owner, or empty, and the merge is the one above.
+
 An fp8 e4m3 cache (each rank's ``capacity/sp`` slice a plain tensor):
 kernel 6's fp8 mode reads the rows, and the owner appends the bf16
 ``k_new``/``v_new`` cast to e4m3, as JAX's sp step casts its bf16 row (a
@@ -54,6 +64,15 @@ def cache_pspec_2d() -> Spec:
     return (None, "tp", "sp", None)
 
 
+def shard_window_lo(pos: int, window: int, start: int):
+    """The sliding window's bound in the rows of a sequence shard that
+    starts at global position ``start``, for the token at ``pos``: ``pos +
+    1 - window - start`` (negative: the whole shard lies in the window; at
+    or above the shard's cached rows: none of it), or None without a
+    window."""
+    return pos + 1 - window - start if window else None
+
+
 def make_sp_sharded_decode_step(cfg: LlamaConfig, mesh: Mesh,
                                 kcfg: KernelConfig = KernelConfig()):
     """Build a (tp, sp)-sharded fused decode step:
@@ -77,6 +96,7 @@ def make_sp_sharded_decode_step(cfg: LlamaConfig, mesh: Mesh,
         seq_local = min(max(pos - start, 0), cap_l)
         fold = int(start <= pos < start + cap_l)
         pos_local = min(max(pos - start, 0), cap_l - 1)
+        win_lo = shard_window_lo(pos, cfg.sliding_window, start)
         x, cos, sin = embed_and_rope(params, cfg, token, pos, k_cache.device)
         res = torch.zeros_like(x)
         lw = params["layers"]
@@ -86,7 +106,8 @@ def make_sp_sharded_decode_step(cfg: LlamaConfig, mesh: Mesh,
                 k_cache, v_cache, seq_local, l, group=g, head_dim=hd,
                 rope_style=cfg.rope_style, fuse_residual=True,
                 eps=cfg.norm_eps, kcfg=kcfg, emit_partials=True,
-                fold_current=fold)
+                fold_current=fold, window=cfg.sliding_window,
+                window_lo=win_lo)
             # the merge over sp, in the log2 domain as the kernel keeps it
             m, lsum = ml[0], ml[1]
             m_g = pmax(m, "sp", mesh=mesh)

@@ -251,7 +251,7 @@ class ServingEngine:
                  kv_dtype=torch.bfloat16, seed: int = 0,
                  prefill_chunk: Optional[int] = 1024,
                  step_impl: Optional[str] = None):
-        model._check_supported(cfg, "ServingEngine", window=True)
+        model._check_supported(cfg, "ServingEngine")
         if kv_dtype not in (torch.bfloat16, torch.float8_e4m3fn):
             raise NotImplementedError(f"kv_dtype {kv_dtype}: the serving "
                                       "pools are bf16 or float8_e4m3fn (JAX's "

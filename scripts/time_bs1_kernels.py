@@ -1,4 +1,4 @@
-"""Time kernels 4, 7 and 8 without a window, on the tree at ``--root``.
+"""Time kernels 4, 6, 7 and 8 without a window, on the tree at ``--root``.
 
     python3 scripts/time_bs1_kernels.py --root DIR [--label NAME]
 
@@ -11,7 +11,13 @@ paths:
 - ``flash_*``: kernel 4 at Llama-2-7B's heads (kv 32, group 1, hd 128) over
   T 512 and T 4096, and at Mistral-7B's (kv 8, group 4) over T 4608;
 - ``stack_pos600``: kernel 7, one Llama-2-7B step (32 layers, bf16, the LM
-  head) at pos 600 of a 1024-row cache;
+  head) at pos 600 of a 1024-row cache; ``stack_fp8_pos600`` the same on
+  an fp8 e4m3 copy of the cache;
+- ``layer6_pos600`` / ``layer6_fp8_pos600``: kernel 6, the attention half
+  of layer 1 of those weights with the append, on the bf16 and the fp8
+  cache: device ms a call with 20 calls queued behind a spin kernel
+  between two CUDA events (``_queued_ms``; one call alone is shorter than
+  its launch), the median of ``--reps`` such runs;
 - ``verify_n5`` / ``verify_n9``: kernel 8 at n 5 and n 9, pos 600.
 
 Each figure is the median of ``--reps`` calls, each between two CUDA
@@ -47,6 +53,29 @@ def _time_ms(torch, fn, reps):
     return statistics.median(times)
 
 
+def _queued_ms(torch, fn, reps, n=20):
+    """Device ms a call of ``fn`` with ``n`` calls queued behind a spin
+    kernel long enough that the host has queued them all before the first
+    starts (the host's pace left out), the median of ``reps`` runs."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        if a.query():
+            raise RuntimeError("the spin ended before the calls were queued")
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return statistics.median(times)
+
+
 PASSES = (("split", "attn_split_kernel"), ("merge", "merge_kernel"),
           ("gemv", "gemv"), ("norms", "norm"))
 
@@ -77,6 +106,7 @@ def main() -> int:
     from clusterfusion_tpu_torch.config import LlamaConfig
     from clusterfusion_tpu_torch.models import llama as model
     from clusterfusion_tpu_torch.models.generation import Llama
+    from clusterfusion_tpu_torch.ops import decoder_layer as dl
     from clusterfusion_tpu_torch.ops import flash_prefill as fp
     from clusterfusion_tpu_torch.ops import stack_kernel as sk
     from clusterfusion_tpu_torch.ops import stack_verify as sv
@@ -113,6 +143,21 @@ def main() -> int:
                              kc, vc, pos, **kw)
     out["stack_pos600"] = _time_ms(torch, step, a.reps)
     _busy(out, "stack_pos600", step)
+    kf, vf = kc.to(torch.float8_e4m3fn), vc.to(torch.float8_e4m3fn)
+    step8 = functools.partial(sk.fused_decoder_stack, x, *w, cos, sin, *proj,
+                              kf, vf, pos, **kw)
+    out["stack_fp8_pos600"] = _time_ms(torch, step8, a.reps)
+    _busy(out, "stack_fp8_pos600", step8)
+    res = p["embed"][torch.tensor([9], device=dev)]
+    for name, k_, v_ in (("layer6_pos600", kc, vc),
+                         ("layer6_fp8_pos600", kf, vf)):
+        call = functools.partial(
+            dl._fused_decoder_layer, x, res, lw["attn_norm"], cos, sin,
+            lw["wqkv_f"], lw["wo_f"], k_, v_, pos, 1, group=kw["group"],
+            head_dim=kw["head_dim"], rope_style=kw["rope_style"],
+            fuse_residual=True, eps=kw["eps"], append_kv=True)
+        out[name] = _queued_ms(torch, call, a.reps)
+    del kf, vf
     for n in (5, 9):
         x = p["embed"][torch.arange(n, device=dev) * 37 + 11]
         cos, sin = model.rope_rows(cfg, pos, n, dev)

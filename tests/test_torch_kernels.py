@@ -4405,3 +4405,208 @@ def test_windowed_serving_engine_on_card(dev, impl, kv):
             lg, kc, vc = model.decode_step(params, kc, vc, t, len(p) + j, cfg,
                                            fused=False)
             lg = lg.float()
+
+
+# -- sliding window (Mistral's) in kernel 6 and kernel 7's mode 5
+
+# window_lo in the cache's own rows at seq 300 (kv_split 64): below row 0,
+# row 0, inside a split, on a split boundary, the last cached row, at seq
+# and above it (the sp step's shard bounds; the tp step's is seq+1-window)
+LAYER_WINDOW_BOUNDS = [-5, 0, 100, 128, 299, 300, 400]
+LAYER_WINDOW_MODES = {
+    # name: (append_kv, emit_partials, fold)
+    "append": (True, False, 1),
+    "partials_fold1": (False, True, 1),
+    "partials_fold0": (False, True, 0),
+}
+
+
+def _nan_rows(c, rows):
+    """NaN in cache rows ``rows`` (fp8: the NaN byte 0x7F)."""
+    if c.dtype == torch.float8_e4m3fn:
+        c.view(torch.uint8)[:, :, rows] = 0x7F
+    else:
+        c[:, :, rows] = float("nan")
+
+
+@pytest.mark.parametrize("kv", ["bf16", "fp8"])
+@pytest.mark.parametrize("mode", list(LAYER_WINDOW_MODES))
+@pytest.mark.parametrize("bound", LAYER_WINDOW_BOUNDS)
+def test_decoder_layer_window_matches_plain(dev, kv, mode, bound):
+    """Kernel 6 with a window from the bound ``window_lo`` (GQA, layer 1 of
+    stacked weights, seq 300), NaN in every row below the bound and at and
+    above seq, against its plain twin at the modes test's tolerances:
+    finite, one launch, the same bits on a repeat, no row but seq moved; a
+    bound at or below row 0 gives the bits of no window; nothing in the
+    window and nothing folded gives the empty state exactly."""
+    from clusterfusion_tpu_torch.ops import decoder_layer as dl
+    seq = 300
+    append, partials, fold = LAYER_WINDOW_MODES[mode]
+    g, a, kc, vc, _ = _stack_args(dev, 8, 2, 1, seq, seed=250)
+    if kv == "fp8":
+        kc, vc = kc.to(torch.float8_e4m3fn), vc.to(torch.float8_e4m3fn)
+    for c in (kc, vc):
+        _nan_rows(c, slice(0, max(bound, 0)))
+        _nan_rows(c, slice(seq, None))
+    res = _randn((1, HIDDEN), dev, 262)
+    cos, sin = model.rope_row(LlamaConfig.tiny(rope_style="neox"), seq, dev)
+    kw = dict(group=g, head_dim=HD, rope_style="neox", fuse_residual=True,
+              eps=1e-5, emit_partials=partials, fold_current=fold,
+              append_kv=append)
+    args = [a["x"], res, a["attn_norm"], cos, sin, a["wqkv_f"], a["wo_f"]]
+    kk, vk, kp, vp = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    n0, w0 = dl.launches, dl.window_launches
+    out = dl._fused_decoder_layer(*args, kk, vk, seq, 1, window=24,
+                                  window_lo=bound, **kw)
+    again = dl._fused_decoder_layer(*args, kc.clone(), vc.clone(), seq, 1,
+                                    window=24, window_lo=bound, **kw)
+    ref = dl._fused_decoder_layer_plain(*args, kp, vp, seq, 1, window=24,
+                                        window_lo=bound, **kw)
+    torch.cuda.synchronize()
+    assert dl.launches == n0 + 2 and dl.window_launches == w0 + 2
+    assert dl.last_call_kernels == 1
+    n_out = 5 if partials else 4
+    for x, y in zip(out[:n_out], again[:n_out]):
+        assert _bits_equal(x, y)
+    assert all(bool(torch.isfinite(t.float()).all()) for t in out[:n_out])
+    tol = dict(atol=2e-2, rtol=2e-2)
+    if partials:
+        torch.testing.assert_close(out[1], ref[1], **tol)
+        torch.testing.assert_close(out[0], ref[0], atol=5e-2, rtol=2e-2)
+        if bound >= seq and not fold:
+            assert torch.all(out[1][0] == -1e30) and torch.all(out[1][1] == 0)
+            assert torch.all(out[0] == 0)
+    else:
+        torch.testing.assert_close(out[0].float(), ref[0].float(), **tol)
+    for i in range(n_out - 3, n_out):           # residual, k_new, v_new
+        torch.testing.assert_close(out[i].float(), ref[i].float(), atol=0.05,
+                                   rtol=0)
+    others = torch.ones(CAP, dtype=torch.bool, device=dev)
+    if append:
+        others[seq] = False
+    for got, before in ((kk, kc), (vk, vc)):
+        assert _bits_equal(got[:, :, others], before[:, :, others])
+    if bound <= 0:
+        none = dl._fused_decoder_layer(*args, kc.clone(), vc.clone(), seq, 1,
+                                       **kw)
+        for x, y in zip(out[:n_out], none[:n_out]):
+            assert _bits_equal(x, y)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "fp8"])
+@pytest.mark.parametrize("seq,window,bound", [
+    (5000, 4096, None), (8000, 4096, None), (4600, 4096, 4600 + 1 - 4096),
+    (4600, 4096, 4600 + 1 - 4096 - 2048), (4600, 4096, 4600 + 1 - 4096 - 4096),
+    (6500, 4096, 6500 + 1 - 4096), (300, 1, None)],
+    ids=["5000", "8000", "shard0", "shard1", "shard2", "6500", "window1"])
+def test_decoder_layer_window_at_mistral_width(dev, kv, seq, window, bound):
+    """Kernel 6 at Mistral-7B's layer width (hidden 4096, 32 heads on 8 kv
+    heads of 128) over an 8192-row cache, NaN below the bound and above
+    seq: full mode with the append (its default bound seq + 1 - window)
+    and partials mode with the sp step's shard bounds (``bound``, fold 0),
+    against the plain twin at the modes test's tolerances, finite."""
+    from clusterfusion_tpu_torch.ops import decoder_layer as dl
+    g, args, kc, vc = _layer_case(dev, 4096, 32, 8, 1, 128, 8192, seq, 270)
+    if kv == "fp8":
+        kc, vc = kc.to(torch.float8_e4m3fn), vc.to(torch.float8_e4m3fn)
+    lo = seq + 1 - window if bound is None else bound
+    for c in (kc, vc):
+        _nan_rows(c, slice(0, min(max(lo, 0), seq)))
+        _nan_rows(c, slice(seq, None))
+    kw = dict(group=g, head_dim=128, rope_style="neox", fuse_residual=True,
+              eps=1e-5, window=window, window_lo=bound)
+    if bound is None:
+        kw["append_kv"] = True
+    else:
+        kw.update(emit_partials=True, fold_current=0)
+    kk, vk, kp, vp = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    out = dl._fused_decoder_layer(*args, kk, vk, seq, 0, **kw)
+    ref = dl._fused_decoder_layer_plain(*args, kp, vp, seq, 0, **kw)
+    torch.cuda.synchronize()
+    n_out = 4 if bound is None else 5
+    assert all(bool(torch.isfinite(t.float()).all()) for t in out[:n_out])
+    if bound is None:
+        torch.testing.assert_close(out[0].float(), ref[0].float(), atol=2e-2,
+                                   rtol=2e-2)
+    else:
+        torch.testing.assert_close(out[1], ref[1], atol=2e-2, rtol=2e-2)
+        torch.testing.assert_close(out[0], ref[0], atol=5e-2, rtol=2e-2)
+    for i in range(n_out - 2, n_out):
+        torch.testing.assert_close(out[i].float(), ref[i].float(), atol=0.05,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("window", [1, 16, 100, 301])
+def test_stack_mode5_window_loopback(dev, window):
+    """Kernel 7's mode 5 with a window at tp 2 on one card (two virtual
+    ranks on their own streams over a loopback communicator, pos 300,
+    kv_split 64) against kernel 7's one-card window step on the same cache:
+    8L+1 kernels a rank (7L+1 at window 1, no split pass), both ranks' bits
+    equal and repeated, within 2e-2 of the one-card step, each rank's
+    appended rows its heads'; with the logits gathered (8L+3, 7L+3 at
+    window 1) the ranks' logits bit-identical and within 2e-2 of the
+    largest one-card logit; window pos + 1 gives window 0's bits."""
+    from clusterfusion_tpu_torch.parallel import collective as col
+    pos, tp = 300, 2
+    g, a, kc, vc, lm = _stack_args(dev, 16, 8, 4, pos, seed=280)
+    cos, sin = model.rope_row(LlamaConfig.tiny(), pos, dev)
+    kw = dict(group=g, head_dim=HD, rope_style="gptj", eps=1e-5,
+              kcfg=KernelConfig(kv_split=64))
+    args = [a["x"], a["attn_norm"], a["ffn_norm"], cos, sin, a["wqkv_f"],
+            a["wo_f"], a["w13"], a["w2"]]
+    kr, vr = kc.clone(), vc.clone()
+    ref = sk.fused_decoder_stack(*args, kr, vr, pos, window=window, **kw)
+    ref_lg = sk.fused_decoder_stack(*args, kc.clone(), vc.clone(), pos,
+                                    window=window, **lm, **kw)[0]
+    lb = col.LoopbackComm(tp, dev)
+    try:
+        meshes = [lb.mesh(r) for r in range(tp)]
+        shards, caches = _mode5_shards(a, kc, vc, meshes)
+        heads = [h.contiguous() for h in lm["lm_head"].chunk(tp, dim=-1)]
+        streams = [torch.cuda.Stream(dev) for _ in range(tp)]
+        wkw = dict(kw, window=window)
+
+        def fresh():
+            return [(k.clone(), v.clone()) for k, v in caches]
+
+        outs, kernels = _mode5_step(a, shards, caches, meshes, streams, cos,
+                                    sin, pos, wkw)
+        again, _ = _mode5_step(a, shards, fresh(), meshes, streams, cos, sin,
+                               pos, wkw)
+        gathered, gk = _mode5_step(a, shards, fresh(), meshes, streams, cos,
+                                   sin, pos, wkw,
+                                   head=(lm["final_norm"], heads),
+                                   gather=True)
+        full = []
+        if window == pos + 1:
+            full, _ = _mode5_step(a, shards, fresh(), meshes, streams, cos,
+                                  sin, pos, kw)
+        torch.cuda.synchronize(dev)
+        lb.check()
+    finally:
+        lb.close()
+    drop = L * (window == 1)
+    assert kernels == [8 * L + 1 - drop] * tp
+    assert gk == [8 * L + 3 - drop] * tp
+    for r, (xo, ro, k, v) in enumerate(outs):
+        assert torch.equal(xo, outs[0][0]) and torch.equal(ro, outs[0][1])
+        assert torch.equal(xo, again[r][0]) and torch.equal(ro, again[r][1])
+        torch.testing.assert_close(xo.float(), ref[0].float(), atol=2e-2,
+                                   rtol=2e-2)
+        torch.testing.assert_close(ro.float(), ref[1].float(), atol=2e-2,
+                                   rtol=2e-2)
+        hs = slice(r * 8 // tp, (r + 1) * 8 // tp)
+        for got, want, before in ((k, kr, kc), (v, vr, vc)):
+            torch.testing.assert_close(got[:, :, pos].float(),
+                                       want[:, hs, pos].float(), atol=0.05,
+                                       rtol=0)
+            others = torch.ones(CAP, dtype=torch.bool, device=dev)
+            others[pos] = False
+            assert torch.equal(got[:, :, others], before[:, hs][:, :, others])
+        if full:
+            assert torch.equal(xo, full[r][0]) and torch.equal(ro, full[r][1])
+    lg = [o[0] for o in gathered]
+    for r in range(tp):
+        assert torch.equal(lg[r].view(torch.int32), lg[0].view(torch.int32))
+    assert (lg[0] - ref_lg).abs().max().item() <= \
+        2e-2 * ref_lg.abs().max().item()

@@ -412,7 +412,8 @@ def _one_layer_args(layer_setup, **over):
 def test_fused_decoder_layer_refuses_unported(layer_setup, what):
     """A raw int8 tensor (not a QuantizedTensor) and an int4 pair in a
     group size the kernels do not take (64; mode 1.5: groups of 128 run
-    since mode 1.4) are refused, as are the modes not ported yet, and an
+    since mode 1.4) are refused, as are the modes not ported yet (a window
+    in Gemma-2's "even" pattern: Mistral's runs since mode 3.1), and an
     fp8 k cache beside a bf16 v cache (since item 2.2 an fp8 pair runs;
     a pair of two kinds raises ValueError)."""
     args, kw = _one_layer_args(layer_setup)
@@ -422,8 +423,8 @@ def test_fused_decoder_layer_refuses_unported(layer_setup, what):
         from clusterfusion_tpu_torch.ops.quant import quantize_int4
         args["wqkv_f"] = quantize_int4(args["wqkv_f"], -2, 64)
         args["wo_f"] = quantize_int4(args["wo_f"], -2, 64)
-    elif what == "window":
-        kw["window"] = 16
+    elif what == "window":      # Mistral's pattern runs; Gemma-2's is refused
+        kw.update(window=16, window_pattern="even")
     elif what == "softcap":
         kw["softcap"] = 50.0
     elif what == "bias":

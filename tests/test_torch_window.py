@@ -38,9 +38,9 @@ eager paths and plain masked softmaxes): a window that reaches row 0 gives
 the bits of no window in all three twins; window 1 attends the current
 token alone; a window that starts inside a split; a verify whose first live
 split holds no live row for its later tokens (their partials fold as
-nothing, no NaN); a window changes the result.  Then the refusals: both
-tp steps, the sp step and kernel 7's mode 5 refuse a window by name, and
-Gemma-2's ``"even"`` pattern is refused everywhere.
+nothing, no NaN); a window changes the result.  Then the multi-card
+entries: both tp steps, the sp step and kernel 7's mode 5 take a window
+and refuse Gemma-2's ``"even"`` pattern, which is refused everywhere.
 """
 
 import dataclasses
@@ -408,28 +408,44 @@ def test_window_changes_the_result():
 # ---- what stays refused -----------------------------------------------------
 
 def test_paths_without_a_window_refuse_it_by_name():
-    """Both tp steps and the sp step run kernel 6, which takes no window
-    yet; kernel 7's mode 5 neither.  Each raises NotImplementedError naming
-    the window.  (The serving engine and ``Llama.generate`` run it:
-    ``tests/test_torch_window_serving.py``.)"""
+    """Both tp steps, the sp step and kernel 7's mode 5 run Mistral's
+    window (their parity with JAX's windowed steps:
+    ``tests/test_torch_window_parallel.py``): each builds or runs on a
+    windowed config and refuses only Gemma-2's ``"even"`` pattern by name.
+    Mode 5 over an axis of one rank gives the one-card window step's
+    bits."""
     from clusterfusion_tpu_torch.parallel import (make_sharded_decode_step,
                                                   make_sp_sharded_decode_step)
+    from clusterfusion_tpu_torch.parallel.mesh import AXES, Mesh
     _, tcfg = _cfgs(16)
-    tp = tmodel.init_params(tcfg, 0, device="cpu")
+    even = dataclasses.replace(tcfg, window_pattern="even")
+    mesh = Mesh(shape=dict.fromkeys(AXES, 1), coords=dict.fromkeys(AXES, 0),
+                groups=dict.fromkeys(AXES))
     for fused in (False, True):
-        with pytest.raises(NotImplementedError, match="window"):
-            make_sharded_decode_step(tcfg, None, fused_collectives=fused)
-    with pytest.raises(NotImplementedError, match="window"):
-        make_sp_sharded_decode_step(tcfg, None)
+        assert callable(make_sharded_decode_step(tcfg, mesh,
+                                                 fused_collectives=fused))
+        with pytest.raises(NotImplementedError, match="even"):
+            make_sharded_decode_step(even, mesh, fused_collectives=fused)
+    assert callable(make_sp_sharded_decode_step(tcfg, mesh))
+    with pytest.raises(NotImplementedError, match="even"):
+        make_sp_sharded_decode_step(even, mesh)
+    tp = tmodel.init_params(tcfg, 0, device="cpu")
     lw = tp["layers"]
-    kc, vc = tmodel.init_cache(tcfg, device="cpu")
-    cos, sin = tmodel.rope_row(tcfg, 3)
-    with pytest.raises(NotImplementedError, match="mode 5"):
-        sk.fused_decoder_stack(
+    _, (kc, vc) = _random_cache(tcfg, 7, rows=40)
+    cos, sin = tmodel.rope_row(tcfg, 40)
+
+    def stack(**kw):
+        return sk.fused_decoder_stack(
             tp["embed"][:1], lw["attn_norm"], lw["ffn_norm"], cos, sin,
-            lw["wqkv_f"], lw["wo_f"], lw["w13"], lw["w2"], kc, vc, 3,
-            group=2, head_dim=128, rope_style="neox", eps=1e-5, window=16,
-            reduce_axis="tp", mesh=object())
+            lw["wqkv_f"], lw["wo_f"], lw["w13"], lw["w2"], kc.clone(),
+            vc.clone(), 40, group=2, head_dim=128, rope_style="neox",
+            eps=1e-5, window=16, **kw)
+
+    one_card = stack()
+    mode5 = stack(reduce_axis="tp", mesh=mesh)
+    assert all(torch.equal(a, b) for a, b in zip(one_card, mode5))
+    with pytest.raises(NotImplementedError, match="even"):
+        stack(reduce_axis="tp", mesh=mesh, window_pattern="even")
 
 
 def test_even_window_pattern_is_refused_everywhere():

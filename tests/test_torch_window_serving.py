@@ -465,28 +465,31 @@ def test_window_rule_bites():
 # ---- what stays refused -----------------------------------------------------
 
 def test_multi_card_paths_still_refuse_the_window():
-    """Both tp steps, the sp step and kernel 7's mode 5 run kernel 6 or
-    mode 5, which take no window yet (the next slice); Gemma-2's "even"
-    pattern stays refused in the engine and in both serving kernels."""
+    """Both tp steps, the sp step and kernel 7's mode 5 take the window
+    (``tests/test_torch_window_parallel.py``) and refuse only Gemma-2's
+    "even" pattern, which also stays refused in the engine and in both
+    serving kernels."""
     from clusterfusion_tpu_torch.ops import stack_kernel as sk
     from clusterfusion_tpu_torch.parallel import (make_sharded_decode_step,
                                                   make_sp_sharded_decode_step)
+    from clusterfusion_tpu_torch.parallel.mesh import AXES, Mesh
     _, tcfg = _cfgs(n_kv_heads=2, rope_style="neox")
+    mesh = Mesh(shape=dict.fromkeys(AXES, 1), coords=dict.fromkeys(AXES, 0),
+                groups=dict.fromkeys(AXES))
     for fused in (False, True):
-        with pytest.raises(NotImplementedError, match="mode 3.1"):
-            make_sharded_decode_step(tcfg, None, fused_collectives=fused)
-    with pytest.raises(NotImplementedError, match="mode 3.1"):
-        make_sp_sharded_decode_step(tcfg, None)
+        assert callable(make_sharded_decode_step(tcfg, mesh,
+                                                 fused_collectives=fused))
+    assert callable(make_sp_sharded_decode_step(tcfg, mesh))
     tp = tmodel.init_params(tcfg, 0, device="cpu")
     lw = tp["layers"]
     kc, vc = tmodel.init_cache(tcfg, device="cpu")
     cos, sin = tmodel.rope_row(tcfg, 3)
-    with pytest.raises(NotImplementedError, match="mode 5"):
+    with pytest.raises(NotImplementedError, match="even"):
         sk.fused_decoder_stack(
             tp["embed"][:1], lw["attn_norm"], lw["ffn_norm"], cos, sin,
             lw["wqkv_f"], lw["wo_f"], lw["w13"], lw["w2"], kc, vc, 3,
             group=2, head_dim=128, rope_style="neox", eps=1e-5, window=16,
-            reduce_axis="tp", mesh=object())
+            window_pattern="even", reduce_axis="tp", mesh=mesh)
     even = dataclasses.replace(tcfg, window_pattern="even")
     with pytest.raises(NotImplementedError, match="even"):
         ServingEngine(tp, even)
